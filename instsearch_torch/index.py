@@ -1,0 +1,295 @@
+"""The Index: device-resident descriptor store + query/evaluate API (port of
+``instsearch_tpu/index.py``, the single-device float-store slice).
+
+Storage layout is the reference's: rows padded to a multiple of
+``row_tile * num_shards`` (and up to ``capacity``), padding rows carrying
+id -1 so they never enter a top-k. The store is bf16 or f32 on one device.
+
+Search goes through ``kernels.topk_matmul``: on a CUDA store with
+``cfg.search.use_pallas`` (the presets' default) that is the hand-written
+Hopper kernel; on a CPU store it is the kernel's plain version. With
+``use_pallas`` off, the brute-force scoring oracle ranks instead.
+
+Not ported yet, and raising ``NotImplementedError`` rather than answering:
+int8/int4 stores, ``metric="l2"``, ``num_shards > 1``, subsets, QE, re-rank,
+diffusion, refine, local whitening, IVF and PQ tiers, DBA, and
+``save``/``load`` (see ROADMAP).
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .extractor import Extractor
+from .kernels.topk_matmul import topk_matmul
+from .ops.whitening import WhiteningParams, apply_whitening, fit_whitening
+from .search.bruteforce import masked_scores, search_topk
+from .utils.chunking import run_chunked
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_NOT_PORTED_DTYPES = {"int8": "ROADMAP M1 and Queue 2 K2",
+                      "int4": "ROADMAP M1 and Queue 2 K3"}
+
+
+def _pad_rows(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def _topk_raw(descriptors, ids, queries, num_valid: int, *, k: int,
+              use_kernel: bool):
+    """``(scores [Q, k], pos [Q, k])`` with pos indexing the padded store;
+    invalid slots are ``(-inf, -1)``. The fused kernel (or, for a CPU
+    store, its plain version) when ``use_kernel``; the scoring oracle
+    otherwise."""
+    if use_kernel:
+        return topk_matmul(descriptors, queries, k=k, num_valid=num_valid)
+    return search_topk(descriptors, queries, k=k, ids=ids)
+
+
+def _pos_to_ids(ids, scores, pos):
+    valid = (pos >= 0) & (scores > float("-inf"))
+    return torch.where(valid, ids[pos.clamp(min=0).long()],
+                       torch.full_like(pos, -1))
+
+
+def _check_index_cfg(cfg) -> None:
+    """Raise for every index option the port does not take yet."""
+    icfg = cfg.index
+    if icfg.metric != "ip":
+        if icfg.metric == "l2":
+            raise NotImplementedError(
+                "metric='l2' is not ported yet (ROADMAP M7)")
+        raise ValueError(f"metric={icfg.metric!r}: 'ip' or 'l2'")
+    if icfg.dtype in _NOT_PORTED_DTYPES:
+        raise NotImplementedError(
+            f"{icfg.dtype} stores are not ported yet "
+            f"({_NOT_PORTED_DTYPES[icfg.dtype]})")
+    if icfg.dtype not in _DTYPES:
+        raise ValueError(f"index dtype {icfg.dtype!r}: bfloat16 or float32")
+    if icfg.num_shards > 1:
+        raise NotImplementedError(
+            "num_shards > 1 (the sharded index) is not ported yet "
+            "(ROADMAP M6)")
+    if icfg.refine_dtype:
+        raise NotImplementedError(
+            "the exact-refine tier is not ported yet (ROADMAP M5)")
+    if icfg.dba_n:
+        raise NotImplementedError("DBA is not ported yet (ROADMAP M8)")
+
+
+def _check_search_cfg(scfg) -> None:
+    """Raise for every search stage the port does not take yet; none is
+    silently skipped."""
+    stages = (("qe_enabled", "ROADMAP M5"), ("rerank_enabled", "ROADMAP M5"),
+              ("refine_enabled", "ROADMAP M5"),
+              ("diffusion_enabled", "ROADMAP M8"),
+              ("lw_enabled", "ROADMAP M8"), ("ivf_nprobe", "ROADMAP M9"),
+              ("pq_depth", "ROADMAP M9"), ("ivfpq_nprobe", "ROADMAP M9"))
+    on = [(nm, item) for nm, item in stages if getattr(scfg, nm)]
+    if on:
+        raise NotImplementedError(
+            "search stages not ported yet: " +
+            ", ".join(f"{nm} ({item})" for nm, item in on))
+    if scfg.spatial_weight:
+        raise NotImplementedError(
+            "spatial verification is not ported yet (ROADMAP M5)")
+
+
+class Index:
+    """Brute-force cosine index over L2-normalized descriptors."""
+
+    def __init__(self, descriptors: torch.Tensor, ids: torch.Tensor,
+                 names: list[str], cfg, extractor: Optional[Extractor] = None):
+        self.descriptors = descriptors      # [N_pad, D], index dtype
+        self.ids = ids                      # [N_pad] int32, -1 = padding
+        self.names = names                  # len = num_valid
+        self.cfg = cfg
+        self.extractor = extractor
+        self.quarantined: list[str] = []
+
+    # ------------------------------------------------------------------
+    @property
+    def num_valid(self) -> int:
+        return len(self.names)
+
+    @property
+    def dim(self) -> int:
+        return self.descriptors.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.descriptors.device
+
+    def name_of(self, dataset_id: int) -> "str | None":
+        """Dataset-position id (the values search() returns) -> image name.
+        Not a names-list position: ids skip images quarantined at build."""
+        n = len(self.names)
+        if getattr(self, "_name_by_id_len", -1) != n:
+            ids_np = self.ids[:n].cpu().numpy()
+            self._name_by_id = {int(i): nm for i, nm in zip(ids_np,
+                                                            self.names)}
+            self._name_by_id_len = n
+        return self._name_by_id.get(int(dataset_id))
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_descriptors(cls, descriptors, names: Sequence[str], cfg,
+                         extractor: Optional[Extractor] = None,
+                         original_ids: "np.ndarray | None" = None,
+                         device: "torch.device | str | None" = None
+                         ) -> "Index":
+        """Pad ``descriptors [N, D]`` (numpy or tensor) into the store.
+        ``original_ids`` maps rows back to dataset positions (differs from
+        arange when images were quarantined). ``device`` defaults to the
+        extractor's device, else the tensor's own, else the CPU."""
+        _check_index_cfg(cfg)
+        if device is None:
+            device = (extractor.device if extractor is not None else
+                      descriptors.device if isinstance(descriptors,
+                                                       torch.Tensor)
+                      else "cpu")
+        x = torch.as_tensor(descriptors, device=device)
+        n, d = x.shape
+        tile = max(cfg.index.row_tile, 8) * max(cfg.index.num_shards, 1)
+        # capacity pre-sizes the padded store (0 = size to the dataset)
+        n_pad = max(_pad_rows(max(n, cfg.index.capacity), tile), tile)
+        store = torch.zeros((n_pad, d), dtype=_DTYPES[cfg.index.dtype],
+                            device=device)
+        store[:n] = x.to(store.dtype)
+        ids = torch.full((n_pad,), -1, dtype=torch.int32, device=device)
+        ids[:n] = (torch.arange(n, dtype=torch.int32, device=device)
+                   if original_ids is None else
+                   torch.as_tensor(np.asarray(original_ids, np.int32),
+                                   device=device))
+        return cls(store, ids, list(names), cfg, extractor)
+
+    @classmethod
+    def build(cls, paths: Sequence[str], cfg, variables: dict | None = None,
+              whitening_paths: Sequence[str] | None = None,
+              whitening: "WhiteningParams | None" = None, seed: int = 0,
+              device: "torch.device | str | None" = None) -> "Index":
+        """Offline indexing: extract -> (fit whitening) -> store.
+        ``whitening_paths`` defaults to the indexed set itself;
+        ``whitening`` supplies pre-fit params instead."""
+        if cfg.index.metric == "l2":
+            raise ValueError(
+                "metric='l2' is for RAW-VECTOR indexes "
+                "(Index.from_descriptors); the image pipeline's "
+                "descriptors are unit-normalized, where inner product IS "
+                "the L2 ranking — keep metric='ip'")
+        _check_index_cfg(cfg)
+        _check_search_cfg(cfg.search)
+        ex = Extractor(cfg.extract.replace(whiten=False), variables,
+                       seed=seed, device=device)
+        quarantine: list[str] = []
+        descs, kept = ex.extract_paths(paths, quarantine)
+        names = [os.path.splitext(os.path.basename(paths[i]))[0]
+                 for i in kept]
+        descs = torch.as_tensor(descs, device=ex.device)
+        if cfg.extract.whiten or whitening is not None:
+            if whitening is not None:
+                ex.whitening = whitening
+            else:
+                wdescs = (descs if whitening_paths is None else
+                          torch.as_tensor(ex.extract_paths(whitening_paths)[0],
+                                          device=ex.device))
+                ex.whitening = fit_whitening(
+                    wdescs, dim=cfg.extract.whiten_dim or None)
+            descs = apply_whitening(descs, ex.whitening)
+        idx = cls.from_descriptors(descs, names, cfg, extractor=ex,
+                                   original_ids=kept)
+        idx.quarantined = quarantine
+        return idx
+
+    # ------------------------------------------------------------------
+    def _topk(self, queries: torch.Tensor, k: int, chunk: int):
+        """Top-k positions -> original ids, ``(scores [Q, k], ids [Q, k])``
+        as tensors on the store's device; batches larger than ``chunk``
+        run in pieces (utils/chunking.py)."""
+        use_kernel = bool(self.cfg.search.use_pallas)
+
+        def run(qq):
+            s, pos = _topk_raw(self.descriptors, self.ids, qq, self.num_valid,
+                               k=k, use_kernel=use_kernel)
+            return s, _pos_to_ids(self.ids, s, pos)
+
+        return run_chunked(run, chunk, queries)
+
+    def search(self, queries, search_cfg=None, query_regional=None,
+               subset=None):
+        """Descriptor-space search: ``queries [Q, D]`` (or ``[D]``) ->
+        ``(scores [Q, k], ids [Q, k])`` numpy arrays."""
+        scfg = search_cfg or self.cfg.search
+        _check_search_cfg(scfg)
+        if subset is not None:
+            raise NotImplementedError(
+                "subset filters are not ported yet (ROADMAP M7)")
+        if query_regional is not None:
+            raise NotImplementedError(
+                "regional re-ranking is not ported yet (ROADMAP M5)")
+        q = torch.as_tensor(queries, device=self.device)
+        if q.ndim == 1:
+            q = q[None]
+        if q.shape[-1] != self.dim:
+            raise ValueError(f"queries have width {q.shape[-1]}, the store "
+                             f"{self.dim}")
+        s, i = self._topk(q.float(), scfg.k, scfg.query_chunk)
+        return s.cpu().numpy(), i.cpu().numpy()
+
+    def query(self, queries, search_cfg=None, k: Optional[int] = None, **kw):
+        """``index.query(x, k=10)``: descriptor arrays ([Q, D] / [D]) or
+        uint8 image batches ([Q, S, S, 3] / [S, S, 3])."""
+        q = queries if hasattr(queries, "ndim") else np.asarray(queries)
+        scfg = search_cfg or self.cfg.search
+        if k is not None:
+            scfg = scfg.replace(k=k)
+        is_image = q.ndim in (3, 4) and q.shape[-1] == 3
+        is_uint8 = q.dtype in (np.uint8, torch.uint8)
+        if is_image:
+            if not is_uint8:
+                lo, hi = float(q.min()), float(q.max())
+                if lo < 0.0 or hi > 1.0:
+                    raise ValueError(
+                        f"float image batch has values in [{lo:g}, {hi:g}]; "
+                        f"query() expects uint8 pixels [0, 255] or float "
+                        f"images pre-scaled to [0, 1]")
+            return self.query_images(q if q.ndim == 4 else q[None], scfg,
+                                     **kw)
+        if q.ndim in (1, 2) and not is_uint8:
+            return self.search(q, scfg, **kw)
+        raise ValueError(
+            f"query() expects uint8/float image batches [Q,S,S,3]/[S,S,3] "
+            f"or float descriptors [Q,D]/[D]; got shape {tuple(q.shape)} "
+            f"dtype {q.dtype}")
+
+    def query_images(self, images, search_cfg=None, sharded_index=None,
+                     subset=None):
+        """Image-space search: uint8 batch -> extract -> search."""
+        if self.extractor is None:
+            raise ValueError("index has no extractor attached")
+        if sharded_index is not None:
+            raise NotImplementedError(
+                "the sharded index is not ported yet (ROADMAP M6)")
+        scfg = search_cfg or self.cfg.search
+        _check_search_cfg(scfg)
+        return self.search(self.extractor(images), scfg, subset=subset)
+
+    def evaluate(self, dataset, protocol: str = "medium", search_cfg=None,
+                 sharded: bool = False) -> dict:
+        """Full protocol metrics on a RetrievalDataset (eval/evaluate.py)."""
+        if sharded:
+            raise NotImplementedError(
+                "sharded evaluation is not ported yet (ROADMAP M6)")
+        from .eval.evaluate import evaluate_index
+        return evaluate_index(self, dataset, protocol, search_cfg)
+
+    def full_ranking(self, queries) -> np.ndarray:
+        """[Q, N] ranked original dataset ids best-first (valid rows only),
+        for protocol evaluation. Padding (-inf) sorts last and is cut."""
+        q = torch.as_tensor(queries, device=self.device).float()
+        scores = masked_scores(self.descriptors, q, ids=self.ids)
+        order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
+        return self.ids[order][:, :self.num_valid].cpu().numpy()

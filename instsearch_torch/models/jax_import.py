@@ -1,0 +1,82 @@
+"""Flax ResNet variables -> the port's state_dict: the inverse of
+``instsearch_tpu/models/torch_import.py::load_torch_resnet``.
+
+``variables`` is the reference's pytree of arrays (numpy or anything
+``np.asarray`` takes): ``{"params": ..., "batch_stats": ...}`` with HWIO conv
+kernels. Conv kernels become OIHW, BatchNorm ``scale``/``bias``/``mean``/
+``var`` become ``weight``/``bias``/``running_mean``/``running_var``. Unknown
+or missing leaves raise, as the importer does: a silently skipped layer
+would leave random weights in the network.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
+    out = {}
+    for k, v in dict(tree).items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _torch_name(path: tuple) -> str:
+    name = ".".join(path)
+    return (name.replace("downsample_conv", "downsample.0")
+            .replace("downsample_bn", "downsample.1"))
+
+
+def from_jax_resnet(variables: Mapping[str, Any],
+                    model: "torch.nn.Module | None" = None) -> dict:
+    """-> state_dict of torch tensors (f32 on the CPU). When ``model`` is
+    given, the key set and every shape are checked against its own
+    state_dict (``num_batches_tracked`` aside) and a mismatch raises."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"unknown variable collections: {sorted(unknown)}")
+    sd: dict = {}
+    for coll, table in (("params", _PARAM_LEAF),
+                        ("batch_stats", _STAT_LEAF)):
+        for path, val in _flatten(variables.get(coll, {})).items():
+            *mod, leaf = path
+            if leaf not in table or not mod or not re.fullmatch(
+                    r"conv\d|bn\d|downsample_conv|downsample_bn", mod[-1]):
+                raise ValueError(f"unhandled {coll} leaf: {'/'.join(path)}")
+            arr = np.asarray(val, np.float32)
+            if leaf == "kernel":
+                arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+            sd[f"{_torch_name(tuple(mod))}.{table[leaf]}"] = \
+                torch.from_numpy(np.ascontiguousarray(arr))
+    if model is not None:
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+        got = {k: tuple(v.shape) for k, v in sd.items()}
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        bad = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+        if missing or extra or bad:
+            raise ValueError(f"variables do not fit the model: missing="
+                             f"{missing[:5]} extra={extra[:5]} "
+                             f"shape_mismatch={bad[:5]}")
+    return sd
+
+
+def load_jax_resnet(model: torch.nn.Module, variables: Mapping) -> None:
+    """Load Flax variables into ``model`` in place (checked, strict)."""
+    sd = from_jax_resnet(variables, model)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    # the only keys the Flax tree lacks are BatchNorm's step counters
+    left = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if left or unexpected:
+        raise ValueError(f"load mismatch: missing={left[:5]} "
+                         f"unexpected={unexpected[:5]}")

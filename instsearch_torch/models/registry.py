@@ -1,0 +1,55 @@
+"""Backbone registry: name -> (module factory, feature dim, stride)
+(port of ``instsearch_tpu/models/registry.py``, ResNet family only).
+
+The port takes feature dims from here, never from
+``ExtractConfig.descriptor_dim``, which imports the reference's Flax
+registry."""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
+
+
+class BackboneSpec(NamedTuple):
+    factory: Callable[..., Any]
+    feature_dim: int
+    stride: int
+
+
+BACKBONES: dict[str, BackboneSpec] = {
+    "resnet18": BackboneSpec(resnet18, 512, 32),
+    "resnet34": BackboneSpec(resnet34, 512, 32),
+    "resnet50": BackboneSpec(resnet50, 2048, 32),
+    "resnet101": BackboneSpec(resnet101, 2048, 32),
+    "resnet152": BackboneSpec(resnet152, 2048, 32),
+}
+
+_NOT_PORTED = {"vgg16": "ROADMAP M4", "vit_b_16": "ROADMAP M11",
+               "vit_l_16": "ROADMAP M11"}
+
+
+def get_backbone(name: str, dtype=torch.bfloat16, device=None):
+    """-> ``(model, spec)``; the model is in eval mode, weights
+    uninitialized (``ResNet.init_weights`` or ``load_state_dict``)."""
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"backbone {name!r} is not ported yet ({_NOT_PORTED[name]})")
+    try:
+        spec = BACKBONES[name]
+    except KeyError:
+        raise ValueError(f"unknown backbone {name!r}; expected one of "
+                         f"{sorted(BACKBONES)}") from None
+    return spec.factory(dtype=dtype, device=device), spec
+
+
+def descriptor_dim(cfg) -> int:
+    """Output width of an extraction config (``ExtractConfig``): the
+    backbone's feature dim, or ``whiten_dim`` when whitening truncates."""
+    if cfg.whiten and cfg.whiten_dim:
+        return cfg.whiten_dim
+    if cfg.backbone in _NOT_PORTED:
+        get_backbone(cfg.backbone)          # raises NotImplementedError
+    return BACKBONES[cfg.backbone].feature_dim

@@ -1,0 +1,57 @@
+"""PCA-whitening of descriptors (port of ``instsearch_tpu/ops/whitening.py``:
+``fit_whitening`` and ``apply_whitening``).
+
+The fit takes the eigendecomposition of the D x D covariance with
+``torch.linalg.eigh`` in float64 (the covariance is accumulated in f32, as
+in the reference, then widened): the reference's f32 ``eigh`` and this one
+agree on the leading subspace, and f64 keeps the small eigenvalues that
+``rsqrt`` amplifies from losing their digits. ``P`` and ``mu`` come back in
+f32.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .pooling import l2_normalize
+
+
+class WhiteningParams(NamedTuple):
+    """Fitted whitening: ``apply(x) = P @ (x - mu)``."""
+
+    P: torch.Tensor     # [dim_out, D] projection (rows scaled by lambda^-1/2)
+    mu: torch.Tensor    # [D] mean
+
+
+def fit_whitening(X: torch.Tensor, dim: int | None = None,
+                  shrinkage: float = 0.0, eps: float = 1e-9) -> WhiteningParams:
+    """Fit PCA-whitening on descriptors ``X: [N, D]``. ``dim`` keeps the
+    leading components, clamped to ``min(dim, D, N - 1)`` (PCA estimates at
+    most N-1 directions; keeping rank-deficient ones would amplify noise by
+    ``eps ** -0.5``). ``shrinkage`` blends the covariance toward the
+    identity. Eigen-order is descending."""
+    X = X.float()
+    n, d = X.shape
+    dim = d if dim in (None, 0) else min(dim, d)
+    dim = min(dim, max(n - 1, 1))
+    mu = X.mean(dim=0)
+    Xc = X - mu
+    cov = (Xc.T @ Xc) / max(n - 1, 1)
+    if shrinkage > 0.0:
+        eye = torch.eye(d, dtype=cov.dtype, device=cov.device)
+        cov = (1.0 - shrinkage) * cov + shrinkage * eye * torch.trace(cov) / d
+    evals, evecs = torch.linalg.eigh(cov.double())      # ascending
+    evals = evals.flip(0)[:dim]
+    evecs = evecs.flip(1)[:, :dim]
+    P = (evecs * torch.rsqrt(torch.clamp(evals, min=eps))).T
+    return WhiteningParams(P=P.float().contiguous(), mu=mu)
+
+
+def apply_whitening(x: torch.Tensor, params: WhiteningParams,
+                    renormalize: bool = True) -> torch.Tensor:
+    """Whiten ``x: [..., D] -> [..., dim]`` in f32 and re-L2."""
+    out = (x.float() - params.mu) @ params.P.T
+    if renormalize:
+        out = l2_normalize(out, dim=-1)
+    return out

@@ -1,0 +1,100 @@
+"""The port's CUDA kernel on the card. Every test here needs a CUDA device
+and skips without one (the kernel has no CPU form); the CPU side of the same
+semantics is held against the JAX kernel in test_torch_topk_matmul.py.
+
+This file imports no JAX, so it runs on a GPU machine without it; the
+suite's conftest imports JAX, so run it there with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances (``check_against_plain``): scores to 1e-5 absolute (unit rows,
+f32 sums in two orders); the kernel's answer in its own (score desc,
+position asc) order with no position twice; ids equal, except where the two
+rows are not copies of each other and the plain version's own scores of
+them differ by less than 1e-5 (a near-tie that the summation order may
+flip). Copies of one row must come out lowest position first.
+"""
+import numpy as np
+import pytest
+import torch
+
+from instsearch_torch import IndexConfig, PipelineConfig
+from instsearch_torch.index import Index
+from instsearch_torch.kernels import topk_matmul, topk_matmul_reference
+from instsearch_torch.kernels.topk_matmul import K_MAX, check_against_plain
+
+TOL = 1e-5
+
+
+@pytest.fixture()
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _unit(gen, n, d, dtype=torch.float32):
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_kernel_matches_plain_version(gen, dtype):
+    x = _unit(gen, 70_000, 512, dtype)
+    q = _unit(gen, 9, 512)
+    mask = (torch.rand(70_000, generator=gen, device="cuda") < 0.5
+            ).to(torch.int8)
+    dup = x[:1000].repeat(20, 1).contiguous()       # exact ties
+    for xx, k, nv, m in ((x, 10, None, None), (x, 100, 69_000, mask),
+                         (x, 1, 5, None), (x, 300, None, None),
+                         (x, 16, 7, None), (dup, 50, None, None)):
+        before = topk_matmul.launches
+        s, i = topk_matmul(xx, q, k=k, num_valid=nv, mask=m)
+        rs, ri = topk_matmul_reference(xx, q, k=k, num_valid=nv, mask=m)
+        torch.cuda.synchronize()
+        assert topk_matmul.launches == before + 1
+        check_against_plain(xx, q, s, i, rs, ri, TOL)
+        if nv is not None and nv < k:
+            assert (i[:, nv:] == -1).all() and torch.isneginf(s[:, nv:]).all()
+        if xx is dup:
+            # each query's best base row has 20 copies: the first 20 slots
+            # hold them all, lowest position first
+            copies = torch.arange(20, device="cuda")
+            assert (i[:, :20] // 1000 == copies).all()
+            assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_raises_instead_of_falling_back(gen):
+    x = _unit(gen, 4096, 64, torch.bfloat16)
+    q = _unit(gen, 2, 64)
+    before = topk_matmul.launches
+    with pytest.raises(ValueError):
+        topk_matmul(x.T.contiguous().T, q, k=10)      # not contiguous
+    with pytest.raises(ValueError):
+        topk_matmul(x, q.cpu(), k=10)                 # wrong device
+    with pytest.raises(ValueError):
+        topk_matmul(x, q, k=K_MAX + 1)
+    with pytest.raises(ValueError):
+        topk_matmul(x[:, :60].contiguous(), q[:, :60].contiguous(), k=10)
+    with pytest.raises(NotImplementedError):
+        topk_matmul(x.to(torch.int8), q, k=10)
+    assert topk_matmul.launches == before
+
+
+@pytest.mark.gpu
+def test_index_on_cuda_launches_the_kernel_and_agrees_with_cpu(gen):
+    rows = _unit(gen, 5000, 128).cpu().numpy()
+    names = [f"r{j}" for j in range(5000)]
+    cfg = PipelineConfig(index=IndexConfig(dtype="bfloat16"))
+    gpu = Index.from_descriptors(rows, names, cfg, device="cuda")
+    cpu = Index.from_descriptors(rows, names, cfg, device="cpu")
+    q = rows[np.arange(0, 5000, 250)]
+    before = topk_matmul.launches
+    gs, gi = gpu.search(q)
+    assert topk_matmul.launches > before
+    cs, ci = cpu.search(q)
+    np.testing.assert_array_equal(gi[:, 0], np.arange(0, 5000, 250))
+    np.testing.assert_allclose(gs, cs, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(gi, ci)

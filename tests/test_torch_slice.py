@@ -1,0 +1,158 @@
+"""The ported slice end to end against the JAX Index on the mini fixture:
+images -> ResNet-18 (the same variables on both sides) -> GeM -> PCA
+whitening (each side fits its own) -> bf16 store -> top-k -> mAP, and the
+serving core on top.
+
+Both sides decode with cv2 (the JAX frontend's native C++ decoder is
+switched off here: it resizes with other rounding, and the point is the
+pipeline, not the decoder). Extraction runs in f32.
+
+Tolerances. The two sides' whitened f32 descriptors agree to about 1e-5
+(two eigensolvers, f32 and f64, and two summation orders), but a component
+that lies that close to a bf16 rounding boundary rounds the other way when
+stored, which moves a score by up to one bf16 ulp of the component times the
+query's component: at most about 1e-3 for the ~0.13-sized components of a
+55-dim unit row, and measured up to 2e-4, since the roundings of many
+components partly cancel. So top-k ids must be equal, except where the JAX
+scores of the two ids differ by less than 5e-4, and scores agree to 5e-4:
+above the 2e-4 measured, below the one-ulp bound. mAP agrees within 0.1
+points, as in
+tests/parity/test_pipeline_oracle.py.
+"""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from instsearch_tpu.config import (ExtractConfig, IndexConfig, PipelineConfig,
+                                   SearchConfig)
+from instsearch_tpu.data import native_frontend
+from instsearch_tpu.eval import make_mini_dataset
+from instsearch_tpu.index import Index as JaxIndex
+from instsearch_tpu.models import load_torch_resnet
+from instsearch_torch.data import frontend
+from instsearch_torch.index import Index
+from instsearch_torch.serve import ServeCore
+
+from parity.torch_models import BasicBlock, TruncatedResNet, randomize_bn_stats
+
+SIZE = 64
+NEAR_TIE = 5e-4
+CFG = PipelineConfig(
+    extract=ExtractConfig(backbone="resnet18", pooling="gem", image_size=SIZE,
+                          whiten=True, dtype="float32", batch_size=16),
+    index=IndexConfig(dtype="bfloat16"),
+    search=SearchConfig(k=10))
+
+
+@pytest.fixture(scope="module")
+def rig(tmp_path_factory):
+    ds = make_mini_dataset(str(tmp_path_factory.mktemp("slice")), seed=9,
+                           size=SIZE)
+    torch.manual_seed(0)
+    tm = randomize_bn_stats(TruncatedResNet(layers=(2, 2, 2, 2),
+                                            block=BasicBlock))
+    variables = load_torch_resnet(tm.state_dict())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native_frontend, "available", lambda: False)
+        jidx = JaxIndex.build(ds.db_paths, CFG, variables=variables)
+        jmap = jidx.evaluate(ds)["mAP"]
+    tidx = Index.build(ds.db_paths, CFG, variables=variables)
+    qimgs = np.stack([frontend.load_square(p, SIZE) for p in ds.query_paths])
+    return ds, jidx, jmap, tidx, qimgs
+
+
+def _assert_topk_agree(js, ji, ti):
+    """Equal ids, except at positions where JAX itself scores the two ids
+    within NEAR_TIE of each other."""
+    for q in range(ji.shape[0]):
+        jscore = dict(zip(ji[q].tolist(), js[q].tolist()))
+        for a, b in zip(ji[q], ti[q]):
+            if a != b:
+                assert b in jscore, (q, a, b)
+                assert abs(jscore[a] - jscore[b]) < NEAR_TIE, (q, a, b)
+
+
+def test_build_matches_layout(rig):
+    ds, jidx, _, tidx, _ = rig
+    assert tidx.num_valid == jidx.num_valid == len(ds.imlist)
+    assert tuple(tidx.descriptors.shape) == tuple(jidx.descriptors.shape)
+    assert tidx.names == jidx.names
+    np.testing.assert_array_equal(tidx.ids.numpy(), np.asarray(jidx.ids))
+
+
+def test_query_images_topk_matches_jax(rig):
+    _, jidx, _, tidx, qimgs = rig
+    js, ji = jidx.query_images(qimgs)
+    ts, ti = tidx.query_images(qimgs)
+    _assert_topk_agree(np.asarray(js), np.asarray(ji), ti)
+    np.testing.assert_allclose(ts, np.asarray(js), rtol=0, atol=NEAR_TIE)
+
+
+def test_evaluate_map_matches_jax(rig):
+    ds, _, jmap, tidx, _ = rig
+    res = tidx.evaluate(ds)
+    assert res["num_queries"] == len(ds.qimlist)
+    assert res["mAP"] == pytest.approx(jmap, abs=0.1), (res["mAP"], jmap)
+
+
+def test_oracle_route_matches_kernel_route(rig):
+    """use_pallas off ranks through the scoring oracle instead of the
+    kernel's path; both give the same answer."""
+    _, _, _, tidx, qimgs = rig
+    q = tidx.extractor(qimgs)
+    s1, i1 = tidx.search(q)
+    s2, i2 = tidx.search(q, CFG.search.replace(use_pallas=False))
+    np.testing.assert_array_equal(i1, i2)
+    np.testing.assert_allclose(s1, s2, rtol=1e-5, atol=1e-6)
+
+
+def test_query_dispatches_images_and_descriptors(rig):
+    _, _, _, tidx, qimgs = rig
+    s_img, i_img = tidx.query_images(qimgs[:1])
+    s, i = tidx.query(qimgs[0], k=5)                   # one uint8 image
+    np.testing.assert_array_equal(i, i_img[:, :5])
+    d = tidx.extractor(qimgs[:1]).numpy()
+    s, i = tidx.query(d[0])                            # one descriptor
+    np.testing.assert_array_equal(i, i_img)
+    with pytest.raises(ValueError):
+        tidx.query(qimgs[:1].astype(np.float32))       # floats past [0, 1]
+
+
+def test_serve_core_answers_like_query_images(rig):
+    ds, _, _, tidx, qimgs = rig
+    core = ServeCore(tidx)
+    core.warmup()
+    assert core.ready_info() == {"ready": True, "rows": tidx.num_valid,
+                                 "dim": tidx.dim}
+    _, want = tidx.query_images(qimgs[:3])
+    one = core.handle_line(json.dumps({"image": ds.query_paths[0]}))
+    assert [r["id"] for r in one["results"][0]] == want[0].tolist()
+    three = core.handle_line(json.dumps({"images": ds.query_paths[:3]}))
+    for row, ids in zip(three["results"], want):
+        assert [r["id"] for r in row] == ids.tolist()
+        assert all(r["name"] == tidx.name_of(r["id"]) for r in row)
+    err = core.handle_line(json.dumps({"remove": [ds.imlist[0]]}))
+    assert "error" in err and "not ported" in err["error"]
+    bad = core.handle_line(json.dumps({"image": "/nonexistent.jpg"}))
+    assert "error" in bad
+
+
+def test_unported_stages_raise(rig):
+    _, _, _, tidx, qimgs = rig
+    q = tidx.extractor(qimgs[:1])
+    for field in ("qe_enabled", "rerank_enabled", "diffusion_enabled"):
+        with pytest.raises(NotImplementedError):
+            tidx.search(q, CFG.search.replace(**{field: True}))
+    with pytest.raises(NotImplementedError):
+        tidx.search(q, subset=["x"])
+    with pytest.raises(NotImplementedError):
+        tidx.extractor.extract_regional(qimgs[:1])
+    with pytest.raises(NotImplementedError):
+        tidx.extractor.extract_paths_with_regional([])
+    for icfg in (IndexConfig(dtype="int8"), IndexConfig(dtype="int4"),
+                 IndexConfig(metric="l2"), IndexConfig(num_shards=2)):
+        with pytest.raises(NotImplementedError):
+            Index.from_descriptors(np.zeros((4, 8), np.float32), list("abcd"),
+                                   CFG.replace(index=icfg))

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where an image query's device time goes: ``torch.profiler`` over the
+port's ``Index.query_images`` on one GPU.
+
+    python3 tools/profile_query.py [--rows 1048576] [--corpus 1024]
+                                   [--batches 1 8 128] [--reps 10]
+
+Run from the root of a checkout. It builds the configuration of
+chip_smoke.py's phase 2 (seeded random ResNet-50 at 224 px, bf16, GeM,
+whitening to 512; a bf16 store of ``--rows`` rows: ``--corpus`` extracted
+seeded images, the rest seeded unit distractor rows) and, for each query
+batch size B, prints one JSON line with, per query batch:
+
+  * ``kernels``: device operations (kernels and copies) launched;
+  * ``busy_ms``: the sum of their durations, and its split into
+    convolution/GEMM, BatchNorm, other elementwise, copies, top-k pass 1
+    and top-k pass 2;
+  * ``wall_ms``: host time under the profiler, and ``wall_p50_ms`` without
+    it; ``idle`` and ``idle_unprofiled``: 1 - busy / each wall.
+
+Every line carries the card's nvidia-smi name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import IMAGE, card_line, report, smooth_images  # noqa: E402
+from instsearch_torch import (ExtractConfig, IndexConfig,  # noqa: E402
+                              PipelineConfig, SearchConfig)
+from instsearch_torch.extractor import Extractor  # noqa: E402
+from instsearch_torch.index import Index  # noqa: E402
+from instsearch_torch.ops.whitening import (apply_whitening,  # noqa: E402
+                                            fit_whitening)
+
+DIM = 512
+
+
+def category(name: str) -> str:
+    """Device operation name -> the profile's category."""
+    low = name.lower()
+    if "topk_pass1" in low:
+        return "topk_pass1"
+    if "topk_pass2" in low:
+        return "topk_pass2"
+    if low.startswith(("memcpy", "memset")):
+        return "copies"
+    if "bn_" in low or "batch_norm" in low or "batchnorm" in low:
+        return "batchnorm"
+    if any(w in low for w in ("conv", "xmma", "implicit", "fprop", "gemm",
+                              "cutlass", "cudnn", "nhwc", "nchw")):
+        return "conv_gemm"
+    return "elementwise"
+
+
+def build_index(gen, rows: int, corpus: int):
+    """(index, the corpus's uint8 images)."""
+    cfg = PipelineConfig(
+        extract=ExtractConfig(backbone="resnet50", pooling="gem", gem_p=3.0,
+                              image_size=IMAGE, whiten=True, whiten_dim=DIM,
+                              dtype="bfloat16", batch_size=64),
+        index=IndexConfig(dtype="bfloat16"), search=SearchConfig(k=10))
+    ex = Extractor(cfg.extract.replace(whiten=False), seed=0, device="cuda")
+    images = smooth_images(gen, corpus)
+    raw = torch.cat([ex(images[s:s + 64]) for s in range(0, corpus, 64)])
+    ex.whitening = fit_whitening(raw, dim=DIM)
+    distract = torch.randn(rows - corpus, DIM, generator=gen, device="cuda")
+    distract = distract / distract.norm(dim=1, keepdim=True)
+    store = torch.cat([apply_whitening(raw, ex.whitening), distract])
+    names = [f"row{i:07d}" for i in range(rows)]
+    return Index.from_descriptors(store, names, cfg, extractor=ex), images
+
+
+def profile_batch(idx: Index, batch: np.ndarray, reps: int) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        idx.query_images(batch)                       # warm this shape
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        idx.query_images(batch)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            idx.query_images(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    split: dict[str, float] = {}
+    count = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        count += 1
+        cat = category(e.name)
+        split[cat] = split.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
+    if count == 0:
+        raise RuntimeError("the profiler recorded no device operation")
+    busy = sum(split.values()) / reps
+    return {"kernels": count / reps, "busy_ms": busy,
+            **{f"{c}_ms": v / reps for c, v in sorted(split.items())},
+            "wall_ms": wall, "wall_p50_ms": statistics.median(walls),
+            "idle": 1 - busy / wall,
+            "idle_unprofiled": 1 - busy / statistics.median(walls)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=1 << 20)
+    ap.add_argument("--corpus", type=int, default=1024)
+    ap.add_argument("--batches", type=int, nargs="+", default=[1, 8, 128])
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_query: needs a CUDA device")
+    card = card_line()
+    print(card, flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    idx, images = build_index(gen, args.rows, args.corpus)
+    rng = np.random.default_rng(0)
+    for b in args.batches:
+        batch = images[rng.choice(args.corpus, size=b,
+                                  replace=b > args.corpus)]
+        report(card, rows=args.rows, b=b, reps=args.reps,
+               **profile_batch(idx, batch, args.reps))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
