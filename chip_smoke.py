@@ -5,20 +5,32 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs three phases; each raises on failure and the process exits non-zero.
+runs four phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes (1M x 512 rows in bf16 and f32, B in {1, 8, 128},
-     k in {1, 10, 100}, D = 2048 at B = 1, padding, a 50% mask, duplicated
-     rows, fewer valid rows than k), with kernel and plain medians;
-  2. the main path through its entry points: a seeded random ResNet-50 at
+     main paths' shapes: 1M x 512 rows, B in {1, 8, 128}, k in {1, 10,
+     100}, padding, a 50% mask, duplicated rows, fewer valid rows than k,
+     D = 2048 at B = 1; K1 in bf16 and f32 (scores within SCORE_TOL), K2
+     over int8 and K3 over int4 rows (bit for bit), K3 also at D = 128;
+     with kernel and plain medians;
+  2. the float path through its entry points: a seeded random ResNet-50 at
      224 px (bf16, GeM, whitening to 512) extracts a corpus of 4096 seeded
      images, the index holds them among seeded unit distractor rows (1M x
      512 bf16 in all), and ``ServeCore`` answers image requests of 1, 3, 8
      and 13 exact copies of corpus images. Every top-1 must be its source;
-     the kernel's launch count over this phase must be above zero; the
-     plain route must give the same results.
+     K1 must launch once per bucket piece; an index whose own config takes
+     the scoring oracle must agree;
+  3. the quantized paths, ``configs/capacity_int4.json`` and
+     ``configs/million_scale_int8.json`` (one shard) as loaded, with alpha
+     query expansion: ResNet-50 at 512 px extracts 1024 seeded images,
+     stored among seeded unit distractor rows as 1M int4 (then int8) rows
+     behind ``ServeCore``; the same requests. Every top-1 must be its
+     source; K3 (K2) must launch twice per bucket piece (top-qe_n, then the
+     final top-k); the composite with the kernel replaced by its plain
+     version must give equal ids and scores. It prints the top-10 overlap
+     with the scoring oracle's route, which measures the int8 query's
+     quantization, and is not a check.
 
 Every measured number is printed with the card's nvidia-smi name and power
 limit. The line before the last is the kernel summary as JSON; the last line
@@ -40,7 +52,9 @@ N_ROWS = 1 << 20
 DIM = 512
 CORPUS = 4096
 IMAGE = 224
+CORPUS_Q = 1024         # phase 3: images extracted at the presets' 512 px
 SCORE_TOL = 1e-5        # unit rows: f32 sums in two orders differ far below
+SIZES = (1, 3, 8, 13)   # images per served request
 
 
 def fail(msg: str) -> "None":
@@ -77,6 +91,12 @@ def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def unit_rows(gen, n, d, dtype):
+    import torch
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype).contiguous()
+
+
 def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
     """Kernel against plain version; returns (max error, timings). ``check``
     is the kernel's acceptance rule against its plain version
@@ -86,13 +106,9 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
     import torch
     dev = torch.device("cuda")
 
-    def unit_rows(n, d, dtype):
-        x = torch.randn(n, d, generator=gen, device=dev)
-        return (x / x.norm(dim=1, keepdim=True)).to(dtype).contiguous()
-
     def case(x, b, k, label, num_valid=None, mask=None, q=None):
         if q is None:
-            q = unit_rows(b, x.shape[1], torch.float32)
+            q = unit_rows(gen, b, x.shape[1], torch.float32)
         s, i = topk(x, q, k=k, num_valid=num_valid, mask=mask)
         rs, ri = ref(x, q, k=k, num_valid=num_valid, mask=mask)
         torch.cuda.synchronize()
@@ -116,7 +132,7 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
     nv = N_ROWS - 1000
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        x = unit_rows(N_ROWS, DIM, dtype)
+        x = unit_rows(gen, N_ROWS, DIM, dtype)
         for b in (1, 8, 128):
             for k in (1, 10, 100):
                 case(x, b, k, f"{name} num_valid=N-1000", num_valid=nv)
@@ -126,14 +142,14 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
         case(x, 3, 100, f"{name} 50 valid rows < k", num_valid=50)
         if dtype is torch.bfloat16:
             for b in (1, 128):
-                q = unit_rows(b, DIM, torch.float32)
+                q = unit_rows(gen, b, DIM, torch.float32)
                 timings[f"bf16 N=1M D=512 B={b} k=10"] = {
                     "ms": cuda_median_ms(lambda: topk(x, q, k=10)),
                     "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10))}
         del x, mask
         # duplicated rows: every score appears 1024 times, so the top 100
         # are the 100 lowest copies of one base row, in position order
-        base = unit_rows(1024, DIM, dtype)
+        base = unit_rows(gen, 1024, DIM, dtype)
         dup = base.repeat(N_ROWS // 1024, 1).contiguous()
         i = case(dup, 8, 100, f"{name} duplicated rows")
         if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
@@ -141,11 +157,11 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
             fail(f"{name} duplicated rows: copies out of position order")
         del base, dup
         # the unwhitened ResNet-50 width
-        x = unit_rows(N_ROWS, 2048, dtype)
+        x = unit_rows(gen, N_ROWS, 2048, dtype)
         for k in (10, 100):
             case(x, 1, k, f"{name} D=2048", num_valid=nv)
         if dtype is torch.bfloat16:
-            q = unit_rows(1, 2048, torch.float32)
+            q = unit_rows(gen, 1, 2048, torch.float32)
             timings["bf16 N=1M D=2048 B=1 k=10"] = {
                 "ms": cuda_median_ms(lambda: topk(x, q, k=10)),
                 "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10))}
@@ -156,23 +172,182 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
     return max(errs), timings
 
 
-def smooth_images(gen, n: int, batch: int = 256):
+def quantized_unit_rows(gen, n: int, d: int, quantize):
+    """``quantize`` (``quantize_rows`` or ``quantize_rows_int4``) of n
+    seeded unit rows, in pieces: the f32 temporaries of 1M x 2048 rows at
+    once would take tens of GiB."""
+    import torch
+    from instsearch_torch.ops.quantize import QuantizedRows
+    step = 1 << 17
+    parts = [quantize(unit_rows(gen, min(step, n - s), d, torch.float32))
+             for s in range(0, n, step)]
+    return QuantizedRows(torch.cat([p.values for p in parts]),
+                         torch.cat([p.scales for p in parts], dim=1))
+
+
+def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
+               check_exact) -> tuple[float, dict]:
+    """K2 (int8) or K3 (int4) against its plain version; both sum exact
+    integers, so every case must agree bit for bit (``check_exact``).
+    Returns (max error, timings)."""
+    import torch
+    from instsearch_torch.ops.quantize import QuantizedRows
+    dev = torch.device("cuda")
+
+    def case(st, d, b, k, label, num_valid=None, mask=None):
+        q = unit_rows(gen, b, d, torch.float32)
+        s, i = fn(st.values, st.scales, q, k=k, num_valid=num_valid,
+                  mask=mask)
+        rs, ri = ref(st.values, st.scales, q, k=k, num_valid=num_valid,
+                     mask=mask)
+        torch.cuda.synchronize()
+        try:
+            err = check_exact(s, i, rs, ri)
+        except AssertionError as e:
+            fail(f"{kind} {label} B={b} k={k}: {e}")
+        if num_valid is not None and int(i.max()) >= num_valid:
+            fail(f"{kind} {label}: a padding row was returned")
+        if mask is not None and not bool((mask[i[i >= 0].long()] > 0).all()):
+            fail(f"{kind} {label}: a masked-out row was returned")
+        report(card, phase=1, kernel=fn.__name__, case=f"{kind} {label}",
+               n=st.values.shape[0], d=d, b=b, k=k, bit_exact=True,
+               max_abs_err=err)
+        errs.append(err)
+        return i
+
+    errs = []
+    timings = {}
+    nv = N_ROWS - 1000
+    st = quantized_unit_rows(gen, N_ROWS, DIM, quantize)
+    for b in (1, 8, 128):
+        for k in (1, 10, 100):
+            case(st, DIM, b, k, "num_valid=N-1000", num_valid=nv)
+    mask = (torch.rand(N_ROWS, generator=gen, device=dev) < 0.5
+            ).to(torch.int8)
+    case(st, DIM, 8, 10, "50% mask", mask=mask)
+    case(st, DIM, 3, 100, "50 valid rows < k", num_valid=50)
+    for b in (1, 128):
+        q = unit_rows(gen, b, DIM, torch.float32)
+        timings[f"{kind} N=1M D=512 B={b} k=10"] = {
+            "ms": cuda_median_ms(lambda: fn(st.values, st.scales, q, k=10)),
+            "plain_ms": cuda_median_ms(
+                lambda: ref(st.values, st.scales, q, k=10))}
+    del st, mask
+    # duplicated rows: every stored row appears 1024 times, so the top 100
+    # are the 100 lowest copies of one base row, in position order
+    base = quantized_unit_rows(gen, 1024, DIM, quantize)
+    reps = N_ROWS // 1024
+    dup = QuantizedRows(base.values.repeat(reps, 1).contiguous(),
+                        base.scales.repeat(1, reps).contiguous())
+    i = case(dup, DIM, 8, 100, "duplicated rows")
+    if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
+            and bool((i % 1024 == i[:, :1] % 1024).all())):
+        fail(f"{kind} duplicated rows: copies out of position order")
+    del base, dup
+    # the unwhitened ResNet-50 width; for int4 also the 128 of
+    # configs/compact128_int4.json
+    widths = ((2048, 1), (128, 8)) if kind == "int4" else ((2048, 1),)
+    for d, b in widths:
+        st = quantized_unit_rows(gen, N_ROWS, d, quantize)
+        for k in (10, 100):
+            case(st, d, b, k, f"D={d}", num_valid=nv)
+        del st
+    torch.cuda.empty_cache()
+    for shape, t in timings.items():
+        report(card, phase=1, timing=shape, **t)
+    return max(errs), timings
+
+
+def smooth_images(gen, n: int, size: int = IMAGE, batch: int = 256):
     """Seeded uint8 [n, S, S, 3] images: low-frequency colour patterns
     (bilinear up-sampled 8x8 noise) plus pixel noise, made on the card."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    out = np.empty((n, IMAGE, IMAGE, 3), np.uint8)
+    out = np.empty((n, size, size, 3), np.uint8)
     for s in range(0, n, batch):
         m = min(batch, n - s)
         low = torch.rand(m, 3, 8, 8, generator=gen, device="cuda")
-        img = F.interpolate(low, size=(IMAGE, IMAGE), mode="bilinear",
+        img = F.interpolate(low, size=(size, size), mode="bilinear",
                             align_corners=False)
         img = img + 0.05 * torch.randn(img.shape, generator=gen,
                                        device="cuda")
         img = (img.clamp(0, 1) * 255).round().to(torch.uint8)
         out[s:s + m] = img.permute(0, 2, 3, 1).cpu().numpy()
     return out
+
+
+def serve_requests(card, phase, core, images, picks, kernel, per_piece):
+    """Warm ``core``, set every kernel's count to 0, serve one request per
+    pick and read the counts: ``kernel`` must have launched ``per_piece``
+    times for each bucket piece of the requests (a request splits into
+    pieces of the largest bucket, the last one padded), and no other kernel
+    at all. Every top-1 must be its source image. Returns the count."""
+    from instsearch_torch.kernels import (topk_matmul, topk_matmul_int4,
+                                          topk_matmul_int8)
+    everyone = (topk_matmul, topk_matmul_int8, topk_matmul_int4)
+    core.warmup()
+    for fn in everyone:
+        fn.launches = 0
+    answers = [core.run_queries([(images[p], 10)])[0] for p in picks]
+    counts = {fn.__name__: fn.launches for fn in everyone}
+    name = kernel.__name__
+    pieces = sum(-(-len(p) // core.buckets[-1]) for p in picks)
+    if counts[name] != per_piece * pieces:
+        fail(f"the requests launched {name} {counts[name]} times, not "
+             f"{per_piece} for each of their {pieces} bucket pieces")
+    if sum(counts.values()) != counts[name]:
+        fail(f"the requests launched other kernels too: {counts}")
+    for p, ans in zip(picks, answers):
+        top1 = [row[0]["id"] for row in ans["results"]]
+        if top1 != p.tolist():
+            fail(f"self-retrieval failed: top-1 {top1} for sources "
+                 f"{p.tolist()}")
+        report(card, phase=phase, request_images=len(p), top1_correct=True,
+               top1_score_min=min(row[0]["score"] for row in ans["results"]),
+               latency_ms=ans["latency_ms"])
+    return counts[name]
+
+
+def query_latency(card, phase, idx, ex, images, rng, **fields) -> dict:
+    """query_images and search p50 over the 1M-row store at B = 1 and 128,
+    host clock, synchronized by the results' host copy."""
+    lat = {}
+    for b in (1, 128):
+        batch = images[rng.choice(len(images), size=b, replace=False)]
+        qd = ex(batch)
+        idx.query_images(batch)                        # warm this shape
+        e2e, search = [], []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            idx.query_images(batch)
+            e2e.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            idx.search(qd)
+            search.append((time.perf_counter() - t0) * 1e3)
+        lat[b] = {"query_images_p50_ms": statistics.median(e2e),
+                  "search_p50_ms": statistics.median(search)}
+        report(card, phase=phase, query_batch=b, rows=N_ROWS, **fields,
+               **lat[b])
+    return lat
+
+
+def extract_corpus(card, phase, ex, images, batch: int):
+    """Extract ``images`` in batches as Index.build does; prints the rate."""
+    import torch
+    ex(images[:batch])                                # cuDNN set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = torch.cat([ex(images[s:s + batch])
+                     for s in range(0, len(images), batch)])
+    torch.cuda.synchronize()
+    ips = len(images) / (time.perf_counter() - t0)
+    if not bool(torch.isfinite(raw).all()):
+        fail("non-finite descriptors")
+    report(card, phase=phase, extract_images_per_s=ips, batch=batch,
+           backbone=ex.cfg.backbone, image=ex.cfg.image_size,
+           dtype=ex.cfg.dtype)
+    return raw, ips
 
 
 def phase2(card: str, gen, topk, check) -> dict:
@@ -192,18 +367,7 @@ def phase2(card: str, gen, topk, check) -> dict:
         index=IndexConfig(dtype="bfloat16"), search=SearchConfig(k=10))
     ex = Extractor(cfg.extract.replace(whiten=False), seed=0, device="cuda")
     images = smooth_images(gen, CORPUS)
-
-    # extraction: batches of 64 uint8 images from the host, as Index.build
-    ex(images[:64])                                   # cuDNN set-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    raw = torch.cat([ex(images[s:s + 64]) for s in range(0, CORPUS, 64)])
-    torch.cuda.synchronize()
-    ips = CORPUS / (time.perf_counter() - t0)
-    if not bool(torch.isfinite(raw).all()):
-        fail("non-finite descriptors")
-    report(card, phase=2, extract_images_per_s=ips, batch=64,
-           backbone="resnet50", image=IMAGE, dtype="bfloat16")
+    raw, ips = extract_corpus(card, 2, ex, images, 64)
 
     ex.whitening = fit_whitening(raw, dim=DIM)
     corpus = apply_whitening(raw, ex.whitening)
@@ -221,32 +385,17 @@ def phase2(card: str, gen, topk, check) -> dict:
 
     core = ServeCore(idx)
     rng = np.random.default_rng(0)
-    sizes = (1, 3, 8, 13)
-    picks = [rng.choice(CORPUS, size=n, replace=False) for n in sizes]
+    picks = [rng.choice(CORPUS, size=n, replace=False) for n in SIZES]
+    launches = serve_requests(card, 2, core, images, picks, topk, 1)
 
-    core.warmup()
-    topk.launches = 0                   # count the served requests' launches
-    answers = [core.run_queries([(images[p], 10)])[0] for p in picks]
-    launches = topk.launches
-    # one launch per bucket piece: a request splits into pieces of the
-    # largest bucket, the last one padded
-    pieces = sum(-(-n // core.buckets[-1]) for n in sizes)
-    if launches != pieces:
-        fail(f"the requests launched the topk_matmul kernel {launches} "
-             f"times, not once for each of their {pieces} bucket pieces")
-    for p, ans in zip(picks, answers):
-        top1 = [row[0]["id"] for row in ans["results"]]
-        if top1 != p.tolist():
-            fail(f"self-retrieval failed: top-1 {top1} for sources "
-                 f"{p.tolist()}")
-        report(card, phase=2, request_images=len(p), top1_correct=True,
-               top1_score_min=min(row[0]["score"] for row in ans["results"]),
-               latency_ms=ans["latency_ms"])
-
-    # the plain route on the same store gives the same results
+    # the scoring oracle's route, an index over the same store whose own
+    # config has use_pallas off, gives the same results
     q = ex(images[np.concatenate(picks)])
     ks, ki = idx.search(q)
-    ps, pi = idx.search(q, cfg.search.replace(use_pallas=False))
+    before = topk.launches
+    ps, pi = idx.with_search(use_pallas=False).search(q)
+    if topk.launches != before:
+        fail("the oracle route launched the kernel")
     positions = torch.arange(N_ROWS, dtype=idx.ids.dtype)
     if not torch.equal(idx.ids.cpu(), positions):
         fail("store ids are not its row positions")
@@ -254,29 +403,102 @@ def phase2(card: str, gen, topk, check) -> dict:
     try:
         check(idx.descriptors, q, *on_card, SCORE_TOL)
     except AssertionError as e:
-        fail(f"kernel and plain route: {e}")
-    report(card, phase=2, plain_route_agrees=True, queries=int(ki.shape[0]),
+        fail(f"kernel and oracle route: {e}")
+    report(card, phase=2, oracle_route_agrees=True, queries=int(ki.shape[0]),
            topk_launches_in_main_path=launches)
 
-    # query latency over the 1M-row store, host clock, synchronized by the
-    # results' host copy
-    lat = {}
-    for b in (1, 128):
-        batch = images[rng.choice(CORPUS, size=b, replace=False)]
-        qd = ex(batch)
-        idx.query_images(batch)                        # warm this shape
-        e2e, search = [], []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            idx.query_images(batch)
-            e2e.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            idx.search(qd)
-            search.append((time.perf_counter() - t0) * 1e3)
-        lat[b] = {"query_images_p50_ms": statistics.median(e2e),
-                  "search_p50_ms": statistics.median(search)}
-        report(card, phase=2, query_batch=b, rows=N_ROWS, **lat[b])
+    lat = query_latency(card, 2, idx, ex, images, rng)
     return {"launches": launches, "latency": lat, "extract_ips": ips}
+
+
+def phase3(card: str, gen) -> dict:
+    """The quantized stores with alpha-QE, as the two presets configure
+    them; one extractor serves both, since their extraction settings are
+    the same (checked)."""
+    import numpy as np
+    import torch
+    import instsearch_torch.index as tindex
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.extractor import Extractor
+    from instsearch_torch.kernels import (topk_matmul_int4,
+                                          topk_matmul_int4_reference,
+                                          topk_matmul_int8,
+                                          topk_matmul_int8_reference)
+    from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
+    from instsearch_torch.serve import ServeCore
+
+    cfg4 = PipelineConfig.load(os.path.join(HERE, "configs",
+                                            "capacity_int4.json"))
+    cfg8 = PipelineConfig.load(os.path.join(HERE, "configs",
+                                            "million_scale_int8.json"))
+    reduced8 = {"num_shards": f"{cfg8.index.num_shards} -> 1: the sharded "
+                              f"index is not ported yet (ROADMAP M6)"}
+    cfg8 = cfg8.replace(index=cfg8.index.replace(num_shards=1))
+    if cfg4.extract != cfg8.extract or not (cfg4.search.qe_enabled
+                                            and cfg8.search.qe_enabled):
+        fail("the two presets no longer share one QE extraction pipeline")
+    ex = Extractor(cfg4.extract.replace(whiten=False), seed=0, device="cuda")
+    images = smooth_images(gen, CORPUS_Q, size=cfg4.extract.image_size)
+    raw, ips = extract_corpus(card, 3, ex, images, cfg4.extract.batch_size)
+    ex.whitening = fit_whitening(raw, dim=cfg4.extract.whiten_dim)
+    corpus = apply_whitening(raw, ex.whitening)
+    if not bool(torch.isfinite(corpus).all()):
+        fail("non-finite whitened descriptors")
+    dim = corpus.shape[1]
+    distract = torch.randn(N_ROWS - CORPUS_Q, dim, generator=gen,
+                           device="cuda")
+    rows = torch.cat([corpus, distract / distract.norm(dim=1, keepdim=True)])
+    del raw, distract
+    names = ([f"img{i:05d}" for i in range(CORPUS_Q)]
+             + [f"distractor{i:07d}" for i in range(N_ROWS - CORPUS_Q)])
+    rng = np.random.default_rng(1)
+    picks = [rng.choice(CORPUS_Q, size=n, replace=False) for n in SIZES]
+
+    out = {"extract_ips": ips}
+    for kind, path, cfg, kernel, plain, reduced in (
+            ("int4", "configs/capacity_int4.json", cfg4, topk_matmul_int4,
+             topk_matmul_int4_reference, {}),
+            ("int8", "configs/million_scale_int8.json", cfg8,
+             topk_matmul_int8, topk_matmul_int8_reference, reduced8)):
+        idx = tindex.Index.from_descriptors(rows, names, cfg, extractor=ex)
+        width = dim // 2 if kind == "int4" else dim
+        if (tuple(idx.descriptors.shape) != (N_ROWS, width)
+                or idx.descriptors.dtype != torch.int8
+                or tuple(idx.scales.shape) != (1, N_ROWS)):
+            fail(f"{kind} store {tuple(idx.descriptors.shape)} "
+                 f"{idx.descriptors.dtype}")
+        report(card, phase=3, config=path, store=kind, rows=N_ROWS, dim=dim,
+               qe_n=cfg.search.qe_n, qe_alpha=cfg.search.qe_alpha,
+               reduced=reduced)
+        core = ServeCore(idx)
+        launches = serve_requests(card, 3, core, images, picks, kernel, 2)
+
+        # the composite with the kernel entry replaced by its plain version
+        q = ex(images[np.concatenate(picks)])
+        ks, ki = idx.search(q)
+        entry = kernel.__name__
+        setattr(tindex, entry, plain)
+        try:
+            ps, pi = idx.search(q)
+        finally:
+            setattr(tindex, entry, kernel)
+        if not (np.array_equal(ki, pi) and np.array_equal(ks, ps)):
+            fail(f"{kind}: the composite through {entry} and through its "
+                 f"plain version differ")
+        # the oracle route scores an f32 query against the stored integers,
+        # where the kernel quantizes the query to int8 first
+        _, oi = idx.with_search(use_pallas=False).search(q)
+        overlap = float(np.mean([len(set(a) & set(b)) / len(a)
+                                 for a, b in zip(ki.tolist(), oi.tolist())]))
+        report(card, phase=3, store=kind, plain_kernel_route_equal=True,
+               queries=int(ki.shape[0]), launches_in_main_path=launches,
+               top10_overlap_with_oracle_route=overlap)
+        lat = query_latency(card, 3, idx, ex, images, rng, store=kind)
+        out[kind] = {"launches": launches, "latency": lat,
+                     "oracle_overlap": overlap}
+        del idx, core
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -286,14 +508,17 @@ def main() -> int:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
-    if not os.path.isdir(os.path.join(HERE, "instsearch_torch")):
-        fail("run from a checkout of the repository (instsearch_torch/ "
-             "not found beside this script)")
+    for need in ("instsearch_torch", "configs"):
+        if not os.path.isdir(os.path.join(HERE, need)):
+            fail(f"run from a checkout of the repository ({need}/ not found "
+                 f"beside this script)")
     sys.path.insert(0, HERE)
     from instsearch_torch.kernels import _build
-    from instsearch_torch.kernels.topk_matmul import (check_against_plain,
-                                                      topk_matmul,
-                                                      topk_matmul_reference)
+    from instsearch_torch.kernels.topk_matmul import (
+        check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
+        topk_matmul_int4_reference, topk_matmul_int8,
+        topk_matmul_int8_reference, topk_matmul_reference)
+    from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 
     # phase 0
     card = card_line()
@@ -311,16 +536,32 @@ def main() -> int:
 
     err, timings = phase1(card, gen, topk_matmul, topk_matmul_reference,
                           check_against_plain)
+    errs = {"bf16": err}
+    for kind, fn, ref, quant in (
+            ("int8", topk_matmul_int8, topk_matmul_int8_reference,
+             quantize_rows),
+            ("int4", topk_matmul_int4, topk_matmul_int4_reference,
+             quantize_rows_int4)):
+        errs[kind], t = phase1_int(card, gen, kind, fn, ref, quant,
+                                   check_exact)
+        timings.update(t)
     res = phase2(card, gen, topk_matmul, check_against_plain)
+    res3 = phase3(card, gen)
 
-    main_shape = timings["bf16 N=1M D=512 B=1 k=10"]
-    print(json.dumps({"kernels": [{
-        "name": "topk_matmul", "route": "cuda",
-        "source": "instsearch_torch/csrc/topk_matmul.cu",
-        "replaces": "instsearch_tpu/kernels/topk_matmul.py:608",
-        "launches": res["launches"], "max_abs_err": err,
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"]}]}),
-        flush=True)
+    rows = []
+    for name, file, line, shape, launches in (
+            ("topk_matmul", "topk_matmul.cu", 608, "bf16", res["launches"]),
+            ("topk_matmul_int8", "topk_matmul_int.cu", 475, "int8",
+             res3["int8"]["launches"]),
+            ("topk_matmul_int4", "topk_matmul_int.cu", 397, "int4",
+             res3["int4"]["launches"])):
+        t = timings[f"{shape} N=1M D=512 B=1 k=10"]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"instsearch_torch/csrc/{file}",
+                     "replaces": f"instsearch_tpu/kernels/topk_matmul.py:{line}",
+                     "launches": launches, "max_abs_err": errs[shape],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"]})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

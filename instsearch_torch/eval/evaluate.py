@@ -1,14 +1,17 @@
 """Benchmark evaluation (port of ``instsearch_tpu/eval/evaluate.py``,
-the single-device path without QE / re-rank stages): dataset -> query
-extraction with the protocol's bbox crop -> full ranking -> mAP."""
+the single-device path with its alpha-QE stage, without the re-rank
+stages): dataset -> query extraction with the protocol's bbox crop ->
+optional alpha-QE -> full ranking -> mAP."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from instsearch_tpu.eval.datasets import RetrievalDataset
 from instsearch_tpu.eval.revisited import evaluate_ranks
 
 from ..data import frontend
+from ..search.qe import alpha_query_expansion
 
 
 def load_query_batchable(path: str, bbx, size: int) -> np.ndarray | None:
@@ -59,15 +62,26 @@ def extract_queries(index, dataset: RetrievalDataset,
 def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
                    search_cfg=None, crop_bbx: bool = True,
                    include_ranks: bool = False) -> dict:
-    """Full protocol evaluation: mAP / mP@k on the complete ranking."""
+    """Full protocol evaluation: mAP / mP@k on the complete ranking. Alpha-QE
+    from ``search_cfg`` expands the queries first, through the oracle over
+    the whole store (``search/qe.py::alpha_query_expansion``), as the
+    reference does."""
     from ..index import _check_search_cfg
-    _check_search_cfg(search_cfg or index.cfg.search)
+    scfg = search_cfg or index.cfg.search
+    _check_search_cfg(scfg)
     queries = extract_queries(index, dataset, crop_bbx)
-    ranks = index.full_ranking(queries)
+    q = index._match_query_dim(torch.as_tensor(queries, device=index.device))
+    applied = []        # the stages this evaluation ran
+    if scfg.qe_enabled:
+        applied.append("qe")
+        q = alpha_query_expansion(index.descriptors, index.ids, q,
+                                  n=scfg.qe_n, alpha=scfg.qe_alpha,
+                                  scales=index.scales, int4=index.is_int4)
+    ranks = index.full_ranking(q)
     res = evaluate_ranks(ranks, dataset.gnd, protocol)
     res["dataset"] = dataset.name
     res["protocol"] = protocol
-    res["stages_applied"] = []
+    res["stages_applied"] = applied
     if include_ranks:
         res["ranks"] = ranks
     return res

@@ -1,19 +1,28 @@
 """The Index: device-resident descriptor store + query/evaluate API (port of
-``instsearch_tpu/index.py``, the single-device float-store slice).
+``instsearch_tpu/index.py``, the single-device slice over bf16, f32, int8 and
+int4 stores).
 
 Storage layout is the reference's: rows padded to a multiple of
 ``row_tile * num_shards`` (and up to ``capacity``), padding rows carrying
-id -1 so they never enter a top-k. The store is bf16 or f32 on one device.
+id -1 so they never enter a top-k. The store is bf16 or f32, or int8 rows /
+packed int4 nibble pairs (``ops/quantize.py``) with f32 row ``scales [1,
+N_pad]``, quantized from the f32 padded rows as the reference does, so the
+two packages' stores are byte-equal for the same rows.
 
-Search goes through ``kernels.topk_matmul``: on a CUDA store with
-``cfg.search.use_pallas`` (the presets' default) that is the hand-written
-Hopper kernel; on a CPU store it is the kernel's plain version. With
-``use_pallas`` off, the brute-force scoring oracle ranks instead.
+Search goes through the fused top-k kernels (``kernels/topk_matmul.py``:
+K1 for float stores, K2 for int8, K3 for int4): on a CUDA store with the
+index's own ``cfg.search.use_pallas`` (the presets' default) those are the
+hand-written Hopper kernels; on a CPU store their plain versions. With the
+index's ``use_pallas`` off, the brute-force scoring oracle ranks instead,
+as in the reference, which reads the index's own config too. Alpha query
+expansion (``qe_enabled``) runs the reference's composite: the kernel's
+top-``qe_n``, the rows gathered and dequantized, the expanded query, the
+kernel's final top-k.
 
 Not ported yet, and raising ``NotImplementedError`` rather than answering:
-int8/int4 stores, ``metric="l2"``, ``num_shards > 1``, subsets, QE, re-rank,
-diffusion, refine, local whitening, IVF and PQ tiers, DBA, and
-``save``/``load`` (see ROADMAP).
+``metric="l2"``, ``num_shards > 1``, subsets, re-rank, diffusion, refine,
+local whitening, IVF and PQ tiers, DBA, and ``save``/``load`` (see
+ROADMAP).
 """
 from __future__ import annotations
 
@@ -24,35 +33,67 @@ import numpy as np
 import torch
 
 from .extractor import Extractor
-from .kernels.topk_matmul import topk_matmul
+from .kernels.topk_matmul import (topk_matmul, topk_matmul_int4,
+                                  topk_matmul_int8)
+from .ops.quantize import quantize_rows, quantize_rows_int4
 from .ops.whitening import WhiteningParams, apply_whitening, fit_whitening
+from .search.bruteforce import gather_rows_f32 as _gather_rows_f32
 from .search.bruteforce import masked_scores, search_topk
+from .search.qe import expand_from_candidates
 from .utils.chunking import run_chunked
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_NOT_PORTED_DTYPES = {"int8": "ROADMAP M1 and Queue 2 K2",
-                      "int4": "ROADMAP M1 and Queue 2 K3"}
+_QUANTIZE = {"int8": quantize_rows, "int4": quantize_rows_int4}
 
 
 def _pad_rows(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
-def _topk_raw(descriptors, ids, queries, num_valid: int, *, k: int,
-              use_kernel: bool):
+def _topk_raw(descriptors, ids, queries, num_valid: int, scales, *, k: int,
+              use_kernel: bool, int4: bool = False):
     """``(scores [Q, k], pos [Q, k])`` with pos indexing the padded store;
-    invalid slots are ``(-inf, -1)``. The fused kernel (or, for a CPU
-    store, its plain version) when ``use_kernel``; the scoring oracle
-    otherwise."""
-    if use_kernel:
-        return topk_matmul(descriptors, queries, k=k, num_valid=num_valid)
-    return search_topk(descriptors, queries, k=k, ids=ids)
+    invalid slots are ``(-inf, -1)``. The fused kernel of the store's kind
+    (int4 -> K3, int8 -> K2, float -> K1; for a CPU store its plain
+    version) when ``use_kernel``; the scoring oracle otherwise."""
+    if not use_kernel:
+        return search_topk(descriptors, queries, k=k, ids=ids, scales=scales,
+                           int4=int4)
+    if int4:
+        return topk_matmul_int4(descriptors, scales, queries, k=k,
+                                num_valid=num_valid)
+    if descriptors.dtype == torch.int8:
+        return topk_matmul_int8(descriptors, scales, queries, k=k,
+                                num_valid=num_valid)
+    return topk_matmul(descriptors, queries, k=k, num_valid=num_valid)
 
 
 def _pos_to_ids(ids, scores, pos):
     valid = (pos >= 0) & (scores > float("-inf"))
     return torch.where(valid, ids[pos.clamp(min=0).long()],
                        torch.full_like(pos, -1))
+
+
+def _search_composite(descriptors, ids, queries, num_valid: int, scales, *,
+                      k: int, qe_n: int, qe_alpha: float, use_kernel: bool,
+                      do_qe: bool, int4: bool = False):
+    """The reference's ``_search_composite_jit`` without its re-rank and
+    diffusion stages: optional alpha-QE (fused top-``qe_n``, the rows
+    gathered and dequantized, expanded query), then the final top-k ->
+    ``(scores [Q, k], ids [Q, k])``. No ``[Q, N]`` matrix on the kernel
+    route."""
+    q = queries.float()
+    if do_qe:
+        s, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=qe_n,
+                           use_kernel=use_kernel, int4=int4)
+        rows = _gather_rows_f32(descriptors, pos.clamp(min=0), scales,
+                                int4=int4)                     # [Q, n, D]
+        rows = torch.where((s > float("-inf"))[..., None], rows,
+                           torch.zeros((), device=rows.device))
+        q = expand_from_candidates(q, s, rows, qe_alpha)
+    scores, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=k,
+                            use_kernel=use_kernel, int4=int4)
+    return scores, _pos_to_ids(ids, scores, pos)
 
 
 def _check_index_cfg(cfg) -> None:
@@ -63,12 +104,9 @@ def _check_index_cfg(cfg) -> None:
             raise NotImplementedError(
                 "metric='l2' is not ported yet (ROADMAP M7)")
         raise ValueError(f"metric={icfg.metric!r}: 'ip' or 'l2'")
-    if icfg.dtype in _NOT_PORTED_DTYPES:
-        raise NotImplementedError(
-            f"{icfg.dtype} stores are not ported yet "
-            f"({_NOT_PORTED_DTYPES[icfg.dtype]})")
-    if icfg.dtype not in _DTYPES:
-        raise ValueError(f"index dtype {icfg.dtype!r}: bfloat16 or float32")
+    if icfg.dtype not in _DTYPES and icfg.dtype not in _QUANTIZE:
+        raise ValueError(f"index dtype {icfg.dtype!r}: bfloat16, float32, "
+                         f"int8 or int4")
     if icfg.num_shards > 1:
         raise NotImplementedError(
             "num_shards > 1 (the sharded index) is not ported yet "
@@ -83,7 +121,7 @@ def _check_index_cfg(cfg) -> None:
 def _check_search_cfg(scfg) -> None:
     """Raise for every search stage the port does not take yet; none is
     silently skipped."""
-    stages = (("qe_enabled", "ROADMAP M5"), ("rerank_enabled", "ROADMAP M5"),
+    stages = (("rerank_enabled", "ROADMAP M5"),
               ("refine_enabled", "ROADMAP M5"),
               ("diffusion_enabled", "ROADMAP M8"),
               ("lw_enabled", "ROADMAP M8"), ("ivf_nprobe", "ROADMAP M9"),
@@ -102,12 +140,14 @@ class Index:
     """Brute-force cosine index over L2-normalized descriptors."""
 
     def __init__(self, descriptors: torch.Tensor, ids: torch.Tensor,
-                 names: list[str], cfg, extractor: Optional[Extractor] = None):
-        self.descriptors = descriptors      # [N_pad, D], index dtype
+                 names: list[str], cfg, extractor: Optional[Extractor] = None,
+                 scales: "torch.Tensor | None" = None):
+        self.descriptors = descriptors      # [N_pad, D] (int4: [N_pad, D/2])
         self.ids = ids                      # [N_pad] int32, -1 = padding
         self.names = names                  # len = num_valid
         self.cfg = cfg
         self.extractor = extractor
+        self.scales = scales                # [1, N_pad] f32 for int8/int4
         self.quarantined: list[str] = []
 
     # ------------------------------------------------------------------
@@ -116,8 +156,15 @@ class Index:
         return len(self.names)
 
     @property
+    def is_int4(self) -> bool:
+        """Packed-nibble storage: the store is [N_pad, D/2] int8, which its
+        dtype cannot tell from int8 rows."""
+        return self.cfg.index.dtype == "int4"
+
+    @property
     def dim(self) -> int:
-        return self.descriptors.shape[1]
+        return (2 * self.descriptors.shape[1] if self.is_int4
+                else self.descriptors.shape[1])
 
     @property
     def device(self) -> torch.device:
@@ -133,6 +180,17 @@ class Index:
                                                             self.names)}
             self._name_by_id_len = n
         return self._name_by_id.get(int(dataset_id))
+
+    def with_search(self, **changes) -> "Index":
+        """The same store tensors, ids, names and extractor behind the
+        index's own search config with ``changes`` applied; e.g.
+        ``with_search(use_pallas=False)`` ranks through the scoring oracle,
+        since the route is the index's config, not a search argument's."""
+        cfg = self.cfg.replace(search=self.cfg.search.replace(**changes))
+        twin = Index(self.descriptors, self.ids, self.names, cfg,
+                     self.extractor, scales=self.scales)
+        twin.quarantined = self.quarantined
+        return twin
 
     # ------------------------------------------------------------------
     @classmethod
@@ -156,15 +214,28 @@ class Index:
         tile = max(cfg.index.row_tile, 8) * max(cfg.index.num_shards, 1)
         # capacity pre-sizes the padded store (0 = size to the dataset)
         n_pad = max(_pad_rows(max(n, cfg.index.capacity), tile), tile)
-        store = torch.zeros((n_pad, d), dtype=_DTYPES[cfg.index.dtype],
-                            device=device)
-        store[:n] = x.to(store.dtype)
         ids = torch.full((n_pad,), -1, dtype=torch.int32, device=device)
         ids[:n] = (torch.arange(n, dtype=torch.int32, device=device)
                    if original_ids is None else
                    torch.as_tensor(np.asarray(original_ids, np.int32),
                                    device=device))
-        return cls(store, ids, list(names), cfg, extractor)
+        quantize = _QUANTIZE.get(cfg.index.dtype)
+        if quantize is None:
+            store = torch.zeros((n_pad, d), dtype=_DTYPES[cfg.index.dtype],
+                                device=device)
+            store[:n] = x.to(store.dtype)
+            return cls(store, ids, list(names), cfg, extractor)
+        # quantize the f32 padded rows, as the reference; an odd width
+        # gains one zero column under int4 (nibbles pack in pairs), which
+        # never changes a dot product (queries are padded to match,
+        # _match_query_dim)
+        width = d + (d % 2 if cfg.index.dtype == "int4" else 0)
+        padded = torch.zeros((n_pad, width), dtype=torch.float32,
+                             device=device)
+        padded[:n, :d] = x.to(torch.float32)
+        qr = quantize(padded)
+        return cls(qr.values, ids, list(names), cfg, extractor,
+                   scales=qr.scales)
 
     @classmethod
     def build(cls, paths: Sequence[str], cfg, variables: dict | None = None,
@@ -205,23 +276,22 @@ class Index:
         return idx
 
     # ------------------------------------------------------------------
-    def _topk(self, queries: torch.Tensor, k: int, chunk: int):
-        """Top-k positions -> original ids, ``(scores [Q, k], ids [Q, k])``
-        as tensors on the store's device; batches larger than ``chunk``
-        run in pieces (utils/chunking.py)."""
-        use_kernel = bool(self.cfg.search.use_pallas)
-
-        def run(qq):
-            s, pos = _topk_raw(self.descriptors, self.ids, qq, self.num_valid,
-                               k=k, use_kernel=use_kernel)
-            return s, _pos_to_ids(self.ids, s, pos)
-
-        return run_chunked(run, chunk, queries)
+    def _match_query_dim(self, q: torch.Tensor) -> torch.Tensor:
+        """An int4 store of an odd descriptor width carries one zero
+        column; queries gain one to match. It never changes a dot
+        product."""
+        if self.is_int4 and q.shape[-1] == self.dim - 1:
+            q = torch.nn.functional.pad(q, (0, 1))
+        return q
 
     def search(self, queries, search_cfg=None, query_regional=None,
                subset=None):
         """Descriptor-space search: ``queries [Q, D]`` (or ``[D]``) ->
-        ``(scores [Q, k], ids [Q, k])`` numpy arrays."""
+        ``(scores [Q, k], ids [Q, k])`` numpy arrays, with alpha-QE when
+        ``search_cfg.qe_enabled``. The kernel or oracle route is the
+        index's own ``cfg.search.use_pallas``, not the argument's, as in the
+        reference. Batches larger than ``query_chunk`` run the whole
+        composite in pieces (utils/chunking.py)."""
         scfg = search_cfg or self.cfg.search
         _check_search_cfg(scfg)
         if subset is not None:
@@ -233,10 +303,19 @@ class Index:
         q = torch.as_tensor(queries, device=self.device)
         if q.ndim == 1:
             q = q[None]
+        q = self._match_query_dim(q.float())
         if q.shape[-1] != self.dim:
             raise ValueError(f"queries have width {q.shape[-1]}, the store "
                              f"{self.dim}")
-        s, i = self._topk(q.float(), scfg.k, scfg.query_chunk)
+
+        def run(qq):
+            return _search_composite(
+                self.descriptors, self.ids, qq, self.num_valid, self.scales,
+                k=scfg.k, qe_n=scfg.qe_n, qe_alpha=scfg.qe_alpha,
+                use_kernel=bool(self.cfg.search.use_pallas),
+                do_qe=scfg.qe_enabled, int4=self.is_int4)
+
+        s, i = run_chunked(run, scfg.query_chunk, q)
         return s.cpu().numpy(), i.cpu().numpy()
 
     def query(self, queries, search_cfg=None, k: Optional[int] = None, **kw):
@@ -289,7 +368,9 @@ class Index:
     def full_ranking(self, queries) -> np.ndarray:
         """[Q, N] ranked original dataset ids best-first (valid rows only),
         for protocol evaluation. Padding (-inf) sorts last and is cut."""
-        q = torch.as_tensor(queries, device=self.device).float()
-        scores = masked_scores(self.descriptors, q, ids=self.ids)
+        q = self._match_query_dim(
+            torch.as_tensor(queries, device=self.device).float())
+        scores = masked_scores(self.descriptors, q, scales=self.scales,
+                               ids=self.ids, int4=self.is_int4)
         order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
         return self.ids[order][:, :self.num_valid].cpu().numpy()

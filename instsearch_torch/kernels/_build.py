@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels at first use.
 
-Every ``*.cu`` file under ``instsearch_torch/csrc/`` is compiled by ``nvcc``
-for Hopper (``sm_90a``) into ONE shared library with a plain C interface,
-loaded with ``ctypes``. Nothing includes PyTorch's headers, so the build
-takes seconds. The library lands in ``instsearch_torch/_build/`` (ignored by
-git) under a name that hashes the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+Every ``*.cu`` file under ``instsearch_torch/csrc/`` is compiled by its own
+``nvcc`` for Hopper (``sm_90a``), all at once, and the objects are linked
+into ONE shared library with a plain C interface, loaded with ``ctypes``.
+Nothing includes PyTorch's headers, so the build takes seconds. The
+library lands in ``instsearch_torch/_build/`` (ignored by git) under a name
+that hashes the sources (``*.cu`` and the ``*.cuh`` they share) and flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
@@ -25,7 +26,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
@@ -60,22 +61,43 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the sources if their library is missing; returns its path.
-    Writes to a temporary name first, so a build cut short never leaves a
-    library that loads."""
+    One ``nvcc`` per source runs in parallel, then one links them. Writes to
+    a temporary name first, so a build cut short never leaves a library
+    that loads."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        try:
+            for cmd, _, proc in jobs:
+                output = proc.communicate()[0]
+                _check(cmd, proc.returncode, output)
+        finally:                      # a failed source stops the others
+            for *_, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+               *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check(cmd, proc.returncode, proc.stdout + proc.stderr)
+        os.replace(lib, out)
     return out
+
+
+def _check(cmd: list[str], rc: int, output: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{output}")
 
 
 def load() -> ctypes.CDLL:
@@ -91,5 +113,10 @@ def load() -> ctypes.CDLL:
         lib.isf_topk_matmul.restype = i
         lib.isf_topk_pass1_smem.argtypes = [i, i, i]
         lib.isf_topk_pass1_smem.restype = ctypes.c_longlong
+        lib.isf_topk_matmul_int.argtypes = [p, p, p, p, p, p, p, p, p,
+                                            i, i, i, i, i, i, i, i, i, p]
+        lib.isf_topk_matmul_int.restype = i
+        lib.isf_topk_int_pass1_smem.argtypes = [i, i, i, i]
+        lib.isf_topk_int_pass1_smem.restype = ctypes.c_longlong
         _lib = lib
         return lib

@@ -1,14 +1,29 @@
-"""Fused brute-force top-k (port of ``instsearch_tpu/kernels/topk_matmul.py::
-topk_matmul``): ``x [N, D]`` rows, ``q [B, D]`` queries ->
-``(scores [B, k] f32 sorted descending, row positions [B, k] int32)``.
+"""Fused brute-force top-k (port of ``instsearch_tpu/kernels/topk_matmul.py``)
+over the three row stores:
 
-``topk_matmul`` launches the hand-written CUDA kernel
-(``instsearch_torch/csrc/topk_matmul.cu``) for tensors on a CUDA device and
-takes the plain PyTorch version, ``topk_matmul_reference``, for tensors on
-the CPU. A CUDA tensor the kernel cannot take raises; nothing falls back.
+  * ``topk_matmul`` (K1): ``x [N, D]`` bf16/f32 rows, ``q [B, D]``;
+  * ``topk_matmul_int8`` (K2): ``x [N, D]`` int8 rows with f32 row
+    ``scales [1, N]``;
+  * ``topk_matmul_int4`` (K3): ``x [N, D/2]`` packed nibble pairs
+    (``ops/quantize.py::quantize_rows_int4``) with f32 row ``scales``;
 
-Semantics shared by both, and by the TPU kernel:
-  * the query is cast to the store's dtype first, products accumulate in f32;
+each -> ``(scores [B, k] f32 sorted descending, row positions [B, k]
+int32)``.
+
+Each wrapper launches its hand-written CUDA kernel
+(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``) for
+tensors on a CUDA device and takes its plain PyTorch version
+(``*_reference``) for tensors on the CPU. A CUDA tensor the kernel cannot
+take raises; nothing falls back. Each counts its kernel launches in
+``.launches``.
+
+Semantics shared by the kernels, their plain versions and the TPU kernels:
+  * K1: the query is cast to the store's dtype first, products accumulate
+    in f32;
+  * K2/K3: the query is quantized per row to int8
+    (``ops/quantize.py::quantize_rows``), the product is an exact int32 sum,
+    and a score is ``float(acc) * q_scale * x_scale``, in that order, so
+    kernel and plain version agree bit for bit;
   * rows at or past ``num_valid``, and rows whose ``mask`` entry is not > 0,
     are never returned;
   * ties go to the lowest row position first;
@@ -18,43 +33,124 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.quantize import quantize_rows, unpack_int4
 from ..search.bruteforce import masked_scores, select_topk
 
 K_MAX = 1024            # longest list the kernel keeps (shared memory bound)
-_CHUNK = 256            # rows per selection round; kChunk in the .cu file
+_CHUNK = 256            # rows per selection round; kChunk in topk_common.cuh
 _SMEM_BUDGET = 200 * 1024   # under the 227 KB a Hopper block may use
 _QB_MAX = 8             # widest query block the kernel is built for
 _CTAS_PER_SM = 2        # pass-1 blocks to aim for, per multiprocessor
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PLAIN_ROWS = 1 << 16   # rows per f64 product in the integer plain versions
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k={k} outside [1, {K_MAX}]")
 
 
 def _check_args(x: torch.Tensor, q: torch.Tensor, k: int) -> None:
     if x.dim() != 2 or q.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"x must be [N, D] and q [B, D]; got "
                          f"{tuple(x.shape)} and {tuple(q.shape)}")
-    if x.dtype in (torch.int8, torch.uint8):
-        raise NotImplementedError(
-            "int8/int4 stores need the K2/K3 kernels, which are not ported "
-            "yet (ROADMAP Queue 2)")
     if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"store dtype {x.dtype}: bfloat16 or float32")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k={k} outside [1, {K_MAX}]")
+        raise ValueError(f"store dtype {x.dtype}: bfloat16 or float32 (int8 "
+                         f"and int4 rows go to topk_matmul_int8 / "
+                         f"topk_matmul_int4)")
+    _check_k(k)
+
+
+def _check_int_args(x: torch.Tensor, scales: torch.Tensor, q: torch.Tensor,
+                    k: int, int4: bool) -> None:
+    if x.dim() != 2 or q.dim() != 2 or x.dtype != torch.int8:
+        raise ValueError(f"x must be int8 [N, {'D/2' if int4 else 'D'}] and "
+                         f"q [B, D]; got {x.dtype} {tuple(x.shape)} and "
+                         f"{tuple(q.shape)}")
+    width = 2 * x.shape[1] if int4 else x.shape[1]
+    if q.shape[1] != width:
+        what = (f"2 * packed dim {x.shape[1]}" if int4 else
+                f"store dim {width}")
+        raise ValueError(f"query dim {q.shape[1]} != {what}")
+    if scales.numel() != x.shape[0]:
+        raise ValueError(f"{scales.numel()} row scales for {x.shape[0]} rows")
+    _check_k(k)
+
+
+def _valid_rows(n: int, num_valid, mask, device) -> torch.Tensor:
+    nv = n if num_valid is None else int(num_valid)
+    valid = torch.arange(n, device=device) < nv
+    if mask is not None:
+        valid = valid & (mask.reshape(-1).to(torch.int32) > 0)
+    return valid
 
 
 def topk_matmul_reference(x: torch.Tensor, q: torch.Tensor, k: int = 10,
                           num_valid: "int | None" = None,
                           mask: "torch.Tensor | None" = None):
-    """The plain version: the scoring oracle's full f32 score matrix
+    """K1's plain version: the scoring oracle's full f32 score matrix
     (``search.bruteforce``), invalid rows masked, stable top-k."""
     _check_args(x, q, k)
-    n = x.shape[0]
-    nv = n if num_valid is None else int(num_valid)
-    valid = torch.arange(n, device=x.device) < nv
-    if mask is not None:
-        valid = valid & (mask.reshape(-1).to(torch.int32) > 0)
+    valid = _valid_rows(x.shape[0], num_valid, mask, x.device)
     scores = masked_scores(x, q).masked_fill(~valid, float("-inf"))
     return select_topk(scores, k)
+
+
+def _int_scores(x: torch.Tensor, scales: torch.Tensor, q: torch.Tensor,
+                int4: bool) -> torch.Tensor:
+    """[B, N] f32 scores of the K2/K3 definition. The int32 sums come from
+    an f64 product of the integer operands, which is exact (|sum| < 2^53)
+    on any device; CUDA has no integer matmul. Rows go in pieces of
+    _PLAIN_ROWS so the f64 copy stays small."""
+    qr = quantize_rows(q)
+    q64 = qr.values.double()
+    acc = []
+    for s in range(0, x.shape[0], _PLAIN_ROWS):
+        rows = x[s:s + _PLAIN_ROWS]
+        rows = unpack_int4(rows) if int4 else rows
+        acc.append((q64 @ rows.double().T).to(torch.int32))
+    acc = torch.cat(acc, dim=1)
+    return acc.float() * qr.scales.reshape(-1, 1) * scales.reshape(1, -1)
+
+
+def _int_reference(x, scales, q, k, num_valid, mask, int4: bool):
+    _check_int_args(x, scales, q, k, int4)
+    valid = _valid_rows(x.shape[0], num_valid, mask, x.device)
+    scores = _int_scores(x, scales.float(), q.float(), int4)
+    return select_topk(scores.masked_fill(~valid, float("-inf")), k)
+
+
+def topk_matmul_int8_reference(x_int8: torch.Tensor, scales: torch.Tensor,
+                               q: torch.Tensor, k: int = 10,
+                               num_valid: "int | None" = None,
+                               mask: "torch.Tensor | None" = None):
+    """K2's plain version: exact int32 sums of the int8-quantized query
+    against the rows, scaled, invalid rows masked, stable top-k."""
+    return _int_reference(x_int8, scales, q, k, num_valid, mask, int4=False)
+
+
+def topk_matmul_int4_reference(x_packed: torch.Tensor, scales: torch.Tensor,
+                               q: torch.Tensor, k: int = 10,
+                               num_valid: "int | None" = None,
+                               mask: "torch.Tensor | None" = None):
+    """K3's plain version: as K2's, over the unpacked int4 rows."""
+    return _int_reference(x_packed, scales, q, k, num_valid, mask, int4=True)
+
+
+def check_exact(scores: torch.Tensor, pos: torch.Tensor,
+                ref_scores: torch.Tensor, ref_pos: torch.Tensor) -> float:
+    """The rule K2 and K3 are held to against their plain versions: equal
+    bit for bit, since their sums are exact integers. Raises
+    ``AssertionError`` naming the first differing slot; returns 0.0, the
+    largest score difference."""
+    for name, a, b in (("positions", pos, ref_pos),
+                       ("scores", scores, ref_scores)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad = (torch.nonzero(a != b)[:1].tolist()
+                   if a.shape == b.shape else "shape")
+            raise AssertionError(f"top-k differs from the plain version: "
+                                 f"{name} at {bad}")
+    return 0.0
 
 
 def check_against_plain(x: torch.Tensor, q: torch.Tensor,
@@ -119,14 +215,15 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _plan(lib, n: int, d: int, b: int, k: int, device) -> tuple[int, int, int]:
-    """(query block, rows per slice, slices) for one launch."""
+def _plan(smem, n: int, d: int, b: int, k: int, device) -> tuple[int, int, int]:
+    """(query block, rows per slice, slices) for one launch; ``smem(qb)`` is
+    the kernel's pass-1 shared memory for a query block of qb rows."""
     qb = 1
     while qb < min(b, _QB_MAX):
         qb *= 2
-    while qb > 1 and lib.isf_topk_pass1_smem(qb, d, k) > _SMEM_BUDGET:
+    while qb > 1 and smem(qb) > _SMEM_BUDGET:
         qb //= 2
-    if lib.isf_topk_pass1_smem(qb, d, k) > _SMEM_BUDGET:
+    if smem(qb) > _SMEM_BUDGET:
         raise ValueError(f"D={d}, k={k}: the query row and top-k list do not "
                          f"fit one block's shared memory")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -136,41 +233,33 @@ def _plan(lib, n: int, d: int, b: int, k: int, device) -> tuple[int, int, int]:
     return qb, rows, _cdiv(n, rows)
 
 
-def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
-                num_valid: "int | None" = None,
-                mask: "torch.Tensor | None" = None):
-    """Fused top-k over ``x`` for queries ``q``; see the module docstring.
-    ``mask``: optional ``[1, N]`` (or ``[N]``) int8 allow-list."""
-    _check_args(x, q, k)
-    if x.device.type == "cpu":
-        return topk_matmul_reference(x, q, k, num_valid, mask)
+def _cuda_operands(x: torch.Tensor, mask, **tensors) -> "torch.Tensor | None":
+    """Raise unless every operand lies on x's CUDA device and is contiguous,
+    and the ones read as 16-byte vectors (rows, query) are 16-byte aligned;
+    returns the mask as int8 [N]."""
     if x.device.type != "cuda":
         raise ValueError(f"store on {x.device}: the kernel takes CUDA tensors")
-    for name, t in (("x", x), ("q", q), ("mask", mask)):
+    for name, t in (("x", x), ("mask", mask), *tensors.items()):
         if t is None:
             continue
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, store on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n, d = x.shape
-    b = q.shape[0]
-    if d % 8:
-        raise ValueError(f"D={d}: the kernel reads rows as 16-byte vectors "
-                         f"and needs D % 8 == 0")
-    q = q.to(x.dtype)
-    for name, t in (("x", x), ("q", q)):
-        if t.data_ptr() % 16:
+        if name in ("x", "q") and t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    if mask is not None:
-        if mask.numel() != n:
-            raise ValueError(f"mask has {mask.numel()} entries for {n} rows")
-        mask = mask.reshape(-1).to(torch.int8)
-    nv = n if num_valid is None else max(0, min(int(num_valid), n))
+    if mask is None:
+        return None
+    if mask.numel() != x.shape[0]:
+        raise ValueError(f"mask has {mask.numel()} entries for "
+                         f"{x.shape[0]} rows")
+    return mask.reshape(-1).to(torch.int8)
 
-    from . import _build
-    lib = _build.load()
-    qb, rows, slices = _plan(lib, n, d, b, k, x.device)
+
+def _launch(fn, launch, x, b: int, k: int, slices: int):
+    """Allocate outputs and scratch, ``launch(out_s, out_i, cand_s, cand_i,
+    stream)`` (data pointers) on the current stream, raise on its CUDA error
+    code, count the launch on ``fn``."""
     # the scratch may be freed while the kernel still runs: the caching
     # allocator hands it out again only to work queued behind it on this
     # stream
@@ -182,17 +271,108 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.isf_topk_matmul(
-            x.data_ptr(), q.data_ptr(),
-            mask.data_ptr() if mask is not None else None,
-            out_s.data_ptr(), out_i.data_ptr(), cand_s.data_ptr(),
-            cand_i.data_ptr(), n, d, b, k, nv, _DTYPE_CODE[x.dtype], qb,
-            rows, slices, stream)
+        err = launch(out_s.data_ptr(), out_i.data_ptr(), cand_s.data_ptr(),
+                     cand_i.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"topk_matmul kernel launch failed: CUDA error "
-                           f"{err} (N={n}, D={d}, B={b}, k={k}, qb={qb})")
-    topk_matmul.launches += 1
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
+                           f"{err} (N={x.shape[0]}, B={b}, k={k})")
+    fn.launches += 1
     return out_s, out_i
 
 
-topk_matmul.launches = 0    # kernel launches; reset by whoever counts them
+def _num_valid(n: int, num_valid) -> int:
+    return n if num_valid is None else max(0, min(int(num_valid), n))
+
+
+def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
+                num_valid: "int | None" = None,
+                mask: "torch.Tensor | None" = None):
+    """K1: fused top-k over ``x`` for queries ``q``; see the module
+    docstring. ``mask``: optional ``[1, N]`` (or ``[N]``) int8 allow-list."""
+    _check_args(x, q, k)
+    if x.device.type == "cpu":
+        return topk_matmul_reference(x, q, k, num_valid, mask)
+    n, d = x.shape
+    b = q.shape[0]
+    if d % 8:
+        raise ValueError(f"D={d}: the kernel reads rows as 16-byte vectors "
+                         f"and needs D % 8 == 0")
+    q = q.to(x.dtype)
+    mask = _cuda_operands(x, mask, q=q)
+    nv = _num_valid(n, num_valid)
+
+    from . import _build
+    lib = _build.load()
+    qb, rows, slices = _plan(lambda w: lib.isf_topk_pass1_smem(w, d, k),
+                             n, d, b, k, x.device)
+    def launch(out_s, out_i, cand_s, cand_i, stream):
+        return lib.isf_topk_matmul(
+            x.data_ptr(), q.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out_s, out_i,
+            cand_s, cand_i, n, d, b, k, nv, _DTYPE_CODE[x.dtype], qb, rows,
+            slices, stream)
+
+    return _launch(topk_matmul, launch, x, b, k, slices)
+
+
+def _topk_int(fn, ref, x, scales, q, k, num_valid, mask, int4: bool):
+    _check_int_args(x, scales, q, k, int4)
+    if x.device.type == "cpu":
+        return ref(x, scales, q, k, num_valid, mask)
+    n = x.shape[0]
+    b, d = q.shape
+    step = 32 if int4 else 16
+    if d % step:
+        raise ValueError(
+            f"D={d}: the {'int4' if int4 else 'int8'} kernel reads rows as "
+            f"16-byte vectors and needs D % {step} == 0")
+    if scales.dtype != torch.float32:
+        raise ValueError(f"row scales are {scales.dtype}, not float32")
+    qr = quantize_rows(q)
+    q_i8 = qr.values.contiguous()
+    q_scale = qr.scales.reshape(-1).contiguous()
+    x_scale = scales.reshape(-1)
+    mask = _cuda_operands(x, mask, x_scale=x_scale, q=q_i8, q_scale=q_scale)
+    nv = _num_valid(n, num_valid)
+
+    from . import _build
+    lib = _build.load()
+    qb, rows, slices = _plan(
+        lambda w: lib.isf_topk_int_pass1_smem(int(int4), w, d, k),
+        n, d, b, k, x.device)
+    def launch(out_s, out_i, cand_s, cand_i, stream):
+        return lib.isf_topk_matmul_int(
+            x.data_ptr(), x_scale.data_ptr(), q_i8.data_ptr(),
+            q_scale.data_ptr(), mask.data_ptr() if mask is not None else None,
+            out_s, out_i, cand_s, cand_i, n, d, b, k, nv, int(int4), qb, rows,
+            slices, stream)
+
+    return _launch(fn, launch, x, b, k, slices)
+
+
+def topk_matmul_int8(x_int8: torch.Tensor, scales: torch.Tensor,
+                     q: torch.Tensor, k: int = 10,
+                     num_valid: "int | None" = None,
+                     mask: "torch.Tensor | None" = None):
+    """K2: fused top-k over int8 rows ``x_int8 [N, D]`` with row ``scales
+    [1, N]`` (``ops/quantize.py::quantize_rows``) for float queries ``q [B,
+    D]``; see the module docstring."""
+    return _topk_int(topk_matmul_int8, topk_matmul_int8_reference, x_int8,
+                     scales, q, k, num_valid, mask, int4=False)
+
+
+def topk_matmul_int4(x_packed: torch.Tensor, scales: torch.Tensor,
+                     q: torch.Tensor, k: int = 10,
+                     num_valid: "int | None" = None,
+                     mask: "torch.Tensor | None" = None):
+    """K3: fused top-k over packed int4 rows ``x_packed [N, D/2]`` with row
+    ``scales [1, N]`` (``ops/quantize.py::quantize_rows_int4``) for float
+    queries ``q [B, D]``; see the module docstring."""
+    return _topk_int(topk_matmul_int4, topk_matmul_int4_reference, x_packed,
+                     scales, q, k, num_valid, mask, int4=True)
+
+
+# kernel launches; reset by whoever counts them
+topk_matmul.launches = 0
+topk_matmul_int8.launches = 0
+topk_matmul_int4.launches = 0

@@ -1,6 +1,11 @@
-"""Descriptor ops of the port: pooling, L2 normalization, whitening."""
+"""Descriptor ops of the port: pooling, L2 normalization, whitening and
+per-row int8/int4 quantization."""
 from .pooling import avg_pool, gem_pool, l2_normalize, mac_pool, pool
+from .quantize import (QuantizedRows, dequantize_rows, dequantize_rows_int4,
+                       quantize_rows, quantize_rows_int4, unpack_int4)
 from .whitening import WhiteningParams, apply_whitening, fit_whitening
 
 __all__ = ["avg_pool", "gem_pool", "l2_normalize", "mac_pool", "pool",
+           "QuantizedRows", "dequantize_rows", "dequantize_rows_int4",
+           "quantize_rows", "quantize_rows_int4", "unpack_int4",
            "WhiteningParams", "apply_whitening", "fit_whitening"]

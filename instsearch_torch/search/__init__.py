@@ -1,4 +1,6 @@
-"""Search stages of the port (brute force only so far)."""
-from .bruteforce import masked_scores, search_topk, select_topk
+"""Search stages of the port: brute force and alpha query expansion."""
+from .bruteforce import gather_rows_f32, masked_scores, search_topk, select_topk
+from .qe import alpha_query_expansion, expand_from_candidates
 
-__all__ = ["masked_scores", "search_topk", "select_topk"]
+__all__ = ["gather_rows_f32", "masked_scores", "search_topk", "select_topk",
+           "alpha_query_expansion", "expand_from_candidates"]

@@ -1,30 +1,64 @@
 """Brute-force cosine top-k, the plain scoring path (port of
 ``instsearch_tpu/search/bruteforce.py``: ``masked_scores`` and
-``search_topk``; float stores only).
+``search_topk``), over float, int8 and packed-int4 stores.
 
-This is the scoring oracle of the port and the basis of the fused kernel's
-plain version (``kernels/topk_matmul.py::topk_matmul_reference``). int8/int4
-stores raise until ROADMAP M1 / Queue 2 K2-K3.
+This is the scoring oracle of the port. For a float store it is also the
+basis of the fused kernel's plain version
+(``kernels/topk_matmul.py::topk_matmul_reference``). For an int8 or int4
+store it keeps the oracle's own semantics, an f32 query against the stored
+integers times the row scales, where the K2/K3 kernels quantize the query.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.quantize import unpack_int4
+
 
 def masked_scores(descriptors: torch.Tensor, queries: torch.Tensor,
-                  ids: "torch.Tensor | None" = None) -> torch.Tensor:
-    """[Q, N] f32 scores of queries cast to the store's dtype. Both operands
-    go to f32 before the product: a bf16 matmul would return bf16 scores,
-    while bf16 x bf16 products are exact in f32. Padding rows (id -1) are
-    masked to -inf when ``ids`` is given."""
-    if descriptors.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"{descriptors.dtype} stores are not ported yet (ROADMAP M1)")
-    scores = (queries.to(descriptors.dtype).float()
-              @ descriptors.float().T)
+                  scales: "torch.Tensor | None" = None,
+                  ids: "torch.Tensor | None" = None,
+                  int4: bool = False) -> torch.Tensor:
+    """[Q, N] f32 scores, the one scoring definition for float, int8 (with
+    ``scales [1, N]``) and packed-int4 storage (``int4=True``: the store is
+    ``[N, D // 2]`` nibble pairs, which its dtype cannot tell from int8).
+
+    Float: both operands go to f32 before the product (a bf16 matmul would
+    return bf16 scores, while bf16 x bf16 products are exact in f32), the
+    query first cast to the store's dtype. int8/int4: ``(q_f32 .
+    rows_f32^T) * scales``, in that order, as the reference. Padding rows
+    (id -1) are masked to -inf when ``ids`` is given."""
+    if int4:
+        scores = (queries.float() @ unpack_int4(descriptors).float().T
+                  ) * scales
+    elif descriptors.dtype == torch.int8:
+        scores = (queries.float() @ descriptors.float().T) * scales
+    elif descriptors.dtype in (torch.bfloat16, torch.float32):
+        scores = (queries.to(descriptors.dtype).float()
+                  @ descriptors.float().T)
+    else:
+        raise ValueError(f"store dtype {descriptors.dtype}: bfloat16, "
+                         f"float32 or int8")
     if ids is not None:
         scores = scores.masked_fill(ids[None, :] < 0, float("-inf"))
     return scores
+
+
+def gather_rows_f32(descriptors: torch.Tensor, pos: torch.Tensor,
+                    scales: "torch.Tensor | None" = None,
+                    int4: bool = False) -> torch.Tensor:
+    """Stored rows at padded positions ``pos [...]`` -> f32 ``[..., D]``,
+    unpacked (int4) and dequantized (int8, int4): the one
+    row-materialization definition of the search stages (port of
+    ``instsearch_tpu/index.py::_gather_rows_f32``). ``pos`` must already be
+    non-negative."""
+    rows = descriptors[pos.long()]
+    if int4:
+        rows = unpack_int4(rows)
+    rows = rows.float()
+    if int4 or descriptors.dtype == torch.int8:
+        rows = rows * scales.reshape(-1)[pos.long()][..., None]
+    return rows
 
 
 def select_topk(scores: torch.Tensor, k: int):
@@ -43,7 +77,10 @@ def select_topk(scores: torch.Tensor, k: int):
 
 
 def search_topk(index: torch.Tensor, queries: torch.Tensor, k: int = 10,
-                ids: "torch.Tensor | None" = None):
+                ids: "torch.Tensor | None" = None,
+                scales: "torch.Tensor | None" = None, int4: bool = False):
     """``index [N, D]``, ``queries [Q, D]`` -> ``(scores [Q, k], positions
-    [Q, k])``; pass ``ids`` when the store carries padding rows (id -1)."""
-    return select_topk(masked_scores(index, queries, ids=ids), k)
+    [Q, k])``; pass ``ids`` when the store carries padding rows (id -1),
+    ``scales``/``int4`` for a quantized store."""
+    return select_topk(masked_scores(index, queries, scales=scales, ids=ids,
+                                     int4=int4), k)

@@ -1,18 +1,21 @@
-"""The port's CUDA kernel on the card. Every test here needs a CUDA device
-and skips without one (the kernel has no CPU form); the CPU side of the same
-semantics is held against the JAX kernel in test_torch_topk_matmul.py.
+"""The port's CUDA kernels on the card. Every test here needs a CUDA device
+and skips without one (the kernels have no CPU form); the CPU side of the
+same semantics is held against the JAX kernels in test_torch_topk_matmul.py
+and test_torch_topk_int.py.
 
 This file imports no JAX, so it runs on a GPU machine without it; the
 suite's conftest imports JAX, so run it there with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances (``check_against_plain``): scores to 1e-5 absolute (unit rows,
-f32 sums in two orders); the kernel's answer in its own (score desc,
+Tolerances. K1 (``check_against_plain``): scores to 1e-5 absolute (unit
+rows, f32 sums in two orders); the kernel's answer in its own (score desc,
 position asc) order with no position twice; ids equal, except where the two
 rows are not copies of each other and the plain version's own scores of
 them differ by less than 1e-5 (a near-tie that the summation order may
-flip). Copies of one row must come out lowest position first.
+flip). Copies of one row must come out lowest position first. K2 and K3
+(``check_exact``): none; their sums are exact integers, so scores and ids
+equal the plain version's bit for bit.
 """
 import numpy as np
 import pytest
@@ -20,8 +23,14 @@ import torch
 
 from instsearch_torch import IndexConfig, PipelineConfig
 from instsearch_torch.index import Index
-from instsearch_torch.kernels import topk_matmul, topk_matmul_reference
-from instsearch_torch.kernels.topk_matmul import K_MAX, check_against_plain
+from instsearch_torch.kernels import (topk_matmul, topk_matmul_int4,
+                                      topk_matmul_int4_reference,
+                                      topk_matmul_int8,
+                                      topk_matmul_int8_reference,
+                                      topk_matmul_reference)
+from instsearch_torch.kernels.topk_matmul import (K_MAX, check_against_plain,
+                                                  check_exact)
+from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 
 TOL = 1e-5
 
@@ -78,7 +87,7 @@ def test_cuda_wrapper_raises_instead_of_falling_back(gen):
         topk_matmul(x, q, k=K_MAX + 1)
     with pytest.raises(ValueError):
         topk_matmul(x[:, :60].contiguous(), q[:, :60].contiguous(), k=10)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         topk_matmul(x.to(torch.int8), q, k=10)
     assert topk_matmul.launches == before
 
@@ -98,3 +107,51 @@ def test_index_on_cuda_launches_the_kernel_and_agrees_with_cpu(gen):
     np.testing.assert_array_equal(gi[:, 0], np.arange(0, 5000, 250))
     np.testing.assert_allclose(gs, cs, rtol=0, atol=TOL)
     np.testing.assert_array_equal(gi, ci)
+
+
+_INT = {"int8": (quantize_rows, topk_matmul_int8, topk_matmul_int8_reference),
+        "int4": (quantize_rows_int4, topk_matmul_int4,
+                 topk_matmul_int4_reference)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_int_kernels_equal_plain_version(gen, kind):
+    quant, fn, ref = _INT[kind]
+    x = quant(_unit(gen, 70_000, 512))
+    dup = quant(_unit(gen, 1000, 512).repeat(20, 1))      # exact ties
+    q = _unit(gen, 9, 512)
+    mask = (torch.rand(70_000, generator=gen, device="cuda") < 0.5
+            ).to(torch.int8)
+    for st, b, k, nv, m in ((x, 9, 10, None, None), (x, 9, 100, 69_000, mask),
+                            (x, 1, 1, None, None), (x, 3, 16, 7, None),
+                            (x, 9, 300, None, None), (dup, 9, 50, None, None)):
+        qq = q[:b].contiguous()
+        before = fn.launches
+        s, i = fn(st.values, st.scales, qq, k=k, num_valid=nv, mask=m)
+        rs, ri = ref(st.values, st.scales, qq, k=k, num_valid=nv, mask=m)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        check_exact(s, i, rs, ri)
+        if m is not None:
+            assert (m[i[i >= 0].long()] > 0).all()
+        if nv is not None and nv < k:
+            assert (i[:, nv:] == -1).all() and torch.isneginf(s[:, nv:]).all()
+        if st is dup:
+            copies = torch.arange(20, device="cuda")
+            assert (i[:, :20] // 1000 == copies).all()
+            assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_int_kernels_refuse_a_width_they_cannot_take(gen, kind):
+    quant, fn, _ = _INT[kind]
+    d = 40 if kind == "int8" else 48                 # not a 16-byte row
+    x = quant(_unit(gen, 4096, d))
+    before = fn.launches
+    with pytest.raises(ValueError, match=f"D={d}"):
+        fn(x.values, x.scales, _unit(gen, 2, d), k=10)
+    with pytest.raises(ValueError):
+        fn(x.values, x.scales, _unit(gen, 2, d).cpu(), k=10)
+    assert fn.launches == before

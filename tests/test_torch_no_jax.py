@@ -1,6 +1,7 @@
 """The port imports no JAX: in a fresh interpreter (this test process
 already holds JAX through tests/conftest.py), import instsearch_torch, build
-a tiny Index and search it, then check sys.modules. The search path does
+a tiny bf16 Index and a tiny int4 one, search them (the second with alpha
+query expansion), then check sys.modules. The search path does
 not import the reference package at all."""
 import json
 import os
@@ -23,6 +24,10 @@ x /= np.linalg.norm(x, axis=1, keepdims=True)
 cfg = PipelineConfig(index=IndexConfig(row_tile=16))
 idx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], cfg)
 s, i = idx.search(x[:3])
+qcfg = PipelineConfig(index=IndexConfig(row_tile=16, dtype="int4"))
+qidx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], qcfg)
+qs, qi = qidx.search(x[:3], qcfg.search.replace(qe_enabled=True))
+assert qi[:, 0].tolist() == i[:, 0].tolist()
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

@@ -98,14 +98,46 @@ def test_evaluate_map_matches_jax(rig):
 
 
 def test_oracle_route_matches_kernel_route(rig):
-    """use_pallas off ranks through the scoring oracle instead of the
-    kernel's path; both give the same answer."""
+    """An index whose own config has use_pallas off ranks through the
+    scoring oracle instead of the kernel's path; both give the same
+    answer."""
     _, _, _, tidx, qimgs = rig
     q = tidx.extractor(qimgs)
     s1, i1 = tidx.search(q)
-    s2, i2 = tidx.search(q, CFG.search.replace(use_pallas=False))
+    s2, i2 = tidx.with_search(use_pallas=False).search(q)
     np.testing.assert_array_equal(i1, i2)
     np.testing.assert_allclose(s1, s2, rtol=1e-5, atol=1e-6)
+
+
+def _count_calls(monkeypatch, module, name):
+    calls = []
+    fn = getattr(module, name)
+
+    def counted(*a, **kw):
+        calls.append(name)
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_route_is_the_index_config(rig, monkeypatch):
+    """The kernel entry the Index calls runs when the index's own config
+    has use_pallas on, and only then: a search argument with use_pallas off
+    still takes the kernel (as the reference, instsearch_tpu/index.py
+    Index._topk, reads self.cfg), while the oracle twin reaches
+    search_topk and never the kernel."""
+    import instsearch_torch.index as tindex
+    _, _, _, tidx, qimgs = rig
+    q = tidx.extractor(qimgs[:2])
+    kernel = _count_calls(monkeypatch, tindex, "topk_matmul")
+    oracle = _count_calls(monkeypatch, tindex, "search_topk")
+    tidx.search(q)
+    assert (len(kernel), len(oracle)) == (1, 0)
+    tidx.search(q, CFG.search.replace(use_pallas=False))
+    assert (len(kernel), len(oracle)) == (2, 0)
+    tidx.with_search(use_pallas=False).search(q)
+    assert (len(kernel), len(oracle)) == (2, 1)
 
 
 def test_query_dispatches_images_and_descriptors(rig):
@@ -140,9 +172,13 @@ def test_serve_core_answers_like_query_images(rig):
 
 
 def test_unported_stages_raise(rig):
+    """int8, int4 and QE are ported; l2, shards, refine, rerank,
+    diffusion, subsets and regional extraction still raise."""
     _, _, _, tidx, qimgs = rig
     q = tidx.extractor(qimgs[:1])
-    for field in ("qe_enabled", "rerank_enabled", "diffusion_enabled"):
+    s, i = tidx.search(q, CFG.search.replace(qe_enabled=True))
+    assert i.shape == (1, 10) and np.isfinite(s).all()
+    for field in ("rerank_enabled", "diffusion_enabled", "refine_enabled"):
         with pytest.raises(NotImplementedError):
             tidx.search(q, CFG.search.replace(**{field: True}))
     with pytest.raises(NotImplementedError):
@@ -151,8 +187,12 @@ def test_unported_stages_raise(rig):
         tidx.extractor.extract_regional(qimgs[:1])
     with pytest.raises(NotImplementedError):
         tidx.extractor.extract_paths_with_regional([])
-    for icfg in (IndexConfig(dtype="int8"), IndexConfig(dtype="int4"),
-                 IndexConfig(metric="l2"), IndexConfig(num_shards=2)):
+    rows = np.eye(4, 8, dtype=np.float32)
+    for icfg in (IndexConfig(metric="l2"), IndexConfig(num_shards=2),
+                 IndexConfig(dtype="int4", refine_dtype="int8")):
         with pytest.raises(NotImplementedError):
-            Index.from_descriptors(np.zeros((4, 8), np.float32), list("abcd"),
-                                   CFG.replace(index=icfg))
+            Index.from_descriptors(rows, list("abcd"), CFG.replace(index=icfg))
+    for dtype in ("int8", "int4"):
+        idx = Index.from_descriptors(rows, list("abcd"),
+                                     CFG.replace(index=IndexConfig(dtype=dtype)))
+        assert idx.search(rows)[1][:, 0].tolist() == [0, 1, 2, 3]

@@ -118,8 +118,8 @@ def test_k_larger_than_store_pads():
 def test_rejects_what_it_cannot_take():
     X = torch.zeros((64, 16))
     Q = torch.zeros((1, 16))
-    with pytest.raises(NotImplementedError):
-        topk_matmul(X.to(torch.int8), Q, k=5)        # K2/K3 not ported
+    with pytest.raises(ValueError, match="topk_matmul_int8"):
+        topk_matmul(X.to(torch.int8), Q, k=5)        # K2/K3's rows
     with pytest.raises(ValueError):
         topk_matmul(X, Q, k=0)
     with pytest.raises(ValueError):

@@ -4,12 +4,14 @@ port's ``Index.query_images`` on one GPU.
 
     python3 tools/profile_query.py [--rows 1048576] [--corpus 1024]
                                    [--batches 1 8 128] [--reps 10]
+                                   [--config configs/capacity_int4.json]
 
 Run from the root of a checkout. It builds the configuration of
 chip_smoke.py's phase 2 (seeded random ResNet-50 at 224 px, bf16, GeM,
-whitening to 512; a bf16 store of ``--rows`` rows: ``--corpus`` extracted
-seeded images, the rest seeded unit distractor rows) and, for each query
-batch size B, prints one JSON line with, per query batch:
+whitening to 512; a bf16 store), or the preset ``--config`` names with one
+shard (phase 3's stand-ins), with ``--rows`` rows: ``--corpus`` extracted
+seeded images, the rest seeded unit distractor rows. For each query batch
+size B it prints one JSON line with, per query batch:
 
   * ``kernels``: device operations (kernels and copies) launched;
   * ``busy_ms``: the sum of their durations, and its split into
@@ -62,18 +64,22 @@ def category(name: str) -> str:
     return "elementwise"
 
 
-def build_index(gen, rows: int, corpus: int):
+PHASE2 = PipelineConfig(
+    extract=ExtractConfig(backbone="resnet50", pooling="gem", gem_p=3.0,
+                          image_size=IMAGE, whiten=True, whiten_dim=DIM,
+                          dtype="bfloat16", batch_size=64),
+    index=IndexConfig(dtype="bfloat16"), search=SearchConfig(k=10))
+
+
+def build_index(gen, rows: int, corpus: int, cfg: PipelineConfig):
     """(index, the corpus's uint8 images)."""
-    cfg = PipelineConfig(
-        extract=ExtractConfig(backbone="resnet50", pooling="gem", gem_p=3.0,
-                              image_size=IMAGE, whiten=True, whiten_dim=DIM,
-                              dtype="bfloat16", batch_size=64),
-        index=IndexConfig(dtype="bfloat16"), search=SearchConfig(k=10))
     ex = Extractor(cfg.extract.replace(whiten=False), seed=0, device="cuda")
-    images = smooth_images(gen, corpus)
-    raw = torch.cat([ex(images[s:s + 64]) for s in range(0, corpus, 64)])
-    ex.whitening = fit_whitening(raw, dim=DIM)
-    distract = torch.randn(rows - corpus, DIM, generator=gen, device="cuda")
+    images = smooth_images(gen, corpus, size=cfg.extract.image_size)
+    bs = cfg.extract.batch_size
+    raw = torch.cat([ex(images[s:s + bs]) for s in range(0, corpus, bs)])
+    ex.whitening = fit_whitening(raw, dim=cfg.extract.whiten_dim or None)
+    dim = ex.whitening.P.shape[0]
+    distract = torch.randn(rows - corpus, dim, generator=gen, device="cuda")
     distract = distract / distract.norm(dim=1, keepdim=True)
     store = torch.cat([apply_whitening(raw, ex.whitening), distract])
     names = [f"row{i:07d}" for i in range(rows)]
@@ -123,18 +129,26 @@ def main() -> int:
     ap.add_argument("--corpus", type=int, default=1024)
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8, 128])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--config", default=None,
+                    help="a preset of configs/ (served with one shard)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_query: needs a CUDA device")
     card = card_line()
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    idx, images = build_index(gen, args.rows, args.corpus)
+    cfg = PHASE2
+    if args.config:
+        cfg = PipelineConfig.load(args.config)
+        cfg = cfg.replace(index=cfg.index.replace(num_shards=1))
+    idx, images = build_index(gen, args.rows, args.corpus, cfg)
     rng = np.random.default_rng(0)
     for b in args.batches:
         batch = images[rng.choice(args.corpus, size=b,
                                   replace=b > args.corpus)]
-        report(card, rows=args.rows, b=b, reps=args.reps,
+        report(card, config=args.config or "chip_smoke phase 2",
+               store=cfg.index.dtype, qe=cfg.search.qe_enabled,
+               rows=args.rows, b=b, reps=args.reps,
                **profile_batch(idx, batch, args.reps))
     return 0
 

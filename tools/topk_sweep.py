@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""The fused top-k kernel against its plain version over query batch, k and
+"""A fused top-k kernel against its plain version over query batch, k and
 row width, on one GPU.
 
-    python3 tools/topk_sweep.py [--rows 1048576] [--dtype bfloat16]
+    python3 tools/topk_sweep.py [--rows 1048576]
+                                [--dtype bfloat16|float32|int8|int4]
 
-Run from the root of a checkout. On a seeded store of unit rows it prints,
-for each shape, one JSON line with the CUDA-event medians (after warm-up) of
-``topk_matmul`` (the CUDA kernel) and ``topk_matmul_reference`` (the plain
-version) and the largest score difference; every answer is first held to
-the plain version's by ``check_against_plain``. Every line carries the
-card's nvidia-smi name and power limit.
+Run from the root of a checkout. On a seeded store of unit rows (bf16/f32
+for K1 ``topk_matmul``; quantized per row for K2 ``topk_matmul_int8`` and K3
+``topk_matmul_int4``) it prints, for each shape, one JSON line with the
+CUDA-event medians (after warm-up) of the wrapper (the CUDA kernel, with the
+query's quantization for K2/K3) and of its plain version, and the largest
+score difference; every answer is first held to the plain version's
+(``check_against_plain``, or ``check_exact`` for K2/K3), and the device
+time per call under ``torch.profiler``, split into pass 1, pass 2 and the
+other device operations. Every line carries the card's nvidia-smi name and
+power limit.
 """
 from __future__ import annotations
 
@@ -22,18 +27,49 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import SCORE_TOL, card_line, cuda_median_ms, report  # noqa: E402
+from chip_smoke import (SCORE_TOL, card_line, cuda_median_ms,  # noqa: E402
+                        quantized_unit_rows, report, unit_rows)
 from instsearch_torch.kernels.topk_matmul import (  # noqa: E402
-    check_against_plain, topk_matmul, topk_matmul_reference)
+    check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
+    topk_matmul_int4_reference, topk_matmul_int8, topk_matmul_int8_reference,
+    topk_matmul_reference)
+from instsearch_torch.ops.quantize import (quantize_rows,  # noqa: E402
+                                           quantize_rows_int4)
 
 SHAPES = ([(512, b, k) for b in (1, 2, 4, 8, 16, 32, 128) for k in (10, 100)]
           + [(2048, b, k) for b in (1, 8) for k in (10, 100)])
+_INT = {"int8": (quantize_rows, topk_matmul_int8, topk_matmul_int8_reference),
+        "int4": (quantize_rows_int4, topk_matmul_int4,
+                 topk_matmul_int4_reference)}
+
+
+def device_split(fn, reps: int = 10) -> dict:
+    """Device time per call of ``fn`` by torch.profiler: top-k pass 1, pass 2
+    and everything else (the query's quantization, copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {"pass1_ms": 0.0, "pass2_ms": 0.0, "other_ms": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ("pass1_ms" if "topk_pass1" in e.name else
+               "pass2_ms" if "topk_pass2" in e.name else "other_ms")
+        split[key] += e.time_range.elapsed_us() / 1e3 / reps
+    if not split["pass1_ms"]:
+        raise RuntimeError("the profiler recorded no top-k kernel")
+    return split
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
-    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+    ap.add_argument("--dtype", choices=("bfloat16", "float32", "int8", "int4"),
                     default="bfloat16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -41,26 +77,29 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    dtype = getattr(torch, args.dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def unit(n, d):
-        x = torch.randn(n, d, generator=gen, device="cuda")
-        return x / x.norm(dim=1, keepdim=True)
-
     for d in sorted({d for d, _, _ in SHAPES}):
-        x = unit(args.rows, d).to(dtype)
+        if args.dtype in _INT:
+            quantize, fn, ref = _INT[args.dtype]
+            st = quantized_unit_rows(gen, args.rows, d, quantize)
+            run = lambda q, k: fn(st.values, st.scales, q, k=k)  # noqa: E731
+            plain = lambda q, k: ref(st.values, st.scales, q, k=k)  # noqa: E731
+        else:
+            x = unit_rows(gen, args.rows, d, getattr(torch, args.dtype))
+            run = lambda q, k: topk_matmul(x, q, k=k)  # noqa: E731
+            plain = lambda q, k: topk_matmul_reference(x, q, k=k)  # noqa: E731
         for _, b, k in (s for s in SHAPES if s[0] == d):
-            q = unit(b, d)
-            s, i = topk_matmul(x, q, k=k)
-            rs, ri = topk_matmul_reference(x, q, k=k)
-            err = check_against_plain(x, q, s, i, rs, ri, SCORE_TOL)
+            q = unit_rows(gen, b, d, torch.float32)
+            s, i = run(q, k)
+            rs, ri = plain(q, k)
+            err = (check_exact(s, i, rs, ri) if args.dtype in _INT else
+                   check_against_plain(x, q, s, i, rs, ri, SCORE_TOL))
             report(card, rows=args.rows, d=d, b=b, k=k, dtype=args.dtype,
-                   max_abs_err=err,
-                   ms=cuda_median_ms(lambda: topk_matmul(x, q, k=k)),
-                   plain_ms=cuda_median_ms(
-                       lambda: topk_matmul_reference(x, q, k=k), reps=5))
-        del x
+                   max_abs_err=err, ms=cuda_median_ms(lambda: run(q, k)),
+                   plain_ms=cuda_median_ms(lambda: plain(q, k), reps=5),
+                   **device_split(lambda: run(q, k)))
+        st = x = None
         torch.cuda.empty_cache()
     return 0
 
