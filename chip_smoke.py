@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs four phases; each raises on failure and the process exits non-zero.
+runs five phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
@@ -13,7 +13,9 @@ runs four phases; each raises on failure and the process exits non-zero.
      100}, padding, a 50% mask, duplicated rows, fewer valid rows than k,
      D = 2048 at B = 1; K1 in bf16 and f32 (scores within SCORE_TOL), K2
      over int8 and K3 over int4 rows (bit for bit), K3 also at D = 128;
-     with kernel and plain medians;
+     K4 over 4-bit PQ codes, 1M x 32 bytes (M = 64) with the same cases and
+     1M x 8 bytes (M = 16), and 67,108,864 x 32 bytes (2 GiB of codes) at
+     B = 1 and 128, depth 100 (bit for bit); with kernel and plain medians;
   2. the float path through its entry points: a seeded random ResNet-50 at
      224 px (bf16, GeM, whitening to 512) extracts a corpus of 4096 seeded
      images, the index holds them among seeded unit distractor rows (1M x
@@ -30,11 +32,27 @@ runs four phases; each raises on failure and the process exits non-zero.
      final top-k); the composite with the kernel replaced by its plain
      version must give equal ids and scores. It prints the top-10 overlap
      with the scoring oracle's route, which measures the int8 query's
-     quantization, and is not a check.
+     quantization, and is not a check;
+  4. the PQ cascade through its entry points: phase 3's int4 store of
+     ``configs/capacity_int4.json`` gains ``Index.build_pq()`` with the
+     reference's defaults (M = 64, 15 iterations, 262,144-row fit sample,
+     depth 100) on the card, and ``ServeCore`` answers the same requests.
+     Every top-1 must be its source; K4 must launch twice per bucket piece
+     (QE's top-qe_n cascade, then the final one) and K1-K3 never; the
+     composite with K4 replaced by its plain version must give equal ids and
+     scores. It prints, without checking, the build time, the cascade's
+     recall@10 against the exact int4 route, the top-10 overlap with the
+     oracle route (f32 lookup table) and the query p50 at B = 1 and 128.
 
 Every measured number is printed with the card's nvidia-smi name and power
-limit. The line before the last is the kernel summary as JSON; the last line
-is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout,
+limit. The line before the last is the kernel summary as JSON: per kernel its
+launches on the main path, its largest difference from its plain version,
+its median time and its plain version's at 1M rows, B = 1, k = 10, the least
+time the card could take for that work (``bound_ms``: the larger of the bytes
+read and written over 3.35 TB/s and the operations over the published peak
+rate for their type) and, where one PyTorch call computes the same function,
+that call's median time (``library_ms``, else null). The last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout,
 the script exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -55,6 +73,9 @@ IMAGE = 224
 CORPUS_Q = 1024         # phase 3: images extracted at the presets' 512 px
 SCORE_TOL = 1e-5        # unit rows: f32 sums in two orders differ far below
 SIZES = (1, 3, 8, 13)   # images per served request
+PQ_ROWS_CAPACITY = 1 << 26   # bench.py::bench_pq_capacity's 64M rows
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def fail(msg: str) -> "None":
@@ -89,6 +110,15 @@ def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def unit_rows(gen, n, d, dtype):
@@ -143,9 +173,16 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
         if dtype is torch.bfloat16:
             for b in (1, 128):
                 q = unit_rows(gen, b, DIM, torch.float32)
+                qb = q.to(torch.bfloat16)
                 timings[f"bf16 N=1M D=512 B={b} k=10"] = {
                     "ms": cuda_median_ms(lambda: topk(x, q, k=10)),
-                    "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10))}
+                    "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10)),
+                    # the yardstick: one bf16 product and torch.topk, which
+                    # the port never calls
+                    "library_ms": cuda_median_ms(
+                        lambda: torch.topk(qb @ x.T, 10)),
+                    **bound(N_ROWS * DIM * 2 + b * DIM * 2 + b * 10 * 8,
+                            2 * b * N_ROWS * DIM, "bf16")}
         del x, mask
         # duplicated rows: every score appears 1024 times, so the top 100
         # are the 100 lowest copies of one base row, in position order
@@ -228,10 +265,14 @@ def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
     case(st, DIM, 3, 100, "50 valid rows < k", num_valid=50)
     for b in (1, 128):
         q = unit_rows(gen, b, DIM, torch.float32)
+        row_bytes = DIM // 2 if kind == "int4" else DIM
         timings[f"{kind} N=1M D=512 B={b} k=10"] = {
             "ms": cuda_median_ms(lambda: fn(st.values, st.scales, q, k=10)),
             "plain_ms": cuda_median_ms(
-                lambda: ref(st.values, st.scales, q, k=10))}
+                lambda: ref(st.values, st.scales, q, k=10)),
+            "library_ms": None,
+            **bound(N_ROWS * (row_bytes + 4) + b * DIM * 4 + b * 10 * 8,
+                    2 * b * N_ROWS * DIM, "int8")}
     del st, mask
     # duplicated rows: every stored row appears 1024 times, so the top 100
     # are the 100 lowest copies of one base row, in position order
@@ -252,6 +293,101 @@ def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
         for k in (10, 100):
             case(st, d, b, k, f"D={d}", num_valid=nv)
         del st
+    torch.cuda.empty_cache()
+    for shape, t in timings.items():
+        report(card, phase=1, timing=shape, **t)
+    return max(errs), timings
+
+
+def phase1_pq(card: str, gen, fn, ref, check_exact) -> tuple[float, dict]:
+    """K4 over random 4-bit codes against its plain version; both add the
+    same bf16 table entries in one order, so every case must agree bit for
+    bit (``check_exact``). Returns (max error, timings)."""
+    import torch
+    from instsearch_torch.ops.pq import PQCodebook
+    dev = torch.device("cuda")
+
+    def codes(n, m):
+        return torch.randint(-128, 128, (n, m // 2), generator=gen,
+                             device=dev, dtype=torch.int8)
+
+    def codebook(m, d):
+        return PQCodebook(0.25 * torch.randn(m, 16, d // m, generator=gen,
+                                             device=dev))
+
+    def case(x, cb, b, k, label, num_valid=None, mask=None):
+        q = unit_rows(gen, b, cb.dim, torch.float32)
+        s, i = fn(x, q, cb, k=k, num_valid=num_valid, mask=mask)
+        rs, ri = ref(x, q, cb, k=k, num_valid=num_valid, mask=mask)
+        torch.cuda.synchronize()
+        try:
+            err = check_exact(s, i, rs, ri)
+        except AssertionError as e:
+            fail(f"pq {label} B={b} k={k}: {e}")
+        if num_valid is not None and int(i.max()) >= num_valid:
+            fail(f"pq {label}: a padding row was returned")
+        if mask is not None and not bool((mask[i[i >= 0].long()] > 0).all()):
+            fail(f"pq {label}: a masked-out row was returned")
+        report(card, phase=1, kernel=fn.__name__, case=f"pq {label}",
+               n=x.shape[0], m=cb.m, b=b, k=k, bit_exact=True,
+               max_abs_err=err)
+        errs.append(err)
+        return i
+
+    def bound_pq(n, m, d, b, k):
+        return bound(n * m // 2 + b * d * 4 + m * 16 * (d // m) * 4
+                     + b * k * 8, b * n * m, "f32")
+
+    errs = []
+    timings = {}
+    nv = N_ROWS - 1000
+    x, cb = codes(N_ROWS, 64), codebook(64, DIM)
+    for b in (1, 8, 128):
+        for k in (1, 10, 100):
+            case(x, cb, b, k, "M=64 num_valid=N-1000", num_valid=nv)
+    mask = (torch.rand(N_ROWS, generator=gen, device=dev) < 0.5
+            ).to(torch.int8)
+    case(x, cb, 8, 10, "M=64 50% mask", mask=mask)
+    case(x, cb, 3, 100, "M=64 50 valid rows < k", num_valid=50)
+    for b in (1, 128):
+        q = unit_rows(gen, b, DIM, torch.float32)
+        timings[f"pq N=1M M=64 B={b} k=10"] = {
+            "ms": cuda_median_ms(lambda: fn(x, q, cb, k=10)),
+            "plain_ms": cuda_median_ms(lambda: ref(x, q, cb, k=10)),
+            "library_ms": None, **bound_pq(N_ROWS, 64, DIM, b, 10)}
+    # duplicated code rows: every row appears 1024 times, so the top 100
+    # are the 100 lowest copies of one base row, in position order
+    dup = x[:1024].repeat(N_ROWS // 1024, 1).contiguous()
+    i = case(dup, cb, 8, 100, "M=64 duplicated rows")
+    if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
+            and bool((i % 1024 == i[:, :1] % 1024).all())):
+        fail("pq duplicated rows: copies out of position order")
+    del x, dup, mask
+    # D = 128 (configs/compact128_int4.json's width): M = 16, 8-byte rows
+    x, cb = codes(N_ROWS, 16), codebook(16, 128)
+    for k in (10, 100):
+        case(x, cb, 1, k, "M=16", num_valid=nv)
+    del x
+    # bench.py::bench_pq_capacity's store: 64M rows of 32 bytes, depth 100
+    n = PQ_ROWS_CAPACITY
+    x, cb = codes(n, 64), codebook(64, DIM)
+    for b in (1, 128):
+        case(x, cb, b, 100, "M=64 N=64M", num_valid=n - 1000)
+    prefix = N_ROWS
+    for b in (1, 128):
+        q = unit_rows(gen, b, DIM, torch.float32)
+        t = {"ms": cuda_median_ms(lambda: fn(x, q, cb, k=100), reps=10),
+             **bound_pq(n, 64, DIM, b, 100)}
+        if b == 1:
+            t["plain_ms"] = cuda_median_ms(lambda: ref(x, q, cb, k=100),
+                                           reps=3, warmup=1)
+        else:      # the plain version over a prefix of the rows only
+            xp = x[:prefix]
+            t["plain_ms_prefix"] = cuda_median_ms(
+                lambda: ref(xp, q, cb, k=100), reps=3, warmup=1)
+            t["plain_prefix_rows"] = prefix
+        timings[f"pq N=64M M=64 B={b} k=100"] = t
+    del x
     torch.cuda.empty_cache()
     for shape, t in timings.items():
         report(card, phase=1, timing=shape, **t)
@@ -283,9 +419,9 @@ def serve_requests(card, phase, core, images, picks, kernel, per_piece):
     times for each bucket piece of the requests (a request splits into
     pieces of the largest bucket, the last one padded), and no other kernel
     at all. Every top-1 must be its source image. Returns the count."""
-    from instsearch_torch.kernels import (topk_matmul, topk_matmul_int4,
-                                          topk_matmul_int8)
-    everyone = (topk_matmul, topk_matmul_int8, topk_matmul_int4)
+    from instsearch_torch.kernels import (pq_topk, topk_matmul,
+                                          topk_matmul_int4, topk_matmul_int8)
+    everyone = (topk_matmul, topk_matmul_int8, topk_matmul_int4, pq_topk)
     core.warmup()
     for fn in everyone:
         fn.launches = 0
@@ -365,7 +501,7 @@ def phase2(card: str, gen, topk, check) -> dict:
                               image_size=IMAGE, whiten=True, whiten_dim=DIM,
                               dtype="bfloat16", batch_size=64),
         index=IndexConfig(dtype="bfloat16"), search=SearchConfig(k=10))
-    ex = Extractor(cfg.extract.replace(whiten=False), seed=0, device="cuda")
+    ex = Extractor(cfg.extract.replace(whiten=False), seed=0)
     images = smooth_images(gen, CORPUS)
     raw, ips = extract_corpus(card, 2, ex, images, 64)
 
@@ -414,7 +550,8 @@ def phase2(card: str, gen, topk, check) -> dict:
 def phase3(card: str, gen) -> dict:
     """The quantized stores with alpha-QE, as the two presets configure
     them; one extractor serves both, since their extraction settings are
-    the same (checked)."""
+    the same (checked). Returns the results and, for phase 4, the store's
+    rows, names, extractor, images and request picks."""
     import numpy as np
     import torch
     import instsearch_torch.index as tindex
@@ -437,7 +574,7 @@ def phase3(card: str, gen) -> dict:
     if cfg4.extract != cfg8.extract or not (cfg4.search.qe_enabled
                                             and cfg8.search.qe_enabled):
         fail("the two presets no longer share one QE extraction pipeline")
-    ex = Extractor(cfg4.extract.replace(whiten=False), seed=0, device="cuda")
+    ex = Extractor(cfg4.extract.replace(whiten=False), seed=0)
     images = smooth_images(gen, CORPUS_Q, size=cfg4.extract.image_size)
     raw, ips = extract_corpus(card, 3, ex, images, cfg4.extract.batch_size)
     ex.whitening = fit_whitening(raw, dim=cfg4.extract.whiten_dim)
@@ -498,7 +635,67 @@ def phase3(card: str, gen) -> dict:
                      "oracle_overlap": overlap}
         del idx, core
         torch.cuda.empty_cache()
-    return out
+    return out, (cfg4, rows, names, ex, images, picks)
+
+
+def phase4(card: str, corpus) -> dict:
+    """The PQ cascade of configs/capacity_int4.json over phase 3's corpus:
+    build_pq with the reference's defaults, then the same requests."""
+    import numpy as np
+    import torch
+    import instsearch_torch.search.pq_view as pq_view
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels import pq_topk, pq_topk_reference
+    from instsearch_torch.serve import ServeCore
+
+    cfg, rows, names, ex, images, picks = corpus
+    idx = Index.from_descriptors(rows, names, cfg, extractor=ex)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    view = idx.build_pq()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if (tuple(view.codes.shape) != (N_ROWS, 32) or view.codes.device.type
+            != "cuda" or idx.cfg.search.pq_depth != 100):
+        fail(f"PQ view codes {tuple(view.codes.shape)} on "
+             f"{view.codes.device}, pq_depth {idx.cfg.search.pq_depth}")
+    report(card, phase=4, config="configs/capacity_int4.json",
+           store="int4 + PQ", rows=N_ROWS, m=view.m, depth=view.depth,
+           fit_sample=262_144, iters=15, build_pq_s=build_s,
+           reduced={"rows": f"{PQ_ROWS_CAPACITY} -> {N_ROWS}: the served "
+                            f"store is phase 3's 1M-row int4 store (64M "
+                            f"f32 source rows would be 128 GiB); phase 1 "
+                            f"times the scan over 64M codes"})
+    core = ServeCore(idx)
+    launches = serve_requests(card, 4, core, images, picks, pq_topk, 2)
+
+    # the composite with the kernel entry replaced by its plain version
+    rng = np.random.default_rng(2)
+    q = ex(images[np.concatenate(picks)])
+    ks, ki = idx.search(q)
+    pq_view.pq_topk = pq_topk_reference
+    try:
+        ps, pi = idx.search(q)
+    finally:
+        pq_view.pq_topk = pq_topk
+    if not (np.array_equal(ki, pi) and np.array_equal(ks, ps)):
+        fail("PQ: the composite through pq_topk and through its plain "
+             "version differ")
+    # recall of the cascade's candidates against the exact int4 route; at
+    # k=10 the exact top-10 beyond the source are near-orthogonal distractor
+    # and corpus rows, whose order the 4-bit codes cannot resolve
+    recall = {k: view.measure_recall(idx, q, k=k) for k in (1, 10)}
+    _, oi = idx.with_search(use_pallas=False).search(q)
+    overlap = float(np.mean([len(set(a) & set(b)) / len(a)
+                             for a, b in zip(ki.tolist(), oi.tolist())]))
+    report(card, phase=4, plain_kernel_route_equal=True,
+           queries=int(ki.shape[0]), launches_in_main_path=launches,
+           recall_at_1_vs_exact_int4=recall[1],
+           recall_at_10_vs_exact_int4=recall[10],
+           top10_overlap_with_oracle_route=overlap)
+    lat = query_latency(card, 4, idx, ex, images, rng, store="int4 + PQ")
+    return {"launches": launches, "latency": lat, "build_s": build_s,
+            "recall": recall, "oracle_overlap": overlap}
 
 
 def main() -> int:
@@ -514,6 +711,7 @@ def main() -> int:
                  f"beside this script)")
     sys.path.insert(0, HERE)
     from instsearch_torch.kernels import _build
+    from instsearch_torch.kernels.pq_scan import pq_topk, pq_topk_reference
     from instsearch_torch.kernels.topk_matmul import (
         check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
         topk_matmul_int4_reference, topk_matmul_int8,
@@ -545,22 +743,32 @@ def main() -> int:
         errs[kind], t = phase1_int(card, gen, kind, fn, ref, quant,
                                    check_exact)
         timings.update(t)
+    errs["pq"], t = phase1_pq(card, gen, pq_topk, pq_topk_reference,
+                              check_exact)
+    timings.update(t)
     res = phase2(card, gen, topk_matmul, check_against_plain)
-    res3 = phase3(card, gen)
+    res3, corpus = phase3(card, gen)
+    res4 = phase4(card, corpus)
 
     rows = []
-    for name, file, line, shape, launches in (
-            ("topk_matmul", "topk_matmul.cu", 608, "bf16", res["launches"]),
-            ("topk_matmul_int8", "topk_matmul_int.cu", 475, "int8",
-             res3["int8"]["launches"]),
-            ("topk_matmul_int4", "topk_matmul_int.cu", 397, "int4",
-             res3["int4"]["launches"])):
-        t = timings[f"{shape} N=1M D=512 B=1 k=10"]
+    for name, file, replaces, shape, launches in (
+            ("topk_matmul", "topk_matmul.cu", "topk_matmul.py:608",
+             "bf16 N=1M D=512", res["launches"]),
+            ("topk_matmul_int8", "topk_matmul_int.cu", "topk_matmul.py:475",
+             "int8 N=1M D=512", res3["int8"]["launches"]),
+            ("topk_matmul_int4", "topk_matmul_int.cu", "topk_matmul.py:397",
+             "int4 N=1M D=512", res3["int4"]["launches"]),
+            ("pq_topk", "pq_scan.cu", "pq_scan.py:223", "pq N=1M M=64",
+             res4["launches"])):
+        t = timings[f"{shape} B=1 k=10"]
+        kind = shape.split()[0]
         rows.append({"name": name, "route": "cuda",
                      "source": f"instsearch_torch/csrc/{file}",
-                     "replaces": f"instsearch_tpu/kernels/topk_matmul.py:{line}",
-                     "launches": launches, "max_abs_err": errs[shape],
-                     "ms": t["ms"], "plain_ms": t["plain_ms"]})
+                     "replaces": f"instsearch_tpu/kernels/{replaces}",
+                     "launches": launches, "max_abs_err": errs[kind],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

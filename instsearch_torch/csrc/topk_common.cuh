@@ -1,6 +1,6 @@
 // Split-N fused top-k, shared by the port's top-k kernels (K1 topk_matmul,
-// K2 topk_matmul_int8, K3 topk_matmul_int4): the selection code, pass 1
-// templated on how a row is scored, and pass 2.
+// K2 topk_matmul_int8, K3 topk_matmul_int4, K4 pq_topk): the selection
+// code, pass 1 templated on how a row is scored, and pass 2.
 //
 // Pass 1: block (qblock, slice) scores rows [slice * rows_per_slice, ...)
 // against queries [qblock * QB, ...) and keeps each query's top-k of its
@@ -27,6 +27,21 @@
 //                                      the reduced sum -> the row's score
 //                                      for block query qi
 //
+// A policy whose rows are too short for a warp per row (K4: a row of 64
+// codes is 32 bytes) scores a whole chunk itself instead, one row per
+// thread, and declares
+//
+//   static constexpr bool kScoresChunk = true;
+//   template <int QB>
+//   void score_chunk(float* sc, int chunk, int valid_end,
+//                    const int8_t* mask, const char* qsm, int tid) const;
+//                                      sc[qi * kChunk + r] <- the score of
+//                                      row chunk + r for block query qi,
+//                                      -inf for rows at or past valid_end
+//                                      or masked out
+//
+// in place of vecs/load/accumulate/score.
+//
 // Ranking rules, the TPU kernels' own: (score desc, position asc); rows at
 // or past num_valid, or whose mask entry is not > 0, never enter; slots
 // past the count of valid rows come back as (-inf, -1).
@@ -38,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -173,10 +190,61 @@ __device__ __forceinline__ A warp_reduce_scatter(A (&v)[QB], int lane) {
   return s;
 }
 
+// Whether a row-scoring policy scores whole chunks (kScoresChunk above).
+template <class Rows, class = void>
+struct ScoresChunk : std::false_type {};
+template <class Rows>
+struct ScoresChunk<Rows, std::void_t<decltype(Rows::kScoresChunk)>>
+    : std::integral_constant<bool, Rows::kScoresChunk> {};
+
 template <class Rows>
 size_t pass1_smem(int qb, int d, int k) {
   return Rows::query_bytes(qb, d) + sizeof(float) * (size_t)qb * kChunk +
          (sizeof(float) + sizeof(int)) * (size_t)qb * k;
+}
+
+// Scoring of one chunk with a warp per row (K1-K3): each warp scores
+// kRowsInFlight rows at a time, its lanes over the rows' 16-byte vectors,
+// then reduces across lanes; sc[qi * kChunk + r] <- row chunk + r's score.
+template <class Rows, int QB>
+__device__ __forceinline__ void score_chunk_by_warps(
+    const Rows& rows, const int8_t* __restrict__ mask, int chunk,
+    int valid_end, const char* qsm, float* sc, int lane, int warp) {
+  constexpr int kRowsPerWarp = kChunk / kWarps;
+  constexpr int kGroup = 32 / QB;                      // lanes per query
+  using Acc = typename Rows::Acc;
+  const int nvec = rows.vecs();
+  for (int g = 0; g < kRowsPerWarp; g += kRowsInFlight) {
+    const int r0 = chunk + warp * kRowsPerWarp + g;
+    Acc acc[kRowsInFlight][QB];
+#pragma unroll
+    for (int r = 0; r < kRowsInFlight; ++r)
+#pragma unroll
+      for (int j = 0; j < QB; ++j) acc[r][j] = Acc(0);
+    if (r0 < valid_end) {
+      for (int v = lane; v < nvec; v += 32) {
+        uint4 raw[kRowsInFlight];
+#pragma unroll
+        for (int r = 0; r < kRowsInFlight; ++r) {
+          const int row = r0 + r;
+          raw[r] = row < valid_end ? rows.load(row, v)
+                                   : make_uint4(0, 0, 0, 0);
+        }
+        rows.template accumulate<QB, kRowsInFlight>(acc, raw, qsm, v);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsInFlight; ++r) {
+      const Acc tot = warp_reduce_scatter<Acc, QB>(acc[r], lane);
+      const int row = r0 + r;
+      if ((lane % kGroup) == 0) {
+        const int qi = lane / kGroup;
+        const bool ok = row < valid_end && (mask == nullptr || mask[row] > 0);
+        sc[qi * kChunk + (row - chunk)] =
+            ok ? rows.template score<QB>(tot, qi, row, qsm) : neg_inf();
+      }
+    }
+  }
 }
 
 template <class Rows, int QB>
@@ -203,46 +271,18 @@ topk_pass1(const Rows rows, const int8_t* __restrict__ mask, int n, int d,
   }
   __syncthreads();
 
-  using Acc = typename Rows::Acc;
-  const int nvec = rows.vecs();
   const int row_begin = slice * rows_per_slice;
   const int row_end = min(n, row_begin + rows_per_slice);
   const int valid_end = min(row_end, num_valid);
-  constexpr int kRowsPerWarp = kChunk / kWarps;
-  constexpr int kGroup = 32 / QB;                      // lanes per query
 
   for (int chunk = row_begin; chunk < row_end; chunk += kChunk) {
     // ---- score kChunk rows into sc -----------------------------------
-    for (int g = 0; g < kRowsPerWarp; g += kRowsInFlight) {
-      const int r0 = chunk + warp * kRowsPerWarp + g;
-      Acc acc[kRowsInFlight][QB];
-#pragma unroll
-      for (int r = 0; r < kRowsInFlight; ++r)
-#pragma unroll
-        for (int j = 0; j < QB; ++j) acc[r][j] = Acc(0);
-      if (r0 < valid_end) {
-        for (int v = lane; v < nvec; v += 32) {
-          uint4 raw[kRowsInFlight];
-#pragma unroll
-          for (int r = 0; r < kRowsInFlight; ++r) {
-            const int row = r0 + r;
-            raw[r] = row < valid_end ? rows.load(row, v)
-                                     : make_uint4(0, 0, 0, 0);
-          }
-          rows.template accumulate<QB, kRowsInFlight>(acc, raw, qsm, v);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsInFlight; ++r) {
-        const Acc tot = warp_reduce_scatter<Acc, QB>(acc[r], lane);
-        const int row = r0 + r;
-        if ((lane % kGroup) == 0) {
-          const int qi = lane / kGroup;
-          const bool ok = row < valid_end && (mask == nullptr || mask[row] > 0);
-          sc[qi * kChunk + (row - chunk)] =
-              ok ? rows.template score<QB>(tot, qi, row, qsm) : neg_inf();
-        }
-      }
+    if constexpr (ScoresChunk<Rows>::value) {
+      static_assert(kChunk == kThreads, "one row per thread");
+      rows.template score_chunk<QB>(sc, chunk, valid_end, mask, qsm, tid);
+    } else {
+      score_chunk_by_warps<Rows, QB>(rows, mask, chunk, valid_end, qsm, sc,
+                                     lane, warp);
     }
     __syncthreads();
 

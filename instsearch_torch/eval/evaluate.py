@@ -7,11 +7,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from instsearch_tpu.eval.datasets import RetrievalDataset
-from instsearch_tpu.eval.revisited import evaluate_ranks
-
 from ..data import frontend
 from ..search.qe import alpha_query_expansion
+from .datasets import RetrievalDataset
+from .revisited import evaluate_ranks
 
 
 def load_query_batchable(path: str, bbx, size: int) -> np.ndarray | None:

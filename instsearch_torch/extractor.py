@@ -20,6 +20,7 @@ from .models.jax_import import load_jax_resnet
 from .models.registry import descriptor_dim
 from .ops import l2_normalize, pool
 from .ops.whitening import WhiteningParams, apply_whitening
+from .utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -27,7 +28,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def build_extract_fn(cfg, device=None):
     """Returns ``(model, extract_fn)`` with
     ``extract_fn(images, whitening=None) -> [N, D] f32``; ``images`` is a
-    uint8 or [0, 1] float tensor ``[N, S, S, 3]`` on the model's device."""
+    uint8 or [0, 1] float tensor ``[N, S, S, 3]`` on the model's device
+    (``device``, the CUDA card by default)."""
     dtype = _DTYPES[cfg.dtype]
     model, _ = get_backbone(cfg.backbone, dtype=dtype, device=device)
 
@@ -57,7 +59,9 @@ class Extractor:
 
     ``variables``: the reference's Flax variables (loaded through
     ``models.jax_import``); None draws seeded random weights with Flax's
-    initializer distributions (``ResNet.init_weights``)."""
+    initializer distributions (``ResNet.init_weights``). ``device``
+    defaults to the CUDA card; without one it raises unless the caller
+    passes ``device="cpu"``."""
 
     def __init__(self, cfg, variables: dict | None = None,
                  whitening: WhiteningParams | None = None, seed: int = 0,
@@ -67,7 +71,7 @@ class Extractor:
                 "R-MAC extraction is not ported yet (ROADMAP M3/M5)")
         self.cfg = cfg
         self.seed = seed
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.model, self._fn = build_extract_fn(cfg, device=self.device)
         if variables is None:
             gen = torch.Generator(device=self.device)

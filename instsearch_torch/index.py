@@ -1,6 +1,6 @@
 """The Index: device-resident descriptor store + query/evaluate API (port of
 ``instsearch_tpu/index.py``, the single-device slice over bf16, f32, int8 and
-int4 stores).
+int4 stores, with the PQ cascade view).
 
 Storage layout is the reference's: rows padded to a multiple of
 ``row_tile * num_shards`` (and up to ``capacity``), padding rows carrying
@@ -19,13 +19,19 @@ expansion (``qe_enabled``) runs the reference's composite: the kernel's
 top-``qe_n``, the rows gathered and dequantized, the expanded query, the
 kernel's final top-k.
 
+``build_pq`` attaches a PQ view (``search/pq_view.py``): with
+``cfg.search.pq_depth > 0`` every top-k selection above becomes the cascade
+of an ADC scan over 4-bit codes (K4, ``kernels/pq_scan.py``, on the kernel
+route) and an exact re-score of its ``depth`` candidates against the store.
+
 Not ported yet, and raising ``NotImplementedError`` rather than answering:
 ``metric="l2"``, ``num_shards > 1``, subsets, re-rank, diffusion, refine,
-local whitening, IVF and PQ tiers, DBA, and ``save``/``load`` (see
+local whitening, the IVF and IVF-PQ tiers, DBA, and ``save``/``load`` (see
 ROADMAP).
 """
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional, Sequence
 
@@ -35,12 +41,14 @@ import torch
 from .extractor import Extractor
 from .kernels.topk_matmul import (topk_matmul, topk_matmul_int4,
                                   topk_matmul_int8)
-from .ops.quantize import quantize_rows, quantize_rows_int4
+from .ops.quantize import quantize_rows, quantize_rows_int4, unpack_int4
 from .ops.whitening import WhiteningParams, apply_whitening, fit_whitening
 from .search.bruteforce import gather_rows_f32 as _gather_rows_f32
 from .search.bruteforce import masked_scores, search_topk
+from .search.pq_view import PQView, _pq_composite
 from .search.qe import expand_from_candidates
 from .utils.chunking import run_chunked
+from .utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _QUANTIZE = {"int8": quantize_rows, "int4": quantize_rows_int4}
@@ -125,7 +133,7 @@ def _check_search_cfg(scfg) -> None:
               ("refine_enabled", "ROADMAP M5"),
               ("diffusion_enabled", "ROADMAP M8"),
               ("lw_enabled", "ROADMAP M8"), ("ivf_nprobe", "ROADMAP M9"),
-              ("pq_depth", "ROADMAP M9"), ("ivfpq_nprobe", "ROADMAP M9"))
+              ("ivfpq_nprobe", "ROADMAP M9"))
     on = [(nm, item) for nm, item in stages if getattr(scfg, nm)]
     if on:
         raise NotImplementedError(
@@ -148,6 +156,7 @@ class Index:
         self.cfg = cfg
         self.extractor = extractor
         self.scales = scales                # [1, N_pad] f32 for int8/int4
+        self.pq: "PQView | None" = None     # build_pq's cascade view
         self.quarantined: list[str] = []
 
     # ------------------------------------------------------------------
@@ -185,10 +194,12 @@ class Index:
         """The same store tensors, ids, names and extractor behind the
         index's own search config with ``changes`` applied; e.g.
         ``with_search(use_pallas=False)`` ranks through the scoring oracle,
-        since the route is the index's config, not a search argument's."""
+        since the route is the index's config, not a search argument's. The
+        PQ view comes along, so the twin scans the same codes."""
         cfg = self.cfg.replace(search=self.cfg.search.replace(**changes))
         twin = Index(self.descriptors, self.ids, self.names, cfg,
                      self.extractor, scales=self.scales)
+        twin.pq = self.pq
         twin.quarantined = self.quarantined
         return twin
 
@@ -202,13 +213,14 @@ class Index:
         """Pad ``descriptors [N, D]`` (numpy or tensor) into the store.
         ``original_ids`` maps rows back to dataset positions (differs from
         arange when images were quarantined). ``device`` defaults to the
-        extractor's device, else the tensor's own, else the CPU."""
+        extractor's device, else the tensor's own, else (numpy input) the
+        CUDA card, raising without one."""
         _check_index_cfg(cfg)
         if device is None:
             device = (extractor.device if extractor is not None else
                       descriptors.device if isinstance(descriptors,
                                                        torch.Tensor)
-                      else "cpu")
+                      else resolve_device(None))
         x = torch.as_tensor(descriptors, device=device)
         n, d = x.shape
         tile = max(cfg.index.row_tile, 8) * max(cfg.index.num_shards, 1)
@@ -244,7 +256,8 @@ class Index:
               device: "torch.device | str | None" = None) -> "Index":
         """Offline indexing: extract -> (fit whitening) -> store.
         ``whitening_paths`` defaults to the indexed set itself;
-        ``whitening`` supplies pre-fit params instead."""
+        ``whitening`` supplies pre-fit params instead. Runs on ``device``,
+        the CUDA card by default."""
         if cfg.index.metric == "l2":
             raise ValueError(
                 "metric='l2' is for RAW-VECTOR indexes "
@@ -275,6 +288,45 @@ class Index:
         idx.quarantined = quarantine
         return idx
 
+    def build_pq(self, m: int | None = None, iters: int = 15, seed: int = 0,
+                 sample: "int | None" = 262_144, depth: int = 100,
+                 chunk: int = 65_536, opq_iters: int = 0,
+                 anisotropic_t: "float | None" = None) -> PQView:
+        """Attach a product-quantization cascade view (search/pq_view.py):
+        4-bit codes (ops/pq.py, 32 bytes per 512-d row) scanned by the
+        fused ADC kernel select ``depth`` candidates, exactly re-scored
+        against the main store. Arms ``cfg.search.pq_depth = depth``, so
+        ``search()`` (with QE) routes through it; ``search_cfg.replace(
+        pq_depth=0)`` keeps the exact path. ``opq_iters > 0`` also learns
+        an OPQ rotation. The fit and the encode run on the index's device.
+        Returns the PQView."""
+        if self.num_valid < 16_000_000:
+            logging.getLogger("instsearch.index").warning(
+                "build_pq at %d rows: the PQ tier is for capacity (32 bytes "
+                "per 512-d row); below ~16M rows the exact int4/int8/bf16 "
+                "stores usually fit the card, and they rank exactly without "
+                "a candidate depth", self.num_valid)
+        self.pq = PQView.from_index(self, m=m, iters=iters, seed=seed,
+                                    sample=sample, depth=depth, chunk=chunk,
+                                    opq_iters=opq_iters,
+                                    anisotropic_t=anisotropic_t)
+        self.cfg = self.cfg.replace(
+            search=self.cfg.search.replace(pq_depth=depth))
+        return self.pq
+
+    def _rows_f32_chunk(self, start: int, chunk: int) -> torch.Tensor:
+        """Stored rows ``[start, start + chunk)`` as f32 ``[chunk, dim]``,
+        unpacked (int4) and dequantized (int8, int4). The callers cut the
+        store into slices that divide it, so no slice runs past its end (the
+        reference's dynamic_slice would move such a slice back)."""
+        rows = self.descriptors[start:start + chunk]
+        if self.is_int4:
+            rows = unpack_int4(rows)
+        rows = rows.float()
+        if self.scales is not None:
+            rows = rows * self.scales[0, start:start + chunk, None]
+        return rows
+
     # ------------------------------------------------------------------
     def _match_query_dim(self, q: torch.Tensor) -> torch.Tensor:
         """An int4 store of an odd descriptor width carries one zero
@@ -288,10 +340,13 @@ class Index:
                subset=None):
         """Descriptor-space search: ``queries [Q, D]`` (or ``[D]``) ->
         ``(scores [Q, k], ids [Q, k])`` numpy arrays, with alpha-QE when
-        ``search_cfg.qe_enabled``. The kernel or oracle route is the
-        index's own ``cfg.search.use_pallas``, not the argument's, as in the
-        reference. Batches larger than ``query_chunk`` run the whole
-        composite in pieces (utils/chunking.py)."""
+        ``search_cfg.qe_enabled``, through the PQ cascade when a view is
+        attached and ``search_cfg.pq_depth > 0`` (without a view,
+        ``pq_depth`` is ignored, as in the reference). The kernel or oracle
+        route is the index's own ``cfg.search.use_pallas``, not the
+        argument's, as in the reference. Batches larger than
+        ``query_chunk`` run the whole composite in pieces
+        (utils/chunking.py)."""
         scfg = search_cfg or self.cfg.search
         _check_search_cfg(scfg)
         if subset is not None:
@@ -315,8 +370,34 @@ class Index:
                 use_kernel=bool(self.cfg.search.use_pallas),
                 do_qe=scfg.qe_enabled, int4=self.is_int4)
 
-        s, i = run_chunked(run, scfg.query_chunk, q)
+        if self.pq is not None and scfg.pq_depth > 0:
+            s, i = self._search_pq(q, scfg)
+        else:
+            s, i = run_chunked(run, scfg.query_chunk, q)
         return s.cpu().numpy(), i.cpu().numpy()
+
+    def _search_pq(self, q: torch.Tensor, scfg):
+        """The PQ cascade (search/pq_view.py): the ADC scan over the codes
+        selects ``depth`` candidates (at least k, and qe_n with QE), exactly
+        re-scored against the store; QE composes by position. Chunked so
+        the per-stage ``[chunk, depth, D]`` f32 gather stays under 256
+        MiB."""
+        pq = self.pq
+        depth = max(scfg.pq_depth, scfg.k, scfg.qe_n if scfg.qe_enabled else 0)
+        depth = min(depth, self.descriptors.shape[0])
+
+        def run(qq):
+            return _pq_composite(
+                pq.codes, pq.codebook.centroids, self.descriptors, self.ids,
+                self.scales, qq, self.num_valid, pq.rotation, k=scfg.k,
+                depth=depth, qe_n=scfg.qe_n, qe_alpha=scfg.qe_alpha,
+                do_qe=scfg.qe_enabled, int4=self.is_int4,
+                use_kernel=bool(self.cfg.search.use_pallas))
+
+        per_q = max(1, 2 * depth * self.dim * 4)
+        chunk = max(1, min(scfg.query_chunk or q.shape[0],
+                           (256 << 20) // per_q))
+        return run_chunked(run, chunk, q)
 
     def query(self, queries, search_cfg=None, k: Optional[int] = None, **kw):
         """``index.query(x, k=10)``: descriptor arrays ([Q, D] / [D]) or

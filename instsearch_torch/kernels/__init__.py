@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels of the port, each beside its plain version."""
+from .pq_scan import pq_topk, pq_topk_reference
 from .topk_matmul import (topk_matmul, topk_matmul_int4,
                           topk_matmul_int4_reference, topk_matmul_int8,
                           topk_matmul_int8_reference, topk_matmul_reference)
 
 __all__ = ["topk_matmul", "topk_matmul_reference", "topk_matmul_int8",
            "topk_matmul_int8_reference", "topk_matmul_int4",
-           "topk_matmul_int4_reference"]
+           "topk_matmul_int4_reference", "pq_topk", "pq_topk_reference"]

@@ -118,5 +118,10 @@ def load() -> ctypes.CDLL:
         lib.isf_topk_matmul_int.restype = i
         lib.isf_topk_int_pass1_smem.argtypes = [i, i, i, i]
         lib.isf_topk_int_pass1_smem.restype = ctypes.c_longlong
+        lib.isf_pq_topk.argtypes = [p, p, p, p, p, p, p,
+                                    i, i, i, i, i, i, i, i, p]
+        lib.isf_pq_topk.restype = i
+        lib.isf_pq_pass1_smem.argtypes = [i, i, i]
+        lib.isf_pq_pass1_smem.restype = ctypes.c_longlong
         _lib = lib
         return lib

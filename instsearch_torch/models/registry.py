@@ -10,6 +10,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..utils.device import resolve_device
 from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
 
 
@@ -33,7 +34,8 @@ _NOT_PORTED = {"vgg16": "ROADMAP M4", "vit_b_16": "ROADMAP M11",
 
 def get_backbone(name: str, dtype=torch.bfloat16, device=None):
     """-> ``(model, spec)``; the model is in eval mode, weights
-    uninitialized (``ResNet.init_weights`` or ``load_state_dict``)."""
+    uninitialized (``ResNet.init_weights`` or ``load_state_dict``), on
+    ``device``: the CUDA card by default, raising without one."""
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet ({_NOT_PORTED[name]})")
@@ -42,7 +44,7 @@ def get_backbone(name: str, dtype=torch.bfloat16, device=None):
     except KeyError:
         raise ValueError(f"unknown backbone {name!r}; expected one of "
                          f"{sorted(BACKBONES)}") from None
-    return spec.factory(dtype=dtype, device=device), spec
+    return spec.factory(dtype=dtype, device=resolve_device(device)), spec
 
 
 def descriptor_dim(cfg) -> int:

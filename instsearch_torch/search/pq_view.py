@@ -1,0 +1,255 @@
+"""PQ compressed-domain cascade: ADC candidate scan, then an exact re-score
+(port of ``instsearch_tpu/search/pq_view.py``: ``_pq_candidates``,
+``_pq_composite_jit`` without its re-rank stage, and ``PQView``).
+
+Rows are product-quantized to 4-bit codes (``ops/pq.py``, 32 bytes per
+512-d row), position-aligned with the index's padded main store. A query's
+candidate scan reads only the codes and selects ``depth`` rows, which are
+then re-scored exactly against the main store (f32 gather and dot) and
+re-sorted: the scan ranks the haystack, the exact tier the needles. With
+``depth`` >= the store it is exact search.
+
+Two candidate routes, as in the reference: the fused ADC kernel (K4,
+``kernels/pq_scan.py``; its plain version for codes on the CPU), which
+sums the bf16-rounded lookup table, and the oracle, which sums the f32
+table against a one-hot expansion of the codes over the whole ``[B, N]``
+score matrix. The route is the index's own ``cfg.search.use_pallas``.
+
+Not ported yet: subset masks and the re-rank stage (ROADMAP M7, M5), the
+anisotropic fit (M9), ``save``/``load`` (with the Index's, M2), and
+``absorb_add``/``absorb_remove`` (with ``Index.add``/``remove``, M7).
+"""
+from __future__ import annotations
+
+import math
+from functools import partial
+
+import numpy as np
+import torch
+
+from ..kernels.pq_scan import pq_topk
+from ..ops.pq import (PQCodebook, default_m, encode_pq, fit_opq, fit_pq,
+                      pq_lut, unpack_pq)
+from ..utils.device import resolve_device
+from .bruteforce import gather_rows_f32, select_topk
+from .qe import expand_from_candidates
+
+_NEG_INF = float("-inf")
+_ORACLE_ROWS = 1 << 16      # rows per one-hot piece on the oracle route
+
+
+def _oracle_scores(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """``[B, N]`` ADC scores as the reference's oracle computes them: the
+    f32 table ``lut [B, M, 16]`` against the one-hot expansion of the codes,
+    in pieces of rows so the expansion stays small."""
+    b = lut.shape[0]
+    flat = lut.reshape(b, -1)                                 # [B, M * 16]
+    out = []
+    for s in range(0, codes.shape[0], _ORACLE_ROWS):
+        oh = torch.nn.functional.one_hot(
+            unpack_pq(codes[s:s + _ORACLE_ROWS]).long(), 16).float()
+        out.append(flat @ oh.reshape(oh.shape[0], -1).T)
+    return torch.cat(out, dim=1)
+
+
+def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
+                   rotation=None, *, depth: int, int4: bool,
+                   use_kernel: bool):
+    """ADC top-``depth`` over the codes, then the exact f32 re-score of
+    those rows from the main store and a re-sort -> ``(exact scores
+    [B, depth] f32 descending, positions [B, depth] int32, -1 for empty)``.
+    With an OPQ ``rotation`` the scan scores the rotated query; the
+    re-score keeps the original one against the unrotated store."""
+    cb = PQCodebook(centroids)
+    q_adc = q if rotation is None else (q @ rotation).to(q.dtype)
+    if use_kernel:
+        _, pos = pq_topk(codes, q_adc, cb, k=depth, num_valid=nv)
+    else:
+        s = _oracle_scores(codes, pq_lut(q_adc, cb))
+        rows_ok = torch.arange(codes.shape[0], device=codes.device) < nv
+        _, pos = select_topk(s.masked_fill(~rows_ok, _NEG_INF), depth)
+    rows = gather_rows_f32(descriptors, pos.clamp(min=0), scales, int4=int4)
+    exact = torch.einsum("bkd,bd->bk", rows, q.float())
+    exact = exact.masked_fill(pos < 0, _NEG_INF)
+    # re-sort by the exact score, so the QE stage's top-n slice sees the
+    # cascade's own ranking; the stable sort keeps the lower slot on ties,
+    # as lax.top_k does
+    exact, order = torch.sort(exact, dim=1, descending=True, stable=True)
+    pos = pos.gather(1, order)
+    return exact, torch.where(exact > _NEG_INF, pos, torch.full_like(pos, -1))
+
+
+def _pq_composite(codes, centroids, descriptors, ids, scales, q, nv: int,
+                  rotation=None, *, k: int, depth: int, qe_n: int,
+                  qe_alpha: float, do_qe: bool, int4: bool,
+                  use_kernel: bool):
+    """The reference's ``_pq_composite_jit`` without its re-rank stage:
+    every candidate selection is the ADC-scan -> exact-re-score cascade;
+    the QE rows gather from the main store by position. -> ``(scores
+    [B, k], ids [B, k])``."""
+    q = q.float()
+    sel = partial(_pq_candidates, codes, centroids, descriptors, scales,
+                  rotation=rotation, depth=depth, int4=int4,
+                  use_kernel=use_kernel)
+    if do_qe:
+        s, pos = sel(q, nv)
+        s_n, pos_n = s[:, :qe_n], pos[:, :qe_n]
+        rows = gather_rows_f32(descriptors, pos_n.clamp(min=0), scales,
+                               int4=int4)
+        rows = torch.where((s_n > _NEG_INF)[..., None], rows,
+                           torch.zeros((), device=rows.device))
+        q = expand_from_candidates(q, s_n, rows, qe_alpha)
+    s, pos = sel(q, nv)
+    out_ids = torch.where(pos >= 0, ids[pos.clamp(min=0).long()],
+                          torch.full_like(pos, -1))
+    return s[:, :k], out_ids[:, :k]
+
+
+class PQView:
+    """Product-quantized coarse-scan view over an
+    :class:`instsearch_torch.index.Index`, on the index's device. Built by
+    :meth:`from_index` (or ``Index.build_pq``); ``Index.search`` routes
+    through it when ``SearchConfig.pq_depth > 0``. The main store stays
+    authoritative: every candidate is re-scored exactly against it, so
+    quality depends only on candidate recall (:meth:`measure_recall`)."""
+
+    def __init__(self, codebook: PQCodebook, codes: torch.Tensor,
+                 depth: int = 100, rotation: "torch.Tensor | None" = None):
+        self.codebook = codebook        # centroids [M, 16, ds] f32
+        self.codes = codes              # [N_pad, M/2] int8 packed nibbles
+        self.depth = depth
+        self.rotation = rotation        # OPQ rotation [D, D] f32 or None
+
+    @property
+    def m(self) -> int:
+        return self.codebook.m
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_index(cls, index, m: int | None = None, iters: int = 15,
+                   seed: int = 0, sample: "int | None" = 262_144,
+                   depth: int = 100, chunk: int = 65_536,
+                   opq_iters: int = 0,
+                   anisotropic_t: "float | None" = None) -> "PQView":
+        """Fit the codebook on the first ``sample`` valid rows (dequantized,
+        in contiguous slices) and encode every stored row in ``chunk``-row
+        slices, on the index's device. ``m`` defaults to
+        ``ops.pq.default_m(D)``; ``opq_iters > 0`` also learns an OPQ
+        rotation on the fit sample."""
+        if anisotropic_t is not None:
+            raise NotImplementedError(
+                "anisotropic PQ (anisotropic_t) is not ported yet "
+                "(ROADMAP M9)")
+        nv = index.num_valid
+        d = index.dim
+        if m is None:
+            m = default_m(d)
+        if nv < 16:
+            raise ValueError("PQ needs at least 16 indexed rows")
+
+        n_pad = index.descriptors.shape[0]
+        chunk = math.gcd(n_pad, max(8, chunk))
+        # fit sample: contiguous dequantized slices up to `sample` rows
+        fit_rows = min(nv, sample if sample is not None else nv)
+        take = []
+        got = 0
+        for start in range(0, n_pad, chunk):
+            if got >= fit_rows:
+                break
+            sl = index._rows_f32_chunk(start, chunk)
+            keep = min(chunk, fit_rows - got, max(0, nv - start))
+            if keep <= 0:
+                break
+            take.append(sl[:keep])
+            got += keep
+        fit_x = torch.cat(take)
+        rot = None
+        if opq_iters > 0:
+            rot, cb = fit_opq(fit_x, m=m, opq_iters=opq_iters,
+                              pq_iters=iters, seed=seed)
+        else:
+            cb = fit_pq(fit_x, m=m, iters=iters, seed=seed)
+
+        codes = torch.empty((n_pad, m // 2), dtype=torch.int8,
+                            device=index.device)
+        for start in range(0, n_pad, chunk):
+            sl = index._rows_f32_chunk(start, chunk)
+            if rot is not None:
+                sl = sl @ rot
+            codes[start:start + chunk] = encode_pq(sl, cb)
+        return cls(cb, codes, depth=depth, rotation=rot)
+
+    @classmethod
+    def from_arrays(cls, centroids, codes, depth: int = 100, rotation=None,
+                    device: "torch.device | str | None" = None) -> "PQView":
+        """A view over given state, e.g. a JAX ``PQView``'s
+        ``np.asarray(view.codebook.centroids)``, ``view.codes`` and
+        ``view.rotation`` (None without OPQ). ``device`` defaults to the
+        card (``utils.device.resolve_device``)."""
+        dev = resolve_device(device)
+
+        def put(a, dtype):
+            return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+        rot = None if rotation is None else put(rotation, np.float32)
+        return cls(PQCodebook(put(centroids, np.float32)),
+                   put(codes, np.int8), depth=depth, rotation=rot)
+
+    # ------------------------------------------------------------------
+    def absorb_add(self, index, start: int, n_new: int) -> None:
+        raise NotImplementedError(
+            "PQ absorb_add waits for Index.add (ROADMAP M7)")
+
+    def absorb_remove(self, src, dst) -> None:
+        raise NotImplementedError(
+            "PQ absorb_remove waits for Index.remove (ROADMAP M7)")
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError(
+            "PQ save waits for the Index's save/load (ROADMAP M2)")
+
+    @classmethod
+    def load(cls, path: str) -> "PQView":
+        raise NotImplementedError(
+            "PQ load waits for the Index's save/load (ROADMAP M2)")
+
+    # ------------------------------------------------------------------
+    def candidates(self, index, queries, depth: int | None = None):
+        """``(exact scores [B, depth], row positions [B, depth])``, the
+        cascade stage already re-scored, on the route of the index's own
+        ``cfg.search.use_pallas``."""
+        depth = min(depth or self.depth, self.codes.shape[0])
+        q = torch.as_tensor(queries, device=index.device).float()
+        if q.ndim == 1:
+            q = q[None]
+        return _pq_candidates(
+            self.codes, self.codebook.centroids, index.descriptors,
+            index.scales, q, index.num_valid, self.rotation, depth=depth,
+            int4=index.is_int4,
+            use_kernel=bool(index.cfg.search.use_pallas))
+
+    def search(self, index, queries, k: int = 10, depth: int | None = None):
+        """Descriptor-space cascade search -> ``(scores [B, k], dataset ids
+        [B, k])`` numpy arrays, as ``Index.search`` returns."""
+        s, pos = self.candidates(index, queries, depth)
+        ids = torch.where(pos >= 0, index.ids[pos.clamp(min=0).long()],
+                          torch.full_like(pos, -1))
+        return s[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
+
+    def measure_recall(self, index, queries, k: int = 10,
+                       depth: int | None = None) -> float:
+        """recall@k against the exact brute-force ranking: the build-time
+        honesty number for a chosen cascade depth."""
+        _, exact_ids = index.search(
+            queries, index.cfg.search.replace(k=k, qe_enabled=False,
+                                              rerank_enabled=False,
+                                              pq_depth=0))
+        _, pq_ids = self.search(index, queries, k=k, depth=depth)
+        hits = total = 0
+        for e, a in zip(exact_ids, pq_ids):
+            es = set(int(i) for i in e if i >= 0)
+            if not es:
+                continue
+            hits += len(es & set(int(i) for i in a if i >= 0))
+            total += len(es)
+        return hits / max(total, 1)

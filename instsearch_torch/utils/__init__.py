@@ -1,4 +1,5 @@
 """Shared helpers of the port."""
 from .chunking import run_chunked
+from .device import resolve_device
 
-__all__ = ["run_chunked"]
+__all__ = ["run_chunked", "resolve_device"]

@@ -15,7 +15,8 @@ rows are not copies of each other and the plain version's own scores of
 them differ by less than 1e-5 (a near-tie that the summation order may
 flip). Copies of one row must come out lowest position first. K2 and K3
 (``check_exact``): none; their sums are exact integers, so scores and ids
-equal the plain version's bit for bit.
+equal the plain version's bit for bit. K4 (``check_exact``): none; kernel
+and plain version add the same bf16 table entries in one fixed order.
 """
 import numpy as np
 import pytest
@@ -23,13 +24,15 @@ import torch
 
 from instsearch_torch import IndexConfig, PipelineConfig
 from instsearch_torch.index import Index
-from instsearch_torch.kernels import (topk_matmul, topk_matmul_int4,
+from instsearch_torch.kernels import (pq_topk, pq_topk_reference,
+                                      topk_matmul, topk_matmul_int4,
                                       topk_matmul_int4_reference,
                                       topk_matmul_int8,
                                       topk_matmul_int8_reference,
                                       topk_matmul_reference)
 from instsearch_torch.kernels.topk_matmul import (K_MAX, check_against_plain,
                                                   check_exact)
+from instsearch_torch.ops.pq import PQCodebook
 from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 
 TOL = 1e-5
@@ -155,3 +158,59 @@ def test_int_kernels_refuse_a_width_they_cannot_take(gen, kind):
     with pytest.raises(ValueError):
         fn(x.values, x.scales, _unit(gen, 2, d).cpu(), k=10)
     assert fn.launches == before
+
+
+def _pq_codes(gen, n, m):
+    return torch.randint(-128, 128, (n, m // 2), generator=gen,
+                         device="cuda", dtype=torch.int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [16, 64])
+def test_pq_kernel_equals_plain_version(gen, m):
+    d = 8 * m
+    cb = PQCodebook(torch.randn(m, 16, 8, generator=gen, device="cuda"))
+    codes = _pq_codes(gen, 70_000, m)
+    dup = codes[:1000].repeat(20, 1).contiguous()           # exact ties
+    q = _unit(gen, 9, d)
+    mask = (torch.rand(70_000, generator=gen, device="cuda") < 0.5
+            ).to(torch.int8)
+    for x, b, k, nv, msk in ((codes, 9, 10, None, None),
+                             (codes, 9, 100, 69_000, mask),
+                             (codes, 1, 1, None, None), (codes, 3, 16, 7, None),
+                             (codes, 9, 300, None, None),
+                             (dup, 9, 50, None, None)):
+        qq = q[:b].contiguous()
+        before = pq_topk.launches
+        s, i = pq_topk(x, qq, cb, k=k, num_valid=nv, mask=msk)
+        rs, ri = pq_topk_reference(x, qq, cb, k=k, num_valid=nv, mask=msk)
+        torch.cuda.synchronize()
+        assert pq_topk.launches == before + 1
+        check_exact(s, i, rs, ri)
+        if msk is not None:
+            assert (msk[i[i >= 0].long()] > 0).all()
+        if nv is not None and nv < k:
+            assert (i[:, nv:] == -1).all() and torch.isneginf(s[:, nv:]).all()
+        if x is dup:
+            copies = torch.arange(20, device="cuda")
+            assert (i[:, :20] // 1000 == copies).all()
+            assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
+
+
+@pytest.mark.gpu
+def test_pq_kernel_refuses_what_it_cannot_take(gen):
+    q = _unit(gen, 2, 32)
+    before = pq_topk.launches
+    for m in (2, 4, 12):                 # M/2 not a whole number of words
+        cb = PQCodebook(torch.randn(m, 16, 32 // m if 32 % m == 0 else 1,
+                                    generator=gen, device="cuda"))
+        qq = _unit(gen, 2, cb.dim)
+        with pytest.raises(ValueError, match=f"M={m}"):
+            pq_topk(_pq_codes(gen, 4096, m), qq, cb, k=10)
+    cb = PQCodebook(torch.randn(8, 16, 4, generator=gen, device="cuda"))
+    codes = _pq_codes(gen, 4096, 8)
+    with pytest.raises(ValueError):
+        pq_topk(codes, q, cb, k=K_MAX + 1)                  # too deep
+    with pytest.raises(ValueError):
+        pq_topk(codes, q.cpu(), cb, k=10)                   # wrong device
+    assert pq_topk.launches == before

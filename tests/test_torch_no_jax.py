@@ -1,8 +1,9 @@
 """The port imports no JAX: in a fresh interpreter (this test process
-already holds JAX through tests/conftest.py), import instsearch_torch, build
-a tiny bf16 Index and a tiny int4 one, search them (the second with alpha
-query expansion), then check sys.modules. The search path does
-not import the reference package at all."""
+already holds JAX through tests/conftest.py), import instsearch_torch and its
+evaluation package, build a tiny bf16 Index and a tiny int4 one on the CPU,
+search them (the second with alpha query expansion, then through a PQ
+cascade view), then check sys.modules: neither JAX nor any module of the
+reference package was loaded."""
 import json
 import os
 import subprocess
@@ -14,6 +15,7 @@ _SCRIPT = r"""
 import json, sys
 import numpy as np
 import instsearch_torch
+import instsearch_torch.eval
 from instsearch_torch import PipelineConfig, IndexConfig
 from instsearch_torch.index import Index
 from instsearch_torch.serve import ServeCore
@@ -22,12 +24,17 @@ rng = np.random.default_rng(0)
 x = rng.standard_normal((40, 16)).astype(np.float32)
 x /= np.linalg.norm(x, axis=1, keepdims=True)
 cfg = PipelineConfig(index=IndexConfig(row_tile=16))
-idx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], cfg)
+idx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], cfg,
+                             device="cpu")
 s, i = idx.search(x[:3])
 qcfg = PipelineConfig(index=IndexConfig(row_tile=16, dtype="int4"))
-qidx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], qcfg)
+qidx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], qcfg,
+                              device="cpu")
 qs, qi = qidx.search(x[:3], qcfg.search.replace(qe_enabled=True))
 assert qi[:, 0].tolist() == i[:, 0].tolist()
+qidx.build_pq(m=4, iters=3, depth=40)
+ps, pi = qidx.search(x[:3], qidx.cfg.search.replace(qe_enabled=True))
+assert pi[:, 0].tolist() == i[:, 0].tolist()
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

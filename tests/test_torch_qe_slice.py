@@ -112,11 +112,12 @@ def rig(request, fixture_data):
         jmap = jidx.evaluate(ds)["mAP"]
     rows, kept = seen[0]
     tcfg = _port_cfg(cfg)
-    own = Index.build(ds.db_paths, tcfg, variables=variables)
+    own = Index.build(ds.db_paths, tcfg, variables=variables, device="cpu")
     jw = jidx.extractor.whitening
     ex = Extractor(tcfg.extract.replace(whiten=False), variables,
                    whitening=WhiteningParams(torch.tensor(np.asarray(jw.P)),
-                                             torch.tensor(np.asarray(jw.mu))))
+                                             torch.tensor(np.asarray(jw.mu))),
+                   device="cpu")
     same = Index.from_descriptors(rows, jidx.names, tcfg, extractor=ex,
                                   original_ids=kept)
     return kind, ds, qimgs, jidx, jmap, own, same

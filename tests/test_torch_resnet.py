@@ -41,7 +41,7 @@ def weights():
 @pytest.mark.parametrize("name", ["resnet18", "resnet50"])
 def test_from_jax_resnet_round_trip(weights, name):
     sd, variables = weights[name]
-    model, _ = get_backbone(name, dtype=torch.float32)
+    model, _ = get_backbone(name, dtype=torch.float32, device="cpu")
     back = from_jax_resnet(variables, model)
     want = {k: v for k, v in sd.items()
             if not k.endswith("num_batches_tracked")}
@@ -52,7 +52,7 @@ def test_from_jax_resnet_round_trip(weights, name):
 
 def test_from_jax_resnet_rejects_unknown_and_missing(weights):
     _, variables = weights["resnet18"]
-    model, _ = get_backbone("resnet18", dtype=torch.float32)
+    model, _ = get_backbone("resnet18", dtype=torch.float32, device="cpu")
     bad = {"params": dict(variables["params"],
                           mystery={"kernel": np.zeros((1, 1, 1, 1))}),
            "batch_stats": variables["batch_stats"]}
@@ -73,7 +73,7 @@ def _forwards(weights, name, dtype, size):
     x = rng.standard_normal((2, size, size, 3)).astype(np.float32)
     jm = _JAX[name](dtype=getattr(jnp, dtype))
     want = np.asarray(jm.apply(variables, jnp.asarray(x)), np.float32)
-    model, _ = get_backbone(name, dtype=getattr(torch, dtype))
+    model, _ = get_backbone(name, dtype=getattr(torch, dtype), device="cpu")
     load_jax_resnet(model, variables)
     with torch.inference_mode():
         got = model(torch.from_numpy(x)).float().numpy()
@@ -107,7 +107,8 @@ def test_random_init_matches_flax_scale():
     jm = jr18(dtype=jnp.float32)
     jv = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
     want = np.asarray(jm.apply(jv, jnp.asarray(x)))
-    model: ResNet = get_backbone("resnet18", dtype=torch.float32)[0]
+    model: ResNet = get_backbone("resnet18", dtype=torch.float32,
+                                 device="cpu")[0]
     model.init_weights(torch.Generator().manual_seed(0))
     w = model.conv1.weight.detach()
     std = np.sqrt(1.0 / (3 * 7 * 7))

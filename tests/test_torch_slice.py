@@ -58,7 +58,7 @@ def rig(tmp_path_factory):
         mp.setattr(native_frontend, "available", lambda: False)
         jidx = JaxIndex.build(ds.db_paths, CFG, variables=variables)
         jmap = jidx.evaluate(ds)["mAP"]
-    tidx = Index.build(ds.db_paths, CFG, variables=variables)
+    tidx = Index.build(ds.db_paths, CFG, variables=variables, device="cpu")
     qimgs = np.stack([frontend.load_square(p, SIZE) for p in ds.query_paths])
     return ds, jidx, jmap, tidx, qimgs
 
@@ -191,8 +191,10 @@ def test_unported_stages_raise(rig):
     for icfg in (IndexConfig(metric="l2"), IndexConfig(num_shards=2),
                  IndexConfig(dtype="int4", refine_dtype="int8")):
         with pytest.raises(NotImplementedError):
-            Index.from_descriptors(rows, list("abcd"), CFG.replace(index=icfg))
+            Index.from_descriptors(rows, list("abcd"), CFG.replace(index=icfg),
+                                   device="cpu")
     for dtype in ("int8", "int4"):
         idx = Index.from_descriptors(rows, list("abcd"),
-                                     CFG.replace(index=IndexConfig(dtype=dtype)))
+                                     CFG.replace(index=IndexConfig(dtype=dtype)),
+                                     device="cpu")
         assert idx.search(rows)[1][:, 0].tolist() == [0, 1, 2, 3]

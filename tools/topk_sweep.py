@@ -3,18 +3,20 @@
 row width, on one GPU.
 
     python3 tools/topk_sweep.py [--rows 1048576]
-                                [--dtype bfloat16|float32|int8|int4]
+                                [--dtype bfloat16|float32|int8|int4|pq]
 
 Run from the root of a checkout. On a seeded store of unit rows (bf16/f32
 for K1 ``topk_matmul``; quantized per row for K2 ``topk_matmul_int8`` and K3
-``topk_matmul_int4``) it prints, for each shape, one JSON line with the
-CUDA-event medians (after warm-up) of the wrapper (the CUDA kernel, with the
-query's quantization for K2/K3) and of its plain version, and the largest
-score difference; every answer is first held to the plain version's
-(``check_against_plain``, or ``check_exact`` for K2/K3), and the device
-time per call under ``torch.profiler``, split into pass 1, pass 2 and the
-other device operations. Every line carries the card's nvidia-smi name and
-power limit.
+``topk_matmul_int4``) or of random 4-bit PQ codes with M = D/8 subspaces
+and a random codebook (K4 ``pq_topk``) it prints, for each shape, one JSON
+line with the CUDA-event medians (after warm-up) of the wrapper (the CUDA
+kernel, with the query's quantization for K2/K3 and the lookup table for
+K4) and of its plain version, and the largest score difference; every
+answer is first held to the plain version's (``check_against_plain``, or
+``check_exact`` for K2-K4), and the device time per call under
+``torch.profiler``, split into pass 1, pass 2 and the other device
+operations. Every line carries the card's nvidia-smi name and power
+limit.
 """
 from __future__ import annotations
 
@@ -29,10 +31,13 @@ sys.path.insert(0, ROOT)
 
 from chip_smoke import (SCORE_TOL, card_line, cuda_median_ms,  # noqa: E402
                         quantized_unit_rows, report, unit_rows)
+from instsearch_torch.kernels.pq_scan import (pq_topk,  # noqa: E402
+                                               pq_topk_reference)
 from instsearch_torch.kernels.topk_matmul import (  # noqa: E402
     check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
     topk_matmul_int4_reference, topk_matmul_int8, topk_matmul_int8_reference,
     topk_matmul_reference)
+from instsearch_torch.ops.pq import PQCodebook, default_m  # noqa: E402
 from instsearch_torch.ops.quantize import (quantize_rows,  # noqa: E402
                                            quantize_rows_int4)
 
@@ -69,8 +74,8 @@ def device_split(fn, reps: int = 10) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
-    ap.add_argument("--dtype", choices=("bfloat16", "float32", "int8", "int4"),
-                    default="bfloat16")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32", "int8", "int4", "pq"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("topk_sweep: needs a CUDA device")
@@ -80,7 +85,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     for d in sorted({d for d, _, _ in SHAPES}):
-        if args.dtype in _INT:
+        if args.dtype == "pq":
+            m = default_m(d)
+            codes = torch.randint(-128, 128, (args.rows, m // 2),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int8)
+            cb = PQCodebook(0.25 * torch.randn(m, 16, d // m, generator=gen,
+                                               device="cuda"))
+            run = lambda q, k: pq_topk(codes, q, cb, k=k)  # noqa: E731
+            plain = lambda q, k: pq_topk_reference(  # noqa: E731
+                codes, q, cb, k=k)
+        elif args.dtype in _INT:
             quantize, fn, ref = _INT[args.dtype]
             st = quantized_unit_rows(gen, args.rows, d, quantize)
             run = lambda q, k: fn(st.values, st.scales, q, k=k)  # noqa: E731
@@ -93,13 +108,14 @@ def main() -> int:
             q = unit_rows(gen, b, d, torch.float32)
             s, i = run(q, k)
             rs, ri = plain(q, k)
-            err = (check_exact(s, i, rs, ri) if args.dtype in _INT else
+            err = (check_exact(s, i, rs, ri)
+                   if args.dtype in _INT or args.dtype == "pq" else
                    check_against_plain(x, q, s, i, rs, ri, SCORE_TOL))
             report(card, rows=args.rows, d=d, b=b, k=k, dtype=args.dtype,
                    max_abs_err=err, ms=cuda_median_ms(lambda: run(q, k)),
                    plain_ms=cuda_median_ms(lambda: plain(q, k), reps=5),
                    **device_split(lambda: run(q, k)))
-        st = x = None
+        st = x = codes = None
         torch.cuda.empty_cache()
     return 0
 
