@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs five phases; each raises on failure and the process exits non-zero.
+runs six phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
@@ -42,12 +42,33 @@ runs five phases; each raises on failure and the process exits non-zero.
      composite with K4 replaced by its plain version must give equal ids and
      scores. It prints, without checking, the build time, the cascade's
      recall@10 against the exact int4 route, the top-10 overlap with the
-     oracle route (f32 lookup table) and the query p50 at B = 1 and 128.
+     oracle route (f32 lookup table) and the query p50 at B = 1 and 128;
+  5. the ViT path through its entry points: a seeded random ViT-B/16 at 224
+     px (bf16, GeM, whitening to 512) on the K6 route
+     (``vit_attention="pallas"``) extracts 2048 seeded images, stored among
+     distractors (1M x 512 bf16) behind ``ServeCore``, the requests of
+     phase 2. K6 must launch 12 times and K1 once per bucket piece, no other
+     kernel; every top-1 must be its source; the plain route (a config with
+     ``vit_attention="xla"``, the same weights) must give the same top-1 and
+     descriptors within VIT_ROUTE_COS. Then high resolution on the K5 route
+     (``"flash"``): 1024 px (4,097 tokens, B = 4) and 2048 px (16,385
+     tokens, B = 1), K5 12 times per backbone pass, descriptors against the
+     plain route's where it fits. It prints extraction images/s of each
+     route and the query p50 at B = 1 and 128.
+
+Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
+versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
+bf16, 8 in f32), K5 at 4,097 and 16,385 (B = 1, bf16) and 1,025 (B = 2,
+f32), by ``check_attention`` (``kernels/vit_attention.py``), which must also
+reject two planted faults on every bf16 case (a key tile dropped, logits
+rounded to bf16), with the time of PyTorch's
+``scaled_dot_product_attention`` on the same tensors as the yardstick.
 
 Every measured number is printed with the card's nvidia-smi name and power
 limit. The line before the last is the kernel summary as JSON: per kernel its
 launches on the main path, its largest difference from its plain version,
-its median time and its plain version's at 1M rows, B = 1, k = 10, the least
+its median time and its plain version's at 1M rows, B = 1, k = 10 (K6 at
+[64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16), the least
 time the card could take for that work (``bound_ms``: the larger of the bytes
 read and written over 3.35 TB/s and the operations over the published peak
 rate for their type) and, where one PyTorch call computes the same function,
@@ -74,6 +95,13 @@ CORPUS_Q = 1024         # phase 3: images extracted at the presets' 512 px
 SCORE_TOL = 1e-5        # unit rows: f32 sums in two orders differ far below
 SIZES = (1, 3, 8, 13)   # images per served request
 PQ_ROWS_CAPACITY = 1 << 26   # bench.py::bench_pq_capacity's 64M rows
+VIT_CORPUS = 2048       # phase 5: images extracted by ViT-B/16 at 224 px
+VIT_LAYERS = 12         # ViT-B/16: one attention launch per layer and pass
+# cosine of the L2-normalized GeM descriptors of the kernel routes (f32
+# logits) against the plain route (bf16 logits), same weights and images;
+# measured 0.999996 at 224 px and above 0.999999 at 1024 and 2048 px on an
+# H100, so the bar leaves 25 times that gap
+VIT_ROUTE_COS = 0.9999
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
@@ -207,6 +235,124 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
     for shape, t in timings.items():
         report(card, phase=1, timing=shape, **t)
     return max(errs), timings
+
+
+def planted_faults(q, k, v, flash: bool) -> dict:
+    """Two faults a kernel could make, built from its plain version's
+    arithmetic (K5's tiles of 64 keys or K6's whole rows) on the same
+    inputs; ``check_attention`` must reject both:
+      * ``tile dropped``: the middle 64-key tile skipped (an off-by-one in
+        the key loop);
+      * ``bf16 logits``: the logits rounded to bf16 before the softmax, as
+        the plain einsum route keeps them."""
+    import math
+    import torch
+    from instsearch_torch.kernels.vit_attention import FLASH_KV_BLOCK
+    n, kb = q.shape[2], FLASH_KV_BLOCK
+    skip = n // kb // 2 * kb
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.float()
+
+    def logits_of(c0, c1, bf16):
+        s = qf @ k[:, :, c0:c1].float().transpose(-1, -2) * scale
+        return s.bfloat16().float() if bf16 else s
+
+    faults = {}
+    for name, drop, bf16 in (("tile dropped", True, False),
+                             ("bf16 logits", False, True)):
+        if not flash:
+            s = logits_of(0, n, bf16)
+            if drop:
+                s[..., skip:skip + kb] = -math.inf
+            e = torch.exp(s - s.amax(-1, keepdim=True))
+            p = e / e.sum(-1, keepdim=True)
+            faults[name] = (p.to(v.dtype).float() @ v.float()).to(q.dtype)
+            continue
+        m = torch.full(q.shape[:-1] + (1,), -1e30, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q.shape, device=q.device)
+        for c0 in range(0, n, kb):
+            if drop and c0 == skip:
+                continue
+            s = logits_of(c0, c0 + kb, bf16)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(-1, keepdim=True)
+            acc = corr * acc + p.to(v.dtype).float() @ v[
+                :, :, c0:c0 + kb].float()
+            m = m_new
+        faults[name] = (acc / l).to(q.dtype)
+    return faults
+
+
+def phase1_attention(card: str, gen) -> tuple[dict, dict]:
+    """K6 (mha) and K5 (flash_mha) against their plain versions at the ViT
+    shapes: B x 12 heads x N tokens x 64, N = 197 (224 px), 1,025, 4,097
+    (1024 px) and 16,385 (2048 px). q, k and v are views of one packed
+    [B, N, 3, 12, 64] tensor, the layout of the model's qkv projection that
+    the kernels read in place. K5's plain version is the tiled one (kv_block
+    64, as the kernel), which never holds the N x N logits, so it runs over
+    all 12 heads at once even at 16,385 tokens. Every output must pass
+    ``check_attention``; in bf16 the two faults of ``planted_faults`` must
+    fail it on the same inputs. Returns (largest error per kernel, timings
+    by case)."""
+    import torch
+    import torch.nn.functional as F
+    from instsearch_torch.kernels.vit_attention import (
+        attention_error, check_attention, flash_mha, flash_mha_reference, mha,
+        mha_reference)
+    errs = {"mha": 0.0, "flash_mha": 0.0}
+    timings = {}
+    for fn, ref, shape, kind in (
+            (mha, mha_reference, (1, 12, 197, 64), "bf16"),
+            (mha, mha_reference, (64, 12, 197, 64), "bf16"),
+            (mha, mha_reference, (8, 12, 197, 64), "f32"),
+            (flash_mha, flash_mha_reference, (1, 12, 4097, 64), "bf16"),
+            (flash_mha, flash_mha_reference, (1, 12, 16385, 64), "bf16"),
+            (flash_mha, flash_mha_reference, (2, 12, 1025, 64), "f32")):
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        b, h, n, hd = shape
+        qkv = torch.randn((b, n, 3, h, hd), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        label = f"{fn.__name__} {kind} {list(shape)}"
+        out = fn(q, k, v)
+        want = ref(q, k, v)
+        torch.cuda.synchronize()
+        try:
+            got = check_attention(out, want)
+        except AssertionError as e:
+            fail(f"{label}: against the plain version: {e}")
+        errs[fn.__name__] = max(errs[fn.__name__], got["max_abs_err"])
+        faults = {}
+        if kind == "bf16":
+            for name, bad in planted_faults(q, k, v, fn is flash_mha).items():
+                try:
+                    check_attention(bad, want)
+                except AssertionError:
+                    faults[name] = attention_error(bad, want)
+                    continue
+                fail(f"{label}: the planted fault '{name}' passes "
+                     f"check_attention")
+        report(card, phase=1, kernel=fn.__name__, case=label, **got,
+               planted_faults_rejected=faults)
+        del out, want
+        long = n > 2000
+        timings[label] = {
+            "ms": cuda_median_ms(lambda: fn(q, k, v), reps=5 if long else 20),
+            "plain_ms": cuda_median_ms(lambda: ref(q, k, v),
+                                       reps=3 if long else 10, warmup=1),
+            # the yardstick, which the port never calls
+            "library_ms": cuda_median_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v),
+                reps=5 if long else 20),
+            **bound(4 * b * h * n * hd * q.element_size(),
+                    4 * b * h * n * n * hd, kind)}
+        report(card, phase=1, timing=label, **timings[label])
+        del q, k, v, qkv
+        torch.cuda.empty_cache()
+    return errs, timings
 
 
 def quantized_unit_rows(gen, n: int, d: int, quantize):
@@ -413,27 +559,29 @@ def smooth_images(gen, n: int, size: int = IMAGE, batch: int = 256):
     return out
 
 
-def serve_requests(card, phase, core, images, picks, kernel, per_piece):
+def serve_requests(card, phase, core, images, picks, expect):
     """Warm ``core``, set every kernel's count to 0, serve one request per
-    pick and read the counts: ``kernel`` must have launched ``per_piece``
-    times for each bucket piece of the requests (a request splits into
-    pieces of the largest bucket, the last one padded), and no other kernel
-    at all. Every top-1 must be its source image. Returns the count."""
-    from instsearch_torch.kernels import (pq_topk, topk_matmul,
-                                          topk_matmul_int4, topk_matmul_int8)
-    everyone = (topk_matmul, topk_matmul_int8, topk_matmul_int4, pq_topk)
+    pick and read the counts: each kernel in ``expect`` (kernel -> launches
+    per piece) must have launched that many times for each bucket piece of
+    the requests (a request splits into pieces of the largest bucket, the
+    last one padded; a piece is one backbone pass and one search), and no
+    other kernel at all. Every top-1 must be its source image. Returns the
+    counts by kernel name."""
+    from instsearch_torch.kernels import (flash_mha, mha, pq_topk,
+                                          topk_matmul, topk_matmul_int4,
+                                          topk_matmul_int8)
+    everyone = (topk_matmul, topk_matmul_int8, topk_matmul_int4, pq_topk,
+                mha, flash_mha)
     core.warmup()
     for fn in everyone:
         fn.launches = 0
     answers = [core.run_queries([(images[p], 10)])[0] for p in picks]
     counts = {fn.__name__: fn.launches for fn in everyone}
-    name = kernel.__name__
     pieces = sum(-(-len(p) // core.buckets[-1]) for p in picks)
-    if counts[name] != per_piece * pieces:
-        fail(f"the requests launched {name} {counts[name]} times, not "
-             f"{per_piece} for each of their {pieces} bucket pieces")
-    if sum(counts.values()) != counts[name]:
-        fail(f"the requests launched other kernels too: {counts}")
+    want = {fn.__name__: expect.get(fn, 0) * pieces for fn in everyone}
+    if counts != want:
+        fail(f"the requests ({pieces} bucket pieces) launched {counts}, "
+             f"not {want}")
     for p, ans in zip(picks, answers):
         top1 = [row[0]["id"] for row in ans["results"]]
         if top1 != p.tolist():
@@ -442,7 +590,7 @@ def serve_requests(card, phase, core, images, picks, kernel, per_piece):
         report(card, phase=phase, request_images=len(p), top1_correct=True,
                top1_score_min=min(row[0]["score"] for row in ans["results"]),
                latency_ms=ans["latency_ms"])
-    return counts[name]
+    return counts
 
 
 def query_latency(card, phase, idx, ex, images, rng, **fields) -> dict:
@@ -481,8 +629,10 @@ def extract_corpus(card, phase, ex, images, batch: int):
     if not bool(torch.isfinite(raw).all()):
         fail("non-finite descriptors")
     report(card, phase=phase, extract_images_per_s=ips, batch=batch,
-           backbone=ex.cfg.backbone, image=ex.cfg.image_size,
-           dtype=ex.cfg.dtype)
+           images=len(images), backbone=ex.cfg.backbone,
+           image=ex.cfg.image_size, dtype=ex.cfg.dtype,
+           **({"vit_attention": ex.cfg.vit_attention}
+              if ex.cfg.backbone.startswith("vit") else {}))
     return raw, ips
 
 
@@ -522,7 +672,8 @@ def phase2(card: str, gen, topk, check) -> dict:
     core = ServeCore(idx)
     rng = np.random.default_rng(0)
     picks = [rng.choice(CORPUS, size=n, replace=False) for n in SIZES]
-    launches = serve_requests(card, 2, core, images, picks, topk, 1)
+    launches = serve_requests(card, 2, core, images, picks,
+                              {topk: 1})["topk_matmul"]
 
     # the scoring oracle's route, an index over the same store whose own
     # config has use_pallas off, gives the same results
@@ -608,7 +759,8 @@ def phase3(card: str, gen) -> dict:
                qe_n=cfg.search.qe_n, qe_alpha=cfg.search.qe_alpha,
                reduced=reduced)
         core = ServeCore(idx)
-        launches = serve_requests(card, 3, core, images, picks, kernel, 2)
+        launches = serve_requests(card, 3, core, images, picks,
+                                  {kernel: 2})[kernel.__name__]
 
         # the composite with the kernel entry replaced by its plain version
         q = ex(images[np.concatenate(picks)])
@@ -667,7 +819,8 @@ def phase4(card: str, corpus) -> dict:
                             f"f32 source rows would be 128 GiB); phase 1 "
                             f"times the scan over 64M codes"})
     core = ServeCore(idx)
-    launches = serve_requests(card, 4, core, images, picks, pq_topk, 2)
+    launches = serve_requests(card, 4, core, images, picks,
+                              {pq_topk: 2})["pq_topk"]
 
     # the composite with the kernel entry replaced by its plain version
     rng = np.random.default_rng(2)
@@ -696,6 +849,163 @@ def phase4(card: str, corpus) -> dict:
     lat = query_latency(card, 4, idx, ex, images, rng, store="int4 + PQ")
     return {"launches": launches, "latency": lat, "build_s": build_s,
             "recall": recall, "oracle_overlap": overlap}
+
+
+def vit_extract_config(size: int, attention: str, batch: int):
+    from instsearch_torch import ExtractConfig
+    return ExtractConfig(backbone="vit_b_16", pooling="gem", gem_p=3.0,
+                         image_size=size, dtype="bfloat16", batch_size=batch,
+                         vit_attention=attention)
+
+
+def route_cosine(a, b) -> tuple[float, float]:
+    """(min, median) row cosine of two descriptor sets."""
+    import torch
+    cos = torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=1)
+    return cos.min().item(), cos.median().item()
+
+
+def phase5(card: str, gen, topk) -> dict:
+    """The ViT serving path: ViT-B/16 at 224 px (bf16, GeM p=3, whitening to
+    512) on the K6 route extracts VIT_CORPUS seeded images, stored among
+    seeded unit distractors (1M x 512 bf16), behind ServeCore; the requests
+    of phase 2. K6 must launch VIT_LAYERS times and K1 once per bucket
+    piece, and no other kernel; every top-1 must be its source. The plain
+    route (an extractor and index whose own config has vit_attention="xla",
+    the same weights and whitening) must give the same top-1 and descriptors
+    within VIT_ROUTE_COS. Returns the results and the backbone's weights."""
+    import numpy as np
+    import torch
+    from instsearch_torch import IndexConfig, PipelineConfig, SearchConfig
+    from instsearch_torch.extractor import Extractor
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels import mha
+    from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
+    from instsearch_torch.serve import ServeCore
+
+    cfg = PipelineConfig(
+        extract=vit_extract_config(IMAGE, "pallas", 64).replace(
+            whiten=True, whiten_dim=DIM),
+        index=IndexConfig(dtype="bfloat16"), search=SearchConfig(k=10))
+    ex = Extractor(cfg.extract.replace(whiten=False), seed=0)
+    ex_x = Extractor(cfg.extract.replace(whiten=False, vit_attention="xla"),
+                     seed=0)
+    ex_x.model.load_state_dict(ex.model.state_dict())
+    images = smooth_images(gen, VIT_CORPUS)
+    raw, ips = extract_corpus(card, 5, ex, images, 64)
+    raw_x, ips_x = extract_corpus(card, 5, ex_x, images, 64)
+    raw_cos = route_cosine(raw, raw_x)
+    if raw_cos[0] < VIT_ROUTE_COS:
+        fail(f"ViT descriptors: K6 route and plain route cosine "
+             f"{raw_cos[0]} < {VIT_ROUTE_COS}")
+
+    ex.whitening = ex_x.whitening = fit_whitening(raw, dim=DIM)
+    corpus = apply_whitening(raw, ex.whitening)
+    if not bool(torch.isfinite(corpus).all()):
+        fail("non-finite whitened ViT descriptors")
+    distract = torch.randn(N_ROWS - VIT_CORPUS, DIM, generator=gen,
+                           device="cuda")
+    distract = distract / distract.norm(dim=1, keepdim=True)
+    names = ([f"img{i:05d}" for i in range(VIT_CORPUS)]
+             + [f"distractor{i:07d}" for i in range(N_ROWS - VIT_CORPUS)])
+    idx = Index.from_descriptors(torch.cat([corpus, distract]), names, cfg,
+                                 extractor=ex)
+    del distract, raw, raw_x
+    report(card, phase=5, backbone="vit_b_16", image=IMAGE, tokens=197,
+           vit_attention="pallas", store="bf16", rows=N_ROWS, dim=DIM,
+           corpus=VIT_CORPUS)
+    core = ServeCore(idx)
+    rng = np.random.default_rng(5)
+    picks = [rng.choice(VIT_CORPUS, size=n, replace=False) for n in SIZES]
+    counts = serve_requests(card, 5, core, images, picks,
+                            {topk: 1, mha: VIT_LAYERS})
+
+    # the plain route: the same store behind a config with vit_attention xla
+    cfg_x = cfg.replace(extract=cfg.extract.replace(vit_attention="xla"))
+    idx_x = Index(idx.descriptors, idx.ids, idx.names, cfg_x, ex_x)
+    sel = np.concatenate(picks)
+    q = ex(images[sel])
+    mha.launches = 0
+    _, ix = idx_x.query_images(images[sel])
+    if mha.launches:
+        fail("the plain attention route launched K6")
+    if not np.array_equal(ix[:, 0], sel):
+        fail(f"plain route: top-1 {ix[:, 0].tolist()} for {sel.tolist()}")
+    q_cos = route_cosine(q, ex_x(images[sel]))
+    report(card, phase=5, plain_route_top1_correct=True,
+           descriptor_cos_vs_plain_min=raw_cos[0],
+           descriptor_cos_vs_plain_median=raw_cos[1],
+           whitened_query_cos_vs_plain_min=q_cos[0],
+           mha_launches_in_main_path=counts["mha"],
+           topk_launches_in_main_path=counts["topk_matmul"],
+           extract_images_per_s_pallas=ips, extract_images_per_s_xla=ips_x)
+    lat = query_latency(card, 5, idx, ex, images, rng, backbone="vit_b_16")
+    return {"mha_launches": counts["mha"], "latency": lat, "ips": ips,
+            "ips_xla": ips_x, "cos": raw_cos, "q_cos": q_cos,
+            "weights": ex.model.state_dict()}
+
+
+def phase5_highres(card: str, gen, weights) -> dict:
+    """High-resolution extraction on the K5 route: ViT-B/16 with phase 5's
+    weights at 1024 px (4,097 tokens, batches of 4) and 2048 px (16,385
+    tokens, batches of 1), two batches each after a warm-up. K5 must launch
+    VIT_LAYERS times per backbone pass and K6 never; the descriptors must be
+    within VIT_ROUTE_COS of the plain route's, which must fit at 1024 px and
+    is reported at 2048 px where it fits. Returns rates and launches."""
+    import torch
+    from instsearch_torch.extractor import Extractor
+    from instsearch_torch.kernels import flash_mha, mha
+
+    def run(ex, imgs, b):
+        ex(imgs[:b])                                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = torch.cat([ex(imgs[s:s + b]) for s in range(0, len(imgs), b)])
+        torch.cuda.synchronize()
+        return d, len(imgs) / (time.perf_counter() - t0)
+
+    out = {"flash_launches": 0}
+    for size, b in ((1024, 4), (2048, 1)):
+        tokens = (size // 16) ** 2 + 1
+        imgs = smooth_images(gen, 2 * b, size=size, batch=b)
+        ex = Extractor(vit_extract_config(size, "flash", b), seed=0)
+        ex.model.load_state_dict(weights)
+        mha.launches = flash_mha.launches = 0
+        d, ips = run(ex, imgs, b)
+        passes = 1 + len(imgs) // b                   # warm-up included
+        if (flash_mha.launches, mha.launches) != (VIT_LAYERS * passes, 0):
+            fail(f"{size} px: K5 launched {flash_mha.launches} times and K6 "
+                 f"{mha.launches} in {passes} backbone passes")
+        out["flash_launches"] += flash_mha.launches
+        del ex
+        torch.cuda.empty_cache()
+        ex_x = Extractor(vit_extract_config(size, "xla", b), seed=0)
+        ex_x.model.load_state_dict(weights)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            dx, ips_x = run(ex_x, imgs, b)
+        except torch.cuda.OutOfMemoryError:
+            if size == 1024:
+                fail("the plain route ran out of memory at 1024 px")
+            dx = ips_x = None
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del ex_x
+        torch.cuda.empty_cache()
+        if dx is not None:
+            cos = route_cosine(d, dx)
+            if cos[0] < VIT_ROUTE_COS:
+                fail(f"{size} px: K5 route and plain route cosine {cos[0]} "
+                     f"< {VIT_ROUTE_COS}")
+            fields = {"descriptor_cos_vs_plain_min": cos[0],
+                      "extract_images_per_s_xla": ips_x,
+                      "xla_peak_gib": peak}
+        else:
+            fields = {"extract_images_per_s_xla": "out of memory"}
+        report(card, phase=5, image=size, tokens=tokens, batch=b,
+               vit_attention="flash", extract_images_per_s_flash=ips,
+               flash_launches=VIT_LAYERS * passes, **fields)
+        out[size] = {"ips": ips, **fields}
+    return out
 
 
 def main() -> int:
@@ -746,9 +1056,13 @@ def main() -> int:
     errs["pq"], t = phase1_pq(card, gen, pq_topk, pq_topk_reference,
                               check_exact)
     timings.update(t)
+    att_errs, att_timings = phase1_attention(card, gen)
     res = phase2(card, gen, topk_matmul, check_against_plain)
     res3, corpus = phase3(card, gen)
     res4 = phase4(card, corpus)
+    del corpus
+    res5 = phase5(card, gen, topk_matmul)
+    res5hr = phase5_highres(card, gen, res5.pop("weights"))
 
     rows = []
     for name, file, replaces, shape, launches in (
@@ -766,6 +1080,19 @@ def main() -> int:
                      "source": f"instsearch_torch/csrc/{file}",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
                      "launches": launches, "max_abs_err": errs[kind],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    for name, replaces, shape, launches in (
+            ("mha", "vit_attention.py:103", "mha bf16 [64, 12, 197, 64]",
+             res5["mha_launches"]),
+            ("flash_mha", "vit_attention.py:190",
+             "flash_mha bf16 [1, 12, 16385, 64]", res5hr["flash_launches"])):
+        t = att_timings[shape]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "instsearch_torch/csrc/vit_attention.cu",
+                     "replaces": f"instsearch_tpu/kernels/{replaces}",
+                     "launches": launches, "max_abs_err": att_errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

@@ -80,9 +80,13 @@ class ExtractConfig(_JsonMixin):
     whiten_dim: int = 0                 # 0 = keep full dimensionality
     dtype: str = "bfloat16"             # on-device compute dtype
     batch_size: int = 64
-    vit_attention: str = "auto"         # ViT backbones only (not ported
-                                        # yet, ROADMAP M11): auto | xla |
-                                        # pallas | flash in the reference
+    vit_attention: str = "auto"         # ViT backbones only: auto | xla |
+                                        # pallas | flash — 'auto' = the
+                                        # plain matmul path; 'pallas' the
+                                        # single-pass kernel (K6), 'flash'
+                                        # the tiled kernel (K5) for
+                                        # 16k-token (2048²) extraction
+                                        # (kernels/vit_attention.py)
 
     @property
     def descriptor_dim(self) -> int:

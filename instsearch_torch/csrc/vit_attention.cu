@@ -1,0 +1,736 @@
+// Forward multi-head attention for the ViT backbones, for Hopper (sm_90a):
+// K6 `mha` (one pass over whole logit rows) and K5 `flash_mha` (key/value
+// tiles with the online softmax).
+//
+// Replaces the TPU kernels of instsearch_tpu/kernels/vit_attention.py:
+//   * K6 `mha` (Pallas body `_attn_kernel`): q, k, v [B, h, N, hd] -> o of
+//     the same shape. f32 logits q.k * (1/sqrt(hd)), the softmax normalised
+//     in f32 over the N valid keys, p ROUNDED to the input dtype after the
+//     normalisation, p.v summed in f32, the result cast to the input dtype.
+//   * K5 `flash_mha` (Pallas body `_flash_kernel`): the same attention over
+//     key/value tiles of 64 keys, the TPU's sequential kv grid axis
+//     becoming a loop inside the block. Per tile: logits masked past N with
+//     the finite -1e30 (a fully masked tile then cannot NaN the rescale),
+//     m_new = max(m, tile max), p = exp(logits - m_new), corr = exp(m -
+//     m_new), l = corr * l + sum(p) of the UNROUNDED p, acc = corr * acc +
+//     p.v with p ROUNDED to the input dtype first; o = acc / l at the end.
+//     In bf16 K5 and K6 therefore differ: K5 rounds p before it is
+//     normalised, K6 after.
+// hd = 64 only, the head dim of ViT-B/16 and ViT-L/16.
+//
+// What bounds it on the card. The work is 4 * B * h * N^2 * hd operations
+// (two products of N x N x hd per head), the bytes only q, k, v and o: at
+// 16,385 tokens (2048 px) 824 GFLOP against 101 MB per layer, bound by
+// operations (0.83 ms at the tensor cores' 989 TFLOP/s in bf16); at 197
+// tokens and B = 64, 7.6 GFLOP against 39 MB, bound by bytes (0.012 ms).
+// Neither kernel writes the [N, N] logits to device memory.
+//
+// What the design does about it, simple first. One block of 128 threads per
+// (batch x head, tile of query rows); q, k and v tiles are staged in shared
+// memory with padded rows, so the loads of a warp fall in distinct banks.
+//   * bf16 (the served path): both products on the tensor cores with
+//     mma.sync m16n8k16 (bf16 operands, f32 sums); bf16 products are exact
+//     in f32. K5 gives each warp 16 of the block's 64 query rows and keeps
+//     their q fragments, m, l and 16 x 64 accumulator in registers; the
+//     logits of a key tile stay in registers and become p.v's A operand
+//     there (FlashAttention-2's layout), so only K and V^T are staged. K6
+//     keeps 16 query rows' whole f32 logit rows in shared memory (16 x 197
+//     x 4 B = 12.6 KB at 224 px), so it can normalise before it rounds; its
+//     shared memory grows with N and the wrapper refuses N past what 227 KB
+//     holds (about 3,264 tokens), naming flash_mha.
+//   * f32: the same plans on CUDA cores, plain FMA (f32 inputs are never
+//     rounded to TF32), each thread a register tile (8 rows x 4 keys in K5,
+//     2 x 4 in K6) fed by 16-byte shared loads.
+//   * Not yet: wgmma, TMA or cp.async double buffering, warp
+//     specialisation; the staging waits on its loads each tile.
+//
+// Layout: q, k and v are [B, h, N, hd] views with any element strides over
+// B, h and N (shared by the three) and hd contiguous, so the model passes
+// its qkv projection [B, N, 3, h, hd] as it is (row stride 3 h hd, head
+// offset hd) and nothing is transposed or copied; o has strides of its own
+// (the wrapper gives it [B, N, h, hd] memory, so merging the heads is free).
+//
+// The wrappers (instsearch_torch/kernels/vit_attention.py) allocate the
+// output and check shapes, dtypes, devices, strides and alignment; this file
+// allocates nothing and launches on the caller's stream.
+
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kHd = 64;            // head dim the kernels are built for
+constexpr int kThreads = 128;
+constexpr int kStride = kHd + 4;   // f32 row stride of a staged tile: 272
+                                   // bytes, so 8 rows' 16-byte loads fall
+                                   // in 8 distinct bank groups
+constexpr int kMhaRows = 16;       // K6: query rows per block
+constexpr int kMhaKeys = 64;       // K6: keys staged per chunk
+constexpr int kFlashRows = 64;     // K5: query rows per block
+constexpr int kFlashKeys = 64;     // K5: keys per key/value tile
+constexpr float kFlashNeg = -1e30f;
+constexpr int kBStride = kHd + 8;  // bf16 row stride of a staged tile: 144
+                                   // bytes, so the 8 rows x 4 words of an
+                                   // mma fragment load hit 32 banks
+using bf16 = __nv_bfloat16;
+
+// Element strides of a [B, h, N, hd] operand over B, h and N (hd is
+// contiguous).
+struct Layout {
+  long long b, h, n;
+};
+
+// Offset of block (batch x head) blockIdx.y's head in an operand.
+__device__ __forceinline__ size_t head_base(const Layout& s, int heads) {
+  return (size_t)(blockIdx.y / heads) * s.b + (size_t)(blockIdx.y % heads) * s.h;
+}
+
+// round to bf16 (to nearest, ties to even) and back, as `.to(bfloat16)`
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Rows [row0, row0 + rows) of one head's f32 [n, kHd] matrix (row stride
+// ld) into shared memory as [rows][kStride]; rows at or past n are zeros.
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          size_t ld, int row0, int rows,
+                                          int n) {
+  for (int i = threadIdx.x; i < rows * (kHd / 4); i += kThreads) {
+    const int r = i / (kHd / 4);
+    const int c = (i % (kHd / 4)) * 4;
+    *reinterpret_cast<float4*>(dst + r * kStride + c) = row0 + r < n
+        ? __ldg(reinterpret_cast<const float4*>(src + (row0 + r) * ld + c))
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Over each half-warp of 16 lanes; every lane ends with the same bits (a
+// butterfly adds the same two values on both partners at every step).
+__device__ __forceinline__ float half_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void fma4(float& acc, const float4& a,
+                                     const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void axpy4(float (&acc)[4], float p,
+                                      const float4& v) {
+  acc[0] = fmaf(p, v.x, acc[0]);
+  acc[1] = fmaf(p, v.y, acc[1]);
+  acc[2] = fmaf(p, v.z, acc[2]);
+  acc[3] = fmaf(p, v.w, acc[3]);
+}
+
+__device__ __forceinline__ void store_row4(float* dst, const float (&acc)[4],
+                                           float div) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(acc[0] / div, acc[1] / div, acc[2] / div, acc[3] / div);
+}
+
+// K6's softmax over the n valid keys of each of its kMhaRows logit rows in
+// shared memory, one warp per row: exp(x - max) / sum in f32, then (kRound)
+// rounded to bf16; the padding up to npad becomes 0.
+template <bool kRound>
+__device__ __forceinline__ void softmax_rows(float* s, int sstride, int n,
+                                             int npad) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kMhaRows; r += kThreads / 32) {
+    float* row = s + r * sstride;
+    float m = -INFINITY;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < npad; j += 32) {
+      const float p = j < n ? row[j] / sum : 0.f;
+      row[j] = kRound ? round_bf16(p) : p;
+    }
+  }
+}
+
+// K6 in f32. Block (query tile, batch x head); thread t owns query rows
+// 2 (t / 16) and 2 (t / 16) + 1 and, in the logits, keys t % 16 + 16 j of a
+// chunk; in p.v, dims 4 (t % 16) .. + 3.
+__global__ void __launch_bounds__(kThreads)
+    mha_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   Layout in, Layout out, int heads, int n, int npad,
+                   float scale) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);   // [kMhaRows][kStride]
+  float* kv = qs + kMhaRows * kStride;           // [kMhaKeys][kStride]
+  float* s = kv + kMhaKeys * kStride;            // [kMhaRows][sstride]
+  const int sstride = npad + 4;
+  const size_t base = head_base(in, heads);
+  const int q0 = blockIdx.x * kMhaRows;
+  const int t = threadIdx.x;
+  const int r0 = 2 * (t / 16);
+  const int g = t % 16;
+
+  stage_f32(qs, q + base, in.n, q0, kMhaRows, n);
+  for (int c0 = 0; c0 < npad; c0 += kMhaKeys) {
+    __syncthreads();                 // kv free (and qs staged)
+    stage_f32(kv, k + base, in.n, c0, kMhaKeys, n);
+    __syncthreads();
+    float acc[2][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < kHd; d += 4) {
+      const float4 qa = *reinterpret_cast<const float4*>(qs + r0 * kStride + d);
+      const float4 qb =
+          *reinterpret_cast<const float4*>(qs + (r0 + 1) * kStride + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 kk =
+            *reinterpret_cast<const float4*>(kv + (g + 16 * j) * kStride + d);
+        fma4(acc[0][j], qa, kk);
+        fma4(acc[1][j], qb, kk);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[(r0 + i) * sstride + c0 + g + 16 * j] = acc[i][j] * scale;
+  }
+  __syncthreads();
+
+  softmax_rows<false>(s, sstride, n, npad);
+
+  float acc[2][4] = {};
+  for (int c0 = 0; c0 < npad; c0 += kMhaKeys) {
+    __syncthreads();                 // kv free, s normalised
+    stage_f32(kv, v + base, in.n, c0, kMhaKeys, n);
+    __syncthreads();
+#pragma unroll 2
+    for (int j = 0; j < kMhaKeys; j += 4) {
+      const float4 pa =
+          *reinterpret_cast<const float4*>(s + r0 * sstride + c0 + j);
+      const float4 pb =
+          *reinterpret_cast<const float4*>(s + (r0 + 1) * sstride + c0 + j);
+      const float pav[4] = {pa.x, pa.y, pa.z, pa.w};
+      const float pbv[4] = {pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(kv + (j + e) * kStride + 4 * g);
+        axpy4(acc[0], pav[e], vv);
+        axpy4(acc[1], pbv[e], vv);
+      }
+    }
+  }
+  const size_t obase = head_base(out, heads);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + i;
+    if (row < n) store_row4(o + obase + row * out.n + 4 * g, acc[i], 1.f);
+  }
+}
+
+// K5 in f32. Block (query tile, batch x head); thread t owns query rows
+// 8 (t / 16) .. + 7 and, in the logits, keys t % 16 + 16 j of a tile; in
+// p.v, dims 4 (t % 16) .. + 3 of the same rows, so m, l and the rescale
+// stay in its registers.
+__global__ void __launch_bounds__(kThreads)
+    flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     Layout in, Layout out, int heads, int n, float scale) {
+  constexpr int KB = kFlashKeys;
+  constexpr int RPT = kFlashRows / 8;   // rows per thread
+  constexpr int KPT = KB / 16;          // keys per thread in a tile
+  constexpr int PS = KB + 4;            // row stride of the p tile
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);   // [kFlashRows][kStride]
+  float* ks = qs + kFlashRows * kStride;         // [KB][kStride]
+  float* vs = ks + KB * kStride;                 // [KB][kStride]
+  float* ps = vs + KB * kStride;                 // [kFlashRows][PS]
+  const size_t base = head_base(in, heads);
+  const int q0 = blockIdx.x * kFlashRows;
+  const int t = threadIdx.x;
+  const int r0 = RPT * (t / 16);
+  const int g = t % 16;
+
+  float m[RPT], l[RPT], acc[RPT][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = kFlashNeg;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+
+  stage_f32(qs, q + base, in.n, q0, kFlashRows, n);
+  for (int c0 = 0; c0 < n; c0 += KB) {
+    __syncthreads();                 // ks, vs, ps free (and qs staged)
+    stage_f32(ks, k + base, in.n, c0, KB, n);
+    stage_f32(vs, v + base, in.n, c0, KB, n);
+    __syncthreads();
+
+    float sc[RPT][KPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) sc[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < kHd; d += 4) {
+      float4 kk[KPT];
+#pragma unroll
+      for (int j = 0; j < KPT; ++j)
+        kk[j] = *reinterpret_cast<const float4*>(ks + (g + 16 * j) * kStride
+                                                 + d);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 qq =
+            *reinterpret_cast<const float4*>(qs + (r0 + i) * kStride + d);
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) fma4(sc[i][j], qq, kk[j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float mx = kFlashNeg;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        sc[i][j] = c0 + g + 16 * j < n ? sc[i][j] * scale : kFlashNeg;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        sum += p;
+        ps[(r0 + i) * PS + g + 16 * j] = p;
+      }
+      l[i] = corr * l[i] + half_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= corr;
+    }
+    __syncthreads();                 // the p tile is complete
+
+#pragma unroll 2
+    for (int j = 0; j < KB; j += 4) {
+      float4 vv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        vv[e] = *reinterpret_cast<const float4*>(vs + (j + e) * kStride
+                                                 + 4 * g);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 pp =
+            *reinterpret_cast<const float4*>(ps + (r0 + i) * PS + j);
+        axpy4(acc[i], pp.x, vv[0]);
+        axpy4(acc[i], pp.y, vv[1]);
+        axpy4(acc[i], pp.z, vv[2]);
+        axpy4(acc[i], pp.w, vv[3]);
+      }
+    }
+  }
+  const size_t obase = head_base(out, heads);
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + r0 + i;
+    if (row < n) store_row4(o + obase + row * out.n + 4 * g, acc[i], l[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync m16n8k16, bf16 operands, f32 sums.
+// Fragment layouts (PTX ISA): with g = lane / 4 and c = 2 (lane % 4), a
+// thread holds A (16 x 16, row major) at rows g and g + 8, columns c, c + 1
+// and c + 8, c + 9; B (16 x 8) at k = c, c + 1 and c + 8, c + 9 of column
+// g; C (16 x 8, f32) at rows g and g + 8, columns c, c + 1. A C fragment of
+// two neighbouring key tiles is thus the A fragment of p over those 16 keys.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (to nearest, ties to even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Rows [row0, row0 + rows) of one head's bf16 [n, kHd] matrix (row stride
+// ld) into shared memory as bf16 [rows][kBStride]; rows at or past n are
+// zeros.
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
+                                           size_t ld, int row0, int rows,
+                                           int n) {
+  for (int i = threadIdx.x; i < rows * (kHd / 8); i += kThreads) {
+    const int r = i / (kHd / 8);
+    const int c = (i % (kHd / 8)) * 8;
+    const uint4 raw = row0 + r < n
+        ? __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * ld + c))
+        : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(dst + r * kBStride + c) = raw;
+  }
+}
+
+// The same rows transposed, dst[d][r] with row stride S (a multiple of 8
+// plus 8): the B operand of p.v reads two neighbouring keys of one dim as
+// one word. Neighbouring threads take neighbouring keys.
+template <int S>
+__device__ __forceinline__ void stage_bf16_t(bf16* dst, const bf16* src,
+                                             size_t ld, int row0, int rows,
+                                             int n) {
+  for (int i = threadIdx.x; i < rows * (kHd / 8); i += kThreads) {
+    const int r = i % rows;
+    const int c = (i / rows) * 8;
+    const uint4 raw = row0 + r < n
+        ? __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * ld + c))
+        : make_uint4(0u, 0u, 0u, 0u);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * S + r] = e[j];
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// K6 in bf16: mha_kernel_f32's plan (16 query rows, their f32 logit rows in
+// shared memory, the softmax unchanged) with both products on the tensor
+// cores. In q.k^T warp w takes keys 16 w .. + 15 of each 64-key chunk, in
+// p.v dims 16 w .. + 15; p is read back as the bf16 values the softmax
+// rounded it to.
+__global__ void __launch_bounds__(kThreads)
+    mha_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   Layout in, Layout out, int heads, int n, int npad,
+                   float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);     // [kMhaRows][kBStride]
+  bf16* ks = qs + kMhaRows * kBStride;           // [kMhaKeys][kBStride]
+  bf16* vt = ks + kMhaKeys * kBStride;           // [kHd][kBStride]
+  float* s = reinterpret_cast<float*>(vt + kHd * kBStride);
+  const int sstride = npad + 4;
+  const size_t base = head_base(in, heads);
+  const int q0 = blockIdx.x * kMhaRows;
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
+
+  stage_bf16(qs, q + base, in.n, q0, kMhaRows, n);
+  for (int c0 = 0; c0 < npad; c0 += kMhaKeys) {
+    __syncthreads();                 // ks free (and qs staged)
+    stage_bf16(ks, k + base, in.n, c0, kMhaKeys, n);
+    __syncthreads();
+    float acc[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kHd; kk += 16) {
+      const uint32_t a[4] = {ld32(qs + g * kBStride + kk + c),
+                             ld32(qs + (g + 8) * kBStride + kk + c),
+                             ld32(qs + g * kBStride + kk + 8 + c),
+                             ld32(qs + (g + 8) * kBStride + kk + 8 + c)};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bf16* kr = ks + (16 * warp + 8 * j + g) * kBStride + kk;
+        mma_bf16(acc[j], a, ld32(kr + c), ld32(kr + 8 + c));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = c0 + 16 * warp + 8 * j + c;
+      *reinterpret_cast<float2*>(s + g * sstride + col) =
+          make_float2(acc[j][0] * scale, acc[j][1] * scale);
+      *reinterpret_cast<float2*>(s + (g + 8) * sstride + col) =
+          make_float2(acc[j][2] * scale, acc[j][3] * scale);
+    }
+  }
+  __syncthreads();
+
+  softmax_rows<true>(s, sstride, n, npad);
+
+  float acc[2][4] = {};
+  for (int c0 = 0; c0 < npad; c0 += kMhaKeys) {
+    __syncthreads();                 // vt free, s normalised
+    stage_bf16_t<kBStride>(vt, v + base, in.n, c0, kMhaKeys, n);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kMhaKeys; kk += 16) {
+      const float* p0 = s + g * sstride + c0 + kk + c;
+      const float* p1 = s + (g + 8) * sstride + c0 + kk + c;
+      const uint32_t a[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p1[0], p1[1]),
+                             pack_bf16(p0[8], p0[9]),
+                             pack_bf16(p1[8], p1[9])};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bf16* vr = vt + (16 * warp + 8 * j + g) * kBStride + kk;
+        mma_bf16(acc[j], a, ld32(vr + c), ld32(vr + 8 + c));
+      }
+    }
+  }
+  const size_t obase = head_base(out, heads);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int dim = 16 * warp + 8 * j + c;
+    if (q0 + g < n)
+      *reinterpret_cast<uint32_t*>(o + obase + (q0 + g) * out.n + dim) =
+          pack_bf16(acc[j][0], acc[j][1]);
+    if (q0 + g + 8 < n)
+      *reinterpret_cast<uint32_t*>(o + obase + (q0 + g + 8) * out.n + dim) =
+          pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
+
+// K5 in bf16: each warp owns 16 of the block's 64 query rows, its q
+// fragments, its rows' m and l and their 16 x 64 accumulator in registers;
+// the logits of a key tile stay in registers and become p.v's A operand
+// there (FlashAttention-2's layout), so nothing but K and V^T is staged.
+__global__ void __launch_bounds__(kThreads)
+    flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     Layout in, Layout out, int heads, int n, float scale) {
+  constexpr int KB = kFlashKeys;
+  constexpr int NT = KB / 8;         // key tiles of 8 in the logits
+  constexpr int VS = KB + 8;         // row stride of the staged V^T
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);     // [kFlashRows][kBStride]
+  bf16* ks = qs + kFlashRows * kBStride;         // [KB][kBStride]
+  bf16* vt = ks + KB * kBStride;                 // [kHd][VS]
+  const size_t base = head_base(in, heads);
+  const int q0 = blockIdx.x * kFlashRows;
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
+  const int wr = 16 * (t / 32);      // the warp's first row in the block
+
+  stage_bf16(qs, q + base, in.n, q0, kFlashRows, n);
+  __syncthreads();
+  uint32_t qa[kHd / 16][4];
+#pragma unroll
+  for (int i = 0; i < kHd / 16; ++i) {
+    qa[i][0] = ld32(qs + (wr + g) * kBStride + 16 * i + c);
+    qa[i][1] = ld32(qs + (wr + g + 8) * kBStride + 16 * i + c);
+    qa[i][2] = ld32(qs + (wr + g) * kBStride + 16 * i + 8 + c);
+    qa[i][3] = ld32(qs + (wr + g + 8) * kBStride + 16 * i + 8 + c);
+  }
+  float m[2] = {kFlashNeg, kFlashNeg}, l[2] = {0.f, 0.f};
+  float acc[kHd / 8][4] = {};
+
+  for (int c0 = 0; c0 < n; c0 += KB) {
+    __syncthreads();                 // ks, vt free
+    stage_bf16(ks, k + base, in.n, c0, KB, n);
+    stage_bf16_t<VS>(vt, v + base, in.n, c0, KB, n);
+    __syncthreads();
+
+    float sc[NT][4] = {};
+#pragma unroll
+    for (int i = 0; i < kHd / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const bf16* kr = ks + (8 * j + g) * kBStride + 16 * i;
+        mma_bf16(sc[j], qa[i], ld32(kr + c), ld32(kr + 8 + c));
+      }
+
+    float mx[2] = {kFlashNeg, kFlashNeg};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = c0 + 8 * j + c + (e & 1) < n ? sc[j][e] * scale
+                                                : kFlashNeg;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = expf(sc[j][e] - m[e >> 1]);
+        sum[e >> 1] += sc[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = corr[r] * l[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int d = 0; d < kHd / 8; ++d) {
+      acc[d][0] *= corr[0];
+      acc[d][1] *= corr[0];
+      acc[d][2] *= corr[1];
+      acc[d][3] *= corr[1];
+    }
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * i][0], sc[2 * i][1]),
+                              pack_bf16(sc[2 * i][2], sc[2 * i][3]),
+                              pack_bf16(sc[2 * i + 1][0], sc[2 * i + 1][1]),
+                              pack_bf16(sc[2 * i + 1][2], sc[2 * i + 1][3])};
+#pragma unroll
+      for (int d = 0; d < kHd / 8; ++d) {
+        const bf16* vr = vt + (8 * d + g) * VS + 16 * i;
+        mma_bf16(acc[d], pa, ld32(vr + c), ld32(vr + 8 + c));
+      }
+    }
+  }
+  const size_t obase = head_base(out, heads);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int d = 0; d < kHd / 8; ++d)
+      *reinterpret_cast<uint32_t*>(o + obase + row * out.n + 8 * d + c) =
+          pack_bf16(acc[d][2 * r] / l[r], acc[d][2 * r + 1] / l[r]);
+  }
+}
+
+size_t mha_smem(int npad, int dtype) {
+  const size_t tiles = dtype == 1
+      ? sizeof(bf16) * (size_t)(kMhaRows + kMhaKeys + kHd) * kBStride
+      : sizeof(float) * (size_t)(kMhaRows + kMhaKeys) * kStride;
+  return tiles + sizeof(float) * (size_t)kMhaRows * (npad + 4);
+}
+
+size_t flash_smem(int dtype) {
+  constexpr int kb = kFlashKeys;
+  if (dtype == 1)
+    return sizeof(bf16) * ((size_t)(kFlashRows + kb) * kBStride
+                           + (size_t)kHd * (kb + 8));
+  return sizeof(float) * ((size_t)(kFlashRows + 2 * kb) * kStride
+                          + (size_t)kFlashRows * (kb + 4));
+}
+
+float softmax_scale(int hd) { return (float)(1.0 / sqrt((double)hd)); }
+
+// One launch of `kernel` (f32: the FMA kernels; bf16: the mma ones) over a
+// (query tiles, batch x head) grid with `smem` bytes of shared memory.
+template <typename T, typename... Args>
+cudaError_t launch(void (*kernel)(const T*, const T*, const T*, T*, Args...),
+                   int rows, int bh, int n, size_t smem, cudaStream_t stream,
+                   const void* q, const void* k, const void* v, void* o,
+                   Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + rows - 1) / rows, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), args...);
+  return cudaGetLastError();
+}
+
+cudaError_t run_mha(const void* q, const void* k, const void* v, void* o,
+                    Layout in, Layout out, int heads, int bh, int n,
+                    int dtype, cudaStream_t stream) {
+  const int npad = (n + kMhaKeys - 1) / kMhaKeys * kMhaKeys;
+  const size_t smem = mha_smem(npad, dtype);
+  const float scale = softmax_scale(kHd);
+  if (dtype == 1)
+    return launch(mha_kernel_mma, kMhaRows, bh, n, smem, stream, q, k, v, o,
+                  in, out, heads, n, npad, scale);
+  return launch(mha_kernel_f32, kMhaRows, bh, n, smem, stream, q, k, v, o, in,
+                out, heads, n, npad, scale);
+}
+
+cudaError_t run_flash(const void* q, const void* k, const void* v, void* o,
+                      Layout in, Layout out, int heads, int bh, int n,
+                      int dtype, cudaStream_t stream) {
+  const size_t smem = flash_smem(dtype);
+  const float scale = softmax_scale(kHd);
+  if (dtype == 1)
+    return launch(flash_kernel_mma, kFlashRows, bh, n, smem, stream, q, k, v,
+                  o, in, out, heads, n, scale);
+  return launch(flash_kernel_f32, kFlashRows, bh, n, smem, stream, q, k, v, o,
+                in, out, heads, n, scale);
+}
+
+bool bad_shape(int b, int h, int n, int hd, int dtype) {
+  return hd != kHd || n < 1 || b < 1 || h < 1 || (long long)b * h > 65535 ||
+         (dtype != 0 && dtype != 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory K6 needs at n tokens of `dtype`; the wrapper refuses n past
+// 227 KB.
+long long isf_mha_smem(int n, int dtype) {
+  return (long long)mha_smem((n + kMhaKeys - 1) / kMhaKeys * kMhaKeys, dtype);
+}
+
+// q, k, v: [b, h, n, hd] with element strides (sb, sh, sn) over b, h, n,
+// shared by the three, hd = 64 contiguous; o: the same shape with strides
+// (ob, oh, on). Every row starts 16-byte aligned. dtype 0 = float32,
+// 1 = bfloat16. Returns the CUDA error code (0 = launched).
+int isf_mha(const void* q, const void* k, const void* v, void* o, int b,
+            int h, int n, int hd, int dtype, long long sb, long long sh,
+            long long sn, long long ob, long long oh, long long on,
+            void* stream_ptr) {
+  if (bad_shape(b, h, n, hd, dtype)) return (int)cudaErrorInvalidValue;
+  return (int)run_mha(q, k, v, o, Layout{sb, sh, sn}, Layout{ob, oh, on}, h,
+                      b * h, n, dtype, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// As isf_mha for K5 (key tiles of 64).
+int isf_flash_mha(const void* q, const void* k, const void* v, void* o,
+                  int b, int h, int n, int hd, int dtype, long long sb,
+                  long long sh, long long sn, long long ob, long long oh,
+                  long long on, void* stream_ptr) {
+  if (bad_shape(b, h, n, hd, dtype)) return (int)cudaErrorInvalidValue;
+  return (int)run_flash(q, k, v, o, Layout{sb, sh, sn}, Layout{ob, oh, on}, h,
+                        b * h, n, dtype,
+                        static_cast<cudaStream_t>(stream_ptr));
+}
+
+}  // extern "C"

@@ -13,6 +13,8 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from ..ops.resize import resize_bilinear
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -96,13 +98,11 @@ def normalize(images: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def rescale(images: torch.Tensor, scale: float) -> torch.Tensor:
-    """Multi-scale resize of NHWC ``images``. Only a scale that keeps the
-    size is ported: the reference's ``jax.image.resize`` antialiases when it
-    downsamples and ``F.interpolate`` does not by default, so other scales
-    wait for the multi-scale item of ROADMAP M3."""
+    """Multi-scale resize of NHWC ``images`` (arXiv:1711.02512): bilinear,
+    antialiased when it shrinks, as the reference's ``jax.image.resize``
+    (``ops/resize.py``)."""
     n, h, w, c = images.shape
-    if (max(1, round(h * scale)), max(1, round(w * scale))) == (h, w):
+    nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
+    if (nh, nw) == (h, w):
         return images
-    raise NotImplementedError(
-        f"scale {scale}: multi-scale extraction is not ported yet "
-        f"(ROADMAP M3, multi-scale resize)")
+    return resize_bilinear(images, (nh, nw))

@@ -3,9 +3,10 @@
 ``Extractor``).
 
 Eager PyTorch on one device: uint8 ``[B, S, S, 3]`` in, unit-norm ``[B, D]``
-f32 out. Flip TTA runs the mirrored batch too and averages. Multi-scale,
-regional (R-MAC) and combined extraction, and the data-parallel mesh, are
-not ported yet (ROADMAP M3, M5, M6).
+f32 out. Multi-scale extraction runs the backbone once per scale and flip
+TTA the mirrored batch too; the L2-normalized descriptors are averaged.
+Regional (R-MAC) and combined extraction, the data-parallel mesh and the
+ViT's tensor-parallel attention are not ported yet (ROADMAP M5, M6, M11).
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import torch
 
 from .data import frontend
 from .models import get_backbone
-from .models.jax_import import load_jax_resnet
+from .models.jax_import import load_jax_resnet, load_jax_vit
 from .models.registry import descriptor_dim
+from .models.vit import ViT
 from .ops import l2_normalize, pool
 from .ops.whitening import WhiteningParams, apply_whitening
 from .utils.device import resolve_device
@@ -31,7 +33,8 @@ def build_extract_fn(cfg, device=None):
     uint8 or [0, 1] float tensor ``[N, S, S, 3]`` on the model's device
     (``device``, the CUDA card by default)."""
     dtype = _DTYPES[cfg.dtype]
-    model, _ = get_backbone(cfg.backbone, dtype=dtype, device=device)
+    model, _ = get_backbone(cfg.backbone, dtype=dtype, device=device,
+                            attention=cfg.vit_attention)
 
     @torch.inference_mode()
     def extract(images: torch.Tensor,
@@ -58,10 +61,10 @@ class Extractor:
     """Holds the backbone, its weights and the fitted whitening.
 
     ``variables``: the reference's Flax variables (loaded through
-    ``models.jax_import``); None draws seeded random weights with Flax's
-    initializer distributions (``ResNet.init_weights``). ``device``
-    defaults to the CUDA card; without one it raises unless the caller
-    passes ``device="cpu"``."""
+    ``models.jax_import``, by the model's family); None draws seeded random
+    weights with Flax's initializer distributions (``init_weights``).
+    ``device`` defaults to the CUDA card; without one it raises unless the
+    caller passes ``device="cpu"``."""
 
     def __init__(self, cfg, variables: dict | None = None,
                  whitening: WhiteningParams | None = None, seed: int = 0,
@@ -77,6 +80,8 @@ class Extractor:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             self.model.init_weights(gen)
+        elif isinstance(self.model, ViT):
+            load_jax_vit(self.model, variables)
         else:
             load_jax_resnet(self.model, variables)
         self.model.eval()

@@ -123,5 +123,14 @@ def load() -> ctypes.CDLL:
         lib.isf_pq_topk.restype = i
         lib.isf_pq_pass1_smem.argtypes = [i, i, i]
         lib.isf_pq_pass1_smem.restype = ctypes.c_longlong
+        ll = ctypes.c_longlong
+        lib.isf_mha.argtypes = [p, p, p, p, i, i, i, i, i,
+                                ll, ll, ll, ll, ll, ll, p]
+        lib.isf_mha.restype = i
+        lib.isf_mha_smem.argtypes = [i, i]
+        lib.isf_mha_smem.restype = ctypes.c_longlong
+        lib.isf_flash_mha.argtypes = [p, p, p, p, i, i, i, i, i,
+                                      ll, ll, ll, ll, ll, ll, p]
+        lib.isf_flash_mha.restype = i
         _lib = lib
         return lib

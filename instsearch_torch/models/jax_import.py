@@ -1,12 +1,16 @@
-"""Flax ResNet variables -> the port's state_dict: the inverse of
-``instsearch_tpu/models/torch_import.py::load_torch_resnet``.
+"""Flax ResNet and ViT variables -> the port's state_dicts: the inverses of
+``instsearch_tpu/models/torch_import.py::load_torch_resnet`` and
+``load_torch_vit``.
 
 ``variables`` is the reference's pytree of arrays (numpy or anything
-``np.asarray`` takes): ``{"params": ..., "batch_stats": ...}`` with HWIO conv
-kernels. Conv kernels become OIHW, BatchNorm ``scale``/``bias``/``mean``/
-``var`` become ``weight``/``bias``/``running_mean``/``running_var``. Unknown
-or missing leaves raise, as the importer does: a silently skipped layer
-would leave random weights in the network.
+``np.asarray`` takes): ``{"params": ..., "batch_stats": ...}`` for a ResNet,
+``{"params": ...}`` for a ViT. Conv kernels go from HWIO to OIHW, Dense
+kernels from ``[in, out]`` to Linear's ``[out, in]``; LayerNorm and
+BatchNorm ``scale`` becomes ``weight``, BatchNorm ``mean``/``var`` become
+``running_mean``/``running_var``; the ViT's ``class_token`` and
+``pos_embedding`` are carried as they are. Unknown or missing leaves raise,
+as the importer does: a silently skipped layer would leave random weights
+in the network.
 """
 from __future__ import annotations
 
@@ -18,6 +22,9 @@ import torch
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+_VIT_MODULE = re.compile(
+    r"conv_proj|ln|encoder_layer_\d+\.(ln_1|qkv|out|ln_2|linear_1|linear_2)")
+_VIT_TOP = ("class_token", "pos_embedding")
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
@@ -58,17 +65,23 @@ def from_jax_resnet(variables: Mapping[str, Any],
             sd[f"{_torch_name(tuple(mod))}.{table[leaf]}"] = \
                 torch.from_numpy(np.ascontiguousarray(arr))
     if model is not None:
-        want = {k: tuple(v.shape) for k, v in model.state_dict().items()
-                if not k.endswith("num_batches_tracked")}
-        got = {k: tuple(v.shape) for k, v in sd.items()}
-        missing = sorted(set(want) - set(got))
-        extra = sorted(set(got) - set(want))
-        bad = sorted(k for k in set(want) & set(got) if want[k] != got[k])
-        if missing or extra or bad:
-            raise ValueError(f"variables do not fit the model: missing="
-                             f"{missing[:5]} extra={extra[:5]} "
-                             f"shape_mismatch={bad[:5]}")
+        _check_fits(sd, model)
     return sd
+
+
+def _check_fits(sd: dict, model: torch.nn.Module) -> None:
+    """Raise unless ``sd`` has exactly the model's keys (BatchNorm's step
+    counters aside) and shapes."""
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    bad = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+    if missing or extra or bad:
+        raise ValueError(f"variables do not fit the model: missing="
+                         f"{missing[:5]} extra={extra[:5]} "
+                         f"shape_mismatch={bad[:5]}")
 
 
 def load_jax_resnet(model: torch.nn.Module, variables: Mapping) -> None:
@@ -80,3 +93,35 @@ def load_jax_resnet(model: torch.nn.Module, variables: Mapping) -> None:
     if left or unexpected:
         raise ValueError(f"load mismatch: missing={left[:5]} "
                          f"unexpected={unexpected[:5]}")
+
+
+def from_jax_vit(variables: Mapping[str, Any],
+                 model: "torch.nn.Module | None" = None) -> dict:
+    """-> state_dict of torch tensors (f32 on the CPU) for ``models.vit.ViT``.
+    When ``model`` is given, the key set and every shape are checked against
+    its own state_dict and a mismatch raises."""
+    unknown = set(variables) - {"params"}
+    if unknown:
+        raise ValueError(f"unknown variable collections: {sorted(unknown)}")
+    sd: dict = {}
+    for path, val in _flatten(variables.get("params", {})).items():
+        arr = np.asarray(val, np.float32)
+        *mod, leaf = path
+        if not mod and leaf in _VIT_TOP:
+            sd[leaf] = torch.from_numpy(np.ascontiguousarray(arr))
+            continue
+        name = ".".join(mod)
+        if leaf not in _PARAM_LEAF or not _VIT_MODULE.fullmatch(name):
+            raise ValueError(f"unhandled params leaf: {'/'.join(path)}")
+        if leaf == "kernel":          # conv HWIO -> OIHW, Dense transposed
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        sd[f"{name}.{_PARAM_LEAF[leaf]}"] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    if model is not None:
+        _check_fits(sd, model)
+    return sd
+
+
+def load_jax_vit(model: torch.nn.Module, variables: Mapping) -> None:
+    """Load Flax ViT variables into ``model`` in place (checked, strict)."""
+    model.load_state_dict(from_jax_vit(variables, model))

@@ -1,5 +1,6 @@
 """Backbone registry: name -> (module factory, feature dim, stride)
-(port of ``instsearch_tpu/models/registry.py``, ResNet family only).
+(port of ``instsearch_tpu/models/registry.py``): the ResNet family and the
+ViT patch-token backbones; VGG-16 is not ported yet (ROADMAP M4).
 
 The port takes feature dims from here, never from
 ``ExtractConfig.descriptor_dim``, which imports the reference's Flax
@@ -12,6 +13,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
+from .vit import vit_b_16, vit_l_16
 
 
 class BackboneSpec(NamedTuple):
@@ -26,16 +28,22 @@ BACKBONES: dict[str, BackboneSpec] = {
     "resnet50": BackboneSpec(resnet50, 2048, 32),
     "resnet101": BackboneSpec(resnet101, 2048, 32),
     "resnet152": BackboneSpec(resnet152, 2048, 32),
+    # ViT patch-token backbones: stride = patch size; feature_dim = the
+    # hidden dim of the token grid
+    "vit_b_16": BackboneSpec(vit_b_16, 768, 16),
+    "vit_l_16": BackboneSpec(vit_l_16, 1024, 16),
 }
 
-_NOT_PORTED = {"vgg16": "ROADMAP M4", "vit_b_16": "ROADMAP M11",
-               "vit_l_16": "ROADMAP M11"}
+_NOT_PORTED = {"vgg16": "ROADMAP M4"}
 
 
-def get_backbone(name: str, dtype=torch.bfloat16, device=None):
+def get_backbone(name: str, dtype=torch.bfloat16, device=None,
+                 attention: "str | None" = None):
     """-> ``(model, spec)``; the model is in eval mode, weights
-    uninitialized (``ResNet.init_weights`` or ``load_state_dict``), on
-    ``device``: the CUDA card by default, raising without one."""
+    uninitialized (``init_weights`` or ``load_state_dict``), on ``device``:
+    the CUDA card by default, raising without one. ``attention`` selects
+    the ViT attention route (auto | xla | pallas | flash, ``models/vit.py``)
+    and is ignored for the CNNs."""
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet ({_NOT_PORTED[name]})")
@@ -44,7 +52,11 @@ def get_backbone(name: str, dtype=torch.bfloat16, device=None):
     except KeyError:
         raise ValueError(f"unknown backbone {name!r}; expected one of "
                          f"{sorted(BACKBONES)}") from None
-    return spec.factory(dtype=dtype, device=resolve_device(device)), spec
+    device = resolve_device(device)
+    if attention is not None and name.startswith("vit"):
+        return spec.factory(dtype=dtype, attention=attention,
+                            device=device), spec
+    return spec.factory(dtype=dtype, device=device), spec
 
 
 def descriptor_dim(cfg) -> int:

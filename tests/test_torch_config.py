@@ -37,6 +37,8 @@ def test_presets_load_the_same(path):
 def test_descriptor_dim_reads_the_port_registry():
     assert tcfg.ExtractConfig(backbone="resnet50").descriptor_dim == 2048
     assert tcfg.ExtractConfig(whiten=True, whiten_dim=512).descriptor_dim == 512
+    assert tcfg.ExtractConfig(backbone="vit_b_16").descriptor_dim == 768
+    assert tcfg.ExtractConfig(backbone="vit_l_16").descriptor_dim == 1024
     with pytest.raises(NotImplementedError):
         _ = tcfg.ExtractConfig(backbone="vgg16").descriptor_dim
     with pytest.raises(ValueError):

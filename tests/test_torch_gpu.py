@@ -17,6 +17,15 @@ flip). Copies of one row must come out lowest position first. K2 and K3
 (``check_exact``): none; their sums are exact integers, so scores and ids
 equal the plain version's bit for bit. K4 (``check_exact``): none; kernel
 and plain version add the same bf16 table entries in one fixed order.
+K5 and K6 against their plain versions (``check_attention``): f32 within
+1e-5 (sums in other orders over at most 1,025 keys); bf16 each element
+within one bf16 step of itself plus one at the output's rms (2^-7 of each),
+and the whole within 1e-3 in norm, since only the rare element whose two f32
+values straddle a rounding point may differ. With v = ones the output is ones within n * 2^-23 in f32
+(the n rounded terms of a row of p sum to one over the valid keys, each
+term and each addition off by at most 2^-24 of the running sum; a padded
+key, whose staged v row is zero, would pull it below by about 1/n) and within
+one bf16 step in bf16.
 """
 import numpy as np
 import pytest
@@ -24,14 +33,17 @@ import torch
 
 from instsearch_torch import IndexConfig, PipelineConfig
 from instsearch_torch.index import Index
-from instsearch_torch.kernels import (pq_topk, pq_topk_reference,
-                                      topk_matmul, topk_matmul_int4,
+from instsearch_torch.kernels import (flash_mha, flash_mha_reference, mha,
+                                      mha_reference, pq_topk,
+                                      pq_topk_reference, topk_matmul,
+                                      topk_matmul_int4,
                                       topk_matmul_int4_reference,
                                       topk_matmul_int8,
                                       topk_matmul_int8_reference,
                                       topk_matmul_reference)
 from instsearch_torch.kernels.topk_matmul import (K_MAX, check_against_plain,
                                                   check_exact)
+from instsearch_torch.kernels.vit_attention import check_attention
 from instsearch_torch.ops.pq import PQCodebook
 from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 
@@ -214,3 +226,76 @@ def test_pq_kernel_refuses_what_it_cannot_take(gen):
     with pytest.raises(ValueError):
         pq_topk(codes, q.cpu(), cb, k=10)                   # wrong device
     assert pq_topk.launches == before
+
+
+def _qkv(gen, shape, dtype):
+    # products in true f32 on both sides: the plain versions' matmuls must
+    # not round their f32 operands to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [5, 197, 300, 1025])
+def test_attention_kernels_match_plain_versions(gen, dtype, n):
+    """``check_attention``'s bars (see there). v = ones must give ones: the
+    rows of p sum to one over the valid keys, while a padded key attending
+    would pull the output about 1/n below. In f32 the sum of n p's is off by
+    up to n f32 steps (2^-23 each); in bf16 by one output step, 2^-7."""
+    q, k, v = _qkv(gen, (2, 3, n, 64), dtype)
+    for fn, ref in ((mha, mha_reference), (flash_mha, flash_mha_reference)):
+        before = fn.launches
+        out = fn(q, k, v)
+        want = ref(q, k, v)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert out.shape == q.shape and out.dtype == dtype
+        check_attention(out, want)
+        ones = torch.ones_like(v)
+        got = fn(q, k, ones).float()
+        step = n * 2 ** -23 if dtype == torch.float32 else 2 ** -7
+        assert (got - 1).abs().max().item() <= step, fn.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernels_read_the_qkv_projection_in_place(gen, dtype):
+    """q, k, v as the model passes them, [B, h, N, hd] views of one packed
+    [B, N, 3, h, hd] projection, give what their contiguous copies give, and
+    o's memory is [B, N, h, hd], so merging the heads copies nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = torch.randn((2, 300, 3, 3, 64), generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    for fn, ref in ((mha, mha_reference), (flash_mha, flash_mha_reference)):
+        out = fn(q, k, v)
+        assert torch.equal(out, fn(q.contiguous(), k.contiguous(),
+                                   v.contiguous()))
+        check_attention(out, ref(q, k, v))
+        merged = out.transpose(1, 2)
+        assert merged.is_contiguous()
+        assert merged.reshape(2, 300, 192).data_ptr() == out.data_ptr()
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_what_they_cannot_take(gen):
+    q, k, v = _qkv(gen, (1, 2, 40, 32), torch.float32)
+    before = (mha.launches, flash_mha.launches)
+    for fn in (mha, flash_mha):
+        with pytest.raises(ValueError, match="head dim 32"):
+            fn(q, k, v)                                   # hd != 64
+        q64, k64, v64 = _qkv(gen, (1, 2, 40, 64), torch.float32)
+        with pytest.raises(ValueError):
+            fn(q64, k64, v64.half())                      # mixed dtypes
+        with pytest.raises(ValueError):
+            fn(q64, k64, v64.cpu())                       # wrong device
+        with pytest.raises(ValueError):
+            fn(q64.transpose(1, 2).contiguous().transpose(1, 2), k64, v64)
+        with pytest.raises(ValueError):
+            fn(q64, k64[:, :, :20], v64)                  # shapes differ
+    qb, kb, vb = _qkv(gen, (1, 1, 4000, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="flash_mha"):
+        mha(qb, kb, vb)                      # past K6's shared memory
+    assert (mha.launches, flash_mha.launches) == before

@@ -2,8 +2,9 @@
 already holds JAX through tests/conftest.py), import instsearch_torch and its
 evaluation package, build a tiny bf16 Index and a tiny int4 one on the CPU,
 search them (the second with alpha query expansion, then through a PQ
-cascade view), then check sys.modules: neither JAX nor any module of the
-reference package was loaded."""
+cascade view), run a tiny ViT on its three attention routes and the
+multi-scale resize, then check sys.modules: neither JAX nor any module of
+the reference package was loaded."""
 import json
 import os
 import subprocess
@@ -35,6 +36,18 @@ assert qi[:, 0].tolist() == i[:, 0].tolist()
 qidx.build_pq(m=4, iters=3, depth=40)
 ps, pi = qidx.search(x[:3], qidx.cfg.search.replace(qe_enabled=True))
 assert pi[:, 0].tolist() == i[:, 0].tolist()
+import torch
+import instsearch_torch.kernels.vit_attention
+import instsearch_torch.ops.resize
+from instsearch_torch.data.frontend import rescale
+from instsearch_torch.models.vit import ViT
+img = torch.rand(1, 20, 20, 3)
+for att in ("xla", "pallas", "flash"):
+    vit = ViT(hidden_dim=16, num_layers=1, num_heads=2, mlp_dim=32,
+              patch_size=4, image_size=16, dtype=torch.float32,
+              attention=att, device="cpu")
+    vit.init_weights(torch.Generator().manual_seed(0))
+    assert tuple(vit(rescale(img, 0.8)).shape) == (1, 4, 4, 16)
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

@@ -42,10 +42,15 @@ def test_normalize(dtype):
 
 
 def test_rescale_identity_and_not_ported():
-    x = torch.zeros((1, 8, 8, 3))
-    assert tfront.rescale(x, 1.0) is x
-    with pytest.raises(NotImplementedError):
-        tfront.rescale(x, 0.5)
+    """Scale 1 returns the images as they are; any other scale is ported
+    now and resizes as the reference does (tests/test_torch_resize.py)."""
+    x = np.random.default_rng(5).standard_normal((1, 8, 8, 3)).astype(
+        np.float32)
+    t = torch.from_numpy(x)
+    assert tfront.rescale(t, 1.0) is t
+    np.testing.assert_allclose(tfront.rescale(t, 0.5).numpy(),
+                               np.asarray(jfront.rescale(jnp.asarray(x), 0.5)),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("pooling", ["avg", "mac", "gem"])

@@ -1,0 +1,142 @@
+"""The plain versions of K5 and K6 (``instsearch_torch.kernels.vit_attention``)
+against the JAX kernels run in interpret mode, on the same seeded inputs;
+the wrappers' routing and refusals on the CPU; and ``check_attention``, the
+rule the kernels are held to on the card, against planted faults.
+
+Tolerances: ``check_attention``'s. f32: 1e-5, as JAX's own kernel tests hold
+its kernels to its oracle; both sides compute f32 logits from the same f32
+inputs and differ only in summation order. bf16: q, k and v are the same
+bf16 values and both sides keep f32 logits and f32 sums, so only the
+roundings differ: p rounded to bf16 may land on the neighbouring bf16 value
+where the two f32 sums came out one f32 step apart, and the output rounds
+to bf16. Each element within 2^-7 of itself plus 2^-6 of the output's rms,
+the whole within 1e-3 in norm (``check_attention`` says why). v = ones
+gives ones within 1e-6 in f32: the rows of p sum to one over the valid
+keys, and a padded key attending would pull the output below by about 1/N.
+"""
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from instsearch_tpu.kernels.vit_attention import flash_mha as jax_flash_mha
+from instsearch_tpu.kernels.vit_attention import mha as jax_mha
+from instsearch_torch.kernels.vit_attention import (BF16_REL_TOL,
+                                                    attention_error,
+                                                    check_attention,
+                                                    flash_mha,
+                                                    flash_mha_reference, mha,
+                                                    mha_reference)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import planted_faults  # noqa: E402
+
+
+def _qkv(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    jax_in = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    torch_in = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jax_in, torch_in
+
+
+def _close(got, want, dtype):
+    check_attention(got, torch.from_numpy(np.array(want, np.float32)).to(
+        got.dtype))
+
+
+@pytest.mark.parametrize("dtype,n", [("float32", 197), ("float32", 128),
+                                     ("float32", 5), ("bfloat16", 197)])
+def test_mha_reference_matches_jax_kernel(dtype, n):
+    (jq, jk, jv), (q, k, v) = _qkv(n, (2, 3, n, 64), dtype)
+    want = jax_mha(jq, jk, jv, interpret=True)
+    got = mha_reference(q, k, v)
+    assert got.shape == (2, 3, n, 64) and got.dtype == q.dtype
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype,n", [("float32", 197), ("float32", 300),
+                                     ("float32", 1025), ("bfloat16", 1025)])
+def test_flash_reference_matches_jax_kernel(dtype, n):
+    (jq, jk, jv), (q, k, v) = _qkv(n + 1, (2, 3, n, 64), dtype)
+    want = jax_flash_mha(jq, jk, jv, interpret=True)      # kv_block 128
+    got = flash_mha_reference(q, k, v, kv_block=128)
+    assert got.shape == (2, 3, n, 64) and got.dtype == q.dtype
+    _close(got, want, dtype)
+
+
+def test_flash_reference_tiles_differ_only_by_rounding():
+    """In f32 the tiling changes only summation order; the kernel's default
+    64-key tiles give the one-pass result."""
+    _, (q, k, v) = _qkv(3, (1, 2, 300, 64), "float32")
+    want = mha_reference(q, k, v)
+    for kb in (64, 128, 300):
+        torch.testing.assert_close(flash_mha_reference(q, k, v, kv_block=kb),
+                                   want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fn", [mha_reference, flash_mha_reference])
+def test_padded_keys_never_attend(fn):
+    _, (q, k, _) = _qkv(4, (1, 2, 197, 64), "float32")
+    ones = torch.ones_like(q)
+    np.testing.assert_allclose(fn(q, k, ones).numpy(), 1.0, rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", [mha, flash_mha, mha_reference,
+                                flash_mha_reference])
+def test_shape_mismatch_rejected(fn):
+    _, (q, k, v) = _qkv(5, (1, 1, 8, 64), "float32")
+    with pytest.raises(ValueError, match="shapes differ"):
+        fn(q, k[:, :, :4], v)
+
+
+@pytest.mark.parametrize("fn,ref", [(mha, mha_reference),
+                                    (flash_mha, flash_mha_reference)])
+def test_cpu_tensor_takes_the_plain_version(fn, ref):
+    _, (q, k, v) = _qkv(6, (1, 2, 40, 64), "bfloat16")
+    fn.launches = 0
+    assert torch.equal(fn(q, k, v), ref(q, k, v))
+    assert fn.launches == 0
+
+
+@pytest.mark.parametrize("fn", [mha, flash_mha])
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((1, 2, 40, 32), torch.float32, "head dim 32"),
+    ((1, 2, 40, 64), torch.float16, "bfloat16 or all float32"),
+    ((1, 2, 40, 64), torch.float32, "one CUDA device"),
+])
+def test_kernel_route_refuses_what_it_cannot_take(fn, shape, dtype, match):
+    """A tensor off the CPU goes to the kernel or raises; checked with
+    ``meta`` tensors, which are not on the CPU and hold no data."""
+    q, k, v = (torch.empty(shape, dtype=dtype, device="meta")
+               for _ in range(3))
+    fn.launches = 0
+    with pytest.raises(ValueError, match=match):
+        fn(q, k, v)
+    assert fn.launches == 0
+
+
+@pytest.mark.parametrize("flash,n", [(False, 197), (True, 300),
+                                     (True, 1025)])
+def test_check_attention_rejects_planted_faults(flash, n):
+    """The bar lets the plain version and rare one-step flips of the output
+    through, and rejects what a faulty kernel would give: a key tile
+    skipped, or logits rounded to bf16."""
+    _, (q, k, v) = _qkv(n + 7, (1, 2, n, 64), "bfloat16")
+    want = (flash_mha_reference if flash else mha_reference)(q, k, v)
+    assert check_attention(want, want)["max_abs_err"] == 0
+    flip = want.clone()
+    bits = flip.view(torch.int16).view(-1)
+    bits[::997] += 1               # 0.1% of the elements one bf16 step out
+    assert attention_error(flip, want)["max_abs_err"] > 0
+    check_attention(flip, want)
+    for name, bad in planted_faults(q, k, v, flash).items():
+        err = attention_error(bad, want)
+        assert err["bar_ratio"] > 1 or err["rel_err"] > BF16_REL_TOL, name
+        with pytest.raises(AssertionError):
+            check_attention(bad, want)

@@ -5,18 +5,23 @@ port's ``Index.query_images`` on one GPU.
     python3 tools/profile_query.py [--rows 1048576] [--corpus 1024]
                                    [--batches 1 8 128] [--reps 10]
                                    [--config configs/capacity_int4.json]
+                                   [--backbone vit_b_16]
+                                   [--vit-attention pallas|flash|xla]
 
 Run from the root of a checkout. It builds the configuration of
 chip_smoke.py's phase 2 (seeded random ResNet-50 at 224 px, bf16, GeM,
-whitening to 512; a bf16 store), or the preset ``--config`` names with one
-shard (phase 3's stand-ins), with ``--rows`` rows: ``--corpus`` extracted
-seeded images, the rest seeded unit distractor rows. For each query batch
-size B it prints one JSON line with, per query batch:
+whitening to 512; a bf16 store), or with ``--backbone vit_b_16`` that of
+phase 5 (ViT-B/16 on the ``--vit-attention`` route), or the preset
+``--config`` names with one shard (phase 3's stand-ins), with ``--rows``
+rows: ``--corpus`` extracted seeded images, the rest seeded unit distractor
+rows. For each query batch size B it prints one JSON line with, per query
+batch:
 
   * ``kernels``: device operations (kernels and copies) launched;
   * ``busy_ms``: the sum of their durations, and its split into
-    convolution/GEMM, BatchNorm, other elementwise, copies, top-k pass 1
-    and top-k pass 2;
+    convolution/GEMM, BatchNorm, LayerNorm, softmax, the port's attention
+    kernels (K5/K6), other elementwise, copies, top-k pass 1 and top-k
+    pass 2;
   * ``wall_ms``: host time under the profiler, and ``wall_p50_ms`` without
     it; ``idle`` and ``idle_unprofiled``: 1 - busy / each wall.
 
@@ -58,8 +63,14 @@ def category(name: str) -> str:
         return "copies"
     if "bn_" in low or "batch_norm" in low or "batchnorm" in low:
         return "batchnorm"
+    if "mha_kernel" in low or "flash_kernel" in low:
+        return "attention_kernel"
+    if "layer_norm" in low:
+        return "layernorm"
+    if "softmax" in low:
+        return "softmax"
     if any(w in low for w in ("conv", "xmma", "implicit", "fprop", "gemm",
-                              "cutlass", "cudnn", "nhwc", "nchw")):
+                              "cutlass", "cudnn", "nhwc", "nchw", "nvjet")):
         return "conv_gemm"
     return "elementwise"
 
@@ -131,13 +142,17 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--config", default=None,
                     help="a preset of configs/ (served with one shard)")
+    ap.add_argument("--backbone", default=PHASE2.extract.backbone)
+    ap.add_argument("--vit-attention", default="pallas",
+                    choices=("auto", "xla", "pallas", "flash"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_query: needs a CUDA device")
     card = card_line()
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cfg = PHASE2
+    cfg = PHASE2.replace(extract=PHASE2.extract.replace(
+        backbone=args.backbone, vit_attention=args.vit_attention))
     if args.config:
         cfg = PipelineConfig.load(args.config)
         cfg = cfg.replace(index=cfg.index.replace(num_shards=1))
@@ -147,6 +162,8 @@ def main() -> int:
         batch = images[rng.choice(args.corpus, size=b,
                                   replace=b > args.corpus)]
         report(card, config=args.config or "chip_smoke phase 2",
+               backbone=cfg.extract.backbone,
+               vit_attention=cfg.extract.vit_attention,
                store=cfg.index.dtype, qe=cfg.search.qe_enabled,
                rows=args.rows, b=b, reps=args.reps,
                **profile_batch(idx, batch, args.reps))
