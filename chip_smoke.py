@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs six phases; each raises on failure and the process exits non-zero.
+runs seven phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
@@ -54,7 +54,16 @@ runs six phases; each raises on failure and the process exits non-zero.
      (``"flash"``): 1024 px (4,097 tokens, B = 4) and 2048 px (16,385
      tokens, B = 1), K5 12 times per backbone pass, descriptors against the
      plain route's where it fits. It prints extraction images/s of each
-     route and the query p50 at B = 1 and 128.
+     route and the query p50 at B = 1 and 128;
+  6. the fused-ResNet inference path at full width: ResNet-50 with seeded
+     weights and randomized BatchNorm at 224 px, B = 64, through the module
+     route (cuDNN, BN unfolded) and ``fused_resnet_apply`` with the default
+     ``fused_layers=(2,)`` and with ``(1, 2, 3, 4)``; images/s of each, GeM
+     descriptors of the fused routes within FUSED_COS of the module route's
+     per image, their whitened descriptors searched (K1) against a 1M x 512
+     bf16 store of the module route's among distractors, every top-1 its own
+     image; K7 must launch once per identity block (3 and 12 a forward).
+     Then one 512 px batch through ``(1, 2, 3, 4)``, against the module.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -62,13 +71,23 @@ bf16, 8 in f32), K5 at 4,097 and 16,385 (B = 1, bf16) and 1,025 (B = 2,
 f32), by ``check_attention`` (``kernels/vit_attention.py``), which must also
 reject two planted faults on every bf16 case (a key tile dropped, logits
 rounded to bf16), with the time of PyTorch's
-``scaled_dot_product_attention`` on the same tensors as the yardstick.
+``scaled_dot_product_attention`` on the same tensors as the yardstick,
+and K7 (``fused_identity_blocks``) at ResNet-50's four identity-block
+stages at both of phase 6's sizes, 224 and 512 px, B = 64, one call per
+stage as ``fused_resnet_apply`` makes it, by ``check_fused_call``: each call
+equal to its blocks launched one at a time and each block held by
+``check_fused_blocks`` (``kernels/fused_resnet.py``), which must reject
+three planted faults on every block (a border tap reading the neighbouring
+row, a dropped corner tap, the tap sum rounded to bf16); at 224 px with the
+module's ``Bottleneck.forward`` on the same activation (cuDNN, several
+calls, replayed from a CUDA graph) as the yardstick.
 
 Every measured number is printed with the card's nvidia-smi name and power
 limit. The line before the last is the kernel summary as JSON: per kernel its
 launches on the main path, its largest difference from its plain version,
 its median time and its plain version's at 1M rows, B = 1, k = 10 (K6 at
-[64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16), the least
+[64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16, K7 at layer 2 of
+ResNet-50, [64, 28x28, 512], M = 128, three blocks), the least
 time the card could take for that work (``bound_ms``: the larger of the bytes
 read and written over 3.35 TB/s and the operations over the published peak
 rate for their type) and, where one PyTorch call computes the same function,
@@ -102,6 +121,12 @@ VIT_LAYERS = 12         # ViT-B/16: one attention launch per layer and pass
 # measured 0.999996 at 224 px and above 0.999999 at 1024 and 2048 px on an
 # H100, so the bar leaves 25 times that gap
 VIT_ROUTE_COS = 0.9999
+FUSED_CORPUS = 2048     # phase 6: images through the module route
+FUSED_QUERIES = 512     # phase 6: of those, through each fused route
+# GeM descriptor cosine of the fused routes against the module route: the
+# reference's own bar between its fused path and the Flax forward
+# (tests/kernels/test_fused_resnet.py)
+FUSED_COS = 0.999
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
@@ -138,6 +163,22 @@ def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_replay(fn):
+    """``fn``'s launches captured once in a CUDA graph (after a warm-up on a
+    side stream); returns the graph's replay, which runs them without the
+    host's launch gaps."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -355,6 +396,91 @@ def phase1_attention(card: str, gen) -> tuple[dict, dict]:
     return errs, timings
 
 
+def resnet50_stages(image: int = IMAGE):
+    """ResNet-50's identity-block stages at ``image`` px: (layer, H = W, C,
+    M, identity blocks), one K7 call each on ``fused_resnet_apply``'s
+    path."""
+    from instsearch_torch.kernels.fused_resnet import STAGE_SIZES
+    return [(f"layer{i + 1}", image // (4 << i), 256 << i, 64 << i,
+             blocks - 1)
+            for i, blocks in enumerate(STAGE_SIZES["resnet50"])]
+
+
+def phase1_fused(card: str, gen, model) -> tuple[float, dict]:
+    """K7 (``fused_identity_blocks``) against its plain version at
+    ResNet-50's four identity-block stages at both image sizes phase 6
+    gives it, 224 and 512 px, B = 64, with the identity blocks of ``model``
+    (seeded weights, randomized BN), one call per stage as
+    ``fused_resnet_apply`` makes it, each held by ``check_fused_call``. At
+    224 px, times per stage: the kernel's call, the plain version's, the
+    module's ``Bottleneck.forward`` on the same activation (cuDNN, unfolded
+    BN, channels-last: several calls, the yardstick; replayed from a CUDA
+    graph, so that the host's launch gaps between its ~10 kernels a block do
+    not count, and eager beside it) and the bound. Returns (largest error,
+    timings by stage)."""
+    import torch
+    from instsearch_torch.kernels.fused_resnet import (
+        _stack_identity_weights, check_fused_call, fused_identity_blocks,
+        fused_identity_blocks_reference, tile_rows)
+    sd = model.state_dict()
+    b = 64
+    errs, timings = [], {}
+    for image in (IMAGE, 512):
+        for layer, hh, c, m, n in resnet50_stages(image):
+            op = _stack_identity_weights(sd, layer, [str(j) for j in
+                                                     range(1, n + 1)], "cuda")
+            x = torch.relu(torch.randn((b, hh * hh, c), generator=gen,
+                                       device="cuda")).to(torch.bfloat16)
+            label = f"K7 {layer} {image} px n={n} [{b}, {hh}x{hh}, {c}] M={m}"
+            try:
+                _, got, faults = check_fused_call(x, op, hh, hh)
+            except AssertionError as e:
+                fail(f"{label}: {e}")
+            report(card, phase=1, kernel="fused_identity_blocks", case=label,
+                   tile_rows=tile_rows(hh, hh, m),
+                   call_equals_blocks_one_by_one=True, blocks=got,
+                   planted_faults_rejected=faults)
+            errs += [e["max_abs_err"] for e in got]
+            if image != IMAGE:
+                del x, op
+                torch.cuda.empty_cache()
+                continue
+            blocks = [getattr(model, layer)[j] for j in range(1, n + 1)]
+            xc = x.view(b, hh, hh, c).permute(0, 3, 1, 2)  # channels-last
+
+            def module_route():
+                y = xc
+                for blk in blocks:
+                    y = blk(y)
+                return y
+
+            hw = hh * hh
+            with torch.inference_mode():
+                timings[layer] = {
+                    "ms": cuda_median_ms(lambda: fused_identity_blocks(
+                        x, *op, H=hh, W=hh), reps=10),
+                    "plain_ms": cuda_median_ms(
+                        lambda: fused_identity_blocks_reference(
+                            x, *op, H=hh, W=hh), reps=3, warmup=1),
+                    # the yardstick, several calls (cuDNN convolutions, BN,
+                    # ReLU and the residual add): what the module route runs
+                    "library_ms": cuda_median_ms(graph_replay(module_route),
+                                                 reps=10),
+                    "library_eager_ms": cuda_median_ms(module_route, reps=10),
+                    "library_calls": f"Bottleneck.forward x {n} (cuDNN conv, "
+                                     f"BN, ReLU, add), one CUDA graph",
+                    **bound(2 * b * hw * c * 2
+                            + n * 2 * (2 * c * m + 9 * m * m)
+                            + n * 4 * (2 * m + c),
+                            2 * b * hw * n * (c * m + 9 * m * m + m * c),
+                            "bf16")}
+            report(card, phase=1, timing=f"K7 {layer} [{b}, {hh}x{hh}, {c}] "
+                   f"M={m} n={n}", **timings[layer])
+            del x, xc, op
+            torch.cuda.empty_cache()
+    return max(errs), timings
+
+
 def quantized_unit_rows(gen, n: int, d: int, quantize):
     """``quantize`` (``quantize_rows`` or ``quantize_rows_int4``) of n
     seeded unit rows, in pieces: the f32 temporaries of 1M x 2048 rows at
@@ -567,11 +693,11 @@ def serve_requests(card, phase, core, images, picks, expect):
     last one padded; a piece is one backbone pass and one search), and no
     other kernel at all. Every top-1 must be its source image. Returns the
     counts by kernel name."""
-    from instsearch_torch.kernels import (flash_mha, mha, pq_topk,
-                                          topk_matmul, topk_matmul_int4,
-                                          topk_matmul_int8)
+    from instsearch_torch.kernels import (flash_mha, fused_identity_blocks,
+                                          mha, pq_topk, topk_matmul,
+                                          topk_matmul_int4, topk_matmul_int8)
     everyone = (topk_matmul, topk_matmul_int8, topk_matmul_int4, pq_topk,
-                mha, flash_mha)
+                mha, flash_mha, fused_identity_blocks)
     core.warmup()
     for fn in everyone:
         fn.launches = 0
@@ -1008,6 +1134,134 @@ def phase5_highres(card: str, gen, weights) -> dict:
     return out
 
 
+def gem_descriptors(backbone, images, batch: int):
+    """L2-normalized GeM (p = 3) descriptors [N, 2048] f32 of uint8
+    ``images`` through ``backbone`` (NHWC normalized bf16 -> NHWC feature
+    maps), batch by batch, after one warm-up batch; returns (descriptors,
+    images/s, forwards run)."""
+    import torch
+    from instsearch_torch.data.frontend import normalize
+    from instsearch_torch.ops.pooling import gem_pool, l2_normalize
+
+    def run(part):
+        x = normalize(torch.from_numpy(part).cuda())
+        return l2_normalize(gem_pool(backbone(x), 3.0).float())
+
+    with torch.inference_mode():
+        run(images[:batch])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = torch.cat([run(images[s:s + batch])
+                       for s in range(0, len(images), batch)])
+        torch.cuda.synchronize()
+    return d, len(images) / (time.perf_counter() - t0), \
+        1 + -(-len(images) // batch)
+
+
+def phase6(card: str, gen, model) -> dict:
+    """The fused-ResNet inference path at full width: ResNet-50 with
+    ``model``'s seeded weights and randomized BN at 224 px, B = 64, through
+    (a) the module route (``model``, cuDNN), (b) ``fused_resnet_apply``
+    with the default ``fused_layers=(2,)`` and (c) with ``(1, 2, 3, 4)``.
+    (a) extracts FUSED_CORPUS images, (b) and (c) the first FUSED_QUERIES;
+    each route's GeM descriptors must be within FUSED_COS of (a)'s per
+    image. (b)'s and (c)'s descriptors, whitened by a whitening fitted on
+    (a)'s, search a 1M x 512 bf16 store of (a)'s among seeded unit
+    distractors (K1): every top-1 must be its own image. K7 must launch
+    3 times per forward on (b) and 12 on (c) (one launch a block), never on
+    (a). Then one batch of 512 px images (``configs/capacity_int4.json``'s
+    size) through (c) and (a), held to the same cosine."""
+    import numpy as np
+    import torch
+    from instsearch_torch import IndexConfig, PipelineConfig, SearchConfig
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels import (fused_identity_blocks,
+                                          fused_resnet_apply)
+    from instsearch_torch.kernels.fused_resnet import STAGE_SIZES
+    from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
+
+    sd = model.state_dict()
+    stages = STAGE_SIZES["resnet50"]
+    per_forward = {(2,): 3, (1, 2, 3, 4): 12}
+    images = smooth_images(gen, FUSED_CORPUS)
+    fused_identity_blocks.launches = 0
+    raw_a, ips_a, _ = gem_descriptors(model, images, 64)
+    if fused_identity_blocks.launches:
+        fail("the module route launched K7")
+    raw, ips, launches, cos = {}, {}, 0, {}
+    for layers, want in per_forward.items():
+        route = f"fused_layers={layers}"
+        fused_identity_blocks.launches = 0
+        raw[layers], ips[layers], forwards = gem_descriptors(
+            lambda x: fused_resnet_apply(sd, x, stages, fused_layers=layers),
+            images[:FUSED_QUERIES], 64)
+        if fused_identity_blocks.launches != want * forwards:
+            fail(f"{route}: K7 launched {fused_identity_blocks.launches} "
+                 f"times in {forwards} forwards, not {want} a forward")
+        launches += fused_identity_blocks.launches
+        cos[layers] = route_cosine(raw[layers], raw_a[:FUSED_QUERIES])
+        if not bool(torch.isfinite(raw[layers]).all()) \
+                or cos[layers][0] < FUSED_COS:
+            fail(f"{route}: GeM descriptors against the module route's, "
+                 f"cosine {cos[layers][0]} < {FUSED_COS}")
+        report(card, phase=6, route=route, image=IMAGE, batch=64,
+               images=FUSED_QUERIES, extract_images_per_s=ips[layers],
+               k7_launches=fused_identity_blocks.launches, forwards=forwards,
+               gem_cos_vs_module_min=cos[layers][0],
+               gem_cos_vs_module_median=cos[layers][1])
+    report(card, phase=6, route="module (cuDNN, BN unfolded)", image=IMAGE,
+           batch=64, images=FUSED_CORPUS, extract_images_per_s=ips_a)
+
+    # search: the whitened fused-route descriptors against the module
+    # route's store among distractors
+    wh = fit_whitening(raw_a, dim=DIM)
+    corpus = apply_whitening(raw_a, wh)
+    distract = torch.randn(N_ROWS - FUSED_CORPUS, DIM, generator=gen,
+                           device="cuda")
+    distract = distract / distract.norm(dim=1, keepdim=True)
+    names = ([f"img{i:05d}" for i in range(FUSED_CORPUS)]
+             + [f"distractor{i:07d}" for i in range(N_ROWS - FUSED_CORPUS)])
+    cfg = PipelineConfig(index=IndexConfig(dtype="bfloat16"),
+                         search=SearchConfig(k=10))
+    idx = Index.from_descriptors(torch.cat([corpus, distract]), names, cfg)
+    del distract, corpus
+    own = np.arange(FUSED_QUERIES)
+    for layers in per_forward:
+        _, ids = idx.search(apply_whitening(raw[layers], wh))
+        if not np.array_equal(ids[:, 0], own):
+            bad = int((ids[:, 0] != own).sum())
+            fail(f"fused_layers={layers}: {bad} of {FUSED_QUERIES} top-1 "
+                 f"are not their own image")
+    report(card, phase=6, search="whitened fused-route queries vs module-"
+           "route store", rows=N_ROWS, dim=DIM, queries=FUSED_QUERIES,
+           top1_own_image=True)
+    del idx
+
+    # one batch at 512 px through (c), against (a)
+    big = smooth_images(gen, 64, size=512, batch=64)
+    fused_identity_blocks.launches = 0
+    d_c, ips_c, forwards = gem_descriptors(
+        lambda x: fused_resnet_apply(sd, x, stages, fused_layers=(1, 2, 3, 4)),
+        big, 64)
+    if fused_identity_blocks.launches != 12 * forwards:
+        fail(f"512 px: K7 launched {fused_identity_blocks.launches} times "
+             f"in {forwards} forwards")
+    launches += fused_identity_blocks.launches
+    d_a, ips_a512, _ = gem_descriptors(model, big, 64)
+    cos512 = route_cosine(d_c, d_a)
+    if cos512[0] < FUSED_COS:
+        fail(f"512 px: fused_layers=(1, 2, 3, 4) against the module route, "
+             f"cosine {cos512[0]} < {FUSED_COS}")
+    report(card, phase=6, route="fused_layers=(1, 2, 3, 4)", image=512,
+           batch=64, images=64, extract_images_per_s=ips_c,
+           extract_images_per_s_module=ips_a512, k7_launches=12 * forwards,
+           gem_cos_vs_module_min=cos512[0])
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ips_module": ips_a, "ips": ips,
+            "cos": cos, "ips_512": ips_c, "ips_512_module": ips_a512,
+            "cos_512": cos512}
+
+
 def main() -> int:
     try:
         import torch
@@ -1021,6 +1275,8 @@ def main() -> int:
                  f"beside this script)")
     sys.path.insert(0, HERE)
     from instsearch_torch.kernels import _build
+    from instsearch_torch.kernels.fused_resnet import randomize_bn
+    from instsearch_torch.models import get_backbone
     from instsearch_torch.kernels.pq_scan import pq_topk, pq_topk_reference
     from instsearch_torch.kernels.topk_matmul import (
         check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
@@ -1057,12 +1313,16 @@ def main() -> int:
                               check_exact)
     timings.update(t)
     att_errs, att_timings = phase1_attention(card, gen)
+    resnet = get_backbone("resnet50")[0].init_weights(gen)
+    randomize_bn(resnet, gen)
+    fused_err, fused_timings = phase1_fused(card, gen, resnet)
     res = phase2(card, gen, topk_matmul, check_against_plain)
     res3, corpus = phase3(card, gen)
     res4 = phase4(card, corpus)
     del corpus
     res5 = phase5(card, gen, topk_matmul)
     res5hr = phase5_highres(card, gen, res5.pop("weights"))
+    res6 = phase6(card, gen, resnet)
 
     rows = []
     for name, file, replaces, shape, launches in (
@@ -1096,6 +1356,14 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    t = fused_timings["layer2"]
+    rows.append({"name": "fused_identity_blocks", "route": "cuda",
+                 "source": "instsearch_torch/csrc/fused_resnet.cu",
+                 "replaces": "instsearch_tpu/kernels/fused_resnet.py:138",
+                 "launches": res6["launches"], "max_abs_err": fused_err,
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -132,5 +132,10 @@ def load() -> ctypes.CDLL:
         lib.isf_flash_mha.argtypes = [p, p, p, p, i, i, i, i, i,
                                       ll, ll, ll, ll, ll, ll, p]
         lib.isf_flash_mha.restype = i
+        lib.isf_fused_block.argtypes = [p, p, p, p, p, p, p, p,
+                                        i, i, i, i, i, p]
+        lib.isf_fused_block.restype = i
+        lib.isf_fused_block_tile.argtypes = [i, i, i]
+        lib.isf_fused_block_tile.restype = i
         _lib = lib
         return lib

@@ -1,0 +1,479 @@
+"""Fused inference ResNet stages (port of
+``instsearch_tpu/kernels/fused_resnet.py``): BatchNorm folded into the conv
+weights, and the stride-1 ("identity") bottleneck blocks of the selected
+stages in K7, ``fused_identity_blocks``, a hand-written CUDA kernel
+(``instsearch_torch/csrc/fused_resnet.cu``).
+
+``fused_resnet_apply`` is the reference's opt-in inference forward of a
+Bottleneck ResNet, over the port's torchvision-layout state_dict (a
+``models.resnet.ResNet``'s own, or ``models.jax_import.from_jax_resnet`` of
+the Flax variables): NHWC images in, NHWC bf16 feature maps out, the
+function of ``ResNet.forward`` up to where bf16 rounds. Its stem, stride-2
+block 0s and the identity blocks of stages outside ``fused_layers`` run the
+same folded-BN math through ``F.conv2d`` (the lax route).
+
+Where bf16 rounds, as in the reference:
+  * K7 (``fused_identity_blocks`` and its plain version): y1 once, where the
+    3x3 reads it; y2 after its bias and ReLU; y3 after its bias, then the
+    residual sum: ``h = relu(bf16(bf16(y3 + b3) + h))``, two roundings.
+  * the lax route: each conv sums in f32, and a block rounds once, after
+    bias, residual and ReLU, so ``_identity_block_lax`` and K7 differ in
+    the last bit.
+  * On a CUDA tensor the lax route's convs are cuDNN's bf16 convolutions,
+    whose sums are rounded to bf16 before the f32 bias is added: one
+    rounding more than the reference's f32 conv result. On the CPU they are
+    f32 convolutions of the same bf16 values, the reference's arithmetic.
+
+The K7 wrapper launches the CUDA kernel for CUDA tensors and takes its
+plain PyTorch version (``fused_identity_blocks_reference``) for CPU tensors;
+a tensor the kernel cannot take raises, nothing falls back. It counts its
+kernel launches, one per block, in ``.launches``. ``check_fused_blocks`` is
+the rule the kernel is held to against its plain version on the card, one
+block at a time by ``check_fused_call``, which also requires each of
+``BLOCK_FAULTS`` (``planted_block_fault``) to fail it; ``randomize_bn``
+draws the BatchNorm statistics under which folding is tested. Forward only, as the reference: extraction is inference.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+_BN_EPS = 1e-5
+_BN_KEYS = ("weight", "bias", "running_mean", "running_var")
+CHANNEL_STEP = 64             # C and M must be multiples (the kernel's tiles)
+_TAPS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+# check_fused_blocks's bars (see there)
+BF16_STEP = 2.0 ** -7         # a bf16 step is at most 2^-7 of the value
+RMS_STEPS = 4                 # bf16 steps at the output's rms, per element
+REL_TOL = 1e-3                # norm-relative, the whole output
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm folding (inference)
+# ---------------------------------------------------------------------------
+
+def fold_bn(kernel: torch.Tensor, bn: Mapping[str, torch.Tensor]):
+    """Fold an inference BatchNorm into the preceding conv.
+
+    ``conv(x, K) -> BN`` becomes ``conv(x, K * s) + b`` with ``s = gamma *
+    rsqrt(var + eps)`` per OUTPUT channel (axis 0 of an OIHW kernel) and
+    ``b = beta - mean * s``; ``bn`` holds torchvision's ``weight``,
+    ``bias``, ``running_mean`` and ``running_var``. Returns ``(K', b)`` in
+    f32."""
+    s = bn["weight"].float() * torch.rsqrt(bn["running_var"].float()
+                                           + _BN_EPS)
+    k = kernel.float() * s.reshape(-1, *([1] * (kernel.dim() - 1)))
+    return k, bn["bias"].float() - bn["running_mean"].float() * s
+
+
+def _folded(sd: Mapping, conv: str, bn: str, device):
+    """``fold_bn`` of state_dict entries ``{conv}.weight`` and ``{bn}.*``,
+    on ``device``."""
+    return fold_bn(sd[f"{conv}.weight"].to(device),
+                   {k: sd[f"{bn}.{k}"].to(device) for k in _BN_KEYS})
+
+
+# ---------------------------------------------------------------------------
+# K7: stacked stride-1 bottleneck blocks
+# ---------------------------------------------------------------------------
+
+def _check_shapes(x, w1, b1, w2, b2, w3, b3, H: int, W: int) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, H*W, C]; got {tuple(x.shape)}")
+    _, hw, c = x.shape
+    if hw != H * W:
+        raise ValueError(f"x has {hw} pixels per image, not H*W = "
+                         f"{H}*{W}")
+    n, m = w1.shape[0], w1.shape[-1]
+    want = {"w1": (n, c, m), "b1": (n, 1, m), "w2": (n, 9, m, m),
+            "b2": (n, 1, m), "w3": (n, m, c), "b3": (n, 1, c)}
+    for name, t in zip(want, (w1, b1, w2, b2, w3, b3)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} is {tuple(t.shape)}, not {want[name]} "
+                             f"(x {tuple(x.shape)}, w1 {tuple(w1.shape)})")
+
+
+def fused_identity_blocks_reference(x, w1, b1, w2, b2, w3, b3, *, H: int,
+                                    W: int) -> torch.Tensor:
+    """K7's plain version, the TPU body's arithmetic rounding point for
+    rounding point: per block, ``y1 = relu(x·w1 + b1)`` in f32 rounded to
+    bf16 once; the 3x3 as 9 tap products added one after another in f32
+    (taps outside the image read zeros); ``y2 = bf16(relu(acc + b2))``;
+    ``h = relu(bf16(bf16(y2·w3 + b3) + h))``. Products upcast their bf16
+    operands to f32.
+
+    x [B, H*W, C] bf16; w1 [n, C, M], w2 [n, 9, M, M] (tap ky*3 + kx, then
+    [in, out]), w3 [n, M, C] bf16; b1, b2 [n, 1, M], b3 [n, 1, C] f32.
+    Returns [B, H*W, C] bf16."""
+    _check_shapes(x, w1, b1, w2, b2, w3, b3, H, W)
+    return _plain_blocks(x, w1, b1, w2, b2, w3, b3, H, W, None)
+
+
+BLOCK_FAULTS = ("wrapped border taps", "corner tap dropped", "bf16 tap sum")
+
+
+def planted_block_fault(fault: str, x, w1, b1, w2, b2, w3, b3, H: int,
+                        W: int) -> torch.Tensor:
+    """The plain version with one fault a kernel could make, on the same
+    inputs; ``check_fused_blocks`` must reject each of ``BLOCK_FAULTS``:
+      * ``wrapped border taps``: a tap past the left or right edge reads the
+        neighbouring image row's pixel instead of zero (the flattened rows
+        shifted with only the row range masked);
+      * ``corner tap dropped``: the 3x3's last tap, (dy, dx) = (1, 1),
+        skipped;
+      * ``bf16 tap sum``: the 9-tap f32 sum rounded to bf16 after each
+        tap."""
+    if fault not in BLOCK_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}; one of {BLOCK_FAULTS}")
+    _check_shapes(x, w1, b1, w2, b2, w3, b3, H, W)
+    return _plain_blocks(x, w1, b1, w2, b2, w3, b3, H, W, fault)
+
+
+def _plain_blocks(x, w1, b1, w2, b2, w3, b3, H: int, W: int, fault):
+    bf16 = torch.bfloat16
+    b, hw, _ = x.shape
+    rows = torch.arange(hw, device=x.device).reshape(1, hw, 1)
+    h = x
+    for i in range(w1.shape[0]):
+        y = torch.relu(h.float() @ w1[i].float() + b1[i]).to(bf16).float()
+        yp = F.pad(y.reshape(b, H, W, -1), (0, 0, 1, 1, 1, 1))
+        acc = torch.zeros((b, hw, w2.shape[-1]), device=x.device)
+        for t, (dy, dx) in enumerate(_TAPS):
+            if fault == "corner tap dropped" and t == 8:
+                continue
+            if fault == "wrapped border taps":
+                inside = (rows + dy * W >= 0) & (rows + dy * W < hw)
+                tap = torch.where(inside, torch.roll(y, -(dy * W + dx), 1),
+                                  0.0)
+            else:
+                tap = yp[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W].reshape(
+                    b, hw, -1)
+            acc = acc + tap @ w2[i, t].float()
+            if fault == "bf16 tap sum":
+                acc = acc.to(bf16).float()
+        y = torch.relu(acc + b2[i]).to(bf16)
+        y3 = (y.float() @ w3[i].float() + b3[i]).to(bf16)
+        h = torch.relu((y3.float() + h.float()).to(bf16))
+    return h
+
+
+def fused_blocks_error(out: torch.Tensor, want: torch.Tensor) -> dict:
+    """How far ``out`` lies from the plain version's ``want``: the largest
+    absolute difference, the norm-relative one over the whole tensor and
+    the largest element's difference over its bar (``check_fused_blocks``)."""
+    got, ref = out.float(), want.float()
+    diff = (got - ref).abs()
+    rms = ref.square().mean().sqrt()
+    bar = BF16_STEP * (ref.abs() + RMS_STEPS * rms)
+    return {"max_abs_err": diff.max().item(),
+            "rel_err": (diff.norm() / ref.norm()).item(),
+            "bar_ratio": (diff / bar).max().item()}
+
+
+def check_fused_blocks(out: torch.Tensor, want: torch.Tensor) -> dict:
+    """The rule K7 is held to against its plain version on the same inputs,
+    one block at a time. Raises ``AssertionError`` at a breach; returns
+    ``fused_blocks_error``.
+
+    Both sides round y1, y2, y3 and h to bf16 from f32 sums taken in other
+    orders, so an element whose two sums straddle a rounding point lands a
+    step away, and the flip travels: a flipped y3 enters h through the
+    residual sum with y3's step, which can be several times h's own where
+    the two nearly cancel. Each element must lie within ``2^-7 (|want| +
+    RMS_STEPS rms(want))``, the whole within ``REL_TOL`` in norm. Set from
+    the first run of ``chip_smoke.py`` on an H100 (PERF.md, K7's finding):
+    one block of the kernel read 3.4e-4 to 5.4e-4 in norm and at most 0.6 of the element
+    bar at ResNet-50's stage shapes, while the 3x3's sum rounded to bf16
+    after each tap read 2.3e-3 to 2.6e-3 and fails the norm bar; a missing
+    tap or a border tap reading the neighbouring row's pixel read 30 to 77
+    times the element bar. Over a call of two or three blocks the kernel's
+    own difference grew to 1.4e-3 as each block carried the last one's
+    flips on, which is why the rule takes blocks singly
+    (``check_fused_call``)."""
+    if out.shape != want.shape or out.dtype != want.dtype:
+        raise AssertionError(f"{tuple(out.shape)} {out.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite output")
+    err = fused_blocks_error(out, want)
+    if err["bar_ratio"] > 1:
+        raise AssertionError(f"an element differs by {err['bar_ratio']} "
+                             f"times its bar (2^-7 (|plain| + {RMS_STEPS} "
+                             f"rms(plain))); largest difference "
+                             f"{err['max_abs_err']}")
+    if err["rel_err"] > REL_TOL:
+        raise AssertionError(f"norm-relative difference {err['rel_err']} > "
+                             f"{REL_TOL}")
+    return err
+
+
+def check_fused_call(x, op, H: int, W: int):
+    """One K7 call (the n blocks of ``op`` in one call, as the path makes
+    it) on ``x``, and the same blocks launched one at a time along the
+    chain. The call must launch n times and equal the chain bit for bit
+    (the kernel sums in one fixed order, so a block's output depends on its
+    input alone); each block's output must pass ``check_fused_blocks``
+    against the plain version on that block's own input, and each of
+    ``BLOCK_FAULTS`` must fail it on every block. The rule holds single
+    blocks because the two sides' summation orders part further with every
+    block a value passes through. Returns (the call's output, each block's
+    ``fused_blocks_error``, each fault's per block); raises
+    ``AssertionError``."""
+    n = op[0].shape[0]
+    before = fused_identity_blocks.launches
+    out = fused_identity_blocks(x, *op, H=H, W=W)
+    if fused_identity_blocks.launches - before != n:
+        raise AssertionError(f"{fused_identity_blocks.launches - before} "
+                             f"launches for {n} blocks")
+    h, errs, faults = x, [], {f: [] for f in BLOCK_FAULTS}
+    for i in range(n):
+        blk = [t[i:i + 1] for t in op]
+        got = fused_identity_blocks(h, *blk, H=H, W=W)
+        want = fused_identity_blocks_reference(h, *blk, H=H, W=W)
+        try:
+            errs.append(check_fused_blocks(got, want))
+        except AssertionError as e:
+            raise AssertionError(f"block {i} against the plain version: "
+                                 f"{e}") from None
+        for fault in BLOCK_FAULTS:
+            bad = planted_block_fault(fault, h, *blk, H, W)
+            try:
+                check_fused_blocks(bad, want)
+            except AssertionError:
+                faults[fault].append(fused_blocks_error(bad, want))
+                continue
+            raise AssertionError(f"block {i}: the planted fault '{fault}' "
+                                 f"passes check_fused_blocks")
+        h = got
+    if not torch.equal(out, h):
+        raise AssertionError("the call differs from its blocks launched "
+                             "one at a time")
+    return out, errs, faults
+
+
+def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded BatchNorm of the reference's fused-path test: scale U(0.5,
+    1.5), bias N(0, 0.2), mean N(0, 0.3), var U(0.5, 2). ``init_weights``
+    leaves scale 1, mean 0 and var 1, under which folding is trivially
+    right."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n, dev = m.num_features, m.weight.device
+
+                def draw(lo, hi):
+                    return lo + (hi - lo) * torch.rand(n, generator=gen,
+                                                       device=dev)
+                m.weight.copy_(draw(0.5, 1.5))
+                m.bias.copy_(0.2 * torch.randn(n, generator=gen, device=dev))
+                m.running_mean.copy_(0.3 * torch.randn(n, generator=gen,
+                                                       device=dev))
+                m.running_var.copy_(draw(0.5, 2.0))
+
+
+def tile_rows(H: int, W: int, M: int) -> int:
+    """Image rows a kernel block owns at H x W pixels and bottleneck width
+    M, as ``csrc/fused_resnet.cu`` plans them (the one place that knows its
+    shared-memory layout): at most 256 pixels, one row at least, within the
+    shared memory, evened out over the image. 0 when even one row does not
+    fit. Builds the kernels on first use."""
+    from . import _build
+    return _build.load().isf_fused_block_tile(H, W, M)
+
+
+def _kernel_plan(x, weights, H: int, W: int) -> None:
+    """Raise unless the kernel takes the operands as they are."""
+    b, _, c = x.shape
+    m = weights[0].shape[-1]
+    named = dict(zip(("x", "w1", "b1", "w2", "b2", "w3", "b3"),
+                     (x, *weights)))
+    for name, t in named.items():
+        dtype = torch.float32 if name.startswith("b") else torch.bfloat16
+        if t.dtype != dtype:
+            raise ValueError(f"fused_identity_blocks: {name} is {t.dtype}; "
+                             f"the kernel takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_identity_blocks: {name} is not "
+                             f"contiguous")
+    if c % CHANNEL_STEP or m % CHANNEL_STEP:
+        raise ValueError(f"fused_identity_blocks: C={c}, M={m}; the kernel "
+                         f"takes multiples of {CHANNEL_STEP}")
+    if b > 65535:
+        raise ValueError(f"fused_identity_blocks: B={b} > 65535")
+    for name, t in named.items():
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"fused_identity_blocks: {name} on "
+                             f"{t.device}; the kernel takes every operand "
+                             f"on one CUDA device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_identity_blocks: {name} is not 16-byte "
+                             f"aligned")
+    if not tile_rows(H, W, m):
+        raise ValueError(f"fused_identity_blocks: one image row of W={W} "
+                         f"pixels at M={m} does not fit the kernel's shared "
+                         f"memory")
+
+
+def fused_identity_blocks(x, w1, b1, w2, b2, w3, b3, *, H: int,
+                          W: int) -> torch.Tensor:
+    """K7: n stacked stride-1 bottleneck blocks, the reference's signature
+    and layout (see ``fused_identity_blocks_reference``). On CUDA one
+    kernel launch per block; the blocks write two fresh buffers in turn,
+    never the caller's ``x`` (a tile's 3x3 halo reads rows that another
+    tile's block would already have overwritten, so the reference's
+    donation of ``x`` has no counterpart here)."""
+    _check_shapes(x, w1, b1, w2, b2, w3, b3, H, W)
+    if x.device.type == "cpu":
+        return fused_identity_blocks_reference(x, w1, b1, w2, b2, w3, b3,
+                                               H=H, W=W)
+    weights = (w1, b1, w2, b2, w3, b3)
+    _kernel_plan(x, weights, H, W)
+    from . import _build
+    lib = _build.load()
+    b, _, c = x.shape
+    n, m = w1.shape[0], w1.shape[-1]
+    out = torch.empty_like(x)
+    spare = torch.empty_like(x) if n > 1 else None
+    src = x
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for i in range(n):
+            dst = out if (n - 1 - i) % 2 == 0 else spare
+            err = lib.isf_fused_block(
+                src.data_ptr(), *(wt[i].data_ptr() for wt in weights),
+                dst.data_ptr(), b, H, W, c, m, stream)
+            if err:
+                raise RuntimeError(
+                    f"fused_identity_blocks kernel launch failed: CUDA error "
+                    f"{err} (x {tuple(x.shape)}, H={H}, W={W}, M={m})")
+            fused_identity_blocks.launches += 1
+            src = dst
+    return out
+
+
+# kernel launches, one per block; reset by whoever counts them
+fused_identity_blocks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Full folded-BN ResNet forward (stem/block0 by F.conv2d, identity blocks K7)
+# ---------------------------------------------------------------------------
+
+def _conv(x: torch.Tensor, k: torch.Tensor, stride: int,
+          pad: int) -> torch.Tensor:
+    """NHWC bf16 ``x`` by a folded OIHW f32 kernel ``k`` -> NHWC f32. The
+    NCHW view of NHWC memory is channels-last, which cuDNN keeps; on the
+    card the sum comes back rounded to bf16, on the CPU in f32 (module
+    docstring)."""
+    xc = x.permute(0, 3, 1, 2)
+    if x.is_cuda:
+        w = k.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(xc, w, stride=stride, padding=pad).float()
+    else:
+        y = F.conv2d(xc.float(), k.to(x.dtype).float(), stride=stride,
+                     padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def _block0(h, sd, p: str, stride: int):
+    """Bottleneck block 0: has a downsample projection (and maybe stride)."""
+    k1, c1 = _folded(sd, f"{p}.conv1", f"{p}.bn1", h.device)
+    y = torch.relu(_conv(h, k1, 1, 0) + c1).to(h.dtype)
+    k2, c2 = _folded(sd, f"{p}.conv2", f"{p}.bn2", h.device)
+    y = torch.relu(_conv(y, k2, stride, 1) + c2).to(h.dtype)
+    k3, c3 = _folded(sd, f"{p}.conv3", f"{p}.bn3", h.device)
+    y = _conv(y, k3, 1, 0) + c3
+    kd, cd = _folded(sd, f"{p}.downsample.0", f"{p}.downsample.1", h.device)
+    r = _conv(h, kd, stride, 0) + cd
+    return torch.relu(y + r).to(h.dtype)
+
+
+def _identity_block_lax(h, sd, p: str):
+    """Identity block with the same folded-BN math (lax route): one
+    rounding at the end, where K7 has two."""
+    k1, c1 = _folded(sd, f"{p}.conv1", f"{p}.bn1", h.device)
+    y = torch.relu(_conv(h, k1, 1, 0) + c1).to(h.dtype)
+    k2, c2 = _folded(sd, f"{p}.conv2", f"{p}.bn2", h.device)
+    y = torch.relu(_conv(y, k2, 1, 1) + c2).to(h.dtype)
+    k3, c3 = _folded(sd, f"{p}.conv3", f"{p}.bn3", h.device)
+    y = _conv(y, k3, 1, 0) + c3 + h.float()
+    return torch.relu(y).to(h.dtype)
+
+
+def _stack_identity_weights(sd, layer: str, blocks, device):
+    """Fold and stack the identity blocks ``blocks`` (names under
+    ``layer``) into K7's operands: w1 [n, C, M], b1 [n, 1, M], w2 [n, 9, M,
+    M], b2 [n, 1, M], w3 [n, M, C], b3 [n, 1, C]. Folding is in f32; the
+    weights are cast to bf16 after it, the biases stay f32."""
+    w1, b1, w2, b2, w3, b3 = ([] for _ in range(6))
+    for name in blocks:
+        p = f"{layer}.{name}"
+        k1, c1 = _folded(sd, f"{p}.conv1", f"{p}.bn1", device)
+        k2, c2 = _folded(sd, f"{p}.conv2", f"{p}.bn2", device)
+        k3, c3 = _folded(sd, f"{p}.conv3", f"{p}.bn3", device)
+        m, c = k1.shape[0], k3.shape[0]
+        w1.append(k1[:, :, 0, 0].T)                          # [C, M]
+        b1.append(c1.reshape(1, m))
+        w2.append(k2.permute(2, 3, 1, 0).reshape(9, m, m))   # OIHW -> taps
+        b2.append(c2.reshape(1, m))
+        w3.append(k3[:, :, 0, 0].T)                          # [M, C]
+        b3.append(c3.reshape(1, c))
+    bf16 = torch.bfloat16
+    return (torch.stack(w1).to(bf16), torch.stack(b1),
+            torch.stack(w2).to(bf16), torch.stack(b2),
+            torch.stack(w3).to(bf16), torch.stack(b3))
+
+
+def fused_resnet_apply(state_dict: Mapping[str, torch.Tensor],
+                       x: torch.Tensor, stage_sizes=(3, 4, 6, 3), *,
+                       use_kernel: bool = True, fused_layers=(2,),
+                       max_group_bytes: int = 6 << 20) -> torch.Tensor:
+    """Inference Bottleneck ResNet forward with folded BN and fused
+    identity blocks: NHWC images [B, S, S, 3] -> NHWC bf16 feature maps
+    [B, S/32, S/32, 2048], on ``x``'s device (the state_dict's tensors are
+    moved there). Mirrors ``models.resnet.ResNet.forward`` as a function of
+    its state_dict; the stem is conv 7x7/2 + folded BN + ReLU and a 3x3/2
+    max pool padded with -inf.
+
+    ``fused_layers`` selects the stages (1-based) whose identity blocks run
+    in K7; the others, and all of them without ``use_kernel``, take the lax
+    route. ``max_group_bytes`` is accepted for the reference's signature
+    and ignored: the reference splits a stage's identity blocks into calls
+    whose weights fit the TPU's VMEM, while K7 streams its weights from L2
+    and launches once per block however the blocks are grouped, so the
+    port calls it once per stage with all of the stage's identity blocks
+    (the numbers are the same either way: h is bf16 between blocks).
+    Activations stay in NHWC memory throughout; K7 takes a ``[B, H*W, C]``
+    view of it, so nothing is copied around the kernel."""
+    dt = torch.bfloat16
+    sd = state_dict
+    h = x.to(dt)
+    k0, c0 = _folded(sd, "conv1", "bn1", x.device)
+    h = torch.relu(_conv(h, k0, 2, 3) + c0).to(dt)
+    h = F.max_pool2d(h.permute(0, 3, 1, 2), 3, stride=2,
+                     padding=1).permute(0, 2, 3, 1)
+
+    for i, blocks in enumerate(stage_sizes):
+        layer = f"layer{i + 1}"
+        h = _block0(h, sd, f"{layer}.0", stride=1 if i == 0 else 2)
+        names = [str(j) for j in range(1, blocks)]
+        if not names:
+            continue
+        if not use_kernel or (i + 1) not in fused_layers:
+            for name in names:
+                h = _identity_block_lax(h, sd, f"{layer}.{name}")
+            continue
+        b, H, W, c = h.shape
+        ops = _stack_identity_weights(sd, layer, names, x.device)
+        h = fused_identity_blocks(h.contiguous().view(b, H * W, c), *ops,
+                                  H=H, W=W).view(b, H, W, c)
+    return h
+
+
+STAGE_SIZES = {
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
+    "resnet152": (3, 8, 36, 3),
+}

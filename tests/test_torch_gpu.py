@@ -25,7 +25,13 @@ values straddle a rounding point may differ. With v = ones the output is ones wi
 (the n rounded terms of a row of p sum to one over the valid keys, each
 term and each addition off by at most 2^-24 of the running sum; a padded
 key, whose staged v row is zero, would pull it below by about 1/n) and within
-one bf16 step in bf16.
+one bf16 step in bf16. K7 against its plain version
+(``check_fused_blocks``): each element within 2^-7 (|plain| + 4
+rms(plain)), the whole within 1e-3 in norm, one block at a time; three
+planted faults (``planted_block_fault``) must fail that rule.
+
+Products on both sides run in true f32: the ``gen`` fixture turns TF32 off
+for matmuls and cuDNN and restores the flags after the test.
 """
 import numpy as np
 import pytest
@@ -43,7 +49,12 @@ from instsearch_torch.kernels import (flash_mha, flash_mha_reference, mha,
                                       topk_matmul_reference)
 from instsearch_torch.kernels.topk_matmul import (K_MAX, check_against_plain,
                                                   check_exact)
+from instsearch_torch.kernels.fused_resnet import (
+    _stack_identity_weights, check_fused_call, fused_identity_blocks,
+    fused_resnet_apply, randomize_bn, tile_rows)
 from instsearch_torch.kernels.vit_attention import check_attention
+from instsearch_torch.models.resnet import Bottleneck, ResNet
+from instsearch_torch.ops.pooling import gem_pool
 from instsearch_torch.ops.pq import PQCodebook
 from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 
@@ -54,7 +65,13 @@ TOL = 1e-5
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU form)")
-    return torch.Generator(device="cuda").manual_seed(0)
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    yield torch.Generator(device="cuda").manual_seed(0)
+    for f, was in zip(flags, saved):
+        f.allow_tf32 = was
 
 
 def _unit(gen, n, d, dtype=torch.float32):
@@ -229,9 +246,6 @@ def test_pq_kernel_refuses_what_it_cannot_take(gen):
 
 
 def _qkv(gen, shape, dtype):
-    # products in true f32 on both sides: the plain versions' matmuls must
-    # not round their f32 operands to TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
     return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
             for _ in range(3)]
 
@@ -265,7 +279,6 @@ def test_attention_kernels_read_the_qkv_projection_in_place(gen, dtype):
     """q, k, v as the model passes them, [B, h, N, hd] views of one packed
     [B, N, 3, h, hd] projection, give what their contiguous copies give, and
     o's memory is [B, N, h, hd], so merging the heads copies nothing."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     qkv = torch.randn((2, 300, 3, 3, 64), generator=gen,
                       device="cuda").to(dtype)
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
@@ -299,3 +312,103 @@ def test_attention_kernels_refuse_what_they_cannot_take(gen):
     with pytest.raises(ValueError, match="flash_mha"):
         mha(qb, kb, vb)                      # past K6's shared memory
     assert (mha.launches, flash_mha.launches) == before
+
+
+def _seeded_net(gen, stage_sizes):
+    """A Bottleneck ResNet on the card: Flax-distribution conv weights and
+    randomized BN."""
+    model = ResNet(stage_sizes, Bottleneck, device="cuda")
+    model.init_weights(gen)
+    randomize_bn(model, gen)
+    return model
+
+
+def _stage(gen, H, W, C, M, n, B=2):
+    """n identity blocks of a seeded net's stage (C, M), folded and stacked
+    as ``fused_resnet_apply`` does, and a post-ReLU activation [B, H*W, C]."""
+    layer = {64: 1, 128: 2, 256: 3, 512: 4}[M]
+    sizes = [1, 1, 1, 1]
+    sizes[layer - 1] = n + 1
+    model = _seeded_net(gen, sizes)
+    ops = _stack_identity_weights(model.state_dict(), f"layer{layer}",
+                                  [str(j) for j in range(1, n + 1)], "cuda")
+    x = torch.relu(torch.randn((B, H * W, C), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+    return x, ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,C,M,n", [
+    (56, 56, 256, 64, 2), (28, 28, 512, 128, 3), (14, 14, 1024, 256, 2),
+    (7, 7, 2048, 512, 1),          # ResNet-50's stages at 224 px
+    (23, 23, 256, 64, 2),          # an uneven split: tiles of 8, 8, 7 rows
+    (9, 13, 512, 128, 2),          # H != W
+    (3, 130, 256, 64, 1),          # a row wider than a tile's 128-row GEMM
+    (32, 32, 1024, 256, 2)])       # layer 3 at 512 px: tiles 5 x 6 + 2 rows
+def test_fused_blocks_kernel_matches_plain_version(gen, H, W, C, M, n):
+    """``check_fused_call``: one launch per block, the call equal to its
+    blocks launched one at a time, each block within
+    ``check_fused_blocks`` of the plain version, the three planted faults
+    rejected on every block; the caller's x untouched."""
+    x, ops = _stage(gen, H, W, C, M, n)
+    keep = x.clone()
+    out, errs, faults = check_fused_call(x, ops, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(x, keep)
+    assert out.shape == x.shape and len(errs) == n
+    assert all(len(v) == n for v in faults.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,M,want", [
+    (56, 56, 64, 4), (28, 28, 128, 7), (14, 14, 256, 7), (7, 7, 512, 7),
+    (128, 128, 64, 2), (64, 64, 128, 4), (32, 32, 256, 5), (16, 16, 512, 4),
+    (3, 130, 64, 1), (23, 23, 64, 8), (1, 4000, 512, 0)])
+def test_fused_blocks_tile_plan(gen, H, W, M, want):
+    """The kernel's own tile plan: ResNet-50's stages at 224 and 512 px, a
+    row wider than the 256-pixel aim, an uneven split, and a row whose tile
+    does not fit the shared memory (0: the wrapper refuses)."""
+    assert tile_rows(H, W, M) == want
+
+
+@pytest.mark.gpu
+def test_fused_blocks_kernel_refuses_what_it_cannot_take(gen):
+    x, ops = _stage(gen, 7, 7, 2048, 512, 1)
+    w1, b1, w2, b2, w3, b3 = ops
+    before = fused_identity_blocks.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_identity_blocks(x, w1.cpu(), b1, w2, b2, w3, b3, H=7, W=7)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fused_identity_blocks(x.transpose(0, 1).contiguous().transpose(0, 1),
+                              *ops, H=7, W=7)
+    with pytest.raises(ValueError, match="16-byte"):
+        xs = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+        fused_identity_blocks(xs[1:x.numel() + 1].view(x.shape), *ops, H=7,
+                              W=7)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_identity_blocks(x[:, :, :96].contiguous(),
+                              w1[:, :96].contiguous(), b1, w2, b2,
+                              w3[:, :, :96].contiguous(),
+                              b3[:, :, :96].contiguous(), H=7, W=7)
+    wide = torch.zeros((1, 4000, 2048), dtype=x.dtype, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_identity_blocks(wide, *ops, H=1, W=4000)
+    assert fused_identity_blocks.launches == before
+
+
+@pytest.mark.gpu
+def test_fused_resnet_apply_on_the_card_matches_the_module(gen):
+    """A (2, 2, 2, 2) Bottleneck ResNet at 96 px: the fused route (K7 on
+    every stage, one launch per identity block) gives the module route's
+    GeM descriptors within cosine 0.999 per image."""
+    model = _seeded_net(gen, (2, 2, 2, 2))
+    x = torch.rand((4, 96, 96, 3), generator=gen, device="cuda") * 2 - 1
+    before = fused_identity_blocks.launches
+    with torch.inference_mode():
+        want = gem_pool(model(x).float())
+        got = gem_pool(fused_resnet_apply(model.state_dict(), x,
+                                          stage_sizes=(2, 2, 2, 2),
+                                          fused_layers=(1, 2, 3, 4)).float())
+    assert fused_identity_blocks.launches == before + 4
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    assert cos.min().item() > 0.999, cos

@@ -3,7 +3,8 @@ already holds JAX through tests/conftest.py), import instsearch_torch and its
 evaluation package, build a tiny bf16 Index and a tiny int4 one on the CPU,
 search them (the second with alpha query expansion, then through a PQ
 cascade view), run a tiny ViT on its three attention routes and the
-multi-scale resize, then check sys.modules: neither JAX nor any module of
+multi-scale resize and a tiny ResNet through ``fused_resnet_apply`` (its
+identity blocks through K7's plain version), then check sys.modules: neither JAX nor any module of
 the reference package was loaded."""
 import json
 import os
@@ -48,6 +49,13 @@ for att in ("xla", "pallas", "flash"):
               attention=att, device="cpu")
     vit.init_weights(torch.Generator().manual_seed(0))
     assert tuple(vit(rescale(img, 0.8)).shape) == (1, 4, 4, 16)
+from instsearch_torch.kernels.fused_resnet import fused_resnet_apply
+from instsearch_torch.models.resnet import Bottleneck, ResNet
+net = ResNet((1, 2, 1, 1), Bottleneck, device="cpu")
+net.init_weights(torch.Generator().manual_seed(0))
+feats = fused_resnet_apply(net.state_dict(), torch.rand(1, 32, 32, 3),
+                           stage_sizes=(1, 2, 1, 1), fused_layers=(1, 2, 3, 4))
+assert tuple(feats.shape) == (1, 1, 1, 2048) and feats.dtype == torch.bfloat16
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

@@ -7,6 +7,8 @@ port's ``Index.query_images`` on one GPU.
                                    [--config configs/capacity_int4.json]
                                    [--backbone vit_b_16]
                                    [--vit-attention pallas|flash|xla]
+    python3 tools/profile_query.py --resnet-route module|fused|fused_all
+                                   [--batches 64] [--reps 10]
 
 Run from the root of a checkout. It builds the configuration of
 chip_smoke.py's phase 2 (seeded random ResNet-50 at 224 px, bf16, GeM,
@@ -24,6 +26,12 @@ batch:
     pass 2;
   * ``wall_ms``: host time under the profiler, and ``wall_p50_ms`` without
     it; ``idle`` and ``idle_unprofiled``: 1 - busy / each wall.
+
+``--resnet-route`` profiles the ResNet-50 backbone forward alone at 224 px
+instead (chip_smoke.py phase 6: seeded weights, randomized BatchNorm): the
+module (cuDNN, BN unfolded), ``fused_resnet_apply`` with the default
+``fused_layers=(2,)`` (``fused``) or ``(1, 2, 3, 4)`` (``fused_all``), the
+identity blocks it fuses in the ``fused_blocks`` category (K7).
 
 Every line carries the card's nvidia-smi name and power limit.
 """
@@ -65,6 +73,8 @@ def category(name: str) -> str:
         return "batchnorm"
     if "mha_kernel" in low or "flash_kernel" in low:
         return "attention_kernel"
+    if "identity_block_kernel" in low:
+        return "fused_blocks"
     if "layer_norm" in low:
         return "layernorm"
     if "softmax" in low:
@@ -97,23 +107,25 @@ def build_index(gen, rows: int, corpus: int, cfg: PipelineConfig):
     return Index.from_descriptors(store, names, cfg, extractor=ex), images
 
 
-def profile_batch(idx: Index, batch: np.ndarray, reps: int) -> dict:
+def profile_calls(call, reps: int) -> dict:
+    """Profile ``reps`` calls of ``call``, which returns once its device
+    work is done (a query's host copy of its results, or a synchronize)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        idx.query_images(batch)                       # warm this shape
+        call()                                        # warm this shape
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        idx.query_images(batch)
+        call()
         walls.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            idx.query_images(batch)
+            call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     split: dict[str, float] = {}
@@ -134,6 +146,33 @@ def profile_batch(idx: Index, batch: np.ndarray, reps: int) -> dict:
             "idle_unprofiled": 1 - busy / statistics.median(walls)}
 
 
+RESNET_ROUTES = {"module": None, "fused": (2,), "fused_all": (1, 2, 3, 4)}
+
+
+def resnet_call(route: str, gen, b: int):
+    """A call of ResNet-50's forward on ``route`` over b seeded images."""
+    from instsearch_torch.data.frontend import normalize
+    from instsearch_torch.kernels.fused_resnet import (STAGE_SIZES,
+                                                       fused_resnet_apply,
+                                                       randomize_bn)
+    from instsearch_torch.models import get_backbone
+    model = get_backbone("resnet50")[0].init_weights(gen)
+    randomize_bn(model, gen)
+    x = normalize(torch.from_numpy(smooth_images(gen, b)).cuda())
+    sd = model.state_dict()
+    layers = RESNET_ROUTES[route]
+
+    @torch.inference_mode()
+    def call():
+        if layers is None:
+            model(x)
+        else:
+            fused_resnet_apply(sd, x, STAGE_SIZES["resnet50"],
+                               fused_layers=layers)
+        torch.cuda.synchronize()
+    return call
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
@@ -145,12 +184,20 @@ def main() -> int:
     ap.add_argument("--backbone", default=PHASE2.extract.backbone)
     ap.add_argument("--vit-attention", default="pallas",
                     choices=("auto", "xla", "pallas", "flash"))
+    ap.add_argument("--resnet-route", choices=sorted(RESNET_ROUTES),
+                    help="profile the ResNet-50 forward on this route alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_query: needs a CUDA device")
     card = card_line()
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.resnet_route:
+        for b in args.batches:
+            report(card, resnet_route=args.resnet_route, image=IMAGE, b=b,
+                   reps=args.reps, **profile_calls(
+                       resnet_call(args.resnet_route, gen, b), args.reps))
+        return 0
     cfg = PHASE2.replace(extract=PHASE2.extract.replace(
         backbone=args.backbone, vit_attention=args.vit_attention))
     if args.config:
@@ -166,7 +213,7 @@ def main() -> int:
                vit_attention=cfg.extract.vit_attention,
                store=cfg.index.dtype, qe=cfg.search.qe_enabled,
                rows=args.rows, b=b, reps=args.reps,
-               **profile_batch(idx, batch, args.reps))
+               **profile_calls(lambda: idx.query_images(batch), args.reps))
     return 0
 
 
