@@ -5,13 +5,14 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs seven phases; each raises on failure and the process exits non-zero.
+runs eight phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
-     main paths' shapes: 1M x 512 rows, B in {1, 8, 128}, k in {1, 10,
-     100}, padding, a 50% mask, duplicated rows, fewer valid rows than k,
-     D = 2048 at B = 1; K1 in bf16 and f32 (scores within SCORE_TOL), K2
+     main paths' shapes: 1M x 512 rows, B in {1, 8, 128} (K1 in bf16: {1,
+     8, 16, 64, 128}, each timed), k in {1, 10, 100}, padding, a
+     50% mask, duplicated rows, fewer valid rows than k, D = 2048 at B = 1
+     (bf16: also 128); K1 in bf16 and f32 (scores within SCORE_TOL), K2
      over int8 and K3 over int4 rows (bit for bit), K3 also at D = 128;
      K4 over 4-bit PQ codes, 1M x 32 bytes (M = 64) with the same cases and
      1M x 8 bytes (M = 16), and 67,108,864 x 32 bytes (2 GiB of codes) at
@@ -63,11 +64,18 @@ runs seven phases; each raises on failure and the process exits non-zero.
      per image, their whitened descriptors searched (K1) against a 1M x 512
      bf16 store of the module route's among distractors, every top-1 its own
      image; K7 must launch once per identity block (3 and 12 a forward).
-     Then one 512 px batch through ``(1, 2, 3, 4)``, against the module.
+     Then one 512 px batch through ``(1, 2, 3, 4)``, against the module;
+  7. widths and depths the reference serves: an Index of 65,536 rows of
+     D = 31 in bf16, int8 and int4 (padded to the kernels' multiples)
+     served through K1-K3 and equal to the plain versions' route, k = 2000
+     through the scoring oracle, and ``build_pq`` at D = 96 (M = 12, codes
+     padded to whole words) through K4, equal to the unpadded plain
+     version bit for bit.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
-bf16, 8 in f32), K5 at 4,097 and 16,385 (B = 1, bf16) and 1,025 (B = 2,
+bf16, 8 in f32) and 4,097 (B = 1, bf16), K5 at 4,097 and 16,385 (B = 1,
+bf16) and 1,025 (B = 2,
 f32), by ``check_attention`` (``kernels/vit_attention.py``), which must also
 reject two planted faults on every bf16 case (a key tile dropped, logits
 rounded to bf16), with the time of PyTorch's
@@ -85,7 +93,8 @@ calls, replayed from a CUDA graph) as the yardstick.
 Every measured number is printed with the card's nvidia-smi name and power
 limit. The line before the last is the kernel summary as JSON: per kernel its
 launches on the main path, its largest difference from its plain version,
-its median time and its plain version's at 1M rows, B = 1, k = 10 (K6 at
+its median time and its plain version's at 1M rows, B = 1, k = 10 (K1
+also at B = 128: ``ms_b128``, ``library_ms_b128``, ``bound_ms_b128``; K6 at
 [64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16, K7 at layer 2 of
 ResNet-50, [64, 28x28, 512], M = 128, three blocks), the least
 time the card could take for that work (``bound_ms``: the larger of the bytes
@@ -113,6 +122,8 @@ IMAGE = 224
 CORPUS_Q = 1024         # phase 3: images extracted at the presets' 512 px
 SCORE_TOL = 1e-5        # unit rows: f32 sums in two orders differ far below
 SIZES = (1, 3, 8, 13)   # images per served request
+K1_BATCHES = (1, 8, 16, 64, 128)   # K1's bf16 query batches in phase 1
+F4_ROWS = 1 << 16       # phase 7: rows of the odd-width and PQ stores
 PQ_ROWS_CAPACITY = 1 << 26   # bench.py::bench_pq_capacity's 64M rows
 VIT_CORPUS = 2048       # phase 5: images extracted by ViT-B/16 at 224 px
 VIT_LAYERS = 12         # ViT-B/16: one attention launch per layer and pass
@@ -232,20 +243,23 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         x = unit_rows(gen, N_ROWS, DIM, dtype)
-        for b in (1, 8, 128):
+        bf16 = dtype is torch.bfloat16
+        for b in K1_BATCHES if bf16 else (1, 8, 128):
             for k in (1, 10, 100):
                 case(x, b, k, f"{name} num_valid=N-1000", num_valid=nv)
         mask = (torch.rand(N_ROWS, generator=gen, device=dev) < 0.5
                 ).to(torch.int8)
-        case(x, 8, 10, f"{name} 50% mask", mask=mask)
+        for b in (8, 128):
+            case(x, b, 10, f"{name} 50% mask", mask=mask)
         case(x, 3, 100, f"{name} 50 valid rows < k", num_valid=50)
-        if dtype is torch.bfloat16:
-            for b in (1, 128):
+        if bf16:
+            for b in K1_BATCHES:
                 q = unit_rows(gen, b, DIM, torch.float32)
                 qb = q.to(torch.bfloat16)
                 timings[f"bf16 N=1M D=512 B={b} k=10"] = {
                     "ms": cuda_median_ms(lambda: topk(x, q, k=10)),
-                    "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10)),
+                    "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10),
+                                               reps=10),
                     # the yardstick: one bf16 product and torch.topk, which
                     # the port never calls
                     "library_ms": cuda_median_ms(
@@ -257,15 +271,17 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
         # are the 100 lowest copies of one base row, in position order
         base = unit_rows(gen, 1024, DIM, dtype)
         dup = base.repeat(N_ROWS // 1024, 1).contiguous()
-        i = case(dup, 8, 100, f"{name} duplicated rows")
-        if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
-                and bool((i % 1024 == i[:, :1] % 1024).all())):
-            fail(f"{name} duplicated rows: copies out of position order")
+        for b in ((8, 128) if bf16 else (8,)):
+            i = case(dup, b, 100, f"{name} duplicated rows")
+            if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
+                    and bool((i % 1024 == i[:, :1] % 1024).all())):
+                fail(f"{name} duplicated rows: copies out of position order")
         del base, dup
         # the unwhitened ResNet-50 width
         x = unit_rows(gen, N_ROWS, 2048, dtype)
-        for k in (10, 100):
-            case(x, 1, k, f"{name} D=2048", num_valid=nv)
+        for b in ((1, 128) if bf16 else (1,)):
+            for k in (10, 100):
+                case(x, b, k, f"{name} D=2048", num_valid=nv)
         if dtype is torch.bfloat16:
             q = unit_rows(gen, 1, 2048, torch.float32)
             timings["bf16 N=1M D=2048 B=1 k=10"] = {
@@ -349,6 +365,7 @@ def phase1_attention(card: str, gen) -> tuple[dict, dict]:
             (mha, mha_reference, (1, 12, 197, 64), "bf16"),
             (mha, mha_reference, (64, 12, 197, 64), "bf16"),
             (mha, mha_reference, (8, 12, 197, 64), "f32"),
+            (mha, mha_reference, (1, 12, 4097, 64), "bf16"),
             (flash_mha, flash_mha_reference, (1, 12, 4097, 64), "bf16"),
             (flash_mha, flash_mha_reference, (1, 12, 16385, 64), "bf16"),
             (flash_mha, flash_mha_reference, (2, 12, 1025, 64), "f32")):
@@ -1262,6 +1279,134 @@ def phase6(card: str, gen, model) -> dict:
             "cos_512": cos512}
 
 
+def phase7(card: str, gen) -> dict:
+    """Widths, depths and PQ sizes the reference serves: an Index of
+    F4_ROWS seeded unit rows of D = 31 (a whitening clamped to 32 images)
+    in bf16, int8 and int4, its own rows perturbed as queries. The kernel
+    route must launch its kernel (the store padded to its multiple) and
+    equal the route through the kernel's plain version (bf16 by
+    ``check_against_plain``, int8/int4 bit for bit), every top-1 its source;
+    k = 2000 must take the scoring oracle (no launch) and agree with f64
+    scores of the stored rows on the host: scores within SCORE_TOL, ids
+    equal but at near-ties (the host's scores of the two within SCORE_TOL);
+    ``build_pq`` at D = 96 (M = 12, codes padded from 6 to 8 bytes)
+    must scan through K4 and equal the plain version over the unpadded
+    codes bit for bit."""
+    import numpy as np
+    import torch
+    import instsearch_torch.index as tindex
+    from instsearch_torch import IndexConfig, PipelineConfig, SearchConfig
+    from instsearch_torch.kernels import (pq_topk, pq_topk_reference,
+                                          topk_matmul, topk_matmul_int4,
+                                          topk_matmul_int4_reference,
+                                          topk_matmul_int8,
+                                          topk_matmul_int8_reference,
+                                          topk_matmul_reference)
+    from instsearch_torch.kernels.topk_matmul import (check_against_plain,
+                                                      check_exact)
+    from instsearch_torch.ops.quantize import unpack_int4
+
+    def host_topk(idx, q, k):
+        """(scores, ids) of the top k by f64 scores of the stored rows (the
+        query as the oracle takes it), padding rows out; and the scores."""
+        x = unpack_int4(idx.descriptors) if idx.is_int4 else idx.descriptors
+        qq = idx._match_query_dim(q)
+        if x.dtype != torch.int8:
+            qq = qq.to(x.dtype)
+        sc = qq.double().cpu().numpy() @ x.double().cpu().numpy().T
+        if idx.scales is not None:
+            sc = sc * idx.scales.double().cpu().numpy()
+        ids = idx.ids.cpu().numpy()
+        sc[:, ids < 0] = -np.inf
+        pos = np.argsort(-sc, axis=1, kind="stable")[:, :k]
+        return np.take_along_axis(sc, pos, 1), ids[pos], sc
+
+    out = {}
+    rows = unit_rows(gen, F4_ROWS, 31, torch.float32)
+    names = [f"r{i}" for i in range(F4_ROWS)]
+    src = torch.arange(0, F4_ROWS, F4_ROWS // 8, device="cuda")
+    q = rows[src] + 0.01 * torch.randn(8, 31, generator=gen, device="cuda")
+    for dtype, kernel, plain in (
+            ("bfloat16", topk_matmul, topk_matmul_reference),
+            ("int8", topk_matmul_int8, topk_matmul_int8_reference),
+            ("int4", topk_matmul_int4, topk_matmul_int4_reference)):
+        cfg = PipelineConfig(index=IndexConfig(dtype=dtype),
+                             search=SearchConfig(k=10))
+        idx = tindex.Index.from_descriptors(rows, names, cfg)
+        before = kernel.launches
+        ks, ki = idx.search(q)
+        launched = kernel.launches - before
+        if launched != 1 or not np.array_equal(ki[:, 0], src.cpu().numpy()):
+            fail(f"D=31 {dtype}: {launched} launches, top-1 "
+                 f"{ki[:, 0].tolist()}")
+        entry = kernel.__name__
+        setattr(tindex, entry, plain)
+        try:
+            ps, pi = idx.search(q)
+        finally:
+            setattr(tindex, entry, kernel)
+        on_card = [torch.from_numpy(np.asarray(a)).cuda()
+                   for a in (ks, ki, ps, pi)]
+        try:
+            if dtype == "bfloat16":
+                check_against_plain(idx.descriptors, idx._match_query_dim(q),
+                                    *on_card, SCORE_TOL)
+            else:
+                check_exact(*on_card)
+        except AssertionError as e:
+            fail(f"D=31 {dtype}: kernel and plain version: {e}")
+        before = kernel.launches
+        ds, di = idx.search(q, cfg.search.replace(k=2000))
+        if kernel.launches != before or di.shape != (8, 2000):
+            fail(f"D=31 {dtype} k=2000: {kernel.launches - before} "
+                 f"launches, shape {di.shape}")
+        hs, hi, sc = host_topk(idx, q, 2000)
+        err = float(np.abs(np.asarray(ds, np.float64) - hs).max())
+        rows_at, slots = np.nonzero(np.asarray(di) != hi)
+        # ids are row positions here: the Index numbers its rows
+        gap = np.abs(sc[rows_at, np.asarray(di)[rows_at, slots]]
+                     - sc[rows_at, hi[rows_at, slots]])
+        if err > SCORE_TOL or (gap.size and gap.max() >= SCORE_TOL):
+            fail(f"D=31 {dtype} k=2000: scores differ from the host's by "
+                 f"{err}, {gap.size} ids differ, largest score gap "
+                 f"{gap.max() if gap.size else 0.0}")
+        report(card, phase=7, store=dtype, d=31, store_dim=idx.store_dim,
+               rows=F4_ROWS, kernel_launches=launched, k2000_oracle=True,
+               k2000_max_abs_err=err, k2000_near_tie_swaps=int(gap.size),
+               plain_equal=True)
+        out[dtype] = idx.store_dim
+        del idx
+
+    rows = unit_rows(gen, F4_ROWS, 96, torch.float32)
+    cfg = PipelineConfig(index=IndexConfig(dtype="bfloat16"),
+                         search=SearchConfig(k=10))
+    idx = tindex.Index.from_descriptors(rows, names, cfg)
+    view = idx.build_pq(iters=5)
+    if view.m != 12 or tuple(view.packed.shape) != (F4_ROWS, 8):
+        fail(f"build_pq at D=96: m={view.m}, packed "
+             f"{tuple(view.packed.shape)}")
+    q = rows[src] + 0.01 * torch.randn(8, 96, generator=gen, device="cuda")
+    for k in (10, 100):
+        s, i = pq_topk(view.packed, q, view.codebook, k=k)
+        rs, ri = pq_topk_reference(view.codes.contiguous(), q, view.codebook,
+                                   k=k)
+        torch.cuda.synchronize()
+        try:
+            check_exact(s, i, rs, ri)
+        except AssertionError as e:
+            fail(f"build_pq at D=96, k={k}: padded codes: {e}")
+    before = pq_topk.launches
+    _, pi = idx.search(q)
+    if pq_topk.launches == before or not np.array_equal(pi[:, 0],
+                                                         src.cpu().numpy()):
+        fail(f"build_pq at D=96: top-1 {pi[:, 0].tolist()}")
+    report(card, phase=7, store="bf16 + PQ", d=96, m=view.m,
+           code_bytes=view.packed.shape[1], rows=F4_ROWS,
+           padded_scan_bit_exact=True, top1_correct=True)
+    out["pq_m"] = view.m
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1323,6 +1468,7 @@ def main() -> int:
     res5 = phase5(card, gen, topk_matmul)
     res5hr = phase5_highres(card, gen, res5.pop("weights"))
     res6 = phase6(card, gen, resnet)
+    phase7(card, gen)
 
     rows = []
     for name, file, replaces, shape, launches in (
@@ -1343,6 +1489,11 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+        if name == "topk_matmul":       # and at the batched query's B
+            t = timings[f"{shape} B=128 k=10"]
+            rows[-1].update(ms_b128=t["ms"],
+                            library_ms_b128=t["library_ms"],
+                            bound_ms_b128=t["bound_ms"])
     for name, replaces, shape, launches in (
             ("mha", "vit_attention.py:103", "mha bf16 [64, 12, 197, 64]",
              res5["mha_launches"]),

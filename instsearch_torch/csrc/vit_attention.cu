@@ -29,20 +29,32 @@
 // (batch x head, tile of query rows); q, k and v tiles are staged in shared
 // memory with padded rows, so the loads of a warp fall in distinct banks.
 //   * bf16 (the served path): both products on the tensor cores with
-//     mma.sync m16n8k16 (bf16 operands, f32 sums); bf16 products are exact
-//     in f32. K5 gives each warp 16 of the block's 64 query rows and keeps
-//     their q fragments, m, l and 16 x 64 accumulator in registers; the
-//     logits of a key tile stay in registers and become p.v's A operand
-//     there (FlashAttention-2's layout), so only K and V^T are staged. K6
-//     keeps 16 query rows' whole f32 logit rows in shared memory (16 x 197
-//     x 4 B = 12.6 KB at 224 px), so it can normalise before it rounds; its
-//     shared memory grows with N and the wrapper refuses N past what 227 KB
-//     holds (about 3,264 tokens), naming flash_mha.
-//   * f32: the same plans on CUDA cores, plain FMA (f32 inputs are never
-//     rounded to TF32), each thread a register tile (8 rows x 4 keys in K5,
-//     2 x 4 in K6) fed by 16-byte shared loads.
-//   * Not yet: wgmma, TMA or cp.async double buffering, warp
-//     specialisation; the staging waits on its loads each tile.
+//     mma.sync m16n8k16 (bf16 operands, f32 sums; warp_mma.cuh); bf16
+//     products are exact in f32. Both kernels give each warp 16 of the
+//     block's 64 query rows and keep their q fragments, m, l and 16 x 64
+//     accumulator in registers; the logits of a key tile stay in registers
+//     and become p.v's A operand there (FlashAttention-2's layout).
+//     K6 normalises p before it rounds it, so it walks the key tiles
+//     twice: pass A keeps each row's max m and sum l online, pass B
+//     recomputes the tile's logits, forms p = exp(s - m) / l in f32 (as
+//     2^(t - m2) times 1 / l, t the logits in base-2 units: one exp2 and
+//     one product a logit, within f32 steps of the plain version's), rounds
+//     it to bf16 and multiplies it into v. The second q.k^T is 1.5x the
+//     operations, but at 197 tokens the work is bound by bytes, and no f32
+//     logit row is kept, so K6's shared memory does not grow with N: its
+//     K and V tiles go in by cp.async, double-buffered and streamed in each
+//     pass (46 KB a block: keeping all of a 197-token head's K and V for
+//     both passes, 81 KB, fits fewer blocks an SM and ran slower); V stays
+//     as it lies and ldmatrix.trans reads it as p.v's B operand.
+//     K5 stages K and V^T synchronously per tile.
+//   * f32: K5's plan and K6's old one (16 query rows, their whole f32
+//     logit rows in shared memory, so the wrapper refuses N past what 227 KB
+//     holds, about 3,264 tokens) on CUDA cores, plain FMA (f32 inputs are
+//     never rounded to TF32), each thread a register tile (8 rows x 4 keys
+//     in K5, 2 x 4 in K6) fed by 16-byte shared loads. f32 is off the served
+//     path.
+//   * Not yet: wgmma, TMA, warp specialisation; K5's staging waits on its
+//     loads each tile.
 //
 // Layout: q, k and v are [B, h, N, hd] views with any element strides over
 // B, h and N (shared by the three) and hd contiguous, so the model passes
@@ -58,6 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
 
 constexpr int kHd = 64;            // head dim the kernels are built for
@@ -65,15 +79,16 @@ constexpr int kThreads = 128;
 constexpr int kStride = kHd + 4;   // f32 row stride of a staged tile: 272
                                    // bytes, so 8 rows' 16-byte loads fall
                                    // in 8 distinct bank groups
-constexpr int kMhaRows = 16;       // K6: query rows per block
+constexpr int kMhaRows = 16;       // K6 f32: query rows per block
 constexpr int kMhaKeys = 64;       // K6: keys staged per chunk
+constexpr int kMhaRowsMma = 64;    // K6 bf16: query rows per block
 constexpr int kFlashRows = 64;     // K5: query rows per block
 constexpr int kFlashKeys = 64;     // K5: keys per key/value tile
 constexpr float kFlashNeg = -1e30f;
+constexpr float kLog2e = 1.44269504088896340736f;   // K6's base-2 logits
 constexpr int kBStride = kHd + 8;  // bf16 row stride of a staged tile: 144
                                    // bytes, so the 8 rows x 4 words of an
                                    // mma fragment load hit 32 banks
-using bf16 = __nv_bfloat16;
 
 // Element strides of a [B, h, N, hd] operand over B, h and N (hd is
 // contiguous).
@@ -84,11 +99,6 @@ struct Layout {
 // Offset of block (batch x head) blockIdx.y's head in an operand.
 __device__ __forceinline__ size_t head_base(const Layout& s, int heads) {
   return (size_t)(blockIdx.y / heads) * s.b + (size_t)(blockIdx.y % heads) * s.h;
-}
-
-// round to bf16 (to nearest, ties to even) and back, as `.to(bfloat16)`
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 // Rows [row0, row0 + rows) of one head's f32 [n, kHd] matrix (row stride
@@ -155,10 +165,9 @@ __device__ __forceinline__ void store_row4(float* dst, const float (&acc)[4],
       make_float4(acc[0] / div, acc[1] / div, acc[2] / div, acc[3] / div);
 }
 
-// K6's softmax over the n valid keys of each of its kMhaRows logit rows in
-// shared memory, one warp per row: exp(x - max) / sum in f32, then (kRound)
-// rounded to bf16; the padding up to npad becomes 0.
-template <bool kRound>
+// K6's f32 softmax over the n valid keys of each of its kMhaRows logit rows
+// in shared memory, one warp per row: exp(x - max) / sum; the padding up to
+// npad becomes 0.
 __device__ __forceinline__ void softmax_rows(float* s, int sstride, int n,
                                              int npad) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -175,8 +184,7 @@ __device__ __forceinline__ void softmax_rows(float* s, int sstride, int n,
     }
     sum = warp_sum(sum);
     for (int j = lane; j < npad; j += 32) {
-      const float p = j < n ? row[j] / sum : 0.f;
-      row[j] = kRound ? round_bf16(p) : p;
+      row[j] = j < n ? row[j] / sum : 0.f;
     }
   }
 }
@@ -227,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  softmax_rows<false>(s, sstride, n, npad);
+  softmax_rows(s, sstride, n, npad);
 
   float acc[2][4] = {};
   for (int c0 = 0; c0 < npad; c0 += kMhaKeys) {
@@ -370,22 +378,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16, bf16 operands, f32 sums.
-// Fragment layouts (PTX ISA): with g = lane / 4 and c = 2 (lane % 4), a
-// thread holds A (16 x 16, row major) at rows g and g + 8, columns c, c + 1
-// and c + 8, c + 9; B (16 x 8) at k = c, c + 1 and c + 8, c + 9 of column
-// g; C (16 x 8, f32) at rows g and g + 8, columns c, c + 1. A C fragment of
-// two neighbouring key tiles is thus the A fragment of p over those 16 keys.
+// bf16 on the tensor cores: mma.sync m16n8k16, bf16 operands, f32 sums
+// (fragment layouts: warp_mma.cuh). A C fragment of two neighbouring key
+// tiles is the A fragment of p over those 16 keys.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // two floats rounded to bf16 (to nearest, ties to even), lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -442,88 +438,171 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// K6 in bf16: mha_kernel_f32's plan (16 query rows, their f32 logit rows in
-// shared memory, the softmax unchanged) with both products on the tensor
-// cores. In q.k^T warp w takes keys 16 w .. + 15 of each 64-key chunk, in
-// p.v dims 16 w .. + 15; p is read back as the bf16 values the softmax
-// rounded it to.
+// Rows [row0, row0 + 64) of one head's bf16 [n, kHd] matrix (row stride ld)
+// into shared memory as [64][kBStride] by cp.async, zeros past n; the caller
+// commits.
+__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
+                                            size_t ld, int row0, int n) {
+  for (int i = threadIdx.x; i < kMhaKeys * (kHd / 8); i += kThreads) {
+    const int r = i / (kHd / 8);
+    const int c = (i % (kHd / 8)) * 8;
+    const bool ok = row0 + r < n;
+    cp_async16(dst + r * kBStride + c, ok ? src + (row0 + r) * ld + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// 16 query rows (a warp's) x 64 keys of logits from q fragments qa and a
+// staged K tile kt [64][kBStride], times `scale`, keys at or past n masked
+// with kFlashNeg (exp gives an exact 0 there).
+__device__ __forceinline__ void logits_tile(float (&sc)[8][4],
+                                            const uint32_t (&qa)[kHd / 16][4],
+                                            const bf16* kt, int c0, int n,
+                                            float scale) {
+  const int lane = threadIdx.x % 32;
+  const int c = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kHd / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, kt + (8 * j + (lane & 7) + (lane >> 4) * 8) * kBStride +
+                          16 * i + ((lane >> 3) & 1) * 8);
+      mma_bf16(sc[j], qa[i], kb[0], kb[1]);
+      mma_bf16(sc[j + 1], qa[i], kb[2], kb[3]);
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[j][e] = c0 + 8 * j + c + (e & 1) < n ? sc[j][e] * scale : kFlashNeg;
+}
+
+// K6 in bf16. Block (64 query rows, batch x head), 16 rows a warp in
+// registers. The logits are kept in base-2 units, t = q.k (log2(e) /
+// sqrt(hd)), so each exponential is one exp2: e^(s - m) = 2^(t - m2). Pass
+// A: each row's max m2 and sum l over the n keys, online (l = l 2^(m2 -
+// m2_new) + sum 2^(t - m2_new)). Pass B: p = 2^(t - m2) (1 / l) in f32,
+// rounded to bf16, times v. K tiles (pass A) and K and V tiles (pass B) are
+// double-buffered in shared memory by cp.async, the next tile's copy in
+// flight while the warps work on this one.
 __global__ void __launch_bounds__(kThreads)
     mha_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                   Layout in, Layout out, int heads, int n, int npad,
-                   float scale) {
+                   Layout in, Layout out, int heads, int n, float scale2) {
   extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);     // [kMhaRows][kBStride]
-  bf16* ks = qs + kMhaRows * kBStride;           // [kMhaKeys][kBStride]
-  bf16* vt = ks + kMhaKeys * kBStride;           // [kHd][kBStride]
-  float* s = reinterpret_cast<float*>(vt + kHd * kBStride);
-  const int sstride = npad + 4;
+  constexpr int kTile = kMhaKeys * kBStride;
+  bf16* qs = reinterpret_cast<bf16*>(smem4);     // [64][kBStride]
+  bf16* ks = qs + kTile;                         // [2][64][kBStride]
+  bf16* vs = ks + 2 * kTile;                     // [2][64][kBStride]
   const size_t base = head_base(in, heads);
-  const int q0 = blockIdx.x * kMhaRows;
+  const bf16* kh = k + base;
+  const bf16* vh = v + base;
+  const int q0 = blockIdx.x * kMhaRowsMma;
   const int t = threadIdx.x;
-  const int warp = t / 32, lane = t % 32;
+  const int lane = t % 32;
   const int g = lane / 4, c = 2 * (lane % 4);
+  const int wr = 16 * (t / 32);
+  const int tiles = (n + kMhaKeys - 1) / kMhaKeys;
 
-  stage_bf16(qs, q + base, in.n, q0, kMhaRows, n);
-  for (int c0 = 0; c0 < npad; c0 += kMhaKeys) {
-    __syncthreads();                 // ks free (and qs staged)
-    stage_bf16(ks, k + base, in.n, c0, kMhaKeys, n);
+  // ---- pass A: m2 and l -----------------------------------------------
+  stage_async(qs, q + base, in.n, q0, n);
+  stage_async(ks, kh, in.n, 0, n);
+  cp_async_commit();
+  uint32_t qa[kHd / 16][4];
+  float m[2] = {kFlashNeg, kFlashNeg}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles) {
+      stage_async(ks + ((j + 1) & 1) * kTile, kh, in.n, (j + 1) * kMhaKeys,
+                  n);
+      cp_async_commit();
+      cp_async_wait<1>();            // q and K tile j are in
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    float acc[2][4] = {};
+    if (j == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kHd; kk += 16) {
-      const uint32_t a[4] = {ld32(qs + g * kBStride + kk + c),
-                             ld32(qs + (g + 8) * kBStride + kk + c),
-                             ld32(qs + g * kBStride + kk + 8 + c),
-                             ld32(qs + (g + 8) * kBStride + kk + 8 + c)};
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bf16* kr = ks + (16 * warp + 8 * j + g) * kBStride + kk;
-        mma_bf16(acc[j], a, ld32(kr + c), ld32(kr + 8 + c));
-      }
+      for (int i = 0; i < kHd / 16; ++i)
+        ldmatrix_x4(qa[i], qs + (wr + (lane & 15)) * kBStride + 16 * i +
+                               (lane >> 4) * 8);
     }
+    float sc[8][4];
+    logits_tile(sc, qa, ks + (j & 1) * kTile, j * kMhaKeys, n, scale2);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = c0 + 16 * warp + 8 * j + c;
-      *reinterpret_cast<float2*>(s + g * sstride + col) =
-          make_float2(acc[j][0] * scale, acc[j][1] * scale);
-      *reinterpret_cast<float2*>(s + (g + 8) * sstride + col) =
-          make_float2(acc[j][2] * scale, acc[j][3] * scale);
+    for (int r = 0; r < 2; ++r) {
+      float mx = kFlashNeg;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        mx = fmaxf(mx, fmaxf(sc[jj][2 * r], sc[jj][2 * r + 1]));
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        sum += exp2f(sc[jj][2 * r] - m_new) +
+               exp2f(sc[jj][2 * r + 1] - m_new);
+      l[r] = l[r] * exp2f(m[r] - m_new) + quad_sum(sum);
+      m[r] = m_new;
     }
+    __syncthreads();                 // slot j & 1 is reloaded next
   }
-  __syncthreads();
+  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
 
-  softmax_rows<true>(s, sstride, n, npad);
-
-  float acc[2][4] = {};
-  for (int c0 = 0; c0 < npad; c0 += kMhaKeys) {
-    __syncthreads();                 // vt free, s normalised
-    stage_bf16_t<kBStride>(vt, v + base, in.n, c0, kMhaKeys, n);
+  // ---- pass B: p = 2^(t - m2) (1 / l), rounded, times v ----------------
+  stage_async(ks, kh, in.n, 0, n);
+  stage_async(vs, vh, in.n, 0, n);
+  cp_async_commit();
+  float acc[kHd / 8][4] = {};
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles) {
+      const int slot = (j + 1) & 1;
+      stage_async(ks + slot * kTile, kh, in.n, (j + 1) * kMhaKeys, n);
+      stage_async(vs + slot * kTile, vh, in.n, (j + 1) * kMhaKeys, n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    float sc[8][4];
+    logits_tile(sc, qa, ks + (j & 1) * kTile, j * kMhaKeys, n, scale2);
 #pragma unroll
-    for (int kk = 0; kk < kMhaKeys; kk += 16) {
-      const float* p0 = s + g * sstride + c0 + kk + c;
-      const float* p1 = s + (g + 8) * sstride + c0 + kk + c;
-      const uint32_t a[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p1[0], p1[1]),
-                             pack_bf16(p0[8], p0[9]),
-                             pack_bf16(p1[8], p1[9])};
+    for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bf16* vr = vt + (16 * warp + 8 * j + g) * kBStride + kk;
-        mma_bf16(acc[j], a, ld32(vr + c), ld32(vr + 8 + c));
+      for (int e = 0; e < 4; ++e)
+        sc[jj][e] = exp2f(sc[jj][e] - m[e >> 1]) * inv_l[e >> 1];
+    const bf16* vt = vs + (j & 1) * kTile;
+#pragma unroll
+    for (int i = 0; i < kMhaKeys / 16; ++i) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * i][0], sc[2 * i][1]),
+                              pack_bf16(sc[2 * i][2], sc[2 * i][3]),
+                              pack_bf16(sc[2 * i + 1][0], sc[2 * i + 1][1]),
+                              pack_bf16(sc[2 * i + 1][2], sc[2 * i + 1][3])};
+#pragma unroll
+      for (int d = 0; d < kHd / 8; d += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vt + (16 * i + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * kBStride +
+                                  8 * d + (lane >> 4) * 8);
+        mma_bf16(acc[d], pa, vb[0], vb[1]);
+        mma_bf16(acc[d + 1], pa, vb[2], vb[3]);
       }
     }
+    __syncthreads();                 // slot j & 1 is reloaded next
   }
   const size_t obase = head_base(out, heads);
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int dim = 16 * warp + 8 * j + c;
-    if (q0 + g < n)
-      *reinterpret_cast<uint32_t*>(o + obase + (q0 + g) * out.n + dim) =
-          pack_bf16(acc[j][0], acc[j][1]);
-    if (q0 + g + 8 < n)
-      *reinterpret_cast<uint32_t*>(o + obase + (q0 + g + 8) * out.n + dim) =
-          pack_bf16(acc[j][2], acc[j][3]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int d = 0; d < kHd / 8; ++d)
+      *reinterpret_cast<uint32_t*>(o + obase + row * out.n + 8 * d + c) =
+          pack_bf16(acc[d][2 * r], acc[d][2 * r + 1]);
   }
 }
 
@@ -634,11 +713,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t mha_smem(int npad, int dtype) {
-  const size_t tiles = dtype == 1
-      ? sizeof(bf16) * (size_t)(kMhaRows + kMhaKeys + kHd) * kBStride
-      : sizeof(float) * (size_t)(kMhaRows + kMhaKeys) * kStride;
-  return tiles + sizeof(float) * (size_t)kMhaRows * (npad + 4);
+size_t mha_smem(int n, int dtype) {
+  if (dtype == 1)   // q, then two K and two V tiles
+    return sizeof(bf16) * (size_t)5 * kMhaKeys * kBStride;
+  const size_t npad = (size_t)(n + kMhaKeys - 1) / kMhaKeys * kMhaKeys;
+  return sizeof(float) * ((size_t)(kMhaRows + kMhaKeys) * kStride +
+                          (size_t)kMhaRows * (npad + 4));
 }
 
 size_t flash_smem(int dtype) {
@@ -673,11 +753,11 @@ cudaError_t run_mha(const void* q, const void* k, const void* v, void* o,
                     Layout in, Layout out, int heads, int bh, int n,
                     int dtype, cudaStream_t stream) {
   const int npad = (n + kMhaKeys - 1) / kMhaKeys * kMhaKeys;
-  const size_t smem = mha_smem(npad, dtype);
+  const size_t smem = mha_smem(n, dtype);
   const float scale = softmax_scale(kHd);
-  if (dtype == 1)
-    return launch(mha_kernel_mma, kMhaRows, bh, n, smem, stream, q, k, v, o,
-                  in, out, heads, n, npad, scale);
+  if (dtype == 1)   // logits in base-2 units (mha_kernel_mma)
+    return launch(mha_kernel_mma, kMhaRowsMma, bh, n, smem, stream, q, k, v,
+                  o, in, out, heads, n, scale * kLog2e);
   return launch(mha_kernel_f32, kMhaRows, bh, n, smem, stream, q, k, v, o, in,
                 out, heads, n, npad, scale);
 }
@@ -703,10 +783,10 @@ bool bad_shape(int b, int h, int n, int hd, int dtype) {
 
 extern "C" {
 
-// Shared memory K6 needs at n tokens of `dtype`; the wrapper refuses n past
-// 227 KB.
+// Shared memory K6 needs at n tokens of `dtype`: 46 KB in bf16 at any n;
+// in f32 it grows with n, and the wrapper refuses n past 227 KB.
 long long isf_mha_smem(int n, int dtype) {
-  return (long long)mha_smem((n + kMhaKeys - 1) / kMhaKeys * kMhaKeys, dtype);
+  return (long long)mha_smem(n, dtype);
 }
 
 // q, k, v: [b, h, n, hd] with element strides (sb, sh, sn) over b, h, n,

@@ -6,8 +6,14 @@ Storage layout is the reference's: rows padded to a multiple of
 ``row_tile * num_shards`` (and up to ``capacity``), padding rows carrying
 id -1 so they never enter a top-k. The store is bf16 or f32, or int8 rows /
 packed int4 nibble pairs (``ops/quantize.py``) with f32 row ``scales [1,
-N_pad]``, quantized from the f32 padded rows as the reference does, so the
-two packages' stores are byte-equal for the same rows.
+N_pad]``, quantized from the f32 padded rows as the reference does. Each
+row also carries zero columns up to the width the Hopper kernels read
+(``_COLUMN_MULTIPLE``; ``dim`` stays the descriptor width): they change no
+score and no row scale, so the stored components up to ``dim`` equal the
+reference's for the same rows (int4 packs a row's two halves into one byte,
+so there the bytes pair other components). A ``k`` past the kernels'
+``K_MAX`` takes the scoring oracle, as a ``k`` past the reference's tile
+does.
 
 Search goes through the fused top-k kernels (``kernels/topk_matmul.py``:
 K1 for float stores, K2 for int8, K3 for int4): on a CUDA store with the
@@ -39,7 +45,7 @@ import numpy as np
 import torch
 
 from .extractor import Extractor
-from .kernels.topk_matmul import (topk_matmul, topk_matmul_int4,
+from .kernels.topk_matmul import (K_MAX, topk_matmul, topk_matmul_int4,
                                   topk_matmul_int8)
 from .ops.quantize import quantize_rows, quantize_rows_int4, unpack_int4
 from .ops.whitening import WhiteningParams, apply_whitening, fit_whitening
@@ -52,6 +58,11 @@ from .utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _QUANTIZE = {"int8": quantize_rows, "int4": quantize_rows_int4}
+# stored rows carry zero columns up to a multiple of these widths, the ones
+# the K1-K3 kernels take (they read rows as 16-byte vectors: D % 8 for
+# bf16/f32, 16 int8 values, 32 int4 values); a zero column changes no dot
+# product and no int8/int4 row scale
+_COLUMN_MULTIPLE = {"bfloat16": 8, "float32": 8, "int8": 16, "int4": 32}
 
 
 def _pad_rows(n: int, multiple: int) -> int:
@@ -63,8 +74,10 @@ def _topk_raw(descriptors, ids, queries, num_valid: int, scales, *, k: int,
     """``(scores [Q, k], pos [Q, k])`` with pos indexing the padded store;
     invalid slots are ``(-inf, -1)``. The fused kernel of the store's kind
     (int4 -> K3, int8 -> K2, float -> K1; for a CPU store its plain
-    version) when ``use_kernel``; the scoring oracle otherwise."""
-    if not use_kernel:
+    version) when ``use_kernel``; the scoring oracle otherwise, and for a
+    k past the kernels' ``K_MAX``, as the reference routes a k past its
+    tile."""
+    if not use_kernel or k > K_MAX:
         return search_topk(descriptors, queries, k=k, ids=ids, scales=scales,
                            int4=int4)
     if int4:
@@ -149,8 +162,9 @@ class Index:
 
     def __init__(self, descriptors: torch.Tensor, ids: torch.Tensor,
                  names: list[str], cfg, extractor: Optional[Extractor] = None,
-                 scales: "torch.Tensor | None" = None):
-        self.descriptors = descriptors      # [N_pad, D] (int4: [N_pad, D/2])
+                 scales: "torch.Tensor | None" = None,
+                 dim: "int | None" = None):
+        self.descriptors = descriptors      # [N_pad, W] (int4: [N_pad, W/2])
         self.ids = ids                      # [N_pad] int32, -1 = padding
         self.names = names                  # len = num_valid
         self.cfg = cfg
@@ -158,6 +172,8 @@ class Index:
         self.scales = scales                # [1, N_pad] f32 for int8/int4
         self.pq: "PQView | None" = None     # build_pq's cascade view
         self.quarantined: list[str] = []
+        # the descriptor width; the store's W may add zero columns past it
+        self._dim = self.store_dim if dim is None else dim
 
     # ------------------------------------------------------------------
     @property
@@ -172,6 +188,14 @@ class Index:
 
     @property
     def dim(self) -> int:
+        """The descriptor width, the reference's ``dim`` (an odd width
+        stored as int4 counts its zero column, as there)."""
+        return self._dim
+
+    @property
+    def store_dim(self) -> int:
+        """Columns of a stored row, ``dim`` and the zero columns up to the
+        kernels' multiple (``_COLUMN_MULTIPLE``)."""
         return (2 * self.descriptors.shape[1] if self.is_int4
                 else self.descriptors.shape[1])
 
@@ -198,7 +222,7 @@ class Index:
         PQ view comes along, so the twin scans the same codes."""
         cfg = self.cfg.replace(search=self.cfg.search.replace(**changes))
         twin = Index(self.descriptors, self.ids, self.names, cfg,
-                     self.extractor, scales=self.scales)
+                     self.extractor, scales=self.scales, dim=self.dim)
         twin.pq = self.pq
         twin.quarantined = self.quarantined
         return twin
@@ -231,23 +255,25 @@ class Index:
                    if original_ids is None else
                    torch.as_tensor(np.asarray(original_ids, np.int32),
                                    device=device))
+        # an odd width gains one zero column under int4 (nibbles pack in
+        # pairs), which the reference counts in its dim; every store gains
+        # zero columns up to the kernels' multiple, which it does not.
+        # Queries are padded to match (_match_query_dim).
+        dim = d + (d % 2 if cfg.index.dtype == "int4" else 0)
+        width = _pad_rows(d, _COLUMN_MULTIPLE[cfg.index.dtype])
         quantize = _QUANTIZE.get(cfg.index.dtype)
         if quantize is None:
-            store = torch.zeros((n_pad, d), dtype=_DTYPES[cfg.index.dtype],
-                                device=device)
-            store[:n] = x.to(store.dtype)
-            return cls(store, ids, list(names), cfg, extractor)
-        # quantize the f32 padded rows, as the reference; an odd width
-        # gains one zero column under int4 (nibbles pack in pairs), which
-        # never changes a dot product (queries are padded to match,
-        # _match_query_dim)
-        width = d + (d % 2 if cfg.index.dtype == "int4" else 0)
+            store = torch.zeros((n_pad, width),
+                                dtype=_DTYPES[cfg.index.dtype], device=device)
+            store[:n, :d] = x.to(store.dtype)
+            return cls(store, ids, list(names), cfg, extractor, dim=dim)
+        # quantize the f32 padded rows, as the reference
         padded = torch.zeros((n_pad, width), dtype=torch.float32,
                              device=device)
         padded[:n, :d] = x.to(torch.float32)
         qr = quantize(padded)
         return cls(qr.values, ids, list(names), cfg, extractor,
-                   scales=qr.scales)
+                   scales=qr.scales, dim=dim)
 
     @classmethod
     def build(cls, paths: Sequence[str], cfg, variables: dict | None = None,
@@ -316,24 +342,26 @@ class Index:
 
     def _rows_f32_chunk(self, start: int, chunk: int) -> torch.Tensor:
         """Stored rows ``[start, start + chunk)`` as f32 ``[chunk, dim]``,
-        unpacked (int4) and dequantized (int8, int4). The callers cut the
-        store into slices that divide it, so no slice runs past its end (the
-        reference's dynamic_slice would move such a slice back)."""
+        unpacked (int4) and dequantized (int8, int4), without the kernels'
+        zero columns. The callers cut the store into slices that divide it,
+        so no slice runs past its end (the reference's dynamic_slice would
+        move such a slice back)."""
         rows = self.descriptors[start:start + chunk]
         if self.is_int4:
             rows = unpack_int4(rows)
-        rows = rows.float()
+        rows = rows[:, :self.dim].float()
         if self.scales is not None:
             rows = rows * self.scales[0, start:start + chunk, None]
         return rows
 
     # ------------------------------------------------------------------
     def _match_query_dim(self, q: torch.Tensor) -> torch.Tensor:
-        """An int4 store of an odd descriptor width carries one zero
-        column; queries gain one to match. It never changes a dot
-        product."""
-        if self.is_int4 and q.shape[-1] == self.dim - 1:
-            q = torch.nn.functional.pad(q, (0, 1))
+        """Queries of the descriptor width (or, for an int4 store of an odd
+        width, one narrower, as the reference takes them) gain the store's
+        zero columns, which never change a dot product."""
+        w = q.shape[-1]
+        if w == self.dim or (self.is_int4 and w == self.dim - 1):
+            q = torch.nn.functional.pad(q, (0, self.store_dim - w))
         return q
 
     def search(self, queries, search_cfg=None, query_regional=None,
@@ -358,10 +386,10 @@ class Index:
         q = torch.as_tensor(queries, device=self.device)
         if q.ndim == 1:
             q = q[None]
+        w = q.shape[-1]
         q = self._match_query_dim(q.float())
-        if q.shape[-1] != self.dim:
-            raise ValueError(f"queries have width {q.shape[-1]}, the store "
-                             f"{self.dim}")
+        if q.shape[-1] != self.store_dim:
+            raise ValueError(f"queries have width {w}, the store {self.dim}")
 
         def run(qq):
             return _search_composite(
@@ -388,7 +416,7 @@ class Index:
 
         def run(qq):
             return _pq_composite(
-                pq.codes, pq.codebook.centroids, self.descriptors, self.ids,
+                pq.packed, pq.codebook.centroids, self.descriptors, self.ids,
                 self.scales, qq, self.num_valid, pq.rotation, k=scfg.k,
                 depth=depth, qe_n=scfg.qe_n, qe_alpha=scfg.qe_alpha,
                 do_qe=scfg.qe_enabled, int4=self.is_int4,

@@ -109,10 +109,15 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.isf_topk_matmul.argtypes = [p, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, i, i, i, p]
+                                        i, i, i, i, i, i, i, i, p]
         lib.isf_topk_matmul.restype = i
         lib.isf_topk_pass1_smem.argtypes = [i, i, i]
         lib.isf_topk_pass1_smem.restype = ctypes.c_longlong
+        lib.isf_topk_matmul_mma.argtypes = [p, p, p, p, p, p, p,
+                                            i, i, i, i, i, i, i, i, p]
+        lib.isf_topk_matmul_mma.restype = i
+        lib.isf_topk_mma_smem.argtypes = [i, i, i]
+        lib.isf_topk_mma_smem.restype = ctypes.c_longlong
         lib.isf_topk_matmul_int.argtypes = [p, p, p, p, p, p, p, p, p,
                                             i, i, i, i, i, i, i, i, i, p]
         lib.isf_topk_matmul_int.restype = i

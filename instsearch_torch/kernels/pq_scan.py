@@ -23,10 +23,14 @@ Semantics shared by the kernel, its plain version and the TPU kernel:
     are never returned; ties go to the lowest row position; slots beyond the
     count of valid rows come back as ``(-inf, -1)``.
 
-The TPU-only knobs of the reference (``tile_n``, ``variant``,
-``interpret``) have no counterpart. On CUDA, M/2 must be a whole number of
-4-byte words (M % 8 == 0: D=512 gives M=64, D=128 gives M=16) and k <=
-K_MAX; the plain version takes any even M and any k.
+``packed`` may carry G > M/2 bytes a row: bytes past M/2 are padding and
+never reach a score (their subspaces' table rows are zeros, and adding +0.0
+changes no sum), so a score equals the unpadded one bit for bit. The CUDA
+kernel reads a row's bytes as 4-byte words and needs G % 4 == 0 and k <=
+K_MAX: ``search/pq_view.py::PQView`` pads its codes so once, when the view
+is built (M = 12 from D = 96 becomes G = 8). The plain version takes any G
+>= M/2 and any k. The TPU-only knobs of the reference (``tile_n``,
+``variant``, ``interpret``) have no counterpart.
 """
 from __future__ import annotations
 
@@ -43,13 +47,12 @@ _PLAIN_ROWS = 1 << 20   # rows scored per piece by the plain version
 def _check_pq_args(packed: torch.Tensor, q: torch.Tensor, codebook,
                    k: int) -> None:
     if packed.dim() != 2 or packed.dtype != torch.int8 or q.dim() != 2:
-        raise ValueError(f"packed must be int8 [N, M/2] and q [B, D]; got "
-                         f"{packed.dtype} {tuple(packed.shape)} and "
+        raise ValueError(f"packed must be int8 [N, G >= M/2] and q [B, D]; "
+                         f"got {packed.dtype} {tuple(packed.shape)} and "
                          f"{tuple(q.shape)}")
     groups = packed.shape[1]
-    m = 2 * groups
-    if codebook.m != m:
-        raise ValueError(f"packed groups {groups} need m={m}, "
+    if 2 * groups < codebook.m:          # the reference's message
+        raise ValueError(f"packed groups {groups} need m={2 * groups}, "
                          f"codebook has m={codebook.m}")
     if q.shape[1] != codebook.dim:
         raise ValueError(f"query dim {q.shape[1]} != codebook dim "
@@ -58,14 +61,24 @@ def _check_pq_args(packed: torch.Tensor, q: torch.Tensor, codebook,
         raise ValueError(f"k={k} < 1")
 
 
-def _lut(q: torch.Tensor, codebook) -> torch.Tensor:
-    """``pq_lut`` rounded to bf16, held as f32 ``[B, M, 16]``."""
-    return pq_lut(q, codebook).to(torch.bfloat16).float().contiguous()
+def _lut(q: torch.Tensor, codebook, groups: int) -> torch.Tensor:
+    """``pq_lut`` rounded to bf16, held as f32 ``[B, 2 * groups, 16]``: the
+    subspaces of the low nibbles at rows ``[0, M/2)``, of the high nibbles
+    at ``[groups, groups + M/2)``, zeros for the padding bytes' nibbles."""
+    lut = pq_lut(q, codebook).to(torch.bfloat16).float()
+    half = codebook.m // 2
+    if groups == half:
+        return lut.contiguous()
+    out = lut.new_zeros((lut.shape[0], 2 * groups, 16))
+    out[:, :half] = lut[:, :half]
+    out[:, groups:groups + half] = lut[:, half:]
+    return out
 
 
 def _adc_scores(packed: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
-    """``[B, rows]`` scores of ``packed [rows, M/2]`` in the kernel's order:
-    each half summed over ascending m from 0, then the two halves added."""
+    """``[B, rows]`` scores of ``packed [rows, G]`` against ``lut [B, 2G,
+    16]`` in the kernel's order: each half summed over ascending m from 0,
+    then the two halves added."""
     groups = packed.shape[1]
     p = packed.to(torch.int32)
     hi = p >> 4
@@ -90,7 +103,7 @@ def pq_topk_reference(packed: torch.Tensor, q: torch.Tensor, codebook,
     the lowest position)."""
     _check_pq_args(packed, q, codebook, k)
     n = packed.shape[0]
-    lut = _lut(q, codebook)
+    lut = _lut(q, codebook, packed.shape[1])
     valid = _valid_rows(n, num_valid, mask, packed.device)
     cand_s, cand_i = [], []
     for s0 in range(0, n, _PLAIN_ROWS):
@@ -116,17 +129,18 @@ def pq_topk(packed: torch.Tensor, q: torch.Tensor, codebook, k: int = 10,
     if packed.device.type == "cpu":
         return pq_topk_reference(packed, q, codebook, k, num_valid, mask)
     n, groups = packed.shape
-    m = 2 * groups
+    m = 2 * groups                  # the subspaces the kernel walks
     b = q.shape[0]
     if groups % 4:
-        raise ValueError(f"M={m}: the kernel reads a row's M/2 code bytes "
-                         f"as 4-byte words and needs M % 8 == 0")
+        raise ValueError(f"M={m}: the kernel reads a row's {groups} code "
+                         f"bytes as 4-byte words and needs a multiple of 4 "
+                         f"(PQView pads its codes so)")
     _check_k(k)
     for name, t in (("q", q), ("codebook", codebook.centroids)):
         if t.device != packed.device:
             raise ValueError(f"{name} on {t.device}, codes on "
                              f"{packed.device}")
-    lut = _lut(q, codebook)
+    lut = _lut(q, codebook, groups)
     mask = _cuda_operands(packed, mask, q=lut)
     nv = _num_valid(n, num_valid)
 

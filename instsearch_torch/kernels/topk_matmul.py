@@ -31,6 +31,8 @@ Semantics shared by the kernels, their plain versions and the TPU kernels:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ops.quantize import quantize_rows, unpack_int4
@@ -38,10 +40,12 @@ from ..search.bruteforce import masked_scores, select_topk
 
 K_MAX = 1024            # longest list the kernel keeps (shared memory bound)
 _CHUNK = 256            # rows per selection round; kChunk in topk_common.cuh
-_SMEM_BUDGET = 200 * 1024   # under the 227 KB a Hopper block may use
-_QB_MAX = 8             # widest query block the kernel is built for
+_SMEM_BUDGET = 200 * 1024   # the FMA pass 1's, under the 227 KB of a block
+_SMEM_LIMIT = 232_448   # the 227 KB a Hopper block may use
+_QB_FMA = (1, 8)        # query blocks the f32 FMA pass 1 is built for
+_QB_MMA = (8, 128)      # and the bf16 tensor-core pass 1
 _CTAS_PER_SM = 2        # pass-1 blocks to aim for, per multiprocessor
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _PLAIN_ROWS = 1 << 16   # rows per f64 product in the integer plain versions
 
 
@@ -54,7 +58,7 @@ def _check_args(x: torch.Tensor, q: torch.Tensor, k: int) -> None:
     if x.dim() != 2 or q.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"x must be [N, D] and q [B, D]; got "
                          f"{tuple(x.shape)} and {tuple(q.shape)}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _DTYPES:
         raise ValueError(f"store dtype {x.dtype}: bfloat16 or float32 (int8 "
                          f"and int4 rows go to topk_matmul_int8 / "
                          f"topk_matmul_int4)")
@@ -215,19 +219,32 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _plan(smem, n: int, d: int, b: int, k: int, device) -> tuple[int, int, int]:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan(smem, n: int, d: int, b: int, k: int, device,
+          qbs: tuple[int, int] = _QB_FMA,
+          budget: int = _SMEM_BUDGET) -> tuple[int, int, int]:
     """(query block, rows per slice, slices) for one launch; ``smem(qb)`` is
-    the kernel's pass-1 shared memory for a query block of qb rows."""
-    qb = 1
-    while qb < min(b, _QB_MAX):
+    the kernel's pass-1 shared memory for a query block of qb rows, a power
+    of two in ``qbs`` (narrowest, widest) as wide as b allows and ``budget``
+    holds."""
+    lo, hi = qbs
+    qb = lo
+    while qb < min(b, hi):
         qb *= 2
-    while qb > 1 and smem(qb) > _SMEM_BUDGET:
+    while qb > lo and smem(qb) > budget:
         qb //= 2
-    if smem(qb) > _SMEM_BUDGET:
+    if smem(qb) > budget:
         raise ValueError(f"D={d}, k={k}: the query row and top-k list do not "
                          f"fit one block's shared memory")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    target = _cdiv(_CTAS_PER_SM * sms, _cdiv(b, qb))
+    sms = _sm_count(device)
+    # as many blocks as run at once: a slice fewer is a merge and a list's
+    # inserts fewer
+    per_sm = max(1, min(_CTAS_PER_SM, _SMEM_LIMIT // (smem(qb) + 1024)))
+    target = _cdiv(per_sm * sms, _cdiv(b, qb))
     slices = max(1, min(_cdiv(n, _CHUNK), target, 65535))
     rows = _cdiv(_cdiv(n, slices), _CHUNK) * _CHUNK
     return qb, rows, _cdiv(n, rows)
@@ -288,7 +305,9 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
                 num_valid: "int | None" = None,
                 mask: "torch.Tensor | None" = None):
     """K1: fused top-k over ``x`` for queries ``q``; see the module
-    docstring. ``mask``: optional ``[1, N]`` (or ``[N]``) int8 allow-list."""
+    docstring. ``mask``: optional ``[1, N]`` (or ``[N]``) int8 allow-list.
+    On CUDA a bf16 store scores on the tensor cores, an f32 store on the
+    CUDA cores."""
     _check_args(x, q, k)
     if x.device.type == "cpu":
         return topk_matmul_reference(x, q, k, num_valid, mask)
@@ -303,14 +322,23 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
 
     from . import _build
     lib = _build.load()
-    qb, rows, slices = _plan(lambda w: lib.isf_topk_pass1_smem(w, d, k),
-                             n, d, b, k, x.device)
-    def launch(out_s, out_i, cand_s, cand_i, stream):
-        return lib.isf_topk_matmul(
-            x.data_ptr(), q.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out_s, out_i,
-            cand_s, cand_i, n, d, b, k, nv, _DTYPE_CODE[x.dtype], qb, rows,
-            slices, stream)
+    m_ptr = mask.data_ptr() if mask is not None else None
+    if x.dtype == torch.bfloat16:
+        qb, rows, slices = _plan(lambda w: lib.isf_topk_mma_smem(w, d, k),
+                                 n, d, b, k, x.device, _QB_MMA, _SMEM_LIMIT)
+
+        def launch(out_s, out_i, cand_s, cand_i, stream):
+            return lib.isf_topk_matmul_mma(
+                x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
+                cand_i, n, d, b, k, nv, qb, rows, slices, stream)
+    else:
+        qb, rows, slices = _plan(lambda w: lib.isf_topk_pass1_smem(w, d, k),
+                                 n, d, b, k, x.device)
+
+        def launch(out_s, out_i, cand_s, cand_i, stream):
+            return lib.isf_topk_matmul(
+                x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
+                cand_i, n, d, b, k, nv, qb, rows, slices, stream)
 
     return _launch(topk_matmul, launch, x, b, k, slices)
 

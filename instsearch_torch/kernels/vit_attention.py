@@ -3,9 +3,11 @@
 bf16 or f32, -> ``o [B, h, N, hd]`` in the same dtype, softmax scale
 ``1/sqrt(hd)``.
 
-  * ``mha`` (K6): one pass over whole rows. f32 logits, the softmax
+  * ``mha`` (K6): attention over whole rows. f32 logits, the softmax
     normalised in f32 over the N keys, then p rounded to v's dtype, p·v
-    summed in f32, the result cast to the input dtype.
+    summed in f32, the result cast to the input dtype. The bf16 kernel
+    walks the key tiles twice (the row max and sum online, then p and p·v),
+    so it keeps nothing per key and takes any N.
   * ``flash_mha`` (K5): the same attention over key/value tiles of
     ``FLASH_KV_BLOCK`` keys with the online softmax: f32 logits, the ragged
     tail masked with the finite -1e30, running max and sum in f32, the
@@ -198,9 +200,11 @@ def _launch(fn, entry, q: torch.Tensor, k: torch.Tensor,
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K6: single-pass attention over whole key rows; see the module
-    docstring. On CUDA its shared memory grows with N (16 rows of f32
-    logits), so past about 3,264 tokens it raises: use ``flash_mha``."""
+    """K6: attention normalised over whole key rows; see the module
+    docstring. On CUDA the bf16 kernel takes any N (two passes over the key
+    tiles, nothing kept per key); the f32 kernel, off the served path, keeps
+    16 rows of f32 logits in shared memory and raises past about 3,264
+    tokens."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return mha_reference(q, k, v)
@@ -211,8 +215,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     smem = lib.isf_mha_smem(n, _DTYPE_CODE[q.dtype])
     if smem > SMEM_LIMIT:
         raise ValueError(f"mha: N={n} tokens need {smem} bytes of shared "
-                         f"memory for the logit rows (> {SMEM_LIMIT}); use "
-                         f"flash_mha (vit_attention='flash')")
+                         f"memory for the f32 kernel's logit rows (> "
+                         f"{SMEM_LIMIT}); the f32 kernel is off the served "
+                         f"path: use bfloat16, or flash_mha "
+                         f"(vit_attention='flash')")
     return _launch(mha, lib.isf_mha, q, k, v)
 
 

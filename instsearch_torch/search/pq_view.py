@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..kernels.pq_scan import pq_topk
+from ..kernels.topk_matmul import K_MAX
 from ..ops.pq import (PQCodebook, default_m, encode_pq, fit_opq, fit_pq,
                       pq_lut, unpack_pq)
 from ..utils.device import resolve_device
@@ -58,14 +59,19 @@ def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
     """ADC top-``depth`` over the codes, then the exact f32 re-score of
     those rows from the main store and a re-sort -> ``(exact scores
     [B, depth] f32 descending, positions [B, depth] int32, -1 for empty)``.
+    ``codes`` may carry padding bytes past M/2 (``PQView.packed``); ``q``
+    has the store's width, whose columns past the codebook's are zeros.
     With an OPQ ``rotation`` the scan scores the rotated query; the
-    re-score keeps the original one against the unrotated store."""
+    re-score keeps the original one against the unrotated store. A depth
+    past the kernel's ``K_MAX`` takes the oracle route."""
     cb = PQCodebook(centroids)
-    q_adc = q if rotation is None else (q @ rotation).to(q.dtype)
-    if use_kernel:
+    q_adc = q[:, :cb.dim]
+    if rotation is not None:
+        q_adc = (q_adc @ rotation).to(q.dtype)
+    if use_kernel and depth <= K_MAX:
         _, pos = pq_topk(codes, q_adc, cb, k=depth, num_valid=nv)
     else:
-        s = _oracle_scores(codes, pq_lut(q_adc, cb))
+        s = _oracle_scores(codes[:, :cb.m // 2], pq_lut(q_adc, cb))
         rows_ok = torch.arange(codes.shape[0], device=codes.device) < nv
         _, pos = select_topk(s.masked_fill(~rows_ok, _NEG_INF), depth)
     rows = gather_rows_f32(descriptors, pos.clamp(min=0), scales, int4=int4)
@@ -116,13 +122,24 @@ class PQView:
     def __init__(self, codebook: PQCodebook, codes: torch.Tensor,
                  depth: int = 100, rotation: "torch.Tensor | None" = None):
         self.codebook = codebook        # centroids [M, 16, ds] f32
-        self.codes = codes              # [N_pad, M/2] int8 packed nibbles
+        # [N_pad, G] int8: the codes' M/2 bytes a row, then zero bytes up
+        # to a whole number of 4-byte words, which K4 reads (padded once,
+        # here; their subspaces' table rows are zeros, kernels/pq_scan.py)
+        pad = -codes.shape[1] % 4
+        self.packed = (torch.nn.functional.pad(codes, (0, pad)) if pad
+                       else codes)
         self.depth = depth
         self.rotation = rotation        # OPQ rotation [D, D] f32 or None
 
     @property
     def m(self) -> int:
         return self.codebook.m
+
+    @property
+    def codes(self) -> torch.Tensor:
+        """``[N_pad, M/2]`` int8 packed nibbles, the reference's layout (a
+        view of ``packed``)."""
+        return self.packed[:, :self.m // 2]
 
     # ------------------------------------------------------------------
     @classmethod
@@ -222,8 +239,9 @@ class PQView:
         q = torch.as_tensor(queries, device=index.device).float()
         if q.ndim == 1:
             q = q[None]
+        q = index._match_query_dim(q)
         return _pq_candidates(
-            self.codes, self.codebook.centroids, index.descriptors,
+            self.packed, self.codebook.centroids, index.descriptors,
             index.scales, q, index.num_valid, self.rotation, depth=depth,
             int4=index.is_int4,
             use_kernel=bool(index.cfg.search.use_pallas))

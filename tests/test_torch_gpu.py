@@ -37,7 +37,9 @@ import numpy as np
 import pytest
 import torch
 
-from instsearch_torch import IndexConfig, PipelineConfig
+from instsearch_torch import (ExtractConfig, IndexConfig, PipelineConfig,
+                              SearchConfig)
+from instsearch_torch.extractor import Extractor
 from instsearch_torch.index import Index
 from instsearch_torch.kernels import (flash_mha, flash_mha_reference, mha,
                                       mha_reference, pq_topk,
@@ -57,6 +59,8 @@ from instsearch_torch.models.resnet import Bottleneck, ResNet
 from instsearch_torch.ops.pooling import gem_pool
 from instsearch_torch.ops.pq import PQCodebook
 from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
+from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
+from instsearch_torch.serve import ServeCore
 
 TOL = 1e-5
 
@@ -104,6 +108,77 @@ def test_cuda_kernel_matches_plain_version(gen, dtype):
             copies = torch.arange(20, device="cuda")
             assert (i[:, :20] // 1000 == copies).all()
             assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
+
+
+def _check_k1(x, q, k, num_valid=None, mask=None):
+    """One K1 launch held to its plain version; returns the positions."""
+    before = topk_matmul.launches
+    s, i = topk_matmul(x, q, k=k, num_valid=num_valid, mask=mask)
+    rs, ri = topk_matmul_reference(x, q, k=k, num_valid=num_valid, mask=mask)
+    torch.cuda.synchronize()
+    assert topk_matmul.launches == before + 1
+    check_against_plain(x, q, s, i, rs, ri, TOL)
+    if mask is not None:
+        assert (mask[i[i >= 0].long()] > 0).all()
+    return i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 512, 2048])
+@pytest.mark.parametrize("b", [1, 8, 16, 64, 128])
+def test_bf16_kernel_matches_plain_version(gen, b, d):
+    """The bf16 store on the tensor-core pass 1, for k up to K_MAX, with
+    padding rows, a 50% mask and duplicated rows."""
+    n = 40_000
+    x = _unit(gen, n, d, torch.bfloat16)
+    q = _unit(gen, b, d)
+    for k in (1, 10, 100, 1024):
+        _check_k1(x, q, k)
+    _check_k1(x, q, 100, num_valid=n - 77)
+    _check_k1(x, q, 10, num_valid=5)
+    mask = (torch.rand(n, generator=gen, device="cuda") < 0.5
+            ).to(torch.int8)
+    _check_k1(x, q, 10, mask=mask)
+    dup = x[:500].repeat(n // 500, 1).contiguous()     # exact ties
+    i = _check_k1(dup, q, 100)
+    # each query's best base row has 80 copies: the first 80 slots hold
+    # them, lowest position first
+    copies = torch.arange(80, device="cuda")
+    assert (i[:, :80] // 500 == copies).all()
+    assert (i[:, :80] % 500 == i[:, :1] % 500).all()
+
+
+@pytest.mark.gpu
+def test_whitened_index_of_32_images_serves_k_2000(gen):
+    """Whitening fitted on 32 images keeps 31 dims (N - 1): the store pads to
+    32 columns for K1, and a request for k = 2000, past K_MAX, takes the
+    scoring oracle; both answer through ServeCore."""
+    cfg = PipelineConfig(
+        extract=ExtractConfig(backbone="resnet18", image_size=64,
+                              dtype="bfloat16", whiten=True, whiten_dim=64),
+        index=IndexConfig(dtype="bfloat16"), search=SearchConfig(k=10))
+    ex = Extractor(cfg.extract.replace(whiten=False), seed=0, device="cuda")
+    imgs = (torch.rand((32, 64, 64, 3), generator=gen, device="cuda") * 255
+            ).to(torch.uint8).cpu().numpy()
+    raw = ex(imgs)
+    ex.whitening = fit_whitening(raw, dim=cfg.extract.whiten_dim)
+    desc = apply_whitening(raw, ex.whitening)
+    assert desc.shape == (32, 31)
+    idx = Index.from_descriptors(desc, [f"im{j}" for j in range(32)], cfg,
+                                 extractor=ex)
+    assert idx.dim == 31 and idx.store_dim == 32
+    core = ServeCore(idx)
+    before = topk_matmul.launches
+    top10 = core.run_queries([(imgs[:3], 10)])[0]["results"]
+    assert topk_matmul.launches > before
+    assert [r[0]["id"] for r in top10] == [0, 1, 2]
+    before = topk_matmul.launches
+    deep = core.run_queries([(imgs[:3], 2000)])[0]["results"]
+    assert topk_matmul.launches == before
+    assert [len(r) for r in deep] == [32, 32, 32]
+    assert [r[0]["id"] for r in deep] == [0, 1, 2]
+    for short, long in zip(top10, deep):
+        assert [e["id"] for e in long[:10]] == [e["id"] for e in short]
 
 
 @pytest.mark.gpu
@@ -308,10 +383,31 @@ def test_attention_kernels_refuse_what_they_cannot_take(gen):
             fn(q64.transpose(1, 2).contiguous().transpose(1, 2), k64, v64)
         with pytest.raises(ValueError):
             fn(q64, k64[:, :, :20], v64)                  # shapes differ
-    qb, kb, vb = _qkv(gen, (1, 1, 4000, 64), torch.bfloat16)
-    with pytest.raises(ValueError, match="flash_mha"):
-        mha(qb, kb, vb)                      # past K6's shared memory
+    qf, kf, vf = _qkv(gen, (1, 1, 4000, 64), torch.float32)
+    with pytest.raises(ValueError, match="off the served path"):
+        mha(qf, kf, vf)                      # past the f32 K6's logit rows
     assert (mha.launches, flash_mha.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5, 197, 300, 1025, 4000])
+def test_bf16_mha_takes_any_token_count(gen, n):
+    """The bf16 K6 keeps nothing per key: from 5 tokens (one ragged key
+    tile) to 4,000 (past the ~3,264 its one-pass plan held), on q, k, v
+    views of a packed qkv projection, within ``check_attention`` of its
+    plain version."""
+    qkv = torch.randn((2, n, 3, 3, 64), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    before = mha.launches
+    out = mha(q, k, v)
+    want = mha_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert mha.launches == before + 1
+    check_attention(out, want)
+    qkv[:, :, 2] = 1                                  # v = ones
+    ones = mha(q, k, v).float()
+    assert (ones - 1).abs().max().item() <= 2 ** -7
 
 
 def _seeded_net(gen, stage_sizes):

@@ -77,7 +77,12 @@ def _assert_topk_agree(js, ji, ti):
 def test_build_matches_layout(rig):
     ds, jidx, _, tidx, _ = rig
     assert tidx.num_valid == jidx.num_valid == len(ds.imlist)
-    assert tuple(tidx.descriptors.shape) == tuple(jidx.descriptors.shape)
+    # the port's rows carry zero columns past the reference's width, up to
+    # the width its kernels read
+    rows, width = jidx.descriptors.shape
+    assert tidx.descriptors.shape[0] == rows and tidx.dim == jidx.dim == width
+    assert tidx.descriptors.shape[1] == tidx.store_dim >= width
+    assert not tidx.descriptors[:, width:].any()
     assert tidx.names == jidx.names
     np.testing.assert_array_equal(tidx.ids.numpy(), np.asarray(jidx.ids))
 

@@ -50,6 +50,8 @@ def _assert_same(js, ji, ps, pi):
     (1024, 128, 3, 1, 256),      # k=1
     (128, 256, 2, 128, 128),     # k == N == tile_n
     (264, 128, 2, 5, 8),         # N multiple of 8 only
+    (1024, 128, 16, 10, 256),    # B = 16: a tensor-core query block
+    (512, 64, 128, 10, 128),     # B = 128: query_chunk, one query block
 ])
 def test_matches_pallas_kernel(n, d, b, k, tile, dtype):
     rng = np.random.default_rng(0)

@@ -140,3 +140,71 @@ def test_check_attention_rejects_planted_faults(flash, n):
         assert err["bar_ratio"] > 1 or err["rel_err"] > BF16_REL_TOL, name
         with pytest.raises(AssertionError):
             check_attention(bad, want)
+
+
+def _two_pass_mha(q, k, v, tile=64):
+    """K6's bf16 kernel's arithmetic, step for step, in torch: logits in
+    base-2 units, t = q·k times the f32 product 1/sqrt(hd) · log2(e); pass A
+    keeps each row's max m2 and sum l online over key tiles of ``tile`` (l =
+    l 2^(m2 - m2_new) + sum 2^(t - m2_new), the finite -1e30 before the
+    first tile); pass B recomputes each tile's logits, forms p = 2^(t - m2)
+    (1 / l) in f32, rounds p to bf16 and sums p·v in f32; the output is
+    rounded once."""
+    scale2 = torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=torch.float32) \
+        * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    qf = q.float()
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    tiles = range(0, q.shape[2], tile)
+
+    def logits(c0):
+        return qf @ k[:, :, c0:c0 + tile].float().transpose(-1, -2) * scale2
+
+    for c0 in tiles:
+        t = logits(c0)
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        l = l * torch.exp2(m - m_new) + torch.exp2(t - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    acc = torch.zeros(q.shape)
+    for c0 in tiles:
+        p = (torch.exp2(logits(c0) - m) * (1 / l)).to(v.dtype).float()
+        acc = acc + p @ v[:, :, c0:c0 + tile].float()
+    return acc.to(q.dtype)
+
+
+@pytest.mark.parametrize("n", [197, 1025])
+def test_two_pass_arithmetic_passes_check_attention(n):
+    """The bf16 K6 normalises p from a sum taken online over key tiles in a
+    first pass, not from the whole row at once, with exp2 of base-2 logits
+    and a reciprocal in place of exp and a quotient: its emulation lies within
+    ``check_attention``'s bar of the plain version (and of the JAX kernel),
+    while the planted faults still fail that bar."""
+    (jq, jk, jv), (q, k, v) = _qkv(n + 1, (2, 3, n, 64), "bfloat16")
+    want = mha_reference(q, k, v)
+    got = _two_pass_mha(q, k, v)
+    err = check_attention(got, want)
+    assert err["rel_err"] < BF16_REL_TOL / 4
+    _close(got, jax_mha(jq, jk, jv, interpret=True), "bfloat16")
+    for name, bad in planted_faults(q, k, v, flash=False).items():
+        with pytest.raises(AssertionError):
+            check_attention(bad, want)
+
+
+@pytest.mark.parametrize("n", [197, 1025])
+def test_exp2_form_moves_p_by_at_most_one_bf16_step(n):
+    """K6 evaluates p = exp(s - m) / l as 2^(t - m2) · (1 / l), with t the
+    logits in base-2 units: the same function in another f32 order. Over
+    whole rows the two forms' p, rounded to bf16, differ by at most one bf16
+    step, and in under 1e-4 of the entries (about 2e-5 at these sizes)."""
+    _, (q, k, _) = _qkv(n + 1, (2, 3, n, 64), "bfloat16")
+    dot = q.float() @ k.float().transpose(-1, -2)
+    inv = torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=torch.float32)
+    e = torch.exp(dot * inv - (dot * inv).amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(torch.bfloat16)
+    t = dot * (inv * torch.tensor(np.log2(np.e), dtype=torch.float32))
+    e2 = torch.exp2(t - t.amax(-1, keepdim=True))
+    p2 = (e2 * (1 / e2.sum(-1, keepdim=True))).to(torch.bfloat16)
+    steps = (p.view(torch.int16).int() - p2.view(torch.int16).int()).abs()
+    assert int(steps.max()) <= 1
+    assert float((steps > 0).float().mean()) < 1e-4

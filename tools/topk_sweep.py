@@ -41,8 +41,9 @@ from instsearch_torch.ops.pq import PQCodebook, default_m  # noqa: E402
 from instsearch_torch.ops.quantize import (quantize_rows,  # noqa: E402
                                            quantize_rows_int4)
 
-SHAPES = ([(512, b, k) for b in (1, 2, 4, 8, 16, 32, 128) for k in (10, 100)]
-          + [(2048, b, k) for b in (1, 8) for k in (10, 100)])
+SHAPES = ([(512, b, k) for b in (1, 2, 4, 8, 16, 32, 64, 128)
+           for k in (10, 100)]
+          + [(2048, b, k) for b in (1, 8, 128) for k in (10, 100)])
 _INT = {"int8": (quantize_rows, topk_matmul_int8, topk_matmul_int8_reference),
         "int4": (quantize_rows_int4, topk_matmul_int4,
                  topk_matmul_int4_reference)}
