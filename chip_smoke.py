@@ -74,9 +74,9 @@ runs eight phases; each raises on failure and the process exits non-zero.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
-bf16, 8 in f32) and 4,097 (B = 1, bf16), K5 at 4,097 and 16,385 (B = 1,
-bf16) and 1,025 (B = 2,
-f32), by ``check_attention`` (``kernels/vit_attention.py``), which must also
+bf16, 8 in f32) and 4,097 (B = 1, bf16), K5 at 4,097 (B = 1 and 4, the
+1024 px route's batch) and 16,385 (B = 1) in bf16 and 1,025 (B = 2, f32),
+by ``check_attention`` (``kernels/vit_attention.py``), which must also
 reject two planted faults on every bf16 case (a key tile dropped, logits
 rounded to bf16), with the time of PyTorch's
 ``scaled_dot_product_attention`` on the same tensors as the yardstick,
@@ -95,7 +95,9 @@ limit. The line before the last is the kernel summary as JSON: per kernel its
 launches on the main path, its largest difference from its plain version,
 its median time and its plain version's at 1M rows, B = 1, k = 10 (K1
 also at B = 128: ``ms_b128``, ``library_ms_b128``, ``bound_ms_b128``; K6 at
-[64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16, K7 at layer 2 of
+[64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16 (also at [4, 12,
+4097, 64]: ``ms_b4``, ``plain_ms_b4``, ``library_ms_b4``, ``bound_ms_b4``),
+K7 at layer 2 of
 ResNet-50, [64, 28x28, 512], M = 128, three blocks), the least
 time the card could take for that work (``bound_ms``: the larger of the bytes
 read and written over 3.35 TB/s and the operations over the published peak
@@ -296,10 +298,10 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
 
 def planted_faults(q, k, v, flash: bool) -> dict:
     """Two faults a kernel could make, built from its plain version's
-    arithmetic (K5's tiles of 64 keys or K6's whole rows) on the same
-    inputs; ``check_attention`` must reject both:
-      * ``tile dropped``: the middle 64-key tile skipped (an off-by-one in
-        the key loop);
+    arithmetic (K5's tiles of ``FLASH_KV_BLOCK`` = 128 keys or K6's whole
+    rows) on the same inputs; ``check_attention`` must reject both:
+      * ``tile dropped``: the middle key tile (128 keys) skipped (an
+        off-by-one in the key loop);
       * ``bf16 logits``: the logits rounded to bf16 before the softmax, as
         the plain einsum route keeps them."""
     import math
@@ -346,11 +348,12 @@ def planted_faults(q, k, v, flash: bool) -> dict:
 def phase1_attention(card: str, gen) -> tuple[dict, dict]:
     """K6 (mha) and K5 (flash_mha) against their plain versions at the ViT
     shapes: B x 12 heads x N tokens x 64, N = 197 (224 px), 1,025, 4,097
-    (1024 px) and 16,385 (2048 px). q, k and v are views of one packed
-    [B, N, 3, 12, 64] tensor, the layout of the model's qkv projection that
-    the kernels read in place. K5's plain version is the tiled one (kv_block
-    64, as the kernel), which never holds the N x N logits, so it runs over
-    all 12 heads at once even at 16,385 tokens. Every output must pass
+    (1024 px; K5 also at B = 4, the batch of phase 5's 1024 px route) and
+    16,385 (2048 px). q, k and v are views of one packed [B, N, 3, 12, 64]
+    tensor, the layout of the model's qkv projection that the kernels read
+    in place. K5's plain version is the tiled one (kv_block 128, as the
+    kernel), which never holds the N x N logits, so it runs over all 12
+    heads at once even at 16,385 tokens. Every output must pass
     ``check_attention``; in bf16 the two faults of ``planted_faults`` must
     fail it on the same inputs. Returns (largest error per kernel, timings
     by case)."""
@@ -367,6 +370,7 @@ def phase1_attention(card: str, gen) -> tuple[dict, dict]:
             (mha, mha_reference, (8, 12, 197, 64), "f32"),
             (mha, mha_reference, (1, 12, 4097, 64), "bf16"),
             (flash_mha, flash_mha_reference, (1, 12, 4097, 64), "bf16"),
+            (flash_mha, flash_mha_reference, (4, 12, 4097, 64), "bf16"),
             (flash_mha, flash_mha_reference, (1, 12, 16385, 64), "bf16"),
             (flash_mha, flash_mha_reference, (2, 12, 1025, 64), "f32")):
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
@@ -1507,6 +1511,9 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    t = att_timings["flash_mha bf16 [4, 12, 4097, 64]"]    # the 1024 px batch
+    rows[-1].update(ms_b4=t["ms"], plain_ms_b4=t["plain_ms"],
+                    library_ms_b4=t["library_ms"], bound_ms_b4=t["bound_ms"])
     t = fused_timings["layer2"]
     rows.append({"name": "fused_identity_blocks", "route": "cuda",
                  "source": "instsearch_torch/csrc/fused_resnet.cu",

@@ -13,8 +13,10 @@ bf16 or f32, -> ``o [B, h, N, hd]`` in the same dtype, softmax scale
     tail masked with the finite -1e30, running max and sum in f32, the
     UNNORMALISED p rounded to v's dtype before p·v, ``acc / l`` at the end.
     In bf16 it therefore differs from ``mha``, and p's rounding depends on
-    where the tiles split, so its plain version walks the same tiles (and
-    takes others, as the reference kernel's 128, for the CPU tests).
+    where the tiles split, so the tiles are part of the result: 128 keys,
+    the reference kernel's ``kv_block``, in the bf16 kernel and in the plain
+    version (which takes others on request). The f32 kernel keeps tiles of
+    64 keys: in f32 the tiling moves only the order of the sums.
 
 Each wrapper launches its hand-written CUDA kernel
 (``instsearch_torch/csrc/vit_attention.cu``) for CUDA tensors and takes its
@@ -35,7 +37,7 @@ import torch
 
 HEAD_DIM = 64                 # the kernels' head dim (ViT-B/16, ViT-L/16)
 SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
-FLASH_KV_BLOCK = 64           # keys per tile of the K5 kernel
+FLASH_KV_BLOCK = 128          # keys per tile of K5 (the reference's kv_block)
 _FLASH_NEG = -1e30            # finite mask: -inf would NaN the rescale
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # check_attention's bars
@@ -178,12 +180,16 @@ def _kernel_operands(name: str, q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name}: {nm} rows are not 16-byte aligned")
 
 
+# isf_flash_mha's codes for a bf16 call it did not launch (no CUDA error)
+_NO_ENCODER, _MAP_REFUSED = -1, -2
+
+
 def _launch(fn, entry, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor) -> torch.Tensor:
     """Allocate the output, launch ``entry`` on the current stream, raise on
-    its CUDA error code, count the launch on ``fn``. The output is a [B, h,
-    N, hd] view of [B, N, h, hd] memory, so ``o.transpose(1, 2).reshape(B,
-    N, h * hd)``, the merge of the heads, copies nothing."""
+    its error code, count the launch on ``fn``. The output is a [B, h, N,
+    hd] view of [B, N, h, hd] memory, so ``o.transpose(1, 2).reshape(B, N,
+    h * hd)``, the merge of the heads, copies nothing."""
     b, h, n, hd = q.shape
     out = torch.empty((b, n, h, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
@@ -192,6 +198,12 @@ def _launch(fn, entry, q: torch.Tensor, k: torch.Tensor,
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     b, h, n, hd, _DTYPE_CODE[q.dtype], *q.stride()[:3],
                     *out.stride()[:3], stream)
+    if err == _MAP_REFUSED:
+        raise ValueError(f"{fn.__name__}: the CUDA tensor-map encoder "
+                         f"refuses q/k/v with strides {q.stride()}")
+    if err == _NO_ENCODER:
+        raise RuntimeError(f"{fn.__name__}: libcuda has no "
+                           f"cuTensorMapEncodeTiled (TMA needs CUDA 12)")
     if err:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
                            f"{err} (shape {tuple(q.shape)}, {q.dtype})")
@@ -226,7 +238,9 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """K5: tiled flash attention for long token counts (high-resolution
     extraction); the [N, N] logits never reach device memory. See the
-    module docstring."""
+    module docstring. On CUDA the bf16 kernel reads q, k and v by TMA
+    through one tensor map each, and raises ``ValueError`` if the CUDA
+    tensor-map encoder refuses their strides."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_mha_reference(q, k, v)

@@ -390,6 +390,52 @@ def test_attention_kernels_refuse_what_they_cannot_take(gen):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 255, 257])
+def test_bf16_flash_at_the_tile_edges(gen, n):
+    """The bf16 K5 at the edges of its 128-row query blocks and 128-key
+    tiles, where TMA zero-fills the rows past n and the kernel masks the
+    keys past n by position, over B * h = 15 (B = 3, h = 5) on q, k, v views
+    of a packed qkv projection: within ``check_attention`` of its plain
+    version, v = ones gives ones, and o lies in [B, N, h, hd] memory."""
+    qkv = torch.randn((3, n, 3, 5, 64), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    before = flash_mha.launches
+    out = flash_mha(q, k, v)
+    want = flash_mha_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1
+    check_attention(out, want)
+    merged = out.transpose(1, 2)
+    assert merged.is_contiguous()
+    assert merged.reshape(3, n, 320).data_ptr() == out.data_ptr()
+    qkv[:, :, 2] = 1                                  # v = ones
+    ones = flash_mha(q, k, v).float()
+    assert (ones - 1).abs().max().item() <= 2 ** -7
+
+
+@pytest.mark.gpu
+def test_bf16_flash_refuses_strides_tma_cannot_take(gen):
+    """TMA reads rows whose strides are multiples of 16 bytes from a
+    16-byte-aligned base; other operands raise ``ValueError`` in the wrapper
+    before any launch, not a fault on the card."""
+    before = flash_mha.launches
+    x = torch.randn((2, 40, 3 * 2 * 64 + 4), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    row = x[..., :3 * 2 * 64].unflatten(-1, (3, 2, 64))     # 776-byte rows
+    q, k, v = (t.transpose(1, 2) for t in row.unbind(2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_mha(q, k, v)
+    flat = torch.randn(2 * 2 * 40 * 64 + 4, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    q = flat[4:].view(2, 2, 40, 64)                         # base 8 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_mha(q, q, q)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [5, 197, 300, 1025, 4000])
 def test_bf16_mha_takes_any_token_count(gen, n):
     """The bf16 K6 keeps nothing per key: from 5 tokens (one ragged key

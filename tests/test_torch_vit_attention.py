@@ -14,6 +14,7 @@ the whole within 1e-3 in norm (``check_attention`` says why). v = ones
 gives ones within 1e-6 in f32: the rows of p sum to one over the valid
 keys, and a padded key attending would pull the output below by about 1/N.
 """
+import inspect
 import os
 import sys
 
@@ -25,6 +26,7 @@ import torch
 from instsearch_tpu.kernels.vit_attention import flash_mha as jax_flash_mha
 from instsearch_tpu.kernels.vit_attention import mha as jax_mha
 from instsearch_torch.kernels.vit_attention import (BF16_REL_TOL,
+                                                    FLASH_KV_BLOCK,
                                                     attention_error,
                                                     check_attention,
                                                     flash_mha,
@@ -64,14 +66,35 @@ def test_mha_reference_matches_jax_kernel(dtype, n):
 def test_flash_reference_matches_jax_kernel(dtype, n):
     (jq, jk, jv), (q, k, v) = _qkv(n + 1, (2, 3, n, 64), dtype)
     want = jax_flash_mha(jq, jk, jv, interpret=True)      # kv_block 128
-    got = flash_mha_reference(q, k, v, kv_block=128)
+    got = flash_mha_reference(q, k, v)
     assert got.shape == (2, 3, n, 64) and got.dtype == q.dtype
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("n", [300, 1025, 2049])
+def test_flash_default_tiles_match_jax_defaults(n):
+    """F5: in bf16 the key tiles are part of K5's result (p is rounded
+    before it is normalised, against a running max that depends on where
+    the tiles split), so the port's served route, ``flash_mha`` at its
+    defaults, must answer as the JAX ``flash_mha`` at its defaults. With
+    64-key tiles it read 1.2e-3 to 1.5e-3 in norm here, past
+    ``BF16_REL_TOL``."""
+    (jq, jk, jv), (q, k, v) = _qkv(n + 11, (1, 2, n, 64), "bfloat16")
+    want = jax_flash_mha(jq, jk, jv, interpret=True)
+    got = flash_mha(q, k, v)
+    assert got.shape == (1, 2, n, 64) and got.dtype == torch.bfloat16
+    _close(got, want, "bfloat16")
+
+
+def test_flash_tile_is_the_reference_kv_block():
+    ref = inspect.signature(jax_flash_mha).parameters["kv_block"].default
+    assert FLASH_KV_BLOCK == ref == 128
+
+
 def test_flash_reference_tiles_differ_only_by_rounding():
-    """In f32 the tiling changes only summation order; the kernel's default
-    64-key tiles give the one-pass result."""
+    """In f32 the tiling changes only summation order: the 64-key tiles of
+    the f32 kernel, the default 128 and one whole tile all give the
+    one-pass result."""
     _, (q, k, v) = _qkv(3, (1, 2, 300, 64), "float32")
     want = mha_reference(q, k, v)
     for kb in (64, 128, 300):
@@ -208,3 +231,70 @@ def test_exp2_form_moves_p_by_at_most_one_bf16_step(n):
     steps = (p.view(torch.int16).int() - p2.view(torch.int16).int()).abs()
     assert int(steps.max()) <= 1
     assert float((steps > 0).float().mean()) < 1e-4
+
+
+def _flash_forms(q, k, v, tile=FLASH_KV_BLOCK):
+    """K5's online softmax over key tiles of ``tile`` keys in two forms, side
+    by side: the plain version's (s = q·k / sqrt(hd), p = exp(s - m)) and the
+    bf16 kernel's base-2 one (m2 the running max of q·k · scale2, scale2 =
+    f32(1/sqrt(hd)) · f32(log2(e)), p = 2^(q·k · scale2 - m2) with the FFMA's
+    single rounding, emulated in f64). Returns each tile's p of both forms
+    rounded to bf16, and the base-2 form's output: l summed from the
+    unrounded p, p rounded to bf16 before p·v, acc / l at the end."""
+    scale = torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=torch.float32)
+    scale2 = scale * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    qf = q.float()
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    m2 = m.clone()
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    tiles = []
+    for c0 in range(0, q.shape[2], tile):
+        dot = qf @ k[:, :, c0:c0 + tile].float().transpose(-1, -2)
+        s = dot * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        m = m_new
+        m2_new = torch.maximum(m2, dot.amax(-1, keepdim=True) * scale2)
+        t = (dot.double() * scale2.double() - m2_new.double()).float()
+        p2 = torch.exp2(t)
+        corr = torch.exp2(m2 - m2_new)
+        l = corr * l + p2.sum(-1, keepdim=True)
+        acc = corr * acc + p2.to(v.dtype).float() @ v[
+            :, :, c0:c0 + tile].float()
+        m2 = m2_new
+        tiles.append((p.to(v.dtype), p2.to(v.dtype)))
+    return tiles, (acc / l).to(q.dtype)
+
+
+@pytest.mark.parametrize("n", [300, 1025])
+def test_flash_exp2_form_moves_p_by_at_most_one_bf16_step(n):
+    """The bf16 K5 evaluates p = exp(s - m) as 2^(q·k · scale2 - m2), m2 the
+    running max in base-2 units: the same function in another f32 order.
+    Tile by tile, with each form's own running max, the two forms' p rounded
+    to bf16 differ by at most one bf16 step, and in under 1e-4 of the
+    entries."""
+    _, (q, k, v) = _qkv(n + 3, (2, 3, n, 64), "bfloat16")
+    tiles, _ = _flash_forms(q, k, v)
+    steps = torch.cat([(p.view(torch.int16).int()
+                        - p2.view(torch.int16).int()).abs().flatten()
+                       for p, p2 in tiles])
+    assert int(steps.max()) <= 1
+    assert float((steps > 0).float().mean()) < 1e-4
+
+
+@pytest.mark.parametrize("n", [300, 1025])
+def test_flash_base2_arithmetic_passes_check_attention(n):
+    """The bf16 K5's arithmetic step for step (base-2 units, p rounded before
+    it is normalised, tile by tile) lies within ``check_attention``'s bar of
+    the plain version and of the JAX kernel at its defaults, while the
+    planted faults still fail that bar."""
+    (jq, jk, jv), (q, k, v) = _qkv(n + 5, (2, 3, n, 64), "bfloat16")
+    want = flash_mha_reference(q, k, v)
+    _, got = _flash_forms(q, k, v)
+    err = check_attention(got, want)
+    assert err["rel_err"] < BF16_REL_TOL / 4
+    _close(got, jax_flash_mha(jq, jk, jv, interpret=True), "bfloat16")
+    for name, bad in planted_faults(q, k, v, flash=True).items():
+        with pytest.raises(AssertionError):
+            check_attention(bad, want)
