@@ -88,7 +88,9 @@ equal to its blocks launched one at a time and each block held by
 three planted faults on every block (a border tap reading the neighbouring
 row, a dropped corner tap, the tap sum rounded to bf16); at 224 px with the
 module's ``Bottleneck.forward`` on the same activation (cuDNN, several
-calls, replayed from a CUDA graph) as the yardstick.
+calls, replayed from a CUDA graph) as the yardstick; the compiled K7
+kernel's registers and local memory a thread are printed, and any local
+memory (a spill) fails the phase.
 
 Every measured number is printed with the card's nvidia-smi name and power
 limit. The line before the last is the kernel summary as JSON: per kernel its
@@ -437,12 +439,18 @@ def phase1_fused(card: str, gen, model) -> tuple[float, dict]:
     module's ``Bottleneck.forward`` on the same activation (cuDNN, unfolded
     BN, channels-last: several calls, the yardstick; replayed from a CUDA
     graph, so that the host's launch gaps between its ~10 kernels a block do
-    not count, and eager beside it) and the bound. Returns (largest error,
-    timings by stage)."""
+    not count, and eager beside it), the bound and the kernel's share of
+    it, with the compiled kernel's registers and local (spill) bytes a
+    thread, which must be 0. Returns (largest error, timings by stage)."""
     import torch
     from instsearch_torch.kernels.fused_resnet import (
         _stack_identity_weights, check_fused_call, fused_identity_blocks,
-        fused_identity_blocks_reference, tile_rows)
+        fused_identity_blocks_reference, kernel_attrs, tile_rows)
+    attrs = kernel_attrs()
+    report(card, phase=1, kernel="fused_identity_blocks", **attrs)
+    if attrs["local_bytes"]:
+        fail(f"K7 spills: {attrs['local_bytes']} bytes of local memory a "
+             f"thread ({attrs['registers']} registers)")
     sd = model.state_dict()
     b = 64
     errs, timings = [], {}
@@ -495,8 +503,10 @@ def phase1_fused(card: str, gen, model) -> tuple[float, dict]:
                             + n * 4 * (2 * m + c),
                             2 * b * hw * n * (c * m + 9 * m * m + m * c),
                             "bf16")}
+            t = timings[layer]
             report(card, phase=1, timing=f"K7 {layer} [{b}, {hh}x{hh}, {c}] "
-                   f"M={m} n={n}", **timings[layer])
+                   f"M={m} n={n}", **t, bound_share=t["bound_ms"] / t["ms"],
+                   **attrs)
             del x, xc, op
             torch.cuda.empty_cache()
     return max(errs), timings

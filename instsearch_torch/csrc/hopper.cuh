@@ -1,5 +1,6 @@
 // PTX wrappers for Hopper's asynchronous machinery (sm_90a only), shared by
-// the port's warp-specialised kernels (K5's bf16 kernel in vit_attention.cu):
+// the port's warp-specialised kernels (K5's bf16 kernel in vit_attention.cu,
+// K7 in fused_resnet.cu):
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase's parity;
@@ -10,7 +11,11 @@
 //     operands in shared memory, the m64n64k16 product with A in registers,
 //     and the fence, commit and wait around them;
 //   * setmaxnreg, which moves registers from a producer warpgroup to the
-//     consumer warpgroups.
+//     consumer warpgroups, and the named barrier that syncs the consumers
+//     without the producer;
+//   * on the host, the tensor-map encoder (a libcuda function reached
+//     through the runtime, so the library needs no -lcuda) and a bf16 map
+//     of any rank with a 128-byte swizzle.
 //
 // Phases. A barrier starts in phase 0. wait(bar, parity) returns once the
 // phase of that parity has completed: a consumer waits on round r's "full"
@@ -46,6 +51,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -121,6 +127,13 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+// bar.sync on barrier `id` (1-15; 0 is __syncthreads) for `threads`
+// threads, a multiple of 32: the consumer warpgroups sync among themselves
+// while the producer goes on loading
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // Pins a register that an in-flight wgmma reads or writes: the compiler
@@ -206,6 +219,57 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+// What a C entry returns, past the CUDA error codes, when it launches
+// nothing: libcuda has no tensor-map encoder, or the encoder refuses an
+// operand.
+constexpr int kNoEncoder = -1;
+constexpr int kMapRefused = -2;
+
+// cuTensorMapEncodeTiled, a libcuda function, through the runtime's entry
+// point query, so the library links against the runtime alone; null if
+// libcuda has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+        ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` dims at `base` as a TMA tensor map: dims[0] the
+// contiguous one, strides[i] the byte stride of dim i + 1, boxes of box[i]
+// elements (box[0] two bytes each, at most 128), 128-byte swizzle (the
+// layout desc_sw128 describes), elements out of bounds zero-filled. False
+// if the encoder refuses the strides or the base's alignment.
+bool tensor_map_bf16(CUtensorMap* map, EncodeTiled encode, const void* base,
+                     int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

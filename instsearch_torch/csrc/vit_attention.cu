@@ -866,39 +866,12 @@ cudaError_t run_mha(const void* q, const void* k, const void* v, void* o,
                 out, heads, n, npad, scale);
 }
 
-// cuTensorMapEncodeTiled, a libcuda function, through the runtime's entry
-// point query, so the library links against the runtime alone; null if
-// libcuda has none.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-        ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // K5's bf16 operand as a TMA tensor map: dims (hd, n, h, b) innermost
 // first with the operand's byte strides, boxes of kTmaKeys rows x hd (the
 // q box has as many rows), 128-byte swizzle (a row is 128 bytes), rows past
 // n zero-filled. False if the encoder refuses the strides.
-bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* base,
-                int b, int h, int n, const Layout& s) {
+bool tensor_map(CUtensorMap* map, hopper::EncodeTiled encode,
+                const void* base, int b, int h, int n, const Layout& s) {
   static_assert(kTmaRows == kTmaKeys, "q and k/v share the box");
   const cuuint64_t dims[4] = {kHd, (cuuint64_t)n, (cuuint64_t)h,
                               (cuuint64_t)b};
@@ -906,19 +879,8 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* base,
                                  (cuuint64_t)s.h * sizeof(bf16),
                                  (cuuint64_t)s.b * sizeof(bf16)};
   const cuuint32_t box[4] = {kHd, kTmaKeys, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::tensor_map_bf16(map, encode, base, 4, dims, strides, box);
 }
-
-// What isf_flash_mha returns, past the CUDA error codes, when it launches
-// nothing: libcuda has no tensor-map encoder, or the encoder refuses an
-// operand.
-constexpr int kNoEncoder = -1;
-constexpr int kMapRefused = -2;
 
 int run_flash(const void* q, const void* k, const void* v, void* o,
               Layout in, Layout out, int b, int h, int n, int dtype,
@@ -928,13 +890,13 @@ int run_flash(const void* q, const void* k, const void* v, void* o,
     return (int)launch(flash_kernel_f32, kFlashRows, b * h, n,
                        flash_smem_f32(), stream, q, k, v, o, in, out, h, n,
                        scale);
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kNoEncoder;
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::kNoEncoder;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, encode, q, b, h, n, in) ||
       !tensor_map(&tk, encode, k, b, h, n, in) ||
       !tensor_map(&tv, encode, v, b, h, n, in))
-    return kMapRefused;
+    return hopper::kMapRefused;
   const size_t smem = sizeof(FlashTmaSmem) + 1024;   // + the 1,024 alignment
   const cudaError_t err = cudaFuncSetAttribute(
       flash_kernel_tma, cudaFuncAttributeMaxDynamicSharedMemorySize,

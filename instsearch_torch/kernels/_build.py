@@ -142,5 +142,8 @@ def load() -> ctypes.CDLL:
         lib.isf_fused_block.restype = i
         lib.isf_fused_block_tile.argtypes = [i, i, i]
         lib.isf_fused_block_tile.restype = i
+        lib.isf_fused_block_attrs.argtypes = [ctypes.POINTER(i),
+                                              ctypes.POINTER(i)]
+        lib.isf_fused_block_attrs.restype = i
         _lib = lib
         return lib

@@ -283,6 +283,22 @@ def tile_rows(H: int, W: int, M: int) -> int:
     return _build.load().isf_fused_block_tile(H, W, M)
 
 
+def kernel_attrs() -> dict:
+    """The K7 kernel's registers a thread and its local memory (spills) in
+    bytes a thread, the most over its compiled forms, as
+    ``cudaFuncGetAttributes`` reads them. Builds the kernels on first
+    use."""
+    import ctypes
+    from . import _build
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = _build.load().isf_fused_block_attrs(ctypes.byref(regs),
+                                              ctypes.byref(local))
+    if err:
+        raise RuntimeError(f"cudaFuncGetAttributes of the K7 kernel failed: "
+                           f"CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
 def _kernel_plan(x, weights, H: int, W: int) -> None:
     """Raise unless the kernel takes the operands as they are."""
     b, _, c = x.shape
@@ -346,12 +362,17 @@ def fused_identity_blocks(x, w1, b1, w2, b2, w3, b3, *, H: int,
                 dst.data_ptr(), b, H, W, c, m, stream)
             if err:
                 raise RuntimeError(
-                    f"fused_identity_blocks kernel launch failed: CUDA error "
-                    f"{err} (x {tuple(x.shape)}, H={H}, W={W}, M={m})")
+                    f"fused_identity_blocks kernel launch failed: "
+                    f"{_LAUNCH_ERRORS.get(err, f'CUDA error {err}')} "
+                    f"(x {tuple(x.shape)}, H={H}, W={W}, M={m})")
             fused_identity_blocks.launches += 1
             src = dst
     return out
 
+
+# isf_fused_block's own codes, past CUDA's: it launched nothing
+_LAUNCH_ERRORS = {-1: "libcuda has no tensor-map encoder",
+                  -2: "the tensor-map encoder refused x or a weight"}
 
 # kernel launches, one per block; reset by whoever counts them
 fused_identity_blocks.launches = 0

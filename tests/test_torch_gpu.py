@@ -53,7 +53,7 @@ from instsearch_torch.kernels.topk_matmul import (K_MAX, check_against_plain,
                                                   check_exact)
 from instsearch_torch.kernels.fused_resnet import (
     _stack_identity_weights, check_fused_call, fused_identity_blocks,
-    fused_resnet_apply, randomize_bn, tile_rows)
+    fused_resnet_apply, kernel_attrs, randomize_bn, tile_rows)
 from instsearch_torch.kernels.vit_attention import check_attention
 from instsearch_torch.models.resnet import Bottleneck, ResNet
 from instsearch_torch.ops.pooling import gem_pool
@@ -480,19 +480,29 @@ def _stage(gen, H, W, C, M, n, B=2):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,W,C,M,n", [
-    (56, 56, 256, 64, 2), (28, 28, 512, 128, 3), (14, 14, 1024, 256, 2),
-    (7, 7, 2048, 512, 1),          # ResNet-50's stages at 224 px
-    (23, 23, 256, 64, 2),          # an uneven split: tiles of 8, 8, 7 rows
-    (9, 13, 512, 128, 2),          # H != W
-    (3, 130, 256, 64, 1),          # a row wider than a tile's 128-row GEMM
-    (32, 32, 1024, 256, 2)])       # layer 3 at 512 px: tiles 5 x 6 + 2 rows
-def test_fused_blocks_kernel_matches_plain_version(gen, H, W, C, M, n):
+@pytest.mark.parametrize("H,W,C,M,n,B", [
+    (56, 56, 256, 64, 2, 2), (28, 28, 512, 128, 3, 2),
+    (14, 14, 1024, 256, 2, 2),
+    (7, 7, 2048, 512, 1, 2),       # ResNet-50's stages at 224 px
+    (23, 23, 256, 64, 2, 2),       # an uneven split: tiles of 8, 8, 7 rows
+    (9, 13, 512, 128, 2, 2),       # H != W
+    (3, 130, 256, 64, 1, 2),       # a row wider than a 128-row m-tile; conv1
+                                   # two row groups (390 rows)
+    (32, 32, 1024, 256, 2, 2),     # layer 3 at 512 px: tiles of 3 rows,
+                                   # conv1 two sub-tiles, conv2-3 one
+    (128, 128, 256, 64, 1, 2),     # layer 1 at 512 px: conv1's 384-512
+                                   # rows a tile in two row groups
+    (7, 7, 2048, 512, 2, 2),       # layer 4: 1,088 weight stages a block
+                                   # (576 in conv2), the ring's phases
+                                   # wrapping 272 times a launch
+    (28, 28, 512, 128, 1, 64)])    # layer 2 at B = 64: 256 blocks, two
+                                   # waves on 132 SMs
+def test_fused_blocks_kernel_matches_plain_version(gen, H, W, C, M, n, B):
     """``check_fused_call``: one launch per block, the call equal to its
     blocks launched one at a time, each block within
     ``check_fused_blocks`` of the plain version, the three planted faults
     rejected on every block; the caller's x untouched."""
-    x, ops = _stage(gen, H, W, C, M, n)
+    x, ops = _stage(gen, H, W, C, M, n, B)
     keep = x.clone()
     out, errs, faults = check_fused_call(x, ops, H, W)
     torch.cuda.synchronize()
@@ -504,13 +514,21 @@ def test_fused_blocks_kernel_matches_plain_version(gen, H, W, C, M, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,W,M,want", [
     (56, 56, 64, 4), (28, 28, 128, 7), (14, 14, 256, 7), (7, 7, 512, 7),
-    (128, 128, 64, 2), (64, 64, 128, 4), (32, 32, 256, 5), (16, 16, 512, 4),
+    (128, 128, 64, 2), (64, 64, 128, 4), (32, 32, 256, 3), (16, 16, 512, 3),
     (3, 130, 64, 1), (23, 23, 64, 8), (1, 4000, 512, 0)])
 def test_fused_blocks_tile_plan(gen, H, W, M, want):
     """The kernel's own tile plan: ResNet-50's stages at 224 and 512 px, a
     row wider than the 256-pixel aim, an uneven split, and a row whose tile
     does not fit the shared memory (0: the wrapper refuses)."""
     assert tile_rows(H, W, M) == want
+
+
+@pytest.mark.gpu
+def test_fused_blocks_kernel_does_not_spill(gen):
+    """The compiled K7 kernel keeps its registers: no local memory."""
+    attrs = kernel_attrs()
+    assert attrs["local_bytes"] == 0, attrs
+    assert 0 < attrs["registers"] <= 255, attrs
 
 
 @pytest.mark.gpu
