@@ -13,7 +13,12 @@ runs eight phases; each raises on failure and the process exits non-zero.
      8, 16, 64, 128}, each timed), k in {1, 10, 100}, padding, a
      50% mask, duplicated rows, fewer valid rows than k, D = 2048 at B = 1
      (bf16: also 128); K1 in bf16 and f32 (scores within SCORE_TOL), K2
-     over int8 and K3 over int4 rows (bit for bit), K3 also at D = 128;
+     over int8 and K3 over int4 rows (bit for bit; also B = 65, D = 128
+     and B = 128 at D = 128 and 2048, each timed at B = 1 and 128, K2
+     beside ``torch._int_mm`` + ``torch.topk`` at B = 128), and the first
+     kernel of their launch sequence, the query's quantization, bit for
+     bit against ``ops/quantize.py::quantize_rows`` on rows with ties at
+     half a step, zero rows, a sign at the row's maximum and bf16 values;
      K4 over 4-bit PQ codes, 1M x 32 bytes (M = 64) with the same cases and
      1M x 8 bytes (M = 16), and 67,108,864 x 32 bytes (2 GiB of codes) at
      B = 1 and 128, depth 100 (bit for bit); with kernel and plain medians;
@@ -95,8 +100,9 @@ memory (a spill) fails the phase.
 Every measured number is printed with the card's nvidia-smi name and power
 limit. The line before the last is the kernel summary as JSON: per kernel its
 launches on the main path, its largest difference from its plain version,
-its median time and its plain version's at 1M rows, B = 1, k = 10 (K1
-also at B = 128: ``ms_b128``, ``library_ms_b128``, ``bound_ms_b128``; K6 at
+its median time and its plain version's at 1M rows, B = 1, k = 10 (K1-K3
+also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
+``bound_ms_b128``; K6 at
 [64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16 (also at [4, 12,
 4097, 64]: ``ms_b4``, ``plain_ms_b4``, ``library_ms_b4``, ``bound_ms_b4``),
 K7 at layer 2 of
@@ -525,6 +531,67 @@ def quantized_unit_rows(gen, n: int, d: int, quantize):
                          torch.cat([p.scales for p in parts], dim=1))
 
 
+def quantizer_rows(gen, d: int):
+    """f32 [12, d] query rows that pin ``quantize_rows``' arithmetic (d >=
+    16): a zero row (the 1e-12 floor); a row of maximum 127, so the scale is
+    exactly 1 and entries at half a step (0.5, 1.5, 2.5, 126.5 and their
+    negatives) must round to even; rows of mixed sign whose maximum is a
+    negative entry, and a positive one; rows of bf16 values; rows at scales
+    1e-30 to 1e30."""
+    import torch
+    dev = gen.device
+    r = torch.randn(12, d, generator=gen, device=dev)
+    r[0] = 0.0
+    halves = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5,
+                           3.5, -3.5, 64.5, -64.5, 0.25, -0.75, 1.0, -1.0],
+                          device=dev)
+    r[1] = halves.repeat(d // 16 + 1)[:d]
+    r[2, 3] = -4.0 * r[2].abs().max()           # the maximum is negative
+    r[3, d - 1] = 4.0 * r[3].abs().max()
+    r[4:8] = r[4:8].bfloat16().float()
+    for j, s in zip(range(8, 12), (1e-30, 1e-3, 1e3, 1e30)):
+        r[j] *= s
+    return r.contiguous()
+
+
+def int_mm_topk(st, q, k: int):
+    """K2's yardstick: one ``torch._int_mm`` of the int8-quantized query
+    ``q`` and rows ``st`` (``QuantizedRows``), scaled as K2 scales, and
+    ``torch.topk``; the port never calls it. ``_int_mm`` needs more than 16
+    query rows. Returns the call."""
+    import torch
+    from instsearch_torch.ops.quantize import quantize_rows
+    qr = quantize_rows(q)
+    q_i8, q_scale = qr.values, qr.scales.reshape(-1)
+    x_scale = st.scales.reshape(-1)
+    return lambda: torch.topk((torch._int_mm(q_i8, st.values.t()).float()
+                               * q_scale[:, None]) * x_scale[None, :], k)
+
+
+def check_quantizer(card: str, gen, quantize_query) -> None:
+    """The first kernel of K2/K3's launch sequence against
+    ``quantize_rows``: values, scales and offsets bit for bit."""
+    import torch
+    from instsearch_torch.ops.quantize import quantize_rows
+    for d in (16, 512, 2048):
+        for label, q in (("edge rows", quantizer_rows(gen, d)),
+                         ("unit rows", unit_rows(gen, 128, d, torch.float32))):
+            before = quantize_query.launches
+            v, s, off = quantize_query(q)
+            qr = quantize_rows(q)
+            torch.cuda.synchronize()
+            if quantize_query.launches != before + 1:
+                fail(f"quantize_query D={d}: no launch counted")
+            if not (torch.equal(v, qr.values) and torch.equal(
+                    s.view(torch.int32), qr.scales.view(torch.int32))):
+                fail(f"quantize_query D={d} {label}: differs from "
+                     f"quantize_rows")
+            if not torch.equal(off, 8 * qr.values.sum(1, dtype=torch.int32)):
+                fail(f"quantize_query D={d} {label}: wrong offsets")
+            report(card, phase=1, kernel="quantize_query", case=label, d=d,
+                   b=q.shape[0], bit_exact=True)
+
+
 def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
                check_exact) -> tuple[float, dict]:
     """K2 (int8) or K3 (int4) against its plain version; both sum exact
@@ -559,21 +626,25 @@ def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
     timings = {}
     nv = N_ROWS - 1000
     st = quantized_unit_rows(gen, N_ROWS, DIM, quantize)
-    for b in (1, 8, 128):
+    # B = 65: a ragged query block of the tensor-core pass 1's 128
+    for b in (1, 8, 65, 128):
         for k in (1, 10, 100):
             case(st, DIM, b, k, "num_valid=N-1000", num_valid=nv)
     mask = (torch.rand(N_ROWS, generator=gen, device=dev) < 0.5
             ).to(torch.int8)
-    case(st, DIM, 8, 10, "50% mask", mask=mask)
+    for b in (8, 128):
+        case(st, DIM, b, 10, "50% mask", mask=mask)
     case(st, DIM, 3, 100, "50 valid rows < k", num_valid=50)
+    row_bytes = DIM // 2 if kind == "int4" else DIM
     for b in (1, 128):
         q = unit_rows(gen, b, DIM, torch.float32)
-        row_bytes = DIM // 2 if kind == "int4" else DIM
+        library = (cuda_median_ms(int_mm_topk(st, q, 10))
+                   if kind == "int8" and b > 16 else None)
         timings[f"{kind} N=1M D=512 B={b} k=10"] = {
             "ms": cuda_median_ms(lambda: fn(st.values, st.scales, q, k=10)),
             "plain_ms": cuda_median_ms(
                 lambda: ref(st.values, st.scales, q, k=10)),
-            "library_ms": None,
+            "library_ms": library,
             **bound(N_ROWS * (row_bytes + 4) + b * DIM * 4 + b * 10 * 8,
                     2 * b * N_ROWS * DIM, "int8")}
     del st, mask
@@ -583,18 +654,20 @@ def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
     reps = N_ROWS // 1024
     dup = QuantizedRows(base.values.repeat(reps, 1).contiguous(),
                         base.scales.repeat(1, reps).contiguous())
-    i = case(dup, DIM, 8, 100, "duplicated rows")
-    if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
-            and bool((i % 1024 == i[:, :1] % 1024).all())):
-        fail(f"{kind} duplicated rows: copies out of position order")
+    for b in (8, 128):
+        i = case(dup, DIM, b, 100, "duplicated rows")
+        if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
+                and bool((i % 1024 == i[:, :1] % 1024).all())):
+            fail(f"{kind} duplicated rows: copies out of position order")
     del base, dup
-    # the unwhitened ResNet-50 width; for int4 also the 128 of
-    # configs/compact128_int4.json
-    widths = ((2048, 1), (128, 8)) if kind == "int4" else ((2048, 1),)
-    for d, b in widths:
+    # the unwhitened ResNet-50 width and the 128 of
+    # configs/compact128_int4.json (an int4 row of 64 bytes half fills a
+    # 128-byte chunk)
+    for d, batches in ((2048, (1, 128)), (128, (8, 128))):
         st = quantized_unit_rows(gen, N_ROWS, d, quantize)
-        for k in (10, 100):
-            case(st, d, b, k, f"D={d}", num_valid=nv)
+        for b in batches:
+            for k in (10, 100):
+                case(st, d, b, k, f"D={d}", num_valid=nv)
         del st
     torch.cuda.empty_cache()
     for shape, t in timings.items():
@@ -1438,8 +1511,8 @@ def main() -> int:
     from instsearch_torch.models import get_backbone
     from instsearch_torch.kernels.pq_scan import pq_topk, pq_topk_reference
     from instsearch_torch.kernels.topk_matmul import (
-        check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
-        topk_matmul_int4_reference, topk_matmul_int8,
+        check_against_plain, check_exact, quantize_query, topk_matmul,
+        topk_matmul_int4, topk_matmul_int4_reference, topk_matmul_int8,
         topk_matmul_int8_reference, topk_matmul_reference)
     from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 
@@ -1468,6 +1541,7 @@ def main() -> int:
         errs[kind], t = phase1_int(card, gen, kind, fn, ref, quant,
                                    check_exact)
         timings.update(t)
+    check_quantizer(card, gen, quantize_query)
     errs["pq"], t = phase1_pq(card, gen, pq_topk, pq_topk_reference,
                               check_exact)
     timings.update(t)
@@ -1503,9 +1577,9 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-        if name == "topk_matmul":       # and at the batched query's B
+        if name != "pq_topk":           # and at the batched query's B
             t = timings[f"{shape} B=128 k=10"]
-            rows[-1].update(ms_b128=t["ms"],
+            rows[-1].update(ms_b128=t["ms"], plain_ms_b128=t["plain_ms"],
                             library_ms_b128=t["library_ms"],
                             bound_ms_b128=t["bound_ms"])
     for name, replaces, shape, launches in (

@@ -35,10 +35,10 @@
 //   * K1's split-N passes and selection (topk_common.cuh), with a policy
 //     that scores a whole chunk (kScoresChunk): each of a block's 256
 //     threads scores one row of the 256-row chunk for all QB queries of the
-//     block, so a warp scores 32 rows. The K1-K3 scoring (a warp per row,
-//     its lanes over the row's 16-byte vectors, then a warp reduction) would
-//     leave 30 of 32 lanes idle on a 32-byte row, and its reduction would
-//     cost more than the lookups;
+//     block, so a warp scores 32 rows. The f32 store's scoring (a warp per
+//     row, its lanes over the row's 16-byte vectors, then a warp
+//     reduction) would leave 30 of 32 lanes idle on a 32-byte row, and its
+//     reduction would cost more than the lookups;
 //   * each thread loads its row's M/2 bytes as 4-byte words and unpacks the
 //     nibbles in registers: the low nibble as it is, the high one as
 //     (nibble ^ 8), the same codes as the reference's arithmetic;

@@ -1,6 +1,8 @@
 // Split-N fused top-k, shared by the port's top-k kernels (K1 topk_matmul,
 // K2 topk_matmul_int8, K3 topk_matmul_int4, K4 pq_topk): the selection
-// code, pass 1 templated on how a row is scored, and pass 2.
+// code and pass 2 for all four, and the FMA pass 1, templated on how a row
+// is scored, for K1's f32 store and K4 (the bf16, int8 and int4 stores take
+// the tensor-core pass 1 of topk_mma.cuh).
 //
 // Pass 1: block (qblock, slice) scores rows [slice * rows_per_slice, ...)
 // against queries [qblock * QB, ...) and keeps each query's top-k of its
@@ -203,7 +205,7 @@ size_t pass1_smem(int qb, int d, int k) {
          (sizeof(float) + sizeof(int)) * (size_t)qb * k;
 }
 
-// Scoring of one chunk with a warp per row (K1-K3): each warp scores
+// Scoring of one chunk with a warp per row (K1's f32 store): each warp scores
 // kRowsInFlight rows at a time, its lanes over the rows' 16-byte vectors,
 // then reduces across lanes; sc[qi * kChunk + r] <- row chunk + r's score.
 template <class Rows, int QB>

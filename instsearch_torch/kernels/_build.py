@@ -118,11 +118,13 @@ def load() -> ctypes.CDLL:
         lib.isf_topk_matmul_mma.restype = i
         lib.isf_topk_mma_smem.argtypes = [i, i, i]
         lib.isf_topk_mma_smem.restype = ctypes.c_longlong
-        lib.isf_topk_matmul_int.argtypes = [p, p, p, p, p, p, p, p, p,
+        lib.isf_topk_matmul_int.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                             i, i, i, i, i, i, i, i, i, p]
         lib.isf_topk_matmul_int.restype = i
-        lib.isf_topk_int_pass1_smem.argtypes = [i, i, i, i]
-        lib.isf_topk_int_pass1_smem.restype = ctypes.c_longlong
+        lib.isf_topk_int_mma_smem.argtypes = [i, i, i, i]
+        lib.isf_topk_int_mma_smem.restype = ctypes.c_longlong
+        lib.isf_quantize_rows.argtypes = [p, p, p, p, i, i, p]
+        lib.isf_quantize_rows.restype = i
         lib.isf_pq_topk.argtypes = [p, p, p, p, p, p, p,
                                     i, i, i, i, i, i, i, i, p]
         lib.isf_pq_topk.restype = i

@@ -149,7 +149,7 @@ def pq_topk(packed: torch.Tensor, q: torch.Tensor, codebook, k: int = 10,
     qb, rows, slices = _plan(lambda w: lib.isf_pq_pass1_smem(w, m, k),
                              n, m, b, k, packed.device)
 
-    def launch(out_s, out_i, cand_s, cand_i, stream):
+    def launch(out_s, out_i, cand_s, cand_i, _, stream):
         return lib.isf_pq_topk(
             packed.data_ptr(), lut.data_ptr(),
             mask.data_ptr() if mask is not None else None, out_s, out_i,

@@ -11,8 +11,9 @@ each -> ``(scores [B, k] f32 sorted descending, row positions [B, k]
 int32)``.
 
 Each wrapper launches its hand-written CUDA kernel
-(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``) for
-tensors on a CUDA device and takes its plain PyTorch version
+(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``; bf16,
+int8 and int4 stores score on the tensor-core pass 1 of ``topk_mma.cuh``)
+for tensors on a CUDA device and takes its plain PyTorch version
 (``*_reference``) for tensors on the CPU. A CUDA tensor the kernel cannot
 take raises; nothing falls back. Each counts its kernel launches in
 ``.launches``.
@@ -21,9 +22,10 @@ Semantics shared by the kernels, their plain versions and the TPU kernels:
   * K1: the query is cast to the store's dtype first, products accumulate
     in f32;
   * K2/K3: the query is quantized per row to int8
-    (``ops/quantize.py::quantize_rows``), the product is an exact int32 sum,
-    and a score is ``float(acc) * q_scale * x_scale``, in that order, so
-    kernel and plain version agree bit for bit;
+    (``ops/quantize.py::quantize_rows``; on the card by the first kernel of
+    the launch sequence, ``quantize_query``), the product is an exact int32
+    sum, and a score is ``float(acc) * q_scale * x_scale``, in that order,
+    so kernel and plain version agree bit for bit;
   * rows at or past ``num_valid``, and rows whose ``mask`` entry is not > 0,
     are never returned;
   * ties go to the lowest row position first;
@@ -43,7 +45,7 @@ _CHUNK = 256            # rows per selection round; kChunk in topk_common.cuh
 _SMEM_BUDGET = 200 * 1024   # the FMA pass 1's, under the 227 KB of a block
 _SMEM_LIMIT = 232_448   # the 227 KB a Hopper block may use
 _QB_FMA = (1, 8)        # query blocks the f32 FMA pass 1 is built for
-_QB_MMA = (8, 128)      # and the bf16 tensor-core pass 1
+_QB_MMA = (8, 128)      # and the tensor-core pass 1 (bf16, int8, int4)
 _CTAS_PER_SM = 2        # pass-1 blocks to aim for, per multiprocessor
 _DTYPES = (torch.float32, torch.bfloat16)
 _PLAIN_ROWS = 1 << 16   # rows per f64 product in the integer plain versions
@@ -273,28 +275,34 @@ def _cuda_operands(x: torch.Tensor, mask, **tensors) -> "torch.Tensor | None":
     return mask.reshape(-1).to(torch.int8)
 
 
-def _launch(fn, launch, x, b: int, k: int, slices: int):
-    """Allocate outputs and scratch, ``launch(out_s, out_i, cand_s, cand_i,
-    stream)`` (data pointers) on the current stream, raise on its CUDA error
-    code, count the launch on ``fn``."""
+def _launch(fn, launch, x, b: int, k: int, slices: int, scratch: int = 0):
+    """Allocate the outputs, and the candidates (f32 scores, int32
+    positions, ``b * slices * k`` each) and ``scratch`` more bytes in one
+    buffer; ``launch(out_s, out_i, cand_s, cand_i, scratch, stream)`` (data
+    pointers, each scratch part 16-byte aligned) on the current stream,
+    raise on its CUDA error code, count the launch on ``fn``."""
     # the scratch may be freed while the kernel still runs: the caching
     # allocator hands it out again only to work queued behind it on this
     # stream
     out_s = torch.empty((b, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=x.device)
-    cand_s = torch.empty((b * slices * k,), dtype=torch.float32,
-                         device=x.device)
-    cand_i = torch.empty((b * slices * k,), dtype=torch.int32,
-                         device=x.device)
+    part = _align16(4 * b * slices * k)
+    buf = torch.empty((2 * part + scratch,), dtype=torch.uint8,
+                      device=x.device)
+    base = buf.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(out_s.data_ptr(), out_i.data_ptr(), cand_s.data_ptr(),
-                     cand_i.data_ptr(), stream)
+        err = launch(out_s.data_ptr(), out_i.data_ptr(), base, base + part,
+                     base + 2 * part, stream)
     if err:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
                            f"{err} (N={x.shape[0]}, B={b}, k={k})")
     fn.launches += 1
     return out_s, out_i
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
 
 
 def _num_valid(n: int, num_valid) -> int:
@@ -327,7 +335,7 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
         qb, rows, slices = _plan(lambda w: lib.isf_topk_mma_smem(w, d, k),
                                  n, d, b, k, x.device, _QB_MMA, _SMEM_LIMIT)
 
-        def launch(out_s, out_i, cand_s, cand_i, stream):
+        def launch(out_s, out_i, cand_s, cand_i, _, stream):
             return lib.isf_topk_matmul_mma(
                 x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
                 cand_i, n, d, b, k, nv, qb, rows, slices, stream)
@@ -335,12 +343,53 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
         qb, rows, slices = _plan(lambda w: lib.isf_topk_pass1_smem(w, d, k),
                                  n, d, b, k, x.device)
 
-        def launch(out_s, out_i, cand_s, cand_i, stream):
+        def launch(out_s, out_i, cand_s, cand_i, _, stream):
             return lib.isf_topk_matmul(
                 x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
                 cand_i, n, d, b, k, nv, qb, rows, slices, stream)
 
     return _launch(topk_matmul, launch, x, b, k, slices)
+
+
+@functools.lru_cache(maxsize=256)
+def _int_plan(int4: bool, n: int, d: int, b: int, k: int, device):
+    """K2/K3's ``_plan`` on the tensor-core pass 1, kept per shape: at B=1
+    the wrapper's host time is a large part of a call."""
+    from . import _build
+    lib = _build.load()
+    return _plan(lambda w: lib.isf_topk_int_mma_smem(int(int4), w, d, k),
+                 n, d, b, k, device, _QB_MMA, _SMEM_LIMIT)
+
+
+def quantize_query(q: torch.Tensor):
+    """The first kernel of K2/K3's launch sequence on its own: ``q [B, D]``
+    -> ``(values [B, D] int8, scales [1, B] f32, offsets [B] int32)``,
+    values and scales bit for bit ``ops/quantize.py::quantize_rows``'s,
+    offsets ``8 * values.sum(1)`` (K3's nibble offset). A CPU tensor takes
+    ``quantize_rows``. Counts its launches in ``.launches``."""
+    if q.dim() != 2:
+        raise ValueError(f"q must be [B, D]; got {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        qr = quantize_rows(q)
+        return (qr.values, qr.scales,
+                8 * qr.values.sum(dim=1, dtype=torch.int32))
+    qf = q.to(torch.float32).contiguous()
+    b, d = qf.shape
+    values = torch.empty((b, d), dtype=torch.int8, device=qf.device)
+    scales = torch.empty((b,), dtype=torch.float32, device=qf.device)
+    offsets = torch.empty((b,), dtype=torch.int32, device=qf.device)
+    from . import _build
+    lib = _build.load()
+    with torch.cuda.device(qf.device):
+        err = lib.isf_quantize_rows(
+            qf.data_ptr(), values.data_ptr(), scales.data_ptr(),
+            offsets.data_ptr(), b, d,
+            torch.cuda.current_stream(qf.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"quantize_query kernel launch failed: CUDA error "
+                           f"{err} (B={b}, D={d})")
+    quantize_query.launches += 1
+    return values, scales.reshape(1, -1), offsets
 
 
 def _topk_int(fn, ref, x, scales, q, k, num_valid, mask, int4: bool):
@@ -356,26 +405,26 @@ def _topk_int(fn, ref, x, scales, q, k, num_valid, mask, int4: bool):
             f"16-byte vectors and needs D % {step} == 0")
     if scales.dtype != torch.float32:
         raise ValueError(f"row scales are {scales.dtype}, not float32")
-    qr = quantize_rows(q)
-    q_i8 = qr.values.contiguous()
-    q_scale = qr.scales.reshape(-1).contiguous()
+    # the kernel's launch sequence quantizes the f32 query itself, into
+    # scratch behind the candidates: values [b, d], scales [b], offsets [b]
+    qf = q.to(torch.float32).contiguous()
     x_scale = scales.reshape(-1)
-    mask = _cuda_operands(x, mask, x_scale=x_scale, q=q_i8, q_scale=q_scale)
+    mask = _cuda_operands(x, mask, x_scale=x_scale, query=qf)
     nv = _num_valid(n, num_valid)
-
+    qb, rows, slices = _int_plan(int4, n, d, b, k, x.device)
     from . import _build
     lib = _build.load()
-    qb, rows, slices = _plan(
-        lambda w: lib.isf_topk_int_pass1_smem(int(int4), w, d, k),
-        n, d, b, k, x.device)
-    def launch(out_s, out_i, cand_s, cand_i, stream):
+    values = _align16(b * d)
+
+    def launch(out_s, out_i, cand_s, cand_i, scratch, stream):
         return lib.isf_topk_matmul_int(
-            x.data_ptr(), x_scale.data_ptr(), q_i8.data_ptr(),
-            q_scale.data_ptr(), mask.data_ptr() if mask is not None else None,
+            x.data_ptr(), x_scale.data_ptr(), qf.data_ptr(), scratch,
+            scratch + values, scratch + values + 4 * b,
+            mask.data_ptr() if mask is not None else None,
             out_s, out_i, cand_s, cand_i, n, d, b, k, nv, int(int4), qb, rows,
             slices, stream)
 
-    return _launch(fn, launch, x, b, k, slices)
+    return _launch(fn, launch, x, b, k, slices, scratch=values + 8 * b)
 
 
 def topk_matmul_int8(x_int8: torch.Tensor, scales: torch.Tensor,
@@ -404,3 +453,4 @@ def topk_matmul_int4(x_packed: torch.Tensor, scales: torch.Tensor,
 topk_matmul.launches = 0
 topk_matmul_int8.launches = 0
 topk_matmul_int4.launches = 0
+quantize_query.launches = 0

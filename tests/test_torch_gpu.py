@@ -16,7 +16,9 @@ them differ by less than 1e-5 (a near-tie that the summation order may
 flip). Copies of one row must come out lowest position first. K2 and K3
 (``check_exact``): none; their sums are exact integers, so scores and ids
 equal the plain version's bit for bit. K4 (``check_exact``): none; kernel
-and plain version add the same bf16 table entries in one fixed order.
+and plain version add the same bf16 table entries in one fixed order. The
+query's quantization (``quantize_query``): none; the same f32 operations
+in one order, IEEE division.
 K5 and K6 against their plain versions (``check_attention``): f32 within
 1e-5 (sums in other orders over at most 1,025 keys); bf16 each element
 within one bf16 step of itself plus one at the output's rms (2^-7 of each),
@@ -33,6 +35,9 @@ planted faults (``planted_block_fault``) must fail that rule.
 Products on both sides run in true f32: the ``gen`` fixture turns TF32 off
 for matmuls and cuDNN and restores the flags after the test.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -50,7 +55,7 @@ from instsearch_torch.kernels import (flash_mha, flash_mha_reference, mha,
                                       topk_matmul_int8_reference,
                                       topk_matmul_reference)
 from instsearch_torch.kernels.topk_matmul import (K_MAX, check_against_plain,
-                                                  check_exact)
+                                                  check_exact, quantize_query)
 from instsearch_torch.kernels.fused_resnet import (
     _stack_identity_weights, check_fused_call, fused_identity_blocks,
     fused_resnet_apply, kernel_attrs, randomize_bn, tile_rows)
@@ -61,6 +66,10 @@ from instsearch_torch.ops.pq import PQCodebook
 from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
 from instsearch_torch.serve import ServeCore
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import quantizer_rows  # noqa: E402
 
 TOL = 1e-5
 
@@ -248,6 +257,41 @@ def test_int_kernels_equal_plain_version(gen, kind):
             copies = torch.arange(20, device="cuda")
             assert (i[:, :20] // 1000 == copies).all()
             assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
+    # a ragged (65) and a full (128) query block of the tensor-core pass 1,
+    # the register lists (k = 10) and the shared ones (k = 100), and an int4
+    # row that half fills a 128-byte chunk (D = 128)
+    for d in (128, 512):
+        x = quant(_unit(gen, 30_000, d))
+        for b in (65, 128):
+            q = _unit(gen, b, d)
+            for k in (10, 100):
+                before = fn.launches
+                s, i = fn(x.values, x.scales, q, k=k)
+                rs, ri = ref(x.values, x.scales, q, k=k)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                check_exact(s, i, rs, ri)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 512, 2048])
+def test_query_quantizer_equals_quantize_rows(gen, d):
+    """The first kernel of K2/K3's launch sequence, on its own: values and
+    scales bit for bit ``quantize_rows``', offsets 8 * the row's sum, on
+    rows with ties at half a step, a zero row, signs at the maximum, bf16
+    values and extreme scales (``chip_smoke.quantizer_rows``)."""
+    for q in (quantizer_rows(gen, d), _unit(gen, 70, d)):
+        before = quantize_query.launches
+        v, s, off = quantize_query(q)
+        qr = quantize_rows(q)
+        torch.cuda.synchronize()
+        assert quantize_query.launches == before + 1
+        assert torch.equal(v, qr.values)
+        assert torch.equal(s.view(torch.int32), qr.scales.view(torch.int32))
+        assert torch.equal(off, 8 * qr.values.sum(1, dtype=torch.int32))
+    # a half step rounds to even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2, 126.5 -> 126
+    row = quantize_query(quantizer_rows(gen, d))[0][1, :8].tolist()
+    assert row == [127, 0, 2, 2, 0, -2, 126, -126]
 
 
 @pytest.mark.gpu

@@ -3,10 +3,13 @@
 row width, on one GPU.
 
     python3 tools/topk_sweep.py [--rows 1048576]
-                                [--dtype bfloat16|float32|int8|int4|pq]
+        [--dtype bfloat16|float32|int8|int4|pq[,...]]
+        [--batches 1,8,128] [--ks 10,100] [--dims 512,2048]
+        [--root DIR | --pair PARENT_DIR]
 
-Run from the root of a checkout. On a seeded store of unit rows (bf16/f32
-for K1 ``topk_matmul``; quantized per row for K2 ``topk_matmul_int8`` and K3
+Run from anywhere; the package comes from the checkout this file lies in,
+or from ``--root``. On a seeded store of unit rows (bf16/f32 for K1
+``topk_matmul``; quantized per row for K2 ``topk_matmul_int8`` and K3
 ``topk_matmul_int4``) or of random 4-bit PQ codes with M = D/8 subspaces
 and a random codebook (K4 ``pq_topk``) it prints, for each shape, one JSON
 line with the CUDA-event medians (after warm-up) of the wrapper (the CUDA
@@ -15,43 +18,49 @@ K4) and of its plain version, and the largest score difference; every
 answer is first held to the plain version's (``check_against_plain``, or
 ``check_exact`` for K2-K4), and the device time per call under
 ``torch.profiler``, split into pass 1, pass 2 and the other device
-operations. Every line carries the card's nvidia-smi name and power
-limit.
+operations. K2 at B > 16 also times its yardstick, one ``torch._int_mm``
+of the quantized query and rows, scaled, and ``torch.topk``
+(``library_ms``; ``_int_mm`` needs more than 16 rows). Every line carries
+the card's nvidia-smi name and power limit. ``--batches``, ``--ks`` and
+``--dims`` keep only those shapes.
+
+``--pair PARENT_DIR`` compares two trees on one card: it runs the sweep
+from PARENT_DIR (for example ``git archive`` of the parent commit,
+unpacked into a git-ignored directory), from this checkout, from this
+checkout again and from PARENT_DIR again, each in a process of its own
+that builds its tree's kernels, and tags each line with ``tree`` and
+``run``. The timing code is this file's for both trees.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
+import subprocess
 import sys
 
-import torch
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-from chip_smoke import (SCORE_TOL, card_line, cuda_median_ms,  # noqa: E402
-                        quantized_unit_rows, report, unit_rows)
-from instsearch_torch.kernels.pq_scan import (pq_topk,  # noqa: E402
-                                               pq_topk_reference)
-from instsearch_torch.kernels.topk_matmul import (  # noqa: E402
-    check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
-    topk_matmul_int4_reference, topk_matmul_int8, topk_matmul_int8_reference,
-    topk_matmul_reference)
-from instsearch_torch.ops.pq import PQCodebook, default_m  # noqa: E402
-from instsearch_torch.ops.quantize import (quantize_rows,  # noqa: E402
-                                           quantize_rows_int4)
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SHAPES = ([(512, b, k) for b in (1, 2, 4, 8, 16, 32, 64, 128)
            for k in (10, 100)]
           + [(2048, b, k) for b in (1, 8, 128) for k in (10, 100)])
-_INT = {"int8": (quantize_rows, topk_matmul_int8, topk_matmul_int8_reference),
-        "int4": (quantize_rows_int4, topk_matmul_int4,
-                 topk_matmul_int4_reference)}
+DTYPES = ("bfloat16", "float32", "int8", "int4", "pq")
+
+
+def _chip_smoke():
+    """This checkout's ``chip_smoke`` (its timing helpers), whatever
+    ``--root`` is."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def device_split(fn, reps: int = 10) -> dict:
     """Device time per call of ``fn`` by torch.profiler: top-k pass 1, pass 2
     and everything else (the query's quantization, copies)."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -72,52 +81,117 @@ def device_split(fn, reps: int = 10) -> dict:
     return split
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, default=1 << 20)
-    ap.add_argument("--dtype", default="bfloat16",
-                    choices=("bfloat16", "float32", "int8", "int4", "pq"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("topk_sweep: needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
-    print(card, flush=True)
+def sweep(rows: int, dtype: str, shapes, tags: dict) -> None:
+    import torch
+    cs = _chip_smoke()
+    from instsearch_torch.kernels.pq_scan import pq_topk, pq_topk_reference
+    from instsearch_torch.kernels.topk_matmul import (
+        check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
+        topk_matmul_int4_reference, topk_matmul_int8,
+        topk_matmul_int8_reference, topk_matmul_reference)
+    from instsearch_torch.ops.pq import PQCodebook, default_m
+    from instsearch_torch.ops.quantize import (quantize_rows,
+                                               quantize_rows_int4)
+    ints = {"int8": (quantize_rows, topk_matmul_int8,
+                     topk_matmul_int8_reference),
+            "int4": (quantize_rows_int4, topk_matmul_int4,
+                     topk_matmul_int4_reference)}
+    card = cs.card_line()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    exact = dtype in ints or dtype == "pq"
 
-    for d in sorted({d for d, _, _ in SHAPES}):
-        if args.dtype == "pq":
+    for d in sorted({d for d, _, _ in shapes}):
+        library = None
+        if dtype == "pq":
             m = default_m(d)
-            codes = torch.randint(-128, 128, (args.rows, m // 2),
-                                  generator=gen, device="cuda",
-                                  dtype=torch.int8)
+            codes = torch.randint(-128, 128, (rows, m // 2), generator=gen,
+                                  device="cuda", dtype=torch.int8)
             cb = PQCodebook(0.25 * torch.randn(m, 16, d // m, generator=gen,
                                                device="cuda"))
             run = lambda q, k: pq_topk(codes, q, cb, k=k)  # noqa: E731
             plain = lambda q, k: pq_topk_reference(  # noqa: E731
                 codes, q, cb, k=k)
-        elif args.dtype in _INT:
-            quantize, fn, ref = _INT[args.dtype]
-            st = quantized_unit_rows(gen, args.rows, d, quantize)
+        elif dtype in ints:
+            quantize, fn, ref = ints[dtype]
+            st = cs.quantized_unit_rows(gen, rows, d, quantize)
             run = lambda q, k: fn(st.values, st.scales, q, k=k)  # noqa: E731
-            plain = lambda q, k: ref(st.values, st.scales, q, k=k)  # noqa: E731
+            plain = lambda q, k: ref(  # noqa: E731
+                st.values, st.scales, q, k=k)
+            if dtype == "int8":
+                library = lambda q, k: cs.int_mm_topk(  # noqa: E731
+                    st, q, k)
         else:
-            x = unit_rows(gen, args.rows, d, getattr(torch, args.dtype))
+            x = cs.unit_rows(gen, rows, d, getattr(torch, dtype))
             run = lambda q, k: topk_matmul(x, q, k=k)  # noqa: E731
-            plain = lambda q, k: topk_matmul_reference(x, q, k=k)  # noqa: E731
-        for _, b, k in (s for s in SHAPES if s[0] == d):
-            q = unit_rows(gen, b, d, torch.float32)
+            plain = lambda q, k: topk_matmul_reference(  # noqa: E731
+                x, q, k=k)
+        for _, b, k in (s for s in shapes if s[0] == d):
+            q = cs.unit_rows(gen, b, d, torch.float32)
             s, i = run(q, k)
             rs, ri = plain(q, k)
-            err = (check_exact(s, i, rs, ri)
-                   if args.dtype in _INT or args.dtype == "pq" else
-                   check_against_plain(x, q, s, i, rs, ri, SCORE_TOL))
-            report(card, rows=args.rows, d=d, b=b, k=k, dtype=args.dtype,
-                   max_abs_err=err, ms=cuda_median_ms(lambda: run(q, k)),
-                   plain_ms=cuda_median_ms(lambda: plain(q, k), reps=5),
-                   **device_split(lambda: run(q, k)))
-        st = x = codes = None
+            err = (check_exact(s, i, rs, ri) if exact else
+                   check_against_plain(x, q, s, i, rs, ri, cs.SCORE_TOL))
+            lib_ms = (cs.cuda_median_ms(library(q, k))
+                      if library is not None and b > 16 else None)
+            cs.report(card, **tags, rows=rows, d=d, b=b, k=k, dtype=dtype,
+                      max_abs_err=err, ms=cs.cuda_median_ms(lambda: run(q, k)),
+                      plain_ms=cs.cuda_median_ms(lambda: plain(q, k), reps=5),
+                      library_ms=lib_ms, **device_split(lambda: run(q, k)))
+        st = x = codes = library = None
         torch.cuda.empty_cache()
+
+
+def _ints(text: "str | None"):
+    return None if text is None else {int(v) for v in text.split(",")}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=1 << 20)
+    ap.add_argument("--dtype", default="bfloat16",
+                    help=f"comma-separated, of {', '.join(DTYPES)}")
+    ap.add_argument("--batches", help="query batches to keep, e.g. 1,128")
+    ap.add_argument("--ks", help="k values to keep, e.g. 10")
+    ap.add_argument("--dims", help="row widths to keep, e.g. 512")
+    ap.add_argument("--root", default=HERE,
+                    help="checkout whose instsearch_torch is timed")
+    ap.add_argument("--pair", metavar="PARENT_DIR",
+                    help="run parent, this, this, parent, one process each")
+    ap.add_argument("--tree", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--run", type=int, default=0, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    dtypes = args.dtype.split(",")
+    if not set(dtypes) <= set(DTYPES):
+        ap.error(f"--dtype: each of {', '.join(DTYPES)}")
+    if args.pair:
+        rc = 0
+        passed = [f"--{name}={value}" for name, value in (
+            ("rows", args.rows), ("dtype", args.dtype),
+            ("batches", args.batches), ("ks", args.ks),
+            ("dims", args.dims)) if value is not None]
+        for run, (tree, root) in enumerate((("parent", args.pair),
+                                            ("change", HERE),
+                                            ("change", HERE),
+                                            ("parent", args.pair))):
+            rc |= subprocess.run(
+                [sys.executable, os.path.abspath(__file__), *passed,
+                 f"--root={os.path.abspath(root)}", f"--tree={tree}",
+                 f"--run={run}"]).returncode
+        return rc
+    import torch
+    if not torch.cuda.is_available():
+        print("topk_sweep: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches, ks, dims = _ints(args.batches), _ints(args.ks), _ints(args.dims)
+    shapes = [(d, b, k) for d, b, k in SHAPES
+              if (batches is None or b in batches)
+              and (ks is None or k in ks) and (dims is None or d in dims)]
+    print(_chip_smoke().card_line(), flush=True)
+    tags = {"tree": args.tree, "run": args.run} if args.tree else {}
+    for dtype in dtypes:
+        sweep(args.rows, dtype, shapes, tags)
     return 0
 
 
