@@ -19,9 +19,14 @@ runs eight phases; each raises on failure and the process exits non-zero.
      kernel of their launch sequence, the query's quantization, bit for
      bit against ``ops/quantize.py::quantize_rows`` on rows with ties at
      half a step, zero rows, a sign at the row's maximum and bf16 values;
-     K4 over 4-bit PQ codes, 1M x 32 bytes (M = 64) with the same cases and
-     1M x 8 bytes (M = 16), and 67,108,864 x 32 bytes (2 GiB of codes) at
-     B = 1 and 128, depth 100 (bit for bit); with kernel and plain medians;
+     K4 over 4-bit PQ codes, 1M x 32 bytes (M = 64) with the same cases
+     (also B = 65, the mask and duplicates at B = 128) and 1M x 8 bytes
+     (M = 16), and 67,108,864 x 32 bytes (2 GiB of codes) at B = 1 and
+     128, depth 100 (bit for bit), timed at B = 1 and 128 (k = 10), B = 8
+     (k = 100, phase 4's bucket) and over 64M rows; and the first kernel of
+     its launch sequence, the lookup table (``pq_table``), bit for bit
+     against its plain version at D = 96, 128, 512 and 2048; with kernel
+     and plain medians;
   2. the float path through its entry points: a seeded random ResNet-50 at
      224 px (bf16, GeM, whitening to 512) extracts a corpus of 4096 seeded
      images, the index holds them among seeded unit distractor rows (1M x
@@ -100,9 +105,12 @@ memory (a spill) fails the phase.
 Every measured number is printed with the card's nvidia-smi name and power
 limit. The line before the last is the kernel summary as JSON: per kernel its
 launches on the main path, its largest difference from its plain version,
-its median time and its plain version's at 1M rows, B = 1, k = 10 (K1-K3
+its median time and its plain version's at 1M rows, B = 1, k = 10 (K1-K4
 also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
-``bound_ms_b128``; K6 at
+``bound_ms_b128``; K4 also at B = 8, k = 100 (``ms_b8_k100``,
+``plain_ms_b8_k100``, ``bound_ms_b8_k100``) and over 64M rows at k = 100
+(``ms_64m_b1_k100``, ``bound_ms_64m_b1_k100``, ``ms_64m_b128_k100``,
+``bound_ms_64m_b128_k100``); K6 at
 [64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16 (also at [4, 12,
 4097, 64]: ``ms_b4``, ``plain_ms_b4``, ``library_ms_b4``, ``bound_ms_b4``),
 K7 at layer 2 of
@@ -592,6 +600,31 @@ def check_quantizer(card: str, gen, quantize_query) -> None:
                    b=q.shape[0], bit_exact=True)
 
 
+def check_pq_table(card: str, gen, pq_table, lut) -> None:
+    """The first kernel of K4's launch sequence against its plain version
+    (``kernels.pq_scan._lut``) on the card: bit for bit, at the default M =
+    D / 8 (D = 96: M = 12, padded to G = 8 bytes with zero rows)."""
+    import torch
+    from instsearch_torch.ops.pq import PQCodebook, default_m
+    for d in (96, 128, 512, 2048):
+        m = default_m(d)
+        groups = -(-(m // 2) // 4) * 4
+        cb = PQCodebook(0.25 * torch.randn(m, 16, d // m, generator=gen,
+                                           device="cuda"))
+        for b in (1, 128):
+            q = unit_rows(gen, b, d, torch.float32)
+            before = pq_table.launches
+            got = pq_table(q, cb, groups)
+            want = lut(q, cb, groups)
+            torch.cuda.synchronize()
+            if pq_table.launches != before + 1:
+                fail(f"pq_table D={d}: no launch counted")
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                fail(f"pq_table D={d} B={b}: differs from the plain table")
+            report(card, phase=1, kernel="pq_table", d=d, m=m, groups=groups,
+                   b=b, bit_exact=True)
+
+
 def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
                check_exact) -> tuple[float, dict]:
     """K2 (int8) or K3 (int4) against its plain version; both sum exact
@@ -718,26 +751,31 @@ def phase1_pq(card: str, gen, fn, ref, check_exact) -> tuple[float, dict]:
     timings = {}
     nv = N_ROWS - 1000
     x, cb = codes(N_ROWS, 64), codebook(64, DIM)
-    for b in (1, 8, 128):
+    # B = 65: a ragged query block of the widest (32)
+    for b in (1, 8, 65, 128):
         for k in (1, 10, 100):
             case(x, cb, b, k, "M=64 num_valid=N-1000", num_valid=nv)
     mask = (torch.rand(N_ROWS, generator=gen, device=dev) < 0.5
             ).to(torch.int8)
-    case(x, cb, 8, 10, "M=64 50% mask", mask=mask)
+    for b in (8, 128):
+        case(x, cb, b, 10, "M=64 50% mask", mask=mask)
     case(x, cb, 3, 100, "M=64 50 valid rows < k", num_valid=50)
-    for b in (1, 128):
+    # 1M rows at B = 1 and 128, k = 10, and phase 4's bucket, B = 8 at its
+    # depth of 100
+    for b, k in ((1, 10), (128, 10), (8, 100)):
         q = unit_rows(gen, b, DIM, torch.float32)
-        timings[f"pq N=1M M=64 B={b} k=10"] = {
-            "ms": cuda_median_ms(lambda: fn(x, q, cb, k=10)),
-            "plain_ms": cuda_median_ms(lambda: ref(x, q, cb, k=10)),
-            "library_ms": None, **bound_pq(N_ROWS, 64, DIM, b, 10)}
+        timings[f"pq N=1M M=64 B={b} k={k}"] = {
+            "ms": cuda_median_ms(lambda: fn(x, q, cb, k=k)),
+            "plain_ms": cuda_median_ms(lambda: ref(x, q, cb, k=k)),
+            "library_ms": None, **bound_pq(N_ROWS, 64, DIM, b, k)}
     # duplicated code rows: every row appears 1024 times, so the top 100
     # are the 100 lowest copies of one base row, in position order
     dup = x[:1024].repeat(N_ROWS // 1024, 1).contiguous()
-    i = case(dup, cb, 8, 100, "M=64 duplicated rows")
-    if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
-            and bool((i % 1024 == i[:, :1] % 1024).all())):
-        fail("pq duplicated rows: copies out of position order")
+    for b in (8, 128):
+        i = case(dup, cb, b, 100, "M=64 duplicated rows")
+        if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
+                and bool((i % 1024 == i[:, :1] % 1024).all())):
+            fail("pq duplicated rows: copies out of position order")
     del x, dup, mask
     # D = 128 (configs/compact128_int4.json's width): M = 16, 8-byte rows
     x, cb = codes(N_ROWS, 16), codebook(16, 128)
@@ -1509,7 +1547,8 @@ def main() -> int:
     from instsearch_torch.kernels import _build
     from instsearch_torch.kernels.fused_resnet import randomize_bn
     from instsearch_torch.models import get_backbone
-    from instsearch_torch.kernels.pq_scan import pq_topk, pq_topk_reference
+    from instsearch_torch.kernels.pq_scan import (_lut, pq_table, pq_topk,
+                                                  pq_topk_reference)
     from instsearch_torch.kernels.topk_matmul import (
         check_against_plain, check_exact, quantize_query, topk_matmul,
         topk_matmul_int4, topk_matmul_int4_reference, topk_matmul_int8,
@@ -1542,6 +1581,7 @@ def main() -> int:
                                    check_exact)
         timings.update(t)
     check_quantizer(card, gen, quantize_query)
+    check_pq_table(card, gen, pq_table, _lut)
     errs["pq"], t = phase1_pq(card, gen, pq_topk, pq_topk_reference,
                               check_exact)
     timings.update(t)
@@ -1577,11 +1617,18 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-        if name != "pq_topk":           # and at the batched query's B
-            t = timings[f"{shape} B=128 k=10"]
-            rows[-1].update(ms_b128=t["ms"], plain_ms_b128=t["plain_ms"],
-                            library_ms_b128=t["library_ms"],
-                            bound_ms_b128=t["bound_ms"])
+        t = timings[f"{shape} B=128 k=10"]      # the batched query's B
+        rows[-1].update(ms_b128=t["ms"], plain_ms_b128=t["plain_ms"],
+                        library_ms_b128=t["library_ms"],
+                        bound_ms_b128=t["bound_ms"])
+        if name == "pq_topk":   # phase 4's bucket, and 64M rows at depth 100
+            t = timings["pq N=1M M=64 B=8 k=100"]
+            rows[-1].update(ms_b8_k100=t["ms"], plain_ms_b8_k100=t["plain_ms"],
+                            bound_ms_b8_k100=t["bound_ms"])
+            for b in (1, 128):
+                t = timings[f"pq N=64M M=64 B={b} k=100"]
+                rows[-1].update({f"ms_64m_b{b}_k100": t["ms"],
+                                 f"bound_ms_64m_b{b}_k100": t["bound_ms"]})
     for name, replaces, shape, launches in (
             ("mha", "vit_attention.py:103", "mha bf16 [64, 12, 197, 64]",
              res5["mha_launches"]),

@@ -1,11 +1,13 @@
 // PTX wrappers for Hopper's asynchronous machinery (sm_90a only), shared by
 // the port's warp-specialised kernels (K5's bf16 kernel in vit_attention.cu,
-// K7 in fused_resnet.cu):
+// K7 in fused_resnet.cu, K4 in pq_scan.cu):
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase's parity;
 //   * TMA: a 4-D tile load (cp.async.bulk.tensor) that completes on an
-//     mbarrier, from a CUtensorMap passed as a __grid_constant__ parameter;
+//     mbarrier, from a CUtensorMap passed as a __grid_constant__ parameter,
+//     and a 1-D bulk copy of contiguous bytes (cp.async.bulk), which needs
+//     no tensor map;
 //   * wgmma: the shared-memory matrix descriptor of a tile that TMA wrote
 //     with CU_TENSOR_MAP_SWIZZLE_128B, the m64n128k16 product with both
 //     operands in shared memory, the m64n64k16 product with A in registers,
@@ -114,6 +116,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory at src into shared memory at
+// dst; completes `bar`'s transactions with `bytes`. dst, src and bytes must
+// be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

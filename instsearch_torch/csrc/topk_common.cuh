@@ -1,8 +1,8 @@
 // Split-N fused top-k, shared by the port's top-k kernels (K1 topk_matmul,
 // K2 topk_matmul_int8, K3 topk_matmul_int4, K4 pq_topk): the selection
 // code and pass 2 for all four, and the FMA pass 1, templated on how a row
-// is scored, for K1's f32 store and K4 (the bf16, int8 and int4 stores take
-// the tensor-core pass 1 of topk_mma.cuh).
+// is scored, for K1's f32 store (the bf16, int8 and int4 stores take the
+// tensor-core pass 1 of topk_mma.cuh, K4 its own pass 1 in pq_scan.cu).
 //
 // Pass 1: block (qblock, slice) scores rows [slice * rows_per_slice, ...)
 // against queries [qblock * QB, ...) and keeps each query's top-k of its
@@ -29,21 +29,6 @@
 //                                      the reduced sum -> the row's score
 //                                      for block query qi
 //
-// A policy whose rows are too short for a warp per row (K4: a row of 64
-// codes is 32 bytes) scores a whole chunk itself instead, one row per
-// thread, and declares
-//
-//   static constexpr bool kScoresChunk = true;
-//   template <int QB>
-//   void score_chunk(float* sc, int chunk, int valid_end,
-//                    const int8_t* mask, const char* qsm, int tid) const;
-//                                      sc[qi * kChunk + r] <- the score of
-//                                      row chunk + r for block query qi,
-//                                      -inf for rows at or past valid_end
-//                                      or masked out
-//
-// in place of vecs/load/accumulate/score.
-//
 // Ranking rules, the TPU kernels' own: (score desc, position asc); rows at
 // or past num_valid, or whose mask entry is not > 0, never enter; slots
 // past the count of valid rows come back as (-inf, -1).
@@ -55,8 +40,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -192,13 +175,6 @@ __device__ __forceinline__ A warp_reduce_scatter(A (&v)[QB], int lane) {
   return s;
 }
 
-// Whether a row-scoring policy scores whole chunks (kScoresChunk above).
-template <class Rows, class = void>
-struct ScoresChunk : std::false_type {};
-template <class Rows>
-struct ScoresChunk<Rows, std::void_t<decltype(Rows::kScoresChunk)>>
-    : std::integral_constant<bool, Rows::kScoresChunk> {};
-
 template <class Rows>
 size_t pass1_smem(int qb, int d, int k) {
   return Rows::query_bytes(qb, d) + sizeof(float) * (size_t)qb * kChunk +
@@ -279,13 +255,8 @@ topk_pass1(const Rows rows, const int8_t* __restrict__ mask, int n, int d,
 
   for (int chunk = row_begin; chunk < row_end; chunk += kChunk) {
     // ---- score kChunk rows into sc -----------------------------------
-    if constexpr (ScoresChunk<Rows>::value) {
-      static_assert(kChunk == kThreads, "one row per thread");
-      rows.template score_chunk<QB>(sc, chunk, valid_end, mask, qsm, tid);
-    } else {
-      score_chunk_by_warps<Rows, QB>(rows, mask, chunk, valid_end, qsm, sc,
-                                     lane, warp);
-    }
+    score_chunk_by_warps<Rows, QB>(rows, mask, chunk, valid_end, qsm, sc,
+                                   lane, warp);
     __syncthreads();
 
     // ---- fold the chunk into each query's running list -----------------

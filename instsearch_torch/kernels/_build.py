@@ -125,9 +125,11 @@ def load() -> ctypes.CDLL:
         lib.isf_topk_int_mma_smem.restype = ctypes.c_longlong
         lib.isf_quantize_rows.argtypes = [p, p, p, p, i, i, p]
         lib.isf_quantize_rows.restype = i
-        lib.isf_pq_topk.argtypes = [p, p, p, p, p, p, p,
-                                    i, i, i, i, i, i, i, i, p]
+        lib.isf_pq_topk.argtypes = [p, p, p, p, p, p, p, p, p,
+                                    i, i, i, i, i, i, i, i, i, i, p]
         lib.isf_pq_topk.restype = i
+        lib.isf_pq_table.argtypes = [p, p, p, i, i, i, i, p]
+        lib.isf_pq_table.restype = i
         lib.isf_pq_pass1_smem.argtypes = [i, i, i]
         lib.isf_pq_pass1_smem.restype = ctypes.c_longlong
         ll = ctypes.c_longlong

@@ -7,11 +7,21 @@ descending, row positions [B, k] int32)``.
 (``instsearch_torch/csrc/pq_scan.cu``) for codes on a CUDA device and takes
 its plain PyTorch version, ``pq_topk_reference``, for codes on the CPU. A
 CUDA tensor the kernel cannot take raises; nothing falls back. Launches are
-counted in ``pq_topk.launches``.
+counted in ``pq_topk.launches``. On the card the lookup table is built by
+the first kernel of the launch sequence; ``pq_table`` runs that kernel
+alone (counted in ``pq_table.launches``), so that it can be held to its
+plain version, ``_lut``.
 
 Semantics shared by the kernel, its plain version and the TPU kernel:
-  * the lookup table is ``pq_lut(q, codebook)`` ``[B, M, 16]`` f32, rounded
-    to bf16, as the TPU kernel feeds it to its one-hot matmul;
+  * the lookup table ``[B, M, 16]`` is ``q[b]_m . C[m, j]`` rounded to
+    bf16, as the TPU kernel feeds ``pq_lut(q, codebook)`` to its one-hot
+    matmul. Kernel and plain version fix the dot product's order
+    (``_lut``): ``q[b, m ds] C[m, j, 0]``, then ``+ q[b, m ds + t] C[m, j,
+    t]`` for t = 1 ... ds - 1, each product and each sum one f32 operation
+    rounded to nearest, then one rounding to bf16, to nearest-even. The
+    TPU's einsum sums in an order of its own, so an entry may differ from
+    the reference's by one bf16 step where an f32 sum lies within an f32
+    ulp of a rounding midpoint;
   * the code of subspace m < M/2 is the low nibble of byte m, ``byte - 16 *
     (byte >> 4)``; of subspace m >= M/2 the high nibble of byte m - M/2,
     ``(byte >> 4) + 8``;
@@ -26,22 +36,25 @@ Semantics shared by the kernel, its plain version and the TPU kernel:
 ``packed`` may carry G > M/2 bytes a row: bytes past M/2 are padding and
 never reach a score (their subspaces' table rows are zeros, and adding +0.0
 changes no sum), so a score equals the unpadded one bit for bit. The CUDA
-kernel reads a row's bytes as 4-byte words and needs G % 4 == 0 and k <=
-K_MAX: ``search/pq_view.py::PQView`` pads its codes so once, when the view
-is built (M = 12 from D = 96 becomes G = 8). The plain version takes any G
->= M/2 and any k. The TPU-only knobs of the reference (``tile_n``,
-``variant``, ``interpret``) have no counterpart.
+kernel reads a row's bytes as 4-byte words and needs G % 4 == 0, codes
+16-byte aligned and k <= K_MAX: ``search/pq_view.py::PQView`` pads its
+codes so once, when the view is built (M = 12 from D = 96 becomes G = 8).
+The plain version takes any G >= M/2 and any k. The TPU-only knobs of the
+reference (``tile_n``, ``variant``, ``interpret``) have no counterpart.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..ops.pq import pq_lut
 from ..search.bruteforce import select_topk
-from .topk_matmul import (_check_k, _cuda_operands, _launch, _num_valid,
-                          _plan, _valid_rows)
+from .topk_matmul import (_SMEM_LIMIT, _check_k, _cuda_operands, _launch,
+                          _num_valid, _plan, _valid_rows)
 
 _PLAIN_ROWS = 1 << 20   # rows scored per piece by the plain version
+_QB_PQ = (1, 16)        # query blocks K4's pass 1 is built for
+_CODES = 16             # codes a subspace
 
 
 def _check_pq_args(packed: torch.Tensor, q: torch.Tensor, codebook,
@@ -62,14 +75,23 @@ def _check_pq_args(packed: torch.Tensor, q: torch.Tensor, codebook,
 
 
 def _lut(q: torch.Tensor, codebook, groups: int) -> torch.Tensor:
-    """``pq_lut`` rounded to bf16, held as f32 ``[B, 2 * groups, 16]``: the
-    subspaces of the low nibbles at rows ``[0, M/2)``, of the high nibbles
-    at ``[groups, groups + M/2)``, zeros for the padding bytes' nibbles."""
-    lut = pq_lut(q, codebook).to(torch.bfloat16).float()
-    half = codebook.m // 2
+    """The table of the module docstring, held as f32 ``[B, 2 * groups,
+    16]``: the subspaces of the low nibbles at rows ``[0, M/2)``, of the
+    high nibbles at ``[groups, groups + M/2)``, zeros for the padding
+    bytes' nibbles. Each dot product in the fixed order: one f32 product,
+    then one f32 addition of each next product (separate operations, no
+    fused multiply-add), then one rounding to bf16."""
+    b, m, ds = q.shape[0], codebook.m, codebook.ds
+    qs = q.float().reshape(b, m, 1, ds)
+    cent = codebook.centroids.float()                       # [m, 16, ds]
+    acc = qs[..., 0] * cent[..., 0]
+    for t in range(1, ds):
+        acc = acc + qs[..., t] * cent[..., t]
+    lut = acc.to(torch.bfloat16).float()
+    half = m // 2
     if groups == half:
         return lut.contiguous()
-    out = lut.new_zeros((lut.shape[0], 2 * groups, 16))
+    out = lut.new_zeros((b, 2 * groups, _CODES))
     out[:, :half] = lut[:, :half]
     out[:, groups:groups + half] = lut[:, half:]
     return out
@@ -120,6 +142,60 @@ def pq_topk_reference(packed: torch.Tensor, q: torch.Tensor, codebook,
     return s, torch.where(slot >= 0, i, torch.full_like(i, -1))
 
 
+def _check_table_args(q: torch.Tensor, codebook, groups: int) -> None:
+    if q.dim() != 2 or q.shape[1] != codebook.dim:
+        raise ValueError(f"q must be [B, {codebook.dim}]; got "
+                         f"{tuple(q.shape)}")
+    if 2 * groups < codebook.m:
+        raise ValueError(f"{groups} groups cannot hold m={codebook.m}")
+
+
+def pq_table(q: torch.Tensor, codebook, groups: "int | None" = None):
+    """The first kernel of K4's launch sequence on its own: ``q [B, D]`` ->
+    the table ``[B, 2 * groups, 16]`` f32 of ``_lut`` (``groups`` defaults
+    to M/2), bit for bit. A CPU tensor takes ``_lut``. Counts its launches
+    in ``.launches``."""
+    groups = codebook.m // 2 if groups is None else int(groups)
+    _check_table_args(q, codebook, groups)
+    if q.device.type == "cpu":
+        return _lut(q, codebook, groups)
+    qf, cent = _table_operands(q, codebook)
+    b, d = qf.shape
+    out = torch.empty((b, 2 * groups, _CODES), dtype=torch.float32,
+                      device=qf.device)
+    from . import _build
+    lib = _build.load()
+    with torch.cuda.device(qf.device):
+        err = lib.isf_pq_table(
+            qf.data_ptr(), cent.data_ptr(), out.data_ptr(), b, d, codebook.m,
+            groups, torch.cuda.current_stream(qf.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"pq_table kernel launch failed: CUDA error {err} "
+                           f"(B={b}, D={d}, M={codebook.m})")
+    pq_table.launches += 1
+    return out
+
+
+def _table_operands(q: torch.Tensor, codebook):
+    """The query and centroids as the table kernel reads them: contiguous
+    f32 on one CUDA device."""
+    cent = codebook.centroids
+    if cent.device != q.device:
+        raise ValueError(f"codebook on {cent.device}, q on {q.device}")
+    return tuple(t if t.dtype == torch.float32 and t.is_contiguous()
+                 else t.to(torch.float32).contiguous() for t in (q, cent))
+
+
+@functools.lru_cache(maxsize=256)
+def _pq_plan(n: int, groups: int, b: int, k: int, device):
+    """``_plan`` for K4's pass 1, kept per shape: at B=1 the wrapper's host
+    time is a large part of a call."""
+    from . import _build
+    lib = _build.load()
+    return _plan(lambda w: lib.isf_pq_pass1_smem(w, groups, k), n,
+                 2 * groups, b, k, device, _QB_PQ, _SMEM_LIMIT)
+
+
 def pq_topk(packed: torch.Tensor, q: torch.Tensor, codebook, k: int = 10,
             num_valid: "int | None" = None,
             mask: "torch.Tensor | None" = None):
@@ -129,34 +205,35 @@ def pq_topk(packed: torch.Tensor, q: torch.Tensor, codebook, k: int = 10,
     if packed.device.type == "cpu":
         return pq_topk_reference(packed, q, codebook, k, num_valid, mask)
     n, groups = packed.shape
-    m = 2 * groups                  # the subspaces the kernel walks
     b = q.shape[0]
     if groups % 4:
-        raise ValueError(f"M={m}: the kernel reads a row's {groups} code "
-                         f"bytes as 4-byte words and needs a multiple of 4 "
-                         f"(PQView pads its codes so)")
+        raise ValueError(f"M={2 * groups}: the kernel reads a row's {groups} "
+                         f"code bytes as 4-byte words and needs a multiple "
+                         f"of 4 (PQView pads its codes so)")
     _check_k(k)
-    for name, t in (("q", q), ("codebook", codebook.centroids)):
-        if t.device != packed.device:
-            raise ValueError(f"{name} on {t.device}, codes on "
-                             f"{packed.device}")
-    lut = _lut(q, codebook, groups)
-    mask = _cuda_operands(packed, mask, q=lut)
+    if q.device != packed.device:
+        raise ValueError(f"q on {q.device}, codes on {packed.device}")
+    qf, cent = _table_operands(q, codebook)
+    mask = _cuda_operands(packed, mask, q=qf)
     nv = _num_valid(n, num_valid)
-
+    qb, rows, slices = _pq_plan(n, groups, b, k, packed.device)
     from . import _build
     lib = _build.load()
-    qb, rows, slices = _plan(lambda w: lib.isf_pq_pass1_smem(w, m, k),
-                             n, m, b, k, packed.device)
+    d, m = qf.shape[1], codebook.m
 
-    def launch(out_s, out_i, cand_s, cand_i, _, stream):
+    def launch(out_s, out_i, cand_s, cand_i, table, stream):
         return lib.isf_pq_topk(
-            packed.data_ptr(), lut.data_ptr(),
+            packed.data_ptr(), qf.data_ptr(), cent.data_ptr(), table,
             mask.data_ptr() if mask is not None else None, out_s, out_i,
-            cand_s, cand_i, n, m, b, k, nv, qb, rows, slices, stream)
+            cand_s, cand_i, n, groups, b, d, m, k, nv, qb, rows, slices,
+            stream)
 
-    return _launch(pq_topk, launch, packed, b, k, slices)
+    # the table [b, 2 groups, 16] f32 goes into scratch behind the
+    # candidates
+    return _launch(pq_topk, launch, packed, b, k, slices,
+                   scratch=4 * b * 2 * groups * _CODES)
 
 
 # kernel launches; reset by whoever counts them
 pq_topk.launches = 0
+pq_table.launches = 0

@@ -16,7 +16,8 @@ them differ by less than 1e-5 (a near-tie that the summation order may
 flip). Copies of one row must come out lowest position first. K2 and K3
 (``check_exact``): none; their sums are exact integers, so scores and ids
 equal the plain version's bit for bit. K4 (``check_exact``): none; kernel
-and plain version add the same bf16 table entries in one fixed order. The
+and plain version add the same bf16 table entries in one fixed order, and
+build the table (``pq_table``: none, bit for bit) in one fixed order. The
 query's quantization (``quantize_query``): none; the same f32 operations
 in one order, IEEE division.
 K5 and K6 against their plain versions (``check_attention``): f32 within
@@ -56,13 +57,14 @@ from instsearch_torch.kernels import (flash_mha, flash_mha_reference, mha,
                                       topk_matmul_reference)
 from instsearch_torch.kernels.topk_matmul import (K_MAX, check_against_plain,
                                                   check_exact, quantize_query)
+from instsearch_torch.kernels.pq_scan import _lut, pq_table
 from instsearch_torch.kernels.fused_resnet import (
     _stack_identity_weights, check_fused_call, fused_identity_blocks,
     fused_resnet_apply, kernel_attrs, randomize_bn, tile_rows)
 from instsearch_torch.kernels.vit_attention import check_attention
 from instsearch_torch.models.resnet import Bottleneck, ResNet
 from instsearch_torch.ops.pooling import gem_pool
-from instsearch_torch.ops.pq import PQCodebook
+from instsearch_torch.ops.pq import PQCodebook, default_m
 from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
 from instsearch_torch.serve import ServeCore
@@ -343,6 +345,73 @@ def test_pq_kernel_equals_plain_version(gen, m):
             copies = torch.arange(20, device="cuda")
             assert (i[:, :20] // 1000 == copies).all()
             assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [96, 128, 512, 2048])
+def test_pq_table_kernel_equals_plain_table(gen, d):
+    """The table kernel of K4's launch sequence (``pq_table``) against the
+    plain ``_lut`` on the same card, bit for bit, at the default M = D / 8
+    (D = 96: M = 12, G padded to 8 bytes with zero rows)."""
+    m = default_m(d)
+    groups = -(-(m // 2) // 4) * 4
+    cb = PQCodebook(0.25 * torch.randn(m, 16, d // m, generator=gen,
+                                       device="cuda"))
+    q = _unit(gen, 33, d)
+    before = pq_table.launches
+    got = pq_table(q, cb, groups)
+    want = _lut(q, cb, groups)
+    torch.cuda.synchronize()
+    assert pq_table.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [9, 16, 33, 65, 128])
+def test_pq_kernel_at_wide_query_blocks(gen, b):
+    """K4 at the query blocks above 8 (ragged ones included) with k = 1,
+    100 and K_MAX, a mask, fewer valid rows than k and exact ties."""
+    cb = PQCodebook(torch.randn(64, 16, 8, generator=gen, device="cuda"))
+    codes = _pq_codes(gen, 50_000, 64)
+    dup = codes[:1000].repeat(20, 1).contiguous()           # exact ties
+    q = _unit(gen, b, 512)
+    mask = (torch.rand(50_000, generator=gen, device="cuda") < 0.5
+            ).to(torch.int8)
+    for x, k, nv, msk in ((codes, 1, None, None), (codes, 100, None, mask),
+                          (codes, K_MAX, 49_000, None), (codes, 16, 7, None),
+                          (dup, 50, None, None)):
+        s, i = pq_topk(x, q, cb, k=k, num_valid=nv, mask=msk)
+        rs, ri = pq_topk_reference(x, q, cb, k=k, num_valid=nv, mask=msk)
+        torch.cuda.synchronize()
+        check_exact(s, i, rs, ri)
+        if msk is not None:
+            assert (msk[i[i >= 0].long()] > 0).all()
+        if nv is not None and nv < k:
+            assert (i[:, nv:] == -1).all() and torch.isneginf(s[:, nv:]).all()
+        if x is dup:
+            copies = torch.arange(20, device="cuda")
+            assert (i[:, :20] // 1000 == copies).all()
+            assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 12, 16])
+@pytest.mark.parametrize("n", [1, 255, 769, 70_001])
+def test_pq_kernel_takes_a_ragged_last_chunk(gen, m, n):
+    """Row counts that are not a multiple of the 256-row chunk: the last
+    chunk's bytes (n * G at G = 4, 8) are not a multiple of 16, which a
+    bulk copy needs, so its tail is loaded another way. M = 12 is padded to
+    G = 8 as PQView pads it; the answer equals the unpadded plain one."""
+    cb = PQCodebook(torch.randn(m, 16, 8, generator=gen, device="cuda"))
+    codes = _pq_codes(gen, n, m)
+    pad = -(-(m // 2) // 4) * 4 - m // 2
+    packed = torch.nn.functional.pad(codes, (0, pad)).contiguous()
+    q = _unit(gen, 5, 8 * m)
+    for k in (1, 10, 300):
+        s, i = pq_topk(packed, q, cb, k=k, num_valid=n - n // 3)
+        rs, ri = pq_topk_reference(codes, q, cb, k=k, num_valid=n - n // 3)
+        torch.cuda.synchronize()
+        check_exact(s, i, rs, ri)
 
 
 @pytest.mark.gpu

@@ -18,7 +18,11 @@ K4) and of its plain version, and the largest score difference; every
 answer is first held to the plain version's (``check_against_plain``, or
 ``check_exact`` for K2-K4), and the device time per call under
 ``torch.profiler``, split into pass 1, pass 2 and the other device
-operations. K2 at B > 16 also times its yardstick, one ``torch._int_mm``
+operations (``pass1_ms``, ``pass2_ms``, ``other_ms``), and the host's
+share, the call's ms less that device sum (``host_ms``). Above 16M rows
+(``--rows 67108864``: K4 over ``bench_pq_capacity``'s 64M rows) the plain
+version runs once, for the check, and is not timed (``plain_ms`` null).
+K2 at B > 16 also times its yardstick, one ``torch._int_mm``
 of the quantized query and rows, scaled, and ``torch.topk``
 (``library_ms``; ``_int_mm`` needs more than 16 rows). Every line carries
 the card's nvidia-smi name and power limit. ``--batches``, ``--ks`` and
@@ -45,6 +49,9 @@ SHAPES = ([(512, b, k) for b in (1, 2, 4, 8, 16, 32, 64, 128)
            for k in (10, 100)]
           + [(2048, b, k) for b in (1, 8, 128) for k in (10, 100)])
 DTYPES = ("bfloat16", "float32", "int8", "int4", "pq")
+# above this many rows the plain version runs once (the answer's check), and
+# is not timed
+_PLAIN_TIMED_ROWS = 1 << 24
 
 
 def _chip_smoke():
@@ -58,8 +65,10 @@ def _chip_smoke():
 
 
 def device_split(fn, reps: int = 10) -> dict:
-    """Device time per call of ``fn`` by torch.profiler: top-k pass 1, pass 2
-    and everything else (the query's quantization, copies)."""
+    """Device time per call of ``fn`` by torch.profiler: top-k pass 1 (any
+    kernel named ``*pass1*``: K1-K3's ``topk_pass1*``, K4's ``pq_pass1``),
+    pass 2 and everything else (the query's quantization, K4's table,
+    copies)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -73,7 +82,7 @@ def device_split(fn, reps: int = 10) -> dict:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        key = ("pass1_ms" if "topk_pass1" in e.name else
+        key = ("pass1_ms" if "pass1" in e.name else
                "pass2_ms" if "topk_pass2" in e.name else "other_ms")
         split[key] += e.time_range.elapsed_us() / 1e3 / reps
     if not split["pass1_ms"]:
@@ -126,6 +135,7 @@ def sweep(rows: int, dtype: str, shapes, tags: dict) -> None:
             plain = lambda q, k: topk_matmul_reference(  # noqa: E731
                 x, q, k=k)
         for _, b, k in (s for s in shapes if s[0] == d):
+            big = rows > _PLAIN_TIMED_ROWS
             q = cs.unit_rows(gen, b, d, torch.float32)
             s, i = run(q, k)
             rs, ri = plain(q, k)
@@ -133,10 +143,14 @@ def sweep(rows: int, dtype: str, shapes, tags: dict) -> None:
                    check_against_plain(x, q, s, i, rs, ri, cs.SCORE_TOL))
             lib_ms = (cs.cuda_median_ms(library(q, k))
                       if library is not None and b > 16 else None)
+            ms = cs.cuda_median_ms(lambda: run(q, k), reps=5 if big else 20)
+            split = device_split(lambda: run(q, k), reps=3 if big else 10)
             cs.report(card, **tags, rows=rows, d=d, b=b, k=k, dtype=dtype,
-                      max_abs_err=err, ms=cs.cuda_median_ms(lambda: run(q, k)),
-                      plain_ms=cs.cuda_median_ms(lambda: plain(q, k), reps=5),
-                      library_ms=lib_ms, **device_split(lambda: run(q, k)))
+                      max_abs_err=err, ms=ms,
+                      plain_ms=(None if big else cs.cuda_median_ms(
+                          lambda: plain(q, k), reps=5)),
+                      library_ms=lib_ms, **split,
+                      host_ms=ms - sum(split.values()))
         st = x = codes = library = None
         torch.cuda.empty_cache()
 
