@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs eight phases; each raises on failure and the process exits non-zero.
+runs nine phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
@@ -80,7 +80,31 @@ runs eight phases; each raises on failure and the process exits non-zero.
      served through K1-K3 and equal to the plain versions' route, k = 2000
      through the scoring oracle, and ``build_pq`` at D = 96 (M = 12, codes
      padded to whole words) through K4, equal to the unpadded plain
-     version bit for bit.
+     version bit for bit;
+  8. R-MAC and regional re-ranking (workloads 2 and 5) with seeded random
+     VGG16 weights: (a) ``configs/paris6k_vgg16_rmac_whiten.json`` as
+     loaded, VGG16 at 512 px (bf16, R-MAC) extracting 1024 seeded images at
+     the preset's batch 32, whitening fitted on them, stored among seeded
+     unit distractor rows (1M x 512 bf16) behind ``ServeCore``: every top-1
+     its source, K1 once per bucket piece, the oracle twin agreeing; (b)
+     ``configs/rerank_regional_top100.json`` as loaded with the same
+     weights: ``Index.build`` over 256 of those images written as PNG files
+     (one combined global and regional pass, the regional whitening and
+     store with its grid geometry), then the 1M-row store with a [1M, 14,
+     512] bf16 regional store made on the card (the corpus's regional rows
+     and seeded unit rows for the distractors), the same requests with
+     re-rank and with ``spatial_weight = 0.5``
+     (``configs/spatial_rerank_top100.json`` cut to one shard): every top-1
+     its source, K1 once per bucket piece (the top-100) and no other kernel,
+     the composite over K1's plain version agreeing on fused scores within
+     SCORE_TOL and on ids but at near-ties of them, the oracle twin on every
+     top-1; the query p50 at B = 1, 8 and 128 with re-rank, with spatial
+     and without either, and the re-rank stage's device time (CUDA events
+     around ``rerank_from_candidates``); (c) the exact-refine tier over
+     phase 3's 1M-row int4 store (``configs/capacity_int4.json`` with
+     ``refine_dtype="int8"``, refine on, QE off): K3 once per bucket piece
+     at depth 100, every top-1 its source, equal ids and scores through
+     K3's plain version, the p50 at B = 1 and 128. It fails if TF32 is on.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -105,7 +129,10 @@ memory (a spill) fails the phase.
 Every measured number is printed with the card's nvidia-smi name and power
 limit. The line before the last is the kernel summary as JSON: per kernel its
 launches on the main path, its largest difference from its plain version,
-its median time and its plain version's at 1M rows, B = 1, k = 10 (K1-K4
+its median time and its plain version's at 1M rows, B = 1, k = 10 (K1 and
+K3 count phase 8's launches too, also apart as ``launches_phase8``, and
+carry their times at depth 100 on phase 8's stores, ``ms_b{1,8,128}_k100``,
+``plain_ms_b..._k100``, ``bound_ms_b..._k100``; K1-K4
 also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
 ``bound_ms_b128``; K4 also at B = 8, k = 100 (``ms_b8_k100``,
 ``plain_ms_b8_k100``, ``bound_ms_b8_k100``) and over 64M rows at k = 100
@@ -156,6 +183,9 @@ FUSED_QUERIES = 512     # phase 6: of those, through each fused route
 # reference's own bar between its fused path and the Flax forward
 # (tests/kernels/test_fused_resnet.py)
 FUSED_COS = 0.999
+REGIONS = 14            # phase 8: R-MAC regions at 512 px (a 32 x 32 map)
+RERANK_DEPTH = 100      # phase 8: the re-rank presets' rerank_depth
+RERANK_BUILD = 256      # phase 8b: images Index.build reads from PNG files
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
@@ -1532,6 +1562,401 @@ def phase7(card: str, gen) -> dict:
     return out
 
 
+def check_fused_against_plain(ks, ki, ps, pi, tol: float) -> float:
+    """Hold a re-ranked top-k ``(ks, ki)`` to the same composite over the
+    plain version's candidates ``(ps, pi)`` (numpy): the same slots empty,
+    fused scores within ``tol``, and a slot may hold another id only where
+    the plain route's fused scores of the two ids are within ``tol`` (two
+    global scores summed in other orders can flip such a near-tie; at the
+    last slot the other id may lie past the plain route's k). Returns the
+    largest score difference."""
+    import numpy as np
+    filled = np.isfinite(ps)
+    if not np.array_equal(np.isfinite(ks), filled) or not np.array_equal(
+            ki >= 0, filled):
+        fail("re-rank: kernel and plain routes fill different slots")
+    err = float(np.abs(ks - ps)[filled].max()) if filled.any() else 0.0
+    if err > tol:
+        fail(f"re-rank: fused scores differ by {err} > {tol}")
+    last = ki.shape[1] - 1
+    for row in range(ki.shape[0]):
+        fused = dict(zip(pi[row].tolist(), ps[row].tolist()))
+        for slot, (a, b) in enumerate(zip(ki[row].tolist(),
+                                          pi[row].tolist())):
+            if a == b or (slot == last and a not in fused):
+                continue
+            if a not in fused or abs(fused[a] - fused[b]) >= tol:
+                fail(f"re-rank: query {row} slot {slot} holds {a}, the plain "
+                     f"route {b}, beyond a near-tie")
+    return err
+
+
+def regional_unit_rows(gen, n: int, start: int, out, chunk: int = 32768):
+    """Fill ``out[start:n]`` ([N, R, D] bf16 on the card) with seeded unit
+    regional rows, ``chunk`` rows at a time, so no f32 copy of the whole
+    store is ever made."""
+    import torch
+    _, r, d = out.shape
+    for s in range(start, n, chunk):
+        m = min(chunk, n - s)
+        x = torch.randn(m, r, d, generator=gen, device="cuda")
+        out[s:s + m] = (x / x.norm(dim=-1, keepdim=True)).to(out.dtype)
+
+
+def rerank_latency(card, idx, ex, images, rng, variants) -> dict:
+    """query_images and search p50 over the 1M-row store at B = 1, 8 and
+    128 for each (label, search config) of ``variants``, host clock,
+    synchronized by the results' host copy."""
+    import torch
+    lat = {}
+    for b in (1, 8, 128):
+        batch = images[rng.choice(len(images), size=b, replace=False)]
+        q, qreg = ex.extract_with_regional(batch)
+        for label, scfg in variants:
+            idx.query_images(batch, scfg)            # warm this shape
+            e2e, search = [], []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                idx.query_images(batch, scfg)
+                e2e.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                idx.search(q, scfg, query_regional=qreg)
+                search.append((time.perf_counter() - t0) * 1e3)
+            lat[(label, b)] = {"query_images_p50_ms": statistics.median(e2e),
+                               "search_p50_ms": statistics.median(search)}
+            report(card, phase=8, workload=5, stage=label, query_batch=b,
+                   rows=N_ROWS, **lat[(label, b)])
+        del q, qreg
+        torch.cuda.empty_cache()
+    return lat
+
+
+def phase8a(card: str, gen, topk, check) -> dict:
+    """Workload 2, configs/paris6k_vgg16_rmac_whiten.json as loaded: VGG16
+    at 512 px (bf16, R-MAC at 3 levels) extracts CORPUS_Q seeded images at
+    the preset's batch 32, whitening fitted on them; stored among seeded
+    unit distractor rows (1M x 512 bf16) behind ServeCore, the requests of
+    phase 2. Every top-1 must be its source; K1 must launch once per bucket
+    piece; the oracle twin must agree. Returns the results and, for 8b, the
+    store's rows, names, the extractor and the images."""
+    import numpy as np
+    import torch
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.extractor import Extractor
+    from instsearch_torch.index import Index
+    from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
+    from instsearch_torch.serve import ServeCore
+
+    path = "configs/paris6k_vgg16_rmac_whiten.json"
+    cfg = PipelineConfig.load(os.path.join(HERE, path))
+    ex = Extractor(cfg.extract.replace(whiten=False), seed=0)
+    images = smooth_images(gen, CORPUS_Q, size=cfg.extract.image_size)
+    raw, ips = extract_corpus(card, 8, ex, images, cfg.extract.batch_size)
+    ex.whitening = fit_whitening(raw, dim=cfg.extract.whiten_dim or None)
+    corpus = apply_whitening(raw, ex.whitening)
+    if not bool(torch.isfinite(corpus).all()):
+        fail("non-finite whitened VGG16 descriptors")
+    dim = corpus.shape[1]
+    distract = torch.randn(N_ROWS - CORPUS_Q, dim, generator=gen,
+                           device="cuda")
+    rows = torch.cat([corpus, distract / distract.norm(dim=1, keepdim=True)])
+    del raw, distract
+    names = ([f"img{i:05d}" for i in range(CORPUS_Q)]
+             + [f"distractor{i:07d}" for i in range(N_ROWS - CORPUS_Q)])
+    idx = Index.from_descriptors(rows, names, cfg, extractor=ex)
+    if tuple(idx.descriptors.shape) != (N_ROWS, dim):
+        fail(f"store shape {tuple(idx.descriptors.shape)}")
+    report(card, phase=8, workload=2, config=path, backbone="vgg16",
+           image=cfg.extract.image_size, pooling="rmac",
+           rmac_levels=cfg.extract.rmac_levels, store="bf16", rows=N_ROWS,
+           dim=dim, corpus=CORPUS_Q)
+    core = ServeCore(idx)
+    rng = np.random.default_rng(8)
+    picks = [rng.choice(CORPUS_Q, size=n, replace=False) for n in SIZES]
+    launches = serve_requests(card, 8, core, images, picks,
+                              {topk: 1})["topk_matmul"]
+    q = ex(images[np.concatenate(picks)])
+    ks, ki = idx.search(q)
+    ps, pi = idx.with_search(use_pallas=False).search(q)
+    on_card = [torch.from_numpy(np.asarray(a)).cuda() for a in (ks, ki, ps, pi)]
+    try:
+        check(idx.descriptors, q, *on_card, SCORE_TOL)
+    except AssertionError as e:
+        fail(f"workload 2: kernel and oracle route: {e}")
+    report(card, phase=8, workload=2, oracle_route_agrees=True,
+           queries=int(ki.shape[0]), topk_launches_in_main_path=launches)
+    lat = query_latency(card, 8, idx, ex, images, rng, workload=2)
+    del idx, core
+    torch.cuda.empty_cache()
+    return ({"launches": launches, "latency": lat, "extract_ips": ips},
+            (rows, names, ex, images, picks))
+
+
+def depth_timings(card, kind: str, fn, ref, check, x, scales, q,
+                  num_valid) -> dict:
+    """``fn`` (K1 or K3) at the re-rank depth on the phase's own store and
+    query rows at B = 1, 8 and 128 (the rows repeated up to B): held to its
+    plain version by ``check(q, scores, pos, plain scores, plain pos)`` and
+    timed beside it. Returns timings by B."""
+    import numpy as np
+    import torch
+    args = (x,) if scales is None else (x, scales)
+    width = x.shape[1] * (2 if kind == "int4" else 1)
+    out = {}
+    for b in (1, 8, 128):
+        qq = q[torch.from_numpy(np.resize(np.arange(len(q)), b)).cuda()]
+        s, i = fn(*args, qq, k=RERANK_DEPTH, num_valid=num_valid)
+        rs, ri = ref(*args, qq, k=RERANK_DEPTH, num_valid=num_valid)
+        try:
+            err = check(qq, s, i, rs, ri)
+        except AssertionError as e:
+            fail(f"{fn.__name__} at depth {RERANK_DEPTH}, B={b}: {e}")
+        out[b] = {"ms": cuda_median_ms(lambda: fn(*args, qq, k=RERANK_DEPTH,
+                                                  num_valid=num_valid)),
+                  "plain_ms": cuda_median_ms(
+                      lambda: ref(*args, qq, k=RERANK_DEPTH,
+                                  num_valid=num_valid), reps=5),
+                  **bound(x.numel() * x.element_size() + b * width * 4
+                          + b * RERANK_DEPTH * 8,
+                          2 * b * x.shape[0] * width,
+                          "bf16" if kind == "bf16" else "int8")}
+        report(card, phase=8, kernel=fn.__name__, store=kind, rows=N_ROWS,
+               b=b, k=RERANK_DEPTH, max_abs_err=err, **out[b])
+    return out
+
+
+def phase8b(card: str, gen, topk, topk_ref, check, corpus) -> dict:
+    """Workload 5, configs/rerank_regional_top100.json as loaded, with 8a's
+    weights: Index.build over RERANK_BUILD of 8a's images written as PNG
+    files (the combined single-pass extraction, the regional whitening and
+    attach_regional_store with its grid geometry through the entry point);
+    then the R1M-scale store: 8a's 1M rows with the corpus's regional rows
+    (one combined pass) and seeded unit regional rows for the distractors,
+    made on the card, a [1M, 14, 512] bf16 store. ServeCore answers the
+    requests with re-rank, then with spatial_weight = 0.5
+    (configs/spatial_rerank_top100.json, one shard). Every top-1 must be
+    its source; K1 must launch once per bucket piece (the top-100) and no
+    other kernel; the composite over K1's plain version must agree by
+    check_fused_against_plain; the oracle twin on every top-1; K1 itself at
+    depth 100 on these queries by ``check`` (``check_against_plain``)."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+    import instsearch_torch.index as tindex
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.index import Index, attach_regional_store
+    from instsearch_torch.search.rerank import rerank_from_candidates
+    from instsearch_torch.serve import ServeCore
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        fail("TF32 is on: the region products would not be f32")
+    rows, names, ex, images, picks = corpus
+    path = "configs/rerank_regional_top100.json"
+    cfg = PipelineConfig.load(os.path.join(HERE, path))
+    sp_path = "configs/spatial_rerank_top100.json"
+    cfg_sp = PipelineConfig.load(os.path.join(HERE, sp_path))
+    if (cfg.extract != ex.cfg.replace(whiten=True)
+            or cfg_sp.search != cfg.search.replace(spatial_weight=0.5)
+            or cfg_sp.index.replace(num_shards=1) != cfg.index
+            or cfg.search.rerank_depth != RERANK_DEPTH):
+        fail("the re-rank presets no longer share workload 2's extraction "
+             "or differ from each other beyond spatial_weight and shards")
+    reduced_sp = {"num_shards": f"{cfg_sp.index.num_shards} -> 1: the "
+                                f"sharded index is not ported yet "
+                                f"(ROADMAP M6)"}
+
+    # Index.build over files: one combined pass, whitening fitted on the
+    # global descriptors, the regional store whitened and attached
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(RERANK_BUILD):
+            p = os.path.join(tmp, f"img{i:05d}.png")
+            if not cv2.imwrite(p, images[i][:, :, ::-1]):
+                fail(f"cannot write {p}")
+            paths.append(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = Index.build(paths, cfg, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    r_build = built.regional
+    if (r_build is None or r_build.dtype != torch.bfloat16
+            or tuple(r_build.shape[1:]) != (REGIONS, built.dim)
+            or built.regional_geom is None
+            or built.regional_geom.shape != (REGIONS, 3)
+            or built.num_valid != RERANK_BUILD):
+        shape = None if r_build is None else tuple(r_build.shape)
+        fail(f"Index.build's regional store {shape} / geometry "
+             f"{built.regional_geom}")
+    norms = r_build[:RERANK_BUILD].float().norm(dim=-1)
+    if float((norms - 1).abs().max()) > 1e-2:
+        fail("Index.build's regional rows are not unit-norm")
+    sel = np.arange(0, RERANK_BUILD, RERANK_BUILD // 8)
+    _, bi = built.query_images(images[sel])
+    if not np.array_equal(bi[:, 0], sel):
+        fail(f"Index.build: top-1 {bi[:, 0].tolist()} for {sel.tolist()}")
+    report(card, phase=8, workload=5, config=path, index_build_images=
+           RERANK_BUILD, index_build_s=build_s,
+           regional_store=list(r_build.shape),
+           geometry_regions=len(built.regional_geom), top1_correct=True)
+    del built, r_build
+    torch.cuda.empty_cache()
+
+    # the R1M-scale store: the corpus's regional rows from one combined
+    # pass, seeded unit rows for the distractors, all made on the card
+    idx = Index.from_descriptors(rows, names, cfg, extractor=ex)
+    dim = idx.dim
+    reg = torch.empty((N_ROWS, REGIONS, dim), dtype=torch.bfloat16,
+                      device="cuda")
+    bs = cfg.extract.batch_size
+    for s in range(0, CORPUS_Q, bs):
+        part = ex.extract_regional(images[s:s + bs])
+        reg[s:s + len(part)] = part.to(reg.dtype)
+    regional_unit_rows(gen, N_ROWS, CORPUS_Q, reg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    attach_regional_store(idx, reg)
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    del reg
+    torch.cuda.empty_cache()
+    if (tuple(idx.regional.shape) != (N_ROWS, REGIONS, dim)
+            or idx.regional.dtype != torch.bfloat16
+            or idx.regional.device.type != "cuda"
+            or idx.regional_geom is None):
+        fail(f"regional store {tuple(idx.regional.shape)} "
+             f"{idx.regional.dtype} on {idx.regional.device}")
+    report(card, phase=8, workload=5, store="bf16", rows=N_ROWS,
+           regional_store=[N_ROWS, REGIONS, dim],
+           regional_store_gb=idx.regional.numel() * 2 / 1e9,
+           attach_regional_store_s=attach_s, rerank_depth=RERANK_DEPTH,
+           peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    sel = np.concatenate(picks)
+    q, qreg = ex.extract_with_regional(images[sel])
+    out = {"launches": 0}
+    for label, twin, reduced in (
+            ("rerank", idx, {}),
+            ("spatial", idx.with_search(spatial_weight=0.5), reduced_sp)):
+        core = ServeCore(twin)
+        out["launches"] += serve_requests(card, 8, core, images, picks,
+                                          {topk: 1})["topk_matmul"]
+        ks, ki = twin.search(q, query_regional=qreg)
+        tindex.topk_matmul = topk_ref
+        try:
+            ps, pi = twin.search(q, query_regional=qreg)
+        finally:
+            tindex.topk_matmul = topk
+        err = check_fused_against_plain(ks, ki, ps, pi, SCORE_TOL)
+        before = topk.launches
+        _, oi = twin.with_search(use_pallas=False).search(
+            q, query_regional=qreg)
+        if topk.launches != before:
+            fail("the oracle route launched the kernel")
+        if not (np.array_equal(oi[:, 0], sel)
+                and np.array_equal(ki[:, 0], sel)):
+            fail(f"{label}: top-1 {ki[:, 0].tolist()} (oracle "
+                 f"{oi[:, 0].tolist()}) for {sel.tolist()}")
+        report(card, phase=8, workload=5, stage=label,
+               plain_kernel_route_agrees=True, max_abs_err=err,
+               oracle_top1_agrees=True, queries=int(ki.shape[0]),
+               reduced=reduced)
+
+    out["k1_depth"] = depth_timings(
+        card, "bf16", topk, topk_ref,
+        lambda qq, s, i, rs, ri: check(idx.descriptors, qq, s, i, rs, ri,
+                                       SCORE_TOL),
+        idx.descriptors, None, q, idx.num_valid)
+    # the re-rank stage alone on the card, on K1's candidates
+    stage = {}
+    for b in (1, 8, 128):
+        rep = torch.from_numpy(np.resize(np.arange(len(sel)), b)).cuda()
+        qq, qr = q[rep], qreg[rep]
+        g, pos = topk(idx.descriptors, qq, k=RERANK_DEPTH,
+                      num_valid=idx.num_valid)
+        for label, kw in (("rerank", {}),
+                          ("spatial", {"spatial_weight": 0.5,
+                                       "vote_matrix": idx.vote_matrix})):
+            stage[(label, b)] = cuda_median_ms(
+                lambda: rerank_from_candidates(idx.regional, idx.ids, g, pos,
+                                               qr, k=10, **kw))
+        report(card, phase=8, workload=5, query_batch=b,
+               rerank_stage_ms=stage[("rerank", b)],
+               rerank_spatial_stage_ms=stage[("spatial", b)],
+               topk_depth100_ms=cuda_median_ms(
+                   lambda: topk(idx.descriptors, qq, k=RERANK_DEPTH,
+                                num_valid=idx.num_valid)))
+    rng = np.random.default_rng(9)
+    out["latency"] = rerank_latency(
+        card, idx, ex, images, rng,
+        (("rerank", cfg.search),
+         ("spatial", cfg.search.replace(spatial_weight=0.5)),
+         ("global only", cfg.search.replace(rerank_enabled=False))))
+    out.update(stage=stage, build_s=build_s, attach_s=attach_s)
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase8c(card: str, int4_corpus, kernel, plain, check_exact) -> dict:
+    """The exact-refine tier over phase 3's 1M-row int4 store: the preset
+    configs/capacity_int4.json with refine_dtype="int8" (a [1M, 1, 512]
+    int8 copy of the rows), refine_enabled and QE off, behind ServeCore,
+    phase 3's requests. Every top-1 must be its source; K3 must launch once
+    per bucket piece (the top-100); the composite over K3's plain version
+    must give equal ids and scores (K3 is bit-exact), and K3 itself at depth
+    100 on these queries bit for bit (``check_exact``)."""
+    import numpy as np
+    import torch
+    import instsearch_torch.index as tindex
+    from instsearch_torch.index import Index
+    from instsearch_torch.serve import ServeCore
+
+    cfg4, rows, names, ex, images, picks = int4_corpus
+    changed = {"refine_dtype": "'' -> int8", "refine_enabled": "false -> "
+               "true", "qe_enabled": "true -> false: one K3 scan of depth "
+               "100, then the refine"}
+    cfg = cfg4.replace(
+        index=cfg4.index.replace(refine_dtype="int8"),
+        search=cfg4.search.replace(refine_enabled=True, qe_enabled=False))
+    idx = Index.from_descriptors(rows, names, cfg, extractor=ex)
+    if (not idx.has_refine_store or idx.regional.dtype != torch.int8
+            or tuple(idx.regional.shape) != (N_ROWS, 1, idx.dim)):
+        fail(f"refine store {tuple(idx.regional.shape)}")
+    report(card, phase=8, store="int4 + int8 refine", config=
+           "configs/capacity_int4.json", changed=changed, rows=N_ROWS,
+           refine_store=list(idx.regional.shape),
+           rerank_depth=cfg.search.rerank_depth)
+    core = ServeCore(idx)
+    launches = serve_requests(card, 8, core, images, picks,
+                              {kernel: 1})[kernel.__name__]
+    q = ex(images[np.concatenate(picks)])
+    ks, ki = idx.search(q)
+    tindex.topk_matmul_int4 = plain
+    try:
+        ps, pi = idx.search(q)
+    finally:
+        tindex.topk_matmul_int4 = kernel
+    if not (np.array_equal(ki, pi) and np.array_equal(ks, ps)):
+        fail("refine: the composite through topk_matmul_int4 and through "
+             "its plain version differ")
+    report(card, phase=8, store="int4 + int8 refine",
+           plain_kernel_route_equal=True, queries=int(ki.shape[0]),
+           launches_in_main_path=launches)
+    k3_depth = depth_timings(
+        card, "int4", kernel, plain,
+        lambda qq, s, i, rs, ri: check_exact(s, i, rs, ri),
+        idx.descriptors, idx.scales, q, idx.num_valid)
+    lat = query_latency(card, 8, idx, ex, images, np.random.default_rng(10),
+                        store="int4 + int8 refine")
+    del idx, core
+    torch.cuda.empty_cache()
+    return {"launches": launches, "latency": lat, "k3_depth": k3_depth}
+
+
 def main() -> int:
     try:
         import torch
@@ -1592,11 +2017,22 @@ def main() -> int:
     res = phase2(card, gen, topk_matmul, check_against_plain)
     res3, corpus = phase3(card, gen)
     res4 = phase4(card, corpus)
-    del corpus
     res5 = phase5(card, gen, topk_matmul)
     res5hr = phase5_highres(card, gen, res5.pop("weights"))
     res6 = phase6(card, gen, resnet)
     phase7(card, gen)
+    del resnet
+    res8a, vgg_corpus = phase8a(card, gen, topk_matmul, check_against_plain)
+    res8b = phase8b(card, gen, topk_matmul, topk_matmul_reference,
+                    check_against_plain, vgg_corpus)
+    del vgg_corpus
+    res8c = phase8c(card, corpus, topk_matmul_int4,
+                    topk_matmul_int4_reference, check_exact)
+    del corpus
+    phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
+              "topk_matmul_int4": res8c["launches"]}
+    depth = {"topk_matmul": res8b["k1_depth"],
+             "topk_matmul_int4": res8c["k3_depth"]}
 
     rows = []
     for name, file, replaces, shape, launches in (
@@ -1613,7 +2049,9 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"instsearch_torch/csrc/{file}",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
-                     "launches": launches, "max_abs_err": errs[kind],
+                     "launches": launches + phase8.get(name, 0),
+                     "launches_phase8": phase8.get(name, 0),
+                     "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
@@ -1621,6 +2059,10 @@ def main() -> int:
         rows[-1].update(ms_b128=t["ms"], plain_ms_b128=t["plain_ms"],
                         library_ms_b128=t["library_ms"],
                         bound_ms_b128=t["bound_ms"])
+        for b, t in depth.get(name, {}).items():   # phase 8, depth 100
+            rows[-1].update({f"ms_b{b}_k100": t["ms"],
+                             f"plain_ms_b{b}_k100": t["plain_ms"],
+                             f"bound_ms_b{b}_k100": t["bound_ms"]})
         if name == "pq_topk":   # phase 4's bucket, and 64M rows at depth 100
             t = timings["pq N=1M M=64 B=8 k=100"]
             rows[-1].update(ms_b8_k100=t["ms"], plain_ms_b8_k100=t["plain_ms"],

@@ -1,7 +1,7 @@
 """Benchmark evaluation (port of ``instsearch_tpu/eval/evaluate.py``,
-the single-device path with its alpha-QE stage, without the re-rank
-stages): dataset -> query extraction with the protocol's bbox crop ->
-optional alpha-QE -> full ranking -> mAP."""
+the single-device path): dataset -> query extraction with the protocol's
+bbox crop -> optional alpha-QE -> full ranking -> the re-ranked (or
+refined) head spliced in -> mAP."""
 from __future__ import annotations
 
 import numpy as np
@@ -58,17 +58,52 @@ def extract_queries(index, dataset: RetrievalDataset,
     return _batched_apply(ex, imgs, ex.cfg.batch_size)
 
 
+def extract_query_regional(index, dataset: RetrievalDataset,
+                           crop_bbx: bool = True) -> np.ndarray:
+    """Per-query regional R-MAC rows (bbox-cropped) for re-ranking."""
+    ex = index.extractor
+    if ex is None:
+        raise ValueError("index has no extractor attached")
+    imgs = _load_query_images(dataset, ex.cfg.image_size, crop_bbx)
+    return _batched_apply(ex.extract_regional, imgs, ex.cfg.batch_size)
+
+
+def _splice_head(ranks: np.ndarray, top_ids: np.ndarray) -> np.ndarray:
+    """Per query, ``top_ids`` first (the re-ranked head, empty slots -1
+    dropped), then the rest of ``ranks`` without the head, in its order.
+    Membership is one table lookup: a [Q, max_id + 1] indicator scattered
+    from the heads and gathered along the rankings."""
+    spliced = np.empty_like(ranks)
+    valid = top_ids >= 0
+    width = int(ranks.max(initial=0)) + 1
+    member = np.zeros((ranks.shape[0], width), np.bool_)
+    qq, jj = np.nonzero(valid)
+    member[qq, top_ids[qq, jj]] = True
+    in_head = np.take_along_axis(member, ranks, axis=1)        # [Q, N]
+    for qi in range(ranks.shape[0]):
+        head = top_ids[qi][valid[qi]].astype(ranks.dtype)
+        spliced[qi, :len(head)] = head
+        spliced[qi, len(head):] = ranks[qi][~in_head[qi]]
+    return spliced
+
+
 def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
                    search_cfg=None, crop_bbx: bool = True,
                    include_ranks: bool = False) -> dict:
     """Full protocol evaluation: mAP / mP@k on the complete ranking. Alpha-QE
     from ``search_cfg`` expands the queries first, through the oracle over
     the whole store (``search/qe.py::alpha_query_expansion``), as the
-    reference does."""
-    from ..index import _check_search_cfg
+    reference does. With ``rerank_enabled`` (and a regional store) or
+    ``refine_enabled``, the top-``rerank_depth`` of that ranking is replaced
+    by the composite's re-scored head (``Index.search``); the tail keeps
+    its global order. ``stages_applied`` lists the stages that ran."""
+    index._check_rescoring_cfg(search_cfg or index.cfg.search)
     scfg = search_cfg or index.cfg.search
-    _check_search_cfg(scfg)
-    queries = extract_queries(index, dataset, crop_bbx)
+    ex = index.extractor
+    if ex is None:
+        raise ValueError("index has no extractor attached")
+    qimgs = _load_query_images(dataset, ex.cfg.image_size, crop_bbx)
+    queries = _batched_apply(ex, qimgs, ex.cfg.batch_size)
     q = index._match_query_dim(torch.as_tensor(queries, device=index.device))
     applied = []        # the stages this evaluation ran
     if scfg.qe_enabled:
@@ -77,6 +112,21 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
                                   n=scfg.qe_n, alpha=scfg.qe_alpha,
                                   scales=index.scales, int4=index.is_int4)
     ranks = index.full_ranking(q)
+    depth = min(scfg.rerank_depth, index.descriptors.shape[0])
+    if scfg.rerank_enabled and index.regional is not None:
+        applied.append("rerank")
+        if scfg.spatial_weight:
+            applied.append("spatial")
+        query_regional = _batched_apply(ex.extract_regional, qimgs,
+                                        ex.cfg.batch_size)
+        _, top_ids = index.search(
+            q, scfg.replace(qe_enabled=False, k=depth, rerank_depth=depth),
+            query_regional=query_regional)
+        ranks = _splice_head(ranks, top_ids)
+    if scfg.refine_enabled:
+        applied.append("refine")
+        _, top_ids = index.search(q, scfg.replace(qe_enabled=False, k=depth))
+        ranks = _splice_head(ranks, top_ids)
     res = evaluate_ranks(ranks, dataset.gnd, protocol)
     res["dataset"] = dataset.name
     res["protocol"] = protocol

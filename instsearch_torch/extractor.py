@@ -1,12 +1,14 @@
 """Descriptor extraction: frontend -> backbone -> pooling -> whitening
-(port of ``instsearch_tpu/extractor.py``: ``build_extract_fn`` and
-``Extractor``).
+(port of ``instsearch_tpu/extractor.py``: ``build_extract_fn``,
+``build_regional_fn``, ``build_combined_fn`` and ``Extractor``).
 
 Eager PyTorch on one device: uint8 ``[B, S, S, 3]`` in, unit-norm ``[B, D]``
 f32 out. Multi-scale extraction runs the backbone once per scale and flip
 TTA the mirrored batch too; the L2-normalized descriptors are averaged.
-Regional (R-MAC) and combined extraction, the data-parallel mesh and the
-ViT's tensor-parallel attention are not ported yet (ROADMAP M5, M6, M11).
+Regional extraction gives the R-MAC per-region rows ``[B, R, D]`` of the
+re-rank store; the combined pass gives both from one backbone pass at scale
+1.0. The data-parallel mesh and the ViT's tensor-parallel attention are not
+ported yet (ROADMAP M6, M11).
 """
 from __future__ import annotations
 
@@ -17,14 +19,40 @@ import torch
 
 from .data import frontend
 from .models import get_backbone
-from .models.jax_import import load_jax_resnet, load_jax_vit
+from .models.jax_import import load_jax_resnet, load_jax_vgg, load_jax_vit
 from .models.registry import descriptor_dim
+from .models.vgg import VGG
 from .models.vit import ViT
 from .ops import l2_normalize, pool
+from .ops.pooling import rmac_region_geometry, rmac_regional_descriptors
 from .ops.whitening import WhiteningParams, apply_whitening
 from .utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _global_descriptor(model, cfg, x: torch.Tensor):
+    """Normalized images ``x`` -> ``(desc [N, D] f32 unit-norm, the scale-1.0
+    feature map or None)``: the backbone per scale (and mirrored, with flip
+    TTA), each pooled descriptor L2-normalized, their mean re-normalized."""
+    descs, fmap_s1 = [], None
+    for scale in cfg.scales:
+        xs = frontend.rescale(x, scale)
+        fmap = model(xs)
+        if scale == 1.0:
+            fmap_s1 = fmap
+        descs.append(l2_normalize(pool(fmap, cfg).float(), dim=-1))
+        if cfg.flip:                         # flip TTA: mirrored pass too
+            fm = model(torch.flip(xs, dims=(2,)))
+            descs.append(l2_normalize(pool(fm, cfg).float(), dim=-1))
+    desc = torch.stack(descs, 0).mean(0) if len(descs) > 1 else descs[0]
+    return l2_normalize(desc, dim=-1), fmap_s1
+
+
+def _regional_rows(fmap: torch.Tensor, cfg) -> torch.Tensor:
+    """Feature map -> R-MAC per-region rows ``[N, R, C]`` f32, unit-norm."""
+    reg = rmac_regional_descriptors(fmap, cfg.rmac_levels)
+    return l2_normalize(reg.float(), dim=-1)
 
 
 def build_extract_fn(cfg, device=None):
@@ -39,22 +67,54 @@ def build_extract_fn(cfg, device=None):
     @torch.inference_mode()
     def extract(images: torch.Tensor,
                 whitening: Optional[WhiteningParams] = None) -> torch.Tensor:
-        x = frontend.normalize(images, dtype=dtype)
-        descs = []
-        for scale in cfg.scales:
-            xs = frontend.rescale(x, scale)
-            variants = (xs, torch.flip(xs, dims=(2,))) if cfg.flip else (xs,)
-            for xv in variants:              # flip TTA: mirrored pass too
-                d = pool(model(xv), cfg)
-                descs.append(l2_normalize(d.float(), dim=-1))
-        desc = (torch.stack(descs, 0).mean(0) if len(descs) > 1
-                else descs[0])
-        desc = l2_normalize(desc, dim=-1)
+        desc, _ = _global_descriptor(
+            model, cfg, frontend.normalize(images, dtype=dtype))
         if whitening is not None:
             desc = apply_whitening(desc, whitening)      # includes re-L2
         return desc
 
     return model, extract
+
+
+def build_regional_fn(cfg, model):
+    """``extract_regional(images, whitening=None) -> [N, R, D] f32``, the
+    per-region R-MAC rows of the re-rank store from one backbone pass of
+    ``model`` at the images' own size, unit-norm per region (whitened and
+    re-normalized when ``whitening`` is given)."""
+    dtype = _DTYPES[cfg.dtype]
+
+    @torch.inference_mode()
+    def extract_regional(images: torch.Tensor,
+                         whitening: Optional[WhiteningParams] = None
+                         ) -> torch.Tensor:
+        reg = _regional_rows(model(frontend.normalize(images, dtype=dtype)),
+                             cfg)
+        return reg if whitening is None else apply_whitening(reg, whitening)
+
+    return extract_regional
+
+
+def build_combined_fn(cfg, model):
+    """``extract_combined(images, whitening=None) -> ([N, D], [N, R, D])``:
+    the global descriptor and the regional rows from one backbone pass at
+    scale 1.0, shared by the two (the backbone runs once more only when
+    1.0 is not among the scales). Flip TTA applies to the global
+    descriptor alone: region geometry depends on the side, so the regional
+    rows come from the unflipped map."""
+    dtype = _DTYPES[cfg.dtype]
+
+    @torch.inference_mode()
+    def extract_combined(images: torch.Tensor,
+                         whitening: Optional[WhiteningParams] = None):
+        x = frontend.normalize(images, dtype=dtype)
+        desc, fmap_s1 = _global_descriptor(model, cfg, x)
+        reg = _regional_rows(model(x) if fmap_s1 is None else fmap_s1, cfg)
+        if whitening is not None:
+            desc = apply_whitening(desc, whitening)
+            reg = apply_whitening(reg, whitening)
+        return desc, reg
+
+    return extract_combined
 
 
 class Extractor:
@@ -69,9 +129,6 @@ class Extractor:
     def __init__(self, cfg, variables: dict | None = None,
                  whitening: WhiteningParams | None = None, seed: int = 0,
                  device: "torch.device | str | None" = None):
-        if cfg.pooling == "rmac":
-            raise NotImplementedError(
-                "R-MAC extraction is not ported yet (ROADMAP M3/M5)")
         self.cfg = cfg
         self.seed = seed
         self.device = resolve_device(device)
@@ -82,10 +139,15 @@ class Extractor:
             self.model.init_weights(gen)
         elif isinstance(self.model, ViT):
             load_jax_vit(self.model, variables)
+        elif isinstance(self.model, VGG):
+            load_jax_vgg(self.model, variables)
         else:
             load_jax_resnet(self.model, variables)
         self.model.eval()
         self.whitening = whitening
+        self._regional_fn = build_regional_fn(cfg, self.model)
+        self._combined_fn = build_combined_fn(cfg, self.model)
+        self._geometry: "np.ndarray | None" = None
 
     @property
     def descriptor_dim(self) -> int:
@@ -93,33 +155,84 @@ class Extractor:
             return int(self.whitening.P.shape[0])
         return descriptor_dim(self.cfg)
 
+    def _on_device(self, images) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(images) if not isinstance(
+            images, torch.Tensor) else images).to(self.device)
+
     def __call__(self, images) -> torch.Tensor:
         """uint8 ``[B, S, S, 3]`` (numpy or tensor) -> ``[B, D]`` f32 on the
         extractor's device."""
-        images = torch.as_tensor(np.asarray(images) if not isinstance(
-            images, torch.Tensor) else images).to(self.device)
-        return self._fn(images, self.whitening)
+        return self._fn(self._on_device(images), self.whitening)
 
-    def extract_regional(self, images):
-        raise NotImplementedError(
-            "regional (R-MAC) extraction is not ported yet (ROADMAP M5)")
+    def regional_geometry(self) -> np.ndarray:
+        """The R-MAC grid's geometry ``[R, 3]`` (cx, cy, log side) at
+        ``image_size``, the constant spatial verification bins against.
+        The map's size comes from a shape pass of the backbone on the
+        ``meta`` device (no compute): each of VGG's max-pools floors an odd
+        side, so it is not ``image_size // stride``."""
+        if self._geometry is None:
+            s = self.cfg.image_size
+            shape_model, _ = get_backbone(
+                self.cfg.backbone, dtype=_DTYPES[self.cfg.dtype],
+                device="meta", attention="xla")
+            fmap = shape_model(torch.empty((1, s, s, 3), device="meta"))
+            self._geometry = rmac_region_geometry(
+                fmap.shape[1], fmap.shape[2], self.cfg.rmac_levels)
+        return self._geometry
 
-    def extract_paths_with_regional(self, paths, quarantine=None):
-        raise NotImplementedError(
-            "combined global + regional extraction is not ported yet "
-            "(ROADMAP M5)")
+    def extract_regional(self, images) -> torch.Tensor:
+        """uint8 ``[B, S, S, 3]`` -> ``[B, R, D]`` f32 per-region rows on the
+        extractor's device (the same weights and whitening as the global
+        descriptor)."""
+        return self._regional_fn(self._on_device(images), self.whitening)
+
+    def extract_with_regional(self, images):
+        """uint8 ``[B, S, S, 3]`` -> ``([B, D], [B, R, D])`` f32: the global
+        descriptor and the regional rows from one backbone pass at scale
+        1.0 (``build_combined_fn``), equal to ``self(images)`` and
+        ``self.extract_regional(images)``."""
+        return self._combined_fn(self._on_device(images), self.whitening)
+
+    def _extract_loop(self, paths, quarantine, run):
+        """Decode ``paths`` in batches of ``cfg.batch_size`` and apply
+        ``run(batch) -> tensor | tuple of tensors`` of per-image outputs.
+        Returns ``(list of numpy arrays, one per output, kept_indices)``, or
+        ``(None, kept)`` when nothing decoded; undecodable paths go to
+        ``quarantine``."""
+        outs, kept = None, []
+        for batch, idxs in frontend.batch_paths(
+                paths, self.cfg.image_size, self.cfg.batch_size, quarantine):
+            keep = idxs >= 0
+            res = run(batch)
+            res = res if isinstance(res, tuple) else (res,)
+            if outs is None:
+                outs = [[] for _ in res]
+            for slot, r in zip(outs, res):
+                slot.append(r.cpu().numpy()[keep])
+            kept.append(idxs[keep])
+        if outs is None:
+            return None, np.zeros((0,), np.int64)
+        return [np.concatenate(o) for o in outs], np.concatenate(kept)
 
     def extract_paths(self, paths, quarantine: list | None = None):
         """Decode and extract every path in batches of ``cfg.batch_size``.
         Returns ``(descriptors [N, D] f32 numpy, kept_indices [N])``;
         undecodable paths go to ``quarantine``."""
-        outs, kept = [], []
-        for batch, idxs in frontend.batch_paths(
-                paths, self.cfg.image_size, self.cfg.batch_size, quarantine):
-            keep = idxs >= 0
-            outs.append(self(batch).cpu().numpy()[keep])
-            kept.append(idxs[keep])
-        if not outs:
+        outs, kept = self._extract_loop(paths, quarantine, self)
+        if outs is None:
+            return np.zeros((0, self.descriptor_dim), np.float32), kept
+        return outs[0], kept
+
+    def extract_paths_with_regional(self, paths,
+                                    quarantine: list | None = None):
+        """One decode and one backbone pass per image for both the global
+        descriptor and the regional re-rank rows (``build_combined_fn``).
+        Returns ``(descriptors [N, D], regional [N, R, D], kept_indices
+        [N])`` as numpy, row-aligned by construction."""
+        outs, kept = self._extract_loop(
+            paths, quarantine,
+            self.extract_with_regional)
+        if outs is None:
             return (np.zeros((0, self.descriptor_dim), np.float32),
-                    np.zeros((0,), np.int64))
-        return np.concatenate(outs), np.concatenate(kept)
+                    np.zeros((0, 0, 0), np.float32), kept)
+        return outs[0], outs[1], kept

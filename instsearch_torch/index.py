@@ -25,15 +25,25 @@ expansion (``qe_enabled``) runs the reference's composite: the kernel's
 top-``qe_n``, the rows gathered and dequantized, the expanded query, the
 kernel's final top-k.
 
+Regional re-ranking (``rerank_enabled``, ``search/rerank.py``) runs the
+reference's re-rank stage: the kernel's top-``rerank_depth`` candidates,
+their R-MAC regions gathered from the regional store ``[N_pad, R, D]``
+(``attach_regional_store``), matched against the query's regions and fused
+with the global score, plus the spatial vote when ``spatial_weight > 0``
+(``search/spatial.py``). The exact-refine tier (``refine_dtype="int8"``
+over an int4 store, ``refine_enabled``) is the same stage over a one-region
+int8 copy of the original rows, with the query as its one region and no
+global term.
+
 ``build_pq`` attaches a PQ view (``search/pq_view.py``): with
 ``cfg.search.pq_depth > 0`` every top-k selection above becomes the cascade
 of an ADC scan over 4-bit codes (K4, ``kernels/pq_scan.py``, on the kernel
 route) and an exact re-score of its ``depth`` candidates against the store.
 
 Not ported yet, and raising ``NotImplementedError`` rather than answering:
-``metric="l2"``, ``num_shards > 1``, subsets, re-rank, diffusion, refine,
-local whitening, the IVF and IVF-PQ tiers, DBA, and ``save``/``load`` (see
-ROADMAP).
+``metric="l2"``, ``num_shards > 1``, subsets, re-rank under the PQ cascade,
+diffusion, local whitening, the IVF and IVF-PQ tiers, DBA, ``add``,
+``remove``, ``merge_from`` and ``save``/``load`` (see ROADMAP).
 """
 from __future__ import annotations
 
@@ -48,11 +58,14 @@ from .extractor import Extractor
 from .kernels.topk_matmul import (K_MAX, topk_matmul, topk_matmul_int4,
                                   topk_matmul_int8)
 from .ops.quantize import quantize_rows, quantize_rows_int4, unpack_int4
-from .ops.whitening import WhiteningParams, apply_whitening, fit_whitening
+from .ops.whitening import (WhiteningParams, apply_whitening,
+                            apply_whitening_regional, fit_whitening)
 from .search.bruteforce import gather_rows_f32 as _gather_rows_f32
 from .search.bruteforce import masked_scores, search_topk
 from .search.pq_view import PQView, _pq_composite
 from .search.qe import expand_from_candidates
+from .search.rerank import rerank_from_candidates
+from .search.spatial import build_vote_matrix
 from .utils.chunking import run_chunked
 from .utils.device import resolve_device
 
@@ -95,12 +108,19 @@ def _pos_to_ids(ids, scores, pos):
                        torch.full_like(pos, -1))
 
 
-def _search_composite(descriptors, ids, queries, num_valid: int, scales, *,
-                      k: int, qe_n: int, qe_alpha: float, use_kernel: bool,
-                      do_qe: bool, int4: bool = False):
-    """The reference's ``_search_composite_jit`` without its re-rank and
-    diffusion stages: optional alpha-QE (fused top-``qe_n``, the rows
-    gathered and dequantized, expanded query), then the final top-k ->
+def _search_composite(descriptors, ids, queries, num_valid: int, scales,
+                      regional=None, regional_scales=None,
+                      query_regional=None, vote_matrix=None, *, k: int,
+                      qe_n: int, qe_alpha: float, use_kernel: bool,
+                      do_qe: bool, int4: bool = False, depth: int = 0,
+                      do_rerank: bool = False, do_refine: bool = False,
+                      spatial_weight: float = 0.0):
+    """The reference's ``_search_composite_jit`` without its diffusion
+    stage: optional alpha-QE (fused top-``qe_n``, the rows gathered and
+    dequantized, expanded query), then either the re-rank stage (fused
+    top-``depth`` candidates re-scored against the ``regional`` store by
+    ``rerank_from_candidates``; refine takes the query itself as its one
+    region and drops the global term, fuse weight 0) or the final top-k ->
     ``(scores [Q, k], ids [Q, k])``. No ``[Q, N]`` matrix on the kernel
     route."""
     q = queries.float()
@@ -112,6 +132,16 @@ def _search_composite(descriptors, ids, queries, num_valid: int, scales, *,
         rows = torch.where((s > float("-inf"))[..., None], rows,
                            torch.zeros((), device=rows.device))
         q = expand_from_candidates(q, s, rows, qe_alpha)
+    if do_rerank or do_refine:
+        g, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=depth,
+                           use_kernel=use_kernel, int4=int4)
+        # refine: the row copy is the one "region" and the (post-QE) query,
+        # without the store's zero columns, the one query region
+        qreg = q[:, None, :regional.shape[-1]] if do_refine else query_regional
+        return rerank_from_candidates(
+            regional, ids, g, pos, qreg, k=k, regional_scales=regional_scales,
+            fuse_weight=0.0 if do_refine else 1.0,
+            spatial_weight=spatial_weight, vote_matrix=vote_matrix)
     scores, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=k,
                             use_kernel=use_kernel, int4=int4)
     return scores, _pos_to_ids(ids, scores, pos)
@@ -133,8 +163,17 @@ def _check_index_cfg(cfg) -> None:
             "num_shards > 1 (the sharded index) is not ported yet "
             "(ROADMAP M6)")
     if icfg.refine_dtype:
-        raise NotImplementedError(
-            "the exact-refine tier is not ported yet (ROADMAP M5)")
+        if icfg.refine_dtype != "int8":
+            raise ValueError(f"refine_dtype={icfg.refine_dtype!r}: only "
+                             f"'int8' is supported")
+        if icfg.dtype != "int4":
+            raise ValueError(
+                "refine_dtype only makes sense over int4 storage "
+                "(int8/bf16 scans already score at refine precision)")
+        if cfg.search.rerank_enabled:
+            raise ValueError(
+                "refine_dtype and rerank_enabled both claim the "
+                "regional-store slot; pick one re-scoring stage")
     if icfg.dba_n:
         raise NotImplementedError("DBA is not ported yet (ROADMAP M8)")
 
@@ -142,9 +181,7 @@ def _check_index_cfg(cfg) -> None:
 def _check_search_cfg(scfg) -> None:
     """Raise for every search stage the port does not take yet; none is
     silently skipped."""
-    stages = (("rerank_enabled", "ROADMAP M5"),
-              ("refine_enabled", "ROADMAP M5"),
-              ("diffusion_enabled", "ROADMAP M8"),
+    stages = (("diffusion_enabled", "ROADMAP M8"),
               ("lw_enabled", "ROADMAP M8"), ("ivf_nprobe", "ROADMAP M9"),
               ("ivfpq_nprobe", "ROADMAP M9"))
     on = [(nm, item) for nm, item in stages if getattr(scfg, nm)]
@@ -152,9 +189,51 @@ def _check_search_cfg(scfg) -> None:
         raise NotImplementedError(
             "search stages not ported yet: " +
             ", ".join(f"{nm} ({item})" for nm, item in on))
-    if scfg.spatial_weight:
-        raise NotImplementedError(
-            "spatial verification is not ported yet (ROADMAP M5)")
+
+
+def attach_regional_store(idx: "Index", regional, chunk: int = 1 << 16
+                          ) -> None:
+    """Pad the ``[N, R, D]`` regional rows (numpy, or a tensor on any
+    device; one per indexed image, in its order) into the index's ``[N_pad,
+    R, D]`` re-rank store on the index's device, in the store's dtype; an
+    int8 or int4 index quantizes them per (row, region) with
+    ``quantize_rows`` over the flattened padded rows, as the reference (an
+    int4 index keeps an int8 regional store: rows are gathered per
+    candidate, not streamed, and re-ranking is precision-sensitive). Rows
+    move and convert ``chunk`` at a time, so the store is never built
+    through a whole host or f32 copy. Records the R-MAC grid's geometry
+    (spatial verification) when the extractor's grid has R regions and the
+    store is not the exact-refine copy."""
+    reg = torch.as_tensor(regional)
+    n, r, d = reg.shape
+    if n != idx.num_valid:
+        raise ValueError(f"{n} regional rows for {idx.num_valid} indexed "
+                         f"images")
+    n_pad, dev = idx.descriptors.shape[0], idx.device
+    if idx.cfg.index.dtype in _QUANTIZE:
+        store = torch.empty((n_pad, r, d), dtype=torch.int8, device=dev)
+        scales = torch.empty((n_pad, r), dtype=torch.float32, device=dev)
+        for i in range(0, n_pad, chunk):
+            part = reg[i:i + chunk]
+            rows = torch.zeros((min(chunk, n_pad - i), r, d),
+                               dtype=torch.float32, device=dev)
+            rows[:len(part)] = part.to(dev)
+            qr = quantize_rows(rows.reshape(-1, d))
+            store[i:i + chunk] = qr.values.reshape(-1, r, d)
+            scales[i:i + chunk] = qr.scales.reshape(-1, r)
+    else:
+        store = torch.zeros((n_pad, r, d), dtype=_DTYPES[idx.cfg.index.dtype],
+                            device=dev)
+        for i in range(0, n, chunk):
+            part = reg[i:i + chunk]
+            store[i:i + len(part)] = part.to(dev, store.dtype)
+        scales = None
+    idx.regional, idx.regional_scales = store, scales
+    idx.regional_geom, idx._vote_m = None, None
+    if idx.extractor is not None and not idx.cfg.index.refine_dtype:
+        geom = idx.extractor.regional_geometry()
+        if len(geom) == r:
+            idx.regional_geom = geom
 
 
 class Index:
@@ -171,6 +250,10 @@ class Index:
         self.extractor = extractor
         self.scales = scales                # [1, N_pad] f32 for int8/int4
         self.pq: "PQView | None" = None     # build_pq's cascade view
+        self.regional: "torch.Tensor | None" = None   # [N_pad, R, D] store
+        self.regional_scales: "torch.Tensor | None" = None  # [N_pad, R] int8
+        self.regional_geom: "np.ndarray | None" = None  # [R, 3] R-MAC grid
+        self._vote_m: "torch.Tensor | None" = None
         self.quarantined: list[str] = []
         # the descriptor width; the store's W may add zero columns past it
         self._dim = self.store_dim if dim is None else dim
@@ -203,6 +286,69 @@ class Index:
     def device(self) -> torch.device:
         return self.descriptors.device
 
+    @property
+    def has_refine_store(self) -> bool:
+        """The regional store is the exact-refine row copy
+        (``IndexConfig.refine_dtype``), not an R-MAC re-rank store. The
+        config tells them apart: an ``rmac_levels=1`` re-rank store is
+        ``[N, 1, D]`` too."""
+        return bool(self.cfg.index.refine_dtype) and self.regional is not None
+
+    def _check_rescoring_cfg(self, scfg) -> None:
+        """The reference's validation for every entry point (search,
+        query_images, evaluate, which calls it before extracting): one
+        re-scoring stage at a time, matching the attached store's kind
+        (``ValueError``); then the stages not ported yet
+        (``NotImplementedError``)."""
+        enabled = [nm for nm in ("rerank_enabled", "diffusion_enabled",
+                                 "refine_enabled", "lw_enabled")
+                   if getattr(scfg, nm)]
+        if len(enabled) > 1:
+            raise ValueError(
+                f"{' and '.join(enabled)} are mutually exclusive (one "
+                f"re-scoring stage per query); disable all but one")
+        if scfg.rerank_enabled and self.has_refine_store:
+            raise ValueError(
+                "this index's regional store is the exact-refine row copy "
+                "(refine_dtype); use refine_enabled, not rerank_enabled")
+        if scfg.refine_enabled and not self.has_refine_store:
+            raise ValueError(
+                "refine_enabled needs the exact-refine store "
+                "(IndexConfig.refine_dtype='int8' at build); this index "
+                "has " + ("no regional store" if self.regional is None else
+                          "an R-MAC re-rank store (use rerank_enabled)"))
+        if scfg.spatial_weight and not scfg.rerank_enabled:
+            raise ValueError(
+                "spatial_weight fuses into the regional re-rank; enable "
+                "rerank_enabled (spatial verification has no meaning "
+                "without region matches)")
+        if (scfg.spatial_weight and self.regional is not None
+                and self.regional_geom is None):
+            raise ValueError(
+                "spatial_weight needs the R-MAC grid geometry; this "
+                "index's regional store carries none (attached without a "
+                "matching extractor) — set index.regional_geom = "
+                "extractor.regional_geometry()")
+        _check_search_cfg(scfg)
+
+    @property
+    def vote_matrix(self) -> "torch.Tensor | None":
+        """The spatial stage's one-hot transform-bin assignment ``[R*R,
+        bins]`` on the index's device, built once from the grid geometry
+        (``search/spatial.py``)."""
+        if self.regional_geom is None:
+            return None
+        if (self.regional is not None
+                and len(self.regional_geom) != self.regional.shape[1]):
+            raise ValueError(
+                f"regional_geom has {len(self.regional_geom)} regions but "
+                f"the store has {self.regional.shape[1]}: geometry must "
+                f"come from the same R-MAC grid as the store")
+        if self._vote_m is None:
+            self._vote_m = torch.as_tensor(build_vote_matrix(
+                self.regional_geom, self.regional_geom), device=self.device)
+        return self._vote_m
+
     def name_of(self, dataset_id: int) -> "str | None":
         """Dataset-position id (the values search() returns) -> image name.
         Not a names-list position: ids skip images quarantined at build."""
@@ -219,11 +365,15 @@ class Index:
         index's own search config with ``changes`` applied; e.g.
         ``with_search(use_pallas=False)`` ranks through the scoring oracle,
         since the route is the index's config, not a search argument's. The
-        PQ view comes along, so the twin scans the same codes."""
+        PQ view and the regional store come along, so the twin scans the
+        same codes and re-ranks against the same regions."""
         cfg = self.cfg.replace(search=self.cfg.search.replace(**changes))
         twin = Index(self.descriptors, self.ids, self.names, cfg,
                      self.extractor, scales=self.scales, dim=self.dim)
         twin.pq = self.pq
+        twin.regional, twin.regional_scales = (self.regional,
+                                               self.regional_scales)
+        twin.regional_geom, twin._vote_m = self.regional_geom, self._vote_m
         twin.quarantined = self.quarantined
         return twin
 
@@ -238,7 +388,9 @@ class Index:
         ``original_ids`` maps rows back to dataset positions (differs from
         arange when images were quarantined). ``device`` defaults to the
         extractor's device, else the tensor's own, else (numpy input) the
-        CUDA card, raising without one."""
+        CUDA card, raising without one. ``refine_dtype="int8"`` over an
+        int4 store attaches the exact-refine store, a one-region int8 copy
+        of the original rows (``attach_regional_store``)."""
         _check_index_cfg(cfg)
         if device is None:
             device = (extractor.device if extractor is not None else
@@ -272,8 +424,11 @@ class Index:
                              device=device)
         padded[:n, :d] = x.to(torch.float32)
         qr = quantize(padded)
-        return cls(qr.values, ids, list(names), cfg, extractor,
-                   scales=qr.scales, dim=dim)
+        idx = cls(qr.values, ids, list(names), cfg, extractor,
+                  scales=qr.scales, dim=dim)
+        if cfg.index.refine_dtype:
+            attach_regional_store(idx, padded[:n, None, :dim])
+        return idx
 
     @classmethod
     def build(cls, paths: Sequence[str], cfg, variables: dict | None = None,
@@ -282,8 +437,12 @@ class Index:
               device: "torch.device | str | None" = None) -> "Index":
         """Offline indexing: extract -> (fit whitening) -> store.
         ``whitening_paths`` defaults to the indexed set itself;
-        ``whitening`` supplies pre-fit params instead. Runs on ``device``,
-        the CUDA card by default."""
+        ``whitening`` supplies pre-fit params instead. With
+        ``rerank_enabled`` one pass per image extracts the global
+        descriptor and the regional rows (``extract_paths_with_regional``),
+        which are whitened with the fit on the global descriptors and
+        attached as the re-rank store. Runs on ``device``, the CUDA card by
+        default."""
         if cfg.index.metric == "l2":
             raise ValueError(
                 "metric='l2' is for RAW-VECTOR indexes "
@@ -295,7 +454,12 @@ class Index:
         ex = Extractor(cfg.extract.replace(whiten=False), variables,
                        seed=seed, device=device)
         quarantine: list[str] = []
-        descs, kept = ex.extract_paths(paths, quarantine)
+        regional = None
+        if cfg.search.rerank_enabled:
+            descs, regional, kept = ex.extract_paths_with_regional(
+                paths, quarantine)
+        else:
+            descs, kept = ex.extract_paths(paths, quarantine)
         names = [os.path.splitext(os.path.basename(paths[i]))[0]
                  for i in kept]
         descs = torch.as_tensor(descs, device=ex.device)
@@ -309,9 +473,14 @@ class Index:
                 ex.whitening = fit_whitening(
                     wdescs, dim=cfg.extract.whiten_dim or None)
             descs = apply_whitening(descs, ex.whitening)
+            if regional is not None and len(regional):
+                # the store was extracted before the fit existed
+                regional = apply_whitening_regional(regional, ex.whitening)
         idx = cls.from_descriptors(descs, names, cfg, extractor=ex,
                                    original_ids=kept)
         idx.quarantined = quarantine
+        if regional is not None:
+            attach_regional_store(idx, regional)
         return idx
 
     def build_pq(self, m: int | None = None, iters: int = 15, seed: int = 0,
@@ -368,21 +537,21 @@ class Index:
                subset=None):
         """Descriptor-space search: ``queries [Q, D]`` (or ``[D]``) ->
         ``(scores [Q, k], ids [Q, k])`` numpy arrays, with alpha-QE when
-        ``search_cfg.qe_enabled``, through the PQ cascade when a view is
-        attached and ``search_cfg.pq_depth > 0`` (without a view,
-        ``pq_depth`` is ignored, as in the reference). The kernel or oracle
-        route is the index's own ``cfg.search.use_pallas``, not the
-        argument's, as in the reference. Batches larger than
-        ``query_chunk`` run the whole composite in pieces
-        (utils/chunking.py)."""
+        ``search_cfg.qe_enabled``, the regional re-rank when
+        ``rerank_enabled`` and a store and ``query_regional [Q, Rq, D]`` are
+        there (``query_images`` extracts them), the exact refine when
+        ``refine_enabled``, through the PQ cascade when a view is attached
+        and ``search_cfg.pq_depth > 0`` (without a view, ``pq_depth`` is
+        ignored, as in the reference). The kernel or oracle route is the
+        index's own ``cfg.search.use_pallas``, not the argument's, as in the
+        reference. Batches larger than ``query_chunk`` run the whole
+        composite in pieces (utils/chunking.py): the re-rank stage gathers
+        ``[chunk, depth, R, D]`` candidate regions."""
         scfg = search_cfg or self.cfg.search
-        _check_search_cfg(scfg)
+        self._check_rescoring_cfg(scfg)
         if subset is not None:
             raise NotImplementedError(
                 "subset filters are not ported yet (ROADMAP M7)")
-        if query_regional is not None:
-            raise NotImplementedError(
-                "regional re-ranking is not ported yet (ROADMAP M5)")
         q = torch.as_tensor(queries, device=self.device)
         if q.ndim == 1:
             q = q[None]
@@ -390,18 +559,41 @@ class Index:
         q = self._match_query_dim(q.float())
         if q.shape[-1] != self.store_dim:
             raise ValueError(f"queries have width {w}, the store {self.dim}")
+        do_rerank = (scfg.rerank_enabled and self.regional is not None
+                     and query_regional is not None)
+        do_refine = scfg.refine_enabled
+        args = (q,)
+        if do_rerank:
+            qreg = torch.as_tensor(query_regional,
+                                   device=self.device).float()
+            if (qreg.ndim != 3 or qreg.shape[0] != q.shape[0]
+                    or qreg.shape[2] != self.regional.shape[2]):
+                raise ValueError(
+                    f"query_regional {tuple(qreg.shape)}: [Q, Rq, "
+                    f"{self.regional.shape[2]}] for {q.shape[0]} queries")
+            args = (q, qreg)
+        depth = min(scfg.rerank_depth, self.descriptors.shape[0])
+        sw = float(scfg.spatial_weight) if do_rerank else 0.0
 
-        def run(qq):
+        def run(qq, *qreg):
             return _search_composite(
                 self.descriptors, self.ids, qq, self.num_valid, self.scales,
+                self.regional, self.regional_scales,
+                qreg[0] if qreg else None, self.vote_matrix if sw else None,
                 k=scfg.k, qe_n=scfg.qe_n, qe_alpha=scfg.qe_alpha,
                 use_kernel=bool(self.cfg.search.use_pallas),
-                do_qe=scfg.qe_enabled, int4=self.is_int4)
+                do_qe=scfg.qe_enabled, int4=self.is_int4, depth=depth,
+                do_rerank=do_rerank, do_refine=do_refine, spatial_weight=sw)
 
-        if self.pq is not None and scfg.pq_depth > 0:
+        if self.pq is not None and scfg.pq_depth > 0 and not do_refine:
+            # refine is redundant under PQ: the cascade's re-score is one
+            if do_rerank:
+                raise NotImplementedError(
+                    "re-rank under the PQ cascade is not ported yet "
+                    "(ROADMAP M9)")
             s, i = self._search_pq(q, scfg)
         else:
-            s, i = run_chunked(run, scfg.query_chunk, q)
+            s, i = run_chunked(run, scfg.query_chunk, *args)
         return s.cpu().numpy(), i.cpu().numpy()
 
     def _search_pq(self, q: torch.Tensor, scfg):
@@ -455,15 +647,47 @@ class Index:
 
     def query_images(self, images, search_cfg=None, sharded_index=None,
                      subset=None):
-        """Image-space search: uint8 batch -> extract -> search."""
+        """Image-space search: uint8 batch -> extract -> search. With
+        re-ranking on and a regional store attached, the query's regional
+        rows come from the same backbone pass as its global descriptor
+        (``Extractor.extract_with_regional``): the values of the reference's
+        two passes, for one."""
         if self.extractor is None:
             raise ValueError("index has no extractor attached")
         if sharded_index is not None:
             raise NotImplementedError(
                 "the sharded index is not ported yet (ROADMAP M6)")
         scfg = search_cfg or self.cfg.search
-        _check_search_cfg(scfg)
+        self._check_rescoring_cfg(scfg)
+        if scfg.rerank_enabled and self.regional is not None:
+            q, qreg = self.extractor.extract_with_regional(images)
+            return self.search(q, scfg, query_regional=qreg, subset=subset)
         return self.search(self.extractor(images), scfg, subset=subset)
+
+    def add(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Index.add (and its regional rows) is not ported yet (ROADMAP M7)")
+
+    def remove(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Index.remove (and its regional rows) is not ported yet "
+            "(ROADMAP M7)")
+
+    def merge_from(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Index.merge_from (and its regional rows) is not ported yet "
+            "(ROADMAP M7)")
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError(
+            "Index.save (the regional store included) is not ported yet "
+            "(ROADMAP M2)")
+
+    @classmethod
+    def load(cls, path: str, *args, **kwargs) -> "Index":
+        raise NotImplementedError(
+            "Index.load (the regional store included) is not ported yet "
+            "(ROADMAP M2)")
 
     def evaluate(self, dataset, protocol: str = "medium", search_cfg=None,
                  sharded: bool = False) -> dict:

@@ -1,10 +1,11 @@
-"""Flax ResNet and ViT variables -> the port's state_dicts: the inverses of
-``instsearch_tpu/models/torch_import.py::load_torch_resnet`` and
-``load_torch_vit``.
+"""Flax ResNet, VGG and ViT variables -> the port's state_dicts: the inverses
+of ``instsearch_tpu/models/torch_import.py::load_torch_resnet``,
+``load_torch_vgg`` and ``load_torch_vit``.
 
 ``variables`` is the reference's pytree of arrays (numpy or anything
 ``np.asarray`` takes): ``{"params": ..., "batch_stats": ...}`` for a ResNet,
-``{"params": ...}`` for a ViT. Conv kernels go from HWIO to OIHW, Dense
+``{"params": ...}`` for a VGG or a ViT. Conv kernels go from HWIO to OIHW
+(a VGG's ``conv{idx}`` becomes ``features.{idx}``, torchvision's index), Dense
 kernels from ``[in, out]`` to Linear's ``[out, in]``; LayerNorm and
 BatchNorm ``scale`` becomes ``weight``, BatchNorm ``mean``/``var`` become
 ``running_mean``/``running_var``; the ViT's ``class_token`` and
@@ -125,3 +126,34 @@ def from_jax_vit(variables: Mapping[str, Any],
 def load_jax_vit(model: torch.nn.Module, variables: Mapping) -> None:
     """Load Flax ViT variables into ``model`` in place (checked, strict)."""
     model.load_state_dict(from_jax_vit(variables, model))
+
+
+def from_jax_vgg(variables: Mapping[str, Any],
+                 model: "torch.nn.Module | None" = None) -> dict:
+    """-> state_dict of torch tensors (f32 on the CPU) for ``models.vgg.VGG``:
+    Flax ``conv{idx}.kernel`` (HWIO) -> ``features.{idx}.weight`` (OIHW),
+    ``conv{idx}.bias`` -> ``features.{idx}.bias``. When ``model`` is given,
+    the key set and every shape are checked against its own state_dict and
+    a mismatch raises."""
+    unknown = set(variables) - {"params"}
+    if unknown:
+        raise ValueError(f"unknown variable collections: {sorted(unknown)}")
+    sd: dict = {}
+    for path, val in _flatten(variables.get("params", {})).items():
+        m = (re.fullmatch(r"conv(\d+)", path[0])
+             if len(path) == 2 and path[1] in ("kernel", "bias") else None)
+        if m is None:
+            raise ValueError(f"unhandled params leaf: {'/'.join(path)}")
+        arr = np.asarray(val, np.float32)
+        if path[1] == "kernel":
+            arr = arr.transpose(3, 2, 0, 1)              # HWIO -> OIHW
+        sd[f"features.{m.group(1)}.{_PARAM_LEAF[path[1]]}"] = \
+            torch.from_numpy(np.array(arr, order="C"))       # a copy
+    if model is not None:
+        _check_fits(sd, model)
+    return sd
+
+
+def load_jax_vgg(model: torch.nn.Module, variables: Mapping) -> None:
+    """Load Flax VGG variables into ``model`` in place (checked, strict)."""
+    model.load_state_dict(from_jax_vgg(variables, model))

@@ -1,6 +1,6 @@
 """Backbone registry: name -> (module factory, feature dim, stride)
-(port of ``instsearch_tpu/models/registry.py``): the ResNet family and the
-ViT patch-token backbones; VGG-16 is not ported yet (ROADMAP M4).
+(port of ``instsearch_tpu/models/registry.py``): the ResNet family, VGG-16
+and the ViT patch-token backbones.
 
 The port takes feature dims from here, never from
 ``ExtractConfig.descriptor_dim``, which imports the reference's Flax
@@ -13,6 +13,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
+from .vgg import vgg16
 from .vit import vit_b_16, vit_l_16
 
 
@@ -28,13 +29,12 @@ BACKBONES: dict[str, BackboneSpec] = {
     "resnet50": BackboneSpec(resnet50, 2048, 32),
     "resnet101": BackboneSpec(resnet101, 2048, 32),
     "resnet152": BackboneSpec(resnet152, 2048, 32),
+    "vgg16": BackboneSpec(vgg16, 512, 16),
     # ViT patch-token backbones: stride = patch size; feature_dim = the
     # hidden dim of the token grid
     "vit_b_16": BackboneSpec(vit_b_16, 768, 16),
     "vit_l_16": BackboneSpec(vit_l_16, 1024, 16),
 }
-
-_NOT_PORTED = {"vgg16": "ROADMAP M4"}
 
 
 def get_backbone(name: str, dtype=torch.bfloat16, device=None,
@@ -44,9 +44,6 @@ def get_backbone(name: str, dtype=torch.bfloat16, device=None,
     the CUDA card by default, raising without one. ``attention`` selects
     the ViT attention route (auto | xla | pallas | flash, ``models/vit.py``)
     and is ignored for the CNNs."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported yet ({_NOT_PORTED[name]})")
     try:
         spec = BACKBONES[name]
     except KeyError:
@@ -64,6 +61,4 @@ def descriptor_dim(cfg) -> int:
     backbone's feature dim, or ``whiten_dim`` when whitening truncates."""
     if cfg.whiten and cfg.whiten_dim:
         return cfg.whiten_dim
-    if cfg.backbone in _NOT_PORTED:
-        get_backbone(cfg.backbone)          # raises NotImplementedError
     return BACKBONES[cfg.backbone].feature_dim

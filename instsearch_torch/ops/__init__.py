@@ -1,11 +1,17 @@
-"""Descriptor ops of the port: pooling, L2 normalization, whitening and
-per-row int8/int4 quantization."""
-from .pooling import avg_pool, gem_pool, l2_normalize, mac_pool, pool
+"""Descriptor ops of the port: pooling (R-MAC included), L2 normalization,
+whitening and per-row int8/int4 quantization."""
+from .pooling import (avg_pool, gem_pool, l2_normalize, mac_pool, pool,
+                      rmac_pool, rmac_region_geometry, rmac_region_grid,
+                      rmac_regional_descriptors)
 from .quantize import (QuantizedRows, dequantize_rows, dequantize_rows_int4,
                        quantize_rows, quantize_rows_int4, unpack_int4)
-from .whitening import WhiteningParams, apply_whitening, fit_whitening
+from .whitening import (WhiteningParams, apply_whitening,
+                        apply_whitening_regional, fit_whitening)
 
 __all__ = ["avg_pool", "gem_pool", "l2_normalize", "mac_pool", "pool",
+           "rmac_pool", "rmac_region_geometry", "rmac_region_grid",
+           "rmac_regional_descriptors",
            "QuantizedRows", "dequantize_rows", "dequantize_rows_int4",
            "quantize_rows", "quantize_rows_int4", "unpack_int4",
-           "WhiteningParams", "apply_whitening", "fit_whitening"]
+           "WhiteningParams", "apply_whitening", "apply_whitening_regional",
+           "fit_whitening"]

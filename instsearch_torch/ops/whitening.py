@@ -1,5 +1,5 @@
 """PCA-whitening of descriptors (port of ``instsearch_tpu/ops/whitening.py``:
-``fit_whitening`` and ``apply_whitening``).
+``fit_whitening``, ``apply_whitening`` and ``apply_whitening_regional``).
 
 The fit takes the eigendecomposition of the D x D covariance with
 ``torch.linalg.eigh`` in float64 (the covariance is accumulated in f32, as
@@ -55,3 +55,21 @@ def apply_whitening(x: torch.Tensor, params: WhiteningParams,
     if renormalize:
         out = l2_normalize(out, dim=-1)
     return out
+
+
+def apply_whitening_regional(reg, params: WhiteningParams,
+                             chunk: int = 65536) -> torch.Tensor:
+    """Whiten regional rows ``[N, R, D]`` (numpy, or a tensor on any
+    device) -> f32 ``[N, R, dim]`` on the device of ``params``, re-L2'd per
+    region. The store is R x the index, the system's largest tensor, so the
+    N*R rows move to the device and through the projection ``chunk`` rows
+    at a time: the chunk bounds the working memory beside the output."""
+    reg = torch.as_tensor(reg)
+    n, r, d = reg.shape
+    flat = reg.reshape(-1, d)
+    out = torch.empty((flat.shape[0], params.P.shape[0]),
+                      dtype=torch.float32, device=params.P.device)
+    for i in range(0, flat.shape[0], chunk):
+        out[i:i + chunk] = apply_whitening(
+            flat[i:i + chunk].to(params.P.device), params)
+    return out.reshape(n, r, -1)

@@ -1,6 +1,13 @@
-"""Search stages of the port: brute force and alpha query expansion."""
+"""Search stages of the port: brute force, alpha query expansion and
+regional re-ranking with spatial verification."""
 from .bruteforce import gather_rows_f32, masked_scores, search_topk, select_topk
 from .qe import alpha_query_expansion, expand_from_candidates
+from .rerank import (region_match_scores, region_similarities,
+                     rerank_from_candidates)
+from .spatial import build_vote_matrix, spatial_consistency_scores
 
 __all__ = ["gather_rows_f32", "masked_scores", "search_topk", "select_topk",
-           "alpha_query_expansion", "expand_from_candidates"]
+           "alpha_query_expansion", "expand_from_candidates",
+           "region_match_scores", "region_similarities",
+           "rerank_from_candidates", "build_vote_matrix",
+           "spatial_consistency_scores"]

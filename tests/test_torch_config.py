@@ -39,7 +39,6 @@ def test_descriptor_dim_reads_the_port_registry():
     assert tcfg.ExtractConfig(whiten=True, whiten_dim=512).descriptor_dim == 512
     assert tcfg.ExtractConfig(backbone="vit_b_16").descriptor_dim == 768
     assert tcfg.ExtractConfig(backbone="vit_l_16").descriptor_dim == 1024
-    with pytest.raises(NotImplementedError):
-        _ = tcfg.ExtractConfig(backbone="vgg16").descriptor_dim
+    assert tcfg.ExtractConfig(backbone="vgg16").descriptor_dim == 512
     with pytest.raises(ValueError):
         tcfg.ExtractConfig.from_dict({"bakbone": "resnet50"})

@@ -46,7 +46,7 @@ import torch
 from instsearch_torch import (ExtractConfig, IndexConfig, PipelineConfig,
                               SearchConfig)
 from instsearch_torch.extractor import Extractor
-from instsearch_torch.index import Index
+from instsearch_torch.index import Index, attach_regional_store
 from instsearch_torch.kernels import (flash_mha, flash_mha_reference, mha,
                                       mha_reference, pq_topk,
                                       pq_topk_reference, topk_matmul,
@@ -67,6 +67,7 @@ from instsearch_torch.ops.pooling import gem_pool
 from instsearch_torch.ops.pq import PQCodebook, default_m
 from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
+from instsearch_torch.search.rerank import rerank_from_candidates
 from instsearch_torch.serve import ServeCore
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -225,6 +226,54 @@ def test_index_on_cuda_launches_the_kernel_and_agrees_with_cpu(gen):
     np.testing.assert_array_equal(gi[:, 0], np.arange(0, 5000, 250))
     np.testing.assert_allclose(gs, cs, rtol=0, atol=TOL)
     np.testing.assert_array_equal(gi, ci)
+
+
+@pytest.mark.gpu
+def test_rerank_on_cuda_matches_plain_candidates():
+    """The re-rank composite on the card: K1 selects the top-100 (one
+    launch), ``rerank_from_candidates`` re-scores them; against the same
+    stage over K1's plain version's candidates, by the near-tie rule on the
+    fused scores (TOL), and against the same index on the CPU. The
+    region products are f32 einsums: TF32 must be off, as PyTorch leaves
+    it, or the card's order would differ from the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n, r, d = 20_000, 6, 64
+    rows = _unit(g, n, d).cpu().numpy()
+    reg = torch.nn.functional.normalize(
+        torch.randn(n, r, d, generator=g, device="cuda"), dim=-1)
+    names = [f"r{j}" for j in range(n)]
+    cfg = PipelineConfig(index=IndexConfig(dtype="bfloat16"),
+                         search=SearchConfig(k=10, rerank_enabled=True,
+                                             rerank_depth=100))
+    gpu = Index.from_descriptors(rows, names, cfg, device="cuda")
+    attach_regional_store(gpu, reg)
+    cpu = Index.from_descriptors(rows, names, cfg, device="cpu")
+    attach_regional_store(cpu, reg.cpu())
+    pick = torch.arange(0, n, 997, device="cuda")
+    q = torch.from_numpy(rows).cuda()[pick] + 0.02 * _unit(g, len(pick), d)
+    qreg = reg[pick] + 0.02 * torch.randn(len(pick), r, d, generator=g,
+                                          device="cuda")
+    before = topk_matmul.launches
+    gs, gi = gpu.search(q, query_regional=qreg)
+    assert topk_matmul.launches == before + 1
+    np.testing.assert_array_equal(gi[:, 0], pick.cpu().numpy())
+    ps, pp = topk_matmul_reference(gpu.descriptors, q, k=100,
+                                   num_valid=gpu.num_valid)
+    ws, wi = rerank_from_candidates(gpu.regional, gpu.ids, ps, pp,
+                                    qreg.float(), k=10)
+    cs, ci = cpu.search(q.cpu(), query_regional=qreg.cpu())
+    for want_s, want_i in ((ws.cpu().numpy(), wi.cpu().numpy()), (cs, ci)):
+        np.testing.assert_allclose(gs, want_s, rtol=0, atol=TOL)
+        for row in range(gi.shape[0]):
+            fused = dict(zip(want_i[row].tolist(), want_s[row].tolist()))
+            for slot, (a, b) in enumerate(zip(gi[row], want_i[row])):
+                if a != b and slot < gi.shape[1] - 1:
+                    # a near-tie of the fused scores may flip
+                    assert a in fused and abs(fused[a] - fused[b]) < TOL
 
 
 _INT = {"int8": (quantize_rows, topk_matmul_int8, topk_matmul_int8_reference),

@@ -2,10 +2,13 @@
 already holds JAX through tests/conftest.py), import instsearch_torch and its
 evaluation package, build a tiny bf16 Index and a tiny int4 one on the CPU,
 search them (the second with alpha query expansion, then through a PQ
-cascade view), run a tiny ViT on its three attention routes and the
-multi-scale resize and a tiny ResNet through ``fused_resnet_apply`` (its
-identity blocks through K7's plain version), then check sys.modules: neither JAX nor any module of
-the reference package was loaded."""
+cascade view), re-rank the first against a regional store with the spatial
+vote and refine an int4 one against its int8 copy, run VGG16 with R-MAC
+through the combined global and regional extraction, run a tiny ViT on its
+three attention routes and the multi-scale resize and a tiny ResNet through
+``fused_resnet_apply`` (its identity blocks through K7's plain version),
+then check sys.modules: neither JAX nor any module of the reference package
+was loaded."""
 import json
 import os
 import subprocess
@@ -38,6 +41,27 @@ qidx.build_pq(m=4, iters=3, depth=40)
 ps, pi = qidx.search(x[:3], qidx.cfg.search.replace(qe_enabled=True))
 assert pi[:, 0].tolist() == i[:, 0].tolist()
 import torch
+from instsearch_torch import ExtractConfig, SearchConfig
+from instsearch_torch.extractor import Extractor
+from instsearch_torch.index import attach_regional_store
+from instsearch_torch.ops.pooling import rmac_region_geometry
+reg = rng.standard_normal((40, 14, 16)).astype(np.float32)
+reg /= np.linalg.norm(reg, axis=-1, keepdims=True)
+attach_regional_store(idx, reg)
+idx.regional_geom = rmac_region_geometry(6, 6, 3)
+rr = SearchConfig(rerank_enabled=True, rerank_depth=20, spatial_weight=0.5)
+rs, ri = idx.search(x[:3], rr, query_regional=reg[:3])
+assert ri[:, 0].tolist() == [0, 1, 2]
+rcfg = PipelineConfig(index=IndexConfig(row_tile=16, dtype="int4",
+                                        refine_dtype="int8"),
+                      search=SearchConfig(refine_enabled=True))
+ridx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], rcfg,
+                              device="cpu")
+assert ridx.search(x[:3])[1][:, 0].tolist() == [0, 1, 2]
+ex = Extractor(ExtractConfig(backbone="vgg16", pooling="rmac",
+                             image_size=32), device="cpu")
+g, r = ex.extract_with_regional(np.zeros((1, 32, 32, 3), np.uint8))
+assert tuple(g.shape) == (1, 512) and tuple(r.shape) == (1, 14, 512)
 import instsearch_torch.kernels.vit_attention
 import instsearch_torch.ops.resize
 from instsearch_torch.data.frontend import rescale

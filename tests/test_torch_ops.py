@@ -69,8 +69,19 @@ def test_pooling(pooling, dtype):
 
 
 def test_rmac_not_ported():
-    with pytest.raises(NotImplementedError):
-        tpool.pool(torch.zeros((1, 4, 4, 8)), ExtractConfig(pooling="rmac"))
+    """R-MAC was the one pooling left unported; ``pool`` now dispatches it
+    at the config's levels, equal to JAX's (tests/test_torch_rmac.py holds
+    the grid and the rounding points)."""
+    rng = np.random.default_rng(3)
+    fmap = np.maximum(rng.standard_normal((2, 6, 9, 16)), 0).astype(
+        np.float32)
+    for levels in (1, 3):
+        cfg = ExtractConfig(pooling="rmac", rmac_levels=levels)
+        want = np.asarray(jpool.pool(jnp.asarray(fmap), cfg))
+        got = tpool.pool(torch.from_numpy(fmap), cfg).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="unknown pooling"):
+        tpool.pool(torch.zeros((1, 4, 4, 8)), ExtractConfig(pooling="spoc"))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -177,29 +177,46 @@ def test_serve_core_answers_like_query_images(rig):
 
 
 def test_unported_stages_raise(rig):
-    """int8, int4 and QE are ported; l2, shards, refine, rerank,
-    diffusion, subsets and regional extraction still raise."""
+    """int8, int4, QE, re-rank, refine and regional extraction are ported;
+    l2, shards, diffusion, subsets and re-rank under the PQ cascade still
+    raise."""
     _, _, _, tidx, qimgs = rig
     q = tidx.extractor(qimgs[:1])
     s, i = tidx.search(q, CFG.search.replace(qe_enabled=True))
     assert i.shape == (1, 10) and np.isfinite(s).all()
-    for field in ("rerank_enabled", "diffusion_enabled", "refine_enabled"):
-        with pytest.raises(NotImplementedError):
-            tidx.search(q, CFG.search.replace(**{field: True}))
+    # re-rank without a regional store ranks as plain search, as in the
+    # reference; refine without the refine store is a config error
+    np.testing.assert_array_equal(
+        tidx.search(q, CFG.search.replace(rerank_enabled=True))[1],
+        tidx.search(q)[1])
+    with pytest.raises(ValueError, match="refine store"):
+        tidx.search(q, CFG.search.replace(refine_enabled=True))
+    with pytest.raises(NotImplementedError):
+        tidx.search(q, CFG.search.replace(diffusion_enabled=True))
     with pytest.raises(NotImplementedError):
         tidx.search(q, subset=["x"])
-    with pytest.raises(NotImplementedError):
-        tidx.extractor.extract_regional(qimgs[:1])
-    with pytest.raises(NotImplementedError):
-        tidx.extractor.extract_paths_with_regional([])
+    reg = tidx.extractor.extract_regional(qimgs[:1])
+    assert tuple(reg.shape) == (1, len(tidx.extractor.regional_geometry()),
+                                tidx.dim)
+    descs, regional, kept = tidx.extractor.extract_paths_with_regional([])
+    assert descs.shape[0] == regional.shape[0] == kept.shape[0] == 0
     rows = np.eye(4, 8, dtype=np.float32)
-    for icfg in (IndexConfig(metric="l2"), IndexConfig(num_shards=2),
-                 IndexConfig(dtype="int4", refine_dtype="int8")):
+    for icfg in (IndexConfig(metric="l2"), IndexConfig(num_shards=2)):
         with pytest.raises(NotImplementedError):
             Index.from_descriptors(rows, list("abcd"), CFG.replace(index=icfg),
                                    device="cpu")
-    for dtype in ("int8", "int4"):
-        idx = Index.from_descriptors(rows, list("abcd"),
-                                     CFG.replace(index=IndexConfig(dtype=dtype)),
-                                     device="cpu")
+    for icfg in (IndexConfig(dtype="int8"), IndexConfig(dtype="int4"),
+                 IndexConfig(dtype="int4", refine_dtype="int8")):
+        idx = Index.from_descriptors(rows, list("abcd"), CFG.replace(
+            index=icfg, search=CFG.search.replace(
+                refine_enabled=bool(icfg.refine_dtype))), device="cpu")
         assert idx.search(rows)[1][:, 0].tolist() == [0, 1, 2, 3]
+    many = np.random.default_rng(0).standard_normal((64, 8)).astype(
+        np.float32)
+    pq = Index.from_descriptors(many, [f"r{i}" for i in range(64)], CFG,
+                                device="cpu")
+    pq.build_pq(m=2, iters=2, depth=16)
+    pq.regional = torch.zeros((pq.descriptors.shape[0], 1, 8))
+    with pytest.raises(NotImplementedError, match="M9"):
+        pq.search(many[:2], pq.cfg.search.replace(rerank_enabled=True),
+                  query_regional=many[:2, None, :])

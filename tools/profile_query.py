@@ -25,7 +25,17 @@ batch:
     kernels (K5/K6), other elementwise, copies, top-k pass 1 and top-k
     pass 2;
   * ``wall_ms``: host time under the profiler, and ``wall_p50_ms`` without
-    it; ``idle`` and ``idle_unprofiled``: 1 - busy / each wall.
+    it; ``idle`` and ``idle_unprofiled``: 1 - busy / each wall;
+  * with a re-rank preset (``configs/rerank_regional_top100.json``,
+    ``configs/spatial_rerank_top100.json``): the store also carries a
+    regional store ``[rows, 14, dim]`` bf16 on the card (the corpus's
+    regional rows from one combined pass, seeded unit rows for the rest),
+    and ``rerank_<part>_ms`` is the device time of the kernels launched in
+    each part of the re-rank stage (``search/rerank.py``'s profiler ranges:
+    ``gather``, the candidates' regions gathered and widened to f32;
+    ``products``, the region products; ``match``; ``vote``, the spatial
+    vote; ``select``, the fused top-k). Those kernels are also in the
+    categories above.
 
 ``--resnet-route`` profiles the ResNet-50 backbone forward alone at 224 px
 instead (chip_smoke.py phase 6: seeded weights, randomized BatchNorm): the
@@ -49,11 +59,12 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import IMAGE, card_line, report, smooth_images  # noqa: E402
+from chip_smoke import (IMAGE, card_line, regional_unit_rows,  # noqa: E402
+                        report, smooth_images)
 from instsearch_torch import (ExtractConfig, IndexConfig,  # noqa: E402
                               PipelineConfig, SearchConfig)
 from instsearch_torch.extractor import Extractor  # noqa: E402
-from instsearch_torch.index import Index  # noqa: E402
+from instsearch_torch.index import Index, attach_regional_store  # noqa: E402
 from instsearch_torch.ops.whitening import (apply_whitening,  # noqa: E402
                                             fit_whitening)
 
@@ -93,18 +104,32 @@ PHASE2 = PipelineConfig(
 
 
 def build_index(gen, rows: int, corpus: int, cfg: PipelineConfig):
-    """(index, the corpus's uint8 images)."""
+    """(index, the corpus's uint8 images); with ``rerank_enabled`` the index
+    carries a regional store."""
     ex = Extractor(cfg.extract.replace(whiten=False), seed=0, device="cuda")
     images = smooth_images(gen, corpus, size=cfg.extract.image_size)
     bs = cfg.extract.batch_size
-    raw = torch.cat([ex(images[s:s + bs]) for s in range(0, corpus, bs)])
+    rerank = cfg.search.rerank_enabled
+    outs = [ex.extract_with_regional(images[s:s + bs]) if rerank
+            else (ex(images[s:s + bs]), None) for s in range(0, corpus, bs)]
+    raw = torch.cat([g for g, _ in outs])
     ex.whitening = fit_whitening(raw, dim=cfg.extract.whiten_dim or None)
     dim = ex.whitening.P.shape[0]
     distract = torch.randn(rows - corpus, dim, generator=gen, device="cuda")
     distract = distract / distract.norm(dim=1, keepdim=True)
     store = torch.cat([apply_whitening(raw, ex.whitening), distract])
     names = [f"row{i:07d}" for i in range(rows)]
-    return Index.from_descriptors(store, names, cfg, extractor=ex), images
+    idx = Index.from_descriptors(store, names, cfg, extractor=ex)
+    if rerank:
+        reg_raw = torch.cat([r for _, r in outs])
+        reg = torch.empty((rows, reg_raw.shape[1], dim), dtype=torch.bfloat16,
+                          device="cuda")
+        reg[:corpus] = apply_whitening(reg_raw, ex.whitening)
+        regional_unit_rows(gen, rows, corpus, reg)
+        attach_regional_store(idx, reg)
+    return idx, images
+
+
 
 
 def profile_calls(call, reps: int) -> dict:
@@ -129,8 +154,16 @@ def profile_calls(call, reps: int) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     split: dict[str, float] = {}
+    parts: dict[str, float] = {}
     count = 0
     for e in prof.events():
+        if getattr(e, "is_user_annotation", False):
+            if (e.device_type == DeviceType.CPU
+                    and e.name.startswith("rerank.")):
+                part = f"rerank_{e.name.split('.', 1)[1]}_ms"
+                parts[part] = parts.get(part, 0.0) + getattr(
+                    e, "device_time_total", 0.0) / 1e3
+            continue
         if e.device_type != DeviceType.CUDA:
             continue
         count += 1
@@ -141,6 +174,7 @@ def profile_calls(call, reps: int) -> dict:
     busy = sum(split.values()) / reps
     return {"kernels": count / reps, "busy_ms": busy,
             **{f"{c}_ms": v / reps for c, v in sorted(split.items())},
+            **{p: v / reps for p, v in sorted(parts.items())},
             "wall_ms": wall, "wall_p50_ms": statistics.median(walls),
             "idle": 1 - busy / wall,
             "idle_unprofiled": 1 - busy / statistics.median(walls)}
@@ -212,6 +246,8 @@ def main() -> int:
                backbone=cfg.extract.backbone,
                vit_attention=cfg.extract.vit_attention,
                store=cfg.index.dtype, qe=cfg.search.qe_enabled,
+               rerank=cfg.search.rerank_enabled,
+               spatial_weight=cfg.search.spatial_weight,
                rows=args.rows, b=b, reps=args.reps,
                **profile_calls(lambda: idx.query_images(batch), args.reps))
     return 0
