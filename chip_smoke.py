@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs nine phases; each raises on failure and the process exits non-zero.
+runs ten phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
@@ -35,15 +35,17 @@ runs nine phases; each raises on failure and the process exits non-zero.
      K1 must launch once per bucket piece; an index whose own config takes
      the scoring oracle must agree;
   3. the quantized paths, ``configs/capacity_int4.json`` and
-     ``configs/million_scale_int8.json`` (one shard) as loaded, with alpha
-     query expansion: ResNet-50 at 512 px extracts 1024 seeded images,
-     stored among seeded unit distractor rows as 1M int4 (then int8) rows
-     behind ``ServeCore``; the same requests. Every top-1 must be its
-     source; K3 (K2) must launch twice per bucket piece (top-qe_n, then the
-     final top-k); the composite with the kernel replaced by its plain
-     version must give equal ids and scores. It prints the top-10 overlap
-     with the scoring oracle's route, which measures the int8 query's
-     quantization, and is not a check;
+     ``configs/million_scale_int8.json`` as loaded, with alpha query
+     expansion: ResNet-50 at 512 px extracts 1024 seeded images, stored
+     among seeded unit distractor rows as 1M int4 (then int8) rows behind
+     ``ServeCore``; the same requests. Every top-1 must be its source; K3
+     (K2) must launch twice per bucket piece (top-qe_n, then the final
+     top-k); the composite with the kernel replaced by its plain version
+     must give equal ids and scores. The int8 preset's 8 shards then serve
+     the requests on cuda:0 (``ServeCore(sharded=True)``): K2 16 times per
+     piece, its answers equal to the single-device route's bit for bit. It
+     prints the top-10 overlap with the scoring oracle's route, which
+     measures the int8 query's quantization, and is not a check;
   4. the PQ cascade through its entry points: phase 3's int4 store of
      ``configs/capacity_int4.json`` gains ``Index.build_pq()`` with the
      reference's defaults (M = 64, 15 iterations, 262,144-row fit sample,
@@ -94,17 +96,38 @@ runs nine phases; each raises on failure and the process exits non-zero.
      512] bf16 regional store made on the card (the corpus's regional rows
      and seeded unit rows for the distractors), the same requests with
      re-rank and with ``spatial_weight = 0.5``
-     (``configs/spatial_rerank_top100.json`` cut to one shard): every top-1
-     its source, K1 once per bucket piece (the top-100) and no other kernel,
-     the composite over K1's plain version agreeing on fused scores within
-     SCORE_TOL and on ids but at near-ties of them, the oracle twin on every
-     top-1; the query p50 at B = 1, 8 and 128 with re-rank, with spatial
-     and without either, and the re-rank stage's device time (CUDA events
-     around ``rerank_from_candidates``); (c) the exact-refine tier over
+     (``configs/spatial_rerank_top100.json``, the same store behind its
+     config): every top-1 its source, K1 once per bucket piece (the
+     top-100) and no other kernel, the composite over K1's plain version
+     agreeing on fused scores within SCORE_TOL and on ids but at near-ties
+     of them, the oracle twin on every top-1; the spatial preset's 2 shards
+     on cuda:0 then serve the requests (K1 twice a piece), agreeing with
+     its single-device route by the same rule; the query p50 at B = 1, 8
+     and 128 with re-rank, with spatial and without either, K1 at depth
+     100 beside ``torch.topk(q @ x.T, 100)``, and the re-rank stage's
+     device time (CUDA events around ``rerank_from_candidates``); (c) the
+     exact-refine tier over
      phase 3's 1M-row int4 store (``configs/capacity_int4.json`` with
      ``refine_dtype="int8"``, refine on, QE off): K3 once per bucket piece
      at depth 100, every top-1 its source, equal ids and scores through
-     K3's plain version, the p50 at B = 1 and 128. It fails if TF32 is on.
+     K3's plain version, the p50 at B = 1 and 128. It fails if TF32 is on;
+  9. the sharded index of workload 4, ``configs/oxford105k_sharded8.json``
+     as loaded: ResNet-50 at 512 px (bf16, GeM p=3) extracts 4096 seeded
+     images, whitened at full width (D = 2048), among seeded unit rows up to
+     Oxford105k's 105,133 (106,496 padded rows, 8 shards of 13,312, 0.44 GB
+     in bf16), the 8 shards as views of the store on cuda:0 behind
+     ``ServeCore(sharded=True)``; the requests of phase 2. Every top-1 must
+     be its source; K1 must launch 8 times per bucket piece and no other
+     kernel; the sharded search must agree with the single-device one by
+     K1's rule (``check_against_plain``) and ``full_ranking`` through
+     ``all_scores`` must equal the single-device ranking; the p50 of
+     ``query_images`` and of the search alone at B = 1, 8 and 128 by both
+     routes, peak device memory. Then (9c) the multi-process form at world
+     size 1: ``initialize()`` starts an NCCL group from a loopback address,
+     ``build_multihost_index`` holds the same rows as 8 local shards, and
+     its search must give phase 9's answer, K1 8 times; its B = 1 p50 beside
+     the one-process route's (the group's all_gather at world size 1; a
+     collective across cards is not measured on one card).
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -132,7 +155,9 @@ launches on the main path, its largest difference from its plain version,
 its median time and its plain version's at 1M rows, B = 1, k = 10 (K1 and
 K3 count phase 8's launches too, also apart as ``launches_phase8``, and
 carry their times at depth 100 on phase 8's stores, ``ms_b{1,8,128}_k100``,
-``plain_ms_b..._k100``, ``bound_ms_b..._k100``; K1-K4
+``plain_ms_b..._k100``, ``library_ms_b..._k100`` (K1 only; null for K3),
+``bound_ms_b..._k100``; K1 and K2 count the sharded routes' launches too,
+also apart as ``launches_sharded``; K1-K4
 also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
 ``bound_ms_b128``; K4 also at B = 8, k = 100 (``ms_b8_k100``,
 ``plain_ms_b8_k100``, ``bound_ms_b8_k100``) and over 64M rows at k = 100
@@ -186,6 +211,9 @@ FUSED_COS = 0.999
 REGIONS = 14            # phase 8: R-MAC regions at 512 px (a 32 x 32 map)
 RERANK_DEPTH = 100      # phase 8: the re-rank presets' rerank_depth
 RERANK_BUILD = 256      # phase 8b: images Index.build reads from PNG files
+OX_CORPUS = 4096        # phase 9: images extracted (whitening keeps 2048 of
+#                         at most N - 1 directions)
+OX_ROWS = 105_133       # phase 9: Oxford105k's rows
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
@@ -1017,9 +1045,6 @@ def phase3(card: str, gen) -> dict:
                                             "capacity_int4.json"))
     cfg8 = PipelineConfig.load(os.path.join(HERE, "configs",
                                             "million_scale_int8.json"))
-    reduced8 = {"num_shards": f"{cfg8.index.num_shards} -> 1: the sharded "
-                              f"index is not ported yet (ROADMAP M6)"}
-    cfg8 = cfg8.replace(index=cfg8.index.replace(num_shards=1))
     if cfg4.extract != cfg8.extract or not (cfg4.search.qe_enabled
                                             and cfg8.search.qe_enabled):
         fail("the two presets no longer share one QE extraction pipeline")
@@ -1041,11 +1066,11 @@ def phase3(card: str, gen) -> dict:
     picks = [rng.choice(CORPUS_Q, size=n, replace=False) for n in SIZES]
 
     out = {"extract_ips": ips}
-    for kind, path, cfg, kernel, plain, reduced in (
+    for kind, path, cfg, kernel, plain in (
             ("int4", "configs/capacity_int4.json", cfg4, topk_matmul_int4,
-             topk_matmul_int4_reference, {}),
+             topk_matmul_int4_reference),
             ("int8", "configs/million_scale_int8.json", cfg8,
-             topk_matmul_int8, topk_matmul_int8_reference, reduced8)):
+             topk_matmul_int8, topk_matmul_int8_reference)):
         idx = tindex.Index.from_descriptors(rows, names, cfg, extractor=ex)
         width = dim // 2 if kind == "int4" else dim
         if (tuple(idx.descriptors.shape) != (N_ROWS, width)
@@ -1055,7 +1080,7 @@ def phase3(card: str, gen) -> dict:
                  f"{idx.descriptors.dtype}")
         report(card, phase=3, config=path, store=kind, rows=N_ROWS, dim=dim,
                qe_n=cfg.search.qe_n, qe_alpha=cfg.search.qe_alpha,
-               reduced=reduced)
+               shards=cfg.index.num_shards)
         core = ServeCore(idx)
         launches = serve_requests(card, 3, core, images, picks,
                                   {kernel: 2})[kernel.__name__]
@@ -1082,10 +1107,50 @@ def phase3(card: str, gen) -> dict:
                top10_overlap_with_oracle_route=overlap)
         lat = query_latency(card, 3, idx, ex, images, rng, store=kind)
         out[kind] = {"launches": launches, "latency": lat,
-                     "oracle_overlap": overlap}
+                     "oracle_overlap": overlap,
+                     "sharded_launches": sharded_route(
+                         card, 3, idx, images, picks, q, (ks, ki), kernel, 2,
+                         equal_answers)}
         del idx, core
         torch.cuda.empty_cache()
     return out, (cfg4, rows, names, ex, images, picks)
+
+
+def equal_answers(ss, si, ks, ki) -> float:
+    """The rule of K2/K3's routes against each other: ids and scores equal
+    bit for bit (numpy); returns 0.0, the largest difference."""
+    import numpy as np
+    if not (np.array_equal(si, ki) and np.array_equal(ss, ks)):
+        fail("the sharded route and the single-device route differ")
+    return 0.0
+
+
+def sharded_route(card, phase, idx, images, picks, q, single, kernel,
+                  per_piece: int, check, query_regional=None) -> int:
+    """The index's own preset shard count S, all on cuda:0, behind
+    ``ServeCore(sharded=True)``: the requests, where ``kernel`` must launch
+    S times ``per_piece`` per bucket piece (one launch a shard for each of
+    the single-device route's) and no other kernel, every top-1 its source;
+    then ``search_sharded`` on the descriptors ``q`` against the
+    single-device answer ``single`` by ``check(scores, ids, single scores,
+    single ids)``. Returns the launches of the requests (0 for a preset of
+    one shard)."""
+    from instsearch_torch.parallel import make_mesh
+    from instsearch_torch.serve import ServeCore
+    shards = idx.cfg.index.num_shards
+    if shards == 1:
+        return 0
+    core = ServeCore(idx, sharded=True,
+                     mesh=make_mesh(shards, devices=["cuda"] * shards))
+    launches = serve_requests(card, phase, core, images, picks,
+                              {kernel: shards * per_piece})[kernel.__name__]
+    ss, si = idx.search_sharded(core.sidx, q, query_regional=query_regional)
+    err = check(ss, si, *single)
+    report(card, phase=phase, shards=shards, mesh="cuda:0 x "
+           f"{shards}", sharded_equals_single_device=True, max_abs_err=err,
+           queries=int(si.shape[0]), sharded_launches_in_main_path=launches,
+           ready=core.ready_info())
+    return launches
 
 
 def phase4(card: str, corpus) -> dict:
@@ -1697,7 +1762,8 @@ def depth_timings(card, kind: str, fn, ref, check, x, scales, q,
     """``fn`` (K1 or K3) at the re-rank depth on the phase's own store and
     query rows at B = 1, 8 and 128 (the rows repeated up to B): held to its
     plain version by ``check(q, scores, pos, plain scores, plain pos)`` and
-    timed beside it. Returns timings by B."""
+    timed beside it and, for K1 over a store of valid rows only, beside
+    ``torch.topk(q @ x.T, 100)``. Returns timings by B."""
     import numpy as np
     import torch
     args = (x,) if scales is None else (x, scales)
@@ -1711,11 +1777,18 @@ def depth_timings(card, kind: str, fn, ref, check, x, scales, q,
             err = check(qq, s, i, rs, ri)
         except AssertionError as e:
             fail(f"{fn.__name__} at depth {RERANK_DEPTH}, B={b}: {e}")
+        # the yardstick where one PyTorch call computes K1's function (every
+        # row valid): one bf16 product and torch.topk; none for K3
+        qb = qq.to(torch.bfloat16)
         out[b] = {"ms": cuda_median_ms(lambda: fn(*args, qq, k=RERANK_DEPTH,
                                                   num_valid=num_valid)),
                   "plain_ms": cuda_median_ms(
                       lambda: ref(*args, qq, k=RERANK_DEPTH,
                                   num_valid=num_valid), reps=5),
+                  "library_ms": (cuda_median_ms(
+                      lambda: torch.topk(qb @ x.T, RERANK_DEPTH))
+                      if kind == "bf16" and num_valid == x.shape[0]
+                      else None),
                   **bound(x.numel() * x.element_size() + b * width * 4
                           + b * RERANK_DEPTH * 8,
                           2 * b * x.shape[0] * width,
@@ -1761,12 +1834,11 @@ def phase8b(card: str, gen, topk, topk_ref, check, corpus) -> dict:
     if (cfg.extract != ex.cfg.replace(whiten=True)
             or cfg_sp.search != cfg.search.replace(spatial_weight=0.5)
             or cfg_sp.index.replace(num_shards=1) != cfg.index
-            or cfg.search.rerank_depth != RERANK_DEPTH):
+            or cfg.search.rerank_depth != RERANK_DEPTH
+            or N_ROWS % (cfg_sp.index.row_tile * cfg_sp.index.num_shards)):
         fail("the re-rank presets no longer share workload 2's extraction "
-             "or differ from each other beyond spatial_weight and shards")
-    reduced_sp = {"num_shards": f"{cfg_sp.index.num_shards} -> 1: the "
-                                f"sharded index is not ported yet "
-                                f"(ROADMAP M6)"}
+             "or differ from each other beyond spatial_weight and shards, "
+             "or their stores' layouts differ")
 
     # Index.build over files: one combined pass, whitening fitted on the
     # global descriptors, the regional store whitened and attached
@@ -1837,10 +1909,12 @@ def phase8b(card: str, gen, topk, topk_ref, check, corpus) -> dict:
 
     sel = np.concatenate(picks)
     q, qreg = ex.extract_with_regional(images[sel])
-    out = {"launches": 0}
-    for label, twin, reduced in (
-            ("rerank", idx, {}),
-            ("spatial", idx.with_search(spatial_weight=0.5), reduced_sp)):
+    out = {"launches": 0, "sharded_launches": 0}
+    # the spatial preset's 2 shards pad 1M rows as its 1 shard does, so its
+    # index is the same tensors behind its own config
+    spatial = idx.with_search(spatial_weight=0.5)
+    spatial.cfg = cfg_sp
+    for label, twin in (("rerank", idx), ("spatial", spatial)):
         core = ServeCore(twin)
         out["launches"] += serve_requests(card, 8, core, images, picks,
                                           {topk: 1})["topk_matmul"]
@@ -1863,7 +1937,11 @@ def phase8b(card: str, gen, topk, topk_ref, check, corpus) -> dict:
         report(card, phase=8, workload=5, stage=label,
                plain_kernel_route_agrees=True, max_abs_err=err,
                oracle_top1_agrees=True, queries=int(ki.shape[0]),
-               reduced=reduced)
+               shards=twin.cfg.index.num_shards)
+        out["sharded_launches"] += sharded_route(
+            card, 8, twin, images, picks, q, (ks, ki), topk, 1,
+            lambda *answers: check_fused_against_plain(*answers, SCORE_TOL),
+            query_regional=qreg)
 
     out["k1_depth"] = depth_timings(
         card, "bf16", topk, topk_ref,
@@ -1957,6 +2035,265 @@ def phase8c(card: str, int4_corpus, kernel, plain, check_exact) -> dict:
     return {"launches": launches, "latency": lat, "k3_depth": k3_depth}
 
 
+def workload4_rows(card, gen, cfg):
+    """Workload 4's rows: ResNet-50 at the preset's 512 px extracts
+    OX_CORPUS seeded images, whitened at full width (fitted on them), among
+    seeded unit distractor rows up to Oxford105k's OX_ROWS. Returns the
+    rows, names, the extractor and the images."""
+    import torch
+    from instsearch_torch.extractor import Extractor
+    from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
+    ex = Extractor(cfg.extract.replace(whiten=False), seed=0)
+    images = smooth_images(gen, OX_CORPUS, size=cfg.extract.image_size)
+    raw, ips = extract_corpus(card, 9, ex, images, cfg.extract.batch_size)
+    ex.whitening = fit_whitening(raw, dim=cfg.extract.whiten_dim or None)
+    corpus = apply_whitening(raw, ex.whitening)
+    if corpus.shape[1] != raw.shape[1] or not bool(
+            torch.isfinite(corpus).all()):
+        fail(f"workload 4: whitened descriptors {tuple(corpus.shape)} (the "
+             f"preset keeps all {raw.shape[1]} directions)")
+    distract = torch.randn(OX_ROWS - OX_CORPUS, corpus.shape[1],
+                           generator=gen, device="cuda")
+    rows = torch.cat([corpus, distract / distract.norm(dim=1, keepdim=True)])
+    names = ([f"img{i:05d}" for i in range(OX_CORPUS)]
+             + [f"distractor{i:06d}" for i in range(OX_ROWS - OX_CORPUS)])
+    return rows, names, ex, images, ips
+
+
+def sharded_latency(card, idx, sidx, ex, images, rng) -> dict:
+    """query_images and search p50 at B = 1, 8 and 128, through the sharded
+    index and on one device, host clock, synchronized by the results' host
+    copy."""
+    lat = {}
+    for b in (1, 8, 128):
+        batch = images[rng.choice(len(images), size=b, replace=False)]
+        qd = ex(batch)
+        for route, query, search in (
+                ("sharded",
+                 lambda: idx.query_images(batch, sharded_index=sidx),
+                 lambda: idx.search_sharded(sidx, qd)),
+                ("single device", lambda: idx.query_images(batch),
+                 lambda: idx.search(qd))):
+            query()                                  # warm this shape
+            e2e, alone = [], []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                query()
+                e2e.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                search()
+                alone.append((time.perf_counter() - t0) * 1e3)
+            lat[(route, b)] = {"query_images_p50_ms": statistics.median(e2e),
+                               "search_p50_ms": statistics.median(alone)}
+            report(card, phase=9, workload=4, route=route, query_batch=b,
+                   rows=OX_ROWS, **lat[(route, b)])
+    return lat
+
+
+def phase9(card: str, gen, topk, topk_ref, check) -> dict:
+    """Workload 4, configs/oxford105k_sharded8.json as loaded: ResNet-50 at
+    512 px (bf16, GeM p=3), PCA-whitening at full width (D = 2048) fitted on
+    OX_CORPUS seeded images, stored among seeded unit rows up to OX_ROWS
+    (Oxford105k's 105,133) in a bf16 store of the preset's 8 shards of
+    row_tile-multiples, all on cuda:0, behind ServeCore(sharded=True). Every
+    top-1 must be its source; K1 must launch 8 times per bucket piece and no
+    other kernel; the sharded search must agree with the single-device one
+    by K1's rule (``check``), both must agree with K1's plain version
+    (``topk_ref``) over the whole store, each shard's own K1 call at every
+    bucket batch with the plain version on its slice, and ``full_ranking``
+    through ``all_scores`` must equal the single-device ranking. Returns
+    the results and, for 9c, the index, the queries and the sharded
+    answer."""
+    import numpy as np
+    import torch
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.index import Index
+    from instsearch_torch.parallel import make_mesh
+    from instsearch_torch.serve import ServeCore
+
+    path = "configs/oxford105k_sharded8.json"
+    cfg = PipelineConfig.load(os.path.join(HERE, path))
+    e, ic, sc = cfg.extract, cfg.index, cfg.search
+    if ((e.backbone, e.image_size, e.pooling, e.gem_p, e.whiten_dim, e.dtype)
+            != ("resnet50", 512, "gem", 3.0, 0, "bfloat16")
+            or (ic.dtype, ic.num_shards, ic.row_tile) != ("bfloat16", 8, 1024)
+            or sc.k != 10 or sc.qe_enabled or sc.rerank_enabled):
+        fail(f"{path} is no longer workload 4's configuration")
+    shards = ic.num_shards
+    torch.cuda.reset_peak_memory_stats()
+    rows, names, ex, images, ips = workload4_rows(card, gen, cfg)
+    idx = Index.from_descriptors(rows, names, cfg, extractor=ex)
+    del rows
+    torch.cuda.empty_cache()
+    n_pad = -(-OX_ROWS // (ic.row_tile * shards)) * ic.row_tile * shards
+    if (tuple(idx.descriptors.shape) != (n_pad, 2048)
+            or idx.descriptors.dtype != torch.bfloat16):
+        fail(f"workload 4 store {tuple(idx.descriptors.shape)} "
+             f"{idx.descriptors.dtype}")
+    mesh = make_mesh(shards, devices=["cuda"] * shards)
+    core = ServeCore(idx, sharded=True, mesh=mesh)
+    sidx = core.sidx
+    per = sidx.rows_per_shard
+    views = all(sh.x.data_ptr() == idx.descriptors.data_ptr()
+                + j * per * idx.descriptors.stride(0) * 2
+                for j, sh in enumerate(sidx.shards))
+    if not views or [sh.num_valid for sh in sidx.shards] != [
+            max(0, min(OX_ROWS - j * per, per)) for j in range(shards)]:
+        fail("workload 4: the shards are not views of the store's row "
+             "slices with their valid rows")
+    report(card, phase=9, workload=4, config=path, backbone="resnet50",
+           image=e.image_size, dim=idx.dim, corpus=OX_CORPUS, rows=OX_ROWS,
+           padded_rows=n_pad, shards=shards, rows_per_shard=per,
+           mesh=f"cuda:0 x {shards}", store_gb=idx.descriptors.numel() * 2
+           / 1e9, ready=core.ready_info(),
+           reduced={"corpus": f"{OX_CORPUS} extracted images among "
+                    f"{OX_ROWS - OX_CORPUS} seeded unit rows (Oxford105k: "
+                    f"5,063 images and 100k Flickr distractors; seeded "
+                    f"random weights)"})
+    rng = np.random.default_rng(4)
+    picks = [rng.choice(OX_CORPUS, size=n, replace=False) for n in SIZES]
+    launches = serve_requests(card, 9, core, images, picks,
+                              {topk: shards})["topk_matmul"]
+
+    q = ex(images[np.concatenate(picks)])
+    ks, ki = idx.search(q)
+    ss, si = sidx.search(q)
+    if not torch.equal(idx.ids.cpu(), torch.arange(n_pad, dtype=idx.ids.dtype)
+                       .masked_fill(torch.arange(n_pad) >= OX_ROWS, -1)):
+        fail("workload 4: store ids are not its row positions")
+    on_card = [torch.from_numpy(a).cuda() for a in (ks, ki)]
+    try:
+        err = check(idx.descriptors, q, ss, si, *on_card, SCORE_TOL)
+    except AssertionError as why:
+        fail(f"workload 4: sharded and single-device search: {why}")
+    # K1 against its plain version at this path's shapes: both routes'
+    # answers against the plain top-k over the whole store, and each
+    # shard's K1 call (its view of the store, its valid rows; the last
+    # shard ends in padding) at every bucket batch against the plain
+    # version on the same slice
+    qm = sidx._match_query_dim(q)
+    plain = topk_ref(idx.descriptors, qm, k=sc.k, num_valid=OX_ROWS)
+    errs = [err]
+    for label, (s, i) in (("sharded", (ss, si)), ("single-device", on_card)):
+        try:
+            errs.append(check(idx.descriptors, qm, s, i, *plain, SCORE_TOL))
+        except AssertionError as why:
+            fail(f"workload 4: the {label} search against K1's plain "
+                 f"version: {why}")
+    shard_calls = 0
+    for b in core.buckets:
+        for j, sh in enumerate(sidx.shards):
+            got = topk(sh.x, qm[:b], k=sc.k, num_valid=sh.num_valid)
+            want = topk_ref(sh.x, qm[:b], k=sc.k, num_valid=sh.num_valid)
+            try:
+                errs.append(check(sh.x, qm[:b], *got, *want, SCORE_TOL))
+            except AssertionError as why:
+                fail(f"workload 4: shard {j}'s K1 call at B={b} "
+                     f"(num_valid {sh.num_valid}) against its plain "
+                     f"version: {why}")
+            shard_calls += 1
+    err = max(errs)
+    want = idx.full_ranking(q[:4])
+    got = sidx.full_ranking(q[:4])
+    if not np.array_equal(got, want):
+        fail(f"workload 4: full_ranking through all_scores differs from the "
+             f"single-device ranking at {int((got != want).sum())} places")
+    report(card, phase=9, workload=4, sharded_agrees_with_single_device=True,
+           both_agree_with_plain=True, shard_calls_held_to_plain=shard_calls,
+           shard_num_valid=[sh.num_valid for sh in sidx.shards],
+           buckets=core.buckets, max_abs_err=err, queries=int(ki.shape[0]),
+           full_ranking_equal=True, ranked=list(got.shape),
+           topk_launches_in_main_path=launches)
+    lat = sharded_latency(card, idx, sidx, ex, images, rng)
+    mem = {"peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "device_gb_now": torch.cuda.memory_allocated() / 1e9}
+    report(card, phase=9, workload=4, **mem)
+    return ({"launches": launches, "latency": lat, "extract_ips": ips, **mem},
+            (idx, sidx, q, ss, si))
+
+
+def phase9c(card: str, topk, topk_ref, check, ox) -> dict:
+    """The multi-process form at world size 1 on NCCL: ``initialize()`` from
+    a loopback MASTER_ADDR and a free port, ``build_multihost_index`` over
+    phase 9's rows as 8 local shards on cuda:0 (the process's rows are all
+    of them), and the same search, which must give phase 9's answer; the
+    group's default backend also gathers CPU shards (gloo), held to K1's
+    plain version. It shows the NCCL gather is wired; one card cannot
+    measure a collective across cards."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from instsearch_torch.parallel import (build_multihost_index,
+                                           global_shard_mesh, initialize,
+                                           local_row_range)
+    idx, sidx, q, ss, si = ox
+    shards = idx.cfg.index.num_shards
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # one process on the loopback: NCCL's and gloo's bootstraps stay on it
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", NCCL_SOCKET_IFNAME="lo",
+               GLOO_SOCKET_IFNAME="lo")
+    os.environ.update(env)
+    try:
+        # the default backend: gloo for CPU tensors, NCCL for CUDA ones
+        backend = str(dist.get_backend()) if initialize() else "none"
+        if "cuda:nccl" not in backend:
+            fail(f"initialize() did not start a group with NCCL for CUDA "
+                 f"tensors (backend: {backend})")
+        mesh = global_shard_mesh(["cuda"] * shards)
+        lo, hi = local_row_range(idx.descriptors.shape[0])
+        mh = build_multihost_index(idx.descriptors[lo:hi],
+                                   idx.ids.cpu().numpy(), mesh=mesh,
+                                   k=idx.cfg.search.k, dim=idx.dim)
+        if mh.mesh.group is None or mh.mesh.num_shards != shards:
+            fail("the multi-process mesh holds no group")
+        topk.launches = 0
+        ms, mi = mh.search(q)
+        launches = topk.launches
+        if launches != shards:
+            fail(f"the multi-process search launched K1 {launches} times, "
+                 f"not {shards}")
+        if not (torch.equal(mi, si) and torch.equal(ms, ss)):
+            fail("the multi-process search differs from phase 9's")
+        # the same group gathers CPU shards through its gloo half: two CPU
+        # shards of the store's first rows against the plain top-k there
+        n = 2 * idx.cfg.index.row_tile * shards
+        rows, qc = idx.descriptors[:n].cpu(), q.float().cpu()
+        cpu_mh = build_multihost_index(rows, np.arange(n),
+                                       mesh=global_shard_mesh(["cpu"] * 2),
+                                       k=idx.cfg.search.k, dim=idx.dim)
+        try:
+            check(rows, qc, *cpu_mh.search(qc),
+                  *topk_ref(rows, qc, k=idx.cfg.search.k), SCORE_TOL)
+        except AssertionError as why:
+            fail(f"the multi-process search over CPU shards: {why}")
+        # the search at B = 1 with and without the group's all_gather, in
+        # turns (host clock, synchronized by the ids' host copy)
+        qb = q[:1]
+        times = {"nccl group": [], "one process": []}
+        for _ in range(21):
+            for label, fn in (("nccl group", mh.search),
+                              ("one process", sidx.search)):
+                t0 = time.perf_counter()
+                fn(qb)[1].cpu()
+                times[label].append((time.perf_counter() - t0) * 1e3)
+        p50 = {label: statistics.median(t[1:]) for label, t in times.items()}
+        report(card, phase=9, workload=4, multi_process=True,
+               backend=dist.get_backend(), world=dist.get_world_size(),
+               shards=mh.mesh.num_shards, equals_phase9=True,
+               cpu_shards_agree_with_plain=True, topk_launches=launches,
+               search_b1_p50_ms=p50)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for v in env:
+            os.environ.pop(v, None)
+    return {"launches": launches, "search_b1_p50_ms": p50}
+
+
 def main() -> int:
     try:
         import torch
@@ -2029,8 +2366,19 @@ def main() -> int:
     res8c = phase8c(card, corpus, topk_matmul_int4,
                     topk_matmul_int4_reference, check_exact)
     del corpus
+    torch.cuda.empty_cache()
+    res9, ox = phase9(card, gen, topk_matmul, topk_matmul_reference,
+                      check_against_plain)
+    res9c = phase9c(card, topk_matmul, topk_matmul_reference,
+                    check_against_plain, ox)
+    del ox
     phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
               "topk_matmul_int4": res8c["launches"]}
+    # the sharded routes' launches, on the main path too (phases 3, 8b, 9,
+    # 9c; phase 9 has no single-device request)
+    sharded = {"topk_matmul": res8b["sharded_launches"] + res9["launches"]
+               + res9c["launches"],
+               "topk_matmul_int8": res3["int8"]["sharded_launches"]}
     depth = {"topk_matmul": res8b["k1_depth"],
              "topk_matmul_int4": res8c["k3_depth"]}
 
@@ -2049,8 +2397,10 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"instsearch_torch/csrc/{file}",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
-                     "launches": launches + phase8.get(name, 0),
+                     "launches": (launches + phase8.get(name, 0)
+                                  + sharded.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
+                     "launches_sharded": sharded.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2062,6 +2412,7 @@ def main() -> int:
         for b, t in depth.get(name, {}).items():   # phase 8, depth 100
             rows[-1].update({f"ms_b{b}_k100": t["ms"],
                              f"plain_ms_b{b}_k100": t["plain_ms"],
+                             f"library_ms_b{b}_k100": t["library_ms"],
                              f"bound_ms_b{b}_k100": t["bound_ms"]})
         if name == "pq_topk":   # phase 4's bucket, and 64M rows at depth 100
             t = timings["pq N=1M M=64 B=8 k=100"]

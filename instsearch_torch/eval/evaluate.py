@@ -1,7 +1,7 @@
-"""Benchmark evaluation (port of ``instsearch_tpu/eval/evaluate.py``,
-the single-device path): dataset -> query extraction with the protocol's
-bbox crop -> optional alpha-QE -> full ranking -> the re-ranked (or
-refined) head spliced in -> mAP."""
+"""Benchmark evaluation (port of ``instsearch_tpu/eval/evaluate.py``):
+dataset -> query extraction with the protocol's bbox crop -> optional
+alpha-QE -> full ranking -> the re-ranked (or refined) head spliced in ->
+mAP, on one device or through a sharded index."""
 from __future__ import annotations
 
 import numpy as np
@@ -89,14 +89,17 @@ def _splice_head(ranks: np.ndarray, top_ids: np.ndarray) -> np.ndarray:
 
 def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
                    search_cfg=None, crop_bbx: bool = True,
-                   include_ranks: bool = False) -> dict:
+                   sharded_index=None, include_ranks: bool = False) -> dict:
     """Full protocol evaluation: mAP / mP@k on the complete ranking. Alpha-QE
     from ``search_cfg`` expands the queries first, through the oracle over
     the whole store (``search/qe.py::alpha_query_expansion``), as the
     reference does. With ``rerank_enabled`` (and a regional store) or
     ``refine_enabled``, the top-``rerank_depth`` of that ranking is replaced
     by the composite's re-scored head (``Index.search``); the tail keeps
-    its global order. ``stages_applied`` lists the stages that ran."""
+    its global order. ``stages_applied`` lists the stages that ran.
+    ``sharded_index`` (``Index.to_sharded()``) routes the expansion, the
+    ranking and the heads through the sharded machinery instead: the same
+    math, row-sharded; extraction stays on the index's extractor."""
     index._check_rescoring_cfg(search_cfg or index.cfg.search)
     scfg = search_cfg or index.cfg.search
     ex = index.extractor
@@ -106,12 +109,17 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
     queries = _batched_apply(ex, qimgs, ex.cfg.batch_size)
     q = index._match_query_dim(torch.as_tensor(queries, device=index.device))
     applied = []        # the stages this evaluation ran
+    sidx = sharded_index
     if scfg.qe_enabled:
         applied.append("qe")
-        q = alpha_query_expansion(index.descriptors, index.ids, q,
-                                  n=scfg.qe_n, alpha=scfg.qe_alpha,
-                                  scales=index.scales, int4=index.is_int4)
-    ranks = index.full_ranking(q)
+        if sidx is not None:
+            q = sidx.expand_queries(q, qe_n=scfg.qe_n, alpha=scfg.qe_alpha)
+        else:
+            q = alpha_query_expansion(index.descriptors, index.ids, q,
+                                      n=scfg.qe_n, alpha=scfg.qe_alpha,
+                                      scales=index.scales,
+                                      int4=index.is_int4)
+    ranks = (sidx or index).full_ranking(q)
     depth = min(scfg.rerank_depth, index.descriptors.shape[0])
     if scfg.rerank_enabled and index.regional is not None:
         applied.append("rerank")
@@ -119,13 +127,25 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
             applied.append("spatial")
         query_regional = _batched_apply(ex.extract_regional, qimgs,
                                         ex.cfg.batch_size)
-        _, top_ids = index.search(
-            q, scfg.replace(qe_enabled=False, k=depth, rerank_depth=depth),
-            query_regional=query_regional)
+        if sidx is not None:
+            _, top_ids = sidx.search_rerank(
+                q, query_regional, k=depth, depth=depth,
+                spatial_weight=scfg.spatial_weight)
+            top_ids = top_ids.cpu().numpy()
+        else:
+            _, top_ids = index.search(
+                q, scfg.replace(qe_enabled=False, k=depth,
+                                rerank_depth=depth),
+                query_regional=query_regional)
         ranks = _splice_head(ranks, top_ids)
     if scfg.refine_enabled:
         applied.append("refine")
-        _, top_ids = index.search(q, scfg.replace(qe_enabled=False, k=depth))
+        if sidx is not None:
+            top_ids = sidx.search_refine(q, k=depth, depth=depth)[1]
+            top_ids = top_ids.cpu().numpy()
+        else:
+            _, top_ids = index.search(q, scfg.replace(qe_enabled=False,
+                                                      k=depth))
         ranks = _splice_head(ranks, top_ids)
     res = evaluate_ranks(ranks, dataset.gnd, protocol)
     res["dataset"] = dataset.name

@@ -40,8 +40,12 @@ global term.
 of an ADC scan over 4-bit codes (K4, ``kernels/pq_scan.py``, on the kernel
 route) and an exact re-score of its ``depth`` candidates against the store.
 
+``to_sharded`` cuts the store into ``num_shards`` row shards over a shard
+mesh (``parallel/``); ``query_images(sharded_index=...)``,
+``evaluate(sharded=True)`` and ``ServeCore(sharded=True)`` route through it.
+
 Not ported yet, and raising ``NotImplementedError`` rather than answering:
-``metric="l2"``, ``num_shards > 1``, subsets, re-rank under the PQ cascade,
+``metric="l2"``, subsets, re-rank under the PQ cascade,
 diffusion, local whitening, the IVF and IVF-PQ tiers, DBA, ``add``,
 ``remove``, ``merge_from`` and ``save``/``load`` (see ROADMAP).
 """
@@ -158,10 +162,6 @@ def _check_index_cfg(cfg) -> None:
     if icfg.dtype not in _DTYPES and icfg.dtype not in _QUANTIZE:
         raise ValueError(f"index dtype {icfg.dtype!r}: bfloat16, float32, "
                          f"int8 or int4")
-    if icfg.num_shards > 1:
-        raise NotImplementedError(
-            "num_shards > 1 (the sharded index) is not ported yet "
-            "(ROADMAP M6)")
     if icfg.refine_dtype:
         if icfg.refine_dtype != "int8":
             raise ValueError(f"refine_dtype={icfg.refine_dtype!r}: only "
@@ -654,15 +654,46 @@ class Index:
         two passes, for one."""
         if self.extractor is None:
             raise ValueError("index has no extractor attached")
-        if sharded_index is not None:
-            raise NotImplementedError(
-                "the sharded index is not ported yet (ROADMAP M6)")
         scfg = search_cfg or self.cfg.search
         self._check_rescoring_cfg(scfg)
+        qreg = None
         if scfg.rerank_enabled and self.regional is not None:
             q, qreg = self.extractor.extract_with_regional(images)
+        else:
+            q = self.extractor(images)
+        if sharded_index is None:
             return self.search(q, scfg, query_regional=qreg, subset=subset)
-        return self.search(self.extractor(images), scfg, subset=subset)
+        if subset is not None:
+            raise NotImplementedError(
+                "subset filters are not ported yet (ROADMAP M7)")
+        return self.search_sharded(sharded_index, q, scfg,
+                                   query_regional=qreg)
+
+    def search_sharded(self, sidx, queries, search_cfg=None,
+                       query_regional=None):
+        """Descriptor-space search through ``sidx`` (``to_sharded()``), the
+        reference's sharded route of ``query_images``: alpha-QE by
+        ``expand_queries``, then the regional re-rank (with
+        ``query_regional``), the exact refine (a one-region store, the query
+        its own region, no global term) or the plain sharded top-k ->
+        ``(scores [Q, k], ids [Q, k])`` numpy arrays. The PQ view is not
+        used: the sharded route keeps the exact scan, as in the
+        reference."""
+        scfg = search_cfg or self.cfg.search
+        self._check_rescoring_cfg(scfg)
+        q, qreg = queries, query_regional
+        if scfg.qe_enabled:
+            q = sidx.expand_queries(q, qe_n=scfg.qe_n, alpha=scfg.qe_alpha)
+        if (scfg.rerank_enabled and sidx.regional is not None
+                and qreg is not None):
+            s, i = sidx.search_rerank(q, qreg, k=scfg.k,
+                                      depth=scfg.rerank_depth,
+                                      spatial_weight=scfg.spatial_weight)
+        elif scfg.refine_enabled:
+            s, i = sidx.search_refine(q, k=scfg.k, depth=scfg.rerank_depth)
+        else:
+            s, i = sidx.search(q, k=scfg.k)
+        return s.cpu().numpy(), i.cpu().numpy()
 
     def add(self, *args, **kwargs):
         raise NotImplementedError(
@@ -690,13 +721,39 @@ class Index:
             "(ROADMAP M2)")
 
     def evaluate(self, dataset, protocol: str = "medium", search_cfg=None,
-                 sharded: bool = False) -> dict:
-        """Full protocol metrics on a RetrievalDataset (eval/evaluate.py)."""
-        if sharded:
-            raise NotImplementedError(
-                "sharded evaluation is not ported yet (ROADMAP M6)")
+                 sharded: bool = False, mesh=None) -> dict:
+        """Full protocol metrics on a RetrievalDataset (eval/evaluate.py).
+        ``sharded=True`` ranks, expands and re-ranks through
+        ``to_sharded(mesh)``: the same results, row-sharded."""
         from .eval.evaluate import evaluate_index
-        return evaluate_index(self, dataset, protocol, search_cfg)
+        sidx = self.to_sharded(mesh=mesh) if sharded else None
+        return evaluate_index(self, dataset, protocol, search_cfg,
+                              sharded_index=sidx)
+
+    def to_sharded(self, mesh=None, use_pallas: "bool | None" = None):
+        """This index row-sharded over a shard mesh
+        (``parallel/sharded_index.py``): a ``ShardedIndex`` serving the same
+        ids, with the regional store (or the refine copy) and its grid
+        geometry. ``mesh`` defaults to ``make_mesh(num_shards)`` (every
+        visible CUDA device when the config names no shards), which raises
+        where there are fewer devices than shards: to hold several shards
+        on one device, pass ``make_mesh(S, devices=[device] * S)``.
+        ``use_pallas`` defaults to the index's own route, so CUDA shards
+        launch the kernels. On the store's own device the shards are views
+        of it."""
+        from .parallel import ShardedIndex, make_mesh
+        if mesh is None:
+            n = self.cfg.index.num_shards
+            mesh = make_mesh(n if n > 1 else None)
+        if use_pallas is None:
+            use_pallas = bool(self.cfg.search.use_pallas)
+        return ShardedIndex(self.descriptors, self.ids, mesh=mesh,
+                            k=self.cfg.search.k, use_pallas=use_pallas,
+                            scales=self.scales, regional=self.regional,
+                            regional_scales=self.regional_scales,
+                            query_chunk=self.cfg.search.query_chunk,
+                            int4=self.is_int4,
+                            regional_geom=self.regional_geom, dim=self.dim)
 
     def full_ranking(self, queries) -> np.ndarray:
         """[Q, N] ranked original dataset ids best-first (valid rows only),

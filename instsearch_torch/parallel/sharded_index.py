@@ -1,0 +1,457 @@
+"""Row-sharded search (port of ``instsearch_tpu/parallel/sharded_index.py``:
+the exact stages over bf16, f32, int8 and int4 stores).
+
+The ``[N_pad, W]`` store is cut into S row shards over a :class:`ShardMesh`
+(``parallel/mesh.py``); the query is replicated. Each shard runs the fused
+top-k kernel of its store's kind on its own rows (K1 for float rows, K2 for
+int8, K3 for int4; on a CPU shard their plain versions), or the scoring
+oracle where the index's route is off or ``k`` passes the kernels'
+``K_MAX``, as ``Index.search`` routes. The only cross-shard traffic is the
+reference's: one gather of ``[Q, S*k]`` candidates (scores and dataset
+ids), merged by a stable descending sort, so ties go to the lowest shard and
+so to the lowest global row, as ``lax.top_k`` over the shard-ordered gather
+gives them. Alpha-QE gathers the dequantized candidate rows too; the
+regional re-rank gathers a global top-``depth`` membership, scores regions
+on each shard and gathers the fused scores; evaluation gathers the whole
+score matrix. The gathers, merges and membership tests are plain tensor
+code, as the reference computes them outside any Pallas kernel.
+
+Row padding lies at the store's tail, so a shard's valid rows number
+``clip(num_valid - shard * C, 0, C)``; a shard with none (whole trailing
+shards can be padding) answers ``(-inf, -1)`` without a launch.
+
+Not ported yet, and raising ``NotImplementedError``: subset masks and range
+search (ROADMAP M7), the IVF-PQ tier (M9), local whitening, diffusion and
+the database-side expansion (M8).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..kernels.topk_matmul import (K_MAX, topk_matmul, topk_matmul_int4,
+                                   topk_matmul_int8)
+from ..search.bruteforce import (gather_rows_f32, masked_scores, search_topk,
+                                 select_topk)
+from ..search.qe import expand_from_candidates
+from ..search.rerank import fused_scores, region_similarities
+from ..search.spatial import build_vote_matrix
+from ..utils.chunking import run_chunked
+from .mesh import ShardMesh, make_mesh, replicate, shard_rows
+
+_NEG = float("-inf")
+
+
+class Shard(NamedTuple):
+    """One shard's slice of the store, on its device: ``x [C, W]`` (int4:
+    ``[C, W/2]``), its dataset ``ids [C]``, row ``scales [1, C]`` (int8,
+    int4), the regional store ``[C, R, D]`` and its ``[C, R]`` scales (int8),
+    and its count of valid rows."""
+    x: torch.Tensor
+    ids: torch.Tensor
+    scales: "torch.Tensor | None"
+    regional: "torch.Tensor | None"
+    regional_scales: "torch.Tensor | None"
+    num_valid: int
+
+
+def _pad_cols(t: torch.Tensor, width: int, value) -> torch.Tensor:
+    if t.shape[1] >= width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[1]), value=value)
+
+
+def _local_topk(sh: Shard, q: torch.Tensor, kk: int, *, use_kernel: bool,
+                int4: bool):
+    """Per-shard top-``kk`` -> ``(scores, local positions)``, each ``[Q,
+    kk]``, empty slots ``(-inf, -1)``. ``kk`` past the shard's C rows is
+    clamped for the selection and padded back, so every caller's gather
+    stays ``S * kk`` wide. ``use_kernel``: the fused kernel of the store's
+    kind, else the scoring oracle (:func:`_route`)."""
+    kk_req, kk = kk, min(kk, sh.x.shape[0])
+    if sh.num_valid == 0:
+        s = q.new_full((q.shape[0], kk), _NEG, dtype=torch.float32)
+        pos = torch.full((q.shape[0], kk), -1, dtype=torch.int32,
+                         device=q.device)
+    elif not use_kernel:
+        s, pos = search_topk(sh.x, q, k=kk, ids=sh.ids, scales=sh.scales,
+                             int4=int4)
+    elif int4:
+        s, pos = topk_matmul_int4(sh.x, sh.scales, q, k=kk,
+                                  num_valid=sh.num_valid)
+    elif sh.x.dtype == torch.int8:
+        s, pos = topk_matmul_int8(sh.x, sh.scales, q, k=kk,
+                                  num_valid=sh.num_valid)
+    else:
+        s, pos = topk_matmul(sh.x, q, k=kk, num_valid=sh.num_valid)
+    return _pad_cols(s, kk_req, _NEG), _pad_cols(pos, kk_req, -1)
+
+
+def _route(use_pallas: bool, k: int) -> bool:
+    """The kernel route for a selection of ``k``: the index's route, and
+    ``k`` within the kernels' ``K_MAX`` (as ``Index.search``, so a shard
+    takes the route the single-device store takes for the same k)."""
+    return use_pallas and k <= K_MAX
+
+
+def _gather_rows_f32(sh: Shard, pos: torch.Tensor, int4: bool
+                     ) -> torch.Tensor:
+    """Dequantized f32 rows at local ``pos [Q, n]`` (zeros for empty
+    slots) -> ``[Q, n, D]``."""
+    rows = gather_rows_f32(sh.x, pos.clamp(min=0), sh.scales, int4=int4)
+    return torch.where((pos >= 0)[..., None], rows,
+                       torch.zeros((), device=rows.device))
+
+
+def merge_topk(scores: torch.Tensor, pos: torch.Tensor, kk: int, c: int,
+               ids: torch.Tensor, k: int):
+    """The merge of gathered candidates: ``scores/pos [Q, S*kk]``, each
+    shard's ``kk`` scores and local positions in global shard order, shards
+    of ``c`` rows -> ``(scores [Q, k], dataset ids [Q, k], global rows [Q,
+    k])``. A stable descending sort, so ties keep the gather's order: the
+    lowest shard, then its lowest row. The winners' rows are mapped to
+    ``ids`` (all ``N_pad`` of them) once, after the merge; empty slots and
+    slots past ``S*kk`` come back ``(-inf, -1, -1)``."""
+    s, j = select_topk(scores, k)
+    jj = j.clamp(min=0).long()
+    rows = torch.gather(pos, 1, jj).long() + (jj // kk) * c
+    rows = torch.where(j >= 0, rows, torch.full_like(rows, -1))
+    out = torch.where(j >= 0, ids[rows.clamp(min=0)], torch.full_like(j, -1))
+    return s, out, rows
+
+
+def _gather_topk(mesh: ShardMesh, shards, qs, kk: int, use_kernel: bool,
+                 int4: bool):
+    """Every shard's top-``kk`` gathered -> ``(scores, positions)`` ``[Q,
+    S*kk]`` in global shard order, and the local ``(scores, positions)``
+    of each local shard."""
+    local = [_local_topk(sh, q, kk, use_kernel=use_kernel, int4=int4)
+             for sh, q in zip(shards, qs)]
+    return (mesh.gather([s for s, _ in local]),
+            mesh.gather([p for _, p in local]), local)
+
+
+def sharded_topk(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int, *,
+                 use_pallas: bool, int4: bool):
+    """The sharded search: per-shard top-k, one gather of ``[Q, S*k]``,
+    the merge -> ``(scores [Q, k], dataset ids [Q, k])``. ``qs``: the query
+    on each local shard's device (``replicate``); ``ids``: the dataset ids
+    of all rows, on the first device."""
+    s_all, p_all, _ = _gather_topk(mesh, shards, qs, k, _route(use_pallas, k),
+                                   int4)
+    s, out, _ = merge_topk(s_all, p_all, k, shards[0].x.shape[0], ids, k)
+    return s, out
+
+
+def sharded_expand(mesh: ShardMesh, shards, qs, qe_n: int, alpha: float, *,
+                   use_pallas: bool, int4: bool) -> torch.Tensor:
+    """Alpha-QE expansion (round 1 of :func:`sharded_qe_topk`): per-shard
+    top-``qe_n`` and its dequantized rows, gathered; the merged top-``qe_n``
+    expands the query -> ``[Q, D]`` f32 unit-norm on the first device
+    (arXiv:1711.02512 §5). Evaluation ranks the whole store with it."""
+    s_parts, r_parts = [], []
+    for sh, q in zip(shards, qs):
+        s, pos = _local_topk(sh, q, qe_n, use_kernel=_route(use_pallas, qe_n),
+                             int4=int4)
+        s_parts.append(s)
+        r_parts.append(_gather_rows_f32(sh, pos, int4))
+    s_all = mesh.gather(s_parts)                               # [Q, S*n]
+    r_all = mesh.gather(r_parts)                               # [Q, S*n, D]
+    top_s, j = select_topk(s_all, qe_n)
+    rows = torch.take_along_dim(r_all, j.clamp(min=0).long()[..., None], 1)
+    rows = torch.where((j >= 0)[..., None], rows,
+                       torch.zeros((), device=rows.device))
+    return expand_from_candidates(qs[0], top_s, rows, alpha)
+
+
+def sharded_qe_topk(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int,
+                    qe_n: int, alpha: float, *, use_pallas: bool, int4: bool):
+    """Search with alpha-QE: round 1 (:func:`sharded_expand`, two gathers),
+    then :func:`sharded_topk` with the expanded query."""
+    q_exp = sharded_expand(mesh, shards, qs, qe_n, alpha,
+                           use_pallas=use_pallas, int4=int4)
+    return sharded_topk(mesh, shards, replicate(mesh, q_exp), ids, k,
+                        use_pallas=use_pallas, int4=int4)
+
+
+def sharded_scores(mesh: ShardMesh, shards, qs, *, int4: bool
+                   ) -> torch.Tensor:
+    """The full ``[Q, N_pad]`` score matrix, padding -inf: each shard's
+    scoring oracle (``masked_scores``), gathered along the rows."""
+    return mesh.gather([masked_scores(sh.x, q, scales=sh.scales, ids=sh.ids,
+                                      int4=int4)
+                        for sh, q in zip(shards, qs)])
+
+
+def sharded_rerank(mesh: ShardMesh, shards, qs, qregs, ids: torch.Tensor,
+                   k: int, depth: int, *, fuse_weight: float = 1.0,
+                   use_pallas: bool, int4: bool, spatial_weight: float = 0.0,
+                   votes=None):
+    """Regional re-ranking over the sharded regional store, the reference's
+    three steps:
+
+      1. per-shard top-``min(depth, C)`` (enough to cover the global
+         top-``depth``: a shard can give at most its rows), gathered; the
+         replicated global top-``depth`` set;
+      2. each shard scores the regions of its own candidates that are
+         members of that set (``region_similarities`` on local positions,
+         int8 scales folded into the similarities), plus the spatial vote
+         when ``spatial_weight > 0`` (``votes``: the vote matrix on each
+         local device); non-members -inf;
+      3. the fused scores gathered and merged to ``[Q, k]``, padded with
+         ``(-inf, -1)`` past the gathered width.
+
+    Membership is by global row, where the reference compares dataset ids:
+    the same set wherever ids are unique, as an index's are. The fused
+    score is the single-device stage's (``search/rerank.py::fused_scores``)."""
+    c = shards[0].x.shape[0]
+    local_k = min(depth, c)
+    # the route of the single-device stage's top-depth
+    s_all, p_all, local = _gather_topk(mesh, shards, qs, local_k,
+                                       _route(use_pallas, depth), int4)
+    glob = merge_topk(s_all, p_all, local_k, c, ids, depth)[2]
+    fused_parts = []
+    for j, (sh, qreg, (s, pos)) in enumerate(zip(shards, qregs, local)):
+        rows = pos.long() + (mesh.first_shard + j) * c
+        member = ((rows[:, :, None] == glob.to(pos.device)[:, None, :])
+                  .any(dim=2) & (pos >= 0))
+        sim = region_similarities(sh.regional, pos, qreg, sh.regional_scales)
+        fused_parts.append(fused_scores(
+            sim, s, member, fuse_weight=fuse_weight,
+            spatial_weight=spatial_weight,
+            vote_matrix=None if votes is None else votes[j]))
+    s, out, _ = merge_topk(mesh.gather(fused_parts), p_all, local_k, c, ids,
+                           k)
+    return s, out
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} on the sharded index is not ported "
+                              f"yet (ROADMAP {item})")
+
+
+class ShardedIndex:
+    """The store row-sharded over a :class:`ShardMesh`.
+
+    ``descriptors``: this process's rows (all of them in a single process),
+    ``[N_local, W]`` bf16/f32/int8 or packed int4 ``[N_local, W/2]`` (with
+    ``int4=True``); ``ids``: the dataset ids of ALL ``N_pad`` rows (-1 for
+    padding), identical on every process (ids are metadata: each process
+    maps merged winners and full rankings to ids itself); ``scales``: this
+    process's ``[1, N_local]`` row scales (int8, int4);
+    ``regional``/``regional_scales``: this process's rows of the
+    re-rank store ``[N_local, R, D]`` and its ``[N_local, R]`` scales (an
+    int8 store); ``regional_geom``: the R-MAC grid's ``[R, 3]`` geometry for
+    the spatial vote; ``dim``: the descriptor width queries come in
+    (default: the stored width), padded with the store's zero columns.
+    ``use_pallas`` is the kernel route (a CUDA shard launches the kernels,
+    a CPU shard takes their plain versions), on by default as in
+    ``SearchConfig``; off, the scoring oracle.
+    Results are tensors on the mesh's first device, the same on every
+    process."""
+
+    def __init__(self, descriptors, ids, mesh: "ShardMesh | None" = None,
+                 k: int = 10, use_pallas: bool = True, regional=None,
+                 scales=None, regional_scales=None, query_chunk: int = 128,
+                 int4: bool = False, regional_geom=None,
+                 dim: "int | None" = None):
+        self.mesh = mesh or make_mesh()
+        x = torch.as_tensor(descriptors)
+        ids_all = torch.as_tensor(ids).to(torch.int32)
+        n, s = ids_all.shape[0], self.mesh.num_shards
+        if n % s:
+            raise ValueError(f"padded rows {n} not divisible by {s} shards")
+        c = n // s
+        if x.shape[0] != c * self.mesh.num_local:
+            raise ValueError(
+                f"{x.shape[0]} local rows; {self.mesh.num_local} local "
+                f"shards of {c} rows ({n} ids over {s} shards) need "
+                f"{c * self.mesh.num_local}")
+        if x.dtype not in (torch.bfloat16, torch.float32, torch.int8):
+            raise ValueError(f"store dtype {x.dtype}: bfloat16, float32, "
+                             f"int8 or packed int4")
+        if x.dtype == torch.int8 and scales is None:
+            raise ValueError("int8/int4 descriptors need per-row scales")
+        if regional is not None and torch.as_tensor(regional).dtype == \
+                torch.int8 and regional_scales is None:
+            raise ValueError("int8 regional store needs per-region scales")
+        # every row's dataset id on the first device, where merges map
+        # their winners and full rankings their orders
+        self._ids = ids_all.to(self.mesh.devices[0])
+        self.num_valid = int((self._ids >= 0).sum())
+        self.num_rows = n
+        self.rows_per_shard = c
+        self.int4 = int4
+        self.descriptors = x
+        self.regional = regional
+        self.regional_geom = regional_geom
+        self.default_k = k
+        self.use_pallas = bool(use_pallas)
+        self.query_chunk = query_chunk
+        self.store_dim = 2 * x.shape[1] if int4 else x.shape[1]
+        self.dim = self.store_dim if dim is None else dim
+        self._votes = None
+
+        first = self.mesh.first_shard
+        local_ids = ids_all[first * c:(first + self.mesh.num_local) * c]
+
+        def split(t, dim=0):
+            return ([None] * self.mesh.num_local if t is None
+                    else shard_rows(self.mesh, torch.as_tensor(t), dim))
+
+        self.shards = [
+            Shard(xs, ids_s, sc, reg, rsc,
+                  max(0, min(self.num_valid - (first + j) * c, c)))
+            for j, (xs, ids_s, sc, reg, rsc) in enumerate(zip(
+                split(x), split(local_ids), split(scales, 1),
+                split(regional), split(regional_scales)))]
+
+    # ------------------------------------------------------------------
+    def _match_query_dim(self, q) -> torch.Tensor:
+        """Queries of the descriptor width (an int4 store of an odd width
+        also takes them one narrower, as the reference) gain the store's
+        zero columns, which never change a dot product; f32 on the first
+        device."""
+        q = torch.as_tensor(q, device=self.mesh.devices[0]).float()
+        if q.ndim == 1:
+            q = q[None]
+        w = q.shape[-1]
+        if w == self.dim or (self.int4 and w == self.dim - 1):
+            q = torch.nn.functional.pad(q, (0, self.store_dim - w))
+        if q.shape[-1] != self.store_dim:
+            raise ValueError(f"queries have width {w}, the store {self.dim}")
+        return q
+
+    def _run_chunked(self, run, *per_query):
+        """Pieces of at most ``query_chunk`` queries (utils/chunking.py, the
+        policy of ``Index.search``)."""
+        return run_chunked(run, self.query_chunk, *per_query)
+
+    def _kw(self) -> dict:
+        return {"use_pallas": self.use_pallas, "int4": self.int4}
+
+    @staticmethod
+    def _no_mask(mask) -> None:
+        if mask is not None:
+            _not_ported("subset masks", "M7")
+
+    # ------------------------------------------------------------------
+    def search(self, queries, k: "int | None" = None, mask=None):
+        """``(scores [Q, k], dataset ids [Q, k])``, the single-device top-k
+        over the whole store."""
+        self._no_mask(mask)
+        k = k or self.default_k
+        q = self._match_query_dim(queries)
+        return self._run_chunked(
+            lambda qq: sharded_topk(self.mesh, self.shards,
+                                    replicate(self.mesh, qq), self._ids,
+                                    k, **self._kw()), q)
+
+    def search_qe(self, queries, k: "int | None" = None, qe_n: int = 10,
+                  alpha: float = 3.0, mask=None):
+        """Search with alpha query expansion (two rounds of per-shard
+        kernels, three gathers)."""
+        self._no_mask(mask)
+        k = k or self.default_k
+        q = self._match_query_dim(queries)
+        return self._run_chunked(
+            lambda qq: sharded_qe_topk(
+                self.mesh, self.shards, replicate(self.mesh, qq),
+                self._ids, k, qe_n, alpha, **self._kw()), q)
+
+    def expand_queries(self, queries, qe_n: int = 10, alpha: float = 3.0,
+                       include_query: bool = True, mask=None
+                       ) -> torch.Tensor:
+        """Alpha-QE expansion -> the expanded queries ``[Q, W]`` f32 (the
+        store's width)."""
+        self._no_mask(mask)
+        if not include_query:
+            _not_ported("the database-side (αDBA) expansion", "M8")
+        q = self._match_query_dim(queries)
+        return self._run_chunked(
+            lambda qq: sharded_expand(self.mesh, self.shards,
+                                      replicate(self.mesh, qq), qe_n, alpha,
+                                      **self._kw()), q)
+
+    def _vote_matrices(self):
+        if self._votes is None:
+            v = build_vote_matrix(self.regional_geom, self.regional_geom)
+            self._votes = [torch.as_tensor(v, device=d)
+                           for d in self.mesh.devices]
+        return self._votes
+
+    def search_rerank(self, queries, query_regional, k: "int | None" = None,
+                      depth: int = 100, fuse_weight: float = 1.0,
+                      spatial_weight: float = 0.0, mask=None):
+        """Regional re-ranking over the sharded regional store
+        (:func:`sharded_rerank`); ``spatial_weight > 0`` adds the spatial
+        vote and needs ``regional_geom``. ``depth`` is cut to the store's
+        rows."""
+        self._no_mask(mask)
+        if self.regional is None:
+            raise ValueError("no regional store attached")
+        if spatial_weight and self.regional_geom is None:
+            raise ValueError("spatial_weight needs regional_geom (pass it "
+                             "to ShardedIndex or use Index.to_sharded)")
+        k = k or self.default_k
+        depth = min(depth, self.num_rows)
+        q = self._match_query_dim(queries)
+        qreg = torch.as_tensor(query_regional,
+                               device=self.mesh.devices[0]).float()
+        votes = self._vote_matrices() if spatial_weight else None
+        return self._run_chunked(
+            lambda qq, rr: sharded_rerank(
+                self.mesh, self.shards, replicate(self.mesh, qq),
+                replicate(self.mesh, rr), self._ids, k, depth,
+                fuse_weight=fuse_weight,
+                spatial_weight=spatial_weight, votes=votes,
+                **self._kw()), q, qreg)
+
+    def search_refine(self, queries, k: "int | None" = None,
+                      depth: int = 100):
+        """The exact refine over the one-region refine copy (the regional
+        slot of an int4 index with ``refine_dtype``): the re-rank with the
+        query, cut to the copy's width, as its one region and no global
+        term, as the single-device stage."""
+        if self.regional is None:
+            raise ValueError("no refine store attached")
+        q = self._match_query_dim(queries)
+        return self.search_rerank(q, q[:, None, :self.regional.shape[-1]],
+                                  k=k, depth=depth, fuse_weight=0.0)
+
+    def all_scores(self, queries) -> torch.Tensor:
+        """The full ``[Q, N_pad]`` score matrix (padding -inf)."""
+        q = self._match_query_dim(queries)
+        return self._run_chunked(
+            lambda qq: sharded_scores(self.mesh, self.shards,
+                                      replicate(self.mesh, qq),
+                                      int4=self.int4), q)
+
+    def full_ranking(self, queries) -> np.ndarray:
+        """``[Q, num_valid]`` dataset ids best-first through the sharded
+        scorer, the counterpart of ``Index.full_ranking`` for protocol
+        evaluation. Padding (-inf) sorts last and is cut."""
+        scores = self.all_scores(queries)
+        order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
+        return self._ids[order][:, :self.num_valid].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def place_subset(self, subset):
+        _not_ported("subset filters", "M7")
+
+    def search_range(self, *args, **kwargs):
+        _not_ported("range search", "M7")
+
+    def attach_ivfpq(self, *args, **kwargs):
+        _not_ported("the IVF-PQ tier", "M9")
+
+    def search_ivfpq(self, *args, **kwargs):
+        _not_ported("the IVF-PQ tier", "M9")
+
+    def search_lw(self, *args, **kwargs):
+        _not_ported("local-whitening re-ranking", "M8")
+
+    def search_diffusion(self, *args, **kwargs):
+        _not_ported("diffusion re-ranking", "M8")

@@ -52,6 +52,26 @@ def region_match_scores(regional_store: torch.Tensor, top_pos: torch.Tensor,
     return sim.amax(dim=-1).sum(dim=-1) / query_regional.shape[1]
 
 
+def fused_scores(sim: torch.Tensor, top_g: torch.Tensor, keep: torch.Tensor,
+                 *, fuse_weight: float = 1.0, spatial_weight: float = 0.0,
+                 vote_matrix=None) -> torch.Tensor:
+    """The fused score ``[Q, depth]`` of candidates with region-pair
+    similarities ``sim [Q, depth, Rq, R]`` and global scores ``top_g``:
+    the regional match, plus ``fuse_weight`` * ``top_g``, plus
+    ``spatial_weight`` * the spatial vote (with a ``vote_matrix``), summed
+    in that order; -inf where ``keep`` is false. The single-device stage
+    and the sharded one (``parallel/sharded_index.py``) both score here."""
+    with record_function("rerank.match"):
+        fused = sim.amax(dim=-1).sum(dim=-1) / sim.shape[2] \
+            + fuse_weight * top_g
+    if spatial_weight and vote_matrix is not None:
+        with record_function("rerank.vote"):
+            fused = fused + spatial_weight * spatial_consistency_scores(
+                sim, vote_matrix)
+    # after the sum: with fuse_weight 0 an empty slot is 0 * -inf = NaN
+    return torch.where(keep, fused, torch.full_like(fused, float("-inf")))
+
+
 def rerank_from_candidates(regional_store: torch.Tensor, ids: torch.Tensor,
                            top_g: torch.Tensor, top_pos: torch.Tensor,
                            query_regional: torch.Tensor, *, k: int = 10,
@@ -66,17 +86,11 @@ def rerank_from_candidates(regional_store: torch.Tensor, ids: torch.Tensor,
     ``k`` past ``depth`` pads with ``(-inf, -1)``."""
     sim = region_similarities(regional_store, top_pos, query_regional,
                               regional_scales)
-    with record_function("rerank.match"):
-        match = sim.amax(dim=-1).sum(dim=-1) / query_regional.shape[1]
-        fused = match + fuse_weight * top_g
-    if spatial_weight and vote_matrix is not None:
-        with record_function("rerank.vote"):
-            fused = fused + spatial_weight * spatial_consistency_scores(
-                sim, vote_matrix)
+    fused = fused_scores(sim, top_g, torch.isfinite(top_g),
+                         fuse_weight=fuse_weight,
+                         spatial_weight=spatial_weight,
+                         vote_matrix=vote_matrix)
     with record_function("rerank.select"):
-        # after the sum: with fuse_weight 0 an empty slot is 0 * -inf = NaN
-        fused = torch.where(torch.isfinite(top_g), fused,
-                            torch.full_like(fused, float("-inf")))
         kk = min(k, top_g.shape[1])
         new_s, order = torch.sort(fused, dim=1, descending=True, stable=True)
         new_s, order = new_s[:, :kk], order[:, :kk]

@@ -1,6 +1,7 @@
 """Serving core: bucketed request handling over JSON lines (port of
 ``instsearch_tpu/serve.py``: ``serve_buckets``, ``serve_batch`` and
-``ServeCore``, query requests only).
+``ServeCore``, query requests only, on one device or through the sharded
+index).
 
 Requests: ``{"image": PATH}`` or ``{"images": [PATH, ...]}``, optional
 ``"k"``. Mutations (``add``/``remove``), subsets, ``range`` and
@@ -27,10 +28,11 @@ def serve_buckets(query_chunk: int) -> list[int]:
     return buckets
 
 
-def serve_batch(idx, batch: np.ndarray, scfg, buckets):
+def serve_batch(idx, batch: np.ndarray, scfg, buckets, sidx=None):
     """Serve an image batch of any size through the bucket shapes only:
     larger requests split into largest-bucket pieces, the remainder padded
-    up to the smallest covering bucket (padding rows are dropped)."""
+    up to the smallest covering bucket (padding rows are dropped).
+    ``sidx``: the sharded index to search through, if any."""
     n = batch.shape[0]
     out_s, out_i = [], []
     pos = 0
@@ -42,7 +44,7 @@ def serve_batch(idx, batch: np.ndarray, scfg, buckets):
         if take < b:
             piece = np.concatenate(
                 [piece, np.repeat(piece[-1:], b - take, axis=0)])
-        s, i = idx.query_images(piece, scfg)
+        s, i = idx.query_images(piece, scfg, sharded_index=sidx)
         out_s.append(s[:take])
         out_i.append(i[:take])
         pos += take
@@ -58,14 +60,13 @@ _NOT_PORTED_REQUESTS = {
 
 
 class ServeCore:
-    """Owns the index and its warm bucket shapes. ``decode`` is host-only;
+    """Owns the index, the optional sharded view (``idx.to_sharded(mesh)``
+    when ``sharded``) and its warm bucket shapes. ``decode`` is host-only;
     ``run_queries`` touches the device and stays on one thread."""
 
-    def __init__(self, idx, sharded: bool = False):
-        if sharded:
-            raise NotImplementedError(
-                "sharded serving is not ported yet (ROADMAP M6)")
+    def __init__(self, idx, sharded: bool = False, mesh=None):
         self.idx = idx
+        self.sidx = idx.to_sharded(mesh=mesh) if sharded else None
         self.size = idx.cfg.extract.image_size
         self.warm_k = idx.cfg.search.k
         self.buckets = serve_buckets(idx.cfg.search.query_chunk)
@@ -75,11 +76,15 @@ class ServeCore:
         kernels load on first use)."""
         for b in self.buckets:
             self.idx.query_images(
-                np.zeros((b, self.size, self.size, 3), np.uint8))
+                np.zeros((b, self.size, self.size, 3), np.uint8),
+                sharded_index=self.sidx)
 
     def ready_info(self) -> dict:
-        return {"ready": True, "rows": self.idx.num_valid,
-                "dim": self.idx.dim}
+        ready = {"ready": True, "rows": self.idx.num_valid,
+                 "dim": self.idx.dim}
+        if self.sidx is not None:
+            ready["shards"] = self.sidx.mesh.num_shards
+        return ready
 
     # ---- host side ----------------------------------------------------
     def decode(self, req: dict) -> tuple[np.ndarray, int]:
@@ -103,7 +108,8 @@ class ServeCore:
         batch = (jobs[0][0] if len(jobs) == 1
                  else np.concatenate([im for im, _ in jobs]))
         t0 = time.perf_counter()
-        scores, ids = serve_batch(self.idx, batch, scfg, self.buckets)
+        scores, ids = serve_batch(self.idx, batch, scfg, self.buckets,
+                                  self.sidx)
         latency = round((time.perf_counter() - t0) * 1e3, 3)
         out, pos = [], 0
         for images, req_k in jobs:

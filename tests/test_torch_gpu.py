@@ -734,3 +734,51 @@ def test_fused_resnet_apply_on_the_card_matches_the_module(gen):
     assert fused_identity_blocks.launches == before + 4
     cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
     assert cos.min().item() > 0.999, cos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
+def test_sharded_search_on_one_card(gen, dtype):
+    """Eight shards on cuda:0 (views of the store) through K1/K2/K3: one
+    launch per shard with valid rows (the last shard is all padding here),
+    the merge equal to the single-device search: K1 by
+    ``check_against_plain`` on the answers as positions (ids are positions
+    in this store), K2/K3 bit for bit; with alpha-QE and the re-rank too."""
+    from instsearch_torch.parallel import make_mesh
+    kernel = {"bfloat16": topk_matmul, "int8": topk_matmul_int8,
+              "int4": topk_matmul_int4}[dtype]
+    n, d = 57_000, 512
+    x = _unit(gen, n, d)
+    cfg = PipelineConfig(index=IndexConfig(dtype=dtype, row_tile=1024,
+                                           num_shards=8, capacity=65_536),
+                         search=SearchConfig(k=10))
+    idx = Index.from_descriptors(x, [str(i) for i in range(n)], cfg)
+    attach_regional_store(idx, _unit(gen, n * 3, d).reshape(n, 3, d))
+    sidx = idx.to_sharded(mesh=make_mesh(8, devices=["cuda"] * 8))
+    assert sidx.use_pallas and [sh.num_valid for sh in sidx.shards][-2:] \
+        == [57_000 - 6 * 8192, 0]
+    q = x[:9] + 0.01 * _unit(gen, 9, d)
+    qreg = _unit(gen, 27, d).reshape(9, 3, d)
+    before = kernel.launches
+    s, i = sidx.search(q)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 7
+    ws, wi = idx.search(q)
+    if dtype == "bfloat16":
+        check_against_plain(idx.descriptors, q, s, i,
+                            torch.from_numpy(ws).cuda(),
+                            torch.from_numpy(wi).cuda(), TOL)
+    else:
+        check_exact(s, i, torch.from_numpy(ws).cuda(),
+                    torch.from_numpy(wi).cuda())
+    for got, want in (
+            (sidx.search_qe(q, qe_n=10),
+             idx.search(q, cfg.search.replace(qe_enabled=True))),
+            (sidx.search_rerank(q, qreg, depth=100),
+             idx.search(q, cfg.search.replace(rerank_enabled=True),
+                        query_regional=qreg))):
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1])
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0], rtol=0,
+                                   atol=0 if dtype != "bfloat16" else TOL)
+    np.testing.assert_array_equal(sidx.full_ranking(q[:2]),
+                                  idx.full_ranking(q[:2]))

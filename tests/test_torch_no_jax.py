@@ -3,10 +3,12 @@ already holds JAX through tests/conftest.py), import instsearch_torch and its
 evaluation package, build a tiny bf16 Index and a tiny int4 one on the CPU,
 search them (the second with alpha query expansion, then through a PQ
 cascade view), re-rank the first against a regional store with the spatial
-vote and refine an int4 one against its int8 copy, run VGG16 with R-MAC
-through the combined global and regional extraction, run a tiny ViT on its
-three attention routes and the multi-scale resize and a tiny ResNet through
-``fused_resnet_apply`` (its identity blocks through K7's plain version),
+vote and refine an int4 one against its int8 copy, search and re-rank the
+first through four CPU shards (``instsearch_torch.parallel``), run VGG16
+with R-MAC through the combined global and regional extraction, run a tiny
+ViT on its three attention routes and the multi-scale resize and a tiny
+ResNet through ``fused_resnet_apply`` (its identity blocks through K7's
+plain version),
 then check sys.modules: neither JAX nor any module of the reference package
 was loaded."""
 import json
@@ -58,6 +60,13 @@ rcfg = PipelineConfig(index=IndexConfig(row_tile=16, dtype="int4",
 ridx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], rcfg,
                               device="cpu")
 assert ridx.search(x[:3])[1][:, 0].tolist() == [0, 1, 2]
+import instsearch_torch.parallel
+from instsearch_torch.parallel import make_mesh
+sidx = idx.to_sharded(mesh=make_mesh(4, devices=["cpu"] * 4))
+ss, si = sidx.search(x[:3])
+assert si.tolist() == i.tolist()
+rs, ri = sidx.search_rerank(x[:3], reg[:3], depth=20)
+assert ri[:, 0].tolist() == [0, 1, 2]
 ex = Extractor(ExtractConfig(backbone="vgg16", pooling="rmac",
                              image_size=32), device="cpu")
 g, r = ex.extract_with_regional(np.zeros((1, 32, 32, 3), np.uint8))

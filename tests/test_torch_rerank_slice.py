@@ -74,6 +74,7 @@ from instsearch_torch.extractor import Extractor
 from instsearch_torch.index import Index, attach_regional_store
 from instsearch_torch.ops.pooling import rmac_region_geometry
 from instsearch_torch.ops.whitening import WhiteningParams
+from instsearch_torch.parallel import make_mesh
 from instsearch_torch.search.rerank import (region_match_scores,
                                             rerank_from_candidates)
 from instsearch_torch.search.spatial import build_vote_matrix
@@ -530,17 +531,17 @@ def test_rescoring_cfg_errors(rig):
                                     "spatial_rerank_top100"])
 def test_presets_build_and_query(rig, preset):
     """The workload presets as loaded, cut to this fixture's size (96 px,
-    16 whitened dims, the fixture's first 24 images) and to one shard (the
-    spatial preset has 2; M6): ``Index.build`` and ``query_images`` answer,
-    every query's own PNG image its top-1."""
+    16 whitened dims, the fixture's first 24 images; the spatial preset
+    keeps its 2 shards): ``Index.build`` and ``query_images`` answer, every
+    query's own PNG image its top-1, on one device and through
+    ``to_sharded`` alike."""
     cfg = TorchPipelineConfig.load(os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "configs", preset + ".json"))
     assert cfg.extract.backbone == "vgg16" and cfg.extract.pooling == "rmac"
     cfg = cfg.replace(
         extract=cfg.extract.replace(image_size=SIZE, whiten_dim=16,
-                                    dtype="float32"),
-        index=cfg.index.replace(num_shards=1))
+                                    dtype="float32"))
     paths = rig["paths"][:24]
     idx = Index.build(paths, cfg, variables=rig["variables"], device="cpu")
     assert (idx.regional is not None) == cfg.search.rerank_enabled
@@ -548,11 +549,17 @@ def test_presets_build_and_query(rig, preset):
     s, i = idx.query_images(imgs)
     np.testing.assert_array_equal(i[:, 0], np.arange(0, 24, 5))
     assert np.isfinite(s).all()
+    shards = cfg.index.num_shards
+    sidx = idx.to_sharded(mesh=make_mesh(shards, devices=["cpu"] * shards))
+    ss, si = idx.query_images(imgs, sharded_index=sidx)
+    np.testing.assert_array_equal(si, i)
+    np.testing.assert_array_equal(ss, s)
 
 
 def test_unported_neighbours_raise(rig):
     """Re-rank under the PQ cascade (M9), regional add/remove/merge (M7),
-    save/load (M2) and shards (M6) name their ROADMAP item."""
+    save/load (M2) and diffusion (M8) name their ROADMAP item; an index of
+    two shards builds (the sharded index is ported)."""
     same, q = rig["same"], rig["qimgs"][:2]
     twin = same.with_search()
     twin.build_pq(m=4, iters=2, depth=20)
@@ -568,11 +575,11 @@ def test_unported_neighbours_raise(rig):
                        (lambda: Index.load("/nonexistent"), "M2")):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    with pytest.raises(NotImplementedError, match="M6"):
-        Index.from_descriptors(
-            rig["seen"]["rows"], same.names,
-            _port_cfg(CFG).replace(index=IndexConfig(num_shards=2)),
-            device="cpu")
+    two = Index.from_descriptors(
+        rig["seen"]["rows"], same.names,
+        _port_cfg(CFG).replace(index=IndexConfig(num_shards=2)),
+        device="cpu")
+    assert two.descriptors.shape[0] % 16 == 0
     with pytest.raises(NotImplementedError, match="M8"):
         same.search(same.extractor(q), same.cfg.search.replace(
             rerank_enabled=False, diffusion_enabled=True))

@@ -33,6 +33,7 @@ from instsearch_tpu.index import Index as JaxIndex
 from instsearch_tpu.models import load_torch_resnet
 from instsearch_torch.data import frontend
 from instsearch_torch.index import Index
+from instsearch_torch.parallel import make_mesh
 from instsearch_torch.serve import ServeCore
 
 from parity.torch_models import BasicBlock, TruncatedResNet, randomize_bn_stats
@@ -177,8 +178,8 @@ def test_serve_core_answers_like_query_images(rig):
 
 
 def test_unported_stages_raise(rig):
-    """int8, int4, QE, re-rank, refine and regional extraction are ported;
-    l2, shards, diffusion, subsets and re-rank under the PQ cascade still
+    """int8, int4, QE, re-rank, refine, regional extraction and shards are
+    ported; l2, diffusion, subsets and re-rank under the PQ cascade still
     raise."""
     _, _, _, tidx, qimgs = rig
     q = tidx.extractor(qimgs[:1])
@@ -201,10 +202,13 @@ def test_unported_stages_raise(rig):
     descs, regional, kept = tidx.extractor.extract_paths_with_regional([])
     assert descs.shape[0] == regional.shape[0] == kept.shape[0] == 0
     rows = np.eye(4, 8, dtype=np.float32)
-    for icfg in (IndexConfig(metric="l2"), IndexConfig(num_shards=2)):
-        with pytest.raises(NotImplementedError):
-            Index.from_descriptors(rows, list("abcd"), CFG.replace(index=icfg),
-                                   device="cpu")
+    with pytest.raises(NotImplementedError):
+        Index.from_descriptors(rows, list("abcd"), CFG.replace(
+            index=IndexConfig(metric="l2")), device="cpu")
+    sharded = Index.from_descriptors(rows, list("abcd"), CFG.replace(
+        index=IndexConfig(num_shards=2)), device="cpu")
+    sidx = sharded.to_sharded(mesh=make_mesh(2, devices=["cpu"] * 2))
+    assert sidx.search(rows)[1][:, 0].tolist() == [0, 1, 2, 3]
     for icfg in (IndexConfig(dtype="int8"), IndexConfig(dtype="int4"),
                  IndexConfig(dtype="int4", refine_dtype="int8")):
         idx = Index.from_descriptors(rows, list("abcd"), CFG.replace(

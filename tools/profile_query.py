@@ -5,6 +5,8 @@ port's ``Index.query_images`` on one GPU.
     python3 tools/profile_query.py [--rows 1048576] [--corpus 1024]
                                    [--batches 1 8 128] [--reps 10]
                                    [--config configs/capacity_int4.json]
+                                   [--config configs/oxford105k_sharded8.json
+                                    --rows 105133 --corpus 4096]
                                    [--backbone vit_b_16]
                                    [--vit-attention pallas|flash|xla]
     python3 tools/profile_query.py --resnet-route module|fused|fused_all
@@ -14,16 +16,20 @@ Run from the root of a checkout. It builds the configuration of
 chip_smoke.py's phase 2 (seeded random ResNet-50 at 224 px, bf16, GeM,
 whitening to 512; a bf16 store), or with ``--backbone vit_b_16`` that of
 phase 5 (ViT-B/16 on the ``--vit-attention`` route), or the preset
-``--config`` names with one shard (phase 3's stand-ins), with ``--rows``
-rows: ``--corpus`` extracted seeded images, the rest seeded unit distractor
-rows. For each query batch size B it prints one JSON line with, per query
-batch:
+``--config`` names (phase 3's and 9's stand-ins), with ``--rows`` rows:
+``--corpus`` extracted seeded images, the rest seeded unit distractor rows
+(a preset that whitens at full width needs a corpus wider than its
+descriptors). A preset of several shards holds them all on cuda:0
+(``make_mesh(S, devices=["cuda"] * S)``), and each batch size is profiled
+through the sharded index (``route: "sharded"``) and on one device
+(``route: "single device"``). For each query batch size B (and route) it
+prints one JSON line with, per query batch:
 
   * ``kernels``: device operations (kernels and copies) launched;
   * ``busy_ms``: the sum of their durations, and its split into
     convolution/GEMM, BatchNorm, LayerNorm, softmax, the port's attention
-    kernels (K5/K6), other elementwise, copies, top-k pass 1 and top-k
-    pass 2;
+    kernels (K5/K6), sorts (the sharded merges, the re-rank's selection),
+    other elementwise, copies, top-k pass 1 and top-k pass 2;
   * ``wall_ms``: host time under the profiler, and ``wall_p50_ms`` without
     it; ``idle`` and ``idle_unprofiled``: 1 - busy / each wall;
   * with a re-rank preset (``configs/rerank_regional_top100.json``,
@@ -67,6 +73,7 @@ from instsearch_torch.extractor import Extractor  # noqa: E402
 from instsearch_torch.index import Index, attach_regional_store  # noqa: E402
 from instsearch_torch.ops.whitening import (apply_whitening,  # noqa: E402
                                             fit_whitening)
+from instsearch_torch.parallel import make_mesh  # noqa: E402
 
 DIM = 512
 
@@ -88,6 +95,8 @@ def category(name: str) -> str:
         return "fused_blocks"
     if "layer_norm" in low:
         return "layernorm"
+    if "sort" in low:
+        return "sort"
     if "softmax" in low:
         return "softmax"
     if any(w in low for w in ("conv", "xmma", "implicit", "fprop", "gemm",
@@ -214,7 +223,7 @@ def main() -> int:
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8, 128])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--config", default=None,
-                    help="a preset of configs/ (served with one shard)")
+                    help="a preset of configs/ (with its shards)")
     ap.add_argument("--backbone", default=PHASE2.extract.backbone)
     ap.add_argument("--vit-attention", default="pallas",
                     choices=("auto", "xla", "pallas", "flash"))
@@ -236,20 +245,27 @@ def main() -> int:
         backbone=args.backbone, vit_attention=args.vit_attention))
     if args.config:
         cfg = PipelineConfig.load(args.config)
-        cfg = cfg.replace(index=cfg.index.replace(num_shards=1))
     idx, images = build_index(gen, args.rows, args.corpus, cfg)
+    shards = cfg.index.num_shards
+    routes = [("single device", None)]
+    if shards > 1:
+        routes.insert(0, ("sharded", idx.to_sharded(
+            mesh=make_mesh(shards, devices=["cuda"] * shards))))
     rng = np.random.default_rng(0)
     for b in args.batches:
         batch = images[rng.choice(args.corpus, size=b,
                                   replace=b > args.corpus)]
-        report(card, config=args.config or "chip_smoke phase 2",
-               backbone=cfg.extract.backbone,
-               vit_attention=cfg.extract.vit_attention,
-               store=cfg.index.dtype, qe=cfg.search.qe_enabled,
-               rerank=cfg.search.rerank_enabled,
-               spatial_weight=cfg.search.spatial_weight,
-               rows=args.rows, b=b, reps=args.reps,
-               **profile_calls(lambda: idx.query_images(batch), args.reps))
+        for route, sidx in routes:
+            report(card, config=args.config or "chip_smoke phase 2",
+                   backbone=cfg.extract.backbone,
+                   vit_attention=cfg.extract.vit_attention,
+                   store=cfg.index.dtype, qe=cfg.search.qe_enabled,
+                   rerank=cfg.search.rerank_enabled,
+                   spatial_weight=cfg.search.spatial_weight,
+                   shards=shards, route=route, rows=args.rows, b=b,
+                   reps=args.reps, **profile_calls(
+                       lambda: idx.query_images(batch, sharded_index=sidx),
+                       args.reps))
     return 0
 
 
