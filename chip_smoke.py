@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs ten phases; each raises on failure and the process exits non-zero.
+runs eleven phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
@@ -127,7 +127,36 @@ runs ten phases; each raises on failure and the process exits non-zero.
      ``build_multihost_index`` holds the same rows as 8 local shards, and
      its search must give phase 9's answer, K1 8 times; its B = 1 p50 beside
      the one-process route's (the group's all_gather at world size 1; a
-     collective across cards is not measured on one card).
+     collective across cards is not measured on one card);
+ 10. the live, persistent index through its entry points, with the
+     ``[1, N_pad]`` subset mask driven through K1-K4: (a) phase 2's index
+     saved and loaded with no extractor (store, ids and names equal bit
+     for bit, the rebuilt extractor within 1e-5, ``ServeCore`` on it giving
+     phase 2's answers), three subsets defined by request (``half``: every
+     second corpus image and half the distractors; ``collection``: 1,000
+     corpus images; ``tiny``: 5) whose requests launch K1 once a piece,
+     each with the mask, return members only (5 results for ``tiny``), and
+     are held to ``topk_matmul_reference`` with the same mask; an ``add``
+     of 1,024 new images from PNG files (each its own top-1; the store
+     re-pads to 2M rows), a ``remove`` of 512 corpus and 512 added images
+     (never returned again, the survivors' rows bit for bit, the subsets
+     refreshed), ``range`` at tau 0.9 (the count equal to the plain count
+     over the store, with and without a subset) and ``reconstruct``; (b)
+     phase 4's int4 store and PQ view saved and loaded (``packed`` equal),
+     subset requests through K3 (twice a piece) and through the cascade
+     (K4 twice a piece, K1-K3 never), each equal bit for bit to the
+     composite over the kernel's plain version with the mask, again after
+     an ``add`` past capacity and a ``remove`` the view absorbs (an added
+     image found by the cascade); (c) ``configs/million_scale_int8.json``
+     as its 8 shards on cuda:0 behind ``ServeCore(sharded=True)``: K2
+     twice a piece on each shard with valid rows, each with its slice of
+     the mask, equal bit for bit to the single-device subset answer,
+     again after an ``add`` and a ``remove`` that cut the shards again. It
+     prints, as measurements and not checks, masked against unmasked K1,
+     K3 and K4 (K1 beside ``torch.topk`` of the masked product), the
+     ``Index.search`` p50 with and without a subset at B = 1, 8 and 128,
+     the ``add`` and ``remove`` times, the ``save``/``load`` seconds and
+     GB/s, and the peak device memory.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -159,7 +188,9 @@ carry their times at depth 100 on phase 8's stores, ``ms_b{1,8,128}_k100``,
 ``bound_ms_b..._k100``; K1 and K2 count the sharded routes' launches too,
 also apart as ``launches_sharded``; K1-K4
 also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
-``bound_ms_b128``; K4 also at B = 8, k = 100 (``ms_b8_k100``,
+``bound_ms_b128``; K1-K4 count phase 10's subset requests too, also apart
+as ``launches_subset`` (every one of them with the mask); K4 also at B =
+8, k = 100 (``ms_b8_k100``,
 ``plain_ms_b8_k100``, ``bound_ms_b8_k100``) and over 64M rows at k = 100
 (``ms_64m_b1_k100``, ``bound_ms_64m_b1_k100``, ``ms_64m_b128_k100``,
 ``bound_ms_64m_b128_k100``); K6 at
@@ -214,6 +245,9 @@ RERANK_BUILD = 256      # phase 8b: images Index.build reads from PNG files
 OX_CORPUS = 4096        # phase 9: images extracted (whitening keeps 2048 of
 #                         at most N - 1 directions)
 OX_ROWS = 105_133       # phase 9: Oxford105k's rows
+LIVE_ADD = 1024         # phase 10a: images added by request
+LIVE_REMOVE = 512       # phase 10a: corpus images (and as many added) removed
+LIVE_COLLECTION = 1000  # phase 10a: corpus images in the "collection" subset
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
@@ -885,6 +919,14 @@ def smooth_images(gen, n: int, size: int = IMAGE, batch: int = 256):
     return out
 
 
+def _everyone():
+    from instsearch_torch.kernels import (flash_mha, fused_identity_blocks,
+                                          mha, pq_topk, topk_matmul,
+                                          topk_matmul_int4, topk_matmul_int8)
+    return (topk_matmul, topk_matmul_int8, topk_matmul_int4, pq_topk, mha,
+            flash_mha, fused_identity_blocks)
+
+
 def serve_requests(card, phase, core, images, picks, expect):
     """Warm ``core``, set every kernel's count to 0, serve one request per
     pick and read the counts: each kernel in ``expect`` (kernel -> launches
@@ -893,11 +935,7 @@ def serve_requests(card, phase, core, images, picks, expect):
     last one padded; a piece is one backbone pass and one search), and no
     other kernel at all. Every top-1 must be its source image. Returns the
     counts by kernel name."""
-    from instsearch_torch.kernels import (flash_mha, fused_identity_blocks,
-                                          mha, pq_topk, topk_matmul,
-                                          topk_matmul_int4, topk_matmul_int8)
-    everyone = (topk_matmul, topk_matmul_int8, topk_matmul_int4, pq_topk,
-                mha, flash_mha, fused_identity_blocks)
+    everyone = _everyone()
     core.warmup()
     for fn in everyone:
         fn.launches = 0
@@ -1021,7 +1059,8 @@ def phase2(card: str, gen, topk, check) -> dict:
            topk_launches_in_main_path=launches)
 
     lat = query_latency(card, 2, idx, ex, images, rng)
-    return {"launches": launches, "latency": lat, "extract_ips": ips}
+    return {"launches": launches, "latency": lat, "extract_ips": ips,
+            "state": (idx, images, picks)}
 
 
 def phase3(card: str, gen) -> dict:
@@ -1211,7 +1250,7 @@ def phase4(card: str, corpus) -> dict:
            top10_overlap_with_oracle_route=overlap)
     lat = query_latency(card, 4, idx, ex, images, rng, store="int4 + PQ")
     return {"launches": launches, "latency": lat, "build_s": build_s,
-            "recall": recall, "oracle_overlap": overlap}
+            "recall": recall, "oracle_overlap": overlap, "index": idx}
 
 
 def vit_extract_config(size: int, attention: str, batch: int):
@@ -2294,6 +2333,451 @@ def phase9c(card: str, topk, topk_ref, check, ox) -> dict:
     return {"launches": launches, "search_b1_p50_ms": p50}
 
 
+def subset_requests(card, tag, core, images, picks, subset: str, kernel,
+                    per_piece: int) -> list:
+    """Set every kernel's count to 0, serve one request per pick under the
+    registered ``subset`` and read the counts: ``kernel`` must have launched
+    ``per_piece`` times for each bucket piece, each launch with the mask
+    (``launches_subset``), and no other kernel at all. Every returned name
+    must be a member. Returns the answers."""
+    everyone = _everyone()
+    for fn in everyone:
+        fn.launches = 0
+        if hasattr(fn, "launches_subset"):
+            fn.launches_subset = 0
+    answers = [core.run_queries([(images[p], 10)], subset=subset)[0]
+               for p in picks]
+    pieces = sum(-(-len(p) // core.buckets[-1]) for p in picks)
+    want = {fn.__name__: (per_piece * pieces if fn is kernel else 0)
+            for fn in everyone}
+    counts = {fn.__name__: fn.launches for fn in everyone}
+    if counts != want or kernel.launches_subset != per_piece * pieces:
+        fail(f"{tag}: subset {subset!r} requests ({pieces} bucket pieces) "
+             f"launched {counts} ({kernel.launches_subset} with the mask), "
+             f"not {want}")
+    members = set(core.subsets[subset].names)
+    for ans in answers:
+        got = {r["name"] for row in ans["results"] for r in row}
+        if not got <= members:
+            fail(f"{tag}: subset {subset!r} returned non-members "
+                 f"{sorted(got - members)[:3]}")
+    return answers
+
+
+def write_png(images, folder: str, prefix: str) -> list:
+    import cv2
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i, im in enumerate(images):
+        p = os.path.join(folder, f"{prefix}{i:04d}.png")
+        if not cv2.imwrite(p, im[:, :, ::-1]):
+            fail(f"cannot write {p}")
+        paths.append(p)
+    return paths
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def masked_timings(card, tag, kernel, args, n: int, masks, qs, library=None,
+                   name: "str | None" = None):
+    """``kernel(*args, q, k=10, num_valid=n, mask=m)`` over the first ``n``
+    rows at each query batch of ``qs``, unmasked and under each mask (CUDA
+    events); ``library(q, m)``, when given, is a PyTorch yardstick for the
+    same function."""
+    out = {}
+    for b, q in qs.items():
+        row = {}
+        for label, m in (("none", None), *masks.items()):
+            row[f"{label}_ms"] = cuda_median_ms(
+                lambda: kernel(*args, q, k=10, num_valid=n, mask=m))
+            if library is not None:
+                row[f"{label}_library_ms"] = cuda_median_ms(
+                    lambda: library(q, m))
+        out[b] = row
+        report(card, phase=10, case=tag, kernel=name or kernel.__name__,
+               rows=n,
+               query_batch=b, k=10, **row)
+    return out
+
+
+def search_p50(card, tag, idx, q_by_b, subsets) -> dict:
+    """``Index.search`` p50 (host clock, synchronized by the results' host
+    copy) without a subset and under each, at each query batch."""
+    out = {}
+    for b, q in q_by_b.items():
+        row = {}
+        for label, sub in (("none", None), *subsets.items()):
+            idx.search(q, subset=sub)
+            t = []
+            for _ in range(15):
+                t0 = time.perf_counter()
+                idx.search(q, subset=sub)
+                t.append((time.perf_counter() - t0) * 1e3)
+            row[f"{label}_p50_ms"] = statistics.median(t)
+        out[b] = row
+        report(card, phase=10, case=tag, query_batch=b, rows=N_ROWS, **row)
+    return out
+
+
+def phase10(card: str, gen, w1, pq_idx, corpus, check, check_exact) -> dict:
+    """The live, persistent index through its entry points: (a) workload
+    1 (phase 2's index), (b) the capacity tier (phase 4's int4 store and PQ
+    view), (c) the million-scale int8 preset as 8 shards on cuda:0; all
+    temporary files in one folder, removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase10_")
+    out, peak = {}, {}
+    try:
+        for part, run in (
+                ("a", lambda: phase10a(card, gen, w1, check, tmp)),
+                ("b", lambda: phase10b(card, gen, pq_idx, corpus,
+                                       check_exact, tmp)),
+                ("c", lambda: phase10c(card, gen, corpus, tmp))):
+            torch.cuda.reset_peak_memory_stats()
+            out[part] = run()
+            peak[part] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if part == "a":
+                w1 = None           # phase 2's index is no longer needed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report(card, phase=10, peak_device_memory_gib=peak)
+    return out
+
+
+def phase10a(card, gen, w1, check, tmp) -> dict:
+    import numpy as np
+    import torch
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels import topk_matmul, topk_matmul_reference
+    from instsearch_torch.serve import ServeCore
+
+    idx, images, picks = w1
+    want = [ServeCore(idx).run_queries([(images[p], 10)])[0] for p in picks]
+    folder = os.path.join(tmp, "workload1")
+    _, save_s = timed(lambda: idx.save(folder))
+    npz = os.path.getsize(os.path.join(folder, "index.npz"))
+    live, load_s = timed(lambda: Index.load(folder))
+    if not (torch.equal(live.descriptors, idx.descriptors)
+            and torch.equal(live.ids, idx.ids) and live.names == idx.names
+            and live.device == idx.device):
+        fail("workload 1: the loaded store, ids or names differ")
+    err = (live.extractor(images[:64]) - idx.extractor(images[:64])
+           ).abs().max().item()
+    if err > 1e-5:
+        fail(f"workload 1: the rebuilt extractor is {err} off")
+    core = ServeCore(live)
+    got = [core.run_queries([(images[p], 10)])[0] for p in picks]
+    if [g["results"] for g in got] != [w["results"] for w in want]:
+        fail("workload 1: the loaded index answers otherwise")
+    del idx, w1, want
+    report(card, phase=10, workload=1, save_s=save_s, load_s=load_s,
+           npz_bytes=npz, save_gb_per_s=npz / save_s / 1e9,
+           load_gb_per_s=npz / load_s / 1e9, store_equal=True,
+           extractor_max_abs_err=err, answers_equal=True)
+
+    # subsets: defined by request, K1 once a piece with the mask, held to
+    # its plain version with the same mask
+    rng = np.random.default_rng(10)
+    names = live.names
+    corpus = names[:CORPUS]
+    specs = {"half": corpus[::2] + names[CORPUS::2],
+             "collection": [corpus[i] for i in sorted(
+                 rng.choice(CORPUS, LIVE_COLLECTION, replace=False))],
+             "tiny": [corpus[i] for i in rng.choice(CORPUS, 5,
+                                                    replace=False)]}
+    for nm, members in specs.items():
+        r = core.handle_line(json.dumps({"define_subset": {
+            "name": nm, "members": members}}))
+        if r.get("count") != len(members):
+            fail(f"workload 1: define_subset {nm}: {r}")
+    launches = {}
+    q = live.extractor(images[np.concatenate(picks)])
+    for nm in specs:
+        answers = subset_requests(card, "workload 1", core, images, picks,
+                                  nm, topk_matmul, 1)
+        launches[nm] = topk_matmul.launches_subset
+        if nm == "tiny" and any(len(row) != 5 for a in answers
+                                for row in a["results"]):
+            fail("workload 1: the 5-member subset did not answer 5 results")
+        sub = core.subsets[nm]
+        ks, ki = live.search(q, subset=sub)
+        rs, ri = topk_matmul_reference(live.descriptors, q, k=10,
+                                       num_valid=live.num_valid,
+                                       mask=sub.mask)
+        try:
+            check(live.descriptors, q, torch.from_numpy(ks).to(live.device),
+                  torch.from_numpy(ki).to(live.device), rs, ri, SCORE_TOL)
+        except AssertionError as why:
+            fail(f"workload 1, subset {nm}: {why}")
+        report(card, phase=10, workload=1, subset=nm, count=sub.count,
+               topk_launches_with_mask=launches[nm],
+               members_only=True, held_to_plain=True)
+
+    timings = {"masked_k1": masked_timings(
+        card, "K1 bf16 masked vs unmasked", topk_matmul,
+        (live.descriptors,), live.num_valid,
+        {"half": core.subsets["half"].mask,
+         "tiny": core.subsets["tiny"].mask},
+        {1: q[:1].contiguous(), 128: live.extractor(images[:128])},
+        library=lambda qq, m: torch.topk(
+            (qq.to(torch.bfloat16) @ live.descriptors.T).float()
+            if m is None else (qq.to(torch.bfloat16) @ live.descriptors.T
+                               ).float().masked_fill(m == 0, float("-inf")),
+            10))}
+    timings["search_p50"] = search_p50(
+        card, "workload 1 search", live,
+        {b: live.extractor(images[rng.choice(CORPUS, b)])
+         for b in (1, 8, 128)},
+        {nm: core.subsets[nm] for nm in ("half", "tiny")})
+
+    # add new images from PNG files: each one's top-1 is itself
+    new = smooth_images(gen, LIVE_ADD)
+    paths = write_png(new, os.path.join(tmp, "add"), "add")
+    nv0 = live.num_valid
+    # the parts of the add and remove below, timed alone: decoding and
+    # extracting the files, and rebuilding one subset from its names (a
+    # re-padding add and a remove rebuild all three)
+    _, extract_s = timed(lambda: live.extractor.extract_paths(paths))
+    _, subset_s = timed(lambda: live.make_subset(names=specs["half"]))
+    r, add_s = timed(lambda: core.handle_line(json.dumps({"add": paths})))
+    if r.get("added") != LIVE_ADD or r.get("rows") != nv0 + LIVE_ADD:
+        fail(f"workload 1: add answered {r}")
+    _, i = live.query_images(new)
+    if not np.array_equal(i[:, 0],
+                          live.ids[nv0:nv0 + LIVE_ADD].cpu().numpy()):
+        fail("workload 1: an added image is not its own top-1")
+
+    # remove corpus images and as many of the added ones
+    removed = ([corpus[i] for i in rng.choice(CORPUS, LIVE_REMOVE,
+                                              replace=False)]
+               + [f"add{i:04d}" for i in range(0, 2 * LIVE_REMOVE, 2)])
+    before = live.descriptors[:live.num_valid].clone()
+    pos = {nm: p for p, nm in enumerate(live.names)}
+    gone = {int(live.ids[pos[nm]]) for nm in removed}
+    r, remove_s = timed(lambda: core.handle_line(json.dumps(
+        {"remove": removed})))
+    if r.get("removed") != 2 * LIVE_REMOVE:
+        fail(f"workload 1: remove answered {r}")
+    perm = torch.tensor([pos[nm] for nm in live.names], device=live.device)
+    if not torch.equal(live.descriptors[:live.num_valid], before[perm]):
+        fail("workload 1: a surviving row changed in the remove")
+    del before
+    counts = {}
+    for nm, members in specs.items():
+        sub = core.subsets[nm]
+        counts[nm] = sub.count
+        if (sub.count != len(set(members) - set(removed))
+                or sub.layout_gen != live._layout_gen):
+            fail(f"workload 1: subset {nm} not refreshed ({sub})")
+    gone_rows = [int(p) for p in rng.choice(CORPUS, 64)]
+    _, i = live.query_images(images[gone_rows])
+    if set(i.reshape(-1).tolist()) & gone:
+        fail("workload 1: a removed image came back")
+    report(card, phase=10, workload=1, added=LIVE_ADD, add_s=add_s,
+           extract_paths_s=extract_s, make_subset_half_s=subset_s,
+           removed=2 * LIVE_REMOVE, remove_s=remove_s, rows=live.num_valid,
+           padded_rows=live.descriptors.shape[0],
+           subsets_after_remove=counts, added_top1_itself=True,
+           survivors_bit_equal=True, removed_never_returned=True)
+
+    # range: the count equals the plain count over the dequantized store;
+    # every member's plain score clears tau
+    survivor = next(p for p in range(CORPUS) if corpus[p] not in removed)
+    path = write_png(images[survivor:survivor + 1], os.path.join(tmp, "rng"),
+                     "range")[0]
+    qr = live.extractor(images[survivor:survivor + 1])
+    for sub_name in (None, "half"):
+        spec = {"image": path, "tau": 0.9}
+        if sub_name:
+            spec["subset"] = sub_name
+        r = core.handle_line(json.dumps({"range": spec}))
+        if "error" in r:
+            fail(f"workload 1: range answered {r}")
+        ok = live.ids >= 0
+        if sub_name:
+            ok = ok & (core.subsets[sub_name].mask[0] > 0)
+        plain = (qr @ live.descriptors.float().T)[0]
+        count = int(((plain >= 0.9) & ok).sum())
+        ids_pos = {int(v): p for p, v in enumerate(live.ids.tolist())}
+        low = min((plain[ids_pos[x["id"]]].item() for x in r["results"]),
+                  default=1.0)
+        if r["count"] != count or low < 0.9 - SCORE_TOL:
+            fail(f"workload 1: range count {r['count']} (plain {count}), "
+                 f"lowest member's plain score {low}")
+        report(card, phase=10, workload=1, range_tau=0.9, subset=sub_name,
+               count=count, members=len(r["results"]),
+               truncated=r["truncated"], equals_plain_count=True)
+    nm16 = live.names[100:116]
+    r = core.handle_line(json.dumps({"reconstruct": {"names": nm16}}))
+    want16 = live.descriptors[100:116, :live.dim].float().cpu().numpy()
+    if not np.array_equal(np.asarray(r["vectors"], np.float32), want16):
+        fail("workload 1: reconstruct differs from the stored rows")
+    report(card, phase=10, workload=1, reconstruct_equal=True, rows=16)
+    return {"launches": sum(launches.values()),
+            "launches_subset": sum(launches.values()), "timings": timings,
+            "add_s": add_s, "remove_s": remove_s, "save_s": save_s,
+            "load_s": load_s, "npz_bytes": npz}
+
+
+def _int4_routes(card, tag, live, images, picks, members):
+    """The capacity tier under a subset, exact route (K3 twice a piece with
+    QE) and cascade (K4 twice a piece, K1-K3 never), each equal bit for bit
+    to the same composite over the kernel's plain version with the mask.
+    Returns the subset launches of each."""
+    import numpy as np
+    import instsearch_torch.index as tindex
+    import instsearch_torch.search.pq_view as pq_view
+    from instsearch_torch.kernels import (pq_topk, pq_topk_reference,
+                                          topk_matmul_int4,
+                                          topk_matmul_int4_reference)
+    from instsearch_torch.serve import ServeCore
+    q = live.extractor(images[np.concatenate(picks)])
+    out = {}
+    for route, idx, kernel, module, plain in (
+            ("exact", live.with_search(pq_depth=0), topk_matmul_int4,
+             tindex, topk_matmul_int4_reference),
+            ("cascade", live, pq_topk, pq_view, pq_topk_reference)):
+        core = ServeCore(idx)
+        core.define_subset("half", members)
+        subset_requests(card, f"{tag} {route}", core, images, picks, "half",
+                        kernel, 2)
+        out[route] = kernel.launches_subset
+        sub = core.subsets["half"]
+        ks, ki = idx.search(q, subset=sub)
+        setattr(module, kernel.__name__, plain)
+        try:
+            ps, pi = idx.search(q, subset=sub)
+        finally:
+            setattr(module, kernel.__name__, kernel)
+        if not (np.array_equal(ks, ps) and np.array_equal(ki, pi)):
+            fail(f"{tag} {route}: the subset composite through "
+                 f"{kernel.__name__} and its plain version differ")
+        report(card, phase=10, case=tag, route=route, subset_count=sub.count,
+               launches_with_mask=out[route], plain_equal=True)
+    return out
+
+
+def phase10b(card, gen, pq_idx, corpus, check_exact, tmp) -> dict:
+    import numpy as np
+    import torch
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels import pq_topk, topk_matmul_int4
+
+    _, _, names, _, images, picks = corpus
+    folder = os.path.join(tmp, "capacity")
+    _, save_s = timed(lambda: pq_idx.save(folder))
+    npz = os.path.getsize(os.path.join(folder, "index.npz"))
+    live, load_s = timed(lambda: Index.load(folder))
+    if not (torch.equal(live.pq.packed, pq_idx.pq.packed)
+            and torch.equal(live.descriptors, pq_idx.descriptors)
+            and torch.equal(live.scales, pq_idx.scales)):
+        fail("capacity tier: the loaded store or PQ codes differ")
+    report(card, phase=10, case="capacity_int4 + PQ", save_s=save_s,
+           load_s=load_s, npz_bytes=npz, packed_equal=True)
+    del pq_idx
+    members = names[:CORPUS_Q:2] + names[CORPUS_Q::2]
+    before = _int4_routes(card, "capacity tier", live, images, picks,
+                          members)
+    half = live.make_subset(names=members)
+    qs = {1: live.extractor(images[:1]), 128: live.extractor(images[:128])}
+    timings = {
+        "masked_k3": masked_timings(
+            card, "K3 int4 masked vs unmasked", topk_matmul_int4,
+            (live.descriptors, live.scales), live.num_valid,
+            {"half": half.mask},
+            {b: live._match_query_dim(q) for b, q in qs.items()}),
+        "masked_k4": masked_timings(
+            card, "K4 pq masked vs unmasked",
+            lambda packed, q, **kw: pq_topk(packed, q, live.pq.codebook,
+                                            **kw),
+            (live.pq.packed,), live.num_valid, {"half": half.mask}, qs,
+            name="pq_topk")}
+
+    # an add past capacity (the view grows and absorbs) and a remove
+    new = smooth_images(gen, 64, size=live.cfg.extract.image_size)
+    paths = write_png(new, os.path.join(tmp, "add_int4"), "cap")
+    nv0 = live.num_valid
+    live.add(paths=paths)
+    removed = names[1:CORPUS_Q:4] + ["cap0001", "cap0005"]
+    live.remove(removed)
+    _, i = live.query_images(new[8:16])
+    want = [live.ids[live.names.index(f"cap{j:04d}")].item()
+            for j in range(8, 16)]
+    if (i[:, 0].tolist() != want
+            or live.num_valid != nv0 + len(new) - len(removed)):
+        fail(f"capacity tier: the cascade did not find the added images "
+             f"({i[:, 0].tolist()} for {want})")
+    alive = set(live.names)
+    after = _int4_routes(card, "capacity tier after add/remove", live,
+                         images, picks, [m for m in members if m in alive])
+    report(card, phase=10, case="capacity tier after add/remove",
+           rows=live.num_valid, padded_rows=live.descriptors.shape[0],
+           pq_rows=live.pq.packed.shape[0], added_found_by_cascade=True)
+    return {"launches_k3": before["exact"] + after["exact"],
+            "launches_k4": before["cascade"] + after["cascade"],
+            "timings": timings, "save_s": save_s, "load_s": load_s}
+
+
+def phase10c(card, gen, corpus, tmp) -> dict:
+    """configs/million_scale_int8.json as its 8 shards on cuda:0 behind
+    ServeCore(sharded=True): a subset request runs K2 twice a piece on each
+    shard with valid rows, each with its slice of the mask, equal bit for
+    bit to the single-device subset answer; again after an add and a
+    remove, which cut the shards again."""
+    import numpy as np
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels import topk_matmul_int8
+    from instsearch_torch.parallel import make_mesh
+    from instsearch_torch.serve import ServeCore
+
+    _, rows, names, ex, images, picks = corpus
+    cfg = PipelineConfig.load(os.path.join(HERE, "configs",
+                                           "million_scale_int8.json"))
+    idx = Index.from_descriptors(rows, names, cfg, extractor=ex)
+    shards = cfg.index.num_shards
+    core = ServeCore(idx, sharded=True,
+                     mesh=make_mesh(shards, devices=[idx.device] * shards))
+    members = names[:CORPUS_Q:2] + names[CORPUS_Q::2]
+    q = ex(images[np.concatenate(picks)])
+    total = 0
+
+    def check(tag):
+        alive = set(idx.names)
+        core.define_subset("half", [m for m in members if m in alive])
+        busy = sum(sh.num_valid > 0 for sh in core.sidx.shards)
+        subset_requests(card, tag, core, images, picks, "half",
+                        topk_matmul_int8, 2 * busy)
+        n = topk_matmul_int8.launches_subset
+        sub = core.subsets["half"]
+        ss, si = idx.search_sharded(core.sidx, q, subset=sub)
+        ks, ki = idx.search(q, subset=sub)
+        equal_answers(ss, si, ks, ki)
+        report(card, phase=10, case=tag, shards=shards, busy_shards=busy,
+               launches_with_mask=n, sharded_equals_single_device=True)
+        return n
+
+    total += check("million_scale_int8 sharded")
+    new = smooth_images(gen, 32, size=cfg.extract.image_size)
+    paths = write_png(new, os.path.join(tmp, "add_int8"), "sh")
+    for req in ({"add": paths}, {"remove": names[1:CORPUS_Q:8]}):
+        before = core.sidx
+        r = core.handle_line(json.dumps(req))
+        if "error" in r or core.sidx is before:
+            fail(f"sharded: {req.keys()} answered {r} without re-sharding")
+    total += check("million_scale_int8 sharded after add/remove")
+    return {"launches": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -2365,13 +2849,15 @@ def main() -> int:
     del vgg_corpus
     res8c = phase8c(card, corpus, topk_matmul_int4,
                     topk_matmul_int4_reference, check_exact)
-    del corpus
     torch.cuda.empty_cache()
     res9, ox = phase9(card, gen, topk_matmul, topk_matmul_reference,
                       check_against_plain)
     res9c = phase9c(card, topk_matmul, topk_matmul_reference,
                     check_against_plain, ox)
     del ox
+    res10 = phase10(card, gen, res.pop("state"), res4.pop("index"), corpus,
+                    check_against_plain, check_exact)
+    del corpus
     phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
               "topk_matmul_int4": res8c["launches"]}
     # the sharded routes' launches, on the main path too (phases 3, 8b, 9,
@@ -2381,6 +2867,11 @@ def main() -> int:
                "topk_matmul_int8": res3["int8"]["sharded_launches"]}
     depth = {"topk_matmul": res8b["k1_depth"],
              "topk_matmul_int4": res8c["k3_depth"]}
+    # phase 10's subset requests, every launch with the mask
+    subset = {"topk_matmul": res10["a"]["launches_subset"],
+              "topk_matmul_int8": res10["c"]["launches"],
+              "topk_matmul_int4": res10["b"]["launches_k3"],
+              "pq_topk": res10["b"]["launches_k4"]}
 
     rows = []
     for name, file, replaces, shape, launches in (
@@ -2398,9 +2889,10 @@ def main() -> int:
                      "source": f"instsearch_torch/csrc/{file}",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
                      "launches": (launches + phase8.get(name, 0)
-                                  + sharded.get(name, 0)),
+                                  + sharded.get(name, 0) + subset[name]),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
+                     "launches_subset": subset[name],
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

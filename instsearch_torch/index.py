@@ -44,13 +44,24 @@ route) and an exact re-score of its ``depth`` candidates against the store.
 mesh (``parallel/``); ``query_images(sharded_index=...)``,
 ``evaluate(sharded=True)`` and ``ServeCore(sharded=True)`` route through it.
 
+The index lives: ``make_subset`` builds an allow-list (``search/subset.py``)
+that every top-k above takes as the kernels' ``[1, N_pad]`` mask;
+``search_range`` returns every row scoring at least a threshold with its
+exact count; ``reconstruct`` reads stored rows back; ``add`` writes rows in
+place (re-padding past capacity), ``remove`` compacts the store by moving
+tail rows into the holes, ``merge_from`` adds another index's rows, each
+exactly as the reference moves and quantizes them, the PQ view absorbing
+both. ``save``/``load`` use the reference's npz form, so each package reads
+what the other writes.
+
 Not ported yet, and raising ``NotImplementedError`` rather than answering:
-``metric="l2"``, subsets, re-rank under the PQ cascade,
-diffusion, local whitening, the IVF and IVF-PQ tiers, DBA, ``add``,
-``remove``, ``merge_from`` and ``save``/``load`` (see ROADMAP).
+``metric="l2"``, re-rank under the PQ cascade, diffusion, local whitening,
+the IVF and IVF-PQ tiers, DBA, the streaming (orbax) store, and range
+search through a mesh (see ROADMAP).
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 from typing import Optional, Sequence
@@ -58,10 +69,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .config import PipelineConfig
 from .extractor import Extractor
 from .kernels.topk_matmul import (K_MAX, topk_matmul, topk_matmul_int4,
                                   topk_matmul_int8)
-from .ops.quantize import quantize_rows, quantize_rows_int4, unpack_int4
+from .ops.quantize import (pack_int4, quantize_rows, quantize_rows_int4,
+                           unpack_int4)
 from .ops.whitening import (WhiteningParams, apply_whitening,
                             apply_whitening_regional, fit_whitening)
 from .search.bruteforce import gather_rows_f32 as _gather_rows_f32
@@ -70,6 +83,7 @@ from .search.pq_view import PQView, _pq_composite
 from .search.qe import expand_from_candidates
 from .search.rerank import rerank_from_candidates
 from .search.spatial import build_vote_matrix
+from .search.subset import SubsetFilter, build_position_mask
 from .utils.chunking import run_chunked
 from .utils.device import resolve_device
 
@@ -87,23 +101,26 @@ def _pad_rows(n: int, multiple: int) -> int:
 
 
 def _topk_raw(descriptors, ids, queries, num_valid: int, scales, *, k: int,
-              use_kernel: bool, int4: bool = False):
+              use_kernel: bool, int4: bool = False, mask=None):
     """``(scores [Q, k], pos [Q, k])`` with pos indexing the padded store;
     invalid slots are ``(-inf, -1)``. The fused kernel of the store's kind
     (int4 -> K3, int8 -> K2, float -> K1; for a CPU store its plain
     version) when ``use_kernel``; the scoring oracle otherwise, and for a
     k past the kernels' ``K_MAX``, as the reference routes a k past its
-    tile."""
+    tile. ``mask`` (``[1, N_pad]`` int8, ``search/subset.py``) restricts
+    the selection to a subset: the kernels' mask operand, the oracle's
+    padding mask."""
     if not use_kernel or k > K_MAX:
         return search_topk(descriptors, queries, k=k, ids=ids, scales=scales,
-                           int4=int4)
+                           int4=int4, mask=mask)
     if int4:
         return topk_matmul_int4(descriptors, scales, queries, k=k,
-                                num_valid=num_valid)
+                                num_valid=num_valid, mask=mask)
     if descriptors.dtype == torch.int8:
         return topk_matmul_int8(descriptors, scales, queries, k=k,
-                                num_valid=num_valid)
-    return topk_matmul(descriptors, queries, k=k, num_valid=num_valid)
+                                num_valid=num_valid, mask=mask)
+    return topk_matmul(descriptors, queries, k=k, num_valid=num_valid,
+                       mask=mask)
 
 
 def _pos_to_ids(ids, scores, pos):
@@ -118,7 +135,7 @@ def _search_composite(descriptors, ids, queries, num_valid: int, scales,
                       qe_n: int, qe_alpha: float, use_kernel: bool,
                       do_qe: bool, int4: bool = False, depth: int = 0,
                       do_rerank: bool = False, do_refine: bool = False,
-                      spatial_weight: float = 0.0):
+                      spatial_weight: float = 0.0, mask=None):
     """The reference's ``_search_composite_jit`` without its diffusion
     stage: optional alpha-QE (fused top-``qe_n``, the rows gathered and
     dequantized, expanded query), then either the re-rank stage (fused
@@ -126,11 +143,11 @@ def _search_composite(descriptors, ids, queries, num_valid: int, scales,
     ``rerank_from_candidates``; refine takes the query itself as its one
     region and drops the global term, fuse weight 0) or the final top-k ->
     ``(scores [Q, k], ids [Q, k])``. No ``[Q, N]`` matrix on the kernel
-    route."""
+    route. A subset ``mask`` reaches every top-k."""
     q = queries.float()
     if do_qe:
         s, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=qe_n,
-                           use_kernel=use_kernel, int4=int4)
+                           use_kernel=use_kernel, int4=int4, mask=mask)
         rows = _gather_rows_f32(descriptors, pos.clamp(min=0), scales,
                                 int4=int4)                     # [Q, n, D]
         rows = torch.where((s > float("-inf"))[..., None], rows,
@@ -138,7 +155,7 @@ def _search_composite(descriptors, ids, queries, num_valid: int, scales,
         q = expand_from_candidates(q, s, rows, qe_alpha)
     if do_rerank or do_refine:
         g, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=depth,
-                           use_kernel=use_kernel, int4=int4)
+                           use_kernel=use_kernel, int4=int4, mask=mask)
         # refine: the row copy is the one "region" and the (post-QE) query,
         # without the store's zero columns, the one query region
         qreg = q[:, None, :regional.shape[-1]] if do_refine else query_regional
@@ -147,8 +164,24 @@ def _search_composite(descriptors, ids, queries, num_valid: int, scales,
             fuse_weight=0.0 if do_refine else 1.0,
             spatial_weight=spatial_weight, vote_matrix=vote_matrix)
     scores, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=k,
-                            use_kernel=use_kernel, int4=int4)
+                            use_kernel=use_kernel, int4=int4, mask=mask)
     return scores, _pos_to_ids(ids, scores, pos)
+
+
+_WEIGHTS_FILE = "torch_weights.pt"   # the port's backbone state_dict
+
+
+def _extractor_fingerprint(ex) -> list:
+    """Equality fingerprint of an extractor's weights and whitening: per
+    tensor (in ``state_dict`` order) its shape and f64 sum. The guard of
+    ``merge_from`` against uniting stores of different models or
+    whitenings, not against collisions made on purpose."""
+    out = [(tuple(t.shape), float(t.double().sum()))
+           for t in ex.model.state_dict().values()]
+    if ex.whitening is not None:
+        out += [("whitening", tuple(t.shape), float(t.double().sum()))
+                for t in ex.whitening]
+    return out
 
 
 def _check_index_cfg(cfg) -> None:
@@ -257,6 +290,9 @@ class Index:
         self.quarantined: list[str] = []
         # the descriptor width; the store's W may add zero columns past it
         self._dim = self.store_dim if dim is None else dim
+        # bumped whenever row positions move (remove) or the store re-pads
+        # (add past capacity): SubsetFilters of another generation are stale
+        self._layout_gen = 0
 
     # ------------------------------------------------------------------
     @property
@@ -375,7 +411,44 @@ class Index:
                                                self.regional_scales)
         twin.regional_geom, twin._vote_m = self.regional_geom, self._vote_m
         twin.quarantined = self.quarantined
+        twin._layout_gen = self._layout_gen
         return twin
+
+    # ------------------------------------------------------------------
+    def make_subset(self, names: "Sequence[str] | None" = None,
+                    ids: "Sequence[int] | None" = None,
+                    mask=None) -> SubsetFilter:
+        """A reusable :class:`~instsearch_torch.search.subset.SubsetFilter`
+        over exactly one of image ``names``, dataset ``ids`` or a raw
+        ``[N_pad]`` position ``mask``, its ``[1, N_pad]`` int8 mask on the
+        index's device. ``remove()`` and an ``add`` past capacity make it
+        stale: it is then refused, never misapplied."""
+        m = build_position_mask(self, names=names, ids=ids, mask=mask)
+        return SubsetFilter(
+            mask=torch.from_numpy(m[None, :].astype(np.int8)).to(self.device),
+            count=int(m.sum()), layout_gen=self._layout_gen,
+            n_pad=self.descriptors.shape[0],
+            names=tuple(names) if names is not None else None)
+
+    def _resolve_subset(self, subset) -> "SubsetFilter | None":
+        """``subset=`` -> a current SubsetFilter, or None: a prebuilt filter,
+        or a sequence of names (str) or dataset ids built here. A filter of
+        another layout generation or padded size raises ``ValueError``."""
+        if subset is None:
+            return None
+        if not isinstance(subset, SubsetFilter):
+            seq = list(subset)
+            if seq and isinstance(seq[0], str):
+                subset = self.make_subset(names=seq)
+            else:
+                subset = self.make_subset(ids=seq)
+        if (subset.layout_gen != self._layout_gen
+                or subset.n_pad != self.descriptors.shape[0]):
+            raise ValueError(
+                "stale SubsetFilter: rows were removed (or the store was "
+                "re-padded) after it was built, so its positions no longer "
+                "match — rebuild it with make_subset()")
+        return subset
 
     # ------------------------------------------------------------------
     @classmethod
@@ -546,12 +619,13 @@ class Index:
         index's own ``cfg.search.use_pallas``, not the argument's, as in the
         reference. Batches larger than ``query_chunk`` run the whole
         composite in pieces (utils/chunking.py): the re-rank stage gathers
-        ``[chunk, depth, R, D]`` candidate regions."""
+        ``[chunk, depth, R, D]`` candidate regions. ``subset`` (a
+        :meth:`make_subset` filter, or names or ids built here) restricts
+        every top-k to its members."""
         scfg = search_cfg or self.cfg.search
         self._check_rescoring_cfg(scfg)
-        if subset is not None:
-            raise NotImplementedError(
-                "subset filters are not ported yet (ROADMAP M7)")
+        subset = self._resolve_subset(subset)
+        mask = subset.mask if subset is not None else None
         q = torch.as_tensor(queries, device=self.device)
         if q.ndim == 1:
             q = q[None]
@@ -583,7 +657,8 @@ class Index:
                 k=scfg.k, qe_n=scfg.qe_n, qe_alpha=scfg.qe_alpha,
                 use_kernel=bool(self.cfg.search.use_pallas),
                 do_qe=scfg.qe_enabled, int4=self.is_int4, depth=depth,
-                do_rerank=do_rerank, do_refine=do_refine, spatial_weight=sw)
+                do_rerank=do_rerank, do_refine=do_refine, spatial_weight=sw,
+                mask=mask)
 
         if self.pq is not None and scfg.pq_depth > 0 and not do_refine:
             # refine is redundant under PQ: the cascade's re-score is one
@@ -591,17 +666,17 @@ class Index:
                 raise NotImplementedError(
                     "re-rank under the PQ cascade is not ported yet "
                     "(ROADMAP M9)")
-            s, i = self._search_pq(q, scfg)
+            s, i = self._search_pq(q, scfg, mask)
         else:
             s, i = run_chunked(run, scfg.query_chunk, *args)
         return s.cpu().numpy(), i.cpu().numpy()
 
-    def _search_pq(self, q: torch.Tensor, scfg):
+    def _search_pq(self, q: torch.Tensor, scfg, mask=None):
         """The PQ cascade (search/pq_view.py): the ADC scan over the codes
         selects ``depth`` candidates (at least k, and qe_n with QE), exactly
-        re-scored against the store; QE composes by position. Chunked so
-        the per-stage ``[chunk, depth, D]`` f32 gather stays under 256
-        MiB."""
+        re-scored against the store; QE composes by position; a subset
+        ``mask`` applies at the ADC selection. Chunked so the per-stage
+        ``[chunk, depth, D]`` f32 gather stays under 256 MiB."""
         pq = self.pq
         depth = max(scfg.pq_depth, scfg.k, scfg.qe_n if scfg.qe_enabled else 0)
         depth = min(depth, self.descriptors.shape[0])
@@ -609,7 +684,7 @@ class Index:
         def run(qq):
             return _pq_composite(
                 pq.packed, pq.codebook.centroids, self.descriptors, self.ids,
-                self.scales, qq, self.num_valid, pq.rotation, k=scfg.k,
+                self.scales, qq, self.num_valid, pq.rotation, mask, k=scfg.k,
                 depth=depth, qe_n=scfg.qe_n, qe_alpha=scfg.qe_alpha,
                 do_qe=scfg.qe_enabled, int4=self.is_int4,
                 use_kernel=bool(self.cfg.search.use_pallas))
@@ -651,7 +726,9 @@ class Index:
         re-ranking on and a regional store attached, the query's regional
         rows come from the same backbone pass as its global descriptor
         (``Extractor.extract_with_regional``): the values of the reference's
-        two passes, for one."""
+        two passes, for one. ``subset`` filters as in :meth:`search`; the
+        sharded route cuts its mask per shard
+        (``ShardedIndex.place_subset``)."""
         if self.extractor is None:
             raise ValueError("index has no extractor attached")
         scfg = search_cfg or self.cfg.search
@@ -663,62 +740,521 @@ class Index:
             q = self.extractor(images)
         if sharded_index is None:
             return self.search(q, scfg, query_regional=qreg, subset=subset)
-        if subset is not None:
-            raise NotImplementedError(
-                "subset filters are not ported yet (ROADMAP M7)")
         return self.search_sharded(sharded_index, q, scfg,
-                                   query_regional=qreg)
+                                   query_regional=qreg, subset=subset)
 
     def search_sharded(self, sidx, queries, search_cfg=None,
-                       query_regional=None):
+                       query_regional=None, subset=None):
         """Descriptor-space search through ``sidx`` (``to_sharded()``), the
         reference's sharded route of ``query_images``: alpha-QE by
         ``expand_queries``, then the regional re-rank (with
         ``query_regional``), the exact refine (a one-region store, the query
         its own region, no global term) or the plain sharded top-k ->
-        ``(scores [Q, k], ids [Q, k])`` numpy arrays. The PQ view is not
-        used: the sharded route keeps the exact scan, as in the
-        reference."""
+        ``(scores [Q, k], ids [Q, k])`` numpy arrays. ``subset`` is cut into
+        each shard's ``[1, C]`` slice of its mask. The PQ view is not used:
+        the sharded route keeps the exact scan, as in the reference."""
         scfg = search_cfg or self.cfg.search
         self._check_rescoring_cfg(scfg)
+        subset = self._resolve_subset(subset)
+        smask = sidx.place_subset(subset) if subset is not None else None
         q, qreg = queries, query_regional
         if scfg.qe_enabled:
-            q = sidx.expand_queries(q, qe_n=scfg.qe_n, alpha=scfg.qe_alpha)
+            q = sidx.expand_queries(q, qe_n=scfg.qe_n, alpha=scfg.qe_alpha,
+                                    mask=smask)
         if (scfg.rerank_enabled and sidx.regional is not None
                 and qreg is not None):
             s, i = sidx.search_rerank(q, qreg, k=scfg.k,
                                       depth=scfg.rerank_depth,
-                                      spatial_weight=scfg.spatial_weight)
+                                      spatial_weight=scfg.spatial_weight,
+                                      mask=smask)
         elif scfg.refine_enabled:
-            s, i = sidx.search_refine(q, k=scfg.k, depth=scfg.rerank_depth)
+            s, i = sidx.search_refine(q, k=scfg.k, depth=scfg.rerank_depth,
+                                      mask=smask)
         else:
-            s, i = sidx.search(q, k=scfg.k)
+            s, i = sidx.search(q, k=scfg.k, mask=smask)
         return s.cpu().numpy(), i.cpu().numpy()
 
-    def add(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Index.add (and its regional rows) is not ported yet (ROADMAP M7)")
+    # ------------------------------------------------------------------
+    def search_range(self, queries, tau: float, max_results: int = 1024,
+                     subset=None, mesh=None):
+        """Range search: every row scoring ``>= tau`` -> ``(scores [Q, m],
+        ids [Q, m], counts [Q])`` numpy arrays, ``m = min(max_results,
+        N_pad)``. The members are the top-``m`` of the index's own route
+        (the kernel of the store's kind, or the oracle) cut at ``tau``,
+        score-sorted, the slots past them ``(-inf, -1)``; the counts are
+        exact, from a pass over the dequantized store in f32, in the
+        reference's chunks of rows (no ``[Q, N_pad]`` matrix), so
+        ``counts > max_results`` flags a cut list. A quantized store's
+        member scores are the kernel's, its counts f32 re-scores: a row
+        within a quantization step of ``tau`` may fall on the other side of
+        it in one of the two. ``subset`` filters both."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "range search through a mesh (ShardedIndex.search_range) is "
+                "not ported yet (ROADMAP M7)")
+        q = torch.as_tensor(queries, device=self.device).float()
+        if q.ndim == 1:
+            q = q[None]
+        w = q.shape[-1]
+        q = self._match_query_dim(q)
+        if q.shape[-1] != self.store_dim:
+            raise ValueError(f"queries have width {w}, the store {self.dim}")
+        subset = self._resolve_subset(subset)
+        mask = subset.mask if subset is not None else None
+        n_pad = self.descriptors.shape[0]
+        m = min(max_results, n_pad)
 
-    def remove(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Index.remove (and its regional rows) is not ported yet "
-            "(ROADMAP M7)")
+        def run(qq):
+            s, pos = _topk_raw(self.descriptors, self.ids, qq, self.num_valid,
+                               self.scales, k=m,
+                               use_kernel=bool(self.cfg.search.use_pallas),
+                               int4=self.is_int4, mask=mask)
+            return s, _pos_to_ids(self.ids, s, pos)
 
-    def merge_from(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Index.merge_from (and its regional rows) is not ported yet "
-            "(ROADMAP M7)")
+        s, i = run_chunked(run, self.cfg.search.query_chunk, q)
+        keep = s >= tau
+        s = s.masked_fill(~keep, float("-inf"))
+        i = torch.where(keep, i, torch.full_like(i, -1))
+        chunk = next((c for c in (65_536, 32_768, 16_384, 8_192, 4_096,
+                                  2_048, 1_024, 512, 256, 128, 64, 32, 16, 8)
+                      if n_pad % c == 0), n_pad)
+        chunk = min(chunk, n_pad)
+        qd = q[:, :self.dim]
+        counts = torch.zeros((q.shape[0],), dtype=torch.int64,
+                             device=self.device)
+        for start in range(0, n_pad, chunk):
+            ok = self.ids[start:start + chunk] >= 0
+            if mask is not None:
+                ok = ok & (mask[0, start:start + chunk] > 0)
+            hit = (qd @ self._rows_f32_chunk(start, chunk).T) >= tau
+            counts += (hit & ok[None, :]).sum(dim=1)
+        return (s.cpu().numpy(), i.cpu().numpy(),
+                counts.cpu().numpy().astype(np.int32))
 
-    def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "Index.save (the regional store included) is not ported yet "
-            "(ROADMAP M2)")
+    def _positions(self, names=None, ids=None) -> list[int]:
+        """Row positions of exactly one of image ``names`` or dataset
+        ``ids``, in the request's order; unknown ones raise ``KeyError``."""
+        if (names is None) == (ids is None):
+            raise ValueError("pass exactly one of names=, ids=")
+        if names is not None:
+            pos_by_name = {nm: p for p, nm in enumerate(self.names)}
+            missing = [nm for nm in names if nm not in pos_by_name]
+            if missing:
+                raise KeyError(f"{len(missing)} names not in the index "
+                               f"(e.g. {missing[:3]})")
+            return [pos_by_name[nm] for nm in names]
+        ids_np = self.ids[:self.num_valid].cpu().numpy()
+        pos_by_id = {int(v): p for p, v in enumerate(ids_np)}
+        want = [int(i) for i in ids]
+        missing = [i for i in want if i not in pos_by_id]
+        if missing:
+            raise KeyError(f"{len(missing)} ids not in the index "
+                           f"(e.g. {missing[:3]})")
+        return [pos_by_id[i] for i in want]
+
+    def reconstruct(self, names: "Sequence[str] | None" = None,
+                    ids: "Sequence[int] | None" = None) -> np.ndarray:
+        """Stored rows back out -> ``[n, dim]`` f32 numpy, row-aligned with
+        the request (exactly one of image ``names`` or dataset ``ids``):
+        what the scoring stages see, dequantized as every search stage
+        gathers rows (``gather_rows_f32``), without the zero columns."""
+        pos = self._positions(names=names, ids=ids)
+        if not pos:
+            return np.zeros((0, self.dim), np.float32)
+        rows = _gather_rows_f32(
+            self.descriptors, torch.tensor(pos, device=self.device),
+            self.scales, int4=self.is_int4)
+        return rows[:, :self.dim].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def add(self, paths: "Sequence[str] | None" = None, descriptors=None,
+            names: "Sequence[str] | None" = None,
+            _regional_rows=None) -> int:
+        """Index new images in place: image ``paths`` (through the attached
+        extractor and its whitening; with an R-MAC re-rank store, one
+        combined pass gives the regional rows too) or whitened
+        ``descriptors [n, dim]`` with their ``names``. New ids run from
+        ``max(len(names), max id + 1)``. Rows are quantized and written at
+        positions ``num_valid...`` while the padded capacity holds them;
+        past it the whole store is dequantized and re-padded through
+        ``from_descriptors`` to ``max(capacity, 2 N_pad, n_valid + n)``
+        (written back into ``cfg``; every int8/int4 row is quantized again,
+        as the reference does), which makes existing subsets stale. An
+        exact-refine store grows from the rows; the PQ view absorbs them.
+        Returns the number of rows added."""
+        reg_new = None
+        if paths is not None:
+            if self.extractor is None:
+                raise ValueError("index has no extractor attached")
+            quarantine: list[str] = []
+            if self.regional is not None and not self.has_refine_store:
+                descriptors, reg_new, kept = \
+                    self.extractor.extract_paths_with_regional(paths,
+                                                               quarantine)
+            else:
+                descriptors, kept = self.extractor.extract_paths(paths,
+                                                                 quarantine)
+            names = [os.path.splitext(os.path.basename(paths[i]))[0]
+                     for i in kept]
+            self.quarantined = list(self.quarantined) + quarantine
+        elif descriptors is None or names is None:
+            raise ValueError("pass paths=, or descriptors= and names=")
+        x = torch.as_tensor(descriptors, device=self.device).float()
+        if x.ndim != 2:
+            raise ValueError(f"descriptors {tuple(x.shape)}: [n, dim]")
+        if self.is_int4 and x.shape[1] == self.dim - 1:
+            # the odd width's zero column (nibbles pack in pairs)
+            x = torch.nn.functional.pad(x, (0, 1))
+        if x.shape[1] != self.dim:
+            raise ValueError(f"descriptors have width {x.shape[1]}, the "
+                             f"store {self.dim}")
+        n_new = len(names)
+        if n_new != x.shape[0]:
+            raise ValueError(f"{x.shape[0]} rows for {n_new} names")
+        if n_new == 0:
+            return 0
+        if self.regional is not None and reg_new is None:
+            if self.has_refine_store:
+                reg_new = x[:, None, :]
+            elif _regional_rows is not None:
+                reg_new = _regional_rows
+            else:
+                raise ValueError("index has a regional re-rank store; "
+                                 "add() needs image paths to extend it")
+
+        next_id = max(len(self.names),
+                      int(self.ids.max().item()) + 1 if len(self.ids) else 0)
+        start, n_pad = self.num_valid, self.descriptors.shape[0]
+        new_ids = torch.arange(next_id, next_id + n_new, dtype=torch.int32,
+                               device=self.device)
+        if start + n_new > n_pad:
+            logging.getLogger("instsearch.index").warning(
+                "capacity %d exceeded (%d + %d); re-padding", n_pad, start,
+                n_new)
+            merged = torch.cat([self._rows_f32_chunk(0, n_pad)[:start], x])
+            grown = self.cfg.replace(index=self.cfg.index.replace(
+                capacity=max(self.cfg.index.capacity, 2 * n_pad,
+                             start + n_new)))
+            # the rebuild's refine copy would be of the re-quantized rows;
+            # the reference keeps its own rows and pads its store instead
+            rebuilt = Index.from_descriptors(
+                merged, list(self.names) + list(names),
+                grown.replace(index=grown.index.replace(refine_dtype="")),
+                original_ids=torch.cat([self.ids[:start],
+                                        new_ids]).cpu().numpy(),
+                device=self.device)
+            del merged
+            self.cfg = grown
+            self.descriptors, self.ids = rebuilt.descriptors, rebuilt.ids
+            self.scales, self.names = rebuilt.scales, rebuilt.names
+            self._layout_gen += 1
+            if self.regional is not None:
+                self._write_regional(start, reg_new,
+                                     n_pad_new=self.descriptors.shape[0])
+            self._absorb_views(start, n_new)
+            return n_new
+
+        rows = torch.nn.functional.pad(x, (0, self.store_dim - self.dim))
+        quantize = _QUANTIZE.get(self.cfg.index.dtype)
+        if quantize is not None:
+            qr = quantize(rows)
+            self.descriptors[start:start + n_new] = qr.values
+            self.scales[:, start:start + n_new] = qr.scales
+        else:
+            self.descriptors[start:start + n_new] = rows.to(
+                self.descriptors.dtype)
+        self.ids[start:start + n_new] = new_ids
+        self.names = list(self.names) + list(names)
+        if self.regional is not None:
+            self._write_regional(start, reg_new)
+        self._absorb_views(start, n_new)
+        return n_new
+
+    def _absorb_views(self, start: int, n_new: int) -> None:
+        """Route rows ``[start, start + n_new)``, just written, into the
+        attached PQ view (frozen-codebook codes at their positions)."""
+        if self.pq is not None:
+            self.pq.absorb_add(self, start, n_new)
+
+    def _write_regional(self, start: int, reg_new,
+                        n_pad_new: "int | None" = None) -> None:
+        """Write new rows ``[n, R, D]`` into the regional store at
+        ``start``, quantized per (row, region) for an int8 store; the store
+        is first padded with zero rows to ``n_pad_new`` when the main store
+        was re-padded."""
+        old = self.regional.shape[0]
+        if n_pad_new is not None and n_pad_new != old:
+            grown = self.regional.new_zeros((n_pad_new,)
+                                            + self.regional.shape[1:])
+            grown[:old] = self.regional
+            self.regional = grown
+            if self.regional_scales is not None:
+                sc = self.regional_scales.new_zeros(
+                    (n_pad_new, self.regional.shape[1]))
+                sc[:old] = self.regional_scales
+                self.regional_scales = sc
+        reg = torch.as_tensor(reg_new, device=self.device).float()
+        n, r, d = reg.shape
+        if self.regional.dtype == torch.int8:
+            qr = quantize_rows(reg.reshape(-1, d))
+            self.regional[start:start + n] = qr.values.reshape(n, r, d)
+            self.regional_scales[start:start + n] = qr.scales.reshape(n, r)
+        else:
+            self.regional[start:start + n] = reg.to(self.regional.dtype)
+
+    def remove(self, names: Sequence[str]) -> int:
+        """Remove indexed images by name, in place. Valid rows stay a
+        contiguous prefix (the kernels bound the scan by ``num_valid``): the
+        surviving rows of the tail ``[n_valid - m, n_valid)``, in ascending
+        order, move into the holes below it, in ascending order, rows
+        gathered before any write, as the reference moves them. Rows, ids,
+        scales, the regional store and its scales, and the PQ view's codes
+        move verbatim (no quantization); ids past the new count become -1.
+        ``names`` follow the moves and existing subsets go stale. Unknown
+        names raise ``KeyError`` and leave the index unchanged. A live
+        ``to_sharded()`` view keeps its old shards: make it again. Returns
+        the number of rows removed."""
+        pos_by_name = {nm: i for i, nm in enumerate(self.names)}
+        missing = [nm for nm in names if nm not in pos_by_name]
+        if missing:
+            raise KeyError(f"not in index: {missing}")
+        rem = {pos_by_name[nm] for nm in names}
+        m = len(rem)
+        if m == 0:
+            return 0
+        n_valid = self.num_valid
+        new_valid = n_valid - m
+        holes = sorted(p for p in rem if p < new_valid)
+        tail_survivors = [p for p in range(new_valid, n_valid)
+                          if p not in rem]
+        if holes:
+            src = torch.tensor(tail_survivors, device=self.device)
+            dst = torch.tensor(holes, device=self.device)
+            for t in (self.descriptors, self.ids, self.regional,
+                      self.regional_scales):
+                if t is not None:
+                    t[dst] = t[src]
+            if self.scales is not None:
+                self.scales[:, dst] = self.scales[:, src]
+            if self.pq is not None:
+                self.pq.absorb_remove(src, dst)
+        self.ids[new_valid:] = -1
+        names_arr = np.array(self.names, dtype=object)
+        names_arr[holes] = names_arr[tail_survivors]
+        self.names = list(names_arr[:new_valid])
+        self._name_by_id_len = -1
+        self._layout_gen += 1
+        return m
+
+    def merge_from(self, other: "Index") -> int:
+        """Append every valid row of ``other`` through :meth:`add` (fresh ids
+        in this index's id space, this store's quantization, capacity
+        growth, the PQ view absorbing them), with the donor's dequantized
+        regional rows. Refused: the index itself, another metric, another
+        dim, another ``cfg.extract``, extractors whose weights or whitening
+        differ (``_extractor_fingerprint``, when both carry one), shared
+        names, and regional stores of another kind or region count. Returns
+        the number of rows merged."""
+        if other is self:
+            raise ValueError("cannot merge an index into itself")
+        if other.cfg.index.metric != self.cfg.index.metric:
+            raise ValueError(
+                f"metric mismatch: {self.cfg.index.metric!r} vs "
+                f"{other.cfg.index.metric!r} — an l2 store carries a norm "
+                f"column an ip store does not")
+        if other.dim != self.dim:
+            raise ValueError(f"descriptor dim mismatch: {self.dim} vs "
+                             f"{other.dim}")
+        if self.cfg.extract.to_json() != other.cfg.extract.to_json():
+            raise ValueError(
+                "extraction configs differ — descriptors from different "
+                "pipelines do not share a space; re-extract one side")
+        if (self.extractor is not None and other.extractor is not None
+                and _extractor_fingerprint(self.extractor)
+                != _extractor_fingerprint(other.extractor)):
+            raise ValueError(
+                "extractor weight/whitening fingerprints differ — the two "
+                "indexes were not built by the same extractor; re-extract "
+                "one side")
+        dup = set(self.names) & set(other.names)
+        if dup:
+            raise ValueError(
+                f"{len(dup)} duplicate names (e.g. {sorted(dup)[:3]}) — "
+                f"names must be unique across the merged index")
+        self_rerank = self.regional is not None and not self.has_refine_store
+        other_rerank = (other.regional is not None
+                        and not other.has_refine_store)
+        if (self_rerank != other_rerank
+                or self.has_refine_store != other.has_refine_store):
+            raise ValueError(
+                "regional-store kinds differ (R-MAC re-rank vs exact-refine "
+                "vs none) — both sides must match")
+        if self_rerank and self.regional.shape[1] != other.regional.shape[1]:
+            raise ValueError(
+                f"regional region counts differ: {self.regional.shape[1]} "
+                f"vs {other.regional.shape[1]}")
+        nvb = other.num_valid
+        if nvb == 0:
+            return 0
+        rows = other._rows_f32_chunk(0, other.descriptors.shape[0])[:nvb]
+        reg_rows = None
+        if self_rerank:
+            reg_rows = other.regional[:nvb].float()
+            if other.regional_scales is not None:
+                reg_rows = reg_rows * other.regional_scales[:nvb, :, None]
+        n = self.add(descriptors=rows.to(self.device), names=other.names,
+                     _regional_rows=None if reg_rows is None
+                     else reg_rows.to(self.device))
+        self.quarantined = list(self.quarantined) + list(other.quarantined)
+        return n
+
+    # ------------------------------------------------------------------
+    # Persistence in the reference's npz form: index.npz (the store at the
+    # descriptor width, bf16 widened to f32, int4 paired over dim as the
+    # reference packs it), meta.json and pq/. The backbone's weights go to
+    # a file of the port's own (the reference writes an orbax checkpoint,
+    # which needs JAX); the reference reads such an index with
+    # ``extractor=None`` or its own extractor.
+
+    def _array_state(self) -> dict:
+        """The reference's arrays as numpy, name -> array."""
+        state = {"ids": self.ids.cpu().numpy().astype(np.int32)}
+        if self.is_int4:
+            state["descriptors_int4"] = pack_int4(
+                unpack_int4(self.descriptors)[:, :self.dim]).cpu().numpy()
+        elif self.descriptors.dtype == torch.int8:
+            state["descriptors_int8"] = (
+                self.descriptors[:, :self.dim].cpu().numpy())
+        else:
+            state["descriptors"] = (
+                self.descriptors[:, :self.dim].float().cpu().numpy())
+        if self.scales is not None:
+            state["scales"] = self.scales.cpu().numpy()
+        w = None if self.extractor is None else self.extractor.whitening
+        if w is not None:
+            state["whitening_P"] = w.P.float().cpu().numpy()
+            state["whitening_mu"] = w.mu.float().cpu().numpy()
+        if self.regional is not None:
+            if self.regional.dtype == torch.int8:
+                state["regional_int8"] = self.regional.cpu().numpy()
+                state["regional_scales"] = self.regional_scales.cpu().numpy()
+            else:
+                state["regional"] = self.regional.float().cpu().numpy()
+        return state
+
+    def save(self, path: str, streaming: "bool | None" = None) -> None:
+        """Write the index to the directory ``path`` in the reference's npz
+        form, which ``instsearch_tpu.index.Index.load`` reads too (it leaves
+        the extractor to its caller: ``weights_saved`` is false). The
+        backbone's ``state_dict`` goes to ``torch_weights.pt``, from which
+        :meth:`load` rebuilds the extractor."""
+        if streaming:
+            raise NotImplementedError(
+                "the streaming (orbax) store is not ported yet; the port "
+                "writes the npz form (ROADMAP M10)")
+        os.makedirs(path, exist_ok=True)
+        state = self._array_state()
+        np.savez(os.path.join(path, "index.npz"), **state)
+        dtypes = {k: str(v.dtype) for k, v in state.items()}
+        if "descriptors" in state:
+            dtypes["descriptors"] = self.cfg.index.dtype
+        if "regional" in state:
+            dtypes["regional"] = str(self.regional.dtype).split(".")[-1]
+        meta = {"names": list(self.names),
+                "config": json.loads(self.cfg.to_json()),
+                "format": "npz", "dtypes": dtypes,
+                "seed": getattr(self.extractor, "seed", 0),
+                "weights_saved": False}
+        if self.pq is not None:
+            self.pq.save(os.path.join(path, "pq"))
+            meta["pq"] = True
+        if self.regional_geom is not None:
+            meta["regional_geom"] = np.asarray(self.regional_geom).tolist()
+        if self.extractor is not None:
+            torch.save(self.extractor.model.state_dict(),
+                       os.path.join(path, _WEIGHTS_FILE))
+            meta["torch_weights"] = _WEIGHTS_FILE
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
 
     @classmethod
-    def load(cls, path: str, *args, **kwargs) -> "Index":
-        raise NotImplementedError(
-            "Index.load (the regional store included) is not ported yet "
-            "(ROADMAP M2)")
+    def load(cls, path: str, extractor: Optional[Extractor] = None,
+             device: "torch.device | str | None" = None) -> "Index":
+        """An index saved by :meth:`save` or by the reference in its npz
+        form (any row padding), onto ``device`` (default: the extractor's,
+        else the CUDA card, raising without one). The store gains the
+        kernels' zero columns again, int4 rows are repacked to the port's
+        pairing, PQ codes padded to words. The extractor is ``extractor``,
+        else rebuilt from the port's weights file; an index whose weights
+        were saved as an orbax checkpoint needs ``extractor=``. The stored
+        whitening is attached to the extractor."""
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        if meta.get("format") == "orbax":
+            raise NotImplementedError(
+                "this index was saved in the streaming (orbax) form, which "
+                "the port cannot read without JAX (ROADMAP M10); save it "
+                "with streaming=False")
+        cfg = PipelineConfig.from_json(json.dumps(meta["config"]))
+        _check_index_cfg(cfg)
+        for view, item in (("ivf", "M9"), ("ivfpq", "M9"), ("lw", "M8")):
+            if meta.get(view):
+                raise NotImplementedError(
+                    f"the saved {view} view is not ported yet (ROADMAP "
+                    f"{item})")
+        dev = (extractor.device if device is None and extractor is not None
+               else resolve_device(device))
+        if extractor is None and meta.get("torch_weights"):
+            extractor = Extractor(cfg.extract.replace(whiten=False),
+                                  seed=int(meta.get("seed", 0)), device=dev)
+            extractor.model.load_state_dict(torch.load(
+                os.path.join(path, meta["torch_weights"]), map_location=dev))
+        elif extractor is None and meta.get("weights_saved"):
+            raise ValueError(
+                "this index saved its backbone weights as an orbax "
+                "checkpoint (variables/), which the port cannot read "
+                "without JAX (ROADMAP M10); pass extractor= built from the "
+                "same weights (a seeded extractor would serve wrong "
+                "neighbours)")
+        raw = np.load(os.path.join(path, "index.npz"))
+
+        def put(a, dtype=None):
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return t if dtype is None else t.to(dtype)
+
+        if extractor is not None and "whitening_P" in raw.files:
+            extractor.whitening = WhiteningParams(
+                P=put(raw["whitening_P"], torch.float32).to(extractor.device),
+                mu=put(raw["whitening_mu"], torch.float32).to(
+                    extractor.device))
+        kind = cfg.index.dtype
+        if "descriptors_int4" in raw.files:
+            comps = unpack_int4(put(raw["descriptors_int4"]))
+            dim = comps.shape[1]
+            store = pack_int4(torch.nn.functional.pad(
+                comps, (0, _pad_rows(dim, _COLUMN_MULTIPLE["int4"]) - dim)))
+        else:
+            key = ("descriptors_int8" if "descriptors_int8" in raw.files
+                   else "descriptors")
+            x = put(raw[key], _DTYPES.get(kind, torch.int8))
+            dim = x.shape[1]
+            store = torch.nn.functional.pad(
+                x, (0, _pad_rows(dim, _COLUMN_MULTIPLE[kind]) - dim))
+        scales = (put(raw["scales"], torch.float32)
+                  if "scales" in raw.files else None)
+        idx = cls(store, put(raw["ids"], torch.int32), list(meta["names"]),
+                  cfg, extractor, scales=scales, dim=dim)
+        if "regional_int8" in raw.files:
+            idx.regional = put(raw["regional_int8"], torch.int8)
+            idx.regional_scales = put(raw["regional_scales"], torch.float32)
+        elif "regional" in raw.files:
+            idx.regional = put(raw["regional"],
+                               _DTYPES[meta["dtypes"]["regional"]])
+        if meta.get("regional_geom") is not None:
+            idx.regional_geom = np.asarray(meta["regional_geom"], np.float32)
+        if meta.get("pq"):
+            idx.pq = PQView.load(os.path.join(path, "pq"), device=dev)
+        return idx
 
     def evaluate(self, dataset, protocol: str = "medium", search_cfg=None,
                  sharded: bool = False, mesh=None) -> dict:

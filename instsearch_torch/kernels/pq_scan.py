@@ -7,7 +7,8 @@ descending, row positions [B, k] int32)``.
 (``instsearch_torch/csrc/pq_scan.cu``) for codes on a CUDA device and takes
 its plain PyTorch version, ``pq_topk_reference``, for codes on the CPU. A
 CUDA tensor the kernel cannot take raises; nothing falls back. Launches are
-counted in ``pq_topk.launches``. On the card the lookup table is built by
+counted in ``pq_topk.launches`` (with a subset ``mask``, in
+``pq_topk.launches_subset`` too). On the card the lookup table is built by
 the first kernel of the launch sequence; ``pq_table`` runs that kernel
 alone (counted in ``pq_table.launches``), so that it can be held to its
 plain version, ``_lut``.
@@ -231,9 +232,11 @@ def pq_topk(packed: torch.Tensor, q: torch.Tensor, codebook, k: int = 10,
     # the table [b, 2 groups, 16] f32 goes into scratch behind the
     # candidates
     return _launch(pq_topk, launch, packed, b, k, slices,
-                   scratch=4 * b * 2 * groups * _CODES)
+                   scratch=4 * b * 2 * groups * _CODES,
+                   masked=mask is not None)
 
 
-# kernel launches; reset by whoever counts them
-pq_topk.launches = 0
+# kernel launches, and those with a subset mask; reset by whoever counts
+# them
+pq_topk.launches = pq_topk.launches_subset = 0
 pq_table.launches = 0

@@ -16,7 +16,8 @@ int8 and int4 stores score on the tensor-core pass 1 of ``topk_mma.cuh``)
 for tensors on a CUDA device and takes its plain PyTorch version
 (``*_reference``) for tensors on the CPU. A CUDA tensor the kernel cannot
 take raises; nothing falls back. Each counts its kernel launches in
-``.launches``.
+``.launches``, and those given a subset ``mask`` in ``.launches_subset``
+too.
 
 Semantics shared by the kernels, their plain versions and the TPU kernels:
   * K1: the query is cast to the store's dtype first, products accumulate
@@ -275,12 +276,14 @@ def _cuda_operands(x: torch.Tensor, mask, **tensors) -> "torch.Tensor | None":
     return mask.reshape(-1).to(torch.int8)
 
 
-def _launch(fn, launch, x, b: int, k: int, slices: int, scratch: int = 0):
+def _launch(fn, launch, x, b: int, k: int, slices: int, scratch: int = 0,
+            masked: bool = False):
     """Allocate the outputs, and the candidates (f32 scores, int32
     positions, ``b * slices * k`` each) and ``scratch`` more bytes in one
     buffer; ``launch(out_s, out_i, cand_s, cand_i, scratch, stream)`` (data
     pointers, each scratch part 16-byte aligned) on the current stream,
-    raise on its CUDA error code, count the launch on ``fn``."""
+    raise on its CUDA error code, count the launch on ``fn`` (and, with a
+    subset ``mask``, on ``fn.launches_subset`` too)."""
     # the scratch may be freed while the kernel still runs: the caching
     # allocator hands it out again only to work queued behind it on this
     # stream
@@ -298,6 +301,7 @@ def _launch(fn, launch, x, b: int, k: int, slices: int, scratch: int = 0):
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
                            f"{err} (N={x.shape[0]}, B={b}, k={k})")
     fn.launches += 1
+    fn.launches_subset += masked
     return out_s, out_i
 
 
@@ -348,7 +352,8 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
                 x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
                 cand_i, n, d, b, k, nv, qb, rows, slices, stream)
 
-    return _launch(topk_matmul, launch, x, b, k, slices)
+    return _launch(topk_matmul, launch, x, b, k, slices,
+                   masked=mask is not None)
 
 
 @functools.lru_cache(maxsize=256)
@@ -424,7 +429,8 @@ def _topk_int(fn, ref, x, scales, q, k, num_valid, mask, int4: bool):
             out_s, out_i, cand_s, cand_i, n, d, b, k, nv, int(int4), qb, rows,
             slices, stream)
 
-    return _launch(fn, launch, x, b, k, slices, scratch=values + 8 * b)
+    return _launch(fn, launch, x, b, k, slices, scratch=values + 8 * b,
+                   masked=mask is not None)
 
 
 def topk_matmul_int8(x_int8: torch.Tensor, scales: torch.Tensor,
@@ -449,8 +455,8 @@ def topk_matmul_int4(x_packed: torch.Tensor, scales: torch.Tensor,
                      scales, q, k, num_valid, mask, int4=True)
 
 
-# kernel launches; reset by whoever counts them
-topk_matmul.launches = 0
-topk_matmul_int8.launches = 0
-topk_matmul_int4.launches = 0
+# kernel launches, and those with a subset mask; reset by whoever counts
+# them
+for _fn in (topk_matmul, topk_matmul_int8, topk_matmul_int4):
+    _fn.launches = _fn.launches_subset = 0
 quantize_query.launches = 0

@@ -56,11 +56,20 @@ def quantize_rows_int4(x: torch.Tensor) -> QuantizedRows:
     if d % 2:
         raise ValueError(f"int4 packing needs even D, got {d}")
     scale = _scale(xf, 7.0)
-    q = torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int32)
-    lo = q[:, :d // 2] + 8                  # offset low nibble, in [1, 15]
-    hi = q[:, d // 2:]
-    return QuantizedRows(values=(hi * 16 + lo).to(torch.int8),
-                         scales=scale.reshape(1, -1))
+    q = torch.clamp(torch.round(xf / scale), -7, 7)
+    return QuantizedRows(values=pack_int4(q), scales=scale.reshape(1, -1))
+
+
+def pack_int4(components: torch.Tensor) -> torch.Tensor:
+    """Components in [-7, 7] ``[..., D]`` (D even) -> ``[..., D // 2]``
+    nibble pairs, component ``j`` with ``j + D/2``: the inverse of
+    ``unpack_int4``. Repacking over another D pairs other components (the
+    index's zero columns move the half point)."""
+    c = components.to(torch.int32)
+    d = c.shape[-1]
+    lo = c[..., :d // 2] + 8                # offset low nibble, in [1, 15]
+    hi = c[..., d // 2:]
+    return (hi * 16 + lo).to(torch.int8)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:

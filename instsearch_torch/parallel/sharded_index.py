@@ -20,9 +20,14 @@ Row padding lies at the store's tail, so a shard's valid rows number
 ``clip(num_valid - shard * C, 0, C)``; a shard with none (whole trailing
 shards can be padding) answers ``(-inf, -1)`` without a launch.
 
-Not ported yet, and raising ``NotImplementedError``: subset masks and range
-search (ROADMAP M7), the IVF-PQ tier (M9), local whitening, diffusion and
-the database-side expansion (M8).
+A subset filter (``search/subset.py``) is cut by ``place_subset`` into each
+shard's ``[1, C]`` slice of its mask, on the shard's device, the operand of
+that shard's kernel (or oracle) in every stage, as the reference shards
+the mask like the row scales.
+
+Not ported yet, and raising ``NotImplementedError``: range search (ROADMAP
+M7), the IVF-PQ tier (M9), local whitening, diffusion and the
+database-side expansion (M8).
 """
 from __future__ import annotations
 
@@ -64,12 +69,13 @@ def _pad_cols(t: torch.Tensor, width: int, value) -> torch.Tensor:
 
 
 def _local_topk(sh: Shard, q: torch.Tensor, kk: int, *, use_kernel: bool,
-                int4: bool):
+                int4: bool, mask=None):
     """Per-shard top-``kk`` -> ``(scores, local positions)``, each ``[Q,
     kk]``, empty slots ``(-inf, -1)``. ``kk`` past the shard's C rows is
     clamped for the selection and padded back, so every caller's gather
     stays ``S * kk`` wide. ``use_kernel``: the fused kernel of the store's
-    kind, else the scoring oracle (:func:`_route`)."""
+    kind, else the scoring oracle (:func:`_route`). ``mask``: the shard's
+    ``[1, C]`` slice of a subset mask."""
     kk_req, kk = kk, min(kk, sh.x.shape[0])
     if sh.num_valid == 0:
         s = q.new_full((q.shape[0], kk), _NEG, dtype=torch.float32)
@@ -77,15 +83,16 @@ def _local_topk(sh: Shard, q: torch.Tensor, kk: int, *, use_kernel: bool,
                          device=q.device)
     elif not use_kernel:
         s, pos = search_topk(sh.x, q, k=kk, ids=sh.ids, scales=sh.scales,
-                             int4=int4)
+                             int4=int4, mask=mask)
     elif int4:
         s, pos = topk_matmul_int4(sh.x, sh.scales, q, k=kk,
-                                  num_valid=sh.num_valid)
+                                  num_valid=sh.num_valid, mask=mask)
     elif sh.x.dtype == torch.int8:
         s, pos = topk_matmul_int8(sh.x, sh.scales, q, k=kk,
-                                  num_valid=sh.num_valid)
+                                  num_valid=sh.num_valid, mask=mask)
     else:
-        s, pos = topk_matmul(sh.x, q, k=kk, num_valid=sh.num_valid)
+        s, pos = topk_matmul(sh.x, q, k=kk, num_valid=sh.num_valid,
+                             mask=mask)
     return _pad_cols(s, kk_req, _NEG), _pad_cols(pos, kk_req, -1)
 
 
@@ -122,39 +129,47 @@ def merge_topk(scores: torch.Tensor, pos: torch.Tensor, kk: int, c: int,
     return s, out, rows
 
 
+def _masks(shards, masks):
+    """Each local shard's mask slice (``ShardedIndex.place_subset``), or
+    None for each."""
+    return [None] * len(shards) if masks is None else masks
+
+
 def _gather_topk(mesh: ShardMesh, shards, qs, kk: int, use_kernel: bool,
-                 int4: bool):
+                 int4: bool, masks=None):
     """Every shard's top-``kk`` gathered -> ``(scores, positions)`` ``[Q,
     S*kk]`` in global shard order, and the local ``(scores, positions)``
     of each local shard."""
-    local = [_local_topk(sh, q, kk, use_kernel=use_kernel, int4=int4)
-             for sh, q in zip(shards, qs)]
+    local = [_local_topk(sh, q, kk, use_kernel=use_kernel, int4=int4,
+                         mask=m)
+             for sh, q, m in zip(shards, qs, _masks(shards, masks))]
     return (mesh.gather([s for s, _ in local]),
             mesh.gather([p for _, p in local]), local)
 
 
 def sharded_topk(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int, *,
-                 use_pallas: bool, int4: bool):
+                 use_pallas: bool, int4: bool, masks=None):
     """The sharded search: per-shard top-k, one gather of ``[Q, S*k]``,
     the merge -> ``(scores [Q, k], dataset ids [Q, k])``. ``qs``: the query
     on each local shard's device (``replicate``); ``ids``: the dataset ids
-    of all rows, on the first device."""
+    of all rows, on the first device; ``masks``: each local shard's subset
+    mask slice, or None."""
     s_all, p_all, _ = _gather_topk(mesh, shards, qs, k, _route(use_pallas, k),
-                                   int4)
+                                   int4, masks)
     s, out, _ = merge_topk(s_all, p_all, k, shards[0].x.shape[0], ids, k)
     return s, out
 
 
 def sharded_expand(mesh: ShardMesh, shards, qs, qe_n: int, alpha: float, *,
-                   use_pallas: bool, int4: bool) -> torch.Tensor:
+                   use_pallas: bool, int4: bool, masks=None) -> torch.Tensor:
     """Alpha-QE expansion (round 1 of :func:`sharded_qe_topk`): per-shard
     top-``qe_n`` and its dequantized rows, gathered; the merged top-``qe_n``
     expands the query -> ``[Q, D]`` f32 unit-norm on the first device
     (arXiv:1711.02512 §5). Evaluation ranks the whole store with it."""
     s_parts, r_parts = [], []
-    for sh, q in zip(shards, qs):
+    for sh, q, m in zip(shards, qs, _masks(shards, masks)):
         s, pos = _local_topk(sh, q, qe_n, use_kernel=_route(use_pallas, qe_n),
-                             int4=int4)
+                             int4=int4, mask=m)
         s_parts.append(s)
         r_parts.append(_gather_rows_f32(sh, pos, int4))
     s_all = mesh.gather(s_parts)                               # [Q, S*n]
@@ -167,13 +182,14 @@ def sharded_expand(mesh: ShardMesh, shards, qs, qe_n: int, alpha: float, *,
 
 
 def sharded_qe_topk(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int,
-                    qe_n: int, alpha: float, *, use_pallas: bool, int4: bool):
+                    qe_n: int, alpha: float, *, use_pallas: bool, int4: bool,
+                    masks=None):
     """Search with alpha-QE: round 1 (:func:`sharded_expand`, two gathers),
     then :func:`sharded_topk` with the expanded query."""
     q_exp = sharded_expand(mesh, shards, qs, qe_n, alpha,
-                           use_pallas=use_pallas, int4=int4)
+                           use_pallas=use_pallas, int4=int4, masks=masks)
     return sharded_topk(mesh, shards, replicate(mesh, q_exp), ids, k,
-                        use_pallas=use_pallas, int4=int4)
+                        use_pallas=use_pallas, int4=int4, masks=masks)
 
 
 def sharded_scores(mesh: ShardMesh, shards, qs, *, int4: bool
@@ -188,7 +204,7 @@ def sharded_scores(mesh: ShardMesh, shards, qs, *, int4: bool
 def sharded_rerank(mesh: ShardMesh, shards, qs, qregs, ids: torch.Tensor,
                    k: int, depth: int, *, fuse_weight: float = 1.0,
                    use_pallas: bool, int4: bool, spatial_weight: float = 0.0,
-                   votes=None):
+                   votes=None, masks=None):
     """Regional re-ranking over the sharded regional store, the reference's
     three steps:
 
@@ -210,7 +226,7 @@ def sharded_rerank(mesh: ShardMesh, shards, qs, qregs, ids: torch.Tensor,
     local_k = min(depth, c)
     # the route of the single-device stage's top-depth
     s_all, p_all, local = _gather_topk(mesh, shards, qs, local_k,
-                                       _route(use_pallas, depth), int4)
+                                       _route(use_pallas, depth), int4, masks)
     glob = merge_topk(s_all, p_all, local_k, c, ids, depth)[2]
     fused_parts = []
     for j, (sh, qreg, (s, pos)) in enumerate(zip(shards, qregs, local)):
@@ -332,48 +348,69 @@ class ShardedIndex:
     def _kw(self) -> dict:
         return {"use_pallas": self.use_pallas, "int4": self.int4}
 
-    @staticmethod
-    def _no_mask(mask) -> None:
-        if mask is not None:
-            _not_ported("subset masks", "M7")
+    def place_subset(self, subset):
+        """A subset filter's ``[1, N_pad]`` mask (a ``SubsetFilter`` or the
+        mask itself) -> each local shard's ``[1, C]`` slice on its device,
+        the ``mask=`` of this index's stages; reusable across queries. A
+        mask of another padded size raises ``ValueError``."""
+        if subset is None:
+            return None
+        mask = torch.as_tensor(getattr(subset, "mask", subset))
+        if tuple(mask.shape) != (1, self.num_rows):
+            raise ValueError(
+                f"subset mask shape {tuple(mask.shape)} != [1, "
+                f"{self.num_rows}] — the filter was built against a "
+                f"different store (rebuild with make_subset)")
+        c, first = self.rows_per_shard, self.mesh.first_shard
+        return tuple(
+            mask[:, (first + j) * c:(first + j + 1) * c].to(
+                device=dev, dtype=torch.int8).contiguous()
+            for j, dev in enumerate(self.mesh.devices))
+
+    def _placed(self, mask):
+        """``mask=`` of a stage: ``place_subset``'s slices, anything it
+        takes, or None."""
+        if mask is None or isinstance(mask, tuple):
+            return mask
+        return self.place_subset(mask)
 
     # ------------------------------------------------------------------
     def search(self, queries, k: "int | None" = None, mask=None):
         """``(scores [Q, k], dataset ids [Q, k])``, the single-device top-k
-        over the whole store."""
-        self._no_mask(mask)
+        over the whole store (over a subset's rows with ``mask``)."""
+        masks = self._placed(mask)
         k = k or self.default_k
         q = self._match_query_dim(queries)
         return self._run_chunked(
             lambda qq: sharded_topk(self.mesh, self.shards,
                                     replicate(self.mesh, qq), self._ids,
-                                    k, **self._kw()), q)
+                                    k, masks=masks, **self._kw()), q)
 
     def search_qe(self, queries, k: "int | None" = None, qe_n: int = 10,
                   alpha: float = 3.0, mask=None):
         """Search with alpha query expansion (two rounds of per-shard
         kernels, three gathers)."""
-        self._no_mask(mask)
+        masks = self._placed(mask)
         k = k or self.default_k
         q = self._match_query_dim(queries)
         return self._run_chunked(
             lambda qq: sharded_qe_topk(
                 self.mesh, self.shards, replicate(self.mesh, qq),
-                self._ids, k, qe_n, alpha, **self._kw()), q)
+                self._ids, k, qe_n, alpha, masks=masks, **self._kw()), q)
 
     def expand_queries(self, queries, qe_n: int = 10, alpha: float = 3.0,
                        include_query: bool = True, mask=None
                        ) -> torch.Tensor:
         """Alpha-QE expansion -> the expanded queries ``[Q, W]`` f32 (the
         store's width)."""
-        self._no_mask(mask)
         if not include_query:
             _not_ported("the database-side (αDBA) expansion", "M8")
+        masks = self._placed(mask)
         q = self._match_query_dim(queries)
         return self._run_chunked(
             lambda qq: sharded_expand(self.mesh, self.shards,
                                       replicate(self.mesh, qq), qe_n, alpha,
-                                      **self._kw()), q)
+                                      masks=masks, **self._kw()), q)
 
     def _vote_matrices(self):
         if self._votes is None:
@@ -389,7 +426,7 @@ class ShardedIndex:
         (:func:`sharded_rerank`); ``spatial_weight > 0`` adds the spatial
         vote and needs ``regional_geom``. ``depth`` is cut to the store's
         rows."""
-        self._no_mask(mask)
+        masks = self._placed(mask)
         if self.regional is None:
             raise ValueError("no regional store attached")
         if spatial_weight and self.regional_geom is None:
@@ -406,11 +443,11 @@ class ShardedIndex:
                 self.mesh, self.shards, replicate(self.mesh, qq),
                 replicate(self.mesh, rr), self._ids, k, depth,
                 fuse_weight=fuse_weight,
-                spatial_weight=spatial_weight, votes=votes,
+                spatial_weight=spatial_weight, votes=votes, masks=masks,
                 **self._kw()), q, qreg)
 
     def search_refine(self, queries, k: "int | None" = None,
-                      depth: int = 100):
+                      depth: int = 100, mask=None):
         """The exact refine over the one-region refine copy (the regional
         slot of an int4 index with ``refine_dtype``): the re-rank with the
         query, cut to the copy's width, as its one region and no global
@@ -419,7 +456,8 @@ class ShardedIndex:
             raise ValueError("no refine store attached")
         q = self._match_query_dim(queries)
         return self.search_rerank(q, q[:, None, :self.regional.shape[-1]],
-                                  k=k, depth=depth, fuse_weight=0.0)
+                                  k=k, depth=depth, fuse_weight=0.0,
+                                  mask=mask)
 
     def all_scores(self, queries) -> torch.Tensor:
         """The full ``[Q, N_pad]`` score matrix (padding -inf)."""
@@ -438,9 +476,6 @@ class ShardedIndex:
         return self._ids[order][:, :self.num_valid].cpu().numpy()
 
     # ------------------------------------------------------------------
-    def place_subset(self, subset):
-        _not_ported("subset filters", "M7")
-
     def search_range(self, *args, **kwargs):
         _not_ported("range search", "M7")
 

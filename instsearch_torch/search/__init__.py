@@ -1,13 +1,15 @@
-"""Search stages of the port: brute force, alpha query expansion and
-regional re-ranking with spatial verification."""
+"""Search stages of the port: brute force, alpha query expansion,
+regional re-ranking with spatial verification and subset filters."""
 from .bruteforce import gather_rows_f32, masked_scores, search_topk, select_topk
 from .qe import alpha_query_expansion, expand_from_candidates
 from .rerank import (region_match_scores, region_similarities,
                      rerank_from_candidates)
 from .spatial import build_vote_matrix, spatial_consistency_scores
+from .subset import SubsetFilter, build_position_mask
 
 __all__ = ["gather_rows_f32", "masked_scores", "search_topk", "select_topk",
            "alpha_query_expansion", "expand_from_candidates",
            "region_match_scores", "region_similarities",
            "rerank_from_candidates", "build_vote_matrix",
-           "spatial_consistency_scores"]
+           "spatial_consistency_scores", "SubsetFilter",
+           "build_position_mask"]

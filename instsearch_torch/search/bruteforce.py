@@ -18,7 +18,8 @@ from ..ops.quantize import unpack_int4
 def masked_scores(descriptors: torch.Tensor, queries: torch.Tensor,
                   scales: "torch.Tensor | None" = None,
                   ids: "torch.Tensor | None" = None,
-                  int4: bool = False) -> torch.Tensor:
+                  int4: bool = False,
+                  mask: "torch.Tensor | None" = None) -> torch.Tensor:
     """[Q, N] f32 scores, the one scoring definition for float, int8 (with
     ``scales [1, N]``) and packed-int4 storage (``int4=True``: the store is
     ``[N, D // 2]`` nibble pairs, which its dtype cannot tell from int8).
@@ -27,7 +28,8 @@ def masked_scores(descriptors: torch.Tensor, queries: torch.Tensor,
     return bf16 scores, while bf16 x bf16 products are exact in f32), the
     query first cast to the store's dtype. int8/int4: ``(q_f32 .
     rows_f32^T) * scales``, in that order, as the reference. Padding rows
-    (id -1) are masked to -inf when ``ids`` is given."""
+    (id -1) are masked to -inf when ``ids`` is given, and rows outside a
+    subset when ``mask`` (``[1, N]`` int8, ``search/subset.py``) is."""
     if int4:
         scores = (queries.float() @ unpack_int4(descriptors).float().T
                   ) * scales
@@ -41,6 +43,8 @@ def masked_scores(descriptors: torch.Tensor, queries: torch.Tensor,
                          f"float32 or int8")
     if ids is not None:
         scores = scores.masked_fill(ids[None, :] < 0, float("-inf"))
+    if mask is not None:
+        scores = scores.masked_fill(mask.reshape(1, -1) <= 0, float("-inf"))
     return scores
 
 
@@ -78,9 +82,10 @@ def select_topk(scores: torch.Tensor, k: int):
 
 def search_topk(index: torch.Tensor, queries: torch.Tensor, k: int = 10,
                 ids: "torch.Tensor | None" = None,
-                scales: "torch.Tensor | None" = None, int4: bool = False):
+                scales: "torch.Tensor | None" = None, int4: bool = False,
+                mask: "torch.Tensor | None" = None):
     """``index [N, D]``, ``queries [Q, D]`` -> ``(scores [Q, k], positions
     [Q, k])``; pass ``ids`` when the store carries padding rows (id -1),
-    ``scales``/``int4`` for a quantized store."""
+    ``scales``/``int4`` for a quantized store, ``mask`` for a subset."""
     return select_topk(masked_scores(index, queries, scales=scales, ids=ids,
-                                     int4=int4), k)
+                                     int4=int4, mask=mask), k)

@@ -13,15 +13,24 @@ Two candidate routes, as in the reference: the fused ADC kernel (K4,
 ``kernels/pq_scan.py``; its plain version for codes on the CPU), which
 sums the bf16-rounded lookup table, and the oracle, which sums the f32
 table against a one-hot expansion of the codes over the whole ``[B, N]``
-score matrix. The route is the index's own ``cfg.search.use_pallas``.
+score matrix. The route is the index's own ``cfg.search.use_pallas``. A
+subset mask (``search/subset.py``) applies at ADC selection, on both
+routes, so the whole depth goes to allowed rows.
 
-Not ported yet: subset masks and the re-rank stage (ROADMAP M7, M5), the
-anisotropic fit (M9), ``save``/``load`` (with the Index's, M2), and
-``absorb_add``/``absorb_remove`` (with ``Index.add``/``remove``, M7).
+``Index.add`` is absorbed (``absorb_add`` encodes the new rows with the
+frozen codebook at their positions), and so is ``Index.remove``
+(``absorb_remove`` replays its compaction moves on the codes). The view
+rides ``Index.save``/``load`` in the reference's form (``pq/pq.npz`` with
+the unpadded codes, ``pq/pq.json``).
+
+Not ported yet: the re-rank stage under the cascade and the anisotropic
+fit (ROADMAP M9).
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 from functools import partial
 
 import numpy as np
@@ -54,7 +63,7 @@ def _oracle_scores(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
 
 
 def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
-                   rotation=None, *, depth: int, int4: bool,
+                   rotation=None, mask=None, *, depth: int, int4: bool,
                    use_kernel: bool):
     """ADC top-``depth`` over the codes, then the exact f32 re-score of
     those rows from the main store and a re-sort -> ``(exact scores
@@ -63,16 +72,19 @@ def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
     has the store's width, whose columns past the codebook's are zeros.
     With an OPQ ``rotation`` the scan scores the rotated query; the
     re-score keeps the original one against the unrotated store. A depth
-    past the kernel's ``K_MAX`` takes the oracle route."""
+    past the kernel's ``K_MAX`` takes the oracle route. ``mask`` (``[1,
+    N]`` int8) restricts the selection to a subset."""
     cb = PQCodebook(centroids)
     q_adc = q[:, :cb.dim]
     if rotation is not None:
         q_adc = (q_adc @ rotation).to(q.dtype)
     if use_kernel and depth <= K_MAX:
-        _, pos = pq_topk(codes, q_adc, cb, k=depth, num_valid=nv)
+        _, pos = pq_topk(codes, q_adc, cb, k=depth, num_valid=nv, mask=mask)
     else:
         s = _oracle_scores(codes[:, :cb.m // 2], pq_lut(q_adc, cb))
         rows_ok = torch.arange(codes.shape[0], device=codes.device) < nv
+        if mask is not None:
+            rows_ok = rows_ok & (mask.reshape(-1) > 0)
         _, pos = select_topk(s.masked_fill(~rows_ok, _NEG_INF), depth)
     rows = gather_rows_f32(descriptors, pos.clamp(min=0), scales, int4=int4)
     exact = torch.einsum("bkd,bd->bk", rows, q.float())
@@ -86,7 +98,7 @@ def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
 
 
 def _pq_composite(codes, centroids, descriptors, ids, scales, q, nv: int,
-                  rotation=None, *, k: int, depth: int, qe_n: int,
+                  rotation=None, mask=None, *, k: int, depth: int, qe_n: int,
                   qe_alpha: float, do_qe: bool, int4: bool,
                   use_kernel: bool):
     """The reference's ``_pq_composite_jit`` without its re-rank stage:
@@ -95,7 +107,7 @@ def _pq_composite(codes, centroids, descriptors, ids, scales, q, nv: int,
     [B, k], ids [B, k])``."""
     q = q.float()
     sel = partial(_pq_candidates, codes, centroids, descriptors, scales,
-                  rotation=rotation, depth=depth, int4=int4,
+                  rotation=rotation, mask=mask, depth=depth, int4=int4,
                   use_kernel=use_kernel)
     if do_qe:
         s, pos = sel(q, nv)
@@ -214,21 +226,61 @@ class PQView:
 
     # ------------------------------------------------------------------
     def absorb_add(self, index, start: int, n_new: int) -> None:
-        raise NotImplementedError(
-            "PQ absorb_add waits for Index.add (ROADMAP M7)")
+        """Absorb the rows ``[start, start + n_new)`` just written to the
+        main store: encode them with the frozen codebook (and rotation)
+        into ``packed``, the array K4 scans (``codes`` is a view of it),
+        which first grows with zero rows when the add re-padded the store.
+        The reference's window: the next power of two at least ``n_new``
+        (at least 8) rows from ``start``, moved back when it would run past
+        the store, all re-encoded; rows before ``start`` encode as they
+        did, so the codes stay the reference's byte for byte."""
+        n_pad = index.descriptors.shape[0]
+        if self.packed.shape[0] != n_pad:
+            grown = self.packed.new_zeros((n_pad, self.packed.shape[1]))
+            grown[:self.packed.shape[0]] = self.packed
+            self.packed = grown
+        p = max(8, 1 << max(0, n_new - 1).bit_length())
+        s0 = 0 if p >= n_pad else min(start, n_pad - p)
+        rows = index._rows_f32_chunk(s0, min(p, n_pad))
+        if self.rotation is not None:
+            rows = rows @ self.rotation
+        self.packed[s0:s0 + rows.shape[0], :self.m // 2] = encode_pq(
+            rows, self.codebook)
 
-    def absorb_remove(self, src, dst) -> None:
-        raise NotImplementedError(
-            "PQ absorb_remove waits for Index.remove (ROADMAP M7)")
+    def absorb_remove(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Replay ``Index.remove``'s compaction moves (rows ``src`` to
+        ``dst``, gathered before any write) on the position-aligned codes;
+        codes past ``num_valid`` are masked by the scan's bound."""
+        self.packed[dst] = self.packed[src]
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "PQ save waits for the Index's save/load (ROADMAP M2)")
+        """The reference's form: ``pq.npz`` (``centroids``, the unpadded
+        ``codes [N_pad, M/2]``, ``rotation`` with OPQ) and ``pq.json``."""
+        os.makedirs(path, exist_ok=True)
+        arrs = {"centroids": self.codebook.centroids.cpu().numpy(),
+                "codes": self.codes.cpu().numpy()}
+        if self.rotation is not None:
+            arrs["rotation"] = self.rotation.cpu().numpy()
+        np.savez(os.path.join(path, "pq.npz"), **arrs)
+        with open(os.path.join(path, "pq.json"), "w") as f:
+            json.dump({"depth": self.depth, "anisotropic_t": None}, f)
 
     @classmethod
-    def load(cls, path: str) -> "PQView":
-        raise NotImplementedError(
-            "PQ load waits for the Index's save/load (ROADMAP M2)")
+    def load(cls, path: str, device: "torch.device | str | None" = None
+             ) -> "PQView":
+        """A view saved by :meth:`save` or by the reference; its codes are
+        padded to words again. ``device`` defaults to the card."""
+        with open(os.path.join(path, "pq.json")) as f:
+            meta = json.load(f)
+        if meta.get("anisotropic_t") is not None:
+            raise NotImplementedError(
+                "anisotropic PQ (anisotropic_t) is not ported yet "
+                "(ROADMAP M9)")
+        raw = np.load(os.path.join(path, "pq.npz"))
+        return cls.from_arrays(
+            raw["centroids"], raw["codes"], depth=int(meta["depth"]),
+            rotation=raw["rotation"] if "rotation" in raw.files else None,
+            device=device)
 
     # ------------------------------------------------------------------
     def candidates(self, index, queries, depth: int | None = None):

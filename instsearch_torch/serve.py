@@ -1,16 +1,30 @@
 """Serving core: bucketed request handling over JSON lines (port of
 ``instsearch_tpu/serve.py``: ``serve_buckets``, ``serve_batch`` and
-``ServeCore``, query requests only, on one device or through the sharded
-index).
+``ServeCore``, on one device or through the sharded index).
 
-Requests: ``{"image": PATH}`` or ``{"images": [PATH, ...]}``, optional
-``"k"``. Mutations (``add``/``remove``), subsets, ``range`` and
-``reconstruct`` answer with an error line saying they are not ported yet;
-a bad request never raises out of ``handle_line``.
+Requests, one JSON object a line, answered key for key as the reference
+answers them:
+
+  * ``{"image": PATH}`` or ``{"images": [PATH, ...]}``, optional ``"k"`` and
+    ``"subset": NAME`` (a registered subset) -> ``{"results", ...}``;
+  * ``{"define_subset": {"name": N, "members": [names]}}``,
+    ``{"drop_subset": N}`` -> the subsets defined;
+  * ``{"add": [PATH, ...]}``, ``{"remove": [names]}`` -> rows added or
+    removed; registered subsets are rebuilt from their surviving members'
+    names, and the sharded index is cut again from the mutated store;
+  * ``{"range": {"image": P, "tau": T[, "max_results": M][, "subset":
+    N]}}`` -> every row scoring at least ``tau`` and their exact count
+    (``Index.search_range``, on one device);
+  * ``{"reconstruct": {"names": [...]} | {"ids": [...]}}`` -> the stored
+    rows.
+
+A bad request never raises out of ``handle_line``: it is answered with an
+``{"error": ...}`` line.
 
 The bucket policy is kept as the reference has it: requests run through
 batch sizes 1, 2, 4, 8 (split or padded up), which a later CUDA-graph
-capture needs as its fixed shapes.
+capture needs as its fixed shapes. Nothing compiles per shape in eager
+PyTorch, so defining a subset needs no warm pass.
 """
 from __future__ import annotations
 
@@ -28,11 +42,13 @@ def serve_buckets(query_chunk: int) -> list[int]:
     return buckets
 
 
-def serve_batch(idx, batch: np.ndarray, scfg, buckets, sidx=None):
+def serve_batch(idx, batch: np.ndarray, scfg, buckets, sidx=None,
+                subset=None):
     """Serve an image batch of any size through the bucket shapes only:
     larger requests split into largest-bucket pieces, the remainder padded
     up to the smallest covering bucket (padding rows are dropped).
-    ``sidx``: the sharded index to search through, if any."""
+    ``sidx``: the sharded index to search through, if any; ``subset``: a
+    ``SubsetFilter`` restricting the results."""
     n = batch.shape[0]
     out_s, out_i = [], []
     pos = 0
@@ -44,32 +60,35 @@ def serve_batch(idx, batch: np.ndarray, scfg, buckets, sidx=None):
         if take < b:
             piece = np.concatenate(
                 [piece, np.repeat(piece[-1:], b - take, axis=0)])
-        s, i = idx.query_images(piece, scfg, sharded_index=sidx)
+        s, i = idx.query_images(piece, scfg, sharded_index=sidx,
+                                subset=subset)
         out_s.append(s[:take])
         out_i.append(i[:take])
         pos += take
     return np.concatenate(out_s), np.concatenate(out_i)
 
 
-_NOT_PORTED_REQUESTS = {
-    "add": "ROADMAP M7", "remove": "ROADMAP M7",
-    "define_subset": "ROADMAP M7", "drop_subset": "ROADMAP M7",
-    "subset": "ROADMAP M7", "range": "ROADMAP M7",
-    "reconstruct": "ROADMAP M7",
-}
+def _is_mutation(req: dict) -> bool:
+    return ("add" in req or "remove" in req or "define_subset" in req
+            or "drop_subset" in req)
 
 
 class ServeCore:
     """Owns the index, the optional sharded view (``idx.to_sharded(mesh)``
-    when ``sharded``) and its warm bucket shapes. ``decode`` is host-only;
-    ``run_queries`` touches the device and stays on one thread."""
+    when ``sharded``), its warm bucket shapes and the named subsets.
+    ``decode`` is host-only; ``mutate`` and ``run_queries`` touch the
+    device and stay on one thread."""
 
     def __init__(self, idx, sharded: bool = False, mesh=None):
         self.idx = idx
+        self.mesh = mesh
         self.sidx = idx.to_sharded(mesh=mesh) if sharded else None
         self.size = idx.cfg.extract.image_size
         self.warm_k = idx.cfg.search.k
         self.buckets = serve_buckets(idx.cfg.search.query_chunk)
+        # named subset filters, defined by clients and referenced per
+        # query; kept by member names so that mutations can rebuild them
+        self.subsets: dict = {}
 
     def warmup(self) -> None:
         """One pass per bucket shape (cuDNN picks its algorithms and the
@@ -99,9 +118,63 @@ class ServeCore:
         return np.stack(imgs), int(req.get("k", self.warm_k))
 
     # ---- device side --------------------------------------------------
-    def run_queries(self, jobs: "list[tuple[np.ndarray, int]]") -> list[dict]:
+    def define_subset(self, name: str, members) -> dict:
+        """Register a named subset of image names."""
+        sub = self.idx.make_subset(names=list(members))
+        self.subsets[name] = sub
+        return {"subset": name, "count": sub.count,
+                "subsets": sorted(self.subsets)}
+
+    def _refresh_subsets(self) -> None:
+        """Rebuild the registered subsets a mutation made stale (a remove,
+        an add past capacity): the surviving members' names resolve to
+        their new positions; removed members drop out."""
+        alive = set(self.idx.names)
+        for nm, sub in list(self.subsets.items()):
+            if (sub.layout_gen == self.idx._layout_gen
+                    and sub.n_pad == self.idx.descriptors.shape[0]):
+                continue
+            members = [m for m in (sub.names or ()) if m in alive]
+            self.subsets[nm] = self.idx.make_subset(names=members)
+
+    def mutate(self, req: dict) -> dict:
+        """``define_subset``, ``drop_subset``, ``add`` (image paths through
+        the index's extractor) or ``remove`` (names); a mutation of the
+        store refreshes the subsets and cuts the sharded index again (its
+        shards are views with a fixed count of valid rows each)."""
+        t0 = time.perf_counter()
+        if "define_subset" in req:
+            spec = req["define_subset"]
+            resp = self.define_subset(spec["name"], spec["members"])
+        elif "drop_subset" in req:
+            self.subsets.pop(req["drop_subset"], None)
+            resp = {"dropped": req["drop_subset"],
+                    "subsets": sorted(self.subsets)}
+        elif "add" in req:
+            n = self.idx.add(paths=list(req["add"]))
+            self._refresh_subsets()
+            resp = {"added": n}
+        else:
+            n = self.idx.remove(list(req["remove"]))
+            self._refresh_subsets()
+            resp = {"removed": n}
+        if self.sidx is not None and ("add" in req or "remove" in req):
+            self.sidx = self.idx.to_sharded(mesh=self.mesh)
+        resp["rows"] = self.idx.num_valid
+        resp["latency_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        return resp
+
+    def run_queries(self, jobs: "list[tuple[np.ndarray, int]]",
+                    subset: "str | None" = None) -> list[dict]:
         """One device pass for a list of (images, req_k) jobs. Runs at the
-        warm top-k width unless a request asks for more."""
+        warm top-k width unless a request asks for more. ``subset``: the
+        name of a registered subset shared by every job."""
+        sub = None
+        if subset is not None:
+            sub = self.subsets.get(subset)
+            if sub is None:
+                raise KeyError(f"unknown subset {subset!r} — define it "
+                               f"first ({{'define_subset': ...}})")
         ks = [k for _, k in jobs]
         k_run = self.warm_k if max(ks) <= self.warm_k else max(ks)
         scfg = self.idx.cfg.search.replace(k=k_run)
@@ -109,7 +182,7 @@ class ServeCore:
                  else np.concatenate([im for im, _ in jobs]))
         t0 = time.perf_counter()
         scores, ids = serve_batch(self.idx, batch, scfg, self.buckets,
-                                  self.sidx)
+                                  self.sidx, subset=sub)
         latency = round((time.perf_counter() - t0) * 1e3, 3)
         out, pos = [], 0
         for images, req_k in jobs:
@@ -132,12 +205,34 @@ class ServeCore:
         a long-lived server answers a bad request with an error line."""
         try:
             req = json.loads(line)
-            todo = sorted(set(req) & set(_NOT_PORTED_REQUESTS))
-            if todo:
-                raise NotImplementedError(
-                    f"{', '.join(todo)} requests are not ported yet "
-                    f"({_NOT_PORTED_REQUESTS[todo[0]]})")
+            if _is_mutation(req):
+                return self.mutate(req)
+            if "range" in req:
+                spec = req["range"]
+                images, _ = self.decode({"image": spec["image"]})
+                sub = None
+                if spec.get("subset") is not None:
+                    sub = self.subsets.get(spec["subset"])
+                    if sub is None:
+                        raise KeyError(f"unknown subset {spec['subset']!r}")
+                s, i, counts = self.idx.search_range(
+                    self.idx.extractor(images), float(spec["tau"]),
+                    max_results=int(spec.get("max_results", 256)),
+                    subset=sub)
+                n = int(counts[0])
+                results = [{"rank": r, "name": self.idx.name_of(ii),
+                            "id": int(ii), "score": float(ss)}
+                           for r, (ss, ii) in enumerate(zip(s[0], i[0]))
+                           if ii >= 0]
+                return {"results": results, "count": n,
+                        "truncated": n > len(results)}
+            if "reconstruct" in req:
+                spec = req["reconstruct"]
+                rows = self.idx.reconstruct(names=spec.get("names"),
+                                            ids=spec.get("ids"))
+                return {"vectors": rows.tolist(), "dim": int(rows.shape[1])}
             images, req_k = self.decode(req)
-            return self.run_queries([(images, req_k)])[0]
+            return self.run_queries([(images, req_k)],
+                                    subset=req.get("subset"))[0]
         except Exception as e:    # noqa: BLE001 — the transport boundary
             return {"error": f"{type(e).__name__}: {e}"}

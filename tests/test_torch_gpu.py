@@ -782,3 +782,75 @@ def test_sharded_search_on_one_card(gen, dtype):
                                    atol=0 if dtype != "bfloat16" else TOL)
     np.testing.assert_array_equal(sidx.full_ranking(q[:2]),
                                   idx.full_ranking(q[:2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("members", [5, 200], ids=["five", "0.1%"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4", "pq"])
+def test_subset_search_through_the_kernels(gen, dtype, members,
+                                           monkeypatch):
+    """``Index.search(subset=)`` on the card with 5 members and with 0.1% of
+    200,000 rows: the kernel of the store's kind (K4 through the PQ
+    cascade) launches once with the mask, every id is a member, five members
+    give five results and a ``(-inf, -1)`` tail, and the answer equals the
+    same search through the kernel's plain version with the same mask (K1
+    by ``check_against_plain``, K2-K4 bit for bit)."""
+    import instsearch_torch.index as tindex
+    import instsearch_torch.search.pq_view as tview
+    n, d = 200_000, 512
+    x = _unit(gen, n, d)
+    cfg = PipelineConfig(index=IndexConfig(
+        dtype="int4" if dtype == "pq" else dtype, row_tile=1024),
+        search=SearchConfig(k=10))
+    idx = Index.from_descriptors(x, [str(i) for i in range(n)], cfg)
+    entry, kernel, plain = {
+        "bfloat16": (tindex, topk_matmul, topk_matmul_reference),
+        "int8": (tindex, topk_matmul_int8, topk_matmul_int8_reference),
+        "int4": (tindex, topk_matmul_int4, topk_matmul_int4_reference),
+        "pq": (tview, pq_topk, pq_topk_reference)}[dtype]
+    if dtype == "pq":
+        idx.build_pq(iters=3, sample=20_000, depth=100)
+    allowed = torch.randperm(n, generator=gen, device="cuda")[:members]
+    sub = idx.make_subset(ids=allowed.tolist())
+    q = torch.cat([x[allowed[:3]] + 0.05 * _unit(gen, 3, d), x[:3]])
+    before = (kernel.launches, kernel.launches_subset)
+    s, i = idx.search(q, subset=sub)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_subset) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert set(i[i >= 0].tolist()) <= set(allowed.tolist())
+    if members == 5:
+        assert (i[:, 5:] == -1).all() and np.isneginf(s[:, 5:]).all()
+        assert all(sorted(row[:5].tolist()) == sorted(allowed.tolist())
+                   for row in i)
+    monkeypatch.setattr(entry, kernel.__name__, plain)
+    ps, pi = idx.search(q, subset=sub)
+    if dtype == "bfloat16":
+        check_against_plain(idx.descriptors, q, *(torch.from_numpy(a).cuda()
+                                                  for a in (s, i, ps, pi)),
+                            TOL)
+    else:
+        np.testing.assert_array_equal(i, pi)
+        np.testing.assert_array_equal(s, ps)
+
+
+@pytest.mark.gpu
+def test_stale_filter_after_a_repadding_add_raises(gen):
+    """An ``add`` past capacity re-pads the store: a filter of the old
+    layout is refused before any launch (its mask would end inside the
+    new store); a filter made again covers the new rows."""
+    n, d = 4096, 512
+    x = _unit(gen, n, d)
+    idx = Index.from_descriptors(
+        x, [str(i) for i in range(n)],
+        PipelineConfig(index=IndexConfig(row_tile=1024)))
+    sub = idx.make_subset(ids=list(range(0, n, 2)))
+    idx.add(descriptors=_unit(gen, 8, d), names=[f"new{i}" for i in range(8)])
+    assert idx.descriptors.shape[0] == 2 * n and sub.n_pad == n
+    before = topk_matmul.launches
+    with pytest.raises(ValueError, match="stale SubsetFilter"):
+        idx.search(x[:2], subset=sub)
+    assert topk_matmul.launches == before
+    fresh = idx.make_subset(names=["new3", "0"])
+    _, i = idx.search(x[:1], subset=fresh)
+    assert sorted(i[0, :2].tolist()) == [0, n + 3] and (i[0, 2:] == -1).all()

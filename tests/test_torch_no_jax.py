@@ -8,7 +8,9 @@ first through four CPU shards (``instsearch_torch.parallel``), run VGG16
 with R-MAC through the combined global and regional extraction, run a tiny
 ViT on its three attention routes and the multi-scale resize and a tiny
 ResNet through ``fused_resnet_apply`` (its identity blocks through K7's
-plain version),
+plain version), save the int4 index with its PQ view and load it back,
+search it under a subset, add and remove rows, range-search it and cut a
+subset over four CPU shards,
 then check sys.modules: neither JAX nor any module of the reference package
 was loaded."""
 import json
@@ -89,6 +91,23 @@ net.init_weights(torch.Generator().manual_seed(0))
 feats = fused_resnet_apply(net.state_dict(), torch.rand(1, 32, 32, 3),
                            stage_sizes=(1, 2, 1, 1), fused_layers=(1, 2, 3, 4))
 assert tuple(feats.shape) == (1, 1, 1, 2048) and feats.dtype == torch.bfloat16
+import tempfile
+import instsearch_torch.search.subset
+with tempfile.TemporaryDirectory() as tmp:
+    qidx.save(tmp)
+    live = Index.load(tmp, device="cpu")
+assert torch.equal(live.pq.packed, qidx.pq.packed)
+sub = live.make_subset(names=["r0", "r2", "r4"])
+assert sorted(live.search(x[:3], subset=sub)[1][0, :3].tolist()) == [0, 2, 4]
+assert live.add(descriptors=x[:2], names=["n0", "n1"]) == 2
+assert live.remove(["r1", "r39"]) == 2
+rs, ri, rc = live.search_range(x[:2], 0.5)
+assert rc.tolist() == [3, 1] and ri[:, 0].tolist() == [0, 41]
+assert ri[0, 1] == 40 and rs[0, 0] == rs[0, 1]
+ssub = live.make_subset(names=["n0", "r5"])
+lsidx = live.to_sharded(mesh=make_mesh(4, devices=["cpu"] * 4))
+assert live.search_sharded(lsidx, x[:1], subset=ssub)[1][0, :2].tolist() \
+    == [40, 5]
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

@@ -19,6 +19,7 @@ What is compared, and the tolerances:
     exact oracle route, scores to 1e-5.
 """
 import functools
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -248,14 +249,24 @@ def test_positions_map_to_dataset_ids(rng):
     np.testing.assert_array_equal(ids[:, 0], original[:3])
 
 
-def test_unported_parts_raise(rig):
+def test_unported_parts_raise(rig, tmp_path):
+    """The anisotropic fit (M9) is refused, also in a saved view; the view
+    saves and loads (codes unpadded on disk, padded to words again), and
+    absorbing rows already stored re-encodes them to the same codes."""
     _, _, _, _, tidx = rig
     with pytest.raises(NotImplementedError, match="M9"):
         tidx.build_pq(m=4, iters=2, anisotropic_t=0.2)
-    with pytest.raises(NotImplementedError, match="M2"):
-        tidx.pq.save("unused")
-    with pytest.raises(NotImplementedError, match="M7"):
-        tidx.pq.absorb_add(tidx, 0, 1)
+    before = tidx.pq.packed.clone()
+    tidx.pq.save(str(tmp_path))
+    back = PQView.load(str(tmp_path), device="cpu")
+    assert back.depth == tidx.pq.depth
+    np.testing.assert_array_equal(back.packed.numpy(), before.numpy())
+    tidx.pq.absorb_add(tidx, 0, 1)
+    np.testing.assert_array_equal(tidx.pq.packed.numpy(), before.numpy())
+    with open(tmp_path / "pq.json", "w") as f:
+        json.dump({"depth": 10, "anisotropic_t": 0.2}, f)
+    with pytest.raises(NotImplementedError, match="M9"):
+        PQView.load(str(tmp_path), device="cpu")
 
 
 def test_serve_core_answers_through_the_cascade(rng, monkeypatch):

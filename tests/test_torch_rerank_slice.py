@@ -556,10 +556,14 @@ def test_presets_build_and_query(rig, preset):
     np.testing.assert_array_equal(ss, s)
 
 
-def test_unported_neighbours_raise(rig):
-    """Re-rank under the PQ cascade (M9), regional add/remove/merge (M7),
-    save/load (M2) and diffusion (M8) name their ROADMAP item; an index of
-    two shards builds (the sharded index is ported)."""
+def test_unported_neighbours_raise(rig, tmp_path):
+    """Re-rank under the PQ cascade (M9) and diffusion (M8) name their
+    ROADMAP item. The live index keeps the regional store: a descriptor
+    ``add`` is refused (the regional rows need image paths, as in the
+    reference), unknown names and a self-merge are refused, and a saved
+    and loaded copy carries the store and its grid geometry into
+    ``remove``. An index of two shards builds (the sharded index is
+    ported)."""
     same, q = rig["same"], rig["qimgs"][:2]
     twin = same.with_search()
     twin.build_pq(m=4, iters=2, depth=20)
@@ -568,13 +572,19 @@ def test_unported_neighbours_raise(rig):
     # without re-rank the cascade serves; refine would bypass it
     s, i = twin.query_images(q, twin.cfg.search.replace(rerank_enabled=False))
     assert i.shape == (2, 10)
-    for call, item in ((lambda: same.add(descriptors=None), "M7"),
-                       (lambda: same.remove(["x"]), "M7"),
-                       (lambda: same.merge_from(same), "M7"),
-                       (lambda: same.save("/nonexistent"), "M2"),
-                       (lambda: Index.load("/nonexistent"), "M2")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(ValueError, match="needs image paths"):
+        same.add(descriptors=rig["seen"]["rows"][:1], names=["x"])
+    with pytest.raises(KeyError, match="not in index"):
+        same.remove(["x"])
+    with pytest.raises(ValueError, match="into itself"):
+        same.merge_from(same)
+    same.save(str(tmp_path))
+    copy = Index.load(str(tmp_path), device="cpu")
+    assert torch.equal(copy.regional, same.regional)
+    np.testing.assert_array_equal(copy.regional_geom, same.regional_geom)
+    gone = copy.names[0]
+    assert copy.remove([gone]) == 1 and gone not in copy.names
+    assert torch.equal(copy.regional[0], same.regional[copy.num_valid])
     two = Index.from_descriptors(
         rig["seen"]["rows"], same.names,
         _port_cfg(CFG).replace(index=IndexConfig(num_shards=2)),

@@ -171,16 +171,27 @@ def test_serve_core_answers_like_query_images(rig):
     for row, ids in zip(three["results"], want):
         assert [r["id"] for r in row] == ids.tolist()
         assert all(r["name"] == tidx.name_of(r["id"]) for r in row)
-    err = core.handle_line(json.dumps({"remove": [ds.imlist[0]]}))
-    assert "error" in err and "not ported" in err["error"]
+    # a remove of an unknown name is answered with an error line and
+    # leaves the index as it was; a registered subset filters a query
+    err = core.handle_line(json.dumps({"remove": [ds.imlist[0] + "_x"]}))
+    assert err == {"error": f"KeyError: \"not in index: "
+                            f"['{ds.imlist[0]}_x']\""}
+    assert core.ready_info()["rows"] == tidx.num_valid
+    members = [tidx.name_of(i) for i in want[0][1:4].tolist()]
+    ok = core.handle_line(json.dumps({"define_subset": {
+        "name": "three", "members": members}}))
+    assert ok["subset"] == "three" and ok["count"] == 3
+    sub = core.handle_line(json.dumps({"image": ds.query_paths[0],
+                                       "subset": "three"}))
+    assert [r["id"] for r in sub["results"][0]] == want[0][1:4].tolist()
     bad = core.handle_line(json.dumps({"image": "/nonexistent.jpg"}))
     assert "error" in bad
 
 
 def test_unported_stages_raise(rig):
-    """int8, int4, QE, re-rank, refine, regional extraction and shards are
-    ported; l2, diffusion, subsets and re-rank under the PQ cascade still
-    raise."""
+    """int8, int4, QE, re-rank, refine, regional extraction, shards and
+    subsets are ported (an unknown subset member raises ``KeyError``); l2,
+    diffusion and re-rank under the PQ cascade still raise."""
     _, _, _, tidx, qimgs = rig
     q = tidx.extractor(qimgs[:1])
     s, i = tidx.search(q, CFG.search.replace(qe_enabled=True))
@@ -194,8 +205,11 @@ def test_unported_stages_raise(rig):
         tidx.search(q, CFG.search.replace(refine_enabled=True))
     with pytest.raises(NotImplementedError):
         tidx.search(q, CFG.search.replace(diffusion_enabled=True))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="subset names not in the index"):
         tidx.search(q, subset=["x"])
+    s, i = tidx.search(q, subset=tidx.names[:3])
+    assert sorted(i[0, :3].tolist()) == tidx.ids[:3].tolist()
+    assert (i[0, 3:] == -1).all()
     reg = tidx.extractor.extract_regional(qimgs[:1])
     assert tuple(reg.shape) == (1, len(tidx.extractor.regional_geometry()),
                                 tidx.dim)
