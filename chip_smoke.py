@@ -5,14 +5,15 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs eleven phases; each raises on failure and the process exits non-zero.
+runs twelve phases; each raises on failure and the process exits non-zero.
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes: 1M x 512 rows, B in {1, 8, 128} (K1 in bf16: {1,
      8, 16, 64, 128}, each timed), k in {1, 10, 100}, padding, a
      50% mask, duplicated rows, fewer valid rows than k, D = 2048 at B = 1
-     (bf16: also 128); K1 in bf16 and f32 (scores within SCORE_TOL), K2
+     (bf16: also 128, and k = 200 at B = 1, 8 and 128, phase 11's shapes);
+     K1 in bf16 and f32 (scores within SCORE_TOL), K2
      over int8 and K3 over int4 rows (bit for bit; also B = 65, D = 128
      and B = 128 at D = 128 and 2048, each timed at B = 1 and 128, K2
      beside ``torch._int_mm`` + ``torch.topk`` at B = 128), and the first
@@ -156,7 +157,43 @@ runs eleven phases; each raises on failure and the process exits non-zero.
      K3 and K4 (K1 beside ``torch.topk`` of the masked product), the
      ``Index.search`` p50 with and without a subset at B = 1, 8 and 128,
      the ``add`` and ``remove`` times, the ``save``/``load`` seconds and
-     GB/s, and the peak device memory.
+     GB/s, and the peak device memory;
+ 11. the quality tiers (TF32 must be off): (a)
+     ``configs/quality_ladder.json`` as loaded, ResNet-50 at 512 px over
+     the scales 1, 0.7071 and 0.5 (bf16, GeM) extracting 4096 seeded
+     images, whitened at full width (D = 2048), among seeded unit rows up
+     to 1M in bf16; αDBA over the whole store (``augment_database``, K1 once
+     a chunk of 128 rows and no other kernel, timed), its first 65,536 rows
+     also augmented through K1's plain version (stores within one bf16
+     step but on rows with a near-tie at the 10th neighbour); then
+     ``ServeCore`` requests of 1, 8 and 13 images with αQE and diffusion at
+     depth 200 (K1 twice a piece, every top-1 its source), K1's top-200 on
+     the augmented store held to its plain version, and the diffused answers
+     to the composite over K1's plain version (scores within DIFF_TOL of the
+     row's largest, ids but at near-ties); (b)
+     ``configs/local_whiten_rerank.json`` over phase 9's rows and extractor:
+     ``fit_local_whitening()`` at its default 256 clusters (k-means,
+     moments and the ``eigh`` bank timed apart), requests of 1 and 8 images and one B = 128 batch with
+     αQE and the local-whitening re-score (K1 twice a piece, every top-1 its
+     source, held to the composite over K1's plain version), save/load with
+     the view (answers equal), an add and a remove of 64 rows the view
+     absorbs (its store equal to the frozen bank applied to the current
+     rows); (c) phase 9's 8 shards on cuda:0: ``search_diffusion`` and
+     ``search_lw`` (on (b)'s index cut in 8), ``augment_database(mesh=)``
+     and ``knn_graph(mesh=)`` against the single-device route on the same
+     store (each route's K1 launches counted and checked: one a busy shard
+     a call or chunk; the αDBA near-ties from K1's plain version), and
+     ``expert_whiten_fn`` on a 4-shard mesh against
+     ``apply_local_whitening``; (d) ``find_duplicates(tau=0.97)`` over phase
+     9's rows with 64 planted near-duplicate pairs (all found; K1 once a
+     chunk), and αDBA
+     with a diffusion search over phase 3's 1M-row int8 store
+     (``configs/million_scale_int8.json`` with ``dba_n`` 10 and diffusion),
+     K2 held bit for bit (the pass on 65,536 rows and the search on the
+     whole store, each through K2's plain version). It prints the αDBA and
+     fit times, ``whiten_all_clusters`` beside its bound, the search p50s
+     at B = 1, 8 and 128 with and without the stage, and the peak device
+     memory.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -189,7 +226,12 @@ carry their times at depth 100 on phase 8's stores, ``ms_b{1,8,128}_k100``,
 also apart as ``launches_sharded``; K1-K4
 also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
 ``bound_ms_b128``; K1-K4 count phase 10's subset requests too, also apart
-as ``launches_subset`` (every one of them with the mask); K4 also at B =
+as ``launches_subset`` (every one of them with the mask), and phase 11's
+αDBA passes, kNN graphs, duplicate searches and requests, also apart as
+``launches_quality``; K1 also at
+D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
+(``ms_d2048_b{B}_k{k}``, ``plain_ms_...``, ``library_ms_...``,
+``bound_ms_...``); K4 also at B =
 8, k = 100 (``ms_b8_k100``,
 ``plain_ms_b8_k100``, ``bound_ms_b8_k100``) and over 64M rows at k = 100
 (``ms_64m_b1_k100``, ``bound_ms_64m_b1_k100``, ``ms_64m_b128_k100``,
@@ -224,6 +266,9 @@ CORPUS_Q = 1024         # phase 3: images extracted at the presets' 512 px
 SCORE_TOL = 1e-5        # unit rows: f32 sums in two orders differ far below
 SIZES = (1, 3, 8, 13)   # images per served request
 K1_BATCHES = (1, 8, 16, 64, 128)   # K1's bf16 query batches in phase 1
+# K1 at D = 2048 on the quality tiers' paths (phase 11), timed in phase 1:
+# (B, k) of the αDBA / kNN-graph chunk and of diffusion's depth
+QUALITY_K1 = ((128, 10), (1, 200), (8, 200), (128, 200))
 F4_ROWS = 1 << 16       # phase 7: rows of the odd-width and PQ stores
 PQ_ROWS_CAPACITY = 1 << 26   # bench.py::bench_pq_capacity's 64M rows
 VIT_CORPUS = 2048       # phase 5: images extracted by ViT-B/16 at 224 px
@@ -248,6 +293,18 @@ OX_ROWS = 105_133       # phase 9: Oxford105k's rows
 LIVE_ADD = 1024         # phase 10a: images added by request
 LIVE_REMOVE = 512       # phase 10a: corpus images (and as many added) removed
 LIVE_COLLECTION = 1000  # phase 10a: corpus images in the "collection" subset
+QL_CORPUS = 4096        # phase 11a: images extracted (the full-width
+#                         whitening keeps 2048 of at most N - 1 directions)
+QUALITY_SIZES = (1, 8, 13)   # phase 11a: images per served request
+DBA_SLICE = 1 << 16     # phase 11: rows of the αDBA pass held to the plain
+#                         version's
+LW_MUTATE = 64          # phase 11b: rows added, and removed, under the view
+LW_PAIRS = 64           # phase 11d: planted near-duplicate pairs
+# diffused scores of two candidate selections: K1 and its plain version
+# give global scores within SCORE_TOL, which CG at alpha = 0.99 amplifies
+# (condition number up to ~200); the bar is relative to the row's largest
+# diffused score
+DIFF_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
@@ -387,16 +444,32 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
                     and bool((i % 1024 == i[:, :1] % 1024).all())):
                 fail(f"{name} duplicated rows: copies out of position order")
         del base, dup
-        # the unwhitened ResNet-50 width
+        # the unwhitened ResNet-50 width, and the quality tiers' shapes at
+        # it (phase 11): the αDBA and kNN-graph self-search (B = 128, k =
+        # 10) and diffusion's depth (k = 200)
         x = unit_rows(gen, N_ROWS, 2048, dtype)
         for b in ((1, 128) if bf16 else (1,)):
             for k in (10, 100):
                 case(x, b, k, f"{name} D=2048", num_valid=nv)
+        if bf16:
+            for b in (1, 8, 128):
+                case(x, b, 200, f"{name} D=2048", num_valid=nv)
         if dtype is torch.bfloat16:
             q = unit_rows(gen, 1, 2048, torch.float32)
             timings["bf16 N=1M D=2048 B=1 k=10"] = {
                 "ms": cuda_median_ms(lambda: topk(x, q, k=10)),
                 "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10))}
+            for b, k in QUALITY_K1:
+                q = unit_rows(gen, b, 2048, torch.float32)
+                qb = q.to(torch.bfloat16)
+                timings[f"bf16 N=1M D=2048 B={b} k={k}"] = {
+                    "ms": cuda_median_ms(lambda: topk(x, q, k=k)),
+                    "plain_ms": cuda_median_ms(lambda: ref(x, q, k=k),
+                                               reps=5, warmup=1),
+                    "library_ms": cuda_median_ms(
+                        lambda: torch.topk(qb @ x.T, k)),
+                    **bound(N_ROWS * 2048 * 2 + b * 2048 * 2 + b * k * 8,
+                            2 * b * N_ROWS * 2048, "bf16")}
         del x
         torch.cuda.empty_cache()
     for shape, t in timings.items():
@@ -2248,7 +2321,7 @@ def phase9(card: str, gen, topk, topk_ref, check) -> dict:
            "device_gb_now": torch.cuda.memory_allocated() / 1e9}
     report(card, phase=9, workload=4, **mem)
     return ({"launches": launches, "latency": lat, "extract_ips": ips, **mem},
-            (idx, sidx, q, ss, si))
+            (idx, sidx, q, ss, si, images))
 
 
 def phase9c(card: str, topk, topk_ref, check, ox) -> dict:
@@ -2266,7 +2339,7 @@ def phase9c(card: str, topk, topk_ref, check, ox) -> dict:
     from instsearch_torch.parallel import (build_multihost_index,
                                            global_shard_mesh, initialize,
                                            local_row_range)
-    idx, sidx, q, ss, si = ox
+    idx, sidx, q, ss, si, _ = ox
     shards = idx.cfg.index.num_shards
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2778,6 +2851,560 @@ def phase10c(card, gen, corpus, tmp) -> dict:
     return {"launches": total}
 
 
+def near_tie_rows(a, b, tie_rows) -> int:
+    """Hold two augmented stores (f32 rows ``a``, ``b`` [n, D] on the
+    card) to each other: each element within one bf16 step (at most 2^-7
+    of its magnitude: the two f32 buffers may round to bf16 on either side
+    of a midpoint), except on rows where ``tie_rows`` (a bool [n]) marks a
+    near-tie at the k-th neighbour, which the two top-k routes may break
+    either way. Returns the count of rows that differ beyond a step (all
+    of them near-ties)."""
+    import torch
+    bar = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7 + 1e-7
+    beyond = ((a - b).abs() > bar).any(dim=1)
+    if bool((beyond & ~tie_rows).any()):
+        rows = torch.nonzero(beyond & ~tie_rows)[:3, 0].tolist()
+        fail(f"αDBA: rows {rows} differ beyond one bf16 step without a "
+             f"near-tie at the k-th neighbour")
+    return int(beyond.sum())
+
+
+def dba_against_plain(card, tag, cfg, rows, kernel, plain, exact: bool):
+    """αDBA over the first DBA_SLICE ``rows`` through ``kernel`` and through
+    its plain version (``instsearch_torch.index``'s entry replaced): K2/K3
+    (``exact``) must give stores equal bit for bit, K1 stores within one
+    bf16 step but on rows whose k-th and (k+1)-th neighbours (the plain
+    version's scores) are within SCORE_TOL. Returns the seconds of the
+    kernel pass."""
+    import torch
+    import instsearch_torch.index as tindex
+    names = [f"r{i}" for i in range(DBA_SLICE)]
+    got = tindex.Index.from_descriptors(rows[:DBA_SLICE], names, cfg)
+    want = tindex.Index.from_descriptors(rows[:DBA_SLICE], names, cfg)
+    _, t = timed(got.augment_database)
+    entry = kernel.__name__
+    setattr(tindex, entry, plain)
+    try:
+        want.augment_database()
+    finally:
+        setattr(tindex, entry, kernel)
+    if exact:
+        if not (torch.equal(got.descriptors, want.descriptors)
+                and torch.equal(got.scales, want.scales)):
+            fail(f"{tag}: αDBA through {entry} and through its plain "
+                 f"version differ")
+        differ = 0
+    else:
+        n = cfg.index.dba_n
+        a = got._rows_f32_chunk(0, DBA_SLICE)
+        b = want._rows_f32_chunk(0, DBA_SLICE)
+        # the plain version's k-th and (k+1)-th scores of each original row
+        orig = tindex.Index.from_descriptors(rows[:DBA_SLICE], names, cfg)
+        ties = torch.zeros(DBA_SLICE, dtype=torch.bool, device=a.device)
+        for s in range(0, DBA_SLICE, 1024):
+            q = orig._query_rows(s, 1024)
+            sc, _ = plain(orig.descriptors, q, k=n + 1)
+            ties[s:s + 1024] = (sc[:, n - 1] - sc[:, n]) < SCORE_TOL
+        differ = near_tie_rows(a, b, ties)
+    report(card, phase=11, case=tag, dba_slice_rows=DBA_SLICE,
+           dba_n=cfg.index.dba_n, kernel=entry, held_to_plain=True,
+           bit_for_bit=exact, rows_beyond_one_bf16_step_at_near_ties=differ,
+           dba_slice_s=t)
+    return t
+
+
+def p50_ms(fn, reps: int = 10) -> float:
+    fn()
+    t = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(t)
+
+
+def against_plain_candidates(tag, idx, q, kernel, plain, rel_tol: float):
+    """``idx.search(q)`` (a re-scoring composite) through ``kernel`` and
+    through its plain version: the same slots filled, scores within
+    ``rel_tol`` of the largest plain score, ids equal but at near-ties
+    (``check_fused_against_plain``). Returns the largest difference."""
+    import numpy as np
+    import instsearch_torch.index as tindex
+    ks, ki = idx.search(q)
+    entry = kernel.__name__
+    setattr(tindex, entry, plain)
+    try:
+        ps, pi = idx.search(q)
+    finally:
+        setattr(tindex, entry, kernel)
+    scale = float(np.abs(ps[np.isfinite(ps)]).max())
+    try:
+        return check_fused_against_plain(ks, ki, ps, pi,
+                                         rel_tol * max(1.0, scale))
+    except SystemExit:
+        print(f"chip_smoke: {tag}: the composite through {entry} and "
+              f"through its plain version", file=sys.stderr)
+        raise
+
+
+def count_launches(fn):
+    """``fn()`` with every kernel's count set to 0 before and read after ->
+    (result, counts by kernel name)."""
+    everyone = _everyone()
+    for k in everyone:
+        k.launches = 0
+    out = fn()
+    return out, {k.__name__: k.launches for k in everyone}
+
+
+def phase11(card: str, gen, topk, topk_ref, check, int8_store, ox) -> dict:
+    """The quality tiers: (a) configs/quality_ladder.json, (b)
+    configs/local_whiten_rerank.json, (c) their sharded forms and the
+    expert-parallel whitening, (d) near-duplicates and the int8 store."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the graph, the bank and the moments need f32")
+    torch.cuda.reset_peak_memory_stats()
+    out = {"a": phase11a(card, gen, topk, topk_ref, check)}
+    out["b"], lw_idx = phase11b(card, gen, topk, topk_ref, ox)
+    out["c"] = phase11c(card, topk_ref, lw_idx, ox)
+    out["d"] = phase11d(card, gen, lw_idx, ox, int8_store)
+    out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    report(card, phase=11, peak_device_memory_gib=out["peak_device_gib"])
+    return out
+
+
+def phase11a(card, gen, topk, topk_ref, check) -> dict:
+    """configs/quality_ladder.json as loaded: ResNet-50 at 512 px over the
+    preset's three scales (bf16, GeM p=3), whitening at full width fitted
+    on QL_CORPUS seeded images, stored among seeded unit rows up to 1M in
+    bf16; αDBA over the whole store (timed; its slice held to the pass
+    through K1's plain version), then ServeCore requests with αQE and
+    diffusion at depth 200."""
+    import numpy as np
+    import torch
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.extractor import Extractor
+    from instsearch_torch.index import Index
+    from instsearch_torch.ops.whitening import apply_whitening, fit_whitening
+    from instsearch_torch.serve import ServeCore
+
+    path = "configs/quality_ladder.json"
+    cfg = PipelineConfig.load(os.path.join(HERE, path))
+    e, ic, sc = cfg.extract, cfg.index, cfg.search
+    if ((e.backbone, e.image_size, tuple(e.scales), e.pooling, e.whiten_dim,
+         e.dtype) != ("resnet50", 512, (1.0, 0.7071, 0.5), "gem", 0,
+                      "bfloat16")
+            or (ic.dtype, ic.dba_n, ic.dba_alpha) != ("bfloat16", 10, 3.0)
+            or not (sc.qe_enabled and sc.diffusion_enabled)
+            or (sc.diffusion_depth, sc.k) != (200, 10)):
+        fail(f"{path} is no longer the quality ladder's configuration")
+    ex = Extractor(e.replace(whiten=False), seed=0)
+    images = smooth_images(gen, QL_CORPUS, size=e.image_size)
+    raw, ips = extract_corpus(card, 11, ex, images, e.batch_size)
+    ex.whitening = fit_whitening(raw, dim=None)
+    corpus = apply_whitening(raw, ex.whitening)
+    if corpus.shape[1] != 2048 or not bool(torch.isfinite(corpus).all()):
+        fail(f"quality ladder: whitened descriptors {tuple(corpus.shape)}")
+    distract = torch.randn(N_ROWS - QL_CORPUS, 2048, generator=gen,
+                           device="cuda")
+    rows = torch.cat([corpus, distract / distract.norm(dim=1, keepdim=True)])
+    del raw, distract
+    names = ([f"img{i:05d}" for i in range(QL_CORPUS)]
+             + [f"distractor{i:07d}" for i in range(N_ROWS - QL_CORPUS)])
+    slice_s = dba_against_plain(card, "quality ladder, bf16", cfg, rows,
+                                topk, topk_ref, exact=False)
+    idx = Index.from_descriptors(rows, names, cfg, extractor=ex)
+    del rows
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (_, dba_s), counts = count_launches(lambda: timed(idx.augment_database))
+    dba_launches = counts["topk_matmul"]
+    chunks = -(-N_ROWS // sc.query_chunk)
+    if counts != {**{k: 0 for k in counts}, "topk_matmul": chunks}:
+        fail(f"quality ladder: αDBA launched {counts}, not K1 {chunks} "
+             f"times (one a chunk)")
+    dba_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    report(card, phase=11, config=path, rows=N_ROWS, dim=idx.dim,
+           corpus=QL_CORPUS, extract_images_per_s=ips, scales=list(e.scales),
+           dba_s=dba_s, dba_chunks=chunks, dba_k1_launches=dba_launches,
+           dba_ms_per_chunk=dba_s / chunks * 1e3,
+           dba_bound_ms_per_chunk=bound(
+               N_ROWS * 2048 * 2 + sc.query_chunk * 2048 * 2,
+               2 * sc.query_chunk * N_ROWS * 2048, "bf16")["bound_ms"],
+           dba_peak_device_gib=dba_peak, dba_slice_s=slice_s,
+           reduced={"corpus": f"{QL_CORPUS} extracted images among "
+                    f"{N_ROWS - QL_CORPUS} seeded unit rows (ROxford5k: "
+                    f"4,993 images, R1M's distractors; seeded random "
+                    f"weights)"})
+    rng = np.random.default_rng(11)
+    picks = [rng.choice(QL_CORPUS, size=n, replace=False)
+             for n in QUALITY_SIZES]
+    core = ServeCore(idx)
+    launches = serve_requests(card, 11, core, images, picks,
+                              {topk: 2})["topk_matmul"]
+    q = ex(images[np.concatenate(picks)])
+    # K1's top-200 on the augmented store against its plain version, then
+    # the whole composite over K1's plain candidates
+    qm = idx._match_query_dim(q)
+    try:
+        err = check(idx.descriptors, qm,
+                    *topk(idx.descriptors, qm, k=sc.diffusion_depth,
+                          num_valid=N_ROWS),
+                    *topk_ref(idx.descriptors, qm, k=sc.diffusion_depth,
+                              num_valid=N_ROWS), SCORE_TOL)
+    except AssertionError as why:
+        fail(f"quality ladder: K1 at depth 200 against its plain version: "
+             f"{why}")
+    diff_err = against_plain_candidates("quality ladder", idx, q, topk,
+                                        topk_ref, DIFF_TOL)
+    qd = {b: ex(images[:b]) for b in (1, 8, 128)}
+    lat = {b: {"search_p50_ms": p50_ms(lambda: idx.search(qd[b])),
+               "search_no_diffusion_p50_ms": p50_ms(lambda: idx.search(
+                   qd[b], sc.replace(diffusion_enabled=False)))}
+           for b in qd}
+    report(card, phase=11, config=path, diffusion_depth=sc.diffusion_depth,
+           requests_top1_correct=True, k1_launches_in_requests=launches,
+           k1_depth200_max_abs_err=err, held_to_plain_candidates=True,
+           diffusion_max_abs_err=diff_err, diffusion_rel_tol=DIFF_TOL,
+           search_p50_ms=lat)
+    return {"launches": dba_launches + launches, "dba_s": dba_s,
+            "dba_peak_gib": dba_peak, "latency": lat, "max_abs_err": err}
+
+
+def phase11b(card, gen, topk, topk_ref, ox):
+    """configs/local_whiten_rerank.json over phase 9's rows and extractor
+    (the presets' extraction differs only in batch_size): a bf16 store of
+    OX_ROWS at D = 2048, ``fit_local_whitening()`` at its default size
+    (k-means, moments and bank timed apart), ServeCore requests and one
+    B = 128 batch with αQE and the local-whitening re-score, save/load with
+    the view, an add and a remove of LW_MUTATE rows absorbed by the view.
+    Returns the results and the index, for (c) and (d)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import instsearch_torch.ops.local_whiten as lwmod
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.index import Index
+    from instsearch_torch.serve import ServeCore
+
+    idx9, _, _, _, _, images = ox
+    path = "configs/local_whiten_rerank.json"
+    cfg = PipelineConfig.load(os.path.join(HERE, path))
+    sc = cfg.search
+    if (cfg.extract.replace(batch_size=0)
+            != idx9.cfg.extract.replace(batch_size=0)
+            or not (sc.lw_enabled and sc.qe_enabled)
+            or (sc.rerank_depth, sc.k, cfg.index.dtype)
+            != (100, 10, "bfloat16")):
+        fail(f"{path} is no longer the local-whitening preset over "
+             f"workload 4's extraction")
+    rows = idx9._rows_f32_chunk(0, idx9.descriptors.shape[0])[:OX_ROWS]
+    idx = Index.from_descriptors(rows, idx9.names, cfg,
+                                 extractor=idx9.extractor)
+    del rows
+    # the fit, its parts timed by wrapping the module's functions
+    parts = {}
+
+    def clock(name, fn):
+        def run(*a, **kw):
+            out, t = timed(lambda: fn(*a, **kw))
+            parts[name] = parts.get(name, 0.0) + t
+            return out
+        return run
+
+    saved = {n: getattr(lwmod, n) for n in
+             ("fit_kmeans", "cluster_moments", "bank_from_moments")}
+    for n, fn in saved.items():
+        setattr(lwmod, n, clock(n, fn))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        view, fit_s = timed(idx.fit_local_whitening)
+    finally:
+        for n, fn in saved.items():
+            setattr(lwmod, n, fn)
+    bank_gb = view.params.P.numel() * 4 / 1e9
+    report(card, phase=11, config=path, rows=OX_ROWS, dim=idx.dim,
+           n_clusters=view.n_clusters, bank_gb=bank_gb, fit_s=fit_s,
+           kmeans_s=parts["fit_kmeans"], moments_s=parts["cluster_moments"],
+           bank_eigh_s=parts["bank_from_moments"],
+           whiten_store_s=fit_s - sum(parts.values()),
+           fit_peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+           cluster_sizes_min_max=[int(v) for v in torch.bincount(
+               view.assign[:OX_ROWS].long(),
+               minlength=view.n_clusters).aminmax()])
+    want = 1 << int(round(np.log2(np.sqrt(OX_ROWS))))     # 256
+    if view.n_clusters != want:
+        fail(f"local whitening: {view.n_clusters} clusters at the default "
+             f"size, not {want} (~sqrt(N) as a power of two)")
+    rng = np.random.default_rng(12)
+    picks = [rng.choice(OX_CORPUS, size=n, replace=False) for n in (1, 8)]
+    core = ServeCore(idx)
+    launches = serve_requests(card, 11, core, images, picks,
+                              {topk: 2})["topk_matmul"]
+    big = rng.choice(OX_CORPUS, size=128, replace=False)
+    q = idx.extractor(images[big])
+    (s, i), counts = count_launches(lambda: idx.search(q))
+    # the composite runs in pieces that keep the all-expert query block
+    # and the candidate gather under 256 MiB (Index._search_lw)
+    piece = (256 << 20) // (view.n_clusters * view.dim * 4
+                            + sc.rerank_depth * view.dim * 8)
+    want = {**{k: 0 for k in counts}, "topk_matmul": 2 * -(-128 // piece)}
+    if counts != want or not np.array_equal(i[:, 0], big):
+        fail(f"local whitening, B=128: launched {counts}, top-1 equal to "
+             f"the source for {int((i[:, 0] == big).sum())} of 128")
+    launches += counts["topk_matmul"]
+    err = against_plain_candidates("local whitening", idx, q, topk,
+                                   topk_ref, SCORE_TOL)
+    qd = {b: q[:b] for b in (1, 8, 128)}
+    lat = {b: {"search_p50_ms": p50_ms(lambda: idx.search(qd[b])),
+               "search_no_lw_p50_ms": p50_ms(lambda: idx.search(
+                   qd[b], sc.replace(lw_enabled=False)))}
+           for b in qd}
+    # the bank read of one all-expert whitening at B = 1 and 128
+    from instsearch_torch.search.lw_rerank import whiten_all_clusters
+    p = view.params
+    whiten_ms = {b: cuda_median_ms(lambda: whiten_all_clusters(
+        q[:b], p.P, p.mu), reps=10) for b in (1, 128)}
+    report(card, phase=11, config=path, requests_top1_correct=True,
+           batch128_top1_correct=True, k1_launches=launches,
+           held_to_plain_candidates=True, lw_max_abs_err=err,
+           search_p50_ms=lat, whiten_all_clusters_ms=whiten_ms,
+           whiten_all_clusters_bound={
+               b: bound(bank_gb * 1e9 + b * view.n_clusters * view.dim * 4,
+                        2 * b * view.n_clusters * view.dim * 2048, "f32")
+               for b in (1, 128)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase11_")
+    try:
+        _, save_s = timed(lambda: idx.save(tmp))
+        copy, load_s = timed(lambda: Index.load(tmp, extractor=idx.extractor))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not (torch.equal(copy.lw.store, view.store)
+            and torch.equal(copy.lw.params.P, view.params.P)):
+        fail("local whitening: the view loaded differs from the one saved")
+    for a, b in zip(copy.search(q), idx.search(q)):
+        if not np.array_equal(a, b):
+            fail("local whitening: answers differ after save/load")
+    del copy
+    # an add and a remove, absorbed by the view: the absorbed store equals
+    # the frozen bank applied to the index's current rows (one bf16 step)
+    new = smooth_images(gen, LW_MUTATE, size=cfg.extract.image_size)
+    fresh = [f"new{i:03d}" for i in range(LW_MUTATE)]
+    idx.add(descriptors=idx.extractor(new), names=fresh)
+    gone = ([f"img{i:05d}" for i in range(LW_MUTATE // 2)]
+            + fresh[:LW_MUTATE // 2])
+    idx.remove(gone)
+    from instsearch_torch.ops.local_whiten import (apply_local_whitening,
+                                                   route)
+    nv = idx.num_valid
+    cur = idx._rows_f32_chunk(0, idx.descriptors.shape[0])[:nv]
+    want = apply_local_whitening(cur, view.params)
+    got = idx.lw.store[:nv].float()
+    if not (torch.equal(idx.lw.assign[:nv].long(), route(cur, view.params))
+            and bool(((got - want).abs() <= want.abs() * 2.0 ** -7
+                      + 1e-6).all())):
+        fail("local whitening: the view did not absorb the add and remove")
+    s, i = idx.search(idx.extractor(new[LW_MUTATE // 2:]))
+    kept = [idx.name_of(int(v)) for v in i[:, 0]]
+    if kept != fresh[LW_MUTATE // 2:]:
+        fail("local whitening: an added image is not its own top-1")
+    _, i = idx.search(idx.extractor(images[:LW_MUTATE // 2]))
+    if set(i.reshape(-1).tolist()) & set(range(LW_MUTATE // 2)):
+        fail("local whitening: a removed image was returned")
+    report(card, phase=11, config=path, save_s=save_s, load_s=load_s,
+           saved_answers_equal=True, added=LW_MUTATE, removed=len(gone),
+           view_absorbed=True, added_top1_correct=True,
+           removed_never_returned=True)
+    return ({"launches": launches, "fit_s": fit_s, "parts": parts,
+             "latency": lat, "whiten_ms": whiten_ms, "save_s": save_s,
+             "load_s": load_s, "max_abs_err": err}, idx)
+
+
+def phase11c(card, topk_ref, lw_idx, ox) -> dict:
+    """The sharded forms on phase 9's 8 shards on cuda:0, each against the
+    single-device route on the same store: diffusion and the
+    local-whitening re-score over (b)'s index cut into the 8 shards, αDBA
+    and the kNN graph through the mesh over phase 9's store; then the
+    expert-parallel whitening on a 4-shard mesh against
+    ``apply_local_whitening``. Every route's K1 launches are counted and
+    checked, the single-device ones too."""
+    import numpy as np
+    import torch
+    from instsearch_torch.index import Index
+    from instsearch_torch.ops.local_whiten import apply_local_whitening
+    from instsearch_torch.parallel import expert_whiten_fn, make_mesh
+
+    idx9, _, q9, _, _, _ = ox
+    shards = idx9.cfg.index.num_shards
+    mesh = make_mesh(shards, devices=["cuda"] * shards)
+    q = q9[:16]
+    dcfg = lw_idx.cfg.search.replace(lw_enabled=False, diffusion_enabled=True,
+                                     qe_enabled=False)
+    sidx = lw_idx.to_sharded(mesh=mesh)
+    launches, errs = {}, {}
+
+    def busy(sharded):
+        """The shards that hold a valid row: a shard of pure padding
+        launches nothing."""
+        return sum(1 for sh in sharded.shards if sh.num_valid)
+
+    def k1(tag, fn, want):
+        """``fn()`` with the counts read around it; K1 launched ``want``
+        times and no other kernel."""
+        out, counts = count_launches(fn)
+        if counts != {**{k: 0 for k in counts}, "topk_matmul": want}:
+            fail(f"{tag} launched {counts}, not K1 {want} times")
+        launches[tag] = want
+        return out
+
+    ss, si = k1("diffusion, sharded",
+                lambda: lw_idx.search_sharded(sidx, q, dcfg), busy(sidx))
+    ks, ki = k1("diffusion", lambda: lw_idx.search(q, dcfg), 1)
+    scale = float(np.abs(ks[np.isfinite(ks)]).max())
+    errs["diffusion"] = check_fused_against_plain(ss, si, ks, ki,
+                                                  DIFF_TOL * max(1.0, scale))
+    ss, si = k1("local whitening, sharded",
+                lambda: lw_idx.search_sharded(sidx, q), 2 * busy(sidx))
+    ks, ki = k1("local whitening", lambda: lw_idx.search(q), 2)
+    errs["lw"] = check_fused_against_plain(ss, si, ks, ki, SCORE_TOL)
+    # αDBA and the kNN graph through the mesh, on phase 9's store
+    rows = idx9._rows_f32_chunk(0, idx9.descriptors.shape[0])[:OX_ROWS]
+    cfg = idx9.cfg.replace(index=idx9.cfg.index.replace(dba_n=10))
+    one = Index.from_descriptors(rows, idx9.names, cfg)
+    many = Index.from_descriptors(rows, idx9.names, cfg)
+    del rows
+    chunks = -(-OX_ROWS // cfg.search.query_chunk)
+    _, dba_one_s = k1("αDBA", lambda: timed(one.augment_database), chunks)
+    _, dba_mesh_s = k1("αDBA, sharded",
+                       lambda: timed(lambda: many.augment_database(mesh=mesh)),
+                       chunks * busy(many.to_sharded(mesh=mesh)))
+    # near-ties at the k-th neighbour, from the plain version's scores over
+    # the original store
+    n = cfg.index.dba_n
+    ties = torch.zeros(one.descriptors.shape[0], dtype=torch.bool,
+                       device="cuda")
+    for s in range(0, OX_ROWS, 1024):
+        sc, _ = topk_ref(idx9.descriptors, idx9._query_rows(s, 1024),
+                         k=n + 1, num_valid=OX_ROWS)
+        ties[s:s + 1024] = (sc[:, n - 1] - sc[:, n]) < SCORE_TOL
+    n_pad = one.descriptors.shape[0]
+    dba_differ = near_tie_rows(one._rows_f32_chunk(0, n_pad),
+                               many._rows_f32_chunk(0, n_pad), ties)
+    del one, many
+    kchunks = -(-idx9.num_valid // (idx9.cfg.search.query_chunk or 128))
+    ks, ki = k1("kNN graph", lambda: idx9.knn_graph(k=10), kchunks)
+    ms, mi = k1("kNN graph, sharded",
+                lambda: idx9.knn_graph(k=10, mesh=mesh),
+                kchunks * busy(idx9.to_sharded(mesh=mesh)))
+    errs["knn_graph"] = check_fused_against_plain(ms, mi, ks, ki, SCORE_TOL)
+    # the expert-parallel whitening on 4 shards of the bank
+    ep_mesh = make_mesh(4, devices=["cuda"] * 4)
+    x = lw_idx._rows_f32_chunk(0, 4096)
+    ep = expert_whiten_fn(ep_mesh)(lw_idx.lw.params, x)
+    single = apply_local_whitening(x, lw_idx.lw.params)
+    errs["ep"] = float((ep - single).abs().max())
+    if errs["ep"] > 1e-6:
+        fail(f"expert-parallel whitening differs from apply_local_whitening "
+             f"by {errs['ep']}")
+    report(card, phase=11, shards=shards, mesh=f"cuda:0 x {shards}", diffusion_sharded_equals_single=True,
+           lw_sharded_equals_single=True, dba_mesh_equals_single=True,
+           dba_rows_beyond_one_bf16_step_at_near_ties=dba_differ,
+           dba_single_s=dba_one_s, dba_mesh_s=dba_mesh_s,
+           knn_graph_mesh_equals_single=True, ep_shards=4,
+           ep_equals_single=errs["ep"] == 0.0, max_abs_err=errs,
+           k1_launches=launches)
+    return {"launches": sum(launches.values()), "errs": errs,
+            "dba_one_s": dba_one_s, "dba_mesh_s": dba_mesh_s}
+
+
+def phase11d(card, gen, lw_idx, ox, int8_store) -> dict:
+    """Near-duplicates over phase 9's rows with LW_PAIRS planted pairs (a
+    corpus row and a copy moved by a seeded ~8 degrees): every planted pair
+    found by ``find_duplicates(tau=0.97)``; then αDBA and one diffusion
+    search over phase 3's 1M-row int8 store (configs/million_scale_int8.json
+    with the quality ladder's dba_n and diffusion), K2 held bit for bit:
+    the pass on a slice and the search on the whole store, each through K2
+    and through its plain version."""
+    import numpy as np
+    import torch
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels import (topk_matmul_int8,
+                                          topk_matmul_int8_reference)
+
+    idx9 = ox[0]
+    rows = idx9._rows_f32_chunk(0, idx9.descriptors.shape[0])[:OX_ROWS]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    src = torch.randperm(OX_CORPUS, generator=g, device="cuda")[:LW_PAIRS]
+    noise = torch.randn(LW_PAIRS, rows.shape[1], generator=g, device="cuda")
+    noise -= (noise * rows[src]).sum(1, keepdim=True) * rows[src]
+    dup = rows[src] + 0.15 * noise / noise.norm(dim=1, keepdim=True)
+    dup /= dup.norm(dim=1, keepdim=True)
+    names = list(idx9.names) + [f"dup{i:02d}" for i in range(LW_PAIRS)]
+    idx = Index.from_descriptors(torch.cat([rows, dup]), names, idx9.cfg)
+    del rows
+    chunks = -(-idx.num_valid // (idx.cfg.search.query_chunk or 128))
+    ((pairs, scores), t), counts = count_launches(
+        lambda: timed(lambda: idx.find_duplicates(tau=0.97)))
+    if counts != {**{k: 0 for k in counts}, "topk_matmul": chunks}:
+        fail(f"find_duplicates launched {counts}, not K1 {chunks} times "
+             f"(one a chunk)")
+    dup_launches = chunks
+    found = {tuple(p) for p in pairs.tolist()}
+    planted = {(int(a), OX_ROWS + j) for j, a in enumerate(src.tolist())}
+    if not planted <= found:
+        fail(f"find_duplicates found {len(planted & found)} of the "
+             f"{LW_PAIRS} planted pairs")
+    groups, counts = count_launches(
+        lambda: idx.find_duplicates(tau=0.97, group=True))
+    if counts["topk_matmul"] != chunks:
+        fail(f"find_duplicates(group=True) launched {counts}, not K1 "
+             f"{chunks} times")
+    dup_launches += chunks
+    report(card, phase=11, rows=idx.num_valid, planted_pairs=LW_PAIRS,
+           planted_found=True, pairs_found=len(found),
+           groups=len(groups), find_duplicates_s=t,
+           k1_launches=dup_launches)
+    del idx
+
+    _, rows8, names8, ex3, images3, picks3 = int8_store
+    cfg8 = PipelineConfig.load(os.path.join(HERE, "configs",
+                                            "million_scale_int8.json"))
+    cfg = cfg8.replace(
+        index=cfg8.index.replace(dba_n=10),
+        search=cfg8.search.replace(diffusion_enabled=True))
+    dba_against_plain(card, "int8 store", cfg, rows8, topk_matmul_int8,
+                      topk_matmul_int8_reference, exact=True)
+    idx = Index.from_descriptors(rows8, names8, cfg, extractor=ex3)
+    (_, dba_s), counts = count_launches(lambda: timed(idx.augment_database))
+    chunks = -(-N_ROWS // cfg.search.query_chunk)
+    if counts["topk_matmul_int8"] != chunks:
+        fail(f"int8 αDBA launched {counts}, not K2 {chunks} times")
+    q = ex3(images3[np.concatenate(picks3)])
+    (ks, ki), c2 = count_launches(lambda: idx.search(q))
+    import instsearch_torch.index as tindex
+    tindex.topk_matmul_int8 = topk_matmul_int8_reference
+    try:
+        ps, pi = idx.search(q)
+    finally:
+        tindex.topk_matmul_int8 = topk_matmul_int8
+    if not (np.array_equal(ki, pi) and np.array_equal(ks, ps)):
+        fail("int8 store: αDBA + diffusion through K2 and through its plain "
+             "version differ")
+    if not np.array_equal(ki[:, 0], np.concatenate(picks3)):
+        fail("int8 store: a diffused top-1 is not its source")
+    report(card, phase=11, config="configs/million_scale_int8.json + dba_n "
+           "10 + diffusion", rows=N_ROWS, dba_s=dba_s, dba_k2_launches=
+           counts["topk_matmul_int8"], search_k2_launches=c2[
+               "topk_matmul_int8"], k2_bit_for_bit=True, top1_correct=True)
+    return {"launches_k2": counts["topk_matmul_int8"]
+            + c2["topk_matmul_int8"], "launches_k1": dup_launches,
+            "dba_s": dba_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -2854,10 +3481,12 @@ def main() -> int:
                       check_against_plain)
     res9c = phase9c(card, topk_matmul, topk_matmul_reference,
                     check_against_plain, ox)
-    del ox
     res10 = phase10(card, gen, res.pop("state"), res4.pop("index"), corpus,
                     check_against_plain, check_exact)
-    del corpus
+    torch.cuda.empty_cache()
+    res11 = phase11(card, gen, topk_matmul, topk_matmul_reference,
+                    check_against_plain, corpus, ox)
+    del corpus, ox
     phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
               "topk_matmul_int4": res8c["launches"]}
     # the sharded routes' launches, on the main path too (phases 3, 8b, 9,
@@ -2872,6 +3501,10 @@ def main() -> int:
               "topk_matmul_int8": res10["c"]["launches"],
               "topk_matmul_int4": res10["b"]["launches_k3"],
               "pq_topk": res10["b"]["launches_k4"]}
+    # phase 11's quality tiers: the αDBA passes and the requests
+    quality = {"topk_matmul": res11["a"]["launches"] + res11["b"]["launches"]
+               + res11["c"]["launches"] + res11["d"]["launches_k1"],
+               "topk_matmul_int8": res11["d"]["launches_k2"]}
 
     rows = []
     for name, file, replaces, shape, launches in (
@@ -2889,10 +3522,12 @@ def main() -> int:
                      "source": f"instsearch_torch/csrc/{file}",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
                      "launches": (launches + phase8.get(name, 0)
-                                  + sharded.get(name, 0) + subset[name]),
+                                  + sharded.get(name, 0) + subset[name]
+                                  + quality.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
+                     "launches_quality": quality.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2906,6 +3541,12 @@ def main() -> int:
                              f"plain_ms_b{b}_k100": t["plain_ms"],
                              f"library_ms_b{b}_k100": t["library_ms"],
                              f"bound_ms_b{b}_k100": t["bound_ms"]})
+        if name == "topk_matmul":   # D = 2048, phase 11's shapes
+            for b, k in QUALITY_K1:
+                t = timings[f"bf16 N=1M D=2048 B={b} k={k}"]
+                rows[-1].update({
+                    f"{key}_d2048_b{b}_k{k}": t[key]
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
         if name == "pq_topk":   # phase 4's bucket, and 64M rows at depth 100
             t = timings["pq N=1M M=64 B=8 k=100"]
             rows[-1].update(ms_b8_k100=t["ms"], plain_ms_b8_k100=t["plain_ms"],

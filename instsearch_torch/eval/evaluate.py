@@ -1,7 +1,8 @@
 """Benchmark evaluation (port of ``instsearch_tpu/eval/evaluate.py``):
 dataset -> query extraction with the protocol's bbox crop -> optional
-alpha-QE -> full ranking -> the re-ranked (or refined) head spliced in ->
-mAP, on one device or through a sharded index."""
+alpha-QE -> full ranking -> the re-ranked (refined, diffused or
+local-whitened) head spliced in -> mAP, on one device or through a sharded
+index."""
 from __future__ import annotations
 
 import numpy as np
@@ -94,9 +95,10 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
     from ``search_cfg`` expands the queries first, through the oracle over
     the whole store (``search/qe.py::alpha_query_expansion``), as the
     reference does. With ``rerank_enabled`` (and a regional store) or
-    ``refine_enabled``, the top-``rerank_depth`` of that ranking is replaced
-    by the composite's re-scored head (``Index.search``); the tail keeps
-    its global order. ``stages_applied`` lists the stages that ran.
+    ``refine_enabled`` or ``lw_enabled``, the top-``rerank_depth`` of that
+    ranking is replaced by the composite's re-scored head (``Index.search``),
+    with ``diffusion_enabled`` the top-``diffusion_depth`` by the diffused
+    head; the tail keeps its global order. ``stages_applied`` lists the stages that ran.
     ``sharded_index`` (``Index.to_sharded()``) routes the expansion, the
     ranking and the heads through the sharded machinery instead: the same
     math, row-sharded; extraction stays on the index's extractor."""
@@ -142,6 +144,28 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
         applied.append("refine")
         if sidx is not None:
             top_ids = sidx.search_refine(q, k=depth, depth=depth)[1]
+            top_ids = top_ids.cpu().numpy()
+        else:
+            _, top_ids = index.search(q, scfg.replace(qe_enabled=False,
+                                                      k=depth))
+        ranks = _splice_head(ranks, top_ids)
+    if scfg.diffusion_enabled:
+        applied.append("diffusion")
+        depth = min(scfg.diffusion_depth, index.descriptors.shape[0])
+        if sidx is not None:
+            top_ids = sidx.search_diffusion(
+                q, k=depth, depth=depth, knn=scfg.diffusion_knn,
+                alpha=scfg.diffusion_alpha, iters=scfg.diffusion_iters,
+                seeds=scfg.diffusion_seeds)[1].cpu().numpy()
+        else:
+            _, top_ids = index.search(q, scfg.replace(qe_enabled=False,
+                                                      k=depth))
+        ranks = _splice_head(ranks, top_ids)
+    if scfg.lw_enabled:
+        applied.append("lw")
+        depth = min(scfg.rerank_depth, index.descriptors.shape[0])
+        if sidx is not None:
+            top_ids = sidx.search_lw(q, k=depth, depth=depth)[1]
             top_ids = top_ids.cpu().numpy()
         else:
             _, top_ids = index.search(q, scfg.replace(qe_enabled=False,

@@ -54,10 +54,21 @@ exactly as the reference moves and quantizes them, the PQ view absorbing
 both. ``save``/``load`` use the reference's npz form, so each package reads
 what the other writes.
 
+The quality tiers: ``augment_database`` (αDBA, ``search/dba.py``; applied
+by ``build`` when ``cfg.index.dba_n``) replaces every stored row by the
+weighted sum of its nearest rows, found chunk by chunk through the same
+top-k kernels as serving; ``diffusion_enabled`` re-ranks the kernel's
+top-``diffusion_depth`` by diffusion on their mutual-kNN graph
+(``search/diffusion.py``); ``fit_local_whitening`` attaches a
+local-whitening view (``search/lw_rerank.py``) that ``lw_enabled``
+re-scores the top-``rerank_depth`` under. ``knn_graph`` runs the same
+chunked self-search for every row's neighbours, ``find_duplicates`` groups
+rows above a score, ``stats`` describes the stores.
+
 Not ported yet, and raising ``NotImplementedError`` rather than answering:
-``metric="l2"``, re-rank under the PQ cascade, diffusion, local whitening,
-the IVF and IVF-PQ tiers, DBA, the streaming (orbax) store, and range
-search through a mesh (see ROADMAP).
+``metric="l2"``, re-rank under the PQ cascade, the IVF and IVF-PQ tiers,
+the streaming (orbax) store, and range search through a mesh (see
+ROADMAP).
 """
 from __future__ import annotations
 
@@ -78,7 +89,10 @@ from .ops.quantize import (pack_int4, quantize_rows, quantize_rows_int4,
 from .ops.whitening import (WhiteningParams, apply_whitening,
                             apply_whitening_regional, fit_whitening)
 from .search.bruteforce import gather_rows_f32 as _gather_rows_f32
-from .search.bruteforce import masked_scores, search_topk
+from .search.bruteforce import masked_scores, search_topk, select_topk
+from .search.diffusion import diffusion_rerank_from_candidates
+from .search.lw_rerank import (LocalWhiteningView, lw_rescore_from_candidates,
+                               whiten_all_clusters)
 from .search.pq_view import PQView, _pq_composite
 from .search.qe import expand_from_candidates
 from .search.rerank import rerank_from_candidates
@@ -129,30 +143,45 @@ def _pos_to_ids(ids, scores, pos):
                        torch.full_like(pos, -1))
 
 
+def _expand(descriptors, ids, q, num_valid, scales, *, qe_n, qe_alpha,
+            use_kernel, int4, mask=None, include_query: bool = True):
+    """The alpha-QE stage of the composites, and αDBA's weighting with
+    ``include_query=False``: fused top-``qe_n``, the rows gathered and
+    dequantized, the expanded query."""
+    s, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=qe_n,
+                       use_kernel=use_kernel, int4=int4, mask=mask)
+    rows = _gather_rows_f32(descriptors, pos.clamp(min=0), scales,
+                            int4=int4)                         # [Q, n, D]
+    rows = torch.where((s > float("-inf"))[..., None], rows,
+                       torch.zeros((), device=rows.device))
+    return expand_from_candidates(q, s, rows, qe_alpha,
+                                  include_query=include_query)
+
+
 def _search_composite(descriptors, ids, queries, num_valid: int, scales,
                       regional=None, regional_scales=None,
                       query_regional=None, vote_matrix=None, *, k: int,
                       qe_n: int, qe_alpha: float, use_kernel: bool,
                       do_qe: bool, int4: bool = False, depth: int = 0,
                       do_rerank: bool = False, do_refine: bool = False,
-                      spatial_weight: float = 0.0, mask=None):
-    """The reference's ``_search_composite_jit`` without its diffusion
-    stage: optional alpha-QE (fused top-``qe_n``, the rows gathered and
-    dequantized, expanded query), then either the re-rank stage (fused
-    top-``depth`` candidates re-scored against the ``regional`` store by
-    ``rerank_from_candidates``; refine takes the query itself as its one
-    region and drops the global term, fuse weight 0) or the final top-k ->
-    ``(scores [Q, k], ids [Q, k])``. No ``[Q, N]`` matrix on the kernel
-    route. A subset ``mask`` reaches every top-k."""
+                      spatial_weight: float = 0.0, mask=None,
+                      do_diffusion: bool = False, diff_knn: int = 10,
+                      diff_alpha: float = 0.99, diff_iters: int = 20,
+                      diff_seeds: int = 10):
+    """The reference's ``_search_composite_jit``: optional alpha-QE (fused
+    top-``qe_n``, the rows gathered and dequantized, expanded query), then
+    the re-rank stage (fused top-``depth`` candidates re-scored against the
+    ``regional`` store by ``rerank_from_candidates``; refine takes the query
+    itself as its one region and drops the global term, fuse weight 0), or
+    the diffusion stage (fused top-``depth`` candidates, their rows
+    gathered, re-ranked by ``diffusion_rerank_from_candidates``), or the
+    final top-k -> ``(scores [Q, k], ids [Q, k])``. No ``[Q, N]`` matrix on
+    the kernel route. A subset ``mask`` reaches every top-k."""
     q = queries.float()
     if do_qe:
-        s, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=qe_n,
-                           use_kernel=use_kernel, int4=int4, mask=mask)
-        rows = _gather_rows_f32(descriptors, pos.clamp(min=0), scales,
-                                int4=int4)                     # [Q, n, D]
-        rows = torch.where((s > float("-inf"))[..., None], rows,
-                           torch.zeros((), device=rows.device))
-        q = expand_from_candidates(q, s, rows, qe_alpha)
+        q = _expand(descriptors, ids, q, num_valid, scales, qe_n=qe_n,
+                    qe_alpha=qe_alpha, use_kernel=use_kernel, int4=int4,
+                    mask=mask)
     if do_rerank or do_refine:
         g, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=depth,
                            use_kernel=use_kernel, int4=int4, mask=mask)
@@ -163,9 +192,38 @@ def _search_composite(descriptors, ids, queries, num_valid: int, scales,
             regional, ids, g, pos, qreg, k=k, regional_scales=regional_scales,
             fuse_weight=0.0 if do_refine else 1.0,
             spatial_weight=spatial_weight, vote_matrix=vote_matrix)
+    if do_diffusion:
+        g, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=depth,
+                           use_kernel=use_kernel, int4=int4, mask=mask)
+        cand = _gather_rows_f32(descriptors, pos.clamp(min=0), scales,
+                                int4=int4)                     # [Q, depth, D]
+        return diffusion_rerank_from_candidates(
+            ids, g, pos, cand, k=k, knn=diff_knn, alpha=diff_alpha,
+            iters=diff_iters, seeds=diff_seeds)
     scores, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=k,
                             use_kernel=use_kernel, int4=int4, mask=mask)
     return scores, _pos_to_ids(ids, scores, pos)
+
+
+def _lw_composite(descriptors, ids, queries, num_valid: int, scales, lw,
+                  mask=None, *, k: int, depth: int, qe_n: int,
+                  qe_alpha: float, use_kernel: bool, do_qe: bool,
+                  int4: bool = False):
+    """The reference's ``_lw_composite_jit``: optional alpha-QE, the fused
+    top-``depth`` candidates, the (post-QE) query whitened by every expert
+    of the view ``lw`` (at the bank's width: the store's zero columns
+    dropped), the candidates re-scored from the whitened store, top-k."""
+    q = queries.float()
+    if do_qe:
+        q = _expand(descriptors, ids, q, num_valid, scales, qe_n=qe_n,
+                    qe_alpha=qe_alpha, use_kernel=use_kernel, int4=int4,
+                    mask=mask)
+    g, pos = _topk_raw(descriptors, ids, q, num_valid, scales, k=depth,
+                       use_kernel=use_kernel, int4=int4, mask=mask)
+    q_all = whiten_all_clusters(q[:, :lw.params.mu.shape[-1]], lw.params.P,
+                                lw.params.mu)
+    return lw_rescore_from_candidates(lw.store, lw.assign, ids, g, pos,
+                                      q_all, k=k)
 
 
 _WEIGHTS_FILE = "torch_weights.pt"   # the port's backbone state_dict
@@ -207,16 +265,12 @@ def _check_index_cfg(cfg) -> None:
             raise ValueError(
                 "refine_dtype and rerank_enabled both claim the "
                 "regional-store slot; pick one re-scoring stage")
-    if icfg.dba_n:
-        raise NotImplementedError("DBA is not ported yet (ROADMAP M8)")
 
 
 def _check_search_cfg(scfg) -> None:
     """Raise for every search stage the port does not take yet; none is
     silently skipped."""
-    stages = (("diffusion_enabled", "ROADMAP M8"),
-              ("lw_enabled", "ROADMAP M8"), ("ivf_nprobe", "ROADMAP M9"),
-              ("ivfpq_nprobe", "ROADMAP M9"))
+    stages = (("ivf_nprobe", "ROADMAP M9"), ("ivfpq_nprobe", "ROADMAP M9"))
     on = [(nm, item) for nm, item in stages if getattr(scfg, nm)]
     if on:
         raise NotImplementedError(
@@ -283,6 +337,7 @@ class Index:
         self.extractor = extractor
         self.scales = scales                # [1, N_pad] f32 for int8/int4
         self.pq: "PQView | None" = None     # build_pq's cascade view
+        self.lw: "LocalWhiteningView | None" = None  # fit_local_whitening's
         self.regional: "torch.Tensor | None" = None   # [N_pad, R, D] store
         self.regional_scales: "torch.Tensor | None" = None  # [N_pad, R] int8
         self.regional_geom: "np.ndarray | None" = None  # [R, 3] R-MAC grid
@@ -353,6 +408,11 @@ class Index:
                 "(IndexConfig.refine_dtype='int8' at build); this index "
                 "has " + ("no regional store" if self.regional is None else
                           "an R-MAC re-rank store (use rerank_enabled)"))
+        if scfg.lw_enabled and self.lw is None:
+            raise ValueError(
+                "lw_enabled needs a fitted local-whitening view; call "
+                "Index.fit_local_whitening() (or load an index saved "
+                "with one)")
         if scfg.spatial_weight and not scfg.rerank_enabled:
             raise ValueError(
                 "spatial_weight fuses into the regional re-rank; enable "
@@ -401,12 +461,13 @@ class Index:
         index's own search config with ``changes`` applied; e.g.
         ``with_search(use_pallas=False)`` ranks through the scoring oracle,
         since the route is the index's config, not a search argument's. The
-        PQ view and the regional store come along, so the twin scans the
-        same codes and re-ranks against the same regions."""
+        PQ view, the local-whitening view and the regional store come
+        along, so the twin scans the same codes and re-ranks against the
+        same regions."""
         cfg = self.cfg.replace(search=self.cfg.search.replace(**changes))
         twin = Index(self.descriptors, self.ids, self.names, cfg,
                      self.extractor, scales=self.scales, dim=self.dim)
-        twin.pq = self.pq
+        twin.pq, twin.lw = self.pq, self.lw
         twin.regional, twin.regional_scales = (self.regional,
                                                self.regional_scales)
         twin.regional_geom, twin._vote_m = self.regional_geom, self._vote_m
@@ -514,8 +575,9 @@ class Index:
         ``rerank_enabled`` one pass per image extracts the global
         descriptor and the regional rows (``extract_paths_with_regional``),
         which are whitened with the fit on the global descriptors and
-        attached as the re-rank store. Runs on ``device``, the CUDA card by
-        default."""
+        attached as the re-rank store. With ``cfg.index.dba_n`` the store is
+        augmented (:meth:`augment_database`) at the end. Runs on
+        ``device``, the CUDA card by default."""
         if cfg.index.metric == "l2":
             raise ValueError(
                 "metric='l2' is for RAW-VECTOR indexes "
@@ -554,6 +616,8 @@ class Index:
         idx.quarantined = quarantine
         if regional is not None:
             attach_regional_store(idx, regional)
+        if cfg.index.dba_n:
+            idx.augment_database()
         return idx
 
     def build_pq(self, m: int | None = None, iters: int = 15, seed: int = 0,
@@ -581,6 +645,267 @@ class Index:
         self.cfg = self.cfg.replace(
             search=self.cfg.search.replace(pq_depth=depth))
         return self.pq
+
+    def _drop_views(self, why: str) -> None:
+        """Drop the PQ and local-whitening views (their codes and whitened
+        rows no longer match the store), with the reference's warnings;
+        ``lw_enabled`` goes off with the view."""
+        log = logging.getLogger("instsearch.index")
+        if self.pq is not None:
+            log.warning("PQ view invalidated by %s; rebuild with "
+                        "build_pq()", why)
+            self.pq = None
+        if self.lw is not None:
+            log.warning("local-whitening view invalidated by %s; refit "
+                        "with fit_local_whitening()", why)
+            self.lw = None
+            self.cfg = self.cfg.replace(
+                search=self.cfg.search.replace(lw_enabled=False))
+
+    def fit_local_whitening(self, n_clusters: "int | None" = None,
+                            dim: "int | None" = None, tau: float = 64.0,
+                            iters: int = 10, seed: int = 0
+                            ) -> LocalWhiteningView:
+        """Attach a local-whitening re-ranking view
+        (``search/lw_rerank.py``): a k-means-routed bank of per-cluster
+        whitening transforms and the whitened row store, fitted on the
+        index's device. Arms ``cfg.search.lw_enabled``: the
+        top-``rerank_depth`` candidates are then re-scored under each
+        candidate's own cluster metric. ``add`` and ``remove`` are absorbed;
+        ``augment_database`` drops the view. Returns the view."""
+        self.lw = LocalWhiteningView.from_index(
+            self, n_clusters=n_clusters, dim=dim, tau=tau, iters=iters,
+            seed=seed)
+        self.cfg = self.cfg.replace(
+            search=self.cfg.search.replace(lw_enabled=True))
+        return self.lw
+
+    def _query_rows(self, start: int, chunk: int) -> torch.Tensor:
+        """Stored rows ``[start, start + chunk)`` as f32 queries of the
+        store's width (the zero columns back), for the self-searches."""
+        return torch.nn.functional.pad(
+            self._rows_f32_chunk(start, chunk), (0, self.store_dim - self.dim))
+
+    def augment_database(self, n: "int | None" = None,
+                         alpha: "float | None" = None,
+                         chunk: "int | None" = None, mesh=None) -> None:
+        """αDBA (``search/dba.py``): replace every stored row by the
+        ``s^alpha``-weighted sum of its ``n`` nearest stored rows (itself
+        included, weight 1). Each ``chunk`` of stored rows queries the
+        ORIGINAL store through the serving top-k (K1-K3 on the card; the
+        start slides back to ``N_pad - chunk`` near the end), the results go
+        into an f32 buffer, and the buffer replaces the store once at the
+        end: an int8/int4 store is quantized once from it, an int8 refine
+        copy derived from the same buffer; an R-MAC regional store keeps its
+        raw rows. The PQ and local-whitening views are dropped (the rows
+        changed). ``n``/``alpha`` default to ``cfg.index.dba_n`` (10 when
+        0) and ``dba_alpha``. ``mesh`` selects the neighbours through
+        ``to_sharded(mesh)`` (``expand_queries(include_query=False)``), with
+        the same result. Rows added later are not augmented."""
+        n = n if n is not None else (self.cfg.index.dba_n or 10)
+        alpha = float(self.cfg.index.dba_alpha if alpha is None else alpha)
+        if self.num_valid == 0:
+            return
+        n_pad = self.descriptors.shape[0]
+        n = min(n, n_pad)
+        chunk = min(chunk or self.cfg.search.query_chunk or 128, n_pad)
+        use_kernel = bool(self.cfg.search.use_pallas)
+        buf = torch.zeros((n_pad, self.store_dim), dtype=torch.float32,
+                          device=self.device)
+        sidx = self.to_sharded(mesh=mesh) if mesh is not None else None
+        for start in range(0, self.num_valid, chunk):
+            s0 = min(start, n_pad - chunk)
+            rows_q = self._query_rows(s0, chunk)
+            if sidx is not None:
+                rows = sidx.expand_queries(rows_q, qe_n=n, alpha=alpha,
+                                           include_query=False).to(self.device)
+            else:
+                rows = _expand(self.descriptors, self.ids, rows_q,
+                               self.num_valid, self.scales, qe_n=n,
+                               qe_alpha=alpha, use_kernel=use_kernel,
+                               int4=self.is_int4, include_query=False)
+            valid = (self.ids[s0:s0 + chunk] >= 0)[:, None]
+            buf[s0:s0 + chunk] = torch.where(valid, rows,
+                                             torch.zeros((), device=rows.device))
+        del sidx
+        self._drop_views("augment_database()")
+        # the old store goes before the new one is made, and the new one is
+        # made from the buffer in pieces: the peak is the buffer, the new
+        # store and one piece's temporaries
+        self.descriptors = None
+        quantize = _QUANTIZE.get(self.cfg.index.dtype)
+        if quantize is not None:
+            self.descriptors, self.scales = self._quantize_pieces(buf,
+                                                                  quantize)
+        else:
+            self.descriptors = buf.to(_DTYPES[self.cfg.index.dtype])
+        if self.has_refine_store:
+            qr = self._quantize_pieces(buf[:, :self.dim], quantize_rows)
+            self.regional = qr[0][:, None, :]
+            self.regional_scales = qr[1].reshape(-1, 1)
+
+    @staticmethod
+    def _quantize_pieces(rows: torch.Tensor, quantize,
+                         piece: int = 1 << 16):
+        """``quantize(rows)`` as ``(values, scales [1, N])``, made
+        ``piece`` rows at a time (the quantizers are row-wise)."""
+        n = rows.shape[0]
+        first = quantize(rows[:min(piece, n)])
+        values = first.values.new_empty((n,) + tuple(first.values.shape[1:]))
+        scales = first.scales.new_empty((1, n))
+        for i in range(0, n, piece):
+            qr = first if i == 0 else quantize(rows[i:i + piece])
+            values[i:i + piece] = qr.values
+            scales[:, i:i + piece] = qr.scales.reshape(1, -1)
+        return values, scales
+
+    def knn_graph(self, k: int = 10, chunk: "int | None" = None,
+                  subset=None, mesh=None):
+        """Every indexed row's ``k`` nearest other rows -> ``(scores
+        [num_valid, k] f32, dataset ids [num_valid, k] int32)`` numpy, row
+        ``p`` for ``names[p]``, best first. Each ``chunk`` of stored rows
+        queries the store through the serving top-k for ``k + 1`` (K1-K3 on
+        the card) and the row itself is struck by position, so even
+        identical rows stay each other's neighbours. ``subset`` restricts
+        the neighbour side; rows with fewer than ``k`` neighbours pad with
+        ``(-inf, -1)``. ``mesh`` selects through ``to_sharded(mesh)``,
+        striking the row by its dataset id (unique), with the same
+        result."""
+        nv = self.num_valid
+        out_s = np.full((nv, k), -np.inf, np.float32)
+        out_i = np.full((nv, k), -1, np.int32)
+        if nv == 0:
+            return out_s, out_i
+        n_pad = self.descriptors.shape[0]
+        k = min(k, max(1, n_pad - 1))
+        chunk = min(chunk or self.cfg.search.query_chunk or 128, n_pad)
+        subset = self._resolve_subset(subset)
+        mask = subset.mask if subset is not None else None
+        sidx = self.to_sharded(mesh=mesh) if mesh is not None else None
+        smask = (sidx.place_subset(subset)
+                 if sidx is not None and subset is not None else None)
+        ids_np = self.ids.cpu().numpy()
+        for start in range(0, nv, chunk):
+            s0 = min(start, n_pad - chunk)      # slide back near the end
+            off = start - s0
+            rows_q = self._query_rows(s0, chunk)
+            if sidx is not None:
+                s, i = (t.cpu().numpy() for t in
+                        sidx.search(rows_q, k=k + 1, mask=smask))
+                own = ids_np[s0:s0 + chunk, None]
+                s = np.where(i == own, -np.inf, s)
+                i = np.where(i == own, -1, i)
+                order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+                s = np.take_along_axis(s, order, axis=1)
+                i = np.take_along_axis(i, order, axis=1)
+                s = np.where(own >= 0, s, -np.inf)
+                i = np.where((own >= 0) & (s > -np.inf), i, -1)
+            else:
+                s, pos = _topk_raw(self.descriptors, self.ids, rows_q, nv,
+                                   self.scales, k=k + 1,
+                                   use_kernel=bool(self.cfg.search.use_pallas),
+                                   int4=self.is_int4, mask=mask)
+                own = s0 + torch.arange(chunk, device=pos.device)
+                s = s.masked_fill(pos == own[:, None], float("-inf"))
+                s, sel = select_topk(s, k)   # the struck slot falls off
+                pos = torch.take_along_dim(pos, sel.clamp(min=0).long(), 1)
+                s = s.masked_fill((self.ids[s0:s0 + chunk] < 0)[:, None],
+                                  float("-inf"))
+                s, i = s.cpu().numpy(), _pos_to_ids(self.ids, s,
+                                                    pos).cpu().numpy()
+            take = min(chunk - off, nv - start)
+            out_s[start:start + take] = s[off:off + take]
+            out_i[start:start + take] = i[off:off + take]
+        return out_s, out_i
+
+    def find_duplicates(self, tau: float = 0.97, k: int = 16,
+                        chunk: "int | None" = None, subset=None,
+                        group: bool = False, mesh=None):
+        """Near-duplicates from :meth:`knn_graph`: ``(pairs [P, 2] int32
+        dataset ids, scores [P] f32)``, each unordered pair once (``id_a <
+        id_b``) at its best score ``>= tau``, best first; with ``group=True``
+        the connected components of those pairs (a union-find) as lists of
+        names, largest first, so a chain a~b~c is one group even where a.c
+        < tau. Each row gives at most its ``k`` nearest as edges."""
+        s, i = self.knn_graph(k=k, chunk=chunk, subset=subset, mesh=mesh)
+        row_ids = self.ids[:self.num_valid].cpu().numpy()
+        qa = np.repeat(row_ids, k).reshape(-1)
+        qb = i.reshape(-1)
+        sc = s.reshape(-1)
+        keep = (qb >= 0) & (sc >= tau) & (qa != qb)
+        qa, qb, sc = qa[keep], qb[keep], sc[keep]
+        lo, hi = np.minimum(qa, qb), np.maximum(qa, qb)
+        order = np.lexsort((-sc, hi, lo))    # each pair's best score first
+        lo, hi, sc = lo[order], hi[order], sc[order]
+        first = np.ones(len(lo), bool)
+        first[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+        lo, hi, sc = lo[first], hi[first], sc[first]
+        best = np.argsort(-sc, kind="stable")
+        pairs = np.stack([lo[best], hi[best]], axis=1).astype(np.int32)
+        sc = sc[best].astype(np.float32)
+        if not group:
+            return pairs, sc
+        parent: dict = {}
+
+        def find(x):
+            r = x
+            while parent.get(r, r) != r:
+                r = parent[r]
+            while parent.get(x, x) != x:     # path compression
+                parent[x], x = r, parent[x]
+            return r
+
+        for a, b in pairs:
+            ra, rb = find(int(a)), find(int(b))
+            if ra != rb:
+                parent[ra] = rb
+        comps: dict = {}
+        for a in set(pairs.reshape(-1).tolist()):
+            comps.setdefault(find(a), []).append(a)
+        groups = sorted(comps.values(), key=len, reverse=True)
+        return [[self.name_of(a) for a in sorted(g)] for g in groups]
+
+    def stats(self) -> dict:
+        """What the index holds, from tensor metadata alone: rows, capacity,
+        dim, metric, dtype, layout generation, the bytes of each store on
+        the device (the store's zero columns included) and the attached
+        views' parameters (the PQ and local-whitening views, the views the
+        port has)."""
+        def nbytes(t):
+            return 0 if t is None else int(t.numel() * t.element_size())
+
+        out = {
+            "rows": self.num_valid,
+            "capacity": int(self.descriptors.shape[0]),
+            "dim": self.dim,
+            "metric": self.cfg.index.metric,
+            "dtype": self.cfg.index.dtype,
+            "layout_gen": self._layout_gen,
+            "has_extractor": self.extractor is not None,
+            "bytes": {
+                "descriptors": nbytes(self.descriptors),
+                "scales": nbytes(self.scales),
+                "regional": nbytes(self.regional)
+                + nbytes(self.regional_scales),
+            },
+        }
+        if self.regional is not None:
+            out["regional_kind"] = ("refine" if self.has_refine_store
+                                    else "rmac")
+            out["regions_per_image"] = int(self.regional.shape[1])
+        if self.pq is not None:
+            v = self.pq
+            out["pq"] = {"m": v.m, "depth": v.depth,
+                         "bytes_per_row": v.m // 2,
+                         "opq": v.rotation is not None,
+                         "anisotropic_t": None}
+            out["bytes"]["pq"] = nbytes(v.packed)
+        if self.lw is not None:
+            out["lw"] = {"n_clusters": self.lw.n_clusters}
+            out["bytes"]["lw"] = (nbytes(self.lw.store)
+                                  + nbytes(self.lw.params.P))
+        out["bytes"]["total"] = sum(out["bytes"].values())
+        return out
 
     def _rows_f32_chunk(self, start: int, chunk: int) -> torch.Tensor:
         """Stored rows ``[start, start + chunk)`` as f32 ``[chunk, dim]``,
@@ -613,9 +938,11 @@ class Index:
         ``search_cfg.qe_enabled``, the regional re-rank when
         ``rerank_enabled`` and a store and ``query_regional [Q, Rq, D]`` are
         there (``query_images`` extracts them), the exact refine when
-        ``refine_enabled``, through the PQ cascade when a view is attached
-        and ``search_cfg.pq_depth > 0`` (without a view, ``pq_depth`` is
-        ignored, as in the reference). The kernel or oracle route is the
+        ``refine_enabled``, diffusion when ``diffusion_enabled``, the
+        local-whitening re-score when ``lw_enabled``, through the PQ cascade
+        when a view is attached and ``search_cfg.pq_depth > 0`` (without a
+        view, ``pq_depth`` is ignored, as in the reference; refine,
+        diffusion and local whitening keep the exact scan). The kernel or oracle route is the
         index's own ``cfg.search.use_pallas``, not the argument's, as in the
         reference. Batches larger than ``query_chunk`` run the whole
         composite in pieces (utils/chunking.py): the re-rank stage gathers
@@ -636,6 +963,8 @@ class Index:
         do_rerank = (scfg.rerank_enabled and self.regional is not None
                      and query_regional is not None)
         do_refine = scfg.refine_enabled
+        do_diffusion = scfg.diffusion_enabled
+        do_lw = scfg.lw_enabled and self.lw is not None
         args = (q,)
         if do_rerank:
             qreg = torch.as_tensor(query_regional,
@@ -646,7 +975,8 @@ class Index:
                     f"query_regional {tuple(qreg.shape)}: [Q, Rq, "
                     f"{self.regional.shape[2]}] for {q.shape[0]} queries")
             args = (q, qreg)
-        depth = min(scfg.rerank_depth, self.descriptors.shape[0])
+        depth = min(scfg.diffusion_depth if do_diffusion else
+                    scfg.rerank_depth, self.descriptors.shape[0])
         sw = float(scfg.spatial_weight) if do_rerank else 0.0
 
         def run(qq, *qreg):
@@ -658,18 +988,46 @@ class Index:
                 use_kernel=bool(self.cfg.search.use_pallas),
                 do_qe=scfg.qe_enabled, int4=self.is_int4, depth=depth,
                 do_rerank=do_rerank, do_refine=do_refine, spatial_weight=sw,
-                mask=mask)
+                mask=mask, do_diffusion=do_diffusion,
+                diff_knn=scfg.diffusion_knn, diff_alpha=scfg.diffusion_alpha,
+                diff_iters=scfg.diffusion_iters,
+                diff_seeds=scfg.diffusion_seeds)
 
-        if self.pq is not None and scfg.pq_depth > 0 and not do_refine:
-            # refine is redundant under PQ: the cascade's re-score is one
+        if (self.pq is not None and scfg.pq_depth > 0
+                and not (do_refine or do_diffusion or do_lw)):
+            # refine is redundant under PQ (the cascade's re-score is one);
+            # diffusion needs the exact top-depth neighbourhood and lw
+            # re-scores a quality-critical candidate set
             if do_rerank:
                 raise NotImplementedError(
                     "re-rank under the PQ cascade is not ported yet "
                     "(ROADMAP M9)")
             s, i = self._search_pq(q, scfg, mask)
+        elif do_lw:
+            s, i = self._search_lw(q, scfg, mask)
         else:
             s, i = run_chunked(run, scfg.query_chunk, *args)
         return s.cpu().numpy(), i.cpu().numpy()
+
+    def _search_lw(self, q: torch.Tensor, scfg, mask=None):
+        """The local-whitening composite (``_lw_composite``) in pieces that
+        keep the ``[chunk, E, dim]`` all-expert query block and the
+        candidate gather under 256 MiB, as the reference."""
+        lw = self.lw
+        depth = min(scfg.rerank_depth, self.descriptors.shape[0])
+
+        def run(qq):
+            return _lw_composite(
+                self.descriptors, self.ids, qq, self.num_valid, self.scales,
+                lw, mask, k=scfg.k, depth=depth, qe_n=scfg.qe_n,
+                qe_alpha=scfg.qe_alpha,
+                use_kernel=bool(self.cfg.search.use_pallas),
+                do_qe=scfg.qe_enabled, int4=self.is_int4)
+
+        per_q = max(1, lw.n_clusters * lw.dim * 4 + depth * lw.dim * 8)
+        chunk = max(1, min(scfg.query_chunk or q.shape[0],
+                           (256 << 20) // per_q))
+        return run_chunked(run, chunk, q)
 
     def _search_pq(self, q: torch.Tensor, scfg, mask=None):
         """The PQ cascade (search/pq_view.py): the ADC scan over the codes
@@ -749,8 +1107,9 @@ class Index:
         reference's sharded route of ``query_images``: alpha-QE by
         ``expand_queries``, then the regional re-rank (with
         ``query_regional``), the exact refine (a one-region store, the query
-        its own region, no global term) or the plain sharded top-k ->
-        ``(scores [Q, k], ids [Q, k])`` numpy arrays. ``subset`` is cut into
+        its own region, no global term), diffusion, the local-whitening
+        re-score or the plain sharded top-k -> ``(scores [Q, k], ids [Q,
+        k])`` numpy arrays. ``subset`` is cut into
         each shard's ``[1, C]`` slice of its mask. The PQ view is not used:
         the sharded route keeps the exact scan, as in the reference."""
         scfg = search_cfg or self.cfg.search
@@ -770,6 +1129,15 @@ class Index:
         elif scfg.refine_enabled:
             s, i = sidx.search_refine(q, k=scfg.k, depth=scfg.rerank_depth,
                                       mask=smask)
+        elif scfg.diffusion_enabled:
+            s, i = sidx.search_diffusion(
+                q, k=scfg.k, depth=scfg.diffusion_depth,
+                knn=scfg.diffusion_knn, alpha=scfg.diffusion_alpha,
+                iters=scfg.diffusion_iters, seeds=scfg.diffusion_seeds,
+                mask=smask)
+        elif scfg.lw_enabled:
+            s, i = sidx.search_lw(q, k=scfg.k, depth=scfg.rerank_depth,
+                                  mask=smask)
         else:
             s, i = sidx.search(q, k=scfg.k, mask=smask)
         return s.cpu().numpy(), i.cpu().numpy()
@@ -880,7 +1248,8 @@ class Index:
         ``from_descriptors`` to ``max(capacity, 2 N_pad, n_valid + n)``
         (written back into ``cfg``; every int8/int4 row is quantized again,
         as the reference does), which makes existing subsets stale. An
-        exact-refine store grows from the rows; the PQ view absorbs them.
+        exact-refine store grows from the rows; the PQ and local-whitening
+        views absorb them.
         Returns the number of rows added."""
         reg_new = None
         if paths is not None:
@@ -972,9 +1341,13 @@ class Index:
 
     def _absorb_views(self, start: int, n_new: int) -> None:
         """Route rows ``[start, start + n_new)``, just written, into the
-        attached PQ view (frozen-codebook codes at their positions)."""
+        attached views: the PQ view (frozen-codebook codes at their
+        positions) and the local-whitening view (rows routed and whitened
+        under the frozen bank)."""
         if self.pq is not None:
             self.pq.absorb_add(self, start, n_new)
+        if self.lw is not None:
+            self.lw.absorb_add(self, start, n_new)
 
     def _write_regional(self, start: int, reg_new,
                         n_pad_new: "int | None" = None) -> None:
@@ -1009,7 +1382,8 @@ class Index:
         order, move into the holes below it, in ascending order, rows
         gathered before any write, as the reference moves them. Rows, ids,
         scales, the regional store and its scales, and the PQ view's codes
-        move verbatim (no quantization); ids past the new count become -1.
+        move verbatim (no quantization), and the local-whitening view's
+        store and clusters; ids past the new count become -1.
         ``names`` follow the moves and existing subsets go stale. Unknown
         names raise ``KeyError`` and leave the index unchanged. A live
         ``to_sharded()`` view keeps its old shards: make it again. Returns
@@ -1036,8 +1410,9 @@ class Index:
                     t[dst] = t[src]
             if self.scales is not None:
                 self.scales[:, dst] = self.scales[:, src]
-            if self.pq is not None:
-                self.pq.absorb_remove(src, dst)
+            for view in (self.pq, self.lw):
+                if view is not None:
+                    view.absorb_remove(src, dst)
         self.ids[new_valid:] = -1
         names_arr = np.array(self.names, dtype=object)
         names_arr[holes] = names_arr[tail_survivors]
@@ -1168,6 +1543,9 @@ class Index:
         if self.pq is not None:
             self.pq.save(os.path.join(path, "pq"))
             meta["pq"] = True
+        if self.lw is not None:
+            self.lw.save(os.path.join(path, "lw"))
+            meta["lw"] = True
         if self.regional_geom is not None:
             meta["regional_geom"] = np.asarray(self.regional_geom).tolist()
         if self.extractor is not None:
@@ -1197,7 +1575,7 @@ class Index:
                 "with streaming=False")
         cfg = PipelineConfig.from_json(json.dumps(meta["config"]))
         _check_index_cfg(cfg)
-        for view, item in (("ivf", "M9"), ("ivfpq", "M9"), ("lw", "M8")):
+        for view, item in (("ivf", "M9"), ("ivfpq", "M9")):
             if meta.get(view):
                 raise NotImplementedError(
                     f"the saved {view} view is not ported yet (ROADMAP "
@@ -1254,6 +1632,9 @@ class Index:
             idx.regional_geom = np.asarray(meta["regional_geom"], np.float32)
         if meta.get("pq"):
             idx.pq = PQView.load(os.path.join(path, "pq"), device=dev)
+        if meta.get("lw"):
+            idx.lw = LocalWhiteningView.load(os.path.join(path, "lw"),
+                                             device=dev)
         return idx
 
     def evaluate(self, dataset, protocol: str = "medium", search_cfg=None,
@@ -1270,7 +1651,7 @@ class Index:
         """This index row-sharded over a shard mesh
         (``parallel/sharded_index.py``): a ``ShardedIndex`` serving the same
         ids, with the regional store (or the refine copy) and its grid
-        geometry. ``mesh`` defaults to ``make_mesh(num_shards)`` (every
+        geometry, and the local-whitening view's store, clusters and bank. ``mesh`` defaults to ``make_mesh(num_shards)`` (every
         visible CUDA device when the config names no shards), which raises
         where there are fewer devices than shards: to hold several shards
         on one device, pass ``make_mesh(S, devices=[device] * S)``.
@@ -1283,13 +1664,17 @@ class Index:
             mesh = make_mesh(n if n > 1 else None)
         if use_pallas is None:
             use_pallas = bool(self.cfg.search.use_pallas)
+        lw = self.lw
         return ShardedIndex(self.descriptors, self.ids, mesh=mesh,
                             k=self.cfg.search.k, use_pallas=use_pallas,
                             scales=self.scales, regional=self.regional,
                             regional_scales=self.regional_scales,
                             query_chunk=self.cfg.search.query_chunk,
                             int4=self.is_int4,
-                            regional_geom=self.regional_geom, dim=self.dim)
+                            regional_geom=self.regional_geom, dim=self.dim,
+                            lw_store=None if lw is None else lw.store,
+                            lw_assign=None if lw is None else lw.assign,
+                            lw_params=None if lw is None else lw.params)
 
     def full_ranking(self, queries) -> np.ndarray:
         """[Q, N] ranked original dataset ids best-first (valid rows only),

@@ -11,9 +11,11 @@ reference's: one gather of ``[Q, S*k]`` candidates (scores and dataset
 ids), merged by a stable descending sort, so ties go to the lowest shard and
 so to the lowest global row, as ``lax.top_k`` over the shard-ordered gather
 gives them. Alpha-QE gathers the dequantized candidate rows too; the
-regional re-rank gathers a global top-``depth`` membership, scores regions
-on each shard and gathers the fused scores; evaluation gathers the whole
-score matrix. The gathers, merges and membership tests are plain tensor
+regional re-rank and the local-whitening re-score gather a global
+top-``depth`` membership, score their own candidates on each shard and
+gather those scores; diffusion gathers the candidates' rows and diffuses
+the merged top-``depth`` (the same graph on every process); evaluation
+gathers the whole score matrix. The gathers, merges and membership tests are plain tensor
 code, as the reference computes them outside any Pallas kernel.
 
 Row padding lies at the store's tail, so a shard's valid rows number
@@ -26,8 +28,7 @@ that shard's kernel (or oracle) in every stage, as the reference shards
 the mask like the row scales.
 
 Not ported yet, and raising ``NotImplementedError``: range search (ROADMAP
-M7), the IVF-PQ tier (M9), local whitening, diffusion and the
-database-side expansion (M8).
+M7) and the IVF-PQ tier (M9).
 """
 from __future__ import annotations
 
@@ -38,8 +39,11 @@ import torch
 
 from ..kernels.topk_matmul import (K_MAX, topk_matmul, topk_matmul_int4,
                                    topk_matmul_int8)
+from ..ops.local_whiten import LocalWhiteningParams
 from ..search.bruteforce import (gather_rows_f32, masked_scores, search_topk,
                                  select_topk)
+from ..search.diffusion import diffusion_rerank_from_candidates
+from ..search.lw_rerank import lw_candidate_scores, whiten_all_clusters
 from ..search.qe import expand_from_candidates
 from ..search.rerank import fused_scores, region_similarities
 from ..search.spatial import build_vote_matrix
@@ -53,13 +57,16 @@ class Shard(NamedTuple):
     """One shard's slice of the store, on its device: ``x [C, W]`` (int4:
     ``[C, W/2]``), its dataset ``ids [C]``, row ``scales [1, C]`` (int8,
     int4), the regional store ``[C, R, D]`` and its ``[C, R]`` scales (int8),
-    and its count of valid rows."""
+    its count of valid rows, and the local-whitening view's whitened rows
+    ``[C, dim]`` and their clusters ``[C]``."""
     x: torch.Tensor
     ids: torch.Tensor
     scales: "torch.Tensor | None"
     regional: "torch.Tensor | None"
     regional_scales: "torch.Tensor | None"
     num_valid: int
+    lw_store: "torch.Tensor | None" = None
+    lw_assign: "torch.Tensor | None" = None
 
 
 def _pad_cols(t: torch.Tensor, width: int, value) -> torch.Tensor:
@@ -161,11 +168,14 @@ def sharded_topk(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int, *,
 
 
 def sharded_expand(mesh: ShardMesh, shards, qs, qe_n: int, alpha: float, *,
-                   use_pallas: bool, int4: bool, masks=None) -> torch.Tensor:
+                   use_pallas: bool, int4: bool, masks=None,
+                   include_query: bool = True) -> torch.Tensor:
     """Alpha-QE expansion (round 1 of :func:`sharded_qe_topk`): per-shard
     top-``qe_n`` and its dequantized rows, gathered; the merged top-``qe_n``
     expands the query -> ``[Q, D]`` f32 unit-norm on the first device
-    (arXiv:1711.02512 §5). Evaluation ranks the whole store with it."""
+    (arXiv:1711.02512 §5). Evaluation ranks the whole store with it.
+    ``include_query=False`` is αDBA's database-side weighting (the query is
+    a stored row, its own top-1)."""
     s_parts, r_parts = [], []
     for sh, q, m in zip(shards, qs, _masks(shards, masks)):
         s, pos = _local_topk(sh, q, qe_n, use_kernel=_route(use_pallas, qe_n),
@@ -178,7 +188,8 @@ def sharded_expand(mesh: ShardMesh, shards, qs, qe_n: int, alpha: float, *,
     rows = torch.take_along_dim(r_all, j.clamp(min=0).long()[..., None], 1)
     rows = torch.where((j >= 0)[..., None], rows,
                        torch.zeros((), device=rows.device))
-    return expand_from_candidates(qs[0], top_s, rows, alpha)
+    return expand_from_candidates(qs[0], top_s, rows, alpha,
+                                  include_query=include_query)
 
 
 def sharded_qe_topk(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int,
@@ -243,6 +254,68 @@ def sharded_rerank(mesh: ShardMesh, shards, qs, qregs, ids: torch.Tensor,
     return s, out
 
 
+def sharded_diffusion(mesh: ShardMesh, shards, qs, ids: torch.Tensor,
+                      k: int, depth: int, *, knn: int, alpha: float,
+                      iters: int, seeds: int, use_pallas: bool, int4: bool,
+                      masks=None):
+    """Diffusion re-ranking over the sharded store, the reference's steps:
+    per-shard top-``min(depth, C)`` and their dequantized rows, gathered
+    (scores, positions and rows); the merged global top-``depth`` and its
+    rows diffused by the single-device stage's
+    ``diffusion_rerank_from_candidates``, on the first device of every
+    process -> ``(scores [Q, k], dataset ids [Q, k])``."""
+    c = shards[0].x.shape[0]
+    local_k = min(depth, c)
+    use_kernel = _route(use_pallas, depth)
+    s_parts, p_parts, r_parts = [], [], []
+    for sh, q, m in zip(shards, qs, _masks(shards, masks)):
+        s, pos = _local_topk(sh, q, local_k, use_kernel=use_kernel,
+                             int4=int4, mask=m)
+        s_parts.append(s)
+        p_parts.append(pos)
+        r_parts.append(_gather_rows_f32(sh, pos, int4))
+    s_all, p_all = mesh.gather(s_parts), mesh.gather(p_parts)
+    r_all = mesh.gather(r_parts)                               # [Q, S*lk, D]
+    top_g, j = select_topk(s_all, min(depth, s_all.shape[1]))
+    jj = j.clamp(min=0).long()
+    rows = torch.gather(p_all, 1, jj).long() + (jj // local_k) * c
+    rows = torch.where(j >= 0, rows, torch.full_like(rows, -1))
+    cand = torch.take_along_dim(r_all, jj[..., None], 1)
+    return diffusion_rerank_from_candidates(
+        ids, top_g, rows, cand, k=k, knn=knn, alpha=alpha, iters=iters,
+        seeds=seeds)
+
+
+def sharded_lw(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int,
+               depth: int, params: LocalWhiteningParams, *, use_pallas: bool,
+               int4: bool, masks=None):
+    """Local-whitening re-scoring over the sharded whitened store, the
+    reference's steps: per-shard top-``min(depth, C)``, gathered, the
+    global top-``depth`` membership; the query whitened by every expert
+    once on the first device (``params`` lives there) and sent to each
+    shard's device; each shard re-scores its member candidates from its
+    own rows of the whitened store, non-members -inf; the scores gathered
+    and merged to ``[Q, k]``. Membership is by global row, as in
+    :func:`sharded_rerank`."""
+    c = shards[0].x.shape[0]
+    local_k = min(depth, c)
+    s_all, p_all, local = _gather_topk(mesh, shards, qs, local_k,
+                                       _route(use_pallas, depth), int4, masks)
+    glob = merge_topk(s_all, p_all, local_k, c, ids, depth)[2]
+    q_all = whiten_all_clusters(qs[0][:, :params.mu.shape[-1]], params.P,
+                                params.mu)                     # [Q, E, dim]
+    parts = []
+    for j, (sh, (s, pos)) in enumerate(zip(shards, local)):
+        rows = pos.long() + (mesh.first_shard + j) * c
+        member = ((rows[:, :, None] == glob.to(pos.device)[:, None, :])
+                  .any(dim=2) & (pos >= 0))
+        sc = lw_candidate_scores(sh.lw_store, sh.lw_assign, pos,
+                                 q_all.to(pos.device))
+        parts.append(torch.where(member, sc, torch.full_like(sc, _NEG)))
+    s, out, _ = merge_topk(mesh.gather(parts), p_all, local_k, c, ids, k)
+    return s, out
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} on the sharded index is not ported "
                               f"yet (ROADMAP {item})")
@@ -261,7 +334,10 @@ class ShardedIndex:
     re-rank store ``[N_local, R, D]`` and its ``[N_local, R]`` scales (an
     int8 store); ``regional_geom``: the R-MAC grid's ``[R, 3]`` geometry for
     the spatial vote; ``dim``: the descriptor width queries come in
-    (default: the stored width), padded with the store's zero columns.
+    (default: the stored width), padded with the store's zero columns;
+    ``lw_store``/``lw_assign``: this process's rows of a local-whitening
+    view's whitened store ``[N_local, dim]`` and clusters, with its bank
+    ``lw_params`` (``LocalWhiteningParams``, kept on the first device).
     ``use_pallas`` is the kernel route (a CUDA shard launches the kernels,
     a CPU shard takes their plain versions), on by default as in
     ``SearchConfig``; off, the scoring oracle.
@@ -272,7 +348,8 @@ class ShardedIndex:
                  k: int = 10, use_pallas: bool = True, regional=None,
                  scales=None, regional_scales=None, query_chunk: int = 128,
                  int4: bool = False, regional_geom=None,
-                 dim: "int | None" = None):
+                 dim: "int | None" = None, lw_store=None, lw_assign=None,
+                 lw_params: "LocalWhiteningParams | None" = None):
         self.mesh = mesh or make_mesh()
         x = torch.as_tensor(descriptors)
         ids_all = torch.as_tensor(ids).to(torch.int32)
@@ -293,6 +370,10 @@ class ShardedIndex:
         if regional is not None and torch.as_tensor(regional).dtype == \
                 torch.int8 and regional_scales is None:
             raise ValueError("int8 regional store needs per-region scales")
+        if ((lw_store is None) != (lw_assign is None)
+                or (lw_store is None) != (lw_params is None)):
+            raise ValueError("local whitening needs lw_store, lw_assign and "
+                             "lw_params together")
         # every row's dataset id on the first device, where merges map
         # their winners and full rankings their orders
         self._ids = ids_all.to(self.mesh.devices[0])
@@ -309,6 +390,8 @@ class ShardedIndex:
         self.store_dim = 2 * x.shape[1] if int4 else x.shape[1]
         self.dim = self.store_dim if dim is None else dim
         self._votes = None
+        self.lw_params = (None if lw_params is None else LocalWhiteningParams(
+            *(t.to(self.mesh.devices[0]) for t in lw_params)))
 
         first = self.mesh.first_shard
         local_ids = ids_all[first * c:(first + self.mesh.num_local) * c]
@@ -319,10 +402,11 @@ class ShardedIndex:
 
         self.shards = [
             Shard(xs, ids_s, sc, reg, rsc,
-                  max(0, min(self.num_valid - (first + j) * c, c)))
-            for j, (xs, ids_s, sc, reg, rsc) in enumerate(zip(
+                  max(0, min(self.num_valid - (first + j) * c, c)), lws, lwa)
+            for j, (xs, ids_s, sc, reg, rsc, lws, lwa) in enumerate(zip(
                 split(x), split(local_ids), split(scales, 1),
-                split(regional), split(regional_scales)))]
+                split(regional), split(regional_scales), split(lw_store),
+                split(lw_assign)))]
 
     # ------------------------------------------------------------------
     def _match_query_dim(self, q) -> torch.Tensor:
@@ -402,15 +486,16 @@ class ShardedIndex:
                        include_query: bool = True, mask=None
                        ) -> torch.Tensor:
         """Alpha-QE expansion -> the expanded queries ``[Q, W]`` f32 (the
-        store's width)."""
-        if not include_query:
-            _not_ported("the database-side (αDBA) expansion", "M8")
+        store's width); ``include_query=False`` is αDBA's database-side
+        weighting (``Index.augment_database(mesh=)``)."""
         masks = self._placed(mask)
         q = self._match_query_dim(queries)
         return self._run_chunked(
             lambda qq: sharded_expand(self.mesh, self.shards,
                                       replicate(self.mesh, qq), qe_n, alpha,
-                                      masks=masks, **self._kw()), q)
+                                      masks=masks,
+                                      include_query=include_query,
+                                      **self._kw()), q)
 
     def _vote_matrices(self):
         if self._votes is None:
@@ -459,6 +544,39 @@ class ShardedIndex:
                                   k=k, depth=depth, fuse_weight=0.0,
                                   mask=mask)
 
+    def search_diffusion(self, queries, k: "int | None" = None,
+                         depth: int = 200, knn: int = 10, alpha: float = 0.99,
+                         iters: int = 20, seeds: int = 10, mask=None):
+        """Diffusion re-ranking (:func:`sharded_diffusion`), equal to
+        ``Index.search`` with ``diffusion_enabled``; ``depth`` is cut to the
+        store's rows."""
+        masks = self._placed(mask)
+        k = k or self.default_k
+        depth = min(depth, self.num_rows)
+        q = self._match_query_dim(queries)
+        return self._run_chunked(
+            lambda qq: sharded_diffusion(
+                self.mesh, self.shards, replicate(self.mesh, qq), self._ids,
+                k, depth, knn=knn, alpha=alpha, iters=iters, seeds=seeds,
+                masks=masks, **self._kw()), q)
+
+    def search_lw(self, queries, k: "int | None" = None, depth: int = 100,
+                  mask=None):
+        """Local-whitening re-scoring (:func:`sharded_lw`) over the sharded
+        whitened store, equal to ``Index.search`` with ``lw_enabled``."""
+        if self.lw_params is None:
+            raise ValueError("no local-whitening view attached (fit one with "
+                             "Index.fit_local_whitening, then to_sharded)")
+        masks = self._placed(mask)
+        k = k or self.default_k
+        depth = min(depth, self.num_rows)
+        q = self._match_query_dim(queries)
+        return self._run_chunked(
+            lambda qq: sharded_lw(self.mesh, self.shards,
+                                  replicate(self.mesh, qq), self._ids, k,
+                                  depth, self.lw_params, masks=masks,
+                                  **self._kw()), q)
+
     def all_scores(self, queries) -> torch.Tensor:
         """The full ``[Q, N_pad]`` score matrix (padding -inf)."""
         q = self._match_query_dim(queries)
@@ -484,9 +602,3 @@ class ShardedIndex:
 
     def search_ivfpq(self, *args, **kwargs):
         _not_ported("the IVF-PQ tier", "M9")
-
-    def search_lw(self, *args, **kwargs):
-        _not_ported("local-whitening re-ranking", "M8")
-
-    def search_diffusion(self, *args, **kwargs):
-        _not_ported("diffusion re-ranking", "M8")

@@ -1,6 +1,13 @@
 """Search stages of the port: brute force, alpha query expansion,
-regional re-ranking with spatial verification and subset filters."""
+regional re-ranking with spatial verification, subset filters, αDBA,
+diffusion and local-whitening re-ranking."""
 from .bruteforce import gather_rows_f32, masked_scores, search_topk, select_topk
+from .dba import dba_augment
+from .diffusion import (diffuse_from_candidates,
+                        diffusion_rerank_from_candidates,
+                        diffusion_rerank_scores)
+from .lw_rerank import (LocalWhiteningView, lw_rescore_from_candidates,
+                        whiten_all_clusters)
 from .qe import alpha_query_expansion, expand_from_candidates
 from .rerank import (region_match_scores, region_similarities,
                      rerank_from_candidates)
@@ -12,4 +19,7 @@ __all__ = ["gather_rows_f32", "masked_scores", "search_topk", "select_topk",
            "region_match_scores", "region_similarities",
            "rerank_from_candidates", "build_vote_matrix",
            "spatial_consistency_scores", "SubsetFilter",
-           "build_position_mask"]
+           "build_position_mask", "dba_augment", "diffuse_from_candidates",
+           "diffusion_rerank_from_candidates", "diffusion_rerank_scores",
+           "LocalWhiteningView", "lw_rescore_from_candidates",
+           "whiten_all_clusters"]

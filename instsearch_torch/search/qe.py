@@ -11,16 +11,20 @@ from .bruteforce import gather_rows_f32, masked_scores, select_topk
 
 
 def expand_from_candidates(queries: torch.Tensor, top_s: torch.Tensor,
-                           neighbors: torch.Tensor,
-                           alpha: float = 3.0) -> torch.Tensor:
+                           neighbors: torch.Tensor, alpha: float = 3.0,
+                           include_query: bool = True) -> torch.Tensor:
     """The weighting and normalization: ``queries [Q, D]``, ``top_s [Q, n]``
     (invalid slots -inf), ``neighbors [Q, n, D]`` f32 (invalid rows zeroed)
     -> expanded queries ``[Q, D]`` f32, unit norm. Shared by the oracle
-    below and the Index's composite."""
+    below, the Index's composite, the sharded expansion and αDBA.
+
+    ``include_query=False`` drops the ``+ q`` term: the database-side
+    weighting (αDBA, ``search/dba.py``), where the row is its own top-1
+    neighbour at weight 1."""
     q = queries.float()
     w = top_s.clamp(min=0.0) ** alpha                              # [Q, n]
     agg = torch.einsum("qn,qnd->qd", w, neighbors)
-    expanded = q + agg
+    expanded = q + agg if include_query else agg
     norm = torch.linalg.vector_norm(expanded, dim=-1, keepdim=True)
     return expanded / norm.clamp(min=1e-6)
 

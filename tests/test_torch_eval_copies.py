@@ -24,6 +24,7 @@ from instsearch_torch.eval import revisited as trev
 from instsearch_torch.extractor import Extractor
 from instsearch_torch.index import Index
 from instsearch_torch.models import get_backbone
+from instsearch_torch.search.lw_rerank import LocalWhiteningView
 from instsearch_torch.search.pq_view import PQView
 
 
@@ -73,6 +74,8 @@ _ENTRY_POINTS = {
         [], PipelineConfig(extract=ExtractConfig(backbone="resnet18"))),
     "PQView.from_arrays": lambda: PQView.from_arrays(
         np.zeros((2, 16, 4), np.float32), np.zeros((8, 1), np.int8)),
+    # the device is resolved before the path is read
+    "LocalWhiteningView.load": lambda: LocalWhiteningView.load("lw"),
 }
 
 

@@ -854,3 +854,137 @@ def test_stale_filter_after_a_repadding_add_raises(gen):
     fresh = idx.make_subset(names=["new3", "0"])
     _, i = idx.search(x[:1], subset=fresh)
     assert sorted(i[0, :2].tolist()) == [0, n + 3] and (i[0, 2:] == -1).all()
+
+
+# ---------------------------------------------------------------------------
+# the quality tiers (αDBA, diffusion, local whitening, the kNN graph, EP)
+
+
+def _quality_index(gen, dtype, n=20_000, d=256, rows=None, **search):
+    """An index of ``rows`` (default: seeded unit rows around 16 centres)
+    with the quality ladder's dba_n and depths."""
+    cfg = PipelineConfig(
+        index=IndexConfig(dtype=dtype, row_tile=1024, dba_n=10),
+        search=SearchConfig(qe_enabled=True, diffusion_depth=200,
+                            rerank_depth=100, **search))
+    if rows is None:
+        centres = _unit(gen, 16, d)
+        rows = centres[torch.randint(0, 16, (n,), generator=gen,
+                                     device="cuda")] + _unit(gen, n, d)
+        rows = rows / rows.norm(dim=1, keepdim=True)
+    return Index.from_descriptors(rows, [f"r{i}" for i in range(len(rows))],
+                                  cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_k1_at_the_diffusion_depth(gen, b):
+    x = _unit(gen, 65_536, 2048, torch.bfloat16)
+    _check_k1(x, _unit(gen, b, 2048), 200, num_valid=65_000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
+def test_augment_database_on_the_card(gen, dtype, monkeypatch):
+    """αDBA through K1-K3 against the same pass through their plain
+    versions: int8/int4 bit for bit, bf16 within one bf16 step but on rows
+    whose 10th and 11th neighbours (the plain version's scores over the
+    original store) are within TOL."""
+    import instsearch_torch.index as tindex
+    rows = _unit(gen, 20_000, 256)
+    idx = _quality_index(gen, dtype, rows=rows)
+    twin = _quality_index(gen, dtype, rows=rows)
+    kernel = {"bfloat16": topk_matmul, "int8": topk_matmul_int8,
+              "int4": topk_matmul_int4}[dtype]
+    plain = {"bfloat16": topk_matmul_reference,
+             "int8": topk_matmul_int8_reference,
+             "int4": topk_matmul_int4_reference}[dtype]
+    before = kernel.launches
+    idx.augment_database()
+    assert kernel.launches - before == -(-20_000 // 128)
+    monkeypatch.setattr(tindex, kernel.__name__, plain)
+    twin.augment_database()
+    if dtype != "bfloat16":
+        assert torch.equal(idx.descriptors, twin.descriptors)
+        assert torch.equal(idx.scales, twin.scales)
+        return
+    orig = _quality_index(gen, dtype, rows=rows)
+    n = orig.cfg.index.dba_n
+    ties = torch.zeros(20_000, dtype=torch.bool, device="cuda")
+    for s in range(0, 20_000, 1_000):
+        sc, _ = plain(orig.descriptors, orig._query_rows(s, 1_000), k=n + 1,
+                      num_valid=20_000)
+        ties[s:s + 1_000] = (sc[:, n - 1] - sc[:, n]) < TOL
+    a = idx._rows_f32_chunk(0, 20_000)
+    b = twin._rows_f32_chunk(0, 20_000)
+    bar = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7 + 1e-7
+    beyond = ((a - b).abs() > bar).any(dim=1)
+    assert not bool((beyond & ~ties).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_diffusion_on_the_card_matches_the_cpu(gen, dtype):
+    """The composite (αQE, K1/K2 at depth 200, diffusion) on the card and
+    the same store copied to the CPU (the kernels' plain versions): ids
+    equal but at near-ties, diffused scores within 1e-4 of the row's
+    largest."""
+    idx = _quality_index(gen, dtype, rows=_unit(gen, 20_000, 256),
+                         diffusion_enabled=True)
+    cpu = Index(idx.descriptors.cpu(), idx.ids.cpu(), idx.names, idx.cfg,
+                scales=None if idx.scales is None else idx.scales.cpu(),
+                dim=idx.dim)
+    q = idx._rows_f32_chunk(0, 13).cpu().numpy()
+    ks, ki = idx.search(q)
+    ps, pi = cpu.search(q)
+    tol = 1e-4 * max(1.0, float(np.abs(ps[np.isfinite(ps)]).max()))
+    np.testing.assert_allclose(ks, ps, rtol=0, atol=tol)
+    for r in range(13):
+        f = dict(zip(pi[r].tolist(), ps[r].tolist()))
+        for a, b in zip(ki[r].tolist(), pi[r].tolist()):
+            assert a == b or (a in f and abs(f[a] - f[b]) < tol)
+    assert (ki[:, 0] == np.arange(13)).all()
+
+
+@pytest.mark.gpu
+def test_local_whitening_on_the_card(gen):
+    """The fit on the card (k-means, moments, the f64 eigh bank) routes as
+    the CPU fit of the same rows; the lw search on the card with the CPU's
+    view carried over equals the CPU's within 1e-5; the bank split over 4
+    shards of cuda:0 (EP) equals the single-device whitening."""
+    from instsearch_torch.ops.local_whiten import apply_local_whitening
+    from instsearch_torch.parallel import expert_whiten_fn, make_mesh
+    from instsearch_torch.search.lw_rerank import LocalWhiteningView
+    idx = _quality_index(gen, "bfloat16", n=8_192, d=64)
+    cpu = Index(idx.descriptors.cpu(), idx.ids.cpu(), idx.names, idx.cfg,
+                dim=idx.dim)
+    view = idx.fit_local_whitening(n_clusters=16)
+    cview = cpu.fit_local_whitening(n_clusters=16)
+    assert torch.equal(view.assign.cpu(), cview.assign)
+    idx.lw = LocalWhiteningView(
+        type(cview.params)(*(t.cuda() for t in cview.params)),
+        cview.store.cuda(), cview.assign.cuda())
+    q = cpu._rows_f32_chunk(0, 9).numpy()
+    ks, ki = idx.search(q)
+    ps, pi = cpu.search(q)
+    np.testing.assert_allclose(ks, ps, rtol=0, atol=1e-5)
+    assert (ki[:, 0] == np.arange(9)).all()
+    x = idx._rows_f32_chunk(0, 2048)
+    mesh = make_mesh(4, devices=["cuda"] * 4)
+    ep = expert_whiten_fn(mesh)(idx.lw.params, x)
+    assert torch.equal(ep, apply_local_whitening(x, idx.lw.params))
+
+
+@pytest.mark.gpu
+def test_knn_graph_and_duplicates_on_the_card(gen):
+    idx = _quality_index(gen, "bfloat16", n=10_000, d=128)
+    rows = idx._rows_f32_chunk(0, 10_000)
+    dup = rows[:32] + 0.05 * _unit(gen, 32, 128)
+    idx.add(descriptors=dup / dup.norm(dim=1, keepdim=True),
+            names=[f"d{i}" for i in range(32)])
+    s, i = idx.knn_graph(k=5)
+    assert (i[:32, 0] == np.arange(10_000, 10_032)).all()
+    assert (i != np.arange(idx.num_valid)[:, None]).all()
+    pairs, _ = idx.find_duplicates(tau=0.97)
+    assert {(j, 10_000 + j) for j in range(32)} <= set(map(tuple,
+                                                           pairs.tolist()))

@@ -10,7 +10,10 @@ ViT on its three attention routes and the multi-scale resize and a tiny
 ResNet through ``fused_resnet_apply`` (its identity blocks through K7's
 plain version), save the int4 index with its PQ view and load it back,
 search it under a subset, add and remove rows, range-search it and cut a
-subset over four CPU shards,
+subset over four CPU shards, augment a store (αDBA through four CPU
+shards), search it with αQE and diffusion, take its kNN graph and stats,
+fit a local-whitening view, search under it and apply its bank over two
+expert shards,
 then check sys.modules: neither JAX nor any module of the reference package
 was loaded."""
 import json
@@ -108,6 +111,35 @@ ssub = live.make_subset(names=["n0", "r5"])
 lsidx = live.to_sharded(mesh=make_mesh(4, devices=["cpu"] * 4))
 assert live.search_sharded(lsidx, x[:1], subset=ssub)[1][0, :2].tolist() \
     == [40, 5]
+import instsearch_torch.ops.kmeans
+import instsearch_torch.ops.local_whiten
+import instsearch_torch.search.dba
+import instsearch_torch.search.diffusion
+import instsearch_torch.search.lw_rerank
+import instsearch_torch.parallel.ep
+from instsearch_torch.ops.local_whiten import apply_local_whitening
+from instsearch_torch.parallel import expert_whiten_fn
+qcfg = PipelineConfig(index=IndexConfig(row_tile=16, dba_n=4),
+                      search=SearchConfig(diffusion_enabled=True,
+                                          diffusion_depth=20,
+                                          qe_enabled=True))
+qual = Index.from_descriptors(x, [f"r{i}" for i in range(40)], qcfg,
+                              device="cpu")
+twin = Index.from_descriptors(x, [f"r{i}" for i in range(40)], qcfg,
+                              device="cpu")
+qual.augment_database(mesh=make_mesh(4, devices=["cpu"] * 4))
+twin.augment_database()
+assert torch.equal(qual.descriptors, twin.descriptors)
+assert np.isfinite(qual.search(x[:3])[0]).all()
+assert qual.knn_graph(k=3)[1].shape == (40, 3)
+assert qual.stats()["rows"] == 40
+view = qual.fit_local_whitening(n_clusters=2)
+assert qual.search(x[:3], qual.cfg.search.replace(
+    diffusion_enabled=False))[1][:, 0].tolist() == [0, 1, 2]
+ep = expert_whiten_fn(make_mesh(2, devices=["cpu"] * 2))(
+    view.params, torch.as_tensor(x))
+assert torch.equal(ep, apply_local_whitening(torch.as_tensor(x),
+                                             view.params))
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

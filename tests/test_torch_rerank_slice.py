@@ -557,8 +557,8 @@ def test_presets_build_and_query(rig, preset):
 
 
 def test_unported_neighbours_raise(rig, tmp_path):
-    """Re-rank under the PQ cascade (M9) and diffusion (M8) name their
-    ROADMAP item. The live index keeps the regional store: a descriptor
+    """Re-rank under the PQ cascade (M9) names its ROADMAP item; diffusion
+    (M8) answers. The live index keeps the regional store: a descriptor
     ``add`` is refused (the regional rows need image paths, as in the
     reference), unknown names and a self-merge are refused, and a saved
     and loaded copy carries the store and its grid geometry into
@@ -590,9 +590,14 @@ def test_unported_neighbours_raise(rig, tmp_path):
         _port_cfg(CFG).replace(index=IndexConfig(num_shards=2)),
         device="cpu")
     assert two.descriptors.shape[0] % 16 == 0
-    with pytest.raises(NotImplementedError, match="M8"):
-        same.search(same.extractor(q), same.cfg.search.replace(
-            rerank_enabled=False, diffusion_enabled=True))
+    # diffusion answers (M8 is ported), the R-MAC store beside it unused
+    dcfg = same.cfg.search.replace(rerank_enabled=False,
+                                   diffusion_enabled=True)
+    s, i = same.search(same.extractor(q), dcfg)
+    assert i.shape == (2, 10) and np.isfinite(s).all()
+    np.testing.assert_array_equal(
+        i, same.search(same.extractor(q), dcfg, query_regional=np.zeros(
+            (2, same.regional.shape[1], same.dim), np.float32))[1])
 
 
 def test_serve_core_answers_like_query_images(rig):

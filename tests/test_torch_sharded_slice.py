@@ -254,7 +254,8 @@ def test_refusals(rig, monkeypatch):
     """``make_mesh(8)`` and ``to_sharded()`` on one device raise rather
     than shrink; subset masks are taken (a mask of another size and an
     unknown member refused); the sharded stages not ported yet raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    ``NotImplementedError`` naming their ROADMAP item, and the quality
+    tiers' stages answer."""
     own = rig["oxford105k_sharded8"]["own"]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="8 shards, have 1"):
@@ -276,9 +277,16 @@ def test_refusals(rig, monkeypatch):
     for call, item in (
             (lambda: sidx.search_range(q, 0.5), "M7"),
             (lambda: sidx.attach_ivfpq(None), "M9"),
-            (lambda: sidx.search_ivfpq(q), "M9"),
-            (lambda: sidx.search_lw(q), "M8"),
-            (lambda: sidx.search_diffusion(q), "M8"),
-            (lambda: sidx.expand_queries(q, include_query=False), "M8")):
+            (lambda: sidx.search_ivfpq(q), "M9")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # the quality tiers answer (M8 is ported): diffusion as the single
+    # device, the database-side expansion unit rows, local whitening after
+    # a fit (without one, a ValueError names it)
+    dcfg = own.cfg.search.replace(diffusion_enabled=True)
+    for a, b in zip(own.search_sharded(sidx, q, dcfg), own.search(q, dcfg)):
+        np.testing.assert_array_equal(a, b)
+    rows = sidx.expand_queries(q, include_query=False)
+    torch.testing.assert_close(rows.norm(dim=1), torch.ones(1))
+    with pytest.raises(ValueError, match="no local-whitening view"):
+        sidx.search_lw(q)

@@ -190,8 +190,8 @@ def test_serve_core_answers_like_query_images(rig):
 
 def test_unported_stages_raise(rig):
     """int8, int4, QE, re-rank, refine, regional extraction, shards and
-    subsets are ported (an unknown subset member raises ``KeyError``); l2,
-    diffusion and re-rank under the PQ cascade still raise."""
+    subsets are ported (an unknown subset member raises ``KeyError``), and
+    diffusion answers; l2 and re-rank under the PQ cascade still raise."""
     _, _, _, tidx, qimgs = rig
     q = tidx.extractor(qimgs[:1])
     s, i = tidx.search(q, CFG.search.replace(qe_enabled=True))
@@ -203,8 +203,13 @@ def test_unported_stages_raise(rig):
         tidx.search(q)[1])
     with pytest.raises(ValueError, match="refine store"):
         tidx.search(q, CFG.search.replace(refine_enabled=True))
-    with pytest.raises(NotImplementedError):
-        tidx.search(q, CFG.search.replace(diffusion_enabled=True))
+    # diffusion answers (M8 is ported): its ids are among the plain
+    # search's top diffusion_depth
+    s, i = tidx.search(q, CFG.search.replace(diffusion_enabled=True,
+                                             diffusion_depth=16))
+    assert i.shape == (1, 10) and np.isfinite(s).all()
+    assert set(i[0].tolist()) <= set(tidx.search(
+        q, CFG.search.replace(k=16))[1][0].tolist())
     with pytest.raises(KeyError, match="subset names not in the index"):
         tidx.search(q, subset=["x"])
     s, i = tidx.search(q, subset=tidx.names[:3])
