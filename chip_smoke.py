@@ -5,7 +5,9 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs twelve phases; each raises on failure and the process exits non-zero.
+runs thirteen phases; each raises on failure and the process exits non-zero.
+Phase 12 runs right after phase 4, while phase 2's and phase 3's stores are
+as those phases left them (phase 10 mutates them).
 
   0. set-up: the card's name and power limit, the kernel build and its time;
   1. every kernel against its plain PyTorch version on the card, at the
@@ -194,6 +196,38 @@ runs twelve phases; each raises on failure and the process exits non-zero.
      fit times, ``whiten_all_clusters`` beside its bound, the search p50s
      at B = 1, 8 and 128 with and without the stage, and the peak device
      memory.
+
+ 12. the ANN tiers, plain PyTorch as the reference's are XLA ops, so no
+     kernel of K1-K4 may launch on their routes (the launch counts are
+     read around every request): (a) ``configs/capacity_ivfpq.json`` as
+     loaded over phase 3's 1M int4 rows, ``build_ivfpq()`` at the
+     reference's defaults (C = 1024, nprobe 32, depth 400, m = 64, 15 PQ
+     iterations, timed), ``ServeCore`` requests of 1, 3, 8 and 13 images
+     (every top-1 its source), recall@10 against the exact int4 route and
+     the search p50 at B = 1, 8 and 128; on a 65,536-row cut, full probe
+     and depth 65,536 held to the scoring oracle's route by
+     ``check_against_plain``; (b) ``build_ivf()`` over phase 2's 1M bf16
+     store and over phase 3's rows as ``million_scale_int8.json``'s int8
+     store (``ivf_nprobe`` set), requests of 1, 3, 8 and 13 images, full
+     probe held to K1's route (bf16) and to the oracle's on the
+     bf16-rounded query (int8, the reference's ``_score_rows``), p50 at
+     B = 1 and 8; (c) a ``HostRowStore`` of 8,388,608 x 512 int8 rows (a
+     4 GiB ``rows.bin`` in a temporary folder, removed at the end; seeded
+     unit rows with phase 3's 1,024 corpus descriptors at seeded
+     positions), ``IVFPQView.from_host_store`` on the card, and
+     ``VectorServeCore`` answering vector requests of 1 and 8 corpus
+     descriptors with the host gather (every top-1 its source) and
+     ``adc_only``; the ADC selection's device time, the host gather's
+     time, both p50s and the peak device memory; (d) the ADC selection
+     over 67,108,864 seeded codes (2 GiB; C = 8192, seeded positions,
+     depth 400) at B = 1 and 8: its working memory above the view's own
+     bytes must stay under 4 GiB (the table is gathered by the codes, never
+     expanded one-hot), p50; (e) (a)'s index cut in 8 shards on cuda:0:
+     ``search_ivfpq`` held to the single device (ids equal but where an
+     ADC near-tie at the depth boundary swaps a candidate, scores within
+     1e-6), ``ServeCore(sharded=True)`` requests, then the index saved with
+     its view and loaded: the view's arrays and the answers equal bit for
+     bit.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -3405,6 +3439,397 @@ def phase11d(card, gen, lw_idx, ox, int8_store) -> dict:
             "dba_s": dba_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the ANN tiers (IVF, IVF-PQ, the host row store). They run plain
+# PyTorch in the port as XLA ops in the reference: no kernel of K1-K4 may
+# launch on their routes.
+
+HOST_ROWS = 1 << 23     # phase 12c: rows of the host store (4 GiB of int8)
+ADC_CLUSTERS = 8192     # phase 12d: clusters of the 64M-code view
+ADC_MEMORY_BOUND = 4 << 30   # phase 12d: bytes above the view's own
+FULL_PROBE_ROWS = 1 << 16    # phase 12a: rows of the full-probe cut
+
+
+def p50s(fn, batches, make) -> dict:
+    """Host-clock p50 of ``fn(make(b))`` at each batch ``b`` (the result
+    read back to the host, so synchronized)."""
+    return {b: p50_ms(lambda q=make(b): fn(q)) for b in batches}
+
+
+def phase12(card: str, gen, w1, corpus) -> dict:
+    """The ANN tiers through their entry points: (a) the IVF-PQ preset,
+    (b) IVF over phase 2's bf16 and phase 3's int8 stores, (c) the host
+    row store behind ``VectorServeCore``, (d) the ADC selection over 64M
+    codes, (e) the IVF-PQ index sharded 8 ways on cuda:0, saved and
+    loaded. Temporary files in one folder, removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase12_")
+    out = {}
+    try:
+        for part, run in (
+                ("a", lambda: phase12a(card, corpus)),
+                ("b", lambda: phase12b(card, w1, corpus)),
+                ("c", lambda: phase12c(card, gen, corpus, tmp)),
+                ("d", lambda: phase12d(card, gen)),
+                ("e", lambda: phase12e(card, out["a"].pop("index"), corpus,
+                                       tmp))):
+            torch.cuda.reset_peak_memory_stats()
+            out[part] = run()
+            out[part]["peak_device_memory_gib"] = (
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report(card, phase=12, peak_device_memory_gib={
+        p: r["peak_device_memory_gib"] for p, r in out.items()})
+    return out
+
+
+def ivfpq_preset(corpus):
+    """configs/capacity_ivfpq.json as loaded over phase 3's rows, whose
+    extraction settings it shares (checked)."""
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.index import Index
+    cfg4, rows, names, ex, images, picks = corpus
+    cfg = PipelineConfig.load(os.path.join(HERE, "configs",
+                                           "capacity_ivfpq.json"))
+    if cfg.extract != cfg4.extract or cfg.index.dtype != "int4":
+        fail("capacity_ivfpq.json no longer shares phase 3's extraction "
+             "and int4 store")
+    return cfg, Index.from_descriptors(rows, names, cfg, extractor=ex)
+
+
+def phase12a(card, corpus) -> dict:
+    """capacity_ivfpq.json over phase 3's 1M int4 rows: build_ivfpq with the
+    reference's defaults, ServeCore requests (no K1-K4 launch, every top-1
+    its source), recall@10 against the exact int4 route, p50s; then on a
+    65,536-row cut, full probe and depth >= the rows against the oracle
+    route by check_against_plain."""
+    import numpy as np
+    import torch
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels.topk_matmul import check_against_plain
+    from instsearch_torch.serve import ServeCore
+
+    cfg, idx = ivfpq_preset(corpus)
+    _, rows, names, ex, images, picks = corpus
+    view, build_s = timed(lambda: idx.build_ivfpq())
+    if (view.device.type != "cuda" or view.m != 64 or view.depth != 400
+            or idx.cfg.search.ivfpq_nprobe != 32
+            or view.codes.dtype != torch.int8):
+        fail(f"IVF-PQ view on {view.device}, m {view.m}, depth "
+             f"{view.depth}, nprobe {idx.cfg.search.ivfpq_nprobe}")
+    report(card, phase=12, part="a", config="configs/capacity_ivfpq.json",
+           store="int4 + IVF-PQ", rows=N_ROWS, n_clusters=view.n_clusters,
+           nprobe=view.nprobe, m=view.m, depth=view.depth,
+           bucket_capacity=view.bucket_capacity,
+           spill_rows=int((view.spill_pos >= 0).sum()),
+           scan_fraction=view.scan_fraction(), build_ivfpq_s=build_s,
+           qe_enabled=cfg.search.qe_enabled,
+           reduced={"rows": f"{PQ_ROWS_CAPACITY} -> {N_ROWS}: phase 3's "
+                            f"1M-row int4 store; phase 12d runs the ADC "
+                            f"selection over 64M codes"})
+    core = ServeCore(idx)
+    serve_requests(card, 12, core, images, picks, {})   # no kernel at all
+    rng = np.random.default_rng(12)
+    q = ex(images[np.concatenate(picks)])
+    recall = view.measure_recall(idx, q, k=10)
+    lat = p50s(idx.search, (1, 8, 128),
+               lambda b: ex(images[rng.choice(len(images), b,
+                                              replace=False)]))
+    report(card, phase=12, part="a", recall_at_10_vs_exact_int4=recall,
+           search_p50_ms=lat, ready=core.ready_info())
+
+    # full probe, depth >= the valid rows: the exact route's answer
+    cut = Index.from_descriptors(rows[:FULL_PROBE_ROWS],
+                                 names[:FULL_PROBE_ROWS], cfg)
+    full = cut.build_ivfpq(depth=FULL_PROBE_ROWS)
+    scfg = cut.cfg.search.replace(ivfpq_nprobe=full.n_clusters,
+                                  qe_enabled=False)
+    s, i = cut.search(q, scfg)
+    ps, pi = cut.with_search(use_pallas=False).search(
+        q, scfg.replace(ivfpq_nprobe=0))
+    x = cut._rows_f32_chunk(0, FULL_PROBE_ROWS)
+    on_card = [torch.from_numpy(np.asarray(a)).cuda() for a in (s, i, ps, pi)]
+    try:
+        err = check_against_plain(x, q, *on_card, SCORE_TOL)
+    except AssertionError as e:
+        fail(f"IVF-PQ at full probe and depth: {e}")
+    report(card, phase=12, part="a", full_probe_rows=FULL_PROBE_ROWS,
+           full_probe_equals_oracle_route=True, max_abs_err=err,
+           queries=int(i.shape[0]))
+    del cut, full, core
+    return {"build_s": build_s, "recall_at_10": recall, "p50_ms": lat,
+            "index": idx}
+
+
+def phase12b(card, w1, corpus) -> dict:
+    """build_ivf over phase 2's 1M bf16 store and over phase 3's rows as
+    million_scale_int8.json's int8 store: requests (no K1-K4 launch, every
+    top-1 its source), full probe against K1's route (bf16) and the oracle
+    route on the bf16-rounded query (int8, the reference's _score_rows
+    semantics) by check_against_plain, p50s."""
+    import numpy as np
+    import torch
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.index import Index
+    from instsearch_torch.kernels.topk_matmul import check_against_plain
+    from instsearch_torch.serve import ServeCore
+
+    idx2, images2, picks2 = w1
+    cfg8 = PipelineConfig.load(os.path.join(HERE, "configs",
+                                            "million_scale_int8.json"))
+    _, rows, names, ex, images3, picks3 = corpus
+    int8 = Index.from_descriptors(
+        rows, names, cfg8.replace(search=cfg8.search.replace(ivf_nprobe=32)),
+        extractor=ex)
+    out = {}
+    rng = np.random.default_rng(13)
+    for kind, exact, images, picks in (
+            ("bf16", idx2, images2, picks2), ("int8", int8, images3, picks3)):
+        twin = exact.with_search()          # phase 2's index stays as it is
+        view, build_s = timed(lambda: twin.build_ivf())
+        report(card, phase=12, part="b", store=kind, rows=N_ROWS,
+               n_clusters=view.n_clusters, nprobe=view.nprobe,
+               bucket_capacity=view.bucket_capacity,
+               spill_rows=int((view.spill_pos >= 0).sum()),
+               scan_fraction=view.scan_fraction(), build_ivf_s=build_s,
+               qe_enabled=twin.cfg.search.qe_enabled)
+        serve_requests(card, 12, ServeCore(twin), images, picks, {})
+        ex_k = twin.extractor
+        q = ex_k(images[np.concatenate(picks)])
+        scfg = twin.cfg.search.replace(ivf_nprobe=view.n_clusters,
+                                       qe_enabled=False)
+        s, i = twin.search(q, scfg)
+        if kind == "bf16":          # K1's route: the bf16-rounded query
+            ps, pi = exact.search(q, scfg.replace(ivf_nprobe=0))
+            x = exact.descriptors
+        else:                       # the oracle on the bf16-rounded query
+            ps, pi = exact.with_search(use_pallas=False).search(
+                q.to(torch.bfloat16).float(), scfg.replace(ivf_nprobe=0))
+            x = exact._rows_f32_chunk(0, N_ROWS)
+        on_card = [torch.from_numpy(np.asarray(a)).cuda()
+                   for a in (s, i, ps, pi)]
+        try:
+            err = check_against_plain(x, q, *on_card, SCORE_TOL)
+        except AssertionError as e:
+            fail(f"IVF over {kind} at full probe: {e}")
+        del x
+        recall = view.measure_recall(twin, q, k=10)
+        lat = p50s(twin.search, (1, 8),
+                   lambda b: ex_k(images[rng.choice(len(images), b,
+                                                    replace=False)]))
+        report(card, phase=12, part="b", store=kind,
+               full_probe_equals_exact_route=True, max_abs_err=err,
+               recall_at_10_vs_exact=recall, search_p50_ms=lat)
+        out[kind] = {"build_s": build_s, "p50_ms": lat, "recall_at_10":
+                     recall}
+        del twin, view
+    del int8
+    return out
+
+
+def phase12c(card, gen, corpus, tmp) -> dict:
+    """A HostRowStore of 8,388,608 x 512 int8 rows (seeded unit rows, the
+    1,024 corpus descriptors among them at seeded positions), the IVF-PQ
+    view fitted from it on the card, VectorServeCore answering vector
+    requests of 1 and 8 corpus descriptors with the host gather (every
+    top-1 its source) and ADC-only."""
+    import numpy as np
+    import torch
+    from instsearch_torch.search.ivfpq import HostRowStore, IVFPQView
+    from instsearch_torch.serve import VectorServeCore
+
+    _, rows, _, _, _, _ = corpus
+    corpus_q = rows[:CORPUS_Q].float()
+    rng = np.random.default_rng(14)
+    where = rng.choice(HOST_ROWS, size=CORPUS_Q, replace=False)
+    at = {int(p): j for j, p in enumerate(where)}
+    values = np.empty((HOST_ROWS, DIM), np.int8)
+    scales = np.empty((HOST_ROWS,), np.float32)
+    t0 = time.perf_counter()
+    step = min(1 << 18, HOST_ROWS)
+    for s in range(0, HOST_ROWS, step):
+        x = torch.randn(step, DIM, generator=gen, device="cuda")
+        x = x / x.norm(dim=1, keepdim=True)
+        mine = [(p - s, j) for p, j in at.items() if s <= p < s + step]
+        if mine:
+            loc, j = zip(*mine)
+            x[list(loc)] = corpus_q[list(j)]
+        sc = x.abs().amax(dim=1) / 127.0
+        sc = torch.where(sc > 0, sc, torch.ones_like(sc))
+        values[s:s + step] = torch.clamp(torch.round(x / sc[:, None]), -127,
+                                         127).to(torch.int8).cpu().numpy()
+        scales[s:s + step] = sc.cpu().numpy()
+    store = HostRowStore.create(os.path.join(tmp, "host"), values,
+                                scales=scales)
+    write_s = time.perf_counter() - t0
+    del values
+    torch.cuda.reset_peak_memory_stats()
+    view, build_s = timed(lambda: IVFPQView.from_host_store(store))
+    report(card, phase=12, part="c", host_rows=HOST_ROWS, dim=DIM,
+           rows_bin_bytes=os.path.getsize(os.path.join(tmp, "host",
+                                                       "rows.bin")),
+           write_s=write_s, from_host_store_s=build_s,
+           n_clusters=view.n_clusters, nprobe=view.nprobe, m=view.m,
+           depth=view.depth, bucket_capacity=view.bucket_capacity,
+           codes_bytes=view.codes.numel() + view.spill_codes.numel())
+    out = {"build_s": build_s}
+    q8 = corpus_q[:8].cpu().numpy()
+    for mode, adc_only in (("host gather", False), ("adc_only", True)):
+        core = VectorServeCore(store, view, adc_only=adc_only)
+        core.warmup()
+        top1 = []
+        for b in (1, 8):
+            ans = core.handle_line(json.dumps({"vectors": q8[:b].tolist()}))
+            if "error" in ans:
+                fail(f"VectorServeCore ({mode}): {ans['error']}")
+            top1 += [r[0]["id"] == int(where[j])
+                     for j, r in enumerate(ans["results"])]
+        if not adc_only and not all(top1):
+            fail(f"VectorServeCore (host gather): top-1 not its source "
+                 f"({sum(top1)} of {len(top1)})")
+        lat = p50s(lambda q: core.run_queries([(q, 10)]), (1, 8),
+                   lambda b: q8[:b])
+        report(card, phase=12, part="c", mode=mode,
+               top1_is_source=f"{sum(top1)}/{len(top1)}",
+               run_queries_p50_ms=lat, ready=core.ready_info())
+        out[mode] = {"p50_ms": lat, "top1": sum(top1) / len(top1)}
+    # the two halves of a host-gather query: the ADC selection on the card
+    # (CUDA events) and the host gather and re-score (host clock)
+    times = {}
+    for b in (1, 8):
+        adc_ms = cuda_median_ms(lambda: view._select(q8[:b], view.depth,
+                                                     None, None))
+        pos = view._select(q8[:b], view.depth, None, None)[1].cpu().numpy()
+
+        def host():
+            r = store.gather(pos)
+            return np.einsum("bkd,bd->bk", r, q8[:b], dtype=np.float32)
+        times[b] = {"adc_select_device_ms": adc_ms,
+                    "host_gather_rescore_ms": p50_ms(host)}
+    report(card, phase=12, part="c", split=times,
+           peak_device_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["split"] = times
+    del view, store
+    return out
+
+
+def phase12d(card, gen) -> dict:
+    """The ADC selection over 67,108,864 seeded codes (2 GiB, C = 8192
+    buckets of 8192 slots, seeded positions) at depth 400, B = 1 and 8: the
+    working memory above the view's own bytes must stay under 4 GiB (the
+    table is gathered by the codes, never expanded one-hot)."""
+    import numpy as np
+    import torch
+    from instsearch_torch.ops.pq import PQCodebook
+    from instsearch_torch.search.ivfpq import IVFPQView
+
+    n, c = PQ_ROWS_CAPACITY, ADC_CLUSTERS
+    m_cap = n // c
+    cent = torch.randn(c, DIM, generator=gen, device="cuda")
+    cent = cent / cent.norm(dim=1, keepdim=True)
+    codes = torch.randint(-128, 128, (c, m_cap, 32), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    pos = torch.randperm(n, generator=gen, device="cuda").to(
+        torch.int32).reshape(c, m_cap)
+    pq = 0.05 * torch.randn(64, 16, DIM // 64, generator=gen, device="cuda")
+    empty = torch.zeros((0,), dtype=torch.int32, device="cuda")
+    view = IVFPQView(cent, codes, pos, torch.zeros((0, 32), dtype=torch.int8,
+                                                   device="cuda"),
+                     empty, empty.clone(), PQCodebook(pq), nprobe=32,
+                     depth=400)
+    view_bytes = sum(t.numel() * t.element_size()
+                     for t in (cent, codes, pos, pq))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {}
+    for b in (1, 8):
+        q = torch.randn(b, DIM, generator=gen, device="cuda")
+        q = (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
+        s, i = view.search_adc(q, k=10)
+        if not (np.isfinite(s).all() and (i >= 0).all()):
+            fail("ADC at 64M codes: empty or non-finite answers")
+        out[b] = p50_ms(lambda: view.search_adc(q, k=10))
+    above = torch.cuda.max_memory_allocated() - base
+    if above > ADC_MEMORY_BOUND:
+        fail(f"ADC at 64M codes took {above / 2**30:.2f} GiB above the "
+             f"view's own bytes (bound 4 GiB)")
+    report(card, phase=12, part="d", codes=n, code_bytes=n * 32,
+           n_clusters=c, bucket_capacity=m_cap, depth=400, nprobe=32,
+           view_bytes=view_bytes, working_memory_gib=above / 2 ** 30,
+           search_adc_p50_ms=out)
+    del view, codes, pos
+    return {"p50_ms": out, "working_memory_gib": above / 2 ** 30}
+
+
+def phase12e(card, idx, corpus, tmp) -> dict:
+    """(a)'s index cut in 8 shards on cuda:0: ``search_ivfpq`` against the
+    single-device cascade (ids equal but where an ADC near-tie at the depth
+    boundary swaps a candidate, exact scores within 1e-6), and the sharded
+    ServeCore's requests (every top-1 its source, no K1-K4 launch); then
+    the index saved with its view and loaded: answers equal bit for bit."""
+    import numpy as np
+    import torch
+    from instsearch_torch.index import Index
+    from instsearch_torch.parallel import make_mesh
+    from instsearch_torch.search.ivfpq import _adc_select
+    from instsearch_torch.serve import ServeCore
+
+    _, _, _, ex, images, picks = corpus
+    view = idx.ivfpq
+    mesh = make_mesh(8, devices=["cuda"] * 8)
+    sidx = idx.to_sharded(mesh=mesh)
+    q = ex(images[np.concatenate(picks)])
+    ss, si = (t.cpu().numpy() for t in sidx.search_ivfpq(q, k=10))
+    s1, i1 = idx.search(q, idx.cfg.search.replace(qe_enabled=False))
+    qm = idx._match_query_dim(q.float())
+    swapped = 0
+    for r in np.flatnonzero((si != i1).any(axis=1)):
+        # the single device's whole ADC ranking of this query: a swapped id
+        # must sit at the depth boundary within an ADC near-tie
+        a_s, a_p = _adc_select(*view.arrays, qm[r:r + 1], depth=1 << 30,
+                               nprobe=view.nprobe)
+        a_s, a_p = a_s[0].cpu().numpy(), a_p[0].cpu().numpy()
+        edge = a_s[view.depth - 1]
+        tol = 1e-5 * max(1.0, float(np.abs(a_s[np.isfinite(a_s)]).max()))
+        for pid in set(si[r]) ^ set(i1[r]):
+            got = a_s[a_p == pid]
+            if not (len(got) and abs(float(got[0]) - edge) <= tol):
+                fail(f"sharded IVF-PQ: id {pid} differs beyond an ADC "
+                     f"near-tie at the depth boundary")
+        swapped += 1
+    same = si == i1
+    err = float(np.abs(ss[same] - s1[same]).max())
+    if err > 1e-6:
+        fail(f"sharded IVF-PQ scores differ by {err} > 1e-6")
+    core = ServeCore(idx, sharded=True, mesh=mesh)
+    serve_requests(card, 12, core, images, picks, {})
+    report(card, phase=12, part="e", shards=8, mesh="cuda:0 x 8",
+           sharded_equals_single_device=True, rows_swapped_at_depth=swapped,
+           max_abs_err=err, queries=int(si.shape[0]),
+           sharded_requests_top1_correct=True)
+
+    folder = os.path.join(tmp, "ivfpq_index")
+    _, save_s = timed(lambda: idx.save(folder))
+    live, load_s = timed(lambda: Index.load(folder, extractor=ex))
+    for name in ("centroids", "codes", "bucket_pos", "spill_codes",
+                 "spill_pos", "spill_cluster"):
+        if not torch.equal(getattr(live.ivfpq, name), getattr(view, name)):
+            fail(f"the loaded IVF-PQ view's {name} differ")
+    a = idx.search(q)
+    b = live.search(q)
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        fail("the loaded IVF-PQ index answers otherwise")
+    report(card, phase=12, part="e", save_s=save_s, load_s=load_s,
+           view_equal=True, answers_equal_bit_for_bit=True)
+    del live, sidx, core
+    return {"swapped": swapped, "save_s": save_s, "load_s": load_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -3465,6 +3890,8 @@ def main() -> int:
     res = phase2(card, gen, topk_matmul, check_against_plain)
     res3, corpus = phase3(card, gen)
     res4 = phase4(card, corpus)
+    # phase 12 needs phase 2's and phase 3's stores, which phase 10 mutates
+    phase12(card, gen, res["state"], corpus)
     res5 = phase5(card, gen, topk_matmul)
     res5hr = phase5_highres(card, gen, res5.pop("weights"))
     res6 = phase6(card, gen, resnet)

@@ -39,6 +39,12 @@ global term.
 ``cfg.search.pq_depth > 0`` every top-k selection above becomes the cascade
 of an ADC scan over 4-bit codes (K4, ``kernels/pq_scan.py``, on the kernel
 route) and an exact re-score of its ``depth`` candidates against the store.
+The ANN tiers are views too, one candidate tier per index: ``build_ivf``
+(``search/ivf.py``, ``ivf_nprobe``) scans only the probed k-means buckets
+of rows, ``build_ivfpq`` (``search/ivfpq.py``, ``ivfpq_nprobe``) the probed
+buckets of 4-bit residual codes, then re-scores exactly; both run plain
+PyTorch (no Pallas kernel in the reference either), launch none of K1-K4,
+and absorb ``add`` and ``remove``.
 
 ``to_sharded`` cuts the store into ``num_shards`` row shards over a shard
 mesh (``parallel/``); ``query_images(sharded_index=...)``,
@@ -66,9 +72,8 @@ chunked self-search for every row's neighbours, ``find_duplicates`` groups
 rows above a score, ``stats`` describes the stores.
 
 Not ported yet, and raising ``NotImplementedError`` rather than answering:
-``metric="l2"``, re-rank under the PQ cascade, the IVF and IVF-PQ tiers,
-the streaming (orbax) store, and range search through a mesh (see
-ROADMAP).
+``metric="l2"``, the streaming (orbax) store, and range search through a
+mesh (see ROADMAP).
 """
 from __future__ import annotations
 
@@ -91,6 +96,8 @@ from .ops.whitening import (WhiteningParams, apply_whitening,
 from .search.bruteforce import gather_rows_f32 as _gather_rows_f32
 from .search.bruteforce import masked_scores, search_topk, select_topk
 from .search.diffusion import diffusion_rerank_from_candidates
+from .search.ivf import IVFIndex, _ivf_composite
+from .search.ivfpq import IVFPQView, _ivfpq_composite
 from .search.lw_rerank import (LocalWhiteningView, lw_rescore_from_candidates,
                                whiten_all_clusters)
 from .search.pq_view import PQView, _pq_composite
@@ -267,17 +274,6 @@ def _check_index_cfg(cfg) -> None:
                 "regional-store slot; pick one re-scoring stage")
 
 
-def _check_search_cfg(scfg) -> None:
-    """Raise for every search stage the port does not take yet; none is
-    silently skipped."""
-    stages = (("ivf_nprobe", "ROADMAP M9"), ("ivfpq_nprobe", "ROADMAP M9"))
-    on = [(nm, item) for nm, item in stages if getattr(scfg, nm)]
-    if on:
-        raise NotImplementedError(
-            "search stages not ported yet: " +
-            ", ".join(f"{nm} ({item})" for nm, item in on))
-
-
 def attach_regional_store(idx: "Index", regional, chunk: int = 1 << 16
                           ) -> None:
     """Pad the ``[N, R, D]`` regional rows (numpy, or a tensor on any
@@ -337,6 +333,8 @@ class Index:
         self.extractor = extractor
         self.scales = scales                # [1, N_pad] f32 for int8/int4
         self.pq: "PQView | None" = None     # build_pq's cascade view
+        self.ivf: "IVFIndex | None" = None  # build_ivf's ANN view
+        self.ivfpq: "IVFPQView | None" = None   # build_ivfpq's cascade view
         self.lw: "LocalWhiteningView | None" = None  # fit_local_whitening's
         self.regional: "torch.Tensor | None" = None   # [N_pad, R, D] store
         self.regional_scales: "torch.Tensor | None" = None  # [N_pad, R] int8
@@ -388,9 +386,8 @@ class Index:
     def _check_rescoring_cfg(self, scfg) -> None:
         """The reference's validation for every entry point (search,
         query_images, evaluate, which calls it before extracting): one
-        re-scoring stage at a time, matching the attached store's kind
-        (``ValueError``); then the stages not ported yet
-        (``NotImplementedError``)."""
+        re-scoring stage at a time, matching the attached store's kind, and
+        one armed candidate tier (``ValueError``)."""
         enabled = [nm for nm in ("rerank_enabled", "diffusion_enabled",
                                  "refine_enabled", "lw_enabled")
                    if getattr(scfg, nm)]
@@ -425,7 +422,15 @@ class Index:
                 "index's regional store carries none (attached without a "
                 "matching extractor) — set index.regional_geom = "
                 "extractor.regional_geometry()")
-        _check_search_cfg(scfg)
+        armed_tiers = [nm for nm, on in (
+            ("ivf_nprobe", scfg.ivf_nprobe > 0 and self.ivf is not None),
+            ("pq_depth", scfg.pq_depth > 0 and self.pq is not None),
+            ("ivfpq_nprobe",
+             scfg.ivfpq_nprobe > 0 and self.ivfpq is not None)) if on]
+        if len(armed_tiers) > 1:
+            raise ValueError(
+                f"{' and '.join(armed_tiers)} all armed — one candidate-"
+                f"selection tier per query (disable the others)")
 
     @property
     def vote_matrix(self) -> "torch.Tensor | None":
@@ -461,13 +466,14 @@ class Index:
         index's own search config with ``changes`` applied; e.g.
         ``with_search(use_pallas=False)`` ranks through the scoring oracle,
         since the route is the index's config, not a search argument's. The
-        PQ view, the local-whitening view and the regional store come
-        along, so the twin scans the same codes and re-ranks against the
-        same regions."""
+        PQ, IVF, IVF-PQ and local-whitening views and the regional store
+        come along, so the twin scans the same codes and re-ranks against
+        the same regions."""
         cfg = self.cfg.replace(search=self.cfg.search.replace(**changes))
         twin = Index(self.descriptors, self.ids, self.names, cfg,
                      self.extractor, scales=self.scales, dim=self.dim)
         twin.pq, twin.lw = self.pq, self.lw
+        twin.ivf, twin.ivfpq = self.ivf, self.ivfpq
         twin.regional, twin.regional_scales = (self.regional,
                                                self.regional_scales)
         twin.regional_geom, twin._vote_m = self.regional_geom, self._vote_m
@@ -585,7 +591,6 @@ class Index:
                 "descriptors are unit-normalized, where inner product IS "
                 "the L2 ranking — keep metric='ip'")
         _check_index_cfg(cfg)
-        _check_search_cfg(cfg.search)
         ex = Extractor(cfg.extract.replace(whiten=False), variables,
                        seed=seed, device=device)
         quarantine: list[str] = []
@@ -630,8 +635,13 @@ class Index:
         against the main store. Arms ``cfg.search.pq_depth = depth``, so
         ``search()`` (with QE) routes through it; ``search_cfg.replace(
         pq_depth=0)`` keeps the exact path. ``opq_iters > 0`` also learns
-        an OPQ rotation. The fit and the encode run on the index's device.
-        Returns the PQView."""
+        an OPQ rotation, ``anisotropic_t`` the score-aware codes instead
+        (``ops/pq.py::fit_apq``). The fit and the encode run on the index's
+        device. Returns the PQView."""
+        if self.ivfpq is not None:
+            raise ValueError(
+                "an IVF-PQ view is attached — mutually exclusive "
+                "candidate-selection tiers (one per index)")
         if self.num_valid < 16_000_000:
             logging.getLogger("instsearch.index").warning(
                 "build_pq at %d rows: the PQ tier is for capacity (32 bytes "
@@ -646,15 +656,84 @@ class Index:
             search=self.cfg.search.replace(pq_depth=depth))
         return self.pq
 
+    def build_ivf(self, n_clusters: int | None = None, nprobe: int = 32,
+                  iters: int = 10, seed: int = 0, cap_factor: float = 4.0,
+                  sample: "int | None" = 262_144) -> IVFIndex:
+        """Attach an IVF ANN view (``search/ivf.py``): a k-means coarse
+        quantizer and a cluster-pruned scan, reading ~nprobe/n_clusters of
+        the rows a query. Arms ``cfg.search.ivf_nprobe = nprobe``, so
+        ``search()`` (αQE and the regional re-rank too) routes through it;
+        ``search_cfg.replace(ivf_nprobe=0)`` keeps the exact path.
+        Approximate: measure with ``ivf.measure_recall``. ``add()`` and
+        ``remove()`` are absorbed, ``augment_database()`` drops the view.
+        Fitted on the index's device. Returns the IVFIndex."""
+        if self.is_int4:
+            raise ValueError(
+                "IVF views are not supported on int4 storage (the bucket "
+                "gather re-materializes rows; use int8 for IVF, or int4 "
+                "with the exact fused scan — it reads a quarter of bf16's "
+                "bytes, which is the same latency class IVF targets)")
+        if self.ivfpq is not None:
+            raise ValueError(
+                "an IVF-PQ view is attached — mutually exclusive "
+                "candidate-selection tiers (one per index)")
+        self.ivf = IVFIndex.from_index(self, n_clusters=n_clusters,
+                                       nprobe=nprobe, iters=iters, seed=seed,
+                                       cap_factor=cap_factor, sample=sample)
+        self.cfg = self.cfg.replace(
+            search=self.cfg.search.replace(ivf_nprobe=nprobe))
+        return self.ivf
+
+    def build_ivfpq(self, n_clusters: int | None = None, nprobe: int = 32,
+                    m: int | None = None, kmeans_iters: int = 10,
+                    pq_iters: int = 15, seed: int = 0,
+                    cap_factor: float = 4.0,
+                    sample: "int | None" = 262_144, depth: int = 400,
+                    chunk: int = 65_536, opq_iters: int = 0,
+                    anisotropic_t: "float | None" = None) -> IVFPQView:
+        """Attach an IVF-PQ cascade view (``search/ivfpq.py``): k-means
+        buckets of 4-bit RESIDUAL PQ codes, the ADC pruned to
+        ``nprobe/n_clusters`` of the rows, then an exact re-score of
+        ``depth`` candidates against the store. Arms
+        ``cfg.search.ivfpq_nprobe``, so ``search()`` (αQE and the regional
+        re-rank too) routes through it; ``search_cfg.replace(
+        ivfpq_nprobe=0)`` keeps the exact path. Mutually exclusive with the
+        IVF and PQ views. ``opq_iters > 0`` learns an OPQ rotation in
+        residual space, ``anisotropic_t`` score-aware residual codes.
+        ``add()`` and ``remove()`` are absorbed, ``augment_database()``
+        drops the view. Fitted on the index's device. Returns the
+        IVFPQView."""
+        if self.ivf is not None or self.pq is not None:
+            raise ValueError(
+                "IVF-PQ is mutually exclusive with the IVF and PQ views "
+                "(one candidate-selection tier per index); drop the "
+                "other view first")
+        self.ivfpq = IVFPQView.from_index(
+            self, n_clusters=n_clusters, nprobe=nprobe, m=m,
+            kmeans_iters=kmeans_iters, pq_iters=pq_iters, seed=seed,
+            cap_factor=cap_factor, sample=sample, depth=depth, chunk=chunk,
+            opq_iters=opq_iters, anisotropic_t=anisotropic_t)
+        self.cfg = self.cfg.replace(
+            search=self.cfg.search.replace(ivfpq_nprobe=self.ivfpq.nprobe))
+        return self.ivfpq
+
     def _drop_views(self, why: str) -> None:
-        """Drop the PQ and local-whitening views (their codes and whitened
-        rows no longer match the store), with the reference's warnings;
-        ``lw_enabled`` goes off with the view."""
+        """Drop the IVF, PQ, IVF-PQ and local-whitening views (their
+        buckets, codes and whitened rows no longer match the store), with
+        the reference's warnings; ``lw_enabled`` goes off with the view."""
         log = logging.getLogger("instsearch.index")
+        if self.ivf is not None:
+            log.warning("IVF view invalidated by %s; rebuild with "
+                        "build_ivf()", why)
+            self.ivf = None
         if self.pq is not None:
             log.warning("PQ view invalidated by %s; rebuild with "
                         "build_pq()", why)
             self.pq = None
+        if self.ivfpq is not None:
+            log.warning("IVF-PQ view invalidated by %s; rebuild with "
+                        "build_ivfpq()", why)
+            self.ivfpq = None
         if self.lw is not None:
             log.warning("local-whitening view invalidated by %s; refit "
                         "with fit_local_whitening()", why)
@@ -697,9 +776,9 @@ class Index:
         into an f32 buffer, and the buffer replaces the store once at the
         end: an int8/int4 store is quantized once from it, an int8 refine
         copy derived from the same buffer; an R-MAC regional store keeps its
-        raw rows. The PQ and local-whitening views are dropped (the rows
-        changed). ``n``/``alpha`` default to ``cfg.index.dba_n`` (10 when
-        0) and ``dba_alpha``. ``mesh`` selects the neighbours through
+        raw rows. The IVF, PQ, IVF-PQ and local-whitening views are dropped
+        (the rows changed). ``n``/``alpha`` default to ``cfg.index.dba_n``
+        (10 when 0) and ``dba_alpha``. ``mesh`` selects the neighbours through
         ``to_sharded(mesh)`` (``expand_queries(include_query=False)``), with
         the same result. Rows added later are not augmented."""
         n = n if n is not None else (self.cfg.index.dba_n or 10)
@@ -869,8 +948,7 @@ class Index:
         """What the index holds, from tensor metadata alone: rows, capacity,
         dim, metric, dtype, layout generation, the bytes of each store on
         the device (the store's zero columns included) and the attached
-        views' parameters (the PQ and local-whitening views, the views the
-        port has)."""
+        views' parameters."""
         def nbytes(t):
             return 0 if t is None else int(t.numel() * t.element_size())
 
@@ -893,13 +971,36 @@ class Index:
             out["regional_kind"] = ("refine" if self.has_refine_store
                                     else "rmac")
             out["regions_per_image"] = int(self.regional.shape[1])
+        if self.ivf is not None:
+            v = self.ivf
+            out["ivf"] = {
+                "n_clusters": v.n_clusters, "nprobe": v.nprobe,
+                "bucket_capacity": v.bucket_capacity,
+                "spill_rows": int(v.spill.shape[0]),
+                "scan_fraction": round(v.scan_fraction(), 4),
+            }
+            out["bytes"]["ivf"] = (nbytes(v.centroids) + nbytes(v.buckets)
+                                   + nbytes(v.spill))
         if self.pq is not None:
             v = self.pq
             out["pq"] = {"m": v.m, "depth": v.depth,
                          "bytes_per_row": v.m // 2,
                          "opq": v.rotation is not None,
-                         "anisotropic_t": None}
+                         "anisotropic_t": v.anisotropic_t}
             out["bytes"]["pq"] = nbytes(v.packed)
+        if self.ivfpq is not None:
+            v = self.ivfpq
+            out["ivfpq"] = {
+                "n_clusters": v.n_clusters, "nprobe": v.nprobe,
+                "m": v.m, "depth": v.depth,
+                "bucket_capacity": v.bucket_capacity,
+                "spill_rows": int(v.spill_codes.shape[0]),
+                "scan_fraction": round(v.scan_fraction(), 4),
+                "opq": v.rotation is not None,
+                "anisotropic_t": v.anisotropic_t,
+            }
+            out["bytes"]["ivfpq"] = (nbytes(v.centroids) + nbytes(v.codes)
+                                     + nbytes(v.spill_codes))
         if self.lw is not None:
             out["lw"] = {"n_clusters": self.lw.n_clusters}
             out["bytes"]["lw"] = (nbytes(self.lw.store)
@@ -939,12 +1040,15 @@ class Index:
         ``rerank_enabled`` and a store and ``query_regional [Q, Rq, D]`` are
         there (``query_images`` extracts them), the exact refine when
         ``refine_enabled``, diffusion when ``diffusion_enabled``, the
-        local-whitening re-score when ``lw_enabled``, through the PQ cascade
-        when a view is attached and ``search_cfg.pq_depth > 0`` (without a
-        view, ``pq_depth`` is ignored, as in the reference; refine,
-        diffusion and local whitening keep the exact scan). The kernel or oracle route is the
-        index's own ``cfg.search.use_pallas``, not the argument's, as in the
-        reference. Batches larger than ``query_chunk`` run the whole
+        local-whitening re-score when ``lw_enabled``. The candidate tiers,
+        in the reference's order: the IVF scan when that view is attached
+        and ``ivf_nprobe > 0``, the PQ cascade (``pq_depth > 0``), the
+        IVF-PQ cascade (``ivfpq_nprobe > 0``); without its view a tier's
+        setting is ignored, as in the reference. Diffusion and local
+        whitening keep the exact scan, and so does refine under the
+        cascades (their exact re-score is one). The kernel or oracle route
+        is the index's own ``cfg.search.use_pallas``, not the argument's,
+        as in the reference. Batches larger than ``query_chunk`` run the whole
         composite in pieces (utils/chunking.py): the re-rank stage gathers
         ``[chunk, depth, R, D]`` candidate regions. ``subset`` (a
         :meth:`make_subset` filter, or names or ids built here) restricts
@@ -993,16 +1097,18 @@ class Index:
                 diff_iters=scfg.diffusion_iters,
                 diff_seeds=scfg.diffusion_seeds)
 
-        if (self.pq is not None and scfg.pq_depth > 0
+        # diffusion needs the exact top-depth neighbourhood and lw re-scores a
+        # quality-critical candidate set: both keep the exact scan; refine is
+        # redundant under a cascade (its exact re-score is one)
+        if (self.ivf is not None and scfg.ivf_nprobe > 0
+                and not (do_diffusion or do_lw)):
+            s, i = self._search_ivf(args, scfg, do_rerank, mask)
+        elif (self.pq is not None and scfg.pq_depth > 0
                 and not (do_refine or do_diffusion or do_lw)):
-            # refine is redundant under PQ (the cascade's re-score is one);
-            # diffusion needs the exact top-depth neighbourhood and lw
-            # re-scores a quality-critical candidate set
-            if do_rerank:
-                raise NotImplementedError(
-                    "re-rank under the PQ cascade is not ported yet "
-                    "(ROADMAP M9)")
-            s, i = self._search_pq(q, scfg, mask)
+            s, i = self._search_pq(args, scfg, do_rerank, mask)
+        elif (self.ivfpq is not None and scfg.ivfpq_nprobe > 0
+                and not (do_refine or do_diffusion or do_lw)):
+            s, i = self._search_ivfpq(args, scfg, do_rerank, mask)
         elif do_lw:
             s, i = self._search_lw(q, scfg, mask)
         else:
@@ -1029,28 +1135,105 @@ class Index:
                            (256 << 20) // per_q))
         return run_chunked(run, chunk, q)
 
-    def _search_pq(self, q: torch.Tensor, scfg, mask=None):
-        """The PQ cascade (search/pq_view.py): the ADC scan over the codes
-        selects ``depth`` candidates (at least k, and qe_n with QE), exactly
-        re-scored against the store; QE composes by position; a subset
-        ``mask`` applies at the ADC selection. Chunked so the per-stage
-        ``[chunk, depth, D]`` f32 gather stays under 256 MiB."""
-        pq = self.pq
-        depth = max(scfg.pq_depth, scfg.k, scfg.qe_n if scfg.qe_enabled else 0)
-        depth = min(depth, self.descriptors.shape[0])
+    def _rerank_operands(self, do_rerank: bool, scfg) -> dict:
+        """The re-rank stage's operands of a candidate tier's composite:
+        the regional store, its scales, the vote matrix and the spatial
+        weight when ``do_rerank``, else none of them."""
+        sw = float(scfg.spatial_weight) if do_rerank else 0.0
+        return {"regional": self.regional if do_rerank else None,
+                "regional_scales": (self.regional_scales if do_rerank
+                                    else None),
+                "vote_matrix": self.vote_matrix if sw else None,
+                "spatial_weight": sw}
 
-        def run(qq):
+    def _search_pq(self, args, scfg, do_rerank: bool, mask=None):
+        """The PQ cascade (search/pq_view.py): the ADC scan over the codes
+        selects ``depth`` candidates (at least k, qe_n with QE and
+        rerank_depth with the re-rank), exactly re-scored against the store;
+        QE and the regional re-rank compose by position; a subset ``mask``
+        applies at the ADC selection. ``args``: the queries, and their
+        regions with the re-rank. Chunked so the per-stage ``[chunk, depth,
+        D]`` f32 gather stays under 256 MiB."""
+        pq = self.pq
+        depth = max(scfg.pq_depth, scfg.k,
+                    scfg.qe_n if scfg.qe_enabled else 0,
+                    scfg.rerank_depth if do_rerank else 0)
+        depth = min(depth, self.descriptors.shape[0])
+        rr = self._rerank_operands(do_rerank, scfg)
+
+        def run(qq, *qreg):
             return _pq_composite(
                 pq.packed, pq.codebook.centroids, self.descriptors, self.ids,
-                self.scales, qq, self.num_valid, pq.rotation, mask, k=scfg.k,
+                self.scales, qq, self.num_valid, pq.rotation, mask,
+                rr["regional"], rr["regional_scales"],
+                qreg[0] if do_rerank else None, rr["vote_matrix"], k=scfg.k,
                 depth=depth, qe_n=scfg.qe_n, qe_alpha=scfg.qe_alpha,
                 do_qe=scfg.qe_enabled, int4=self.is_int4,
-                use_kernel=bool(self.cfg.search.use_pallas))
+                use_kernel=bool(self.cfg.search.use_pallas),
+                do_rerank=do_rerank, spatial_weight=rr["spatial_weight"],
+                rerank_depth=min(scfg.rerank_depth, depth))
 
         per_q = max(1, 2 * depth * self.dim * 4)
-        chunk = max(1, min(scfg.query_chunk or q.shape[0],
+        chunk = max(1, min(scfg.query_chunk or args[0].shape[0],
                            (256 << 20) // per_q))
-        return run_chunked(run, chunk, q)
+        return run_chunked(run, chunk, *args)
+
+    def _search_ivf(self, args, scfg, do_rerank: bool, mask=None):
+        """The IVF scan (search/ivf.py) as every candidate selection of the
+        composite (αQE, re-rank, top-k). Chunked so the per-query
+        ``[chunk, nprobe, M, D]`` bucket gather stays under 256 MiB."""
+        ivf = self.ivf
+        nprobe = min(scfg.ivf_nprobe, ivf.n_clusters)
+        depth = (min(scfg.rerank_depth, self.descriptors.shape[0])
+                 if do_rerank else 0)
+        rr = self._rerank_operands(do_rerank, scfg)
+
+        def run(qq, *qreg):
+            return _ivf_composite(
+                ivf.arrays, self.descriptors, self.ids, self.scales,
+                rr["regional"], rr["regional_scales"],
+                qreg[0] if do_rerank else None, qq, rr["vote_matrix"], mask,
+                k=scfg.k, depth=depth, qe_n=scfg.qe_n,
+                qe_alpha=scfg.qe_alpha, nprobe=nprobe, do_qe=scfg.qe_enabled,
+                do_rerank=do_rerank, int4=self.is_int4,
+                spatial_weight=rr["spatial_weight"])
+
+        row_bytes = ivf.buckets.shape[2] * ivf.buckets.element_size()
+        per_q = max(1, nprobe * ivf.bucket_capacity * row_bytes)
+        chunk = max(1, min(scfg.query_chunk or args[0].shape[0],
+                           (256 << 20) // per_q))
+        return run_chunked(run, chunk, *args)
+
+    def _search_ivfpq(self, args, scfg, do_rerank: bool, mask=None):
+        """The IVF-PQ cascade (search/ivfpq.py) as every candidate selection
+        of the composite: the pruned residual ADC selects ``depth``
+        candidates (at least the view's depth, k, qe_n with QE and
+        rerank_depth with the re-rank), exactly re-scored against the store.
+        Chunked so the ``[chunk, nprobe, M, m/2]`` code gather and the
+        ``[chunk, depth, D]`` re-score gather stay under 256 MiB."""
+        v = self.ivfpq
+        nprobe = min(scfg.ivfpq_nprobe, v.n_clusters)
+        depth = max(v.depth, scfg.k, scfg.qe_n if scfg.qe_enabled else 0,
+                    scfg.rerank_depth if do_rerank else 0)
+        depth = min(depth, self.descriptors.shape[0])
+        rr = self._rerank_operands(do_rerank, scfg)
+
+        def run(qq, *qreg):
+            return _ivfpq_composite(
+                v.arrays, self.descriptors, self.ids, self.scales,
+                rr["regional"], rr["regional_scales"],
+                qreg[0] if do_rerank else None, qq, rr["vote_matrix"], mask,
+                k=scfg.k, depth=depth, qe_n=scfg.qe_n,
+                qe_alpha=scfg.qe_alpha, nprobe=nprobe, do_qe=scfg.qe_enabled,
+                do_rerank=do_rerank, int4=self.is_int4,
+                spatial_weight=rr["spatial_weight"],
+                rerank_depth=min(scfg.rerank_depth, depth))
+
+        per_q = max(1, nprobe * v.bucket_capacity * v.bytes_per_row
+                    + 2 * depth * self.dim * 4)
+        chunk = max(1, min(scfg.query_chunk or args[0].shape[0],
+                           (256 << 20) // per_q))
+        return run_chunked(run, chunk, *args)
 
     def query(self, queries, search_cfg=None, k: Optional[int] = None, **kw):
         """``index.query(x, k=10)``: descriptor arrays ([Q, D] / [D]) or
@@ -1110,13 +1293,27 @@ class Index:
         its own region, no global term), diffusion, the local-whitening
         re-score or the plain sharded top-k -> ``(scores [Q, k], ids [Q,
         k])`` numpy arrays. ``subset`` is cut into
-        each shard's ``[1, C]`` slice of its mask. The PQ view is not used:
-        the sharded route keeps the exact scan, as in the reference."""
+        each shard's ``[1, C]`` slice of its mask. With ``ivfpq_nprobe > 0``
+        and the IVF-PQ view attached to ``sidx`` (``to_sharded`` attaches
+        it), the sharded IVF-PQ cascade answers, with αQE, as the reference
+        gates it: not with diffusion, local whitening, refine or a regional
+        re-rank, which keep the exact sharded selection. The PQ and IVF
+        views are not used: their tiers are single-device, as in the
+        reference."""
         scfg = search_cfg or self.cfg.search
         self._check_rescoring_cfg(scfg)
         subset = self._resolve_subset(subset)
         smask = sidx.place_subset(subset) if subset is not None else None
         q, qreg = queries, query_regional
+        if (scfg.ivfpq_nprobe > 0 and sidx.ivfpq is not None
+                and not (scfg.diffusion_enabled or scfg.lw_enabled
+                         or scfg.refine_enabled)
+                and not (scfg.rerank_enabled and sidx.regional is not None)):
+            s, i = sidx.search_ivfpq(
+                q, k=scfg.k, nprobe=scfg.ivfpq_nprobe,
+                qe_n=scfg.qe_n if scfg.qe_enabled else 0,
+                qe_alpha=scfg.qe_alpha, mask=smask)
+            return s.cpu().numpy(), i.cpu().numpy()
         if scfg.qe_enabled:
             q = sidx.expand_queries(q, qe_n=scfg.qe_n, alpha=scfg.qe_alpha,
                                     mask=smask)
@@ -1341,11 +1538,17 @@ class Index:
 
     def _absorb_views(self, start: int, n_new: int) -> None:
         """Route rows ``[start, start + n_new)``, just written, into the
-        attached views: the PQ view (frozen-codebook codes at their
-        positions) and the local-whitening view (rows routed and whitened
-        under the frozen bank)."""
+        attached views: the IVF view (rows into its spill), the PQ view
+        (frozen-codebook codes at their positions), the IVF-PQ view
+        (frozen-quantizer residual codes into its spill) and the
+        local-whitening view (rows routed and whitened under the frozen
+        bank)."""
+        if self.ivf is not None:
+            self.ivf.absorb_add(self, start, n_new)
         if self.pq is not None:
             self.pq.absorb_add(self, start, n_new)
+        if self.ivfpq is not None:
+            self.ivfpq.absorb_add(self, start, n_new)
         if self.lw is not None:
             self.lw.absorb_add(self, start, n_new)
 
@@ -1383,7 +1586,9 @@ class Index:
         gathered before any write, as the reference moves them. Rows, ids,
         scales, the regional store and its scales, and the PQ view's codes
         move verbatim (no quantization), and the local-whitening view's
-        store and clusters; ids past the new count become -1.
+        store and clusters; ids past the new count become -1. The IVF and
+        IVF-PQ views remap their stored positions (a removed row's slot
+        becomes -1, masked like padding).
         ``names`` follow the moves and existing subsets go stale. Unknown
         names raise ``KeyError`` and leave the index unchanged. A live
         ``to_sharded()`` view keeps its old shards: make it again. Returns
@@ -1413,6 +1618,14 @@ class Index:
             for view in (self.pq, self.lw):
                 if view is not None:
                     view.absorb_remove(src, dst)
+        if self.ivf is not None or self.ivfpq is not None:
+            pos_map = np.arange(self.descriptors.shape[0], dtype=np.int32)
+            pos_map[sorted(rem)] = -1
+            pos_map[tail_survivors] = holes
+            pos_map = torch.as_tensor(pos_map, device=self.device)
+            for view in (self.ivf, self.ivfpq):
+                if view is not None:
+                    view.absorb_remove(pos_map)
         self.ids[new_valid:] = -1
         names_arr = np.array(self.names, dtype=object)
         names_arr[holes] = names_arr[tail_survivors]
@@ -1481,6 +1694,22 @@ class Index:
                      _regional_rows=None if reg_rows is None
                      else reg_rows.to(self.device))
         self.quarantined = list(self.quarantined) + list(other.quarantined)
+        # the donor's rows join the always-scanned spill of an IVF or IVF-PQ
+        # view, which moves the scan toward brute force: warn, as the
+        # reference does
+        for view, rebuild in ((self.ivf, "build_ivf()"),
+                              (self.ivfpq, "build_ivfpq()")):
+            if view is None:
+                continue
+            spill_used = int((view.spill_pos >= 0).sum())
+            if spill_used > 0.25 * max(self.num_valid, 1):
+                logging.getLogger("instsearch.index").warning(
+                    "merge_from absorbed the donor into the always-"
+                    "scanned spill: %d of %d rows (%.0f%%) now scan on "
+                    "EVERY query regardless of nprobe — rebuild with %s "
+                    "over the union to restore the pruned layout",
+                    spill_used, self.num_valid,
+                    100.0 * spill_used / max(self.num_valid, 1), rebuild)
         return n
 
     # ------------------------------------------------------------------
@@ -1540,12 +1769,18 @@ class Index:
                 "format": "npz", "dtypes": dtypes,
                 "seed": getattr(self.extractor, "seed", 0),
                 "weights_saved": False}
-        if self.pq is not None:
-            self.pq.save(os.path.join(path, "pq"))
-            meta["pq"] = True
+        if self.ivf is not None:
+            self.ivf.save(os.path.join(path, "ivf"))
+            meta["ivf"] = True
         if self.lw is not None:
             self.lw.save(os.path.join(path, "lw"))
             meta["lw"] = True
+        if self.pq is not None:
+            self.pq.save(os.path.join(path, "pq"))
+            meta["pq"] = True
+        if self.ivfpq is not None:
+            self.ivfpq.save(os.path.join(path, "ivfpq"))
+            meta["ivfpq"] = True
         if self.regional_geom is not None:
             meta["regional_geom"] = np.asarray(self.regional_geom).tolist()
         if self.extractor is not None:
@@ -1562,7 +1797,8 @@ class Index:
         form (any row padding), onto ``device`` (default: the extractor's,
         else the CUDA card, raising without one). The store gains the
         kernels' zero columns again, int4 rows are repacked to the port's
-        pairing, PQ codes padded to words. The extractor is ``extractor``,
+        pairing, PQ codes padded to words; saved IVF, IVF-PQ and
+        local-whitening views come along. The extractor is ``extractor``,
         else rebuilt from the port's weights file; an index whose weights
         were saved as an orbax checkpoint needs ``extractor=``. The stored
         whitening is attached to the extractor."""
@@ -1575,11 +1811,6 @@ class Index:
                 "with streaming=False")
         cfg = PipelineConfig.from_json(json.dumps(meta["config"]))
         _check_index_cfg(cfg)
-        for view, item in (("ivf", "M9"), ("ivfpq", "M9")):
-            if meta.get(view):
-                raise NotImplementedError(
-                    f"the saved {view} view is not ported yet (ROADMAP "
-                    f"{item})")
         dev = (extractor.device if device is None and extractor is not None
                else resolve_device(device))
         if extractor is None and meta.get("torch_weights"):
@@ -1630,8 +1861,13 @@ class Index:
                                _DTYPES[meta["dtypes"]["regional"]])
         if meta.get("regional_geom") is not None:
             idx.regional_geom = np.asarray(meta["regional_geom"], np.float32)
+        if meta.get("ivf"):
+            idx.ivf = IVFIndex.load(os.path.join(path, "ivf"), device=dev)
         if meta.get("pq"):
             idx.pq = PQView.load(os.path.join(path, "pq"), device=dev)
+        if meta.get("ivfpq"):
+            idx.ivfpq = IVFPQView.load(os.path.join(path, "ivfpq"),
+                                       device=dev)
         if meta.get("lw"):
             idx.lw = LocalWhiteningView.load(os.path.join(path, "lw"),
                                              device=dev)
@@ -1651,7 +1887,9 @@ class Index:
         """This index row-sharded over a shard mesh
         (``parallel/sharded_index.py``): a ``ShardedIndex`` serving the same
         ids, with the regional store (or the refine copy) and its grid
-        geometry, and the local-whitening view's store, clusters and bank. ``mesh`` defaults to ``make_mesh(num_shards)`` (every
+        geometry, the local-whitening view's store, clusters and bank, and
+        the IVF-PQ view (``attach_ivfpq``). ``mesh`` defaults to
+        ``make_mesh(num_shards)`` (every
         visible CUDA device when the config names no shards), which raises
         where there are fewer devices than shards: to hold several shards
         on one device, pass ``make_mesh(S, devices=[device] * S)``.
@@ -1665,7 +1903,7 @@ class Index:
         if use_pallas is None:
             use_pallas = bool(self.cfg.search.use_pallas)
         lw = self.lw
-        return ShardedIndex(self.descriptors, self.ids, mesh=mesh,
+        sidx = ShardedIndex(self.descriptors, self.ids, mesh=mesh,
                             k=self.cfg.search.k, use_pallas=use_pallas,
                             scales=self.scales, regional=self.regional,
                             regional_scales=self.regional_scales,
@@ -1675,6 +1913,9 @@ class Index:
                             lw_store=None if lw is None else lw.store,
                             lw_assign=None if lw is None else lw.assign,
                             lw_params=None if lw is None else lw.params)
+        if self.ivfpq is not None:
+            sidx.attach_ivfpq(self.ivfpq)
+        return sidx
 
     def full_ranking(self, queries) -> np.ndarray:
         """[Q, N] ranked original dataset ids best-first (valid rows only),

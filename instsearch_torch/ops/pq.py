@@ -1,7 +1,7 @@
 """Product quantization (PQ), the compressed-domain storage tier (port of
 ``instsearch_tpu/ops/pq.py``: ``PQCodebook``, ``default_m``, ``fit_pq``,
-``fit_opq``, ``encode_pq``, ``unpack_pq``, ``decode_pq``, ``pq_lut`` and
-``pq_reconstruction_mse``).
+``fit_opq``, ``fit_apq``, ``encode_pq``, ``encode_apq``, ``unpack_pq``,
+``decode_pq``, ``pq_lut`` and ``pq_reconstruction_mse``).
 
 D splits into M subspaces of ds = D/M components, each vector-quantized
 against 16 centroids, so a row is M 4-bit codes (32 bytes at D=512, M=64).
@@ -23,8 +23,8 @@ Codes pack two per byte in the int4 row store's layout
 nibble and of subspace j + M/2 in its high nibble, as ``byte = 16 * (c_hi -
 8) + c_lo``.
 
-The anisotropic (score-aware) fit, ``fit_apq`` / ``encode_apq``, is not
-ported yet (ROADMAP M9).
+The anisotropic (score-aware) fit, ``fit_apq`` / ``encode_apq``, is the
+reference's too (the comment above ``eta_from_threshold``).
 """
 from __future__ import annotations
 
@@ -245,14 +245,179 @@ def decode_pq(packed: torch.Tensor, cb: PQCodebook) -> torch.Tensor:
     return cb.centroids[m_idx, codes].reshape(packed.shape[0], -1)
 
 
-def fit_apq(*args, **kwargs):
-    raise NotImplementedError(
-        "anisotropic PQ (fit_apq) is not ported yet (ROADMAP M9)")
+# Anisotropic (score-aware) PQ, Guo et al., "Accelerating Large-Scale
+# Inference with Anisotropic Vector Quantization" (ScaNN), ICML 2020, as the
+# reference fits it. The loss re-weights the residual component parallel to
+# the datapoint, which moves the scores of exactly the queries that rank it:
+#
+#     l(x, x^) = ||r||^2 + (eta - 1) <r, x>^2 / ||x||^2,    r = x - x^,
+#
+# eta = (d - 1) T^2 / (1 - T^2) from the threshold T (Theorem 3.2, unit-norm
+# data). The parallel term couples the subspaces (<r, x> = sum_m <r_m, x_m>),
+# so assignment is coordinate descent over the subspaces in order, carrying
+# the running sum s_i = <r_i, x_i>, and the codebook update solves, per
+# (subspace, cluster), the closed-form ds x ds system
+#
+#     [n_k I + sum_i h_ik g_i d_i d_i^T] c
+#         = sum_i h_ik y_i + sum_i h_ik g_i (s_other,i + <y_i, d_i>) d_i,
+#
+# subspace after subspace, so s_other follows the updated centroids. ``y`` is
+# the quantized vector and ``d`` the score direction: flat PQ has y = d = x,
+# IVF-PQ quantizes residuals y = x - c(x) with d = x. The reference's
+# lax.scan over the subspaces is the loop over m here: the same steps, the
+# f32 sums in another order.
 
 
-def encode_apq(*args, **kwargs):
-    raise NotImplementedError(
-        "anisotropic PQ (encode_apq) is not ported yet (ROADMAP M9)")
+def eta_from_threshold(t: float, d: int) -> float:
+    """ScaNN's parallel/orthogonal weight ratio eta for unit-norm data at
+    score threshold ``t`` (arXiv:1908.10396 Theorem 3.2); at least 1 (plain
+    MSE as t -> 0)."""
+    if not 0.0 <= t < 1.0:
+        raise ValueError(f"anisotropic threshold t={t} must be in [0, 1)")
+    return max(1.0, (d - 1) * t * t / (1.0 - t * t))
+
+
+def _apq_prep(y: torch.Tensor, d_vec: torch.Tensor, m: int, eta: float):
+    """The ``[M, N, ds]`` layout of the sweeps and each row's parallel
+    weight ``g_i = (eta - 1) / ||d_i||^2`` (0 for a zero row: plain MSE)."""
+    n, dim = y.shape
+    ds = dim // m
+    ym = y.float().reshape(n, m, ds).transpose(0, 1)
+    dm = d_vec.float().reshape(n, m, ds).transpose(0, 1)
+    dn2 = (d_vec.float() ** 2).sum(dim=1)
+    gam = torch.where(dn2 > 0, (eta - 1.0) / dn2.clamp(min=1e-12),
+                      torch.zeros((), device=dn2.device))
+    return ym, dm, gam
+
+
+def _apq_assign_sweep(ym, dm, gam, cent, codes, t):
+    """One coordinate-descent assignment sweep over the subspaces in order:
+    subspace j takes the centroid minimizing ``||y_j - c||^2 + g (s_other +
+    <y_j - c, d_j>)^2`` given the other subspaces' current codes, so the
+    total loss never rises. ``codes``/``t`` ``[M, N]``: the current codes
+    and each subspace's parallel term ``<y_j - c, d_j>``. -> the new
+    ``(codes [M, N] int32, t [M, N])``."""
+    s = t.sum(dim=0)                                            # [N]
+    codes_out, t_out = [], []
+    for j in range(ym.shape[0]):
+        y1, d1, c1 = ym[j], dm[j], cent[j]
+        s_other = s - t[j]
+        e = ((y1 * y1).sum(dim=-1)[:, None] - 2.0 * (y1 @ c1.T)
+             + (c1 * c1).sum(dim=-1)[None])
+        b = (y1 * d1).sum(dim=-1)[:, None] - d1 @ c1.T          # <y - c, d>
+        loss = e + gam[:, None] * (s_other[:, None] + b) ** 2
+        a = loss.argmin(dim=1)
+        t_new = b.gather(1, a[:, None])[:, 0]
+        s = s_other + t_new
+        codes_out.append(a.to(torch.int32))
+        t_out.append(t_new)
+    return torch.stack(codes_out), torch.stack(t_out)
+
+
+def _apq_update_sweep(ym, dm, gam, cent, codes, t):
+    """One codebook-update sweep, subspace after subspace: for fixed codes,
+    each cluster's closed-form ds x ds solve, then that subspace's parallel
+    terms refreshed. An empty cluster keeps its centroid. -> ``(centroids
+    [M, K, ds], t [M, N])``."""
+    s = t.sum(dim=0)
+    k, ds = cent.shape[1], cent.shape[2]
+    eye = torch.eye(ds, dtype=torch.float32, device=cent.device)
+    cents, t_out = [], []
+    for j in range(ym.shape[0]):
+        y1, d1, c1, a1 = ym[j], dm[j], cent[j], codes[j].long()
+        s_other = s - t[j]
+        h = torch.nn.functional.one_hot(a1, k).float()          # [N, K]
+        nk = h.sum(dim=0)                                       # [K]
+        outer = (d1 * gam[:, None])[:, :, None] * d1[:, None, :]
+        a_mat = ((h.T @ outer.reshape(-1, ds * ds)).reshape(k, ds, ds)
+                 + nk[:, None, None] * eye)
+        # an empty cluster's system is singular (zero): give it the
+        # identity, its solution is discarded below
+        a_mat = a_mat + (nk == 0).float()[:, None, None] * eye
+        yd = (y1 * d1).sum(dim=-1)
+        rhs = h.T @ y1 + h.T @ ((gam * (s_other + yd))[:, None] * d1)
+        c_new = torch.linalg.solve(a_mat, rhs[..., None])[..., 0]
+        c_new = torch.where(nk[:, None] > 0, c_new, c1)
+        t_new = yd - (c_new[a1] * d1).sum(dim=-1)
+        s = s_other + t_new
+        cents.append(c_new)
+        t_out.append(t_new)
+    return torch.stack(cents), torch.stack(t_out)
+
+
+def _apq_loss(ym, dm, gam, cent, codes) -> torch.Tensor:
+    """Mean anisotropic loss of the current (codes, centroids), the
+    quantity the alternation minimizes."""
+    e = torch.zeros(ym.shape[1], dtype=torch.float32, device=ym.device)
+    s = torch.zeros_like(e)
+    for j in range(ym.shape[0]):
+        r = ym[j] - cent[j][codes[j].long()]
+        e = e + (r * r).sum(dim=-1)
+        s = s + (r * dm[j]).sum(dim=-1)
+    return (e + gam * s * s).mean()
+
+
+def fit_apq(y: torch.Tensor, m: int = 64, k: int = 16, *,
+            directions: "torch.Tensor | None" = None, t: float = 0.2,
+            num_valid: int | None = None, init_iters: int = 15,
+            sweeps: int = 6, seed: int = 0,
+            chunk: int = 16384) -> PQCodebook:
+    """Fit an anisotropic PQ codebook on ``y [N, D]`` (the loss above), on
+    y's device. ``directions``: each row's score direction (default ``y``:
+    flat PQ; IVF-PQ passes the original rows for residual ``y``). Init: a
+    plain ``fit_pq``, its MSE assignment; then ``sweeps`` alternations of
+    the assignment sweep and the closed-form update. Runs over the whole
+    (bounded) fit sample at once."""
+    n, d = y.shape
+    _check_dims(d, m)
+    nv = int(num_valid if num_valid is not None else n)
+    y = torch.as_tensor(y).float()[:nv]
+    d_vec = y if directions is None else (
+        torch.as_tensor(directions).float()[:nv])
+    if d_vec.shape != y.shape:
+        raise ValueError(f"directions {tuple(d_vec.shape)} != rows "
+                         f"{tuple(y.shape)}")
+    eta = eta_from_threshold(t, d)
+    cb = fit_pq(y, m=m, k=k, iters=init_iters, seed=seed, chunk=chunk)
+    ym, dm, gam = _apq_prep(y, d_vec, m, eta)
+    cent = cb.centroids
+    zeros = torch.zeros((m, nv), dtype=torch.float32, device=y.device)
+    codes, tpar = _apq_assign_sweep(ym, dm, torch.zeros_like(gam), cent,
+                                    zeros.int(), zeros)
+    for _ in range(sweeps):
+        codes, tpar = _apq_assign_sweep(ym, dm, gam, cent, codes, tpar)
+        cent, tpar = _apq_update_sweep(ym, dm, gam, cent, codes, tpar)
+    return PQCodebook(cent)
+
+
+def encode_apq(y: torch.Tensor, cb: PQCodebook, *,
+               directions: "torch.Tensor | None" = None, t: float = 0.2,
+               sweeps: int = 2, chunk: int = 16384) -> torch.Tensor:
+    """Encode ``y [N, D]`` under the loss the codebook was fitted with:
+    per ``pick_chunk(N, chunk)`` rows, the MSE assignment, then ``sweeps``
+    assignment sweeps; packed like :func:`encode_pq`."""
+    n, d = y.shape
+    m = cb.m
+    _check_dims(d, m)
+    eta = eta_from_threshold(t, d)
+    y = torch.as_tensor(y).float()
+    d_all = y if directions is None else torch.as_tensor(directions).float()
+    chunk = pick_chunk(n, chunk)
+    out = []
+    for s0 in range(0, n, chunk):
+        ym, dm, gam = _apq_prep(y[s0:s0 + chunk], d_all[s0:s0 + chunk], m,
+                                eta)
+        zeros = torch.zeros((m, ym.shape[1]), dtype=torch.float32,
+                            device=y.device)
+        codes, tpar = _apq_assign_sweep(ym, dm, torch.zeros_like(gam),
+                                        cb.centroids, zeros.int(), zeros)
+        for _ in range(sweeps):
+            codes, tpar = _apq_assign_sweep(ym, dm, gam, cb.centroids, codes,
+                                            tpar)
+        out.append(codes.T)
+    v = torch.cat(out) - 8
+    lo, hi = v[:, :m // 2], v[:, m // 2:]
+    return (16 * hi + lo + 8).to(torch.int8)
 
 
 def pq_lut(q: torch.Tensor, cb: PQCodebook) -> torch.Tensor:

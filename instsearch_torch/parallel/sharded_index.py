@@ -1,5 +1,6 @@
 """Row-sharded search (port of ``instsearch_tpu/parallel/sharded_index.py``:
-the exact stages over bf16, f32, int8 and int4 stores).
+the exact stages over bf16, f32, int8 and int4 stores, and the IVF-PQ
+cascade).
 
 The ``[N_pad, W]`` store is cut into S row shards over a :class:`ShardMesh`
 (``parallel/mesh.py``); the query is replicated. Each shard runs the fused
@@ -27,8 +28,17 @@ shard's ``[1, C]`` slice of its mask, on the shard's device, the operand of
 that shard's kernel (or oracle) in every stage, as the reference shards
 the mask like the row scales.
 
+The IVF-PQ cascade (``sharded_ivfpq``) shards its codes along the buckets'
+CAPACITY axis, as the reference: every shard holds ``[C, M/S, m/2]`` of
+every bucket and 1/S of the spill, so the replicated probe selection finds
+the single device's slots. Each shard selects its own top-min(depth,
+slots) by ADC, the selections are gathered and merged to the global
+top-depth, each shard re-scores exactly the candidates whose rows it holds,
+and one sum over the shards (a gather, then a sum where one shard gives the
+score and the rest zeros) assembles the scores.
+
 Not ported yet, and raising ``NotImplementedError``: range search (ROADMAP
-M7) and the IVF-PQ tier (M9).
+M7).
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from ..ops.local_whiten import LocalWhiteningParams
 from ..search.bruteforce import (gather_rows_f32, masked_scores, search_topk,
                                  select_topk)
 from ..search.diffusion import diffusion_rerank_from_candidates
+from ..search.ivfpq import _adc_select
 from ..search.lw_rerank import lw_candidate_scores, whiten_all_clusters
 from ..search.qe import expand_from_candidates
 from ..search.rerank import fused_scores, region_similarities
@@ -316,6 +327,85 @@ def sharded_lw(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int,
     return s, out
 
 
+class ShardIVFPQ(NamedTuple):
+    """One shard's slice of an IVF-PQ view, on its device: the codes and
+    positions of its ``M/S`` slots of every bucket, its ``1/S`` of the spill,
+    and the replicated centroids, codebook and rotation, in the order of
+    ``search/ivfpq.py::_adc_select``'s arguments."""
+    centroids: torch.Tensor
+    codes: torch.Tensor
+    bucket_pos: torch.Tensor
+    spill_codes: torch.Tensor
+    spill_pos: torch.Tensor
+    spill_cluster: torch.Tensor
+    pq_centroids: torch.Tensor
+    rotation: "torch.Tensor | None"
+
+
+def _shard_sum(mesh: ShardMesh, parts) -> torch.Tensor:
+    """The reference's psum where exactly one shard holds each entry and the
+    others zeros: the parts gathered along a new shard axis and summed (x +
+    0 is exact), on the first device of every process."""
+    return mesh.gather([p[:, None] for p in parts]).sum(dim=1)
+
+
+def sharded_ivfpq(mesh: ShardMesh, shards, views, qs, ids: torch.Tensor,
+                  k: int, depth: int, nprobe: int, *, int4: bool,
+                  qe_n: int = 0, qe_alpha: float = 3.0, mask=None):
+    """The IVF-PQ cascade over the capacity-sharded codes (the reference's
+    ``sharded_ivfpq_fn``): per shard the ADC selection of
+    ``search/ivfpq.py::_adc_select`` over its slice of the probed buckets
+    (the probes chosen identically on every shard), gathered; the global
+    top-``depth`` by ADC score; each shard's exact f32 re-score of the
+    candidates whose rows it holds (global positions), one sum; the re-sort.
+    ``qe_n > 0`` expands the query with the top-``qe_n`` rows first, as the
+    single-device composite. ``mask``: the ``[1, N_pad]`` subset mask on
+    each local shard's device (replicated: slots hold global positions).
+    -> ``(scores [Q, k], dataset ids [Q, k])``."""
+    c = shards[0].x.shape[0]
+    lo = [(mesh.first_shard + j) * c for j in range(len(shards))]
+    masks = mask if mask is not None else [None] * len(shards)
+
+    def cascade(q_by_dev):
+        sel = [_adc_select(*v, q, m, depth=depth, nprobe=nprobe)
+               for v, q, m in zip(views, q_by_dev, masks)]
+        s_all = mesh.gather([s for s, _ in sel])
+        p_all = mesh.gather([p for _, p in sel])
+        dd = min(depth, s_all.shape[1])
+        g_s, g_j = select_topk(s_all, dd)
+        g_pos = torch.gather(p_all, 1, g_j.clamp(min=0).long())
+        g_pos = torch.where(g_s > _NEG, g_pos, torch.full_like(g_pos, -1))
+        exact_parts, row_parts = [], []
+        for sh, q, l0 in zip(shards, q_by_dev, lo):
+            gp = g_pos.to(q.device)
+            loc = gp - l0
+            inr = (gp >= 0) & (loc >= 0) & (loc < c)
+            rows = _gather_rows_f32(sh, torch.where(inr, loc, -1), int4)
+            exact_parts.append(torch.where(
+                inr, torch.einsum("bkd,bd->bk", rows, q),
+                torch.zeros((), device=q.device)))
+            row_parts.append(rows)
+        exact = _shard_sum(mesh, exact_parts).masked_fill(g_pos < 0, _NEG)
+        exact, order = torch.sort(exact, dim=1, descending=True, stable=True)
+        g_pos = torch.gather(g_pos, 1, order)
+        g_pos = torch.where(exact > _NEG, g_pos, torch.full_like(g_pos, -1))
+        return exact, g_pos, row_parts, order
+
+    qs = [q.float() for q in qs]
+    if qe_n:
+        s, _, row_parts, order = cascade(qs)
+        top = [torch.take_along_dim(r, order.to(r.device)[:, :qe_n, None], 1)
+               for r in row_parts]
+        rows = _shard_sum(mesh, top)                            # [Q, n, D]
+        q_exp = expand_from_candidates(qs[0], s[:, :qe_n], rows, qe_alpha)
+        qs = replicate(mesh, q_exp)
+    exact, g_pos, _, _ = cascade(qs)
+    out = torch.where(g_pos >= 0, ids[g_pos.clamp(min=0).long()],
+                      torch.full_like(g_pos, -1))
+    kk = min(k, exact.shape[1])
+    return (_pad_cols(exact[:, :kk], k, _NEG), _pad_cols(out[:, :kk], k, -1))
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} on the sharded index is not ported "
                               f"yet (ROADMAP {item})")
@@ -390,6 +480,7 @@ class ShardedIndex:
         self.store_dim = 2 * x.shape[1] if int4 else x.shape[1]
         self.dim = self.store_dim if dim is None else dim
         self._votes = None
+        self.ivfpq = None         # attach_ivfpq's slices, one per shard
         self.lw_params = (None if lw_params is None else LocalWhiteningParams(
             *(t.to(self.mesh.devices[0]) for t in lw_params)))
 
@@ -597,8 +688,73 @@ class ShardedIndex:
     def search_range(self, *args, **kwargs):
         _not_ported("range search", "M7")
 
-    def attach_ivfpq(self, *args, **kwargs):
-        _not_ported("the IVF-PQ tier", "M9")
+    def attach_ivfpq(self, view, nprobe: "int | None" = None,
+                     depth: "int | None" = None) -> None:
+        """Place an ``IVFPQView`` (``search/ivfpq.py``) for
+        :meth:`search_ivfpq`: codes and positions cut along the buckets'
+        capacity axis (padded with -1 slots to a multiple of the shard
+        count, masked like any empty slot), the spill cut evenly (padded
+        alike), each local shard's slice on its device; the centroids,
+        codebook and rotation on every local device. ``to_sharded()``
+        calls this when the index carries the view."""
+        s = self.mesh.num_shards
+        codes, bpos = view.codes, view.bucket_pos
+        pad = (-codes.shape[1]) % s
+        if pad:
+            codes = torch.nn.functional.pad(codes, (0, 0, 0, pad))
+            bpos = torch.nn.functional.pad(bpos, (0, pad), value=-1)
+        sc, sp, scl = view.spill_codes, view.spill_pos, view.spill_cluster
+        spad = (-sc.shape[0]) % s
+        if spad:
+            sc = torch.nn.functional.pad(sc, (0, 0, 0, spad))
+            sp = torch.nn.functional.pad(sp, (0, spad), value=-1)
+            scl = torch.nn.functional.pad(scl, (0, spad), value=-1)
+        mw, sw = codes.shape[1] // s, sc.shape[0] // s
+        first = self.mesh.first_shard
+        slices = []
+        for j, dev in enumerate(self.mesh.devices):
+            g = first + j
 
-    def search_ivfpq(self, *args, **kwargs):
-        _not_ported("the IVF-PQ tier", "M9")
+            def cut(t, dim, w):
+                return t.narrow(dim, g * w, w).to(dev).contiguous()
+            slices.append(ShardIVFPQ(
+                view.centroids.to(dev), cut(codes, 1, mw), cut(bpos, 1, mw),
+                cut(sc, 0, sw), cut(sp, 0, sw), cut(scl, 0, sw),
+                view.codebook.centroids.to(dev),
+                None if view.rotation is None else view.rotation.to(dev)))
+        self.ivfpq = slices
+        self._ivfpq_nprobe = nprobe or view.nprobe
+        self._ivfpq_depth = depth or view.depth
+
+    def search_ivfpq(self, queries, k: "int | None" = None,
+                     nprobe: "int | None" = None, depth: "int | None" = None,
+                     qe_n: int = 0, qe_alpha: float = 3.0, mask=None):
+        """The IVF-PQ cascade over the capacity-sharded codes
+        (:func:`sharded_ivfpq`), equal to ``Index.search`` with
+        ``ivfpq_nprobe`` armed but at near-ties of ADC scores at the depth
+        boundary; ``qe_n > 0`` adds the composite's αQE. ``mask``: a subset
+        filter, a raw ``[1, N_pad]`` mask, or ``place_subset``'s slices
+        (joined again: the slots hold global positions)."""
+        if self.ivfpq is None:
+            raise ValueError("no IVF-PQ view attached (attach_ivfpq, or "
+                             "to_sharded of an index with one)")
+        k = k or self.default_k
+        nprobe = min(nprobe or self._ivfpq_nprobe,
+                     self.ivfpq[0].centroids.shape[0])
+        depth = min(depth or self._ivfpq_depth, self.num_rows)
+        if mask is not None:
+            if isinstance(mask, tuple):
+                mask = self.mesh.gather(list(mask))
+            mask = torch.as_tensor(getattr(mask, "mask", mask))
+            if tuple(mask.shape) != (1, self.num_rows):
+                raise ValueError(
+                    f"subset mask shape {tuple(mask.shape)} != [1, "
+                    f"{self.num_rows}] — the filter was built against a "
+                    f"different store (rebuild with make_subset)")
+            mask = replicate(self.mesh, mask.to(torch.int8))
+        q = self._match_query_dim(queries)
+        return self._run_chunked(
+            lambda qq: sharded_ivfpq(
+                self.mesh, self.shards, self.ivfpq, replicate(self.mesh, qq),
+                self._ids, k, depth, nprobe, int4=self.int4, qe_n=qe_n,
+                qe_alpha=qe_alpha, mask=mask), q)

@@ -1,8 +1,11 @@
 """Search stages of the port: brute force, alpha query expansion,
 regional re-ranking with spatial verification, subset filters, αDBA,
-diffusion and local-whitening re-ranking."""
+diffusion and local-whitening re-ranking, and the ANN tiers (IVF, IVF-PQ
+with the host row store)."""
 from .bruteforce import gather_rows_f32, masked_scores, search_topk, select_topk
 from .dba import dba_augment
+from .ivf import IVFIndex, recall_vs_exact
+from .ivfpq import HostRowStore, IVFPQView
 from .diffusion import (diffuse_from_candidates,
                         diffusion_rerank_from_candidates,
                         diffusion_rerank_scores)
@@ -22,4 +25,5 @@ __all__ = ["gather_rows_f32", "masked_scores", "search_topk", "select_topk",
            "build_position_mask", "dba_augment", "diffuse_from_candidates",
            "diffusion_rerank_from_candidates", "diffusion_rerank_scores",
            "LocalWhiteningView", "lw_rescore_from_candidates",
-           "whiten_all_clusters"]
+           "whiten_all_clusters", "IVFIndex", "recall_vs_exact",
+           "IVFPQView", "HostRowStore"]

@@ -1,6 +1,6 @@
 """PQ compressed-domain cascade: ADC candidate scan, then an exact re-score
 (port of ``instsearch_tpu/search/pq_view.py``: ``_pq_candidates``,
-``_pq_composite_jit`` without its re-rank stage, and ``PQView``).
+``_pq_composite_jit`` and ``PQView``).
 
 Rows are product-quantized to 4-bit codes (``ops/pq.py``, 32 bytes per
 512-d row), position-aligned with the index's padded main store. A query's
@@ -17,14 +17,15 @@ score matrix. The route is the index's own ``cfg.search.use_pallas``. A
 subset mask (``search/subset.py``) applies at ADC selection, on both
 routes, so the whole depth goes to allowed rows.
 
+The regional re-rank composes by position: it re-ranks the top
+``rerank_depth`` of the cascade's exact ranking. ``anisotropic_t`` fits and
+encodes the codes under the score-aware loss (``ops/pq.py::fit_apq``).
+
 ``Index.add`` is absorbed (``absorb_add`` encodes the new rows with the
 frozen codebook at their positions), and so is ``Index.remove``
 (``absorb_remove`` replays its compaction moves on the codes). The view
 rides ``Index.save``/``load`` in the reference's form (``pq/pq.npz`` with
 the unpadded codes, ``pq/pq.json``).
-
-Not ported yet: the re-rank stage under the cascade and the anisotropic
-fit (ROADMAP M9).
 """
 from __future__ import annotations
 
@@ -38,11 +39,12 @@ import torch
 
 from ..kernels.pq_scan import pq_topk
 from ..kernels.topk_matmul import K_MAX
-from ..ops.pq import (PQCodebook, default_m, encode_pq, fit_opq, fit_pq,
-                      pq_lut, unpack_pq)
+from ..ops.pq import (PQCodebook, default_m, encode_apq, encode_pq, fit_apq,
+                      fit_opq, fit_pq, pq_lut, unpack_pq)
 from ..utils.device import resolve_device
 from .bruteforce import gather_rows_f32, select_topk
 from .qe import expand_from_candidates
+from .rerank import rerank_from_candidates
 
 _NEG_INF = float("-inf")
 _ORACLE_ROWS = 1 << 16      # rows per one-hot piece on the oracle route
@@ -98,12 +100,16 @@ def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
 
 
 def _pq_composite(codes, centroids, descriptors, ids, scales, q, nv: int,
-                  rotation=None, mask=None, *, k: int, depth: int, qe_n: int,
+                  rotation=None, mask=None, regional=None,
+                  regional_scales=None, query_regional=None,
+                  vote_matrix=None, *, k: int, depth: int, qe_n: int,
                   qe_alpha: float, do_qe: bool, int4: bool,
-                  use_kernel: bool):
-    """The reference's ``_pq_composite_jit`` without its re-rank stage:
-    every candidate selection is the ADC-scan -> exact-re-score cascade;
-    the QE rows gather from the main store by position. -> ``(scores
+                  use_kernel: bool, do_rerank: bool = False,
+                  spatial_weight: float = 0.0, rerank_depth: int = 0):
+    """The reference's ``_pq_composite_jit``: every candidate selection is
+    the ADC-scan -> exact-re-score cascade; the QE rows and the re-rank
+    regions gather from the main store by position, the re-rank over the
+    top ``rerank_depth`` of the cascade's exact ranking. -> ``(scores
     [B, k], ids [B, k])``."""
     q = q.float()
     sel = partial(_pq_candidates, codes, centroids, descriptors, scales,
@@ -118,6 +124,12 @@ def _pq_composite(codes, centroids, descriptors, ids, scales, q, nv: int,
                            torch.zeros((), device=rows.device))
         q = expand_from_candidates(q, s_n, rows, qe_alpha)
     s, pos = sel(q, nv)
+    if do_rerank:
+        rd = min(rerank_depth or depth, depth)
+        return rerank_from_candidates(
+            regional, ids, s[:, :rd], pos[:, :rd], query_regional, k=k,
+            regional_scales=regional_scales, spatial_weight=spatial_weight,
+            vote_matrix=vote_matrix)
     out_ids = torch.where(pos >= 0, ids[pos.clamp(min=0).long()],
                           torch.full_like(pos, -1))
     return s[:, :k], out_ids[:, :k]
@@ -132,7 +144,8 @@ class PQView:
     quality depends only on candidate recall (:meth:`measure_recall`)."""
 
     def __init__(self, codebook: PQCodebook, codes: torch.Tensor,
-                 depth: int = 100, rotation: "torch.Tensor | None" = None):
+                 depth: int = 100, rotation: "torch.Tensor | None" = None,
+                 anisotropic_t: "float | None" = None):
         self.codebook = codebook        # centroids [M, 16, ds] f32
         # [N_pad, G] int8: the codes' M/2 bytes a row, then zero bytes up
         # to a whole number of 4-byte words, which K4 reads (padded once,
@@ -142,6 +155,7 @@ class PQView:
                        else codes)
         self.depth = depth
         self.rotation = rotation        # OPQ rotation [D, D] f32 or None
+        self.anisotropic_t = anisotropic_t  # the anisotropic fit's threshold
 
     @property
     def m(self) -> int:
@@ -164,11 +178,10 @@ class PQView:
         in contiguous slices) and encode every stored row in ``chunk``-row
         slices, on the index's device. ``m`` defaults to
         ``ops.pq.default_m(D)``; ``opq_iters > 0`` also learns an OPQ
-        rotation on the fit sample."""
-        if anisotropic_t is not None:
-            raise NotImplementedError(
-                "anisotropic PQ (anisotropic_t) is not ported yet "
-                "(ROADMAP M9)")
+        rotation on the fit sample; ``anisotropic_t`` fits and encodes under
+        the score-aware loss instead (``ops.pq.fit_apq``: raw-ADC ranking
+        quality; the re-scored cascade gains nothing measurable, as the
+        reference notes)."""
         nv = index.num_valid
         d = index.dim
         if m is None:
@@ -193,7 +206,15 @@ class PQView:
             got += keep
         fit_x = torch.cat(take)
         rot = None
-        if opq_iters > 0:
+        if anisotropic_t is not None and opq_iters > 0:
+            raise ValueError(
+                "anisotropic_t and opq_iters are mutually exclusive "
+                "(the score-aware alternation is not defined through a "
+                "jointly-learned rotation; pick one)")
+        if anisotropic_t is not None:
+            cb = fit_apq(fit_x, m=m, t=anisotropic_t, init_iters=iters,
+                         seed=seed)
+        elif opq_iters > 0:
             rot, cb = fit_opq(fit_x, m=m, opq_iters=opq_iters,
                               pq_iters=iters, seed=seed)
         else:
@@ -205,16 +226,20 @@ class PQView:
             sl = index._rows_f32_chunk(start, chunk)
             if rot is not None:
                 sl = sl @ rot
-            codes[start:start + chunk] = encode_pq(sl, cb)
-        return cls(cb, codes, depth=depth, rotation=rot)
+            codes[start:start + chunk] = (
+                encode_apq(sl, cb, t=anisotropic_t)
+                if anisotropic_t is not None else encode_pq(sl, cb))
+        return cls(cb, codes, depth=depth, rotation=rot,
+                   anisotropic_t=anisotropic_t)
 
     @classmethod
     def from_arrays(cls, centroids, codes, depth: int = 100, rotation=None,
-                    device: "torch.device | str | None" = None) -> "PQView":
+                    device: "torch.device | str | None" = None,
+                    anisotropic_t: "float | None" = None) -> "PQView":
         """A view over given state, e.g. a JAX ``PQView``'s
-        ``np.asarray(view.codebook.centroids)``, ``view.codes`` and
-        ``view.rotation`` (None without OPQ). ``device`` defaults to the
-        card (``utils.device.resolve_device``)."""
+        ``np.asarray(view.codebook.centroids)``, ``view.codes``,
+        ``view.rotation`` (None without OPQ) and ``view.anisotropic_t``.
+        ``device`` defaults to the card (``utils.device.resolve_device``)."""
         dev = resolve_device(device)
 
         def put(a, dtype):
@@ -222,15 +247,16 @@ class PQView:
 
         rot = None if rotation is None else put(rotation, np.float32)
         return cls(PQCodebook(put(centroids, np.float32)),
-                   put(codes, np.int8), depth=depth, rotation=rot)
+                   put(codes, np.int8), depth=depth, rotation=rot,
+                   anisotropic_t=anisotropic_t)
 
     # ------------------------------------------------------------------
     def absorb_add(self, index, start: int, n_new: int) -> None:
         """Absorb the rows ``[start, start + n_new)`` just written to the
-        main store: encode them with the frozen codebook (and rotation)
-        into ``packed``, the array K4 scans (``codes`` is a view of it),
-        which first grows with zero rows when the add re-padded the store.
-        The reference's window: the next power of two at least ``n_new``
+        main store: encode them with the frozen codebook (and rotation, or
+        the anisotropic loss of the fit) into ``packed``, the array K4
+        scans (``codes`` is a view of it), which first grows with zero rows
+        when the add re-padded the store. The reference's window: the next power of two at least ``n_new``
         (at least 8) rows from ``start``, moved back when it would run past
         the store, all re-encoded; rows before ``start`` encode as they
         did, so the codes stay the reference's byte for byte."""
@@ -244,8 +270,10 @@ class PQView:
         rows = index._rows_f32_chunk(s0, min(p, n_pad))
         if self.rotation is not None:
             rows = rows @ self.rotation
-        self.packed[s0:s0 + rows.shape[0], :self.m // 2] = encode_pq(
-            rows, self.codebook)
+        self.packed[s0:s0 + rows.shape[0], :self.m // 2] = (
+            encode_apq(rows, self.codebook, t=self.anisotropic_t)
+            if self.anisotropic_t is not None
+            else encode_pq(rows, self.codebook))
 
     def absorb_remove(self, src: torch.Tensor, dst: torch.Tensor) -> None:
         """Replay ``Index.remove``'s compaction moves (rows ``src`` to
@@ -263,7 +291,8 @@ class PQView:
             arrs["rotation"] = self.rotation.cpu().numpy()
         np.savez(os.path.join(path, "pq.npz"), **arrs)
         with open(os.path.join(path, "pq.json"), "w") as f:
-            json.dump({"depth": self.depth, "anisotropic_t": None}, f)
+            json.dump({"depth": self.depth,
+                       "anisotropic_t": self.anisotropic_t}, f)
 
     @classmethod
     def load(cls, path: str, device: "torch.device | str | None" = None
@@ -272,15 +301,11 @@ class PQView:
         padded to words again. ``device`` defaults to the card."""
         with open(os.path.join(path, "pq.json")) as f:
             meta = json.load(f)
-        if meta.get("anisotropic_t") is not None:
-            raise NotImplementedError(
-                "anisotropic PQ (anisotropic_t) is not ported yet "
-                "(ROADMAP M9)")
         raw = np.load(os.path.join(path, "pq.npz"))
         return cls.from_arrays(
             raw["centroids"], raw["codes"], depth=int(meta["depth"]),
             rotation=raw["rotation"] if "rotation" in raw.files else None,
-            device=device)
+            device=device, anisotropic_t=meta.get("anisotropic_t"))
 
     # ------------------------------------------------------------------
     def candidates(self, index, queries, depth: int | None = None):

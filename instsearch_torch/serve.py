@@ -1,6 +1,7 @@
 """Serving core: bucketed request handling over JSON lines (port of
-``instsearch_tpu/serve.py``: ``serve_buckets``, ``serve_batch`` and
-``ServeCore``, on one device or through the sharded index).
+``instsearch_tpu/serve.py``: ``serve_buckets``, ``serve_batch``,
+``ServeCore``, on one device or through the sharded index, and
+``VectorServeCore``, raw vectors over a host row store and an IVF-PQ view).
 
 Requests, one JSON object a line, answered key for key as the reference
 answers them:
@@ -21,6 +22,12 @@ answers them:
 A bad request never raises out of ``handle_line``: it is answered with an
 ``{"error": ...}`` line.
 
+``VectorServeCore`` answers ``{"vector": [...]}`` / ``{"vectors": [[...],
+...]}`` requests (optional ``"k"``, ``"subset"``) from a ``HostRowStore``
+and an ``IVFPQView`` (``search/ivfpq.py``): the capacity deployment, the
+exact rows in a host file and only the codes on the card. Subsets are
+defined by store ids or positions; ``add``/``remove`` are refused.
+
 The bucket policy is kept as the reference has it: requests run through
 batch sizes 1, 2, 4, 8 (split or padded up), which a later CUDA-graph
 capture needs as its fixed shapes. Nothing compiles per shape in eager
@@ -32,6 +39,7 @@ import json
 import time
 
 import numpy as np
+import torch
 
 
 def serve_buckets(query_chunk: int) -> list[int]:
@@ -79,10 +87,18 @@ class ServeCore:
     ``decode`` is host-only; ``mutate`` and ``run_queries`` touch the
     device and stay on one thread."""
 
-    def __init__(self, idx, sharded: bool = False, mesh=None):
+    def __init__(self, idx, sharded: bool = False, mesh=None,
+                 spill_reserve: int = 4096):
         self.idx = idx
         self.mesh = mesh
         self.sidx = idx.to_sharded(mesh=mesh) if sharded else None
+        # the attached IVF / IVF-PQ views' spill arrays grow to hold that
+        # many absorbed rows, as the reference's ServeCore grows them (there
+        # to keep its compiled shapes; here the arrays are the views' state)
+        if spill_reserve:
+            for view in (idx.ivf, idx.ivfpq):
+                if view is not None:
+                    view.reserve_spill(spill_reserve)
         self.size = idx.cfg.extract.image_size
         self.warm_k = idx.cfg.search.k
         self.buckets = serve_buckets(idx.cfg.search.query_chunk)
@@ -233,6 +249,165 @@ class ServeCore:
                 return {"vectors": rows.tolist(), "dim": int(rows.shape[1])}
             images, req_k = self.decode(req)
             return self.run_queries([(images, req_k)],
+                                    subset=req.get("subset"))[0]
+        except Exception as e:    # noqa: BLE001 — the transport boundary
+            return {"error": f"{type(e).__name__}: {e}"}
+
+
+class VectorServeCore:
+    """Capacity vector serving: a ``HostRowStore`` and an ``IVFPQView``
+    (``search/ivfpq.py``) answering raw descriptor queries, with no index
+    on the device and no extractor. ``device`` is where the view lies and
+    the subset masks go (default: the card, raising without one).
+
+      request:  {"vector": [f32 x D]} | {"vectors": [[...], ...]}
+                [+ "k": int] [+ "subset": NAME]
+                | {"define_subset": {"name": N, "ids": [...]}}
+                |                   {... "positions": [...]}}
+                | {"drop_subset": N}
+      response: {"results": [[{rank, id, score}, ...] per vector], ...}
+
+    ``id`` is the store's id (the row position when it has none).
+    Mutations are refused: the store and view are built offline. Two
+    modes, fixed at start: the exact host-gather cascade
+    (``IVFPQView.search_host``) or ``adc_only`` (``search_adc``: the
+    pruned scan's ranking, no host gather)."""
+
+    def __init__(self, store, view, k: int = 10, adc_only: bool = False,
+                 query_chunk: int = 128,
+                 device: "torch.device | str | None" = None):
+        from .utils.device import resolve_device
+        # "cuda" as the index of the current card, as tensors carry it
+        self.device = torch.empty(0, device=resolve_device(device)).device
+        if view.device != self.device:
+            raise ValueError(f"the view lies on {view.device}, the serving "
+                             f"device is {self.device}")
+        self.store = store
+        self.view = view
+        self.warm_k = k
+        self.adc_only = adc_only
+        self._cap = query_chunk or 128
+        self.buckets = serve_buckets(self._cap)
+        # named subset filters over store rows, each a [1, N] int8 mask on
+        # the device; the corpus is read-only, so they never go stale
+        self.subsets: dict = {}
+        if view.codebook.dim != store.d:
+            raise ValueError(f"view dim {view.codebook.dim} != store "
+                             f"dim {store.d}")
+
+    def query_cap(self) -> int:
+        return self._cap
+
+    def define_subset(self, name: str, ids=None, positions=None) -> dict:
+        """Register a named subset by store ids or row positions."""
+        if (ids is None) == (positions is None):
+            raise ValueError("define_subset needs exactly one of "
+                             "ids= / positions=")
+        allow = np.zeros(self.store.n, bool)
+        if positions is not None:
+            p = np.asarray(list(positions), np.int64)
+            if p.size and (p.min() < 0 or p.max() >= self.store.n):
+                raise ValueError("subset positions out of range")
+            allow[p] = True
+        elif self.store.ids is None:       # ids are positions then
+            return self.define_subset(name, positions=ids)
+        else:
+            want = np.asarray(list(ids))
+            hit = np.isin(self.store.ids, want)
+            if hit.sum() < len(np.unique(want)):
+                raise KeyError("some subset ids are not in the store")
+            allow = hit
+        self.subsets[name] = torch.from_numpy(
+            allow[None, :].astype(np.int8)).to(self.device)
+        return {"subset": name, "count": int(allow.sum()),
+                "subsets": sorted(self.subsets)}
+
+    # ---- host side ----------------------------------------------------
+    def decode(self, req: dict) -> tuple[np.ndarray, int]:
+        """Request -> (query vectors [B, D] f32, requested k)."""
+        vecs = req.get("vectors")
+        if vecs is None:
+            vecs = [req["vector"]]
+        arr = np.asarray(vecs, np.float32)
+        if arr.ndim != 2 or arr.shape[1] != self.store.d:
+            raise ValueError(
+                f"vectors must be [B, {self.store.d}] (got {arr.shape})")
+        return arr, int(req.get("k", self.warm_k))
+
+    # ---- device side --------------------------------------------------
+    def mutate(self, req: dict) -> dict:
+        if "define_subset" in req:
+            spec = req["define_subset"]
+            return self.define_subset(spec["name"], ids=spec.get("ids"),
+                                      positions=spec.get("positions"))
+        if "drop_subset" in req:
+            self.subsets.pop(req["drop_subset"], None)
+            return {"dropped": req["drop_subset"],
+                    "subsets": sorted(self.subsets)}
+        raise ValueError("host-store serving is read-only; rebuild the "
+                         "store/view offline and restart")
+
+    def _search(self, q: np.ndarray, k: int, mask=None):
+        if self.adc_only:
+            return self.view.search_adc(q, k=k, ids=self.store.ids,
+                                        mask=mask)
+        return self.view.search_host(self.store, q, k=k, mask=mask)
+
+    def warmup(self) -> None:
+        for b in self.buckets:
+            self._search(np.zeros((b, self.store.d), np.float32),
+                         self.warm_k)
+
+    def ready_info(self) -> dict:
+        return {"ready": True, "rows": self.store.n, "dim": self.store.d,
+                "mode": "adc" if self.adc_only else "cascade",
+                "nprobe": self.view.nprobe, "depth": self.view.depth}
+
+    def run_queries(self, jobs: "list[tuple[np.ndarray, int]]",
+                    subset: "str | None" = None) -> list[dict]:
+        """One device pass for a list of (vectors, req_k) jobs, padded with
+        zero rows up to the smallest covering bucket; ``subset``: the name
+        of a registered subset shared by every job."""
+        mask = None
+        if subset is not None:
+            mask = self.subsets.get(subset)
+            if mask is None:
+                raise KeyError(f"unknown subset {subset!r} — define it "
+                               f"first ({{'define_subset': ...}})")
+        ks = [k for _, k in jobs]
+        k_run = self.warm_k if max(ks) <= self.warm_k else max(ks)
+        batch = (jobs[0][0] if len(jobs) == 1
+                 else np.concatenate([v for v, _ in jobs]))
+        b = batch.shape[0]
+        bucket = next((x for x in self.buckets if x >= b), b)
+        t0 = time.perf_counter()
+        qb = (batch if bucket == b else np.concatenate(
+            [batch, np.zeros((bucket - b, batch.shape[1]), np.float32)]))
+        scores, ids = self._search(qb, k_run, mask=mask)
+        latency = round((time.perf_counter() - t0) * 1e3, 3)
+        out, pos = [], 0
+        for vecs, req_k in jobs:
+            n = vecs.shape[0]
+            s, i = scores[pos:pos + n], ids[pos:pos + n]
+            pos += n
+            results = [[{"rank": r, "id": int(ii), "score": float(ss)}
+                        for r, (ss, ii) in enumerate(zip(srow[:req_k],
+                                                         irow[:req_k]))
+                        if ii >= 0 and np.isfinite(ss)]
+                       for srow, irow in zip(s, i)]
+            out.append({"results": results, "latency_ms": latency,
+                        "batch_rows": int(b)})
+        return out
+
+    def handle_line(self, line: str) -> dict:
+        """Parse -> decode -> device on the caller's thread; a bad request
+        is answered with an error line."""
+        try:
+            req = json.loads(line)
+            if _is_mutation(req):
+                return self.mutate(req)
+            vecs, req_k = self.decode(req)
+            return self.run_queries([(vecs, req_k)],
                                     subset=req.get("subset"))[0]
         except Exception as e:    # noqa: BLE001 — the transport boundary
             return {"error": f"{type(e).__name__}: {e}"}

@@ -11,6 +11,7 @@ CUDA device and no explicit ``device``, each entry point raises a
 ``RuntimeError`` naming the missing card rather than carry on on the CPU.
 """
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -24,8 +25,11 @@ from instsearch_torch.eval import revisited as trev
 from instsearch_torch.extractor import Extractor
 from instsearch_torch.index import Index
 from instsearch_torch.models import get_backbone
+from instsearch_torch.search.ivf import IVFIndex
+from instsearch_torch.search.ivfpq import IVFPQView
 from instsearch_torch.search.lw_rerank import LocalWhiteningView
 from instsearch_torch.search.pq_view import PQView
+from instsearch_torch.serve import VectorServeCore
 
 
 def _gnd(rng, n_db, n_q):
@@ -76,6 +80,11 @@ _ENTRY_POINTS = {
         np.zeros((2, 16, 4), np.float32), np.zeros((8, 1), np.int8)),
     # the device is resolved before the path is read
     "LocalWhiteningView.load": lambda: LocalWhiteningView.load("lw"),
+    "IVFIndex.load": lambda: IVFIndex.load("ivf"),
+    "IVFPQView.load": lambda: IVFPQView.load("ivfpq"),
+    "IVFPQView.from_host_store": lambda: IVFPQView.from_host_store(
+        SimpleNamespace(n=64, d=8)),
+    "VectorServeCore": lambda: VectorServeCore(None, None),
 }
 
 

@@ -31,7 +31,11 @@ key, whose staged v row is zero, would pull it below by about 1/n) and within
 one bf16 step in bf16. K7 against its plain version
 (``check_fused_blocks``): each element within 2^-7 (|plain| + 4
 rms(plain)), the whole within 1e-3 in norm, one block at a time; three
-planted faults (``planted_block_fault``) must fail that rule.
+planted faults (``planted_block_fault``) must fail that rule. The ANN
+tiers (IVF, IVF-PQ) run plain PyTorch and launch none of K1-K4; at full
+probe they are held to the exact routes by ``check_against_plain``, and the
+ADC selection on the card to the same view's on the CPU (scores within
+1e-5 of the largest, positions equal but at near-ties).
 
 Products on both sides run in true f32: the ``gen`` fixture turns TF32 off
 for matmuls and cuDNN and restores the flags after the test.
@@ -988,3 +992,107 @@ def test_knn_graph_and_duplicates_on_the_card(gen):
     pairs, _ = idx.find_duplicates(tau=0.97)
     assert {(j, 10_000 + j) for j in range(32)} <= set(map(tuple,
                                                            pairs.tolist()))
+
+
+def _launches_of(fn):
+    """``fn()`` with every kernel's count set to 0 -> (result, total
+    launches of K1-K4)."""
+    kernels = (topk_matmul, topk_matmul_int8, topk_matmul_int4, pq_topk)
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    return out, sum(k.launches for k in kernels)
+
+
+def _ann_store(gen, dtype, n=20_000, d=128):
+    rows = _unit(gen, n, d).cpu().numpy()
+    cfg = PipelineConfig(index=IndexConfig(dtype=dtype, row_tile=256),
+                         search=SearchConfig(k=10, qe_enabled=True))
+    return rows, Index.from_descriptors(rows, [f"r{i}" for i in range(n)],
+                                        cfg, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int4", "bfloat16"])
+def test_ivfpq_on_the_card(gen, dtype):
+    """build_ivfpq on the card: no K1-K4 launch on the cascade, every
+    source row its query's top-1, and at full probe and full depth the
+    exact top-k over the dequantized rows by check_against_plain."""
+    rows, idx = _ann_store(gen, dtype)
+    view = idx.build_ivfpq(n_clusters=64, m=16, depth=200)
+    assert view.codes.device.type == "cuda" and view.codes.shape[2] == 8
+    q = torch.as_tensor(rows[:64], device="cuda")
+    (s, i), launches = _launches_of(lambda: idx.search(q))
+    assert launches == 0
+    assert (i[:, 0] == np.arange(64)).all()
+    full = idx.cfg.search.replace(ivfpq_nprobe=64, qe_enabled=False)
+    view.depth = idx.num_valid
+    s, i = idx.search(q[:8], full)
+    # the cascade re-scores the f32 query against the dequantized rows: the
+    # plain top-k over those rows (a bf16 store's oracle would round the
+    # query to bf16 first)
+    x = idx._rows_f32_chunk(0, idx.descriptors.shape[0])
+    ps, pi = topk_matmul_reference(x, q[:8], k=10, num_valid=idx.num_valid)
+    on_card = [torch.as_tensor(a, device="cuda") for a in (s, i)]
+    check_against_plain(x, q[:8], *on_card, ps, pi, TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_ivf_on_the_card(gen, dtype):
+    """build_ivf on the card: no K1-K4 launch; at full probe a bf16 store
+    gives K1's route and an int8 store the oracle's on the bf16-rounded
+    query (the reference's scoring), by check_against_plain."""
+    rows, idx = _ann_store(gen, dtype)
+    view = idx.build_ivf(n_clusters=64)
+    q = torch.as_tensor(rows[:32], device="cuda")
+    (s, i), launches = _launches_of(lambda: idx.search(q))
+    assert launches == 0 and (i[:, 0] == np.arange(32)).all()
+    full = idx.cfg.search.replace(ivf_nprobe=view.n_clusters,
+                                  qe_enabled=False)
+    s, i = idx.search(q, full)
+    if dtype == "bfloat16":
+        ps, pi = idx.search(q, full.replace(ivf_nprobe=0))
+        x = idx.descriptors
+    else:
+        ps, pi = idx.with_search(use_pallas=False).search(
+            q.to(torch.bfloat16).float(), full.replace(ivf_nprobe=0))
+        x = idx._rows_f32_chunk(0, idx.descriptors.shape[0])
+    on_card = [torch.as_tensor(a, device="cuda") for a in (s, i, ps, pi)]
+    check_against_plain(x, q, *on_card, TOL)
+
+
+@pytest.mark.gpu
+def test_adc_select_memory_and_cpu_agreement(gen):
+    """The ADC selection over 4M codes (C = 1024, depth 400): its working
+    memory stays far under the one-hot form's, and its answer is the same
+    view's on the CPU (scores within 1e-5 of the largest, positions equal
+    but at near-ties)."""
+    from instsearch_torch.search.ivfpq import IVFPQView
+    c, m_cap = 1024, 4096
+    cent = _unit(gen, c, 256)
+    codes = torch.randint(-128, 128, (c, m_cap, 16), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    pos = torch.randperm(c * m_cap, generator=gen, device="cuda").to(
+        torch.int32).reshape(c, m_cap)
+    pq = 0.05 * torch.randn(32, 16, 8, generator=gen, device="cuda")
+    empty = torch.zeros((0,), dtype=torch.int32, device="cuda")
+    view = IVFPQView(cent, codes, pos, torch.zeros((0, 16), dtype=torch.int8,
+                                                   device="cuda"),
+                     empty, empty.clone(), PQCodebook(pq), depth=400)
+    q = _unit(gen, 8, 256).cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s, p = view.search_adc(q, k=400)
+    assert torch.cuda.max_memory_allocated() - base < 1 << 30
+    cpu = IVFPQView(cent.cpu(), codes.cpu(), pos.cpu(),
+                    view.spill_codes.cpu(), empty.cpu(), empty.cpu(),
+                    PQCodebook(pq.cpu()), depth=400)
+    cs, cp = cpu.search_adc(q, k=400)
+    tol = 1e-5 * np.abs(cs).max()
+    np.testing.assert_allclose(s, cs, rtol=0, atol=tol)
+    for r, j in zip(*np.nonzero(p != cp)):
+        other = np.flatnonzero(cp[r] == p[r, j])
+        assert (len(other) and abs(cs[r, other[0]] - cs[r, j]) <= 2 * tol) \
+            or abs(s[r, j] - cs[r, -1]) <= 2 * tol

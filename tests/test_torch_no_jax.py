@@ -13,7 +13,9 @@ search it under a subset, add and remove rows, range-search it and cut a
 subset over four CPU shards, augment a store (αDBA through four CPU
 shards), search it with αQE and diffusion, take its kNN graph and stats,
 fit a local-whitening view, search under it and apply its bank over two
-expert shards,
+expert shards, build an IVF view (``search/ivf.py``) and an IVF-PQ view
+(``search/ivfpq.py``, also through two CPU shards), serve vectors from a
+host row store through ``VectorServeCore``,
 then check sys.modules: neither JAX nor any module of the reference package
 was loaded."""
 import json
@@ -140,6 +142,29 @@ ep = expert_whiten_fn(make_mesh(2, devices=["cpu"] * 2))(
     view.params, torch.as_tensor(x))
 assert torch.equal(ep, apply_local_whitening(torch.as_tensor(x),
                                              view.params))
+import instsearch_torch.search.ivf
+import instsearch_torch.search.ivfpq
+from instsearch_torch.search.ivfpq import HostRowStore, IVFPQView
+from instsearch_torch.serve import VectorServeCore
+ivf_idx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], cfg,
+                                 device="cpu")
+ivf_idx.build_ivf(n_clusters=4, nprobe=4)
+assert ivf_idx.search(x[:3])[1][:, 0].tolist() == [0, 1, 2]
+pq_idx = Index.from_descriptors(
+    x, [f"r{i}" for i in range(40)],
+    PipelineConfig(index=IndexConfig(row_tile=16, dtype="int4")),
+    device="cpu")
+pq_idx.build_ivfpq(n_clusters=4, nprobe=4, m=4, depth=40)
+assert pq_idx.search(x[:3])[1][:, 0].tolist() == [0, 1, 2]
+psidx = pq_idx.to_sharded(mesh=make_mesh(2, devices=["cpu"] * 2))
+assert psidx.search_ivfpq(x[:3])[1][:, 0].tolist() == [0, 1, 2]
+with tempfile.TemporaryDirectory() as tmp:
+    store = HostRowStore.create(tmp, x)
+    hview = IVFPQView.from_host_store(store, n_clusters=4, m=4, depth=40,
+                                      device="cpu")
+    vcore = VectorServeCore(store, hview, device="cpu")
+    ans = vcore.handle_line(json.dumps({"vectors": x[:2].tolist()}))
+    assert [r[0]["id"] for r in ans["results"]] == [0, 1]
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

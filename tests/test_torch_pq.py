@@ -151,8 +151,3 @@ def test_opq_rotation_close_and_mse_not_higher(rng):
         jpq.pq_reconstruction_mse(jnp.asarray(x), jcb, rotation=jr),
         rel=0.01)
 
-
-def test_anisotropic_fit_is_not_ported():
-    for fn in (tpq.fit_apq, tpq.encode_apq):
-        with pytest.raises(NotImplementedError, match="M9"):
-            fn(None)

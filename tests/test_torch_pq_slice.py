@@ -202,16 +202,23 @@ def test_build_pq_arms_routing_and_matches_jax_codes(rig):
 
 
 def test_depth_without_a_view_takes_the_exact_path(rig):
-    _, _, q, _, tidx = rig
+    _, _, q, jidx, tidx = rig
     plain = Index(tidx.descriptors, tidx.ids, tidx.names, tidx.cfg,
                   scales=tidx.scales)
     assert plain.pq is None and plain.cfg.search.pq_depth == DEPTH
     s, i = plain.search(q)
     es, ei = tidx.search(q, tidx.cfg.search.replace(pq_depth=0))
     np.testing.assert_array_equal(i, ei)
+    # the IVF and IVF-PQ tiers' settings without their views are ignored,
+    # as in the reference: the PQ cascade answers, as JAX's does
+    oracle = tidx.with_search(use_pallas=False)
     for field in ("ivf_nprobe", "ivfpq_nprobe"):
-        with pytest.raises(NotImplementedError, match="M9"):
-            tidx.search(q, tidx.cfg.search.replace(**{field: 4}))
+        ts, ti = oracle.search(q, oracle.cfg.search.replace(**{field: 4}))
+        ws, wi = oracle.search(q)
+        np.testing.assert_array_equal(ti, wi)
+        np.testing.assert_array_equal(ts, ws)
+        js, ji = jidx.search(q, jidx.cfg.search.replace(**{field: 4}))
+        _assert_topk_agree(np.asarray(js), np.asarray(ji), ts, ti)
 
 
 def test_candidate_recall_on_clustered_corpus_matches_jax(rng):
@@ -250,12 +257,21 @@ def test_positions_map_to_dataset_ids(rng):
 
 
 def test_unported_parts_raise(rig, tmp_path):
-    """The anisotropic fit (M9) is refused, also in a saved view; the view
-    saves and loads (codes unpadded on disk, padded to words again), and
-    absorbing rows already stored re-encodes them to the same codes."""
-    _, _, _, _, tidx = rig
-    with pytest.raises(NotImplementedError, match="M9"):
-        tidx.build_pq(m=4, iters=2, anisotropic_t=0.2)
+    """The anisotropic fit (ported since ROADMAP M9) builds on a twin: its
+    codes equal the JAX fit's on >= 99% of the rows and its threshold rides
+    a saved view both ways; the view saves and loads (codes unpadded on
+    disk, padded to words again), and absorbing rows already stored
+    re-encodes them to the same codes."""
+    _, _, _, jidx, tidx = rig
+    twin = tidx.with_search()
+    aniso = twin.build_pq(m=4, iters=2, anisotropic_t=0.2)
+    jtwin = JaxIndex(jidx.descriptors, jidx.ids, jidx.names, jidx.cfg,
+                     scales=jidx.scales)
+    janiso = jtwin.build_pq(m=4, iters=2, anisotropic_t=0.2)
+    assert aniso.anisotropic_t == janiso.anisotropic_t == 0.2
+    same = (aniso.codes.numpy() == np.asarray(janiso.codes)).all(axis=1)
+    assert same.mean() >= 0.99
+    assert tidx.pq is not aniso
     before = tidx.pq.packed.clone()
     tidx.pq.save(str(tmp_path))
     back = PQView.load(str(tmp_path), device="cpu")
@@ -265,8 +281,12 @@ def test_unported_parts_raise(rig, tmp_path):
     np.testing.assert_array_equal(tidx.pq.packed.numpy(), before.numpy())
     with open(tmp_path / "pq.json", "w") as f:
         json.dump({"depth": 10, "anisotropic_t": 0.2}, f)
-    with pytest.raises(NotImplementedError, match="M9"):
-        PQView.load(str(tmp_path), device="cpu")
+    assert PQView.load(str(tmp_path), device="cpu").anisotropic_t == 0.2
+    janiso.save(str(tmp_path / "jax"))
+    loaded = PQView.load(str(tmp_path / "jax"), device="cpu")
+    assert loaded.anisotropic_t == 0.2
+    np.testing.assert_array_equal(loaded.codes.numpy(),
+                                  np.asarray(janiso.codes))
 
 
 def test_serve_core_answers_through_the_cascade(rng, monkeypatch):

@@ -75,6 +75,7 @@ from instsearch_torch.index import Index, attach_regional_store
 from instsearch_torch.ops.pooling import rmac_region_geometry
 from instsearch_torch.ops.whitening import WhiteningParams
 from instsearch_torch.parallel import make_mesh
+from instsearch_torch.search.pq_view import PQView
 from instsearch_torch.search.rerank import (region_match_scores,
                                             rerank_from_candidates)
 from instsearch_torch.search.spatial import build_vote_matrix
@@ -557,18 +558,29 @@ def test_presets_build_and_query(rig, preset):
 
 
 def test_unported_neighbours_raise(rig, tmp_path):
-    """Re-rank under the PQ cascade (M9) names its ROADMAP item; diffusion
-    (M8) answers. The live index keeps the regional store: a descriptor
-    ``add`` is refused (the regional rows need image paths, as in the
-    reference), unknown names and a self-merge are refused, and a saved
-    and loaded copy carries the store and its grid geometry into
+    """Re-rank under the PQ cascade (ported since ROADMAP M9) answers, over
+    the JAX view's codes as JAX's does (the oracle route on both sides);
+    diffusion (M8) answers. The live index keeps the regional store: a
+    descriptor ``add`` is refused (the regional rows need image paths, as
+    in the reference), unknown names and a self-merge are refused, and a
+    saved and loaded copy carries the store and its grid geometry into
     ``remove``. An index of two shards builds (the sharded index is
     ported)."""
     same, q = rig["same"], rig["qimgs"][:2]
-    twin = same.with_search()
-    twin.build_pq(m=4, iters=2, depth=20)
-    with pytest.raises(NotImplementedError, match="M9"):
-        twin.query_images(q)
+    jidx = rig["jidx"]
+    jtwin = JaxIndex(jidx.descriptors, jidx.ids, jidx.names, jidx.cfg,
+                     regional=jidx.regional)
+    jpq = jtwin.build_pq(m=4, iters=2, depth=20)
+    twin = same.with_search(use_pallas=False)
+    twin.pq = PQView.from_arrays(np.asarray(jpq.codebook.centroids),
+                                 np.asarray(jpq.codes), depth=20,
+                                 device="cpu")
+    twin.cfg = twin.cfg.replace(search=twin.cfg.search.replace(pq_depth=20))
+    jq = np.asarray(jidx.extractor(q))
+    jreg = np.asarray(jidx.extractor.extract_regional(q))
+    js, ji = jtwin.search(jq, query_regional=jreg)
+    ts, ti = twin.search(jq, query_regional=jreg)
+    _assert_topk_agree(np.asarray(js), np.asarray(ji), ts, ti, 1e-5)
     # without re-rank the cascade serves; refine would bypass it
     s, i = twin.query_images(q, twin.cfg.search.replace(rerank_enabled=False))
     assert i.shape == (2, 10)

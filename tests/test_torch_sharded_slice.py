@@ -47,6 +47,7 @@ from instsearch_torch.extractor import Extractor
 from instsearch_torch.index import Index, attach_regional_store
 from instsearch_torch.ops.whitening import WhiteningParams
 from instsearch_torch.parallel import make_mesh
+from instsearch_torch.search.ivfpq import IVFPQView
 from instsearch_torch.serve import ServeCore
 
 from parity.torch_models import BasicBlock, TruncatedResNet, randomize_bn_stats
@@ -250,12 +251,13 @@ def test_serve_core_sharded(rig, preset):
         assert all(x["name"] == own.name_of(x["id"]) for x in row)
 
 
-def test_refusals(rig, monkeypatch):
+def test_refusals(rig, monkeypatch, tmp_path):
     """``make_mesh(8)`` and ``to_sharded()`` on one device raise rather
     than shrink; subset masks are taken (a mask of another size and an
-    unknown member refused); the sharded stages not ported yet raise
-    ``NotImplementedError`` naming their ROADMAP item, and the quality
-    tiers' stages answer."""
+    unknown member refused); range search, not ported yet, raises
+    ``NotImplementedError`` naming its ROADMAP item; the IVF-PQ cascade
+    (ported since ROADMAP M9) answers over JAX's view as JAX's sharded
+    index does, and as one device; the quality tiers' stages answer."""
     own = rig["oxford105k_sharded8"]["own"]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="8 shards, have 1"):
@@ -274,12 +276,25 @@ def test_refusals(rig, monkeypatch):
         sidx.search_qe(q, mask=np.ones((1, 8), np.int8))
     with pytest.raises(KeyError, match="subset names not in the index"):
         own.query_images(rig["qimgs"][:1], sharded_index=sidx, subset=["x"])
-    for call, item in (
-            (lambda: sidx.search_range(q, 0.5), "M7"),
-            (lambda: sidx.attach_ivfpq(None), "M9"),
-            (lambda: sidx.search_ivfpq(q), "M9")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="M7"):
+        sidx.search_range(q, 0.5)
+    with pytest.raises(ValueError, match="no IVF-PQ view attached"):
+        sidx.search_ivfpq(q)
+    r = rig["oxford105k_sharded8"]
+    jidx = r["jidx"]
+    jtwin = JaxIndex(jidx.descriptors, jidx.ids, jidx.names, jidx.cfg)
+    jtwin.build_ivfpq(n_clusters=4, nprobe=2, m=4, pq_iters=3, depth=20)
+    jtwin.ivfpq.save(str(tmp_path))
+    same = r["same"].with_search()
+    same.ivfpq = IVFPQView.load(str(tmp_path), device="cpu")
+    psidx = same.to_sharded(mesh=_mesh(same))
+    jq = np.asarray(jidx.extractor(rig["qimgs"][:3]))
+    ts, ti = (t.numpy() for t in psidx.search_ivfpq(jq, k=10))
+    js, ji = jtwin.to_sharded().search_ivfpq(jnp.asarray(jq), k=10)
+    _assert_topk_agree(np.asarray(js), np.asarray(ji), ts, ti)
+    ws, wi = same.search(jq, same.cfg.search.replace(ivfpq_nprobe=2))
+    np.testing.assert_array_equal(ti, wi)
+    np.testing.assert_allclose(ts, ws, rtol=0, atol=1e-6)
     # the quality tiers answer (M8 is ported): diffusion as the single
     # device, the database-side expansion unit rows, local whitening after
     # a fit (without one, a ValueError names it)

@@ -21,6 +21,7 @@ tests/parity/test_pipeline_oracle.py.
 """
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -34,6 +35,7 @@ from instsearch_tpu.models import load_torch_resnet
 from instsearch_torch.data import frontend
 from instsearch_torch.index import Index
 from instsearch_torch.parallel import make_mesh
+from instsearch_torch.search.pq_view import PQView
 from instsearch_torch.serve import ServeCore
 
 from parity.torch_models import BasicBlock, TruncatedResNet, randomize_bn_stats
@@ -191,7 +193,8 @@ def test_serve_core_answers_like_query_images(rig):
 def test_unported_stages_raise(rig):
     """int8, int4, QE, re-rank, refine, regional extraction, shards and
     subsets are ported (an unknown subset member raises ``KeyError``), and
-    diffusion answers; l2 and re-rank under the PQ cascade still raise."""
+    diffusion answers; l2 still raises; re-rank under the PQ cascade
+    answers, as JAX's."""
     _, _, _, tidx, qimgs = rig
     q = tidx.extractor(qimgs[:1])
     s, i = tidx.search(q, CFG.search.replace(qe_enabled=True))
@@ -240,6 +243,18 @@ def test_unported_stages_raise(rig):
                                 device="cpu")
     pq.build_pq(m=2, iters=2, depth=16)
     pq.regional = torch.zeros((pq.descriptors.shape[0], 1, 8))
-    with pytest.raises(NotImplementedError, match="M9"):
-        pq.search(many[:2], pq.cfg.search.replace(rerank_enabled=True),
-                  query_regional=many[:2, None, :])
+    # re-rank under the PQ cascade (ported since ROADMAP M9): over the JAX
+    # view's codes, on the oracle route, JAX's answer
+    jpq = JaxIndex.from_descriptors(many, [f"r{i}" for i in range(64)], CFG)
+    jview = jpq.build_pq(m=2, iters=2, depth=16)
+    jpq.regional = jnp.zeros((jpq.descriptors.shape[0], 1, 8), jnp.bfloat16)
+    pq.pq = PQView.from_arrays(np.asarray(jview.codebook.centroids),
+                               np.asarray(jview.codes), depth=16,
+                               device="cpu")
+    rcfg = CFG.search.replace(rerank_enabled=True, rerank_depth=12,
+                              pq_depth=16)
+    js, ji = jpq.search(many[:2], rcfg, query_regional=many[:2, None, :])
+    ts, ti = pq.with_search(use_pallas=False).search(
+        many[:2], rcfg, query_regional=many[:2, None, :])
+    np.testing.assert_array_equal(ti, np.asarray(ji))
+    np.testing.assert_allclose(ts, np.asarray(js), rtol=0, atol=1e-5)
