@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs thirteen phases; each raises on failure and the process exits non-zero.
+runs fourteen phases; each raises on failure and the process exits non-zero.
 Phase 12 runs right after phase 4, while phase 2's and phase 3's stores are
 as those phases left them (phase 10 mutates them).
 
@@ -228,6 +228,32 @@ as those phases left them (phase 10 mutates them).
      1e-6), ``ServeCore(sharded=True)`` requests, then the index saved with
      its view and loaded: the view's arrays and the answers equal bit for
      bit.
+ 13. the command line and the TCP server on the card, run last: workload
+     1 at full width (``configs/oxford5k_resnet50_avgpool.json`` as
+     shipped: ResNet-50 at 224 px, average pooling, bf16) over 5,063
+     seeded 512 x 384 JPEG files (Oxford5k's count; coloured gratings) in
+     a temporary folder, removed at the end. Each process is ``python -m
+     instsearch_torch.cli --device cuda ...``. (a) ``build-index`` plain,
+     then ``--resumable``, killed by SIGKILL once its manifest lists a
+     flushed group and run again: the resumed index equal to the plain
+     one bit for bit, rows and names; wall times, images/s and the
+     decoder that ran (``native`` or ``cv2``); (b) ``query`` as 8
+     processes at once, each top-1 its image; (e) ``serve --port 0`` on
+     (a)'s index, 1 then 8 concurrent clients of 64 single-image requests
+     (every top-1 its source, at least one batch of more than one row
+     under 8 clients, p50/p99 on the host clock), a remove, a query, an
+     add, a query and two bad requests on one connection answered in
+     order. "Top-1 its source" allows a bf16 near-tie (BF16_TIE): the
+     source in the answer within 2^-8 of the first score, counted as
+     ``near_tie_swaps``. Then in this process (``cli.main``, kernels
+     counted): (c) ``update-index`` adding 8 images again under new names,
+     ``info``, ``dedupe --tau 0.97`` (every planted pair found); (d)
+     ``build-index --pq`` over ``configs/compact128_int4.json``, queries
+     through the cascade (K4 twice a query, alpha-QE) and at
+     ``--pq-depth 0`` (K3 twice); (f) ``evaluate --dataset mini`` with
+     workload 1's config, then ``workloads`` over every preset on the mini
+     fixture (each line printed; no enabled stage missing). K1-K4 must
+     each launch in these parts, K5-K7 never.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -260,9 +286,10 @@ carry their times at depth 100 on phase 8's stores, ``ms_b{1,8,128}_k100``,
 also apart as ``launches_sharded``; K1-K4
 also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
 ``bound_ms_b128``; K1-K4 count phase 10's subset requests too, also apart
-as ``launches_subset`` (every one of them with the mask), and phase 11's
+as ``launches_subset`` (every one of them with the mask), phase 11's
 αDBA passes, kNN graphs, duplicate searches and requests, also apart as
-``launches_quality``; K1 also at
+``launches_quality``, and phase 13's in-process command-line runs, also
+apart as ``launches_cli`` (every kernel's row carries it); K1 also at
 D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
 (``ms_d2048_b{B}_k{k}``, ``plain_ms_...``, ``library_ms_...``,
 ``bound_ms_...``); K4 also at B =
@@ -3830,6 +3857,460 @@ def phase12e(card, idx, corpus, tmp) -> dict:
     return {"swapped": swapped, "save_s": save_s, "load_s": load_s}
 
 
+OX5K_IMAGES = 5063      # phase 13: Oxford5k's image count
+OX5K_H, OX5K_W = 384, 512   # phase 13: the JPEG files' size
+CLI_DUPES = 8           # phase 13c: images written again under new names
+CLI_QUERIES = 8         # phase 13b: database images queried, one process each
+SERVE_REQUESTS = 64     # phase 13e: single-image requests per client
+SERVE_CLIENTS = 8       # phase 13e: concurrent clients
+WORKLOAD1 = "configs/oxford5k_resnet50_avgpool.json"
+# phase 13's bf16 store and bf16-rounded query: each component of either
+# operand rounds by at most 2^-9 relative, so a score of unit vectors moves
+# by up to ~2^-8, in one direction for most components when the descriptor
+# is itself a scaled bf16 vector (measured: self-scores 0.9971-1.0002 on
+# the card). Random average-pooled ResNet-50 descriptors of 5,063 images
+# put ~1% of them within 1.5e-3 of their nearest neighbour, so there a
+# source may trail a neighbour by less than this and still be right.
+BF16_TIE = 2.0 ** -8
+COMPACT = "configs/compact128_int4.json"    # phase 13d: the int4 preset
+
+
+def grating_images(gen, n: int, batch: int = 128):
+    """Seeded uint8 [b, OX5K_H, OX5K_W, 3] batches of one to four coloured
+    sine gratings (random frequency, orientation, phase, colour and
+    amplitude; the first always at 0.3-0.6) on a random base colour with
+    pixel noise, made on the card:
+    a random ResNet-50's average-pooled features of such images spread
+    wider than of smooth noise, so self-retrieval among 5,063 of them is
+    decided by the descriptors, not by their common direction."""
+    import torch
+    yy, xx = torch.meshgrid(torch.arange(OX5K_H, device="cuda"),
+                            torch.arange(OX5K_W, device="cuda"),
+                            indexing="ij")
+    for s in range(0, n, batch):
+        b = min(batch, n - s)
+
+        def rand(*shape):
+            return torch.rand(b, *shape, generator=gen, device="cuda")
+
+        freq = 0.005 + 0.295 * rand(4, 1, 1)
+        theta = torch.pi * rand(4, 1, 1)
+        phase = 2 * torch.pi * rand(4, 1, 1)
+        amp = 0.6 * rand(4) * (rand(4) < 0.75)
+        amp[:, 0] = 0.3 + 0.3 * rand()      # never a flat image
+        colour = (2 * rand(4, 3) - 1) * amp[..., None]
+        waves = torch.sin(2 * torch.pi * freq * (
+            xx * torch.cos(theta) + yy * torch.sin(theta)) + phase)
+        img = torch.einsum("bkhw,bkc->bhwc", waves, colour)
+        img = img + (0.2 + 0.6 * rand(3))[:, None, None, :]
+        img = img + 0.15 * rand(1, 1, 1) * torch.randn(
+            img.shape, generator=gen, device="cuda")
+        yield (img.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+
+
+def write_jpegs(gen, folder: str, n: int) -> list[str]:
+    """``n`` seeded grating images as JPEG files ``ox{i:05d}.jpg`` (cv2, 8
+    writer threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    os.makedirs(folder, exist_ok=True)
+    paths = [os.path.join(folder, f"ox{i:05d}.jpg") for i in range(n)]
+
+    def write(path, img):
+        if not cv2.imwrite(path, img[:, :, ::-1]):
+            raise OSError(f"cannot write {path}")
+
+    with ThreadPoolExecutor(8) as pool:
+        start = 0
+        for batch in grating_images(gen, n):
+            list(pool.map(write, paths[start:start + len(batch)], batch))
+            start += len(batch)
+    return paths
+
+
+def top1_is_source(results: list, name: str) -> bool:
+    """``results`` (best first, with names and scores) answer a query of
+    the image ``name``: it is first, or in the list within BF16_TIE of the
+    first's score (a tie the bf16 roundings decide)."""
+    if results and results[0]["name"] == name:
+        return True
+    own = [e["score"] for e in results if e["name"] == name]
+    return bool(own) and results[0]["score"] - own[0] <= BF16_TIE
+
+
+def cli_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def cli_command(*argv) -> list[str]:
+    """``python -m instsearch_torch.cli --device cuda ...``: every process of
+    phase 13 names the card, so none can run anywhere else."""
+    return [sys.executable, "-m", "instsearch_torch.cli", "--device", "cuda",
+            *argv]
+
+
+def run_cli(*argv, timeout: float = 300) -> tuple[list[dict], float]:
+    """One CLI process to its end -> (its JSON lines, wall seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(cli_command(*argv), capture_output=True, text=True,
+                         cwd=HERE, env=cli_env(), timeout=timeout)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"cli {' '.join(argv[:1])} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    return [json.loads(ln) for ln in out.stdout.splitlines()
+            if ln.startswith("{")], wall
+
+
+def cli_in_process(*argv) -> list[dict]:
+    """``instsearch_torch.cli.main`` in this process (its kernel launches
+    counted by the caller) -> its JSON lines."""
+    import contextlib
+    import io
+
+    from instsearch_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--device", "cuda", *argv])
+    if rc != 0:
+        fail(f"cli {argv[0]} in process exited {rc}")
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase13(card: str, gen) -> dict:
+    """The command line and the TCP server on the card, workload 1 at full
+    width (ResNet-50 at 224 px, ``configs/oxford5k_resnet50_avgpool.json``
+    as shipped) over 5,063 seeded JPEG files in a temporary folder."""
+    import shutil
+    import tempfile
+
+    from instsearch_torch.data import native_frontend
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase13_")
+    try:
+        return _phase13(card, gen, tmp, native_frontend.available())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase13(card, gen, tmp, native: bool) -> dict:
+    import shutil
+
+    import numpy as np
+    decoder = "native" if native else "cv2"
+    images = os.path.join(tmp, "images")
+    t0 = time.perf_counter()
+    paths = write_jpegs(gen, images, OX5K_IMAGES)
+    report(card, phase=13, wrote_jpegs=len(paths), size=f"{OX5K_W}x{OX5K_H}",
+           write_s=time.perf_counter() - t0, decoder=decoder)
+    names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+
+    # (a) build-index: plain, then resumable, killed after its first flush
+    plain = os.path.join(tmp, "plain")
+    out, wall = run_cli("build-index", "--images", images, "--out", plain,
+                        "--config", WORKLOAD1)
+    dim = out[0]["dim"]
+    if out != [{"indexed": OX5K_IMAGES, "quarantined": 0, "dim": dim,
+                "out": plain}]:
+        fail(f"build-index printed {out}")
+    report(card, phase=13, run="build-index", dim=dim, wall_s=wall,
+           images_per_s=OX5K_IMAGES / wall, decoder=decoder)
+    resumed = os.path.join(tmp, "resumed")
+    manifest = resumed + ".build/manifest.json"
+    proc = subprocess.Popen(
+        cli_command("build-index", "--images", images, "--out", resumed,
+                    "--config", WORKLOAD1, "--resumable"),
+        cwd=HERE, env=cli_env(), stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    t0 = time.perf_counter()
+    done = []
+    try:
+        while not done and proc.poll() is None:
+            time.sleep(0.02)
+            try:
+                with open(manifest) as f:
+                    done = json.load(f)["completed"]
+            except (OSError, ValueError):
+                pass
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    killed_s = time.perf_counter() - t0
+    if not done or len(done) * 1024 >= OX5K_IMAGES:
+        fail(f"the resumable build was not cut mid-way (groups {done})")
+    out, wall = run_cli("build-index", "--images", images, "--out", resumed,
+                        "--config", WORKLOAD1, "--resumable")
+    if out[0]["indexed"] != OX5K_IMAGES:
+        fail(f"resumed build-index printed {out}")
+    a = np.load(os.path.join(plain, "index.npz"))
+    b = np.load(os.path.join(resumed, "index.npz"))
+    with open(os.path.join(plain, "meta.json")) as f:
+        meta_a = json.load(f)
+    with open(os.path.join(resumed, "meta.json")) as f:
+        meta_b = json.load(f)
+    if a.files != b.files or not all(np.array_equal(a[k], b[k])
+                                     for k in a.files):
+        fail("the resumed index's rows differ from the uninterrupted one's")
+    if meta_a["names"] != meta_b["names"] or meta_a["names"] != names:
+        fail("the resumed index's names differ")
+    report(card, phase=13, run="build-index --resumable",
+           killed_after_groups=len(done), killed_after_s=killed_s,
+           resume_wall_s=wall,
+           resume_images_per_s=(OX5K_IMAGES - 1024 * len(done)) / wall,
+           bit_equal_to_plain=True, decoder=decoder)
+
+    # (b) query: 8 processes at once, each top-1 its own image
+    rng = np.random.default_rng(13)
+    picks = rng.choice(OX5K_IMAGES, size=CLI_QUERIES, replace=False)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        cli_command("query", "--index", plain, "--image", paths[i]),
+        cwd=HERE, env=cli_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in picks]
+    swaps = 0
+    for i, p in zip(picks, procs):
+        stdout, stderr = p.communicate(timeout=300)
+        if p.returncode != 0:
+            fail(f"query exited {p.returncode}: {stderr[-2000:]}")
+        res = json.loads(stdout.strip().splitlines()[-1])["results"]
+        if not top1_is_source(res, names[i]):
+            fail(f"query {names[i]}: {res[:3]}")
+        swaps += res[0]["name"] != names[i]
+    report(card, phase=13, run="query", processes=CLI_QUERIES,
+           top1_correct=True, near_tie_swaps=swaps,
+           wall_s=time.perf_counter() - t0)
+
+    # (e) the TCP server, before (c) adds rows to the index on disk
+    serve = serve_tcp_clients(card, plain, paths, names, rng)
+
+    counts: dict = {}
+    # (c) the same images again under new names, added, then info and dedupe
+    dupes = [int(i) for i in rng.choice(OX5K_IMAGES, size=CLI_DUPES,
+                                        replace=False)]
+    dupe_dir = os.path.join(tmp, "dupes")
+    os.makedirs(dupe_dir)
+    for i in dupes:
+        shutil.copy(paths[i], os.path.join(dupe_dir, f"copy_{names[i]}.jpg"))
+    out, c = count_launches(lambda: cli_in_process(
+        "update-index", "--index", plain, "--add", dupe_dir))
+    add_counts(counts, c)
+    if out[0]["added"] != CLI_DUPES:
+        fail(f"update-index printed {out}")
+    info = cli_in_process("info", "--index", plain)[0]
+    if info["rows"] != OX5K_IMAGES + CLI_DUPES or info["dim"] != dim:
+        fail(f"info printed {info}")
+    t0 = time.perf_counter()
+    (dd,), c = count_launches(lambda: cli_in_process(
+        "dedupe", "--index", plain, "--tau", "0.97"))
+    add_counts(counts, c)
+    planted = {tuple(sorted((names[i], f"copy_{names[i]}"))) for i in dupes}
+    scored = {tuple(sorted((p["a"], p["b"]))): p["score"]
+              for p in dd["pairs"]}
+    if not planted <= set(scored):
+        fail(f"dedupe missed planted pairs {sorted(planted - set(scored))}")
+    others = [v for k, v in scored.items() if k not in planted]
+    report(card, phase=13, run="dedupe", tau=0.97, n_pairs=dd["n_pairs"],
+           n_groups=dd["n_groups"], planted_pairs_found=CLI_DUPES,
+           least_planted_score=min(scored[k] for k in planted),
+           best_other_score=max(others) if others else None,
+           seconds=time.perf_counter() - t0, info_bytes=info["bytes"])
+
+    # (d) the int4 preset with a PQ view, queried by the cascade and exactly
+    pq = os.path.join(tmp, "pq")
+    t0 = time.perf_counter()
+    (built,), c = count_launches(lambda: cli_in_process(
+        "build-index", "--images", images, "--out", pq, "--config", COMPACT,
+        "--pq"))
+    add_counts(counts, c)
+    report(card, phase=13, run="build-index --pq", config=COMPACT,
+           pq=built["pq"],
+           wall_s=time.perf_counter() - t0,
+           images_per_s=OX5K_IMAGES / (time.perf_counter() - t0))
+    for extra, kernel in (([], "pq_topk"), (["--pq-depth", "0"],
+                                            "topk_matmul_int4")):
+        for i in picks[:2]:
+            (ans,), c = count_launches(lambda: cli_in_process(
+                "query", "--index", pq, "--image", paths[i], *extra))
+            add_counts(counts, c)
+            if not top1_is_source(ans["results"], names[i]):
+                fail(f"query {extra} on the PQ index: {ans['results'][:3]}")
+            if c[kernel] != 2:          # alpha-QE: top-qe_n, then top-k
+                fail(f"query {extra} launched {c}")
+    report(card, phase=13, run="query --pq / --pq-depth 0", top1_correct=True)
+
+    # (f) evaluate on the mini fixture with workload 1, then every preset
+    data = os.path.join(tmp, "data")
+    (ev,), c = count_launches(lambda: cli_in_process(
+        "evaluate", "--dataset", "mini", "--data-root", data, "--config",
+        WORKLOAD1))
+    add_counts(counts, c)
+    report(card, phase=13, run="evaluate", config=WORKLOAD1,
+           dataset=ev["dataset"], protocol=ev["protocol"], mAP=ev["mAP"])
+    t0 = time.perf_counter()
+    lines, c = count_launches(lambda: cli_in_process(
+        "workloads", "--data-root", data))
+    add_counts(counts, c)
+    from instsearch_torch.workloads import list_presets
+    if [ln["workload"] for ln in lines] != list_presets():
+        fail(f"workloads printed {[ln.get('workload') for ln in lines]}")
+    for ln in lines:
+        # every stage the preset enables ran; the sharded ranking is
+        # printed, not checked: its alpha-QE takes the kernels' route (an
+        # int8 store quantizes the query) where the single-device protocol
+        # ranking expands through the f32 scoring oracle, as the
+        # reference's does on its chip
+        if ln["stages_missing"] or not np.isfinite(ln["mAP"]):
+            fail(f"workload {ln['workload']}: {ln}")
+        report(card, phase=13, run="workloads", **{
+            k: ln[k] for k in ("workload", "mAP", "num_shards", "build_sec",
+                               "sharded_matches_single") if k in ln})
+    report(card, phase=13, run="workloads", presets=len(lines),
+           seconds=time.perf_counter() - t0, launches=c)
+
+    for name in ("topk_matmul", "topk_matmul_int8", "topk_matmul_int4",
+                 "pq_topk"):
+        if not counts.get(name):
+            fail(f"{name} never launched in phase 13's in-process parts: "
+                 f"{counts}")
+    for name in ("mha", "flash_mha", "fused_identity_blocks"):
+        if counts.get(name):
+            fail(f"{name} launched {counts[name]} times in phase 13")
+    report(card, phase=13, launches_cli=counts)
+    return {"launches": counts, "serve": serve}
+
+
+def _send(f, req) -> tuple[dict, float]:
+    t0 = time.perf_counter()
+    f.write((req if isinstance(req, str) else json.dumps(req)) + "\n")
+    f.flush()
+    return json.loads(f.readline()), (time.perf_counter() - t0) * 1e3
+
+
+def serve_tcp_clients(card, index, paths, names, rng) -> dict:
+    """``cli serve --port 0`` as a process on (a)'s index: 1 client, then
+    SERVE_CLIENTS at once, each sending SERVE_REQUESTS single-image requests
+    (every top-1 its source, host-clock round trips); a remove, a query, an
+    add and a query on one connection answered in order; a bad request
+    answered with an error, the server serving on."""
+    import socket
+    import threading
+
+    import numpy as np
+    proc = subprocess.Popen(cli_command("serve", "--index", index, "--port",
+                                        "0"),
+                            cwd=HERE, env=cli_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        if not line:
+            fail(f"serve exited: {proc.stderr.read()[-2000:]}")
+        ready = json.loads(line)
+        report(card, phase=13, run="serve", ready=ready,
+               start_s=time.perf_counter() - t0)
+        from instsearch_torch.data import frontend
+        decode = []
+        for i in range(SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            frontend.load_square(paths[i], 224)
+            decode.append((time.perf_counter() - t0) * 1e3)
+        report(card, phase=13, run="serve", host_decode_p50_ms=float(
+            np.percentile(decode, 50)), decoder="cv2 (load_square)")
+
+        def client(picks, out, errors):
+            try:
+                with socket.create_connection(("127.0.0.1", ready["port"]),
+                                              timeout=120) as s:
+                    f = s.makefile("rw")
+                    for i in picks:
+                        ans, ms = _send(f, {"image": paths[i], "k": 5})
+                        res = ans["results"][0]
+                        if not top1_is_source(res, names[i]):
+                            raise AssertionError(
+                                f"{names[i]} in a batch of "
+                                f"{ans['batch_rows']}: {res}")
+                        out.append((ms, ans["batch_rows"],
+                                    res[0]["name"] != names[i],
+                                    ans["latency_ms"]))
+            except Exception as e:        # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        stats = {}
+        for n in (1, SERVE_CLIENTS):
+            outs = [[] for _ in range(n)]
+            errors: list = []
+            threads = [threading.Thread(target=client, args=(
+                rng.choice(len(paths), SERVE_REQUESTS, replace=False),
+                outs[j], errors)) for j in range(n)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            if errors or any(t.is_alive() for t in threads):
+                fail(f"serve with {n} clients: {errors[:3]}")
+            ms = np.array([o[0] for out in outs for o in out])
+            rows = np.array([o[1] for out in outs for o in out])
+            device = np.array([o[3] for out in outs for o in out])
+            stats[n] = {"p50_ms": float(np.percentile(ms, 50)),
+                        "p99_ms": float(np.percentile(ms, 99)),
+                        "requests_per_s": len(ms) / wall,
+                        "max_batch_rows": int(rows.max()),
+                        "batched_share": float(np.mean(rows > 1)),
+                        "mean_batch_rows": float(rows.mean()),
+                        # the dispatcher's device pass (extraction and
+                        # search) of the request's batch, as it reports it
+                        "pass_p50_ms": float(np.percentile(device, 50)),
+                        "near_tie_swaps": sum(o[2] for out in outs
+                                              for o in out)}
+            report(card, phase=13, run="serve", clients=n,
+                   requests=len(ms), top1_correct=True, **stats[n])
+        if stats[SERVE_CLIENTS]["max_batch_rows"] < 2:
+            fail("no request was micro-batched under "
+                 f"{SERVE_CLIENTS} clients")
+
+        with socket.create_connection(("127.0.0.1", ready["port"]),
+                                      timeout=120) as s:
+            f = s.makefile("rw")
+            i = int(rng.integers(len(paths)))
+            steps = [({"remove": [names[i]]}, "removed"),
+                     ({"image": paths[i], "k": 5}, "absent"),
+                     ({"add": [paths[i]]}, "added"),
+                     ({"image": paths[i], "k": 5}, "found"),
+                     ({"image": "/nonexistent.jpg"}, "error"),
+                     ("not json", "error"),
+                     ({"image": paths[0], "k": 5}, "serving")]
+            for req, want in steps:
+                ans, _ = _send(f, req)
+                res = ans["results"][0] if "results" in ans else None
+                ok = {"removed": ans.get("removed") == 1,
+                      "absent": res is not None and names[i] not in
+                      [e["name"] for e in res],
+                      "added": ans.get("added") == 1,
+                      "found": res is not None and top1_is_source(
+                          res, names[i]),
+                      "error": "error" in ans,
+                      "serving": res is not None and top1_is_source(
+                          res, names[0])}[want]
+                if not ok:
+                    fail(f"serve {req}: {ans}")
+        report(card, phase=13, run="serve", mutations_in_order=True,
+               bad_request_answered=True)
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    return stats
+
+
 def main() -> int:
     try:
         import torch
@@ -3914,6 +4395,8 @@ def main() -> int:
     res11 = phase11(card, gen, topk_matmul, topk_matmul_reference,
                     check_against_plain, corpus, ox)
     del corpus, ox
+    torch.cuda.empty_cache()
+    cli = phase13(card, gen)["launches"]
     phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
               "topk_matmul_int4": res8c["launches"]}
     # the sharded routes' launches, on the main path too (phases 3, 8b, 9,
@@ -3950,11 +4433,12 @@ def main() -> int:
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
                      "launches": (launches + phase8.get(name, 0)
                                   + sharded.get(name, 0) + subset[name]
-                                  + quality.get(name, 0)),
+                                  + quality.get(name, 0) + cli.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
                      "launches_quality": quality.get(name, 0),
+                     "launches_cli": cli.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3991,7 +4475,8 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": "instsearch_torch/csrc/vit_attention.cu",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
-                     "launches": launches, "max_abs_err": att_errs[name],
+                     "launches": launches, "launches_cli": cli.get(name, 0),
+                     "max_abs_err": att_errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
@@ -4002,7 +4487,9 @@ def main() -> int:
     rows.append({"name": "fused_identity_blocks", "route": "cuda",
                  "source": "instsearch_torch/csrc/fused_resnet.cu",
                  "replaces": "instsearch_tpu/kernels/fused_resnet.py:138",
-                 "launches": res6["launches"], "max_abs_err": fused_err,
+                 "launches": res6["launches"],
+                 "launches_cli": cli.get("fused_identity_blocks", 0),
+                 "max_abs_err": fused_err,
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"]})

@@ -1,10 +1,13 @@
 """Image frontend (port of ``instsearch_tpu/data/frontend.py``).
 
 Host half: decode, shorter-side resize and center crop to a uint8
-``[S, S, 3]`` canvas, the same behaviour as the reference's cv2 path. cv2 is
-imported inside the functions that use it, so the device half imports
-without it. Device half: ImageNet normalization on a tensor, computed in
-f32 and cast to the compute dtype.
+``[S, S, 3]`` canvas. ``batch_paths`` streams through the native C++
+decoder (``native_frontend.py``) where it builds and through cv2 where it
+does not, as the reference's does, so both packages start from the same
+pixels; ``load_square`` (queries, served requests) decodes with cv2, as
+there. cv2 is imported inside the functions that use it, so the device
+half imports without it. Device half: ImageNet normalization on a tensor,
+computed in f32 and cast to the compute dtype.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear
+from ..utils.observe import annotate
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -57,6 +61,34 @@ def load_square(path: str, size: int) -> np.ndarray | None:
     return center_crop(resize_shorter_side(img, size), size)
 
 
+def _iter_images(paths: Sequence[str], size: int,
+                 quarantine: list | None) -> Iterable[tuple[np.ndarray, int]]:
+    """Stream (decoded uint8 [S,S,3], original index), as the reference's
+    ``_iter_images``: through the native C++ threaded loader
+    (``data/native_frontend.py``) in chunks of 64 when it builds, else one
+    image at a time through cv2."""
+    from . import native_frontend as nf
+    if nf.available():
+        chunk = 64
+        for start in range(0, len(paths), chunk):
+            sub = list(paths[start:start + chunk])
+            with annotate("host_decode_native"):   # host-stage attribution
+                imgs, ok = nf.load_batch_native(sub, size)
+            for j, good in enumerate(ok):
+                if good:
+                    yield imgs[j], start + j
+                elif quarantine is not None:
+                    quarantine.append(sub[j])
+        return
+    for i, p in enumerate(paths):
+        img = load_square(p, size)
+        if img is None:
+            if quarantine is not None:
+                quarantine.append(p)
+            continue
+        yield img, i
+
+
 def batch_paths(paths: Sequence[str], size: int, batch: int,
                 quarantine: list | None = None
                 ) -> Iterable[tuple[np.ndarray, np.ndarray]]:
@@ -64,12 +96,7 @@ def batch_paths(paths: Sequence[str], size: int, batch: int,
     go to ``quarantine``. The final batch is padded by repeating its last
     image with index -1 (callers keep rows with index >= 0)."""
     buf, idxs = [], []
-    for i, p in enumerate(paths):
-        img = load_square(p, size)
-        if img is None:
-            if quarantine is not None:
-                quarantine.append(p)
-            continue
+    for img, i in _iter_images(paths, size, quarantine):
         buf.append(img)
         idxs.append(i)
         if len(buf) == batch:

@@ -10,6 +10,7 @@ import torch
 
 from ..data import frontend
 from ..search.qe import alpha_query_expansion
+from ..utils.observe import COUNTERS, annotate
 from .datasets import RetrievalDataset
 from .revisited import evaluate_ranks
 
@@ -75,16 +76,17 @@ def _splice_head(ranks: np.ndarray, top_ids: np.ndarray) -> np.ndarray:
     Membership is one table lookup: a [Q, max_id + 1] indicator scattered
     from the heads and gathered along the rankings."""
     spliced = np.empty_like(ranks)
-    valid = top_ids >= 0
-    width = int(ranks.max(initial=0)) + 1
-    member = np.zeros((ranks.shape[0], width), np.bool_)
-    qq, jj = np.nonzero(valid)
-    member[qq, top_ids[qq, jj]] = True
-    in_head = np.take_along_axis(member, ranks, axis=1)        # [Q, N]
-    for qi in range(ranks.shape[0]):
-        head = top_ids[qi][valid[qi]].astype(ranks.dtype)
-        spliced[qi, :len(head)] = head
-        spliced[qi, len(head):] = ranks[qi][~in_head[qi]]
+    with annotate("splice_head"):      # host-stage attribution in traces
+        valid = top_ids >= 0
+        width = int(ranks.max(initial=0)) + 1
+        member = np.zeros((ranks.shape[0], width), np.bool_)
+        qq, jj = np.nonzero(valid)
+        member[qq, top_ids[qq, jj]] = True
+        in_head = np.take_along_axis(member, ranks, axis=1)    # [Q, N]
+        for qi in range(ranks.shape[0]):
+            head = top_ids[qi][valid[qi]].astype(ranks.dtype)
+            spliced[qi, :len(head)] = head
+            spliced[qi, len(head):] = ranks[qi][~in_head[qi]]
     return spliced
 
 
@@ -177,4 +179,15 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
     res["stages_applied"] = applied
     if include_ranks:
         res["ranks"] = ranks
+    COUNTERS.add("queries_evaluated", ranks.shape[0])
     return res
+
+
+def build_index_for_dataset(dataset: RetrievalDataset, cfg,
+                            variables: dict | None = None, seed: int = 0,
+                            device: "torch.device | str | None" = None):
+    """``Index.build`` over the dataset's database images, on ``device``
+    (the CUDA card by default)."""
+    from ..index import Index
+    return Index.build(dataset.db_paths, cfg, variables=variables, seed=seed,
+                       device=device)

@@ -18,15 +18,18 @@ import numpy as np
 import torch
 
 from .data import frontend
+from .data.loader import iter_batches
 from .models import get_backbone
 from .models.jax_import import load_jax_resnet, load_jax_vgg, load_jax_vit
 from .models.registry import descriptor_dim
+from .models.torch_import import load_state_dict_checked
 from .models.vgg import VGG
 from .models.vit import ViT
 from .ops import l2_normalize, pool
 from .ops.pooling import rmac_region_geometry, rmac_regional_descriptors
 from .ops.whitening import WhiteningParams, apply_whitening
 from .utils.device import resolve_device
+from .utils.observe import COUNTERS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -121,8 +124,11 @@ class Extractor:
     """Holds the backbone, its weights and the fitted whitening.
 
     ``variables``: the reference's Flax variables (loaded through
-    ``models.jax_import``, by the model's family); None draws seeded random
-    weights with Flax's initializer distributions (``init_weights``).
+    ``models.jax_import``, by the model's family), or a state_dict of the
+    port's model such as ``models.torch_import`` makes from a torchvision
+    checkpoint (any mapping without a ``"params"`` collection); None draws
+    seeded random weights with Flax's initializer distributions
+    (``init_weights``).
     ``device`` defaults to the CUDA card; without one it raises unless the
     caller passes ``device="cpu"``."""
 
@@ -137,6 +143,8 @@ class Extractor:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             self.model.init_weights(gen)
+        elif "params" not in variables:     # the port's own state_dict
+            load_state_dict_checked(self.model, variables)
         elif isinstance(self.model, ViT):
             load_jax_vit(self.model, variables)
         elif isinstance(self.model, VGG):
@@ -194,25 +202,40 @@ class Extractor:
         return self._combined_fn(self._on_device(images), self.whitening)
 
     def _extract_loop(self, paths, quarantine, run):
-        """Decode ``paths`` in batches of ``cfg.batch_size`` and apply
-        ``run(batch) -> tensor | tuple of tensors`` of per-image outputs.
-        Returns ``(list of numpy arrays, one per output, kept_indices)``, or
-        ``(None, kept)`` when nothing decoded; undecodable paths go to
-        ``quarantine``."""
-        outs, kept = None, []
-        for batch, idxs in frontend.batch_paths(
-                paths, self.cfg.image_size, self.cfg.batch_size, quarantine):
+        """Prefetch-overlapped loop shared by every path-based extraction
+        (``data/loader.py::iter_batches``, depth 4, each batch uploaded by
+        the producer thread): the host decodes and uploads batch i+1 while
+        the card runs batch i, and batch i-1's outputs come back to the
+        host only after batch i is launched. ``run(batch) -> tensor |
+        tuple of tensors`` of per-image outputs. Returns ``(list of numpy
+        arrays, one per output, kept_indices)``, or ``(None, kept)`` when
+        nothing decoded; undecodable paths go to ``quarantine``."""
+        outs, kept, pending = None, [], None
+
+        def drain(pending):
+            res, idxs = pending
             keep = idxs >= 0
+            for slot, r in zip(outs, res):
+                slot.append(r.cpu().numpy()[keep])
+            kept.append(idxs[keep])
+
+        for batch, idxs in iter_batches(
+                paths, self.cfg.image_size, self.cfg.batch_size, quarantine,
+                depth=4, device_put=True, device=self.device):
             res = run(batch)
             res = res if isinstance(res, tuple) else (res,)
             if outs is None:
                 outs = [[] for _ in res]
-            for slot, r in zip(outs, res):
-                slot.append(r.cpu().numpy()[keep])
-            kept.append(idxs[keep])
+            if pending is not None:
+                drain(pending)
+            pending = (res, idxs)
+        if pending is not None:
+            drain(pending)
         if outs is None:
             return None, np.zeros((0,), np.int64)
-        return [np.concatenate(o) for o in outs], np.concatenate(kept)
+        kept = np.concatenate(kept)
+        COUNTERS.add("images_extracted", len(kept))
+        return [np.concatenate(o) for o in outs], kept
 
     def extract_paths(self, paths, quarantine: list | None = None):
         """Decode and extract every path in batches of ``cfg.batch_size``.

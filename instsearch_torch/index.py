@@ -107,6 +107,7 @@ from .search.spatial import build_vote_matrix
 from .search.subset import SubsetFilter, build_position_mask
 from .utils.chunking import run_chunked
 from .utils.device import resolve_device
+from .utils.observe import COUNTERS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _QUANTIZE = {"int8": quantize_rows, "int4": quantize_rows_int4}
@@ -822,6 +823,7 @@ class Index:
             qr = self._quantize_pieces(buf[:, :self.dim], quantize_rows)
             self.regional = qr[0][:, None, :]
             self.regional_scales = qr[1].reshape(-1, 1)
+        COUNTERS.add("rows_dba_augmented", self.num_valid)
 
     @staticmethod
     def _quantize_pieces(rows: torch.Tensor, quantize,
@@ -1064,6 +1066,7 @@ class Index:
         q = self._match_query_dim(q.float())
         if q.shape[-1] != self.store_dim:
             raise ValueError(f"queries have width {w}, the store {self.dim}")
+        COUNTERS.add("queries_served", q.shape[0])
         do_rerank = (scfg.rerank_enabled and self.regional is not None
                      and query_regional is not None)
         do_refine = scfg.refine_enabled
@@ -1281,6 +1284,7 @@ class Index:
             q = self.extractor(images)
         if sharded_index is None:
             return self.search(q, scfg, query_regional=qreg, subset=subset)
+        COUNTERS.add("queries_served", q.shape[0])
         return self.search_sharded(sharded_index, q, scfg,
                                    query_regional=qreg, subset=subset)
 
@@ -1365,6 +1369,7 @@ class Index:
         if q.shape[-1] != self.store_dim:
             raise ValueError(f"queries have width {w}, the store {self.dim}")
         subset = self._resolve_subset(subset)
+        COUNTERS.add("queries_served", q.shape[0])
         mask = subset.mask if subset is not None else None
         n_pad = self.descriptors.shape[0]
         m = min(max_results, n_pad)
@@ -1632,6 +1637,7 @@ class Index:
         self.names = list(names_arr[:new_valid])
         self._name_by_id_len = -1
         self._layout_gen += 1
+        COUNTERS.add("images_removed", m)
         return m
 
     def merge_from(self, other: "Index") -> int:

@@ -111,6 +111,19 @@ def make_mesh(num_shards: "int | None" = None,
     return mesh
 
 
+def device_mesh(num_shards: int, device: "torch.device | str"
+                ) -> ShardMesh:
+    """A one-process mesh for an index on ``device``: ``num_shards`` shards
+    (every visible card when it is 1 or less and ``device`` is one)
+    dealt to the cards in turn, so fewer cards than shards hold several
+    each; a CPU ``device`` holds every shard."""
+    device = torch.device(device)
+    visible = _visible_devices() if device.type == "cuda" else [device]
+    n = num_shards if num_shards > 1 else len(visible)
+    return make_mesh(n, devices=[visible[i % len(visible)]
+                                 for i in range(n)])
+
+
 def shard_rows(mesh: ShardMesh, x: torch.Tensor, dim: int = 0
                ) -> list[torch.Tensor]:
     """This process's rows of ``x`` (all of them in a single process) cut

@@ -162,6 +162,11 @@ class PQView:
         return self.codebook.m
 
     @property
+    def bytes_per_row(self) -> int:
+        """Code bytes a row, the reference's (without the word padding)."""
+        return self.codes.shape[1]
+
+    @property
     def codes(self) -> torch.Tensor:
         """``[N_pad, M/2]`` int8 packed nibbles, the reference's layout (a
         view of ``packed``)."""

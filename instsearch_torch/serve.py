@@ -1,7 +1,8 @@
-"""Serving core: bucketed request handling over JSON lines (port of
+"""Serving: bucketed request handling over JSON lines (port of
 ``instsearch_tpu/serve.py``: ``serve_buckets``, ``serve_batch``,
-``ServeCore``, on one device or through the sharded index, and
-``VectorServeCore``, raw vectors over a host row store and an IVF-PQ view).
+``ServeCore``, on one device or through the sharded index,
+``VectorServeCore``, raw vectors over a host row store and an IVF-PQ view,
+and ``serve_tcp``, the TCP transport with cross-client micro-batching).
 
 Requests, one JSON object a line, answered key for key as the reference
 answers them:
@@ -32,14 +33,35 @@ The bucket policy is kept as the reference has it: requests run through
 batch sizes 1, 2, 4, 8 (split or padded up), which a later CUDA-graph
 capture needs as its fixed shapes. Nothing compiles per shape in eager
 PyTorch, so defining a subset needs no warm pass.
+
+Two transports share a core: the caller's loop over stdin lines
+(``handle_line``, ``cli serve``) and ``serve_tcp`` (``cli serve --port``):
+many concurrent JSON-lines connections whose query requests, arriving
+within ``batch_wait_ms`` of each other, run as ONE device batch through the
+bucket shapes (responses carry ``batch_rows``). Threading contract, the
+reference's: connection threads only parse JSON and decode images (host
+work); one dispatcher thread does all device work, so no two CUDA
+sequences interleave; mutations (``add``/``remove``/subset definitions)
+are barriers that end the batch being filled, so global queue order holds
+(a client that sends ``remove`` then a query sees its mutation applied);
+a batch takes one subset mask, so only requests with the same ``subset``
+share one; a failing request is answered with an error line and never
+stops the server.
 """
 from __future__ import annotations
 
 import json
+import queue
+import socket
+import threading
 import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .utils.observe import COUNTERS
 
 
 def serve_buckets(query_chunk: int) -> list[int]:
@@ -81,6 +103,21 @@ def _is_mutation(req: dict) -> bool:
             or "drop_subset" in req)
 
 
+@dataclass
+class _Job:
+    kind: str                        # "query" | "mutate"
+    req: dict
+    images: Optional[np.ndarray]     # decoded [B, S, S, 3] uint8 (query)
+    reply: Callable[[dict], None]
+    enqueued: float = field(default_factory=time.perf_counter)
+
+    @property
+    def batch_key(self):
+        """Jobs share a device batch only under the same subset filter: the
+        mask is one operand per batch, not per query."""
+        return self.req.get("subset")
+
+
 class ServeCore:
     """Owns the index, the optional sharded view (``idx.to_sharded(mesh)``
     when ``sharded``), its warm bucket shapes and the named subsets.
@@ -105,6 +142,10 @@ class ServeCore:
         # named subset filters, defined by clients and referenced per
         # query; kept by member names so that mutations can rebuild them
         self.subsets: dict = {}
+
+    def query_cap(self) -> int:
+        """Micro-batch row cap for the TCP dispatcher."""
+        return self.idx.cfg.search.query_chunk or 128
 
     def warmup(self) -> None:
         """One pass per bucket shape (cuDNN picks its algorithms and the
@@ -380,6 +421,7 @@ class VectorServeCore:
                  else np.concatenate([v for v, _ in jobs]))
         b = batch.shape[0]
         bucket = next((x for x in self.buckets if x >= b), b)
+        COUNTERS.add("vector_queries_served", b)
         t0 = time.perf_counter()
         qb = (batch if bucket == b else np.concatenate(
             [batch, np.zeros((bucket - b, batch.shape[1]), np.float32)]))
@@ -411,3 +453,135 @@ class VectorServeCore:
                                     subset=req.get("subset"))[0]
         except Exception as e:    # noqa: BLE001 — the transport boundary
             return {"error": f"{type(e).__name__}: {e}"}
+
+
+def serve_tcp(core, host: str = "127.0.0.1", port: int = 0,
+              batch_wait_ms: float = 2.0,
+              ready_cb: Optional[Callable[[int], None]] = None,
+              stop_event: Optional[threading.Event] = None) -> int:
+    """Blocking TCP JSON-lines server with cross-client micro-batching over
+    ``core`` (a ``ServeCore`` or ``VectorServeCore``).
+
+    ``port=0`` binds an ephemeral port; ``ready_cb(actual_port)`` fires
+    after warm-up, once the listener accepts connections. ``stop_event``
+    shuts the server down cleanly; without one the call blocks until the
+    process is signalled. Returns 0.
+
+    Batching policy: the dispatcher takes the oldest queued query, then
+    keeps draining compatible query jobs until (a) the queue momentarily
+    empties AND ``batch_wait_ms`` has passed since the first job was
+    queued, (b) the rows reach ``core.query_cap()``, or (c) a mutation or a
+    job under another subset arrives (it runs right after the batch,
+    preserving global order).
+    """
+    stop = stop_event or threading.Event()
+    q: "queue.Queue[_Job]" = queue.Queue()
+    cap = core.query_cap()
+
+    def dispatcher():
+        pending: Optional[_Job] = None
+        while not stop.is_set():
+            job = pending
+            pending = None
+            if job is None:
+                try:
+                    job = q.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+            if job.kind == "mutate":
+                _safe_reply(job, lambda j=job: core.mutate(j.req))
+                continue
+            jobs = [job]
+            rows = job.images.shape[0]
+            deadline = job.enqueued + batch_wait_ms / 1e3
+            while rows < cap:
+                tmo = deadline - time.perf_counter()
+                try:
+                    nxt = q.get(timeout=tmo) if tmo > 0 else q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt.kind == "mutate" or nxt.batch_key != job.batch_key:
+                    pending = nxt            # a barrier: it runs next
+                    break
+                jobs.append(nxt)
+                rows += nxt.images.shape[0]
+            try:
+                responses = core.run_queries(
+                    [(j.images, j.req["k"]) for j in jobs],
+                    subset=job.batch_key)
+            except Exception as e:         # noqa: BLE001 — answer, don't die
+                err = {"error": f"{type(e).__name__}: {e}"}
+                responses = [err] * len(jobs)
+            for j, resp in zip(jobs, responses):
+                _safe_reply(j, lambda r=resp: r)
+
+    def _safe_reply(job: _Job, make) -> None:
+        # a failing mutation or a closed connection must not stop the
+        # dispatcher: errors answer on that client's line, writes to dead
+        # sockets are dropped
+        try:
+            resp = make()
+        except Exception as e:             # noqa: BLE001
+            resp = {"error": f"{type(e).__name__}: {e}"}
+        try:
+            job.reply(resp)
+        except OSError:
+            pass
+
+    def client_thread(conn: socket.socket) -> None:
+        f = conn.makefile("rwb")
+        wlock = threading.Lock()
+
+        def reply(obj: dict) -> None:
+            with wlock:
+                f.write((json.dumps(obj) + "\n").encode())
+                f.flush()
+
+        try:
+            for raw in f:
+                line = raw.strip()
+                if not line:
+                    continue
+                try:
+                    req = json.loads(line)
+                    if not isinstance(req, dict):
+                        raise ValueError("request must be a JSON object")
+                    if _is_mutation(req):
+                        q.put(_Job("mutate", req, None, reply))
+                    else:
+                        images, req_k = core.decode(req)
+                        q.put(_Job("query",
+                                   {"k": req_k, "subset": req.get("subset")},
+                                   images, reply))
+                except Exception as e:     # noqa: BLE001
+                    try:
+                        reply({"error": f"{type(e).__name__}: {e}"})
+                    except OSError:
+                        break
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    core.warmup()
+    srv = socket.create_server((host, port))
+    srv.settimeout(0.2)
+    disp = threading.Thread(target=dispatcher, daemon=True,
+                            name="serve-dispatcher")
+    disp.start()
+    if ready_cb is not None:
+        ready_cb(srv.getsockname()[1])
+    try:
+        while not stop.is_set():
+            try:
+                conn, _ = srv.accept()
+            except socket.timeout:
+                continue
+            threading.Thread(target=client_thread, args=(conn,),
+                             daemon=True, name="serve-client").start()
+    finally:
+        srv.close()
+        stop.set()
+        disp.join(timeout=5)
+    return 0

@@ -30,6 +30,10 @@ from instsearch_torch.search.ivfpq import IVFPQView
 from instsearch_torch.search.lw_rerank import LocalWhiteningView
 from instsearch_torch.search.pq_view import PQView
 from instsearch_torch.serve import VectorServeCore
+from instsearch_torch.builder import ResumableBuilder
+from instsearch_torch.data.loader import PrefetchLoader
+from instsearch_torch.eval.evaluate import build_index_for_dataset
+from instsearch_torch.workloads import run_all, run_workload
 
 
 def _gnd(rng, n_db, n_q):
@@ -85,6 +89,17 @@ _ENTRY_POINTS = {
     "IVFPQView.from_host_store": lambda: IVFPQView.from_host_store(
         SimpleNamespace(n=64, d=8)),
     "VectorServeCore": lambda: VectorServeCore(None, None),
+    # the command line's entry points; each resolves the device first
+    "ResumableBuilder": lambda: ResumableBuilder(
+        [], PipelineConfig(extract=ExtractConfig(backbone="resnet18")),
+        "never_made"),
+    "build_index_for_dataset": lambda: build_index_for_dataset(
+        SimpleNamespace(db_paths=[]),
+        PipelineConfig(extract=ExtractConfig(backbone="resnet18"))),
+    "run_workload": lambda: run_workload("oxford5k_resnet50_avgpool", None),
+    "run_all": lambda: run_all("never_read"),
+    "PrefetchLoader(device_put=True)": lambda: PrefetchLoader(
+        [], 32, 4, device_put=True),
 }
 
 

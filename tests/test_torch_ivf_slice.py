@@ -4,7 +4,7 @@ mini fixture: images -> ResNet-18 -> GeM -> whitening -> int4 store ->
 size: 64 px, f32 extraction, whitening to 16 dims, ResNet-18 for ResNet-50
 (one seeded torch ResNet-18's weights on both sides), row tile 8, and a view
 of 4 clusters, m = 4, depth 24 for the fixture's 56 rows. Both sides decode
-with cv2.
+the database through their native decoders (the same source).
 
 What is compared, and the tolerances:
   * ``same``: a port index over the rows the JAX build stored, with the JAX
@@ -29,7 +29,6 @@ import pytest
 import torch
 
 from instsearch_tpu.config import PipelineConfig as JaxPipelineConfig
-from instsearch_tpu.data import native_frontend
 from instsearch_tpu.eval import make_mini_dataset
 from instsearch_tpu.index import Index as JaxIndex
 from instsearch_tpu.models import load_torch_resnet
@@ -80,7 +79,6 @@ def rig(tmp_path_factory):
     jcfg = JaxPipelineConfig.from_json(_shrunk())
     tcfg = PipelineConfig.from_json(_shrunk())
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
         mp.setattr(JaxIndex, "from_descriptors", classmethod(rows))
         jidx = JaxIndex.build(ds.db_paths, jcfg, variables=variables)
         jidx.build_ivfpq(**VIEW)

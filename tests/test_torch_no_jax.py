@@ -15,9 +15,12 @@ shards), search it with αQE and diffusion, take its kNN graph and stats,
 fit a local-whitening view, search under it and apply its bank over two
 expert shards, build an IVF view (``search/ivf.py``) and an IVF-PQ view
 (``search/ivfpq.py``, also through two CPU shards), serve vectors from a
-host row store through ``VectorServeCore``,
-then check sys.modules: neither JAX nor any module of the reference package
-was loaded."""
+host row store through ``VectorServeCore``, import the entry points (the
+command line, ``ResumableBuilder``, ``workloads.py``, ``serve_tcp``, the
+input pipeline and native decoder, the dataset loaders and anchors, the
+torchvision importer, the observability helpers) and run ``cli info`` on
+a saved index, then check sys.modules: neither JAX nor any module of the
+reference package was loaded."""
 import json
 import os
 import subprocess
@@ -165,6 +168,27 @@ with tempfile.TemporaryDirectory() as tmp:
     vcore = VectorServeCore(store, hview, device="cpu")
     ans = vcore.handle_line(json.dumps({"vectors": x[:2].tolist()}))
     assert [r[0]["id"] for r in ans["results"]] == [0, 1]
+import contextlib
+import io
+import instsearch_torch.builder
+import instsearch_torch.cli
+import instsearch_torch.data.loader
+import instsearch_torch.data.native_frontend
+import instsearch_torch.eval.anchors
+import instsearch_torch.eval.datasets
+import instsearch_torch.models.torch_import
+import instsearch_torch.serve
+import instsearch_torch.utils.observe
+import instsearch_torch.workloads
+from instsearch_torch.serve import serve_tcp
+with tempfile.TemporaryDirectory() as tmp:
+    qidx.save(tmp)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert instsearch_torch.cli.main(["--device", "cpu", "info",
+                                          "--index", tmp]) == 0
+    assert json.loads(out.getvalue())["rows"] == 40
+assert instsearch_torch.workloads.list_presets()
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

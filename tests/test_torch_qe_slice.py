@@ -4,8 +4,8 @@ mini fixture: images -> ResNet-18 (the same variables on both sides) -> GeM
 them to 56, 28 bytes per row) -> alpha query expansion -> top-k -> mAP, and
 the serving core on top.
 
-Both sides decode with cv2 (the JAX frontend's native decoder is switched
-off, as in test_torch_slice.py). Extraction runs in f32.
+Both sides decode the index's images through their native decoders (the
+same source), query images with cv2. Extraction runs in f32.
 
 What is compared, and the tolerances:
   * the store. Quantizing the f32 rows that ``JaxIndex.build`` quantized
@@ -43,7 +43,6 @@ import instsearch_tpu.kernels as jax_kernels
 import instsearch_torch.index as tindex
 from instsearch_tpu.config import (ExtractConfig, IndexConfig, PipelineConfig,
                                    SearchConfig)
-from instsearch_tpu.data import native_frontend
 from instsearch_tpu.eval import make_mini_dataset
 from instsearch_tpu.index import Index as JaxIndex
 from instsearch_tpu.index import _search_composite_jit
@@ -108,7 +107,6 @@ def rig(request, fixture_data):
         return build_from(cls, descriptors, *a, **kw)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
         mp.setattr(JaxIndex, "from_descriptors", classmethod(recording))
         jidx = JaxIndex.build(ds.db_paths, cfg, variables=variables)
         jmap = jidx.evaluate(ds)["mAP"]

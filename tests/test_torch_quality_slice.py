@@ -5,7 +5,8 @@ the local-whitening re-score of the top 100 after
 ``fit_local_whitening()``), as loaded and cut to the fixture's size: 64 px,
 f32 extraction, whitening to 16 dims (the fixture's 32 images would leave a
 full-width fit rank-deficient), ResNet-18 for ResNet-50 (a seeded torch
-ResNet-18's weights on both sides), row tile 8. Both sides decode with cv2.
+ResNet-18's weights on both sides), row tile 8. Both sides decode the
+database through their native decoders (the same source).
 
 What is compared, and the tolerances:
   * ``same``: a port index over the rows the JAX build stored before its
@@ -33,7 +34,6 @@ import pytest
 import torch
 
 from instsearch_tpu.config import PipelineConfig as JaxPipelineConfig
-from instsearch_tpu.data import native_frontend
 from instsearch_tpu.eval import make_mini_dataset
 from instsearch_tpu.index import Index as JaxIndex
 from instsearch_tpu.models import load_torch_resnet
@@ -91,7 +91,6 @@ def rig(tmp_path_factory):
     qimgs = np.stack([frontend.load_square(p, SIZE) for p in ds.query_paths])
     out = {"ds": ds, "qimgs": qimgs}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
         mp.setattr(JaxIndex, "from_descriptors", classmethod(rows))
         for preset in PRESETS:
             jcfg = JaxPipelineConfig.from_json(_shrunk(preset))

@@ -6,8 +6,8 @@ regional -> bf16 store plus a regional store ``[N_pad, 14, 16]`` -> K1's
 top-``rerank_depth`` candidates -> region match (+ the spatial vote) -> top-k
 -> mAP; the exact-refine tier over int4; the serving core on top.
 
-Both sides decode the same lossless PNG files with cv2 (the JAX frontend's
-native decoder is switched off, as in test_torch_slice.py). Extraction runs
+Both sides decode the same lossless PNG files through their native
+decoders (the same source), queries with cv2. Extraction runs
 in f32. 16 whitened dims of 56 images keep the fit well conditioned (a fit
 of as many dims as images magnifies 1e-6 differences past every bar).
 
@@ -53,7 +53,6 @@ import instsearch_tpu.kernels as jax_kernels
 import instsearch_torch.index as tindex
 from instsearch_tpu.config import (ExtractConfig, IndexConfig, PipelineConfig,
                                    SearchConfig)
-from instsearch_tpu.data import native_frontend
 from instsearch_tpu.eval import make_mini_dataset
 from instsearch_tpu.eval.evaluate import evaluate_index as jax_evaluate
 from instsearch_tpu.eval.evaluate import \
@@ -132,12 +131,10 @@ def rig(tmp_path_factory):
 
     spatial = CFG.search.replace(spatial_weight=0.5)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
         mp.setattr(JaxIndex, "from_descriptors", classmethod(rows))
         mp.setattr(jindex, "attach_regional_store", regional)
         jidx = JaxIndex.build(paths, CFG, variables=variables)
         mp.undo()
-        mp.setattr(native_frontend, "available", lambda: False)
         jrefine = JaxIndex.from_descriptors(
             seen["rows"], jidx.names, REFINE, extractor=jidx.extractor,
             original_ids=seen["kept"])
@@ -213,10 +210,8 @@ def test_regional_queries_match_jax(rig):
     each within 1e-5 of JAX's own two passes."""
     jex, tex = rig["jidx"].extractor, rig["same"].extractor
     q = rig["qimgs"]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
-        jd = np.asarray(jex(q))
-        jr = np.asarray(jex.extract_regional(q))
+    jd = np.asarray(jex(q))
+    jr = np.asarray(jex.extract_regional(q))
     td, tr = tex.extract_with_regional(q)
     np.testing.assert_allclose(td.numpy(), jd, rtol=0, atol=1e-5)
     np.testing.assert_allclose(tr.numpy(), jr, rtol=0, atol=1e-5)
@@ -227,9 +222,7 @@ def test_regional_queries_match_jax(rig):
 def test_query_regional_of_a_dataset_matches_jax(rig):
     """The protocol's bbox-cropped regional query rows, as the evaluation
     extracts them, within 1e-5 of JAX's."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
-        want = jax_query_regional(rig["jidx"], rig["ds"])
+    want = jax_query_regional(rig["jidx"], rig["ds"])
     got = extract_query_regional(rig["same"], rig["ds"])
     assert got.shape == want.shape == (len(rig["ds"].qimlist), 14, 16)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
@@ -239,9 +232,7 @@ def test_query_regional_of_a_dataset_matches_jax(rig):
 def test_oracle_route_matches_jax_index(rig, spatial_weight):
     jidx, same, qimgs = rig["jidx"], rig["same"], rig["qimgs"]
     scfg = CFG.search.replace(spatial_weight=spatial_weight)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
-        js, ji = jidx.query_images(qimgs, scfg)
+    js, ji = jidx.query_images(qimgs, scfg)
     ts, ti = same.with_search(use_pallas=False).query_images(
         qimgs, _port_cfg(CFG).search.replace(spatial_weight=spatial_weight))
     _assert_topk_agree(js, ji, ts, ti, NEAR_TIE)

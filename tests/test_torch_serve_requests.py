@@ -9,8 +9,8 @@ the same variables on both sides, GeM, PCA whitening to 16 dims, an f32
 store of 32 images in a capacity of 40 (so the second ``add`` re-pads).
 The JAX Index is built over the files; the port's index holds the f32 rows
 the JAX build stored, behind the JAX whitening (each side's PCA may flip
-an eigenvector's sign). Both decode with cv2 (the JAX frontend's native
-decoder is switched off).
+an eigenvector's sign). Both decode the build's
+images through their native decoders (the same source), requests with cv2.
 
 Tolerances: the response keys equal; ids, names, counts and error lines
 equal; scores and vectors within 2e-5, the two extractors' difference on a
@@ -26,7 +26,6 @@ import pytest
 
 from instsearch_tpu.config import (ExtractConfig, IndexConfig, PipelineConfig,
                                    SearchConfig)
-from instsearch_tpu.data import native_frontend
 from instsearch_tpu.eval import make_mini_dataset
 from instsearch_tpu.index import Index as JaxIndex
 from instsearch_tpu.models import load_torch_resnet
@@ -72,7 +71,6 @@ def rig(tmp_path_factory):
         return build_from(cls, descriptors, *a, **kw)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
         mp.setattr(JaxIndex, "from_descriptors", classmethod(recording))
         jidx = JaxIndex.build(paths[:32], CFG, variables=variables)
     tcfg = TorchPipelineConfig.from_json(CFG.to_json())
@@ -170,14 +168,12 @@ def test_requests_answer_as_the_reference(rig):
     jidx, tidx, paths = rig["jidx"], rig["port_index"](), rig["paths"]
     jcore, core = JaxServeCore(jidx), ServeCore(tidx)
     names = list(jidx.names)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
-        for req, label in _lines(paths, names) + [("{not json", "e")]:
-            line = req if isinstance(req, str) else json.dumps(req)
-            want, got = jcore.handle_line(line), core.handle_line(line)
-            if label in ("error", "e"):
-                assert set(want) == {"error"}
-            _agree(want, got, label)
+    for req, label in _lines(paths, names) + [("{not json", "e")]:
+        line = req if isinstance(req, str) else json.dumps(req)
+        want, got = jcore.handle_line(line), core.handle_line(line)
+        if label in ("error", "e"):
+            assert set(want) == {"error"}
+        _agree(want, got, label)
     assert tidx.num_valid == jidx.num_valid == 32 + 6 - 4 + 8
     assert _name(paths[33]) not in tidx.names
     assert tidx.names == list(jidx.names)

@@ -6,7 +6,7 @@ as loaded and cut to this fixture's size: 96 px, f32 extraction, whitening
 to 16 dims, row tile 8 (so the 40 images fill several shards; at 8 shards
 the last one is all padding), and ResNet-18 for ResNet-50 (the weights of a
 seeded torch ResNet-18 on both sides, as test_torch_slice.py). Both sides
-decode the JPEG files with cv2 (the JAX frontend's native decoder off). Cut
+decode the JPEG files through their native decoders (the same source). Cut
 so, the two ResNet presets extract alike: JAX's int8 index is built over
 the rows of its bf16 build's one extraction.
 
@@ -35,7 +35,6 @@ import torch
 
 import instsearch_tpu.index as jindex
 from instsearch_tpu.config import PipelineConfig as JaxPipelineConfig
-from instsearch_tpu.data import native_frontend
 from instsearch_tpu.eval import make_mini_dataset
 from instsearch_tpu.index import Index as JaxIndex
 from instsearch_tpu.models import load_torch_resnet
@@ -115,7 +114,6 @@ def rig(tmp_path_factory):
                                         for p in ds.query_paths])}
     extracted = {}      # the two ResNet presets share one JAX extraction
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
         mp.setattr(JaxIndex, "from_descriptors", classmethod(rows))
         mp.setattr(jindex, "attach_regional_store", regional)
         for preset in PRESETS:

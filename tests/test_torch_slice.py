@@ -3,9 +3,9 @@ images -> ResNet-18 (the same variables on both sides) -> GeM -> PCA
 whitening (each side fits its own) -> bf16 store -> top-k -> mAP, and the
 serving core on top.
 
-Both sides decode with cv2 (the JAX frontend's native C++ decoder is
-switched off here: it resizes with other rounding, and the point is the
-pipeline, not the decoder). Extraction runs in f32.
+Both sides decode the database through their native C++ decoders (one
+source, so the same pixels; query images through cv2). Extraction runs in
+f32.
 
 Tolerances. The two sides' whitened f32 descriptors agree to about 1e-5
 (two eigensolvers, f32 and f64, and two summation orders), but a component
@@ -28,7 +28,6 @@ import torch
 
 from instsearch_tpu.config import (ExtractConfig, IndexConfig, PipelineConfig,
                                    SearchConfig)
-from instsearch_tpu.data import native_frontend
 from instsearch_tpu.eval import make_mini_dataset
 from instsearch_tpu.index import Index as JaxIndex
 from instsearch_tpu.models import load_torch_resnet
@@ -57,10 +56,8 @@ def rig(tmp_path_factory):
     tm = randomize_bn_stats(TruncatedResNet(layers=(2, 2, 2, 2),
                                             block=BasicBlock))
     variables = load_torch_resnet(tm.state_dict())
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_frontend, "available", lambda: False)
-        jidx = JaxIndex.build(ds.db_paths, CFG, variables=variables)
-        jmap = jidx.evaluate(ds)["mAP"]
+    jidx = JaxIndex.build(ds.db_paths, CFG, variables=variables)
+    jmap = jidx.evaluate(ds)["mAP"]
     tidx = Index.build(ds.db_paths, CFG, variables=variables, device="cpu")
     qimgs = np.stack([frontend.load_square(p, SIZE) for p in ds.query_paths])
     return ds, jidx, jmap, tidx, qimgs

@@ -4,8 +4,8 @@ registries as the reference's own test does, tests/unit/test_vit_backbone.py)
 -> GeM -> PCA whitening (each side fits its own) -> bf16 store -> top-k ->
 mAP, on the port's three attention routes, and the serving core on top.
 
-Both sides decode with cv2 (the JAX frontend's native decoder is switched
-off, as in tests/test_torch_slice.py). Extraction runs in f32; the JAX side
+Both sides decode the database through their native decoders (the same
+source), query images with cv2. Extraction runs in f32; the JAX side
 takes its plain route (``vit_attention="xla"``), which its own tests hold to
 its kernel routes within 2e-5.
 
@@ -31,7 +31,6 @@ from instsearch_tpu.config import (ExtractConfig as JaxExtractConfig,
                                    IndexConfig as JaxIndexConfig,
                                    PipelineConfig as JaxPipelineConfig,
                                    SearchConfig as JaxSearchConfig)
-from instsearch_tpu.data import native_frontend
 from instsearch_tpu.eval import make_mini_dataset
 from instsearch_tpu.extractor import Extractor as JaxExtractor
 from instsearch_tpu.index import Index as JaxIndex
@@ -83,7 +82,6 @@ def registered():
                    jreg.BackboneSpec(_jax_factory, 32, 4, load_torch_vit))
         mp.setitem(treg.BACKBONES, NAME,
                    treg.BackboneSpec(_port_factory, 32, 4))
-        mp.setattr(native_frontend, "available", lambda: False)
         yield tiny_variables()
 
 
