@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs fourteen phases; each raises on failure and the process exits non-zero.
+runs fifteen phases; each raises on failure and the process exits non-zero.
 Phase 12 runs right after phase 4, while phase 2's and phase 3's stores are
 as those phases left them (phase 10 mutates them).
 
@@ -254,6 +254,28 @@ as those phases left them (phase 10 mutates them).
      workload 1's config, then ``workloads`` over every preset on the mini
      fixture (each line printed; no enabled stage missing). K1-K4 must
      each launch in these parts, K5-K7 never.
+ 14. fine-tuning at full width, the default ``TrainConfig`` (ResNet-50 at
+     224 px, GeM, bf16 compute on f32 masters, AdamW, 8 tuples of 2 + 5
+     images: 56 a step), over a seeded labelled tree of 16 classes x 4
+     JPEG views of phase 13's gratings in a temporary folder, removed at
+     the end: (a) 3 warm-up steps on a fixed batch, then the step's median
+     ms, images/s, peak device memory and, under the profiler, the
+     device's busy ms and idle share of a step; the loss must fall over 8
+     steps; (b) one f32 step (TF32 off) on the card against the same step
+     of the port on the CPU with the same weights and 2 tuples: the loss
+     within 1e-4 relative, every gradient tensor's cosine at least
+     GRAD_COS; the bf16 route's gradients against the f32 route's, their
+     cosines printed; (c) ``Trainer(mesh=)`` on an NCCL group of one
+     process (``world_of_one``) against ``mesh=None`` for the contrastive
+     and the Smooth-AP loss, two steps each, cuDNN deterministic: losses
+     and parameters equal; (d) ``remat=True`` against plain: the loss
+     within 1e-6 relative, the largest parameter difference printed; (e)
+     ``cli finetune --fit-lw --learn-p --eval-dataset mini`` on the tree
+     (the frozen and tuned mAP on the mini fixture printed), ``build-index
+     --weights`` of its checkpoint over the 64 views and a ``query`` of
+     each: every top-1 its own view (within BF16_TIE, as phase 13 rules:
+     Lw pulls a class's views within it) and the first 4 results its
+     class's views; K1 counted (``launches_train``).
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -288,8 +310,9 @@ also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
 ``bound_ms_b128``; K1-K4 count phase 10's subset requests too, also apart
 as ``launches_subset`` (every one of them with the mask), phase 11's
 αDBA passes, kNN graphs, duplicate searches and requests, also apart as
-``launches_quality``, and phase 13's in-process command-line runs, also
-apart as ``launches_cli`` (every kernel's row carries it); K1 also at
+``launches_quality``, phase 13's in-process command-line runs, also
+apart as ``launches_cli``, and phase 14e's fine-tuning runs, also apart as
+``launches_train`` (every kernel's row carries both); K1 also at
 D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
 (``ms_d2048_b{B}_k{k}``, ``plain_ms_...``, ``library_ms_...``,
 ``bound_ms_...``); K4 also at B =
@@ -310,6 +333,7 @@ the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -2393,29 +2417,14 @@ def phase9c(card: str, topk, topk_ref, check, ox) -> dict:
     group's default backend also gathers CPU shards (gloo), held to K1's
     plain version. It shows the NCCL gather is wired; one card cannot
     measure a collective across cards."""
-    import socket
     import numpy as np
     import torch
-    import torch.distributed as dist
     from instsearch_torch.parallel import (build_multihost_index,
-                                           global_shard_mesh, initialize,
+                                           global_shard_mesh,
                                            local_row_range)
     idx, sidx, q, ss, si, _ = ox
     shards = idx.cfg.index.num_shards
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    # one process on the loopback: NCCL's and gloo's bootstraps stay on it
-    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
-               WORLD_SIZE="1", NCCL_SOCKET_IFNAME="lo",
-               GLOO_SOCKET_IFNAME="lo")
-    os.environ.update(env)
-    try:
-        # the default backend: gloo for CPU tensors, NCCL for CUDA ones
-        backend = str(dist.get_backend()) if initialize() else "none"
-        if "cuda:nccl" not in backend:
-            fail(f"initialize() did not start a group with NCCL for CUDA "
-                 f"tensors (backend: {backend})")
+    with world_of_one() as dist:
         mesh = global_shard_mesh(["cuda"] * shards)
         lo, hi = local_row_range(idx.descriptors.shape[0])
         mh = build_multihost_index(idx.descriptors[lo:hi],
@@ -2459,11 +2468,6 @@ def phase9c(card: str, topk, topk_ref, check, ox) -> dict:
                shards=mh.mesh.num_shards, equals_phase9=True,
                cpu_shards_agree_with_plain=True, topk_launches=launches,
                search_b1_p50_ms=p50)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for v in env:
-            os.environ.pop(v, None)
     return {"launches": launches, "search_b1_p50_ms": p50}
 
 
@@ -4311,6 +4315,282 @@ def serve_tcp_clients(card, index, paths, names, rng) -> dict:
     return stats
 
 
+TRAIN_CLASSES = 16      # phase 14: classes of the labelled tree
+TRAIN_VIEWS = 4         # phase 14: JPEG views of each class
+TRAIN_WARMUP = 3        # phase 14a: steps before the timed ones
+TRAIN_TIMED = 10        # phase 14a: timed steps on the fixed batch
+TRAIN_FALL = 8          # phase 14a: steps over which the loss must fall
+GRAD_COS = 0.9999       # phase 14b: per-tensor cosine, card f32 vs CPU f32
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A ``torch.distributed`` group of this one process on the loopback,
+    started by ``parallel.initialize()`` at its default backend (gloo for
+    CPU tensors, NCCL for CUDA ones) and torn down after."""
+    import socket
+
+    import torch.distributed as dist
+    from instsearch_torch.parallel import initialize
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # one process on the loopback: NCCL's and gloo's bootstraps stay on it
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", NCCL_SOCKET_IFNAME="lo",
+               GLOO_SOCKET_IFNAME="lo")
+    os.environ.update(env)
+    try:
+        backend = str(dist.get_backend()) if initialize() else "none"
+        if "cuda:nccl" not in backend:
+            fail(f"initialize() did not start a group with NCCL for CUDA "
+                 f"tensors (backend: {backend})")
+        yield dist
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for v in env:
+            os.environ.pop(v, None)
+
+
+def write_train_tree(gen, folder: str) -> list[str]:
+    """``folder/views/c{c:02d}v{v}.jpg``: one seeded grating a class (phase
+    13's images), each view of it shifted, its brightness scaled and pixel
+    noise added, as the mini fixture makes its views; and the labelled tree
+    ``folder/tree/class{c:02d}/`` of links to them. Returns the views'
+    paths, class-major."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(14)
+    views = os.path.join(folder, "views")
+    os.makedirs(views)
+    paths = []
+    bases = np.concatenate(list(grating_images(gen, TRAIN_CLASSES)))
+    for c, base in enumerate(bases):
+        d = os.path.join(folder, "tree", f"class{c:02d}")
+        os.makedirs(d)
+        for v in range(TRAIN_VIEWS):
+            img = (np.roll(base.astype(np.float32),
+                           tuple(rng.integers(-24, 25, 2)), axis=(0, 1))
+                   * rng.uniform(0.85, 1.15)
+                   + rng.normal(0, 6.0, base.shape))
+            paths.append(os.path.join(views, f"c{c:02d}v{v}.jpg"))
+            if not cv2.imwrite(paths[-1], np.clip(img, 0, 255).astype(
+                    np.uint8)[:, :, ::-1]):
+                fail(f"cannot write {paths[-1]}")
+            os.symlink(paths[-1], os.path.join(d, f"c{c:02d}v{v}.jpg"))
+    return paths
+
+
+def grad_cosines(a: dict, b: dict) -> dict:
+    """Per-tensor cosine of two gradient dicts (f64 on the host)."""
+    out = {}
+    for name, g in a.items():
+        x = g.double().cpu().flatten()
+        y = b[name].double().cpu().flatten()
+        out[name] = float(x @ y / (x.norm() * y.norm()).clamp(min=1e-300))
+    return out
+
+
+def train_steps(cfg, batch, steps: int, **kw):
+    """A seeded ``Trainer`` (``kw``: mesh) on the card -> (its losses over
+    ``steps`` steps on ``batch``, the trainer)."""
+    from instsearch_torch.train import Trainer
+    tr = Trainer(cfg, seed=0, **kw)
+    return [tr.step(batch)["loss"] for _ in range(steps)], tr
+
+
+def max_param_diff(a, b) -> float:
+    return max(float((a.params[n].detach() - b.params[n].detach()).abs()
+                     .max()) for n in a.params)
+
+
+def phase14(card: str, gen) -> dict:
+    """Fine-tuning on the card at full width: the default ``TrainConfig``
+    (ResNet-50 at 224 px, GeM, bf16, 8 tuples of 2 + 5 images) over a
+    seeded labelled tree of JPEG files in a temporary folder, removed at
+    the end."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase14_")
+    try:
+        return _phase14(card, gen, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase14(card, gen, tmp) -> dict:
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from instsearch_torch.config import TrainConfig
+    from instsearch_torch.data import frontend
+    from instsearch_torch.train import Trainer
+    t_phase = time.perf_counter()
+    paths = write_train_tree(gen, tmp)
+    tree, views = os.path.join(tmp, "tree"), os.path.join(tmp, "views")
+    cfg = TrainConfig()
+    t = 2 + cfg.num_negatives
+    images = np.stack([frontend.load_square(p, cfg.image_size)
+                       for p in paths])
+    # tuple i: two views of class i, then view 0 of the next classes
+    tuples = [[TRAIN_VIEWS * i, TRAIN_VIEWS * i + 1]
+              + [TRAIN_VIEWS * ((i + j) % TRAIN_CLASSES)
+                 for j in range(1, t - 1)] for i in range(TRAIN_CLASSES)]
+    batch = images[np.asarray(tuples[:cfg.batch_size])]  # [8, 7, S, S, 3]
+    small = images[np.asarray(tuples[:2])]               # [2, 7, S, S, 3]
+
+    # (a) the step on a fixed batch: time, rate, memory; the loss falls
+    tr = Trainer(cfg, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        losses.append(tr.step(batch)["loss"])     # the float syncs
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.all(np.isfinite(losses)):
+        fail(f"phase 14a: a loss is not finite: {losses}")
+    if not losses[TRAIN_FALL - 1] < losses[0]:
+        fail(f"phase 14a: the loss did not fall over {TRAIN_FALL} steps: "
+             f"{losses[:TRAIN_FALL]}")
+    step_ms = statistics.median(times[TRAIN_WARMUP:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr.step(batch)
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 3e3
+    if busy <= 0:
+        fail("phase 14a: the profiler recorded no device operation")
+    n_img = cfg.batch_size * t
+    report(card, phase=14, part="a", backbone=cfg.backbone,
+           image_size=cfg.image_size, dtype=cfg.dtype, pooling=cfg.pooling,
+           loss=cfg.loss, images_per_step=n_img, step_ms_p50=step_ms,
+           step_ms_min=min(times[TRAIN_WARMUP:]),
+           images_per_s=n_img / step_ms * 1e3, peak_gib=peak,
+           profiled_step_ms=wall, device_busy_ms=busy,
+           idle_share=1 - busy / wall,
+           idle_share_unprofiled=1 - busy / step_ms,
+           losses=losses[:TRAIN_FALL])
+    del tr
+    torch.cuda.empty_cache()
+
+    # (b) one f32 step on the card against the same step on the CPU, and
+    # the bf16 route's gradients against the f32 route's
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("phase 14b: TF32 is on")
+    f32 = cfg.replace(dtype="float32")
+    card_f32 = Trainer(f32, seed=0)
+    loss_card, g_card = card_f32.value_and_grad(small)
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = Trainer(f32, variables=card_f32.variables,
+                              device="cpu").value_and_grad(small)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    cos = grad_cosines(g_card, g_cpu)
+    worst = min(cos, key=cos.get)
+    if rel > 1e-4 or cos[worst] < GRAD_COS:
+        fail(f"phase 14b: the card's f32 step against the CPU's: loss "
+             f"{float(loss_card)} vs {float(loss_cpu)}, lowest gradient "
+             f"cosine {cos[worst]} ({worst})")
+    _, g_bf16 = Trainer(cfg, variables=card_f32.variables).value_and_grad(
+        small)
+    cos_bf16 = grad_cosines(g_bf16, g_card)
+    report(card, phase=14, part="b", loss_card=float(loss_card),
+           loss_cpu=float(loss_cpu), loss_rel_diff=rel,
+           grad_cos_min=cos[worst], grad_cos_min_tensor=worst,
+           cpu_step_s=cpu_s, bf16_vs_f32_grad_cos_min=min(cos_bf16.values()),
+           bf16_vs_f32_grad_cos_median=statistics.median(cos_bf16.values()),
+           tensors=len(cos))
+    del card_f32, g_card, g_cpu, g_bf16
+
+    # (c) the data-parallel form on an NCCL group of one process, and (d)
+    # remat, each against the plain trainer; cuDNN's deterministic
+    # algorithms, so that two runs of one arithmetic agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        with world_of_one() as dist:
+            for loss in ("contrastive", "smoothap"):
+                c = cfg.replace(loss=loss, batch_size=2)
+                plain, tp = train_steps(c, small, 2)
+                dp, td = train_steps(c, small, 2, mesh=dist.group.WORLD)
+                diff = max_param_diff(tp, td)
+                if plain != dp or diff != 0.0:
+                    fail(f"phase 14c: {loss} under an NCCL group of one "
+                         f"differs: losses {dp} vs {plain}, parameters by "
+                         f"{diff}")
+                report(card, phase=14, part="c", loss=loss,
+                       backend=str(dist.get_backend()), losses=dp,
+                       max_param_diff=diff)
+        c = cfg.replace(batch_size=2)
+        plain, tp = train_steps(c, small, 1)
+        remat, tr_ = train_steps(c.replace(remat=True), small, 1)
+        rel = abs(remat[0] - plain[0]) / abs(plain[0])
+        if rel > 1e-6:
+            fail(f"phase 14d: remat's loss {remat[0]} vs plain {plain[0]}")
+        report(card, phase=14, part="d", loss_plain=plain[0],
+               loss_remat=remat[0], loss_rel_diff=rel,
+               max_param_diff=max_param_diff(tp, tr_))
+        del tp, td, tr_
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    # (e) the command line: finetune with Lw and the frozen-versus-tuned
+    # report, build-index --weights over the tree, a query of every view
+    ckpt = os.path.join(tmp, "tuned")
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    (ft,), counts = count_launches(lambda: cli_in_process(
+        "finetune", "--images", tree, "--out", ckpt, "--fit-lw",
+        "--learn-p", "--eval-dataset", "mini", "--eval-data-root", data))
+    ft_s = time.perf_counter() - t0
+    for f in (os.path.join(ckpt, "torch_weights.pt"), ckpt + ".meta.json",
+              ckpt + ".whitening.npz"):
+        if not os.path.isfile(f):
+            fail(f"phase 14e: finetune wrote no {f}")
+    report(card, phase=14, part="e", run="finetune", seconds=ft_s, **ft)
+    idx = os.path.join(tmp, "idx")
+    (built,), c = count_launches(lambda: cli_in_process(
+        "build-index", "--images", views, "--out", idx, "--weights", ckpt))
+    add_counts(counts, c)
+    with open(ckpt + ".meta.json") as fh:
+        meta = json.load(fh)
+    lw = np.load(ckpt + ".whitening.npz")
+    if built["indexed"] != len(paths) or built["dim"] != lw["P"].shape[0]:
+        fail(f"phase 14e: build-index --weights printed {built}")
+    # Lw pulls a class's views together: a view's own entry may trail
+    # another view of its class by a bf16 near-tie, and the first
+    # TRAIN_VIEWS results must be its class's views
+    ties = 0
+    for p in paths:
+        name = os.path.splitext(os.path.basename(p))[0]
+        (ans,), c = count_launches(lambda: cli_in_process(
+            "query", "--index", idx, "--image", p))
+        add_counts(counts, c)
+        top = ans["results"]
+        if not top1_is_source(top, name) or {
+                e["name"][:3] for e in top[:TRAIN_VIEWS]} != {name[:3]}:
+            fail(f"phase 14e: query of {name}: {top[:TRAIN_VIEWS + 1]}")
+        ties += top[0]["name"] != name
+    if not counts.get("topk_matmul"):
+        fail(f"phase 14e launched no K1: {counts}")
+    report(card, phase=14, part="e", run="build-index --weights + query",
+           gem_p=meta["gem_p"], dim=built["dim"], queries=len(paths),
+           top1_correct=True, class_views_first=True, near_tie_swaps=ties,
+           launches_train=counts,
+           phase_s=time.perf_counter() - t_phase)
+    return {"launches": counts}
+
+
 def main() -> int:
     try:
         import torch
@@ -4397,6 +4677,8 @@ def main() -> int:
     del corpus, ox
     torch.cuda.empty_cache()
     cli = phase13(card, gen)["launches"]
+    torch.cuda.empty_cache()
+    train = phase14(card, gen)["launches"]
     phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
               "topk_matmul_int4": res8c["launches"]}
     # the sharded routes' launches, on the main path too (phases 3, 8b, 9,
@@ -4433,12 +4715,14 @@ def main() -> int:
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
                      "launches": (launches + phase8.get(name, 0)
                                   + sharded.get(name, 0) + subset[name]
-                                  + quality.get(name, 0) + cli.get(name, 0)),
+                                  + quality.get(name, 0) + cli.get(name, 0)
+                                  + train.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
                      "launches_quality": quality.get(name, 0),
                      "launches_cli": cli.get(name, 0),
+                     "launches_train": train.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4475,7 +4759,9 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": "instsearch_torch/csrc/vit_attention.cu",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
-                     "launches": launches, "launches_cli": cli.get(name, 0),
+                     "launches": launches + train.get(name, 0),
+                     "launches_cli": cli.get(name, 0),
+                     "launches_train": train.get(name, 0),
                      "max_abs_err": att_errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4487,8 +4773,10 @@ def main() -> int:
     rows.append({"name": "fused_identity_blocks", "route": "cuda",
                  "source": "instsearch_torch/csrc/fused_resnet.cu",
                  "replaces": "instsearch_tpu/kernels/fused_resnet.py:138",
-                 "launches": res6["launches"],
+                 "launches": (res6["launches"]
+                              + train.get("fused_identity_blocks", 0)),
                  "launches_cli": cli.get("fused_identity_blocks", 0),
+                 "launches_train": train.get("fused_identity_blocks", 0),
                  "max_abs_err": fused_err,
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -13,11 +13,17 @@ subcommand), where the work runs, the port's counterpart of
 subcommand that touches tensors exits with code 2 and says so, and never
 carries on on the CPU unless ``--device cpu`` asks for it.
 
+``finetune`` writes the port's checkpoint (``utils/checkpoint.py``: a
+directory holding ``torch_weights.pt``) and the reference's sidecars beside
+it, ``<out>.meta.json`` (``gem_p``, ``backbone``, ``pooling``,
+``image_size``, ``whitening``) and, with ``--fit-lw``,
+``<out>.whitening.npz``; ``build-index --weights`` and ``evaluate
+--weights`` read it.
+
 Refused with exit code 2, and a message naming the ROADMAP item: ``bench``
-(M10a, with the port's benchmark), ``finetune`` and ``build-index
---weights`` (which reads a ``finetune`` checkpoint; M12), and ``evaluate
---weights`` given an orbax tree (M10's orbax reader; a torchvision
-``.pth``/``.pt`` checkpoint is imported by ``models/torch_import.py``).
+(M10a, with the port's benchmark), and ``--weights`` given an orbax tree
+(M10's orbax reader; a torchvision ``.pth``/``.pt`` checkpoint is imported
+by ``models/torch_import.py``).
 """
 from __future__ import annotations
 
@@ -93,15 +99,59 @@ def _refit_views(idx, params: dict) -> None:
                         anisotropic_t=apq_t)
 
 
+def _finetuned(path: str, cfg: PipelineConfig, device):
+    """A ``finetune`` checkpoint -> ``(cfg, variables, whitening)``: the
+    sidecar's ``gem_p``, backbone, pooling and image size applied to the
+    extraction config, and its Lw whitening (which replaces the PCA fit)
+    on ``device``. Raises ``FileNotFoundError`` when a recorded whitening
+    sidecar is missing, ``NotImplementedError`` for an orbax tree."""
+    import numpy as np
+    import torch
+
+    from .ops.whitening import WhiteningParams
+    from .utils.checkpoint import load_pytree
+    variables = load_pytree(path)
+    whitening = None
+    meta_path = path + ".meta.json"
+    if os.path.exists(meta_path):
+        with open(meta_path) as fh:
+            wmeta = json.load(fh)
+        ex = cfg.extract
+        cfg = cfg.replace(extract=ex.replace(
+            backbone=wmeta.get("backbone", ex.backbone),
+            pooling=wmeta.get("pooling", ex.pooling),
+            gem_p=wmeta.get("gem_p", ex.gem_p),
+            image_size=wmeta.get("image_size", ex.image_size)))
+        if wmeta.get("whitening"):
+            # a relative path is the sidecar's name beside the meta file
+            wpath = wmeta["whitening"]
+            if not os.path.isabs(wpath):
+                wpath = os.path.join(os.path.dirname(
+                    os.path.abspath(meta_path)), os.path.basename(wpath))
+            if not os.path.exists(wpath):
+                raise FileNotFoundError(
+                    f"whitening sidecar {wmeta['whitening']} recorded by "
+                    f"finetune --fit-lw not found (looked at {wpath})")
+            raw = np.load(wpath)
+            whitening = WhiteningParams(
+                P=torch.from_numpy(raw["P"]).to(device),
+                mu=torch.from_numpy(raw["mu"]).to(device))
+    return cfg, variables, whitening
+
+
 def cmd_build_index(args) -> int:
     from .index import Index
     cfg = _load_cfg(args)
     if args.dba_n:
         cfg = cfg.replace(index=cfg.index.replace(
             dba_n=args.dba_n, dba_alpha=args.dba_alpha))
+    variables = whitening = None
     if args.weights:
-        return _error("--weights reads a `finetune` checkpoint, and "
-                      "fine-tuning is not ported yet (ROADMAP M12)")
+        try:
+            cfg, variables, whitening = _finetuned(args.weights, cfg,
+                                                   args.device)
+        except (NotImplementedError, FileNotFoundError) as e:
+            return _error(str(e))
     if args.pq and args.ivf:
         # both views would arm both candidate tiers in the saved config
         return _error("--ivf and --pq are mutually exclusive candidate "
@@ -115,11 +165,12 @@ def cmd_build_index(args) -> int:
     if args.resumable:
         from .builder import ResumableBuilder
         b = ResumableBuilder(paths, cfg, args.out + ".build",
-                             device=args.device)
+                             variables=variables, device=args.device)
         b.run()
-        idx = b.finalize()
+        idx = b.finalize(whitening=whitening)
     else:
-        idx = Index.build(paths, cfg, device=args.device)
+        idx = Index.build(paths, cfg, variables=variables,
+                          whitening=whitening, device=args.device)
     out = {"indexed": idx.num_valid, "quarantined": len(idx.quarantined),
            "dim": idx.dim, "out": args.out}
     if cfg.index.dba_n:
@@ -330,12 +381,13 @@ def cmd_serve(args) -> int:
 def load_backbone_variables(path: str, backbone: str) -> dict:
     """Extractor weights for ``evaluate --weights``: a torch(vision)
     ``state_dict`` checkpoint (``.pth``/``.pt``) imported onto the port's
-    modules (``models/torch_import.py``). Raises ``NotImplementedError`` for
-    anything else, the reference's orbax trees."""
+    modules (``models/torch_import.py``), or the port's ``finetune``
+    checkpoint directory (``utils/checkpoint.py``). Raises
+    ``NotImplementedError`` for anything else, the reference's orbax
+    trees."""
     if not path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"{path} is not a .pth/.pt torch checkpoint; orbax weight trees "
-            f"need the orbax reader, which is not ported (ROADMAP M10)")
+        from .utils.checkpoint import load_pytree
+        return load_pytree(path)
     import torch
 
     from .models import torch_import
@@ -402,8 +454,87 @@ def cmd_bench(args) -> int:
 
 
 def cmd_finetune(args) -> int:
-    return _error("fine-tuning (the trainer, mining and losses) is not "
-                  "ported yet (ROADMAP M12)")
+    """Fine-tune a backbone on a labelled image tree: each subdirectory of
+    --images is one instance or class (arXiv:1711.02512)."""
+    import numpy as np
+
+    from .config import TrainConfig
+    from .train.finetune import finetune
+    from .utils.checkpoint import save_pytree
+
+    if not os.path.isdir(args.images):
+        return _error(f"{args.images} is not a directory")
+    paths, labels = [], []
+    for li, sub in enumerate(sorted(os.listdir(args.images))):
+        d = os.path.join(args.images, sub)
+        if not os.path.isdir(d):
+            continue
+        for p in _image_paths(d):
+            paths.append(p)
+            labels.append(li)
+    n_classes = len(set(labels))
+    if not paths or n_classes < 2:
+        return _error(f"need >= 2 class subdirectories with images under "
+                      f"{args.images} (found {n_classes})")
+    counts = np.bincount(np.asarray(labels))
+    num_neg = min(args.num_negatives, int(counts.sum() - counts.max()))
+    cfg = TrainConfig(backbone=args.backbone or "resnet50",
+                      image_size=args.image_size, learn_gem_p=args.learn_p,
+                      batch_size=args.batch_size,
+                      num_negatives=max(1, num_neg), lr=args.lr,
+                      loss=args.loss, smoothap_tau=args.smoothap_tau)
+    init_vars = None
+    if args.eval_dataset:
+        # the frozen weights the run starts from, for the tuned-versus-
+        # frozen report (the trainer copies them, so they stay frozen)
+        from .train.trainer import Trainer
+        init_vars = Trainer(cfg, seed=0, device=args.device).variables
+    try:
+        out = finetune(paths, np.asarray(labels), cfg, epochs=args.epochs,
+                       fit_lw=args.fit_lw, variables=init_vars,
+                       device=args.device)
+    except ValueError as e:
+        return _error(str(e))
+    save_pytree(args.out, out["variables"])
+    # the learned GeM exponent is not a backbone variable: the sidecar
+    # carries it, and the rest of the tuned model's description
+    meta = {"gem_p": out["gem_p"], "backbone": cfg.backbone,
+            "pooling": cfg.pooling, "image_size": cfg.image_size}
+    if "whitening" in out:
+        w = out["whitening"]
+        np.savez(args.out + ".whitening.npz", P=w.P.cpu().numpy(),
+                 mu=w.mu.cpu().numpy())
+        meta["whitening"] = os.path.abspath(args.out + ".whitening.npz")
+    with open(args.out + ".meta.json", "w") as fh:
+        json.dump(meta, fh)
+    report = {"steps": len(out["losses"]),
+              "final_loss": out["losses"][-1],
+              "gem_p": out["gem_p"], "out": args.out,
+              "meta": args.out + ".meta.json"}
+    if args.eval_dataset:
+        # the tuned-versus-frozen retrieval lift on a held-out dataset
+        from .config import ExtractConfig
+        from .eval.datasets import load_dataset
+        from .eval.evaluate import build_index_for_dataset, evaluate_index
+        ds = load_dataset(args.eval_dataset, args.eval_data_root)
+
+        def _map(variables, gem_p):
+            pcfg = PipelineConfig(extract=ExtractConfig(
+                backbone=cfg.backbone, pooling=cfg.pooling, gem_p=gem_p,
+                image_size=cfg.image_size, batch_size=cfg.batch_size * 4,
+                dtype="float32"))
+            idx = build_index_for_dataset(ds, pcfg, variables=variables,
+                                          device=args.device)
+            return evaluate_index(idx, ds, args.eval_protocol)["mAP"]
+
+        frozen = _map(init_vars, cfg.gem_p)
+        tuned = _map(out["variables"], out["gem_p"])
+        report.update(eval_dataset=args.eval_dataset,
+                      eval_protocol=args.eval_protocol,
+                      frozen_mAP=round(frozen, 2), tuned_mAP=round(tuned, 2),
+                      lift=round(tuned - frozen, 2))
+    print(json.dumps(report))
+    return 0
 
 
 def cmd_workloads(args) -> int:
@@ -435,7 +566,8 @@ def main(argv=None) -> int:
                    help="flush per batch-group with a manifest; restart "
                         "resumes")
     b.add_argument("--weights", default=None,
-                   help="a `finetune` checkpoint (not ported: ROADMAP M12)")
+                   help="a `finetune` checkpoint (reads the .meta.json "
+                        "sidecar for gem_p/backbone and the Lw whitening)")
     b.add_argument("--dba-n", type=int, default=0,
                    help="database-side augmentation: aggregate each row's "
                         "top-n neighbors offline (0 = off)")
@@ -566,8 +698,8 @@ def main(argv=None) -> int:
     e.add_argument("--backbone", default=None)
     e.add_argument("--weights", default=None,
                    help="extractor weights: a torchvision .pth state_dict "
-                        "(converted on load); orbax trees are not read "
-                        "(ROADMAP M10)")
+                        "(converted on load) or a `finetune` checkpoint; "
+                        "orbax trees are not read (ROADMAP M10)")
     e.add_argument("--distractors", default=None,
                    help="directory of distractor images (Oxford105k-style)")
     e.add_argument("--sharded", action="store_true",
@@ -621,11 +753,11 @@ def main(argv=None) -> int:
     be.set_defaults(fn=cmd_bench)
 
     f = sub.add_parser("finetune", parents=[on_sub],
-                       help="contrastive fine-tuning on a labeled image tree "
-                            "(not ported: ROADMAP M12)")
+                       help="contrastive fine-tuning on a labeled image tree")
     f.add_argument("--images", required=True,
                    help="directory with one subdirectory per instance/class")
-    f.add_argument("--out", required=True, help="checkpoint path")
+    f.add_argument("--out", required=True,
+                   help="checkpoint directory (torch_weights.pt)")
     f.add_argument("--backbone", default=None)
     f.add_argument("--image-size", type=int, default=224)
     f.add_argument("--epochs", type=int, default=1)
@@ -656,7 +788,7 @@ def main(argv=None) -> int:
     w.set_defaults(fn=cmd_workloads)
 
     args = p.parse_args(argv)
-    if args.fn not in (cmd_bench, cmd_finetune):
+    if args.fn is not cmd_bench:
         try:
             args.device = resolve_device(args.device)
         except RuntimeError as e:

@@ -20,11 +20,7 @@ import torch
 from .data import frontend
 from .data.loader import iter_batches
 from .models import get_backbone
-from .models.jax_import import load_jax_resnet, load_jax_vgg, load_jax_vit
-from .models.registry import descriptor_dim
-from .models.torch_import import load_state_dict_checked
-from .models.vgg import VGG
-from .models.vit import ViT
+from .models.registry import descriptor_dim, load_variables
 from .ops import l2_normalize, pool
 from .ops.pooling import rmac_region_geometry, rmac_regional_descriptors
 from .ops.whitening import WhiteningParams, apply_whitening
@@ -143,14 +139,8 @@ class Extractor:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             self.model.init_weights(gen)
-        elif "params" not in variables:     # the port's own state_dict
-            load_state_dict_checked(self.model, variables)
-        elif isinstance(self.model, ViT):
-            load_jax_vit(self.model, variables)
-        elif isinstance(self.model, VGG):
-            load_jax_vgg(self.model, variables)
         else:
-            load_jax_resnet(self.model, variables)
+            load_variables(self.model, variables)
         self.model.eval()
         self.whitening = whitening
         self._regional_fn = build_regional_fn(cfg, self.model)

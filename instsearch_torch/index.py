@@ -105,6 +105,7 @@ from .search.qe import expand_from_candidates
 from .search.rerank import rerank_from_candidates
 from .search.spatial import build_vote_matrix
 from .search.subset import SubsetFilter, build_position_mask
+from .utils.checkpoint import WEIGHTS_FILE as _WEIGHTS_FILE
 from .utils.chunking import run_chunked
 from .utils.device import resolve_device
 from .utils.observe import COUNTERS
@@ -232,9 +233,6 @@ def _lw_composite(descriptors, ids, queries, num_valid: int, scales, lw,
                                 lw.params.mu)
     return lw_rescore_from_candidates(lw.store, lw.assign, ids, g, pos,
                                       q_all, k=k)
-
-
-_WEIGHTS_FILE = "torch_weights.pt"   # the port's backbone state_dict
 
 
 def _extractor_fingerprint(ex) -> list:

@@ -12,9 +12,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..utils.device import resolve_device
+from .jax_import import load_jax_resnet, load_jax_vgg, load_jax_vit
 from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
-from .vgg import vgg16
-from .vit import vit_b_16, vit_l_16
+from .torch_import import load_state_dict_checked
+from .vgg import VGG, vgg16
+from .vit import ViT, vit_b_16, vit_l_16
 
 
 class BackboneSpec(NamedTuple):
@@ -54,6 +56,22 @@ def get_backbone(name: str, dtype=torch.bfloat16, device=None,
         return spec.factory(dtype=dtype, attention=attention,
                             device=device), spec
     return spec.factory(dtype=dtype, device=device), spec
+
+
+def load_variables(model: torch.nn.Module, variables) -> None:
+    """Copy ``variables`` into ``model`` in place (checked, strict): the
+    reference's Flax variables (a mapping with a ``"params"`` collection,
+    carried by ``models.jax_import`` by the model's family), or a state_dict
+    of the port's model (any other mapping). The caller's tensors are
+    never the model's: ``load_state_dict`` copies."""
+    if "params" not in variables:
+        load_state_dict_checked(model, variables)
+    elif isinstance(model, ViT):
+        load_jax_vit(model, variables)
+    elif isinstance(model, VGG):
+        load_jax_vgg(model, variables)
+    else:
+        load_jax_resnet(model, variables)
 
 
 def descriptor_dim(cfg) -> int:

@@ -10,7 +10,8 @@ from .pooling import (avg_pool, gem_pool, l2_normalize, mac_pool, pool,
 from .quantize import (QuantizedRows, dequantize_rows, dequantize_rows_int4,
                        quantize_rows, quantize_rows_int4, unpack_int4)
 from .whitening import (WhiteningParams, apply_whitening,
-                        apply_whitening_regional, fit_whitening)
+                        apply_whitening_regional, fit_lw_whitening,
+                        fit_whitening)
 
 __all__ = ["avg_pool", "gem_pool", "l2_normalize", "mac_pool", "pool",
            "rmac_pool", "rmac_region_geometry", "rmac_region_grid",
@@ -18,6 +19,6 @@ __all__ = ["avg_pool", "gem_pool", "l2_normalize", "mac_pool", "pool",
            "QuantizedRows", "dequantize_rows", "dequantize_rows_int4",
            "quantize_rows", "quantize_rows_int4", "unpack_int4",
            "WhiteningParams", "apply_whitening", "apply_whitening_regional",
-           "fit_whitening", "assign_clusters", "fit_kmeans",
+           "fit_whitening", "fit_lw_whitening", "assign_clusters", "fit_kmeans",
            "LocalWhiteningParams", "apply_local_whitening",
            "fit_local_whitening", "route"]

@@ -1,5 +1,6 @@
 """PCA-whitening of descriptors (port of ``instsearch_tpu/ops/whitening.py``:
-``fit_whitening``, ``apply_whitening`` and ``apply_whitening_regional``).
+``fit_whitening``, ``fit_lw_whitening``, ``apply_whitening`` and
+``apply_whitening_regional``).
 
 The fit takes the eigendecomposition of the D x D covariance with
 ``torch.linalg.eigh`` in float64 (the covariance is accumulated in f32, as
@@ -46,6 +47,36 @@ def fit_whitening(X: torch.Tensor, dim: int | None = None,
     evecs = evecs.flip(1)[:, :dim]
     P = (evecs * torch.rsqrt(torch.clamp(evals, min=eps))).T
     return WhiteningParams(P=P.float().contiguous(), mu=mu)
+
+
+def fit_lw_whitening(anchors: torch.Tensor, positives: torch.Tensor,
+                     dim: int | None = None,
+                     eps: float = 1e-9) -> WhiteningParams:
+    """Learned discriminative (Lw) whitening (arXiv:1711.02512 §3.4) of
+    matched pairs ``anchors``/``positives: [M, D]``: whiten by the
+    within-pair scatter ``C_S = mean_i (a_i - p_i)(a_i - p_i)^T`` (its
+    inverse square root, eigenvalues floored at ``max(eig) * 1e-4`` so
+    unobserved directions are amplified boundedly), then rotate by the PCA
+    of the projected anchors, keeping ``min(dim, D, M - 1)`` components.
+    Both eigendecompositions are f32, as the reference's; ``P`` is defined
+    up to the sign of each row."""
+    a = anchors.float()
+    p = positives.float()
+    m, d = a.shape
+    dim = d if dim in (None, 0) else min(dim, d)
+    dim = min(dim, max(m - 1, 1))
+    diff = a - p
+    cs = (diff.T @ diff) / max(m, 1)
+    s_evals, s_evecs = torch.linalg.eigh(cs)
+    floor = torch.clamp(torch.max(s_evals) * 1e-4, min=eps)
+    inv_sqrt = (s_evecs * torch.rsqrt(torch.maximum(s_evals, floor))
+                ) @ s_evecs.T                                   # [D, D]
+    mu = a.mean(dim=0)
+    proj = (a - mu) @ inv_sqrt.T
+    cov = (proj.T @ proj) / max(m - 1, 1)
+    _, r_evecs = torch.linalg.eigh(cov)                         # ascending
+    rot = r_evecs.flip(1)[:, :dim]                              # top-dim PCA
+    return WhiteningParams(P=(rot.T @ inv_sqrt).contiguous(), mu=mu)
 
 
 def apply_whitening(x: torch.Tensor, params: WhiteningParams,

@@ -6,8 +6,10 @@ Every subcommand runs through ``main`` on the mini fixture at 64 px in f32
 with each view, update-index, merge-index, query, info, dedupe, evaluate
 (``--weights``, ``--distractors``, ``--sharded``), serve over stdin (an
 image index, sharded, and a host store with ``--adc-only``) and over TCP
-as ``python -m instsearch_torch.cli``, workloads; bench, finetune and the
-``finetune``/orbax weights refuse with exit code 2.
+as ``python -m instsearch_torch.cli``, workloads, finetune (with
+``--fit-lw`` and ``--eval-dataset``) and its checkpoint read back by
+``build-index --weights`` and ``evaluate --weights``; bench and orbax
+weights refuse with exit code 2.
 
 Against the reference, on the same inputs:
   * the subcommands and every option's spellings (``-h``), the port's
@@ -438,9 +440,6 @@ def test_workloads_subcommand(rig, capsys, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["bench"], "M10a"),
     (["bench", "--what", "query"], "M10a"),
-    (["finetune", "--images", "x", "--out", "y"], "M12"),
-    (["build-index", "--images", "x", "--out", "y", "--weights", "ck"],
-     "M12"),
     (["evaluate", "--weights", "finetuned_checkpoint"], "M10"),
 ])
 def test_refusals(capsys, argv, item):
@@ -449,12 +448,92 @@ def test_refusals(capsys, argv, item):
     assert f"ROADMAP {item}" in err
 
 
+@pytest.fixture(scope="module")
+def tuned(rig, tmp_path_factory):
+    """``finetune`` over a labelled tree of the mini fixture's instances
+    (one subdirectory each, their database views) at 32 px, Smooth-AP,
+    with ``--fit-lw`` and the tuned-versus-frozen report on the mini
+    fixture: (report, checkpoint path)."""
+    tree = tmp_path_factory.mktemp("tree")
+    for name in rig["ds"].imlist:
+        if name.startswith("inst"):
+            os.makedirs(tree / name[:6], exist_ok=True)
+            shutil.copy(rig["ds"].image_path(name), tree / name[:6])
+    ckpt = str(tree.parent / "tuned")
+    out = io.StringIO()
+    argv = ["--device", "cpu", "finetune", "--images", str(tree), "--out",
+            ckpt, "--backbone", "resnet18", "--image-size", "32",
+            "--batch-size", "4", "--num-negatives", "2", "--loss",
+            "smoothap", "--fit-lw", "--eval-dataset", "mini",
+            "--eval-data-root", rig["data"]]
+    from contextlib import redirect_stdout
+    with redirect_stdout(out):
+        assert tcli.main(argv) == 0
+    return json.loads(out.getvalue().strip().splitlines()[-1]), ckpt
+
+
+def _tuned_cfg(rig):
+    path = rig["tmp"] / "cfg32.json"
+    with open(path, "w") as f:
+        json.dump({"extract": dict(EXTRACT, image_size=32, batch_size=16),
+                   "index": {"dtype": "float32", "row_tile": 8},
+                   "search": {"k": 5}}, f)
+    return str(path)
+
+
+def test_finetune_subcommand(rig, tuned, capsys):
+    """The report carries the reference's keys; the checkpoint and its
+    sidecars are written; the frozen mAP is the mAP ``evaluate`` gives the
+    seeded weights the run started from, the tuned one the mAP ``evaluate
+    --weights`` gives the checkpoint."""
+    report, ckpt = tuned
+    assert set(report) == {"steps", "final_loss", "gem_p", "out", "meta",
+                           "eval_dataset", "eval_protocol", "frozen_mAP",
+                           "tuned_mAP", "lift"}
+    assert report["gem_p"] == 3.0 and np.isfinite(report["final_loss"])
+    assert os.path.isfile(os.path.join(ckpt, "torch_weights.pt"))
+    assert os.path.isfile(ckpt + ".whitening.npz")
+    base = ["evaluate", "--config", _tuned_cfg(rig), "--dataset", "mini",
+            "--data-root", rig["data"], "--protocol", "medium"]
+    rc, frozen, _ = port(capsys, *base)
+    assert rc == 0 and round(frozen[0]["mAP"], 2) == report["frozen_mAP"]
+    rc, tuned_map, _ = port(capsys, *base, "--weights", ckpt)
+    assert rc == 0 and round(tuned_map[0]["mAP"], 2) == report["tuned_mAP"]
+    assert report["lift"] == pytest.approx(
+        report["tuned_mAP"] - report["frozen_mAP"], abs=0.011)
+
+
+def test_build_index_weights_subcommand(rig, tuned, capsys):
+    """``build-index --weights`` takes the sidecar's image size and Lw
+    whitening (the index's width is the whitening's, one row fewer than
+    the training pairs) and stores the tuned backbone."""
+    _, ckpt = tuned
+    out = str(rig["tmp"] / "idx_tuned")
+    rc, res, _ = port(capsys, "build-index", "--images",
+                      rig["ds"].image_root, "--out", out, "--config",
+                      rig["cfg"], "--weights", ckpt)
+    assert rc == 0
+    lw = np.load(ckpt + ".whitening.npz")
+    views = sum(n.startswith("inst") for n in rig["ds"].imlist)
+    per = views // len({n[:6] for n in rig["ds"].imlist
+                        if n.startswith("inst")})
+    assert res[0]["dim"] == lw["P"].shape[0] == views * (per - 1) - 1
+    idx = Index.load(out, device="cpu")
+    assert idx.cfg.extract.image_size == 32
+    np.testing.assert_array_equal(idx.extractor.whitening.P.numpy(),
+                                  lw["P"])
+    tuned = torch.load(os.path.join(ckpt, "torch_weights.pt"))
+    got = idx.extractor.model.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in tuned.items())
+
+
 @pytest.mark.parametrize("argv", [
     ["info", "--index", "x"], ["dedupe", "--index", "x"],
     ["query", "--index", "x", "--image", "y"], ["serve", "--index", "x"],
     ["build-index", "--images", "x", "--out", "y"], ["workloads"],
     ["evaluate"], ["update-index", "--index", "x"],
     ["merge-index", "x", "--out", "y"],
+    ["finetune", "--images", "x", "--out", "y"],
 ])
 def test_no_card_without_device_exits_nonzero(capsys, monkeypatch, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

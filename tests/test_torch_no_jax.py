@@ -19,8 +19,10 @@ host row store through ``VectorServeCore``, import the entry points (the
 command line, ``ResumableBuilder``, ``workloads.py``, ``serve_tcp``, the
 input pipeline and native decoder, the dataset loaders and anchors, the
 torchvision importer, the observability helpers) and run ``cli info`` on
-a saved index, then check sys.modules: neither JAX nor any module of the
-reference package was loaded."""
+a saved index, take a fine-tuning step (``instsearch_torch.train``), mine
+hard negatives and write and read the port's checkpoint
+(``instsearch_torch.utils.checkpoint``), then check sys.modules: neither
+JAX nor any module of the reference package was loaded."""
 import json
 import os
 import subprocess
@@ -189,6 +191,22 @@ with tempfile.TemporaryDirectory() as tmp:
                                           "--index", tmp]) == 0
     assert json.loads(out.getvalue())["rows"] == 40
 assert instsearch_torch.workloads.list_presets()
+import instsearch_torch.train
+import instsearch_torch.train.finetune
+import instsearch_torch.utils.checkpoint
+from instsearch_torch.config import TrainConfig
+from instsearch_torch.train import Trainer
+from instsearch_torch.train.mining import mine_hard_negatives
+tr = Trainer(TrainConfig(backbone="resnet18", image_size=32, batch_size=2,
+                         num_negatives=1, dtype="float32"), device="cpu")
+tuples = np.random.default_rng(0).random((2, 3, 32, 32, 3), dtype=np.float32)
+assert np.isfinite(tr.step(tuples)["loss"])
+assert mine_hard_negatives(x, np.arange(40) % 3, x[:2], np.arange(2),
+                           num_negatives=2, device="cpu").shape == (2, 2)
+with tempfile.TemporaryDirectory() as tmp:
+    instsearch_torch.utils.checkpoint.save_pytree(tmp, tr.variables)
+    assert set(instsearch_torch.utils.checkpoint.load_pytree(tmp)) == set(
+        tr.variables)
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules
