@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs fifteen phases; each raises on failure and the process exits non-zero.
+runs sixteen phases; each raises on failure and the process exits non-zero.
 Phase 12 runs right after phase 4, while phase 2's and phase 3's stores are
 as those phases left them (phase 10 mutates them).
 
@@ -275,7 +275,26 @@ as those phases left them (phase 10 mutates them).
      --weights`` of its checkpoint over the 64 views and a ``query`` of
      each: every top-1 its own view (within BF16_TIE, as phase 13 rules:
      Lw pulls a class's views within it) and the first 4 results its
-     class's views; K1 counted (``launches_train``).
+     class's views; K1 counted (``launches_train``);
+ 15. the rest of M7 and M14, right after phase 11 while phase 9's store
+     is as phase 9 left it: (a) ``metric="l2"`` over 1M x 128 seeded
+     SIFT-shaped integer rows (BIGANN/SIFT1M's base set's shape) and 1,000
+     queries as f32, bf16 and int8 stores: the f32 top-10 equal to an exact
+     ``torch.cdist`` oracle slot by slot (ties by distance), every f32/bf16
+     top-1 its source row, recall@10 of bf16 and int8 printed, K1 and K2
+     against their plain versions on the augmented rows, ``search_range``
+     by a radius: counts equal to the oracle's (f32) and to a brute-force
+     count over each store's rows in f64, f32/bf16 members inside it;
+     search p50 at B = 1 and 128; (b) range search through phase 9's 8
+     shards against one device: counts equal, members by K1's rule, p50 of
+     both routes; (c) phase 9's index saved and ``Index.load(mesh=)`` on 8
+     shards of cuda:0: answers bit for bit phase 9's and (b)'s,
+     ``to_sharded`` copying nothing, the load time and its peak device
+     memory; (d) ResNet-50 at 224 px, bf16, B = 64 on ``make_mesh_2d(2, 1,
+     devices=["cuda:0"] * 2)`` against one device (cosine >= FUSED_COS,
+     top-1 its own image), ``Index.build(mesh=)`` over 384 PNG files
+     against ``Index.build`` (ids and names equal), images/s of both; K1
+     and K2 counted (``launches_mesh``).
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -312,7 +331,9 @@ as ``launches_subset`` (every one of them with the mask), phase 11's
 αDBA passes, kNN graphs, duplicate searches and requests, also apart as
 ``launches_quality``, phase 13's in-process command-line runs, also
 apart as ``launches_cli``, and phase 14e's fine-tuning runs, also apart as
-``launches_train`` (every kernel's row carries both); K1 also at
+``launches_train`` (every kernel's row carries both), and K1-K4 count
+phase 15's searches, range searches and placed loads, also apart as
+``launches_mesh`` (K1 and K2 launch there); K1 also at
 D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
 (``ms_d2048_b{B}_k{k}``, ``plain_ms_...``, ``library_ms_...``,
 ``bound_ms_...``); K4 also at B =
@@ -4591,6 +4612,493 @@ def _phase14(card, gen, tmp) -> dict:
     return {"launches": counts}
 
 
+L2_ROWS = 1_000_000     # phase 15a: rows of BIGANN/SIFT1M's base set
+L2_DIM = 128            # phase 15a: its width
+L2_QUERIES = 1000       # phase 15a: its query set's size
+L2_RANGE_K = 16         # phase 15a: the radius lies near the 16th neighbour
+L2_RANGE_M = 256        # phase 15a/b: max_results (K1/K2's route: <= K_MAX)
+L2_INT8_RECALL = 0.9    # phase 15a: least recall@10 of the int8 l2 store
+DP_BATCH = 64           # phase 15d: images a data-parallel batch
+DP_BUILD = 384          # phase 15d: image files the two builds read
+
+
+def sift_like_rows(gen, n: int, d: int, chunk: int = 1 << 18):
+    """Seeded rows shaped like SIFT's: non-negative integers below 129
+    (``round(128 u^2)``, u uniform), made on the card, f32. Integer rows and
+    queries keep every product, norm and squared distance below 2^24, so
+    f32 holds them exactly: the l2 scores of an f32 store, the oracle's
+    distances and the radius test are exact, ties are exact ties."""
+    import torch
+    out = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    for s in range(0, n, chunk):
+        u = torch.rand((min(chunk, n - s), d), generator=gen, device="cuda")
+        out[s:s + len(u)] = (128.0 * u * u).round()
+    return out
+
+
+def l2_oracle(x, q, k: int, chunk: int = 1 << 16, integer: bool = True):
+    """Exact squared distances by ``torch.cdist`` (the direct form, no
+    matmul expansion, in f64, squared, and with ``integer`` rounded: every
+    squared distance of integer rows is an integer) over row chunks -> the
+    ``k`` nearest ``(d2 [Q, k] f32, rows [Q, k] int64)``, ties by the lower
+    row, and a function counting the rows within a radius the same way."""
+    import torch
+    q64 = q.double()
+
+    def d2(start):
+        d = torch.cdist(q64, x[start:start + chunk].double(),
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        return ((d * d).round() if integer else d * d).float()
+
+    best_d, best_i = None, None
+    for s in range(0, x.shape[0], chunk):
+        dd = d2(s)
+        ii = torch.arange(s, s + dd.shape[1], device=q.device).expand_as(dd)
+        if best_d is not None:
+            dd = torch.cat([best_d, dd], 1)
+            ii = torch.cat([best_i, ii], 1)
+        # rows arrive in ascending order: a stable sort keeps the lower
+        # row first among equal distances
+        dd, order = torch.sort(dd, dim=1, stable=True)
+        best_d, best_i = dd[:, :k], torch.gather(ii, 1, order[:, :k])
+
+    def count(r2: float):
+        n = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+        members = []
+        for s in range(0, x.shape[0], chunk):
+            hit = d2(s) <= r2
+            n += hit.sum(1)
+            members.append(hit)
+        return n, members
+    return best_d, best_i, count
+
+
+def l2_stored_counts(idx, q, thr, block: int = 100):
+    """A brute-force range count over an l2 index's stored rows in f64 (the
+    script's own arithmetic: the dequantized components against the
+    query, less the stored norm column, at least the f32 threshold ``thr
+    [Q]``) -> ``(counts [Q], inside [Q, N_pad] bool)``."""
+    import torch
+    d = idx.user_dim
+    rows = idx.descriptors[:, :d + 1].float()
+    if idx.scales is not None:          # dequantized in f32, as searched
+        rows = rows * idx.scales[0, :, None]
+    rows = rows.double()
+    counts, inside = [], []
+    for s in range(0, q.shape[0], block):
+        sc = q[s:s + block].double() @ rows[:, :d].T - rows[:, d][None, :]
+        hit = (sc >= thr[s:s + block, None]) & (idx.ids[None, :] >= 0)
+        counts.append(hit.sum(1))
+        inside.append(hit)
+    return torch.cat(counts), torch.cat(inside)
+
+
+def phase15(card: str, gen, topk, topk_ref, int8_kernel, int8_ref, check,
+            check_exact, ox) -> dict:
+    """The rest of M7 and M14: (a) an l2 raw-vector index at SIFT1M's scale,
+    (b) range search through phase 9's mesh, (c) phase 9's store saved and
+    loaded placed on that mesh, (d) data-parallel extraction and
+    ``Index.build(mesh=)``. Temporary files in one folder, removed at the
+    end. Returns the K1 and K2 launches of the phase's main paths."""
+    import shutil
+    import tempfile
+    import torch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase15_")
+    out = {}
+    try:
+        for part, run in (
+                ("a", lambda: phase15a(card, gen, topk, topk_ref,
+                                       int8_kernel, int8_ref, check,
+                                       check_exact)),
+                ("b", lambda: phase15b(card, topk, topk_ref, check, ox)),
+                ("c", lambda: phase15c(card, topk, ox, out["b"], tmp)),
+                ("d", lambda: phase15d(card, gen, tmp))):
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            out[part] = run()
+            out[part]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {name: sum(r.get("launches", {}).get(name, 0)
+                          for r in out.values())
+                for name in ("topk_matmul", "topk_matmul_int8")}
+    report(card, phase=15, launches=launches,
+           seconds={p: r["seconds"] for p, r in out.items()})
+    return {"launches": launches, **out}
+
+
+def phase15a(card, gen, topk, topk_ref, int8_kernel, int8_ref, check,
+             check_exact) -> dict:
+    """``metric="l2"`` over L2_ROWS x L2_DIM seeded SIFT-shaped rows (the
+    shape of the public BIGANN/SIFT1M base set, made from the seed, nothing
+    downloaded) and L2_QUERIES integer queries near seeded rows, as f32,
+    bf16 and int8 stores through ``Index.from_descriptors`` and
+    ``search``/``search_range``. The f32 store's top-10 must equal the
+    exact oracle's (``torch.cdist``, f32, exact on integers) slot by slot,
+    ties counted by distance; every store's top-1 on the bf16 and f32
+    stores must be the source row; the bf16 store's recall@10 against the
+    oracle is printed. The norm column sets an int8 row's scale (the
+    reference's documented cost), which at SIFT's norms puts every
+    component below one step, so the int8 store holds the rows as a user
+    who picks int8 + l2 would give them: centered on the rows' mean and
+    divided by their median norm (norm column ~0.5, the largest component
+    ~0.2, some 50 steps); on it the top-1 must be the source row and
+    recall@10 against that data's own oracle at least L2_INT8_RECALL. K1
+    (f32, bf16 store) and K2
+    (int8) at B = 128 on the stores' augmented rows against their plain
+    versions (``check_against_plain``, ``check_exact``). ``search_range``
+    by a radius between two integers near the 16th neighbour: the f32
+    store's counts equal the oracle's chunked count and its members are
+    the oracle's rows within it; each store's counts equal a brute-force
+    count over its stored rows in f64 (the script's own arithmetic), and
+    the f32/bf16 members are a subset of it (K2 quantizes the query, so an
+    int8 member near the radius may lie outside the f32 count's). The
+    B = 1 and B = 128 p50s of ``search``."""
+    import numpy as np
+    import torch
+    from instsearch_torch import IndexConfig, PipelineConfig, SearchConfig
+    from instsearch_torch.index import Index
+
+    x = sift_like_rows(gen, L2_ROWS, L2_DIM)
+    rng = np.random.default_rng(15)
+    src = torch.as_tensor(rng.choice(L2_ROWS, size=L2_QUERIES,
+                                     replace=False), device="cuda")
+    q = x[src] + torch.randint(-3, 4, (L2_QUERIES, L2_DIM), generator=gen,
+                               device="cuda").float()
+    t0 = time.perf_counter()
+    od, oi, count = l2_oracle(x, q, k=L2_RANGE_K)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    if not bool((oi[:, 0] == src).all()):
+        fail("phase 15a: the oracle's nearest row is not every query's "
+             "source")
+    # a radius between two integers (every squared distance is one), near
+    # the 16th neighbour
+    r2 = float(od[:, L2_RANGE_K - 1].median()) + 0.5
+    ocount, _ = count(r2)
+    report(card, phase=15, part="a", rows=L2_ROWS, dim=L2_DIM,
+           queries=L2_QUERIES, oracle_s=oracle_s, radius=r2 ** 0.5,
+           oracle_count_median=float(ocount.float().median()),
+           source="BIGANN/SIFT1M base set's shape (1M x 128, 1,000 "
+           "queries), seeded integer rows, nothing downloaded")
+    # the int8 store's rows: centered, divided by the median norm
+    mu = x.mean(0)
+    scale = float((x - mu).norm(dim=1).median())
+    x8, q8 = (x - mu) / scale, (q - mu) / scale
+    od8, oi8, count8 = l2_oracle(x8, q8, k=L2_RANGE_K, integer=False)
+    r2_8 = float(od8[:, L2_RANGE_K - 1].median())
+    report(card, phase=15, part="a", int8_rows="centered, / median norm",
+           median_norm=scale, radius=r2_8 ** 0.5,
+           oracle_count_median=float(count8(r2_8)[0].float().median()))
+    data = {"float32": (x, q, oi, r2), "bfloat16": (x, q, oi, r2),
+            "int8": (x8, q8, oi8, r2_8)}
+    res = {"launches": {}, "p50_ms": {}, "recall10": {}}
+    for dtype, (x, q, oi, r2) in data.items():
+        tau = r2 ** 0.5
+        cfg = PipelineConfig(index=IndexConfig(dtype=dtype, metric="l2"),
+                             search=SearchConfig(k=10))
+        idx = Index.from_descriptors(x, [f"v{i}" for i in range(L2_ROWS)],
+                                     cfg)
+        if idx.dim != L2_DIM + 1 or idx.user_dim != L2_DIM:
+            fail(f"phase 15a: l2 store widths {idx.dim}/{idx.user_dim}")
+        chunk = cfg.search.query_chunk
+        pieces = -(-L2_QUERIES // chunk)
+
+        def main_path(idx=idx):
+            return idx.search(q), idx.search_range(q, tau,
+                                                   max_results=L2_RANGE_M)
+        ((s, i), (rs, ri, rc)), counts = count_launches(main_path)
+        kernel = topk if dtype != "int8" else int8_kernel
+        if counts != {**{n: 0 for n in counts},
+                      kernel.__name__: 2 * pieces}:
+            fail(f"phase 15a {dtype}: search and search_range launched "
+                 f"{counts}, not {kernel.__name__} {2 * pieces} times")
+        res["launches"][kernel.__name__] = (
+            res["launches"].get(kernel.__name__, 0) + 2 * pieces)
+        i_t = torch.as_tensor(i, device="cuda").long()
+        want = oi[:, :10]
+        recall = float((i_t[:, :, None] == want[:, None, :]).any(2)
+                       .float().mean())
+        res["recall10"][dtype] = recall
+        if dtype == "float32":
+            # slot by slot: the distance of the row returned equals the
+            # oracle's at that slot (ties by distance), scores exact
+            got_d = ((x[i_t] - q[:, None, :]) ** 2).sum(-1)
+            if not (torch.equal(got_d, od[:, :10])
+                    and torch.equal(torch.as_tensor(s, device="cuda"),
+                                    -od[:, :10])):
+                fail("phase 15a: the f32 l2 top-10 differs from the exact "
+                     "oracle's")
+        if not bool((i_t[:, 0] == src).all()):
+            fail(f"phase 15a {dtype}: a top-1 is not its source row")
+        if dtype == "int8" and recall < L2_INT8_RECALL:
+            fail(f"phase 15a int8: recall@10 {recall} against the exact "
+                 f"oracle, below {L2_INT8_RECALL}")
+        # K1/K2 against their plain versions on the augmented rows, B = 128
+        qm = idx._match_query_dim(q[:128])
+        if dtype == "int8":
+            try:
+                check_exact(*int8_kernel(idx.descriptors, idx.scales, qm,
+                                         k=10, num_valid=L2_ROWS),
+                            *int8_ref(idx.descriptors, idx.scales, qm, k=10,
+                                      num_valid=L2_ROWS))
+            except AssertionError as why:
+                fail(f"phase 15a int8: K2 against its plain version: {why}")
+        else:
+            try:
+                check(idx.descriptors, qm,
+                      *topk(idx.descriptors, qm, k=10, num_valid=L2_ROWS),
+                      *topk_ref(idx.descriptors, qm, k=10,
+                                num_valid=L2_ROWS), 1e-3)
+            except AssertionError as why:
+                fail(f"phase 15a {dtype}: K1 against its plain version: "
+                     f"{why}")
+        # range search: the counts, and the members against the stored rows
+        thr = (((q * q).sum(1) - np.float32(r2)) / np.float32(2.0)).double()
+        brute, inside = l2_stored_counts(idx, q, thr)
+        rc_t = torch.as_tensor(rc, device="cuda").long()
+        if not torch.equal(rc_t, brute):
+            fail(f"phase 15a {dtype}: range counts differ from the "
+                 f"brute-force count over the stored rows at "
+                 f"{int((rc_t != brute).sum())} queries")
+        ri_t = torch.as_tensor(ri, device="cuda").long()
+        filled = ri_t >= 0
+        members_inside = bool(torch.gather(
+            inside, 1, ri_t.clamp(min=0))[filled].all())
+        if dtype != "int8" and not members_inside:
+            fail(f"phase 15a {dtype}: a range member lies outside the "
+                 f"radius")
+        if dtype == "float32":
+            if not torch.equal(rc_t, ocount):
+                fail("phase 15a: the f32 range counts differ from the "
+                     "oracle's")
+            n_in = torch.minimum(ocount, torch.full_like(ocount,
+                                                         L2_RANGE_M))
+            if not torch.equal(filled.sum(1), n_in):
+                fail("phase 15a: the f32 range members are not every row "
+                     "within the radius (up to max_results)")
+        res["p50_ms"][dtype] = {
+            b: p50_ms(lambda b=b, idx=idx: idx.search(q[:b]))
+            for b in (1, 128)}
+        report(card, phase=15, part="a", dtype=dtype,
+               store=list(idx.descriptors.shape),
+               recall_at_10_vs_oracle=recall,
+               f32_top10_equals_oracle=dtype == "float32",
+               top1_is_source=bool((i_t[:, 0] == src).all()),
+               range_counts_equal_brute_force=True,
+               range_members_inside=members_inside,
+               range_count_median=float(rc_t.float().median()),
+               search_p50_ms=res["p50_ms"][dtype], launches=counts)
+        del idx
+        torch.cuda.empty_cache()
+    return res
+
+
+def range_members_agree(store, qm, thr: float, a, b, tol: float) -> None:
+    """Two range answers ``(scores, ids)`` over a store whose ids are its
+    positions: the same members but rows whose plain f32 score lies within
+    ``tol`` of ``thr`` (two orders of K1's sums may put such a row on
+    either side), common members' scores within ``tol``."""
+    import torch
+    from instsearch_torch.search.bruteforce import masked_scores
+    for row in range(qm.shape[0]):
+        sa = dict(zip(a[1][row].tolist(), a[0][row].tolist()))
+        sb = dict(zip(b[1][row].tolist(), b[0][row].tolist()))
+        sa.pop(-1, None)
+        sb.pop(-1, None)
+        odd = sorted(set(sa) ^ set(sb))
+        if odd:
+            plain = masked_scores(store[torch.as_tensor(odd,
+                                                        device=qm.device)],
+                                  qm[row:row + 1])[0]
+            if bool(((plain - thr).abs() > tol).any()):
+                fail(f"range members differ beyond near-ties of the "
+                     f"threshold at query {row}: rows {odd[:5]}")
+        for r in set(sa) & set(sb):
+            if abs(sa[r] - sb[r]) > tol:
+                fail(f"range member {r} of query {row}: scores {sa[r]} "
+                     f"and {sb[r]}")
+
+
+def phase15b(card, topk, topk_ref, check, ox) -> dict:
+    """Range search through phase 9's mesh (8 shards on cuda:0, D = 2048,
+    bf16): ``Index.search_range(mesh=)`` against the single-device route on
+    phase 9's queries, with a threshold near their 32nd-best score and
+    max_results = L2_RANGE_M. Counts equal; members equal but at near-ties
+    of the threshold (K1's rule, ``range_members_agree``); the uncut
+    top-L2_RANGE_M of the mesh's merge against the single-device K1 call
+    by ``check_against_plain``; K1 8 times a piece on the mesh route, once
+    on one device. The p50 of both routes at B = 1 and at all the
+    queries."""
+    import torch
+    idx, sidx, q, _, _, _ = ox
+    mesh = sidx.mesh
+    shards = mesh.num_shards
+    one = idx.search(q, idx.cfg.search.replace(k=64))[0]
+    tau = float(torch.as_tensor(one[:, 31]).median())
+    m = L2_RANGE_M
+    single, c1 = count_launches(lambda: idx.search_range(q, tau,
+                                                         max_results=m))
+    meshed, c8 = count_launches(lambda: idx.search_range(
+        q, tau, max_results=m, mesh=mesh))
+    pieces = -(-q.shape[0] // idx.cfg.search.query_chunk)
+    if c1["topk_matmul"] != pieces or c8["topk_matmul"] != shards * pieces:
+        fail(f"phase 15b: K1 launched {c1['topk_matmul']} times on one "
+             f"device and {c8['topk_matmul']} through the mesh, not "
+             f"{pieces} and {shards * pieces}")
+    if not (single[2] == meshed[2]).all():
+        fail(f"phase 15b: mesh range counts {meshed[2].tolist()} differ "
+             f"from one device's {single[2].tolist()}")
+    qm = sidx._match_query_dim(q)
+    range_members_agree(idx.descriptors, qm, tau, meshed, single, SCORE_TOL)
+    try:
+        err = check(idx.descriptors, qm, *sidx.search(qm, k=m),
+                    *topk(idx.descriptors, qm, k=m, num_valid=idx.num_valid),
+                    SCORE_TOL)
+    except AssertionError as why:
+        fail(f"phase 15b: the mesh's top-{m} against one device's: {why}")
+    p50 = {route: {b: p50_ms(lambda b=b, kw=kw: idx.search_range(
+                       q[:b], tau, max_results=m, **kw))
+                   for b in (1, q.shape[0])}
+           for route, kw in (("mesh", {"mesh": mesh}), ("one device", {}))}
+    report(card, phase=15, part="b", rows=idx.num_valid, shards=shards,
+           tau=tau, queries=int(q.shape[0]), max_results=m,
+           counts=single[2].tolist(), counts_equal=True,
+           members_agree_by_k1_rule=True, max_abs_err=err,
+           search_range_p50_ms=p50,
+           launches={"single": c1["topk_matmul"], "mesh": c8["topk_matmul"]})
+    return {"launches": {"topk_matmul": c1["topk_matmul"]
+                         + c8["topk_matmul"]},
+            "tau": tau, "answer": meshed, "p50_ms": p50}
+
+
+def phase15c(card, topk, ox, res_b, tmp) -> dict:
+    """``Index.load(mesh=)``: phase 9's index saved (npz) and loaded with
+    ``make_mesh(8, devices=["cuda:0"] * 8)``. Its ``search`` must equal
+    phase 9's sharded answer bit for bit (the same K1 calls on the same
+    rows), its ``search_range`` 15b's mesh answer, its ``knn_graph`` of the
+    first rows the unsharded index's; ``to_sharded`` with the mesh must
+    reuse the placed shards (``data_ptr``); serving must leave the store
+    placed; K1 8 times a piece. The save and load times and the load's
+    peak device memory above what was allocated before it."""
+    import numpy as np
+    import torch
+    from instsearch_torch.index import Index
+    from instsearch_torch.parallel import make_mesh
+    idx, _, q, ss, si, _ = ox
+    path = os.path.join(tmp, "ox105k")
+    _, save_s = timed(lambda: idx.save(path))
+    mesh = make_mesh(8, devices=["cuda:0"] * 8)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loaded, load_s = timed(lambda: Index.load(path, mesh=mesh))
+    peak = torch.cuda.max_memory_allocated() - base
+    parts = [sh.x for sh in loaded.placement.shards]
+    if not loaded.placed or len(parts) != 8:
+        fail("phase 15c: the loaded store is not placed in 8 shards")
+    sidx = loaded.to_sharded(mesh)
+    if any(sh.x.data_ptr() != p.data_ptr()
+           for sh, p in zip(sidx.shards, parts)):
+        fail("phase 15c: to_sharded copied the placed shards")
+    (ls, li), counts = count_launches(lambda: loaded.search(q))
+    pieces = -(-q.shape[0] // loaded.cfg.search.query_chunk)
+    if counts["topk_matmul"] != 8 * pieces:
+        fail(f"phase 15c: the placed search launched K1 "
+             f"{counts['topk_matmul']} times, not {8 * pieces}")
+    if not (np.array_equal(li, si.cpu().numpy())
+            and np.array_equal(ls, ss.cpu().numpy())):
+        fail("phase 15c: the placed index's answers differ from phase 9's")
+    rs, ri, rc = loaded.search_range(q, res_b["tau"],
+                                     max_results=L2_RANGE_M)
+    ms, mi, mc = res_b["answer"]
+    if not (np.array_equal(ri, mi) and np.array_equal(rs, ms)
+            and np.array_equal(rc, mc)):
+        fail("phase 15c: the placed range search differs from 15b's mesh "
+             "answer")
+    if not loaded.placed:
+        fail("phase 15c: serving gathered the placed store")
+    p50 = {b: p50_ms(lambda b=b: loaded.search(q[:b])) for b in (1, 8)}
+    report(card, phase=15, part="c", rows=loaded.num_valid, shards=8,
+           save_s=save_s, load_s=load_s,
+           store_gb=sum(p.numel() * p.element_size() for p in parts) / 1e9,
+           load_peak_device_gb_above_before=peak / 1e9,
+           equals_phase9=True, to_sharded_copies_nothing=True,
+           search_p50_ms=p50, launches=counts["topk_matmul"])
+    return {"launches": {"topk_matmul": counts["topk_matmul"]},
+            "load_s": load_s, "peak_gb": peak / 1e9}
+
+
+def phase15d(card, gen, tmp) -> dict:
+    """Data-parallel extraction: a seeded ResNet-50 at 224 px in bf16
+    (GeM p = 3) over ``make_mesh_2d(2, 1, devices=["cuda:0"] * 2)``, B =
+    DP_BATCH, against the single-device ``Extractor`` with the same
+    weights: every image's descriptor within FUSED_COS (cosine) of the
+    single route's and its own top-1 among them (the two routes run the
+    backbone at other batch sizes). Then ``Index.build(mesh=)`` over
+    DP_BUILD seeded PNG files against ``Index.build`` on one device: ids
+    and names equal, every row within FUSED_COS. Images/s of both routes,
+    extraction alone and the whole build; ``default_data_mesh()`` is None
+    on one card."""
+    import torch
+    from instsearch_torch import ExtractConfig, IndexConfig, PipelineConfig
+    from instsearch_torch.extractor import Extractor
+    from instsearch_torch.index import Index
+    from instsearch_torch.parallel import default_data_mesh, make_mesh_2d
+    if default_data_mesh() is not None:
+        fail("phase 15d: default_data_mesh() on one card is not None")
+    cfg = ExtractConfig(backbone="resnet50", pooling="gem", gem_p=3.0,
+                        image_size=IMAGE, whiten=False, dtype="bfloat16",
+                        batch_size=DP_BATCH)
+    mesh = make_mesh_2d(2, 1, devices=["cuda:0"] * 2)
+    single = Extractor(cfg, seed=0)
+    dp = Extractor(cfg, seed=0, mesh=mesh)
+    dp.model.load_state_dict(single.model.state_dict())
+    if dp.dp_size != 2:
+        fail(f"phase 15d: the extractor's data axis holds {dp.dp_size}")
+    images = smooth_images(gen, DP_BUILD)
+
+    def cosines(a, b):
+        a = torch.nn.functional.normalize(a.float(), dim=1)
+        b = torch.nn.functional.normalize(b.float(), dim=1)
+        return (a * b).sum(1), (a @ b.T).argmax(1)
+
+    a, b = dp(images[:DP_BATCH]), single(images[:DP_BATCH])
+    cos, top1 = cosines(a, b)
+    if (float(cos.min()) < FUSED_COS
+            or not bool((top1 == torch.arange(DP_BATCH,
+                                              device="cuda")).all())):
+        fail(f"phase 15d: data-parallel descriptors against one device: "
+             f"min cosine {float(cos.min())}")
+    ips = {}
+    for route, ex in (("data parallel", dp), ("one device", single)):
+        ex(images[:DP_BATCH])
+        _, sec = timed(lambda ex=ex: [ex(images[s:s + DP_BATCH]) for s in
+                                      range(0, DP_BUILD, DP_BATCH)])
+        ips[route] = DP_BUILD / sec
+    paths = write_png(images, os.path.join(tmp, "dp"), "img")
+    pcfg = PipelineConfig(extract=cfg, index=IndexConfig(dtype="bfloat16"))
+    built, build_ips = {}, {}
+    for route, kw in (("data parallel", {"mesh": mesh}), ("one device", {})):
+        built[route], sec = timed(lambda kw=kw: Index.build(paths, pcfg,
+                                                            seed=0, **kw))
+        build_ips[route] = DP_BUILD / sec
+    got, want = built["data parallel"], built["one device"]
+    bcos, _ = cosines(got.descriptors[:got.num_valid].float(),
+                      want.descriptors[:want.num_valid].float())
+    if (got.names != want.names or not torch.equal(got.ids, want.ids)
+            or float(bcos.min()) < FUSED_COS):
+        fail("phase 15d: Index.build(mesh=) differs from Index.build")
+    report(card, phase=15, part="d", backbone="resnet50", image=IMAGE,
+           dtype="bfloat16", batch=DP_BATCH, mesh="data 2 x shard 1 on "
+           "cuda:0", min_cosine=float(cos.min()),
+           build_min_cosine=float(bcos.min()), images=DP_BUILD,
+           extract_images_per_s=ips, build_images_per_s=build_ips,
+           ids_equal=True)
+    return {"launches": {}, "extract_ips": ips, "build_ips": build_ips}
+
+
 def main() -> int:
     try:
         import torch
@@ -4674,6 +5182,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     res11 = phase11(card, gen, topk_matmul, topk_matmul_reference,
                     check_against_plain, corpus, ox)
+    torch.cuda.empty_cache()
+    mesh = phase15(card, gen, topk_matmul, topk_matmul_reference,
+                   topk_matmul_int8, topk_matmul_int8_reference,
+                   check_against_plain, check_exact, ox)["launches"]
     del corpus, ox
     torch.cuda.empty_cache()
     cli = phase13(card, gen)["launches"]
@@ -4716,13 +5228,14 @@ def main() -> int:
                      "launches": (launches + phase8.get(name, 0)
                                   + sharded.get(name, 0) + subset[name]
                                   + quality.get(name, 0) + cli.get(name, 0)
-                                  + train.get(name, 0)),
+                                  + train.get(name, 0) + mesh.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
                      "launches_quality": quality.get(name, 0),
                      "launches_cli": cli.get(name, 0),
                      "launches_train": train.get(name, 0),
+                     "launches_mesh": mesh.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

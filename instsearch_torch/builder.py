@@ -5,7 +5,9 @@ manifest recording completed ranges; on restart, completed groups are
 skipped (at-least-once, idempotent by image position). Corrupt images are
 quarantined to a sidecar list, never fatal. The manifest and the parts have
 the reference's layout. The extractor runs on ``device`` (the CUDA card by
-default); the reference's data-parallel mesh is not ported (ROADMAP M14).
+default), or data-parallel over ``mesh`` (``Extractor(mesh=)``), which
+without ``mesh`` and ``device`` is ``default_data_mesh()``: every visible
+card when there are more than one, else None.
 """
 from __future__ import annotations
 
@@ -39,11 +41,15 @@ class ResumableBuilder:
     def __init__(self, paths: Sequence[str], cfg: PipelineConfig,
                  out_dir: str, group_size: int = 16,
                  variables: dict | None = None, seed: int = 0,
-                 device: "torch.device | str | None" = None):
+                 device: "torch.device | str | None" = None, mesh=None):
         self.paths = list(paths)
         self.cfg = cfg
+        if mesh is None and device is None:
+            from .parallel.mesh import default_data_mesh
+            mesh = default_data_mesh()
         self.extractor = Extractor(cfg.extract.replace(whiten=False),
-                                   variables, seed=seed, device=device)
+                                   variables, seed=seed, device=device,
+                                   mesh=mesh)
         self.out_dir = out_dir
         self.parts_dir = os.path.join(out_dir, "parts")
         self.manifest_path = os.path.join(out_dir, "manifest.json")

@@ -113,7 +113,8 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
     queries = _batched_apply(ex, qimgs, ex.cfg.batch_size)
     q = index._match_query_dim(torch.as_tensor(queries, device=index.device))
     applied = []        # the stages this evaluation ran
-    sidx = sharded_index
+    # a placed index (Index.load(mesh=)) ranks through its placement
+    sidx = sharded_index if sharded_index is not None else index.placement
     if scfg.qe_enabled:
         applied.append("qe")
         if sidx is not None:
@@ -124,8 +125,8 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
                                       scales=index.scales,
                                       int4=index.is_int4)
     ranks = (sidx or index).full_ranking(q)
-    depth = min(scfg.rerank_depth, index.descriptors.shape[0])
-    if scfg.rerank_enabled and index.regional is not None:
+    depth = min(scfg.rerank_depth, index.n_pad)
+    if scfg.rerank_enabled and index.has_regional:
         applied.append("rerank")
         if scfg.spatial_weight:
             applied.append("spatial")
@@ -153,7 +154,7 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
         ranks = _splice_head(ranks, top_ids)
     if scfg.diffusion_enabled:
         applied.append("diffusion")
-        depth = min(scfg.diffusion_depth, index.descriptors.shape[0])
+        depth = min(scfg.diffusion_depth, index.n_pad)
         if sidx is not None:
             top_ids = sidx.search_diffusion(
                 q, k=depth, depth=depth, knn=scfg.diffusion_knn,
@@ -165,7 +166,7 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
         ranks = _splice_head(ranks, top_ids)
     if scfg.lw_enabled:
         applied.append("lw")
-        depth = min(scfg.rerank_depth, index.descriptors.shape[0])
+        depth = min(scfg.rerank_depth, index.n_pad)
         if sidx is not None:
             top_ids = sidx.search_lw(q, k=depth, depth=depth)[1]
             top_ids = top_ids.cpu().numpy()

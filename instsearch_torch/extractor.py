@@ -7,12 +7,24 @@ f32 out. Multi-scale extraction runs the backbone once per scale and flip
 TTA the mirrored batch too; the L2-normalized descriptors are averaged.
 Regional extraction gives the R-MAC per-region rows ``[B, R, D]`` of the
 re-rank store; the combined pass gives both from one backbone pass at scale
-1.0. The data-parallel mesh and the ViT's tensor-parallel attention are not
-ported yet (ROADMAP M6, M11).
+1.0.
+
+Data-parallel extraction (``Extractor(mesh=)``) runs one replica of the
+model on each device of the mesh's batch axis (``'data'``, else its first
+axis that is not ``'model'``; devices may repeat, and a repeated device
+keeps one replica): the batch is padded to a multiple of the axis size, cut
+into one slice a device, each slice extracted there, and the results joined
+in order on the first device, which also whitens them. The replicas on the
+other devices take the first device's weights again whenever they have
+changed since the last batch (``load_state_dict`` into ``Extractor.model``
+reaches every device). A ``'model'`` axis
+(the ViT's tensor parallelism) is not ported yet (ROADMAP M11).
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import copy
 
 import numpy as np
 import torch
@@ -24,10 +36,18 @@ from .models.registry import descriptor_dim, load_variables
 from .ops import l2_normalize, pool
 from .ops.pooling import rmac_region_geometry, rmac_regional_descriptors
 from .ops.whitening import WhiteningParams, apply_whitening
+from .parallel.mesh import batch_axis
 from .utils.device import resolve_device
 from .utils.observe import COUNTERS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _device(d) -> torch.device:
+    """The device a tensor placed on ``d`` reports (``"cuda"`` is the
+    current card, ``"cpu:0"`` the CPU): mesh entries that name one device
+    share one replica."""
+    return torch.empty(0, device=d).device
 
 
 def _global_descriptor(model, cfg, x: torch.Tensor):
@@ -59,9 +79,15 @@ def build_extract_fn(cfg, device=None):
     ``extract_fn(images, whitening=None) -> [N, D] f32``; ``images`` is a
     uint8 or [0, 1] float tensor ``[N, S, S, 3]`` on the model's device
     (``device``, the CUDA card by default)."""
+    model, _ = get_backbone(cfg.backbone, dtype=_DTYPES[cfg.dtype],
+                            device=device, attention=cfg.vit_attention)
+    return model, build_global_fn(cfg, model)
+
+
+def build_global_fn(cfg, model):
+    """``extract(images, whitening=None) -> [N, D] f32``, the global
+    descriptor of ``model`` (``build_extract_fn``'s function)."""
     dtype = _DTYPES[cfg.dtype]
-    model, _ = get_backbone(cfg.backbone, dtype=dtype, device=device,
-                            attention=cfg.vit_attention)
 
     @torch.inference_mode()
     def extract(images: torch.Tensor,
@@ -72,7 +98,7 @@ def build_extract_fn(cfg, device=None):
             desc = apply_whitening(desc, whitening)      # includes re-L2
         return desc
 
-    return model, extract
+    return extract
 
 
 def build_regional_fn(cfg, model):
@@ -126,13 +152,28 @@ class Extractor:
     seeded random weights with Flax's initializer distributions
     (``init_weights``).
     ``device`` defaults to the CUDA card; without one it raises unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"``.
+    ``mesh`` (a ``ShardMesh`` or a 2-D mesh, ``parallel/mesh.py``) extracts
+    data-parallel over its batch axis (see the module docstring); the
+    extractor's device is then the axis's first and ``device`` is not
+    used. A mesh with a ``'model'`` axis raises ``NotImplementedError``."""
 
     def __init__(self, cfg, variables: dict | None = None,
                  whitening: WhiteningParams | None = None, seed: int = 0,
-                 device: "torch.device | str | None" = None):
+                 device: "torch.device | str | None" = None, mesh=None):
+        if mesh is not None and "model" in mesh.axis_names:
+            raise NotImplementedError(
+                "a mesh with a 'model' axis splits the ViT's weights "
+                "(tensor parallelism), which is not ported yet (ROADMAP "
+                "M11); extract over a ('data', 'shard') or 1-D mesh")
         self.cfg = cfg
         self.seed = seed
+        self.mesh = mesh
+        dp_devices = None
+        if mesh is not None:
+            dp_devices = [_device(d)
+                          for d in mesh.along(batch_axis(mesh)).devices]
+            device = dp_devices[0]
         self.device = resolve_device(device)
         self.model, self._fn = build_extract_fn(cfg, device=self.device)
         if variables is None:
@@ -146,6 +187,75 @@ class Extractor:
         self._regional_fn = build_regional_fn(cfg, self.model)
         self._combined_fn = build_combined_fn(cfg, self.model)
         self._geometry: "np.ndarray | None" = None
+        # data parallelism: the batch axis's devices in order, one
+        # functions replica per distinct device, the models of the devices
+        # other than the first, and the weights' state they were copied at
+        self._dp_devices = dp_devices
+        self._replicas, self._copies, self._copied_at = {}, [], None
+        for dev in dp_devices or ():
+            if dev in self._replicas:
+                continue
+            m = self.model
+            if dev != self.device:
+                m = copy.deepcopy(self.model).to(dev)
+                self._copies.append(m)
+            self._replicas[dev] = {"global": build_global_fn(cfg, m),
+                                   "regional": build_regional_fn(cfg, m),
+                                   "combined": build_combined_fn(cfg, m)}
+        self._copied_at = self._weights_version()
+
+    def _weights_version(self) -> tuple:
+        """Each of ``self.model``'s tensors' identity and version counter:
+        it changes when a tensor is replaced or written in place (e.g. by
+        ``self.model.load_state_dict``)."""
+        return tuple((id(t), t._version) for t in
+                     self.model.state_dict(keep_vars=True).values())
+
+    def _sync_replicas(self) -> None:
+        """Copy ``self.model``'s weights into the other devices' replicas
+        when they changed since the last copy."""
+        if not self._copies:
+            return
+        now = self._weights_version()
+        if now != self._copied_at:
+            state = self.model.state_dict()
+            with torch.no_grad():
+                for m in self._copies:
+                    m.load_state_dict(state)
+            self._copied_at = self._weights_version()
+
+    @property
+    def dp_size(self) -> int:
+        """Devices of the data-parallel axis (1 without a mesh)."""
+        return len(self._dp_devices) if self._dp_devices else 1
+
+    def _run(self, kind: str, images):
+        """One extraction function (``"global"``, ``"regional"`` or
+        ``"combined"``) over a batch: on the extractor's device, or
+        data-parallel over the mesh's batch axis: the batch padded with
+        zero images to a multiple of its devices, one slice a device (its
+        replica launched for every slice before any result is joined), the
+        results joined in order on the first device, the padding cut off,
+        whitened there."""
+        x = self._on_device(images)
+        if not self._dp_devices:
+            fn = {"global": self._fn, "regional": self._regional_fn,
+                  "combined": self._combined_fn}[kind]
+            return fn(x, self.whitening)
+        self._sync_replicas()
+        b, n = x.shape[0], len(self._dp_devices)
+        pad = (-b) % n
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        c = x.shape[0] // n
+        outs = [self._replicas[dev][kind](x[j * c:(j + 1) * c].to(dev))
+                for j, dev in enumerate(self._dp_devices)]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        joined = tuple(torch.cat([o[t].to(self.device) for o in outs])[:b]
+                       for t in range(len(outs[0])))
+        if self.whitening is not None:
+            joined = tuple(apply_whitening(t, self.whitening) for t in joined)
+        return joined if kind == "combined" else joined[0]
 
     @property
     def descriptor_dim(self) -> int:
@@ -160,7 +270,7 @@ class Extractor:
     def __call__(self, images) -> torch.Tensor:
         """uint8 ``[B, S, S, 3]`` (numpy or tensor) -> ``[B, D]`` f32 on the
         extractor's device."""
-        return self._fn(self._on_device(images), self.whitening)
+        return self._run("global", images)
 
     def regional_geometry(self) -> np.ndarray:
         """The R-MAC grid's geometry ``[R, 3]`` (cx, cy, log side) at
@@ -182,14 +292,14 @@ class Extractor:
         """uint8 ``[B, S, S, 3]`` -> ``[B, R, D]`` f32 per-region rows on the
         extractor's device (the same weights and whitening as the global
         descriptor)."""
-        return self._regional_fn(self._on_device(images), self.whitening)
+        return self._run("regional", images)
 
     def extract_with_regional(self, images):
         """uint8 ``[B, S, S, 3]`` -> ``([B, D], [B, R, D])`` f32: the global
         descriptor and the regional rows from one backbone pass at scale
         1.0 (``build_combined_fn``), equal to ``self(images)`` and
         ``self.extract_regional(images)``."""
-        return self._combined_fn(self._on_device(images), self.whitening)
+        return self._run("combined", images)
 
     def _extract_loop(self, paths, quarantine, run):
         """Prefetch-overlapped loop shared by every path-based extraction

@@ -71,9 +71,28 @@ re-scores the top-``rerank_depth`` under. ``knn_graph`` runs the same
 chunked self-search for every row's neighbours, ``find_duplicates`` groups
 rows above a score, ``stats`` describes the stores.
 
-Not ported yet, and raising ``NotImplementedError`` rather than answering:
-``metric="l2"``, the streaming (orbax) store, and range search through a
-mesh (see ROADMAP).
+``metric="l2"`` (raw vectors, the FAISS ``IndexFlatL2`` counterpart) stores
+each row with one more column, ``||x||^2/2``, at column ``dim - 1`` (``dim``
+counts it, as the reference's does; the zero columns come after it), and
+queries gain a ``-1`` there, so the same inner-product kernels rank by
+Euclidean distance; scores come back as ``-||x - q||^2`` and range radii
+become per-query thresholds. The cosine-space stages refuse an l2 index.
+
+``load(mesh=)`` places the store shard by shard: each shard's rows of the
+store, its row scales and regional store go to its device, held by one
+``ShardedIndex`` (``Index.placement``), and the index's own store
+attributes stay None. Serving (``search``, ``query``, ``search_range``,
+``knn_graph``, ``find_duplicates``, ``full_ranking``, ``reconstruct``,
+``evaluate``, ``stats``, ``save``) runs through that placement
+(``to_sharded`` with the same mesh reuses its tensors). A whole-store
+operation (``add``, ``remove``, ``merge_from``, the views' fits,
+``augment_database``, ``attach_regional_store``, a search through an
+armed candidate tier, ``to_sharded`` onto another mesh) first calls
+``Index.gather``, which joins the shards onto the mesh's first device: the
+index is an unplaced one from then on, and that device must hold the
+whole store.
+
+The streaming (orbax) store is not ported: it needs JAX (see ROADMAP).
 """
 from __future__ import annotations
 
@@ -94,7 +113,8 @@ from .ops.quantize import (pack_int4, quantize_rows, quantize_rows_int4,
 from .ops.whitening import (WhiteningParams, apply_whitening,
                             apply_whitening_regional, fit_whitening)
 from .search.bruteforce import gather_rows_f32 as _gather_rows_f32
-from .search.bruteforce import masked_scores, search_topk, select_topk
+from .search.bruteforce import (masked_scores, range_count, search_topk,
+                                select_topk)
 from .search.diffusion import diffusion_rerank_from_candidates
 from .search.ivf import IVFIndex, _ivf_composite
 from .search.ivfpq import IVFPQView, _ivfpq_composite
@@ -249,16 +269,18 @@ def _extractor_fingerprint(ex) -> list:
 
 
 def _check_index_cfg(cfg) -> None:
-    """Raise for every index option the port does not take yet."""
+    """Raise ``ValueError`` for an index option the port does not take."""
     icfg = cfg.index
-    if icfg.metric != "ip":
-        if icfg.metric == "l2":
-            raise NotImplementedError(
-                "metric='l2' is not ported yet (ROADMAP M7)")
+    if icfg.metric not in ("ip", "l2"):
         raise ValueError(f"metric={icfg.metric!r}: 'ip' or 'l2'")
     if icfg.dtype not in _DTYPES and icfg.dtype not in _QUANTIZE:
         raise ValueError(f"index dtype {icfg.dtype!r}: bfloat16, float32, "
                          f"int8 or int4")
+    if icfg.metric == "l2" and icfg.dtype == "int4":
+        raise ValueError(
+            "metric='l2' does not support int4 storage (the "
+            "norm-augmentation column and nibble packing interact; use "
+            "int8/bfloat16/float32)")
     if icfg.refine_dtype:
         if icfg.refine_dtype != "int8":
             raise ValueError(f"refine_dtype={icfg.refine_dtype!r}: only "
@@ -286,6 +308,7 @@ def attach_regional_store(idx: "Index", regional, chunk: int = 1 << 16
     through a whole host or f32 copy. Records the R-MAC grid's geometry
     (spatial verification) when the extractor's grid has R regions and the
     store is not the exact-refine copy."""
+    idx.gather()
     reg = torch.as_tensor(regional)
     n, r, d = reg.shape
     if n != idx.num_valid:
@@ -318,13 +341,31 @@ def attach_regional_store(idx: "Index", regional, chunk: int = 1 << 16
             idx.regional_geom = geom
 
 
+def _l2_scores(s: np.ndarray, i: np.ndarray, qn2: np.ndarray) -> np.ndarray:
+    """An l2 index's augmented inner products -> ``-||x - q||^2 = 2 s -
+    ||q||^2`` (empty slots stay -inf), in f32 as the reference."""
+    return np.where(i >= 0, 2.0 * s - qn2[:, None], -np.inf).astype(
+        np.float32)
+
+
+# the store tensors: Index attribute -> (the Shard field that holds a placed
+# store's part of it, the dimension the rows run along)
+_STORES = {"descriptors": ("x", 0), "scales": ("scales", 1),
+           "regional": ("regional", 0),
+           "regional_scales": ("regional_scales", 0)}
+
+
 class Index:
-    """Brute-force cosine index over L2-normalized descriptors."""
+    """Brute-force cosine index over L2-normalized descriptors (or, with
+    ``metric="l2"``, Euclidean over raw vectors)."""
 
     def __init__(self, descriptors: torch.Tensor, ids: torch.Tensor,
                  names: list[str], cfg, extractor: Optional[Extractor] = None,
                  scales: "torch.Tensor | None" = None,
                  dim: "int | None" = None):
+        # load(mesh=)'s placed store (a ShardedIndex); the store
+        # attributes below are then None
+        self.placement = None
         self.descriptors = descriptors      # [N_pad, W] (int4: [N_pad, W/2])
         self.ids = ids                      # [N_pad] int32, -1 = padding
         self.names = names                  # len = num_valid
@@ -358,21 +399,96 @@ class Index:
         return self.cfg.index.dtype == "int4"
 
     @property
+    def is_l2(self) -> bool:
+        """Euclidean-metric index (``IndexConfig.metric="l2"``): rows carry
+        one ``||x||^2/2`` column (counted in ``dim``), queries gain a
+        ``-1`` there, the inner-product kernels rank by ``-||x - q||``;
+        scores come back as ``-||x - q||^2``."""
+        return self.cfg.index.metric == "l2"
+
+    @property
     def dim(self) -> int:
         """The descriptor width, the reference's ``dim`` (an odd width
-        stored as int4 counts its zero column, as there)."""
+        stored as int4 counts its zero column, an l2 store its norm column,
+        as there)."""
         return self._dim
+
+    @property
+    def user_dim(self) -> int:
+        """The width of the caller's rows and queries: ``dim`` without an
+        l2 store's norm column."""
+        return self._dim - (1 if self.is_l2 else 0)
 
     @property
     def store_dim(self) -> int:
         """Columns of a stored row, ``dim`` and the zero columns up to the
         kernels' multiple (``_COLUMN_MULTIPLE``)."""
-        return (2 * self.descriptors.shape[1] if self.is_int4
-                else self.descriptors.shape[1])
+        if self.placed:
+            return self.placement.store_dim
+        x = self.descriptors
+        return 2 * x.shape[1] if self.is_int4 else x.shape[1]
+
+    @property
+    def n_pad(self) -> int:
+        """Rows of the padded store."""
+        if self.placed:
+            return self.placement.num_rows
+        return self.descriptors.shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.descriptors.device
+        """The store's device, where its ids are (a placed store's: its
+        mesh's first, with the ids and the views)."""
+        return self.ids.device
+
+    @property
+    def placed(self) -> bool:
+        """The store lies in ``placement``'s shards (``load(mesh=)``), not
+        yet gathered by a whole-store operation."""
+        return self.placement is not None
+
+    @property
+    def has_regional(self) -> bool:
+        """A regional store (R-MAC re-rank rows or the exact-refine copy)
+        is attached, placed or not."""
+        if self.placed:
+            return self.placement.regional is not None
+        return self.regional is not None
+
+    @property
+    def regions_per_image(self) -> "int | None":
+        """R of the regional store ``[N_pad, R, D]``, or None without
+        one."""
+        if not self.has_regional:
+            return None
+        reg = self._parts("regional")[0] if self.placed else self.regional
+        return int(reg.shape[1])
+
+    def _parts(self, name: str) -> "list | None":
+        """A placed store's ``name`` (a key of ``_STORES``): one tensor per
+        local shard, or None for an absent store."""
+        field = _STORES[name][0]
+        parts = [getattr(sh, field) for sh in self.placement.shards]
+        return None if parts[0] is None else parts
+
+    def gather(self) -> None:
+        """Join a placed store (``load(mesh=)``) onto its mesh's first
+        device: every shard's rows, row scales and regional store (through
+        the mesh's group when it has one, so every process gets the whole
+        store). The index is an unplaced one from then on. The whole-store
+        operations call it first; serving never does. A no-op on an
+        unplaced index."""
+        if not self.placed:
+            return
+        logging.getLogger("instsearch.index").info(
+            "gathering the placed store onto %s for a whole-store operation",
+            self.device)
+        joined = {name: None if self._parts(name) is None else
+                  self.placement.mesh.gather(self._parts(name), dim)
+                  for name, (_, dim) in _STORES.items()}
+        self.placement = None
+        for name, t in joined.items():
+            setattr(self, name, t)
 
     @property
     def has_refine_store(self) -> bool:
@@ -380,7 +496,7 @@ class Index:
         (``IndexConfig.refine_dtype``), not an R-MAC re-rank store. The
         config tells them apart: an ``rmac_levels=1`` re-rank store is
         ``[N, 1, D]`` too."""
-        return bool(self.cfg.index.refine_dtype) and self.regional is not None
+        return bool(self.cfg.index.refine_dtype) and self.has_regional
 
     def _check_rescoring_cfg(self, scfg) -> None:
         """The reference's validation for every entry point (search,
@@ -398,11 +514,12 @@ class Index:
             raise ValueError(
                 "this index's regional store is the exact-refine row copy "
                 "(refine_dtype); use refine_enabled, not rerank_enabled")
+        has_regional = self.has_regional
         if scfg.refine_enabled and not self.has_refine_store:
             raise ValueError(
                 "refine_enabled needs the exact-refine store "
                 "(IndexConfig.refine_dtype='int8' at build); this index "
-                "has " + ("no regional store" if self.regional is None else
+                "has " + ("no regional store" if not has_regional else
                           "an R-MAC re-rank store (use rerank_enabled)"))
         if scfg.lw_enabled and self.lw is None:
             raise ValueError(
@@ -414,7 +531,7 @@ class Index:
                 "spatial_weight fuses into the regional re-rank; enable "
                 "rerank_enabled (spatial verification has no meaning "
                 "without region matches)")
-        if (scfg.spatial_weight and self.regional is not None
+        if (scfg.spatial_weight and has_regional
                 and self.regional_geom is None):
             raise ValueError(
                 "spatial_weight needs the R-MAC grid geometry; this "
@@ -430,6 +547,24 @@ class Index:
             raise ValueError(
                 f"{' and '.join(armed_tiers)} all armed — one candidate-"
                 f"selection tier per query (disable the others)")
+        if self.is_l2:
+            wrong = enabled + armed_tiers + (["qe_enabled"]
+                                             if scfg.qe_enabled else [])
+            if wrong:
+                raise ValueError(
+                    f"metric='l2' indexes support exact search only — "
+                    f"disable {wrong} (QE/re-rank/diffusion/lw and the ANN "
+                    f"tiers are cosine-space stages; see "
+                    f"IndexConfig.metric)")
+
+    def _reject_l2(self, stage: str) -> None:
+        """The reference's one refusal of the cosine-space stages on an l2
+        index (``ValueError``)."""
+        if self.is_l2:
+            raise ValueError(
+                f"{stage} is a cosine-space stage — metric='l2' indexes "
+                f"support exact search/search_range/knn_graph only "
+                f"(IndexConfig.metric)")
 
     @property
     def vote_matrix(self) -> "torch.Tensor | None":
@@ -438,11 +573,11 @@ class Index:
         (``search/spatial.py``)."""
         if self.regional_geom is None:
             return None
-        if (self.regional is not None
-                and len(self.regional_geom) != self.regional.shape[1]):
+        r = self.regions_per_image
+        if r is not None and len(self.regional_geom) != r:
             raise ValueError(
                 f"regional_geom has {len(self.regional_geom)} regions but "
-                f"the store has {self.regional.shape[1]}: geometry must "
+                f"the store has {r}: geometry must "
                 f"come from the same R-MAC grid as the store")
         if self._vote_m is None:
             self._vote_m = torch.as_tensor(build_vote_matrix(
@@ -478,6 +613,9 @@ class Index:
         twin.regional_geom, twin._vote_m = self.regional_geom, self._vote_m
         twin.quarantined = self.quarantined
         twin._layout_gen = self._layout_gen
+        if self.placed:     # the same shards behind the twin's own config
+            twin.placement = self.placement
+            twin.placement = twin.to_sharded()
         return twin
 
     # ------------------------------------------------------------------
@@ -493,7 +631,7 @@ class Index:
         return SubsetFilter(
             mask=torch.from_numpy(m[None, :].astype(np.int8)).to(self.device),
             count=int(m.sum()), layout_gen=self._layout_gen,
-            n_pad=self.descriptors.shape[0],
+            n_pad=self.n_pad,
             names=tuple(names) if names is not None else None)
 
     def _resolve_subset(self, subset) -> "SubsetFilter | None":
@@ -509,7 +647,7 @@ class Index:
             else:
                 subset = self.make_subset(ids=seq)
         if (subset.layout_gen != self._layout_gen
-                or subset.n_pad != self.descriptors.shape[0]):
+                or subset.n_pad != self.n_pad):
             raise ValueError(
                 "stale SubsetFilter: rows were removed (or the store was "
                 "re-padded) after it was built, so its positions no longer "
@@ -521,9 +659,11 @@ class Index:
     def from_descriptors(cls, descriptors, names: Sequence[str], cfg,
                          extractor: Optional[Extractor] = None,
                          original_ids: "np.ndarray | None" = None,
-                         device: "torch.device | str | None" = None
-                         ) -> "Index":
-        """Pad ``descriptors [N, D]`` (numpy or tensor) into the store.
+                         device: "torch.device | str | None" = None,
+                         _augmented: bool = False) -> "Index":
+        """Pad ``descriptors [N, D]`` (numpy or tensor) into the store; an
+        l2 index first appends each row's ``||x||^2/2`` (unless
+        ``_augmented``: the rows carry it already, the re-pad path).
         ``original_ids`` maps rows back to dataset positions (differs from
         arange when images were quarantined). ``device`` defaults to the
         extractor's device, else the tensor's own, else (numpy input) the
@@ -537,6 +677,9 @@ class Index:
                                                        torch.Tensor)
                       else resolve_device(None))
         x = torch.as_tensor(descriptors, device=device)
+        if cfg.index.metric == "l2" and not _augmented:
+            x = x.float()
+            x = torch.cat([x, 0.5 * (x * x).sum(1, keepdim=True)], 1)
         n, d = x.shape
         tile = max(cfg.index.row_tile, 8) * max(cfg.index.num_shards, 1)
         # capacity pre-sizes the padded store (0 = size to the dataset)
@@ -573,7 +716,8 @@ class Index:
     def build(cls, paths: Sequence[str], cfg, variables: dict | None = None,
               whitening_paths: Sequence[str] | None = None,
               whitening: "WhiteningParams | None" = None, seed: int = 0,
-              device: "torch.device | str | None" = None) -> "Index":
+              device: "torch.device | str | None" = None,
+              mesh=None) -> "Index":
         """Offline indexing: extract -> (fit whitening) -> store.
         ``whitening_paths`` defaults to the indexed set itself;
         ``whitening`` supplies pre-fit params instead. With
@@ -582,7 +726,11 @@ class Index:
         which are whitened with the fit on the global descriptors and
         attached as the re-rank store. With ``cfg.index.dba_n`` the store is
         augmented (:meth:`augment_database`) at the end. Runs on
-        ``device``, the CUDA card by default."""
+        ``device``, the CUDA card by default. ``mesh`` extracts
+        data-parallel over its batch axis (``Extractor(mesh=)``; the store
+        then lies on the axis's first device); without ``mesh`` and
+        ``device`` it is ``default_data_mesh()``, every visible card when
+        there are more than one, else None."""
         if cfg.index.metric == "l2":
             raise ValueError(
                 "metric='l2' is for RAW-VECTOR indexes "
@@ -590,8 +738,11 @@ class Index:
                 "descriptors are unit-normalized, where inner product IS "
                 "the L2 ranking — keep metric='ip'")
         _check_index_cfg(cfg)
+        if mesh is None and device is None:
+            from .parallel.mesh import default_data_mesh
+            mesh = default_data_mesh()
         ex = Extractor(cfg.extract.replace(whiten=False), variables,
-                       seed=seed, device=device)
+                       seed=seed, device=device, mesh=mesh)
         quarantine: list[str] = []
         regional = None
         if cfg.search.rerank_enabled:
@@ -637,6 +788,8 @@ class Index:
         an OPQ rotation, ``anisotropic_t`` the score-aware codes instead
         (``ops/pq.py::fit_apq``). The fit and the encode run on the index's
         device. Returns the PQView."""
+        self.gather()
+        self._reject_l2("build_pq")
         if self.ivfpq is not None:
             raise ValueError(
                 "an IVF-PQ view is attached — mutually exclusive "
@@ -666,6 +819,8 @@ class Index:
         Approximate: measure with ``ivf.measure_recall``. ``add()`` and
         ``remove()`` are absorbed, ``augment_database()`` drops the view.
         Fitted on the index's device. Returns the IVFIndex."""
+        self.gather()
+        self._reject_l2("build_ivf")
         if self.is_int4:
             raise ValueError(
                 "IVF views are not supported on int4 storage (the bucket "
@@ -702,6 +857,8 @@ class Index:
         ``add()`` and ``remove()`` are absorbed, ``augment_database()``
         drops the view. Fitted on the index's device. Returns the
         IVFPQView."""
+        self.gather()
+        self._reject_l2("build_ivfpq")
         if self.ivf is not None or self.pq is not None:
             raise ValueError(
                 "IVF-PQ is mutually exclusive with the IVF and PQ views "
@@ -751,6 +908,8 @@ class Index:
         top-``rerank_depth`` candidates are then re-scored under each
         candidate's own cluster metric. ``add`` and ``remove`` are absorbed;
         ``augment_database`` drops the view. Returns the view."""
+        self.gather()
+        self._reject_l2("fit_local_whitening")
         self.lw = LocalWhiteningView.from_index(
             self, n_clusters=n_clusters, dim=dim, tau=tau, iters=iters,
             seed=seed)
@@ -780,6 +939,8 @@ class Index:
         (10 when 0) and ``dba_alpha``. ``mesh`` selects the neighbours through
         ``to_sharded(mesh)`` (``expand_queries(include_query=False)``), with
         the same result. Rows added later are not augmented."""
+        self.gather()
+        self._reject_l2("augment_database")
         n = n if n is not None else (self.cfg.index.dba_n or 10)
         alpha = float(self.cfg.index.dba_alpha if alpha is None else alpha)
         if self.num_valid == 0:
@@ -848,19 +1009,22 @@ class Index:
         identical rows stay each other's neighbours. ``subset`` restricts
         the neighbour side; rows with fewer than ``k`` neighbours pad with
         ``(-inf, -1)``. ``mesh`` selects through ``to_sharded(mesh)``,
-        striking the row by its dataset id (unique), with the same
-        result."""
+        striking the row by its dataset id (unique), with the same result
+        (a placed index selects through its own placement). An l2 index
+        gives ``-||x - y||^2``: each stored row's norm column becomes the
+        query's ``-1`` column."""
         nv = self.num_valid
         out_s = np.full((nv, k), -np.inf, np.float32)
         out_i = np.full((nv, k), -1, np.int32)
         if nv == 0:
             return out_s, out_i
-        n_pad = self.descriptors.shape[0]
+        n_pad = self.n_pad
         k = min(k, max(1, n_pad - 1))
         chunk = min(chunk or self.cfg.search.query_chunk or 128, n_pad)
         subset = self._resolve_subset(subset)
         mask = subset.mask if subset is not None else None
-        sidx = self.to_sharded(mesh=mesh) if mesh is not None else None
+        sidx = (self.to_sharded(mesh=mesh) if mesh is not None else
+                self.placement)
         smask = (sidx.place_subset(subset)
                  if sidx is not None and subset is not None else None)
         ids_np = self.ids.cpu().numpy()
@@ -868,6 +1032,10 @@ class Index:
             s0 = min(start, n_pad - chunk)      # slide back near the end
             off = start - s0
             rows_q = self._query_rows(s0, chunk)
+            qnorm2 = None
+            if self.is_l2:                   # swap norm col -> query col
+                qnorm2 = 2.0 * rows_q[:, self.dim - 1].cpu().numpy()
+                rows_q[:, self.dim - 1] = -1.0
             if sidx is not None:
                 s, i = (t.cpu().numpy() for t in
                         sidx.search(rows_q, k=k + 1, mask=smask))
@@ -892,6 +1060,8 @@ class Index:
                                   float("-inf"))
                 s, i = s.cpu().numpy(), _pos_to_ids(self.ids, s,
                                                     pos).cpu().numpy()
+            if qnorm2 is not None:
+                s = _l2_scores(s, i, qnorm2)
             take = min(chunk - off, nv - start)
             out_s[start:start + take] = s[off:off + take]
             out_i[start:start + take] = i[off:off + take]
@@ -905,8 +1075,10 @@ class Index:
         id_b``) at its best score ``>= tau``, best first; with ``group=True``
         the connected components of those pairs (a union-find) as lists of
         names, largest first, so a chain a~b~c is one group even where a.c
-        < tau. Each row gives at most its ``k`` nearest as edges."""
+        < tau. Each row gives at most its ``k`` nearest as edges. On an l2
+        index ``tau`` is a Euclidean radius (pair scores ``-||a - b||^2``)."""
         s, i = self.knn_graph(k=k, chunk=chunk, subset=subset, mesh=mesh)
+        tau = -(float(tau) ** 2) if self.is_l2 else tau
         row_ids = self.ids[:self.num_valid].cpu().numpy()
         qa = np.repeat(row_ids, k).reshape(-1)
         qb = i.reshape(-1)
@@ -946,31 +1118,36 @@ class Index:
 
     def stats(self) -> dict:
         """What the index holds, from tensor metadata alone: rows, capacity,
-        dim, metric, dtype, layout generation, the bytes of each store on
-        the device (the store's zero columns included) and the attached
-        views' parameters."""
+        dim (the caller's width), metric, dtype, layout generation, the
+        bytes of each store on the devices (the store's zero columns
+        included) and the attached views' parameters."""
         def nbytes(t):
             return 0 if t is None else int(t.numel() * t.element_size())
 
+        def store_bytes(name):
+            if not self.placed:
+                return nbytes(getattr(self, name))
+            return sum(nbytes(t) for t in self._parts(name) or ())
+
         out = {
             "rows": self.num_valid,
-            "capacity": int(self.descriptors.shape[0]),
-            "dim": self.dim,
+            "capacity": self.n_pad,
+            "dim": self.user_dim,
             "metric": self.cfg.index.metric,
             "dtype": self.cfg.index.dtype,
             "layout_gen": self._layout_gen,
             "has_extractor": self.extractor is not None,
             "bytes": {
-                "descriptors": nbytes(self.descriptors),
-                "scales": nbytes(self.scales),
-                "regional": nbytes(self.regional)
-                + nbytes(self.regional_scales),
+                "descriptors": store_bytes("descriptors"),
+                "scales": store_bytes("scales"),
+                "regional": store_bytes("regional")
+                + store_bytes("regional_scales"),
             },
         }
-        if self.regional is not None:
+        if self.has_regional:
             out["regional_kind"] = ("refine" if self.has_refine_store
                                     else "rmac")
-            out["regions_per_image"] = int(self.regional.shape[1])
+            out["regions_per_image"] = self.regions_per_image
         if self.ivf is not None:
             v = self.ivf
             out["ivf"] = {
@@ -1013,7 +1190,12 @@ class Index:
         unpacked (int4) and dequantized (int8, int4), without the kernels'
         zero columns. The callers cut the store into slices that divide it,
         so no slice runs past its end (the reference's dynamic_slice would
-        move such a slice back)."""
+        move such a slice back). A placed store's rows come from its
+        shards, on the first device."""
+        if self.placed:
+            pos = torch.arange(start, min(start + chunk, self.n_pad),
+                               device=self.device)
+            return self.placement.rows_f32(pos)[:, :self.dim]
         rows = self.descriptors[start:start + chunk]
         if self.is_int4:
             rows = unpack_int4(rows)
@@ -1026,11 +1208,26 @@ class Index:
     def _match_query_dim(self, q: torch.Tensor) -> torch.Tensor:
         """Queries of the descriptor width (or, for an int4 store of an odd
         width, one narrower, as the reference takes them) gain the store's
-        zero columns, which never change a dot product."""
+        zero columns, which never change a dot product. An l2 index's
+        queries of the caller's width gain the ``-1`` column first, so
+        ``x'.q' = x.q - ||x||^2/2`` ranks as ``-||x - q||``."""
         w = q.shape[-1]
+        if self.is_l2 and w == self.dim - 1:
+            q = torch.cat([q.float(), q.new_full(q.shape[:-1] + (1,), -1.0,
+                                                 dtype=torch.float32)], -1)
+            w += 1
         if w == self.dim or (self.is_int4 and w == self.dim - 1):
             q = torch.nn.functional.pad(q, (0, self.store_dim - w))
         return q
+
+    def _l2_query_norms(self, q: torch.Tensor) -> "np.ndarray | None":
+        """``||q||^2 [Q]`` f32 of an l2 index's queries (of the caller's
+        width, or with the ``-1`` column, which is dropped) for the score
+        conversion, or None on an ip index."""
+        if not self.is_l2:
+            return None
+        qn = q[..., :self.dim - 1].float()
+        return (qn * qn).sum(-1).cpu().numpy()
 
     def search(self, queries, search_cfg=None, query_regional=None,
                subset=None):
@@ -1052,18 +1249,31 @@ class Index:
         composite in pieces (utils/chunking.py): the re-rank stage gathers
         ``[chunk, depth, R, D]`` candidate regions. ``subset`` (a
         :meth:`make_subset` filter, or names or ids built here) restricts
-        every top-k to its members."""
+        every top-k to its members. An l2 index takes exact search only and
+        returns ``-||x - q||^2``. A placed store (``load(mesh=)``) answers
+        through its sharded view, the same answers; a candidate tier
+        (IVF, PQ, IVF-PQ) armed on it gathers the store first."""
         scfg = search_cfg or self.cfg.search
         self._check_rescoring_cfg(scfg)
-        subset = self._resolve_subset(subset)
-        mask = subset.mask if subset is not None else None
         q = torch.as_tensor(queries, device=self.device)
         if q.ndim == 1:
             q = q[None]
         w = q.shape[-1]
+        qn2 = self._l2_query_norms(q)
         q = self._match_query_dim(q.float())
         if q.shape[-1] != self.store_dim:
             raise ValueError(f"queries have width {w}, the store {self.dim}")
+        tier_armed = ((self.ivf is not None and scfg.ivf_nprobe > 0)
+                      or (self.pq is not None and scfg.pq_depth > 0)
+                      or (self.ivfpq is not None and scfg.ivfpq_nprobe > 0))
+        if self.placed and not tier_armed:
+            COUNTERS.add("queries_served", q.shape[0])
+            s, i = self.search_sharded(self.placement, q, scfg,
+                                       query_regional, subset)
+            return (s, i) if qn2 is None else (_l2_scores(s, i, qn2), i)
+        self.gather()
+        subset = self._resolve_subset(subset)
+        mask = subset.mask if subset is not None else None
         COUNTERS.add("queries_served", q.shape[0])
         do_rerank = (scfg.rerank_enabled and self.regional is not None
                      and query_regional is not None)
@@ -1114,7 +1324,8 @@ class Index:
             s, i = self._search_lw(q, scfg, mask)
         else:
             s, i = run_chunked(run, scfg.query_chunk, *args)
-        return s.cpu().numpy(), i.cpu().numpy()
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        return (s, i) if qn2 is None else (_l2_scores(s, i, qn2), i)
 
     def _search_lw(self, q: torch.Tensor, scfg, mask=None):
         """The local-whitening composite (``_lw_composite``) in pieces that
@@ -1276,7 +1487,7 @@ class Index:
         scfg = search_cfg or self.cfg.search
         self._check_rescoring_cfg(scfg)
         qreg = None
-        if scfg.rerank_enabled and self.regional is not None:
+        if scfg.rerank_enabled and self.has_regional:
             q, qreg = self.extractor.extract_with_regional(images)
         else:
             q = self.extractor(images)
@@ -1349,55 +1560,63 @@ class Index:
         N_pad)``. The members are the top-``m`` of the index's own route
         (the kernel of the store's kind, or the oracle) cut at ``tau``,
         score-sorted, the slots past them ``(-inf, -1)``; the counts are
-        exact, from a pass over the dequantized store in f32, in the
-        reference's chunks of rows (no ``[Q, N_pad]`` matrix), so
-        ``counts > max_results`` flags a cut list. A quantized store's
-        member scores are the kernel's, its counts f32 re-scores: a row
-        within a quantization step of ``tau`` may fall on the other side of
-        it in one of the two. ``subset`` filters both."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "range search through a mesh (ShardedIndex.search_range) is "
-                "not ported yet (ROADMAP M7)")
+        exhaustive, from a pass over the dequantized store
+        (``range_count``: f32 rows, f64 products, bounded chunks of rows,
+        no ``[Q, N_pad]`` matrix), so ``counts > max_results`` flags a
+        cut list. A quantized
+        store's member scores are the kernel's, its counts re-scores of
+        the dequantized rows: a row within a quantization step of ``tau``
+        may fall on the other side of it in one of the two. ``subset``
+        filters both. On an l2 index ``tau`` is a Euclidean radius, turned
+        into one threshold a query, ``(||q||^2 - tau^2)/2``, and the scores
+        are ``-||x - q||^2``. ``mesh`` (or a placed store's own mesh)
+        answers through ``ShardedIndex.search_range``: the members of the
+        sharded merge, the counts summed over the shards; the same
+        answers."""
         q = torch.as_tensor(queries, device=self.device).float()
         if q.ndim == 1:
             q = q[None]
         w = q.shape[-1]
+        qn2 = self._l2_query_norms(q)
         q = self._match_query_dim(q)
         if q.shape[-1] != self.store_dim:
             raise ValueError(f"queries have width {w}, the store {self.dim}")
         subset = self._resolve_subset(subset)
         COUNTERS.add("queries_served", q.shape[0])
-        mask = subset.mask if subset is not None else None
-        n_pad = self.descriptors.shape[0]
-        m = min(max_results, n_pad)
+        # one f32 threshold a query: tau, or an l2 radius's (||q||² - tau²)/2
+        thr = torch.as_tensor(
+            np.full(q.shape[0], tau, np.float32) if qn2 is None else
+            (qn2 - np.float32(float(tau) ** 2)) / np.float32(2.0),
+            device=self.device)
+        if mesh is not None or self.placed:
+            sidx = (self.to_sharded(mesh=mesh) if mesh is not None
+                    else self.placement)
+            s, i, counts = sidx.search_range(
+                q, thr, max_results=max_results,
+                mask=sidx.place_subset(subset) if subset is not None
+                else None)
+        else:
+            mask = subset.mask if subset is not None else None
+            m = min(max_results, self.n_pad)
 
-        def run(qq):
-            s, pos = _topk_raw(self.descriptors, self.ids, qq, self.num_valid,
-                               self.scales, k=m,
-                               use_kernel=bool(self.cfg.search.use_pallas),
-                               int4=self.is_int4, mask=mask)
-            return s, _pos_to_ids(self.ids, s, pos)
+            def run(qq):
+                s, pos = _topk_raw(self.descriptors, self.ids, qq,
+                                   self.num_valid, self.scales, k=m,
+                                   use_kernel=bool(self.cfg.search.use_pallas),
+                                   int4=self.is_int4, mask=mask)
+                return s, _pos_to_ids(self.ids, s, pos)
 
-        s, i = run_chunked(run, self.cfg.search.query_chunk, q)
-        keep = s >= tau
-        s = s.masked_fill(~keep, float("-inf"))
-        i = torch.where(keep, i, torch.full_like(i, -1))
-        chunk = next((c for c in (65_536, 32_768, 16_384, 8_192, 4_096,
-                                  2_048, 1_024, 512, 256, 128, 64, 32, 16, 8)
-                      if n_pad % c == 0), n_pad)
-        chunk = min(chunk, n_pad)
-        qd = q[:, :self.dim]
-        counts = torch.zeros((q.shape[0],), dtype=torch.int64,
-                             device=self.device)
-        for start in range(0, n_pad, chunk):
-            ok = self.ids[start:start + chunk] >= 0
-            if mask is not None:
-                ok = ok & (mask[0, start:start + chunk] > 0)
-            hit = (qd @ self._rows_f32_chunk(start, chunk).T) >= tau
-            counts += (hit & ok[None, :]).sum(dim=1)
-        return (s.cpu().numpy(), i.cpu().numpy(),
-                counts.cpu().numpy().astype(np.int32))
+            s, i = run_chunked(run, self.cfg.search.query_chunk, q)
+            keep = s >= thr[:, None]
+            s = s.masked_fill(~keep, float("-inf"))
+            i = torch.where(keep, i, torch.full_like(i, -1))
+            counts = range_count(self.descriptors, self.ids, q, thr,
+                                 self.scales, int4=self.is_int4, mask=mask,
+                                 dim=self.dim)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        if qn2 is not None:
+            s = _l2_scores(s, i, qn2)
+        return s, i, counts.cpu().numpy().astype(np.int32)
 
     def _positions(self, names=None, ids=None) -> list[int]:
         """Row positions of exactly one of image ``names`` or dataset
@@ -1422,17 +1641,21 @@ class Index:
 
     def reconstruct(self, names: "Sequence[str] | None" = None,
                     ids: "Sequence[int] | None" = None) -> np.ndarray:
-        """Stored rows back out -> ``[n, dim]`` f32 numpy, row-aligned with
-        the request (exactly one of image ``names`` or dataset ``ids``):
-        what the scoring stages see, dequantized as every search stage
-        gathers rows (``gather_rows_f32``), without the zero columns."""
+        """Stored rows back out -> ``[n, user_dim]`` f32 numpy, row-aligned
+        with the request (exactly one of image ``names`` or dataset
+        ``ids``): what the scoring stages see, dequantized as every search
+        stage gathers rows (``gather_rows_f32``), without the zero columns
+        (and an l2 store's norm column)."""
         pos = self._positions(names=names, ids=ids)
         if not pos:
-            return np.zeros((0, self.dim), np.float32)
-        rows = _gather_rows_f32(
-            self.descriptors, torch.tensor(pos, device=self.device),
-            self.scales, int4=self.is_int4)
-        return rows[:, :self.dim].cpu().numpy()
+            return np.zeros((0, self.user_dim), np.float32)
+        pos = torch.tensor(pos, device=self.device)
+        if self.placed:
+            rows = self.placement.rows_f32(pos)
+        else:
+            rows = _gather_rows_f32(self.descriptors, pos, self.scales,
+                                    int4=self.is_int4)
+        return rows[:, :self.user_dim].cpu().numpy()
 
     # ------------------------------------------------------------------
     def add(self, paths: "Sequence[str] | None" = None, descriptors=None,
@@ -1441,7 +1664,9 @@ class Index:
         """Index new images in place: image ``paths`` (through the attached
         extractor and its whitening; with an R-MAC re-rank store, one
         combined pass gives the regional rows too) or whitened
-        ``descriptors [n, dim]`` with their ``names``. New ids run from
+        ``descriptors [n, dim]`` with their ``names`` (an l2 index takes
+        rows of the caller's width and appends their norm column). New ids
+        run from
         ``max(len(names), max id + 1)``. Rows are quantized and written at
         positions ``num_valid...`` while the padded capacity holds them;
         past it the whole store is dequantized and re-padded through
@@ -1451,6 +1676,7 @@ class Index:
         exact-refine store grows from the rows; the PQ and local-whitening
         views absorb them.
         Returns the number of rows added."""
+        self.gather()
         reg_new = None
         if paths is not None:
             if self.extractor is None:
@@ -1471,6 +1697,10 @@ class Index:
         x = torch.as_tensor(descriptors, device=self.device).float()
         if x.ndim != 2:
             raise ValueError(f"descriptors {tuple(x.shape)}: [n, dim]")
+        if self.is_l2 and x.shape[1] == self.dim - 1:
+            # rows of the caller's width gain the norm column (merge_from's
+            # dequantized donor rows carry it already)
+            x = torch.cat([x, 0.5 * (x * x).sum(1, keepdim=True)], 1)
         if self.is_int4 and x.shape[1] == self.dim - 1:
             # the odd width's zero column (nibbles pack in pairs)
             x = torch.nn.functional.pad(x, (0, 1))
@@ -1511,7 +1741,7 @@ class Index:
                 grown.replace(index=grown.index.replace(refine_dtype="")),
                 original_ids=torch.cat([self.ids[:start],
                                         new_ids]).cpu().numpy(),
-                device=self.device)
+                device=self.device, _augmented=self.is_l2)
             del merged
             self.cfg = grown
             self.descriptors, self.ids = rebuilt.descriptors, rebuilt.ids
@@ -1596,6 +1826,7 @@ class Index:
         names raise ``KeyError`` and leave the index unchanged. A live
         ``to_sharded()`` view keeps its old shards: make it again. Returns
         the number of rows removed."""
+        self.gather()
         pos_by_name = {nm: i for i, nm in enumerate(self.names)}
         missing = [nm for nm in names if nm not in pos_by_name]
         if missing:
@@ -1645,8 +1876,11 @@ class Index:
         regional rows. Refused: the index itself, another metric, another
         dim, another ``cfg.extract``, extractors whose weights or whitening
         differ (``_extractor_fingerprint``, when both carry one), shared
-        names, and regional stores of another kind or region count. Returns
+        names, and regional stores of another kind or region count. A
+        placed index or donor (``load(mesh=)``) is gathered first. Returns
         the number of rows merged."""
+        self.gather()
+        other.gather()
         if other is self:
             raise ValueError("cannot merge an index into itself")
         if other.cfg.index.metric != self.cfg.index.metric:
@@ -1724,30 +1958,47 @@ class Index:
     # which needs JAX); the reference reads such an index with
     # ``extractor=None`` or its own extractor.
 
+    def _host_store(self, name: str) -> "torch.Tensor | None":
+        """A store on the host; a placed store's parts joined there
+        (through the mesh's group when it has one), leaving the placement
+        as it is."""
+        if not self.placed:
+            t = getattr(self, name)
+            return None if t is None else t.cpu()
+        parts, dim = self._parts(name), _STORES[name][1]
+        if parts is None:
+            return None
+        if self.placement.mesh.group is not None:
+            return self.placement.mesh.gather(parts, dim).cpu()
+        return torch.cat([t.cpu() for t in parts], dim)
+
     def _array_state(self) -> dict:
-        """The reference's arrays as numpy, name -> array."""
+        """The reference's arrays as numpy, name -> array (an l2 store's
+        norm column included, as the reference writes it)."""
         state = {"ids": self.ids.cpu().numpy().astype(np.int32)}
+        x = self._host_store("descriptors")
         if self.is_int4:
             state["descriptors_int4"] = pack_int4(
-                unpack_int4(self.descriptors)[:, :self.dim]).cpu().numpy()
-        elif self.descriptors.dtype == torch.int8:
-            state["descriptors_int8"] = (
-                self.descriptors[:, :self.dim].cpu().numpy())
+                unpack_int4(x)[:, :self.dim]).numpy()
+        elif x.dtype == torch.int8:
+            state["descriptors_int8"] = x[:, :self.dim].numpy()
         else:
-            state["descriptors"] = (
-                self.descriptors[:, :self.dim].float().cpu().numpy())
-        if self.scales is not None:
-            state["scales"] = self.scales.cpu().numpy()
+            state["descriptors"] = x[:, :self.dim].float().numpy()
+        scales = self._host_store("scales")
+        if scales is not None:
+            state["scales"] = scales.numpy()
         w = None if self.extractor is None else self.extractor.whitening
         if w is not None:
             state["whitening_P"] = w.P.float().cpu().numpy()
             state["whitening_mu"] = w.mu.float().cpu().numpy()
-        if self.regional is not None:
-            if self.regional.dtype == torch.int8:
-                state["regional_int8"] = self.regional.cpu().numpy()
-                state["regional_scales"] = self.regional_scales.cpu().numpy()
+        regional = self._host_store("regional")
+        if regional is not None:
+            if regional.dtype == torch.int8:
+                state["regional_int8"] = regional.numpy()
+                state["regional_scales"] = self._host_store(
+                    "regional_scales").numpy()
             else:
-                state["regional"] = self.regional.float().cpu().numpy()
+                state["regional"] = regional.float().numpy()
         return state
 
     def save(self, path: str, streaming: "bool | None" = None) -> None:
@@ -1761,13 +2012,17 @@ class Index:
                 "the streaming (orbax) store is not ported yet; the port "
                 "writes the npz form (ROADMAP M10)")
         os.makedirs(path, exist_ok=True)
+        regional_dtype = None
+        if self.has_regional:
+            regional_dtype = (self._parts("regional")[0] if self.placed
+                              else self.regional).dtype
         state = self._array_state()
         np.savez(os.path.join(path, "index.npz"), **state)
         dtypes = {k: str(v.dtype) for k, v in state.items()}
         if "descriptors" in state:
             dtypes["descriptors"] = self.cfg.index.dtype
         if "regional" in state:
-            dtypes["regional"] = str(self.regional.dtype).split(".")[-1]
+            dtypes["regional"] = str(regional_dtype).split(".")[-1]
         meta = {"names": list(self.names),
                 "config": json.loads(self.cfg.to_json()),
                 "format": "npz", "dtypes": dtypes,
@@ -1796,7 +2051,8 @@ class Index:
 
     @classmethod
     def load(cls, path: str, extractor: Optional[Extractor] = None,
-             device: "torch.device | str | None" = None) -> "Index":
+             device: "torch.device | str | None" = None,
+             mesh=None) -> "Index":
         """An index saved by :meth:`save` or by the reference in its npz
         form (any row padding), onto ``device`` (default: the extractor's,
         else the CUDA card, raising without one). The store gains the
@@ -1805,7 +2061,18 @@ class Index:
         local-whitening views come along. The extractor is ``extractor``,
         else rebuilt from the port's weights file; an index whose weights
         were saved as an orbax checkpoint needs ``extractor=``. The stored
-        whitening is attached to the extractor."""
+        whitening is attached to the extractor.
+
+        ``mesh`` (a :class:`~instsearch_torch.parallel.ShardMesh` or a 2-D
+        mesh's shard axis) places the store as it loads: each of this
+        process's shards gets its rows of the store, the row scales and the
+        regional store, read from the file's rows and moved straight to
+        its device, so no device holds a whole-store tensor (with a process
+        group, each process places only its own shards; rows are
+        process-major). The ids (metadata), the views and the extractor
+        with its whitening go to the mesh's first device (``device`` is
+        then ignored). Serving runs through the placement (see the module
+        docstring); the padded rows must divide among the mesh's shards."""
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         if meta.get("format") == "orbax":
@@ -1815,8 +2082,14 @@ class Index:
                 "with streaming=False")
         cfg = PipelineConfig.from_json(json.dumps(meta["config"]))
         _check_index_cfg(cfg)
-        dev = (extractor.device if device is None and extractor is not None
-               else resolve_device(device))
+        smesh = None
+        if mesh is not None:
+            from .parallel.mesh import as_shard_mesh
+            smesh = as_shard_mesh(mesh)
+            dev = torch.empty(0, device=smesh.devices[0]).device
+        else:
+            dev = (extractor.device if device is None and extractor is not None
+                   else resolve_device(device))
         if extractor is None and meta.get("torch_weights"):
             extractor = Extractor(cfg.extract.replace(whiten=False),
                                   seed=int(meta.get("seed", 0)), device=dev)
@@ -1831,8 +2104,8 @@ class Index:
                 "neighbours)")
         raw = np.load(os.path.join(path, "index.npz"))
 
-        def put(a, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        def put(a, dtype=None, to=dev):
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(to)
             return t if dtype is None else t.to(dtype)
 
         if extractor is not None and "whitening_P" in raw.files:
@@ -1841,28 +2114,61 @@ class Index:
                 mu=put(raw["whitening_mu"], torch.float32).to(
                     extractor.device))
         kind = cfg.index.dtype
-        if "descriptors_int4" in raw.files:
-            comps = unpack_int4(put(raw["descriptors_int4"]))
-            dim = comps.shape[1]
-            store = pack_int4(torch.nn.functional.pad(
-                comps, (0, _pad_rows(dim, _COLUMN_MULTIPLE["int4"]) - dim)))
+        int4_key = "descriptors_int4" in raw.files
+        key = ("descriptors_int4" if int4_key else "descriptors_int8"
+               if "descriptors_int8" in raw.files else "descriptors")
+        rows_np = raw[key]
+        dim = rows_np.shape[1] * (2 if int4_key else 1)
+        width = _pad_rows(dim, _COLUMN_MULTIPLE[kind])
+
+        def store(lo, hi, to):
+            """Stored rows [lo, hi) on ``to``, with the zero columns."""
+            if int4_key:
+                comps = unpack_int4(put(rows_np[lo:hi], to=to))
+                return pack_int4(torch.nn.functional.pad(
+                    comps, (0, width - dim)))
+            x = put(rows_np[lo:hi], _DTYPES.get(kind, torch.int8), to=to)
+            return torch.nn.functional.pad(x, (0, width - dim))
+
+        regional_key = ("regional_int8" if "regional_int8" in raw.files
+                        else "regional" if "regional" in raw.files else None)
+        regional_dtype = (torch.int8 if regional_key == "regional_int8" else
+                          _DTYPES[meta["dtypes"]["regional"]]
+                          if regional_key else None)
+        sources = {
+            "descriptors": store,
+            "scales": None if "scales" not in raw.files else
+            (lambda lo, hi, to: put(raw["scales"][:, lo:hi], torch.float32,
+                                    to=to)),
+            "regional": None if regional_key is None else
+            (lambda lo, hi, to: put(raw[regional_key][lo:hi],
+                                    regional_dtype, to=to)),
+            "regional_scales": None if "regional_scales" not in raw.files
+            else (lambda lo, hi, to: put(raw["regional_scales"][lo:hi],
+                                         torch.float32, to=to))}
+        n_pad = rows_np.shape[0]
+        if smesh is None:
+            whole = {name: None if src is None else src(0, n_pad, dev)
+                     for name, src in sources.items()}
+            idx = cls(whole["descriptors"], put(raw["ids"], torch.int32),
+                      list(meta["names"]), cfg, extractor,
+                      scales=whole["scales"], dim=dim)
+            idx.regional = whole["regional"]
+            idx.regional_scales = whole["regional_scales"]
         else:
-            key = ("descriptors_int8" if "descriptors_int8" in raw.files
-                   else "descriptors")
-            x = put(raw[key], _DTYPES.get(kind, torch.int8))
-            dim = x.shape[1]
-            store = torch.nn.functional.pad(
-                x, (0, _pad_rows(dim, _COLUMN_MULTIPLE[kind]) - dim))
-        scales = (put(raw["scales"], torch.float32)
-                  if "scales" in raw.files else None)
-        idx = cls(store, put(raw["ids"], torch.int32), list(meta["names"]),
-                  cfg, extractor, scales=scales, dim=dim)
-        if "regional_int8" in raw.files:
-            idx.regional = put(raw["regional_int8"], torch.int8)
-            idx.regional_scales = put(raw["regional_scales"], torch.float32)
-        elif "regional" in raw.files:
-            idx.regional = put(raw["regional"],
-                               _DTYPES[meta["dtypes"]["regional"]])
+            if n_pad % smesh.num_shards:
+                raise ValueError(
+                    f"{n_pad} padded rows do not divide among "
+                    f"{smesh.num_shards} shards; load without mesh= and "
+                    f"to_sharded() a mesh that divides them")
+            c = n_pad // smesh.num_shards
+            first = smesh.first_shard
+            parts = {name: None if src is None else
+                     [src((first + j) * c, (first + j + 1) * c, d)
+                      for j, d in enumerate(smesh.devices)]
+                     for name, src in sources.items()}
+            idx = cls(None, put(raw["ids"], torch.int32), list(meta["names"]),
+                      cfg, extractor, dim=dim)
         if meta.get("regional_geom") is not None:
             idx.regional_geom = np.asarray(meta["regional_geom"], np.float32)
         if meta.get("ivf"):
@@ -1875,15 +2181,18 @@ class Index:
         if meta.get("lw"):
             idx.lw = LocalWhiteningView.load(os.path.join(path, "lw"),
                                              device=dev)
+        if smesh is not None:
+            idx.placement = idx._sharded_view(smesh, parts)
         return idx
 
     def evaluate(self, dataset, protocol: str = "medium", search_cfg=None,
                  sharded: bool = False, mesh=None) -> dict:
         """Full protocol metrics on a RetrievalDataset (eval/evaluate.py).
         ``sharded=True`` ranks, expands and re-ranks through
-        ``to_sharded(mesh)``: the same results, row-sharded."""
+        ``to_sharded(mesh)``: the same results, row-sharded. A placed store
+        evaluates through its own placement."""
         from .eval.evaluate import evaluate_index
-        sidx = self.to_sharded(mesh=mesh) if sharded else None
+        sidx = self.to_sharded(mesh=mesh) if sharded else self.placement
         return evaluate_index(self, dataset, protocol, search_cfg,
                               sharded_index=sidx)
 
@@ -1899,24 +2208,42 @@ class Index:
         on one device, pass ``make_mesh(S, devices=[device] * S)``.
         ``use_pallas`` defaults to the index's own route, so CUDA shards
         launch the kernels. On the store's own device the shards are views
-        of it."""
-        from .parallel import ShardedIndex, make_mesh
+        of it. ``mesh`` may be a 2-D mesh (its ``'shard'`` axis). A placed
+        store (``load(mesh=)``) with the same mesh, or none, gives a view
+        of its parts themselves, uncopied; another mesh gathers it first."""
+        from .parallel import as_shard_mesh, make_mesh
+        p = self.placement
+        if p is not None and (mesh is None or as_shard_mesh(mesh) == p.mesh):
+            return self._sharded_view(p.mesh, {
+                name: self._parts(name) for name in _STORES}, use_pallas)
+        self.gather()
         if mesh is None:
             n = self.cfg.index.num_shards
             mesh = make_mesh(n if n > 1 else None)
+        return self._sharded_view(mesh, {
+            name: getattr(self, name) for name in _STORES}, use_pallas)
+
+    def _sharded_view(self, mesh, store: dict,
+                      use_pallas: "bool | None" = None):
+        """A ``ShardedIndex`` over ``mesh`` of ``store`` (name -> whole
+        tensor, or one placed part per local shard, or None) with this
+        index's ids, config, regional geometry and views."""
+        from .parallel import ShardedIndex
         if use_pallas is None:
             use_pallas = bool(self.cfg.search.use_pallas)
         lw = self.lw
-        sidx = ShardedIndex(self.descriptors, self.ids, mesh=mesh,
+        sidx = ShardedIndex(store["descriptors"], self.ids, mesh=mesh,
                             k=self.cfg.search.k, use_pallas=use_pallas,
-                            scales=self.scales, regional=self.regional,
-                            regional_scales=self.regional_scales,
+                            scales=store["scales"],
+                            regional=store["regional"],
+                            regional_scales=store["regional_scales"],
                             query_chunk=self.cfg.search.query_chunk,
                             int4=self.is_int4,
                             regional_geom=self.regional_geom, dim=self.dim,
                             lw_store=None if lw is None else lw.store,
                             lw_assign=None if lw is None else lw.assign,
-                            lw_params=None if lw is None else lw.params)
+                            lw_params=None if lw is None else lw.params,
+                            l2=self.is_l2)
         if self.ivfpq is not None:
             sidx.attach_ivfpq(self.ivfpq)
         return sidx
@@ -1926,6 +2253,8 @@ class Index:
         for protocol evaluation. Padding (-inf) sorts last and is cut."""
         q = self._match_query_dim(
             torch.as_tensor(queries, device=self.device).float())
+        if self.placed:
+            return self.placement.full_ranking(q)
         scores = masked_scores(self.descriptors, q, scales=self.scales,
                                ids=self.ids, int4=self.is_int4)
         order = torch.sort(scores, dim=1, descending=True, stable=True)[1]

@@ -1,5 +1,6 @@
-"""The shard mesh (port of ``instsearch_tpu/parallel/mesh.py``: ``make_mesh``,
-``shard_rows``, ``replicate``; the 1-D ``'shard'`` axis only).
+"""The device meshes (port of ``instsearch_tpu/parallel/mesh.py``:
+``make_mesh``, ``default_data_mesh``, ``make_mesh_2d``, ``make_mesh_dp_tp``,
+``shard_rows``, ``replicate``).
 
 In the reference one process drives a ``jax.sharding.Mesh`` through
 ``shard_map``. Here a :class:`ShardMesh` names the torch device of each
@@ -20,6 +21,14 @@ The cross-shard step, the reference's all-gather over ICI, is
 and are concatenated in shard order; with a group, one
 ``torch.distributed.all_gather`` then joins the processes' pieces in rank
 order (gloo on the CPU, NCCL on the card).
+
+The 2-D meshes (:class:`DeviceMesh`) name a device at each position of two
+axes, ``('data', 'shard')`` or ``('data', 'model')``, as the reference's
+``Mesh`` does. A stage takes the 1-D mesh along its own axis
+(:meth:`DeviceMesh.along`): the sharded index its ``'shard'`` axis (else
+the first), data-parallel extraction its ``'data'`` axis (else the first
+that is not ``'model'``). A 1-D :class:`ShardMesh` names its one axis too
+(``'shard'``, or ``'data'`` from :func:`default_data_mesh`).
 """
 from __future__ import annotations
 
@@ -36,6 +45,17 @@ class ShardMesh:
     the other shards, or None when this process holds them all."""
     devices: tuple
     group: object = None
+    axis: str = "shard"
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis,)
+
+    def along(self, axis: str) -> "ShardMesh":
+        """The 1-D mesh along ``axis``: this one."""
+        if axis != self.axis:
+            raise ValueError(f"mesh axis {self.axis!r}, not {axis!r}")
+        return self
 
     @property
     def rank(self) -> int:
@@ -79,6 +99,51 @@ class ShardMesh:
         return torch.cat(out, dim)
 
 
+@dataclass(frozen=True)
+class DeviceMesh:
+    """A 2-D mesh of one process: ``devices[i][j]`` is the torch device at
+    position ``(i, j)`` of the axes ``axis_names`` (devices may repeat)."""
+    devices: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis_names[0]: len(self.devices),
+                self.axis_names[1]: len(self.devices[0])}
+
+    def along(self, axis: str) -> ShardMesh:
+        """The 1-D mesh along ``axis``, at position 0 of the other axis:
+        the devices a stage over ``axis`` uses (the reference replicates
+        the stage over the other axis; one process needs one replica)."""
+        if axis == self.axis_names[0]:
+            devs = tuple(row[0] for row in self.devices)
+        elif axis == self.axis_names[1]:
+            devs = tuple(self.devices[0])
+        else:
+            raise ValueError(f"mesh axes {self.axis_names}, not {axis!r}")
+        return ShardMesh(devs, axis=axis)
+
+
+def shard_axis(mesh) -> str:
+    """The axis rows shard over: ``'shard'``, else the mesh's first."""
+    return "shard" if "shard" in mesh.axis_names else mesh.axis_names[0]
+
+
+def batch_axis(mesh) -> "str | None":
+    """The data-parallel axis: ``'data'``, else the first axis that is not
+    ``'model'`` (a tensor-parallel axis is never a batch axis), else None."""
+    if "data" in mesh.axis_names:
+        return "data"
+    return next((a for a in mesh.axis_names if a != "model"), None)
+
+
+def as_shard_mesh(mesh) -> ShardMesh:
+    """A mesh's 1-D mesh along its shard axis (a :class:`ShardMesh` is its
+    own)."""
+    return mesh if isinstance(mesh, ShardMesh) else mesh.along(
+        shard_axis(mesh))
+
+
 def _visible_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
@@ -109,6 +174,50 @@ def make_mesh(num_shards: "int | None" = None,
         raise ValueError(f"requested {num_shards} shards, the devices and "
                          f"group give {mesh.num_shards}")
     return mesh
+
+
+def default_data_mesh() -> "ShardMesh | None":
+    """The data-parallel mesh of ``Index.build`` and ``ResumableBuilder``:
+    every visible CUDA device over ``'data'`` when there are more than one,
+    else None (one device)."""
+    visible = _visible_devices()
+    if len(visible) <= 1:
+        return None
+    return ShardMesh(tuple(visible), axis="data")
+
+
+def _grid(rows: int, cols: int, devices, names: tuple) -> DeviceMesh:
+    if devices is None:
+        visible = _visible_devices()
+        if rows * cols > len(visible):
+            raise ValueError(f"requested {rows}x{cols} devices, have "
+                             f"{len(visible)} CUDA devices; pass devices=")
+        devices = visible[:rows * cols]
+    devs = [torch.device(d) for d in devices]
+    if rows < 1 or cols < 1 or len(devs) != rows * cols:
+        raise ValueError(f"a {rows}x{cols} mesh needs {rows * cols} devices, "
+                         f"got {len(devs)}")
+    return DeviceMesh(tuple(tuple(devs[i * cols:(i + 1) * cols])
+                            for i in range(rows)), names)
+
+
+def make_mesh_2d(data: int, shard: int,
+                 devices: "Sequence[torch.device | str] | None" = None
+                 ) -> DeviceMesh:
+    """A ``('data', 'shard')`` mesh: data-parallel extraction over
+    ``'data'``, the index's rows over ``'shard'``. ``devices`` (row-major,
+    ``data * shard`` of them, may repeat) default to the first visible CUDA
+    devices, raising when there are too few."""
+    return _grid(data, shard, devices, ("data", "shard"))
+
+
+def make_mesh_dp_tp(data: int, model: int,
+                    devices: "Sequence[torch.device | str] | None" = None
+                    ) -> DeviceMesh:
+    """A ``('data', 'model')`` mesh: the batch over ``'data'``, the ViT's
+    tensor-parallel weight split over ``'model'`` (innermost, as the
+    reference)."""
+    return _grid(data, model, devices, ("data", "model"))
 
 
 def device_mesh(num_shards: int, device: "torch.device | str"

@@ -37,8 +37,17 @@ top-depth, each shard re-scores exactly the candidates whose rows it holds,
 and one sum over the shards (a gather, then a sum where one shard gives the
 score and the rest zeros) assembles the scores.
 
-Not ported yet, and raising ``NotImplementedError``: range search (ROADMAP
-M7).
+Range search (``sharded_range``) takes its members from the sharded merge of
+the top-k, cut at the threshold, and its exhaustive counts from a pass over each
+shard's own rows (``search/bruteforce.py::range_count``, chunk by chunk,
+never a ``[Q, C]`` matrix), summed over the local shards and, with a process
+group, by one ``all_reduce``. An l2 store (``l2=True``) carries the
+``||x||^2/2`` column, and queries of the user's width gain its ``-1``
+column; scores stay in that space (``Index`` converts them).
+
+On a 2-D mesh (``make_mesh_2d``) the rows shard over its ``'shard'`` axis
+(else its first), at position 0 of the other axis: one process needs one
+replica of the store.
 """
 from __future__ import annotations
 
@@ -50,8 +59,8 @@ import torch
 from ..kernels.topk_matmul import (K_MAX, topk_matmul, topk_matmul_int4,
                                    topk_matmul_int8)
 from ..ops.local_whiten import LocalWhiteningParams
-from ..search.bruteforce import (gather_rows_f32, masked_scores, search_topk,
-                                 select_topk)
+from ..search.bruteforce import (gather_rows_f32, masked_scores, range_count,
+                                 search_topk, select_topk)
 from ..search.diffusion import diffusion_rerank_from_candidates
 from ..search.ivfpq import _adc_select
 from ..search.lw_rerank import lw_candidate_scores, whiten_all_clusters
@@ -59,7 +68,7 @@ from ..search.qe import expand_from_candidates
 from ..search.rerank import fused_scores, region_similarities
 from ..search.spatial import build_vote_matrix
 from ..utils.chunking import run_chunked
-from .mesh import ShardMesh, make_mesh, replicate, shard_rows
+from .mesh import ShardMesh, as_shard_mesh, make_mesh, replicate, shard_rows
 
 _NEG = float("-inf")
 
@@ -327,6 +336,32 @@ def sharded_lw(mesh: ShardMesh, shards, qs, ids: torch.Tensor, k: int,
     return s, out
 
 
+def sharded_range(mesh: ShardMesh, shards, qs, ids: torch.Tensor, thr,
+                  m: int, *, use_pallas: bool, int4: bool, dim: int,
+                  masks=None):
+    """Range search over the shards: the members are :func:`sharded_topk`'s
+    top-``m`` cut at ``thr`` (``[Q]`` f32, one threshold a query, on the
+    first device), the slots past them ``(-inf, -1)``; the counts are each
+    shard's ``range_count`` over its own rows (the first ``dim`` columns,
+    dequantized to f32, products in f64, so the routes' counts agree to
+    f64 rounding), summed on the first device and
+    across processes by one ``all_reduce`` -> ``(scores [Q, m], dataset ids
+    [Q, m], counts [Q] int64)``."""
+    s, i = sharded_topk(mesh, shards, qs, ids, m, use_pallas=use_pallas,
+                        int4=int4, masks=masks)
+    keep = s >= thr[:, None]
+    s = s.masked_fill(~keep, _NEG)
+    i = torch.where(keep, i, torch.full_like(i, -1))
+    first = mesh.devices[0]
+    counts = sum(range_count(sh.x, sh.ids, q, thr.to(q.device), sh.scales,
+                             int4=int4, mask=mk, dim=dim).to(first)
+                 for sh, q, mk in zip(shards, qs, _masks(shards, masks)))
+    if mesh.group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(counts, group=mesh.group)
+    return s, i, counts
+
+
 class ShardIVFPQ(NamedTuple):
     """One shard's slice of an IVF-PQ view, on its device: the codes and
     positions of its ``M/S`` slots of every bucket, its ``1/S`` of the spill,
@@ -406,11 +441,6 @@ def sharded_ivfpq(mesh: ShardMesh, shards, views, qs, ids: torch.Tensor,
     return (_pad_cols(exact[:, :kk], k, _NEG), _pad_cols(out[:, :kk], k, -1))
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} on the sharded index is not ported "
-                              f"yet (ROADMAP {item})")
-
-
 class ShardedIndex:
     """The store row-sharded over a :class:`ShardMesh`.
 
@@ -430,7 +460,13 @@ class ShardedIndex:
     ``lw_params`` (``LocalWhiteningParams``, kept on the first device).
     ``use_pallas`` is the kernel route (a CUDA shard launches the kernels,
     a CPU shard takes their plain versions), on by default as in
-    ``SearchConfig``; off, the scoring oracle.
+    ``SearchConfig``; off, the scoring oracle. ``l2``: the store carries an
+    l2 index's ``||x||^2/2`` column at column ``dim - 1`` (``Index.is_l2``),
+    and queries one narrower gain the ``-1`` there.
+    ``mesh``: a :class:`ShardMesh` or a 2-D mesh (its ``'shard'`` axis).
+    ``descriptors``, ``scales``, ``regional`` and ``regional_scales`` may
+    also come placed, one tensor per local shard on its device (the rows of
+    ``Index.load(mesh=)``): the shards are then those tensors, uncopied.
     Results are tensors on the mesh's first device, the same on every
     process."""
 
@@ -439,17 +475,22 @@ class ShardedIndex:
                  scales=None, regional_scales=None, query_chunk: int = 128,
                  int4: bool = False, regional_geom=None,
                  dim: "int | None" = None, lw_store=None, lw_assign=None,
-                 lw_params: "LocalWhiteningParams | None" = None):
-        self.mesh = mesh or make_mesh()
-        x = torch.as_tensor(descriptors)
+                 lw_params: "LocalWhiteningParams | None" = None,
+                 l2: bool = False):
+        self.mesh = as_shard_mesh(mesh or make_mesh())
+        self.axis = self.mesh.axis
+        placed = isinstance(descriptors, (list, tuple))
+        x = descriptors[0] if placed else torch.as_tensor(descriptors)
         ids_all = torch.as_tensor(ids).to(torch.int32)
         n, s = ids_all.shape[0], self.mesh.num_shards
         if n % s:
             raise ValueError(f"padded rows {n} not divisible by {s} shards")
         c = n // s
-        if x.shape[0] != c * self.mesh.num_local:
+        local_rows = (sum(t.shape[0] for t in descriptors) if placed
+                      else x.shape[0])
+        if local_rows != c * self.mesh.num_local:
             raise ValueError(
-                f"{x.shape[0]} local rows; {self.mesh.num_local} local "
+                f"{local_rows} local rows; {self.mesh.num_local} local "
                 f"shards of {c} rows ({n} ids over {s} shards) need "
                 f"{c * self.mesh.num_local}")
         if x.dtype not in (torch.bfloat16, torch.float32, torch.int8):
@@ -457,8 +498,10 @@ class ShardedIndex:
                              f"int8 or packed int4")
         if x.dtype == torch.int8 and scales is None:
             raise ValueError("int8/int4 descriptors need per-row scales")
-        if regional is not None and torch.as_tensor(regional).dtype == \
-                torch.int8 and regional_scales is None:
+        if regional is not None and (
+                regional[0] if isinstance(regional, (list, tuple))
+                else torch.as_tensor(regional)).dtype == torch.int8 \
+                and regional_scales is None:
             raise ValueError("int8 regional store needs per-region scales")
         if ((lw_store is None) != (lw_assign is None)
                 or (lw_store is None) != (lw_params is None)):
@@ -471,7 +514,8 @@ class ShardedIndex:
         self.num_rows = n
         self.rows_per_shard = c
         self.int4 = int4
-        self.descriptors = x
+        self.l2 = l2
+        self.descriptors = descriptors if placed else x
         self.regional = regional
         self.regional_geom = regional_geom
         self.default_k = k
@@ -488,14 +532,25 @@ class ShardedIndex:
         local_ids = ids_all[first * c:(first + self.mesh.num_local) * c]
 
         def split(t, dim=0):
-            return ([None] * self.mesh.num_local if t is None
-                    else shard_rows(self.mesh, torch.as_tensor(t), dim))
+            if t is None:
+                return [None] * self.mesh.num_local
+            if isinstance(t, (list, tuple)):       # placed: one per shard
+                if len(t) != self.mesh.num_local or any(
+                        p.shape[dim] != c or p.device != torch.empty(
+                            0, device=d).device
+                        for p, d in zip(t, self.mesh.devices)):
+                    raise ValueError(
+                        f"placed parts: one tensor of {c} rows per local "
+                        f"shard, on its device")
+                return list(t)
+            return shard_rows(self.mesh, torch.as_tensor(t), dim)
 
         self.shards = [
             Shard(xs, ids_s, sc, reg, rsc,
                   max(0, min(self.num_valid - (first + j) * c, c)), lws, lwa)
             for j, (xs, ids_s, sc, reg, rsc, lws, lwa) in enumerate(zip(
-                split(x), split(local_ids), split(scales, 1),
+                split(descriptors if placed else x), split(local_ids),
+                split(scales, 1),
                 split(regional), split(regional_scales), split(lw_store),
                 split(lw_assign)))]
 
@@ -503,12 +558,16 @@ class ShardedIndex:
     def _match_query_dim(self, q) -> torch.Tensor:
         """Queries of the descriptor width (an int4 store of an odd width
         also takes them one narrower, as the reference) gain the store's
-        zero columns, which never change a dot product; f32 on the first
+        zero columns, which never change a dot product; an l2 store's
+        queries one narrower gain its ``-1`` column first. f32 on the first
         device."""
         q = torch.as_tensor(q, device=self.mesh.devices[0]).float()
         if q.ndim == 1:
             q = q[None]
         w = q.shape[-1]
+        if self.l2 and w == self.dim - 1:
+            q = torch.cat([q, q.new_full((q.shape[0], 1), -1.0)], 1)
+            w += 1
         if w == self.dim or (self.int4 and w == self.dim - 1):
             q = torch.nn.functional.pad(q, (0, self.store_dim - w))
         if q.shape[-1] != self.store_dim:
@@ -631,7 +690,8 @@ class ShardedIndex:
         if self.regional is None:
             raise ValueError("no refine store attached")
         q = self._match_query_dim(queries)
-        return self.search_rerank(q, q[:, None, :self.regional.shape[-1]],
+        width = self.shards[0].regional.shape[-1]
+        return self.search_rerank(q, q[:, None, :width],
                                   k=k, depth=depth, fuse_weight=0.0,
                                   mask=mask)
 
@@ -676,6 +736,28 @@ class ShardedIndex:
                                       replicate(self.mesh, qq),
                                       int4=self.int4), q)
 
+    def rows_f32(self, pos: torch.Tensor) -> torch.Tensor:
+        """Stored rows at global positions ``pos`` (held by this process's
+        shards), dequantized to f32 as every stage gathers them -> ``[n,
+        W]`` on the first device."""
+        c, first = self.rows_per_shard, self.mesh.first_shard
+        pos = pos.to(self.mesh.devices[0]).long()
+        out = torch.zeros((pos.shape[0], self.store_dim), dtype=torch.float32,
+                          device=pos.device)
+        held = torch.zeros_like(pos, dtype=torch.bool)
+        for j, sh in enumerate(self.shards):
+            loc = pos - (first + j) * c
+            inr = (loc >= 0) & (loc < c)
+            sel = inr.nonzero()[:, 0]
+            if len(sel):
+                out[sel] = gather_rows_f32(sh.x, loc[sel].to(sh.x.device),
+                                           sh.scales,
+                                           int4=self.int4).to(out.device)
+                held |= inr
+        if not bool(held.all()):
+            raise ValueError("rows held by another process's shards")
+        return out
+
     def full_ranking(self, queries) -> np.ndarray:
         """``[Q, num_valid]`` dataset ids best-first through the sharded
         scorer, the counterpart of ``Index.full_ranking`` for protocol
@@ -685,8 +767,23 @@ class ShardedIndex:
         return self._ids[order][:, :self.num_valid].cpu().numpy()
 
     # ------------------------------------------------------------------
-    def search_range(self, *args, **kwargs):
-        _not_ported("range search", "M7")
+    def search_range(self, queries, thr, max_results: int = 1024,
+                     mask=None):
+        """Range search (:func:`sharded_range`): every row scoring at least
+        ``thr`` (a float, or ``[Q]`` thresholds: ``Index.search_range``
+        turns an l2 radius into them) -> ``(scores [Q, m], dataset ids [Q,
+        m], counts [Q] int64)`` tensors, ``m = min(max_results, N_pad)`` as
+        on one device; scores in the store's space (an l2 store's
+        augmented inner products)."""
+        masks = self._placed(mask)
+        q = self._match_query_dim(queries)
+        m = min(max_results, self.num_rows)
+        thr = torch.as_tensor(thr, dtype=torch.float32,
+                              device=q.device).expand(q.shape[0])
+        return self._run_chunked(
+            lambda qq, tt: sharded_range(
+                self.mesh, self.shards, replicate(self.mesh, qq), self._ids,
+                tt, m, masks=masks, dim=self.dim, **self._kw()), q, thr)
 
     def attach_ivfpq(self, view, nprobe: "int | None" = None,
                      depth: "int | None" = None) -> None:

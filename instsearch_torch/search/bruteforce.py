@@ -14,6 +14,11 @@ import torch
 
 from ..ops.quantize import unpack_int4
 
+# bytes of f64 temporaries (a chunk's widened rows and its [Q, chunk]
+# scores) a range-count chunk may hold, and its most rows
+_RANGE_BUDGET = 256 << 20
+_RANGE_MAX_ROWS = 65_536
+
 
 def masked_scores(descriptors: torch.Tensor, queries: torch.Tensor,
                   scales: "torch.Tensor | None" = None,
@@ -89,3 +94,45 @@ def search_topk(index: torch.Tensor, queries: torch.Tensor, k: int = 10,
     ``scales``/``int4`` for a quantized store, ``mask`` for a subset."""
     return select_topk(masked_scores(index, queries, scales=scales, ids=ids,
                                      int4=int4, mask=mask), k)
+
+
+def range_count(descriptors: torch.Tensor, ids: torch.Tensor,
+                queries: torch.Tensor, thr, scales=None, *,
+                int4: bool = False, mask: "torch.Tensor | None" = None,
+                dim: "int | None" = None) -> torch.Tensor:
+    """The counting half of range search (the reference's
+    ``_range_count_jit``): per query, the valid rows (id >= 0, in ``mask``
+    when given) whose score reaches its threshold ``thr [Q]`` (f32) ->
+    ``[Q]`` int64. The rows go through in chunks of at most
+    ``_RANGE_MAX_ROWS`` whose f64 temporaries, the widened rows and the
+    ``[Q, chunk]`` scores, stay under ``_RANGE_BUDGET`` bytes (never a
+    ``[Q, N]`` matrix, nor the whole store widened). Each chunk is read
+    over its first ``dim`` columns as every search stage reads it
+    (dequantized to f32 for int8 and int4) and widened to f64 with the
+    query: the products of f32 values are exact in f64 and the sums carry
+    f64 rounding, so counts from different chunkings or shardings agree to
+    f64 rounding, where an f32 sum's order would move a score at the
+    threshold by an f32 ulp."""
+    n = descriptors.shape[0]
+    q = queries.float()
+    if dim is not None:
+        q = q[:, :dim]
+    q = q.double()
+    thr_b = thr.float().double()[:, None]
+    chunk = max(1, min(n, _RANGE_MAX_ROWS,
+                       _RANGE_BUDGET // (8 * (q.shape[0] + q.shape[1]))))
+    counts = torch.zeros((q.shape[0],), dtype=torch.int64, device=q.device)
+    for start in range(0, n, chunk):
+        rows = descriptors[start:start + chunk]
+        if int4:
+            rows = unpack_int4(rows)
+        rows = rows[:, :q.shape[1]]
+        if scales is not None:
+            rows = rows.float() * scales.reshape(-1)[start:start + chunk,
+                                                     None]
+        ok = ids[start:start + chunk] >= 0
+        if mask is not None:
+            ok = ok & (mask.reshape(-1)[start:start + chunk] > 0)
+        hit = (q @ rows.double().T) >= thr_b
+        counts += (hit & ok[None, :]).sum(dim=1)
+    return counts

@@ -49,7 +49,7 @@ def build_position_mask(index, names: Optional[Sequence[str]] = None,
     one of ``names`` (image names), ``ids`` (dataset ids, the values
     ``search`` returns) or ``mask`` (``[N_pad]`` over row positions, ANDed
     with the valid rows). Unknown names or ids raise ``KeyError``."""
-    n_pad = index.descriptors.shape[0]
+    n_pad = index.n_pad
     if sum(x is not None for x in (names, ids, mask)) != 1:
         raise ValueError("pass exactly one of names=, ids=, mask=")
     if mask is not None:

@@ -189,7 +189,7 @@ class ServeCore:
         alive = set(self.idx.names)
         for nm, sub in list(self.subsets.items()):
             if (sub.layout_gen == self.idx._layout_gen
-                    and sub.n_pad == self.idx.descriptors.shape[0]):
+                    and sub.n_pad == self.idx.n_pad):
                 continue
             members = [m for m in (sub.names or ()) if m in alive]
             self.subsets[nm] = self.idx.make_subset(names=members)

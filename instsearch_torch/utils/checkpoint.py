@@ -6,8 +6,9 @@ A checkpoint is a directory holding ``torch_weights.pt``, the file name
 ``Index.save`` gives the backbone's state_dict, written by ``torch.save``
 and read back with ``weights_only=True``. The reference writes the same
 trees as orbax checkpoints, which the port cannot read without JAX (ROADMAP
-M10, the orbax reader); its sharded forms wait for ``Index.load(mesh=)``
-(ROADMAP M7)."""
+M10, the orbax reader); its sharded form (``save_sharded_pytree``) is not
+ported (ROADMAP Queue 1): ``Index.load(mesh=)`` places the npz store
+shard by shard instead."""
 from __future__ import annotations
 
 import os

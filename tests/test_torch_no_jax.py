@@ -21,8 +21,11 @@ input pipeline and native decoder, the dataset loaders and anchors, the
 torchvision importer, the observability helpers) and run ``cli info`` on
 a saved index, take a fine-tuning step (``instsearch_torch.train``), mine
 hard negatives and write and read the port's checkpoint
-(``instsearch_torch.utils.checkpoint``), then check sys.modules: neither
-JAX nor any module of the reference package was loaded."""
+(``instsearch_torch.utils.checkpoint``), search an l2 index and range-search
+it through four CPU shards, load a saved index placed over four CPU shards
+(``Index.load(mesh=)``) and search it, extract data-parallel over a 2-D
+mesh (``Extractor(mesh=)``), then check sys.modules: neither JAX nor any
+module of the reference package was loaded."""
 import json
 import os
 import subprocess
@@ -207,6 +210,24 @@ with tempfile.TemporaryDirectory() as tmp:
     instsearch_torch.utils.checkpoint.save_pytree(tmp, tr.variables)
     assert set(instsearch_torch.utils.checkpoint.load_pytree(tmp)) == set(
         tr.variables)
+l2 = Index.from_descriptors(3.0 * x, [f"r{i}" for i in range(40)],
+                           PipelineConfig(index=IndexConfig(
+                               row_tile=16, metric="l2", dtype="float32")),
+                           device="cpu")
+l2s, l2i = l2.search(3.0 * x[:3])
+assert l2i[:, 0].tolist() == [0, 1, 2] and np.abs(l2s[:, 0]).max() < 1e-3
+assert l2.search_range(3.0 * x[:2], 0.1, mesh=make_mesh(
+    4, devices=["cpu"] * 4))[2].tolist() == [1, 1]
+with tempfile.TemporaryDirectory() as tmp:
+    idx.save(tmp)
+    placed = Index.load(tmp, mesh=make_mesh(4, devices=["cpu"] * 4))
+    assert placed.search(x[:3])[1][:, 0].tolist() == [0, 1, 2]
+    assert placed.placed
+from instsearch_torch.parallel import make_mesh_2d
+dp = Extractor(ExtractConfig(backbone="resnet18", image_size=32,
+                             dtype="float32"),
+               mesh=make_mesh_2d(2, 1, devices=["cpu"] * 2))
+assert tuple(dp(np.zeros((3, 32, 32, 3), np.uint8)).shape) == (3, 512)
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules

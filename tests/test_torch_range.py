@@ -19,6 +19,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import instsearch_tpu.kernels as jax_kernels
 from instsearch_tpu import IndexConfig as JaxIndexConfig
@@ -28,6 +29,8 @@ from instsearch_tpu.index import Index as JaxIndex
 from instsearch_tpu.index import _topk_jit
 from instsearch_torch import IndexConfig, PipelineConfig, SearchConfig
 from instsearch_torch.index import Index
+from instsearch_torch.parallel import make_mesh
+from instsearch_torch.search import bruteforce
 
 N, CAPACITY = 200, 256
 TOL = 1e-5
@@ -132,8 +135,13 @@ def test_truncation_and_subset():
         assert set(got[1][got[1] >= 0].tolist()) <= set(members)
         if not route:
             _assert_range_equal(got, want, exact=False)
-    with pytest.raises(NotImplementedError, match="M7"):
-        tidx.search_range(q, 0.1, mesh=object())
+    # through a mesh of 8 CPU shards: the same members, counts and scores
+    sub = tidx.make_subset(ids=members)
+    one = tidx.search_range(q, 0.1, max_results=32, subset=sub)
+    mesh = tidx.search_range(q, 0.1, max_results=32, subset=sub,
+                             mesh=make_mesh(8, devices=["cpu"] * 8))
+    for a, b in zip(mesh, one):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("d", [31, 40])
@@ -152,3 +160,34 @@ def test_reconstruct_matches_jax(dtype, d):
         tidx.reconstruct(ids=[N])
     with pytest.raises(ValueError, match="exactly one"):
         tidx.reconstruct()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
+def test_count_pass_is_bounded_and_cut_independent(dtype, monkeypatch):
+    """The count pass widens one chunk at a time: a budget of seven rows
+    cuts the store into 37 chunks (never more than seven rows widened,
+    checked on every chunk's product), and the counts equal the one-chunk
+    pass's and the JAX Index's (no row within 1e-4 of ``TAU``)."""
+    jidx, tidx = _pair(dtype, 40)
+    _, q = _data(40)
+    _clear_of(tidx, q, TAU)
+    qs = tidx._match_query_dim(torch.from_numpy(q))
+    thr = torch.full((3,), TAU)
+    args = (tidx.descriptors, tidx.ids, qs, thr, tidx.scales)
+    kw = dict(int4=tidx.is_int4, dim=tidx.dim)
+    whole = bruteforce.range_count(*args, **kw)
+    widened = []
+    matmul = torch.Tensor.__matmul__
+
+    def spy(a, b):
+        widened.append(b.shape[1])
+        return matmul(a, b)
+
+    monkeypatch.setattr(bruteforce, "_RANGE_BUDGET", 8 * (3 + 40) * 7)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", spy)
+    cut = bruteforce.range_count(*args, **kw)
+    monkeypatch.undo()
+    assert max(widened) <= 7 and len(widened) == -(-CAPACITY // 7)
+    np.testing.assert_array_equal(cut.numpy(), whole.numpy())
+    np.testing.assert_array_equal(
+        whole.numpy(), np.asarray(jidx.search_range(q, TAU)[2]))

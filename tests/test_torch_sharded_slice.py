@@ -252,8 +252,8 @@ def test_serve_core_sharded(rig, preset):
 def test_refusals(rig, monkeypatch, tmp_path):
     """``make_mesh(8)`` and ``to_sharded()`` on one device raise rather
     than shrink; subset masks are taken (a mask of another size and an
-    unknown member refused); range search, not ported yet, raises
-    ``NotImplementedError`` naming its ROADMAP item; the IVF-PQ cascade
+    unknown member refused); range search answers as the single-device
+    ``search_range`` (ported since ROADMAP M7); the IVF-PQ cascade
     (ported since ROADMAP M9) answers over JAX's view as JAX's sharded
     index does, and as one device; the quality tiers' stages answer."""
     own = rig["oxford105k_sharded8"]["own"]
@@ -274,8 +274,10 @@ def test_refusals(rig, monkeypatch, tmp_path):
         sidx.search_qe(q, mask=np.ones((1, 8), np.int8))
     with pytest.raises(KeyError, match="subset names not in the index"):
         own.query_images(rig["qimgs"][:1], sharded_index=sidx, subset=["x"])
-    with pytest.raises(NotImplementedError, match="M7"):
-        sidx.search_range(q, 0.5)
+    s, i, c = sidx.search_range(q, 0.5)
+    want = own.search_range(q.cpu().numpy(), 0.5)
+    np.testing.assert_array_equal(i.cpu().numpy(), want[1])
+    np.testing.assert_array_equal(c.cpu().numpy(), want[2])
     with pytest.raises(ValueError, match="no IVF-PQ view attached"):
         sidx.search_ivfpq(q)
     r = rig["oxford105k_sharded8"]

@@ -190,8 +190,9 @@ def test_serve_core_answers_like_query_images(rig):
 def test_unported_stages_raise(rig):
     """int8, int4, QE, re-rank, refine, regional extraction, shards and
     subsets are ported (an unknown subset member raises ``KeyError``), and
-    diffusion answers; l2 still raises; re-rank under the PQ cascade
-    answers, as JAX's."""
+    diffusion answers; l2 answers too (its top-1 for a stored row is the
+    row itself, at distance 0); re-rank under the PQ cascade answers, as
+    JAX's."""
     _, _, _, tidx, qimgs = rig
     q = tidx.extractor(qimgs[:1])
     s, i = tidx.search(q, CFG.search.replace(qe_enabled=True))
@@ -221,9 +222,10 @@ def test_unported_stages_raise(rig):
     descs, regional, kept = tidx.extractor.extract_paths_with_regional([])
     assert descs.shape[0] == regional.shape[0] == kept.shape[0] == 0
     rows = np.eye(4, 8, dtype=np.float32)
-    with pytest.raises(NotImplementedError):
-        Index.from_descriptors(rows, list("abcd"), CFG.replace(
-            index=IndexConfig(metric="l2")), device="cpu")
+    l2 = Index.from_descriptors(rows, list("abcd"), CFG.replace(
+        index=IndexConfig(metric="l2")), device="cpu")
+    s, i = l2.search(rows)
+    assert i[:, 0].tolist() == [0, 1, 2, 3] and (s[:, 0] == 0).all()
     sharded = Index.from_descriptors(rows, list("abcd"), CFG.replace(
         index=IndexConfig(num_shards=2)), device="cpu")
     sidx = sharded.to_sharded(mesh=make_mesh(2, devices=["cpu"] * 2))
