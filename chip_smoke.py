@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs sixteen phases; each raises on failure and the process exits non-zero.
+runs seventeen phases; each raises on failure and the process exits non-zero.
 Phase 12 runs right after phase 4, while phase 2's and phase 3's stores are
 as those phases left them (phase 10 mutates them).
 
@@ -294,7 +294,12 @@ as those phases left them (phase 10 mutates them).
      devices=["cuda:0"] * 2)`` against one device (cosine >= FUSED_COS,
      top-1 its own image), ``Index.build(mesh=)`` over 384 PNG files
      against ``Index.build`` (ids and names equal), images/s of both; K1
-     and K2 counted (``launches_mesh``).
+     and K2 counted (``launches_mesh``);
+ 16. the ViT's model-parallel forwards (ROADMAP M11) at published widths,
+     every mesh position on cuda:0 (``phase16``): tensor parallel through
+     ``Extractor(mesh=make_mesh_dp_tp(...))``, the GPipe pipeline and the
+     sequence-parallel forward, each against the meshless model on the
+     same weights; no kernel launches there.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -384,6 +389,10 @@ VIT_LAYERS = 12         # ViT-B/16: one attention launch per layer and pass
 # measured 0.999996 at 224 px and above 0.999999 at 1024 and 2048 px on an
 # H100, so the bar leaves 25 times that gap
 VIT_ROUTE_COS = 0.9999
+# F7: K1-K3 at k > 32 over a store with slices past its valid rows
+F7_ROWS, F7_VALID, F7_DIM, F7_K = 1024, 56, 64, 200
+F7_FULL = 1 << 16       # the full store called before each of them
+F7_REPS = 100           # calls a case in phase 1
 FUSED_CORPUS = 2048     # phase 6: images through the module route
 FUSED_QUERIES = 512     # phase 6: of those, through each fused route
 # GeM descriptor cosine of the fused routes against the module route: the
@@ -894,6 +903,78 @@ def check_pq_table(card: str, gen, pq_table, lut) -> None:
                 fail(f"pq_table D={d} B={b}: differs from the plain table")
             report(card, phase=1, kernel="pq_table", d=d, m=m, groups=groups,
                    b=b, bit_exact=True)
+
+
+def empty_slice_case(gen, kind: str, b: int, masked: bool,
+                     reps: int) -> int:
+    """F7 (ROADMAP Queue 3) for one store kind (``"bfloat16"`` for K1,
+    ``"int8"`` K2, ``"int4"`` K3) and batch: k = F7_K over F7_ROWS padded
+    rows with F7_VALID valid (the mini fixture's store: three of the four
+    256-row slices hold no valid row), with or without a mask, ``reps``
+    calls, each right after one over a full F7_FULL-row store of the same
+    width, batch and k, whose blocks leave full top-k lists in shared
+    memory. Every answer against the plain version (K1 by
+    ``check_against_plain``, K2/K3 by ``check_exact``); a position
+    outside [-1, F7_VALID) fails before anything is gathered by it.
+    Without the barrier after the lists' initialization in
+    ``csrc/topk_mma.cuh`` a warp wrote out entries other warps had not set
+    yet. Raises ``AssertionError``; returns the calls checked. The
+    wrappers' launch counts are left as they were."""
+    import torch
+    from instsearch_torch.kernels.topk_matmul import (
+        check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
+        topk_matmul_int4_reference, topk_matmul_int8,
+        topk_matmul_int8_reference, topk_matmul_reference)
+    from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
+    small = unit_rows(gen, F7_ROWS, F7_DIM, torch.float32)
+    small[F7_VALID:] = 0
+    full = unit_rows(gen, F7_FULL, F7_DIM, torch.float32)
+    q = unit_rows(gen, b, F7_DIM, torch.float32)
+    mask = ((torch.rand((1, F7_ROWS), generator=gen, device="cuda") < 0.6)
+            .to(torch.int8) if masked else None)
+    if kind == "bfloat16":
+        fn, ref = topk_matmul, topk_matmul_reference
+        s_args, f_args = (small.bfloat16(),), (full.bfloat16(),)
+    else:
+        quant = quantize_rows if kind == "int8" else quantize_rows_int4
+        fn, ref = ((topk_matmul_int8, topk_matmul_int8_reference)
+                   if kind == "int8" else
+                   (topk_matmul_int4, topk_matmul_int4_reference))
+        s, f = quant(small), quant(full)
+        s_args, f_args = (s.values, s.scales), (f.values, f.scales)
+    counts = (fn.launches, fn.launches_subset)
+    outs = []
+    for _ in range(reps):
+        fn(*f_args, q, k=F7_K)
+        outs.append(fn(*s_args, q, k=F7_K, num_valid=F7_VALID, mask=mask))
+    fn.launches, fn.launches_subset = counts
+    rs, rp = ref(*s_args, q, k=F7_K, num_valid=F7_VALID, mask=mask)
+    for i, (sc, ps) in enumerate(outs):
+        bad = (ps < -1) | (ps >= F7_VALID)
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{kind} B={b} mask={masked} call {i}: positions "
+                f"{ps[bad][:4].tolist()} outside [-1, {F7_VALID})")
+        if kind == "bfloat16":
+            check_against_plain(s_args[0], q, sc, ps, rs, rp, SCORE_TOL)
+        else:
+            check_exact(sc, ps, rs, rp)
+    return reps
+
+
+def check_empty_slices(card: str, gen) -> None:
+    """``empty_slice_case`` for K1-K3 at B = 1, 8 and 13, with and without
+    a mask."""
+    n = 0
+    for kind in ("bfloat16", "int8", "int4"):
+        for b in (1, 8, 13):
+            for masked in (False, True):
+                try:
+                    n += empty_slice_case(gen, kind, b, masked, F7_REPS)
+                except AssertionError as e:
+                    fail(f"phase 1, F7: {e}")
+    report(card, phase=1, check="F7 empty slices after full lists",
+           k=F7_K, rows=F7_ROWS, valid=F7_VALID, calls_checked=n)
 
 
 def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
@@ -5099,6 +5180,199 @@ def phase15d(card, gen, tmp) -> dict:
     return {"launches": {}, "extract_ips": ips, "build_ips": build_ips}
 
 
+MP_BATCH = 16           # phase 16a/b: images through the TP and PP routes
+SP_SIZE = 1024          # phase 16c: side of the SP route's images (4,097
+SP_BATCH = 4            # tokens, padded to 4,100 over 4 shards)
+MP_REL = 1e-4           # phase 16: f32 patch maps, relative to max |ref|
+
+
+def rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def gem_cosines(cfg, a, b):
+    """Per-image cosine of the GeM descriptors of two patch-map batches."""
+    from instsearch_torch.ops import l2_normalize, pool
+    da = l2_normalize(pool(a, cfg).float(), dim=-1)
+    db = l2_normalize(pool(b, cfg).float(), dim=-1)
+    return (da * db).sum(-1)
+
+
+def images_per_s(fn, batch: int) -> float:
+    return batch / cuda_median_ms(fn, reps=5, warmup=1) * 1e3
+
+
+def peak_gb(fn) -> float:
+    """Device memory one call of ``fn`` allocated at its peak above what
+    was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def mp_models(name: str, gen, size: int):
+    """A seeded ViT in bf16 (the plain attention route) at ``size`` px, its
+    f32 twin with the same weights, and the config of their GeM."""
+    import torch
+    from instsearch_torch import ExtractConfig
+    from instsearch_torch.models import get_backbone
+    cfg = ExtractConfig(backbone=name, pooling="gem", gem_p=3.0,
+                        image_size=size, whiten=False, dtype="bfloat16",
+                        batch_size=MP_BATCH)
+    model = get_backbone(name, attention="xla")[0].init_weights(gen)
+    f32 = get_backbone(name, dtype=torch.float32, attention="xla")[0]
+    f32.load_state_dict(model.state_dict())
+    return cfg, model, f32
+
+
+def check_route(card, part, cfg, route, got_bf16, want_bf16, got_f32,
+                want_f32, **fields) -> dict:
+    cos = gem_cosines(cfg, got_bf16, want_bf16)
+    err = rel_err(got_f32, want_f32)
+    if float(cos.min()) < FUSED_COS or err > MP_REL:
+        fail(f"phase 16{part} {route}: GeM cosine {float(cos.min())} "
+             f"(bar {FUSED_COS}), f32 patch maps {err} of max |ref| (bar "
+             f"{MP_REL})")
+    out = {"route": route, "min_cosine_bf16": float(cos.min()),
+           "f32_rel_err": err, **fields}
+    report(card, phase=16, part=part, devices="cuda:0 repeated (one card)",
+           **out)
+    return out
+
+
+def phase16(card: str, gen) -> dict:
+    """The model-parallel ViT forwards (ROADMAP M11) at published widths,
+    every mesh position on cuda:0: (a) tensor parallel, ViT-L/16 at 224
+    px, B = 16, through ``Extractor(mesh=make_mesh_dp_tp(1, 4))`` and
+    ``(2, 2)``, and ViT-B/16 at tp = 8 (12 heads: the gathered attention),
+    the split layers' bytes a shard printed; (b) the GPipe pipeline,
+    ViT-L/16, 4 stages, ``n_micro`` 4, B = 16, on a ``'pipe'`` mesh and on
+    ``('data', 'pipe')`` = (2, 2); (c) sequence parallel, ViT-B/16 at
+    1024 px (4,097 tokens, padded to 4,100), B = 4, sp = 4 and ``('data',
+    'seq')`` = (2, 2), with the peak device memory of one forward beside
+    the meshless forward's. Each route against the meshless model on the
+    same weights: bf16 GeM descriptors' cosine >= FUSED_COS, f32 patch
+    maps within MP_REL of max |ref| (TF32 off). Images/s of each route
+    and of the meshless forward: single runs on one card, the devices
+    repeated, so they say nothing of several cards. No kernel launches
+    (the split heads attend on the plain route)."""
+    out, counts = count_launches(lambda: _phase16(card, gen))
+    if any(counts.values()):
+        fail(f"phase 16 launched {counts}")
+    return out
+
+
+def _phase16(card, gen) -> dict:
+    import torch
+    from instsearch_torch.data import frontend
+    from instsearch_torch.extractor import Extractor
+    from instsearch_torch.parallel import (DeviceMesh, ShardMesh,
+                                           make_mesh_dp_tp, pipelined_vit_fn,
+                                           place_pp, place_sp, place_tp,
+                                           sequence_parallel_vit_fn)
+    from instsearch_torch.parallel.mesh import axis_groups
+    from instsearch_torch.parallel.tp import (TensorParallelViT,
+                                              split_layer_bytes)
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda:0")
+    res = {"a": [], "b": [], "c": []}
+    images = torch.as_tensor(smooth_images(gen, MP_BATCH), device=cuda)
+    x16 = frontend.normalize(images, dtype=torch.bfloat16)
+    x32 = frontend.normalize(images, dtype=torch.float32)
+
+    with torch.no_grad():
+        # (a) tensor parallel through the Extractor
+        for name, meshes in (("vit_l_16", ((1, 4), (2, 2))),
+                             ("vit_b_16", ((1, 8),))):
+            cfg, model, f32 = mp_models(name, gen, IMAGE)
+            single = Extractor(cfg, model.state_dict())
+            want16, want32 = model(x16), f32(x32)
+            base = images_per_s(lambda: single(images), MP_BATCH)
+            for data, tp in meshes:
+                mesh = make_mesh_dp_tp(data, tp, devices=[cuda] * (data * tp))
+                ex = Extractor(cfg.replace(vit_attention="flash"),
+                               model.state_dict(), mesh=mesh)
+                if ex.cfg.vit_attention != "xla" or ex.dp_size != data:
+                    fail(f"phase 16a: {ex.cfg.vit_attention}, "
+                         f"{ex.dp_size} data positions")
+                desc = torch.nn.functional.cosine_similarity(
+                    ex(images), single(images), dim=-1)
+                if float(desc.min()) < FUSED_COS:
+                    fail(f"phase 16a {name} {data}x{tp}: Extractor "
+                         f"descriptors' cosine {float(desc.min())}")
+                group = axis_groups(mesh, "model")[0]
+                got16 = TensorParallelViT(model, group)(x16)
+                got32 = TensorParallelViT(f32, group)(x32)
+                sizes = split_layer_bytes(place_tp(mesh, model)[0])
+                if sizes["shard_bytes"] != [sizes["whole_bytes"] // tp] * tp:
+                    fail(f"phase 16a: split layers' bytes {sizes}")
+                res["a"].append(check_route(
+                    card, "a", cfg, f"tp {name} data {data} x model {tp}",
+                    got16, want16, got32, want32, batch=MP_BATCH,
+                    image=IMAGE, heads=model.num_heads,
+                    head_split=model.num_heads % tp == 0,
+                    extractor_min_cosine=float(desc.min()),
+                    split_layer_bytes_per_shard=sizes["shard_bytes"][0],
+                    split_layer_bytes_whole=sizes["whole_bytes"],
+                    images_per_s=images_per_s(lambda: ex(images), MP_BATCH),
+                    meshless_images_per_s=base))
+            if name == "vit_l_16":
+                vit_l = (cfg, model, f32, want16, want32)
+            del single, ex
+        # (b) the GPipe pipeline, ViT-L/16
+        cfg, model, f32, want16, want32 = vit_l
+        base = images_per_s(lambda: model(x16), MP_BATCH)
+        for mesh in (ShardMesh((cuda,) * 4, axis="pipe"),
+                     DeviceMesh(((cuda,) * 2,) * 2, ("data", "pipe"))):
+            fwd16 = pipelined_vit_fn(model, mesh, n_micro=4)
+            p16 = place_pp(mesh, model)
+            got16 = fwd16(*p16, x16)
+            got32 = pipelined_vit_fn(f32, mesh, n_micro=4)(
+                *place_pp(mesh, f32), x32)
+            res["b"].append(check_route(
+                card, "b", cfg, f"pp vit_l_16 {mesh.shape}", got16, want16,
+                got32, want32, batch=MP_BATCH, image=IMAGE, n_micro=4,
+                images_per_s=images_per_s(lambda: fwd16(*p16, x16),
+                                          MP_BATCH),
+                meshless_images_per_s=base))
+        del vit_l, model, f32, want16, want32
+        torch.cuda.empty_cache()
+        # (c) sequence parallel, ViT-B/16 at 1024 px
+        cfg, model, f32 = mp_models("vit_b_16", gen, SP_SIZE)
+        hi = torch.as_tensor(smooth_images(gen, SP_BATCH, size=SP_SIZE),
+                             device=cuda)
+        h16 = frontend.normalize(hi, dtype=torch.bfloat16)
+        h32 = frontend.normalize(hi, dtype=torch.float32)
+        want16, want32 = model(h16), f32(h32)
+        tokens = (SP_SIZE // model.patch_size) ** 2 + 1
+        base = images_per_s(lambda: model(h16), SP_BATCH)
+        base_gb = peak_gb(lambda: model(h16))
+        for mesh in (ShardMesh((cuda,) * 4, axis="seq"),
+                     DeviceMesh(((cuda,) * 2,) * 2, ("data", "seq"))):
+            fwd16 = sequence_parallel_vit_fn(model, mesh)
+            p16 = place_sp(mesh, model)
+            got16 = fwd16(p16, h16)
+            got32 = sequence_parallel_vit_fn(f32, mesh)(place_sp(mesh, f32),
+                                                        h32)
+            res["c"].append(check_route(
+                card, "c", cfg, f"sp vit_b_16 {mesh.shape}", got16, want16,
+                got32, want32, batch=SP_BATCH, image=SP_SIZE, tokens=tokens,
+                padded_tokens=-(-tokens // 4) * 4,
+                images_per_s=images_per_s(lambda: fwd16(p16, h16), SP_BATCH),
+                meshless_images_per_s=base,
+                peak_gb=peak_gb(lambda: fwd16(p16, h16)),
+                meshless_peak_gb=base_gb))
+        del model, f32, want16, want32
+    torch.cuda.empty_cache()
+    report(card, phase=16, seconds=time.perf_counter() - t_phase)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -5148,6 +5422,7 @@ def main() -> int:
                                    check_exact)
         timings.update(t)
     check_quantizer(card, gen, quantize_query)
+    check_empty_slices(card, gen)
     check_pq_table(card, gen, pq_table, _lut)
     errs["pq"], t = phase1_pq(card, gen, pq_topk, pq_topk_reference,
                               check_exact)
@@ -5191,6 +5466,8 @@ def main() -> int:
     cli = phase13(card, gen)["launches"]
     torch.cuda.empty_cache()
     train = phase14(card, gen)["launches"]
+    torch.cuda.empty_cache()
+    phase16(card, gen)
     phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
               "topk_matmul_int4": res8c["launches"]}
     # the sharded routes' launches, on the main path too (phases 3, 8b, 9,

@@ -214,6 +214,10 @@ topk_pass1_mma(const Tile tile, const int8_t* __restrict__ mask, int n,
       li[i] = -1;
     }
   }
+  // a warp writes out lists that other warps initialized: a slice with no
+  // valid rows goes from here straight to the write-out, which without
+  // this barrier can read what an earlier block left in shared memory
+  __syncthreads();
 
   const int row_begin = slice * rows_per_slice;
   const int row_end = min(n, row_begin + rows_per_slice);

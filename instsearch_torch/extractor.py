@@ -17,8 +17,12 @@ into one slice a device, each slice extracted there, and the results joined
 in order on the first device, which also whitens them. The replicas on the
 other devices take the first device's weights again whenever they have
 changed since the last batch (``load_state_dict`` into ``Extractor.model``
-reaches every device). A ``'model'`` axis
-(the ViT's tensor parallelism) is not ported yet (ROADMAP M11).
+reaches every device). A mesh with a ``'model'`` axis runs a ViT tensor
+parallel (``parallel/tp.py``, as the reference's ``place_tp``): each
+position of the batch axis holds one ``TensorParallelViT`` over its row of
+``'model'`` devices, on the plain attention route (``cfg.vit_attention``
+resolves to ``"xla"``, as in the reference); a CNN has nothing to split
+and extracts data-parallel, on each row's first device.
 """
 from __future__ import annotations
 
@@ -33,10 +37,12 @@ from .data import frontend
 from .data.loader import iter_batches
 from .models import get_backbone
 from .models.registry import descriptor_dim, load_variables
+from .models.vit import ViT
 from .ops import l2_normalize, pool
 from .ops.pooling import rmac_region_geometry, rmac_regional_descriptors
 from .ops.whitening import WhiteningParams, apply_whitening
-from .parallel.mesh import batch_axis
+from .parallel.mesh import axis_groups, batch_axis
+from .parallel.tp import TensorParallelViT
 from .utils.device import resolve_device
 from .utils.observe import COUNTERS
 
@@ -156,24 +162,29 @@ class Extractor:
     ``mesh`` (a ``ShardMesh`` or a 2-D mesh, ``parallel/mesh.py``) extracts
     data-parallel over its batch axis (see the module docstring); the
     extractor's device is then the axis's first and ``device`` is not
-    used. A mesh with a ``'model'`` axis raises ``NotImplementedError``."""
+    used. Under a ``'model'`` axis a ViT's weights are split over it
+    (tensor parallelism) and ``cfg.vit_attention`` becomes ``"xla"``."""
 
     def __init__(self, cfg, variables: dict | None = None,
                  whitening: WhiteningParams | None = None, seed: int = 0,
                  device: "torch.device | str | None" = None, mesh=None):
-        if mesh is not None and "model" in mesh.axis_names:
-            raise NotImplementedError(
-                "a mesh with a 'model' axis splits the ViT's weights "
-                "(tensor parallelism), which is not ported yet (ROADMAP "
-                "M11); extract over a ('data', 'shard') or 1-D mesh")
+        tp = mesh is not None and "model" in mesh.axis_names
+        if tp and cfg.vit_attention != "xla":
+            # the split heads attend on the plain route (the reference's
+            # GSPMD cannot partition a pallas_call either)
+            cfg = cfg.replace(vit_attention="xla")
         self.cfg = cfg
         self.seed = seed
         self.mesh = mesh
-        dp_devices = None
+        groups = None
         if mesh is not None:
-            dp_devices = [_device(d)
-                          for d in mesh.along(batch_axis(mesh)).devices]
-            device = dp_devices[0]
+            # one group of devices a data position: its row of 'model'
+            # devices under tensor parallelism, else its one device
+            groups = ([tuple(_device(d) for d in row)
+                       for row in axis_groups(mesh, "model")] if tp else
+                      [(_device(d),)
+                       for d in mesh.along(batch_axis(mesh)).devices])
+            device = groups[0][0]
         self.device = resolve_device(device)
         self.model, self._fn = build_extract_fn(cfg, device=self.device)
         if variables is None:
@@ -187,21 +198,27 @@ class Extractor:
         self._regional_fn = build_regional_fn(cfg, self.model)
         self._combined_fn = build_combined_fn(cfg, self.model)
         self._geometry: "np.ndarray | None" = None
-        # data parallelism: the batch axis's devices in order, one
-        # functions replica per distinct device, the models of the devices
-        # other than the first, and the weights' state they were copied at
-        self._dp_devices = dp_devices
+        # data parallelism: the batch axis's groups in order (their first
+        # devices take the slices), one functions replica per distinct
+        # group, the replicas that copy the weights (the models of the
+        # devices other than the first, every tensor-parallel one) and the
+        # weights' state they were copied at
+        self._groups = groups
         self._replicas, self._copies, self._copied_at = {}, [], None
-        for dev in dp_devices or ():
-            if dev in self._replicas:
+        split = tp and isinstance(self.model, ViT)
+        for group in groups or ():
+            if group in self._replicas:
                 continue
             m = self.model
-            if dev != self.device:
-                m = copy.deepcopy(self.model).to(dev)
+            if split:
+                m = TensorParallelViT(self.model, group)
                 self._copies.append(m)
-            self._replicas[dev] = {"global": build_global_fn(cfg, m),
-                                   "regional": build_regional_fn(cfg, m),
-                                   "combined": build_combined_fn(cfg, m)}
+            elif group[0] != self.device:
+                m = copy.deepcopy(self.model).to(group[0])
+                self._copies.append(m)
+            self._replicas[group] = {"global": build_global_fn(cfg, m),
+                                     "regional": build_regional_fn(cfg, m),
+                                     "combined": build_combined_fn(cfg, m)}
         self._copied_at = self._weights_version()
 
     def _weights_version(self) -> tuple:
@@ -227,7 +244,7 @@ class Extractor:
     @property
     def dp_size(self) -> int:
         """Devices of the data-parallel axis (1 without a mesh)."""
-        return len(self._dp_devices) if self._dp_devices else 1
+        return len(self._groups) if self._groups else 1
 
     def _run(self, kind: str, images):
         """One extraction function (``"global"``, ``"regional"`` or
@@ -238,18 +255,19 @@ class Extractor:
         results joined in order on the first device, the padding cut off,
         whitened there."""
         x = self._on_device(images)
-        if not self._dp_devices:
+        if not self._groups:
             fn = {"global": self._fn, "regional": self._regional_fn,
                   "combined": self._combined_fn}[kind]
             return fn(x, self.whitening)
         self._sync_replicas()
-        b, n = x.shape[0], len(self._dp_devices)
+        b, n = x.shape[0], len(self._groups)
         pad = (-b) % n
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         c = x.shape[0] // n
-        outs = [self._replicas[dev][kind](x[j * c:(j + 1) * c].to(dev))
-                for j, dev in enumerate(self._dp_devices)]
+        outs = [self._replicas[group][kind](
+                    x[j * c:(j + 1) * c].to(group[0]))
+                for j, group in enumerate(self._groups)]
         outs = [o if isinstance(o, tuple) else (o,) for o in outs]
         joined = tuple(torch.cat([o[t].to(self.device) for o in outs])[:b]
                        for t in range(len(outs[0])))

@@ -40,6 +40,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from ..kernels.vit_attention import flash_mha, mha
 from ..ops.resize import resize_bilinear
@@ -152,6 +153,8 @@ class ViT(nn.Module):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.mlp_dim = mlp_dim
         self.patch_size = patch_size
         self.image_size = image_size
         self.dtype = dtype
@@ -228,6 +231,39 @@ class ViT(nn.Module):
             nn.init.normal_(self.pos_embedding, 0.0, 0.02,
                             generator=generator)
         return self
+
+
+class _Bound(nn.Module):
+    def __init__(self, module: nn.Module, method: str):
+        super().__init__()
+        self.m = module
+        self.method = method
+
+    def forward(self, *args):
+        return getattr(self.m, self.method)(*args)
+
+
+def call_with(module: nn.Module, params: dict, method: str, *args):
+    """``module.<method>(*args)`` computed with ``params`` (names as in
+    ``module.state_dict()``) in place of the module's own tensors, on the
+    tensors' device (``torch.func.functional_call``): the model-parallel
+    runtimes (``parallel/pp.py``, ``parallel/sp.py``, ``parallel/tp.py``)
+    apply a template of shapes on the ``meta`` device to the weights they
+    placed."""
+    return functional_call(_Bound(module, method),
+                           {"m." + k: v for k, v in params.items()}, args)
+
+
+def templates(model: ViT) -> tuple[ViT, EncoderBlock]:
+    """``model``'s embed/finalize part (no encoder layer) and one of its
+    encoder blocks on the ``meta`` device, on the plain attention route:
+    shapes only, for ``call_with``."""
+    shell = ViT(model.hidden_dim, 0, model.num_heads, model.mlp_dim,
+                model.patch_size, model.image_size, dtype=model.dtype,
+                attention="xla", device="meta")
+    block = EncoderBlock(model.num_heads, model.mlp_dim, model.hidden_dim,
+                         dtype=model.dtype, attention="xla", device="meta")
+    return shell, block
 
 
 def vit_b_16(dtype=torch.bfloat16, attention: str = "auto",

@@ -51,6 +51,10 @@ class ShardMesh:
     def axis_names(self) -> tuple:
         return (self.axis,)
 
+    @property
+    def shape(self) -> dict:
+        return {self.axis: self.num_shards}
+
     def along(self, axis: str) -> "ShardMesh":
         """The 1-D mesh along ``axis``: this one."""
         if axis != self.axis:
@@ -122,6 +126,41 @@ class DeviceMesh:
         else:
             raise ValueError(f"mesh axes {self.axis_names}, not {axis!r}")
         return ShardMesh(devs, axis=axis)
+
+
+def axis_groups(mesh, axis: str) -> list[tuple]:
+    """The devices along ``axis`` at each position of the mesh's other axis,
+    in order (one group on a 1-D mesh): the groups a model-parallel runtime
+    (``parallel/tp.py``, ``pp.py``, ``sp.py``) splits one replica over,
+    the other axis carrying the batch. These runtimes run in one process:
+    a mesh with a process group raises ``ValueError``."""
+    if isinstance(mesh, ShardMesh):
+        if mesh.group is not None:
+            raise ValueError(f"the {axis!r} axis runs in one process; this "
+                             f"mesh spans a process group")
+        mesh.along(axis)
+        return [mesh.devices]
+    if axis == mesh.axis_names[1]:
+        return [tuple(row) for row in mesh.devices]
+    if axis == mesh.axis_names[0]:
+        return [tuple(row[j] for row in mesh.devices)
+                for j in range(len(mesh.devices[0]))]
+    raise ValueError(f"mesh axes {mesh.axis_names}, not {axis!r}")
+
+
+def batch_groups(mesh, axis: str, data_axis: "str | None") -> list[tuple]:
+    """``axis_groups`` of a runtime whose batch goes over ``data_axis``
+    (``'data'`` when None and the mesh has one; none at all, so one group,
+    otherwise)."""
+    groups = axis_groups(mesh, axis)
+    if data_axis is None and "data" in mesh.axis_names:
+        data_axis = "data"
+    if data_axis is None:
+        return groups[:1]
+    if data_axis == axis or data_axis not in mesh.axis_names:
+        raise ValueError(f"data axis {data_axis!r}: mesh axes "
+                         f"{mesh.axis_names}, model axis {axis!r}")
+    return groups
 
 
 def shard_axis(mesh) -> str:

@@ -179,10 +179,16 @@ def test_build_and_serve_one_mesh(extractors):
 
 
 def test_model_axis_raises_naming_m11(extractors):
-    _, _, _, variables = extractors
-    with pytest.raises(NotImplementedError, match="M11"):
-        Extractor(ExtractConfig(**CFG), variables,
-                  mesh=make_mesh_dp_tp(2, 2, devices=["cpu"] * 4))
+    """A ``'model'`` axis (M11, tensor parallelism) no longer raises: a
+    ResNet has nothing to split and extracts data-parallel over the
+    ``'data'`` axis, equal to the JAX single-device extractor (the ViT's
+    split: tests/test_torch_tp.py)."""
+    jax_single, _, _, variables = extractors
+    ex = Extractor(ExtractConfig(**CFG), variables,
+                   mesh=make_mesh_dp_tp(2, 2, devices=["cpu"] * 4))
+    assert ex.dp_size == 2
+    imgs = _images(4, 6)
+    _close(ex(imgs), jax_single(imgs))
 
 
 def _pipeline():

@@ -76,7 +76,7 @@ from instsearch_torch.serve import ServeCore
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import quantizer_rows  # noqa: E402
+from chip_smoke import empty_slice_case, quantizer_rows  # noqa: E402
 
 TOL = 1e-5
 
@@ -124,6 +124,18 @@ def test_cuda_kernel_matches_plain_version(gen, dtype):
             copies = torch.arange(20, device="cuda")
             assert (i[:, :20] // 1000 == copies).all()
             assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("b", [1, 8, 13])
+def test_empty_slices_after_full_lists(gen, kind, b):
+    """F7: k = 200 over 1,024 padded rows with 56 valid (three of four
+    slices empty), each call right after one over a full store whose
+    blocks leave their top-k lists in shared memory: every answer equal to
+    the plain version's (``chip_smoke.empty_slice_case``)."""
+    for masked in (False, True):
+        assert empty_slice_case(gen, kind, b, masked, reps=100) == 100
 
 
 def _check_k1(x, q, k, num_valid=None, mask=None):

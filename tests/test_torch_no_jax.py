@@ -24,8 +24,11 @@ hard negatives and write and read the port's checkpoint
 (``instsearch_torch.utils.checkpoint``), search an l2 index and range-search
 it through four CPU shards, load a saved index placed over four CPU shards
 (``Index.load(mesh=)``) and search it, extract data-parallel over a 2-D
-mesh (``Extractor(mesh=)``), then check sys.modules: neither JAX nor any
-module of the reference package was loaded."""
+mesh (``Extractor(mesh=)``), run a tiny ViT tensor-parallel (also through
+``Extractor`` over a ``('data', 'model')`` mesh), pipelined and sequence-
+parallel over CPU devices (``parallel/tp.py``, ``pp.py``, ``sp.py``), then
+check sys.modules: neither JAX nor any module of the reference package was
+loaded."""
 import json
 import os
 import subprocess
@@ -228,6 +231,36 @@ dp = Extractor(ExtractConfig(backbone="resnet18", image_size=32,
                              dtype="float32"),
                mesh=make_mesh_2d(2, 1, devices=["cpu"] * 2))
 assert tuple(dp(np.zeros((3, 32, 32, 3), np.uint8)).shape) == (3, 512)
+from instsearch_torch.models.vit import ViT
+from instsearch_torch.parallel import (ShardMesh, make_mesh_dp_tp,
+                                       pipelined_vit_fn, place_pp, place_sp,
+                                       place_tp, sequence_parallel_vit_fn)
+from instsearch_torch.parallel.tp import TensorParallelViT
+vit = ViT(32, 4, 4, 64, 4, 16, dtype=torch.float32, device="cpu")
+gen = torch.Generator()
+gen.manual_seed(0)
+vit.init_weights(gen)
+imgs = torch.rand((4, 16, 16, 3), generator=gen)
+cpus = lambda n, axis: ShardMesh((torch.device("cpu"),) * n, axis=axis)
+with torch.inference_mode():
+    want = vit(imgs)
+    tpm = cpus(2, "model")
+    got = [TensorParallelViT(vit, tpm.devices, place_tp(tpm, vit)[0])(imgs),
+           pipelined_vit_fn(vit, cpus(2, "pipe"), 2)(
+               *place_pp(cpus(2, "pipe"), vit), imgs),
+           sequence_parallel_vit_fn(vit, cpus(4, "seq"))(
+               place_sp(cpus(4, "seq"), vit), imgs)]
+assert all(float((g - want).abs().max()) < 1e-4 for g in got)
+import instsearch_torch.models.registry as treg
+treg.BACKBONES["vit_tiny"] = treg.BackboneSpec(
+    lambda dtype, attention, device: ViT(32, 2, 4, 64, 4, 16, dtype=dtype,
+                                         attention=attention, device=device),
+    32, 4)
+tpx = Extractor(ExtractConfig(backbone="vit_tiny", image_size=16,
+                              dtype="float32", vit_attention="flash"),
+                mesh=make_mesh_dp_tp(2, 2, devices=["cpu"] * 4))
+assert tpx.cfg.vit_attention == "xla"
+assert tuple(tpx(np.zeros((3, 16, 16, 3), np.uint8)).shape) == (3, 32)
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "reference": [m for m in sys.modules
