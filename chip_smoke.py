@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs seventeen phases; each raises on failure and the process exits non-zero.
+runs eighteen phases; each raises on failure and the process exits non-zero.
 Phase 12 runs right after phase 4, while phase 2's and phase 3's stores are
 as those phases left them (phase 10 mutates them).
 
@@ -299,7 +299,16 @@ as those phases left them (phase 10 mutates them).
      every mesh position on cuda:0 (``phase16``): tensor parallel through
      ``Extractor(mesh=make_mesh_dp_tp(...))``, the GPipe pipeline and the
      sequence-parallel forward, each against the meshless model on the
-     same weights; no kernel launches there.
+     same weights; no kernel launches there;
+ 17. persistence at scale, right after phase 15 while phase 9's store and
+     phase 3's rows are there (``phase17``): phase 9's store saved with
+     ``streaming=None`` (the port's stream must be chosen), loaded placed
+     on 8 shards of cuda:0 and saved again from the placed store; the
+     placed ``search`` equal to phase 9's bit for bit, K1 8 times a piece,
+     the host's peak memory of the placed load and save at most 2 x one
+     shard's bytes + 64 MiB (phase 15c's npz load's printed beside it);
+     phase 3's int8 and int4 stores as streams, K2/K3 answers equal to the
+     in-memory stores' bit for bit; save_s, load_s and bytes on disk.
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -338,7 +347,8 @@ as ``launches_subset`` (every one of them with the mask), phase 11's
 apart as ``launches_cli``, and phase 14e's fine-tuning runs, also apart as
 ``launches_train`` (every kernel's row carries both), and K1-K4 count
 phase 15's searches, range searches and placed loads, also apart as
-``launches_mesh`` (K1 and K2 launch there); K1 also at
+``launches_mesh`` (K1 and K2 launch there), and phase 17's searches of
+the loaded streams, also apart as ``launches_persist`` (K1-K3); K1 also at
 D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
 (``ms_d2048_b{B}_k{k}``, ``plain_ms_...``, ``library_ms_...``,
 ``bound_ms_...``); K4 also at B =
@@ -2703,7 +2713,7 @@ def phase10a(card, gen, w1, check, tmp) -> dict:
     idx, images, picks = w1
     want = [ServeCore(idx).run_queries([(images[p], 10)])[0] for p in picks]
     folder = os.path.join(tmp, "workload1")
-    _, save_s = timed(lambda: idx.save(folder))
+    _, save_s = timed(lambda: idx.save(folder, streaming=False))
     npz = os.path.getsize(os.path.join(folder, "index.npz"))
     live, load_s = timed(lambda: Index.load(folder))
     if not (torch.equal(live.descriptors, idx.descriptors)
@@ -2914,7 +2924,7 @@ def phase10b(card, gen, pq_idx, corpus, check_exact, tmp) -> dict:
 
     _, _, names, _, images, picks = corpus
     folder = os.path.join(tmp, "capacity")
-    _, save_s = timed(lambda: pq_idx.save(folder))
+    _, save_s = timed(lambda: pq_idx.save(folder, streaming=False))
     npz = os.path.getsize(os.path.join(folder, "index.npz"))
     live, load_s = timed(lambda: Index.load(folder))
     if not (torch.equal(live.pq.packed, pq_idx.pq.packed)
@@ -4156,14 +4166,13 @@ def _phase13(card, gen, tmp, native: bool) -> dict:
                         "--config", WORKLOAD1, "--resumable")
     if out[0]["indexed"] != OX5K_IMAGES:
         fail(f"resumed build-index printed {out}")
-    a = np.load(os.path.join(plain, "index.npz"))
-    b = np.load(os.path.join(resumed, "index.npz"))
+    a, b = saved_arrays(plain), saved_arrays(resumed)
     with open(os.path.join(plain, "meta.json")) as f:
         meta_a = json.load(f)
     with open(os.path.join(resumed, "meta.json")) as f:
         meta_b = json.load(f)
-    if a.files != b.files or not all(np.array_equal(a[k], b[k])
-                                     for k in a.files):
+    if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                       for k in a):
         fail("the resumed index's rows differ from the uninterrupted one's")
     if meta_a["names"] != meta_b["names"] or meta_a["names"] != names:
         fail("the resumed index's names differ")
@@ -5055,26 +5064,28 @@ def phase15b(card, topk, topk_ref, check, ox) -> dict:
 
 
 def phase15c(card, topk, ox, res_b, tmp) -> dict:
-    """``Index.load(mesh=)``: phase 9's index saved (npz) and loaded with
-    ``make_mesh(8, devices=["cuda:0"] * 8)``. Its ``search`` must equal
+    """``Index.load(mesh=)``: phase 9's index saved (npz, forced) and
+    loaded with ``make_mesh(8, devices=["cuda:0"] * 8)``. Its ``search`` must equal
     phase 9's sharded answer bit for bit (the same K1 calls on the same
     rows), its ``search_range`` 15b's mesh answer, its ``knn_graph`` of the
     first rows the unsharded index's; ``to_sharded`` with the mesh must
     reuse the placed shards (``data_ptr``); serving must leave the store
-    placed; K1 8 times a piece. The save and load times and the load's
-    peak device memory above what was allocated before it."""
+    placed; K1 8 times a piece. The save and load times, the load's peak
+    device memory above what was allocated before it and its host peak
+    (``HostPeak``, which phase 17 prints beside the stream's)."""
     import numpy as np
     import torch
     from instsearch_torch.index import Index
     from instsearch_torch.parallel import make_mesh
     idx, _, q, ss, si, _ = ox
     path = os.path.join(tmp, "ox105k")
-    _, save_s = timed(lambda: idx.save(path))
+    _, save_s = timed(lambda: idx.save(path, streaming=False))
     mesh = make_mesh(8, devices=["cuda:0"] * 8)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    loaded, load_s = timed(lambda: Index.load(path, mesh=mesh))
+    with HostPeak() as host:
+        loaded, load_s = timed(lambda: Index.load(path, mesh=mesh))
     peak = torch.cuda.max_memory_allocated() - base
     parts = [sh.x for sh in loaded.placement.shards]
     if not loaded.placed or len(parts) != 8:
@@ -5105,10 +5116,12 @@ def phase15c(card, topk, ox, res_b, tmp) -> dict:
            save_s=save_s, load_s=load_s,
            store_gb=sum(p.numel() * p.element_size() for p in parts) / 1e9,
            load_peak_device_gb_above_before=peak / 1e9,
+           load_peak_host_bytes={"rss": host.rss, "traced": host.traced},
            equals_phase9=True, to_sharded_copies_nothing=True,
            search_p50_ms=p50, launches=counts["topk_matmul"])
     return {"launches": {"topk_matmul": counts["topk_matmul"]},
-            "load_s": load_s, "peak_gb": peak / 1e9}
+            "load_s": load_s, "peak_gb": peak / 1e9,
+            "host_peak": {"rss": host.rss, "traced": host.traced}}
 
 
 def phase15d(card, gen, tmp) -> dict:
@@ -5373,6 +5386,199 @@ def _phase16(card, gen) -> dict:
     return res
 
 
+PERSIST_SLACK = 64 << 20   # phase 17: host bytes allowed above 2 shards
+
+
+class HostPeak:
+    """The host memory a block takes: ``rss`` is the peak of the process's
+    resident set (``VmRSS`` of /proc/self/status, sampled every 0.5 ms by a
+    thread) above its level at entry, mapped file pages included;
+    ``traced`` the peak of ``tracemalloc`` (numpy's buffers) over the
+    block. Both in bytes."""
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def __enter__(self):
+        import threading
+        import tracemalloc
+        self.base = self.top = self._rss()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.is_set():
+                self.top = max(self.top, self._rss())
+                time.sleep(0.0005)
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        tracemalloc.start()
+        return self
+
+    def __exit__(self, *exc):
+        import tracemalloc
+        self.traced = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        self._stop.set()
+        self._thread.join()
+        self.rss = max(self.top, self._rss()) - self.base
+        return False
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(base, f))
+               for base, _, files in os.walk(path) for f in files)
+
+
+def saved_arrays(path: str) -> dict:
+    """An index directory's arrays as numpy, name -> array, whichever form
+    ``Index.save`` chose (bf16 rows of the stream as their bits)."""
+    import numpy as np
+    from instsearch_torch.utils.checkpoint import open_tree
+    with open(os.path.join(path, "meta.json")) as f:
+        fmt = json.load(f)["format"]
+    if fmt == "npz":
+        npz = np.load(os.path.join(path, "index.npz"))
+        return {k: npz[k] for k in npz.files}
+    return {k: leaf[...] for k, leaf in
+            open_tree(os.path.join(path, "store")).items()}
+
+
+def phase17(card, ox, corpus, npz_peak: int) -> dict:
+    """Persistence at scale (ROADMAP Queue 1 items 4 and 5): the port's
+    stream (``Index.save`` with ``streaming=None``, ``store/`` a sharded
+    tree of ``utils/checkpoint.py``). (a) Phase 9's store (workload 4:
+    105,133 x 2048 bf16, 106,496 padded rows) saved, loaded with
+    ``make_mesh(8, devices=["cuda:0"] * 8)`` and saved again from the
+    placed store: the placed ``search`` equal to phase 9's answers bit for
+    bit with K1 8 times a piece; the host's peak memory (``HostPeak``)
+    during the placed load and the placed save at most 2 x one shard's
+    bytes + PERSIST_SLACK, printed beside phase 15c's npz load's. (b)
+    Phase 3's int8 and int4 stores (1M x 512, the presets' αQE) rebuilt
+    from its rows, saved as the stream and loaded back: the stores equal
+    and K2/K3's answers equal the in-memory store's bit for bit, with the
+    same launches. save_s, load_s and bytes on disk are printed, not
+    bound. Temporary files in one folder, removed at the end. Returns the
+    loaded stores' K1-K3 launches (``launches_persist``)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from instsearch_torch import PipelineConfig
+    from instsearch_torch.index import Index
+    from instsearch_torch.parallel import make_mesh
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase17_")
+    launches = {}
+    try:
+        idx, _, q, ss, si, _ = ox
+        first = os.path.join(tmp, "ox105k")
+        with HostPeak() as save_peak:
+            _, save_s = timed(lambda: idx.save(first))
+        with open(os.path.join(first, "meta.json")) as f:
+            fmt = json.load(f)["format"]
+        if fmt != Index.STREAM_FORMAT:
+            fail(f"phase 17: streaming=None wrote {fmt!r} for a "
+                 f"{idx.descriptors.numel() * 2 / 1e9:.2f} GB store")
+        mesh = make_mesh(8, devices=["cuda:0"] * 8)
+        with HostPeak() as load_peak:
+            loaded, load_s = timed(lambda: Index.load(
+                first, extractor=idx.extractor, mesh=mesh))
+        parts = [sh.x for sh in loaded.placement.shards]
+        shard = parts[0].numel() * parts[0].element_size()
+        if not loaded.placed or len(parts) != 8 or not torch.equal(
+                torch.cat(parts), idx.descriptors):
+            fail("phase 17: the placed stream is not phase 9's store in 8 "
+                 "shards")
+        (ls, li), counts = count_launches(lambda: loaded.search(q))
+        pieces = -(-q.shape[0] // loaded.cfg.search.query_chunk)
+        if counts["topk_matmul"] != 8 * pieces:
+            fail(f"phase 17: the placed search launched K1 "
+                 f"{counts['topk_matmul']} times, not {8 * pieces}")
+        if not (np.array_equal(li, si.cpu().numpy())
+                and np.array_equal(ls, ss.cpu().numpy())):
+            fail("phase 17: the placed stream's answers differ from phase "
+                 "9's")
+        launches["topk_matmul"] = counts["topk_matmul"]
+        again = os.path.join(tmp, "ox105k_again")
+        with HostPeak() as psave_peak:
+            _, psave_s = timed(lambda: loaded.save(again))
+        if not loaded.placed:
+            fail("phase 17: saving the placed store gathered it")
+        a, b = saved_arrays(first), saved_arrays(again)
+        if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                           for k in a):
+            fail("phase 17: the placed save differs from the first save")
+        del a, b
+        limit = 2 * shard + PERSIST_SLACK
+        for what, peak in (("placed load", load_peak),
+                           ("placed save", psave_peak)):
+            if max(peak.rss, peak.traced) > limit:
+                fail(f"phase 17: the {what} took {peak.rss} host bytes "
+                     f"(RSS) and {peak.traced} (traced), above 2 x "
+                     f"{shard} + {PERSIST_SLACK}")
+        report(card, phase=17, part="a", rows=loaded.num_valid,
+               padded_rows=loaded.n_pad, shards=8, shard_bytes=shard,
+               format=fmt, disk_bytes=dir_bytes(first), save_s=save_s,
+               load_s=load_s, placed_save_s=psave_s,
+               host_peak_bytes={
+                   "save_unplaced": {"rss": save_peak.rss,
+                                     "traced": save_peak.traced},
+                   "placed_load": {"rss": load_peak.rss,
+                                   "traced": load_peak.traced},
+                   "placed_save": {"rss": psave_peak.rss,
+                                   "traced": psave_peak.traced},
+                   "npz_placed_load_phase15c": npz_peak},
+               host_peak_limit_bytes=limit, equals_phase9=True,
+               launches=counts["topk_matmul"])
+        del loaded, parts
+        shutil.rmtree(first, ignore_errors=True)
+        shutil.rmtree(again, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        cfg4, rows, names, ex, images, picks = corpus
+        cfg8 = PipelineConfig.load(os.path.join(HERE, "configs",
+                                                "million_scale_int8.json"))
+        q3 = ex(images[np.concatenate(picks)])
+        for kind, cfg, kernel in (("int8", cfg8, "topk_matmul_int8"),
+                                  ("int4", cfg4, "topk_matmul_int4")):
+            mem = Index.from_descriptors(rows, names, cfg, extractor=ex)
+            (ms, mi), want = count_launches(lambda: mem.search(q3))
+            path = os.path.join(tmp, kind)
+            _, save_s = timed(lambda: mem.save(path))
+            with open(os.path.join(path, "meta.json")) as f:
+                fmt = json.load(f)["format"]
+            back, load_s = timed(lambda: Index.load(path, extractor=ex))
+            if fmt != Index.STREAM_FORMAT or not (
+                    torch.equal(back.descriptors, mem.descriptors)
+                    and torch.equal(back.scales, mem.scales)
+                    and torch.equal(back.ids, mem.ids)):
+                fail(f"phase 17: the {kind} stream ({fmt}) loaded another "
+                     f"store")
+            (bs, bi), got = count_launches(lambda: back.search(q3))
+            if got != want or got[kernel] == 0:
+                fail(f"phase 17: {kind} launches {got}, in memory {want}")
+            if not (np.array_equal(bi, mi) and np.array_equal(bs, ms)):
+                fail(f"phase 17: the loaded {kind} store's answers differ")
+            launches[kernel] = got[kernel]
+            report(card, phase=17, part="b", store=kind, rows=back.num_valid,
+                   format=fmt, disk_bytes=dir_bytes(path), save_s=save_s,
+                   load_s=load_s, answers_equal=True, queries=int(
+                       mi.shape[0]), launches=got[kernel])
+            del mem, back
+            shutil.rmtree(path, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report(card, phase=17, seconds=time.perf_counter() - t_phase,
+           launches=launches)
+    return {"launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -5458,9 +5664,12 @@ def main() -> int:
     res11 = phase11(card, gen, topk_matmul, topk_matmul_reference,
                     check_against_plain, corpus, ox)
     torch.cuda.empty_cache()
-    mesh = phase15(card, gen, topk_matmul, topk_matmul_reference,
-                   topk_matmul_int8, topk_matmul_int8_reference,
-                   check_against_plain, check_exact, ox)["launches"]
+    res15 = phase15(card, gen, topk_matmul, topk_matmul_reference,
+                    topk_matmul_int8, topk_matmul_int8_reference,
+                    check_against_plain, check_exact, ox)
+    mesh = res15["launches"]
+    torch.cuda.empty_cache()
+    persist = phase17(card, ox, corpus, res15["c"]["host_peak"])["launches"]
     del corpus, ox
     torch.cuda.empty_cache()
     cli = phase13(card, gen)["launches"]
@@ -5505,7 +5714,8 @@ def main() -> int:
                      "launches": (launches + phase8.get(name, 0)
                                   + sharded.get(name, 0) + subset[name]
                                   + quality.get(name, 0) + cli.get(name, 0)
-                                  + train.get(name, 0) + mesh.get(name, 0)),
+                                  + train.get(name, 0) + mesh.get(name, 0)
+                                  + persist.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
@@ -5513,6 +5723,7 @@ def main() -> int:
                      "launches_cli": cli.get(name, 0),
                      "launches_train": train.get(name, 0),
                      "launches_mesh": mesh.get(name, 0),
+                     "launches_persist": persist.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -20,10 +20,12 @@ it, ``<out>.meta.json`` (``gem_p``, ``backbone``, ``pooling``,
 ``<out>.whitening.npz``; ``build-index --weights`` and ``evaluate
 --weights`` read it.
 
-Refused with exit code 2, and a message naming the ROADMAP item: ``bench``
-(M10a, with the port's benchmark), and ``--weights`` given an orbax tree
-(M10's orbax reader; a torchvision ``.pth``/``.pt`` checkpoint is imported
-by ``models/torch_import.py``).
+Refused with exit code 2: ``bench``, with a message naming the ROADMAP
+item (M10a, the port's benchmark), and ``--weights`` given an orbax tree,
+with a message naming ``tools/orbax_to_port.py``, which converts a
+``finetune`` checkpoint the JAX package wrote into the port's form where JAX
+and orbax are installed (a torchvision ``.pth``/``.pt`` checkpoint is
+imported by ``models/torch_import.py``).
 """
 from __future__ import annotations
 
@@ -104,7 +106,8 @@ def _finetuned(path: str, cfg: PipelineConfig, device):
     sidecar's ``gem_p``, backbone, pooling and image size applied to the
     extraction config, and its Lw whitening (which replaces the PCA fit)
     on ``device``. Raises ``FileNotFoundError`` when a recorded whitening
-    sidecar is missing, ``NotImplementedError`` for an orbax tree."""
+    sidecar is missing, ``NotImplementedError`` for an orbax tree (its
+    message names ``tools/orbax_to_port.py``)."""
     import numpy as np
     import torch
 
@@ -384,7 +387,7 @@ def load_backbone_variables(path: str, backbone: str) -> dict:
     modules (``models/torch_import.py``), or the port's ``finetune``
     checkpoint directory (``utils/checkpoint.py``). Raises
     ``NotImplementedError`` for anything else, the reference's orbax
-    trees."""
+    trees, naming ``tools/orbax_to_port.py``, which converts them."""
     if not path.endswith((".pth", ".pt")):
         from .utils.checkpoint import load_pytree
         return load_pytree(path)
@@ -698,8 +701,9 @@ def main(argv=None) -> int:
     e.add_argument("--backbone", default=None)
     e.add_argument("--weights", default=None,
                    help="extractor weights: a torchvision .pth state_dict "
-                        "(converted on load) or a `finetune` checkpoint; "
-                        "orbax trees are not read (ROADMAP M10)")
+                        "(converted on load) or the port's `finetune` "
+                        "checkpoint; an orbax tree from the JAX package is "
+                        "converted first by tools/orbax_to_port.py")
     e.add_argument("--distractors", default=None,
                    help="directory of distractor images (Oxford105k-style)")
     e.add_argument("--sharded", action="store_true",

@@ -6,8 +6,11 @@ decoder where it builds) in a background thread: batch i+depth decodes
 while the card runs batch i. With ``device_put`` the producer thread also
 uploads each batch to the device, from a pinned host buffer with
 ``non_blocking=True`` on a copy stream of its own, so the copy of batch
-i+1 overlaps the compute and readback of batch i. The reference's
-``grain_dataset`` is not ported (ROADMAP).
+i+1 overlaps the compute and readback of batch i.
+
+``grain_dataset`` is the reference's ``grain`` pipeline (decode -> batch)
+without ``grain``: a map-style ``torch.utils.data.Dataset`` decoding through
+``frontend.load_square``, batched by a ``DataLoader``.
 """
 from __future__ import annotations
 
@@ -126,3 +129,37 @@ def iter_batches(paths: Sequence[str], size: int, batch: int,
     return iter(PrefetchLoader(paths, size, batch, depth=depth,
                                quarantine=quarantine, device_put=device_put,
                                device=device))
+
+
+class _DecodeDataset(torch.utils.data.Dataset):
+    """Item i: ``(uint8 [S, S, 3], i)``, or a zero image and -1 where the
+    decode fails (a map stage cannot drop an element)."""
+
+    def __init__(self, paths: Sequence[str], size: int):
+        self.paths, self.size = list(paths), size
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, i: int):
+        img = frontend.load_square(self.paths[i], self.size)
+        if img is None:
+            return np.zeros((self.size, self.size, 3), np.uint8), np.int64(-1)
+        return img, np.int64(i)
+
+
+def _stack(items):
+    return (np.stack([img for img, _ in items]),
+            np.asarray([i for _, i in items], np.int64))
+
+
+def grain_dataset(paths: Sequence[str], size: int, batch: int,
+                  num_workers: int = 0):
+    """The reference's decode -> batch pipeline: iterating it yields
+    ``(images uint8 [B, S, S, 3], idx int64 [B])`` numpy batches in path
+    order, the last one partial. Failed decodes yield zero images with
+    index -1 (callers filter). ``num_workers`` > 0 decodes in that many
+    worker processes."""
+    return torch.utils.data.DataLoader(
+        _DecodeDataset(paths, size), batch_size=batch, shuffle=False,
+        drop_last=False, num_workers=num_workers, collate_fn=_stack)

@@ -6,9 +6,11 @@ of an Index (``evaluate.py``)."""
 from .datasets import (RetrievalDataset, load_classic, load_dataset,
                        load_revisited, make_mini_dataset, with_distractors)
 from .evaluate import build_index_for_dataset, evaluate_index, extract_queries
-from .revisited import evaluate_ranks
+from .revisited import (compute_ap, evaluate_ranks, evaluate_scores,
+                        precision_at)
 
 __all__ = ["RetrievalDataset", "load_classic", "load_dataset",
            "load_revisited", "make_mini_dataset", "with_distractors",
            "build_index_for_dataset", "evaluate_index", "extract_queries",
-           "evaluate_ranks"]
+           "compute_ap", "evaluate_ranks", "evaluate_scores",
+           "precision_at"]

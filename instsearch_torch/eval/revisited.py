@@ -1,7 +1,8 @@
 """Oxford/Paris mAP protocol, classic and revisited (the port's copy of
-``instsearch_tpu/eval/revisited.py::evaluate_ranks`` and its helpers; the
-port imports nothing of the JAX package). Per-query average precision over
-a ranked list with junk images skipped, plus mP@k, in host numpy.
+``instsearch_tpu/eval/revisited.py``: ``compute_ap``, ``precision_at``,
+``evaluate_ranks``, ``evaluate_scores`` and their helpers; the port imports
+nothing of the JAX package). Per-query average precision over a ranked list
+with junk images skipped, plus mP@k, in host numpy.
 
 Protocol composition (Radenovic et al., arXiv:1803.11285 §4):
   easy   : positives = easy,        junk = junk + hard
@@ -11,6 +12,52 @@ Protocol composition (Radenovic et al., arXiv:1803.11285 §4):
 from __future__ import annotations
 
 import numpy as np
+
+
+def compute_ap(ranked_ids: np.ndarray, positives: set, junk: set) -> float:
+    """Average precision with junk skipping (trapezoidal, official-kit form).
+
+    ``ranked_ids``: database ids best-first. Junk entries are removed from
+    the list (neither helping nor hurting); AP integrates precision over the
+    recall steps at each positive hit.
+    """
+    if not positives:
+        return float("nan")
+    ap = 0.0
+    hits = 0
+    effective_rank = 0  # rank among non-junk entries
+    recall_step = 1.0 / len(positives)
+    for db_id in ranked_ids:
+        if db_id in junk:
+            continue
+        if db_id in positives:
+            precision_before = hits / effective_rank if effective_rank else 1.0
+            hits += 1
+            precision_after = hits / (effective_rank + 1)
+            ap += (precision_before + precision_after) / 2.0 * recall_step
+        effective_rank += 1
+        if hits == len(positives):
+            break
+    return ap
+
+
+def precision_at(ranked_ids: np.ndarray, positives: set, junk: set,
+                 k: int) -> float:
+    """P@k with junk skipping; if fewer than k positives exist the
+    denominator is min(k, #positives) (revisited-kit convention)."""
+    if not positives:
+        return float("nan")
+    hits = 0
+    seen = 0
+    for db_id in ranked_ids:
+        if db_id in junk:
+            continue
+        seen += 1
+        if db_id in positives:
+            hits += 1
+        if seen == k:
+            break
+    return hits / min(k, len(positives))
 
 
 def _ap_fast(ranked_ids: np.ndarray, pos: np.ndarray, junk: np.ndarray
@@ -87,3 +134,11 @@ def evaluate_ranks(ranks: np.ndarray, gnd: list[dict], protocol: str = "medium",
         mp = 100.0 * np.mean(np.asarray(pks), axis=0)
         out.update({f"mP@{k}": float(v) for k, v in zip(pk, mp)})
     return out
+
+
+def evaluate_scores(scores: np.ndarray, gnd: list[dict],
+                    protocol: str = "medium", **kw) -> dict:
+    """Convenience: ``scores [Q, N]`` similarity matrix -> protocol metrics
+    (``evaluate_ranks`` of each row's ``argsort`` of the negated scores)."""
+    ranks = np.argsort(-np.asarray(scores), axis=1)
+    return evaluate_ranks(ranks, gnd, protocol, **kw)

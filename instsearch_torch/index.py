@@ -57,8 +57,7 @@ exact count; ``reconstruct`` reads stored rows back; ``add`` writes rows in
 place (re-padding past capacity), ``remove`` compacts the store by moving
 tail rows into the holes, ``merge_from`` adds another index's rows, each
 exactly as the reference moves and quantizes them, the PQ view absorbing
-both. ``save``/``load`` use the reference's npz form, so each package reads
-what the other writes.
+both. ``save``/``load`` take two forms of the store (below).
 
 The quality tiers: ``augment_database`` (αDBA, ``search/dba.py``; applied
 by ``build`` when ``cfg.index.dba_n``) replaces every stored row by the
@@ -92,7 +91,31 @@ armed candidate tier, ``to_sharded`` onto another mesh) first calls
 index is an unplaced one from then on, and that device must hold the
 whole store.
 
-The streaming (orbax) store is not ported: it needs JAX (see ROADMAP).
+Persistence. ``save`` writes a directory: ``meta.json`` (names, config,
+``format``, the arrays' dtypes, the views present), the views' own
+directories (``ivf/``, ``lw/``, ``pq/``, ``ivfpq/``, the reference's forms),
+the backbone's ``torch_weights.pt``, and the store in one of two forms,
+each holding the reference's arrays (``ids``, ``descriptors`` /
+``descriptors_int8`` / ``descriptors_int4``, ``scales``, ``whitening_P`` /
+``whitening_mu``, ``regional`` / ``regional_int8``, ``regional_scales``) at
+the reference's width and int4 pairing:
+  * ``format: "npy_stream"``, the port's stream: ``store/`` is a sharded
+    tree (``utils/checkpoint.py``), one ``.npy`` file an array in its
+    storage dtype (bf16 as its ``uint16`` bits, not widened) and
+    ``tree.json``. A placed store writes each shard's rows from its own
+    part, and ``load(mesh=)`` reads each shard's rows alone from a memory
+    map, so neither holds more than one shard's rows on the host. The
+    reference cannot read this form (it reads npz and orbax only).
+  * ``format: "npz"``: ``index.npz``, bf16 widened to f32, the form the
+    reference writes below its streaming cutoff and reads; each package
+    reads what the other writes in it.
+``save(streaming=None)`` takes the stream when the arrays hold at least 8
+MiB (the regional store counted), as the reference takes its orbax form;
+``streaming=True``/``False`` force the choice. The reference's own stream
+(``format: "orbax"``, OCDBT under ``store/``) and its orbax ``variables/``
+need tensorstore: ``tools/orbax_to_port.py``, run where JAX and orbax are
+installed, converts such an index to the port's stream, and ``load``
+refuses one unconverted.
 """
 from __future__ import annotations
 
@@ -125,7 +148,10 @@ from .search.qe import expand_from_candidates
 from .search.rerank import rerank_from_candidates
 from .search.spatial import build_vote_matrix
 from .search.subset import SubsetFilter, build_position_mask
+from .utils.checkpoint import CONVERTER as _CONVERTER
 from .utils.checkpoint import WEIGHTS_FILE as _WEIGHTS_FILE
+from .utils.checkpoint import (Placed, open_tree, save_sharded_pytree,
+                               tensor_of)
 from .utils.chunking import run_chunked
 from .utils.device import resolve_device
 from .utils.observe import COUNTERS
@@ -353,6 +379,21 @@ def _l2_scores(s: np.ndarray, i: np.ndarray, qn2: np.ndarray) -> np.ndarray:
 _STORES = {"descriptors": ("x", 0), "scales": ("scales", 1),
            "regional": ("regional", 0),
            "regional_scales": ("regional_scales", 0)}
+
+
+def _leaf_dtype(v) -> str:
+    """The storage dtype's name of an array of ``Index._array_state``."""
+    t = v.parts[0] if isinstance(v, Placed) else v
+    return str(t.dtype).split(".")[-1]
+
+
+def _leaf_bytes(v) -> int:
+    """Bytes of an array of ``Index._array_state`` in its storage dtype (a
+    placed one's over every shard), as the reference counts its arrays."""
+    if isinstance(v, Placed):
+        n = v.mesh.num_shards if v.mesh is not None else len(v.parts)
+        return n * v.parts[0].numel() * v.parts[0].element_size()
+    return v.numel() * v.element_size()
 
 
 class Index:
@@ -1951,81 +1992,115 @@ class Index:
         return n
 
     # ------------------------------------------------------------------
-    # Persistence in the reference's npz form: index.npz (the store at the
-    # descriptor width, bf16 widened to f32, int4 paired over dim as the
-    # reference packs it), meta.json and pq/. The backbone's weights go to
-    # a file of the port's own (the reference writes an orbax checkpoint,
-    # which needs JAX); the reference reads such an index with
-    # ``extractor=None`` or its own extractor.
+    # Persistence. Two forms of the store behind one API, chosen as the
+    # reference chooses its own two (at 8 MiB of arrays):
+    #   * the port's stream (format "npy_stream"): store/ is a sharded tree
+    #     (utils/checkpoint.py), one .npy a reference array in its storage
+    #     dtype (bf16 as its bits), written and read shard by shard;
+    #   * npz: index.npz (bf16 widened to f32), which the reference reads.
+    # Both hold the reference's arrays: its names, its width (no zero
+    # columns), its int4 pairing. The backbone's weights go to a file of the
+    # port's own (the reference writes an orbax checkpoint, which
+    # tools/orbax_to_port.py converts); the reference reads an npz index
+    # with ``extractor=None`` or its own extractor, and not the stream.
 
-    def _host_store(self, name: str) -> "torch.Tensor | None":
-        """A store on the host; a placed store's parts joined there
-        (through the mesh's group when it has one), leaving the placement
-        as it is."""
-        if not self.placed:
-            t = getattr(self, name)
-            return None if t is None else t.cpu()
-        parts, dim = self._parts(name), _STORES[name][1]
-        if parts is None:
-            return None
-        if self.placement.mesh.group is not None:
-            return self.placement.mesh.gather(parts, dim).cpu()
-        return torch.cat([t.cpu() for t in parts], dim)
+    _STREAMING_CUTOFF_BYTES = 8 * 1024 * 1024
+    STREAM_FORMAT = "npy_stream"
 
     def _array_state(self) -> dict:
-        """The reference's arrays as numpy, name -> array (an l2 store's
-        norm column included, as the reference writes it)."""
-        state = {"ids": self.ids.cpu().numpy().astype(np.int32)}
-        x = self._host_store("descriptors")
-        if self.is_int4:
-            state["descriptors_int4"] = pack_int4(
-                unpack_int4(x)[:, :self.dim]).numpy()
-        elif x.dtype == torch.int8:
-            state["descriptors_int8"] = x[:, :self.dim].numpy()
-        else:
-            state["descriptors"] = x[:, :self.dim].float().numpy()
-        scales = self._host_store("scales")
-        if scales is not None:
-            state["scales"] = scales.numpy()
+        """The reference's arrays (an l2 store's norm column included, as
+        the reference writes it), name -> tensor in its storage dtype, or a
+        :class:`~instsearch_torch.utils.checkpoint.Placed` of a placed
+        store's parts, each part cut to the reference's form on its own
+        device."""
+        def ref_rows(x):
+            """Stored rows at the reference's width and int4 pairing."""
+            if self.is_int4:
+                return (x if 2 * x.shape[1] == self.dim else
+                        pack_int4(unpack_int4(x)[:, :self.dim]))
+            return x[:, :self.dim]
+
+        def leaf(name, fn=None):
+            fn = fn or (lambda t: t)
+            if self.placed:
+                parts = self._parts(name)
+                return None if parts is None else Placed(
+                    [fn(t) for t in parts], _STORES[name][1],
+                    self.placement.mesh)
+            t = getattr(self, name)
+            return None if t is None else fn(t)
+
+        x = self._parts("descriptors")[0] if self.placed else self.descriptors
+        x_key = ("descriptors_int4" if self.is_int4 else "descriptors_int8"
+                 if x.dtype == torch.int8 else "descriptors")
+        state = {"ids": self.ids.to(torch.int32),
+                 x_key: leaf("descriptors", ref_rows),
+                 "scales": leaf("scales")}
         w = None if self.extractor is None else self.extractor.whitening
         if w is not None:
-            state["whitening_P"] = w.P.float().cpu().numpy()
-            state["whitening_mu"] = w.mu.float().cpu().numpy()
-        regional = self._host_store("regional")
-        if regional is not None:
-            if regional.dtype == torch.int8:
-                state["regional_int8"] = regional.numpy()
-                state["regional_scales"] = self._host_store(
-                    "regional_scales").numpy()
-            else:
-                state["regional"] = regional.float().numpy()
-        return state
+            state["whitening_P"] = w.P.float()
+            state["whitening_mu"] = w.mu.float()
+        if self.has_regional:
+            int8 = ((self._parts("regional")[0] if self.placed
+                     else self.regional).dtype == torch.int8)
+            state["regional_int8" if int8 else "regional"] = \
+                leaf("regional")
+            state["regional_scales"] = leaf("regional_scales")
+        return {k: v for k, v in state.items() if v is not None}
+
+    @staticmethod
+    def _npz_array(v) -> np.ndarray:
+        """An array of :meth:`_array_state` joined on the host for the npz
+        form (a placed one through its mesh's group when it has one),
+        bf16 widened to f32."""
+        if isinstance(v, Placed):
+            v = (v.mesh.gather(v.parts, v.dim) if v.mesh.group is not None
+                 else torch.cat([t.cpu() for t in v.parts], v.dim))
+        v = v.cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
 
     def save(self, path: str, streaming: "bool | None" = None) -> None:
-        """Write the index to the directory ``path`` in the reference's npz
-        form, which ``instsearch_tpu.index.Index.load`` reads too (it leaves
-        the extractor to its caller: ``weights_saved`` is false). The
+        """Write the index to the directory ``path``. ``streaming`` None
+        chooses as the reference does: the port's stream (``store/``, a
+        sharded tree) when the arrays to write hold at least 8 MiB, the
+        regional store counted, else the reference's npz form, which
+        ``instsearch_tpu.index.Index.load`` reads too (it leaves the
+        extractor to its caller: ``weights_saved`` is false); True or False
+        forces the choice. The reference cannot read the stream. A placed
+        store (``load(mesh=)``) writes each shard's rows from its own part
+        into the stream; the npz form joins them on the host first. The
         backbone's ``state_dict`` goes to ``torch_weights.pt``, from which
         :meth:`load` rebuilds the extractor."""
-        if streaming:
-            raise NotImplementedError(
-                "the streaming (orbax) store is not ported yet; the port "
-                "writes the npz form (ROADMAP M10)")
         os.makedirs(path, exist_ok=True)
-        regional_dtype = None
-        if self.has_regional:
-            regional_dtype = (self._parts("regional")[0] if self.placed
-                              else self.regional).dtype
+        group = self.placement.mesh.group if self.placed else None
+        # across processes, the store is written by every process (its own
+        # shards) and the rest of the directory by rank 0 alone
+        lead = group is None or self.placement.mesh.rank == 0
         state = self._array_state()
-        np.savez(os.path.join(path, "index.npz"), **state)
-        dtypes = {k: str(v.dtype) for k, v in state.items()}
-        if "descriptors" in state:
-            dtypes["descriptors"] = self.cfg.index.dtype
-        if "regional" in state:
-            dtypes["regional"] = str(regional_dtype).split(".")[-1]
+        if streaming is None:
+            streaming = sum(_leaf_bytes(v) for v in state.values()) \
+                >= self._STREAMING_CUTOFF_BYTES
+        if streaming:
+            save_sharded_pytree(os.path.join(path, "store"), state)
+        else:
+            arrays = {k: self._npz_array(v) for k, v in state.items()}
+            if lead:
+                np.savez(os.path.join(path, "index.npz"), **arrays)
+            del arrays
+        if lead:
+            self._save_rest(path, state, streaming)
+        if group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=group)
+
+    def _save_rest(self, path: str, state: dict, streaming: bool) -> None:
+        """``meta.json``, the views and the backbone's weights of
+        :meth:`save`."""
+        dtypes = {k: _leaf_dtype(v) for k, v in state.items()}
         meta = {"names": list(self.names),
                 "config": json.loads(self.cfg.to_json()),
-                "format": "npz", "dtypes": dtypes,
+                "format": self.STREAM_FORMAT if streaming else "npz",
+                "dtypes": dtypes,
                 "seed": getattr(self.extractor, "seed", 0),
                 "weights_saved": False}
         if self.ivf is not None:
@@ -2053,15 +2128,19 @@ class Index:
     def load(cls, path: str, extractor: Optional[Extractor] = None,
              device: "torch.device | str | None" = None,
              mesh=None) -> "Index":
-        """An index saved by :meth:`save` or by the reference in its npz
-        form (any row padding), onto ``device`` (default: the extractor's,
-        else the CUDA card, raising without one). The store gains the
-        kernels' zero columns again, int4 rows are repacked to the port's
-        pairing, PQ codes padded to words; saved IVF, IVF-PQ and
-        local-whitening views come along. The extractor is ``extractor``,
-        else rebuilt from the port's weights file; an index whose weights
-        were saved as an orbax checkpoint needs ``extractor=``. The stored
-        whitening is attached to the extractor.
+        """An index saved by :meth:`save` (the port's stream or npz) or by
+        the reference in its npz form (any row padding), onto ``device``
+        (default: the extractor's, else the CUDA card, raising without
+        one). The store gains the kernels' zero columns again, int4 rows
+        are repacked to the port's pairing, PQ codes padded to words; saved
+        IVF, IVF-PQ and local-whitening views come along. The extractor is
+        ``extractor``, else rebuilt from the port's weights file; an index
+        whose weights were saved as an orbax checkpoint needs
+        ``extractor=`` or a conversion by ``tools/orbax_to_port.py``, as
+        does the reference's streaming (orbax) form. The stored whitening
+        is attached to the extractor. A stream is read from memory maps:
+        without ``mesh`` straight from them, with one a shard's rows at a
+        time; a missing or mis-shaped ``store/`` file raises.
 
         ``mesh`` (a :class:`~instsearch_torch.parallel.ShardMesh` or a 2-D
         mesh's shard axis) places the store as it loads: each of this
@@ -2075,11 +2154,14 @@ class Index:
         docstring); the padded rows must divide among the mesh's shards."""
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        if meta.get("format") == "orbax":
+        fmt = meta.get("format", "npz")
+        if fmt == "orbax":
             raise NotImplementedError(
-                "this index was saved in the streaming (orbax) form, which "
-                "the port cannot read without JAX (ROADMAP M10); save it "
-                "with streaming=False")
+                f"this index was saved in the reference's streaming (orbax) "
+                f"form, which the port does not read: convert it with "
+                f"{_CONVERTER} where JAX and orbax are installed")
+        if fmt not in ("npz", cls.STREAM_FORMAT):
+            raise ValueError(f"unknown index format {fmt!r}")
         cfg = PipelineConfig.from_json(json.dumps(meta["config"]))
         _check_index_cfg(cfg)
         smesh = None
@@ -2097,60 +2179,73 @@ class Index:
                 os.path.join(path, meta["torch_weights"]), map_location=dev))
         elif extractor is None and meta.get("weights_saved"):
             raise ValueError(
-                "this index saved its backbone weights as an orbax "
-                "checkpoint (variables/), which the port cannot read "
-                "without JAX (ROADMAP M10); pass extractor= built from the "
-                "same weights (a seeded extractor would serve wrong "
-                "neighbours)")
-        raw = np.load(os.path.join(path, "index.npz"))
+                f"this index saved its backbone weights as an orbax "
+                f"checkpoint (variables/), which the port does not read: "
+                f"convert the index with {_CONVERTER}, or pass extractor= "
+                f"built from the same weights (a seeded extractor would "
+                f"serve wrong neighbours)")
+        if fmt == "npz":
+            npz = np.load(os.path.join(path, "index.npz"))
+            raw = {k: npz[k] for k in npz.files}
+            stored = {k: str(a.dtype) for k, a in raw.items()}
+        else:
+            # name -> Leaf: raw[name][rows] reads those rows alone from a
+            # memory map
+            raw = open_tree(os.path.join(path, "store"))
+            stored = {k: leaf.dtype for k, leaf in raw.items()}
 
-        def put(a, dtype=None, to=dev):
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(to)
+        def put(name, key=..., dtype=None, to=dev):
+            t = tensor_of(raw[name][key], stored[name]).to(to)
             return t if dtype is None else t.to(dtype)
 
-        if extractor is not None and "whitening_P" in raw.files:
+        if extractor is not None and "whitening_P" in raw:
             extractor.whitening = WhiteningParams(
-                P=put(raw["whitening_P"], torch.float32).to(extractor.device),
-                mu=put(raw["whitening_mu"], torch.float32).to(
-                    extractor.device))
+                P=put("whitening_P", dtype=torch.float32,
+                      to=extractor.device),
+                mu=put("whitening_mu", dtype=torch.float32,
+                       to=extractor.device))
         kind = cfg.index.dtype
-        int4_key = "descriptors_int4" in raw.files
+        int4_key = "descriptors_int4" in raw
         key = ("descriptors_int4" if int4_key else "descriptors_int8"
-               if "descriptors_int8" in raw.files else "descriptors")
-        rows_np = raw[key]
-        dim = rows_np.shape[1] * (2 if int4_key else 1)
+               if "descriptors_int8" in raw else "descriptors")
+        n_pad = raw[key].shape[0]
+        dim = raw[key].shape[1] * (2 if int4_key else 1)
         width = _pad_rows(dim, _COLUMN_MULTIPLE[kind])
 
         def store(lo, hi, to):
             """Stored rows [lo, hi) on ``to``, with the zero columns."""
             if int4_key:
-                comps = unpack_int4(put(rows_np[lo:hi], to=to))
+                comps = unpack_int4(put(key, slice(lo, hi), to=to))
                 return pack_int4(torch.nn.functional.pad(
                     comps, (0, width - dim)))
-            x = put(rows_np[lo:hi], _DTYPES.get(kind, torch.int8), to=to)
+            x = put(key, slice(lo, hi), _DTYPES.get(kind, torch.int8), to=to)
             return torch.nn.functional.pad(x, (0, width - dim))
 
-        regional_key = ("regional_int8" if "regional_int8" in raw.files
-                        else "regional" if "regional" in raw.files else None)
+        regional_key = ("regional_int8" if "regional_int8" in raw
+                        else "regional" if "regional" in raw else None)
         regional_dtype = (torch.int8 if regional_key == "regional_int8" else
                           _DTYPES[meta["dtypes"]["regional"]]
                           if regional_key else None)
         sources = {
             "descriptors": store,
-            "scales": None if "scales" not in raw.files else
-            (lambda lo, hi, to: put(raw["scales"][:, lo:hi], torch.float32,
-                                    to=to)),
+            "scales": None if "scales" not in raw else
+            (lambda lo, hi, to: put("scales", (slice(None), slice(lo, hi)),
+                                    torch.float32, to=to)),
             "regional": None if regional_key is None else
-            (lambda lo, hi, to: put(raw[regional_key][lo:hi],
+            (lambda lo, hi, to: put(regional_key, slice(lo, hi),
                                     regional_dtype, to=to)),
-            "regional_scales": None if "regional_scales" not in raw.files
-            else (lambda lo, hi, to: put(raw["regional_scales"][lo:hi],
+            "regional_scales": None if "regional_scales" not in raw
+            else (lambda lo, hi, to: put("regional_scales", slice(lo, hi),
                                          torch.float32, to=to))}
-        n_pad = rows_np.shape[0]
+        for name in ("ids", "scales", regional_key, "regional_scales"):
+            if name in raw and raw[name].shape[-1 if name == "scales"
+                                               else 0] != n_pad:
+                raise ValueError(f"{name} holds {raw[name].shape}, the "
+                                 f"store {n_pad} rows")
         if smesh is None:
             whole = {name: None if src is None else src(0, n_pad, dev)
                      for name, src in sources.items()}
-            idx = cls(whole["descriptors"], put(raw["ids"], torch.int32),
+            idx = cls(whole["descriptors"], put("ids", dtype=torch.int32),
                       list(meta["names"]), cfg, extractor,
                       scales=whole["scales"], dim=dim)
             idx.regional = whole["regional"]
@@ -2167,7 +2262,7 @@ class Index:
                      [src((first + j) * c, (first + j + 1) * c, d)
                       for j, d in enumerate(smesh.devices)]
                      for name, src in sources.items()}
-            idx = cls(None, put(raw["ids"], torch.int32), list(meta["names"]),
+            idx = cls(None, put("ids", dtype=torch.int32), list(meta["names"]),
                       cfg, extractor, dim=dim)
         if meta.get("regional_geom") is not None:
             idx.regional_geom = np.asarray(meta["regional_geom"], np.float32)

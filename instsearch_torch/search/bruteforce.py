@@ -1,6 +1,6 @@
 """Brute-force cosine top-k, the plain scoring path (port of
-``instsearch_tpu/search/bruteforce.py``: ``masked_scores`` and
-``search_topk``), over float, int8 and packed-int4 stores.
+``instsearch_tpu/search/bruteforce.py``: ``masked_scores``, ``search_topk``
+and ``all_scores``), over float, int8 and packed-int4 stores.
 
 This is the scoring oracle of the port. For a float store it is also the
 basis of the fused kernel's plain version
@@ -94,6 +94,13 @@ def search_topk(index: torch.Tensor, queries: torch.Tensor, k: int = 10,
     ``scales``/``int4`` for a quantized store, ``mask`` for a subset."""
     return select_topk(masked_scores(index, queries, scales=scales, ids=ids,
                                      int4=int4, mask=mask), k)
+
+
+def all_scores(index: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """The full score matrix ``[Q, N]`` in f32 of a float store ``index
+    [N, D]`` (used by evaluation, which needs the complete ranking, and by
+    αQE): ``masked_scores`` with no mask."""
+    return masked_scores(index, queries)
 
 
 def range_count(descriptors: torch.Tensor, ids: torch.Tensor,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
+from .bruteforce import select_topk
 from .spatial import spatial_consistency_scores
 
 
@@ -103,3 +104,21 @@ def rerank_from_candidates(regional_store: torch.Tensor, ids: torch.Tensor,
                                         value=float("-inf"))
         new_ids = torch.nn.functional.pad(new_ids, (0, k - kk), value=-1)
     return new_s, new_ids
+
+
+def regional_rerank_scores(regional_store: torch.Tensor, ids: torch.Tensor,
+                           global_scores: torch.Tensor,
+                           query_regional: torch.Tensor, *, depth: int = 100,
+                           k: int = 10, fuse_weight: float = 1.0,
+                           regional_scales: "torch.Tensor | None" = None):
+    """``regional_store [N_pad, R, D]``, ``global_scores [Q, N_pad]``
+    (padding already -inf), ``query_regional [Q, Rq, D]`` -> ``(scores [Q,
+    k], ids [Q, k])`` re-ordered by fused score: the re-rank oracle over a
+    full score matrix, its top-``depth`` (lowest position first on ties)
+    re-ranked by :func:`rerank_from_candidates`. The serving composite
+    selects the candidates with the fused kernel instead."""
+    top_g, top_pos = select_topk(global_scores, depth)
+    return rerank_from_candidates(regional_store, ids, top_g, top_pos,
+                                  query_regional, k=k,
+                                  fuse_weight=fuse_weight,
+                                  regional_scales=regional_scales)

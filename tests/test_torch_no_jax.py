@@ -23,12 +23,18 @@ a saved index, take a fine-tuning step (``instsearch_torch.train``), mine
 hard negatives and write and read the port's checkpoint
 (``instsearch_torch.utils.checkpoint``), search an l2 index and range-search
 it through four CPU shards, load a saved index placed over four CPU shards
-(``Index.load(mesh=)``) and search it, extract data-parallel over a 2-D
+(``Index.load(mesh=)``) and search it, save an index as the port's stream,
+load it placed and save it again, write and read a sharded tree
+(``save_sharded_pytree``/``load_sharded_pytree``), batch images through
+``grain_dataset``, run ``compute_ap``, ``precision_at``,
+``evaluate_scores``, ``all_scores`` and ``regional_rerank_scores``, extract
+data-parallel over a 2-D
 mesh (``Extractor(mesh=)``), run a tiny ViT tensor-parallel (also through
 ``Extractor`` over a ``('data', 'model')`` mesh), pipelined and sequence-
 parallel over CPU devices (``parallel/tp.py``, ``pp.py``, ``sp.py``), then
 check sys.modules: neither JAX nor any module of the reference package was
-loaded."""
+loaded, nor orbax, tensorstore, grain or ``tools/orbax_to_port.py``. A scan
+of the package's import statements finds none of them either."""
 import json
 import os
 import subprocess
@@ -261,8 +267,48 @@ tpx = Extractor(ExtractConfig(backbone="vit_tiny", image_size=16,
                 mesh=make_mesh_dp_tp(2, 2, devices=["cpu"] * 4))
 assert tpx.cfg.vit_attention == "xla"
 assert tuple(tpx(np.zeros((3, 16, 16, 3), np.uint8)).shape) == (3, 32)
+import tempfile
+from instsearch_torch.data.loader import grain_dataset
+from instsearch_torch.eval import (compute_ap, evaluate_scores,
+                                   make_mini_dataset, precision_at)
+from instsearch_torch.parallel import shard_rows
+from instsearch_torch.search import all_scores, regional_rerank_scores
+from instsearch_torch.utils.checkpoint import (Placed, load_sharded_pytree,
+                                               save_sharded_pytree)
+stmp = tempfile.mkdtemp()
+m4 = make_mesh(4, devices=["cpu"] * 4)
+sidx = Index.from_descriptors(x, [f"r{i}" for i in range(40)], cfg,
+                              device="cpu")
+attach_regional_store(sidx, reg)
+sidx.save(stmp + "/stream", streaming=True)
+splaced = Index.load(stmp + "/stream", mesh=m4)
+assert splaced.placed and json.load(open(stmp + "/stream/meta.json"))[
+    "format"] == Index.STREAM_FORMAT
+assert splaced.search(x[:3])[1][:, 0].tolist() == [0, 1, 2]
+splaced.save(stmp + "/again")
+tt = torch.arange(32.0).reshape(8, 4).to(torch.bfloat16)
+save_sharded_pytree(stmp + "/tree", {"t": Placed(shard_rows(m4, tt), 0, m4)})
+assert torch.equal(torch.cat(load_sharded_pytree(
+    stmp + "/tree", {"t": (m4, 0)})["t"]), tt)
+mini = make_mini_dataset(stmp + "/mini", n_instances=2, n_views=2,
+                         n_distractors=1, seed=5)
+assert sum(int((b[1] >= 0).sum()) for b in grain_dataset(
+    mini.db_paths, 32, 4)) == len(mini.db_paths)
+sc = all_scores(torch.from_numpy(x), torch.from_numpy(x[:3]))
+gnd = [{"easy": [r], "hard": [], "junk": []} for r in range(3)]
+assert evaluate_scores(sc.numpy(), gnd)["mAP"] == 100.0
+assert compute_ap(np.array([0, 1]), {0}, set()) == 1.0
+assert precision_at(np.array([0, 1]), {1}, set(), 1) == 0.0
+rs2, ri2 = regional_rerank_scores(torch.from_numpy(reg),
+                                  torch.arange(40, dtype=torch.int32), sc,
+                                  torch.from_numpy(reg[:3]), depth=10, k=3)
+assert ri2[:, 0].tolist() == [0, 1, 2]
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
+                  "others": [m for m in ("orbax", "tensorstore", "grain",
+                                         "orbax_to_port")
+                             if any(k == m or k.startswith(m + ".")
+                                    for k in sys.modules)],
                   "reference": [m for m in sys.modules
                                 if m.startswith("instsearch_tpu")]}))
 """
@@ -276,4 +322,32 @@ def test_port_never_imports_jax():
     assert res["top1"] == [0, 1, 2]
     assert res["rows"] == 48                 # padded to the row tile
     assert res["jax"] is False and res["flax"] is False
+    assert res["others"] == []
     assert res["reference"] == []
+
+
+def test_package_never_imports_the_converter():
+    """No module of instsearch_torch imports ``tools/orbax_to_port.py``
+    (nor ``tools``, orbax, tensorstore or grain): the converter runs where
+    JAX does, the package where it does not."""
+    import ast
+    banned = ("tools", "orbax_to_port", "orbax", "tensorstore", "grain",
+              "jax", "flax", "instsearch_tpu")
+    pkg = os.path.join(_ROOT, "instsearch_torch")
+    seen = 0
+    for base, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            tree = ast.parse(open(os.path.join(base, name)).read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and not node.level:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                seen += 1
+                for m in mods:
+                    assert m.split(".")[0] not in banned, (name, m)
+    assert seen > 100

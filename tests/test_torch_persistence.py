@@ -240,18 +240,21 @@ def test_port_weights_round_trip(tmp_path):
 
 
 def test_refusals(tmp_path):
-    """orbax stores, a JAX index whose weights were saved (orbax) loaded
-    without ``extractor=``, and ``save(streaming=True)`` raise; with its own
-    extractor the JAX index loads and takes the stored whitening."""
+    """orbax stores and a JAX index whose weights were saved (orbax) loaded
+    without ``extractor=`` raise and name the converter; the port's
+    ``save(streaming=True)`` writes its own stream, which the reference does
+    not read; with its own extractor the JAX index loads and takes the
+    stored whitening."""
     jcfg, tcfg = _cfgs("int8")
     x = _rows(16)
     names = [f"im{i}" for i in range(N)]
     tidx = Index.from_descriptors(x, names, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        tidx.save(str(tmp_path / "s"), streaming=True)
+    tidx.save(str(tmp_path / "s"), streaming=True)
+    assert json.load(open(tmp_path / "s" / "meta.json"))["format"] == \
+        Index.STREAM_FORMAT
     jidx = JaxIndex.from_descriptors(x, names, jcfg)
     jidx.save(str(tmp_path / "orbax"), streaming=True)
-    with pytest.raises(NotImplementedError, match="M10"):
+    with pytest.raises(NotImplementedError, match="tools/orbax_to_port.py"):
         Index.load(str(tmp_path / "orbax"), device="cpu")
     # what JaxIndex.save reads of its extractor: the variables (written by
     # orbax), the whitening and the seed
@@ -266,7 +269,7 @@ def test_refusals(tmp_path):
     jidx.save(str(tmp_path / "weights"), streaming=False)
     assert json.load(open(tmp_path / "weights" / "meta.json"))[
         "weights_saved"]
-    with pytest.raises(ValueError, match="orbax"):
+    with pytest.raises(ValueError, match="orbax_to_port"):
         Index.load(str(tmp_path / "weights"), device="cpu")
     ex = Extractor(_tiny_cfg().extract.replace(whiten=False), device="cpu")
     got = Index.load(str(tmp_path / "weights"), extractor=ex)

@@ -242,5 +242,5 @@ def test_checkpoint_round_trip_and_orbax_refusal(tmp_path):
         assert torch.equal(back[k], tree[k])
     (tmp_path / "orbax").mkdir()
     (tmp_path / "orbax" / "_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="orbax reader"):
+    with pytest.raises(NotImplementedError, match="tools/orbax_to_port.py"):
         load_pytree(str(tmp_path / "orbax"))
