@@ -372,9 +372,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -5448,7 +5450,7 @@ def saved_arrays(path: str) -> dict:
             open_tree(os.path.join(path, "store")).items()}
 
 
-def phase17(card, ox, corpus, npz_peak: int) -> dict:
+def phase17(card, ox, corpus, npz_peak: int, tmp: str) -> dict:
     """Persistence at scale (ROADMAP Queue 1 items 4 and 5): the port's
     stream (``Index.save`` with ``streaming=None``, ``store/`` a sharded
     tree of ``utils/checkpoint.py``). (a) Phase 9's store (workload 4:
@@ -5462,119 +5464,344 @@ def phase17(card, ox, corpus, npz_peak: int) -> dict:
     from its rows, saved as the stream and loaded back: the stores equal
     and K2/K3's answers equal the in-memory store's bit for bit, with the
     same launches. save_s, load_s and bytes on disk are printed, not
-    bound. Temporary files in one folder, removed at the end. Returns the
-    loaded stores' K1-K3 launches (``launches_persist``)."""
+    bound. The three streams stay in ``tmp`` (the caller's temporary
+    folder) for phase 18. Returns the loaded stores' K1-K3 launches
+    (``launches_persist``) and the streams' paths."""
     import shutil
-    import tempfile
     import numpy as np
     import torch
     from instsearch_torch import PipelineConfig
     from instsearch_torch.index import Index
     from instsearch_torch.parallel import make_mesh
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase17_")
-    launches = {}
-    try:
-        idx, _, q, ss, si, _ = ox
-        first = os.path.join(tmp, "ox105k")
-        with HostPeak() as save_peak:
-            _, save_s = timed(lambda: idx.save(first))
-        with open(os.path.join(first, "meta.json")) as f:
-            fmt = json.load(f)["format"]
-        if fmt != Index.STREAM_FORMAT:
-            fail(f"phase 17: streaming=None wrote {fmt!r} for a "
-                 f"{idx.descriptors.numel() * 2 / 1e9:.2f} GB store")
-        mesh = make_mesh(8, devices=["cuda:0"] * 8)
-        with HostPeak() as load_peak:
-            loaded, load_s = timed(lambda: Index.load(
-                first, extractor=idx.extractor, mesh=mesh))
-        parts = [sh.x for sh in loaded.placement.shards]
-        shard = parts[0].numel() * parts[0].element_size()
-        if not loaded.placed or len(parts) != 8 or not torch.equal(
-                torch.cat(parts), idx.descriptors):
-            fail("phase 17: the placed stream is not phase 9's store in 8 "
-                 "shards")
-        (ls, li), counts = count_launches(lambda: loaded.search(q))
-        pieces = -(-q.shape[0] // loaded.cfg.search.query_chunk)
-        if counts["topk_matmul"] != 8 * pieces:
-            fail(f"phase 17: the placed search launched K1 "
-                 f"{counts['topk_matmul']} times, not {8 * pieces}")
-        if not (np.array_equal(li, si.cpu().numpy())
-                and np.array_equal(ls, ss.cpu().numpy())):
-            fail("phase 17: the placed stream's answers differ from phase "
-                 "9's")
-        launches["topk_matmul"] = counts["topk_matmul"]
-        again = os.path.join(tmp, "ox105k_again")
-        with HostPeak() as psave_peak:
-            _, psave_s = timed(lambda: loaded.save(again))
-        if not loaded.placed:
-            fail("phase 17: saving the placed store gathered it")
-        a, b = saved_arrays(first), saved_arrays(again)
-        if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
-                                           for k in a):
-            fail("phase 17: the placed save differs from the first save")
-        del a, b
-        limit = 2 * shard + PERSIST_SLACK
-        for what, peak in (("placed load", load_peak),
-                           ("placed save", psave_peak)):
-            if max(peak.rss, peak.traced) > limit:
-                fail(f"phase 17: the {what} took {peak.rss} host bytes "
-                     f"(RSS) and {peak.traced} (traced), above 2 x "
-                     f"{shard} + {PERSIST_SLACK}")
-        report(card, phase=17, part="a", rows=loaded.num_valid,
-               padded_rows=loaded.n_pad, shards=8, shard_bytes=shard,
-               format=fmt, disk_bytes=dir_bytes(first), save_s=save_s,
-               load_s=load_s, placed_save_s=psave_s,
-               host_peak_bytes={
-                   "save_unplaced": {"rss": save_peak.rss,
-                                     "traced": save_peak.traced},
-                   "placed_load": {"rss": load_peak.rss,
-                                   "traced": load_peak.traced},
-                   "placed_save": {"rss": psave_peak.rss,
-                                   "traced": psave_peak.traced},
-                   "npz_placed_load_phase15c": npz_peak},
-               host_peak_limit_bytes=limit, equals_phase9=True,
-               launches=counts["topk_matmul"])
-        del loaded, parts
-        shutil.rmtree(first, ignore_errors=True)
-        shutil.rmtree(again, ignore_errors=True)
-        torch.cuda.empty_cache()
+    launches, streams = {}, {}
+    idx, _, q, ss, si, _ = ox
+    first = os.path.join(tmp, "ox105k")
+    with HostPeak() as save_peak:
+        _, save_s = timed(lambda: idx.save(first))
+    with open(os.path.join(first, "meta.json")) as f:
+        fmt = json.load(f)["format"]
+    if fmt != Index.STREAM_FORMAT:
+        fail(f"phase 17: streaming=None wrote {fmt!r} for a "
+             f"{idx.descriptors.numel() * 2 / 1e9:.2f} GB store")
+    mesh = make_mesh(8, devices=["cuda:0"] * 8)
+    with HostPeak() as load_peak:
+        loaded, load_s = timed(lambda: Index.load(
+            first, extractor=idx.extractor, mesh=mesh))
+    parts = [sh.x for sh in loaded.placement.shards]
+    shard = parts[0].numel() * parts[0].element_size()
+    if not loaded.placed or len(parts) != 8 or not torch.equal(
+            torch.cat(parts), idx.descriptors):
+        fail("phase 17: the placed stream is not phase 9's store in 8 "
+             "shards")
+    (ls, li), counts = count_launches(lambda: loaded.search(q))
+    pieces = -(-q.shape[0] // loaded.cfg.search.query_chunk)
+    if counts["topk_matmul"] != 8 * pieces:
+        fail(f"phase 17: the placed search launched K1 "
+             f"{counts['topk_matmul']} times, not {8 * pieces}")
+    if not (np.array_equal(li, si.cpu().numpy())
+            and np.array_equal(ls, ss.cpu().numpy())):
+        fail("phase 17: the placed stream's answers differ from phase "
+             "9's")
+    launches["topk_matmul"] = counts["topk_matmul"]
+    again = os.path.join(tmp, "ox105k_again")
+    with HostPeak() as psave_peak:
+        _, psave_s = timed(lambda: loaded.save(again))
+    if not loaded.placed:
+        fail("phase 17: saving the placed store gathered it")
+    a, b = saved_arrays(first), saved_arrays(again)
+    if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                       for k in a):
+        fail("phase 17: the placed save differs from the first save")
+    del a, b
+    limit = 2 * shard + PERSIST_SLACK
+    for what, peak in (("placed load", load_peak),
+                       ("placed save", psave_peak)):
+        if max(peak.rss, peak.traced) > limit:
+            fail(f"phase 17: the {what} took {peak.rss} host bytes "
+                 f"(RSS) and {peak.traced} (traced), above 2 x "
+                 f"{shard} + {PERSIST_SLACK}")
+    report(card, phase=17, part="a", rows=loaded.num_valid,
+           padded_rows=loaded.n_pad, shards=8, shard_bytes=shard,
+           format=fmt, disk_bytes=dir_bytes(first), save_s=save_s,
+           load_s=load_s, placed_save_s=psave_s,
+           host_peak_bytes={
+               "save_unplaced": {"rss": save_peak.rss,
+                                 "traced": save_peak.traced},
+               "placed_load": {"rss": load_peak.rss,
+                               "traced": load_peak.traced},
+               "placed_save": {"rss": psave_peak.rss,
+                               "traced": psave_peak.traced},
+               "npz_placed_load_phase15c": npz_peak},
+           host_peak_limit_bytes=limit, equals_phase9=True,
+           launches=counts["topk_matmul"])
+    del loaded, parts
+    streams["ox"] = first
+    shutil.rmtree(again, ignore_errors=True)
+    torch.cuda.empty_cache()
 
-        cfg4, rows, names, ex, images, picks = corpus
-        cfg8 = PipelineConfig.load(os.path.join(HERE, "configs",
-                                                "million_scale_int8.json"))
-        q3 = ex(images[np.concatenate(picks)])
-        for kind, cfg, kernel in (("int8", cfg8, "topk_matmul_int8"),
-                                  ("int4", cfg4, "topk_matmul_int4")):
-            mem = Index.from_descriptors(rows, names, cfg, extractor=ex)
-            (ms, mi), want = count_launches(lambda: mem.search(q3))
-            path = os.path.join(tmp, kind)
-            _, save_s = timed(lambda: mem.save(path))
-            with open(os.path.join(path, "meta.json")) as f:
-                fmt = json.load(f)["format"]
-            back, load_s = timed(lambda: Index.load(path, extractor=ex))
-            if fmt != Index.STREAM_FORMAT or not (
-                    torch.equal(back.descriptors, mem.descriptors)
-                    and torch.equal(back.scales, mem.scales)
-                    and torch.equal(back.ids, mem.ids)):
-                fail(f"phase 17: the {kind} stream ({fmt}) loaded another "
-                     f"store")
-            (bs, bi), got = count_launches(lambda: back.search(q3))
-            if got != want or got[kernel] == 0:
-                fail(f"phase 17: {kind} launches {got}, in memory {want}")
-            if not (np.array_equal(bi, mi) and np.array_equal(bs, ms)):
-                fail(f"phase 17: the loaded {kind} store's answers differ")
-            launches[kernel] = got[kernel]
-            report(card, phase=17, part="b", store=kind, rows=back.num_valid,
-                   format=fmt, disk_bytes=dir_bytes(path), save_s=save_s,
-                   load_s=load_s, answers_equal=True, queries=int(
-                       mi.shape[0]), launches=got[kernel])
-            del mem, back
-            shutil.rmtree(path, ignore_errors=True)
-            torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    cfg4, rows, names, ex, images, picks = corpus
+    cfg8 = PipelineConfig.load(os.path.join(HERE, "configs",
+                                            "million_scale_int8.json"))
+    q3 = ex(images[np.concatenate(picks)])
+    for kind, cfg, kernel in (("int8", cfg8, "topk_matmul_int8"),
+                              ("int4", cfg4, "topk_matmul_int4")):
+        mem = Index.from_descriptors(rows, names, cfg, extractor=ex)
+        (ms, mi), want = count_launches(lambda: mem.search(q3))
+        path = os.path.join(tmp, kind)
+        _, save_s = timed(lambda: mem.save(path))
+        with open(os.path.join(path, "meta.json")) as f:
+            fmt = json.load(f)["format"]
+        back, load_s = timed(lambda: Index.load(path, extractor=ex))
+        if fmt != Index.STREAM_FORMAT or not (
+                torch.equal(back.descriptors, mem.descriptors)
+                and torch.equal(back.scales, mem.scales)
+                and torch.equal(back.ids, mem.ids)):
+            fail(f"phase 17: the {kind} stream ({fmt}) loaded another "
+                 f"store")
+        (bs, bi), got = count_launches(lambda: back.search(q3))
+        if got != want or got[kernel] == 0:
+            fail(f"phase 17: {kind} launches {got}, in memory {want}")
+        if not (np.array_equal(bi, mi) and np.array_equal(bs, ms)):
+            fail(f"phase 17: the loaded {kind} store's answers differ")
+        launches[kernel] = got[kernel]
+        report(card, phase=17, part="b", store=kind, rows=back.num_valid,
+               format=fmt, disk_bytes=dir_bytes(path), save_s=save_s,
+               load_s=load_s, answers_equal=True, queries=int(
+                   mi.shape[0]), launches=got[kernel])
+        del mem, back
+        streams[kind] = path
+        torch.cuda.empty_cache()
     report(card, phase=17, seconds=time.perf_counter() - t_phase,
+           launches=launches)
+    return {"launches": launches, "streams": streams}
+
+
+PLACED_REMOVE = 512     # phase 18a: names removed, 64 on each shard
+PLACED_ADD = 1024       # phase 18a/b: seeded unit rows added
+PLACED_DONOR = 256      # phase 18a: rows of the placed donor merged
+PLACED_INT_REMOVE = 2048   # phase 18b: names removed from the int8/int4 stores
+PLACED_SLACK = 64 << 20    # phase 18a: device bytes allowed above one shard
+PLACED_BATCHES = (1, 8, 128)
+
+
+def spread_names(idx, n: int, seed: int) -> list:
+    """``n`` names of ``idx`` spread over its shards' valid rows (as many
+    from each, the last valid rows of the tail among them), by a seeded
+    generator."""
+    import numpy as np
+    sidx = idx.placement
+    c, shards = sidx.rows_per_shard, len(sidx.shards)
+    rng = np.random.default_rng(seed)
+    tail = list(range(idx.num_valid - 8, idx.num_valid))
+    pos = set(tail)
+    for j in range(shards):
+        lo, hi = j * c, min((j + 1) * c, idx.num_valid)
+        want = (n - len(tail)) // shards + (j < (n - len(tail)) % shards)
+        pool = np.setdiff1d(np.arange(lo, hi), tail)
+        pos.update(rng.choice(pool, size=want, replace=False).tolist())
+    return [idx.names[p] for p in sorted(pos)]
+
+
+def device_growth(fn):
+    """``fn()`` -> (result, seconds, the peak of device memory allocated
+    during it above the level before it, in bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, sec = timed(fn)
+    return out, sec, torch.cuda.max_memory_allocated() - base
+
+
+@contextlib.contextmanager
+def refusing_gather(*indexes):
+    """``Index.gather`` raising on these instances for the block."""
+    def refuse():
+        raise RuntimeError("the placed store was gathered")
+    for idx in indexes:
+        idx.gather = refuse
+    try:
+        yield
+    finally:
+        for idx in indexes:
+            del idx.gather
+
+
+def placed_against_twin(tag, placed, twin, mesh, batches, kernel) -> int:
+    """The placed parts equal to the twin's store bit for bit, ids and names
+    equal, and each batch's answers equal to the twin's through the same
+    8-shard route bit for bit, ``kernel`` launched by the placed search as
+    often as by the twin's route and at least 8 times a piece -> the placed
+    searches' launches of ``kernel``."""
+    import numpy as np
+    import torch
+    parts = torch.cat([sh.x for sh in placed.placement.shards])
+    if not (parts.shape == twin.descriptors.shape and torch.equal(
+            parts.view(torch.uint8), twin.descriptors.view(torch.uint8))):
+        fail(f"phase 18: {tag}: the placed parts differ from the twin's "
+             f"store")
+    del parts
+    if twin.scales is not None and not torch.equal(
+            torch.cat([sh.scales for sh in placed.placement.shards], 1),
+            twin.scales):
+        fail(f"phase 18: {tag}: the placed scales differ")
+    if not (torch.equal(placed.ids, twin.ids) and placed.names == twin.names):
+        fail(f"phase 18: {tag}: ids or names differ from the twin's")
+    counts = [sh.num_valid for sh in placed.placement.shards]
+    c = placed.placement.rows_per_shard
+    if counts != [max(0, min(twin.num_valid - j * c, c))
+                  for j in range(len(counts))]:
+        fail(f"phase 18: {tag}: shard valid counts {counts}")
+    tsidx = twin.to_sharded(mesh=mesh)
+    launches = 0
+    for qb in batches:
+        (ps, pi), got = count_launches(lambda: placed.search(qb))
+        (ts, ti), want = count_launches(
+            lambda: twin.search_sharded(tsidx, twin._match_query_dim(qb)))
+        pieces = -(-qb.shape[0] // placed.cfg.search.query_chunk)
+        if got != want or got[kernel] < 8 * pieces:
+            fail(f"phase 18: {tag}: B={qb.shape[0]} launches {got}, the "
+                 f"twin's {want}")
+        if not (np.array_equal(pi, ti) and np.array_equal(ps, ts)):
+            fail(f"phase 18: {tag}: B={qb.shape[0]} answers differ from the "
+                 f"twin's")
+        launches += got[kernel]
+    return launches
+
+
+def phase18(card, ox, ex, streams) -> dict:
+    """Mutating a placed store where it lies (ROADMAP Queue 1 item 3), right
+    after phase 17 on its streams. (a) Phase 9's store (105,133 x 2048 bf16
+    in 106,496 padded rows) loaded placed on 8 shards of cuda:0 and, the
+    twin, unplaced; with ``Index.gather`` refusing on the placed indexes:
+    ``remove`` of PLACED_REMOVE names (every shard, the tail included),
+    ``add`` of PLACED_ADD seeded unit rows, ``merge_from`` a PLACED_DONOR-row
+    donor loaded placed. After each: the parts equal the twin's store bit
+    for bit, ids and names equal, search at B = 1, 8, 128 equal to the
+    twin's through the same 8-shard route bit for bit (K1 8 times a piece);
+    the device memory's peak growth over each placed operation at most one
+    shard's bytes + PLACED_SLACK (a gather takes the whole store). Each
+    added row must be its own top-1 (within BF16_TIE) and no removed name
+    may come back. (b) Phase 17's int8 and int4 streams (1M x 512) loaded
+    placed and unplaced, with phase 3's extractor ``ex``: ``remove`` of
+    PLACED_INT_REMOVE names, ``add`` of PLACED_ADD rows, K2/K3 answers
+    equal to the twin's bit for bit.
+    add_s, remove_s and merge_s of both are printed, not bound. Returns the
+    placed searches' K1-K3 launches (``launches_placed``)."""
+    import numpy as np
+    import torch
+    from instsearch_torch.index import Index
+    from instsearch_torch.parallel import make_mesh
+    t_phase = time.perf_counter()
+    idx, _, q, _, _, _ = ox
+    mesh = make_mesh(8, devices=["cuda:0"] * 8)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    launches = {}
+
+    def unit(n, d):
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        return x / x.norm(dim=1, keepdim=True)
+
+    def batches(pool):
+        return [pool[:b] for b in PLACED_BATCHES]
+
+    placed = Index.load(streams["ox"], extractor=idx.extractor, mesh=mesh)
+    twin = Index.load(streams["ox"], extractor=idx.extractor,
+                      device="cuda:0")
+    shard = (placed.placement.shards[0].x.numel()
+             * placed.placement.shards[0].x.element_size())
+    pool = q.repeat(-(-128 // q.shape[0]), 1)[:128]
+    removed = spread_names(placed, PLACED_REMOVE, 18)
+    removed_rows = twin.reconstruct(names=removed[:128])
+    added = unit(PLACED_ADD, placed.dim)
+    added_names = [f"placed_add{i}" for i in range(PLACED_ADD)]
+    donor_rows = unit(PLACED_DONOR, placed.dim)
+    donor_path = os.path.join(os.path.dirname(streams["ox"]), "donor")
+    Index.from_descriptors(donor_rows, [f"placed_donor{i}" for i in range(
+        PLACED_DONOR)], placed.cfg, device="cuda:0").save(donor_path)
+    donor = Index.load(donor_path, mesh=mesh)
+    twin_donor = Index.load(donor_path, device="cuda:0")
+    ops = (("remove", lambda i: i.remove(removed)),
+           ("add", lambda i: i.add(descriptors=added, names=added_names)),
+           ("merge", lambda i: i.merge_from(
+               donor if i is placed else twin_donor)))
+    res, n1 = {}, 0
+    for op, fn in ops:
+        with refusing_gather(placed, donor):
+            got, sec, grown = device_growth(lambda: fn(placed))
+        want, twin_sec = timed(lambda: fn(twin))
+        if got != want or not placed.placed or not donor.placed:
+            fail(f"phase 18a: {op} gave {got} (placed: {placed.placed}), "
+                 f"the twin {want}")
+        if grown > shard + PLACED_SLACK:
+            fail(f"phase 18a: the placed {op} grew device memory by {grown} "
+                 f"bytes, above one shard ({shard}) + {PLACED_SLACK}")
+        with refusing_gather(placed):
+            n1 += placed_against_twin(f"18a {op}", placed, twin, mesh,
+                                      batches(pool), "topk_matmul")
+        res[op] = {"placed_s": sec, "twin_s": twin_sec,
+                   "placed_peak_growth_bytes": grown}
+    with refusing_gather(placed):
+        (s, i), _ = count_launches(lambda: placed.search(removed_rows))
+        names = {placed.name_of(j) for j in i.reshape(-1) if j >= 0}
+        if names & set(removed):
+            fail("phase 18a: a removed name came back")
+        (s, i), _ = count_launches(lambda: placed.search(added))
+    own = placed.ids[placed.num_valid - PLACED_DONOR - PLACED_ADD:
+                     placed.num_valid - PLACED_DONOR].cpu().numpy()
+    hit = i == own[:, None]
+    if not (hit.any(axis=1) & (s[:, 0] - np.where(hit, s, -np.inf).max(
+            axis=1) <= BF16_TIE)).all():
+        fail("phase 18a: an added row is not its own top-1")
+    launches["topk_matmul"] = n1
+    report(card, phase=18, part="a", rows=placed.num_valid,
+           padded_rows=placed.n_pad, shards=8, shard_bytes=shard,
+           store_bytes=shard * 8, removed=len(removed), added=PLACED_ADD,
+           merged=PLACED_DONOR, placed_gathered=False,
+           add_s=res["add"]["placed_s"], remove_s=res["remove"]["placed_s"],
+           merge_s=res["merge"]["placed_s"],
+           twin_add_s=res["add"]["twin_s"],
+           twin_remove_s=res["remove"]["twin_s"],
+           twin_merge_s=res["merge"]["twin_s"],
+           peak_growth_bytes={op: r["placed_peak_growth_bytes"]
+                              for op, r in res.items()},
+           peak_growth_limit_bytes=shard + PLACED_SLACK,
+           equal_to_twin=True, launches=n1)
+    del placed, twin, donor, twin_donor
+    torch.cuda.empty_cache()
+
+    for kind, kernel in (("int8", "topk_matmul_int8"),
+                         ("int4", "topk_matmul_int4")):
+        placed = Index.load(streams[kind], extractor=ex, mesh=mesh)
+        twin = Index.load(streams[kind], extractor=ex, device="cuda:0")
+        removed = spread_names(placed, PLACED_INT_REMOVE, 180)
+        added = unit(PLACED_ADD, placed.dim)
+        names = [f"placed_{kind}_add{i}" for i in range(PLACED_ADD)]
+        out = {}
+        for op, fn in (("remove", lambda i: i.remove(removed)),
+                       ("add", lambda i: i.add(descriptors=added,
+                                               names=names))):
+            with refusing_gather(placed):
+                _, sec, grown = device_growth(lambda: fn(placed))
+            _, twin_sec = timed(lambda: fn(twin))
+            out[op] = (sec, twin_sec, grown)
+        pool = torch.cat([added[:64], torch.as_tensor(twin.reconstruct(
+            names=twin.names[:64]), device="cuda")])
+        with refusing_gather(placed):
+            n = placed_against_twin(f"18b {kind}", placed, twin, mesh,
+                                    batches(pool), kernel)
+        launches[kernel] = n
+        report(card, phase=18, part="b", store=kind, rows=placed.num_valid,
+               removed=len(removed), added=PLACED_ADD,
+               remove_s=out["remove"][0], add_s=out["add"][0],
+               twin_remove_s=out["remove"][1], twin_add_s=out["add"][1],
+               peak_growth_bytes={op: v[2] for op, v in out.items()},
+               placed_gathered=False, equal_to_twin=True, launches=n)
+        del placed, twin
+        torch.cuda.empty_cache()
+    report(card, phase=18, seconds=time.perf_counter() - t_phase,
            launches=launches)
     return {"launches": launches}
 
@@ -5669,7 +5896,15 @@ def main() -> int:
                     check_against_plain, check_exact, ox)
     mesh = res15["launches"]
     torch.cuda.empty_cache()
-    persist = phase17(card, ox, corpus, res15["c"]["host_peak"])["launches"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase17_")
+    try:
+        res17 = phase17(card, ox, corpus, res15["c"]["host_peak"], tmp)
+        torch.cuda.empty_cache()
+        placed = phase18(card, ox, corpus[3],
+                         res17["streams"])["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    persist = res17["launches"]
     del corpus, ox
     torch.cuda.empty_cache()
     cli = phase13(card, gen)["launches"]
@@ -5715,7 +5950,8 @@ def main() -> int:
                                   + sharded.get(name, 0) + subset[name]
                                   + quality.get(name, 0) + cli.get(name, 0)
                                   + train.get(name, 0) + mesh.get(name, 0)
-                                  + persist.get(name, 0)),
+                                  + persist.get(name, 0)
+                                  + placed.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
@@ -5724,6 +5960,7 @@ def main() -> int:
                      "launches_train": train.get(name, 0),
                      "launches_mesh": mesh.get(name, 0),
                      "launches_persist": persist.get(name, 0),
+                     "launches_placed": placed.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

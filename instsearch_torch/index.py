@@ -83,13 +83,26 @@ store, its row scales and regional store go to its device, held by one
 attributes stay None. Serving (``search``, ``query``, ``search_range``,
 ``knn_graph``, ``find_duplicates``, ``full_ranking``, ``reconstruct``,
 ``evaluate``, ``stats``, ``save``) runs through that placement
-(``to_sharded`` with the same mesh reuses its tensors). A whole-store
-operation (``add``, ``remove``, ``merge_from``, the views' fits,
-``augment_database``, ``attach_regional_store``, a search through an
-armed candidate tier, ``to_sharded`` onto another mesh) first calls
-``Index.gather``, which joins the shards onto the mesh's first device: the
-index is an unplaced one from then on, and that device must hold the
-whole store.
+(``to_sharded`` with the same mesh reuses its tensors). The placed store is
+mutated where it lies, as the reference's sharded arrays are: ``add``
+within capacity, ``remove``, ``merge_from``, the views absorbing both, and
+the views' fits (``build_pq``, ``build_ivf``, ``build_ivfpq``,
+``fit_local_whitening``) read and write rows through the placement
+(``ShardedIndex.read_rows``/``write_rows``), each shard writing only its
+own rows, scales, regional rows and valid count; across processes only the
+rows that move cross (one ``all_gather``), and the fits, which read every
+row, gather the store first. The views stay whole on the mesh's first
+device, where ``load(mesh=)`` puts them. Three operations still call
+``Index.gather``, which joins the shards onto the mesh's first device
+(the index is an unplaced one from then on, and that device must hold the
+whole store), because the reference's own result leaves the placement
+there too: ``augment_database`` (the reference's store comes back
+replicated), ``attach_regional_store`` (its regional store lands on one
+device) and an ``add`` past capacity (its re-pad lands on one device;
+across processes it raises instead). A search through an armed candidate
+tier (IVF, PQ, IVF-PQ) gathers too: whether the reference's store moves
+there is still open (ROADMAP Queue 1). So does ``to_sharded`` onto
+another mesh.
 
 Persistence. ``save`` writes a directory: ``meta.json`` (names, config,
 ``format``, the arrays' dtypes, the views present), the views' own
@@ -333,7 +346,9 @@ def attach_regional_store(idx: "Index", regional, chunk: int = 1 << 16
     move and convert ``chunk`` at a time, so the store is never built
     through a whole host or f32 copy. Records the R-MAC grid's geometry
     (spatial verification) when the extractor's grid has R regions and the
-    store is not the exact-refine copy."""
+    store is not the exact-refine copy. A placed index (``load(mesh=)``)
+    is gathered first: the reference's regional store lands on one device
+    too."""
     idx.gather()
     reg = torch.as_tensor(regional)
     n, r, d = reg.shape
@@ -516,9 +531,13 @@ class Index:
         """Join a placed store (``load(mesh=)``) onto its mesh's first
         device: every shard's rows, row scales and regional store (through
         the mesh's group when it has one, so every process gets the whole
-        store). The index is an unplaced one from then on. The whole-store
-        operations call it first; serving never does. A no-op on an
-        unplaced index."""
+        store). The index is an unplaced one from then on. Serving and the
+        mutations within capacity never call it (they run on the shards in
+        place); ``augment_database``, ``attach_regional_store`` and an
+        ``add`` past capacity do, since the reference's own results leave
+        its placement there, as does a search through an armed candidate
+        tier and, across processes, a view's fit. A no-op on an unplaced
+        index."""
         if not self.placed:
             return
         logging.getLogger("instsearch.index").info(
@@ -530,6 +549,61 @@ class Index:
         self.placement = None
         for name, t in joined.items():
             setattr(self, name, t)
+
+    def _fit_prologue(self) -> None:
+        """Before a view's fit: a store placed across processes is gathered
+        (the fit reads every row); a store placed in one process is read
+        through its placement."""
+        if self.placed and self.placement.mesh.group is not None:
+            self.gather()
+
+    def _replace_placement(self) -> None:
+        """After a mutation of a placed store: the placement anew over the
+        same parts (nothing copied) with the index's ids, so every shard's
+        valid count is the new one, and the views' current state (the
+        local-whitening rows cut again, the IVF-PQ view attached again)."""
+        p = self.placement
+        self.placement = self._sharded_view(
+            p.mesh, {name: self._parts(name) for name in _STORES},
+            p.use_pallas)
+
+    def _stored_rows(self, pos: torch.Tensor):
+        """Stored rows at padded positions ``pos [...]`` (non-negative),
+        verbatim in the store's dtype -> ``(rows [..., W], row scales [...]
+        f32 or None)`` on the index's device; a placed store's through its
+        placement (``ShardedIndex.read_rows``)."""
+        if not self.placed:
+            p = pos.long()
+            return (self.descriptors[p],
+                    None if self.scales is None else self.scales[0][p])
+        v = self.placement.read_rows(pos.reshape(-1), ("x", "scales"))
+        sc = v.get("scales")
+        return (v["x"].reshape(tuple(pos.shape) + tuple(v["x"].shape[1:])),
+                None if sc is None else sc.reshape(pos.shape))
+
+    def _rows_f32_at(self, pos: torch.Tensor) -> torch.Tensor:
+        """Stored rows at padded positions ``pos [n]``, dequantized to f32
+        ``[n, W]`` as every search stage gathers them; a placed store's
+        through its placement."""
+        if self.placed:
+            return self.placement.rows_f32(pos)
+        return _gather_rows_f32(self.descriptors, pos, self.scales,
+                                int4=self.is_int4)
+
+    def _regional_f32(self, start: int, count: int) -> torch.Tensor:
+        """Regional rows ``[start, start + count)``, dequantized to f32
+        ``[count, R, D]``; a placed store's through its placement."""
+        if self.placed:
+            v = self.placement.read_rows(
+                torch.arange(start, start + count, device=self.device),
+                ("regional", "regional_scales"))
+            reg, sc = v["regional"], v.get("regional_scales")
+        else:
+            reg = self.regional[start:start + count]
+            sc = (None if self.regional_scales is None
+                  else self.regional_scales[start:start + count])
+        reg = reg.float()
+        return reg if sc is None else reg * sc[:, :, None]
 
     @property
     def has_refine_store(self) -> bool:
@@ -828,8 +902,10 @@ class Index:
         pq_depth=0)`` keeps the exact path. ``opq_iters > 0`` also learns
         an OPQ rotation, ``anisotropic_t`` the score-aware codes instead
         (``ops/pq.py::fit_apq``). The fit and the encode run on the index's
-        device. Returns the PQView."""
-        self.gather()
+        device; a placed store's rows are read through its placement, which
+        stays (across processes the store is gathered first). Returns the
+        PQView."""
+        self._fit_prologue()
         self._reject_l2("build_pq")
         if self.ivfpq is not None:
             raise ValueError(
@@ -859,8 +935,10 @@ class Index:
         ``search_cfg.replace(ivf_nprobe=0)`` keeps the exact path.
         Approximate: measure with ``ivf.measure_recall``. ``add()`` and
         ``remove()`` are absorbed, ``augment_database()`` drops the view.
-        Fitted on the index's device. Returns the IVFIndex."""
-        self.gather()
+        Fitted on the index's device; a placed store's rows are read through
+        its placement, which stays (across processes the store is gathered
+        first). Returns the IVFIndex."""
+        self._fit_prologue()
         self._reject_l2("build_ivf")
         if self.is_int4:
             raise ValueError(
@@ -896,9 +974,10 @@ class Index:
         IVF and PQ views. ``opq_iters > 0`` learns an OPQ rotation in
         residual space, ``anisotropic_t`` score-aware residual codes.
         ``add()`` and ``remove()`` are absorbed, ``augment_database()``
-        drops the view. Fitted on the index's device. Returns the
-        IVFPQView."""
-        self.gather()
+        drops the view. Fitted on the index's device; a placed store's rows
+        are read through its placement, which stays (across processes the
+        store is gathered first). Returns the IVFPQView."""
+        self._fit_prologue()
         self._reject_l2("build_ivfpq")
         if self.ivf is not None or self.pq is not None:
             raise ValueError(
@@ -912,6 +991,8 @@ class Index:
             opq_iters=opq_iters, anisotropic_t=anisotropic_t)
         self.cfg = self.cfg.replace(
             search=self.cfg.search.replace(ivfpq_nprobe=self.ivfpq.nprobe))
+        if self.placed:         # the placement carries the view's slices
+            self._replace_placement()
         return self.ivfpq
 
     def _drop_views(self, why: str) -> None:
@@ -948,14 +1029,18 @@ class Index:
         index's device. Arms ``cfg.search.lw_enabled``: the
         top-``rerank_depth`` candidates are then re-scored under each
         candidate's own cluster metric. ``add`` and ``remove`` are absorbed;
-        ``augment_database`` drops the view. Returns the view."""
-        self.gather()
+        ``augment_database`` drops the view. A placed store's rows are read
+        through its placement, which stays (across processes the store is
+        gathered first). Returns the view."""
+        self._fit_prologue()
         self._reject_l2("fit_local_whitening")
         self.lw = LocalWhiteningView.from_index(
             self, n_clusters=n_clusters, dim=dim, tau=tau, iters=iters,
             seed=seed)
         self.cfg = self.cfg.replace(
             search=self.cfg.search.replace(lw_enabled=True))
+        if self.placed:         # the placement carries the whitened rows
+            self._replace_placement()
         return self.lw
 
     def _query_rows(self, start: int, chunk: int) -> torch.Tensor:
@@ -979,7 +1064,9 @@ class Index:
         (the rows changed). ``n``/``alpha`` default to ``cfg.index.dba_n``
         (10 when 0) and ``dba_alpha``. ``mesh`` selects the neighbours through
         ``to_sharded(mesh)`` (``expand_queries(include_query=False)``), with
-        the same result. Rows added later are not augmented."""
+        the same result. Rows added later are not augmented. A placed store
+        (``load(mesh=)``) is gathered first: the reference's augmented store
+        comes back replicated, not sharded."""
         self.gather()
         self._reject_l2("augment_database")
         n = n if n is not None else (self.cfg.index.dba_n or 10)
@@ -1690,12 +1777,7 @@ class Index:
         pos = self._positions(names=names, ids=ids)
         if not pos:
             return np.zeros((0, self.user_dim), np.float32)
-        pos = torch.tensor(pos, device=self.device)
-        if self.placed:
-            rows = self.placement.rows_f32(pos)
-        else:
-            rows = _gather_rows_f32(self.descriptors, pos, self.scales,
-                                    int4=self.is_int4)
+        rows = self._rows_f32_at(torch.tensor(pos, device=self.device))
         return rows[:, :self.user_dim].cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -1714,16 +1796,20 @@ class Index:
         ``from_descriptors`` to ``max(capacity, 2 N_pad, n_valid + n)``
         (written back into ``cfg``; every int8/int4 row is quantized again,
         as the reference does), which makes existing subsets stale. An
-        exact-refine store grows from the rows; the PQ and local-whitening
-        views absorb them.
-        Returns the number of rows added."""
-        self.gather()
+        exact-refine store grows from the rows; the views absorb them.
+        On a placed store (``load(mesh=)``) the rows, scales and regional
+        rows within capacity go to the shards that hold their positions
+        (``ShardedIndex.write_rows``; across processes each process writes
+        its own), the placement staying; past capacity the store is gathered
+        and re-padded on the mesh's first device, as the reference's re-pad
+        lands on one device, and across processes that raises
+        ``ValueError``. Returns the number of rows added."""
         reg_new = None
         if paths is not None:
             if self.extractor is None:
                 raise ValueError("index has no extractor attached")
             quarantine: list[str] = []
-            if self.regional is not None and not self.has_refine_store:
+            if self.has_regional and not self.has_refine_store:
                 descriptors, reg_new, kept = \
                     self.extractor.extract_paths_with_regional(paths,
                                                                quarantine)
@@ -1753,7 +1839,7 @@ class Index:
             raise ValueError(f"{x.shape[0]} rows for {n_new} names")
         if n_new == 0:
             return 0
-        if self.regional is not None and reg_new is None:
+        if self.has_regional and reg_new is None:
             if self.has_refine_store:
                 reg_new = x[:, None, :]
             elif _regional_rows is not None:
@@ -1764,13 +1850,21 @@ class Index:
 
         next_id = max(len(self.names),
                       int(self.ids.max().item()) + 1 if len(self.ids) else 0)
-        start, n_pad = self.num_valid, self.descriptors.shape[0]
+        start, n_pad = self.num_valid, self.n_pad
         new_ids = torch.arange(next_id, next_id + n_new, dtype=torch.int32,
                                device=self.device)
         if start + n_new > n_pad:
+            if self.placed and self.placement.mesh.group is not None:
+                raise ValueError(
+                    f"capacity {n_pad} exceeded ({start} + {n_new}): a store "
+                    f"placed across processes cannot re-pad, which would "
+                    f"join the whole store on every process; save it and "
+                    f"load it into a larger capacity")
             logging.getLogger("instsearch.index").warning(
-                "capacity %d exceeded (%d + %d); re-padding", n_pad, start,
-                n_new)
+                "capacity %d exceeded (%d + %d); re-padding%s", n_pad, start,
+                n_new, " (the placed store gathered first)" if self.placed
+                else "")
+            self.gather()
             merged = torch.cat([self._rows_f32_chunk(0, n_pad)[:start], x])
             grown = self.cfg.replace(index=self.cfg.index.replace(
                 capacity=max(self.cfg.index.capacity, 2 * n_pad,
@@ -1796,8 +1890,13 @@ class Index:
 
         rows = torch.nn.functional.pad(x, (0, self.store_dim - self.dim))
         quantize = _QUANTIZE.get(self.cfg.index.dtype)
-        if quantize is not None:
-            qr = quantize(rows)
+        qr = quantize(rows) if quantize is not None else None
+        if self.placed:
+            self.placement.write_rows(
+                torch.arange(start, start + n_new, device=self.device),
+                {"x": rows} if qr is None else
+                {"x": qr.values, "scales": qr.scales.reshape(-1)})
+        elif qr is not None:
             self.descriptors[start:start + n_new] = qr.values
             self.scales[:, start:start + n_new] = qr.scales
         else:
@@ -1805,9 +1904,11 @@ class Index:
                 self.descriptors.dtype)
         self.ids[start:start + n_new] = new_ids
         self.names = list(self.names) + list(names)
-        if self.regional is not None:
+        if self.has_regional:
             self._write_regional(start, reg_new)
         self._absorb_views(start, n_new)
+        if self.placed:
+            self._replace_placement()
         return n_new
 
     def _absorb_views(self, start: int, n_new: int) -> None:
@@ -1816,7 +1917,7 @@ class Index:
         (frozen-codebook codes at their positions), the IVF-PQ view
         (frozen-quantizer residual codes into its spill) and the
         local-whitening view (rows routed and whitened under the frozen
-        bank)."""
+        bank). A placed store's rows are read through its placement."""
         if self.ivf is not None:
             self.ivf.absorb_add(self, start, n_new)
         if self.pq is not None:
@@ -1829,11 +1930,12 @@ class Index:
     def _write_regional(self, start: int, reg_new,
                         n_pad_new: "int | None" = None) -> None:
         """Write new rows ``[n, R, D]`` into the regional store at
-        ``start``, quantized per (row, region) for an int8 store; the store
-        is first padded with zero rows to ``n_pad_new`` when the main store
-        was re-padded."""
-        old = self.regional.shape[0]
-        if n_pad_new is not None and n_pad_new != old:
+        ``start``, quantized per (row, region) for an int8 store (a placed
+        store's to the shards that hold them); the store is first padded
+        with zero rows to ``n_pad_new`` when the main store was
+        re-padded."""
+        if n_pad_new is not None and n_pad_new != self.regional.shape[0]:
+            old = self.regional.shape[0]
             grown = self.regional.new_zeros((n_pad_new,)
                                             + self.regional.shape[1:])
             grown[:old] = self.regional
@@ -1845,12 +1947,19 @@ class Index:
                 self.regional_scales = sc
         reg = torch.as_tensor(reg_new, device=self.device).float()
         n, r, d = reg.shape
-        if self.regional.dtype == torch.int8:
+        store = self._parts("regional")[0] if self.placed else self.regional
+        if store.dtype == torch.int8:
             qr = quantize_rows(reg.reshape(-1, d))
-            self.regional[start:start + n] = qr.values.reshape(n, r, d)
-            self.regional_scales[start:start + n] = qr.scales.reshape(n, r)
+            new = {"regional": qr.values.reshape(n, r, d),
+                   "regional_scales": qr.scales.reshape(n, r)}
         else:
-            self.regional[start:start + n] = reg.to(self.regional.dtype)
+            new = {"regional": reg.to(store.dtype)}
+        if self.placed:
+            self.placement.write_rows(
+                torch.arange(start, start + n, device=self.device), new)
+            return
+        for name, rows in new.items():
+            getattr(self, name)[start:start + n] = rows
 
     def remove(self, names: Sequence[str]) -> int:
         """Remove indexed images by name, in place. Valid rows stay a
@@ -1864,10 +1973,14 @@ class Index:
         IVF-PQ views remap their stored positions (a removed row's slot
         becomes -1, masked like padding).
         ``names`` follow the moves and existing subsets go stale. Unknown
-        names raise ``KeyError`` and leave the index unchanged. A live
+        names raise ``KeyError`` and leave the index unchanged. On a placed
+        store (``load(mesh=)``) the moves run on the shards (every moved
+        row read by ``ShardedIndex.read_rows``, then each written to its
+        hole by ``write_rows``, wherever the two lie; across processes the
+        moved rows cross by one ``all_gather`` of their bytes), and the
+        placement takes the new ids and valid counts. A live
         ``to_sharded()`` view keeps its old shards: make it again. Returns
         the number of rows removed."""
-        self.gather()
         pos_by_name = {nm: i for i, nm in enumerate(self.names)}
         missing = [nm for nm in names if nm not in pos_by_name]
         if missing:
@@ -1884,17 +1997,22 @@ class Index:
         if holes:
             src = torch.tensor(tail_survivors, device=self.device)
             dst = torch.tensor(holes, device=self.device)
-            for t in (self.descriptors, self.ids, self.regional,
-                      self.regional_scales):
-                if t is not None:
-                    t[dst] = t[src]
-            if self.scales is not None:
-                self.scales[:, dst] = self.scales[:, src]
+            if self.placed:     # every moved row read before any write
+                self.placement.write_rows(dst,
+                                          self.placement.read_rows(src))
+                self.ids[dst] = self.ids[src]
+            else:
+                for t in (self.descriptors, self.ids, self.regional,
+                          self.regional_scales):
+                    if t is not None:
+                        t[dst] = t[src]
+                if self.scales is not None:
+                    self.scales[:, dst] = self.scales[:, src]
             for view in (self.pq, self.lw):
                 if view is not None:
                     view.absorb_remove(src, dst)
         if self.ivf is not None or self.ivfpq is not None:
-            pos_map = np.arange(self.descriptors.shape[0], dtype=np.int32)
+            pos_map = np.arange(self.n_pad, dtype=np.int32)
             pos_map[sorted(rem)] = -1
             pos_map[tail_survivors] = holes
             pos_map = torch.as_tensor(pos_map, device=self.device)
@@ -1907,21 +2025,28 @@ class Index:
         self.names = list(names_arr[:new_valid])
         self._name_by_id_len = -1
         self._layout_gen += 1
+        if self.placed:
+            self._replace_placement()
         COUNTERS.add("images_removed", m)
         return m
+
+    # donor rows merge_from reads and appends at a time into a placed store
+    _MERGE_PIECE = 1 << 16
 
     def merge_from(self, other: "Index") -> int:
         """Append every valid row of ``other`` through :meth:`add` (fresh ids
         in this index's id space, this store's quantization, capacity
-        growth, the PQ view absorbing them), with the donor's dequantized
+        growth, the views absorbing them), with the donor's dequantized
         regional rows. Refused: the index itself, another metric, another
         dim, another ``cfg.extract``, extractors whose weights or whitening
         differ (``_extractor_fingerprint``, when both carry one), shared
-        names, and regional stores of another kind or region count. A
-        placed index or donor (``load(mesh=)``) is gathered first. Returns
+        names, and regional stores of another kind or region count.
+        Neither index is gathered: a placed donor's rows are read through
+        its placement (across processes by one ``all_gather`` of the rows
+        each process needs), and into a placed store within its capacity
+        they are appended ``_MERGE_PIECE`` rows at a time through the
+        placed ``add`` (past capacity, one ``add``, which re-pads). Returns
         the number of rows merged."""
-        self.gather()
-        other.gather()
         if other is self:
             raise ValueError("cannot merge an index into itself")
         if other.cfg.index.metric != self.cfg.index.metric:
@@ -1948,30 +2073,31 @@ class Index:
             raise ValueError(
                 f"{len(dup)} duplicate names (e.g. {sorted(dup)[:3]}) — "
                 f"names must be unique across the merged index")
-        self_rerank = self.regional is not None and not self.has_refine_store
-        other_rerank = (other.regional is not None
-                        and not other.has_refine_store)
+        self_rerank = self.has_regional and not self.has_refine_store
+        other_rerank = other.has_regional and not other.has_refine_store
         if (self_rerank != other_rerank
                 or self.has_refine_store != other.has_refine_store):
             raise ValueError(
                 "regional-store kinds differ (R-MAC re-rank vs exact-refine "
                 "vs none) — both sides must match")
-        if self_rerank and self.regional.shape[1] != other.regional.shape[1]:
+        if (self_rerank
+                and self.regions_per_image != other.regions_per_image):
             raise ValueError(
-                f"regional region counts differ: {self.regional.shape[1]} "
-                f"vs {other.regional.shape[1]}")
+                f"regional region counts differ: {self.regions_per_image} "
+                f"vs {other.regions_per_image}")
         nvb = other.num_valid
         if nvb == 0:
             return 0
-        rows = other._rows_f32_chunk(0, other.descriptors.shape[0])[:nvb]
-        reg_rows = None
-        if self_rerank:
-            reg_rows = other.regional[:nvb].float()
-            if other.regional_scales is not None:
-                reg_rows = reg_rows * other.regional_scales[:nvb, :, None]
-        n = self.add(descriptors=rows.to(self.device), names=other.names,
-                     _regional_rows=None if reg_rows is None
-                     else reg_rows.to(self.device))
+        piece = (self._MERGE_PIECE if self.placed
+                 and self.num_valid + nvb <= self.n_pad else nvb)
+        n = 0
+        for s in range(0, nvb, piece):
+            cnt = min(piece, nvb - s)
+            rows = other._rows_f32_chunk(s, cnt)
+            n += self.add(descriptors=rows.to(self.device),
+                          names=other.names[s:s + cnt],
+                          _regional_rows=other._regional_f32(s, cnt).to(
+                              self.device) if self_rerank else None)
         self.quarantined = list(self.quarantined) + list(other.quarantined)
         # the donor's rows join the always-scanned spill of an IVF or IVF-PQ
         # view, which moves the scan toward brute force: warn, as the
@@ -2305,7 +2431,9 @@ class Index:
         launch the kernels. On the store's own device the shards are views
         of it. ``mesh`` may be a 2-D mesh (its ``'shard'`` axis). A placed
         store (``load(mesh=)``) with the same mesh, or none, gives a view
-        of its parts themselves, uncopied; another mesh gathers it first."""
+        of its parts themselves, uncopied, as they stand after any mutation
+        (with the current ids and valid counts); another mesh gathers it
+        first."""
         from .parallel import as_shard_mesh, make_mesh
         p = self.placement
         if p is not None and (mesh is None or as_shard_mesh(mesh) == p.mesh):

@@ -71,6 +71,8 @@ from ..utils.chunking import run_chunked
 from .mesh import ShardMesh, as_shard_mesh, make_mesh, replicate, shard_rows
 
 _NEG = float("-inf")
+# the per-row stores of a shard (``Shard`` fields) that mutations move
+_ROW_FIELDS = ("x", "scales", "regional", "regional_scales")
 
 
 class Shard(NamedTuple):
@@ -736,27 +738,98 @@ class ShardedIndex:
                                       replicate(self.mesh, qq),
                                       int4=self.int4), q)
 
-    def rows_f32(self, pos: torch.Tensor) -> torch.Tensor:
-        """Stored rows at global positions ``pos`` (held by this process's
-        shards), dequantized to f32 as every stage gathers them -> ``[n,
-        W]`` on the first device."""
+    def _local_rows(self, pos: torch.Tensor):
+        """``(shard, indices into pos, its local rows)`` for each local
+        shard holding some of the global positions ``pos``."""
         c, first = self.rows_per_shard, self.mesh.first_shard
-        pos = pos.to(self.mesh.devices[0]).long()
-        out = torch.zeros((pos.shape[0], self.store_dim), dtype=torch.float32,
-                          device=pos.device)
-        held = torch.zeros_like(pos, dtype=torch.bool)
         for j, sh in enumerate(self.shards):
             loc = pos - (first + j) * c
-            inr = (loc >= 0) & (loc < c)
-            sel = inr.nonzero()[:, 0]
+            sel = ((loc >= 0) & (loc < c)).nonzero()[:, 0]
             if len(sel):
-                out[sel] = gather_rows_f32(sh.x, loc[sel].to(sh.x.device),
-                                           sh.scales,
-                                           int4=self.int4).to(out.device)
-                held |= inr
-        if not bool(held.all()):
-            raise ValueError("rows held by another process's shards")
-        return out
+                yield sh, sel, loc[sel].to(sh.x.device)
+
+    def read_rows(self, pos: torch.Tensor, fields=_ROW_FIELDS) -> dict:
+        """The stored rows at global positions ``pos [n]``, verbatim in the
+        store's own dtype: ``fields`` (``Shard`` names: ``x``, ``scales``,
+        ``regional``, ``regional_scales``; absent stores left out) -> ``[n,
+        ...]`` tensors on the first device (``scales`` ``[n]``). With a
+        process group it is collective (every process calls it with the
+        same positions): each process reads the rows its own shards hold,
+        and one ``all_gather`` of those rows' bytes, padded to the most any
+        process holds, brings every process all of them. Rows are
+        process-major, so every process knows each row's owner; the bytes
+        cross as ``uint8``, so no value (a -0.0, an int8 row) passes
+        through arithmetic."""
+        dev = self.mesh.devices[0]
+        pos = pos.to(dev).long().reshape(-1)
+        specs = {}           # field -> (row shape, dtype, elements a row)
+        for f in fields:
+            part = getattr(self.shards[0], f)
+            if part is not None:
+                tail = () if f == "scales" else tuple(part.shape[1:])
+                specs[f] = (tail, part.dtype, int(np.prod(tail)))
+        owner = pos // (self.rows_per_shard * self.mesh.num_local)
+        mine = (pos if self.mesh.group is None
+                else pos[owner == self.mesh.rank])
+        out = {f: torch.empty((len(mine),) + tail, dtype=dt, device=dev)
+               for f, (tail, dt, _) in specs.items()}
+        held = 0
+        for sh, sel, loc in self._local_rows(mine):
+            held += len(sel)
+            for f, t in out.items():
+                part = getattr(sh, f)
+                t[sel.to(dev)] = (part[0, loc] if f == "scales"
+                                  else part[loc]).to(dev)
+        if held != len(mine):
+            raise ValueError(f"{len(mine) - held} of the positions lie past "
+                             f"the store's {self.num_rows} rows")
+        if self.mesh.group is None or not len(pos):
+            return out
+        import torch.distributed as dist
+        world = self.mesh.world
+        counts = torch.bincount(owner, minlength=world).tolist()
+        packed = torch.cat([out[f].reshape(len(mine), e).view(torch.uint8)
+                            for f, (_, _, e) in specs.items()], 1)
+        width = max(counts)
+        send = packed.new_zeros((width, packed.shape[1]))
+        send[:len(mine)] = packed
+        recv = [torch.empty_like(send) for _ in range(world)]
+        dist.all_gather(recv, send, group=self.mesh.group)
+        full = packed.new_empty((len(pos), packed.shape[1]))
+        for r, n in enumerate(counts):
+            if n:
+                full[(owner == r).nonzero()[:, 0]] = recv[r][:n]
+        res, col = {}, 0
+        for f, (tail, dt, e) in specs.items():
+            nb = e * out[f].element_size()
+            res[f] = full[:, col:col + nb].contiguous().view(dt).reshape(
+                (len(pos),) + tail)
+            col += nb
+        return res
+
+    def write_rows(self, pos: torch.Tensor, rows: dict) -> None:
+        """Write ``rows`` (``Shard`` field -> ``[n, ...]`` values in the
+        store's dtype, ``scales`` ``[n]``) at global positions ``pos [n]``,
+        in place: the rows this process's shards hold go to their devices,
+        the others are dropped (another process writes them)."""
+        pos = pos.to(self.mesh.devices[0]).long().reshape(-1)
+        for sh, sel, loc in self._local_rows(pos):
+            for f, v in rows.items():
+                part = getattr(sh, f)
+                vals = v[sel.to(v.device)].to(part.device, part.dtype)
+                if f == "scales":
+                    part[0, loc] = vals
+                else:
+                    part[loc] = vals
+
+    def rows_f32(self, pos: torch.Tensor) -> torch.Tensor:
+        """Stored rows at global positions ``pos``, dequantized to f32 as
+        every stage gathers them -> ``[n, W]`` on the first device; read by
+        :meth:`read_rows` (collective with a process group)."""
+        v = self.read_rows(pos, ("x", "scales"))
+        n = v["x"].shape[0]
+        return gather_rows_f32(v["x"], torch.arange(n, device=v["x"].device),
+                               v.get("scales"), int4=self.int4)
 
     def full_ranking(self, queries) -> np.ndarray:
         """``[Q, num_valid]`` dataset ids best-first through the sharded

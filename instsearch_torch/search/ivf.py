@@ -89,17 +89,18 @@ def _spill_slots(spill_pos: np.ndarray) -> np.ndarray:
 
 
 def _fill_buckets(index, pos: torch.Tensor):
-    """The bucketed view gathered from the main store: positions ``pos
-    [...]`` -> (rows ``[..., dim]`` in the store's dtype, zero at -1 slots;
-    row scales ``[...]`` f32 or None)."""
+    """The bucketed view gathered from the main store (a placed store's
+    through its placement, ``Index._stored_rows``): positions ``pos [...]``
+    -> (rows ``[..., dim]`` in the store's dtype, zero at -1 slots; row
+    scales ``[...]`` f32 or None)."""
     valid = pos >= 0
-    safe = pos.clamp(min=0).long()
-    rows = index.descriptors[safe][..., :index.dim]
+    rows, row_scales = index._stored_rows(pos.clamp(min=0))
+    rows = rows[..., :index.dim]
     rows = torch.where(valid[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
     scales = None
-    if index.scales is not None:
-        scales = torch.where(valid, index.scales[0][safe],
+    if row_scales is not None:
+        scales = torch.where(valid, row_scales,
                              torch.zeros((), device=pos.device))
     return rows, scales
 
@@ -252,14 +253,13 @@ class IVFIndex:
         if n_clusters is None:
             n_clusters = max(2, 1 << int(round(np.log2(max(2, np.sqrt(nv))))))
         n_clusters = min(n_clusters, nv)
-        n_pad = index.descriptors.shape[0]
+        n_pad = index.n_pad
         chunk = pick_chunk(n_pad)
         if sample is not None and nv > sample:
             rng = np.random.default_rng(seed)
             take = np.sort(rng.choice(nv, size=sample, replace=False))
-            fit_rows = gather_rows_f32(
-                index.descriptors, torch.as_tensor(take, device=index.device),
-                index.scales, int4=index.is_int4)[:, :index.dim]
+            fit_rows = index._rows_f32_at(
+                torch.as_tensor(take, device=index.device))[:, :index.dim]
             cent, _ = fit_kmeans(fit_rows, n_clusters, iters=iters, seed=seed)
             assignments = torch.cat([
                 assign_clusters(index._rows_f32_chunk(s, chunk), cent,

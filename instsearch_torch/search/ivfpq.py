@@ -266,7 +266,7 @@ class IVFPQView:
         residual codes under the score-aware loss with the original rows as
         the directions (``ops/pq.py::fit_apq``)."""
         return cls._fit(index._rows_f32_chunk, index.num_valid,
-                        index.descriptors.shape[0], index.dim,
+                        index.n_pad, index.dim,
                         device=index.device, n_clusters=n_clusters,
                         nprobe=nprobe, m=m, kmeans_iters=kmeans_iters,
                         pq_iters=pq_iters, seed=seed, cap_factor=cap_factor,
@@ -401,7 +401,7 @@ class IVFPQView:
         least ``n_new`` (at least 8) rows from ``start``, moved back when
         it would run past the store; the new rows' entries go in as a
         power-of-two block, and the spill doubles when it would overflow."""
-        n_pad = index.descriptors.shape[0]
+        n_pad = index.n_pad
         p = max(8, 1 << max(0, n_new - 1).bit_length())
         s0 = 0 if p >= n_pad else min(start, n_pad - p)
         a, codes = self._encode(index._rows_f32_chunk(s0, min(p, n_pad)))
@@ -463,7 +463,9 @@ class IVFPQView:
     def candidates(self, index, queries, depth: int | None = None,
                    nprobe: int | None = None):
         """``(exact scores [B, depth], row POSITIONS [B, depth])``, the
-        cascade stage already re-scored."""
+        cascade stage already re-scored. A placed index is gathered first,
+        as ``Index.search`` gathers it for an armed tier."""
+        index.gather()
         p = min(nprobe or self.nprobe, self.n_clusters)
         q = torch.as_tensor(queries, device=index.device).float()
         if q.ndim == 1:

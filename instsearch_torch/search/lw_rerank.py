@@ -103,8 +103,8 @@ class LocalWhiteningView:
         if n_clusters is None:
             n_clusters = max(2, 1 << int(round(np.log2(max(2, np.sqrt(nv))))))
         n_clusters = min(n_clusters, nv)
-        n_pad = index.descriptors.shape[0]
-        xf = index._rows_f32_chunk(0, n_pad)[:nv]
+        n_pad = index.n_pad
+        xf = index._rows_f32_chunk(0, nv)
         params = fit_local_whitening(xf, n_clusters, dim=dim, tau=tau,
                                      iters=iters, seed=seed)
         store = torch.zeros((n_pad, params.P.shape[1]), dtype=torch.bfloat16,
@@ -126,7 +126,7 @@ class LocalWhiteningView:
         reference's window: the next power of two at least ``n_new`` (at
         least 8) rows from ``start``, moved back when it would run past the
         store, all written, so the stores stay the reference's."""
-        n_pad = index.descriptors.shape[0]
+        n_pad = index.n_pad
         if self.store.shape[0] != n_pad:
             grow = n_pad - self.store.shape[0]
             self.store = torch.cat([self.store, self.store.new_zeros(

@@ -194,7 +194,7 @@ class PQView:
         if nv < 16:
             raise ValueError("PQ needs at least 16 indexed rows")
 
-        n_pad = index.descriptors.shape[0]
+        n_pad = index.n_pad
         chunk = math.gcd(n_pad, max(8, chunk))
         # fit sample: contiguous dequantized slices up to `sample` rows
         fit_rows = min(nv, sample if sample is not None else nv)
@@ -265,7 +265,7 @@ class PQView:
         (at least 8) rows from ``start``, moved back when it would run past
         the store, all re-encoded; rows before ``start`` encode as they
         did, so the codes stay the reference's byte for byte."""
-        n_pad = index.descriptors.shape[0]
+        n_pad = index.n_pad
         if self.packed.shape[0] != n_pad:
             grown = self.packed.new_zeros((n_pad, self.packed.shape[1]))
             grown[:self.packed.shape[0]] = self.packed
@@ -316,7 +316,9 @@ class PQView:
     def candidates(self, index, queries, depth: int | None = None):
         """``(exact scores [B, depth], row positions [B, depth])``, the
         cascade stage already re-scored, on the route of the index's own
-        ``cfg.search.use_pallas``."""
+        ``cfg.search.use_pallas``. A placed index is gathered first, as
+        ``Index.search`` gathers it for an armed tier."""
+        index.gather()
         depth = min(depth or self.depth, self.codes.shape[0])
         q = torch.as_tensor(queries, device=index.device).float()
         if q.ndim == 1:

@@ -198,7 +198,10 @@ class ServeCore:
         """``define_subset``, ``drop_subset``, ``add`` (image paths through
         the index's extractor) or ``remove`` (names); a mutation of the
         store refreshes the subsets and cuts the sharded index again (its
-        shards are views with a fixed count of valid rows each)."""
+        shards are views with a fixed count of valid rows each). A placed
+        index (``Index.load(mesh=)``) is mutated on its shards in place,
+        and the sharded index over the placement's mesh is cut again from
+        the same parts, nothing copied."""
         t0 = time.perf_counter()
         if "define_subset" in req:
             spec = req["define_subset"]

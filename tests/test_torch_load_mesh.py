@@ -7,7 +7,7 @@ all padding) at D = 40, bf16/f32/int8/int4, with an int8 regional store on
 the int8 index. What is checked:
   * placement: each shard's part holds exactly its rows of the unsharded
     load's store, scales and regional store (byte-equal), and no
-    whole-store tensor exists until a whole-store operation;
+    whole-store tensor exists until an operation that gathers;
   * ``to_sharded`` with the same mesh (or none) reuses the parts
     (``data_ptr`` equal);
   * serving on the placed index (``search`` with and without αQE and the
@@ -16,10 +16,12 @@ the int8 index. What is checked:
     equals the unsharded load's and leaves the placement in place: ids and
     counts equal, scores within 1e-6 (a shard's f32 sums may take another
     order than the whole store's, as on every sharded route);
-  * whole-store operations (``add``, ``remove``, ``merge_from``, the PQ,
-    IVF and local-whitening fits, ``augment_database``,
-    ``attach_regional_store``) gather the store and give the unsharded
-    load's result;
+  * ``add`` within capacity, ``remove``, ``merge_from`` and the PQ, IVF
+    and local-whitening fits keep the store placed; ``augment_database``,
+    ``attach_regional_store`` and an ``add`` past capacity gather it (the
+    reference's own results leave its placement there too); each gives
+    the unsharded load's result (tests/test_torch_placed_mutation.py holds
+    the placed mutations in full);
   * a JAX-written npz loaded with a mesh answers as the JAX Index (ids
     equal, scores within 1e-5), a 2-D mesh places over its ``'shard'``
     axis, a process group of one (gloo) places its own shards, and rows
@@ -184,20 +186,39 @@ def test_serving_equals_unsharded_load(saved, dtype):
     assert placed.placed
 
 
-def test_whole_store_operations_gather(saved):
+def _store(idx, name="descriptors"):
+    """A store tensor of an index, its placed parts joined in shard
+    order."""
+    if not idx.placed:
+        return getattr(idx, name)
+    parts = idx._parts(name)
+    return None if parts is None else torch.cat(parts,
+                                                1 if name == "scales" else 0)
+
+
+@pytest.mark.parametrize("op", ["within_capacity", "past_capacity"])
+def test_whole_store_operations_gather(saved, op):
+    """``remove``, ``add`` within capacity and ``merge_from`` keep a placed
+    store placed (the reference writes its sharded arrays in place); an
+    ``add`` past capacity gathers it and re-pads on one device, as the
+    reference's re-pad lands on one device. Either way the store, scales,
+    names and answers equal the unsharded load's."""
     x, q, _, _ = _rows()
     _, q2, _, _ = _rows(seed=1)
     donor = Index.from_descriptors(q2, ["d0", "d1", "d2"], _cfg("int4"),
                                    device="cpu")
+    extra = 0 if op == "within_capacity" else CAPACITY
     results = []
     for idx in _load_both(saved[0]["int4"]):
         idx.remove(["im3", "im50"])
-        idx.add(descriptors=x[:2] * -1.0, names=["n0", "n1"])
+        idx.add(descriptors=np.tile(x, (3, 1))[:2 + extra] * -1.0,
+                names=[f"n{i}" for i in range(2 + extra)])
         idx.merge_from(donor)
-        assert not idx.placed and idx.descriptors.shape[0] == CAPACITY
-        results.append((idx.search(q), idx.descriptors, idx.scales,
-                        idx.names))
-    (a, *ta), (b, *tb) = results
+        results.append((idx, idx.search(q), _store(idx),
+                        _store(idx, "scales"), idx.names))
+    (pw, a, *ta), (pp, b, *tb) = results
+    assert pp.placed == (op == "within_capacity")
+    assert pp.n_pad == (CAPACITY if op == "within_capacity" else 2 * CAPACITY)
     _same(a, b)
     for u, v in zip(ta[:2], tb[:2]):
         assert torch.equal(u, v)
@@ -208,9 +229,12 @@ def test_whole_store_operations_gather(saved):
                                 "fit_local_whitening",
                                 "attach_regional_store"])
 def test_view_fits_and_rewrites_gather(saved, op):
-    """The views' fits and the store rewrites gather a placed store first
-    and give the unsharded load's result: search answers equal (ids and
-    counts; scores within 1e-6), the store equal."""
+    """The views' fits read a placed store through its placement and keep
+    it placed; the store rewrites (``augment_database``,
+    ``attach_regional_store``) gather it first, as the reference's own
+    results leave its placement (a replicated store, a regional store on
+    one device). Either way the answers equal the unsharded load's (ids
+    and counts; scores within 1e-6) and the stores are equal."""
     _, q, reg, _ = _rows()
     run = {"build_pq": lambda i: i.build_pq(m=4, iters=2, sample=None,
                                             depth=16),
@@ -221,12 +245,14 @@ def test_view_fits_and_rewrites_gather(saved, op):
                n_clusters=2, iters=2),
            "attach_regional_store": lambda i: attach_regional_store(
                i, reg[:, :2])}[op]
+    stays = op in ("build_pq", "build_ivf", "fit_local_whitening")
     results = []
     for idx in _load_both(saved[0]["int8"]):
         run(idx)
-        assert not idx.placed
-        results.append((idx.search(q), idx.descriptors, idx.regional))
-    (a, *ta), (b, *tb) = results
+        results.append((idx.placed, _store(idx), _store(idx, "regional")))
+        results[-1] += (idx.search(q),)
+    (wp, *ta, a), (pp, *tb, b) = results
+    assert not wp and pp == stays
     _same(a, b)
     for u, v in zip(ta, tb):
         assert torch.equal(u, v)
@@ -287,9 +313,11 @@ def test_group_of_one_places_its_own_shards(saved):
         assert placed.placement.mesh.group is not None
         _same(placed.search(q), whole.search(q))
         _same(placed.search_range(q, 0.3), whole.search_range(q, 0.3))
-        placed.remove(["im1"])                 # gathers through the group
+        placed.remove(["im1"])         # moves through the group, placed
         whole.remove(["im1"])
-        assert torch.equal(placed.descriptors, whole.descriptors)
+        assert placed.placed
+        assert torch.equal(_store(placed), whole.descriptors)
+        _same(placed.search(q), whole.search(q))
     finally:
         dist.destroy_process_group()
 
