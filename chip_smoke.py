@@ -299,7 +299,9 @@ as those phases left them (phase 10 mutates them).
      every mesh position on cuda:0 (``phase16``): tensor parallel through
      ``Extractor(mesh=make_mesh_dp_tp(...))``, the GPipe pipeline and the
      sequence-parallel forward, each against the meshless model on the
-     same weights; no kernel launches there;
+     same weights, in one process and (d) as their multi-process forms on
+     meshes over a process group (an NCCL group of one process,
+     ``MP_GROUP_FORM``); no kernel launches there;
  17. persistence at scale, right after phase 15 while phase 9's store and
      phase 3's rows are there (``phase17``): phase 9's store saved with
      ``streaming=None`` (the port's stream must be chosen), loaded placed
@@ -5260,6 +5262,17 @@ def check_route(card, part, cfg, route, got_bf16, want_bf16, got_f32,
     return out
 
 
+# phase 16d: the group form the multi-process routes run in on one card.
+# tools/cuda_group_probe.py on the H100 (torch 2.11, NCCL 2.28.9): two
+# processes on cuda:0 over gloo run all_reduce, all_gather and broadcast on
+# CUDA tensors but not all_to_all (SP) nor isend/recv (PP); NCCL refuses
+# two ranks on one device ("Duplicate GPU detected"). So (d) runs one
+# process as an NCCL group of one (world_of_one), through the same code
+# path as a world of many: every line of every mesh has its subgroup and
+# every cross-process step its collective.
+MP_GROUP_FORM = "NCCL group of one process (world_of_one)"
+
+
 def phase16(card: str, gen) -> dict:
     """The model-parallel ViT forwards (ROADMAP M11) at published widths,
     every mesh position on cuda:0: (a) tensor parallel, ViT-L/16 at 224
@@ -5270,12 +5283,16 @@ def phase16(card: str, gen) -> dict:
     ``('data', 'pipe')`` = (2, 2); (c) sequence parallel, ViT-B/16 at
     1024 px (4,097 tokens, padded to 4,100), B = 4, sp = 4 and ``('data',
     'seq')`` = (2, 2), with the peak device memory of one forward beside
-    the meshless forward's. Each route against the meshless model on the
-    same weights: bf16 GeM descriptors' cosine >= FUSED_COS, f32 patch
-    maps within MP_REL of max |ref| (TF32 off). Images/s of each route
-    and of the meshless forward: single runs on one card, the devices
-    repeated, so they say nothing of several cards. No kernel launches
-    (the split heads attend on the plain route)."""
+    the meshless forward's; (d) each of those meshes again as a mesh over
+    a process group (``MP_GROUP_FORM``): the multi-process routes, every
+    cross-process step a collective (TP's all_reduce and all_gather, PP's
+    broadcast, SP's two all_to_alls a block, the data axis's all_gather),
+    their images/s beside the one-process route's. Each route against the
+    meshless model on the same weights: bf16 GeM descriptors' cosine >=
+    FUSED_COS, f32 patch maps within MP_REL of max |ref| (TF32 off).
+    Images/s of each route and of the meshless forward: single runs on one
+    card, the devices repeated, so they say nothing of several cards. No
+    kernel launches (the split heads attend on the plain route)."""
     out, counts = count_launches(lambda: _phase16(card, gen))
     if any(counts.values()):
         fail(f"phase 16 launched {counts}")
@@ -5286,22 +5303,32 @@ def _phase16(card, gen) -> dict:
     import torch
     from instsearch_torch.data import frontend
     from instsearch_torch.extractor import Extractor
-    from instsearch_torch.parallel import (DeviceMesh, ShardMesh,
-                                           make_mesh_dp_tp, pipelined_vit_fn,
-                                           place_pp, place_sp, place_tp,
+    from instsearch_torch.parallel import (ShardMesh, make_device_mesh,
+                                           pipelined_vit_fn, place_pp,
+                                           place_sp, place_tp,
                                            sequence_parallel_vit_fn)
     from instsearch_torch.parallel.mesh import axis_groups
     from instsearch_torch.parallel.tp import (TensorParallelViT,
                                               split_layer_bytes)
     t_phase = time.perf_counter()
     cuda = torch.device("cuda:0")
-    res = {"a": [], "b": [], "c": []}
+    res = {"a": [], "b": [], "c": [], "d": []}
     images = torch.as_tensor(smooth_images(gen, MP_BATCH), device=cuda)
     x16 = frontend.normalize(images, dtype=torch.bfloat16)
     x32 = frontend.normalize(images, dtype=torch.float32)
 
-    with torch.no_grad():
-        # (a) tensor parallel through the Extractor
+    with world_of_one() as dist, torch.no_grad():
+        world = dist.group.WORLD
+        report(card, phase=16, part="d", group_form=MP_GROUP_FORM,
+               backend=str(dist.get_backend()),
+               world_size=dist.get_world_size())
+
+        def grid(shape, names, group=None):
+            return make_device_mesh(shape, names, [cuda] * (shape[0]
+                                                            * shape[1]),
+                                    group)
+
+        # (a) tensor parallel through the Extractor; (d) over the group
         for name, meshes in (("vit_l_16", ((1, 4), (2, 2))),
                              ("vit_b_16", ((1, 8),))):
             cfg, model, f32 = mp_models(name, gen, IMAGE)
@@ -5309,55 +5336,75 @@ def _phase16(card, gen) -> dict:
             want16, want32 = model(x16), f32(x32)
             base = images_per_s(lambda: single(images), MP_BATCH)
             for data, tp in meshes:
-                mesh = make_mesh_dp_tp(data, tp, devices=[cuda] * (data * tp))
-                ex = Extractor(cfg.replace(vit_attention="flash"),
-                               model.state_dict(), mesh=mesh)
-                if ex.cfg.vit_attention != "xla" or ex.dp_size != data:
-                    fail(f"phase 16a: {ex.cfg.vit_attention}, "
-                         f"{ex.dp_size} data positions")
-                desc = torch.nn.functional.cosine_similarity(
-                    ex(images), single(images), dim=-1)
-                if float(desc.min()) < FUSED_COS:
-                    fail(f"phase 16a {name} {data}x{tp}: Extractor "
-                         f"descriptors' cosine {float(desc.min())}")
-                group = axis_groups(mesh, "model")[0]
-                got16 = TensorParallelViT(model, group)(x16)
-                got32 = TensorParallelViT(f32, group)(x32)
-                sizes = split_layer_bytes(place_tp(mesh, model)[0])
-                if sizes["shard_bytes"] != [sizes["whole_bytes"] // tp] * tp:
-                    fail(f"phase 16a: split layers' bytes {sizes}")
-                res["a"].append(check_route(
-                    card, "a", cfg, f"tp {name} data {data} x model {tp}",
-                    got16, want16, got32, want32, batch=MP_BATCH,
-                    image=IMAGE, heads=model.num_heads,
-                    head_split=model.num_heads % tp == 0,
-                    extractor_min_cosine=float(desc.min()),
-                    split_layer_bytes_per_shard=sizes["shard_bytes"][0],
-                    split_layer_bytes_whole=sizes["whole_bytes"],
-                    images_per_s=images_per_s(lambda: ex(images), MP_BATCH),
-                    meshless_images_per_s=base))
+                one_ips = None
+                for group in (None, world):
+                    part = "a" if group is None else "d"
+                    mesh = grid((data, tp), ("data", "model"), group)
+                    ex = Extractor(cfg.replace(vit_attention="flash"),
+                                   model.state_dict(), mesh=mesh)
+                    if ex.cfg.vit_attention != "xla" or ex.dp_size != data:
+                        fail(f"phase 16{part}: {ex.cfg.vit_attention}, "
+                             f"{ex.dp_size} data positions")
+                    desc = torch.nn.functional.cosine_similarity(
+                        ex(images), single(images), dim=-1)
+                    if float(desc.min()) < FUSED_COS:
+                        fail(f"phase 16{part} {name} {data}x{tp}: Extractor"
+                             f" descriptors' cosine {float(desc.min())}")
+                    line = axis_groups(mesh, "model")[0]
+                    if (line.group is None) != (group is None):
+                        fail(f"phase 16{part}: the model line's group is "
+                             f"{line.group}")
+                    got16 = TensorParallelViT(model, line)(x16)
+                    got32 = TensorParallelViT(f32, line)(x32)
+                    sizes = split_layer_bytes(place_tp(mesh, model)[0])
+                    if sizes["shard_bytes"] != [sizes["whole_bytes"]
+                                                // tp] * tp:
+                        fail(f"phase 16{part}: split layers' bytes {sizes}")
+                    ips = images_per_s(lambda: ex(images), MP_BATCH)
+                    fields = {} if group is None else {
+                        "one_process_images_per_s": one_ips,
+                        "group_form": MP_GROUP_FORM}
+                    res[part].append(check_route(
+                        card, part, cfg, f"tp {name} data {data} x model "
+                        f"{tp}", got16, want16, got32, want32,
+                        batch=MP_BATCH, image=IMAGE, heads=model.num_heads,
+                        head_split=model.num_heads % tp == 0,
+                        extractor_min_cosine=float(desc.min()),
+                        split_layer_bytes_per_shard=sizes["shard_bytes"][0],
+                        split_layer_bytes_whole=sizes["whole_bytes"],
+                        images_per_s=ips, meshless_images_per_s=base,
+                        **fields))
+                    one_ips = ips
+                    del ex
             if name == "vit_l_16":
                 vit_l = (cfg, model, f32, want16, want32)
-            del single, ex
-        # (b) the GPipe pipeline, ViT-L/16
+            del single
+        # (b) the GPipe pipeline, ViT-L/16; (d) over the group
         cfg, model, f32, want16, want32 = vit_l
         base = images_per_s(lambda: model(x16), MP_BATCH)
-        for mesh in (ShardMesh((cuda,) * 4, axis="pipe"),
-                     DeviceMesh(((cuda,) * 2,) * 2, ("data", "pipe"))):
-            fwd16 = pipelined_vit_fn(model, mesh, n_micro=4)
-            p16 = place_pp(mesh, model)
-            got16 = fwd16(*p16, x16)
-            got32 = pipelined_vit_fn(f32, mesh, n_micro=4)(
-                *place_pp(mesh, f32), x32)
-            res["b"].append(check_route(
-                card, "b", cfg, f"pp vit_l_16 {mesh.shape}", got16, want16,
-                got32, want32, batch=MP_BATCH, image=IMAGE, n_micro=4,
-                images_per_s=images_per_s(lambda: fwd16(*p16, x16),
-                                          MP_BATCH),
-                meshless_images_per_s=base))
+        one_ips = {}
+        for group in (None, world):
+            part = "b" if group is None else "d"
+            for mesh in (ShardMesh((cuda,) * 4, group, "pipe"),
+                         grid((2, 2), ("data", "pipe"), group)):
+                fwd16 = pipelined_vit_fn(model, mesh, n_micro=4)
+                p16 = place_pp(mesh, model)
+                got16 = fwd16(*p16, x16)
+                got32 = pipelined_vit_fn(f32, mesh, n_micro=4)(
+                    *place_pp(mesh, f32), x32)
+                route = f"pp vit_l_16 {mesh.shape}"
+                ips = images_per_s(lambda: fwd16(*p16, x16), MP_BATCH)
+                fields = {} if group is None else {
+                    "one_process_images_per_s": one_ips[route],
+                    "group_form": MP_GROUP_FORM}
+                res[part].append(check_route(
+                    card, part, cfg, route, got16, want16, got32, want32,
+                    batch=MP_BATCH, image=IMAGE, n_micro=4,
+                    images_per_s=ips, meshless_images_per_s=base, **fields))
+                one_ips[route] = ips
         del vit_l, model, f32, want16, want32
         torch.cuda.empty_cache()
-        # (c) sequence parallel, ViT-B/16 at 1024 px
+        # (c) sequence parallel, ViT-B/16 at 1024 px; (d) over the group
         cfg, model, f32 = mp_models("vit_b_16", gen, SP_SIZE)
         hi = torch.as_tensor(smooth_images(gen, SP_BATCH, size=SP_SIZE),
                              device=cuda)
@@ -5367,21 +5414,29 @@ def _phase16(card, gen) -> dict:
         tokens = (SP_SIZE // model.patch_size) ** 2 + 1
         base = images_per_s(lambda: model(h16), SP_BATCH)
         base_gb = peak_gb(lambda: model(h16))
-        for mesh in (ShardMesh((cuda,) * 4, axis="seq"),
-                     DeviceMesh(((cuda,) * 2,) * 2, ("data", "seq"))):
-            fwd16 = sequence_parallel_vit_fn(model, mesh)
-            p16 = place_sp(mesh, model)
-            got16 = fwd16(p16, h16)
-            got32 = sequence_parallel_vit_fn(f32, mesh)(place_sp(mesh, f32),
-                                                        h32)
-            res["c"].append(check_route(
-                card, "c", cfg, f"sp vit_b_16 {mesh.shape}", got16, want16,
-                got32, want32, batch=SP_BATCH, image=SP_SIZE, tokens=tokens,
-                padded_tokens=-(-tokens // 4) * 4,
-                images_per_s=images_per_s(lambda: fwd16(p16, h16), SP_BATCH),
-                meshless_images_per_s=base,
-                peak_gb=peak_gb(lambda: fwd16(p16, h16)),
-                meshless_peak_gb=base_gb))
+        one_ips = {}
+        for group in (None, world):
+            part = "c" if group is None else "d"
+            for mesh in (ShardMesh((cuda,) * 4, group, "seq"),
+                         grid((2, 2), ("data", "seq"), group)):
+                fwd16 = sequence_parallel_vit_fn(model, mesh)
+                p16 = place_sp(mesh, model)
+                got16 = fwd16(p16, h16)
+                got32 = sequence_parallel_vit_fn(f32, mesh)(
+                    place_sp(mesh, f32), h32)
+                route = f"sp vit_b_16 {mesh.shape}"
+                ips = images_per_s(lambda: fwd16(p16, h16), SP_BATCH)
+                fields = {} if group is None else {
+                    "one_process_images_per_s": one_ips[route],
+                    "group_form": MP_GROUP_FORM}
+                res[part].append(check_route(
+                    card, part, cfg, route, got16, want16, got32, want32,
+                    batch=SP_BATCH, image=SP_SIZE, tokens=tokens,
+                    padded_tokens=-(-tokens // 4) * 4, images_per_s=ips,
+                    meshless_images_per_s=base,
+                    peak_gb=peak_gb(lambda: fwd16(p16, h16)),
+                    meshless_peak_gb=base_gb, **fields))
+                one_ips[route] = ips
         del model, f32, want16, want32
     torch.cuda.empty_cache()
     report(card, phase=16, seconds=time.perf_counter() - t_phase)

@@ -14,15 +14,21 @@ model on each device of the mesh's batch axis (``'data'``, else its first
 axis that is not ``'model'``; devices may repeat, and a repeated device
 keeps one replica): the batch is padded to a multiple of the axis size, cut
 into one slice a device, each slice extracted there, and the results joined
-in order on the first device, which also whitens them. The replicas on the
-other devices take the first device's weights again whenever they have
+in order on the first device, which also whitens them. Where the axis spans
+processes (a mesh over a process group, ``parallel/mesh.py``) each process
+extracts only the slices of its own positions, as the reference splits the
+batch over every process's devices; the descriptors meet by one
+``all_gather`` over the axis's group, so every process returns the whole
+batch, whitened once after the join. The replicas on the other devices
+take the first device's weights again whenever they have
 changed since the last batch (``load_state_dict`` into ``Extractor.model``
 reaches every device). A mesh with a ``'model'`` axis runs a ViT tensor
 parallel (``parallel/tp.py``, as the reference's ``place_tp``): each
-position of the batch axis holds one ``TensorParallelViT`` over its row of
-``'model'`` devices, on the plain attention route (``cfg.vit_attention``
-resolves to ``"xla"``, as in the reference); a CNN has nothing to split
-and extracts data-parallel, on each row's first device.
+position of the batch axis this process holds keeps one ``TensorParallelViT``
+over its row of ``'model'`` devices (with the row's subgroup where it spans
+processes), on the plain attention route (``cfg.vit_attention`` resolves to
+``"xla"``, as in the reference); a CNN has nothing to split and extracts
+data-parallel, on each row's first device.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from .models.vit import ViT
 from .ops import l2_normalize, pool
 from .ops.pooling import rmac_region_geometry, rmac_regional_descriptors
 from .ops.whitening import WhiteningParams, apply_whitening
-from .parallel.mesh import axis_groups, batch_axis
+from .parallel.mesh import axis_groups, batch_axis, gather_parts
 from .parallel.tp import TensorParallelViT
 from .utils.device import resolve_device
 from .utils.observe import COUNTERS
@@ -176,14 +182,18 @@ class Extractor:
         self.cfg = cfg
         self.seed = seed
         self.mesh = mesh
-        groups = None
+        groups, self._data_mesh = None, None
         if mesh is not None:
-            # one group of devices a data position: its row of 'model'
-            # devices under tensor parallelism, else its one device
-            groups = ([tuple(_device(d) for d in row)
+            # one group of devices a data position this process holds: its
+            # row of 'model' devices under tensor parallelism, else its one
+            # device; the batch axis's 1-D mesh (None for a 'model' axis
+            # alone) numbers them and joins their outputs
+            bax = batch_axis(mesh)
+            self._data_mesh = mesh.along(bax) if bax else None
+            groups = ([row.with_devices(tuple(_device(d) for d in row))
                        for row in axis_groups(mesh, "model")] if tp else
-                      [(_device(d),)
-                       for d in mesh.along(batch_axis(mesh)).devices])
+                      [(_device(d),) for d in self._data_mesh.devices])
+            groups = groups[:self._data_mesh.num_local if bax else 1]
             device = groups[0][0]
         self.device = resolve_device(device)
         self.model, self._fn = build_extract_fn(cfg, device=self.device)
@@ -243,16 +253,19 @@ class Extractor:
 
     @property
     def dp_size(self) -> int:
-        """Devices of the data-parallel axis (1 without a mesh)."""
-        return len(self._groups) if self._groups else 1
+        """Positions of the data-parallel axis, over every process (1
+        without a mesh)."""
+        return (self._data_mesh.num_shards
+                if self._groups and self._data_mesh else 1)
 
     def _run(self, kind: str, images):
         """One extraction function (``"global"``, ``"regional"`` or
         ``"combined"``) over a batch: on the extractor's device, or
         data-parallel over the mesh's batch axis: the batch padded with
-        zero images to a multiple of its devices, one slice a device (its
-        replica launched for every slice before any result is joined), the
-        results joined in order on the first device, the padding cut off,
+        zero images to a multiple of its positions, one slice a position
+        (this process's replicas launched for each of its slices before any
+        result is joined), the results joined in order on the first device
+        (across processes by one ``all_gather``), the padding cut off,
         whitened there."""
         x = self._on_device(images)
         if not self._groups:
@@ -260,17 +273,19 @@ class Extractor:
                   "combined": self._combined_fn}[kind]
             return fn(x, self.whitening)
         self._sync_replicas()
-        b, n = x.shape[0], len(self._groups)
+        b, n = x.shape[0], self.dp_size
         pad = (-b) % n
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         c = x.shape[0] // n
+        first = self._data_mesh.first_shard if self._data_mesh else 0
         outs = [self._replicas[group][kind](
-                    x[j * c:(j + 1) * c].to(group[0]))
+                    x[(first + j) * c:(first + j + 1) * c].to(group[0]))
                 for j, group in enumerate(self._groups)]
         outs = [o if isinstance(o, tuple) else (o,) for o in outs]
-        joined = tuple(torch.cat([o[t].to(self.device) for o in outs])[:b]
-                       for t in range(len(outs[0])))
+        group = self._data_mesh.group if self._data_mesh else None
+        joined = tuple(gather_parts(self.device, group, [o[t] for o in outs],
+                                    0)[:b] for t in range(len(outs[0])))
         if self.whitening is not None:
             joined = tuple(apply_whitening(t, self.whitening) for t in joined)
         return joined if kind == "combined" else joined[0]

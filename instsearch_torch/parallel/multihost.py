@@ -11,6 +11,11 @@ process can rank the whole store.
 Rows are process-major: process p of P holds rows ``[p * N / P, (p + 1) *
 N / P)`` (:func:`local_row_range`), its local shard j being global shard
 ``p * len(devices) + j``.
+
+The 2-D meshes span processes the same way (:func:`global_mesh_2d`,
+:func:`global_mesh_dp_tp`): data-parallel extraction (``Extractor``) and
+the ViT's model-parallel forwards (``parallel/tp.py``, ``pp.py``,
+``sp.py``) run over them with each process holding only its positions.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ from typing import Sequence
 
 import torch
 
-from .mesh import ShardMesh, make_mesh, shard_rows
+from .mesh import (DeviceMesh, ShardMesh, make_mesh, make_mesh_2d,
+                   make_mesh_dp_tp, shard_rows)
 
 log = logging.getLogger("instsearch.multihost")
 
@@ -73,9 +79,30 @@ def global_shard_mesh(devices: "Sequence[torch.device | str]") -> ShardMesh:
     """This process's local shards, one on each of ``devices`` (which may
     repeat), joined to the other processes' through the default group when
     one is up; a single-process mesh otherwise."""
+    return make_mesh(devices=devices, group=_world())
+
+
+def _world():
     dist = _dist()
-    group = dist.group.WORLD if dist.is_initialized() else None
-    return make_mesh(devices=devices, group=group)
+    return dist.group.WORLD if dist.is_initialized() else None
+
+
+def global_mesh_2d(data: int, shard: int,
+                   devices: "Sequence[torch.device | str]") -> DeviceMesh:
+    """A ``('data', 'shard')`` mesh over every process of the default
+    group, this process's positions on ``devices`` (``make_mesh_2d`` with
+    its group); a single-process mesh when no group is up. Every process
+    makes it, in the same order as its other meshes."""
+    return make_mesh_2d(data, shard, devices, _world())
+
+
+def global_mesh_dp_tp(data: int, model: int,
+                      devices: "Sequence[torch.device | str]"
+                      ) -> DeviceMesh:
+    """A ``('data', 'model')`` mesh over every process of the default
+    group (``make_mesh_dp_tp`` with its group), as
+    :func:`global_mesh_2d`."""
+    return make_mesh_dp_tp(data, model, devices, _world())
 
 
 def local_row_range(n_rows: int) -> tuple[int, int]:

@@ -20,6 +20,13 @@ of L/S layers, each stage's layers on its device of the ``'pipe'`` axis
 - Composed with a ``'data'`` axis, each position of it runs its own
   pipeline over its share of the batch (rows in order), weights placed
   per position.
+- Across processes (a mesh over a process group, ``parallel/mesh.py``)
+  each process holds only its stages' layers. The first stage's process
+  embeds; between two stages held by different processes the activation
+  moves by ``isend``/``recv`` over the line's subgroup in GPipe order; the
+  last stage's process finalizes and broadcasts the result over the
+  subgroup, as the reference's final ``psum`` replicates it. The data
+  positions' outputs meet by one ``all_gather``.
 
 The blocks are the model's own ``EncoderBlock`` on the plain attention
 route, applied to the placed tensors through ``models.vit.call_with``.
@@ -56,11 +63,13 @@ def stack_layer_params(model: ViT) -> tuple[dict, dict]:
 
 
 def place_pp(mesh, model: ViT, axis: str = "pipe") -> tuple[list, list]:
-    """``(rest, stacked)``, one entry per position of the mesh's other axis
-    (one on a 1-D mesh): ``rest[g]`` maps each embed/finalize tensor to
-    its copy on the group's first device; ``stacked[g]`` maps each block
-    tensor name to one ``[L/S, ...]`` tensor per stage, on its device (a
-    view of the stack where the device is the model's own)."""
+    """``(rest, stacked)``, one entry per line of ``axis`` this process
+    holds (``axis_groups``; one on a 1-D mesh): ``rest[g]`` maps each
+    embed/finalize tensor to its copy on the line's first local device;
+    ``stacked[g]`` maps each block tensor name to one ``[L/S, ...]`` tensor
+    per local stage, on its device (a view of the stack where the device
+    is the model's own). Across processes each holds only its stages'
+    layers."""
     n_stages = mesh.shape[axis]
     _check_layers(model, n_stages, axis)
     rest, stacked = stack_layer_params(model)
@@ -69,7 +78,8 @@ def place_pp(mesh, model: ViT, axis: str = "pipe") -> tuple[list, list]:
     for devs in axis_groups(mesh, axis):
         out_rest.append({k: v.to(devs[0]) for k, v in rest.items()})
         out_stacked.append({k: tuple(v[s * per:(s + 1) * per].to(dev)
-                                     for s, dev in enumerate(devs))
+                                     for s, dev in enumerate(devs,
+                                                             devs.start))
                             for k, v in stacked.items()})
     return out_rest, out_stacked
 
@@ -80,10 +90,11 @@ def pipelined_vit_fn(model: ViT, mesh, n_micro: int, axis: str = "pipe",
     stack as a GPipe pipeline over ``mesh[axis]`` (``rest, stacked`` from
     :func:`place_pp`); with a data axis (``'data'`` by default, when the
     mesh has one) each of its positions takes an equal share of the batch.
-    The result is on the first group's first device."""
+    The result is on this process's first device of the mesh, on every
+    process."""
     n_stages = mesh.shape[axis]
     _check_layers(model, n_stages, axis)
-    groups = batch_groups(mesh, axis, data_axis)
+    lines, n_data, data_mesh = batch_groups(mesh, axis, data_axis)
     shell, block = templates(model)
     per = model.num_layers // n_stages
 
@@ -91,37 +102,90 @@ def pipelined_vit_fn(model: ViT, mesh, n_micro: int, axis: str = "pipe",
         return {n: t[s][i] for n, t in stacked_g.items()}
 
     def forward(rest, stacked, images: torch.Tensor) -> torch.Tensor:
-        b, n_g = images.shape[0], len(groups)
+        b = images.shape[0]
         if b % n_micro:
             raise ValueError(f"batch {b} not divisible by n_micro={n_micro}")
-        if b % (n_micro * n_g):
+        if b % (n_micro * n_data):
             raise ValueError(f"batch {b} not divisible by n_micro={n_micro} "
-                             f"x {n_g} data positions")
-        share = b // n_g
-        acts, grids = [], []
-        for g, devs in enumerate(groups):
-            tokens, grid = call_with(shell, rest[g], "embed",
-                                     images[g * share:(g + 1) * share]
-                                     .to(devs[0]))
-            acts.append(list(tokens.chunk(n_micro)))
+                             f"x {n_data} data positions")
+        share = b // n_data
+        p = model.patch_size
+        # a microbatch's activation: what a stage on another process sends
+        act = (share // n_micro, (images.shape[1] // p)
+               * (images.shape[2] // p) + 1, model.hidden_dim)
+        acts, grids, sent = [], [], []
+        for g, (pos, devs) in enumerate(lines):
+            tokens, grid = None, (images.shape[1] // p, images.shape[2] // p)
+            if devs.start == 0:                 # the first stage embeds
+                tokens, grid = call_with(shell, rest[g], "embed",
+                                         images[pos * share:(pos + 1) * share]
+                                         .to(devs[0]))
+            acts.append(list(tokens.chunk(n_micro)) if tokens is not None
+                        else [None] * n_micro)
             grids.append(grid)
-        params = [[[layer(stacked[g], s, i) for i in range(per)]
-                   for s in range(n_stages)] for g in range(n_g)]
+        params = [[[layer(stacked[g], j, i) for i in range(per)]
+                   for j in range(len(devs))]
+                  for g, (_, devs) in enumerate(lines)]
         for t in range(n_micro + n_stages - 1):
-            for g, devs in enumerate(groups):
-                for s in range(n_stages):
+            for g, (_, devs) in enumerate(lines):
+                for j, dev in enumerate(devs):
+                    s = devs.start + j
                     m = t - s
                     if not 0 <= m < n_micro:
                         continue
-                    h = acts[g][m].to(devs[s])          # the ppermute
-                    for p in params[g][s]:
-                        h = call_with(block, p, "forward", h)
+                    if j == 0 and s > 0:    # from the previous process
+                        h = torch.empty(act, dtype=model.dtype, device=dev)
+                        _recv(h, devs)
+                    else:
+                        h = acts[g][m].to(dev)          # the ppermute
+                    for prm in params[g][j]:
+                        h = call_with(block, prm, "forward", h)
+                    if j == len(devs) - 1 and s < n_stages - 1:
+                        h = h.contiguous()      # kept alive until sent
+                        sent.append((_send(h, devs), h))
+                        h = None
                     acts[g][m] = h
+        for work, _ in sent:
+            work.wait()
         out = []
-        for g, devs in enumerate(groups):
-            enc = torch.cat([a.to(devs[0]) for a in acts[g]])
-            out.append(call_with(shell, rest[g], "finalize", enc,
-                                 *grids[g]).to(groups[0][0]))
-        return torch.cat(out)
+        for g, (_, devs) in enumerate(lines):
+            last = devs.start + len(devs) == n_stages
+            if last:
+                enc = torch.cat([a.to(devs[0]) for a in acts[g]])
+                y = call_with(shell, rest[g], "finalize", enc, *grids[g])
+            if devs.group is not None:
+                # the last stage's output to the line, as the reference's
+                # final psum replicates it
+                y = (y.contiguous() if last else
+                     torch.empty((share,) + grids[g] + (model.hidden_dim,),
+                                 dtype=model.dtype, device=devs[0]))
+                _broadcast(y, devs)
+            out.append(y)
+        return (data_mesh.gather(out, 0) if data_mesh is not None
+                else out[0])
 
     return forward
+
+
+def _recv(h: torch.Tensor, line) -> None:
+    """Receive ``h`` from the process before this one on ``line``."""
+    import torch.distributed as dist
+    dist.recv(h, src=line.global_rank(dist.get_rank(line.group) - 1),
+              group=line.group)
+
+
+def _send(h: torch.Tensor, line):
+    """Start sending ``h`` (contiguous) to the process after this one on
+    ``line``; the returned work must be waited on, ``h`` kept until then."""
+    import torch.distributed as dist
+    return dist.isend(h,
+                      dst=line.global_rank(dist.get_rank(line.group) + 1),
+                      group=line.group)
+
+
+def _broadcast(y: torch.Tensor, line) -> None:
+    """``y`` (contiguous) of the line's last process, on all of its
+    processes."""
+    import torch.distributed as dist
+    dist.broadcast(y, src=line.global_rank(dist.get_world_size(line.group)
+                                           - 1), group=line.group)

@@ -1,9 +1,9 @@
 """Tensor-parallel ViT extraction (port of ``instsearch_tpu/parallel/tp.py``).
 
 The Megatron column/row split of the attention and MLP weights (Shoeybi et
-al., arXiv:1909.08053) over the ``'model'`` axis of a one-process mesh
-(devices may repeat), in the torch layout (``[out, in]``, Flax's kernel
-transposed):
+al., arXiv:1909.08053) over the ``'model'`` axis of a mesh (devices may
+repeat; the axis may span processes), in the torch layout (``[out, in]``,
+Flax's kernel transposed):
 
   qkv       weight [3D, D]  and bias  dim 0 (column split: heads per shard)
   out       weight [D, D]             dim 1 (row split: partial sums)
@@ -14,11 +14,18 @@ transposed):
 
 The reference writes only these placements and GSPMD derives the forward;
 here :class:`TensorParallelViT` writes it out. The residual stream lives on
-the group's first device. In each block the LayerNorm output goes to every
-shard, which applies its columns of qkv (and of linear_1), attends its
-heads, and applies its rows of out (and of linear_2); the shards' partial
-outputs are summed in f32 on the first device (the reference's psum) and
-the bias is added once.
+the group's first device (in each process, its first device of the line).
+In each block the LayerNorm output goes to every shard, which applies its
+columns of qkv (and of linear_1), attends its heads, and applies its rows
+of out (and of linear_2); the shards' partial outputs are summed in f32 on
+the first device (the reference's psum), then, on a mesh over a process
+group, by one f32 ``all_reduce`` over the line's subgroup, and the bias
+is added once. Every process of the line ends with the same output.
+
+Across processes each process places only its own shards of the split
+tensors (the state_dict passes through host memory, as the reference's
+``place_tp`` takes host arrays), and the replicated ones on its first
+device.
 
 qkv's columns are ``(q | k | v)``, each ``(h, hd)``. A contiguous cut of
 the 3D columns (the reference's ``P(None, 'model')``, which GSPMD reshards
@@ -27,8 +34,9 @@ shard j holds the q, k and v columns of heads ``j h/tp .. (j+1) h/tp - 1``
 and attends them alone: its shard has the reference's shape, not its
 columns. Where it does not (tp = 8 over 4 heads, which the reference
 serves), the columns are cut contiguously as the reference's, q, k and v
-are gathered on the first device for attention, as GSPMD would, and o is
-cut again into the row split of out.
+are gathered on the first device for attention (across processes by one
+``all_gather``), as GSPMD would, and o is cut again into the row split of
+out.
 
 A CNN's state_dict has nothing to split: under a ``'model'`` axis it
 extracts data-parallel, as in the reference (``Extractor``).
@@ -39,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.vit import ViT, attend, call_with, templates
-from .mesh import axis_groups
+from .mesh import AxisGroup, axis_groups, gather_parts
 
 _COL_SPLIT = ("qkv", "linear_1")
 _ROW_SPLIT = ("out", "linear_2")
@@ -78,19 +86,27 @@ def _qkv_rows(d: int, heads: int, tp: int, j: int) -> torch.Tensor:
     return torch.arange(j * w, (j + 1) * w)
 
 
+def _line(devices) -> AxisGroup:
+    """A line of the ``'model'`` axis: an ``AxisGroup`` as it is, a plain
+    sequence of devices as all of its line."""
+    return devices if isinstance(devices, AxisGroup) else AxisGroup(devices)
+
+
 def place_group(state_dict, devices, heads: int, axis: str = "model"
                 ) -> dict:
-    """One group's placement: tensor name -> one tensor per device of
-    ``devices``: the shard's slice of a split tensor (a view where it lies
-    on the source's device, but for qkv's head rows), the whole of a
-    replicated one. Raises ``ValueError`` for a split dimension that
-    ``len(devices)`` does not divide."""
-    tp = len(devices)
+    """One line's placement: tensor name -> one tensor per device of
+    ``devices`` (an ``AxisGroup`` of ``axis_groups``, or all of a line):
+    the shard's slice of a split tensor (a view where it lies on the
+    source's device, but for qkv's head rows); the whole of a replicated
+    one, on the first device alone. Raises ``ValueError`` for a split
+    dimension that the line's length does not divide."""
+    line = _line(devices)
+    start, tp = line.start, line.size
     out = {}
     for name, t in state_dict.items():
         dim = tp_param_spec(name, axis)
         if dim is None:
-            out[name] = tuple(t.to(dev) for dev in devices)
+            out[name] = (t.to(devices[0]),)
             continue
         if t.shape[dim] % tp:
             raise ValueError(f"parameter {name} dim {dim} ({t.shape[dim]}) "
@@ -98,48 +114,57 @@ def place_group(state_dict, devices, heads: int, axis: str = "model"
         if name.split(".")[-2] == "qkv":
             d = t.shape[0] // 3
             out[name] = tuple(
-                t.index_select(0, _qkv_rows(d, heads, tp, j).to(t.device))
-                .to(dev) for j, dev in enumerate(devices))
+                t.index_select(0, _qkv_rows(d, heads, tp, start + j)
+                               .to(t.device)).to(dev)
+                for j, dev in enumerate(devices))
         else:
             c = t.shape[dim] // tp
-            out[name] = tuple(t.narrow(dim, j * c, c).to(dev)
+            out[name] = tuple(t.narrow(dim, (start + j) * c, c).to(dev)
                               for j, dev in enumerate(devices))
     return out
 
 
 def place_tp(mesh, model: torch.nn.Module, axis: str = "model") -> list:
     """``model``'s weights in their TP placement: one ``place_group`` for
-    each position of the mesh's other axis (one on a 1-D mesh), in order.
-    A model without split layers (a CNN) comes back replicated."""
+    each line of ``axis`` this process holds (``axis_groups``; one on a
+    1-D mesh), in order. A model without split layers (a CNN) comes back
+    replicated."""
     heads = getattr(model, "num_heads", 1)
     sd = model.state_dict()
     return [place_group(sd, devs, heads, axis)
             for devs in axis_groups(mesh, axis)]
 
 
-def _psum(parts, device, bias, dtype) -> torch.Tensor:
-    """The shards' partial outputs summed in f32 on ``device``, the bias
-    added once."""
+def _psum(parts, device, bias, dtype, group) -> torch.Tensor:
+    """The shards' partial outputs summed in f32 on ``device`` and, with a
+    ``group``, over its processes by one f32 ``all_reduce``; the bias added
+    once."""
     total = parts[0].to(device).float()
     for p in parts[1:]:
         total = total + p.to(device).float()
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(total, group=group)
     return (total + bias.float()).to(dtype)
 
 
 class TensorParallelViT:
     """``images [N, H, W, 3] -> [N, H/p, W/p, D]``, the ViT's forward with
-    its weights split over ``devices`` (one group of the ``'model'`` axis):
-    see the module docstring. ``placement`` is ``place_group``'s (made from
-    ``model`` when None); ``load_state_dict`` places another state_dict of
-    the same model."""
+    its weights split over ``devices`` (one line of the ``'model'`` axis:
+    an ``AxisGroup`` of ``axis_groups``, or a plain sequence of devices
+    that is all of it): see the module docstring. ``placement`` is
+    ``place_group``'s (made from ``model`` when None); ``load_state_dict``
+    places another state_dict of the same model."""
 
     def __init__(self, model: ViT, devices, placement: "dict | None" = None):
-        self.devices = tuple(devices)
+        self.devices = _line(devices)
+        self.start, self.tp = self.devices.start, self.devices.size
+        self.group = self.devices.group
         self.num_layers = model.num_layers
         self.num_heads = model.num_heads
         self.hidden_dim = model.hidden_dim
         self.dtype = model.dtype
-        self.head_split = model.num_heads % len(self.devices) == 0
+        self.head_split = model.num_heads % self.tp == 0
         self._shell, _ = templates(model)
         self.placement = (placement if placement is not None else
                           place_group(model.state_dict(), self.devices,
@@ -150,8 +175,8 @@ class TensorParallelViT:
                                      self.num_heads)
 
     def _attention(self, x, y, w):
-        """The attention half's partial outputs, one per shard."""
-        devs, tp = self.devices, len(self.devices)
+        """The attention half's partial outputs, one per local shard."""
+        devs, tp = self.devices, self.tp
         d, h = self.hidden_dim, self.num_heads
         hd, b, n = d // h, x.shape[0], x.shape[1]
         qkv = [F.linear(y.to(dev), w("qkv.weight")[j], w("qkv.bias")[j])
@@ -166,12 +191,12 @@ class TensorParallelViT:
                                       w("out.weight")[j]))
             return parts
         # gathered: q, k, v whole on the first device, o cut again
-        full = torch.cat([t.to(devs[0]) for t in qkv], dim=-1)
+        full = gather_parts(devs[0], self.group, qkv, -1)
         q, k, v = (u.reshape(b, n, h, hd).transpose(1, 2)
                    for u in full.split(d, dim=-1))
         o = attend(q, k, v, None, self.dtype).transpose(1, 2).reshape(b, n, d)
-        c = d // tp
-        return [F.linear(o[..., j * c:(j + 1) * c].to(dev),
+        c, s = d // tp, self.start
+        return [F.linear(o[..., (s + j) * c:(s + j + 1) * c].to(dev),
                          w("out.weight")[j]) for j, dev in enumerate(devs)]
 
     def _block(self, i: int, x: torch.Tensor) -> torch.Tensor:
@@ -184,14 +209,15 @@ class TensorParallelViT:
         y = F.layer_norm(x.float(), d, w("ln_1.weight")[0], w("ln_1.bias")[0],
                          1e-6).to(self.dtype)
         x = x + _psum(self._attention(x, y, w), dev0, w("out.bias")[0],
-                      self.dtype)
+                      self.dtype, self.group)
         y = F.layer_norm(x.float(), d, w("ln_2.weight")[0], w("ln_2.bias")[0],
                          1e-6).to(self.dtype)
         parts = [F.linear(F.gelu(F.linear(y.to(dev), w("linear_1.weight")[j],
                                           w("linear_1.bias")[j])),
                           w("linear_2.weight")[j])
                  for j, dev in enumerate(self.devices)]
-        return x + _psum(parts, dev0, w("linear_2.bias")[0], self.dtype)
+        return x + _psum(parts, dev0, w("linear_2.bias")[0], self.dtype,
+                         self.group)
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
         rest = {k: v[0] for k, v in self.placement.items()
@@ -205,8 +231,8 @@ class TensorParallelViT:
 
 def split_layer_bytes(placement: dict) -> dict:
     """Bytes of the split layers' tensors (``tp_param_spec`` not None) on
-    each shard of one group's placement, and their whole: each shard holds
-    1/tp of it."""
+    each shard of one line's placement, and their sum over its shards (in
+    one process the layers' whole: each shard holds 1/tp of it)."""
     shards = None
     whole = 0
     for name, parts in placement.items():

@@ -329,25 +329,30 @@ def test_port_never_imports_jax():
 def test_package_never_imports_the_converter():
     """No module of instsearch_torch imports ``tools/orbax_to_port.py``
     (nor ``tools``, orbax, tensorstore or grain): the converter runs where
-    JAX does, the package where it does not."""
+    JAX does, the package where it does not. Nor do the port's
+    multi-process test workers (``tests/torch_*_worker.py``), which run
+    without JAX."""
     import ast
+    import glob
     banned = ("tools", "orbax_to_port", "orbax", "tensorstore", "grain",
               "jax", "flax", "instsearch_tpu")
     pkg = os.path.join(_ROOT, "instsearch_torch")
+    workers = sorted(glob.glob(os.path.join(_ROOT, "tests",
+                                            "torch_*_worker.py")))
+    assert any(w.endswith("torch_mp_vit_worker.py") for w in workers)
+    paths = [os.path.join(base, name) for base, _, files in os.walk(pkg)
+             for name in files if name.endswith(".py")] + workers
     seen = 0
-    for base, _, files in os.walk(pkg):
-        for name in files:
-            if not name.endswith(".py"):
+    for path in paths:
+        name = os.path.basename(path)
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                mods = [node.module or ""]
+            else:
                 continue
-            tree = ast.parse(open(os.path.join(base, name)).read())
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and not node.level:
-                    mods = [node.module or ""]
-                else:
-                    continue
-                seen += 1
-                for m in mods:
-                    assert m.split(".")[0] not in banned, (name, m)
+            seen += 1
+            for m in mods:
+                assert m.split(".")[0] not in banned, (name, m)
     assert seen > 100

@@ -142,7 +142,11 @@ def test_params_really_sharded(rig, data, tp):
                            ("linear_2.weight", (32, 64 // tp)),
                            ("ln_1.weight", (32,))):
             shards = group[f"encoder_layer_0.{name}"]
-            assert len(shards) == tp
+            # split tensors: one shard a device; replicated ones: on the
+            # line's first device alone
+            assert len(shards) == (tp if tp_param_spec(f"encoder_layer_0."
+                                                       f"{name}") is not None
+                                   else 1)
             assert all(tuple(s.shape) == want for s in shards), name
         assert tuple(group["conv_proj.weight"][0].shape) == (32, 3, 4, 4)
     sizes = split_layer_bytes(placed[0])
@@ -213,8 +217,34 @@ def test_meshes_for_model_parallel_runtimes():
     one = ShardMesh((CPU,) * 4, axis="pipe")
     assert one.shape == {"pipe": 4} and axis_groups(one, "pipe") == [
         (CPU,) * 4]
-    with pytest.raises(ValueError, match="'seq'"):
-        axis_groups(ShardMesh((CPU,) * 2, group=object(), axis="seq"), "seq")
+    # a mesh over a process group (a gloo group of this one process): the
+    # devices this process holds on each line, with the line's subgroup
+    import socket
+
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        world = dist.group.WORLD
+        seq = axis_groups(ShardMesh((CPU,) * 2, group=world, axis="seq"),
+                          "seq")
+        assert seq == [(CPU,) * 2] and seq[0].group is world
+        assert (seq[0].start, seq[0].size) == (0, 2)
+        grid = make_mesh_dp_tp(2, 2, devices=["cpu"] * 4, group=world)
+        assert grid.shape == {"data": 2, "model": 2}
+        for axis in ("model", "data"):
+            lines = axis_groups(grid, axis)
+            assert lines == [(CPU,) * 2] * 2
+            assert [g.line for g in lines] == [0, 1]
+            assert all(g.group is not None and g.group is not world
+                       and dist.get_world_size(g.group) == 1 for g in lines)
+        assert grid.along("data").group is axis_groups(grid, "data")[0].group
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="not 'model'"):
         axis_groups(one, "model")
 
