@@ -310,7 +310,18 @@ as those phases left them (phase 10 mutates them).
      the host's peak memory of the placed load and save at most 2 x one
      shard's bytes + 64 MiB (phase 15c's npz load's printed beside it);
      phase 3's int8 and int4 stores as streams, K2/K3 answers equal to the
-     in-memory stores' bit for bit; save_s, load_s and bytes on disk.
+     in-memory stores' bit for bit; save_s, load_s and bytes on disk;
+ 18. mutation of a placed store where it lies, right after phase 17 on its
+     streams (``phase18``): remove, add and merge_from on 8 shards of
+     cuda:0, each against an unplaced twin bit for bit, with
+     ``Index.gather`` refusing (``launches_placed``);
+ 19. searches through an armed candidate tier on a placed store, right
+     after phase 18 on the int8 and int4 streams (``phase19``): PQ and
+     IVF-PQ over int4, IVF over int8, fitted on the placed store and on
+     its twin alike, answers bit for bit the twin's at B = 1, 8, 128 (with
+     αQE, and a subset for PQ), with ``Index.gather`` refusing, peak
+     device growth within the twin's + 64 MiB, the PQ cascade once more
+     through an NCCL group of one (``launches_placed_tier``).
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -349,8 +360,10 @@ as ``launches_subset`` (every one of them with the mask), phase 11's
 apart as ``launches_cli``, and phase 14e's fine-tuning runs, also apart as
 ``launches_train`` (every kernel's row carries both), and K1-K4 count
 phase 15's searches, range searches and placed loads, also apart as
-``launches_mesh`` (K1 and K2 launch there), and phase 17's searches of
-the loaded streams, also apart as ``launches_persist`` (K1-K3); K1 also at
+``launches_mesh`` (K1 and K2 launch there), phase 17's searches of
+the loaded streams, also apart as ``launches_persist`` (K1-K3), phase
+18's placed searches, ``launches_placed``, and phase 19's placed tier
+searches, ``launches_placed_tier`` (K4); K1 also at
 D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
 (``ms_d2048_b{B}_k{k}``, ``plain_ms_...``, ``library_ms_...``,
 ``bound_ms_...``); K4 also at B =
@@ -5861,6 +5874,194 @@ def phase18(card, ox, ex, streams) -> dict:
     return {"launches": launches}
 
 
+PLACED_TIER_SAMPLE = 65_536   # phase 19: rows the views' fits read
+PLACED_TIER_ITERS = 4         # phase 19: k-means and PQ iterations a fit
+PLACED_TIER_SUBSET = 10       # phase 19: every 10th name in the PQ subset
+
+
+def view_arrays(idx, view: str) -> dict:
+    """A candidate tier's view (``idx.pq``, ``idx.ivf`` or ``idx.ivfpq``)
+    as its arrays by name (None where absent)."""
+    v = getattr(idx, view)
+    if view == "pq":
+        return {"centroids": v.codebook.centroids, "packed": v.packed,
+                "rotation": v.rotation}
+    if view == "ivf":
+        return v._state()
+    return {"centroids": v.centroids, "codes": v.codes,
+            "bucket_pos": v.bucket_pos, "spill_codes": v.spill_codes,
+            "spill_pos": v.spill_pos, "spill_cluster": v.spill_cluster,
+            "pq_centroids": v.codebook.centroids, "rotation": v.rotation}
+
+
+def same_bits(a, b) -> bool:
+    """Two numpy arrays or two tensors equal byte for byte (so scores
+    compare as f32 bits), with the same shape and dtype."""
+    import numpy as np
+    import torch
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and (not a.numel() or torch.equal(
+                    a.contiguous().view(torch.uint8),
+                    b.contiguous().view(torch.uint8))))
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def phase19(card, corpus, streams) -> dict:
+    """Searching a placed store through its armed candidate tier where it
+    lies (ROADMAP Queue 1 item 2, F9), right after phase 18 on phase 17's
+    int8 and int4 streams (1M x 512). Each store is loaded placed on 8
+    shards of cuda:0 and, the twin, unplaced, with ``Index.gather``
+    refusing on the placed index; a view is fitted on both with the same
+    seed and sample (PLACED_TIER_SAMPLE rows, PLACED_TIER_ITERS
+    iterations: PQ and, on a second pair, IVF-PQ over int4, IVF over int8)
+    and must be equal bit for bit. Then at B = 1, 8, 128 the tier alone,
+    with the presets' αQE and, for the PQ cascade, under a subset (every
+    PLACED_TIER_SUBSET-th name): ids and scores (as f32 bits) equal to the
+    twin's, the store still placed, every kernel launched as often as by
+    the twin (K4 at least once a piece on the PQ cascade), and the
+    device's peak growth over the placed search at most the twin's plus
+    PLACED_SLACK (a gather would take the whole 256 MB or 512 MB store).
+    The int4 PQ cascade runs once more through an NCCL group of one process
+    (``world_of_one``), whose placed store reads its candidates' rows
+    through the collective ``ShardedIndex.read_rows``. The p50s of placed
+    against twin are printed, not bound. Returns the placed tier searches'
+    K4 launches (``launches_placed_tier``)."""
+    import numpy as np
+    import torch
+    from instsearch_torch.index import Index
+    from instsearch_torch.parallel import make_mesh
+    t_phase = time.perf_counter()
+    _, _, _, ex, images, picks = corpus
+    mesh = make_mesh(8, devices=["cuda:0"] * 8)
+    fits = {"pq": lambda i: i.build_pq(sample=PLACED_TIER_SAMPLE,
+                                       iters=PLACED_TIER_ITERS),
+            "ivfpq": lambda i: i.build_ivfpq(
+                sample=PLACED_TIER_SAMPLE, kmeans_iters=PLACED_TIER_ITERS,
+                pq_iters=PLACED_TIER_ITERS),
+            "ivf": lambda i: i.build_ivf(sample=PLACED_TIER_SAMPLE,
+                                         iters=PLACED_TIER_ITERS)}
+    q3 = torch.as_tensor(ex(images[np.concatenate(picks)]),
+                         device="cuda").float()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    launches, groups = 0, 0
+
+    def against_twin(tag, placed, twin, scfg, qb, sub=None):
+        """One placed search against the twin's -> the placed launches."""
+        kw_p = {} if sub is None else {"subset": sub[0]}
+        kw_t = {} if sub is None else {"subset": sub[1]}
+        with refusing_gather(placed):
+            ((ps, pi), got), _, grown = device_growth(
+                lambda: count_launches(lambda: placed.search(qb, scfg,
+                                                             **kw_p)))
+        ((ts, ti), want), _, twin_grown = device_growth(
+            lambda: count_launches(lambda: twin.search(qb, scfg, **kw_t)))
+        pieces = -(-qb.shape[0] // scfg.query_chunk)
+        if got != want or (scfg.pq_depth and got["pq_topk"] < pieces):
+            fail(f"phase 19: {tag}: launches {got}, the twin's {want}")
+        if not (same_bits(pi, ti) and same_bits(ps, ts)):
+            fail(f"phase 19: {tag}: the answers differ from the twin's")
+        if not placed.placed:
+            fail(f"phase 19: {tag}: the placed store was gathered")
+        if grown > twin_grown + PLACED_SLACK:
+            fail(f"phase 19: {tag}: the placed search grew device memory "
+                 f"by {grown} bytes, the twin's by {twin_grown} (+ "
+                 f"{PLACED_SLACK} allowed)")
+        return got["pq_topk"], grown, twin_grown
+
+    for kind, view in (("int4", "pq"), ("int4", "ivfpq"), ("int8", "ivf")):
+        placed = Index.load(streams[kind], extractor=ex, mesh=mesh)
+        twin = Index.load(streams[kind], extractor=ex, device="cuda:0")
+        store = sum(sh.x.numel() * sh.x.element_size()
+                    for sh in placed.placement.shards)
+        with refusing_gather(placed):
+            _, fit_s = timed(lambda: fits[view](placed))
+        _, twin_fit_s = timed(lambda: fits[view](twin))
+        a, b = view_arrays(placed, view), view_arrays(twin, view)
+        differ = [k for k in a if not same_bits(a[k], b[k])]
+        if differ or not placed.placed:
+            fail(f"phase 19: the {view} view fitted on the placed {kind} "
+                 f"store differs from the twin's in {differ} (placed: "
+                 f"{placed.placed})")
+        near = torch.as_tensor(twin.reconstruct(
+            names=twin.names[::twin.num_valid // 96][:96]), device="cuda")
+        near = near + 0.05 * torch.randn(near.shape, generator=gen,
+                                         device="cuda")
+        pool = torch.cat([q3, near / near.norm(dim=1, keepdim=True)])[:128]
+        plain = twin.cfg.search.replace(qe_enabled=False)
+        variants = {"tier": plain, "qe": plain.replace(qe_enabled=True)}
+        sub = None
+        if view == "pq":
+            members = twin.names[::PLACED_TIER_SUBSET]
+            sub = (placed.make_subset(names=members),
+                   twin.make_subset(names=members))
+            variants["subset"] = plain
+        n, grown = 0, {}
+        for label, scfg in variants.items():
+            for b in PLACED_BATCHES:
+                tag = f"{kind} {view} {label} B={b}"
+                k, g, tg = against_twin(tag, placed, twin, scfg, pool[:b],
+                                        sub if label == "subset" else None)
+                n += k
+                grown[f"{label}_b{b}"] = {"placed": g, "twin": tg}
+        p50 = {}
+        for b in PLACED_BATCHES:
+            with refusing_gather(placed):
+                p = p50_ms(lambda: placed.search(pool[:b], plain))
+            p50[f"b{b}"] = {"placed": p, "twin": p50_ms(
+                lambda: twin.search(pool[:b], plain))}
+        launches += n
+        report(card, phase=19, store=kind, view=view, rows=placed.num_valid,
+               shards=8, store_bytes=store, placed_gathered=False,
+               fit_sample=PLACED_TIER_SAMPLE, fit_iters=PLACED_TIER_ITERS,
+               fit_s=fit_s, twin_fit_s=twin_fit_s, views_equal=True,
+               equal_to_twin=True, variants=sorted(variants),
+               peak_growth_bytes=grown, slack_bytes=PLACED_SLACK,
+               search_p50_ms=p50, launches_pq_topk=n,
+               reduced={"fit": f"sample {PLACED_TIER_SAMPLE} rows and "
+                               f"{PLACED_TIER_ITERS} iterations (the "
+                               f"reference's defaults: 262,144 and 15/10) "
+                               f"to keep the phase near a minute"})
+        if view == "pq":
+            answers = {(label, b): twin.search(pool[:b], scfg)
+                       for label, scfg in variants.items() if label != "subset"
+                       for b in PLACED_BATCHES}
+            with world_of_one() as dist:
+                gmesh = make_mesh(8, devices=["cuda:0"] * 8,
+                                  group=dist.group.WORLD)
+                grp = Index.load(streams[kind], extractor=ex, mesh=gmesh)
+                grp.pq, grp.cfg = placed.pq, placed.cfg
+                if grp.placement.mesh.group is None:
+                    fail("phase 19: the group-of-one mesh holds no group")
+                for (label, b), (ts, ti) in answers.items():
+                    with refusing_gather(grp):
+                        (gs, gi), got = count_launches(
+                            lambda: grp.search(pool[:b], variants[label]))
+                    pieces = -(-b // plain.query_chunk)
+                    if got["pq_topk"] < pieces or not grp.placed:
+                        fail(f"phase 19: group of one, {label} B={b}: "
+                             f"launches {got}, placed {grp.placed}")
+                    if not (same_bits(gi, ti) and same_bits(gs, ts)):
+                        fail(f"phase 19: group of one, {label} B={b}: the "
+                             f"answers differ from the twin's")
+                    groups += got["pq_topk"]
+                report(card, phase=19, store=kind, view=view,
+                       group_form=MP_GROUP_FORM,
+                       backend=dist.get_backend(), equal_to_twin=True,
+                       placed_gathered=False, launches_pq_topk=groups)
+                del grp
+        del placed, twin, sub
+        torch.cuda.empty_cache()
+    report(card, phase=19, seconds=time.perf_counter() - t_phase,
+           launches_pq_topk=launches + groups)
+    return {"launches": {"pq_topk": launches + groups}}
+
+
 def main() -> int:
     try:
         import torch
@@ -5957,6 +6158,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         placed = phase18(card, ox, corpus[3],
                          res17["streams"])["launches"]
+        torch.cuda.empty_cache()
+        placed_tier = phase19(card, corpus, res17["streams"])["launches"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     persist = res17["launches"]
@@ -6006,7 +6209,8 @@ def main() -> int:
                                   + quality.get(name, 0) + cli.get(name, 0)
                                   + train.get(name, 0) + mesh.get(name, 0)
                                   + persist.get(name, 0)
-                                  + placed.get(name, 0)),
+                                  + placed.get(name, 0)
+                                  + placed_tier.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
@@ -6016,6 +6220,7 @@ def main() -> int:
                      "launches_mesh": mesh.get(name, 0),
                      "launches_persist": persist.get(name, 0),
                      "launches_placed": placed.get(name, 0),
+                     "launches_placed_tier": placed_tier.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -99,10 +99,13 @@ whole store), because the reference's own result leaves the placement
 there too: ``augment_database`` (the reference's store comes back
 replicated), ``attach_regional_store`` (its regional store lands on one
 device) and an ``add`` past capacity (its re-pad lands on one device;
-across processes it raises instead). A search through an armed candidate
-tier (IVF, PQ, IVF-PQ) gathers too: whether the reference's store moves
-there is still open (ROADMAP Queue 1). So does ``to_sharded`` onto
-another mesh.
+across processes it raises instead). So does ``to_sharded`` onto another
+mesh. A search through an armed candidate tier (IVF, PQ, IVF-PQ) keeps the
+placement, as the reference's does: the tier's view scans on the first
+device, and its exact re-score, αQE and regional re-rank read only their
+candidates' rows from the shards (``Index._rows_f32_at``,
+``Index._regions_at``; across processes through the collective
+``ShardedIndex.read_rows``).
 
 Persistence. ``save`` writes a directory: ``meta.json`` (names, config,
 ``format``, the arrays' dtypes, the views present), the views' own
@@ -531,13 +534,13 @@ class Index:
         """Join a placed store (``load(mesh=)``) onto its mesh's first
         device: every shard's rows, row scales and regional store (through
         the mesh's group when it has one, so every process gets the whole
-        store). The index is an unplaced one from then on. Serving and the
-        mutations within capacity never call it (they run on the shards in
-        place); ``augment_database``, ``attach_regional_store`` and an
-        ``add`` past capacity do, since the reference's own results leave
-        its placement there, as does a search through an armed candidate
-        tier and, across processes, a view's fit. A no-op on an unplaced
-        index."""
+        store). The index is an unplaced one from then on. Serving (the
+        candidate tiers' searches included: they read their candidates'
+        rows from the shards) and the mutations within capacity never call
+        it; ``augment_database``, ``attach_regional_store`` and an ``add``
+        past capacity do, since the reference's own results leave its
+        placement there, as does, across processes, a view's fit. A no-op
+        on an unplaced index."""
         if not self.placed:
             return
         logging.getLogger("instsearch.index").info(
@@ -582,26 +585,39 @@ class Index:
                 None if sc is None else sc.reshape(pos.shape))
 
     def _rows_f32_at(self, pos: torch.Tensor) -> torch.Tensor:
-        """Stored rows at padded positions ``pos [n]``, dequantized to f32
-        ``[n, W]`` as every search stage gathers them; a placed store's
-        through its placement."""
+        """Stored rows at padded positions ``pos [...]`` (non-negative),
+        dequantized to f32 ``[..., W]`` as every search stage gathers them:
+        the candidate tiers' row reader. A placed store's are read through
+        its placement (``ShardedIndex.rows_f32``: only these rows, and
+        across processes collectively)."""
         if self.placed:
-            return self.placement.rows_f32(pos)
+            rows = self.placement.rows_f32(pos.reshape(-1))
+            return rows.reshape(tuple(pos.shape) + tuple(rows.shape[1:]))
         return _gather_rows_f32(self.descriptors, pos, self.scales,
                                 int4=self.is_int4)
+
+    def _regions_at(self, pos: torch.Tensor):
+        """Regional rows at padded positions ``pos [...]`` (non-negative),
+        verbatim in the store's dtype -> ``(regions [..., R, D], their
+        scales [..., R] f32 or None)``: the re-rank's reader
+        (``search/rerank.py::region_similarities``). A placed store's are
+        read through its placement (``ShardedIndex.read_rows``)."""
+        if not self.placed:
+            p = pos.long()
+            return (self.regional[p], None if self.regional_scales is None
+                    else self.regional_scales[p])
+        v = self.placement.read_rows(pos.reshape(-1),
+                                     ("regional", "regional_scales"))
+        reg, sc = v["regional"], v.get("regional_scales")
+        shape = tuple(pos.shape)
+        return (reg.reshape(shape + tuple(reg.shape[1:])), None if sc is None
+                else sc.reshape(shape + tuple(sc.shape[1:])))
 
     def _regional_f32(self, start: int, count: int) -> torch.Tensor:
         """Regional rows ``[start, start + count)``, dequantized to f32
         ``[count, R, D]``; a placed store's through its placement."""
-        if self.placed:
-            v = self.placement.read_rows(
-                torch.arange(start, start + count, device=self.device),
-                ("regional", "regional_scales"))
-            reg, sc = v["regional"], v.get("regional_scales")
-        else:
-            reg = self.regional[start:start + count]
-            sc = (None if self.regional_scales is None
-                  else self.regional_scales[start:start + count])
+        reg, sc = self._regions_at(torch.arange(start, start + count,
+                                                device=self.device))
         reg = reg.float()
         return reg if sc is None else reg * sc[:, :, None]
 
@@ -1378,9 +1394,11 @@ class Index:
         ``[chunk, depth, R, D]`` candidate regions. ``subset`` (a
         :meth:`make_subset` filter, or names or ids built here) restricts
         every top-k to its members. An l2 index takes exact search only and
-        returns ``-||x - q||^2``. A placed store (``load(mesh=)``) answers
-        through its sharded view, the same answers; a candidate tier
-        (IVF, PQ, IVF-PQ) armed on it gathers the store first."""
+        returns ``-||x - q||^2``. A placed store (``load(mesh=)``) stays
+        placed: it answers through its sharded view, the same answers, and
+        a candidate tier (IVF, PQ, IVF-PQ) armed on it reads only its
+        candidates' rows from the shards (across processes, collectively:
+        every process searches the same queries)."""
         scfg = search_cfg or self.cfg.search
         self._check_rescoring_cfg(scfg)
         q = torch.as_tensor(queries, device=self.device)
@@ -1391,35 +1409,47 @@ class Index:
         q = self._match_query_dim(q.float())
         if q.shape[-1] != self.store_dim:
             raise ValueError(f"queries have width {w}, the store {self.dim}")
-        tier_armed = ((self.ivf is not None and scfg.ivf_nprobe > 0)
-                      or (self.pq is not None and scfg.pq_depth > 0)
-                      or (self.ivfpq is not None and scfg.ivfpq_nprobe > 0))
-        if self.placed and not tier_armed:
+        do_refine = scfg.refine_enabled
+        do_diffusion = scfg.diffusion_enabled
+        do_lw = scfg.lw_enabled and self.lw is not None
+        # diffusion needs the exact top-depth neighbourhood and lw re-scores a
+        # quality-critical candidate set: both keep the exact scan; refine is
+        # redundant under a cascade (its exact re-score is one)
+        if (self.ivf is not None and scfg.ivf_nprobe > 0
+                and not (do_diffusion or do_lw)):
+            tier = self._search_ivf
+        elif (self.pq is not None and scfg.pq_depth > 0
+                and not (do_refine or do_diffusion or do_lw)):
+            tier = self._search_pq
+        elif (self.ivfpq is not None and scfg.ivfpq_nprobe > 0
+                and not (do_refine or do_diffusion or do_lw)):
+            tier = self._search_ivfpq
+        else:
+            tier = None
+        if self.placed and tier is None:
             COUNTERS.add("queries_served", q.shape[0])
             s, i = self.search_sharded(self.placement, q, scfg,
                                        query_regional, subset)
             return (s, i) if qn2 is None else (_l2_scores(s, i, qn2), i)
-        self.gather()
         subset = self._resolve_subset(subset)
         mask = subset.mask if subset is not None else None
         COUNTERS.add("queries_served", q.shape[0])
-        do_rerank = (scfg.rerank_enabled and self.regional is not None
+        do_rerank = (scfg.rerank_enabled and self.has_regional
                      and query_regional is not None)
-        do_refine = scfg.refine_enabled
-        do_diffusion = scfg.diffusion_enabled
-        do_lw = scfg.lw_enabled and self.lw is not None
         args = (q,)
         if do_rerank:
             qreg = torch.as_tensor(query_regional,
                                    device=self.device).float()
+            reg_d = (self._parts("regional")[0] if self.placed
+                     else self.regional).shape[2]
             if (qreg.ndim != 3 or qreg.shape[0] != q.shape[0]
-                    or qreg.shape[2] != self.regional.shape[2]):
+                    or qreg.shape[2] != reg_d):
                 raise ValueError(
                     f"query_regional {tuple(qreg.shape)}: [Q, Rq, "
-                    f"{self.regional.shape[2]}] for {q.shape[0]} queries")
+                    f"{reg_d}] for {q.shape[0]} queries")
             args = (q, qreg)
         depth = min(scfg.diffusion_depth if do_diffusion else
-                    scfg.rerank_depth, self.descriptors.shape[0])
+                    scfg.rerank_depth, self.n_pad)
         sw = float(scfg.spatial_weight) if do_rerank else 0.0
 
         def run(qq, *qreg):
@@ -1436,18 +1466,8 @@ class Index:
                 diff_iters=scfg.diffusion_iters,
                 diff_seeds=scfg.diffusion_seeds)
 
-        # diffusion needs the exact top-depth neighbourhood and lw re-scores a
-        # quality-critical candidate set: both keep the exact scan; refine is
-        # redundant under a cascade (its exact re-score is one)
-        if (self.ivf is not None and scfg.ivf_nprobe > 0
-                and not (do_diffusion or do_lw)):
-            s, i = self._search_ivf(args, scfg, do_rerank, mask)
-        elif (self.pq is not None and scfg.pq_depth > 0
-                and not (do_refine or do_diffusion or do_lw)):
-            s, i = self._search_pq(args, scfg, do_rerank, mask)
-        elif (self.ivfpq is not None and scfg.ivfpq_nprobe > 0
-                and not (do_refine or do_diffusion or do_lw)):
-            s, i = self._search_ivfpq(args, scfg, do_rerank, mask)
+        if tier is not None:
+            s, i = tier(args, scfg, do_rerank, mask)
         elif do_lw:
             s, i = self._search_lw(q, scfg, mask)
         else:
@@ -1477,12 +1497,10 @@ class Index:
 
     def _rerank_operands(self, do_rerank: bool, scfg) -> dict:
         """The re-rank stage's operands of a candidate tier's composite:
-        the regional store, its scales, the vote matrix and the spatial
-        weight when ``do_rerank``, else none of them."""
+        the regional store's reader (``_regions_at``), the vote matrix and
+        the spatial weight when ``do_rerank``, else none of them."""
         sw = float(scfg.spatial_weight) if do_rerank else 0.0
-        return {"regional": self.regional if do_rerank else None,
-                "regional_scales": (self.regional_scales if do_rerank
-                                    else None),
+        return {"regional": self._regions_at if do_rerank else None,
                 "vote_matrix": self.vote_matrix if sw else None,
                 "spatial_weight": sw}
 
@@ -1498,17 +1516,16 @@ class Index:
         depth = max(scfg.pq_depth, scfg.k,
                     scfg.qe_n if scfg.qe_enabled else 0,
                     scfg.rerank_depth if do_rerank else 0)
-        depth = min(depth, self.descriptors.shape[0])
+        depth = min(depth, self.n_pad)
         rr = self._rerank_operands(do_rerank, scfg)
 
         def run(qq, *qreg):
             return _pq_composite(
-                pq.packed, pq.codebook.centroids, self.descriptors, self.ids,
-                self.scales, qq, self.num_valid, pq.rotation, mask,
-                rr["regional"], rr["regional_scales"],
+                pq.packed, pq.codebook.centroids, self._rows_f32_at, self.ids,
+                qq, self.num_valid, pq.rotation, mask, rr["regional"],
                 qreg[0] if do_rerank else None, rr["vote_matrix"], k=scfg.k,
                 depth=depth, qe_n=scfg.qe_n, qe_alpha=scfg.qe_alpha,
-                do_qe=scfg.qe_enabled, int4=self.is_int4,
+                do_qe=scfg.qe_enabled,
                 use_kernel=bool(self.cfg.search.use_pallas),
                 do_rerank=do_rerank, spatial_weight=rr["spatial_weight"],
                 rerank_depth=min(scfg.rerank_depth, depth))
@@ -1524,19 +1541,16 @@ class Index:
         ``[chunk, nprobe, M, D]`` bucket gather stays under 256 MiB."""
         ivf = self.ivf
         nprobe = min(scfg.ivf_nprobe, ivf.n_clusters)
-        depth = (min(scfg.rerank_depth, self.descriptors.shape[0])
-                 if do_rerank else 0)
+        depth = min(scfg.rerank_depth, self.n_pad) if do_rerank else 0
         rr = self._rerank_operands(do_rerank, scfg)
 
         def run(qq, *qreg):
             return _ivf_composite(
-                ivf.arrays, self.descriptors, self.ids, self.scales,
-                rr["regional"], rr["regional_scales"],
+                ivf.arrays, self._rows_f32_at, self.ids, rr["regional"],
                 qreg[0] if do_rerank else None, qq, rr["vote_matrix"], mask,
                 k=scfg.k, depth=depth, qe_n=scfg.qe_n,
                 qe_alpha=scfg.qe_alpha, nprobe=nprobe, do_qe=scfg.qe_enabled,
-                do_rerank=do_rerank, int4=self.is_int4,
-                spatial_weight=rr["spatial_weight"])
+                do_rerank=do_rerank, spatial_weight=rr["spatial_weight"])
 
         row_bytes = ivf.buckets.shape[2] * ivf.buckets.element_size()
         per_q = max(1, nprobe * ivf.bucket_capacity * row_bytes)
@@ -1555,18 +1569,16 @@ class Index:
         nprobe = min(scfg.ivfpq_nprobe, v.n_clusters)
         depth = max(v.depth, scfg.k, scfg.qe_n if scfg.qe_enabled else 0,
                     scfg.rerank_depth if do_rerank else 0)
-        depth = min(depth, self.descriptors.shape[0])
+        depth = min(depth, self.n_pad)
         rr = self._rerank_operands(do_rerank, scfg)
 
         def run(qq, *qreg):
             return _ivfpq_composite(
-                v.arrays, self.descriptors, self.ids, self.scales,
-                rr["regional"], rr["regional_scales"],
+                v.arrays, self._rows_f32_at, self.ids, rr["regional"],
                 qreg[0] if do_rerank else None, qq, rr["vote_matrix"], mask,
                 k=scfg.k, depth=depth, qe_n=scfg.qe_n,
                 qe_alpha=scfg.qe_alpha, nprobe=nprobe, do_qe=scfg.qe_enabled,
-                do_rerank=do_rerank, int4=self.is_int4,
-                spatial_weight=rr["spatial_weight"],
+                do_rerank=do_rerank, spatial_weight=rr["spatial_weight"],
                 rerank_depth=min(scfg.rerank_depth, depth))
 
         per_q = max(1, nprobe * v.bucket_capacity * v.bytes_per_row

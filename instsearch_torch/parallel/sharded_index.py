@@ -759,9 +759,14 @@ class ShardedIndex:
         process holds, brings every process all of them. Rows are
         process-major, so every process knows each row's owner; the bytes
         cross as ``uint8``, so no value (a -0.0, an int8 row) passes
-        through arithmetic."""
+        through arithmetic. The contract is enforced: before any row moves,
+        one ``all_gather`` of a checksum of ``pos`` (:meth:`_same_positions`)
+        raises ``RuntimeError`` on every process when they passed different
+        positions."""
         dev = self.mesh.devices[0]
         pos = pos.to(dev).long().reshape(-1)
+        if self.mesh.group is not None:
+            self._same_positions(pos)
         specs = {}           # field -> (row shape, dtype, elements a row)
         for f in fields:
             part = getattr(self.shards[0], f)
@@ -806,6 +811,25 @@ class ShardedIndex:
                 (len(pos),) + tail)
             col += nb
         return res
+
+    def _same_positions(self, pos: torch.Tensor) -> None:
+        """Raise ``RuntimeError`` on every process unless all of the mesh's
+        group passed the same positions ``pos [n]`` (int64, on the first
+        device): one ``all_gather`` of three int64 sums (the count, the
+        positions, and the positions weighted by their slot), so a
+        different count, value or order is caught before a collective of
+        another shape could hang."""
+        import torch.distributed as dist
+        slot = torch.arange(1, len(pos) + 1, device=pos.device)
+        sig = torch.stack([pos.new_tensor(len(pos)), pos.sum(),
+                           (pos * slot).sum()])
+        sigs = [torch.empty_like(sig) for _ in range(self.mesh.world)]
+        dist.all_gather(sigs, sig, group=self.mesh.group)
+        if any(not torch.equal(t, sigs[0]) for t in sigs[1:]):
+            raise RuntimeError(
+                "ShardedIndex.read_rows is collective: the processes passed "
+                "different positions (count, sum, weighted sum per process: "
+                f"{[t.tolist() for t in sigs]})")
 
     def write_rows(self, pos: torch.Tensor, rows: dict) -> None:
         """Write ``rows`` (``Shard`` field -> ``[n, ...]`` values in the

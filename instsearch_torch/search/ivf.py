@@ -42,7 +42,7 @@ import torch
 from ..ops.kmeans import assign_clusters, fit_kmeans, pick_chunk
 from ..utils.chunking import run_chunked
 from ..utils.device import resolve_device
-from .bruteforce import gather_rows_f32, select_topk
+from .bruteforce import select_topk
 from .qe import expand_from_candidates
 from .rerank import rerank_from_candidates
 
@@ -156,20 +156,23 @@ def _ivf_candidates(centroids, buckets, bucket_scales, bucket_pos, spill,
                               torch.full_like(top_p, -1))
 
 
-def _ivf_composite(ivf, descriptors, ids, scales, regional, regional_scales,
-                   query_regional, q, vote_matrix=None, mask=None, *, k: int,
-                   depth: int, qe_n: int, qe_alpha: float, nprobe: int,
-                   do_qe: bool, do_rerank: bool, int4: bool = False,
-                   spatial_weight: float = 0.0):
+def _ivf_composite(ivf, rows_f32, ids, regional, query_regional, q,
+                   vote_matrix=None, mask=None, *, k: int, depth: int,
+                   qe_n: int, qe_alpha: float, nprobe: int, do_qe: bool,
+                   do_rerank: bool, spatial_weight: float = 0.0):
     """The reference's ``_ivf_composite_jit``: the exact composite with
     every candidate selection the pruned scan; αQE rows and re-rank regions
-    gather from the MAIN store by position. ``ivf``: the view's seven
-    arrays (``IVFIndex.arrays``). -> ``(scores [B, k], ids [B, k])``."""
+    are read from the MAIN store by position: ``rows_f32(pos)`` gives the
+    rows at positions ``pos [...]`` dequantized to f32 ``[..., W]``
+    (``Index._rows_f32_at``), ``regional`` is the regional store or a
+    reader of its rows (``search/rerank.py::region_similarities``); on a
+    placed store both read only those rows from the shards. The scan reads
+    the view's own bucket copies. ``ivf``: the view's seven arrays
+    (``IVFIndex.arrays``). -> ``(scores [B, k], ids [B, k])``."""
     q = q.float()
     if do_qe:
         s, pos = _ivf_candidates(*ivf, q, mask, k=qe_n, nprobe=nprobe)
-        rows = gather_rows_f32(descriptors, pos.clamp(min=0), scales,
-                               int4=int4)
+        rows = rows_f32(pos.clamp(min=0))
         rows = torch.where((s > _NEG_INF)[..., None], rows,
                            torch.zeros((), device=rows.device))
         q = expand_from_candidates(q, s, rows, qe_alpha)
@@ -177,8 +180,7 @@ def _ivf_composite(ivf, descriptors, ids, scales, regional, regional_scales,
         g, pos = _ivf_candidates(*ivf, q, mask, k=depth, nprobe=nprobe)
         return rerank_from_candidates(
             regional, ids, g, pos, query_regional, k=k,
-            regional_scales=regional_scales, spatial_weight=spatial_weight,
-            vote_matrix=vote_matrix)
+            spatial_weight=spatial_weight, vote_matrix=vote_matrix)
     s, pos = _ivf_candidates(*ivf, q, mask, k=k, nprobe=nprobe)
     out = torch.where(pos >= 0, ids[pos.clamp(min=0).long()],
                       torch.full_like(pos, -1))

@@ -47,7 +47,7 @@ from ..ops.kmeans import assign_clusters, fit_kmeans, pick_chunk
 from ..ops.pq import (PQCodebook, default_m, encode_apq, encode_pq, fit_apq,
                       fit_opq, fit_pq, pq_lut)
 from ..utils.device import resolve_device
-from .bruteforce import gather_rows_f32, select_topk
+from .bruteforce import select_topk
 from .ivf import (_bucket_layout, _remap_positions, _spill_slots,
                   recall_vs_exact)
 from .qe import expand_from_candidates
@@ -129,18 +129,21 @@ def _adc_select(centroids, codes, bucket_pos, spill_codes, spill_pos,
     return adc_s, torch.where(adc_s > _NEG_INF, pos, torch.full_like(pos, -1))
 
 
-def _ivfpq_candidates(view_arrays, descriptors, scales, q, mask=None, *,
-                      depth: int, nprobe: int, int4: bool):
+def _ivfpq_candidates(view_arrays, rows_f32, q, mask=None, *, depth: int,
+                      nprobe: int):
     """The cascade stage: the pruned ADC selection, then the exact f32
     re-score of its candidates from the main store (the ORIGINAL query
     against unrotated rows) and a re-sort -> ``(exact scores [B, depth]
     descending, positions [B, depth], -1 empty)``. ``view_arrays``:
-    ``IVFPQView.arrays``; ``q`` has the store's width."""
+    ``IVFPQView.arrays``; ``rows_f32(pos)`` reads the store's rows at
+    positions ``pos [...]`` dequantized to f32 ``[..., W]``
+    (``Index._rows_f32_at``: a placed store's from its shards, only those
+    rows); ``q`` has the store's width."""
     qf = q.float()
     adc_s, pos = _adc_select(*view_arrays, qf, mask=mask, depth=depth,
                              nprobe=nprobe)
     dd = adc_s.shape[1]
-    rows = gather_rows_f32(descriptors, pos.clamp(min=0), scales, int4=int4)
+    rows = rows_f32(pos.clamp(min=0))
     exact = torch.einsum("bkd,bd->bk", rows, qf).masked_fill(pos < 0,
                                                              _NEG_INF)
     exact, order = torch.sort(exact, dim=1, descending=True, stable=True)
@@ -153,25 +156,24 @@ def _ivfpq_candidates(view_arrays, descriptors, scales, q, mask=None, *,
     return exact, pos
 
 
-def _ivfpq_composite(view_arrays, descriptors, ids, scales, regional,
-                     regional_scales, query_regional, q, vote_matrix=None,
-                     mask=None, *, k: int, depth: int, qe_n: int,
-                     qe_alpha: float, nprobe: int, do_qe: bool,
-                     do_rerank: bool, int4: bool, spatial_weight: float = 0.0,
+def _ivfpq_composite(view_arrays, rows_f32, ids, regional, query_regional,
+                     q, vote_matrix=None, mask=None, *, k: int, depth: int,
+                     qe_n: int, qe_alpha: float, nprobe: int, do_qe: bool,
+                     do_rerank: bool, spatial_weight: float = 0.0,
                      rerank_depth: int = 0):
     """The reference's ``_ivfpq_composite_jit``: every candidate stage is
-    the cascade; αQE rows and re-rank regions gather from the MAIN store by
-    position. -> ``(scores [B, k], ids [B, k])``."""
+    the cascade; αQE rows (``rows_f32``) and re-rank regions (``regional``,
+    the regional store or a reader of its rows) are read from the MAIN
+    store by position. -> ``(scores [B, k], ids [B, k])``."""
     q = q.float()
 
     def sel(qq):
-        return _ivfpq_candidates(view_arrays, descriptors, scales, qq, mask,
-                                 depth=depth, nprobe=nprobe, int4=int4)
+        return _ivfpq_candidates(view_arrays, rows_f32, qq, mask,
+                                 depth=depth, nprobe=nprobe)
     if do_qe:
         s, pos = sel(q)
         s_n, pos_n = s[:, :qe_n], pos[:, :qe_n]
-        rows = gather_rows_f32(descriptors, pos_n.clamp(min=0), scales,
-                               int4=int4)
+        rows = rows_f32(pos_n.clamp(min=0))
         rows = torch.where((s_n > _NEG_INF)[..., None], rows,
                            torch.zeros((), device=rows.device))
         q = expand_from_candidates(q, s_n, rows, qe_alpha)
@@ -180,8 +182,7 @@ def _ivfpq_composite(view_arrays, descriptors, ids, scales, regional,
         rd = min(rerank_depth or depth, depth)
         return rerank_from_candidates(
             regional, ids, s[:, :rd], pos[:, :rd], query_regional, k=k,
-            regional_scales=regional_scales, spatial_weight=spatial_weight,
-            vote_matrix=vote_matrix)
+            spatial_weight=spatial_weight, vote_matrix=vote_matrix)
     out = torch.where(pos >= 0, ids[pos.clamp(min=0).long()],
                       torch.full_like(pos, -1))
     return s[:, :k], out[:, :k]
@@ -463,17 +464,17 @@ class IVFPQView:
     def candidates(self, index, queries, depth: int | None = None,
                    nprobe: int | None = None):
         """``(exact scores [B, depth], row POSITIONS [B, depth])``, the
-        cascade stage already re-scored. A placed index is gathered first,
-        as ``Index.search`` gathers it for an armed tier."""
-        index.gather()
+        cascade stage already re-scored. A placed index
+        (``Index.load(mesh=)``) stays placed: the re-score reads its
+        candidates' rows from the shards (across processes, collectively:
+        every process calls this with the same queries)."""
         p = min(nprobe or self.nprobe, self.n_clusters)
         q = torch.as_tensor(queries, device=index.device).float()
         if q.ndim == 1:
             q = q[None]
-        return _ivfpq_candidates(self.arrays, index.descriptors,
-                                 index.scales, index._match_query_dim(q),
-                                 depth=depth or self.depth, nprobe=p,
-                                 int4=index.is_int4)
+        return _ivfpq_candidates(self.arrays, index._rows_f32_at,
+                                 index._match_query_dim(q),
+                                 depth=depth or self.depth, nprobe=p)
 
     def search(self, index, queries, k: int = 10, depth: int | None = None,
                nprobe: int | None = None):

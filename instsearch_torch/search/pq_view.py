@@ -42,7 +42,7 @@ from ..kernels.topk_matmul import K_MAX
 from ..ops.pq import (PQCodebook, default_m, encode_apq, encode_pq, fit_apq,
                       fit_opq, fit_pq, pq_lut, unpack_pq)
 from ..utils.device import resolve_device
-from .bruteforce import gather_rows_f32, select_topk
+from .bruteforce import select_topk
 from .qe import expand_from_candidates
 from .rerank import rerank_from_candidates
 
@@ -64,13 +64,15 @@ def _oracle_scores(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return torch.cat(out, dim=1)
 
 
-def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
-                   rotation=None, mask=None, *, depth: int, int4: bool,
-                   use_kernel: bool):
+def _pq_candidates(codes, centroids, rows_f32, q, nv: int, rotation=None,
+                   mask=None, *, depth: int, use_kernel: bool):
     """ADC top-``depth`` over the codes, then the exact f32 re-score of
     those rows from the main store and a re-sort -> ``(exact scores
     [B, depth] f32 descending, positions [B, depth] int32, -1 for empty)``.
-    ``codes`` may carry padding bytes past M/2 (``PQView.packed``); ``q``
+    ``rows_f32(pos)`` reads the store's rows at positions ``pos [...]``,
+    dequantized to f32 ``[..., W]`` (``Index._rows_f32_at``: a placed
+    store's from its shards, only those rows). ``codes`` may carry padding
+    bytes past M/2 (``PQView.packed``); ``q``
     has the store's width, whose columns past the codebook's are zeros.
     With an OPQ ``rotation`` the scan scores the rotated query; the
     re-score keeps the original one against the unrotated store. A depth
@@ -88,7 +90,7 @@ def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
         if mask is not None:
             rows_ok = rows_ok & (mask.reshape(-1) > 0)
         _, pos = select_topk(s.masked_fill(~rows_ok, _NEG_INF), depth)
-    rows = gather_rows_f32(descriptors, pos.clamp(min=0), scales, int4=int4)
+    rows = rows_f32(pos.clamp(min=0))
     exact = torch.einsum("bkd,bd->bk", rows, q.float())
     exact = exact.masked_fill(pos < 0, _NEG_INF)
     # re-sort by the exact score, so the QE stage's top-n slice sees the
@@ -99,27 +101,27 @@ def _pq_candidates(codes, centroids, descriptors, scales, q, nv: int,
     return exact, torch.where(exact > _NEG_INF, pos, torch.full_like(pos, -1))
 
 
-def _pq_composite(codes, centroids, descriptors, ids, scales, q, nv: int,
+def _pq_composite(codes, centroids, rows_f32, ids, q, nv: int,
                   rotation=None, mask=None, regional=None,
-                  regional_scales=None, query_regional=None,
-                  vote_matrix=None, *, k: int, depth: int, qe_n: int,
-                  qe_alpha: float, do_qe: bool, int4: bool,
+                  query_regional=None, vote_matrix=None, *, k: int,
+                  depth: int, qe_n: int, qe_alpha: float, do_qe: bool,
                   use_kernel: bool, do_rerank: bool = False,
                   spatial_weight: float = 0.0, rerank_depth: int = 0):
     """The reference's ``_pq_composite_jit``: every candidate selection is
-    the ADC-scan -> exact-re-score cascade; the QE rows and the re-rank
-    regions gather from the main store by position, the re-rank over the
-    top ``rerank_depth`` of the cascade's exact ranking. -> ``(scores
-    [B, k], ids [B, k])``."""
+    the ADC-scan -> exact-re-score cascade; the QE rows (``rows_f32``, as
+    in :func:`_pq_candidates`) and the re-rank regions (``regional``, the
+    regional store or a reader of its rows,
+    ``search/rerank.py::region_similarities``) are read from the main
+    store by position, the re-rank over the top ``rerank_depth`` of the
+    cascade's exact ranking. -> ``(scores [B, k], ids [B, k])``."""
     q = q.float()
-    sel = partial(_pq_candidates, codes, centroids, descriptors, scales,
-                  rotation=rotation, mask=mask, depth=depth, int4=int4,
+    sel = partial(_pq_candidates, codes, centroids, rows_f32,
+                  rotation=rotation, mask=mask, depth=depth,
                   use_kernel=use_kernel)
     if do_qe:
         s, pos = sel(q, nv)
         s_n, pos_n = s[:, :qe_n], pos[:, :qe_n]
-        rows = gather_rows_f32(descriptors, pos_n.clamp(min=0), scales,
-                               int4=int4)
+        rows = rows_f32(pos_n.clamp(min=0))
         rows = torch.where((s_n > _NEG_INF)[..., None], rows,
                            torch.zeros((), device=rows.device))
         q = expand_from_candidates(q, s_n, rows, qe_alpha)
@@ -128,8 +130,7 @@ def _pq_composite(codes, centroids, descriptors, ids, scales, q, nv: int,
         rd = min(rerank_depth or depth, depth)
         return rerank_from_candidates(
             regional, ids, s[:, :rd], pos[:, :rd], query_regional, k=k,
-            regional_scales=regional_scales, spatial_weight=spatial_weight,
-            vote_matrix=vote_matrix)
+            spatial_weight=spatial_weight, vote_matrix=vote_matrix)
     out_ids = torch.where(pos >= 0, ids[pos.clamp(min=0).long()],
                           torch.full_like(pos, -1))
     return s[:, :k], out_ids[:, :k]
@@ -316,18 +317,18 @@ class PQView:
     def candidates(self, index, queries, depth: int | None = None):
         """``(exact scores [B, depth], row positions [B, depth])``, the
         cascade stage already re-scored, on the route of the index's own
-        ``cfg.search.use_pallas``. A placed index is gathered first, as
-        ``Index.search`` gathers it for an armed tier."""
-        index.gather()
+        ``cfg.search.use_pallas``. A placed index (``Index.load(mesh=)``)
+        stays placed: the re-score reads its candidates' rows from the
+        shards (across processes, collectively: every process calls this
+        with the same queries)."""
         depth = min(depth or self.depth, self.codes.shape[0])
         q = torch.as_tensor(queries, device=index.device).float()
         if q.ndim == 1:
             q = q[None]
         q = index._match_query_dim(q)
         return _pq_candidates(
-            self.packed, self.codebook.centroids, index.descriptors,
-            index.scales, q, index.num_valid, self.rotation, depth=depth,
-            int4=index.is_int4,
+            self.packed, self.codebook.centroids, index._rows_f32_at, q,
+            index.num_valid, self.rotation, depth=depth,
             use_kernel=bool(index.cfg.search.use_pallas))
 
     def search(self, index, queries, k: int = 10, depth: int | None = None):

@@ -23,7 +23,7 @@ from .bruteforce import select_topk
 from .spatial import spatial_consistency_scores
 
 
-def region_similarities(regional_store: torch.Tensor, top_pos: torch.Tensor,
+def region_similarities(regional_store, top_pos: torch.Tensor,
                         query_regional: torch.Tensor,
                         regional_scales: "torch.Tensor | None" = None
                         ) -> torch.Tensor:
@@ -31,14 +31,23 @@ def region_similarities(regional_store: torch.Tensor, top_pos: torch.Tensor,
     depth]``: the ``[Q, depth, R, D]`` candidate regions gathered from
     ``regional_store [N_pad, R, D]`` -> ``sim [Q, depth, Rq, R]`` f32. An
     int8 store is not dequantized first: its per-(row, region) scale
-    factors out of the product over D and multiplies ``sim``."""
+    factors out of the product over D and multiplies ``sim``.
+    ``regional_store`` may instead be a reader ``pos -> (regions [..., R,
+    D] in the store's dtype, their scales [..., R] or None)`` that reads
+    only the candidates' rows wherever the store lies (a placed store's:
+    ``Index._regions_at``); ``regional_scales`` is then unused."""
     pos = top_pos.clamp(min=0).long()
     with record_function("rerank.gather"):
-        cand = regional_store[pos].float()
+        if callable(regional_store):
+            cand, cand_scales = regional_store(pos)
+        else:
+            cand, cand_scales = regional_store[pos], (
+                None if regional_scales is None else regional_scales[pos])
+        cand = cand.float()
     with record_function("rerank.products"):
         sim = torch.einsum("qrd,qcsd->qcrs", query_regional.float(), cand)
-        if regional_scales is not None:
-            sim = sim * regional_scales[pos][:, :, None, :]
+        if cand_scales is not None:
+            sim = sim * cand_scales[:, :, None, :]
     return sim
 
 
@@ -73,7 +82,7 @@ def fused_scores(sim: torch.Tensor, top_g: torch.Tensor, keep: torch.Tensor,
     return torch.where(keep, fused, torch.full_like(fused, float("-inf")))
 
 
-def rerank_from_candidates(regional_store: torch.Tensor, ids: torch.Tensor,
+def rerank_from_candidates(regional_store, ids: torch.Tensor,
                            top_g: torch.Tensor, top_pos: torch.Tensor,
                            query_regional: torch.Tensor, *, k: int = 10,
                            fuse_weight: float = 1.0,
@@ -83,8 +92,10 @@ def rerank_from_candidates(regional_store: torch.Tensor, ids: torch.Tensor,
     the fused top-k kernel, or the oracle) -> ``(scores [Q, k], ids [Q,
     k])`` by the fused score: regional match + ``spatial_weight`` * spatial
     consistency (with a ``vote_matrix``) + ``fuse_weight`` * global cosine.
-    Ties go to the lower candidate slot, as ``lax.top_k`` gives them; a
-    ``k`` past ``depth`` pads with ``(-inf, -1)``."""
+    ``regional_store``: the store, or a reader of its rows
+    (:func:`region_similarities`). Ties go to the lower candidate slot, as
+    ``lax.top_k`` gives them; a ``k`` past ``depth`` pads with ``(-inf,
+    -1)``."""
     sim = region_similarities(regional_store, top_pos, query_regional,
                               regional_scales)
     fused = fused_scores(sim, top_g, torch.isfinite(top_g),

@@ -16,12 +16,13 @@ the int8 index. What is checked:
     equals the unsharded load's and leaves the placement in place: ids and
     counts equal, scores within 1e-6 (a shard's f32 sums may take another
     order than the whole store's, as on every sharded route);
-  * ``add`` within capacity, ``remove``, ``merge_from`` and the PQ, IVF
-    and local-whitening fits keep the store placed; ``augment_database``,
-    ``attach_regional_store`` and an ``add`` past capacity gather it (the
-    reference's own results leave its placement there too); each gives
-    the unsharded load's result (tests/test_torch_placed_mutation.py holds
-    the placed mutations in full);
+  * ``add`` within capacity, ``remove``, ``merge_from``, the PQ, IVF
+    and local-whitening fits and a search through an armed candidate tier
+    keep the store placed; ``augment_database``, ``attach_regional_store``
+    and an ``add`` past capacity gather it (the reference's own results
+    leave its placement there too); each gives the unsharded load's
+    result (tests/test_torch_placed_mutation.py holds the placed mutations
+    in full, tests/test_torch_placed_tiers.py the tiers' searches);
   * a JAX-written npz loaded with a mesh answers as the JAX Index (ids
     equal, scores within 1e-5), a 2-D mesh places over its ``'shard'``
     axis, a process group of one (gloo) places its own shards, and rows
@@ -258,20 +259,27 @@ def test_view_fits_and_rewrites_gather(saved, op):
         assert torch.equal(u, v)
 
 
-def test_armed_tier_on_a_placed_load_gathers(saved, tmp_path):
+def test_armed_tier_on_a_placed_load_stays_placed(saved, tmp_path,
+                                                  monkeypatch):
     """An index saved with an armed PQ view and loaded placed: a search
-    through the cascade gathers the store first, with the unsharded
-    answers; with the tier off it serves placed."""
+    through the cascade reads its candidates' rows from the shards and
+    keeps the store placed (the reference's store stays ``P('shard')``
+    there too), with the unsharded answers; with the tier off it serves
+    placed too. ``Index.gather`` raises on the placed instance."""
     _, q, _, _ = _rows()
     whole = Index.load(saved[0]["int8"], device="cpu")
     whole.build_pq(m=4, iters=2, sample=None, depth=16)
     whole.save(str(tmp_path))
     placed = Index.load(str(tmp_path), mesh=_mesh())
+
+    def refuse():
+        raise AssertionError("the placed store was gathered")
+    monkeypatch.setattr(placed, "gather", refuse)
     off = placed.cfg.search.replace(pq_depth=0)
     _same(placed.search(q, off), whole.search(q, off))
     assert placed.placed
     _same(placed.search(q), whole.search(q))
-    assert not placed.placed
+    assert placed.placed
 
 
 def test_jax_npz_loaded_with_mesh(saved):

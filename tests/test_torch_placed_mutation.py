@@ -31,7 +31,14 @@ mutate``; ``save`` after the mutations (both forms) and its load; an
 ``tests/torch_mutation_worker.py`` (2 CPU shards each) run the same
 ``remove``/``add``/``merge_from``: each rank's parts equal its rows of the
 twin, the bytes through ``all_gather`` stay within the moved rows' bytes x
-world + 64 KiB, and an ``add`` past capacity raises ``ValueError``.
+world + 64 KiB, and an ``add`` past capacity raises ``ValueError``. The
+same processes hold the candidate tiers (PQ and IVF-PQ on int4, IVF on
+int8) on placed stores: after a ``remove`` and an ``add`` the views'
+arrays (their absorbs read rows through the collective ``read_rows``) and
+the tier searches, plain and with αQE, equal the single-process twins' on
+both ranks; a search moves no more than its candidate rows through
+``all_gather``; and positions that differ between the ranks raise
+``RuntimeError`` on both instead of hanging.
 """
 import contextlib
 import json
@@ -581,3 +588,66 @@ def test_two_processes_move_only_the_moved_rows(two_processes, kind):
         assert 0 < sent <= moved * WORLD + (64 << 10), (sent, moved)
         assert int(res[f"{kind}_store_bytes"]) > moved * WORLD + (64 << 10)
         assert "capacity" in str(res[f"{kind}_past_capacity"])
+
+
+@pytest.fixture(scope="module")
+def tier_twins(two_processes):
+    """The single-process twins of the workers' tier cases, from the files
+    rank 0 wrote: loaded unplaced, the same mutations, the same
+    searches."""
+    out, _ = two_processes
+    res = {}
+    for view in worker.TIER_VIEWS:
+        idx = Index.load(str(out / f"tier_{view}"), device="cpu")
+        worker.mutate_tier(idx)
+        res[view] = (idx, {mode: worker.tier_search(idx, mode)
+                           for mode in worker.TIER_MODES})
+    return res
+
+
+@pytest.mark.parametrize("view", list(worker.TIER_VIEWS))
+def test_two_processes_tiers_equal_the_twins(two_processes, tier_twins,
+                                             view):
+    """The views' arrays after the absorbs, and the tier searches plain and
+    with αQE, equal the twin's on both ranks; the stores stay placed."""
+    _, ranks = two_processes
+    twin, answers = tier_twins[view]
+    for res in ranks:
+        assert bool(res[f"tier_{view}_placed"])
+        assert res[f"tier_{view}_names"].tolist() == twin.names
+        state = worker.view_state(twin, view)
+        for name, want in state.items():
+            np.testing.assert_array_equal(res[f"tier_{view}_view_{name}"],
+                                          want)
+        for mode, (s, i) in answers.items():
+            np.testing.assert_array_equal(res[f"tier_{view}_{mode}_i"], i)
+            np.testing.assert_allclose(res[f"tier_{view}_{mode}_s"], s,
+                                       rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("view", list(worker.TIER_VIEWS))
+def test_two_processes_tiers_move_only_candidate_rows(two_processes, view):
+    """What a tier search moves through ``all_gather`` stays within its
+    row reads' bound (B x depth rows a cascade stage, B x qe_n for αQE,
+    each padded at most to all of them), far below the store a gather
+    would move; the IVF scan alone reads no row."""
+    _, ranks = two_processes
+    for res in ranks:
+        store = int(res[f"tier_{view}_store_bytes"])
+        for mode in worker.TIER_MODES:
+            sent = int(res[f"tier_{view}_{mode}_bytes"])
+            bound = int(res[f"tier_{view}_{mode}_bound"])
+            assert sent <= bound < store, (mode, sent, bound, store)
+            assert (sent == 0) == (view == "ivf" and mode == "plain")
+
+
+def test_two_processes_refuse_different_positions(two_processes):
+    """``read_rows`` given another count, then another value, on each rank
+    raises ``RuntimeError`` on both ranks (the fixture's timeout would
+    catch a hang); the group then serves an agreed read."""
+    _, ranks = two_processes
+    for res in ranks:
+        for label in ("count", "value"):
+            assert "different positions" in str(res[f"diverge_{label}"])
+    np.testing.assert_array_equal(ranks[0]["agreed_rows"],
+                                  ranks[1]["agreed_rows"])

@@ -10,8 +10,15 @@ For each store kind, rank 0 saves the seeded index and a seeded donor
 :func:`mutate` (a ``remove`` whose holes lie on rank 0 and survivors on
 rank 1, an ``add``, ``merge_from`` the placed donor and an unplaced one),
 with ``torch.distributed.all_gather`` wrapped to count the bytes of every
-tensor passed to it; then an ``add`` past capacity, which must raise. Its
-parts (as bytes), ids, names, search answers and counts go to
+tensor passed to it; then an ``add`` past capacity, which must raise. Then
+the candidate tiers: rank 0 saves a seeded store for each view of
+``TIER_VIEWS`` with the view fitted; every process loads it placed, runs
+:func:`mutate_tier` (the views' absorbs read the rows through the
+collective ``ShardedIndex.read_rows``) and :func:`tier_searches` (plain
+and with αQE), counting the bytes ``all_gather`` moves during each search;
+and every process passes ``read_rows`` other positions than the other
+process, which must raise ``RuntimeError`` on both. Its parts (as bytes),
+ids, names, views, search answers and counts go to
 ``<out_dir>/rank<rank>.npz``. It imports no JAX.
 """
 import os
@@ -62,6 +69,80 @@ def make_donor(kind, tag):
 
 def queries(kind):
     return _unit(np.random.default_rng(7), (5, D))
+
+
+# the candidate tiers: 480 rows in 512 (4 shards of 128, 2 a process) at
+# D = 64; each view on the store kind it serves
+TIER_VIEWS = {"pq": "int4", "ivfpq": "int4", "ivf": "int8"}
+TIER_N, TIER_CAPACITY, TIER_D = 480, 512, 64
+TIER_B, TIER_K, TIER_DEPTH, TIER_QE, TIER_ADDED = 3, 5, 16, 4, 6
+# holes on rank 0's rows (0..255) and on rank 1's; survivors on rank 1's
+TIER_REMOVE = ["t3", "t70", "t200", "t470"]
+CHECKSUM_BYTES = 24      # ShardedIndex._same_positions: three int64 sums
+
+
+def make_tier_index(view):
+    """The seeded store of a tier's case with ``view`` fitted and armed."""
+    from instsearch_torch import IndexConfig, PipelineConfig, SearchConfig
+    from instsearch_torch.index import Index
+    cfg = PipelineConfig(index=IndexConfig(dtype=TIER_VIEWS[view],
+                                           row_tile=8,
+                                           capacity=TIER_CAPACITY),
+                         search=SearchConfig(k=TIER_K))
+    idx = Index.from_descriptors(
+        _unit(np.random.default_rng(41), (TIER_N, TIER_D)),
+        [f"t{i}" for i in range(TIER_N)], cfg, device="cpu")
+    if view == "pq":
+        idx.build_pq(m=8, iters=3, sample=None, depth=TIER_DEPTH)
+    elif view == "ivf":
+        idx.build_ivf(n_clusters=8, nprobe=3, iters=3, sample=None)
+    else:
+        idx.build_ivfpq(n_clusters=8, nprobe=3, m=8, kmeans_iters=3,
+                        pq_iters=3, sample=None, depth=TIER_DEPTH)
+    return idx
+
+
+def mutate_tier(idx) -> None:
+    """A ``remove`` and an ``add``, which the view absorbs."""
+    idx.remove(TIER_REMOVE)
+    idx.add(descriptors=_unit(np.random.default_rng(47),
+                              (TIER_ADDED, TIER_D)),
+            names=[f"u{i}" for i in range(TIER_ADDED)])
+
+
+TIER_MODES = ("plain", "qe")
+
+
+def tier_search(idx, mode):
+    """The tier's search of the seeded queries, plain or with αQE."""
+    scfg = idx.cfg.search
+    if mode == "qe":
+        scfg = scfg.replace(qe_enabled=True, qe_n=TIER_QE)
+    return idx.search(_unit(np.random.default_rng(43), (TIER_B, TIER_D)),
+                      scfg)
+
+
+def tier_rows_read(view, mode) -> list:
+    """The positions each row read of a tier's search asks for, at most:
+    the exact re-score's B x depth a cascade stage, αQE's B x qe_n."""
+    bd, bq = TIER_B * TIER_DEPTH, TIER_B * TIER_QE
+    if view == "ivf":
+        return [bq] if mode == "qe" else []
+    return [bd, bq, bd] if mode == "qe" else [bd]
+
+
+def view_state(idx, view) -> dict:
+    """The view's arrays (name -> numpy), which its absorbs write."""
+    v = getattr(idx, view)
+    if view == "pq":
+        return {"packed": v.packed.numpy()}
+    if view == "ivf":
+        return {k: t.float().numpy() if t.dtype.is_floating_point
+                else t.numpy() for k, t in v._state().items()}
+    return {"bucket_pos": v.bucket_pos.numpy(),
+            "spill_codes": v.spill_codes.numpy(),
+            "spill_pos": v.spill_pos.numpy(),
+            "spill_cluster": v.spill_cluster.numpy()}
 
 
 def mutate(idx, donor, other) -> None:
@@ -142,10 +223,62 @@ def main(rank: int, world: int, port: str, out: str) -> None:
         res[f"{kind}_moved_bytes"] = (len(survivors) + DONOR) * row_bytes
         res[f"{kind}_store_bytes"] = idx.n_pad * row_bytes
         res[f"{kind}_all_gather_bytes"] = sent[0]
+    res.update(tiers(rank, out, mesh, counting, sent))
     assert "jax" not in sys.modules
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
     print(f"MUTATE_OK {rank}", flush=True)
+
+
+def tiers(rank, out, mesh, counting, sent) -> dict:
+    """The candidate tiers on the placed stores across the processes: the
+    views' absorbs, the searches with the bytes they move and their bound
+    (each row read's positions x row bytes, padded at most to all of them,
+    through ``world + 1`` tensors, plus the checksum), and the refusal of
+    positions that differ between the processes."""
+    import torch
+    import torch.distributed as dist
+    from instsearch_torch.index import Index
+    res, all_gather = {}, dist.all_gather
+    world = dist.get_world_size()
+    for view in TIER_VIEWS:
+        path = os.path.join(out, f"tier_{view}")
+        if rank == 0:
+            make_tier_index(view).save(path, streaming=False)
+        dist.barrier()
+        idx = Index.load(path, mesh=mesh)
+        mutate_tier(idx)
+        sh = idx.placement.shards[0]
+        row_bytes = (sh.x.shape[1] * sh.x.element_size()
+                     + sh.scales.element_size())
+        for mode in TIER_MODES:
+            sent[0] = 0
+            dist.all_gather = counting
+            try:
+                s, i = tier_search(idx, mode)
+            finally:
+                dist.all_gather = all_gather
+            res[f"tier_{view}_{mode}_s"], res[f"tier_{view}_{mode}_i"] = s, i
+            res[f"tier_{view}_{mode}_bytes"] = sent[0]
+            res[f"tier_{view}_{mode}_bound"] = sum(
+                (world + 1) * (n * row_bytes + CHECKSUM_BYTES)
+                for n in tier_rows_read(view, mode))
+        res[f"tier_{view}_store_bytes"] = idx.n_pad * row_bytes
+        res[f"tier_{view}_placed"] = idx.placed
+        res[f"tier_{view}_names"] = np.array(idx.names)
+        for name, a in view_state(idx, view).items():
+            res[f"tier_{view}_view_{name}"] = a
+    # positions that differ between the processes: a count, then a value
+    for label, pos in (("count", torch.arange(rank + 1)),
+                       ("value", torch.tensor([300 * rank]))):
+        try:
+            idx.placement.read_rows(pos)
+            res[f"diverge_{label}"] = "no error"
+        except RuntimeError as e:
+            res[f"diverge_{label}"] = str(e)
+    # the group still serves a read every process agrees on
+    res["agreed_rows"] = idx.placement.read_rows(torch.arange(4))["x"].numpy()
+    return res
 
 
 if __name__ == "__main__":
