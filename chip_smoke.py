@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs eighteen phases; each raises on failure and the process exits non-zero.
+runs twenty phases; each raises on failure and the process exits non-zero.
 Phase 12 runs right after phase 4, while phase 2's and phase 3's stores are
 as those phases left them (phase 10 mutates them).
 
@@ -321,7 +321,24 @@ as those phases left them (phase 10 mutates them).
      its twin alike, answers bit for bit the twin's at B = 1, 8, 128 (with
      αQE, and a subset for PQ), with ``Index.gather`` refusing, peak
      device growth within the twin's + 64 MiB, the PQ cascade once more
-     through an NCCL group of one (``launches_placed_tier``).
+     through an NCCL group of one (``launches_placed_tier``);
+ 20. the port's benchmark stages (``instsearch_torch/bench.py``), last:
+     (a) ``python -m instsearch_torch.cli bench --what all`` as a
+     user runs it (no ``--device``), at the reference's sizes; its JSON
+     line must hold every key the reference's ``run_bench("all")``
+     returns, every ``p50_ms`` and ``images_per_sec`` finite and positive,
+     every ``spread_ms`` ordered, every ``hbm_bw_gbps`` at most 1.05 x the
+     card's published 3,350 GB/s, every ``frac_of_roofline`` at most 1.05,
+     every ``path`` a kernel's, and each stage's ``kernel_launches`` its
+     kernel's; (b) ``bench_query``'s bf16 p50 at B = 1 and 128 over 1M x
+     512 within a factor of 2 of phase 1's CUDA-event medians of K1 at
+     those shapes (else the marginal measured the host); (c) in process,
+     once each, ``bench_pq``, ``bench_pq_capacity``, ``bench_ivf``,
+     ``bench_ivfpq``, ``bench_ivfpq_capacity``, ``bench_host_serve``,
+     ``bench_dba``, ``bench_train`` and the ``extended`` group's 4M-row
+     int8 and 8M-row int4 capacity queries at the reference's defaults but
+     ``bench_host_serve``'s rows (``HOST_SERVE_ROWS``), with the same
+     checks, K1-K4 counted a stage (``launches_bench``).
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -362,8 +379,9 @@ apart as ``launches_cli``, and phase 14e's fine-tuning runs, also apart as
 phase 15's searches, range searches and placed loads, also apart as
 ``launches_mesh`` (K1 and K2 launch there), phase 17's searches of
 the loaded streams, also apart as ``launches_persist`` (K1-K3), phase
-18's placed searches, ``launches_placed``, and phase 19's placed tier
-searches, ``launches_placed_tier`` (K4); K1 also at
+18's placed searches, ``launches_placed``, phase 19's placed tier
+searches, ``launches_placed_tier`` (K4), and phase 20's benchmark stages,
+``launches_bench`` (K1-K4); K1 also at
 D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
 (``ms_d2048_b{B}_k{k}``, ``plain_ms_...``, ``library_ms_...``,
 ``bound_ms_...``); K4 also at B =
@@ -6062,6 +6080,191 @@ def phase19(card, corpus, streams) -> dict:
     return {"launches": {"pq_topk": launches + groups}}
 
 
+HBM_PUBLISHED_GBPS = 3350.0  # the card's published HBM3 rate
+ROOF_SLACK = 1.05       # phase 20: a reading may pass the published rate or
+#                         the measured roofline by 5% (the probe's own jitter)
+BENCH_ALL_TIMEOUT = 600  # s, phase 20a's command
+# phase 20c: bench_host_serve's rows, the reference's 67,108,864 cut 8-fold:
+# its 32 GiB store file would take most of the phase's time to write; the
+# 4 GiB one keeps the gather random over a file beyond the card's L2 and the
+# host's caches alike (it is evicted for the cold read)
+HOST_SERVE_ROWS = 1 << 23
+# the reference's run_bench("all") keys, instsearch_tpu/bench.py:1885-1916
+BENCH_ALL_KEYS = (
+    "platform", "device", "extraction", "extraction_e2e", "query",
+    "query_b128", "query_int8", "query_int8_b128", "query_int4",
+    "query_int4_b128", "query_filtered", "query_e2e", "hbm_bw_gbps",
+    "query_sweep", "qe", "qe_b128", "rerank", "rerank_b32", "diffusion",
+    "refine", "lw", "lw_b32", "sharded_overhead", "protocol_eval_105k")
+# the kernel each stage of the table in PERF.md §6 reaches ("yes")
+BENCH_KERNELS = {
+    "query": "topk_matmul", "query_b128": "topk_matmul",
+    "query_int8": "topk_matmul_int8", "query_int8_b128": "topk_matmul_int8",
+    "query_int4": "topk_matmul_int4", "query_int4_b128": "topk_matmul_int4",
+    "query_filtered": "topk_matmul", "query_e2e": "topk_matmul",
+    "query_sweep_65536": "topk_matmul", "query_sweep_262144": "topk_matmul",
+    "qe": "topk_matmul", "qe_b128": "topk_matmul", "rerank": "topk_matmul",
+    "rerank_b32": "topk_matmul", "diffusion": "topk_matmul",
+    "refine": "topk_matmul_int4", "lw": "topk_matmul",
+    "lw_b32": "topk_matmul", "sharded_overhead": "topk_matmul",
+    "pq": "pq_topk", "pq_capacity": "pq_topk", "dba": "topk_matmul",
+    "ivf": "topk_matmul", "ivfpq": "topk_matmul",
+    "query_capacity_int8_4M": "topk_matmul_int8",
+    "query_capacity_int4_8M": "topk_matmul_int4"}
+BENCH_PATHS = ("kernel", "kernel-int8", "kernel-int4")
+
+
+def check_bench(tag: str, out, seen=None) -> None:
+    """Every ``p50_ms`` and ``images_per_sec`` finite and positive, every
+    ``spread_ms`` ordered, every ``hbm_bw_gbps`` within ROOF_SLACK of the
+    published rate, every ``frac_of_roofline`` within ROOF_SLACK of 1, and
+    every ``path`` a kernel's, anywhere in a stage's output."""
+    import math
+    if isinstance(out, list):
+        for i, v in enumerate(out):
+            check_bench(f"{tag}[{i}]", v)
+        return
+    if not isinstance(out, dict):
+        return
+    for key, v in out.items():
+        where = f"{tag}.{key}"
+        if key in ("p50_ms", "images_per_sec", "step_ms", "rows_per_sec",
+                   "images_per_sec_e2e", "e2e_p50_ms"):
+            if not (isinstance(v, (int, float)) and math.isfinite(v)
+                    and v > 0):
+                fail(f"phase 20: {where} = {v}")
+        elif key == "spread_ms" and not v[0] <= v[1]:
+            fail(f"phase 20: {where} = {v} (p10 > p90)")
+        elif key == "hbm_bw_gbps" and not (
+                0 < v <= ROOF_SLACK * HBM_PUBLISHED_GBPS):
+            fail(f"phase 20: {where} = {v} GB/s, past the card's "
+                 f"{HBM_PUBLISHED_GBPS} x {ROOF_SLACK}")
+        elif key == "frac_of_roofline" and not 0 < v <= ROOF_SLACK:
+            fail(f"phase 20: {where} = {v}")
+        elif key == "path" and v not in BENCH_PATHS:
+            fail(f"phase 20: {where} = {v!r}: not a kernel's route")
+        else:
+            check_bench(where, v)
+
+
+def bench_summary(card: str, tag: str, out: dict) -> None:
+    """One report line of a stage's scalar numbers (and its per-batch
+    entries', flattened)."""
+    flat = {}
+    for key, v in out.items():
+        if isinstance(v, (int, float, str)) or key == "spread_ms":
+            flat[key] = v
+        elif key in ("per_batch", "recall_at_k_vs_nprobe",
+                     "recall_at_k_vs_depth", "host_quality"):
+            flat[key] = v
+    report(card, phase=20, stage=tag, **flat)
+
+
+def bench_kernels(tag: str, counts: dict) -> None:
+    """The stage's kernel (``BENCH_KERNELS``) launched at least once."""
+    want = BENCH_KERNELS.get(tag)
+    if want is not None and counts.get(want, 0) < 1:
+        fail(f"phase 20: {tag} launched no {want} ({counts})")
+
+
+def phase20(card: str, timings: dict) -> dict:
+    """The port's benchmark stages on the card (module docstring, item 20):
+    (a) ``cli bench --what all`` as a process, (b) its bf16 query p50s
+    against phase 1's K1 medians, (c) the other stages in process, once
+    each. Returns ``{"launches": counts by kernel}``."""
+    import torch
+
+    from instsearch_torch import bench
+    t_phase = time.perf_counter()
+    launches: dict = {}
+
+    # (a) the command a user runs, at the reference's sizes
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "instsearch_torch.cli", "bench", "--what",
+         "all"], capture_output=True, text=True, cwd=HERE, env=cli_env(),
+        timeout=BENCH_ALL_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("{"):          # the stages' progress lines
+            report(card, phase=20, part="a", **json.loads(ln))
+    if proc.returncode != 0:
+        fail(f"phase 20: cli bench --what all exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        fail(f"phase 20: cli bench printed {len(lines)} JSON lines")
+    out = json.loads(lines[0])
+    missing = [k for k in BENCH_ALL_KEYS if k not in out]
+    if missing:
+        fail(f"phase 20: cli bench lacks the reference's keys {missing}")
+    if out["platform"] != "cuda":
+        fail(f"phase 20: cli bench ran on {out['platform']}")
+    check_bench("all", {key: out[key] for key in BENCH_ALL_KEYS[2:]})
+    for key in BENCH_ALL_KEYS[2:]:
+        if isinstance(out[key], dict):
+            bench_summary(card, key, out[key])
+    for st in out["query_sweep"][:2]:
+        bench_summary(card, f"query_sweep_{st['n']}", st)
+    for tag, counts in out["kernel_launches"].items():
+        bench_kernels(tag, counts)
+        add_counts(launches, counts)
+    report(card, phase=20, part="a", command_s=wall,
+           hbm_bw_gbps=out["hbm_bw_gbps"], peak_gib=out.get("peak_gib"))
+
+    # (b) the method measures the kernel: the marginal p50 of bench_query
+    # against phase 1's single-call CUDA-event medians of K1
+    for tag, shape in (("query", "bf16 N=1M D=512 B=1 k=10"),
+                       ("query_b128", "bf16 N=1M D=512 B=128 k=10")):
+        got, k1 = out[tag]["p50_ms"], timings[shape]["ms"]
+        report(card, phase=20, part="b", stage=tag, bench_p50_ms=got,
+               phase1_k1_ms=k1, ratio=got / k1)
+        if not 0.5 <= got / k1 <= 2.0:
+            fail(f"phase 20: {tag} p50 {got:.4f} ms against phase 1's K1 "
+                 f"{k1:.4f} ms: past a factor of 2")
+
+    # (c) the other stages, in process, once each
+    dev = torch.device("cuda")
+    stages = (
+        ("pq", bench.bench_pq, {}),
+        ("pq_capacity", bench.bench_pq_capacity, {}),
+        ("ivf", bench.bench_ivf, {}),
+        ("ivfpq", bench.bench_ivfpq, {}),
+        ("ivfpq_capacity", bench.bench_ivfpq_capacity, {}),
+        ("host_serve", bench.bench_host_serve, {"n": HOST_SERVE_ROWS}),
+        ("dba", bench.bench_dba, {}),
+        ("train", bench.bench_train, {}),
+        ("query_capacity_int8_4M", bench.bench_query,
+         {"n": 4_194_304, "dtype": "int8"}),
+        ("query_capacity_int4_8M", bench.bench_query,
+         {"n": 8_388_608, "dtype": "int4"}))
+    results = {}
+    for tag, fn, kw in stages:
+        if tag == "host_serve":     # the deployment latency's ADC part
+            kw = dict(kw, adc_chained_ms={
+                b: e["p50_ms"] for b, e in
+                results["ivfpq_capacity"]["per_batch"].items()})
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res, counts = count_launches(lambda: fn(device=dev, **kw))
+        wall = time.perf_counter() - t0
+        results[tag] = res
+        check_bench(tag, res)
+        bench_kernels(tag, counts)
+        add_counts(launches, counts)
+        bench_summary(card, tag, res)
+        report(card, phase=20, part="c", stage=tag, wall_s=wall,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               launches={k: v for k, v in counts.items() if v})
+        del res
+        torch.cuda.empty_cache()
+    if "production_p50_ms" not in results["host_serve"]:
+        fail("phase 20: bench_host_serve composed no production_p50_ms")
+    report(card, phase=20, wall_s=time.perf_counter() - t_phase,
+           launches=launches)
+    return {"launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -6170,6 +6373,8 @@ def main() -> int:
     train = phase14(card, gen)["launches"]
     torch.cuda.empty_cache()
     phase16(card, gen)
+    torch.cuda.empty_cache()
+    bench = phase20(card, timings)["launches"]
     phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
               "topk_matmul_int4": res8c["launches"]}
     # the sharded routes' launches, on the main path too (phases 3, 8b, 9,
@@ -6210,7 +6415,8 @@ def main() -> int:
                                   + train.get(name, 0) + mesh.get(name, 0)
                                   + persist.get(name, 0)
                                   + placed.get(name, 0)
-                                  + placed_tier.get(name, 0)),
+                                  + placed_tier.get(name, 0)
+                                  + bench.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
@@ -6221,6 +6427,7 @@ def main() -> int:
                      "launches_persist": persist.get(name, 0),
                      "launches_placed": placed.get(name, 0),
                      "launches_placed_tier": placed_tier.get(name, 0),
+                     "launches_bench": bench.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -6,6 +6,7 @@ its subcommands, options and output JSON, key for key).
     python -m instsearch_torch.cli evaluate --dataset mini [--config F]
     python -m instsearch_torch.cli serve --index IDX [--port N]
     python -m instsearch_torch.cli --device cpu workloads
+    python -m instsearch_torch.cli bench [--what extraction|query|all|extended]
 
 One option the reference does not have: ``--device`` (before or after the
 subcommand), where the work runs, the port's counterpart of
@@ -20,12 +21,16 @@ it, ``<out>.meta.json`` (``gem_p``, ``backbone``, ``pooling``,
 ``<out>.whitening.npz``; ``build-index --weights`` and ``evaluate
 --weights`` read it.
 
-Refused with exit code 2: ``bench``, with a message naming the ROADMAP
-item (M10a, the port's benchmark), and ``--weights`` given an orbax tree,
-with a message naming ``tools/orbax_to_port.py``, which converts a
-``finetune`` checkpoint the JAX package wrote into the port's form where JAX
-and orbax are installed (a torchvision ``.pth``/``.pt`` checkpoint is
-imported by ``models/torch_import.py``).
+``bench`` runs the port's benchmark stages (``bench.py``, ``--what
+extraction|query|all|extended``) at the reference's sizes and prints one
+JSON line: each stage's keys, ``counters``, and beside the reference's keys
+each stage's kernel launches and, on the card, its peak device memory.
+
+Refused with exit code 2: ``--weights`` given an orbax tree, with a message
+naming ``tools/orbax_to_port.py``, which converts a ``finetune`` checkpoint
+the JAX package wrote into the port's form where JAX and orbax are
+installed (a torchvision ``.pth``/``.pt`` checkpoint is imported by
+``models/torch_import.py``).
 """
 from __future__ import annotations
 
@@ -452,8 +457,22 @@ def cmd_evaluate(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    return _error("bench runs the JAX package's benchmark harness, which is "
-                  "not ported; the port's benchmark is ROADMAP M10a")
+    from .bench import run_bench
+    from .utils.observe import COUNTERS
+    if args.trace:
+        from .utils.observe import trace
+        with trace(args.trace):
+            out = run_bench(args.what, device=args.device)
+        out["trace_dir"] = args.trace
+    else:
+        out = run_bench(args.what, device=args.device)
+    if args.tensorboard:
+        from .utils.observe import emit_tensorboard
+        emit_tensorboard(args.tensorboard, scalars=out)   # bench/* scalars
+        out["tensorboard_dir"] = args.tensorboard
+    out["counters"] = COUNTERS.dump()   # after emit: counters/* written once
+    print(json.dumps(out))
+    return 0
 
 
 def cmd_finetune(args) -> int:
@@ -746,8 +765,7 @@ def main(argv=None) -> int:
     sv.set_defaults(fn=cmd_serve)
 
     be = sub.add_parser("bench", parents=[on_sub],
-                        help="run benchmark harness (not ported: ROADMAP "
-                             "M10a)")
+                        help="run benchmark harness")
     be.add_argument("--what", default="all",
                     choices=["extraction", "query", "all", "extended"])
     be.add_argument("--trace", default=None, metavar="DIR",
@@ -792,11 +810,10 @@ def main(argv=None) -> int:
     w.set_defaults(fn=cmd_workloads)
 
     args = p.parse_args(argv)
-    if args.fn is not cmd_bench:
-        try:
-            args.device = resolve_device(args.device)
-        except RuntimeError as e:
-            return _error(str(e))
+    try:
+        args.device = resolve_device(args.device)
+    except RuntimeError as e:
+        return _error(str(e))
     return args.fn(args)
 
 

@@ -8,8 +8,8 @@ with each view, update-index, merge-index, query, info, dedupe, evaluate
 image index, sharded, and a host store with ``--adc-only``) and over TCP
 as ``python -m instsearch_torch.cli``, workloads, finetune (with
 ``--fit-lw`` and ``--eval-dataset``) and its checkpoint read back by
-``build-index --weights`` and ``evaluate --weights``; bench and orbax
-weights refuse with exit code 2.
+``build-index --weights`` and ``evaluate --weights``; orbax weights refuse
+with exit code 2 (``bench`` runs: ``test_torch_bench_cli.py``).
 
 Against the reference, on the same inputs:
   * the subcommands and every option's spellings (``-h``), the port's
@@ -438,16 +438,13 @@ def test_workloads_subcommand(rig, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["bench"], "M10a"),
-    (["bench", "--what", "query"], "M10a"),
     (["evaluate", "--weights", "finetuned_checkpoint"], "M10"),
 ])
 def test_refusals(capsys, argv, item):
     rc, out, err = port(capsys, *argv)
     assert rc == 2 and out == []
     # an orbax tree (once M10's reader) is refused naming the converter
-    assert {"M10a": "ROADMAP M10a", "M10": "tools/orbax_to_port.py"}[
-        item] in err
+    assert {"M10": "tools/orbax_to_port.py"}[item] in err
 
 
 @pytest.fixture(scope="module")

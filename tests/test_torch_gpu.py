@@ -1108,3 +1108,19 @@ def test_adc_select_memory_and_cpu_agreement(gen):
         other = np.flatnonzero(cp[r] == p[r, j])
         assert (len(other) and abs(cs[r, other[0]] - cs[r, j]) <= 2 * tol) \
             or abs(s[r, j] - cs[r, -1]) <= 2 * tol
+
+
+@pytest.mark.gpu
+def test_bench_query_takes_the_kernel(gen):
+    """``bench.bench_query`` over 65,536 x 128 bf16 rows on the card runs
+    K1 (path ``"kernel"``, launches counted) beside its interleaved
+    roofline probe, and reports finite times."""
+    from instsearch_torch import bench
+    before = topk_matmul.launches
+    out = bench.bench_query(n=65_536, d=128, k=10)
+    assert out["path"] == "kernel"
+    assert topk_matmul.launches > before
+    assert np.isfinite(out["p50_ms"]) and out["p50_ms"] > 0
+    lo, hi = out["spread_ms"]
+    assert lo <= hi
+    assert {"hbm_bw_gbps", "hbm_roofline_ms", "frac_of_roofline"} <= set(out)

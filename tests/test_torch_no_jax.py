@@ -31,7 +31,8 @@ load it placed and save it again, write and read a sharded tree
 data-parallel over a 2-D
 mesh (``Extractor(mesh=)``), run a tiny ViT tensor-parallel (also through
 ``Extractor`` over a ``('data', 'model')`` mesh), pipelined and sequence-
-parallel over CPU devices (``parallel/tp.py``, ``pp.py``, ``sp.py``), then
+parallel over CPU devices (``parallel/tp.py``, ``pp.py``, ``sp.py``), run
+two benchmark stages (``instsearch_torch.bench``) at toy size, then
 check sys.modules: neither JAX nor any module of the reference package was
 loaded, nor orbax, tensorstore, grain or ``tools/orbax_to_port.py``. A scan
 of the package's import statements finds none of them either."""
@@ -303,6 +304,10 @@ rs2, ri2 = regional_rerank_scores(torch.from_numpy(reg),
                                   torch.arange(40, dtype=torch.int32), sc,
                                   torch.from_numpy(reg[:3]), depth=10, k=3)
 assert ri2[:, 0].tolist() == [0, 1, 2]
+from instsearch_torch import bench
+assert bench.bench_query(n=256, d=16, k=3, device="cpu")["path"] == "plain"
+assert bench.bench_protocol_eval(n=256, n_queries=4, d=16,
+                                 device="cpu")["n"] == 256
 print(json.dumps({"top1": i[:, 0].tolist(), "rows": idx.descriptors.shape[0],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "others": [m for m in ("orbax", "tensorstore", "grain",
