@@ -5,7 +5,8 @@
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). It builds the port's kernels from ``instsearch_torch/csrc/`` and
-runs twenty phases; each raises on failure and the process exits non-zero.
+runs twenty-one phases; each raises on failure and the process exits
+non-zero.
 Phase 12 runs right after phase 4, while phase 2's and phase 3's stores are
 as those phases left them (phase 10 mutates them).
 
@@ -338,7 +339,19 @@ as those phases left them (phase 10 mutates them).
      ``bench_dba``, ``bench_train`` and the ``extended`` group's 4M-row
      int8 and 8M-row int4 capacity queries at the reference's defaults but
      ``bench_host_serve``'s rows (``HOST_SERVE_ROWS``), with the same
-     checks, K1-K4 counted a stage (``launches_bench``).
+     checks, K1-K4 counted a stage (``launches_bench``);
+ 21. the reference's three walkthroughs on the port, last, in process on
+     the card with no ``--device`` (``phase21``): ``examples/
+     torch_vector_ops.py`` (top-1 ``[0, 1, 2]``, duplicate groups
+     ``[['im7', 'im100']]``, K1 launched), ``examples/torch_end_to_end.py``
+     on the mini fixture in a temporary folder (the query of
+     ``db_paths[0]`` returns it first, every filtered answer is in the
+     subset, the seven mAPs of the quality ladder lie in [0, 100], the
+     reloaded index has 56 rows and weights, K2 launched) and
+     ``examples/torch_capacity_serving.py`` at 65,536 and 4,194,304 rows
+     (``CAPACITY_ROWS``), as a cascade and ``--adc-only`` (the self-match,
+     row 7, first in all four); each script's wall seconds and launches
+     (``launches_examples``).
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
@@ -380,8 +393,10 @@ phase 15's searches, range searches and placed loads, also apart as
 ``launches_mesh`` (K1 and K2 launch there), phase 17's searches of
 the loaded streams, also apart as ``launches_persist`` (K1-K3), phase
 18's placed searches, ``launches_placed``, phase 19's placed tier
-searches, ``launches_placed_tier`` (K4), and phase 20's benchmark stages,
-``launches_bench`` (K1-K4); K1 also at
+searches, ``launches_placed_tier`` (K4), phase 20's benchmark stages,
+``launches_bench`` (K1-K4), and phase 21's walkthroughs,
+``launches_examples`` (every kernel's row carries it; K1 and K2 launch
+there); K1 also at
 D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
 (``ms_d2048_b{B}_k{k}``, ``plain_ms_...``, ``library_ms_...``,
 ``bound_ms_...``); K4 also at B =
@@ -5242,8 +5257,8 @@ def rel_err(got, want) -> float:
 def gem_cosines(cfg, a, b):
     """Per-image cosine of the GeM descriptors of two patch-map batches."""
     from instsearch_torch.ops import l2_normalize, pool
-    da = l2_normalize(pool(a, cfg).float(), dim=-1)
-    db = l2_normalize(pool(b, cfg).float(), dim=-1)
+    da = l2_normalize(pool(a, cfg).float(), axis=-1)
+    db = l2_normalize(pool(b, cfg).float(), axis=-1)
     return (da * db).sum(-1)
 
 
@@ -5387,7 +5402,7 @@ def _phase16(card, gen) -> dict:
                              f"{line.group}")
                     got16 = TensorParallelViT(model, line)(x16)
                     got32 = TensorParallelViT(f32, line)(x32)
-                    sizes = split_layer_bytes(place_tp(mesh, model)[0])
+                    sizes = split_layer_bytes(place_tp(mesh, model=model)[0])
                     if sizes["shard_bytes"] != [sizes["whole_bytes"]
                                                 // tp] * tp:
                         fail(f"phase 16{part}: split layers' bytes {sizes}")
@@ -5451,10 +5466,10 @@ def _phase16(card, gen) -> dict:
             for mesh in (ShardMesh((cuda,) * 4, group, "seq"),
                          grid((2, 2), ("data", "seq"), group)):
                 fwd16 = sequence_parallel_vit_fn(model, mesh)
-                p16 = place_sp(mesh, model)
+                p16 = place_sp(mesh, model=model)
                 got16 = fwd16(p16, h16)
                 got32 = sequence_parallel_vit_fn(f32, mesh)(
-                    place_sp(mesh, f32), h32)
+                    place_sp(mesh, model=f32), h32)
                 route = f"sp vit_b_16 {mesh.shape}"
                 ips = images_per_s(lambda: fwd16(p16, h16), SP_BATCH)
                 fields = {} if group is None else {
@@ -6265,6 +6280,136 @@ def phase20(card: str, timings: dict) -> dict:
     return {"launches": launches}
 
 
+# phase 21: the capacity walkthrough's row counts, its default and the
+# size its docstring names for a real drive (a 512 MiB int8 host file)
+CAPACITY_ROWS = (65_536, 4_194_304)
+
+
+def run_walkthrough(name: str, argv: list) -> tuple[list[str], dict, float]:
+    """``examples/<name>.py``'s ``main(argv)`` in this process on the card,
+    its printed lines captured -> (lines, kernel launches, wall seconds).
+    A non-zero return or an exception (the capacity script asserts its
+    self-match) fails the phase."""
+    import io
+    import runpy
+    main = runpy.run_path(os.path.join(HERE, "examples", f"{name}.py"))[
+        "main"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc, counts = count_launches(lambda: main(argv))
+    except Exception as e:          # noqa: BLE001 -- reported, then failed
+        fail(f"phase 21: {name} {argv} raised {type(e).__name__}: {e}; "
+             f"printed {buf.getvalue()[-2000:]}")
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 21: {name} {argv} returned {rc}")
+    return buf.getvalue().strip().splitlines(), counts, wall
+
+
+def _line_after(name: str, lines: list[str], prefix: str) -> str:
+    hit = [ln[len(prefix):].strip() for ln in lines if ln.startswith(prefix)]
+    if len(hit) != 1:
+        fail(f"phase 21: {name} printed {len(hit)} lines {prefix!r}: "
+             f"{lines}")
+    return hit[0]
+
+
+def phase21(card: str) -> dict:
+    """The reference's three walkthroughs on the port
+    (``examples/torch_*.py``, module docstring, item 21), in process on the
+    card at their own sizes. Returns ``{"launches": counts by kernel}``."""
+    import ast
+
+    import torch
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase21_")
+    try:
+        # vector ops: K1 over the bf16 and the f32 (l2) stores
+        lines, counts, wall = run_walkthrough("torch_vector_ops", [])
+        top1 = ast.literal_eval(_line_after("vector ops", lines, "top-1:")
+                                .split(" scores:")[0])
+        groups = ast.literal_eval(_line_after("vector ops", lines,
+                                              "duplicate groups:"))
+        if top1 != [0, 1, 2] or groups != [["im7", "im100"]]:
+            fail(f"phase 21: vector ops top-1 {top1}, duplicate groups "
+                 f"{groups}")
+        if counts["topk_matmul"] < 1:
+            fail(f"phase 21: vector ops launched no K1 ({counts})")
+        add_counts(launches, counts)
+        report(card, phase=21, script="torch_vector_ops", wall_s=wall,
+               top1=top1, duplicate_groups=groups,
+               launches={k: v for k, v in counts.items() if v}, lines=lines)
+        torch.cuda.empty_cache()
+
+        # end to end on the mini fixture: K2 over the int8 store
+        data, work = os.path.join(tmp, "data"), os.path.join(tmp, "e2e")
+        os.makedirs(work)
+        lines, counts, wall = run_walkthrough(
+            "torch_end_to_end", ["--data-root", data, "--workdir", work])
+        from instsearch_torch.eval import load_dataset
+        ds = load_dataset("mini", data)
+        first = os.path.splitext(os.path.basename(ds.db_paths[0]))[0]
+        got = [nm for nm, _ in ast.literal_eval(
+            _line_after("end to end", lines, "query results:"))]
+        filtered = [nm for nm, _ in ast.literal_eval(
+            _line_after("end to end", lines, "filtered results:"))]
+        if not got or got[0] != first:
+            fail(f"phase 21: the query of {first} returned {got}")
+        if not filtered or not set(filtered) <= set(ds.imlist[::2]):
+            fail(f"phase 21: filtered answers {filtered} outside the subset")
+        maps = {}
+        for ln in lines:
+            if " mAP " in ln:
+                tag, rest = ln.split(" mAP ", 1)
+                maps[tag.strip()] = float(rest.split()[0])
+        ladder = {"base", "alpha-QE", "regional re-rank", "diffusion",
+                  "re-rank + spatial", "local whitening",
+                  "alpha-DBA (offline)"}
+        if not ladder <= set(maps) or not all(0.0 <= v <= 100.0
+                                              for v in maps.values()):
+            fail(f"phase 21: the quality ladder's mAPs {maps}")
+        if "reloaded: 56 rows, weights" not in lines:
+            fail(f"phase 21: the reloaded index: {lines}")
+        if counts["topk_matmul_int8"] < 1:
+            fail(f"phase 21: end to end launched no K2 ({counts})")
+        add_counts(launches, counts)
+        report(card, phase=21, script="torch_end_to_end", wall_s=wall,
+               top1=got[0], maps=maps,
+               launches={k: v for k, v in counts.items() if v}, lines=lines)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # capacity serving: the IVF-PQ cascade and ADC-only, torch ops
+        for n in CAPACITY_ROWS:
+            for flags in ([], ["--adc-only"]):
+                work = os.path.join(tmp, "capacity")
+                lines, counts, wall = run_walkthrough(
+                    "torch_capacity_serving",
+                    ["--n", str(n), "--workdir", work] + flags)
+                resp = json.loads(next(ln for ln in lines
+                                       if ln.startswith('{"results"')))
+                top = resp["results"][0][0]
+                if top["id"] != 7:
+                    fail(f"phase 21: capacity n={n} {flags}: the "
+                         f"self-match lost to {top}")
+                add_counts(launches, counts)
+                report(card, phase=21, script="torch_capacity_serving",
+                       n=n, mode="adc-only" if flags else "cascade",
+                       wall_s=wall, top1=top,
+                       launches={k: v for k, v in counts.items() if v},
+                       lines=lines)
+                shutil.rmtree(work, ignore_errors=True)
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report(card, phase=21, wall_s=time.perf_counter() - t_phase,
+           launches=launches)
+    return {"launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -6375,6 +6520,8 @@ def main() -> int:
     phase16(card, gen)
     torch.cuda.empty_cache()
     bench = phase20(card, timings)["launches"]
+    torch.cuda.empty_cache()
+    examples = phase21(card)["launches"]
     phase8 = {"topk_matmul": res8a["launches"] + res8b["launches"],
               "topk_matmul_int4": res8c["launches"]}
     # the sharded routes' launches, on the main path too (phases 3, 8b, 9,
@@ -6416,7 +6563,8 @@ def main() -> int:
                                   + persist.get(name, 0)
                                   + placed.get(name, 0)
                                   + placed_tier.get(name, 0)
-                                  + bench.get(name, 0)),
+                                  + bench.get(name, 0)
+                                  + examples.get(name, 0)),
                      "launches_phase8": phase8.get(name, 0),
                      "launches_sharded": sharded.get(name, 0),
                      "launches_subset": subset[name],
@@ -6428,6 +6576,7 @@ def main() -> int:
                      "launches_placed": placed.get(name, 0),
                      "launches_placed_tier": placed_tier.get(name, 0),
                      "launches_bench": bench.get(name, 0),
+                     "launches_examples": examples.get(name, 0),
                      "max_abs_err": errs[kind],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6464,9 +6613,11 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": "instsearch_torch/csrc/vit_attention.cu",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
-                     "launches": launches + train.get(name, 0),
+                     "launches": (launches + train.get(name, 0)
+                                  + examples.get(name, 0)),
                      "launches_cli": cli.get(name, 0),
                      "launches_train": train.get(name, 0),
+                     "launches_examples": examples.get(name, 0),
                      "max_abs_err": att_errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6479,9 +6630,12 @@ def main() -> int:
                  "source": "instsearch_torch/csrc/fused_resnet.cu",
                  "replaces": "instsearch_tpu/kernels/fused_resnet.py:138",
                  "launches": (res6["launches"]
-                              + train.get("fused_identity_blocks", 0)),
+                              + train.get("fused_identity_blocks", 0)
+                              + examples.get("fused_identity_blocks", 0)),
                  "launches_cli": cli.get("fused_identity_blocks", 0),
                  "launches_train": train.get("fused_identity_blocks", 0),
+                 "launches_examples": examples.get("fused_identity_blocks",
+                                                   0),
                  "max_abs_err": fused_err,
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -90,7 +90,7 @@ def _warm(fns, device: torch.device) -> None:
 
 
 def marginal_times(make_chained, args, n1: int = 3, n2: int = 13,
-                   reps: int = 7, device=None, wall: bool = False
+                   reps: int = 7, *, device=None, wall: bool = False
                    ) -> np.ndarray:
     """Per-rep marginal per-op estimates from two chain lengths.
 
@@ -111,13 +111,13 @@ def marginal_times(make_chained, args, n1: int = 3, n2: int = 13,
 
 
 def marginal_time(make_chained, args, n1: int = 3, n2: int = 13,
-                  reps: int = 7, device=None) -> float:
+                  reps: int = 7, *, device=None) -> float:
     return float(np.median(marginal_times(make_chained, args, n1, n2, reps,
-                                          device)))
+                                          device=device)))
 
 
 def interleaved_marginal(specs, n1: int = 4, n2: int = 20,
-                         reps: int = 9, device=None) -> list[np.ndarray]:
+                         reps: int = 9, *, device=None) -> list[np.ndarray]:
     """Marginal per-op estimates for several ops with reps interleaved.
 
     ``specs`` is a list of ``(make_chained, args)``. The card's speed
@@ -168,7 +168,7 @@ def make_stream_probe(m: int):
     return run
 
 
-def measure_hbm_bw(nbytes: int = 1 << 30, device=None) -> float:
+def measure_hbm_bw(nbytes: int = 1 << 30, *, device=None) -> float:
     """Sustained streaming bandwidth (bytes/s) of ``make_stream_probe``
     over an ``nbytes`` bf16 matrix, with ``bench_query``'s chain lengths; the
     best rep, so that a kernel's fraction of it is a conservative one."""
@@ -247,7 +247,7 @@ def _latency(out: dict, ests, q_batch: int) -> dict:
 def bench_extraction(batch: int = 128, image_size: int = 224,
                      backbone: str = "resnet50", pooling: str = "gem",
                      scales: tuple = (1.0,),
-                     vit_attention: str = "auto", device=None) -> dict:
+                     vit_attention: str = "auto", *, device=None) -> dict:
     """Device-side extraction throughput over a batch already on the card
     (seeded weights, ``build_extract_fn``'s function, bf16)."""
     device = resolve_device(device)
@@ -276,7 +276,7 @@ def bench_extraction(batch: int = 128, image_size: int = 224,
 def bench_extraction_e2e(n_images: int = 512, image_size: int = 224,
                          backbone: str = "resnet50", pooling: str = "gem",
                          batch: int = 128, src_size: int = 256,
-                         workdir: str | None = None, device=None) -> dict:
+                         workdir: str | None = None, *, device=None) -> dict:
     """Disk -> descriptor throughput: JPEG decode on the host (the
     ``Extractor``'s prefetch thread) overlapped with extraction on the
     card, against the host stages measured alone. Each of the 3 reps
@@ -384,7 +384,7 @@ def bench_query(n: int = 1_048_576, d: int = 512, k: int = 10,
                 q_batch: int = 1, use_pallas: bool = True,
                 dtype: str = "bfloat16",
                 hbm_bw: float | None = None,
-                roofline: bool = True, device=None) -> dict:
+                roofline: bool = True, *, device=None) -> dict:
     """Brute-force top-k over a device-resident ``[N, D]`` store: K1 over
     bf16 rows (``kernels/topk_matmul.py::topk_matmul``), K2 over int8
     (``topk_matmul_int8``), K3 over packed int4 (``topk_matmul_int4``), or
@@ -492,7 +492,7 @@ def bench_query(n: int = 1_048_576, d: int = 512, k: int = 10,
 
 
 def bench_filtered_query(n: int = 1_048_576, d: int = 512, k: int = 10,
-                         frac: float = 0.5, device=None) -> dict:
+                         frac: float = 0.5, *, device=None) -> dict:
     """K1 with its ``[1, N]`` subset mask (``search/subset.py``) against the
     unfiltered K1 over the same store, interleaved rep for rep. The mask
     adds one byte a row to the stream (1/1024 of a bf16 row at D = 512)
@@ -570,7 +570,8 @@ def _make_clustered_device(n: int, d: int, q_batch: int,
 
 
 def bench_qe(n: int = 1_048_576, d: int = 512, k: int = 10, qe_n: int = 10,
-             q_batch: int = 1, dtype: str = "bfloat16", device=None) -> dict:
+             q_batch: int = 1, dtype: str = "bfloat16", *,
+             device=None) -> dict:
     """Alpha query expansion end to end: the index's composite
     (``index.py::_search_composite`` with αQE: the top-``qe_n`` through the
     fused kernel, the rows gathered, the expanded query, the final top-k).
@@ -612,7 +613,7 @@ def bench_qe(n: int = 1_048_576, d: int = 512, k: int = 10, qe_n: int = 10,
 
 def bench_diffusion(n: int = 1_048_576, d: int = 512, k: int = 10,
                     depth: int = 200, q_batch: int = 1,
-                    knn: int = 10, iters: int = 20, device=None) -> dict:
+                    knn: int = 10, iters: int = 20, *, device=None) -> dict:
     """Diffusion re-ranking end to end: the composite's top-``depth``
     through the fused kernel, the ``[Q, depth, D]`` rows gathered, the
     mutual-kNN graph, ``iters`` CG steps, the re-rank. One full scan leads
@@ -648,7 +649,7 @@ def bench_diffusion(n: int = 1_048_576, d: int = 512, k: int = 10,
 
 
 def bench_dba(n: int = 1_048_576, d: int = 512, dba_n: int = 10,
-              chunk: int = 128, device=None) -> dict:
+              chunk: int = 128, *, device=None) -> dict:
     """αDBA's offline augmentation rate: rows/s through the chunked
     self-search of ``Index.augment_database`` (one fused top-``dba_n`` of a
     ``chunk`` of stored rows against the whole store, the neighbours
@@ -684,7 +685,7 @@ def bench_dba(n: int = 1_048_576, d: int = 512, dba_n: int = 10,
 
 
 def bench_refine(n: int = 1_048_576, d: int = 512, depth: int = 100,
-                 k: int = 10, q_batch: int = 1, device=None) -> dict:
+                 k: int = 10, q_batch: int = 1, *, device=None) -> dict:
     """The exact-refine tier end to end: K3's int4 scan for the top
     ``depth``, then their int8 copies re-scored (the composite with
     ``do_refine``). The reference stream: the bf16 probe's rate over the
@@ -727,7 +728,7 @@ def bench_refine(n: int = 1_048_576, d: int = 512, depth: int = 100,
 
 def bench_pq(n: int = 1_048_576, d: int = 512, k: int = 10,
              depth: int = 100, q_batch: int = 1, m: int | None = None,
-             iters: int = 8, fit_rows: int = 131_072, device=None) -> dict:
+             iters: int = 8, fit_rows: int = 131_072, *, device=None) -> dict:
     """The PQ cascade end to end (``search/pq_view.py::_pq_composite``): K4's
     ADC scan over the 4-bit codes (M/2 bytes a row) for ``depth``
     candidates, then their exact re-score against the bf16 store. The
@@ -839,7 +840,7 @@ def bench_pq(n: int = 1_048_576, d: int = 512, k: int = 10,
 
 def bench_pq_capacity(n: int = 67_108_864, d: int = 512, m: int = 64,
                       depth: int = 100,
-                      q_batches: tuple = (1, 128), device=None) -> dict:
+                      q_batches: tuple = (1, 128), *, device=None) -> dict:
     """The PQ tier where only its codes fit one card: 64M rows at D = 512
     are 64 GiB in bf16, 32 GiB int8 and ~16 GiB packed int4, but 2 GiB of
     4-bit codes (M = 64). This times the codes-only ADC scan (K4 at top
@@ -919,7 +920,7 @@ def _exact_ids(idx, qs_all, k: int) -> np.ndarray:
 def bench_ivf(n: int = 1_048_576, d: int = 512, k: int = 10,
               q_batch: int = 1, n_clusters: int = 1024,
               nprobe: int = 32, cap_factor: float = 2.0,
-              recall_nprobes: tuple = (1, 8, 32, 128), device=None) -> dict:
+              recall_nprobes: tuple = (1, 8, 32, 128), *, device=None) -> dict:
     """The IVF tier (``Index.build_ivf``: the k-means fit and the buckets on
     the device) and its pruned scan (``search/ivf.py::_ivf_composite``),
     with recall@k against the exact scan (K1) for each nprobe in
@@ -980,7 +981,7 @@ def bench_ivfpq(n: int = 1_048_576, d: int = 512, k: int = 10,
                 nprobe: int = 32, m: int = 64, depth: int = 400,
                 recall_nprobes: tuple = (1, 8, 32),
                 recall_depths: tuple = (100,),
-                host_quality: bool = True, device=None) -> dict:
+                host_quality: bool = True, *, device=None) -> dict:
     """The IVF-PQ cascade (``search/ivfpq.py``): the coarse fit and the
     residual codes on the device (6 k-means and 8 PQ iterations on 131,072
     rows), then the candidates stage (pruned ADC for ``depth`` candidates,
@@ -1105,7 +1106,7 @@ def _no_spill(groups: int, device):
 def bench_ivfpq_capacity(n: int = 67_108_864, d: int = 512, m: int = 64,
                          n_clusters: int = 8192, nprobe: int = 64,
                          depth: int = 400,
-                         q_batches: tuple = (1, 128), device=None) -> dict:
+                         q_batches: tuple = (1, 128), *, device=None) -> dict:
     """IVF-PQ where only the 2 GiB of codes fit the card
     (``bench_pq_capacity``'s setting), the ADC pruned to nprobe/n_clusters
     of them: ``search/ivfpq.py::_adc_select`` at the production depth
@@ -1153,7 +1154,7 @@ def bench_host_serve(n: int = 67_108_864, d: int = 512, m: int = 64,
                      depth: int = 400, q_batches: tuple = (1, 8),
                      reps: int = 9,
                      adc_chained_ms: "dict | None" = None,
-                     workdir: str | None = None, device=None) -> dict:
+                     workdir: str | None = None, *, device=None) -> dict:
     """The capacity-serving path, ``IVFPQView.search_host`` (what ``cli
     serve --host-store`` runs): the pruned residual ADC on the card over
     the resident codes, then a host gather of only the ``depth`` candidate
@@ -1267,7 +1268,7 @@ def bench_host_serve(n: int = 67_108_864, d: int = 512, m: int = 64,
 
 def bench_rerank(n: int = 1_048_576, d: int = 512, r: int = 16,
                  depth: int = 100, k: int = 10, q_batch: int = 1,
-                 regional_dtype: str = "int8", device=None) -> dict:
+                 regional_dtype: str = "int8", *, device=None) -> dict:
     """Regional re-ranking of the top ``depth`` with score fusion on the
     device (the composite with ``do_rerank``: K1's top-``depth``, the
     ``[Q, depth, R, D]`` regional gather, the region match, the fused
@@ -1323,7 +1324,7 @@ def bench_rerank(n: int = 1_048_576, d: int = 512, r: int = 16,
 
 def bench_lw(n: int = 1_048_576, d: int = 512, e: int = 1024,
              depth: int = 100, k: int = 10, q_batch: int = 1,
-             device=None) -> dict:
+             *, device=None) -> dict:
     """Local-whitening re-ranking (``index.py::_lw_composite``): K1's
     top-``depth``, the query whitened by every expert (one ``[B, E, D] x
     [E, dim, D]`` product reading the whole f32 bank), the whitened-store
@@ -1375,7 +1376,7 @@ def bench_lw(n: int = 1_048_576, d: int = 512, e: int = 1024,
 
 def bench_sharded_overhead(n: int = 1_048_576, d: int = 512,
                            k: int = 10, q_batch: int = 1,
-                           device=None) -> dict:
+                           *, device=None) -> dict:
     """The distribution layer's price: ``ShardedIndex.search`` over a mesh
     of ONE shard (the per-shard kernel, the gather of its candidates, the
     merge) against the bare kernel on the same store, interleaved rep for
@@ -1406,7 +1407,7 @@ def bench_sharded_overhead(n: int = 1_048_576, d: int = 512,
 
 def bench_protocol_eval(n: int = 105_000, n_queries: int = 70,
                         d: int = 512, depth: int = 100,
-                        device=None) -> dict:
+                        *, device=None) -> dict:
     """Protocol evaluation's wall clock at Oxford105k's rows (workload 4),
     descriptor level: ``Index.full_ranking`` (the first call and a second
     one), the re-rank head splice (``eval/evaluate.py::_splice_head``, a
@@ -1461,7 +1462,7 @@ def bench_protocol_eval(n: int = 105_000, n_queries: int = 70,
 
 def bench_query_e2e(n: int = 1_048_576, d: int = 512, k: int = 10,
                     image_size: int = 224, backbone: str = "resnet50",
-                    pooling: str = "gem", device=None) -> dict:
+                    pooling: str = "gem", *, device=None) -> dict:
     """Image -> result latency for one image: extraction (backbone,
     pooling), the whitening projection to the store's width and L2, then
     the fused top-k (K1) over a 1M-row bf16 store, as one chained op. At
@@ -1506,7 +1507,7 @@ def bench_query_e2e(n: int = 1_048_576, d: int = 512, k: int = 10,
 
 
 def bench_train(batch: int = 16, negs: int = 1, image_size: int = 224,
-                backbone: str = "resnet50", device=None) -> dict:
+                backbone: str = "resnet50", *, device=None) -> dict:
     """Fine-tuning step throughput: forward, backward and AdamW over
     (anchor, positive, negatives) tuples in bf16 (``Trainer.step``).
     ``Trainer.step`` reads its loss on the host, so each chain is timed by
@@ -1570,7 +1571,7 @@ def _stage(out: dict, key: str, fn, *args, **kwargs):
     return res
 
 
-def run_bench(what: str = "all", device=None) -> dict:
+def run_bench(what: str = "all", *, device=None) -> dict:
     """The reference's groups: ``extraction``, ``query``, ``all`` (both) and
     ``extended`` (the extraction sweep, the 4M-row int8 and 8M-row int4
     capacity queries, ``dba_1M``, ``ivf_1M``, ``pq_1M``, ``train``), each at

@@ -41,7 +41,7 @@ class ResumableBuilder:
     def __init__(self, paths: Sequence[str], cfg: PipelineConfig,
                  out_dir: str, group_size: int = 16,
                  variables: dict | None = None, seed: int = 0,
-                 device: "torch.device | str | None" = None, mesh=None):
+                 mesh=None, *, device: "torch.device | str | None" = None):
         self.paths = list(paths)
         self.cfg = cfg
         if mesh is None and device is None:

@@ -16,7 +16,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize
 from ..utils.observe import annotate
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -124,12 +124,16 @@ def normalize(images: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return ((x - mean) / std).to(dtype)
 
 
-def rescale(images: torch.Tensor, scale: float) -> torch.Tensor:
-    """Multi-scale resize of NHWC ``images`` (arXiv:1711.02512): bilinear,
-    antialiased when it shrinks, as the reference's ``jax.image.resize``
-    (``ops/resize.py``)."""
+def rescale(images: torch.Tensor, scale: float,
+            method: str = "bilinear") -> torch.Tensor:
+    """Multi-scale resize of NHWC ``images`` (arXiv:1711.02512) by
+    ``method``, any of ``jax.image.resize``'s, computed as the reference's
+    ``jax.image.resize`` computes it (``ops/resize.py``): antialiased when
+    it shrinks; integer images come back in f32 but for ``nearest``. An
+    unknown method raises ``ValueError`` unless the size is unchanged, as
+    the reference."""
     n, h, w, c = images.shape
     nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
     if (nh, nw) == (h, w):
         return images
-    return resize_bilinear(images, (nh, nw))
+    return resize(images, (nh, nw), method)

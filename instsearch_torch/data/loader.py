@@ -35,7 +35,7 @@ class PrefetchLoader:
     def __init__(self, paths: Sequence[str], size: int, batch: int,
                  depth: int = 2, quarantine: list | None = None,
                  device_put: bool = False,
-                 device: "torch.device | str | None" = None):
+                 *, device: "torch.device | str | None" = None):
         self.paths = paths
         self.size = size
         self.batch = batch
@@ -119,7 +119,7 @@ class PrefetchLoader:
 def iter_batches(paths: Sequence[str], size: int, batch: int,
                  quarantine: list | None = None, depth: int = 2,
                  device_put: bool = False,
-                 device: "torch.device | str | None" = None):
+                 *, device: "torch.device | str | None" = None):
     """The input pipeline of every path-based extraction: prefetched decode
     batches, or the synchronous iterator of numpy batches when the paths fit
     in one batch (thread start-up would dominate). Batches from the loader

@@ -186,7 +186,7 @@ def evaluate_index(index, dataset: RetrievalDataset, protocol: str = "medium",
 
 def build_index_for_dataset(dataset: RetrievalDataset, cfg,
                             variables: dict | None = None, seed: int = 0,
-                            device: "torch.device | str | None" = None):
+                            *, device: "torch.device | str | None" = None):
     """``Index.build`` over the dataset's database images, on ``device``
     (the CUDA card by default)."""
     from ..index import Index

@@ -72,21 +72,21 @@ def _global_descriptor(model, cfg, x: torch.Tensor):
         fmap = model(xs)
         if scale == 1.0:
             fmap_s1 = fmap
-        descs.append(l2_normalize(pool(fmap, cfg).float(), dim=-1))
+        descs.append(l2_normalize(pool(fmap, cfg).float(), axis=-1))
         if cfg.flip:                         # flip TTA: mirrored pass too
             fm = model(torch.flip(xs, dims=(2,)))
-            descs.append(l2_normalize(pool(fm, cfg).float(), dim=-1))
+            descs.append(l2_normalize(pool(fm, cfg).float(), axis=-1))
     desc = torch.stack(descs, 0).mean(0) if len(descs) > 1 else descs[0]
-    return l2_normalize(desc, dim=-1), fmap_s1
+    return l2_normalize(desc, axis=-1), fmap_s1
 
 
 def _regional_rows(fmap: torch.Tensor, cfg) -> torch.Tensor:
     """Feature map -> R-MAC per-region rows ``[N, R, C]`` f32, unit-norm."""
     reg = rmac_regional_descriptors(fmap, cfg.rmac_levels)
-    return l2_normalize(reg.float(), dim=-1)
+    return l2_normalize(reg.float(), axis=-1)
 
 
-def build_extract_fn(cfg, device=None):
+def build_extract_fn(cfg, *, device=None):
     """Returns ``(model, extract_fn)`` with
     ``extract_fn(images, whitening=None) -> [N, D] f32``; ``images`` is a
     uint8 or [0, 1] float tensor ``[N, S, S, 3]`` on the model's device
@@ -113,7 +113,7 @@ def build_global_fn(cfg, model):
     return extract
 
 
-def build_regional_fn(cfg, model):
+def build_regional_fn(cfg, *, model):
     """``extract_regional(images, whitening=None) -> [N, R, D] f32``, the
     per-region R-MAC rows of the re-rank store from one backbone pass of
     ``model`` at the images' own size, unit-norm per region (whitened and
@@ -131,7 +131,7 @@ def build_regional_fn(cfg, model):
     return extract_regional
 
 
-def build_combined_fn(cfg, model):
+def build_combined_fn(cfg, *, model):
     """``extract_combined(images, whitening=None) -> ([N, D], [N, R, D])``:
     the global descriptor and the regional rows from one backbone pass at
     scale 1.0, shared by the two (the backbone runs once more only when
@@ -173,7 +173,7 @@ class Extractor:
 
     def __init__(self, cfg, variables: dict | None = None,
                  whitening: WhiteningParams | None = None, seed: int = 0,
-                 device: "torch.device | str | None" = None, mesh=None):
+                 mesh=None, *, device: "torch.device | str | None" = None):
         tp = mesh is not None and "model" in mesh.axis_names
         if tp and cfg.vit_attention != "xla":
             # the split heads attend on the plain route (the reference's
@@ -205,8 +205,8 @@ class Extractor:
             load_variables(self.model, variables)
         self.model.eval()
         self.whitening = whitening
-        self._regional_fn = build_regional_fn(cfg, self.model)
-        self._combined_fn = build_combined_fn(cfg, self.model)
+        self._regional_fn = build_regional_fn(cfg, model=self.model)
+        self._combined_fn = build_combined_fn(cfg, model=self.model)
         self._geometry: "np.ndarray | None" = None
         # data parallelism: the batch axis's groups in order (their first
         # devices take the slices), one functions replica per distinct
@@ -226,9 +226,10 @@ class Extractor:
             elif group[0] != self.device:
                 m = copy.deepcopy(self.model).to(group[0])
                 self._copies.append(m)
-            self._replicas[group] = {"global": build_global_fn(cfg, m),
-                                     "regional": build_regional_fn(cfg, m),
-                                     "combined": build_combined_fn(cfg, m)}
+            self._replicas[group] = {
+                "global": build_global_fn(cfg, m),
+                "regional": build_regional_fn(cfg, model=m),
+                "combined": build_combined_fn(cfg, model=m)}
         self._copied_at = self._weights_version()
 
     def _weights_version(self) -> tuple:

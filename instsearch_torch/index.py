@@ -337,7 +337,7 @@ def _check_index_cfg(cfg) -> None:
                 "regional-store slot; pick one re-scoring stage")
 
 
-def attach_regional_store(idx: "Index", regional, chunk: int = 1 << 16
+def attach_regional_store(idx: "Index", regional, *, chunk: int = 1 << 16
                           ) -> None:
     """Pad the ``[N, R, D]`` regional rows (numpy, or a tensor on any
     device; one per indexed image, in its order) into the index's ``[N_pad,
@@ -420,7 +420,8 @@ class Index:
 
     def __init__(self, descriptors: torch.Tensor, ids: torch.Tensor,
                  names: list[str], cfg, extractor: Optional[Extractor] = None,
-                 scales: "torch.Tensor | None" = None,
+                 regional: "torch.Tensor | None" = None,
+                 scales: "torch.Tensor | None" = None, *,
                  dim: "int | None" = None):
         # load(mesh=)'s placed store (a ShardedIndex); the store
         # attributes below are then None
@@ -435,8 +436,13 @@ class Index:
         self.ivf: "IVFIndex | None" = None  # build_ivf's ANN view
         self.ivfpq: "IVFPQView | None" = None   # build_ivfpq's cascade view
         self.lw: "LocalWhiteningView | None" = None  # fit_local_whitening's
-        self.regional: "torch.Tensor | None" = None   # [N_pad, R, D] store
-        self.regional_scales: "torch.Tensor | None" = None  # [N_pad, R] int8
+        if regional is not None:
+            regional = torch.as_tensor(regional, device=ids.device)
+        self.regional: "torch.Tensor | None" = regional  # [N_pad, R, D]
+        # [N_pad, R] when the regional store is int8: attach_regional_store
+        # quantizes and sets them; a store given here keeps its own dtype
+        # and has none, as the reference's constructor
+        self.regional_scales: "torch.Tensor | None" = None
         self.regional_geom: "np.ndarray | None" = None  # [R, 3] R-MAC grid
         self._vote_m: "torch.Tensor | None" = None
         self.quarantined: list[str] = []
@@ -486,6 +492,13 @@ class Index:
             return self.placement.store_dim
         x = self.descriptors
         return 2 * x.shape[1] if self.is_int4 else x.shape[1]
+
+    @property
+    def store_dtype(self) -> torch.dtype:
+        """The stored rows' dtype (a placed store's, its shards')."""
+        if self.placed:
+            return self.placement.shards[0].x.dtype
+        return self.descriptors.dtype
 
     @property
     def n_pad(self) -> int:
@@ -790,8 +803,9 @@ class Index:
     def from_descriptors(cls, descriptors, names: Sequence[str], cfg,
                          extractor: Optional[Extractor] = None,
                          original_ids: "np.ndarray | None" = None,
-                         device: "torch.device | str | None" = None,
-                         _augmented: bool = False) -> "Index":
+                         _augmented: bool = False, *,
+                         device: "torch.device | str | None" = None
+                         ) -> "Index":
         """Pad ``descriptors [N, D]`` (numpy or tensor) into the store; an
         l2 index first appends each row's ``||x||^2/2`` (unless
         ``_augmented``: the rows carry it already, the re-pad path).
@@ -847,8 +861,8 @@ class Index:
     def build(cls, paths: Sequence[str], cfg, variables: dict | None = None,
               whitening_paths: Sequence[str] | None = None,
               whitening: "WhiteningParams | None" = None, seed: int = 0,
-              device: "torch.device | str | None" = None,
-              mesh=None) -> "Index":
+              mesh=None, *,
+              device: "torch.device | str | None" = None) -> "Index":
         """Offline indexing: extract -> (fit whitening) -> store.
         ``whitening_paths`` defaults to the indexed set itself;
         ``whitening`` supplies pre-fit params instead. With
@@ -2264,8 +2278,8 @@ class Index:
 
     @classmethod
     def load(cls, path: str, extractor: Optional[Extractor] = None,
-             device: "torch.device | str | None" = None,
-             mesh=None) -> "Index":
+             mesh=None, *,
+             device: "torch.device | str | None" = None) -> "Index":
         """An index saved by :meth:`save` (the port's stream or npz) or by
         the reference in its npz form (any row padding), onto ``device``
         (default: the extractor's, else the CUDA card, raising without

@@ -61,7 +61,8 @@ def fold_bn(kernel: torch.Tensor, bn: Mapping[str, torch.Tensor]):
     rsqrt(var + eps)`` per OUTPUT channel (axis 0 of an OIHW kernel) and
     ``b = beta - mean * s``; ``bn`` holds torchvision's ``weight``,
     ``bias``, ``running_mean`` and ``running_var``. Returns ``(K', b)`` in
-    f32."""
+    f32. The one ``bn`` mapping stands for the reference's Flax pair
+    ``(bn_params, bn_stats)`` by design."""
     s = bn["weight"].float() * torch.rsqrt(bn["running_var"].float()
                                            + _BN_EPS)
     k = kernel.float() * s.reshape(-1, *([1] * (kernel.dim() - 1)))
@@ -452,7 +453,9 @@ def fused_resnet_apply(state_dict: Mapping[str, torch.Tensor],
                        use_kernel: bool = True, fused_layers=(2,),
                        max_group_bytes: int = 6 << 20) -> torch.Tensor:
     """Inference Bottleneck ResNet forward with folded BN and fused
-    identity blocks: NHWC images [B, S, S, 3] -> NHWC bf16 feature maps
+    identity blocks (of a torchvision-layout ``state_dict`` by design,
+    where the reference takes Flax ``variables``; with no interpreter
+    flag): NHWC images [B, S, S, 3] -> NHWC bf16 feature maps
     [B, S/32, S/32, 2048], on ``x``'s device (the state_dict's tensors are
     moved there). Mirrors ``models.resnet.ResNet.forward`` as a function of
     its state_dict; the stem is conv 7x7/2 + folded BN + ReLU and a 3x3/2

@@ -198,7 +198,7 @@ def _pq_plan(n: int, groups: int, b: int, k: int, device):
 
 
 def pq_topk(packed: torch.Tensor, q: torch.Tensor, codebook, k: int = 10,
-            num_valid: "int | None" = None,
+            num_valid: "int | None" = None, *,
             mask: "torch.Tensor | None" = None):
     """K4: fused ADC top-k over a PQ store; see the module docstring.
     ``mask``: optional ``[1, N]`` (or ``[N]``) int8 allow-list."""

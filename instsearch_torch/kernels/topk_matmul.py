@@ -314,7 +314,7 @@ def _num_valid(n: int, num_valid) -> int:
 
 
 def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
-                num_valid: "int | None" = None,
+                num_valid: "int | None" = None, *,
                 mask: "torch.Tensor | None" = None):
     """K1: fused top-k over ``x`` for queries ``q``; see the module
     docstring. ``mask``: optional ``[1, N]`` (or ``[N]``) int8 allow-list.
@@ -435,7 +435,7 @@ def _topk_int(fn, ref, x, scales, q, k, num_valid, mask, int4: bool):
 
 def topk_matmul_int8(x_int8: torch.Tensor, scales: torch.Tensor,
                      q: torch.Tensor, k: int = 10,
-                     num_valid: "int | None" = None,
+                     num_valid: "int | None" = None, *,
                      mask: "torch.Tensor | None" = None):
     """K2: fused top-k over int8 rows ``x_int8 [N, D]`` with row ``scales
     [1, N]`` (``ops/quantize.py::quantize_rows``) for float queries ``q [B,
@@ -446,7 +446,7 @@ def topk_matmul_int8(x_int8: torch.Tensor, scales: torch.Tensor,
 
 def topk_matmul_int4(x_packed: torch.Tensor, scales: torch.Tensor,
                      q: torch.Tensor, k: int = 10,
-                     num_valid: "int | None" = None,
+                     num_valid: "int | None" = None, *,
                      mask: "torch.Tensor | None" = None):
     """K3: fused top-k over packed int4 rows ``x_packed [N, D/2]`` with row
     ``scales [1, N]`` (``ops/quantize.py::quantize_rows_int4``) for float

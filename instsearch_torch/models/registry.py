@@ -20,6 +20,10 @@ from .vit import ViT, vit_b_16, vit_l_16
 
 
 class BackboneSpec(NamedTuple):
+    """A backbone's factory, feature width and output stride. Its fields
+    differ from the reference's by design: the reference's fourth,
+    ``torch_loader``, converts a torchvision state_dict into Flax
+    variables, and the port loads that state_dict as it is."""
     factory: Callable[..., Any]
     feature_dim: int
     stride: int
@@ -39,8 +43,8 @@ BACKBONES: dict[str, BackboneSpec] = {
 }
 
 
-def get_backbone(name: str, dtype=torch.bfloat16, device=None,
-                 attention: "str | None" = None):
+def get_backbone(name: str, dtype=torch.bfloat16,
+                 attention: "str | None" = None, *, device=None):
     """-> ``(model, spec)``; the model is in eval mode, weights
     uninitialized (``init_weights`` or ``load_state_dict``), on ``device``:
     the CUDA card by default, raising without one. ``attention`` selects

@@ -42,7 +42,10 @@ def _conv(cin: int, cout: int, kernel: int, stride: int, padding: int,
 
 
 class BasicBlock(nn.Module):
-    """3x3 -> 3x3 residual block (ResNet-18/34), expansion 1."""
+    """3x3 -> 3x3 residual block (ResNet-18/34), expansion 1. Its
+    signature is torchvision's ``(inplanes, planes, stride, downsample)``
+    by design, where the reference's Flax block takes ``(features,
+    strides, ...)`` and infers its input width."""
 
     expansion = 1
 
@@ -66,7 +69,10 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 -> 1x1 bottleneck block with expansion 4."""
+    """1x1 -> 3x3 -> 1x1 bottleneck block with expansion 4. Its signature
+    is torchvision's ``(inplanes, planes, stride, downsample)`` by design,
+    where the reference's Flax block takes ``(features, strides, ...)``
+    and infers its input width."""
 
     expansion = 4
 
@@ -99,8 +105,8 @@ class ResNet(nn.Module):
     No avgpool / fc head: pooling is the descriptor layer's job
     (``instsearch_torch.ops.pooling``)."""
 
-    def __init__(self, stage_sizes: Sequence[int], block=Bottleneck,
-                 dtype=torch.bfloat16, device=None):
+    def __init__(self, stage_sizes: Sequence[int], dtype=torch.bfloat16,
+                 block=Bottleneck, *, device=None):
         super().__init__()
         self.dtype = dtype
         self.conv1 = _conv(3, 64, 7, 2, 3, dtype, device)
@@ -154,21 +160,21 @@ class ResNet(nn.Module):
         return self
 
 
-def resnet18(dtype=torch.bfloat16, device=None) -> ResNet:
-    return ResNet((2, 2, 2, 2), BasicBlock, dtype, device)
+def resnet18(dtype=torch.bfloat16, *, device=None) -> ResNet:
+    return ResNet((2, 2, 2, 2), dtype, BasicBlock, device=device)
 
 
-def resnet34(dtype=torch.bfloat16, device=None) -> ResNet:
-    return ResNet((3, 4, 6, 3), BasicBlock, dtype, device)
+def resnet34(dtype=torch.bfloat16, *, device=None) -> ResNet:
+    return ResNet((3, 4, 6, 3), dtype, BasicBlock, device=device)
 
 
-def resnet50(dtype=torch.bfloat16, device=None) -> ResNet:
-    return ResNet((3, 4, 6, 3), Bottleneck, dtype, device)
+def resnet50(dtype=torch.bfloat16, *, device=None) -> ResNet:
+    return ResNet((3, 4, 6, 3), dtype, Bottleneck, device=device)
 
 
-def resnet101(dtype=torch.bfloat16, device=None) -> ResNet:
-    return ResNet((3, 4, 23, 3), Bottleneck, dtype, device)
+def resnet101(dtype=torch.bfloat16, *, device=None) -> ResNet:
+    return ResNet((3, 4, 23, 3), dtype, Bottleneck, device=device)
 
 
-def resnet152(dtype=torch.bfloat16, device=None) -> ResNet:
-    return ResNet((3, 8, 36, 3), Bottleneck, dtype, device)
+def resnet152(dtype=torch.bfloat16, *, device=None) -> ResNet:
+    return ResNet((3, 8, 36, 3), dtype, Bottleneck, device=device)

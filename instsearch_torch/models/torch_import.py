@@ -103,7 +103,9 @@ def load_torch_vit(state_dict: Mapping[str, Any]) -> dict:
 
 def validate_variables(model: torch.nn.Module, state_dict: Mapping) -> None:
     """Raise ``ValueError`` unless ``state_dict`` has exactly the model's
-    keys (BatchNorm's step counters aside) and shapes."""
+    keys (BatchNorm's step counters aside) and shapes. The model's own
+    state_dict is the template by design, where the reference initializes
+    Flax variables at an ``input_shape`` to compare with."""
     _check_fits(dict(state_dict), model)
 
 

@@ -33,7 +33,7 @@ class VGG(nn.Module):
     max-pool floors an odd side)."""
 
     def __init__(self, cfg: Sequence = VGG16_CFG, dtype=torch.bfloat16,
-                 device=None):
+                 *, device=None):
         super().__init__()
         self.dtype = dtype
         layers: list[nn.Module] = []
@@ -72,5 +72,5 @@ class VGG(nn.Module):
         return self
 
 
-def vgg16(dtype=torch.bfloat16, device=None) -> VGG:
-    return VGG(VGG16_CFG, dtype, device)
+def vgg16(dtype=torch.bfloat16, *, device=None) -> VGG:
+    return VGG(VGG16_CFG, dtype, device=device)

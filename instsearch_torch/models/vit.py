@@ -92,7 +92,8 @@ class EncoderBlock(nn.Module):
     the reference, whose sequence-parallel runtime re-shards between them."""
 
     def __init__(self, num_heads: int, mlp_dim: int, hidden_dim: int,
-                 dtype=torch.bfloat16, attention: str = "auto", device=None):
+                 dtype=torch.bfloat16, attention: str = "auto", *,
+                 device=None):
         super().__init__()
         if hidden_dim % num_heads:
             raise ValueError(f"hidden dim {hidden_dim} not divisible by "
@@ -149,7 +150,8 @@ class ViT(nn.Module):
     def __init__(self, hidden_dim: int = 768, num_layers: int = 12,
                  num_heads: int = 12, mlp_dim: int = 3072,
                  patch_size: int = 16, image_size: int = 224,
-                 dtype=torch.bfloat16, attention: str = "auto", device=None):
+                 dtype=torch.bfloat16, attention: str = "auto", *,
+                 device=None):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
@@ -267,12 +269,12 @@ def templates(model: ViT) -> tuple[ViT, EncoderBlock]:
 
 
 def vit_b_16(dtype=torch.bfloat16, attention: str = "auto",
-             device=None) -> ViT:
+             *, device=None) -> ViT:
     return ViT(hidden_dim=768, num_layers=12, num_heads=12, mlp_dim=3072,
                patch_size=16, dtype=dtype, attention=attention, device=device)
 
 
 def vit_l_16(dtype=torch.bfloat16, attention: str = "auto",
-             device=None) -> ViT:
+             *, device=None) -> ViT:
     return ViT(hidden_dim=1024, num_layers=24, num_heads=16, mlp_dim=4096,
                patch_size=16, dtype=dtype, attention=attention, device=device)

@@ -163,4 +163,4 @@ def apply_local_whitening(x: torch.Tensor, params: LocalWhiteningParams,
                           renormalize: bool = True) -> torch.Tensor:
     """Route and whiten: ``x [B, D] -> [B, dim]`` f32."""
     out = project_by_expert(x, route(x, params), params.P, params.mu)
-    return l2_normalize(out, dim=-1) if renormalize else out
+    return l2_normalize(out, axis=-1) if renormalize else out

@@ -14,11 +14,12 @@ import torch
 EPS = 1e-6
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1,
+def l2_normalize(x: torch.Tensor, axis: int = -1,
                  eps: float = EPS) -> torch.Tensor:
-    """Unit-normalize so that dot product == cosine similarity; the norm is
-    taken in f32, the result keeps ``x``'s dtype."""
-    norm = torch.sqrt(torch.sum(torch.square(x.float()), dim=dim,
+    """Unit-normalize along ``axis`` so that dot product == cosine
+    similarity; the norm is taken in f32, the result keeps ``x``'s
+    dtype."""
+    norm = torch.sqrt(torch.sum(torch.square(x.float()), dim=axis,
                                 keepdim=True))
     return x / torch.clamp(norm, min=eps).to(x.dtype)
 
@@ -99,15 +100,20 @@ def rmac_regional_descriptors(x: torch.Tensor, levels: int = 3
                        dim=1)
 
 
-def rmac_pool(x: torch.Tensor, levels: int = 3) -> torch.Tensor:
-    """The R-MAC descriptor: per-region MAC -> l2 -> sum over regions -> l2,
-    with the reference's rounding points: the regions are normalized and
-    summed in ``x``'s dtype (the norms in f32, the sum accumulated in f32
-    and rounded once, as ``jnp.sum`` does). The reference's optional
-    per-region whitening inside the pool has no caller there or here: the
-    pipelines whiten the pooled descriptor."""
-    regional = l2_normalize(rmac_regional_descriptors(x, levels), dim=-1)
-    return l2_normalize(torch.sum(regional, dim=1), dim=-1)
+def rmac_pool(x: torch.Tensor, levels: int = 3,
+              whiten: "WhiteningParams | None" = None) -> torch.Tensor:
+    """The R-MAC descriptor: per-region MAC -> l2 -> (PCA-whiten) -> sum
+    over regions -> l2, with the reference's rounding points: the regions
+    are normalized and summed in ``x``'s dtype (the norms in f32, the sum
+    accumulated in f32 and rounded once, as ``jnp.sum`` does); ``whiten``
+    projects each region in f32 (``apply_whitening``) and rounds it back to
+    ``x``'s dtype. The pipelines whiten the pooled descriptor instead and
+    pass no ``whiten``, there as here."""
+    regional = l2_normalize(rmac_regional_descriptors(x, levels), axis=-1)
+    if whiten is not None:
+        from .whitening import apply_whitening
+        regional = apply_whitening(regional, whiten).to(x.dtype)
+    return l2_normalize(torch.sum(regional, dim=1), axis=-1)
 
 
 _POOLERS = {

@@ -84,7 +84,7 @@ def apply_whitening(x: torch.Tensor, params: WhiteningParams,
     """Whiten ``x: [..., D] -> [..., dim]`` in f32 and re-L2."""
     out = (x.float() - params.mu) @ params.P.T
     if renormalize:
-        out = l2_normalize(out, dim=-1)
+        out = l2_normalize(out, axis=-1)
     return out
 
 

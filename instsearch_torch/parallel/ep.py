@@ -43,7 +43,7 @@ def place_ep(mesh: ShardMesh, params: LocalWhiteningParams
                  .to(dev) for j, dev in enumerate(mesh.devices)))
 
 
-def expert_whiten_fn(mesh: ShardMesh, renormalize: bool = True):
+def expert_whiten_fn(mesh: ShardMesh, *, renormalize: bool = True):
     """``f(params, x [B, D]) -> [B, dim]`` applying the bank with its
     experts over ``mesh``'s shards. ``params`` is :func:`place_ep`'s
     placement (a whole bank is placed first); ``x`` is replicated to every
@@ -63,6 +63,6 @@ def expert_whiten_fn(mesh: ShardMesh, renormalize: bool = True):
             # and come back zero
             parts.append(project_by_expert(xx, a - lo, p_loc, mu_loc)[None])
         out = mesh.gather(parts, dim=0).sum(dim=0)         # one contributor
-        return l2_normalize(out, dim=-1) if renormalize else out
+        return l2_normalize(out, axis=-1) if renormalize else out
 
     return forward

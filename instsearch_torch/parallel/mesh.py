@@ -263,7 +263,11 @@ def _visible_devices() -> list[torch.device]:
 def make_mesh(num_shards: "int | None" = None,
               devices: "Sequence[torch.device | str] | None" = None,
               group=None) -> ShardMesh:
-    """A mesh of ``num_shards`` shards. Without ``devices``, one shard on
+    """A mesh of ``num_shards`` shards. Its signature differs from the
+    reference's ``make_mesh(num_devices, axis)`` by design: a torch mesh
+    is given its devices and process group, which JAX takes from
+    ``jax.devices()``, and its one axis is always ``'shard'``. Without
+    ``devices``, one shard on
     each of the first ``num_shards`` visible CUDA devices (all of them when
     ``num_shards`` is None); raises when it exceeds their count, as the
     reference's ``make_mesh`` does, so it never shrinks silently. With
@@ -363,7 +367,7 @@ def _process_grid(rows: int, cols: int, devices, names: tuple, group
 
 
 def make_mesh_2d(data: int, shard: int,
-                 devices: "Sequence[torch.device | str] | None" = None,
+                 *, devices: "Sequence[torch.device | str] | None" = None,
                  group=None) -> DeviceMesh:
     """A ``('data', 'shard')`` mesh: data-parallel extraction over
     ``'data'``, the index's rows over ``'shard'`` (:func:`make_device_mesh`:
@@ -372,7 +376,7 @@ def make_mesh_2d(data: int, shard: int,
 
 
 def make_mesh_dp_tp(data: int, model: int,
-                    devices: "Sequence[torch.device | str] | None" = None,
+                    *, devices: "Sequence[torch.device | str] | None" = None,
                     group=None) -> DeviceMesh:
     """A ``('data', 'model')`` mesh: the batch over ``'data'``, the ViT's
     tensor-parallel weight split over ``'model'`` (innermost, as the
@@ -393,7 +397,7 @@ def device_mesh(num_shards: int, device: "torch.device | str"
                                  for i in range(n)])
 
 
-def shard_rows(mesh: ShardMesh, x: torch.Tensor, dim: int = 0
+def shard_rows(mesh: ShardMesh, x: torch.Tensor, *, dim: int = 0
                ) -> list[torch.Tensor]:
     """This process's rows of ``x`` (all of them in a single process) cut
     along ``dim`` into one equal slice per local shard, each on its

@@ -49,7 +49,9 @@ def initialize(backend: "str | None" = None) -> bool:
     there, NCCL for CUDA tensors (``"cpu:gloo,cuda:nccl"``), so a mesh of
     either kind of shard gathers over it. Raises when the environment names
     a world that cannot be started: a variable missing, or no such
-    backend."""
+    backend. Its signature differs from the reference's by design: JAX's
+    coordinator address, process count and id are the environment's
+    variables here."""
     if "WORLD_SIZE" not in os.environ:
         log.info("no WORLD_SIZE in the environment: single process")
         return False
@@ -78,7 +80,9 @@ def initialize(backend: "str | None" = None) -> bool:
 def global_shard_mesh(devices: "Sequence[torch.device | str]") -> ShardMesh:
     """This process's local shards, one on each of ``devices`` (which may
     repeat), joined to the other processes' through the default group when
-    one is up; a single-process mesh otherwise."""
+    one is up; a single-process mesh otherwise. Its signature differs from
+    the reference's ``global_shard_mesh(axis)`` by design: JAX finds every
+    process's devices itself, torch is told this process's."""
     return make_mesh(devices=devices, group=_world())
 
 
@@ -93,7 +97,7 @@ def global_mesh_2d(data: int, shard: int,
     group, this process's positions on ``devices`` (``make_mesh_2d`` with
     its group); a single-process mesh when no group is up. Every process
     makes it, in the same order as its other meshes."""
-    return make_mesh_2d(data, shard, devices, _world())
+    return make_mesh_2d(data, shard, devices=devices, group=_world())
 
 
 def global_mesh_dp_tp(data: int, model: int,
@@ -102,7 +106,7 @@ def global_mesh_dp_tp(data: int, model: int,
     """A ``('data', 'model')`` mesh over every process of the default
     group (``make_mesh_dp_tp`` with its group), as
     :func:`global_mesh_2d`."""
-    return make_mesh_dp_tp(data, model, devices, _world())
+    return make_mesh_dp_tp(data, model, devices=devices, group=_world())
 
 
 def local_row_range(n_rows: int) -> tuple[int, int]:
@@ -118,12 +122,12 @@ def local_row_range(n_rows: int) -> tuple[int, int]:
     return p * per, (p + 1) * per
 
 
-def shard_local_rows(mesh: ShardMesh, local_rows, dim: int = 0
+def shard_local_rows(mesh: ShardMesh, local_rows, *, dim: int = 0
                      ) -> list[torch.Tensor]:
     """This process's rows (:func:`local_row_range`) split over its local
     shards, each on its device (``shard_rows``): no process ever holds
     the whole store."""
-    return shard_rows(mesh, torch.as_tensor(local_rows), dim)
+    return shard_rows(mesh, torch.as_tensor(local_rows), dim=dim)
 
 
 def build_multihost_index(local_descriptors, ids,

@@ -62,7 +62,7 @@ def stack_layer_params(model: ViT) -> tuple[dict, dict]:
     return rest, stacked
 
 
-def place_pp(mesh, model: ViT, axis: str = "pipe") -> tuple[list, list]:
+def place_pp(mesh, model: ViT, *, axis: str = "pipe") -> tuple[list, list]:
     """``(rest, stacked)``, one entry per line of ``axis`` this process
     holds (``axis_groups``; one on a 1-D mesh): ``rest[g]`` maps each
     embed/finalize tensor to its copy on the line's first local device;

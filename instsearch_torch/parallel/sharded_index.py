@@ -473,7 +473,7 @@ class ShardedIndex:
     process."""
 
     def __init__(self, descriptors, ids, mesh: "ShardMesh | None" = None,
-                 k: int = 10, use_pallas: bool = True, regional=None,
+                 k: int = 10, use_pallas: bool = True, *, regional=None,
                  scales=None, regional_scales=None, query_chunk: int = 128,
                  int4: bool = False, regional_geom=None,
                  dim: "int | None" = None, lw_store=None, lw_assign=None,
@@ -545,7 +545,7 @@ class ShardedIndex:
                         f"placed parts: one tensor of {c} rows per local "
                         f"shard, on its device")
                 return list(t)
-            return shard_rows(self.mesh, torch.as_tensor(t), dim)
+            return shard_rows(self.mesh, torch.as_tensor(t), dim=dim)
 
         self.shards = [
             Shard(xs, ids_s, sc, reg, rsc,

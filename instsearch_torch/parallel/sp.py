@@ -44,7 +44,7 @@ from .mesh import axis_groups, batch_groups
 _LAYER = "encoder_layer_"
 
 
-def place_sp(mesh, model: ViT, axis: str = "seq") -> list:
+def place_sp(mesh, *, model: ViT, axis: str = "seq") -> list:
     """Replicated weights: one entry per position of the mesh's other axis
     (one on a 1-D mesh), each a tuple with ``model``'s state_dict on every
     device of the group's ``axis`` (one copy a distinct device, shared

@@ -57,7 +57,8 @@ def tp_param_spec(name: str, axis: str = "model") -> "int | None":
     """The dimension of the torch tensor ``name`` (a state_dict key, e.g.
     ``encoder_layer_3.qkv.weight``) that is split over ``axis``, or None
     for a replicated tensor. ``axis`` names the mesh axis, as in the
-    reference; the dimension does not depend on it."""
+    reference; the dimension does not depend on it. A state_dict key
+    stands for the reference's Flax parameter path by design."""
     parts = name.split(".")
     if len(parts) < 2:
         return None
@@ -70,7 +71,8 @@ def tp_param_spec(name: str, axis: str = "model") -> "int | None":
 
 
 def tp_param_specs(state_dict, axis: str = "model") -> dict:
-    """``tp_param_spec`` of every tensor of ``state_dict``."""
+    """``tp_param_spec`` of every tensor of ``state_dict`` (a torch
+    state_dict by design, where the reference takes Flax variables)."""
     return {name: tp_param_spec(name, axis) for name in state_dict}
 
 
@@ -124,7 +126,7 @@ def place_group(state_dict, devices, heads: int, axis: str = "model"
     return out
 
 
-def place_tp(mesh, model: torch.nn.Module, axis: str = "model") -> list:
+def place_tp(mesh, *, model: torch.nn.Module, axis: str = "model") -> list:
     """``model``'s weights in their TP placement: one ``place_group`` for
     each line of ``axis`` this process holds (``axis_groups``; one on a
     1-D mesh), in order. A model without split layers (a CNN) comes back

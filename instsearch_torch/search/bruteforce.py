@@ -24,7 +24,7 @@ def masked_scores(descriptors: torch.Tensor, queries: torch.Tensor,
                   scales: "torch.Tensor | None" = None,
                   ids: "torch.Tensor | None" = None,
                   int4: bool = False,
-                  mask: "torch.Tensor | None" = None) -> torch.Tensor:
+                  *, mask: "torch.Tensor | None" = None) -> torch.Tensor:
     """[Q, N] f32 scores, the one scoring definition for float, int8 (with
     ``scales [1, N]``) and packed-int4 storage (``int4=True``: the store is
     ``[N, D // 2]`` nibble pairs, which its dtype cannot tell from int8).
@@ -87,7 +87,7 @@ def select_topk(scores: torch.Tensor, k: int):
 
 def search_topk(index: torch.Tensor, queries: torch.Tensor, k: int = 10,
                 ids: "torch.Tensor | None" = None,
-                scales: "torch.Tensor | None" = None, int4: bool = False,
+                *, scales: "torch.Tensor | None" = None, int4: bool = False,
                 mask: "torch.Tensor | None" = None):
     """``index [N, D]``, ``queries [Q, D]`` -> ``(scores [Q, k], positions
     [Q, k])``; pass ``ids`` when the store carries padding rows (id -1),

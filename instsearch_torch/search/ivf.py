@@ -299,26 +299,27 @@ class IVFIndex:
         used = int((self.spill_pos >= 0).sum())
         cap = int(self.spill_pos.shape[0])
         if used + blk > cap:
-            self.reserve_spill(max(used + blk, 2 * cap))
+            self.reserve_spill(max(used + blk, 2 * cap), index)
         self.spill[used:used + blk] = rows_blk
         self.spill_pos[used:used + blk] = pos_blk
         if self.spill_scales is not None:
             self.spill_scales[used:used + blk] = sc_blk
 
-    def reserve_spill(self, min_capacity: int) -> None:
+    def reserve_spill(self, min_capacity: int, index) -> None:
         """Grow the spill arrays to at least ``min_capacity`` slots, rounded
-        up to a power of two, without adding entries. The reference does it
-        to keep its compiled programs' shapes; eager PyTorch compiles
-        nothing, but the grown arrays are the view's state (a saved view
-        carries them) and ``ServeCore`` reserves them as the reference's
-        does."""
+        up to a power of two, without adding entries; the new rows take
+        ``index``'s row width (``dim``) and store dtype, as the reference
+        takes its store's. The reference does it to keep its compiled
+        programs' shapes; eager PyTorch compiles nothing, but the grown
+        arrays are the view's state (a saved view carries them) and
+        ``ServeCore`` reserves them as the reference's does."""
         cap = int(self.spill_pos.shape[0])
         want = max(8, 1 << max(0, min_capacity - 1).bit_length())
         if want <= cap:
             return
         grow = want - cap
         self.spill = torch.cat([self.spill, self.spill.new_zeros(
-            (grow, self.spill.shape[1]))])
+            (grow, index.dim), dtype=index.store_dtype)])
         self.spill_pos = torch.cat([self.spill_pos,
                                     self.spill_pos.new_full((grow,), -1)])
         if self.spill_scales is not None:
@@ -403,7 +404,7 @@ class IVFIndex:
                                   for k, v in state.items()}}, f)
 
     @classmethod
-    def load(cls, path: str, device: "torch.device | str | None" = None
+    def load(cls, path: str, *, device: "torch.device | str | None" = None
              ) -> "IVFIndex":
         """A view saved by :meth:`save` or by the reference, onto
         ``device`` (default: the card, raising without one)."""

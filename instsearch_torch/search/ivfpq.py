@@ -494,7 +494,7 @@ class IVFPQView:
                         sample: "int | None" = 262_144, depth: int = 400,
                         chunk: int = 65_536, opq_iters: int = 0,
                         anisotropic_t: "float | None" = None,
-                        device: "torch.device | str | None" = None
+                        *, device: "torch.device | str | None" = None
                         ) -> "IVFPQView":
         """The view fitted straight from a :class:`HostRowStore`, on
         ``device`` (default: the card, raising without one): no index on
@@ -515,7 +515,8 @@ class IVFPQView:
                         seed=seed, cap_factor=cap_factor, sample=sample,
                         depth=depth, chunk=chunk, opq_iters=opq_iters,
                         anisotropic_t=anisotropic_t,
-                        rows_dev=lambda s, c: store.rows_device(s, c, dev),
+                        rows_dev=lambda s, c: store.rows_device(
+                            s, c, device=dev),
                         rows_sample=rows_sample)
 
     def _select(self, queries, depth: int, nprobe: int | None, mask):
@@ -602,7 +603,7 @@ class IVFPQView:
                        "anisotropic_t": self.anisotropic_t}, f)
 
     @classmethod
-    def load(cls, path: str, device: "torch.device | str | None" = None
+    def load(cls, path: str, *, device: "torch.device | str | None" = None
              ) -> "IVFPQView":
         """A view saved by :meth:`save` or by the reference, onto
         ``device`` (default: the card, raising without one)."""
@@ -690,7 +691,7 @@ class HostRowStore:
         return cls(path)
 
     def rows_device(self, start: int, count: int,
-                    device: "torch.device | str | None" = None
+                    *, device: "torch.device | str | None" = None
                     ) -> torch.Tensor:
         """Dequantized f32 chunk ``[count, D]`` on ``device`` (default: the
         card, raising without one), zero past N: the raw storage bytes

@@ -36,7 +36,7 @@ def whiten_all_clusters(q: torch.Tensor, P: torch.Tensor,
     bank."""
     xm = q.float()[:, None, :] - mu[None]                        # [B, E, D]
     out = torch.einsum("bed,eod->beo", xm, P)                    # [B, E, dim]
-    return l2_normalize(out, dim=-1)
+    return l2_normalize(out, axis=-1)
 
 
 def lw_rescore_from_candidates(store, assign, ids, cand_scores, pos, q_all,
@@ -162,7 +162,7 @@ class LocalWhiteningView:
             json.dump({"n_clusters": self.n_clusters, "dim": self.dim}, f)
 
     @classmethod
-    def load(cls, path: str, device: "torch.device | str | None" = None
+    def load(cls, path: str, *, device: "torch.device | str | None" = None
              ) -> "LocalWhiteningView":
         """A view saved by :meth:`save` or by the reference. ``device``
         defaults to the card (``utils.device.resolve_device``)."""

@@ -301,7 +301,7 @@ class PQView:
                        "anisotropic_t": self.anisotropic_t}, f)
 
     @classmethod
-    def load(cls, path: str, device: "torch.device | str | None" = None
+    def load(cls, path: str, *, device: "torch.device | str | None" = None
              ) -> "PQView":
         """A view saved by :meth:`save` or by the reference; its codes are
         padded to words again. ``device`` defaults to the card."""
@@ -314,9 +314,12 @@ class PQView:
             device=device, anisotropic_t=meta.get("anisotropic_t"))
 
     # ------------------------------------------------------------------
-    def candidates(self, index, queries, depth: int | None = None):
+    def candidates(self, index, queries, depth: int | None = None,
+                   use_pallas: bool | None = None):
         """``(exact scores [B, depth], row positions [B, depth])``, the
-        cascade stage already re-scored, on the route of the index's own
+        cascade stage already re-scored. ``use_pallas``: True scans with K4
+        (on a CUDA store; a CPU tensor takes its plain version), False with
+        the plain scan, None on the route of the index's own
         ``cfg.search.use_pallas``. A placed index (``Index.load(mesh=)``)
         stays placed: the re-score reads its candidates' rows from the
         shards (across processes, collectively: every process calls this
@@ -329,7 +332,8 @@ class PQView:
         return _pq_candidates(
             self.packed, self.codebook.centroids, index._rows_f32_at, q,
             index.num_valid, self.rotation, depth=depth,
-            use_kernel=bool(index.cfg.search.use_pallas))
+            use_kernel=bool(index.cfg.search.use_pallas
+                            if use_pallas is None else use_pallas))
 
     def search(self, index, queries, k: int = 10, depth: int | None = None):
         """Descriptor-space cascade search -> ``(scores [B, k], dataset ids

@@ -72,12 +72,11 @@ def serve_buckets(query_chunk: int) -> list[int]:
     return buckets
 
 
-def serve_batch(idx, batch: np.ndarray, scfg, buckets, sidx=None,
-                subset=None):
+def serve_batch(idx, sidx, batch: np.ndarray, scfg, buckets, subset=None):
     """Serve an image batch of any size through the bucket shapes only:
     larger requests split into largest-bucket pieces, the remainder padded
     up to the smallest covering bucket (padding rows are dropped).
-    ``sidx``: the sharded index to search through, if any; ``subset``: a
+    ``sidx``: the sharded index to search through, or None; ``subset``: a
     ``SubsetFilter`` restricting the results."""
     n = batch.shape[0]
     out_s, out_i = [], []
@@ -124,8 +123,8 @@ class ServeCore:
     ``decode`` is host-only; ``mutate`` and ``run_queries`` touch the
     device and stay on one thread."""
 
-    def __init__(self, idx, sharded: bool = False, mesh=None,
-                 spill_reserve: int = 4096):
+    def __init__(self, idx, sharded: bool = False, spill_reserve: int = 4096,
+                 *, mesh=None):
         self.idx = idx
         self.mesh = mesh
         self.sidx = idx.to_sharded(mesh=mesh) if sharded else None
@@ -133,9 +132,10 @@ class ServeCore:
         # many absorbed rows, as the reference's ServeCore grows them (there
         # to keep its compiled shapes; here the arrays are the views' state)
         if spill_reserve:
-            for view in (idx.ivf, idx.ivfpq):
-                if view is not None:
-                    view.reserve_spill(spill_reserve)
+            if idx.ivf is not None:
+                idx.ivf.reserve_spill(spill_reserve, idx)
+            if idx.ivfpq is not None:
+                idx.ivfpq.reserve_spill(spill_reserve)
         self.size = idx.cfg.extract.image_size
         self.warm_k = idx.cfg.search.k
         self.buckets = serve_buckets(idx.cfg.search.query_chunk)
@@ -241,8 +241,8 @@ class ServeCore:
         batch = (jobs[0][0] if len(jobs) == 1
                  else np.concatenate([im for im, _ in jobs]))
         t0 = time.perf_counter()
-        scores, ids = serve_batch(self.idx, batch, scfg, self.buckets,
-                                  self.sidx, subset=sub)
+        scores, ids = serve_batch(self.idx, self.sidx, batch, scfg,
+                                  self.buckets, subset=sub)
         latency = round((time.perf_counter() - t0) * 1e3, 3)
         out, pos = [], 0
         for images, req_k in jobs:
@@ -319,7 +319,7 @@ class VectorServeCore:
 
     def __init__(self, store, view, k: int = 10, adc_only: bool = False,
                  query_chunk: int = 128,
-                 device: "torch.device | str | None" = None):
+                 *, device: "torch.device | str | None" = None):
         from .utils.device import resolve_device
         # "cuda" as the index of the current card, as tensors carry it
         self.device = torch.empty(0, device=resolve_device(device)).device

@@ -54,7 +54,7 @@ def finetune(paths, labels, cfg, epochs: int = 1,
              steps_per_epoch: int | None = None, mesh=None, seed: int = 0,
              variables: dict | None = None, fit_lw: bool = False,
              lw_dim: int = 0,
-             device: "torch.device | str | None" = None) -> dict:
+             *, device: "torch.device | str | None" = None) -> dict:
     """Returns ``{"variables": the tuned backbone's state_dict, "gem_p",
     "losses": [...], "trainer"}`` (and ``"whitening"`` with ``fit_lw``).
 

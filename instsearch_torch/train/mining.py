@@ -17,7 +17,7 @@ from ..utils.device import resolve_device
 def mine_hard_negatives(pool, pool_labels: np.ndarray, anchors,
                         anchor_labels: np.ndarray, num_negatives: int = 5,
                         overfetch: int = 4,
-                        device: "torch.device | str | None" = None
+                        *, device: "torch.device | str | None" = None
                         ) -> np.ndarray:
     """Returns ``[A, num_negatives]`` int64 pool indices: per anchor, the
     top-scoring entries whose label differs from the anchor's (ties in

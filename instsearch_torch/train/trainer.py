@@ -67,7 +67,7 @@ def _descriptors(model, params: dict, frozen: dict, images: torch.Tensor,
         d = mac_pool(fmap)
     else:
         d = avg_pool(fmap)
-    return l2_normalize(d.float(), dim=-1)
+    return l2_normalize(d.float(), axis=-1)
 
 
 def contrastive_loss(desc: torch.Tensor, cfg) -> torch.Tensor:
@@ -153,7 +153,7 @@ class Trainer:
 
     def __init__(self, cfg, mesh=None, seed: int = 0,
                  variables: dict | None = None,
-                 device: "torch.device | str | None" = None):
+                 *, device: "torch.device | str | None" = None):
         if cfg.loss not in _LOSSES:
             raise ValueError(f"unknown loss {cfg.loss!r}; expected one of "
                              f"{sorted(_LOSSES)}")

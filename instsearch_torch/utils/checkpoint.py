@@ -314,7 +314,8 @@ def _shard_range(n: int, mesh, j: int) -> tuple[int, int]:
 def load_sharded_pytree(path: str,
                         placements: Optional[Mapping[str, Any]] = None
                         ) -> dict:
-    """The tree :func:`save_sharded_pytree` wrote to ``path``.
+    """The tree :func:`save_sharded_pytree` wrote to ``path``. Its
+    ``placements`` stand for the reference's JAX ``shardings`` by design.
     ``placements`` maps a leaf's name to ``(mesh, dim)`` or None (a name it
     lacks is None): a placed leaf comes back as one tensor per local shard
     of ``mesh``, each shard's rows along ``dim`` read from the file alone

@@ -51,7 +51,7 @@ def _scaled(cfg: PipelineConfig, image_size: int, batch: int
 
 def run_workload(name: str, dataset: RetrievalDataset,
                  scale_down: bool = True, seed: int = 0,
-                 device: "torch.device | str | None" = None) -> dict:
+                 *, device: "torch.device | str | None" = None) -> dict:
     device = resolve_device(device)
     cfg = load_preset(name)
     if scale_down:
@@ -146,7 +146,7 @@ def run_workload(name: str, dataset: RetrievalDataset,
 
 def run_all(data_root: str = "data", dataset_name: str = "mini",
             scale_down: bool = True,
-            device: "torch.device | str | None" = None) -> list[dict]:
+            *, device: "torch.device | str | None" = None) -> list[dict]:
     device = resolve_device(device)
     dataset = load_dataset(dataset_name, data_root)
     return [run_workload(name, dataset, scale_down, device=device)

@@ -184,7 +184,7 @@ def test_bench_train_at_toy_size(monkeypatch):
 
     def short(make_chained, args, n1, n2, reps, device, wall):
         seen.update(n1=n1, n2=n2, reps=reps, wall=wall)
-        return timer(make_chained, args, 1, 2, 2, device, wall)
+        return timer(make_chained, args, 1, 2, 2, device=device, wall=wall)
     monkeypatch.setattr(B, "marginal_times", short)
     out = B.bench_train(batch=2, negs=1, image_size=32, backbone="resnet18",
                         device="cpu")

@@ -275,7 +275,8 @@ def test_stage_at_toy_size(monkeypatch, name, call):
         def short(make_chained, args, n1, n2, reps=7, device=None,
                   wall=False):
             seen.append((n1, n2, reps))
-            return timer(make_chained, args, 1, 2, 2, device, wall)
+            return timer(make_chained, args, 1, 2, 2, device=device,
+                         wall=wall)
         monkeypatch.setattr(B, "marginal_times", short)
     out = call()
     if name in CHAINS:

@@ -243,7 +243,7 @@ def test_randomize_bn_is_seeded_and_not_the_identity():
     seed draws the same statistics, each within its range, and none is
     ``init_weights``' identity (scale 1, mean 0, var 1)."""
     def drawn(seed):
-        model = ResNet((1, 1, 1, 1), Bottleneck, dtype=torch.float32,
+        model = ResNet((1, 1, 1, 1), block=Bottleneck, dtype=torch.float32,
                        device="cpu")
         randomize_bn(model, torch.Generator().manual_seed(seed))
         return model.state_dict()
@@ -339,7 +339,7 @@ def test_fused_apply_lax_route_matches_jax(small_resnet):
 def test_fused_apply_matches_module_forward(small_resnet, fused_layers,
                                             use_kernel):
     variables, sd, x, _, _ = small_resnet
-    model = ResNet((2, 2, 2, 2), Bottleneck, dtype=BF16, device="cpu")
+    model = ResNet((2, 2, 2, 2), block=Bottleneck, dtype=BF16, device="cpu")
     load_jax_resnet(model, variables)
     with torch.inference_mode():
         want = gem_pool(model(x).float())

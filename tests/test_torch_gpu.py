@@ -637,7 +637,7 @@ def test_bf16_mha_takes_any_token_count(gen, n):
 def _seeded_net(gen, stage_sizes):
     """A Bottleneck ResNet on the card: Flax-distribution conv weights and
     randomized BN."""
-    model = ResNet(stage_sizes, Bottleneck, device="cuda")
+    model = ResNet(stage_sizes, block=Bottleneck, device="cuda")
     model.init_weights(gen)
     randomize_bn(model, gen)
     return model

@@ -230,10 +230,7 @@ def test_absorb_add_remove_reserve(dtype, tmp_path):
     for idx in (jidx, tidx):
         idx.add(descriptors=x[500:530], names=[f"a{i}" for i in range(30)])
         idx.remove([f"r{i}" for i in range(0, 500, 7)] + ["a3"])
-        if idx is jidx:                 # the reference takes the index too
-            idx.ivf.reserve_spill(100, idx)
-        else:
-            idx.ivf.reserve_spill(100)
+        idx.ivf.reserve_spill(100, idx)
         # past the capacity of 640: the store re-pads
         idx.add(descriptors=x[530:730], names=[f"b{i}" for i in range(200)])
     jv, tv = jidx.ivf, tidx.ivf

@@ -109,7 +109,7 @@ for att in ("xla", "pallas", "flash"):
     assert tuple(vit(rescale(img, 0.8)).shape) == (1, 4, 4, 16)
 from instsearch_torch.kernels.fused_resnet import fused_resnet_apply
 from instsearch_torch.models.resnet import Bottleneck, ResNet
-net = ResNet((1, 2, 1, 1), Bottleneck, device="cpu")
+net = ResNet((1, 2, 1, 1), block=Bottleneck, device="cpu")
 net.init_weights(torch.Generator().manual_seed(0))
 feats = fused_resnet_apply(net.state_dict(), torch.rand(1, 32, 32, 3),
                            stage_sizes=(1, 2, 1, 1), fused_layers=(1, 2, 3, 4))
@@ -252,11 +252,12 @@ cpus = lambda n, axis: ShardMesh((torch.device("cpu"),) * n, axis=axis)
 with torch.inference_mode():
     want = vit(imgs)
     tpm = cpus(2, "model")
-    got = [TensorParallelViT(vit, tpm.devices, place_tp(tpm, vit)[0])(imgs),
+    got = [TensorParallelViT(vit, tpm.devices,
+                             place_tp(tpm, model=vit)[0])(imgs),
            pipelined_vit_fn(vit, cpus(2, "pipe"), 2)(
                *place_pp(cpus(2, "pipe"), vit), imgs),
            sequence_parallel_vit_fn(vit, cpus(4, "seq"))(
-               place_sp(cpus(4, "seq"), vit), imgs)]
+               place_sp(cpus(4, "seq"), model=vit), imgs)]
 assert all(float((g - want).abs().max()) < 1e-4 for g in got)
 import instsearch_torch.models.registry as treg
 treg.BACKBONES["vit_tiny"] = treg.BackboneSpec(

@@ -59,7 +59,7 @@ def test_placed_round_trip(tmp_path, dtype, shards, dim):
     t = _leaf(dtype, shape)
     mesh = _mesh(shards)
     save_sharded_pytree(str(tmp_path / "p"), {
-        "t": Placed(shard_rows(mesh, t, dim), dim, mesh)})
+        "t": Placed(shard_rows(mesh, t, dim=dim), dim, mesh)})
     save_sharded_pytree(str(tmp_path / "w"), {"t": t})
     assert _files(tmp_path / "p") == _files(tmp_path / "w")
     rec = json.load(open(tmp_path / "p" / TREE_FILE))["leaves"]["t"]
@@ -86,7 +86,7 @@ def test_mixed_tree_and_a_2d_mesh_axis(tmp_path):
     x = _leaf(torch.bfloat16, (8, 5), 1)
     s = _leaf(torch.float32, (1, 8), 2)
     tree = {"x": Placed(shard_rows(mesh, x), 0, mesh),
-            "s": Placed(shard_rows(mesh, s, 1), 1, mesh),
+            "s": Placed(shard_rows(mesh, s, dim=1), 1, mesh),
             "ids": torch.arange(8, dtype=torch.int32),
             "scalar": torch.tensor(2.5)}
     save_sharded_pytree(str(tmp_path), tree)
@@ -159,7 +159,7 @@ def test_two_processes_write_one_tree(two_processes, tmp_path):
     mesh = _mesh(WORLD * worker.LOCAL_SHARDS)
     save_sharded_pytree(str(tmp_path), {
         "x": Placed(shard_rows(mesh, x), 0, mesh),
-        "s": Placed(shard_rows(mesh, s, 1), 1, mesh), "w": w})
+        "s": Placed(shard_rows(mesh, s, dim=1), 1, mesh), "w": w})
     assert _files(out / "tree") == _files(tmp_path)
     c = worker.ROWS // (WORLD * worker.LOCAL_SHARDS)
     for r, res in enumerate(ranks):

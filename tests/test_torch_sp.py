@@ -66,7 +66,7 @@ def rig():
 def _run(model, mesh, x):
     with torch.inference_mode():
         return sequence_parallel_vit_fn(model, mesh)(
-            place_sp(mesh, model), torch.from_numpy(x)).numpy()
+            place_sp(mesh, model=model), torch.from_numpy(x)).numpy()
 
 
 def _check(got, case):
@@ -86,7 +86,7 @@ def test_sp_dp_composition(rig):
     model, out = rig
     mesh = DeviceMesh(((CPU,) * 4,) * 2, ("data", "seq"))
     _check(_run(model, mesh, out["dp"][0]), out["dp"])
-    placed = place_sp(mesh, model)
+    placed = place_sp(mesh, model=model)
     assert len(placed) == 2 and all(len(g) == 4 for g in placed)
     # one copy a distinct device, shared by the shards that repeat it
     assert placed[0][0] is placed[0][3]

@@ -109,7 +109,7 @@ def rig():
 def _tp_forward(model, mesh, x):
     """The batch over the mesh's data positions, one TensorParallelViT a
     position."""
-    placed = place_tp(mesh, model)
+    placed = place_tp(mesh, model=model)
     groups = axis_groups(mesh, "model")
     parts = np.array_split(np.arange(x.shape[0]), len(groups))
     with torch.inference_mode():
@@ -131,7 +131,7 @@ def test_tp_matches_jax(rig, data, tp):
 def test_params_really_sharded(rig, data, tp):
     model = rig[0]
     placed = place_tp(make_mesh_dp_tp(data, tp, devices=["cpu"] * data * tp),
-                      model)
+                      model=model)
     assert len(placed) == data
     for group in placed:
         for name, want in (("qkv.weight", (96 // tp, 32)),
@@ -158,10 +158,10 @@ def test_head_split_holds_each_heads_qkv_rows(rig):
     heads) the rows are the reference's contiguous eighths."""
     model = rig[0]
     w = model.state_dict()["encoder_layer_1.qkv.weight"]
-    two = place_tp(ShardMesh((CPU,) * 2, axis="model"), model)[0]
+    two = place_tp(ShardMesh((CPU,) * 2, axis="model"), model=model)[0]
     want = torch.cat([w[16:32], w[48:64], w[80:96]])
     assert torch.equal(two["encoder_layer_1.qkv.weight"][1], want)
-    eight = place_tp(ShardMesh((CPU,) * 8, axis="model"), model)[0]
+    eight = place_tp(ShardMesh((CPU,) * 8, axis="model"), model=model)[0]
     assert torch.equal(eight["encoder_layer_1.qkv.weight"][5], w[60:72])
 
 
@@ -206,7 +206,7 @@ def test_indivisible_dim_rejected():
                 patch_size=4, image_size=16, dtype=torch.float32,
                 device="cpu")
     with pytest.raises(ValueError, match="not divisible"):
-        place_tp(ShardMesh((CPU,) * 8, axis="model"), model)
+        place_tp(ShardMesh((CPU,) * 8, axis="model"), model=model)
 
 
 def test_meshes_for_model_parallel_runtimes():
@@ -328,10 +328,10 @@ def test_published_widths_shard_shapes():
     """vit_b_16 and vit_l_16 on the ``meta`` device: the shards' shapes at
     their published widths."""
     mesh = make_mesh_dp_tp(1, 4, devices=["meta"] * 4)
-    b16 = place_tp(mesh, vit_b_16(device="meta"))[0]
+    b16 = place_tp(mesh, model=vit_b_16(device="meta"))[0]
     assert tuple(b16["encoder_layer_0.qkv.weight"][0].shape) == (576, 768)
     assert tuple(b16["encoder_layer_11.out.weight"][3].shape) == (768, 192)
-    l16 = place_tp(mesh, vit_l_16(device="meta"))[0]
+    l16 = place_tp(mesh, model=vit_l_16(device="meta"))[0]
     assert tuple(l16["encoder_layer_23.qkv.weight"][0].shape) == (768, 1024)
     assert tuple(l16["encoder_layer_0.linear_1.weight"][1].shape) == (
         1024, 1024)

@@ -57,7 +57,7 @@ def _jax_resnet(dtype=None):
 
 
 def _port_resnet(dtype=torch.bfloat16, device=None):
-    return ResNet((1, 1, 1, 1), BasicBlock, dtype=dtype, device=device)
+    return ResNet((1, 1, 1, 1), block=BasicBlock, dtype=dtype, device=device)
 
 
 def _jax_vgg(dtype=None):

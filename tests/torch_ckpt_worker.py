@@ -69,7 +69,7 @@ def main(rank: int, world: int, port: str, out: str) -> None:
     tree = os.path.join(out, "tree")
     save_sharded_pytree(tree, {
         "x": Placed(shard_rows(mesh, x[lo:hi]), 0, mesh),
-        "s": Placed(shard_rows(mesh, s[:, lo:hi], 1), 1, mesh),
+        "s": Placed(shard_rows(mesh, s[:, lo:hi], dim=1), 1, mesh),
         "w": w})
     back = load_sharded_pytree(tree, {"x": (mesh, 0), "s": (mesh, 1)})
     assert torch.equal(back["w"], w)

@@ -110,7 +110,7 @@ def main(rank: int, world: int, port: str, folder: str) -> None:
         for case, mesh in tp_meshes.items():
             lines = axis_groups(mesh, "model")
             for dt, m in models.items():
-                placed = place_tp(mesh, m)
+                placed = place_tp(mesh, model=m)
                 n_data = mesh.shape.get("data", 1)
                 share = x.shape[0] // n_data
                 outs = [TensorParallelViT(m, line, pl)(
@@ -158,7 +158,7 @@ def main(rank: int, world: int, port: str, folder: str) -> None:
                                            world_group))):
             m = models["f32"]
             res[case] = sequence_parallel_vit_fn(m, mesh)(
-                place_sp(mesh, m), x).numpy()
+                place_sp(mesh, model=m), x).numpy()
     # Extractor(mesh=) end to end: ('data', 'model') with data across
     # the processes, 'model' across them, ('data', 'shard') with data
     # across them, and a 'data' ShardMesh
