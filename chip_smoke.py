@@ -437,6 +437,8 @@ CORPUS_Q = 1024         # phase 3: images extracted at the presets' 512 px
 SCORE_TOL = 1e-5        # unit rows: f32 sums in two orders differ far below
 SIZES = (1, 3, 8, 13)   # images per served request
 K1_BATCHES = (1, 8, 16, 64, 128)   # K1's bf16 query batches in phase 1
+# the route of K1's bf16 pass 1 (csrc/topk_wgmma.cuh), named in its row
+K1_PASS1 = "topk_pass1_wgmma: TMA + wgmma, buffered top-k"
 # K1 at D = 2048 on the quality tiers' paths (phase 11), timed in phase 1:
 # (B, k) of the αDBA / kNN-graph chunk and of diffusion's depth
 QUALITY_K1 = ((128, 10), (1, 200), (8, 200), (128, 200))
@@ -561,9 +563,13 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
     def case(x, b, k, label, num_valid=None, mask=None, q=None):
         if q is None:
             q = unit_rows(gen, b, x.shape[1], torch.float32)
+        wgmma = topk.launches_wgmma
         s, i = topk(x, q, k=k, num_valid=num_valid, mask=mask)
         rs, ri = ref(x, q, k=k, num_valid=num_valid, mask=mask)
         torch.cuda.synchronize()
+        if topk.launches_wgmma - wgmma != (x.dtype == torch.bfloat16):
+            fail(f"{label} B={b} k={k}: a bf16 store must take the TMA + "
+                 f"wgmma pass 1, an f32 store the FMA one")
         try:
             err = check(x, q, s, i, rs, ri, SCORE_TOL)
         except AssertionError as e:
@@ -977,9 +983,10 @@ def empty_slice_case(gen, kind: str, b: int, masked: bool,
     ``check_against_plain``, K2/K3 by ``check_exact``); a position
     outside [-1, F7_VALID) fails before anything is gathered by it.
     Without the barrier after the lists' initialization in
-    ``csrc/topk_mma.cuh`` a warp wrote out entries other warps had not set
-    yet. Raises ``AssertionError``; returns the calls checked. The
-    wrappers' launch counts are left as they were."""
+    ``csrc/topk_mma.cuh`` (K1's ``topk_wgmma.cuh`` has its own) a warp
+    wrote out entries other warps had not set yet. Raises
+    ``AssertionError``; returns the calls checked. The wrappers' launch
+    counts are left as they were."""
     import torch
     from instsearch_torch.kernels.topk_matmul import (
         check_against_plain, check_exact, topk_matmul, topk_matmul_int4,
@@ -6556,6 +6563,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"instsearch_torch/csrc/{file}",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
+                     **({"pass1": K1_PASS1} if name == "topk_matmul" else {}),
                      "launches": (launches + phase8.get(name, 0)
                                   + sharded.get(name, 0) + subset[name]
                                   + quality.get(name, 0) + cli.get(name, 0)

@@ -1,6 +1,7 @@
 // PTX wrappers for Hopper's asynchronous machinery (sm_90a only), shared by
 // the port's warp-specialised kernels (K5's bf16 kernel in vit_attention.cu,
-// K7 in fused_resnet.cu, K4 in pq_scan.cu):
+// K7 in fused_resnet.cu, K4 in pq_scan.cu, K1's bf16 pass 1 in
+// topk_wgmma.cuh):
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase's parity;
@@ -9,12 +10,14 @@
 //     and a 1-D bulk copy of contiguous bytes (cp.async.bulk), which needs
 //     no tensor map;
 //   * wgmma: the shared-memory matrix descriptor of a tile that TMA wrote
-//     with CU_TENSOR_MAP_SWIZZLE_128B, the m64n128k16 product with both
-//     operands in shared memory, the m64n64k16 product with A in registers,
-//     and the fence, commit and wait around them;
+//     with CU_TENSOR_MAP_SWIZZLE_128B, the m64nNk16 product with both
+//     operands in shared memory (N = 8 to 64, and 128), the m64n64k16
+//     product with A in registers, and the fence, commit and wait around
+//     them;
 //   * setmaxnreg, which moves registers from a producer warpgroup to the
 //     consumer warpgroups, and the named barrier that syncs the consumers
-//     without the producer;
+//     without the producer (and its bar.red form, which also ORs a
+//     predicate over the threads);
 //   * on the host, the tensor-map encoder (a libcuda function reached
 //     through the runtime, so the library needs no -lcuda) and a bf16 map
 //     of any rank with a 128-byte swizzle.
@@ -151,6 +154,19 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// named_barrier_sync that also returns, to every thread, whether `pred` was
+// true in any of them (bar.red.or): one barrier for a decision the threads
+// must take together
+__device__ __forceinline__ bool named_barrier_or(int id, int threads,
+                                                 bool pred) {
+  uint32_t any;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(any) : "r"((uint32_t)pred), "r"(id), "r"(threads) : "memory");
+  return any != 0;
+}
+
 // Pins a register that an in-flight wgmma reads or writes: the compiler
 // may not move or copy it across this point.
 __device__ __forceinline__ void reg_fence(float& r) {
@@ -235,6 +251,80 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
+
+// d (+)= a b for N = 8, 16, 32 or 64: as wgmma_m64n128k16_ss, with b
+// 16 x N and d 64 x N (N / 2 registers a thread, the layout above).
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<8> {
+  __device__ __forceinline__ static void run(float (&d)[4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<16> {
+  __device__ __forceinline__ static void run(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<32> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 // ---- host: tensor maps -----------------------------------------------------
 

@@ -28,7 +28,7 @@
 //   1. quantize_query_rows: the query rows to int8 in scratch, bit for bit as
 //      quantize_rows, with each row's scale and, for int4, the offset
 //      8 * sum(q);
-//   2. topk_mma.cuh's tensor-core pass 1 (K1's bf16 one), with IntTile
+//   2. topk_mma.cuh's tensor-core pass 1, with IntTile
 //      below: the staged query block is int8 [QB][D_pad + 16] beside each
 //      query's scale and offset. A 128-byte chunk of int8 rows is 4 k-steps
 //      of mma.sync m16n8k32 s8 x s8; of int4 rows, 8 of u8 x s8: the A

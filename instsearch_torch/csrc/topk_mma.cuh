@@ -1,8 +1,7 @@
-// The tensor-core pass 1 of the row-store top-k kernels, templated on how a
-// row tile is scored: K1's bf16 store (topk_matmul.cu) and K2/K3's int8 and
-// packed int4 stores (topk_matmul_int.cu). The selection rules, the
-// candidate layout and pass 2 are topk_common.cuh's; the PTX wrappers are
-// warp_mma.cuh's.
+// The tensor-core pass 1 of K2/K3's int8 and packed int4 row stores
+// (topk_matmul_int.cu), templated on how a row tile is scored. The
+// selection rules, the candidate layout and pass 2 are topk_common.cuh's;
+// the PTX wrappers are warp_mma.cuh's.
 //
 // Block (query block, slice). The block stages its query block (QB of 8 to
 // 128 queries; queries past b are zero rows) once in shared memory and
@@ -17,10 +16,10 @@
 // above).
 //
 // The ldmatrix.x4 A fragment of a 16-row x 32-byte tile is the A fragment
-// of m16n8k16 in bf16 and of m16n8k32 in int8 alike, and so are the B and C
-// fragments (warp_mma.cuh), so the ring, the fragment loads, the threshold
-// check and the fold are byte for byte the same for every store; a tile
-// policy (the `Tile` template argument) supplies the rest:
+// of m16n8k32 in int8 for either store, and so are the B and C fragments
+// (warp_mma.cuh), so the ring, the fragment loads, the threshold check and
+// the fold are byte for byte the same for both; a tile policy (the `Tile`
+// template argument) supplies the rest:
 //
 //   using Acc = ...;                  C fragment type (float or int)
 //   __host__ __device__ static int row_bytes(int d);

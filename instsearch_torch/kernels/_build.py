@@ -113,11 +113,11 @@ def load() -> ctypes.CDLL:
         lib.isf_topk_matmul.restype = i
         lib.isf_topk_pass1_smem.argtypes = [i, i, i]
         lib.isf_topk_pass1_smem.restype = ctypes.c_longlong
-        lib.isf_topk_matmul_mma.argtypes = [p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i, i, i, p]
-        lib.isf_topk_matmul_mma.restype = i
-        lib.isf_topk_mma_smem.argtypes = [i, i, i]
-        lib.isf_topk_mma_smem.restype = ctypes.c_longlong
+        lib.isf_topk_matmul_wgmma.argtypes = [p, p, p, p, p, p, p,
+                                              i, i, i, i, i, i, i, i, p]
+        lib.isf_topk_matmul_wgmma.restype = i
+        lib.isf_topk_wgmma_plan.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.isf_topk_wgmma_plan.restype = ctypes.c_longlong
         lib.isf_topk_matmul_int.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                             i, i, i, i, i, i, i, i, i, p]
         lib.isf_topk_matmul_int.restype = i

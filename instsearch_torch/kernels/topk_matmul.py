@@ -11,13 +11,14 @@ each -> ``(scores [B, k] f32 sorted descending, row positions [B, k]
 int32)``.
 
 Each wrapper launches its hand-written CUDA kernel
-(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``; bf16,
-int8 and int4 stores score on the tensor-core pass 1 of ``topk_mma.cuh``)
-for tensors on a CUDA device and takes its plain PyTorch version
-(``*_reference``) for tensors on the CPU. A CUDA tensor the kernel cannot
-take raises; nothing falls back. Each counts its kernel launches in
-``.launches``, and those given a subset ``mask`` in ``.launches_subset``
-too.
+(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``; a bf16
+store scores by TMA and wgmma in the pass 1 of ``topk_wgmma.cuh``, int8 and
+int4 stores on the tensor-core pass 1 of ``topk_mma.cuh``) for tensors on a
+CUDA device and takes its plain PyTorch version (``*_reference``) for
+tensors on the CPU. A CUDA tensor the kernel cannot take raises; nothing
+falls back. Each counts its kernel launches in ``.launches``, and those
+given a subset ``mask`` in ``.launches_subset`` too; ``topk_matmul``
+counts its bf16 launches in ``.launches_wgmma`` as well.
 
 Semantics shared by the kernels, their plain versions and the TPU kernels:
   * K1: the query is cast to the store's dtype first, products accumulate
@@ -46,7 +47,13 @@ _CHUNK = 256            # rows per selection round; kChunk in topk_common.cuh
 _SMEM_BUDGET = 200 * 1024   # the FMA pass 1's, under the 227 KB of a block
 _SMEM_LIMIT = 232_448   # the 227 KB a Hopper block may use
 _QB_FMA = (1, 8)        # query blocks the f32 FMA pass 1 is built for
-_QB_MMA = (8, 128)      # and the tensor-core pass 1 (bf16, int8, int4)
+_QB_MMA = (8, 128)      # K2/K3's tensor-core pass 1 (int8, int4)
+_QB_WG = (8, 128)       # and K1's bf16 pass 1 (TMA + wgmma)
+_WG_ROWS = 128          # store rows a stage of it; kWgRows in topk_wgmma.cuh
+# its ring stages, each with the fewest buffer entries a query it takes,
+# in the order it tries them; wg_layout in topk_wgmma.cuh
+_WG_PLANS = ((8, 256), (6, 256), (4, 64), (3, 32))
+_WG_CAP_MAX = 256       # longest buffer; kWgCapMax
 _CTAS_PER_SM = 2        # pass-1 blocks to aim for, per multiprocessor
 _DTYPES = (torch.float32, torch.bfloat16)
 _PLAIN_ROWS = 1 << 16   # rows per f64 product in the integer plain versions
@@ -253,6 +260,33 @@ def _plan(smem, n: int, d: int, b: int, k: int, device,
     return qb, rows, _cdiv(n, rows)
 
 
+def wgmma_layout(qb: int, k: int) -> "tuple[int, int, int]":
+    """K1's bf16 pass 1 for a query block of ``qb`` and lists of ``k``:
+    (ring stages, append-buffer entries a query, shared memory in bytes) as
+    ``csrc/topk_wgmma.cuh::wg_layout`` plans them; (0, 0, huge) if none
+    fits. The ring's stages hold 128 rows and ``qb`` queries x 128 bytes;
+    the lists and buffers 8 bytes an entry, the buffers as long as fits (a
+    multiple of 16, at most 256)."""
+    stage = 128 * _WG_ROWS + 128 * qb
+    for stages, least in _WG_PLANS:
+        fixed = (stage * stages + 8 * qb * k + 8 * qb + 256 + 16 * stages
+                 + 1024)
+        cap = min(_WG_CAP_MAX, max(0, _SMEM_LIMIT - fixed) // (8 * qb)
+                  // 16 * 16)
+        if fixed <= _SMEM_LIMIT and cap >= least:
+            return stages, cap, fixed + 8 * qb * cap
+    return 0, 0, 1 << 62
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_plan(n: int, d: int, b: int, k: int, device):
+    """K1's ``_plan`` for a bf16 store, kept per shape (at B=1 the
+    wrapper's host time is a large part of a call): the widest query block
+    whose lists and buffers fit (``wgmma_layout``; D does not count)."""
+    return _plan(lambda w: wgmma_layout(w, k)[2], n, d, b, k, device,
+                 _QB_WG, _SMEM_LIMIT)
+
+
 def _cuda_operands(x: torch.Tensor, mask, **tensors) -> "torch.Tensor | None":
     """Raise unless every operand lies on x's CUDA device and is contiguous,
     and the ones read as 16-byte vectors (rows, query) are 16-byte aligned;
@@ -276,6 +310,10 @@ def _cuda_operands(x: torch.Tensor, mask, **tensors) -> "torch.Tensor | None":
     return mask.reshape(-1).to(torch.int8)
 
 
+# codes of a C entry that launched nothing for want of a TMA tensor map
+_NO_ENCODER, _MAP_REFUSED = -1, -2
+
+
 def _launch(fn, launch, x, b: int, k: int, slices: int, scratch: int = 0,
             masked: bool = False):
     """Allocate the outputs, and the candidates (f32 scores, int32
@@ -297,9 +335,14 @@ def _launch(fn, launch, x, b: int, k: int, slices: int, scratch: int = 0,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(out_s.data_ptr(), out_i.data_ptr(), base, base + part,
                      base + 2 * part, stream)
+    if err == _MAP_REFUSED:
+        raise ValueError(f"{fn.__name__}: the tensor-map encoder refused the "
+                         f"operands (N={x.shape[0]}, B={b})")
     if err:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
-                           f"{err} (N={x.shape[0]}, B={b}, k={k})")
+        why = ("libcuda has no tensor-map encoder" if err == _NO_ENCODER
+               else f"CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: {why} "
+                           f"(N={x.shape[0]}, B={b}, k={k})")
     fn.launches += 1
     fn.launches_subset += masked
     return out_s, out_i
@@ -318,8 +361,8 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
                 mask: "torch.Tensor | None" = None):
     """K1: fused top-k over ``x`` for queries ``q``; see the module
     docstring. ``mask``: optional ``[1, N]`` (or ``[N]``) int8 allow-list.
-    On CUDA a bf16 store scores on the tensor cores, an f32 store on the
-    CUDA cores."""
+    On CUDA a bf16 store scores on the tensor cores by TMA and wgmma, an
+    f32 store on the CUDA cores."""
     _check_args(x, q, k)
     if x.device.type == "cpu":
         return topk_matmul_reference(x, q, k, num_valid, mask)
@@ -336,24 +379,21 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
     lib = _build.load()
     m_ptr = mask.data_ptr() if mask is not None else None
     if x.dtype == torch.bfloat16:
-        qb, rows, slices = _plan(lambda w: lib.isf_topk_mma_smem(w, d, k),
-                                 n, d, b, k, x.device, _QB_MMA, _SMEM_LIMIT)
-
-        def launch(out_s, out_i, cand_s, cand_i, _, stream):
-            return lib.isf_topk_matmul_mma(
-                x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
-                cand_i, n, d, b, k, nv, qb, rows, slices, stream)
+        qb, rows, slices = _bf16_plan(n, d, b, k, x.device)
+        entry = lib.isf_topk_matmul_wgmma
     else:
         qb, rows, slices = _plan(lambda w: lib.isf_topk_pass1_smem(w, d, k),
                                  n, d, b, k, x.device)
+        entry = lib.isf_topk_matmul
 
-        def launch(out_s, out_i, cand_s, cand_i, _, stream):
-            return lib.isf_topk_matmul(
-                x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
-                cand_i, n, d, b, k, nv, qb, rows, slices, stream)
+    def launch(out_s, out_i, cand_s, cand_i, _, stream):
+        return entry(x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
+                     cand_i, n, d, b, k, nv, qb, rows, slices, stream)
 
-    return _launch(topk_matmul, launch, x, b, k, slices,
-                   masked=mask is not None)
+    out = _launch(topk_matmul, launch, x, b, k, slices,
+                  masked=mask is not None)
+    topk_matmul.launches_wgmma += x.dtype == torch.bfloat16
+    return out
 
 
 @functools.lru_cache(maxsize=256)
@@ -459,4 +499,5 @@ def topk_matmul_int4(x_packed: torch.Tensor, scales: torch.Tensor,
 # them
 for _fn in (topk_matmul, topk_matmul_int8, topk_matmul_int4):
     _fn.launches = _fn.launches_subset = 0
+topk_matmul.launches_wgmma = 0
 quantize_query.launches = 0

@@ -59,8 +59,10 @@ from instsearch_torch.kernels import (flash_mha, flash_mha_reference, mha,
                                       topk_matmul_int8,
                                       topk_matmul_int8_reference,
                                       topk_matmul_reference)
-from instsearch_torch.kernels.topk_matmul import (K_MAX, check_against_plain,
-                                                  check_exact, quantize_query)
+from instsearch_torch.kernels.topk_matmul import (K_MAX, _bf16_plan,
+                                                  check_against_plain,
+                                                  check_exact, quantize_query,
+                                                  wgmma_layout)
 from instsearch_torch.kernels.pq_scan import _lut, pq_table
 from instsearch_torch.kernels.fused_resnet import (
     _stack_identity_weights, check_fused_call, fused_identity_blocks,
@@ -110,11 +112,14 @@ def test_cuda_kernel_matches_plain_version(gen, dtype):
     for xx, k, nv, m in ((x, 10, None, None), (x, 100, 69_000, mask),
                          (x, 1, 5, None), (x, 300, None, None),
                          (x, 16, 7, None), (dup, 50, None, None)):
-        before = topk_matmul.launches
+        before = (topk_matmul.launches, topk_matmul.launches_wgmma)
         s, i = topk_matmul(xx, q, k=k, num_valid=nv, mask=m)
         rs, ri = topk_matmul_reference(xx, q, k=k, num_valid=nv, mask=m)
         torch.cuda.synchronize()
-        assert topk_matmul.launches == before + 1
+        # a bf16 store takes the TMA + wgmma pass 1
+        bf16 = dtype is torch.bfloat16
+        assert (topk_matmul.launches, topk_matmul.launches_wgmma) == (
+            before[0] + 1, before[1] + bf16)
         check_against_plain(xx, q, s, i, rs, ri, TOL)
         if nv is not None and nv < k:
             assert (i[:, nv:] == -1).all() and torch.isneginf(s[:, nv:]).all()
@@ -134,17 +139,24 @@ def test_empty_slices_after_full_lists(gen, kind, b):
     slices empty), each call right after one over a full store whose
     blocks leave their top-k lists in shared memory: every answer equal to
     the plain version's (``chip_smoke.empty_slice_case``)."""
+    wgmma = topk_matmul.launches_wgmma
     for masked in (False, True):
         assert empty_slice_case(gen, kind, b, masked, reps=100) == 100
+    # K1's calls (a full store, then the padded one, 100 times a case) go
+    # through the TMA + wgmma pass 1
+    assert topk_matmul.launches_wgmma == wgmma + (
+        400 if kind == "bfloat16" else 0)
 
 
 def _check_k1(x, q, k, num_valid=None, mask=None):
     """One K1 launch held to its plain version; returns the positions."""
-    before = topk_matmul.launches
+    before = (topk_matmul.launches, topk_matmul.launches_wgmma)
     s, i = topk_matmul(x, q, k=k, num_valid=num_valid, mask=mask)
     rs, ri = topk_matmul_reference(x, q, k=k, num_valid=num_valid, mask=mask)
     torch.cuda.synchronize()
-    assert topk_matmul.launches == before + 1
+    bf16 = x.dtype == torch.bfloat16
+    assert (topk_matmul.launches, topk_matmul.launches_wgmma) == (
+        before[0] + 1, before[1] + bf16)
     check_against_plain(x, q, s, i, rs, ri, TOL)
     if mask is not None:
         assert (mask[i[i >= 0].long()] > 0).all()
@@ -155,13 +167,19 @@ def _check_k1(x, q, k, num_valid=None, mask=None):
 @pytest.mark.parametrize("d", [32, 512, 2048])
 @pytest.mark.parametrize("b", [1, 8, 16, 64, 128])
 def test_bf16_kernel_matches_plain_version(gen, b, d):
-    """The bf16 store on the tensor-core pass 1, for k up to K_MAX, with
-    padding rows, a 50% mask and duplicated rows."""
+    """The bf16 store on the TMA + wgmma pass 1, for k up to K_MAX (the
+    buffered selection at k = 100 and 200 too), with padding rows, a 50%
+    mask, duplicated rows and a row count that ends inside a row tile."""
     n = 40_000
     x = _unit(gen, n, d, torch.bfloat16)
     q = _unit(gen, b, d)
-    for k in (1, 10, 100, 1024):
+    for k in (1, 10, 100, 200, 1024):
         _check_k1(x, q, k)
+    if d > 32 and b != 16:
+        ragged = x[:n - 45]                 # 39,955 rows: 15 past a tile
+        for k in (100, 200):
+            _check_k1(ragged, q, k)
+            _check_k1(ragged, q, k, num_valid=n - 45 - 70)
     _check_k1(x, q, 100, num_valid=n - 77)
     _check_k1(x, q, 10, num_valid=5)
     mask = (torch.rand(n, generator=gen, device="cuda") < 0.5
@@ -213,7 +231,7 @@ def test_whitened_index_of_32_images_serves_k_2000(gen):
 def test_cuda_wrapper_raises_instead_of_falling_back(gen):
     x = _unit(gen, 4096, 64, torch.bfloat16)
     q = _unit(gen, 2, 64)
-    before = topk_matmul.launches
+    before = (topk_matmul.launches, topk_matmul.launches_wgmma)
     with pytest.raises(ValueError):
         topk_matmul(x.T.contiguous().T, q, k=10)      # not contiguous
     with pytest.raises(ValueError):
@@ -224,7 +242,33 @@ def test_cuda_wrapper_raises_instead_of_falling_back(gen):
         topk_matmul(x[:, :60].contiguous(), q[:, :60].contiguous(), k=10)
     with pytest.raises(ValueError):
         topk_matmul(x.to(torch.int8), q, k=10)
-    assert topk_matmul.launches == before
+    assert (topk_matmul.launches, topk_matmul.launches_wgmma) == before
+    _check_k1(x, q, 10)             # what it takes goes to the new route
+    assert topk_matmul.launches_wgmma == before[1] + 1
+
+
+@pytest.mark.gpu
+def test_bf16_plan_and_its_shared_memory(gen):
+    """The bf16 pass 1's plan: its shared memory does not grow with D, so
+    a B = 128 chunk at D = 2048 takes one query block of 128 (k = 10) and
+    k = 200 one of 64; the kernel's own layout (stages, buffer entries,
+    bytes) is the wrapper's mirror ``wgmma_layout``, which the CPU
+    emulation of the selection uses."""
+    import ctypes
+    from instsearch_torch.kernels import _build
+    dev = torch.device("cuda")
+    assert _bf16_plan(1 << 20, 2048, 128, 10, dev)[0] == 128
+    assert _bf16_plan(1 << 20, 512, 128, 10, dev)[0] == 128
+    assert _bf16_plan(1 << 20, 2048, 128, 200, dev)[0] == 64
+    lib = _build.load()
+    out = (ctypes.c_int * 2)()
+    for qb in (8, 16, 32, 64, 128):
+        for k in (1, 10, 32, 33, 100, 200, 1024):
+            stages, cap, total = wgmma_layout(qb, k)
+            smem = lib.isf_topk_wgmma_plan(qb, k, out)
+            assert (out[0], out[1]) == (stages, cap), (qb, k)
+            if stages:
+                assert smem == total, (qb, k)
 
 
 @pytest.mark.gpu

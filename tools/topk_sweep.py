@@ -22,11 +22,12 @@ operations (``pass1_ms``, ``pass2_ms``, ``other_ms``), and the host's
 share, the call's ms less that device sum (``host_ms``). Above 16M rows
 (``--rows 67108864``: K4 over ``bench_pq_capacity``'s 64M rows) the plain
 version runs once, for the check, and is not timed (``plain_ms`` null).
-K2 at B > 16 also times its yardstick, one ``torch._int_mm``
-of the quantized query and rows, scaled, and ``torch.topk``
-(``library_ms``; ``_int_mm`` needs more than 16 rows). Every line carries
-the card's nvidia-smi name and power limit. ``--batches``, ``--ks`` and
-``--dims`` keep only those shapes.
+K1 in bf16 also times its yardstick, ``torch.topk(q @ x.T, k)`` in bf16,
+and K2 at B > 16 its own, one ``torch._int_mm`` of the quantized query and
+rows, scaled, and ``torch.topk`` (``library_ms``; ``_int_mm`` needs more
+than 16 rows). ``tflops`` is the scores' 2 B N D operations over the
+call's ms. Every line carries the card's nvidia-smi name and power limit.
+``--batches``, ``--ks`` and ``--dims`` keep only those shapes.
 
 ``--pair PARENT_DIR`` compares two trees on one card: it runs the sweep
 from PARENT_DIR (for example ``git archive`` of the parent commit,
@@ -47,7 +48,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SHAPES = ([(512, b, k) for b in (1, 2, 4, 8, 16, 32, 64, 128)
            for k in (10, 100)]
-          + [(2048, b, k) for b in (1, 8, 128) for k in (10, 100)])
+          + [(2048, b, k) for b in (1, 8, 128) for k in (10, 100, 200)])
 DTYPES = ("bfloat16", "float32", "int8", "int4", "pq")
 # above this many rows the plain version runs once (the answer's check), and
 # is not timed
@@ -66,7 +67,8 @@ def _chip_smoke():
 
 def device_split(fn, reps: int = 10) -> dict:
     """Device time per call of ``fn`` by torch.profiler: top-k pass 1 (any
-    kernel named ``*pass1*``: K1-K3's ``topk_pass1*``, K4's ``pq_pass1``),
+    kernel named ``*pass1*``: K1's ``topk_pass1_wgmma`` (bf16) and
+    ``topk_pass1`` (f32), K2/K3's ``topk_pass1_mma``, K4's ``pq_pass1``),
     pass 2 and everything else (the query's quantization, K4's table,
     copies)."""
     import torch
@@ -134,6 +136,10 @@ def sweep(rows: int, dtype: str, shapes, tags: dict) -> None:
             run = lambda q, k: topk_matmul(x, q, k=k)  # noqa: E731
             plain = lambda q, k: topk_matmul_reference(  # noqa: E731
                 x, q, k=k)
+            if dtype == "bfloat16":
+                def library(q, k, x=x):
+                    qb = q.to(x.dtype)
+                    return lambda: torch.topk(qb @ x.T, k)
         for _, b, k in (s for s in shapes if s[0] == d):
             big = rows > _PLAIN_TIMED_ROWS
             q = cs.unit_rows(gen, b, d, torch.float32)
@@ -142,7 +148,8 @@ def sweep(rows: int, dtype: str, shapes, tags: dict) -> None:
             err = (check_exact(s, i, rs, ri) if exact else
                    check_against_plain(x, q, s, i, rs, ri, cs.SCORE_TOL))
             lib_ms = (cs.cuda_median_ms(library(q, k))
-                      if library is not None and b > 16 else None)
+                      if library is not None
+                      and (b > 16 or dtype == "bfloat16") else None)
             ms = cs.cuda_median_ms(lambda: run(q, k), reps=5 if big else 20)
             split = device_split(lambda: run(q, k), reps=3 if big else 10)
             cs.report(card, **tags, rows=rows, d=d, b=b, k=k, dtype=dtype,
@@ -150,7 +157,8 @@ def sweep(rows: int, dtype: str, shapes, tags: dict) -> None:
                       plain_ms=(None if big else cs.cuda_median_ms(
                           lambda: plain(q, k), reps=5)),
                       library_ms=lib_ms, **split,
-                      host_ms=ms - sum(split.values()))
+                      host_ms=ms - sum(split.values()),
+                      tflops=2 * b * rows * d / ms / 1e9)
         st = x = codes = library = None
         torch.cuda.empty_cache()
 
