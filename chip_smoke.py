@@ -355,9 +355,11 @@ as those phases left them (phase 10 mutates them).
 
 Phase 1 also holds K6 (``mha``) and K5 (``flash_mha``) against their plain
 versions at B x 12 heads x N tokens x 64: K6 at N = 197 (B = 1 and 64 in
-bf16, 8 in f32) and 4,097 (B = 1, bf16), K5 at 4,097 (B = 1 and 4, the
-1024 px route's batch) and 16,385 (B = 1) in bf16 and 1,025 (B = 2, f32),
-by ``check_attention`` (``kernels/vit_attention.py``), which must also
+bf16, also with ViT-L/16's 16 heads at B = 64; 8 in f32) and 4,097 (B = 1,
+bf16; the bf16 K6's compiled kernel's registers and local memory a thread
+are printed, and any local memory fails the phase), K5 at 4,097 (B = 1 and
+4, the 1024 px route's batch) and 16,385 (B = 1) in bf16 and 1,025 (B = 2,
+f32), by ``check_attention`` (``kernels/vit_attention.py``), which must also
 reject two planted faults on every bf16 case (a key tile dropped, logits
 rounded to bf16), with the time of PyTorch's
 ``scaled_dot_product_attention`` on the same tensors as the yardstick,
@@ -404,7 +406,9 @@ D = 2048 over 1M rows, B = 128 with k = 10 and B = 1, 8, 128 with k = 200
 ``plain_ms_b8_k100``, ``bound_ms_b8_k100``) and over 64M rows at k = 100
 (``ms_64m_b1_k100``, ``bound_ms_64m_b1_k100``, ``ms_64m_b128_k100``,
 ``bound_ms_64m_b128_k100``); K6 at
-[64, 12, 197, 64] bf16, K5 at [1, 12, 16385, 64] bf16 (also at [4, 12,
+[64, 12, 197, 64] bf16 (also at [64, 16, 197, 64]: ``ms_h16``,
+``plain_ms_h16``, ``library_ms_h16``, ``bound_ms_h16``), K5 at [1, 12,
+16385, 64] bf16 (also at [4, 12,
 4097, 64]: ``ms_b4``, ``plain_ms_b4``, ``library_ms_b4``, ``bound_ms_b4``),
 K7 at layer 2 of
 ResNet-50, [64, 28x28, 512], M = 128, three blocks), the least
@@ -717,18 +721,26 @@ def phase1_attention(card: str, gen) -> tuple[dict, dict]:
     kernel), which never holds the N x N logits, so it runs over all 12
     heads at once even at 16,385 tokens. Every output must pass
     ``check_attention``; in bf16 the two faults of ``planted_faults`` must
-    fail it on the same inputs. Returns (largest error per kernel, timings
-    by case)."""
+    fail it on the same inputs. K6 also runs at [64, 16, 197, 64] (ViT-L/16's
+    heads), and its bf16 kernel must have no local memory (a spill;
+    ``mha_kernel_attrs``). Returns (largest error per kernel, timings by
+    case)."""
     import torch
     import torch.nn.functional as F
     from instsearch_torch.kernels.vit_attention import (
         attention_error, check_attention, flash_mha, flash_mha_reference, mha,
-        mha_reference)
+        mha_kernel_attrs, mha_reference)
+    attrs = mha_kernel_attrs()
+    report(card, phase=1, kernel="mha", **attrs)
+    if attrs["local_bytes"]:
+        fail(f"K6 spills: {attrs['local_bytes']} bytes of local memory a "
+             f"thread ({attrs['registers']} registers)")
     errs = {"mha": 0.0, "flash_mha": 0.0}
     timings = {}
     for fn, ref, shape, kind in (
             (mha, mha_reference, (1, 12, 197, 64), "bf16"),
             (mha, mha_reference, (64, 12, 197, 64), "bf16"),
+            (mha, mha_reference, (64, 16, 197, 64), "bf16"),
             (mha, mha_reference, (8, 12, 197, 64), "f32"),
             (mha, mha_reference, (1, 12, 4097, 64), "bf16"),
             (flash_mha, flash_mha_reference, (1, 12, 4097, 64), "bf16"),
@@ -6630,6 +6642,9 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    t = att_timings["mha bf16 [64, 16, 197, 64]"]          # ViT-L/16's heads
+    rows[-2].update(ms_h16=t["ms"], plain_ms_h16=t["plain_ms"],
+                    library_ms_h16=t["library_ms"], bound_ms_h16=t["bound_ms"])
     t = att_timings["flash_mha bf16 [4, 12, 4097, 64]"]    # the 1024 px batch
     rows[-1].update(ms_b4=t["ms"], plain_ms_b4=t["plain_ms"],
                     library_ms_b4=t["library_ms"], bound_ms_b4=t["bound_ms"])

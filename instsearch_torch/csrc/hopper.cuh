@@ -1,14 +1,15 @@
 // PTX wrappers for Hopper's asynchronous machinery (sm_90a only), shared by
-// the port's warp-specialised kernels (K5's bf16 kernel in vit_attention.cu,
-// K7 in fused_resnet.cu, K4 in pq_scan.cu, K1's bf16 pass 1 in
-// topk_wgmma.cuh):
+// the port's warp-specialised kernels (K5's and K6's bf16 kernels in
+// vit_attention.cu, K7 in fused_resnet.cu, K4 in pq_scan.cu, K1's bf16
+// pass 1 in topk_wgmma.cuh):
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase's parity;
 //   * TMA: a 4-D tile load (cp.async.bulk.tensor) that completes on an
 //     mbarrier, from a CUtensorMap passed as a __grid_constant__ parameter,
-//     and a 1-D bulk copy of contiguous bytes (cp.async.bulk), which needs
-//     no tensor map;
+//     its store form (shared to global, in bulk groups, with the proxy
+//     fence the writers of the tile need before it), and a 1-D bulk copy of
+//     contiguous bytes (cp.async.bulk), which needs no tensor map;
 //   * wgmma: the shared-memory matrix descriptor of a tile that TMA wrote
 //     with CU_TENSOR_MAP_SWIZZLE_128B, the m64nNk16 product with both
 //     operands in shared memory (N = 8 to 64, and 128), the m64n64k16
@@ -120,6 +121,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The box of `map` at coordinates (c0, c1, c2, c3) written from shared
+// memory at src (a tile in the layout the map describes); elements out of
+// the tensor's bounds are not written. The copy joins the thread's current
+// bulk group (bulk_commit, then bulk_wait_read before src is rewritten).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of the thread's committed bulk groups still read
+// their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// waits until the thread's committed bulk groups are complete (their
+// writes done), before the block ends
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// makes this thread's writes to shared memory visible to the async proxy
+// (a TMA store that reads them); the writers then sync before the store
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // `bytes` contiguous bytes from global memory at src into shared memory at

@@ -26,8 +26,9 @@
 // (two products of N x N x hd per head), the bytes only q, k, v and o: at
 // 16,385 tokens (2048 px) 824 GFLOP against 101 MB per layer, bound by
 // operations (0.834 ms at the tensor cores' 989 TFLOP/s in bf16); at 197
-// tokens and B = 64, 7.6 GFLOP against 39 MB, bound by bytes (0.012 ms).
-// Neither kernel writes the [N, N] logits to device memory.
+// tokens and B = 64, 7.6 GFLOP against 77.5 MB (q, k, v and o, 19.4 MB
+// each), bound by bytes (0.0231 ms at 3.35 TB/s). Neither kernel writes the
+// [N, N] logits to device memory.
 //
 // What the designs do about it.
 //   * K5 in bf16 (the served high-resolution path), bound by operations,
@@ -49,23 +50,47 @@
 //     e^(s - m) in another f32 order; p may land one bf16 step away from
 //     the plain version's (tests/test_torch_vit_attention.py::
 //     test_flash_exp2_form_moves_p_by_at_most_one_bf16_step bounds that).
-//   * K6 in bf16, bound by bytes at 197 tokens: mma.sync m16n8k16 (bf16
-//     operands, f32 sums; warp_mma.cuh), 128 threads, each warp 16 of the
-//     block's 64 query rows, q fragments, m, l and the 16 x 64 accumulator
-//     in registers (FlashAttention-2's layout). K6 normalises p before it
-//     rounds it, so it walks the key tiles twice: pass A keeps each row's
-//     max m and sum l online, pass B recomputes the tile's logits, forms
-//     p = exp(s - m) / l in f32 (as 2^(t - m2) times 1 / l, t the logits
-//     in base-2 units: one exp2 and one product a logit, within f32 steps
-//     of the plain version's), rounds it to bf16 and multiplies it into v.
-//     The second q.k^T is 1.5x the operations, but at 197 tokens the work
-//     is bound by bytes, and no f32 logit row is kept, so K6's shared
-//     memory does not grow with N: its K and V tiles go in by cp.async,
-//     double-buffered and streamed in each pass (46 KB a block: keeping all
-//     of a 197-token head's K and V for both passes, 81 KB, fits fewer
-//     blocks an SM and ran slower); V stays as it lies and ldmatrix.trans
-//     reads it as p.v's B operand.
-//   * f32: K5's plan and K6's old one (16 query rows, their whole f32
+//   * K6 in bf16 (the 224 px route), bound by bytes at 197 tokens, is one
+//     kernel on K5's machinery (mha_kernel_tma): q, K and V boxes of 128
+//     rows by TMA through K5's tensor maps, mbarriers, a producer warpgroup
+//     demoted by setmaxnreg, two consumer warpgroups of 64 query rows, both
+//     products by wgmma (S = q K^T from shared memory, p.V with p from
+//     registers and V MN-major), and o written back by TMA from a q tile
+//     the products are done with. Its blocks are persistent, one an SM,
+//     over work items, so the producer loads the next item while the
+//     consumers work on this one. K6 normalises p before it rounds it, so a
+//     row's max and sum must be known before any p.v:
+//       - At N <= 256 an item is a whole head: its q, K and V (one or two
+//         boxes each, 48 or 96 KB) come into the SM once for all its query
+//         rows, into one of two item buffers, V behind a barrier of its own
+//         so that S need not wait for it; consumer warpgroup w takes the
+//         head's 64-row sub-tiles w, w + 2 and skips those wholly past N.
+//         The softmax is one pass (form a, mha_one_pass): a sub-tile's
+//         64 x 256 f32 logits stay in registers (128 of the 168 ptxas gives
+//         a thread of a 384-thread block), the rows' exact max and sum come
+//         from quad shuffles, and p is rounded to bf16 pairs in place, the A
+//         fragments of p.v. The other form, (b), two passes over the
+//         resident K (QK^T twice, the max and sum online in the first, as
+//         past 256 tokens), took 0.062-0.065 ms at [64, 12, 197, 64]
+//         against (a)'s 0.043 on an H100 80GB HBM3 at 700 W
+//         (tools/k6_profile.py builds it; PERF.md §6). There the softmax
+//         sets the pace, not the bytes: the products, the waits for loads
+//         and the stores take about 20, 13 and 6% of a consumer warp's
+//         cycles.
+//       - Past 256 tokens an item is 128 query rows of a head, and the two
+//         passes stream its keys in boxes of 128 through a ring of
+//         kMhaStages stages: pass 1 K alone, for each row's max and sum
+//         online; pass 2 K and V, for p and p.v.
+//     Either way p = 2^(t - m2) (1 / l) in f32, t the logits in base-2
+//     units (t = q.k log2(e) / sqrt(hd) - m2 by one FFMA, then one
+//     ex2.approx.ftz a logit, as K5: exp(s - m) / l in another f32 order,
+//     subnormal terms 0), rounded to bf16 after the normalisation, as the
+//     reference does; keys past N are masked by position (their
+//     zero-filled logits are 0, not masked) and rows past N are never
+//     written. tests/test_torch_vit_attention.py emulates both forms and
+//     bounds what the base-2 form moves p by
+//     (test_one_pass_ftz_form_moves_p_by_at_most_one_bf16_step).
+//   * f32: K5's plan and K6's first one (16 query rows, their whole f32
 //     logit rows in shared memory, so the wrapper refuses N past what 227 KB
 //     holds, about 3,264 tokens) on CUDA cores, plain FMA (f32 inputs are
 //     never rounded to TF32), each thread a register tile (8 rows x 4 keys
@@ -87,9 +112,10 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "warp_mma.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kHd = 64;            // head dim the kernels are built for
 constexpr int kThreads = 128;
@@ -97,8 +123,7 @@ constexpr int kStride = kHd + 4;   // f32 row stride of a staged tile: 272
                                    // bytes, so 8 rows' 16-byte loads fall
                                    // in 8 distinct bank groups
 constexpr int kMhaRows = 16;       // K6 f32: query rows per block
-constexpr int kMhaKeys = 64;       // K6: keys staged per chunk
-constexpr int kMhaRowsMma = 64;    // K6 bf16: query rows per block
+constexpr int kMhaKeys = 64;       // K6 f32: keys staged per chunk
 constexpr int kFlashRows = 64;     // K5 f32: query rows per block
 constexpr int kFlashKeys = 64;     // K5 f32: keys per key/value tile
 constexpr int kTmaRows = 128;      // K5 bf16: query rows per block
@@ -106,10 +131,12 @@ constexpr int kTmaKeys = 128;      // K5 bf16: keys per key/value tile, the
                                    // reference's kv_block
 constexpr int kTmaStages = 3;      // K5 bf16: K/V stages in the ring
 constexpr float kFlashNeg = -1e30f;
-constexpr float kLog2e = 1.44269504088896340736f;   // K6's base-2 logits
-constexpr int kBStride = kHd + 8;  // bf16 row stride of a staged tile: 144
-                                   // bytes, so the 8 rows x 4 words of an
-                                   // mma fragment load hit 32 banks
+constexpr float kLog2e = 1.44269504088896340736f;   // base-2 logits
+constexpr int kMhaBox = 128;       // K6 bf16: rows of a q, K or V box
+constexpr int kMhaBoxElems = kMhaBox * kHd;   // 16 KB of bf16
+constexpr int kMhaResident = 2;    // K6 bf16: key boxes a resident head
+                                   // holds at most (N <= 256)
+constexpr int kMhaStages = 5;      // K6 bf16 past 256 tokens: ring stages
 
 // Element strides of a [B, h, N, hd] operand over B, h and N (hd is
 // contiguous).
@@ -399,9 +426,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16, bf16 operands, f32 sums
-// (fragment layouts: warp_mma.cuh). A C fragment of two neighbouring key
-// tiles is the A fragment of p over those 16 keys.
+// bf16 on the tensor cores (wgmma; accumulator and fragment layouts:
+// hopper.cuh).
 // ---------------------------------------------------------------------------
 
 // two floats rounded to bf16 (to nearest, ties to even), lo in the low half
@@ -418,174 +444,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Rows [row0, row0 + 64) of one head's bf16 [n, kHd] matrix (row stride ld)
-// into shared memory as [64][kBStride] by cp.async, zeros past n; the caller
-// commits.
-__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
-                                            size_t ld, int row0, int n) {
-  for (int i = threadIdx.x; i < kMhaKeys * (kHd / 8); i += kThreads) {
-    const int r = i / (kHd / 8);
-    const int c = (i % (kHd / 8)) * 8;
-    const bool ok = row0 + r < n;
-    cp_async16(dst + r * kBStride + c, ok ? src + (row0 + r) * ld + c : src,
-               ok ? 16 : 0);
-  }
-}
-
-// 16 query rows (a warp's) x 64 keys of logits from q fragments qa and a
-// staged K tile kt [64][kBStride], times `scale`, keys at or past n masked
-// with kFlashNeg (exp gives an exact 0 there).
-__device__ __forceinline__ void logits_tile(float (&sc)[8][4],
-                                            const uint32_t (&qa)[kHd / 16][4],
-                                            const bf16* kt, int c0, int n,
-                                            float scale) {
-  const int lane = threadIdx.x % 32;
-  const int c = 2 * (lane % 4);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kHd / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      uint32_t kb[4];
-      ldmatrix_x4(kb, kt + (8 * j + (lane & 7) + (lane >> 4) * 8) * kBStride +
-                          16 * i + ((lane >> 3) & 1) * 8);
-      mma_bf16(sc[j], qa[i], kb[0], kb[1]);
-      mma_bf16(sc[j + 1], qa[i], kb[2], kb[3]);
-    }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sc[j][e] = c0 + 8 * j + c + (e & 1) < n ? sc[j][e] * scale : kFlashNeg;
-}
-
-// K6 in bf16. Block (64 query rows, batch x head), 16 rows a warp in
-// registers. The logits are kept in base-2 units, t = q.k (log2(e) /
-// sqrt(hd)), so each exponential is one exp2: e^(s - m) = 2^(t - m2). Pass
-// A: each row's max m2 and sum l over the n keys, online (l = l 2^(m2 -
-// m2_new) + sum 2^(t - m2_new)). Pass B: p = 2^(t - m2) (1 / l) in f32,
-// rounded to bf16, times v. K tiles (pass A) and K and V tiles (pass B) are
-// double-buffered in shared memory by cp.async, the next tile's copy in
-// flight while the warps work on this one.
-__global__ void __launch_bounds__(kThreads)
-    mha_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o,
-                   Layout in, Layout out, int heads, int n, float scale2) {
-  extern __shared__ float4 smem4[];
-  constexpr int kTile = kMhaKeys * kBStride;
-  bf16* qs = reinterpret_cast<bf16*>(smem4);     // [64][kBStride]
-  bf16* ks = qs + kTile;                         // [2][64][kBStride]
-  bf16* vs = ks + 2 * kTile;                     // [2][64][kBStride]
-  const size_t base = head_base(in, heads);
-  const bf16* kh = k + base;
-  const bf16* vh = v + base;
-  const int q0 = blockIdx.x * kMhaRowsMma;
-  const int t = threadIdx.x;
-  const int lane = t % 32;
-  const int g = lane / 4, c = 2 * (lane % 4);
-  const int wr = 16 * (t / 32);
-  const int tiles = (n + kMhaKeys - 1) / kMhaKeys;
-
-  // ---- pass A: m2 and l -----------------------------------------------
-  stage_async(qs, q + base, in.n, q0, n);
-  stage_async(ks, kh, in.n, 0, n);
-  cp_async_commit();
-  uint32_t qa[kHd / 16][4];
-  float m[2] = {kFlashNeg, kFlashNeg}, l[2] = {0.f, 0.f};
-  for (int j = 0; j < tiles; ++j) {
-    if (j + 1 < tiles) {
-      stage_async(ks + ((j + 1) & 1) * kTile, kh, in.n, (j + 1) * kMhaKeys,
-                  n);
-      cp_async_commit();
-      cp_async_wait<1>();            // q and K tile j are in
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int i = 0; i < kHd / 16; ++i)
-        ldmatrix_x4(qa[i], qs + (wr + (lane & 15)) * kBStride + 16 * i +
-                               (lane >> 4) * 8);
-    }
-    float sc[8][4];
-    logits_tile(sc, qa, ks + (j & 1) * kTile, j * kMhaKeys, n, scale2);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kFlashNeg;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        mx = fmaxf(mx, fmaxf(sc[jj][2 * r], sc[jj][2 * r + 1]));
-      const float m_new = fmaxf(m[r], quad_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        sum += exp2f(sc[jj][2 * r] - m_new) +
-               exp2f(sc[jj][2 * r + 1] - m_new);
-      l[r] = l[r] * exp2f(m[r] - m_new) + quad_sum(sum);
-      m[r] = m_new;
-    }
-    __syncthreads();                 // slot j & 1 is reloaded next
-  }
-  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
-
-  // ---- pass B: p = 2^(t - m2) (1 / l), rounded, times v ----------------
-  stage_async(ks, kh, in.n, 0, n);
-  stage_async(vs, vh, in.n, 0, n);
-  cp_async_commit();
-  float acc[kHd / 8][4] = {};
-  for (int j = 0; j < tiles; ++j) {
-    if (j + 1 < tiles) {
-      const int slot = (j + 1) & 1;
-      stage_async(ks + slot * kTile, kh, in.n, (j + 1) * kMhaKeys, n);
-      stage_async(vs + slot * kTile, vh, in.n, (j + 1) * kMhaKeys, n);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float sc[8][4];
-    logits_tile(sc, qa, ks + (j & 1) * kTile, j * kMhaKeys, n, scale2);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[jj][e] = exp2f(sc[jj][e] - m[e >> 1]) * inv_l[e >> 1];
-    const bf16* vt = vs + (j & 1) * kTile;
-#pragma unroll
-    for (int i = 0; i < kMhaKeys / 16; ++i) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * i][0], sc[2 * i][1]),
-                              pack_bf16(sc[2 * i][2], sc[2 * i][3]),
-                              pack_bf16(sc[2 * i + 1][0], sc[2 * i + 1][1]),
-                              pack_bf16(sc[2 * i + 1][2], sc[2 * i + 1][3])};
-#pragma unroll
-      for (int d = 0; d < kHd / 8; d += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + (16 * i + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * kBStride +
-                                  8 * d + (lane >> 4) * 8);
-        mma_bf16(acc[d], pa, vb[0], vb[1]);
-        mma_bf16(acc[d + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();                 // slot j & 1 is reloaded next
-  }
-  const size_t obase = head_base(out, heads);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + 8 * r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int d = 0; d < kHd / 8; ++d)
-      *reinterpret_cast<uint32_t*>(o + obase + row * out.n + 8 * d + c) =
-          pack_bf16(acc[d][2 * r], acc[d][2 * r + 1]);
-  }
 }
 
 // K5 in bf16, warp-specialised (FlashAttention-3's shape): a block of
@@ -821,9 +679,404 @@ __global__ void __launch_bounds__(3 * 128, 1)
   }
 }
 
+// K6 in bf16 (mha_kernel_tma), warp-specialised and persistent: 384
+// threads, one block an SM walking work items (blockIdx.x, then a grid
+// further, ...). Warpgroup 2 produces: one of its threads loads each item's
+// boxes of 128 rows by TMA, rows past n zero-filled. Warpgroups 0 and 1
+// consume, 64 query rows at a time: S = q K^T by wgmma from shared memory
+// (4 steps over hd, one m64n128 accumulator per 128 keys), the keys at or
+// past n masked by position, p = 2^(t - m2) (1 / l) in f32 with t = S
+// scale2, p rounded to bf16 pairs in registers (the A fragments of p.v),
+// then O += p V by wgmma m64n64k16 with V MN-major from shared memory (the
+// transpose bit); O goes back by TMA from the q tile the product no longer
+// needs (mha_store), rows past n left out.
+//   KT = 1, 2 (n <= 128 KT): an item is a whole head, q, K and V KT boxes
+//     each, into one of two item buffers guarded by a "full" barrier (the
+//     TMA transactions of q and K), a "vfull" one (V's, which S does not
+//     wait for) and an "empty" one (every consumer thread arrives when it
+//     is done with the item). Consumer w takes the head's 64-row sub-tiles
+//     w, w + 2 below n, each in one pass over its whole rows (form a).
+//   KT = 0 (n > 256): an item is 128 query rows of a head (qtiles a head),
+//     its q into one of two buffers; its key boxes stream through a ring of
+//     kMhaStages stages, once for pass 1 (K) and once for pass 2 (K and V),
+//     each stage guarded as K5's are. Consumer w takes rows 64 w.. of the
+//     item; wholly past n, it issues no products but still releases every
+//     stage.
+template <int KT>
+struct MhaTmaSmem {                     // 1,024-aligned boxes
+  bf16 q[2][KT * kMhaBoxElems];
+  bf16 k[2][KT * kMhaBoxElems];
+  bf16 v[2][KT * kMhaBoxElems];
+  uint64_t full[2], vfull[2], empty[2];
+};
+
+template <>
+struct MhaTmaSmem<0> {
+  bf16 q[2][kMhaBoxElems];
+  bf16 k[kMhaStages][kMhaBoxElems];
+  bf16 v[kMhaStages][kMhaBoxElems];
+  uint64_t q_full[2], q_empty[2], full[kMhaStages], empty[kMhaStages];
+};
+
+// Keys at or past n of the box of keys c0.. out of the softmax: -inf, so
+// that 2^(t - m2) is an exact 0 there (sc[4 jj + e] holds key c0 + 8 jj + c
+// + (e & 1)).
+__device__ __forceinline__ void mha_mask(float (&sc)[64], int c0, int c,
+                                         int n) {
+  if (c0 + kMhaBox > n) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (c0 + 8 * (i / 4) + c + (i & 1) >= n) sc[i] = -INFINITY;
+  }
+}
+
+// S = q K^T over `boxes` boxes of 128 keys, waited for: sc[x] from the 64
+// query rows that dq describes and the x-th K box from kb.
+template <int boxes>
+__device__ __forceinline__ void mha_logits(float (&sc)[boxes][64],
+                                           uint64_t dq, const bf16* kb) {
+  using namespace hopper;
+#pragma unroll
+  for (int x = 0; x < boxes; ++x)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) reg_fence(sc[x][i]);
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < boxes; ++x) {
+    const uint64_t dk = desc_sw128(kb + x * kMhaBoxElems);
+#pragma unroll
+    for (int kk = 0; kk < kHd / 16; ++kk)
+      wgmma_m64n128k16_ss(sc[x], dq + 2 * kk, dk + 2 * kk, kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int x = 0; x < boxes; ++x)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) reg_fence(sc[x][i]);
+}
+
+// acc += p V over `boxes` boxes of 128 keys, waited for: pa[x] is the x-th
+// box's p as bf16 pairs (pa[x][q] = entries 2q, 2q + 1 of the accumulator
+// layout, so pa[x] + 4 kk is the A fragment of keys 16 kk..), the V boxes
+// from vb.
+template <int boxes>
+__device__ __forceinline__ void mha_pv(float (&acc)[kHd / 2],
+                                       uint32_t (&pa)[boxes][32],
+                                       const bf16* vb) {
+  using namespace hopper;
+#pragma unroll
+  for (int i = 0; i < kHd / 2; ++i) reg_fence(acc[i]);
+#pragma unroll
+  for (int x = 0; x < boxes; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(pa[x][i]);
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < boxes; ++x) {
+    const uint64_t dv = desc_sw128(vb + x * kMhaBoxElems);
+#pragma unroll
+    for (int kk = 0; kk < kMhaBox / 16; ++kk)
+      wgmma_m64n64k16_rs_tb(acc, pa[x] + 4 * kk, dv + 128 * kk, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kHd / 2; ++i) reg_fence(acc[i]);
+#pragma unroll
+  for (int x = 0; x < boxes; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(pa[x][i]);
+}
+
+// The thread's two rows' largest raw logit over `boxes` boxes (two chains
+// a row), then over the quad: the row's max, the same bits in all four.
+template <int boxes>
+__device__ __forceinline__ void mha_row_max(const float (&sc)[boxes][64],
+                                            float (&mx)[2]) {
+  float part[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+  for (int x = 0; x < boxes; ++x)
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        part[r][jj & 1] = fmaxf(part[r][jj & 1],
+                                fmaxf(sc[x][4 * jj + 2 * r],
+                                      sc[x][4 * jj + 2 * r + 1]));
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    mx[r] = quad_max(fmaxf(part[r][0], part[r][1]));
+}
+
+// Pass 1 past 256 tokens (form b) on one box: the rows' max m2 (base-2
+// units) and this thread's share of l = sum 2^(t - m2), online: l = l
+// 2^(m2 - m2_new) + sum 2^(t - m2_new); the quad's four shares scale alike
+// and are added at the end.
+__device__ __forceinline__ void mha_stats(const float (&sc)[1][64],
+                                          float (&m2)[2], float (&l)[2],
+                                          float scale2) {
+  float mx[2], m_new[2], part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  mha_row_max<1>(sc, mx);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m2[r], mx[r] * scale2);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = (i >> 1) & 1;
+    part[r][(i >> 2) & 1] += ex2_ftz(fmaf(sc[0][i], scale2, -m_new[r]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l[r] * ex2_ftz(m2[r] - m_new[r]) + (part[r][0] + part[r][1]);
+    m2[r] = m_new[r];
+  }
+}
+
+// Pass 2 past 256 tokens (form b) on one box: p = 2^(t - m2) (1 / l),
+// rounded to bf16 pairs, then acc += p V.
+__device__ __forceinline__ void mha_pass2(float (&acc)[kHd / 2],
+                                          const float (&sc)[1][64],
+                                          const float (&m2)[2],
+                                          const float (&inv)[2],
+                                          const bf16* vb, float scale2) {
+  uint32_t pa[1][32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int r = q & 1;
+    pa[0][q] = pack_bf16(
+        ex2_ftz(fmaf(sc[0][2 * q], scale2, -m2[r])) * inv[r],
+        ex2_ftz(fmaf(sc[0][2 * q + 1], scale2, -m2[r])) * inv[r]);
+  }
+  mha_pv<1>(acc, pa, vb);
+}
+
+// Form (a) for 64 query rows over KT resident boxes: S over the whole rows
+// in registers, their exact max and sum, p = 2^(t - m2) (1 / l) rounded to
+// bf16 pairs in place, acc = p V once the V boxes are in (vfull, phase).
+template <int KT>
+__device__ __forceinline__ void mha_one_pass(float (&acc)[kHd / 2],
+                                             uint64_t dq, const bf16* kb,
+                                             const bf16* vb, uint64_t* vfull,
+                                             uint32_t phase, int c, int n,
+                                             float scale2) {
+  constexpr int c0 = (KT - 1) * kMhaBox;   // the last box's first key
+  float sc[KT][64];
+  mha_logits<KT>(sc, dq, kb);
+  mha_mask(sc[KT - 1], c0, c, n);
+  float m2[2], sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, inv[2];
+  mha_row_max<KT>(sc, m2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) m2[r] *= scale2;
+#pragma unroll
+  for (int x = 0; x < KT; ++x)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[x][i] = ex2_ftz(fmaf(sc[x][i], scale2, -m2[r]));
+      sum[r][(i >> 2) & 1] += sc[x][i];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    inv[r] = 1.f / quad_sum(sum[r][0] + sum[r][1]);
+  uint32_t pa[KT][32];
+#pragma unroll
+  for (int x = 0; x < KT; ++x)
+#pragma unroll
+    for (int q = 0; q < 32; ++q)
+      pa[x][q] = pack_bf16(sc[x][2 * q] * inv[q & 1],
+                           sc[x][2 * q + 1] * inv[q & 1]);
+#pragma unroll
+  for (int i = 0; i < kHd / 2; ++i) acc[i] = 0.f;
+  hopper::mbar_wait(vfull, phase);
+  mha_pv<KT>(acc, pa, vb);
+}
+
+// 64 rows of o from the m64n64 accumulators of consumer warpgroup wg, by
+// TMA: each thread writes its rows (rowt, rowt + 8), rounded to bf16, into
+// `tile` (a free 64 x 64 q tile) in the 128-byte-swizzled layout the map
+// `to` reads (16-byte chunk j of row r at j ^ (r % 8): conflict-free), the
+// warpgroup syncs on named barrier 3 + wg, and its first thread stores the
+// box at (query row row0, head, batch), the rows past n left out by TMA, in
+// a bulk group it waits for (bulk_wait_read) before the tile is reused.
+__device__ __forceinline__ void mha_store(const CUtensorMap& to, bf16* tile,
+                                          int wg, int t, int rowt, int c,
+                                          int row0, int head, int batch,
+                                          const float (&acc)[kHd / 2]) {
+  using namespace hopper;
+  uint8_t* base = reinterpret_cast<uint8_t*>(tile);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rowt + 8 * r;
+#pragma unroll
+    for (int d = 0; d < kHd / 8; ++d)
+      *reinterpret_cast<uint32_t*>(base + row * 128 + ((d ^ (row & 7)) << 4)
+                                   + 2 * c) =
+          pack_bf16(acc[4 * d + 2 * r], acc[4 * d + 2 * r + 1]);
+  }
+  fence_proxy_async();
+  named_barrier_sync(3 + wg, 128);
+  if (t == 0) {
+    tma_store_4d(&to, tile, 0, row0, head, batch);
+    bulk_commit();
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(3 * 128, 1)
+    mha_kernel_tma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to, int heads, int n,
+                   int items, int qtiles, float scale2) {
+  using namespace hopper;
+  constexpr int S = kMhaStages;
+  constexpr uint32_t kBox = kMhaBoxElems * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  MhaTmaSmem<KT>& sm = *reinterpret_cast<MhaTmaSmem<KT>*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int tiles = (n + kMhaBox - 1) / kMhaBox;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      if constexpr (KT > 0) {
+        mbar_init(&sm.full[b], 1);
+        mbar_init(&sm.vfull[b], 1);
+        mbar_init(&sm.empty[b], 2 * 128);
+      } else {
+        mbar_init(&sm.q_full[b], 1);
+        mbar_init(&sm.q_empty[b], 2 * 128);
+      }
+    }
+    if constexpr (KT == 0) {
+      for (int s = 0; s < S; ++s) {
+        mbar_init(&sm.full[s], 1);
+        mbar_init(&sm.empty[s], 2 * 128);
+      }
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {            // ---- producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128) {
+      int it = 0, load = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+        const int bh = item / qtiles, b = it & 1;
+        const int batch = bh / heads, head = bh % heads;
+        if constexpr (KT > 0) {
+          mbar_wait(&sm.empty[b], ((it >> 1) & 1) ^ 1);
+          mbar_expect_tx(&sm.full[b], 2 * KT * kBox);
+          for (int x = 0; x < KT; ++x) {
+            const int off = x * kMhaBoxElems, row = x * kMhaBox;
+            tma_load_4d(sm.q[b] + off, &tq, &sm.full[b], 0, row, head, batch);
+            tma_load_4d(sm.k[b] + off, &tk, &sm.full[b], 0, row, head, batch);
+          }
+          mbar_expect_tx(&sm.vfull[b], KT * kBox);
+          for (int x = 0; x < KT; ++x)
+            tma_load_4d(sm.v[b] + x * kMhaBoxElems, &tv, &sm.vfull[b], 0,
+                        x * kMhaBox, head, batch);
+        } else {
+          mbar_wait(&sm.q_empty[b], ((it >> 1) & 1) ^ 1);
+          mbar_expect_tx(&sm.q_full[b], kBox);
+          tma_load_4d(sm.q[b], &tq, &sm.q_full[b], 0,
+                      item % qtiles * kMhaBox, head, batch);
+          for (int pass = 0; pass < 2; ++pass)
+            for (int j = 0; j < tiles; ++j, ++load) {
+              const int s = load % S;
+              mbar_wait(&sm.empty[s], ((load / S) & 1) ^ 1);
+              mbar_expect_tx(&sm.full[s], (pass + 1) * kBox);
+              tma_load_4d(sm.k[s], &tk, &sm.full[s], 0, j * kMhaBox, head,
+                          batch);
+              if (pass)
+                tma_load_4d(sm.v[s], &tv, &sm.full[s], 0, j * kMhaBox, head,
+                            batch);
+            }
+        }
+      }
+    }
+    return;
+  }
+  // ---- consumer warpgroups: 232 registers a thread (128 x 40 + 256 x 232
+  // of the SM's 65,536 with one block). wg comes through a shuffle so that
+  // ptxas sees it warp-uniform: a product under a branch it cannot prove
+  // uniform serialises every wgmma of the kernel.
+  setmaxnreg_inc<232>();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int c = 2 * (lane % 4);
+  const int rowt = 16 * (t / 32) + lane / 4;   // the thread's first row
+  int it = 0, load = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+    const int bh = item / qtiles, b = it & 1;
+    const int batch = bh / heads, head = bh % heads;
+    float acc[kHd / 2];                    // O, the m64n64 accumulator
+    if constexpr (KT > 0) {
+      mbar_wait(&sm.full[b], (it >> 1) & 1);
+      for (int st = wg; st < 2 * KT && 64 * st < n; st += 2) {
+        bf16* qt = sm.q[b] + st * 64 * kHd;   // free once S is in
+        const uint64_t dq = desc_sw128(qt);
+        mha_one_pass<KT>(acc, dq, sm.k[b], sm.v[b], &sm.vfull[b],
+                         (it >> 1) & 1, c, n, scale2);
+        mha_store(to, qt, wg, t, rowt, c, 64 * st, head, batch, acc);
+      }
+      if (t == 0) bulk_wait_read<0>();
+      mbar_arrive(&sm.empty[b]);
+    } else {
+      const int q0 = item % qtiles * kMhaBox + 64 * wg;
+      const bool active = q0 < n;          // warpgroup-uniform
+      mbar_wait(&sm.q_full[b], (it >> 1) & 1);
+      const uint64_t dq = desc_sw128(sm.q[b] + wg * 64 * kHd);
+      float m2[2] = {kFlashNeg, kFlashNeg}, l[2] = {0.f, 0.f};
+      for (int j = 0; j < tiles; ++j, ++load) {     // pass 1: m2 and l
+        const int s = load % S;
+        mbar_wait(&sm.full[s], (load / S) & 1);
+        if (active) {
+          float sc[1][64];
+          mha_logits<1>(sc, dq, sm.k[s]);
+          mha_mask(sc[0], j * kMhaBox, c, n);
+          mha_stats(sc, m2, l, scale2);
+        }
+        mbar_arrive(&sm.empty[s]);
+      }
+      const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+#pragma unroll
+      for (int i = 0; i < kHd / 2; ++i) acc[i] = 0.f;
+      for (int j = 0; j < tiles; ++j, ++load) {     // pass 2: p and p.v
+        const int s = load % S;
+        mbar_wait(&sm.full[s], (load / S) & 1);
+        if (active) {
+          float sc[1][64];
+          mha_logits<1>(sc, dq, sm.k[s]);
+          mha_mask(sc[0], j * kMhaBox, c, n);
+          mha_pass2(acc, sc, m2, inv, sm.v[s], scale2);
+        }
+        mbar_arrive(&sm.empty[s]);
+      }
+      if (active) {
+        mha_store(to, sm.q[b] + wg * 64 * kHd, wg, t, rowt, c, q0, head,
+                  batch, acc);
+        if (t == 0) bulk_wait_read<0>();
+      }
+      mbar_arrive(&sm.q_empty[b]);
+    }
+  }
+  if (t == 0) bulk_wait_all();
+}
+
+// K6's bf16 form at n tokens: KT = 1 or 2 resident key boxes, or 0, the
+// ring past 256 tokens.
+int mha_form(int n) {
+  return n <= kMhaBox ? 1 : n <= kMhaResident * kMhaBox ? 2 : 0;
+}
+
 size_t mha_smem(int n, int dtype) {
-  if (dtype == 1)   // q, then two K and two V tiles
-    return sizeof(bf16) * (size_t)5 * kMhaKeys * kBStride;
+  if (dtype == 1) {   // + the 1,024 alignment
+    const int kt = mha_form(n);
+    return 1024 + (kt == 1 ? sizeof(MhaTmaSmem<1>)
+                           : kt == 2 ? sizeof(MhaTmaSmem<2>)
+                                     : sizeof(MhaTmaSmem<0>));
+  }
   const size_t npad = (size_t)(n + kMhaKeys - 1) / kMhaKeys * kMhaKeys;
   return sizeof(float) * ((size_t)(kMhaRows + kMhaKeys) * kStride +
                           (size_t)kMhaRows * (npad + 4));
@@ -836,8 +1089,8 @@ size_t flash_smem_f32() {
 
 float softmax_scale(int hd) { return (float)(1.0 / sqrt((double)hd)); }
 
-// One launch of `kernel` (f32: the FMA kernels; bf16: the mma ones) over a
-// (query tiles, batch x head) grid with `smem` bytes of shared memory.
+// One launch of an f32 kernel (plain FMA) over a (query tiles, batch x
+// head) grid with `smem` bytes of shared memory.
 template <typename T, typename... Args>
 cudaError_t launch(void (*kernel)(const T*, const T*, const T*, T*, Args...),
                    int rows, int bh, int n, size_t smem, cudaStream_t stream,
@@ -853,33 +1106,79 @@ cudaError_t launch(void (*kernel)(const T*, const T*, const T*, T*, Args...),
   return cudaGetLastError();
 }
 
-cudaError_t run_mha(const void* q, const void* k, const void* v, void* o,
-                    Layout in, Layout out, int heads, int bh, int n,
-                    int dtype, cudaStream_t stream) {
-  const int npad = (n + kMhaKeys - 1) / kMhaKeys * kMhaKeys;
-  const size_t smem = mha_smem(n, dtype);
-  const float scale = softmax_scale(kHd);
-  if (dtype == 1)   // logits in base-2 units (mha_kernel_mma)
-    return launch(mha_kernel_mma, kMhaRowsMma, bh, n, smem, stream, q, k, v,
-                  o, in, out, heads, n, scale * kLog2e);
-  return launch(mha_kernel_f32, kMhaRows, bh, n, smem, stream, q, k, v, o, in,
-                out, heads, n, npad, scale);
-}
-
-// K5's bf16 operand as a TMA tensor map: dims (hd, n, h, b) innermost
-// first with the operand's byte strides, boxes of kTmaKeys rows x hd (the
-// q box has as many rows), 128-byte swizzle (a row is 128 bytes), rows past
-// n zero-filled. False if the encoder refuses the strides.
+// A bf16 operand of K5 or K6 as a TMA tensor map: dims (hd, n, h, b)
+// innermost first with the operand's byte strides, boxes of `rows` rows x
+// hd (kTmaKeys for q, k and v; K6's o goes back 64 rows at a time),
+// 128-byte swizzle (a row is 128 bytes), rows past n zero-filled on a load
+// and left out on a store. False if the encoder refuses the strides.
 bool tensor_map(CUtensorMap* map, hopper::EncodeTiled encode,
-                const void* base, int b, int h, int n, const Layout& s) {
-  static_assert(kTmaRows == kTmaKeys, "q and k/v share the box");
+                const void* base, int b, int h, int n, const Layout& s,
+                int rows = kTmaKeys) {
+  static_assert(kTmaRows == kTmaKeys && kMhaBox == kTmaKeys,
+                "q and k/v share the box");
   const cuuint64_t dims[4] = {kHd, (cuuint64_t)n, (cuuint64_t)h,
                               (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)s.n * sizeof(bf16),
                                  (cuuint64_t)s.h * sizeof(bf16),
                                  (cuuint64_t)s.b * sizeof(bf16)};
-  const cuuint32_t box[4] = {kHd, kTmaKeys, 1, 1};
+  const cuuint32_t box[4] = {kHd, (cuuint32_t)rows, 1, 1};
   return hopper::tensor_map_bf16(map, encode, base, 4, dims, strides, box);
+}
+
+// One launch of K6's bf16 kernel of form KT: a block an SM (at most one an
+// item), persistent. The shared-memory attribute and the SM count are asked
+// once per device.
+template <int KT>
+int launch_mha_tma(const CUtensorMap& tq, const CUtensorMap& tk,
+                   const CUtensorMap& tv, const CUtensorMap& to, int b,
+                   int h, int n, cudaStream_t stream) {
+  constexpr int kDevices = 64;
+  static int sms[kDevices];                // 0 until asked
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kDevices) return (int)cudaErrorInvalidDevice;
+  const size_t smem = sizeof(MhaTmaSmem<KT>) + 1024;
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(mha_kernel_tma<KT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int count;
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+    sms[dev] = count;
+  }
+  const int qtiles = KT > 0 ? 1 : (n + kMhaBox - 1) / kMhaBox;
+  const long long items = (long long)b * h * qtiles;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = items < sms[dev] ? (int)items : sms[dev];
+  mha_kernel_tma<KT><<<grid, 3 * 128, smem, stream>>>(
+      tq, tk, tv, to, h, n, (int)items, qtiles, softmax_scale(kHd) * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+int run_mha(const void* q, const void* k, const void* v, void* o, Layout in,
+            Layout out, int b, int h, int n, int dtype, cudaStream_t stream) {
+  if (dtype == 0)
+    return (int)launch(mha_kernel_f32, kMhaRows, b * h, n, mha_smem(n, 0),
+                       stream, q, k, v, o, in, out, h, n,
+                       (n + kMhaKeys - 1) / kMhaKeys * kMhaKeys,
+                       softmax_scale(kHd));
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::kNoEncoder;
+  CUtensorMap tq, tk, tv, to;
+  if (!tensor_map(&tq, encode, q, b, h, n, in) ||
+      !tensor_map(&tk, encode, k, b, h, n, in) ||
+      !tensor_map(&tv, encode, v, b, h, n, in) ||
+      !tensor_map(&to, encode, o, b, h, n, out, 64))
+    return hopper::kMapRefused;
+  switch (mha_form(n)) {
+    case 1: return launch_mha_tma<1>(tq, tk, tv, to, b, h, n, stream);
+    case 2: return launch_mha_tma<2>(tq, tk, tv, to, b, h, n, stream);
+    default: return launch_mha_tma<0>(tq, tk, tv, to, b, h, n, stream);
+  }
 }
 
 int run_flash(const void* q, const void* k, const void* v, void* o,
@@ -917,8 +1216,9 @@ bool bad_shape(int b, int h, int n, int hd, int dtype) {
 
 extern "C" {
 
-// Shared memory K6 needs at n tokens of `dtype`: 46 KB in bf16 at any n;
-// in f32 it grows with n, and the wrapper refuses n past 227 KB.
+// Shared memory K6 needs at n tokens of `dtype`: in bf16 two item buffers
+// (97 KB at n <= 128, 193 KB at n <= 256) or q buffers and the ring (193
+// KB); in f32 it grows with n, and the wrapper refuses n past 227 KB.
 long long isf_mha_smem(int n, int dtype) {
   return (long long)mha_smem(n, dtype);
 }
@@ -926,19 +1226,39 @@ long long isf_mha_smem(int n, int dtype) {
 // q, k, v: [b, h, n, hd] with element strides (sb, sh, sn) over b, h, n,
 // shared by the three, hd = 64 contiguous; o: the same shape with strides
 // (ob, oh, on). Every row starts 16-byte aligned. dtype 0 = float32,
-// 1 = bfloat16. Returns the CUDA error code (0 = launched).
+// 1 = bfloat16. Returns the CUDA error code (0 = launched); bf16 goes by
+// TMA and returns -1 (kNoEncoder) if libcuda has no tensor-map encoder and
+// -2 (kMapRefused) if the encoder refuses the operands' strides, launching
+// nothing.
 int isf_mha(const void* q, const void* k, const void* v, void* o, int b,
             int h, int n, int hd, int dtype, long long sb, long long sh,
             long long sn, long long ob, long long oh, long long on,
             void* stream_ptr) {
   if (bad_shape(b, h, n, hd, dtype)) return (int)cudaErrorInvalidValue;
-  return (int)run_mha(q, k, v, o, Layout{sb, sh, sn}, Layout{ob, oh, on}, h,
-                      b * h, n, dtype, static_cast<cudaStream_t>(stream_ptr));
+  return run_mha(q, k, v, o, Layout{sb, sh, sn}, Layout{ob, oh, on}, b, h, n,
+                 dtype, static_cast<cudaStream_t>(stream_ptr));
 }
 
-// As isf_mha for K5. bf16 goes by TMA: returns -1 (kNoEncoder) if libcuda
-// has no tensor-map encoder and -2 (kMapRefused) if the encoder refuses
-// the operands' strides, launching nothing.
+// The most registers a thread and local memory (spills) in bytes a thread
+// over the bf16 K6 kernel's three forms, from cudaFuncGetAttributes.
+// Returns the CUDA error code.
+int isf_mha_attrs(int* regs, int* local_bytes) {
+  *regs = *local_bytes = 0;
+  const void* forms[3] = {(const void*)mha_kernel_tma<0>,
+                          (const void*)mha_kernel_tma<1>,
+                          (const void*)mha_kernel_tma<2>};
+  for (const void* f : forms) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, f);
+    if (err != cudaSuccess) return (int)err;
+    *regs = attr.numRegs > *regs ? attr.numRegs : *regs;
+    *local_bytes = (int)attr.localSizeBytes > *local_bytes
+                       ? (int)attr.localSizeBytes : *local_bytes;
+  }
+  return 0;
+}
+
+// As isf_mha for K5.
 int isf_flash_mha(const void* q, const void* k, const void* v, void* o,
                   int b, int h, int n, int hd, int dtype, long long sb,
                   long long sh, long long sn, long long ob, long long oh,

@@ -1,5 +1,5 @@
-// PTX wrappers shared by the warp-level tensor-core kernels of the port
-// (the row stores' pass 1 in topk_mma.cuh, K5/K6 in vit_attention.cu):
+// PTX wrappers of the warp-level tensor-core kernels of the port (the
+// integer row stores' pass 1 in topk_mma.cuh):
 // cp.async staging, ldmatrix fragment loads, mma.sync m16n8k16 in bf16 with
 // f32 sums and m16n8k32 in int8 with int32 sums.
 //

@@ -138,6 +138,8 @@ def load() -> ctypes.CDLL:
         lib.isf_mha.restype = i
         lib.isf_mha_smem.argtypes = [i, i]
         lib.isf_mha_smem.restype = ctypes.c_longlong
+        lib.isf_mha_attrs.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.isf_mha_attrs.restype = i
         lib.isf_flash_mha.argtypes = [p, p, p, p, i, i, i, i, i,
                                       ll, ll, ll, ll, ll, ll, p]
         lib.isf_flash_mha.restype = i

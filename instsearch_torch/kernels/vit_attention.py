@@ -6,8 +6,11 @@ bf16 or f32, -> ``o [B, h, N, hd]`` in the same dtype, softmax scale
   * ``mha`` (K6): attention over whole rows. f32 logits, the softmax
     normalised in f32 over the N keys, then p rounded to v's dtype, p·v
     summed in f32, the result cast to the input dtype. The bf16 kernel
-    walks the key tiles twice (the row max and sum online, then p and p·v),
-    so it keeps nothing per key and takes any N.
+    reads q, k and v by TMA and runs both products by ``wgmma``, in
+    persistent blocks: at N <= 256 a head's K and V are read into the SM
+    once for all its query rows and each row's softmax is taken whole in
+    registers; past 256 tokens it walks 128-key tiles twice (the row max
+    and sum online, then p and p·v), so it takes any N.
   * ``flash_mha`` (K5): the same attention over key/value tiles of
     ``FLASH_KV_BLOCK`` keys with the online softmax: f32 logits, the ragged
     tail masked with the finite -1e30, running max and sum in f32, the
@@ -31,6 +34,7 @@ extraction is inference, and training keeps the plain route.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -180,7 +184,8 @@ def _kernel_operands(name: str, q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name}: {nm} rows are not 16-byte aligned")
 
 
-# isf_flash_mha's codes for a bf16 call it did not launch (no CUDA error)
+# isf_mha's and isf_flash_mha's codes for a bf16 call they did not launch
+# (no CUDA error)
 _NO_ENCODER, _MAP_REFUSED = -1, -2
 
 
@@ -211,12 +216,36 @@ def _launch(fn, entry, q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _mha_smem(n: int, dtype_code: int) -> int:
+    """Shared memory K6 takes at ``n`` tokens (``isf_mha_smem``: bf16 one of
+    its three forms, f32 growing with n), asked of the library once per
+    (n, dtype)."""
+    from . import _build
+    return _build.load().isf_mha_smem(n, dtype_code)
+
+
+def mha_kernel_attrs() -> dict:
+    """The bf16 K6 kernel's registers a thread and its local memory (spills)
+    in bytes a thread, the most over its three forms, as
+    ``cudaFuncGetAttributes`` reads them. Builds the kernels on first
+    use."""
+    import ctypes
+    from . import _build
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = _build.load().isf_mha_attrs(ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        raise RuntimeError(f"cudaFuncGetAttributes of the K6 kernel failed: "
+                           f"CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K6: attention normalised over whole key rows; see the module
-    docstring. On CUDA the bf16 kernel takes any N (two passes over the key
-    tiles, nothing kept per key); the f32 kernel, off the served path, keeps
-    16 rows of f32 logits in shared memory and raises past about 3,264
-    tokens."""
+    docstring. On CUDA the bf16 kernel takes any N and reads q, k and v by
+    TMA, so it raises ``ValueError`` if the CUDA tensor-map encoder refuses
+    their strides; the f32 kernel, off the served path, keeps 16 rows of f32
+    logits in shared memory and raises past about 3,264 tokens."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return mha_reference(q, k, v)
@@ -224,7 +253,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     n = q.shape[2]
     from . import _build
     lib = _build.load()
-    smem = lib.isf_mha_smem(n, _DTYPE_CODE[q.dtype])
+    smem = _mha_smem(n, _DTYPE_CODE[q.dtype])
     if smem > SMEM_LIMIT:
         raise ValueError(f"mha: N={n} tokens need {smem} bytes of shared "
                          f"memory for the f32 kernel's logit rows (> "

@@ -67,7 +67,8 @@ from instsearch_torch.kernels.pq_scan import _lut, pq_table
 from instsearch_torch.kernels.fused_resnet import (
     _stack_identity_weights, check_fused_call, fused_identity_blocks,
     fused_resnet_apply, kernel_attrs, randomize_bn, tile_rows)
-from instsearch_torch.kernels.vit_attention import check_attention
+from instsearch_torch.kernels.vit_attention import (check_attention,
+                                                    mha_kernel_attrs)
 from instsearch_torch.models.resnet import Bottleneck, ResNet
 from instsearch_torch.ops.pooling import gem_pool
 from instsearch_torch.ops.pq import PQCodebook, default_m
@@ -658,13 +659,18 @@ def test_bf16_flash_refuses_strides_tma_cannot_take(gen):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [5, 197, 300, 1025, 4000])
-def test_bf16_mha_takes_any_token_count(gen, n):
-    """The bf16 K6 keeps nothing per key: from 5 tokens (one ragged key
-    tile) to 4,000 (past the ~3,264 its one-pass plan held), on q, k, v
-    views of a packed qkv projection, within ``check_attention`` of its
-    plain version."""
-    qkv = torch.randn((2, n, 3, 3, 64), generator=gen,
+@pytest.mark.parametrize("heads", [12, 16])
+@pytest.mark.parametrize("n", [1, 5, 64, 128, 129, 197, 256, 257, 300, 1025,
+                               4000])
+def test_bf16_mha_takes_any_token_count(gen, n, heads):
+    """The bf16 K6 at every edge of its forms: one resident key box (N <=
+    128), two (N <= 256, ViT-B/16's 197 tokens), the two-pass ring past
+    that (up to 4,000 tokens, past the ~3,264 its first one-pass plan
+    held), with ViT-B/16's 12 heads and ViT-L/16's 16, on q, k, v views of
+    a packed qkv projection: within ``check_attention`` of its plain
+    version, one launch a call, v = ones gives ones (no key past N attends)
+    and o lies in [B, N, h, hd] memory."""
+    qkv = torch.randn((2, n, 3, heads, 64), generator=gen,
                       device="cuda").to(torch.bfloat16)
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
     before = mha.launches
@@ -673,9 +679,45 @@ def test_bf16_mha_takes_any_token_count(gen, n):
     torch.cuda.synchronize()
     assert mha.launches == before + 1
     check_attention(out, want)
+    merged = out.transpose(1, 2)
+    assert merged.is_contiguous()
+    assert merged.reshape(2, n, heads * 64).data_ptr() == out.data_ptr()
     qkv[:, :, 2] = 1                                  # v = ones
     ones = mha(q, k, v).float()
+    assert mha.launches == before + 2
     assert (ones - 1).abs().max().item() <= 2 ** -7
+
+
+@pytest.mark.gpu
+def test_bf16_mha_refuses_strides_tma_cannot_take(gen):
+    """The bf16 K6 reads q, k and v by TMA, as K5 does: rows whose strides
+    are not multiples of 16 bytes, or a base that is not 16-byte aligned,
+    raise ``ValueError`` in the wrapper before any launch, not a fault on
+    the card."""
+    before = mha.launches
+    x = torch.randn((2, 40, 3 * 2 * 64 + 4), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    row = x[..., :3 * 2 * 64].unflatten(-1, (3, 2, 64))     # 776-byte rows
+    q, k, v = (t.transpose(1, 2) for t in row.unbind(2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mha(q, k, v)
+    flat = torch.randn(2 * 2 * 40 * 64 + 4, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    q = flat[4:].view(2, 2, 40, 64)                         # base 8 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mha(q, q, q)
+    torch.cuda.synchronize()
+    assert mha.launches == before
+
+
+@pytest.mark.gpu
+def test_bf16_mha_kernel_keeps_its_registers(gen):
+    """The bf16 K6's three forms fit ptxas's 168 registers a thread with no
+    local memory (a spill would slow every softmax), as chip_smoke.py's
+    phase 1 also checks."""
+    attrs = mha_kernel_attrs()
+    assert attrs["local_bytes"] == 0
+    assert 0 < attrs["registers"] <= 168
 
 
 def _seeded_net(gen, stage_sizes):

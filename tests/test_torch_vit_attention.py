@@ -165,44 +165,119 @@ def test_check_attention_rejects_planted_faults(flash, n):
             check_attention(bad, want)
 
 
-def _two_pass_mha(q, k, v, tile=64):
-    """K6's bf16 kernel's arithmetic, step for step, in torch: logits in
-    base-2 units, t = q·k times the f32 product 1/sqrt(hd) · log2(e); pass A
-    keeps each row's max m2 and sum l online over key tiles of ``tile`` (l =
-    l 2^(m2 - m2_new) + sum 2^(t - m2_new), the finite -1e30 before the
-    first tile); pass B recomputes each tile's logits, forms p = 2^(t - m2)
+_FTZ = 2.0 ** -126            # ex2.approx.ftz flushes results below it
+
+
+def _scale2():
+    """The kernels' f32 product 1/sqrt(hd) · log2(e) at hd = 64."""
+    return (torch.tensor(1.0 / np.sqrt(64), dtype=torch.float32)
+            * torch.tensor(np.log2(np.e), dtype=torch.float32))
+
+
+def _base2(dot, m2, scale2):
+    """2^(t - m2) as the bf16 K6 takes it: t - m2 = q·k · scale2 - m2 by one
+    FFMA (a single rounding, emulated in f64), then ex2.approx.ftz (an f32
+    exp2 whose subnormal results are 0)."""
+    t = (dot.double() * scale2.double() - m2.double()).float()
+    e = torch.exp2(t)
+    return torch.where(e < _FTZ, torch.zeros_like(e), e)
+
+
+def _one_pass_mha(q, k, v):
+    """K6's bf16 kernel's arithmetic at N <= 256 (form a), in torch: the
+    whole row of f32 logits at once, its max m2 = max(q·k) · scale2 in
+    base-2 units, e = 2^(t - m2) (``_base2``), l the f32 sum of the row's
+    e, p = e · (1 / l) rounded to bf16, p·v summed in f32, the output
+    rounded once. The kernel sums a row's e in another f32 order (each
+    thread's 32 or 64, then the quad's four), so it is held to this
+    emulation by the same rule as to the plain version."""
+    scale2 = _scale2()
+    dot = q.float() @ k.float().transpose(-1, -2)
+    m2 = dot.amax(-1, keepdim=True) * scale2
+    e = _base2(dot, m2, scale2)
+    p = (e * (1 / e.sum(-1, keepdim=True))).to(v.dtype).float()
+    return (p @ v.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("n", [5, 64, 128, 129, 197, 256])
+def test_one_pass_arithmetic_passes_check_attention(n):
+    """The bf16 K6 at N <= 256 keeps a row's logits whole in registers and
+    normalises p from the exact row sum, with one FFMA and one flushing
+    exp2 a logit and a reciprocal in place of exp and a quotient: its
+    emulation lies within ``check_attention``'s bar of the plain version and
+    of the JAX kernel in interpret mode, while the planted faults still fail
+    that bar (at N <= 128 the dropped tile is every key, and the output is
+    not finite)."""
+    (jq, jk, jv), (q, k, v) = _qkv(n + 2, (2, 3, n, 64), "bfloat16")
+    want = mha_reference(q, k, v)
+    got = _one_pass_mha(q, k, v)
+    err = check_attention(got, want)
+    assert err["rel_err"] < BF16_REL_TOL / 4
+    _close(got, jax_mha(jq, jk, jv, interpret=True), "bfloat16")
+    for name, bad in planted_faults(q, k, v, flash=False).items():
+        with pytest.raises(AssertionError):
+            check_attention(bad, want)
+
+
+@pytest.mark.parametrize("n", [197, 256, 1025])
+def test_one_pass_ftz_form_moves_p_by_at_most_one_bf16_step(n):
+    """K6 evaluates p = exp(s - m) / l as e · (1 / l), e = 2^(q·k · scale2 -
+    m2) by one FFMA and ex2.approx.ftz (``_base2``): the same function in
+    another f32 order, with subnormal e flushed to 0. Over whole rows the
+    two forms' p, rounded to bf16, differ by at most one bf16 step, and in
+    under 1e-4 of the entries."""
+    _, (q, k, _) = _qkv(n + 4, (2, 3, n, 64), "bfloat16")
+    dot = q.float() @ k.float().transpose(-1, -2)
+    inv = torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=torch.float32)
+    e = torch.exp(dot * inv - (dot * inv).amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(torch.bfloat16)
+    scale2 = _scale2()
+    e2 = _base2(dot, dot.amax(-1, keepdim=True) * scale2, scale2)
+    p2 = (e2 * (1 / e2.sum(-1, keepdim=True))).to(torch.bfloat16)
+    steps = (p.view(torch.int16).int() - p2.view(torch.int16).int()).abs()
+    assert int(steps.max()) <= 1
+    assert float((steps > 0).float().mean()) < 1e-4
+
+
+def _two_pass_mha(q, k, v, tile=128):
+    """K6's bf16 kernel's arithmetic past 256 tokens (form b), step for
+    step, in torch: pass 1 keeps each row's max m2 = max(q·k) · scale2 and
+    sum l online over key tiles of ``tile`` (l = l 2^(m2 - m2_new) + sum
+    2^(t - m2_new), each 2^ by ``_base2``, the finite -1e30 before the
+    first tile); pass 2 recomputes each tile's logits, forms p = 2^(t - m2)
     (1 / l) in f32, rounds p to bf16 and sums p·v in f32; the output is
     rounded once."""
-    scale2 = torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=torch.float32) \
-        * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    scale2 = _scale2()
     qf = q.float()
     m = torch.full(q.shape[:-1] + (1,), -1e30)
     l = torch.zeros_like(m)
     tiles = range(0, q.shape[2], tile)
 
-    def logits(c0):
-        return qf @ k[:, :, c0:c0 + tile].float().transpose(-1, -2) * scale2
+    def dots(c0):
+        return qf @ k[:, :, c0:c0 + tile].float().transpose(-1, -2)
 
     for c0 in tiles:
-        t = logits(c0)
-        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
-        l = l * torch.exp2(m - m_new) + torch.exp2(t - m_new).sum(
-            -1, keepdim=True)
+        dot = dots(c0)
+        m_new = torch.maximum(m, dot.amax(-1, keepdim=True) * scale2)
+        corr = torch.exp2(m - m_new)
+        l = l * torch.where(corr < _FTZ, torch.zeros_like(corr), corr) \
+            + _base2(dot, m_new, scale2).sum(-1, keepdim=True)
         m = m_new
     acc = torch.zeros(q.shape)
     for c0 in tiles:
-        p = (torch.exp2(logits(c0) - m) * (1 / l)).to(v.dtype).float()
+        p = (_base2(dots(c0), m, scale2) * (1 / l)).to(v.dtype).float()
         acc = acc + p @ v[:, :, c0:c0 + tile].float()
     return acc.to(q.dtype)
 
 
-@pytest.mark.parametrize("n", [197, 1025])
+@pytest.mark.parametrize("n", [197, 300, 1025])
 def test_two_pass_arithmetic_passes_check_attention(n):
-    """The bf16 K6 normalises p from a sum taken online over key tiles in a
-    first pass, not from the whole row at once, with exp2 of base-2 logits
-    and a reciprocal in place of exp and a quotient: its emulation lies within
-    ``check_attention``'s bar of the plain version (and of the JAX kernel),
-    while the planted faults still fail that bar."""
+    """Past 256 tokens the bf16 K6 normalises p from a sum taken online over
+    128-key tiles in a first pass, not from the whole row at once, with one
+    FFMA and one flushing exp2 a logit and a reciprocal in place of exp and
+    a quotient: its emulation lies within ``check_attention``'s bar of the
+    plain version (and of the JAX kernel), while the planted faults still
+    fail that bar."""
     (jq, jk, jv), (q, k, v) = _qkv(n + 1, (2, 3, n, 64), "bfloat16")
     want = mha_reference(q, k, v)
     got = _two_pass_mha(q, k, v)
