@@ -18,8 +18,10 @@ as those phases left them (phase 10 mutates them).
      (bf16: also 128, and k = 200 at B = 1, 8 and 128, phase 11's shapes);
      K1 in bf16 and f32 (scores within SCORE_TOL), K2
      over int8 and K3 over int4 rows (bit for bit; also B = 65, D = 128
-     and B = 128 at D = 128 and 2048, each timed at B = 1 and 128, K2
-     beside ``torch._int_mm`` + ``torch.topk`` at B = 128), and the first
+     and B = 128 at D = 128 and 2048, each timed at B = 1 and 128 with
+     k = 10 and at B = 1, 8 and 128 with k = 100, K2 beside
+     ``torch._int_mm`` + ``torch.topk`` at B = 128; every launch through
+     the TMA + wgmma pass 1, ``launches_wgmma``), and the first
      kernel of their launch sequence, the query's quantization, bit for
      bit against ``ops/quantize.py::quantize_rows`` on rows with ties at
      half a step, zero rows, a sign at the row's maximum and bf16 values;
@@ -382,7 +384,9 @@ its median time and its plain version's at 1M rows, B = 1, k = 10 (K1 and
 K3 count phase 8's launches too, also apart as ``launches_phase8``, and
 carry their times at depth 100 on phase 8's stores, ``ms_b{1,8,128}_k100``,
 ``plain_ms_b..._k100``, ``library_ms_b..._k100`` (K1 only; null for K3),
-``bound_ms_b..._k100``; K1 and K2 count the sharded routes' launches too,
+``bound_ms_b..._k100``; K2 carries the same keys from phase 1's 1M x 512
+store, its library ``torch._int_mm`` + ``torch.topk`` at B = 128; K1-K3
+name their pass 1, ``pass1``; K1 and K2 count the sharded routes' launches too,
 also apart as ``launches_sharded``; K1-K4
 also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
 ``bound_ms_b128``; K1-K4 count phase 10's subset requests too, also apart
@@ -441,8 +445,16 @@ CORPUS_Q = 1024         # phase 3: images extracted at the presets' 512 px
 SCORE_TOL = 1e-5        # unit rows: f32 sums in two orders differ far below
 SIZES = (1, 3, 8, 13)   # images per served request
 K1_BATCHES = (1, 8, 16, 64, 128)   # K1's bf16 query batches in phase 1
-# the route of K1's bf16 pass 1 (csrc/topk_wgmma.cuh), named in its row
+# the route of K1's bf16 pass 1 and of K2's and K3's (csrc/topk_wgmma.cuh),
+# named in their rows
 K1_PASS1 = "topk_pass1_wgmma: TMA + wgmma, buffered top-k"
+INT_PASS1 = {"topk_matmul_int8": "topk_pass1_wgmma<WgInt<false>>: TMA + "
+                                 "wgmma s8 x s8, buffered top-k",
+             "topk_matmul_int4": "topk_pass1_wgmma<WgInt<true>>: TMA + "
+                                 "wgmma u8 x s8 (A nibbles in registers), "
+                                 "buffered top-k"}
+# K2/K3's timed shapes in phase 1: (B, k)
+INT_TIMED = ((1, 10), (128, 10), (1, 100), (8, 100), (128, 100))
 # K1 at D = 2048 on the quality tiers' paths (phase 11), timed in phase 1:
 # (B, k) of the αDBA / kNN-graph chunk and of diffusion's depth
 QUALITY_K1 = ((128, 10), (1, 200), (8, 200), (128, 200))
@@ -994,9 +1006,9 @@ def empty_slice_case(gen, kind: str, b: int, masked: bool,
     memory. Every answer against the plain version (K1 by
     ``check_against_plain``, K2/K3 by ``check_exact``); a position
     outside [-1, F7_VALID) fails before anything is gathered by it.
-    Without the barrier after the lists' initialization in
-    ``csrc/topk_mma.cuh`` (K1's ``topk_wgmma.cuh`` has its own) a warp
-    wrote out entries other warps had not set yet. Raises
+    Without a barrier after the lists' initialization (an earlier pass 1
+    of K2/K3 lacked it; ``csrc/topk_wgmma.cuh`` has one) a warp wrote out
+    entries other warps had not set yet. Raises
     ``AssertionError``; returns the calls checked. The wrappers' launch
     counts are left as they were."""
     import torch
@@ -1059,7 +1071,8 @@ def check_empty_slices(card: str, gen) -> None:
 def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
                check_exact) -> tuple[float, dict]:
     """K2 (int8) or K3 (int4) against its plain version; both sum exact
-    integers, so every case must agree bit for bit (``check_exact``).
+    integers, so every case must agree bit for bit (``check_exact``), and
+    every launch must take the TMA + wgmma pass 1 (``launches_wgmma``).
     Returns (max error, timings)."""
     import torch
     from instsearch_torch.ops.quantize import QuantizedRows
@@ -1067,11 +1080,16 @@ def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
 
     def case(st, d, b, k, label, num_valid=None, mask=None):
         q = unit_rows(gen, b, d, torch.float32)
+        before = (fn.launches, fn.launches_wgmma)
         s, i = fn(st.values, st.scales, q, k=k, num_valid=num_valid,
                   mask=mask)
         rs, ri = ref(st.values, st.scales, q, k=k, num_valid=num_valid,
                      mask=mask)
         torch.cuda.synchronize()
+        if (fn.launches, fn.launches_wgmma) != (before[0] + 1,
+                                                before[1] + 1):
+            fail(f"{kind} {label} B={b} k={k}: not one launch through the "
+                 f"TMA + wgmma pass 1")
         try:
             err = check_exact(s, i, rs, ri)
         except AssertionError as e:
@@ -1090,7 +1108,7 @@ def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
     timings = {}
     nv = N_ROWS - 1000
     st = quantized_unit_rows(gen, N_ROWS, DIM, quantize)
-    # B = 65: a ragged query block of the tensor-core pass 1's 128
+    # B = 65: a ragged query block of the TMA + wgmma pass 1's 128
     for b in (1, 8, 65, 128):
         for k in (1, 10, 100):
             case(st, DIM, b, k, "num_valid=N-1000", num_valid=nv)
@@ -1100,16 +1118,16 @@ def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
         case(st, DIM, b, 10, "50% mask", mask=mask)
     case(st, DIM, 3, 100, "50 valid rows < k", num_valid=50)
     row_bytes = DIM // 2 if kind == "int4" else DIM
-    for b in (1, 128):
+    for b, k in INT_TIMED:
         q = unit_rows(gen, b, DIM, torch.float32)
-        library = (cuda_median_ms(int_mm_topk(st, q, 10))
+        library = (cuda_median_ms(int_mm_topk(st, q, k))
                    if kind == "int8" and b > 16 else None)
-        timings[f"{kind} N=1M D=512 B={b} k=10"] = {
-            "ms": cuda_median_ms(lambda: fn(st.values, st.scales, q, k=10)),
+        timings[f"{kind} N=1M D=512 B={b} k={k}"] = {
+            "ms": cuda_median_ms(lambda: fn(st.values, st.scales, q, k=k)),
             "plain_ms": cuda_median_ms(
-                lambda: ref(st.values, st.scales, q, k=10)),
+                lambda: ref(st.values, st.scales, q, k=k)),
             "library_ms": library,
-            **bound(N_ROWS * (row_bytes + 4) + b * DIM * 4 + b * 10 * 8,
+            **bound(N_ROWS * (row_bytes + 4) + b * DIM * 4 + b * k * 8,
                     2 * b * N_ROWS * DIM, "int8")}
     del st, mask
     # duplicated rows: every stored row appears 1024 times, so the top 100
@@ -1266,6 +1284,26 @@ def _everyone():
             flash_mha, fused_identity_blocks)
 
 
+def zero_counts(kernels) -> None:
+    """Set each kernel's launch count to 0, and the count of K1-K3's
+    launches through the TMA + wgmma pass 1 (``launches_wgmma``)."""
+    for fn in kernels:
+        fn.launches = 0
+        if hasattr(fn, "launches_wgmma"):
+            fn.launches_wgmma = 0
+
+
+def check_int_pass1(where: str) -> None:
+    """Fail unless every K2 and K3 launch since ``zero_counts`` took the
+    TMA + wgmma pass 1."""
+    from instsearch_torch.kernels import topk_matmul_int4, topk_matmul_int8
+    for fn in (topk_matmul_int8, topk_matmul_int4):
+        if fn.launches_wgmma != fn.launches:
+            fail(f"{where}: {fn.__name__} launched {fn.launches} times, "
+                 f"{fn.launches_wgmma} of them through the TMA + wgmma "
+                 f"pass 1")
+
+
 def serve_requests(card, phase, core, images, picks, expect):
     """Warm ``core``, set every kernel's count to 0, serve one request per
     pick and read the counts: each kernel in ``expect`` (kernel -> launches
@@ -1276,10 +1314,10 @@ def serve_requests(card, phase, core, images, picks, expect):
     counts by kernel name."""
     everyone = _everyone()
     core.warmup()
-    for fn in everyone:
-        fn.launches = 0
+    zero_counts(everyone)
     answers = [core.run_queries([(images[p], 10)])[0] for p in picks]
     counts = {fn.__name__: fn.launches for fn in everyone}
+    check_int_pass1(f"phase {phase} requests")
     pieces = sum(-(-len(p) // core.buckets[-1]) for p in picks)
     want = {fn.__name__: expect.get(fn, 0) * pieces for fn in everyone}
     if counts != want:
@@ -1931,9 +1969,11 @@ def phase7(card: str, gen) -> dict:
         cfg = PipelineConfig(index=IndexConfig(dtype=dtype),
                              search=SearchConfig(k=10))
         idx = tindex.Index.from_descriptors(rows, names, cfg)
-        before = kernel.launches
+        before = (kernel.launches, kernel.launches_wgmma)
         ks, ki = idx.search(q)
-        launched = kernel.launches - before
+        launched = kernel.launches - before[0]
+        if kernel.launches_wgmma - before[1] != launched:
+            fail(f"D=31 {dtype}: a launch missed the TMA + wgmma pass 1")
         if launched != 1 or not np.array_equal(ki[:, 0], src.cpu().numpy()):
             fail(f"D=31 {dtype}: {launched} launches, top-1 "
                  f"{ki[:, 0].tolist()}")
@@ -2660,12 +2700,13 @@ def subset_requests(card, tag, core, images, picks, subset: str, kernel,
     (``launches_subset``), and no other kernel at all. Every returned name
     must be a member. Returns the answers."""
     everyone = _everyone()
+    zero_counts(everyone)
     for fn in everyone:
-        fn.launches = 0
         if hasattr(fn, "launches_subset"):
             fn.launches_subset = 0
     answers = [core.run_queries([(images[p], 10)], subset=subset)[0]
                for p in picks]
+    check_int_pass1(f"{tag}: subset {subset!r} requests")
     pieces = sum(-(-len(p) // core.buckets[-1]) for p in picks)
     want = {fn.__name__: (per_piece * pieces if fn is kernel else 0)
             for fn in everyone}
@@ -3197,9 +3238,9 @@ def count_launches(fn):
     """``fn()`` with every kernel's count set to 0 before and read after ->
     (result, counts by kernel name)."""
     everyone = _everyone()
-    for k in everyone:
-        k.launches = 0
+    zero_counts(everyone)
     out = fn()
+    check_int_pass1(getattr(fn, "__name__", "a counted run"))
     return out, {k.__name__: k.launches for k in everyone}
 
 
@@ -6575,7 +6616,9 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"instsearch_torch/csrc/{file}",
                      "replaces": f"instsearch_tpu/kernels/{replaces}",
-                     **({"pass1": K1_PASS1} if name == "topk_matmul" else {}),
+                     **({"pass1": K1_PASS1} if name == "topk_matmul" else
+                        {"pass1": INT_PASS1[name]} if name in INT_PASS1
+                        else {}),
                      "launches": (launches + phase8.get(name, 0)
                                   + sharded.get(name, 0) + subset[name]
                                   + quality.get(name, 0) + cli.get(name, 0)
@@ -6605,6 +6648,9 @@ def main() -> int:
         rows[-1].update(ms_b128=t["ms"], plain_ms_b128=t["plain_ms"],
                         library_ms_b128=t["library_ms"],
                         bound_ms_b128=t["bound_ms"])
+        if name == "topk_matmul_int8":   # phase 1's store, depth 100
+            depth[name] = {b: timings[f"{shape} B={b} k={k}"]
+                           for b, k in INT_TIMED if k == 100}
         for b, t in depth.get(name, {}).items():   # phase 8, depth 100
             rows[-1].update({f"ms_b{b}_k100": t["ms"],
                              f"plain_ms_b{b}_k100": t["plain_ms"],

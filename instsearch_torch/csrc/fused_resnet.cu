@@ -238,15 +238,6 @@ __device__ __forceinline__ uint32_t relu_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&y);
 }
 
-// warp_mma.cuh's ldmatrix_x4 from a 32-bit shared address, which the A
-// rows are computed as
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-
 // The consumers' side of one convolution. For each chunk kc of each
 // n-tile: wait for the weight stage, then for each of its kParts parts
 // (k16 steps of its depth of 64): load the A fragments of the warpgroup's

@@ -1,7 +1,7 @@
 // PTX wrappers for Hopper's asynchronous machinery (sm_90a only), shared by
 // the port's warp-specialised kernels (K5's and K6's bf16 kernels in
-// vit_attention.cu, K7 in fused_resnet.cu, K4 in pq_scan.cu, K1's bf16
-// pass 1 in topk_wgmma.cuh):
+// vit_attention.cu, K7 in fused_resnet.cu, K4 in pq_scan.cu, the pass 1 of
+// K1's bf16 and K2/K3's int8 and int4 stores in topk_wgmma.cuh):
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase's parity;
@@ -13,15 +13,17 @@
 //   * wgmma: the shared-memory matrix descriptor of a tile that TMA wrote
 //     with CU_TENSOR_MAP_SWIZZLE_128B, the m64nNk16 product with both
 //     operands in shared memory (N = 8 to 64, and 128), the m64n64k16
-//     product with A in registers, and the fence, commit and wait around
-//     them;
+//     product with A in registers, their integer forms m64nNk32 (s8 x s8
+//     with both operands in shared memory, u8 x s8 with A in registers;
+//     N = 8 to 64, s32 sums), the fence, commit and wait around them, and
+//     ldmatrix, which gathers a register A fragment from shared memory;
 //   * setmaxnreg, which moves registers from a producer warpgroup to the
 //     consumer warpgroups, and the named barrier that syncs the consumers
 //     without the producer (and its bar.red form, which also ORs a
 //     predicate over the threads);
 //   * on the host, the tensor-map encoder (a libcuda function reached
-//     through the runtime, so the library needs no -lcuda) and a bf16 map
-//     of any rank with a 128-byte swizzle.
+//     through the runtime, so the library needs no -lcuda) and a bf16 or
+//     uint8 map of any rank with a 128-byte swizzle.
 //
 // Phases. A barrier starts in phase 0. wait(bar, parity) returns once the
 // phase of that parity has completed: a consumer waits on round r's "full"
@@ -50,7 +52,12 @@
 // register fragment of an m64k16 step holds rows 16 w + l / 4 (+ 8) and
 // columns 2 (l % 4) (+ 1, + 8, + 9) in four bf16 pairs, so accumulator
 // entries 8 i .. 8 i + 7, packed to bf16 pairs in order, are the A fragment
-// of columns 16 i .. 16 i + 15.
+// of columns 16 i .. 16 i + 15. The integer sums (s32) lie as the f32 ones.
+// The A register fragment of an 8-bit m64k32 step holds, in its four
+// registers, rows 16 w + l / 4, + 8, + 0, + 8 and bytes 4 (l % 4) .. + 3,
+// the same, + 16, + 16: mma.sync m16n8k32's A fragment, which ldmatrix.x4
+// gathers from the four 8 x 16-byte matrices (rows 0-7 | 8-15) x (bytes
+// 0-15 | 16-31), lane l giving the address of row l % 16, half l / 16.
 //
 // Everything here has internal linkage.
 
@@ -216,6 +223,20 @@ __device__ __forceinline__ void reg_fence(uint32_t& r) {
   asm volatile("" : "+r"(r) :: "memory");
 }
 
+__device__ __forceinline__ void reg_fence(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
+// ldmatrix.x4 from a 32-bit shared address: lanes 8 i .. 8 i + 7 give the
+// rows of matrix i, register i of lane l gets 4 bytes of its row l / 4 at
+// byte 4 (l % 4)
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
@@ -365,6 +386,82 @@ struct WgmmaSS<64> {
   }
 };
 
+// ---- integer wgmma ---------------------------------------------------------
+//
+// d (+)= a b in exact s32 sums, m64nNk32 for N = 8, 16, 32 or 64 (N / 2
+// registers a thread, the layout above); a 64 x 32 bytes and b 32 x N, both
+// K-major, the only order integer wgmma takes. WgmmaS8: s8 x s8, both from
+// shared memory (descriptors); WgmmaU8S8: u8 x s8, a from registers (its
+// four registers, the layout above). scale_d = 0 overwrites d.
+
+#define ISF_D4 "%0, %1, %2, %3"
+#define ISF_D8 ISF_D4 ", %4, %5, %6, %7"
+#define ISF_D16 ISF_D8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define ISF_D32                                                              \
+  ISF_D16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+          "%28, %29, %30, %31"
+#define ISF_O4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define ISF_O8(i) ISF_O4(i), ISF_O4(i + 4)
+#define ISF_O16(i) ISF_O8(i), ISF_O8(i + 8)
+#define ISF_O32 ISF_O16(0), ISF_O16(16)
+
+template <int N>
+struct WgmmaS8;
+template <int N>
+struct WgmmaU8S8;
+
+#define ISF_INT_WGMMA(N, DS, OUTS, SS_TAIL, RS_TAIL)                         \
+  template <>                                                                \
+  struct WgmmaS8<N> {                                                        \
+    __device__ __forceinline__ static void run(int (&d)[N / 2], uint64_t da, \
+                                               uint64_t db, int scale_d) {   \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SS_TAIL             \
+                   : OUTS : "l"(da), "l"(db), "r"(scale_d));                \
+    }                                                                        \
+  };                                                                         \
+  template <>                                                                \
+  struct WgmmaU8S8<N> {                                                      \
+    __device__ __forceinline__ static void run(int (&d)[N / 2],             \
+                                               const uint32_t* a,           \
+                                               uint64_t db, int scale_d) {   \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " RS_TAIL             \
+                   : OUTS                                                    \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),  \
+                     "r"(scale_d));                                          \
+    }                                                                        \
+  };
+
+ISF_INT_WGMMA(8, ISF_D4, ISF_O4(0),
+              "%6, 0;\nwgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+              ISF_D4 "}, %4, %5, p;\n}\n",
+              "%9, 0;\nwgmma.mma_async.sync.aligned.m64n8k32.s32.u8.s8 {"
+              ISF_D4 "}, {%4, %5, %6, %7}, %8, p;\n}\n")
+ISF_INT_WGMMA(16, ISF_D8, ISF_O8(0),
+              "%10, 0;\nwgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+              ISF_D8 "}, %8, %9, p;\n}\n",
+              "%13, 0;\nwgmma.mma_async.sync.aligned.m64n16k32.s32.u8.s8 {"
+              ISF_D8 "}, {%8, %9, %10, %11}, %12, p;\n}\n")
+ISF_INT_WGMMA(32, ISF_D16, ISF_O16(0),
+              "%18, 0;\nwgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+              ISF_D16 "}, %16, %17, p;\n}\n",
+              "%21, 0;\nwgmma.mma_async.sync.aligned.m64n32k32.s32.u8.s8 {"
+              ISF_D16 "}, {%16, %17, %18, %19}, %20, p;\n}\n")
+ISF_INT_WGMMA(64, ISF_D32, ISF_O32,
+              "%34, 0;\nwgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+              ISF_D32 "}, %32, %33, p;\n}\n",
+              "%37, 0;\nwgmma.mma_async.sync.aligned.m64n64k32.s32.u8.s8 {"
+              ISF_D32 "}, {%32, %33, %34, %35}, %36, p;\n}\n")
+
+#undef ISF_INT_WGMMA
+#undef ISF_O32
+#undef ISF_O16
+#undef ISF_O8
+#undef ISF_O4
+#undef ISF_D32
+#undef ISF_D16
+#undef ISF_D8
+#undef ISF_D4
+
 // ---- host: tensor maps -----------------------------------------------------
 
 // What a C entry returns, past the CUDA error codes, when it launches
@@ -400,20 +497,28 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims at `base` as a TMA tensor map: dims[0] the
-// contiguous one, strides[i] the byte stride of dim i + 1, boxes of box[i]
-// elements (box[0] two bytes each, at most 128), 128-byte swizzle (the
-// layout desc_sw128 describes), elements out of bounds zero-filled. False
-// if the encoder refuses the strides or the base's alignment.
+// A tensor of `rank` dims of `type` at `base` as a TMA tensor map: dims[0]
+// the contiguous one, strides[i] the byte stride of dim i + 1, boxes of
+// box[i] elements (box[0] at most 128 bytes), 128-byte swizzle (the layout
+// desc_sw128 describes), elements out of bounds zero-filled. False if the
+// encoder refuses the strides or the base's alignment.
+bool tensor_map_sw128(CUtensorMap* map, EncodeTiled encode,
+                      CUtensorMapDataType type, const void* base, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box) {
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// tensor_map_sw128 of bf16 elements (box[0] at most 64)
 bool tensor_map_bf16(CUtensorMap* map, EncodeTiled encode, const void* base,
                      int rank, const cuuint64_t* dims,
                      const cuuint64_t* strides, const cuuint32_t* box) {
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_sw128(map, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base,
+                          rank, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -2,7 +2,7 @@
 // K2 topk_matmul_int8, K3 topk_matmul_int4, K4 pq_topk): the selection
 // code and pass 2 for all four, and the FMA pass 1, templated on how a row
 // is scored, for K1's f32 store (the bf16, int8 and int4 stores take the
-// tensor-core pass 1 of topk_mma.cuh, K4 its own pass 1 in pq_scan.cu).
+// TMA + wgmma pass 1 of topk_wgmma.cuh, K4 its own pass 1 in pq_scan.cu).
 //
 // Pass 1: block (qblock, slice) scores rows [slice * rows_per_slice, ...)
 // against queries [qblock * QB, ...) and keeps each query's top-k of its

@@ -134,11 +134,14 @@ int isf_topk_matmul(const void* x, const void* q, const void* mask,
                            stream);
 }
 
-// The plan of topk_wgmma.cuh's pass 1 for a query block of qb at k: the
-// ring's stages and the append buffers' entries (stages_cap[0], [1]; 0, 0
-// if nothing fits) and its shared memory in bytes.
-long long isf_topk_wgmma_plan(int qb, int k, int* stages_cap) {
-  const WgLayout lay = wg_layout(qb, k);
+// The plan of topk_wgmma.cuh's pass 1 for a query block of qb at k over a
+// bf16 (kind 0), int8 (1) or int4 (2) store: the ring's stages and the
+// append buffers' entries (stages_cap[0], [1]; 0, 0 if nothing fits) and
+// its shared memory in bytes.
+long long isf_topk_wgmma_plan(int kind, int qb, int k, int* stages_cap) {
+  const WgLayout lay = kind == 0   ? wg_plan<WgBf16>(qb, k)
+                       : kind == 1 ? wg_plan<WgInt<false>>(qb, k)
+                                   : wg_plan<WgInt<true>>(qb, k);
   stages_cap[0] = lay.stages;
   stages_cap[1] = lay.cap;
   return (long long)lay.total;
@@ -156,8 +159,9 @@ int isf_topk_matmul_wgmma(const void* x, const void* q, const void* mask,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (bad_plan(n, d, b, k, rows_per_slice, num_slices) || d % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const int err = run_wgmma(qb, x, q, mask, cand_s, cand_i, n, d, b, k,
-                            num_valid, rows_per_slice, num_slices, stream);
+  const int err = run_wgmma(qb, WgBf16{}, x, q, mask, cand_s, cand_i, n, d,
+                            b, k, num_valid, rows_per_slice, num_slices,
+                            stream);
   if (err != 0) return err;
   return (int)launch_pass2(cand_s, cand_i, out_s, out_i, b, k, num_slices,
                            stream);

@@ -1,30 +1,83 @@
-// K1's pass 1 over a bf16 store, built for Hopper: the scores by TMA and
-// wgmma, the selection by append buffers that are sorted and merged only
-// when they fill. The split-N plan, the candidate layout and pass 2 are
-// topk_common.cuh's; the PTX wrappers hopper.cuh's.
+// The pass 1 of K1's bf16, K2's int8 and K3's packed int4 row stores,
+// built for Hopper: the scores by TMA and wgmma, the selection by append
+// buffers that are sorted and merged only when they fill. The split-N plan,
+// the candidate layout and pass 2 are topk_common.cuh's; the PTX wrappers
+// hopper.cuh's. One kernel, templated on a tile policy (below) for what the
+// three stores do differently.
 //
 // Block (query block of QB, slice), 384 threads: warpgroup 2 produces,
 // warpgroups 0 and 1 consume.
 //   * The producer's first thread walks the slice's row tiles of 128 rows
-//     and, in each, the row's 64-column (128-byte) chunks: a stage of the
-//     ring holds one chunk of the tile's rows (16 KB) and the same chunk of
-//     the query block (QB x 128 bytes), both loaded by TMA into 128-byte
-//     swizzled tiles that complete on the stage's "full" mbarrier. TMA
-//     zero-fills rows past N, queries past b and columns past D. Shared
-//     memory no longer grows with D: the query block is never staged whole,
-//     its chunk is read again from L2 for every row tile.
+//     and, in each, the row's 128-byte chunks (64 bf16 columns, 128 int8
+//     columns, or 128 bytes of int4 nibble pairs): a stage of the ring holds
+//     one chunk of the tile's rows (16 KB) and the query block's columns
+//     that meet it (the policy's planes of QB x 128 bytes), all loaded by
+//     TMA into 128-byte swizzled tiles that complete on the stage's "full"
+//     mbarrier. TMA zero-fills rows past N, queries past b and columns past
+//     the row. Shared memory does not grow with D: the query block is never
+//     staged whole, its chunk is read again from L2 for every row tile.
 //   * Consumer w scores all 128 rows of a stage against its own half of
 //     the query block (queries w QB/2 .. + QB/2 - 1; at QB = 8 both take the
-//     8 queries and each keeps 4) by wgmma m64nNk16, N = max(8, QB/2), A the
-//     two 64-row tiles and B the queries, both K-major from shared memory,
-//     f32 sums in registers, one chunk's products in flight while the next
-//     is issued. Every consumer thread arrives on the stage's "empty"
-//     mbarrier once its products have read it; no block barrier runs after
-//     the start. setmaxnreg hands the producer's registers to them.
+//     8 queries and each keeps 4) by wgmma m64nN, N = max(8, QB/2), the two
+//     64-row tiles against that half, K-major, sums in registers, one
+//     group of products in flight while the next is issued. Every consumer
+//     thread arrives on the stage's "empty" mbarrier once its products have
+//     read it; no block barrier runs after the start. setmaxnreg hands the
+//     producer's registers to them.
 //   * Each consumer keeps its own queries' lists and syncs only its own
 //     four warps (a named barrier), so while one checks and merges, the
 //     other's products run, as far ahead as the ring's stages reach (a
 //     stage is freed when both have read it).
+//   * Split rows (K3 at QB = 8, the policy's kSplit): both consumers
+//     would compute the same 8 queries' products, so instead consumer w
+//     takes the slice's row tiles w, w + 2, ..., all 8 queries each, in
+//     lists of its own (a stage is freed by the one consumer that reads
+//     it; each has its own "full" barrier a stage); a slice writes two
+//     candidate lists a query (wg_candidate_lists) and pass 2 merges them
+//     all. Rows still reach each list in ascending position, so the
+//     selection's rules hold.
+//
+// Tile policies (the `Tile` argument of topk_pass1_wgmma), what the stores
+// do differently:
+//   using Acc = float or int;        the sums' type
+//   kPlanes                          query planes of 128 bytes a query in a
+//                                    stage (int4: the lo and the hi columns)
+//   kChunkCols                       elements in a row's 128-byte chunk
+//   kFactors                         a (scale, offset) a query, staged in
+//                                    shared memory at the start
+//   kSplit, kCapMax                  split rows at QB = 8 (below); the
+//                                    longest append buffer
+//   chunks(d)                        a row's chunks at logical width d
+//   maps(...)                        the TMA maps of rows and query (host)
+//   struct Regs                      registers the products read after
+//                                    they are issued (register A
+//                                    fragments), and their fence()
+//   chunk<N>(acc, regs, stage, qb, bcol0, c, settle, release)
+//                                    one stage's products: issues them,
+//                                    keeps at most one group in flight,
+//                                    calls settle() after each wait and,
+//                                    for c > 0, release() once the stage
+//                                    before is no longer read
+//   factor(qi, b), row_factors(xs, row, valid_end)
+//                                    the per-query and per-row factors
+//                                    (the thread's rows row + 64 rt + 8 h)
+//   score(v, f, xs), value(v)        a sum's entry becomes its score (in
+//                                    place, as bits), read as a float
+// K1 (WgBf16): 4 k16 steps of bf16 wgmma a chunk, both operands from the
+// stage; the sum is the score. K2 (WgInt<false>): 4 k32 steps of
+// s8 x s8, both from the stage. K3 (WgInt<true>): the query staged in
+// two planes, chunk j's lo columns (j 128 ..) and its hi columns (D/2 +
+// j 128 ..), zero past D/2 in each; each k32 step's A fragment ldmatrix'd
+// from the swizzled stage and split in registers into lo + 8 (w &
+// 0x0F0F0F0F) and hi + 8 (((w >> 4) & 0x0F0F0F0F) ^ 0x08080808), u8 in
+// [0, 15], against the two planes by u8 x s8 wgmma with A in registers
+// (two register buffers, one k32 step a group); a zero byte past the row
+// unpacks to 0 and 8 and meets a zero query column. K2/K3's score is
+// float(sum - offset) * q_scale * x_scale[row], in that order, as the
+// plain version forms it (offset 8 sum(q) for K3, 0 for K2), so the
+// scores are equal bit for bit; it is formed in the registers after the
+// tile's last chunk, and x_scale of the thread's four rows is loaded at
+// the tile's start.
 //
 // Selection. A list of k (score, position) per query, best first, and its
 // threshold (the k-th score, -inf while the list is short) in shared
@@ -52,7 +105,8 @@
 // group first (its count of better buffer entries searched among the
 // buffer entries' own counts of better list entries, which do not fall).
 // Positions are unique, so the ranks are a permutation; fillers are (-inf,
-// -1).
+// -1). Integer sums tie exactly and often (copies of a row); the order is
+// (score, position) throughout, so ties go to the lowest position.
 //
 // Everything here has internal linkage.
 
@@ -62,6 +116,7 @@
 
 #include <algorithm>
 #include <mutex>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "topk_common.cuh"
@@ -71,64 +126,89 @@ namespace {
 constexpr int kWgConsumers = 2;                  // consumer warpgroups
 constexpr int kWgThreads = (kWgConsumers + 1) * 128;
 constexpr int kWgRows = 128;                     // store rows a stage
-constexpr int kWgCols = 64;                      // bf16 columns a stage
 constexpr int kWgRowBytes = kWgRows * 128;       // a stage's rows, 16 KB
 constexpr int kWgCapMax = 256;                   // longest append buffer
 constexpr size_t kWgSmemLimit = 232448;          // a Hopper block's
 
+// The lists a block keeps for a query block of qb: one a query, or two
+// when the consumers split the row tiles (`split`, at qb = 8; see the
+// header).
+__host__ __device__ constexpr int wg_lists(int qb, bool split) {
+  return split && qb == 8 ? 2 * qb : qb;
+}
+
 // Where pass 1's shared memory goes for a query block of qb, lists of k,
-// `stages` ring stages and buffers of `cap` entries a query: the ring
-// (1,024-aligned stages: rows, then the query chunk), the lists [qb][k]
-// (scores, then positions), the buffers [qb][cap] (the same), thresholds
-// [qb], buffer counts [qb], a landing place for entries not written (32
-// f32 + 32 int32) and the mbarriers; total counts 1,024 for the
-// alignment.
+// `stages` ring stages and buffers of `cap` entries a list, with `planes`
+// planes of query a stage, if `factors` a (scale, offset) a query, and
+// wg_lists(qb, split) lists: the ring (1,024-aligned stages: rows, then the
+// query planes), the lists [lists][k] (scores, then positions), the
+// buffers [lists][cap] (the same), thresholds [lists], buffer counts
+// [lists], the factors [qb], a landing place for entries not written (32
+// f32 + 32 int32) and the mbarriers (a "full" one a stage, a consumer's own
+// when they split the rows, and an "empty" one); total counts 1,024 for
+// the alignment.
 struct WgLayout {
   int stages, cap;
-  size_t stage, lists, bufs, thr, cnt, trash, bars, total;
+  size_t stage, lists, bufs, thr, cnt, fac, trash, bars, total;
 };
 
 __host__ __device__ inline WgLayout wg_offsets(int qb, int k, int stages,
-                                               int cap) {
+                                               int cap, int planes,
+                                               bool factors, bool split) {
+  const size_t nl = wg_lists(qb, split);
   WgLayout o;
   o.stages = stages;
   o.cap = cap;
-  o.stage = kWgRowBytes + (size_t)qb * 128;
+  o.stage = kWgRowBytes + (size_t)planes * qb * 128;
   o.lists = o.stage * stages;
-  o.bufs = o.lists + 8 * (size_t)qb * k;
-  o.thr = o.bufs + 8 * (size_t)qb * cap;
-  o.cnt = o.thr + 4 * (size_t)qb;
-  o.trash = o.cnt + 4 * (size_t)qb;
+  o.bufs = o.lists + 8 * nl * k;
+  o.thr = o.bufs + 8 * nl * cap;
+  o.cnt = o.thr + 4 * nl;
+  o.fac = o.cnt + 4 * nl;
+  o.trash = o.fac + (factors ? 8 * (size_t)qb : 0);
   o.bars = o.trash + 256;
-  o.total = o.bars + 16 * (size_t)stages + 1024;
+  o.total = o.bars + 8 * (nl / qb + 1) * (size_t)stages + 1024;
   return o;
 }
 
 // The ring's stages and the buffers' entries: a ring of 8 or 6 stages
-// with buffers of 256 where the query block is narrow (B = 1: every stage
-// in flight is bandwidth), else 4 stages with the longest buffer of at
-// least 64 that fits (a multiple of 16, at most 256), else 3 stages with
-// one of at least 32. stages = 0 if none fits (the wrapper's plan takes a
-// narrower query block).
-inline WgLayout wg_layout(int qb, int k) {
-  const int plans[][2] = {{8, 256}, {6, 256}, {4, 64}, {3, 32}};
+// with buffers of the policy's longest, cap_max (K1 256, K2/K3 64), where
+// the query block is narrow (B = 1: every stage in flight is bandwidth),
+// else 4 stages with the longest buffer of at least 64 that fits (a
+// multiple of 16, at most cap_max), else 3 stages with one of at least
+// 32. stages = 0 if none fits (the wrapper's plan takes a narrower query
+// block).
+inline WgLayout wg_layout(int qb, int k, int planes, bool factors,
+                          bool split, int cap_max) {
+  const int plans[][2] = {{8, cap_max}, {6, cap_max}, {4, 64}, {3, 32}};
+  const size_t nl = wg_lists(qb, split);
   for (const auto& p : plans) {
-    const WgLayout none = wg_offsets(qb, k, p[0], 0);
+    const WgLayout none =
+        wg_offsets(qb, k, p[0], 0, planes, factors, split);
     if (none.total > kWgSmemLimit) continue;
     const int cap = (int)std::min<size_t>(
-        kWgCapMax, (kWgSmemLimit - none.total) / (8 * (size_t)qb) / 16 * 16);
-    if (cap >= p[1]) return wg_offsets(qb, k, p[0], cap);
+        cap_max, (kWgSmemLimit - none.total) / (8 * nl) / 16 * 16);
+    if (cap >= p[1])
+      return wg_offsets(qb, k, p[0], cap, planes, factors, split);
   }
-  WgLayout none = wg_offsets(qb, k, 0, 0);
+  WgLayout none = wg_offsets(qb, k, 0, 0, planes, factors, split);
   none.total = ~(size_t)0 >> 2;
   return none;
 }
 
+// num_lists: the candidate lists a query gets, num_slices times the lists
+// of a slice (two when the consumers split the row tiles)
 struct WgArgs {
   const int8_t* mask;
   float* cand_s;
   int* cand_i;
-  int n, d, b, k, num_valid, rows_per_slice, num_slices, stages, cap;
+  int n, nchunks, b, k, num_valid, rows_per_slice, num_slices, num_lists,
+      stages, cap;
+};
+
+struct WgFactor {   // a query's factors in K2/K3's score
+  float scale;
+  int off;
 };
 
 // Sorts the warp's 32 E entries, entry 32 e + lane in s[e] / p[e], best
@@ -282,30 +362,273 @@ __device__ void wg_merge(float* ls, int* li, int k, float* bs, int* bp,
     wg_merge_sorted<8>(ls, li, k, bs, bp, nv, lane);
 }
 
-template <int QB>
+// A [rows, cols] row-major tensor as a TMA map: bf16 (boxes of 64 columns)
+// or, with `bytes`, uint8 (boxes of 128) x box_rows rows, 128-byte swizzle,
+// rows and columns past the tensor zero-filled (rank 4, the last two dims
+// of size 1, as tma_load_4d takes).
+bool wg_map(CUtensorMap* map, hopper::EncodeTiled encode, const void* base,
+            int rows, int cols, int box_rows, bool bytes) {
+  const cuuint64_t row = (cuuint64_t)cols * (bytes ? 1 : 2);
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, 1, 1};
+  const cuuint64_t strides[3] = {row, row * rows, row * rows};
+  const cuuint32_t box[4] = {bytes ? 128u : 64u, (cuuint32_t)box_rows, 1, 1};
+  return hopper::tensor_map_sw128(
+      map, encode,
+      bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      base, 4, dims, strides, box);
+}
+
+// The store's map depends on (pointer, rows, columns, type) alone, so it is
+// kept: a search calls the kernel on the same store again and again. Eight
+// stores, the oldest replaced first; the lock makes it safe from several
+// host threads.
+bool wg_store_map(CUtensorMap* map, hopper::EncodeTiled encode,
+                  const void* x, int n, int cols, bool bytes) {
+  struct Entry {
+    const void* x;
+    int n, cols;
+    bool bytes;
+    CUtensorMap map;
+  };
+  static std::mutex mu;
+  static Entry kept[8];
+  static int next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : kept)
+    if (e.x == x && e.n == n && e.cols == cols && e.bytes == bytes) {
+      *map = e.map;
+      return true;
+    }
+  if (!wg_map(map, encode, x, n, cols, kWgRows, bytes)) return false;
+  kept[next] = Entry{x, n, cols, bytes, *map};
+  next = (next + 1) % 8;
+  return true;
+}
+
+// One stage's products with both operands in the stage (K1, K2): MMA's
+// k-steps of 32 bytes, 4 a chunk, A the two 64-row tiles, B the consumer's
+// half of the query plane; one commit a chunk, the chunk before completed
+// (and its stage released) once this one is issued.
+template <class MMA, class Acc, int N, class Settle, class Release>
+__device__ __forceinline__ void wg_chunk_ss(Acc (&acc)[2][N / 2],
+                                            const uint8_t* st, int bcol0,
+                                            int c, Settle settle,
+                                            Release release) {
+  using namespace hopper;
+  settle();
+  wgmma_fence();
+  const uint64_t da0 = desc_sw128(st);
+  const uint64_t da1 = desc_sw128(st + 64 * 128);
+  const uint64_t db = desc_sw128(st + kWgRowBytes + bcol0 * 128);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    MMA::run(acc[0], da0 + 2 * kk, db + 2 * kk, c + kk);
+    MMA::run(acc[1], da1 + 2 * kk, db + 2 * kk, c + kk);
+  }
+  wgmma_commit();
+  if (c > 0) {            // the chunk before is done: free its stage
+    wgmma_wait<1>();
+    settle();
+    release();
+  }
+}
+
+// K1's bf16 store: the products are the scores.
+struct WgBf16 {
+  using Acc = float;
+  static constexpr int kPlanes = 1;
+  static constexpr int kChunkCols = 64;
+  static constexpr bool kFactors = false;
+  static constexpr bool kSplit = false;
+  static constexpr int kCapMax = kWgCapMax;
+  template <int N>
+  struct Regs {
+    __device__ void fence() {}
+  };
+  static int chunks(int d) { return (d + kChunkCols - 1) / kChunkCols; }
+  static bool maps(CUtensorMap* tx, CUtensorMap* tq,
+                   hopper::EncodeTiled encode, const void* x, const void* q,
+                   int n, int d, int b, int qb) {
+    return wg_store_map(tx, encode, x, n, d, false) &&
+           wg_map(tq, encode, q, b, d, qb, false);
+  }
+  template <int N, class Settle, class Release>
+  __device__ void chunk(float (&acc)[2][N / 2], Regs<N>&, const uint8_t* st,
+                        int, int bcol0, int c, Settle settle,
+                        Release release) const {
+    wg_chunk_ss<hopper::WgmmaSS<N>, float, N>(acc, st, bcol0, c, settle,
+                                              release);
+  }
+  __device__ void row_factors(float (&)[2][2], int, int) const {}
+  __device__ void score(float&, const WgFactor&, float) const {}
+  __device__ static float value(float v) { return v; }
+};
+
+// K2's int8 (kInt4 = false) and K3's packed int4 stores: exact s32 sums of
+// the int8 query (quantized by the launch's first kernel into q, its
+// scales q_scale and, for int4, offsets q_off) against the stored bytes.
+template <bool kInt4>
+struct WgInt {
+  using Acc = int;
+  static constexpr int kPlanes = kInt4 ? 2 : 1;
+  static constexpr int kChunkCols = 128;
+  static constexpr bool kFactors = true;
+  // K3 only: K2 at QB = 8 waits on its rows' bytes either way, and its
+  // lists at k = 100 cost more twice over (measured, PERF.md §6)
+  static constexpr bool kSplit = kInt4;
+  // buffers of at most 64: merges of fewer entries at a time measured
+  // up to 18% faster than buffers of up to 256 (32: slower; PERF.md §6)
+  static constexpr int kCapMax = 64;
+  const float* x_scale;
+  const float* q_scale;
+  const int* q_off;
+
+  // K3's A fragments: two buffers (k32 steps in turn) of lo + 8 and hi + 8
+  // of both row tiles; a buffer is refilled once the wait has completed
+  // the group that read it (groups of two k32 steps or the whole chunk
+  // measured no faster; PERF.md §6)
+  template <int N>
+  struct RegsRS {
+    uint32_t a[2][2][8];
+    __device__ void fence() {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) hopper::reg_fence(a[i][rt][e]);
+    }
+  };
+  template <int N>
+  struct RegsNone {
+    __device__ void fence() {}
+  };
+  template <int N>
+  using Regs = typename std::conditional<kInt4, RegsRS<N>, RegsNone<N>>::type;
+
+  // a row's bytes, and its 128-byte chunks, at logical width d
+  static int row_bytes(int d) { return kInt4 ? d / 2 : d; }
+  static int chunks(int d) { return (row_bytes(d) + 127) / 128; }
+  // int8: the query [b, d] as it lies, boxes of 128 bytes x qb; int4: the
+  // planes [2 chunks][b][128] (plane 2 j: chunk j's lo columns, 2 j + 1 its
+  // hi columns), one box of 128 bytes x qb x 2 planes a stage
+  static bool maps(CUtensorMap* tx, CUtensorMap* tq,
+                   hopper::EncodeTiled encode, const void* x, const void* q,
+                   int n, int d, int b, int qb) {
+    if (!wg_store_map(tx, encode, x, n, row_bytes(d), true)) return false;
+    if (!kInt4) return wg_map(tq, encode, q, b, d, qb, true);
+    const cuuint64_t planes = 2 * (cuuint64_t)chunks(d);
+    const cuuint64_t dims[4] = {128, (cuuint64_t)b, planes, 1};
+    const cuuint64_t strides[3] = {128, 128 * (cuuint64_t)b,
+                                   128 * (cuuint64_t)b * planes};
+    const cuuint32_t box[4] = {128, (cuuint32_t)qb, 2, 1};
+    return hopper::tensor_map_sw128(tq, encode, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                    q, 4, dims, strides, box);
+  }
+
+  template <int N, class Settle, class Release>
+  __device__ void chunk(int (&acc)[2][N / 2], Regs<N>& regs,
+                        const uint8_t* st, int qb, int bcol0, int c,
+                        Settle settle, Release release) const {
+    using namespace hopper;
+    if constexpr (!kInt4) {
+      wg_chunk_ss<WgmmaS8<N>, int, N>(acc, st, bcol0, c, settle, release);
+    } else {
+      const int lane = threadIdx.x % 32;
+      // this lane's ldmatrix row (row l % 16 of its warp's 16) and its
+      // 16-byte half of a k32 step; a row's chunk j lies at j ^ (row % 8)
+      const uint32_t a_row =
+          smem_u32(st) + (threadIdx.x % 128 / 32 * 16 + lane % 16) * 128;
+      const int sw = lane % 8, half = lane / 16;
+      const uint64_t dlo = desc_sw128(st + kWgRowBytes + bcol0 * 128);
+      const uint64_t dhi = desc_sw128(st + kWgRowBytes + (qb + bcol0) * 128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t(&a)[2][8] = regs.a[kk % 2];
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+          uint32_t w[4];
+          ldsm_x4(w, a_row + rt * 64 * 128 + (((2 * kk + half) ^ sw) << 4));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a[rt][i] = w[i] & 0x0F0F0F0Fu;                            // lo + 8
+            a[rt][4 + i] = ((w[i] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u; // hi + 8
+          }
+        }
+        settle();
+        wgmma_fence();
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+          WgmmaU8S8<N>::run(acc[rt], &a[rt][0], dlo + 2 * kk, c + kk);
+          WgmmaU8S8<N>::run(acc[rt], &a[rt][4], dhi + 2 * kk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        settle();
+        // the chunk before had its last group in flight until this wait
+        if (kk == 0 && c > 0) release();
+      }
+    }
+  }
+
+  __device__ WgFactor factor(int qi, int b) const {
+    return qi < b ? WgFactor{q_scale[qi], kInt4 ? q_off[qi] : 0}
+                  : WgFactor{0.f, 0};
+  }
+  __device__ void row_factors(float (&xs)[2][2], int row,
+                              int valid_end) const {
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 64 * rt + 8 * h;
+        xs[rt][h] = r < valid_end ? __ldg(x_scale + r) : 0.f;
+      }
+  }
+  // the sum v -> the bits of float(v - offset) * q_scale * x_scale, in
+  // that order
+  __device__ void score(int& v, const WgFactor& f, float xs) const {
+    v = __float_as_int(
+        __fmul_rn(__fmul_rn(__int2float_rn(v - f.off), f.scale), xs));
+  }
+  __device__ static float value(int v) { return __int_as_float(v); }
+};
+
+template <class Tile, int QB>
 __global__ void __launch_bounds__(kWgThreads, 1)
     topk_pass1_wgmma(const __grid_constant__ CUtensorMap tx,
-                     const __grid_constant__ CUtensorMap tq, const WgArgs a) {
+                     const __grid_constant__ CUtensorMap tq, const WgArgs a,
+                     const Tile tile) {
   using namespace hopper;
+  using Acc = typename Tile::Acc;
   constexpr int N = QB >= 16 ? QB / 2 : 8;   // a consumer's product width
   constexpr int NJ = N / 8;                  // its 8-column tiles
-  constexpr int QOWN = QB / 2;               // queries a consumer keeps
+  // the consumers take alternate row tiles, each keeping all QB queries
+  // in lists of its own (else each keeps half the queries over every tile)
+  constexpr bool kSplit = wg_lists(QB, Tile::kSplit) > QB;
+  constexpr int QOWN = kSplit ? QB : QB / 2;  // queries a consumer keeps
+  constexpr int NL = wg_lists(QB, Tile::kSplit);   // lists of the block
   static_assert(QB >= 8 && QB <= 128 && (QB & (QB - 1)) == 0, "QB");
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const WgLayout o = wg_offsets(QB, a.k, a.stages, a.cap);
+  const WgLayout o = wg_offsets(QB, a.k, a.stages, a.cap, Tile::kPlanes,
+                                Tile::kFactors, Tile::kSplit);
   const int k = a.k, cap = a.cap;
   float* ls = reinterpret_cast<float*>(sm + o.lists);
-  int* li = reinterpret_cast<int*>(ls + QB * k);
+  int* li = reinterpret_cast<int*>(ls + NL * k);
   float* bs = reinterpret_cast<float*>(sm + o.bufs);
-  int* bp = reinterpret_cast<int*>(bs + QB * cap);
+  int* bp = reinterpret_cast<int*>(bs + NL * cap);
   float* thr = reinterpret_cast<float*>(sm + o.thr);
   int* cnt = reinterpret_cast<int*>(sm + o.cnt);
+  WgFactor* fac = reinterpret_cast<WgFactor*>(sm + o.fac);
   float* trash_s = reinterpret_cast<float*>(sm + o.trash);
   int* trash_p = reinterpret_cast<int*>(trash_s + 32);
+  // full[w * stages + s] when the consumers split the rows: a consumer
+  // waits for its own rounds of a stage only; a wait by parity cannot tell
+  // a round of the other consumer's from its own
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + o.bars);
-  uint64_t* empty = full + a.stages;
+  uint64_t* empty = full + (kSplit ? 2 : 1) * a.stages;
 
   const int q0 = blockIdx.x * QB;
   const int slice = blockIdx.y;
@@ -315,21 +638,25 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int ntiles =
       valid_end > row_begin ? (valid_end - row_begin + kWgRows - 1) / kWgRows
                             : 0;
-  const int nchunks = (a.d + kWgCols - 1) / kWgCols;
+  const int nchunks = a.nchunks;
 
-  for (int i = threadIdx.x; i < QB * k; i += kWgThreads) {
+  for (int i = threadIdx.x; i < NL * k; i += kWgThreads) {
     ls[i] = neg_inf();
     li[i] = -1;
   }
-  for (int i = threadIdx.x; i < QB; i += kWgThreads) {
+  for (int i = threadIdx.x; i < NL; i += kWgThreads) {
     thr[i] = neg_inf();
     cnt[i] = 0;
   }
+  if constexpr (Tile::kFactors)
+    for (int i = threadIdx.x; i < QB; i += kWgThreads)
+      fac[i] = tile.factor(q0 + i, a.b);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < a.stages; ++s) {
+    for (int s = 0; s < (kSplit ? 2 : 1) * a.stages; ++s)
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kWgConsumers * 128);
-    }
+    // a stage is read by both consumers, or by the one whose tile it is
+    for (int s = 0; s < a.stages; ++s)
+      mbar_init(&empty[s], (kSplit ? 1 : kWgConsumers) * 128);
     fence_barrier_init();
   }
   // every list is set before any warp reads or writes it out (F7: a slice
@@ -345,11 +672,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int c = 0; c < nchunks; ++c) {
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* st = sm + s * o.stage;
-          mbar_expect_tx(&full[s], (uint32_t)o.stage);
-          tma_load_4d(st, &tx, &full[s], c * kWgCols,
+          uint64_t* f = &full[(kSplit ? t % 2 * a.stages : 0) + s];
+          mbar_expect_tx(f, (uint32_t)o.stage);
+          tma_load_4d(st, &tx, f, c * Tile::kChunkCols,
                       row_begin + t * kWgRows, 0, 0);
-          tma_load_4d(st + kWgRowBytes, &tq, &full[s], c * kWgCols, q0, 0,
-                      0);
+          if constexpr (Tile::kPlanes == 2)   // both planes of chunk c
+            tma_load_4d(st + kWgRowBytes, &tq, f, 0, q0, 2 * c, 0);
+          else
+            tma_load_4d(st + kWgRowBytes, &tq, f, c * Tile::kChunkCols, q0,
+                        0, 0);
           if (++s == a.stages) {
             s = 0;
             ph ^= 1;
@@ -366,7 +697,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, cc = lane & 3;
   const int bcol0 = QB >= 16 ? wg * QOWN : 0;   // its product's 1st query
-  const int own0 = wg * QOWN;                    // the 1st query it keeps
+  const int own0 = kSplit ? 0 : wg * QOWN;       // the 1st query it keeps
+  const int lq0 = kSplit ? wg * QB : own0;       // and that query's list
   const int nown = max(0, min(QOWN, a.b - q0 - own0));   // real ones
   const int bar = 1 + wg;                        // its named barrier
 
@@ -380,7 +712,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     return ((rt * NJ + j) * 2 + h) * 2 + e;
   };
 
-  float acc[2][N / 2];
+  Acc acc[2][N / 2];
+  typename Tile::template Regs<N> regs;
+  float xs[2][2];      // the tile's row factors
   int r0 = 0;          // the tile's first row
 
   auto settle = [&]() {
@@ -388,7 +722,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) reg_fence(acc[rt][i]);
+    regs.fence();
   };
+  // an entry's score: after finish() the accumulators hold the scores' bits
+  auto val = [&](int rt, int i) { return Tile::value(acc[rt][i]); };
 
   // Writes the entries of `bits` into their queries' buffers, a slot each
   // from the buffer's count by a shared-memory atomic, and returns the ones
@@ -401,7 +738,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int at = (own0 + kept(j, e)) * cap;
+        const int at = (lq0 + kept(j, e)) * cap;
 #pragma unroll
         for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
@@ -409,10 +746,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             const int b = bit_of(rt, j, h, e);
             const bool p = (bits >> b) & 1;
             int slot = cap;
-            if (p) slot = atomicAdd(&cnt[own0 + kept(j, e)], 1);
+            if (p) slot = atomicAdd(&cnt[lq0 + kept(j, e)], 1);
             const bool put = slot < cap;
             *(put ? bs + at + slot : trash_s + lane) =
-                acc[rt][4 * j + 2 * h + e];
+                val(rt, 4 * j + 2 * h + e);
             *(put ? bp + at + slot : trash_p + lane) =
                 r0 + 64 * rt + 16 * v + g + 8 * h;
             left |= (uint64_t)(p && !put) << b;
@@ -421,8 +758,26 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     return left;
   };
 
+  // K2/K3: the tile's sums -> their scores, in place, every entry (the
+  // factors of a column this consumer does not keep are any query's)
+  auto finish = [&]() {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qo = kept(j, e);
+        const WgFactor f = fac[own0 + (qo >= 0 ? qo : 0)];
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tile.score(acc[rt][4 * j + 2 * h + e], f, xs[rt][h]);
+      }
+  };
+
   // The tile's selection (see the header); the consumer's warps only.
   auto epilogue = [&]() {
+    if constexpr (Tile::kFactors) finish();
     bool ok[2][2];
 #pragma unroll
     for (int rt = 0; rt < 2; ++rt)
@@ -437,13 +792,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int qo = kept(j, e);
-        const float t = qo >= 0 ? thr[own0 + qo] : 0.f;
+        const float t = qo >= 0 ? thr[lq0 + qo] : 0.f;
 #pragma unroll
         for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
             bits |= (uint64_t)(qo >= 0 && ok[rt][h] &&
-                               acc[rt][4 * j + 2 * h + e] > t)
+                               val(rt, 4 * j + 2 * h + e) > t)
                     << bit_of(rt, j, h, e);
       }
     uint64_t left = append(bits);
@@ -458,7 +813,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int h = 0; h < 2; ++h) {
         const int u = 32 * h + lane;
         full_q[h] =
-            __ballot_sync(kFull, u < nown && 2 * cnt[own0 + u] > cap);
+            __ballot_sync(kFull, u < nown && 2 * cnt[lq0 + u] > cap);
       }
       named_barrier_sync(bar, 128);
       int seen = 0;
@@ -466,7 +821,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int h = 0; h < 2; ++h)
         for (unsigned m = full_q[h]; m; m &= m - 1, ++seen) {
           if (seen % 4 != v) continue;
-          const int ql = own0 + 32 * h + __ffs(m) - 1;
+          const int ql = lq0 + 32 * h + __ffs(m) - 1;
           wg_merge(ls + ql * k, li + ql * k, k, bs + ql * cap,
                    bp + ql * cap, min(cnt[ql], cap), lane);
           if (lane == 0) {
@@ -482,26 +837,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   int s = 0, prev = 0;
   uint32_t ph = 0;
-  for (int t = 0; t < ntiles; ++t) {
+  uint32_t own_ph = 0;   // split rows: the phase of each of its full[] stages
+  for (int t = kSplit ? wg : 0; t < ntiles; t += kSplit ? 2 : 1) {
+    if (kSplit) s = t * nchunks % a.stages;   // past the other's tile
+    r0 = row_begin + t * kWgRows;
+    tile.row_factors(xs, r0 + 16 * v + g, valid_end);
     for (int c = 0; c < nchunks; ++c) {
-      mbar_wait(&full[s], ph);
-      settle();
-      wgmma_fence();
-      const uint8_t* st = sm + s * o.stage;
-      const uint64_t da0 = desc_sw128(st);
-      const uint64_t da1 = desc_sw128(st + 64 * 128);
-      const uint64_t db = desc_sw128(st + kWgRowBytes + bcol0 * 128);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        WgmmaSS<N>::run(acc[0], da0 + 2 * kk, db + 2 * kk, c + kk);
-        WgmmaSS<N>::run(acc[1], da1 + 2 * kk, db + 2 * kk, c + kk);
+      if (kSplit) {
+        mbar_wait(&full[wg * a.stages + s], (own_ph >> s) & 1);
+        own_ph ^= 1u << s;
+      } else {
+        mbar_wait(&full[s], ph);
       }
-      wgmma_commit();
-      if (c > 0) {            // the chunk before is done: free its stage
-        wgmma_wait<1>();
-        settle();
-        mbar_arrive(&empty[prev]);
-      }
+      tile.template chunk<N>(acc, regs, sm + s * o.stage, QB, bcol0, c,
+                             settle, [&]() { mbar_arrive(&empty[prev]); });
       prev = s;
       if (++s == a.stages) {
         s = 0;
@@ -511,17 +860,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_wait<0>();
     settle();
     mbar_arrive(&empty[prev]);
-    r0 = row_begin + t * kWgRows;
     epilogue();
   }
 
   // the buffers' last entries, then the lists as the slice's candidates
+  // (list wg of the slice's two when the consumers split the row tiles)
   for (int u = v; u < nown; u += 4) {
-    const int ql = own0 + u;
+    const int ql = lq0 + u;
     if (cnt[ql] > 0)
       wg_merge(ls + ql * k, li + ql * k, k, bs + ql * cap, bp + ql * cap,
                cnt[ql], lane);
-    const size_t out = ((size_t)(q0 + ql) * a.num_slices + slice) * k;
+    const size_t out =
+        ((size_t)(q0 + own0 + u) * a.num_lists +
+         (kSplit ? 2 * slice + wg : slice)) * k;
     for (int i = lane; i < k; i += 32) {
       a.cand_s[out + i] = ls[ql * k + i];
       a.cand_i[out + i] = li[ql * k + i];
@@ -529,82 +880,71 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// A bf16 [rows, d] row-major tensor as a TMA map: boxes of 64 columns x
-// box_rows rows, 128-byte swizzle, rows and columns past the tensor
-// zero-filled (rank 4, the last two dims of size 1, as tma_load_4d takes).
-bool wg_rows_map(CUtensorMap* map, hopper::EncodeTiled encode,
-                 const void* base, int rows, int d, int box_rows) {
-  const cuuint64_t row = (cuuint64_t)d * 2;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows, 1, 1};
-  const cuuint64_t strides[3] = {row, row * rows, row * rows};
-  const cuuint32_t box[4] = {(cuuint32_t)kWgCols, (cuuint32_t)box_rows, 1,
-                             1};
-  return hopper::tensor_map_bf16(map, encode, base, 4, dims, strides, box);
-}
-
-// The store's map depends on (pointer, rows, d) alone, so it is kept: a
-// search calls K1 on the same store again and again. Eight stores, the
-// oldest replaced first; the lock makes it safe from several host threads.
-bool wg_store_map(CUtensorMap* map, hopper::EncodeTiled encode,
-                  const void* x, int n, int d) {
-  struct Entry {
-    const void* x;
-    int n, d;
-    CUtensorMap map;
-  };
-  static std::mutex mu;
-  static Entry kept[8];
-  static int next = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Entry& e : kept)
-    if (e.x == x && e.n == n && e.d == d) {
-      *map = e.map;
-      return true;
-    }
-  if (!wg_rows_map(map, encode, x, n, d, kWgRows)) return false;
-  kept[next] = Entry{x, n, d, *map};
-  next = (next + 1) % 8;
-  return true;
-}
-
-template <int QB>
+template <class Tile, int QB>
 cudaError_t launch_pass1_wgmma(const CUtensorMap& tx, const CUtensorMap& tq,
-                               const WgArgs& a, size_t smem,
+                               const WgArgs& a, const Tile& tile, size_t smem,
                                cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      topk_pass1_wgmma<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      topk_pass1_wgmma<Tile, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.b + QB - 1) / QB, a.num_slices);
-  topk_pass1_wgmma<QB><<<grid, kWgThreads, smem, stream>>>(tx, tq, a);
+  topk_pass1_wgmma<Tile, QB><<<grid, kWgThreads, smem, stream>>>(tx, tq, a,
+                                                                 tile);
   return cudaGetLastError();
 }
 
+// The plan of a tile policy's pass 1 for a query block of qb at k.
+template <class Tile>
+WgLayout wg_plan(int qb, int k) {
+  return wg_layout(qb, k, Tile::kPlanes, Tile::kFactors, Tile::kSplit,
+                   Tile::kCapMax);
+}
+
+// The candidate lists a query gets from num_slices slices (pass 2 merges
+// them).
+template <class Tile>
+int wg_candidate_lists(int qb, int num_slices) {
+  return num_slices * wg_lists(qb, Tile::kSplit) / qb;
+}
+
 // Pass 1 for a query block of qb in {8, 16, 32, 64, 128}: the CUDA error
-// code, or hopper::kNoEncoder / kMapRefused (nothing launched).
-int run_wgmma(int qb, const void* x, const void* q, const void* mask,
-              void* cand_s, void* cand_i, int n, int d, int b, int k,
-              int num_valid, int rows_per_slice, int num_slices,
-              cudaStream_t stream) {
-  const WgLayout lay = wg_layout(qb, k);
+// code, or hopper::kNoEncoder / kMapRefused (nothing launched). x is the
+// store, q the query as the policy's map reads it, d the logical width.
+template <class Tile>
+int run_wgmma(int qb, const Tile& tile, const void* x, const void* q,
+              const void* mask, void* cand_s, void* cand_i, int n, int d,
+              int b, int k, int num_valid, int rows_per_slice,
+              int num_slices, cudaStream_t stream) {
+  const WgLayout lay = wg_plan<Tile>(qb, k);
   if (lay.stages == 0 || rows_per_slice % kWgRows != 0)
     return (int)cudaErrorInvalidValue;
   const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return hopper::kNoEncoder;
   CUtensorMap tx, tq;
-  if (!wg_store_map(&tx, encode, x, n, d) ||
-      !wg_rows_map(&tq, encode, q, b, d, qb))
+  if (!Tile::maps(&tx, &tq, encode, x, q, n, d, b, qb))
     return hopper::kMapRefused;
   const WgArgs a{static_cast<const int8_t*>(mask), static_cast<float*>(cand_s),
-                 static_cast<int*>(cand_i), n, d, b, k, num_valid,
-                 rows_per_slice, num_slices, lay.stages, lay.cap};
+                 static_cast<int*>(cand_i), n, Tile::chunks(d), b, k,
+                 num_valid, rows_per_slice, num_slices,
+                 wg_candidate_lists<Tile>(qb, num_slices), lay.stages,
+                 lay.cap};
   switch (qb) {
-    case 8: return (int)launch_pass1_wgmma<8>(tx, tq, a, lay.total, stream);
-    case 16: return (int)launch_pass1_wgmma<16>(tx, tq, a, lay.total, stream);
-    case 32: return (int)launch_pass1_wgmma<32>(tx, tq, a, lay.total, stream);
-    case 64: return (int)launch_pass1_wgmma<64>(tx, tq, a, lay.total, stream);
+    case 8:
+      return (int)launch_pass1_wgmma<Tile, 8>(tx, tq, a, tile, lay.total,
+                                              stream);
+    case 16:
+      return (int)launch_pass1_wgmma<Tile, 16>(tx, tq, a, tile, lay.total,
+                                               stream);
+    case 32:
+      return (int)launch_pass1_wgmma<Tile, 32>(tx, tq, a, tile, lay.total,
+                                               stream);
+    case 64:
+      return (int)launch_pass1_wgmma<Tile, 64>(tx, tq, a, tile, lay.total,
+                                               stream);
     case 128:
-      return (int)launch_pass1_wgmma<128>(tx, tq, a, lay.total, stream);
+      return (int)launch_pass1_wgmma<Tile, 128>(tx, tq, a, tile, lay.total,
+                                                stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -116,13 +116,11 @@ def load() -> ctypes.CDLL:
         lib.isf_topk_matmul_wgmma.argtypes = [p, p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, i, p]
         lib.isf_topk_matmul_wgmma.restype = i
-        lib.isf_topk_wgmma_plan.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.isf_topk_wgmma_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.isf_topk_wgmma_plan.restype = ctypes.c_longlong
         lib.isf_topk_matmul_int.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                             i, i, i, i, i, i, i, i, i, p]
         lib.isf_topk_matmul_int.restype = i
-        lib.isf_topk_int_mma_smem.argtypes = [i, i, i, i]
-        lib.isf_topk_int_mma_smem.restype = ctypes.c_longlong
         lib.isf_quantize_rows.argtypes = [p, p, p, p, i, i, p]
         lib.isf_quantize_rows.restype = i
         lib.isf_pq_topk.argtypes = [p, p, p, p, p, p, p, p, p,

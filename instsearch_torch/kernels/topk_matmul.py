@@ -11,14 +11,15 @@ each -> ``(scores [B, k] f32 sorted descending, row positions [B, k]
 int32)``.
 
 Each wrapper launches its hand-written CUDA kernel
-(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``; a bf16
-store scores by TMA and wgmma in the pass 1 of ``topk_wgmma.cuh``, int8 and
-int4 stores on the tensor-core pass 1 of ``topk_mma.cuh``) for tensors on a
-CUDA device and takes its plain PyTorch version (``*_reference``) for
-tensors on the CPU. A CUDA tensor the kernel cannot take raises; nothing
-falls back. Each counts its kernel launches in ``.launches``, and those
-given a subset ``mask`` in ``.launches_subset`` too; ``topk_matmul``
-counts its bf16 launches in ``.launches_wgmma`` as well.
+(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``; bf16,
+int8 and int4 stores score by TMA and wgmma in the one pass 1 of
+``topk_wgmma.cuh``, an f32 store on the CUDA cores) for tensors on a CUDA
+device and takes its plain PyTorch version (``*_reference``) for tensors on
+the CPU. A CUDA tensor the kernel cannot take raises; nothing falls back.
+Each counts its kernel launches in ``.launches``, and those given a subset
+``mask`` in ``.launches_subset`` too; the launches through the TMA + wgmma
+pass 1 (every one of K2 and K3, K1's over a bf16 store) in
+``.launches_wgmma`` as well.
 
 Semantics shared by the kernels, their plain versions and the TPU kernels:
   * K1: the query is cast to the store's dtype first, products accumulate
@@ -47,13 +48,18 @@ _CHUNK = 256            # rows per selection round; kChunk in topk_common.cuh
 _SMEM_BUDGET = 200 * 1024   # the FMA pass 1's, under the 227 KB of a block
 _SMEM_LIMIT = 232_448   # the 227 KB a Hopper block may use
 _QB_FMA = (1, 8)        # query blocks the f32 FMA pass 1 is built for
-_QB_MMA = (8, 128)      # K2/K3's tensor-core pass 1 (int8, int4)
-_QB_WG = (8, 128)       # and K1's bf16 pass 1 (TMA + wgmma)
+_QB_WG = (8, 128)       # and the TMA + wgmma pass 1's (bf16, int8, int4)
 _WG_ROWS = 128          # store rows a stage of it; kWgRows in topk_wgmma.cuh
-# its ring stages, each with the fewest buffer entries a query it takes,
-# in the order it tries them; wg_layout in topk_wgmma.cuh
-_WG_PLANS = ((8, 256), (6, 256), (4, 64), (3, 32))
-_WG_CAP_MAX = 256       # longest buffer; kWgCapMax
+# its tile policies: (query planes of 128 bytes a query in a stage, a
+# staged (scale, offset) a query, the consumers splitting the row tiles at a
+# query block of 8, each with lists of its own, the longest append buffer);
+# kPlanes, kFactors, kSplit, kCapMax in topk_wgmma.cuh
+_WG_KINDS = {"bfloat16": (1, False, False, 256), "int8": (1, True, False, 64),
+             "int4": (2, True, True, 64)}
+# its ring stages, each with the fewest buffer entries a query it takes
+# (None: the kind's longest), in the order it tries them; wg_layout in
+# topk_wgmma.cuh
+_WG_PLANS = ((8, None), (6, None), (4, 64), (3, 32))
 _CTAS_PER_SM = 2        # pass-1 blocks to aim for, per multiprocessor
 _DTYPES = (torch.float32, torch.bfloat16)
 _PLAIN_ROWS = 1 << 16   # rows per f64 product in the integer plain versions
@@ -260,30 +266,49 @@ def _plan(smem, n: int, d: int, b: int, k: int, device,
     return qb, rows, _cdiv(n, rows)
 
 
-def wgmma_layout(qb: int, k: int) -> "tuple[int, int, int]":
-    """K1's bf16 pass 1 for a query block of ``qb`` and lists of ``k``:
-    (ring stages, append-buffer entries a query, shared memory in bytes) as
-    ``csrc/topk_wgmma.cuh::wg_layout`` plans them; (0, 0, huge) if none
-    fits. The ring's stages hold 128 rows and ``qb`` queries x 128 bytes;
-    the lists and buffers 8 bytes an entry, the buffers as long as fits (a
-    multiple of 16, at most 256)."""
-    stage = 128 * _WG_ROWS + 128 * qb
+def wgmma_layout(qb: int, k: int, kind: str = "bfloat16"
+                 ) -> "tuple[int, int, int]":
+    """The TMA + wgmma pass 1 over a ``kind`` store (``"bfloat16"`` K1,
+    ``"int8"`` K2, ``"int4"`` K3) for a query block of ``qb`` and lists of
+    ``k``: (ring stages, append-buffer entries a query, shared memory in
+    bytes) as ``csrc/topk_wgmma.cuh::wg_layout`` plans them; (0, 0, huge)
+    if none fits. The ring's stages hold 128 rows and ``qb`` queries x 128
+    bytes in each query plane (int4: two, its lo and hi columns); the lists
+    and buffers 8 bytes an entry, the buffers as long as fits (a multiple
+    of 16, at most 256; K2/K3 64); K2/K3 add 8 bytes a query of factors,
+    and K3 at a query block of 8 keeps two lists (and buffers) a query
+    (``wg_candidate_lists``) and a "full" barrier a stage for each
+    consumer."""
+    planes, factors, _, cap_max = _WG_KINDS[kind]
+    lists = wg_candidate_lists(qb, 1, kind) * qb
+    stage = 128 * _WG_ROWS + 128 * qb * planes
     for stages, least in _WG_PLANS:
-        fixed = (stage * stages + 8 * qb * k + 8 * qb + 256 + 16 * stages
+        fixed = (stage * stages + 8 * lists * k + 8 * lists
+                 + 8 * qb * factors + 256 + 8 * (lists // qb + 1) * stages
                  + 1024)
-        cap = min(_WG_CAP_MAX, max(0, _SMEM_LIMIT - fixed) // (8 * qb)
+        cap = min(cap_max, max(0, _SMEM_LIMIT - fixed) // (8 * lists)
                   // 16 * 16)
-        if fixed <= _SMEM_LIMIT and cap >= least:
-            return stages, cap, fixed + 8 * qb * cap
+        if fixed <= _SMEM_LIMIT and cap >= (least or cap_max):
+            return stages, cap, fixed + 8 * lists * cap
     return 0, 0, 1 << 62
 
 
+def wg_candidate_lists(qb: int, slices: int, kind: str) -> int:
+    """The candidate lists a query gets from the TMA + wgmma pass 1 over
+    ``slices`` slices, which pass 2 merges: one a slice, or two where the
+    two consumer warpgroups take alternate row tiles of a slice (K3 at a
+    query block of 8, where both would otherwise compute the same 8
+    queries' products); ``topk_wgmma.cuh::wg_candidate_lists``."""
+    return slices * (2 if _WG_KINDS[kind][2] and qb == 8 else 1)
+
+
 @functools.lru_cache(maxsize=256)
-def _bf16_plan(n: int, d: int, b: int, k: int, device):
-    """K1's ``_plan`` for a bf16 store, kept per shape (at B=1 the
-    wrapper's host time is a large part of a call): the widest query block
-    whose lists and buffers fit (``wgmma_layout``; D does not count)."""
-    return _plan(lambda w: wgmma_layout(w, k)[2], n, d, b, k, device,
+def _wg_plan(kind: str, n: int, d: int, b: int, k: int, device):
+    """``_plan`` on the TMA + wgmma pass 1 over a ``kind`` store, kept per
+    shape (at B=1 the wrapper's host time is a large part of a call): the
+    widest query block whose stages, lists and buffers fit
+    (``wgmma_layout``; D does not count)."""
+    return _plan(lambda w: wgmma_layout(w, k, kind)[2], n, d, b, k, device,
                  _QB_WG, _SMEM_LIMIT)
 
 
@@ -317,7 +342,8 @@ _NO_ENCODER, _MAP_REFUSED = -1, -2
 def _launch(fn, launch, x, b: int, k: int, slices: int, scratch: int = 0,
             masked: bool = False):
     """Allocate the outputs, and the candidates (f32 scores, int32
-    positions, ``b * slices * k`` each) and ``scratch`` more bytes in one
+    positions, ``b * slices * k`` each, ``slices`` the candidate lists a
+    query) and ``scratch`` more bytes in one
     buffer; ``launch(out_s, out_i, cand_s, cand_i, scratch, stream)`` (data
     pointers, each scratch part 16-byte aligned) on the current stream,
     raise on its CUDA error code, count the launch on ``fn`` (and, with a
@@ -379,7 +405,7 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
     lib = _build.load()
     m_ptr = mask.data_ptr() if mask is not None else None
     if x.dtype == torch.bfloat16:
-        qb, rows, slices = _bf16_plan(n, d, b, k, x.device)
+        qb, rows, slices = _wg_plan("bfloat16", n, d, b, k, x.device)
         entry = lib.isf_topk_matmul_wgmma
     else:
         qb, rows, slices = _plan(lambda w: lib.isf_topk_pass1_smem(w, d, k),
@@ -396,14 +422,12 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
     return out
 
 
-@functools.lru_cache(maxsize=256)
-def _int_plan(int4: bool, n: int, d: int, b: int, k: int, device):
-    """K2/K3's ``_plan`` on the tensor-core pass 1, kept per shape: at B=1
-    the wrapper's host time is a large part of a call."""
-    from . import _build
-    lib = _build.load()
-    return _plan(lambda w: lib.isf_topk_int_mma_smem(int(int4), w, d, k),
-                 n, d, b, k, device, _QB_MMA, _SMEM_LIMIT)
+def int_query_bytes(b: int, d: int, int4: bool) -> int:
+    """Bytes of K2/K3's quantized query in the launch's scratch: int8 [b, d]
+    as it lies; int4 as its query planes [2 c][b][128], c = ceil(d / 256)
+    chunks of 128 packed bytes a row (plane 2 j: columns 128 j ..; 2 j + 1:
+    columns d / 2 + 128 j ..; zero past d / 2)."""
+    return b * 256 * _cdiv(d, 256) if int4 else b * d
 
 
 def quantize_query(q: torch.Tensor):
@@ -446,20 +470,22 @@ def _topk_int(fn, ref, x, scales, q, k, num_valid, mask, int4: bool):
     step = 32 if int4 else 16
     if d % step:
         raise ValueError(
-            f"D={d}: the {'int4' if int4 else 'int8'} kernel reads rows as "
-            f"16-byte vectors and needs D % {step} == 0")
+            f"D={d}: the {'int4' if int4 else 'int8'} kernel loads rows by "
+            f"TMA in multiples of 16 bytes and needs D % {step} == 0")
     if scales.dtype != torch.float32:
         raise ValueError(f"row scales are {scales.dtype}, not float32")
     # the kernel's launch sequence quantizes the f32 query itself, into
-    # scratch behind the candidates: values [b, d], scales [b], offsets [b]
+    # scratch behind the candidates: values (``int_query_bytes``), scales
+    # [b], offsets [b]
     qf = q.to(torch.float32).contiguous()
     x_scale = scales.reshape(-1)
     mask = _cuda_operands(x, mask, x_scale=x_scale, query=qf)
     nv = _num_valid(n, num_valid)
-    qb, rows, slices = _int_plan(int4, n, d, b, k, x.device)
+    kind = "int4" if int4 else "int8"
+    qb, rows, slices = _wg_plan(kind, n, d, b, k, x.device)
     from . import _build
     lib = _build.load()
-    values = _align16(b * d)
+    values = _align16(int_query_bytes(b, d, int4))
 
     def launch(out_s, out_i, cand_s, cand_i, scratch, stream):
         return lib.isf_topk_matmul_int(
@@ -469,8 +495,11 @@ def _topk_int(fn, ref, x, scales, q, k, num_valid, mask, int4: bool):
             out_s, out_i, cand_s, cand_i, n, d, b, k, nv, int(int4), qb, rows,
             slices, stream)
 
-    return _launch(fn, launch, x, b, k, slices, scratch=values + 8 * b,
-                   masked=mask is not None)
+    lists = wg_candidate_lists(qb, slices, kind)
+    out = _launch(fn, launch, x, b, k, lists, scratch=values + 8 * b,
+                  masked=mask is not None)
+    fn.launches_wgmma += 1
+    return out
 
 
 def topk_matmul_int8(x_int8: torch.Tensor, scales: torch.Tensor,
@@ -498,6 +527,5 @@ def topk_matmul_int4(x_packed: torch.Tensor, scales: torch.Tensor,
 # kernel launches, and those with a subset mask; reset by whoever counts
 # them
 for _fn in (topk_matmul, topk_matmul_int8, topk_matmul_int4):
-    _fn.launches = _fn.launches_subset = 0
-topk_matmul.launches_wgmma = 0
+    _fn.launches = _fn.launches_subset = _fn.launches_wgmma = 0
 quantize_query.launches = 0

@@ -59,7 +59,7 @@ from instsearch_torch.kernels import (flash_mha, flash_mha_reference, mha,
                                       topk_matmul_int8,
                                       topk_matmul_int8_reference,
                                       topk_matmul_reference)
-from instsearch_torch.kernels.topk_matmul import (K_MAX, _bf16_plan,
+from instsearch_torch.kernels.topk_matmul import (K_MAX, _wg_plan,
                                                   check_against_plain,
                                                   check_exact, quantize_query,
                                                   wgmma_layout)
@@ -250,26 +250,27 @@ def test_cuda_wrapper_raises_instead_of_falling_back(gen):
 
 @pytest.mark.gpu
 def test_bf16_plan_and_its_shared_memory(gen):
-    """The bf16 pass 1's plan: its shared memory does not grow with D, so
-    a B = 128 chunk at D = 2048 takes one query block of 128 (k = 10) and
-    k = 200 one of 64; the kernel's own layout (stages, buffer entries,
-    bytes) is the wrapper's mirror ``wgmma_layout``, which the CPU
-    emulation of the selection uses."""
+    """The TMA + wgmma pass 1's plan: its shared memory does not grow with
+    D, so a B = 128 chunk at D = 2048 takes one query block of 128 (k = 10)
+    and k = 200 one of 64; the kernel's own layout (stages, buffer entries,
+    bytes) for each store kind is the wrapper's mirror ``wgmma_layout``,
+    which the CPU emulation of the selection uses."""
     import ctypes
     from instsearch_torch.kernels import _build
     dev = torch.device("cuda")
-    assert _bf16_plan(1 << 20, 2048, 128, 10, dev)[0] == 128
-    assert _bf16_plan(1 << 20, 512, 128, 10, dev)[0] == 128
-    assert _bf16_plan(1 << 20, 2048, 128, 200, dev)[0] == 64
+    assert _wg_plan("bfloat16", 1 << 20, 2048, 128, 10, dev)[0] == 128
+    assert _wg_plan("bfloat16", 1 << 20, 512, 128, 10, dev)[0] == 128
+    assert _wg_plan("bfloat16", 1 << 20, 2048, 128, 200, dev)[0] == 64
     lib = _build.load()
     out = (ctypes.c_int * 2)()
-    for qb in (8, 16, 32, 64, 128):
-        for k in (1, 10, 32, 33, 100, 200, 1024):
-            stages, cap, total = wgmma_layout(qb, k)
-            smem = lib.isf_topk_wgmma_plan(qb, k, out)
-            assert (out[0], out[1]) == (stages, cap), (qb, k)
-            if stages:
-                assert smem == total, (qb, k)
+    for code, kind in enumerate(("bfloat16", "int8", "int4")):
+        for qb in (8, 16, 32, 64, 128):
+            for k in (1, 10, 32, 33, 100, 200, 1024):
+                stages, cap, total = wgmma_layout(qb, k, kind)
+                smem = lib.isf_topk_wgmma_plan(code, qb, k, out)
+                assert (out[0], out[1]) == (stages, cap), (kind, qb, k)
+                if stages:
+                    assert smem == total, (kind, qb, k)
 
 
 @pytest.mark.gpu
@@ -355,11 +356,13 @@ def test_int_kernels_equal_plain_version(gen, kind):
                             (x, 1, 1, None, None), (x, 3, 16, 7, None),
                             (x, 9, 300, None, None), (dup, 9, 50, None, None)):
         qq = q[:b].contiguous()
-        before = fn.launches
+        before = (fn.launches, fn.launches_wgmma)
         s, i = fn(st.values, st.scales, qq, k=k, num_valid=nv, mask=m)
         rs, ri = ref(st.values, st.scales, qq, k=k, num_valid=nv, mask=m)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        # every launch takes the TMA + wgmma pass 1
+        assert (fn.launches, fn.launches_wgmma) == (before[0] + 1,
+                                                    before[1] + 1)
         check_exact(s, i, rs, ri)
         if m is not None:
             assert (m[i[i >= 0].long()] > 0).all()
@@ -369,19 +372,20 @@ def test_int_kernels_equal_plain_version(gen, kind):
             copies = torch.arange(20, device="cuda")
             assert (i[:, :20] // 1000 == copies).all()
             assert (i[:, :20] % 1000 == i[:, :1] % 1000).all()
-    # a ragged (65) and a full (128) query block of the tensor-core pass 1,
-    # the register lists (k = 10) and the shared ones (k = 100), and an int4
-    # row that half fills a 128-byte chunk (D = 128)
-    for d in (128, 512):
+    # a ragged (65) and a full (128) query block, k = 10 and 100, and rows
+    # that fill part of a 128-byte chunk (int4 D = 96 and 128: 48 and 64
+    # bytes, the query's hi plane apart from its lo plane) or several (D =
+    # 2048)
+    for d in (96, 128, 512, 2048):
         x = quant(_unit(gen, 30_000, d))
         for b in (65, 128):
             q = _unit(gen, b, d)
             for k in (10, 100):
-                before = fn.launches
+                before = fn.launches_wgmma
                 s, i = fn(x.values, x.scales, q, k=k)
                 rs, ri = ref(x.values, x.scales, q, k=k)
                 torch.cuda.synchronize()
-                assert fn.launches == before + 1
+                assert fn.launches_wgmma == before + 1
                 check_exact(s, i, rs, ri)
 
 

@@ -32,11 +32,13 @@ from instsearch_tpu.search import qe as jqe
 from instsearch_torch.kernels import (topk_matmul, topk_matmul_int4,
                                       topk_matmul_int8)
 from instsearch_torch.kernels.topk_matmul import (_int_scores, check_exact,
+                                                  int_query_bytes,
                                                   quantize_query)
 from instsearch_torch.ops.quantize import (quantize_rows, quantize_rows_int4,
                                            unpack_int4)
 from instsearch_torch.search import bruteforce as tbf
 from instsearch_torch.search import qe as tqe
+from instsearch_torch.search.bruteforce import select_topk
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -170,56 +172,155 @@ def test_check_exact_rejects_any_difference():
 
 
 # ---- the card's pass-1 arithmetic, emulated on the CPU -------------------
+#
+# csrc/topk_wgmma.cuh with the policy WgInt: rows in stages of 128 rows x
+# 128 bytes as TMA writes them (zero past the row and the store, 16-byte
+# chunk j of row r at j ^ (r % 8)), four k32 steps a chunk, two 64-row
+# tiles a stage. int8: A read by the descriptor (the rows' bytes), B the
+# query's 128 columns of the chunk. int4: each warp's A fragment gathered
+# by ldmatrix from the lane addresses the kernel computes, split in
+# registers, and placed by wgmma's fragment layout; B the query planes as
+# the quantizer writes them.
 
-_CHUNK_BYTES = 128      # kMmaBytes in csrc/topk_mma.cuh
+_CHUNK_BYTES = 128      # a stage's row bytes
+_TILE = 128             # rows a stage (kWgRows)
+
+# the A fragment of one warpgroup's k32 step: warp v, lane l, register i
+_V, _L, _I = torch.meshgrid(torch.arange(4), torch.arange(32),
+                            torch.arange(4), indexing="ij")
+# ldmatrix.x4: register i of lane l holds row l // 4 of matrix i, whose
+# rows' addresses lanes 8 i .. 8 i + 7 give: lane p the row 16 v + p % 16,
+# 16-byte half p // 16 of the k32 step, at chunk (2 kk + half) ^ (p % 8)
+_P = 8 * _I + _L // 4
+# wgmma's A fragment: register i of lane l holds row 16 v + l / 4 (+ 8 for
+# i odd), bytes 4 (l % 4) .. + 3 (+ 16 for i >= 2)
+_M = 16 * _V + _L // 4 + 8 * (_I % 2)
+_K = 4 * (_L % 4) + 16 * (_I // 2)
+
+
+def _swizzled(tile: torch.Tensor) -> torch.Tensor:
+    """A [128, 128]-byte stage as TMA's 128-byte swizzle lays it out:
+    16-byte chunk j of row r at chunk j ^ (r % 8)."""
+    r = torch.arange(tile.shape[0])[:, None]
+    j = torch.arange(8)[None, :]
+    return tile.view(-1, 8, 16)[r, j ^ (r % 8)].reshape(tile.shape)
+
+
+def _a_fragment(stage_words: torch.Tensor, kk: int, rt: int) -> torch.Tensor:
+    """The words each lane's ldmatrix.x4 gets at k32 step kk of row tile rt
+    from the swizzled stage (int32 [128, 32]): [4 warps, 32 lanes, 4]."""
+    row = 64 * rt + 16 * _V + _P % 16
+    chunk = (2 * kk + _P // 16) ^ (_P % 8)          # the kernel's address
+    return stage_words[row, 4 * chunk + _L % 4]
+
+
+def _a_matrix(words: torch.Tensor) -> torch.Tensor:
+    """The 64 x 32-byte A operand that wgmma reads from the fragments'
+    registers (int32 words, little-endian bytes)."""
+    a = torch.zeros((64, 32), dtype=torch.uint8)
+    by = words.contiguous().view(torch.uint8).reshape(4, 32, 4, 4)
+    a[_M[..., None], _K[..., None] + torch.arange(4)] = by
+    return a
+
+
+def _query_planes(q_i8: torch.Tensor) -> torch.Tensor:
+    """K3's query as ``quantize_query_rows`` writes it for pass 1: planes
+    [2 c][B][128], c = ceil(D / 256); plane 2 j holds columns 128 j ..,
+    plane 2 j + 1 columns D/2 + 128 j .., zero past D/2."""
+    b, d = q_i8.shape
+    half, c = d // 2, -(-d // 256)
+    planes = torch.zeros((2 * c, b, 128), dtype=torch.int8)
+    for p in range(2 * c):
+        col = p // 2 * 128 + torch.arange(128)
+        ok = col < half
+        planes[p][:, ok] = q_i8[:, p % 2 * half + col[ok]]
+    return planes
 
 
 def _kernel_sums(x: torch.Tensor, q_i8: torch.Tensor, q_off: torch.Tensor,
-                 int4: bool) -> torch.Tensor:
-    """The int32 sums of csrc/topk_matmul_int.cu's pass 1, chunk by chunk as
-    the card forms them: rows staged in 128-byte chunks, zero-filled past
-    the row; the query staged [B, 128 * chunks] (int4: twice that), zero
-    past D. int8: each chunk's bytes times query columns c..; int4: each
-    32-bit word of the chunk split by the kernel's masks into lo + 8 (w &
-    0x0F0F0F0F) and hi + 8 (((w >> 4) & 0x0F0F0F0F) ^ 0x08080808), u8 in
-    [0, 15], times query columns c.. and D/2 + c..; then the offset
-    8 * sum(q) comes off once."""
+                 int4: bool, planes: "torch.Tensor | None" = None
+                 ) -> torch.Tensor:
+    """The int32 sums of pass 1 (see above) for stored bytes ``x`` and the
+    quantized query; ``planes`` replaces K3's query planes. int4: each
+    word of the fragment split into lo + 8 (w & 0x0F0F0F0F) and hi + 8
+    (((w >> 4) & 0x0F0F0F0F) ^ 0x08080808), u8 in [0, 15], against the lo
+    and the hi plane; then the offset 8 * sum(q) comes off once."""
     n, row_bytes = x.shape
-    d = q_i8.shape[1]
+    b, d = q_i8.shape
     chunks = -(-row_bytes // _CHUNK_BYTES)
-    staged = torch.zeros((n, chunks * _CHUNK_BYTES), dtype=torch.int8)
-    staged[:, :row_bytes] = x
-    qs = torch.zeros((q_i8.shape[0], (2 if int4 else 1) * chunks
-                      * _CHUNK_BYTES), dtype=torch.int64)
-    qs[:, :d] = q_i8.to(torch.int64)
-    words = staged.view(torch.int32)          # little-endian, as the card's
-    acc = torch.zeros((q_i8.shape[0], n), dtype=torch.int64)
-    for c0 in range(0, chunks * _CHUNK_BYTES, _CHUNK_BYTES):
-        w = words[:, c0 // 4:(c0 + _CHUNK_BYTES) // 4]
-        if not int4:
-            a = w.contiguous().view(torch.int8).to(torch.int64)
-            acc += qs[:, c0:c0 + _CHUNK_BYTES] @ a.T
-            continue
-        lo = (w & 0x0F0F0F0F).contiguous().view(torch.uint8).to(torch.int64)
-        hi = (((w >> 4) & 0x0F0F0F0F) ^ 0x08080808).contiguous().view(
-            torch.uint8).to(torch.int64)
-        assert int(lo.max()) <= 15 and int(hi.max()) <= 15
-        acc += qs[:, c0:c0 + _CHUNK_BYTES] @ lo.T
-        acc += qs[:, d // 2 + c0:d // 2 + c0 + _CHUNK_BYTES] @ hi.T
-    return acc - (q_off.to(torch.int64)[:, None] if int4 else 0)
+    tiles = -(-n // _TILE)
+    rows = torch.zeros((tiles * _TILE, chunks * _CHUNK_BYTES),
+                       dtype=torch.int8)
+    rows[:n, :row_bytes] = x
+    if int4:
+        planes = _query_planes(q_i8) if planes is None else planes
+        assert planes.numel() == int_query_bytes(b, d, True)
+    else:
+        qpad = torch.zeros((b, chunks * _CHUNK_BYTES), dtype=torch.int8)
+        qpad[:, :d] = q_i8
+        planes = qpad.view(b, chunks, _CHUNK_BYTES).transpose(0, 1)
+    planes = planes.to(torch.int64)
+    acc = torch.zeros((b, tiles * _TILE), dtype=torch.int64)
+    for t in range(tiles):
+        for c in range(chunks):
+            tile = rows[t * _TILE:(t + 1) * _TILE,
+                        c * _CHUNK_BYTES:(c + 1) * _CHUNK_BYTES]
+            words = _swizzled(tile).contiguous().view(torch.int32)
+            for kk in range(4):
+                ks = slice(32 * kk, 32 * kk + 32)
+                for rt in range(2):
+                    out = acc[:, t * _TILE + 64 * rt:t * _TILE + 64 * rt + 64]
+                    if not int4:
+                        a = tile[64 * rt:64 * rt + 64, ks].to(torch.int64)
+                        out += planes[c][:, ks] @ a.T
+                        continue
+                    w = _a_fragment(words, kk, rt)
+                    lo = _a_matrix(w & 0x0F0F0F0F).to(torch.int64)
+                    hi = _a_matrix(((w >> 4) & 0x0F0F0F0F) ^ 0x08080808
+                                   ).to(torch.int64)
+                    assert int(lo.max()) <= 15 and int(hi.max()) <= 15
+                    out += planes[2 * c][:, ks] @ lo.T
+                    out += planes[2 * c + 1][:, ks] @ hi.T
+    return acc[:, :n] - (q_off.to(torch.int64)[:, None] if int4 else 0)
+
+
+def _kernel_scores(values, scales, q, int4):
+    """The card's scores: float(sum - offset) * q_scale * x_scale."""
+    q_i8, q_scale, q_off = quantize_query(q)
+    sums = _kernel_sums(values, q_i8, q_off, int4)
+    return (sums.to(torch.int32).float() * q_scale.reshape(-1, 1)
+            * scales.reshape(1, -1)), sums, q_i8
+
+
+def test_fragment_gather_reads_the_stage_in_order():
+    """The lane addresses of the kernel's ldmatrix (chunk (2 kk + half) ^
+    (lane % 8) of row 16 v + lane % 16) on a stage TMA swizzled, placed
+    by wgmma's A fragment layout, give each k32 step's 64 x 32 bytes of
+    both row tiles as the rows hold them."""
+    tile = torch.arange(128 * 128, dtype=torch.int32).to(torch.uint8).view(
+        128, 128)
+    tile = tile ^ torch.arange(128, dtype=torch.uint8)[:, None]
+    words = _swizzled(tile).contiguous().view(torch.int32)
+    for kk in range(4):
+        for rt in range(2):
+            got = _a_matrix(_a_fragment(words, kk, rt))
+            assert torch.equal(got, tile[64 * rt:64 * rt + 64,
+                                         32 * kk:32 * kk + 32])
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
 @pytest.mark.parametrize("d,pad", [(32, 0), (96, 0), (128, 0), (512, 0),
                                    (2048, 0), (31, 1)])
 def test_kernel_chunk_arithmetic_equals_plain_sums(kind, d, pad):
-    """The card's per-chunk arithmetic (``_kernel_sums``) gives the plain
-    version's integer sums exactly, and its score formula
-    ``float(acc - offset) * q_scale * x_scale`` the plain version's scores
-    bit for bit: at rows that fill part of a chunk (int4 D = 32, 96, 128:
-    16, 48, 64 of 128 bytes; a zero-filled byte unpacks to hi + 8 = 8 and
-    must meet a zero query column) and at a store padded from D = 31 to 32
-    with a zero column, as the Index pads it."""
+    """The card's arithmetic (``_kernel_sums``) gives the plain version's
+    integer sums exactly, and its score formula ``float(acc - offset) *
+    q_scale * x_scale`` the plain version's scores bit for bit: at rows
+    that fill part of a chunk (int4 D = 32, 96, 128: 16, 48, 64 of 128
+    bytes, where the hi plane starts a chunk apart from the lo plane; a
+    zero-filled byte unpacks to hi + 8 = 8 and must meet a zero query
+    column), over several chunks (D = 2048), a ragged last tile (300
+    rows) and at a store padded from D = 31 to 32 with a zero column, as
+    the Index pads it."""
     int4 = kind == "int4"
     rng = np.random.default_rng(d + 7 * pad)
     X = rng.standard_normal((300, d + pad)).astype(np.float32)
@@ -229,30 +330,48 @@ def test_kernel_chunk_arithmetic_equals_plain_sums(kind, d, pad):
     X[7] = X[3]                                 # an exact tie
     st = (quantize_rows_int4 if int4 else quantize_rows)(torch.from_numpy(X))
     q = torch.from_numpy(Q)
-    q_i8, q_scale, q_off = quantize_query(q)
-    got = _kernel_sums(st.values, q_i8, q_off, int4)
+    scores, got, q_i8 = _kernel_scores(st.values, st.scales, q, int4)
     rows = unpack_int4(st.values) if int4 else st.values
     want = q_i8.double() @ rows.double().T      # exact: |sum| < 2^53
     assert torch.equal(got, want.to(torch.int64))
-    scores = (got.to(torch.int32).float() * q_scale.reshape(-1, 1)
-              * st.scales.reshape(1, -1))
     plain = _int_scores(st.values, st.scales, q, int4)
     assert torch.equal(scores.view(torch.int32), plain.view(torch.int32))
 
 
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("d", [96, 128, 512, 2048])
+def test_kernel_arithmetic_matches_pallas_kernel(kind, d):
+    """The card's scores (``_kernel_scores``), ranked (score desc,
+    position asc, as the selection ranks them), equal the interpret-mode
+    Pallas kernel's top-k bit for bit, with copies of rows for exact
+    ties."""
+    rng = np.random.default_rng(3 * d + (kind == "int4"))
+    X = rng.standard_normal((384, d)).astype(np.float32)
+    X[150:180] = X[20]
+    Q = rng.standard_normal((3, d)).astype(np.float32)
+    quant = quantize_rows_int4 if kind == "int4" else quantize_rows
+    st = quant(torch.from_numpy(X))
+    scores = _kernel_scores(st.values, st.scales, torch.from_numpy(Q),
+                            kind == "int4")[0]
+    ps, pi = select_topk(scores, 40)
+    js, ji, _, _ = _both(kind, X, Q, 40, 128)
+    _assert_exact(js, ji, ps.numpy(), pi.numpy())
+
+
 def test_kernel_chunk_arithmetic_needs_the_zero_query_columns():
-    """The trap the staged query's zero columns guard against: an int4 row
-    of 16 bytes (D = 32) fills an eighth of a chunk, and each of its 112
-    zero-filled bytes unpacks to hi + 8 = 8, so a query staged with
-    anything but zeros past D would move every sum."""
+    """The trap the query planes' zero columns guard against: an int4
+    row of 16 bytes (D = 32) fills an eighth of a chunk, and each of its
+    112 zero-filled bytes unpacks to hi + 8 = 8, so a hi plane with
+    anything but zeros past D/2 would move every sum."""
     rng = np.random.default_rng(11)
     X = rng.standard_normal((40, 32)).astype(np.float32)
     st = quantize_rows_int4(torch.from_numpy(X))
     q_i8, _, q_off = quantize_query(torch.from_numpy(
         rng.standard_normal((2, 32)).astype(np.float32)))
     good = _kernel_sums(st.values, q_i8, q_off, int4=True)
-    dirty = torch.cat([q_i8, torch.ones((2, 32), dtype=torch.int8)], 1)
-    bad = _kernel_sums(st.values, dirty, q_off, int4=True)
+    dirty = _query_planes(q_i8)
+    dirty[1][:, 16:] = 1
+    bad = _kernel_sums(st.values, q_i8, q_off, int4=True, planes=dirty)
     assert bool((bad != good).all())
 
 

@@ -1,16 +1,18 @@
-"""The selection arithmetic of K1's bf16 pass 1 on the card
-(``instsearch_torch/csrc/topk_wgmma.cuh``) and pass 2
-(``topk_common.cuh::topk_pass2``), emulated in torch on the CPU and held
-to the plain version bit for bit.
+"""The selection arithmetic of the TMA + wgmma pass 1 on the card
+(``instsearch_torch/csrc/topk_wgmma.cuh``: K1 over a bf16 store, K2 over
+int8 and K3 over int4 rows) and pass 2 (``topk_common.cuh::topk_pass2``),
+emulated in torch on the CPU and held to the plain version bit for bit.
 
-The kernel's scores are f32 sums of exact bf16 products; the emulation
-takes the plain version's own scores (``masked_scores``), so any
-difference would be the selection's. What it emulates, step for step:
+K1's scores are f32 sums of exact bf16 products, K2/K3's exact integer
+sums scaled as their plain versions scale them (tests/test_torch_topk_int.py
+holds the card's sums to those); the emulation takes the plain version's
+own scores (``masked_scores``, ``_int_scores``), so any difference would be
+the selection's. What it emulates, step for step:
   * the plan: the query block the wrapper's ``_plan`` takes for B and k,
-    and that block's append buffers (``wgmma_layout``: their entries a
-    query), slices of ``rows_per_slice`` rows, tiles of 128 rows in
-    position order within a slice, rows at or past the slice's valid end
-    or masked never checked;
+    and that block's append buffers (``wgmma_layout`` of the store's kind:
+    their entries a query), slices of ``rows_per_slice`` rows, tiles of
+    128 rows in position order within a slice, rows at or past the slice's
+    valid end or masked never checked;
   * a tile's passing entries: score > the query's threshold (as it was
     when the tile was checked), appended after the buffer's count in one
     order the card's shared-memory atomics may hand out the slots (warp,
@@ -38,10 +40,11 @@ import pytest
 import torch
 
 from instsearch_tpu.kernels import topk_matmul as jax_topk_matmul
-from instsearch_torch.kernels.topk_matmul import (_QB_WG, _SMEM_LIMIT,
-                                                  _valid_rows, topk_matmul,
-                                                  topk_matmul_reference,
-                                                  wgmma_layout)
+from instsearch_torch.kernels.topk_matmul import (
+    _QB_WG, _SMEM_LIMIT, _int_scores, _valid_rows, topk_matmul,
+    topk_matmul_int4_reference, topk_matmul_int8_reference,
+    topk_matmul_reference, wg_candidate_lists, wgmma_layout)
+from instsearch_torch.ops.quantize import quantize_rows, quantize_rows_int4
 from instsearch_torch.search.bruteforce import masked_scores
 
 TILE = 128
@@ -143,12 +146,14 @@ def sorted_merge(ls, lp, bs, bp):
     return s, torch.where(torch.isneginf(s), -1, p)
 
 
-def wg_select(sc, ok, row_begin, row_end, num_valid, k, cap, tracked):
+def wg_select(sc, ok, row_begin, row_end, num_valid, k, cap, tracked,
+              first=0, step=1):
     """The lists of one consumer warpgroup's queries (the rows of ``sc``,
-    f32 scores [Q, N]) over one slice; ``ok`` the rows they may return (num
-    valid and the mask). A round, when an entry found its buffer full,
-    merges every buffer more than half full; the queries of ``tracked``
-    take ``merge``, the card's arithmetic."""
+    f32 scores [Q, N]) over one slice, over its tiles ``first``, ``first +
+    step``, ...; ``ok`` the rows they may return (num valid and the mask).
+    A round, when an entry found its buffer full, merges every buffer more
+    than half full; the queries of ``tracked`` take ``merge``, the card's
+    arithmetic."""
     nq = sc.shape[0]
     ls = [torch.full((k,), NEG) for _ in range(nq)]
     lp = [torch.full((k,), -1, dtype=torch.long) for _ in range(nq)]
@@ -163,7 +168,7 @@ def wg_select(sc, ok, row_begin, row_end, num_valid, k, cap, tracked):
                   torch.cat([buf[q][1], p_new[:room]]))
         return (s_new[room:], p_new[room:]) if s_new.numel() > room else None
 
-    for r0 in range(row_begin, valid_end, TILE):
+    for r0 in range(row_begin + first * TILE, valid_end, step * TILE):
         rows = r0 + ORDER
         live = rows < valid_end
         rows = rows.clamp(max=sc.shape[1] - 1)
@@ -225,37 +230,49 @@ def pass2(cand_s, cand_p):
     return lists[0]
 
 
-def query_block(b, k):
-    """The wrapper's ``_plan`` choice of query block for a bf16 store."""
+def query_block(b, k, kind="bfloat16"):
+    """The wrapper's ``_plan`` choice of query block for a ``kind`` store."""
     lo, hi = _QB_WG
     qb = lo
     while qb < min(b, hi):
         qb *= 2
-    while qb > lo and wgmma_layout(qb, k)[2] > _SMEM_LIMIT:
+    while qb > lo and wgmma_layout(qb, k, kind)[2] > _SMEM_LIMIT:
         qb //= 2
     return qb
 
 
-def emulate(x, q, k, rows_per_slice, queries, num_valid=None, mask=None):
-    """The card's answer for ``queries`` (indices into q): (scores [len, k]
-    f32, positions [len, k] int32) and the buffer's entries a query. Each
-    is emulated with the other queries its consumer warpgroup keeps (half
-    a query block), whose buffers share its rounds."""
-    b, n = q.shape[0], x.shape[0]
-    qb = query_block(b, k)
-    stages, cap, _ = wgmma_layout(qb, k)
+def emulate(x, q, k, rows_per_slice, queries, num_valid=None, mask=None,
+            kind="bfloat16"):
+    """The card's answer for ``queries`` (indices into q) over the store
+    ``x`` (bf16 rows, or ``QuantizedRows`` of the int8 / int4 ``kind``):
+    (scores [len, k] f32, positions [len, k] int32) and the buffer's
+    entries a query. Each is emulated with the other queries its consumer
+    warpgroup keeps (half a query block), whose buffers share its rounds;
+    int4 at a query block of 8: each consumer takes alternate row
+    tiles of a slice with all 8 queries in lists of its own, two candidate
+    lists a slice for pass 2 (``wg_candidate_lists``)."""
+    b = q.shape[0]
+    qb = query_block(b, k, kind)
+    stages, cap, _ = wgmma_layout(qb, k, kind)
     assert stages, (qb, k)
-    sc = masked_scores(x, q)
+    if kind == "bfloat16":
+        sc = masked_scores(x, q)
+    else:
+        sc = _int_scores(x.values, x.scales, q, kind == "int4")
+        x = x.values
+    n = x.shape[0]
     ok = _valid_rows(n, num_valid, mask, x.device)
     nv = n if num_valid is None else num_valid
-    half = qb // 2
+    split = wg_candidate_lists(qb, 1, kind) == 2
+    half = qb if split else qb // 2
     answers = {}
     for g0 in sorted({qi // half * half for qi in queries}):
         group = list(range(g0, min(g0 + half, b)))
         tracked = {group.index(qi) for qi in queries if qi in group}
         slices = [wg_select(sc[group], ok, r0, min(n, r0 + rows_per_slice),
-                            nv, k, cap, tracked)
-                  for r0 in range(0, n, rows_per_slice)]
+                            nv, k, cap, tracked, *tiles)
+                  for r0 in range(0, n, rows_per_slice)
+                  for tiles in (((0, 2), (1, 2)) if split else ((0, 1),))]
         for i in tracked:
             s, p = pass2(torch.stack([sl[0][i] for sl in slices]),
                          torch.stack([sl[1][i] for sl in slices]))
@@ -273,6 +290,8 @@ def _case(case, rng, n, d):
         mask = torch.from_numpy((rng.random(n) < 0.5).astype(np.int8))
     elif case == "num_valid":
         num_valid = 2048 + 1000          # inside the second slice
+    elif case == "few_valid":            # fewer valid rows than most k
+        num_valid = 7
     elif case == "empty_slice":          # the second slice: no valid row
         m = (rng.random(n) < 0.7).astype(np.int8)
         m[2048:4096] = 0
@@ -280,25 +299,69 @@ def _case(case, rng, n, d):
     return x, num_valid, mask
 
 
+# the store kinds: (rows from f32, the plain version)
+KINDS = {
+    "bfloat16": (lambda x: x.bfloat16(), topk_matmul_reference),
+    "int8": (quantize_rows, lambda x, q, *a: topk_matmul_int8_reference(
+        x.values, x.scales, q, *a)),
+    "int4": (quantize_rows_int4, lambda x, q, *a: topk_matmul_int4_reference(
+        x.values, x.scales, q, *a)),
+}
+# the append buffer's entries a query at B = 128 by kind and k: narrower
+# than a tile wherever the lists are long; K2/K3's buffers at most 64;
+# int4's stages hold two query planes, so its buffers are narrower still
+# where 3 stages are all that fits
+CAPS = {"bfloat16": {1: 80, 10: 80, 32: 64, 33: 80, 100: 144, 200: 96,
+                     1024: 192},
+        "int8": dict.fromkeys((1, 10, 32, 33, 100, 200, 1024), 64),
+        "int4": {1: 64, 10: 64, 32: 32, 33: 32, 100: 64, 200: 48,
+                 1024: 64}}
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("case", ["duplicates", "mask50", "num_valid",
-                                  "empty_slice"])
+                                  "few_valid", "empty_slice"])
 @pytest.mark.parametrize("k", [1, 10, 32, 33, 100, 200, 1024])
-def test_selection_equals_plain_version(k, case):
+def test_selection_equals_plain_version(k, case, kind):
     """Three queries of a B = 128 batch (the query block, and so the
-    buffers, of the kernel's plan at k) over 6,000 bf16 rows in slices of
-    2,048 (16 tiles, the last slice ragged), bit for bit."""
+    buffers, of the kernel's plan at k for the store's kind) over 6,000
+    rows (bf16, or int8 / int4 quantized from the same rows; "duplicates"
+    gives exact ties, "few_valid" 7 valid rows and two slices with none)
+    in slices of 2,048 (16 tiles, the last slice ragged), bit for bit."""
     rng = np.random.default_rng(k)
     n, d, b = 6000, 64, 128
     xn, num_valid, mask = _case(case, rng, n, d)
-    x = torch.from_numpy(xn).bfloat16()
+    make, ref = KINDS[kind]
+    x = make(torch.from_numpy(xn))
     q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
     queries = [0, 1, b - 1]
-    s, p, cap = emulate(x, q, k, 2048, queries, num_valid, mask)
-    rs, rp = topk_matmul_reference(x, q, k, num_valid, mask)
+    s, p, cap = emulate(x, q, k, 2048, queries, num_valid, mask, kind)
+    rs, rp = ref(x, q, k, num_valid, mask)
     assert torch.equal(p, rp[queries]) and torch.equal(s, rs[queries])
-    # the buffer is narrower than a tile wherever the lists are long
-    assert cap == {1: 80, 10: 80, 32: 64, 33: 80, 100: 144, 200: 96,
-                   1024: 192}[k]
+    assert cap == CAPS[kind][k]
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("case", ["duplicates", "empty_slice"])
+@pytest.mark.parametrize("k", [10, 100, 1024])
+def test_selection_at_a_query_block_of_8(k, case, kind):
+    """B = 8, the query block of 8: K1's and K2's consumers each keep 4
+    queries over every tile; K3's take alternate row tiles, each keeping
+    all 8 queries in lists of its own, two candidate lists a slice (16
+    tiles a slice: 8 each; the last slice ragged, 6,000 rows), bit for
+    bit."""
+    rng = np.random.default_rng(k + 1)
+    n, d, b = 6000, 64, 8
+    xn, num_valid, mask = _case(case, rng, n, d)
+    make, ref = KINDS[kind]
+    x = make(torch.from_numpy(xn))
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    queries = [0, 5, 7]
+    s, p, cap = emulate(x, q, k, 2048, queries, num_valid, mask, kind)
+    rs, rp = ref(x, q, k, num_valid, mask)
+    assert torch.equal(p, rp[queries]) and torch.equal(s, rs[queries])
+    assert query_block(b, k, kind) == 8
+    assert cap == (256 if kind == "bfloat16" else 64)
 
 
 def test_buffer_rounds_and_merges_are_exercised():

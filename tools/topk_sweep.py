@@ -68,7 +68,7 @@ def _chip_smoke():
 def device_split(fn, reps: int = 10) -> dict:
     """Device time per call of ``fn`` by torch.profiler: top-k pass 1 (any
     kernel named ``*pass1*``: K1's ``topk_pass1_wgmma`` (bf16) and
-    ``topk_pass1`` (f32), K2/K3's ``topk_pass1_mma``, K4's ``pq_pass1``),
+    ``topk_pass1`` (f32), K2/K3's ``topk_pass1_wgmma``, K4's ``pq_pass1``),
     pass 2 and everything else (the query's quantization, K4's table,
     copies)."""
     import torch
