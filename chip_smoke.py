@@ -15,8 +15,13 @@ as those phases left them (phase 10 mutates them).
      main paths' shapes: 1M x 512 rows, B in {1, 8, 128} (K1 in bf16: {1,
      8, 16, 64, 128}, each timed), k in {1, 10, 100}, padding, a
      50% mask, duplicated rows, fewer valid rows than k, D = 2048 at B = 1
-     (bf16: also 128, and k = 200 at B = 1, 8 and 128, phase 11's shapes);
-     K1 in bf16 and f32 (scores within SCORE_TOL), K2
+     and 128 (bf16: also k = 200 at B = 1, 8 and 128, phase 11's shapes);
+     K1 in bf16 and f32 (scores within SCORE_TOL; every launch through
+     the TMA + wgmma pass 1, f32's by split TF32; f32 also over phase
+     15a's 10^6 x 136 store at B = 1 and 128, k = 10 and 256, and timed
+     there, at D = 512 for B = 1, 8, 128 and k = 10, 100 and at D = 2048
+     for B = 1, k = 10, 100 and B = 128, k = 10, beside ``torch.topk(q @
+     x.T)`` in f32 with TF32 off), K2
      over int8 and K3 over int4 rows (bit for bit; also B = 65, D = 128
      and B = 128 at D = 128 and 2048, each timed at B = 1 and 128 with
      k = 10 and at B = 1, 8 and 128 with k = 100, K2 beside
@@ -248,7 +253,10 @@ as those phases left them (phase 10 mutates them).
      add, a query and two bad requests on one connection answered in
      order. "Top-1 its source" allows a bf16 near-tie (BF16_TIE): the
      source in the answer within 2^-8 of the first score, counted as
-     ``near_tie_swaps``. Then in this process (``cli.main``, kernels
+     ``near_tie_swaps``; an answer that misses its source is asked again
+     for DEEP_K results, which must hold it and the source within 2^-8
+     of the first (``trails_within_tie``), counted as ``source_past_k``.
+     Then in this process (``cli.main``, kernels
      counted): (c) ``update-index`` adding 8 images again under new names,
      ``info``, ``dedupe --tau 0.97`` (every planted pair found); (d)
      ``build-index --pq`` over ``configs/compact128_int4.json``, queries
@@ -386,7 +394,14 @@ carry their times at depth 100 on phase 8's stores, ``ms_b{1,8,128}_k100``,
 ``plain_ms_b..._k100``, ``library_ms_b..._k100`` (K1 only; null for K3),
 ``bound_ms_b..._k100``; K2 carries the same keys from phase 1's 1M x 512
 store, its library ``torch._int_mm`` + ``torch.topk`` at B = 128; K1-K3
-name their pass 1, ``pass1``; K1 and K2 count the sharded routes' launches too,
+name their pass 1, ``pass1``; K1 splits its launches by store dtype,
+``launches_by_store`` (the f32 ones: phase 15a's l2 store and phase 21's
+vector walkthrough), and carries the f32 store's times at 1M x 512, B = 1
+and 128, k = 10 (``ms_f32``, ``ms_f32_b128``, with ``plain_ms_``,
+``library_ms_``, ``bound_ms_`` by split TF32's three products a pair and
+``bound_ms_fma_`` by the CUDA cores' f32) and over phase 15a's store at
+B = 128, k = 256 (``..._f32_d136_b128_k256``); K1 and K2 count the
+sharded routes' launches too,
 also apart as ``launches_sharded``; K1-K4
 also at B = 128: ``ms_b128``, ``plain_ms_b128``, ``library_ms_b128``,
 ``bound_ms_b128``; K1-K4 count phase 10's subset requests too, also apart
@@ -445,9 +460,13 @@ CORPUS_Q = 1024         # phase 3: images extracted at the presets' 512 px
 SCORE_TOL = 1e-5        # unit rows: f32 sums in two orders differ far below
 SIZES = (1, 3, 8, 13)   # images per served request
 K1_BATCHES = (1, 8, 16, 64, 128)   # K1's bf16 query batches in phase 1
-# the route of K1's bf16 pass 1 and of K2's and K3's (csrc/topk_wgmma.cuh),
+# K1's f32 store over 1M x 512 and 1M x 2048, timed in phase 1: (B, k)
+F32_TIMED = ((1, 10), (8, 10), (128, 10), (1, 100), (8, 100), (128, 100))
+F32_TIMED_D2048 = ((1, 10), (1, 100), (128, 10))
+# the route of K1's pass 1 and of K2's and K3's (csrc/topk_wgmma.cuh),
 # named in their rows
-K1_PASS1 = "topk_pass1_wgmma: TMA + wgmma, buffered top-k"
+K1_PASS1 = ("topk_pass1_wgmma: TMA + wgmma (bf16 WgBf16; f32 WgF32, split "
+            "TF32), buffered top-k")
 INT_PASS1 = {"topk_matmul_int8": "topk_pass1_wgmma<WgInt<false>>: TMA + "
                                  "wgmma s8 x s8, buffered top-k",
              "topk_matmul_int4": "topk_pass1_wgmma<WgInt<true>>: TMA + "
@@ -499,7 +518,9 @@ LW_PAIRS = 64           # phase 11d: planted near-duplicate pairs
 # diffused score
 DIFF_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# dense, published; "tf32" the tensor cores' rate on TF32 operands
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+                  "tf32": 495e12}
 
 
 def fail(msg: str) -> "None":
@@ -579,13 +600,14 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
     def case(x, b, k, label, num_valid=None, mask=None, q=None):
         if q is None:
             q = unit_rows(gen, b, x.shape[1], torch.float32)
-        wgmma = topk.launches_wgmma
+        before = (topk.launches_wgmma, topk.launches_f32)
         s, i = topk(x, q, k=k, num_valid=num_valid, mask=mask)
         rs, ri = ref(x, q, k=k, num_valid=num_valid, mask=mask)
         torch.cuda.synchronize()
-        if topk.launches_wgmma - wgmma != (x.dtype == torch.bfloat16):
-            fail(f"{label} B={b} k={k}: a bf16 store must take the TMA + "
-                 f"wgmma pass 1, an f32 store the FMA one")
+        if (topk.launches_wgmma, topk.launches_f32) != (
+                before[0] + 1, before[1] + (x.dtype == torch.float32)):
+            fail(f"{label} B={b} k={k}: not one launch through the TMA + "
+                 f"wgmma pass 1 (an f32 store's: split TF32)")
         try:
             err = check(x, q, s, i, rs, ri, SCORE_TOL)
         except AssertionError as e:
@@ -601,13 +623,74 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
         errs.append(err)
         return i
 
+    def timed(key, x, b, k, q=None):
+        """``timings[key]``: the kernel's, the plain version's and the
+        yardstick's CUDA-event medians on one query batch, and the bound:
+        the store read once, the query read and the top-k written once, 2
+        B N D operations at the store's type; an f32 store's bound also by
+        the three TF32 products a pair of its pass 1 (``bound_ms_tf32x3``;
+        ``bound_ms_fma`` the CUDA cores' f32, as ``bound_ms``)."""
+        n, d = x.shape
+        if q is None:
+            q = unit_rows(gen, b, d, torch.float32)
+        qx = q.to(x.dtype)
+        f32 = x.dtype == torch.float32
+        nbytes = n * d * x.element_size() + b * d * 4 + b * k * 8
+        ops = 2 * b * n * d
+        t = {"ms": cuda_median_ms(lambda: topk(x, q, k=k)),
+             "plain_ms": cuda_median_ms(lambda: ref(x, q, k=k),
+                                        reps=5 if d > DIM else 10,
+                                        warmup=1),
+             # the yardstick: one product in the store's dtype (f32: TF32
+             # off, as main() sets it) and torch.topk, which the port
+             # never calls
+             "library_ms": cuda_median_ms(lambda: torch.topk(qx @ x.T, k)),
+             **bound(nbytes, ops, "f32" if f32 else "bf16")}
+        if f32:
+            t["bound_ms_fma"] = t["bound_ms"]
+            t["bound_ms_tf32x3"] = bound(nbytes, 3 * ops, "tf32")["bound_ms"]
+        timings[key] = t
+
+    def tied_copies(dup, base, b):
+        """K1 over an f32 store of 1024 base rows repeated, at B = b, k =
+        100, held without the plain version over all of it: the plain f32
+        product of full-precision rows at B = 128 over 1M rows need not
+        give copies of a row the same last bit (the library's sums may run
+        in another order in another tile), while the kernel's must tie
+        exactly. The kernel's 100 scores must be equal, and within
+        SCORE_TOL of the plain version's best over the base rows, its base
+        row a best one there; returns the positions."""
+        q = unit_rows(gen, b, DIM, torch.float32)
+        before = topk.launches_wgmma
+        s, i = topk(dup, q, k=100)
+        plain = ref(base, q, k=1024)[0]
+        torch.cuda.synchronize()
+        if topk.launches_wgmma != before + 1:
+            fail(f"f32 duplicated rows B={b}: not one launch through the "
+                 f"TMA + wgmma pass 1")
+        best = plain[:, 0]
+        mine = (q @ base.T).gather(1, (i[:, :1] % 1024).long())[:, 0]
+        if not (torch.equal(s, s[:, :1].expand_as(s))
+                and float((s[:, 0] - best).abs().max()) <= SCORE_TOL
+                and float((mine - best).abs().max()) <= SCORE_TOL):
+            fail(f"f32 duplicated rows B={b}: copies do not tie, or their "
+                 f"base row is not a best one")
+        report(card, phase=1, case="float32 duplicated rows (tied copies)",
+               n=dup.shape[0], d=DIM, b=b, k=100,
+               max_abs_err=float((s[:, 0] - best).abs().max()))
+        return i
+
     errs = []
     timings = {}
     nv = N_ROWS - 1000
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        fail("phase 1: the f32 yardstick needs TF32 off")
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         x = unit_rows(gen, N_ROWS, DIM, dtype)
         bf16 = dtype is torch.bfloat16
+        short = "bf16" if bf16 else "f32"
         for b in K1_BATCHES if bf16 else (1, 8, 128):
             for k in (1, 10, 100):
                 case(x, b, k, f"{name} num_valid=N-1000", num_valid=nv)
@@ -616,27 +699,18 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
         for b in (8, 128):
             case(x, b, 10, f"{name} 50% mask", mask=mask)
         case(x, 3, 100, f"{name} 50 valid rows < k", num_valid=50)
-        if bf16:
-            for b in K1_BATCHES:
-                q = unit_rows(gen, b, DIM, torch.float32)
-                qb = q.to(torch.bfloat16)
-                timings[f"bf16 N=1M D=512 B={b} k=10"] = {
-                    "ms": cuda_median_ms(lambda: topk(x, q, k=10)),
-                    "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10),
-                                               reps=10),
-                    # the yardstick: one bf16 product and torch.topk, which
-                    # the port never calls
-                    "library_ms": cuda_median_ms(
-                        lambda: torch.topk(qb @ x.T, 10)),
-                    **bound(N_ROWS * DIM * 2 + b * DIM * 2 + b * 10 * 8,
-                            2 * b * N_ROWS * DIM, "bf16")}
+        for b, k in ([(b, 10) for b in K1_BATCHES] if bf16 else F32_TIMED):
+            timed(f"{short} N=1M D=512 B={b} k={k}", x, b, k)
         del x, mask
         # duplicated rows: every score appears 1024 times, so the top 100
         # are the 100 lowest copies of one base row, in position order
         base = unit_rows(gen, 1024, DIM, dtype)
         dup = base.repeat(N_ROWS // 1024, 1).contiguous()
-        for b in ((8, 128) if bf16 else (8,)):
-            i = case(dup, b, 100, f"{name} duplicated rows")
+        for b in (8, 128):
+            if bf16 or b == 8:
+                i = case(dup, b, 100, f"{name} duplicated rows")
+            else:
+                i = tied_copies(dup, base, b)
             if not (bool((i // 1024 == torch.arange(100, device=dev)).all())
                     and bool((i % 1024 == i[:, :1] % 1024).all())):
                 fail(f"{name} duplicated rows: copies out of position order")
@@ -651,24 +725,22 @@ def phase1(card: str, gen, topk, ref, check) -> tuple[float, dict]:
         if bf16:
             for b in (1, 8, 128):
                 case(x, b, 200, f"{name} D=2048", num_valid=nv)
-        if dtype is torch.bfloat16:
-            q = unit_rows(gen, 1, 2048, torch.float32)
-            timings["bf16 N=1M D=2048 B=1 k=10"] = {
-                "ms": cuda_median_ms(lambda: topk(x, q, k=10)),
-                "plain_ms": cuda_median_ms(lambda: ref(x, q, k=10))}
-            for b, k in QUALITY_K1:
-                q = unit_rows(gen, b, 2048, torch.float32)
-                qb = q.to(torch.bfloat16)
-                timings[f"bf16 N=1M D=2048 B={b} k={k}"] = {
-                    "ms": cuda_median_ms(lambda: topk(x, q, k=k)),
-                    "plain_ms": cuda_median_ms(lambda: ref(x, q, k=k),
-                                               reps=5, warmup=1),
-                    "library_ms": cuda_median_ms(
-                        lambda: torch.topk(qb @ x.T, k)),
-                    **bound(N_ROWS * 2048 * 2 + b * 2048 * 2 + b * k * 8,
-                            2 * b * N_ROWS * 2048, "bf16")}
+        else:
+            case(x, 128, 10, f"{name} D=2048", num_valid=nv)
+        for b, k in ((1, 10), *QUALITY_K1) if bf16 else F32_TIMED_D2048:
+            timed(f"{short} N=1M D=2048 B={b} k={k}", x, b, k)
         del x
         torch.cuda.empty_cache()
+    # phase 15a's store: 10^6 rows of 128 columns and the norm column,
+    # padded to 136, at k = 10 and search_range's L2_RANGE_M (unit rows)
+    x = unit_rows(gen, L2_ROWS, 136, torch.float32)
+    for b in (1, 128):
+        for k in (10, L2_RANGE_M):
+            q = unit_rows(gen, b, 136, torch.float32)
+            case(x, b, k, "float32 D=136", q=q)
+            timed(f"f32 N=1M D=136 B={b} k={k}", x, b, k, q=q)
+    del x
+    torch.cuda.empty_cache()
     for shape, t in timings.items():
         report(card, phase=1, timing=shape, **t)
     return max(errs), timings
@@ -997,8 +1069,9 @@ def check_pq_table(card: str, gen, pq_table, lut) -> None:
 
 def empty_slice_case(gen, kind: str, b: int, masked: bool,
                      reps: int) -> int:
-    """F7 (ROADMAP Queue 3) for one store kind (``"bfloat16"`` for K1,
-    ``"int8"`` K2, ``"int4"`` K3) and batch: k = F7_K over F7_ROWS padded
+    """F7 (ROADMAP Queue 3) for one store kind (``"bfloat16"`` and
+    ``"float32"`` for K1, ``"int8"`` K2, ``"int4"`` K3) and batch: k = F7_K
+    over F7_ROWS padded
     rows with F7_VALID valid (the mini fixture's store: three of the four
     256-row slices hold no valid row), with or without a mask, ``reps``
     calls, each right after one over a full F7_FULL-row store of the same
@@ -1023,9 +1096,10 @@ def empty_slice_case(gen, kind: str, b: int, masked: bool,
     q = unit_rows(gen, b, F7_DIM, torch.float32)
     mask = ((torch.rand((1, F7_ROWS), generator=gen, device="cuda") < 0.6)
             .to(torch.int8) if masked else None)
-    if kind == "bfloat16":
+    if kind in ("bfloat16", "float32"):
         fn, ref = topk_matmul, topk_matmul_reference
-        s_args, f_args = (small.bfloat16(),), (full.bfloat16(),)
+        dtype = getattr(torch, kind)
+        s_args, f_args = (small.to(dtype),), (full.to(dtype),)
     else:
         quant = quantize_rows if kind == "int8" else quantize_rows_int4
         fn, ref = ((topk_matmul_int8, topk_matmul_int8_reference)
@@ -1046,7 +1120,7 @@ def empty_slice_case(gen, kind: str, b: int, masked: bool,
             raise AssertionError(
                 f"{kind} B={b} mask={masked} call {i}: positions "
                 f"{ps[bad][:4].tolist()} outside [-1, {F7_VALID})")
-        if kind == "bfloat16":
+        if kind in ("bfloat16", "float32"):
             check_against_plain(s_args[0], q, sc, ps, rs, rp, SCORE_TOL)
         else:
             check_exact(sc, ps, rs, rp)
@@ -1054,10 +1128,10 @@ def empty_slice_case(gen, kind: str, b: int, masked: bool,
 
 
 def check_empty_slices(card: str, gen) -> None:
-    """``empty_slice_case`` for K1-K3 at B = 1, 8 and 13, with and without
-    a mask."""
+    """``empty_slice_case`` for K1 (bf16 and f32 stores), K2 and K3 at B =
+    1, 8 and 13, with and without a mask."""
     n = 0
-    for kind in ("bfloat16", "int8", "int4"):
+    for kind in ("bfloat16", "float32", "int8", "int4"):
         for b in (1, 8, 13):
             for masked in (False, True):
                 try:
@@ -1102,6 +1176,35 @@ def phase1_int(card: str, gen, kind: str, fn, ref, quantize,
                n=st.values.shape[0], d=d, b=b, k=k, bit_exact=True,
                max_abs_err=err)
         errs.append(err)
+        return i
+
+    def tied_copies(dup, base, b):
+        """K1 over an f32 store of 1024 base rows repeated, at B = b, k =
+        100, held without the plain version over all of it: the plain f32
+        product of full-precision rows at B = 128 over 1M rows need not
+        give copies of a row the same last bit (the library's sums may run
+        in another order in another tile), while the kernel's must tie
+        exactly. The kernel's 100 scores must be equal, and within
+        SCORE_TOL of the plain version's best over the base rows, its base
+        row a best one there; returns the positions."""
+        q = unit_rows(gen, b, DIM, torch.float32)
+        before = topk.launches_wgmma
+        s, i = topk(dup, q, k=100)
+        plain = ref(base, q, k=1024)[0]
+        torch.cuda.synchronize()
+        if topk.launches_wgmma != before + 1:
+            fail(f"f32 duplicated rows B={b}: not one launch through the "
+                 f"TMA + wgmma pass 1")
+        best = plain[:, 0]
+        mine = (q @ base.T).gather(1, (i[:, :1] % 1024).long())[:, 0]
+        if not (torch.equal(s, s[:, :1].expand_as(s))
+                and float((s[:, 0] - best).abs().max()) <= SCORE_TOL
+                and float((mine - best).abs().max()) <= SCORE_TOL):
+            fail(f"f32 duplicated rows B={b}: copies do not tie, or their "
+                 f"base row is not a best one")
+        report(card, phase=1, case="float32 duplicated rows (tied copies)",
+               n=dup.shape[0], d=DIM, b=b, k=100,
+               max_abs_err=float((s[:, 0] - best).abs().max()))
         return i
 
     errs = []
@@ -1196,6 +1299,35 @@ def phase1_pq(card: str, gen, fn, ref, check_exact) -> tuple[float, dict]:
         return bound(n * m // 2 + b * d * 4 + m * 16 * (d // m) * 4
                      + b * k * 8, b * n * m, "f32")
 
+    def tied_copies(dup, base, b):
+        """K1 over an f32 store of 1024 base rows repeated, at B = b, k =
+        100, held without the plain version over all of it: the plain f32
+        product of full-precision rows at B = 128 over 1M rows need not
+        give copies of a row the same last bit (the library's sums may run
+        in another order in another tile), while the kernel's must tie
+        exactly. The kernel's 100 scores must be equal, and within
+        SCORE_TOL of the plain version's best over the base rows, its base
+        row a best one there; returns the positions."""
+        q = unit_rows(gen, b, DIM, torch.float32)
+        before = topk.launches_wgmma
+        s, i = topk(dup, q, k=100)
+        plain = ref(base, q, k=1024)[0]
+        torch.cuda.synchronize()
+        if topk.launches_wgmma != before + 1:
+            fail(f"f32 duplicated rows B={b}: not one launch through the "
+                 f"TMA + wgmma pass 1")
+        best = plain[:, 0]
+        mine = (q @ base.T).gather(1, (i[:, :1] % 1024).long())[:, 0]
+        if not (torch.equal(s, s[:, :1].expand_as(s))
+                and float((s[:, 0] - best).abs().max()) <= SCORE_TOL
+                and float((mine - best).abs().max()) <= SCORE_TOL):
+            fail(f"f32 duplicated rows B={b}: copies do not tie, or their "
+                 f"base row is not a best one")
+        report(card, phase=1, case="float32 duplicated rows (tied copies)",
+               n=dup.shape[0], d=DIM, b=b, k=100,
+               max_abs_err=float((s[:, 0] - best).abs().max()))
+        return i
+
     errs = []
     timings = {}
     nv = N_ROWS - 1000
@@ -1285,19 +1417,22 @@ def _everyone():
 
 
 def zero_counts(kernels) -> None:
-    """Set each kernel's launch count to 0, and the count of K1-K3's
-    launches through the TMA + wgmma pass 1 (``launches_wgmma``)."""
+    """Set each kernel's launch count to 0, the count of K1-K3's launches
+    through the TMA + wgmma pass 1 (``launches_wgmma``) and of K1's over an
+    f32 store (``launches_f32``)."""
     for fn in kernels:
         fn.launches = 0
-        if hasattr(fn, "launches_wgmma"):
-            fn.launches_wgmma = 0
+        for extra in ("launches_wgmma", "launches_f32"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)
 
 
-def check_int_pass1(where: str) -> None:
-    """Fail unless every K2 and K3 launch since ``zero_counts`` took the
-    TMA + wgmma pass 1."""
-    from instsearch_torch.kernels import topk_matmul_int4, topk_matmul_int8
-    for fn in (topk_matmul_int8, topk_matmul_int4):
+def check_pass1(where: str) -> None:
+    """Fail unless every K1, K2 and K3 launch since ``zero_counts`` took the
+    TMA + wgmma pass 1 (K1's f32 store: split TF32)."""
+    from instsearch_torch.kernels import (topk_matmul, topk_matmul_int4,
+                                          topk_matmul_int8)
+    for fn in (topk_matmul, topk_matmul_int8, topk_matmul_int4):
         if fn.launches_wgmma != fn.launches:
             fail(f"{where}: {fn.__name__} launched {fn.launches} times, "
                  f"{fn.launches_wgmma} of them through the TMA + wgmma "
@@ -1317,7 +1452,7 @@ def serve_requests(card, phase, core, images, picks, expect):
     zero_counts(everyone)
     answers = [core.run_queries([(images[p], 10)])[0] for p in picks]
     counts = {fn.__name__: fn.launches for fn in everyone}
-    check_int_pass1(f"phase {phase} requests")
+    check_pass1(f"phase {phase} requests")
     pieces = sum(-(-len(p) // core.buckets[-1]) for p in picks)
     want = {fn.__name__: expect.get(fn, 0) * pieces for fn in everyone}
     if counts != want:
@@ -2706,7 +2841,7 @@ def subset_requests(card, tag, core, images, picks, subset: str, kernel,
             fn.launches_subset = 0
     answers = [core.run_queries([(images[p], 10)], subset=subset)[0]
                for p in picks]
-    check_int_pass1(f"{tag}: subset {subset!r} requests")
+    check_pass1(f"{tag}: subset {subset!r} requests")
     pieces = sum(-(-len(p) // core.buckets[-1]) for p in picks)
     want = {fn.__name__: (per_piece * pieces if fn is kernel else 0)
             for fn in everyone}
@@ -3240,7 +3375,7 @@ def count_launches(fn):
     everyone = _everyone()
     zero_counts(everyone)
     out = fn()
-    check_int_pass1(getattr(fn, "__name__", "a counted run"))
+    check_pass1(getattr(fn, "__name__", "a counted run"))
     return out, {k.__name__: k.launches for k in everyone}
 
 
@@ -4098,6 +4233,12 @@ WORKLOAD1 = "configs/oxford5k_resnet50_avgpool.json"
 # put ~1% of them within 1.5e-3 of their nearest neighbour, so there a
 # source may trail a neighbour by less than this and still be right.
 BF16_TIE = 2.0 ** -8
+# phase 13: the depth at which a query that missed its source in its top-k
+# is asked again (trails_within_tie). Self-scores go as low as ~0.997, and
+# in a crowded part of the 5,063 more than k neighbours may lie above one
+# within BF16_TIE (a served top-5 once held five at 0.9974-0.9978, and not
+# its source)
+DEEP_K = 64
 COMPACT = "configs/compact128_int4.json"    # phase 13d: the int4 preset
 
 
@@ -4163,6 +4304,23 @@ def top1_is_source(results: list, name: str) -> bool:
         return True
     own = [e["score"] for e in results if e["name"] == name]
     return bool(own) and results[0]["score"] - own[0] <= BF16_TIE
+
+
+def trails_within_tie(results: list, deeper: list, name: str) -> bool:
+    """A top-k answer ``results`` that misses its source ``name`` is still
+    right where more than k neighbours lie within BF16_TIE above the
+    source: ``deeper``, the same image asked again for DEEP_K results,
+    holds every entry of ``results`` at its score and starts at its first
+    (each within BF16_TIE: the two requests may be extracted in batches of
+    other sizes), and ranks ``name`` within BF16_TIE of its first. A query
+    or a list gone wrong gives other rows, or the source far below."""
+    got = {e["name"]: e["score"] for e in deeper}
+    return (bool(results) and bool(deeper)
+            and all(e["name"] in got
+                    and abs(got[e["name"]] - e["score"]) <= BF16_TIE
+                    for e in results)
+            and abs(deeper[0]["score"] - results[0]["score"]) <= BF16_TIE
+            and top1_is_source(deeper, name))
 
 
 def cli_env() -> dict:
@@ -4300,17 +4458,22 @@ def _phase13(card, gen, tmp, native: bool) -> dict:
         cli_command("query", "--index", plain, "--image", paths[i]),
         cwd=HERE, env=cli_env(), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for i in picks]
-    swaps = 0
+    swaps = past_k = 0
     for i, p in zip(picks, procs):
         stdout, stderr = p.communicate(timeout=300)
         if p.returncode != 0:
             fail(f"query exited {p.returncode}: {stderr[-2000:]}")
         res = json.loads(stdout.strip().splitlines()[-1])["results"]
         if not top1_is_source(res, names[i]):
-            fail(f"query {names[i]}: {res[:3]}")
+            deeper = run_cli("query", "--index", plain, "--image", paths[i],
+                             "-k", str(DEEP_K))[0][-1]["results"]
+            if not trails_within_tie(res, deeper, names[i]):
+                fail(f"query {names[i]}: {res[:3]}; asked for {DEEP_K}: "
+                     f"{deeper[:8]}")
+            past_k += 1
         swaps += res[0]["name"] != names[i]
     report(card, phase=13, run="query", processes=CLI_QUERIES,
-           top1_correct=True, near_tie_swaps=swaps,
+           top1_correct=True, near_tie_swaps=swaps, source_past_k=past_k,
            wall_s=time.perf_counter() - t0)
 
     # (e) the TCP server, before (c) adds rows to the index on disk
@@ -4458,15 +4621,32 @@ def serve_tcp_clients(card, index, paths, names, rng) -> dict:
                     for i in picks:
                         ans, ms = _send(f, {"image": paths[i], "k": 5})
                         res = ans["results"][0]
-                        if not top1_is_source(res, names[i]):
+                        past_k = not top1_is_source(res, names[i])
+                        if past_k and not answered(f, i, res):
                             raise AssertionError(
                                 f"{names[i]} in a batch of "
                                 f"{ans['batch_rows']}: {res}")
                         out.append((ms, ans["batch_rows"],
                                     res[0]["name"] != names[i],
-                                    ans["latency_ms"]))
+                                    ans["latency_ms"], past_k))
             except Exception as e:        # noqa: BLE001 — reported below
                 errors.append(repr(e))
+
+        deep_ranks = []     # (image, rank, gap to the first) of each
+
+        def answered(f, i, res) -> bool:
+            """``res`` missed image i: asked again deeper on connection f,
+            is it a crowd within BF16_TIE (trails_within_tie)?"""
+            deeper = _send(f, {"image": paths[i], "k": DEEP_K})[0]
+            deeper = deeper.get("results", [[]])[0]
+            if trails_within_tie(res, deeper, names[i]):
+                r = [e["name"] for e in deeper].index(names[i])
+                deep_ranks.append((names[i], r, deeper[0]["score"]
+                                   - deeper[r]["score"]))
+                return True
+            print(f"chip_smoke: {names[i]} asked for {DEEP_K}: "
+                  f"{deeper[:8]}", file=sys.stderr, flush=True)
+            return False
 
         stats = {}
         for n in (1, SERVE_CLIENTS):
@@ -4496,7 +4676,9 @@ def serve_tcp_clients(card, index, paths, names, rng) -> dict:
                         # search) of the request's batch, as it reports it
                         "pass_p50_ms": float(np.percentile(device, 50)),
                         "near_tie_swaps": sum(o[2] for out in outs
-                                              for o in out)}
+                                              for o in out),
+                        "source_past_k": sum(o[4] for out in outs
+                                             for o in out)}
             report(card, phase=13, run="serve", clients=n,
                    requests=len(ms), top1_correct=True, **stats[n])
         if stats[SERVE_CLIENTS]["max_batch_rows"] < 2:
@@ -4517,19 +4699,21 @@ def serve_tcp_clients(card, index, paths, names, rng) -> dict:
             for req, want in steps:
                 ans, _ = _send(f, req)
                 res = ans["results"][0] if "results" in ans else None
-                ok = {"removed": ans.get("removed") == 1,
-                      "absent": res is not None and names[i] not in
+                # only the step's own check runs: "found" and "serving"
+                # may ask the server again
+                ok = {"removed": lambda: ans.get("removed") == 1,
+                      "absent": lambda: res is not None and names[i] not in
                       [e["name"] for e in res],
-                      "added": ans.get("added") == 1,
-                      "found": res is not None and top1_is_source(
-                          res, names[i]),
-                      "error": "error" in ans,
-                      "serving": res is not None and top1_is_source(
-                          res, names[0])}[want]
+                      "added": lambda: ans.get("added") == 1,
+                      "found": lambda: res is not None and (top1_is_source(
+                          res, names[i]) or answered(f, i, res)),
+                      "error": lambda: "error" in ans,
+                      "serving": lambda: res is not None and (top1_is_source(
+                          res, names[0]) or answered(f, 0, res))}[want]()
                 if not ok:
                     fail(f"serve {req}: {ans}")
         report(card, phase=13, run="serve", mutations_in_order=True,
-               bad_request_answered=True)
+               bad_request_answered=True, source_past_k_deep=deep_ranks)
     finally:
         proc.kill()
         proc.wait(timeout=60)
@@ -4922,7 +5106,8 @@ def phase15(card: str, gen, topk, topk_ref, int8_kernel, int8_ref, check,
         shutil.rmtree(tmp, ignore_errors=True)
     launches = {name: sum(r.get("launches", {}).get(name, 0)
                           for r in out.values())
-                for name in ("topk_matmul", "topk_matmul_int8")}
+                for name in ("topk_matmul", "topk_matmul_int8",
+                             "topk_matmul_f32")}
     report(card, phase=15, launches=launches,
            seconds={p: r["seconds"] for p, r in out.items()})
     return {"launches": launches, **out}
@@ -5014,8 +5199,14 @@ def phase15a(card, gen, topk, topk_ref, int8_kernel, int8_ref, check,
                       kernel.__name__: 2 * pieces}:
             fail(f"phase 15a {dtype}: search and search_range launched "
                  f"{counts}, not {kernel.__name__} {2 * pieces} times")
+        f32_store = 2 * pieces if dtype == "float32" else 0
+        if topk.launches_f32 != f32_store:
+            fail(f"phase 15a {dtype}: {topk.launches_f32} K1 launches over "
+                 f"an f32 store, not {f32_store}")
         res["launches"][kernel.__name__] = (
             res["launches"].get(kernel.__name__, 0) + 2 * pieces)
+        res["launches"]["topk_matmul_f32"] = (
+            res["launches"].get("topk_matmul_f32", 0) + f32_store)
         i_t = torch.as_tensor(i, device="cuda").long()
         want = oi[:, :10]
         recall = float((i_t[:, :, None] == want[:, None, :]).any(2)
@@ -6347,7 +6538,8 @@ CAPACITY_ROWS = (65_536, 4_194_304)
 
 def run_walkthrough(name: str, argv: list) -> tuple[list[str], dict, float]:
     """``examples/<name>.py``'s ``main(argv)`` in this process on the card,
-    its printed lines captured -> (lines, kernel launches, wall seconds).
+    its printed lines captured -> (lines, kernel launches, wall seconds);
+    the launches also hold K1's over an f32 store, ``topk_matmul_f32``.
     A non-zero return or an exception (the capacity script asserts its
     self-match) fails the phase."""
     import io
@@ -6365,6 +6557,8 @@ def run_walkthrough(name: str, argv: list) -> tuple[list[str], dict, float]:
     wall = time.perf_counter() - t0
     if rc != 0:
         fail(f"phase 21: {name} {argv} returned {rc}")
+    from instsearch_torch.kernels import topk_matmul
+    counts["topk_matmul_f32"] = topk_matmul.launches_f32
     return buf.getvalue().strip().splitlines(), counts, wall
 
 
@@ -6662,6 +6856,24 @@ def main() -> int:
                 rows[-1].update({
                     f"{key}_d2048_b{b}_k{k}": t[key]
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+            # by store dtype: the f32 stores' launches on the main paths
+            # (phase 15a's l2 store, phase 21's vector walkthrough), and
+            # the f32 store's times (its bound by split TF32's three
+            # products a pair; bound_ms_fma_... the CUDA cores')
+            f32 = mesh.get("topk_matmul_f32", 0) + examples.get(
+                "topk_matmul_f32", 0)
+            rows[-1]["launches_by_store"] = {
+                "bfloat16": rows[-1]["launches"] - f32, "float32": f32}
+            for tag, shape in (("f32", "f32 N=1M D=512 B=1 k=10"),
+                               ("f32_b128", "f32 N=1M D=512 B=128 k=10"),
+                               ("f32_d136_b128_k256",
+                                "f32 N=1M D=136 B=128 k=256")):
+                t = timings[shape]
+                rows[-1].update({f"ms_{tag}": t["ms"],
+                                 f"plain_ms_{tag}": t["plain_ms"],
+                                 f"library_ms_{tag}": t["library_ms"],
+                                 f"bound_ms_{tag}": t["bound_ms_tf32x3"],
+                                 f"bound_ms_fma_{tag}": t["bound_ms_fma"]})
         if name == "pq_topk":   # phase 4's bucket, and 64M rows at depth 100
             t = timings["pq N=1M M=64 B=8 k=100"]
             rows[-1].update(ms_b8_k100=t["ms"], plain_ms_b8_k100=t["plain_ms"],

@@ -1,7 +1,7 @@
 // PTX wrappers for Hopper's asynchronous machinery (sm_90a only), shared by
 // the port's warp-specialised kernels (K5's and K6's bf16 kernels in
 // vit_attention.cu, K7 in fused_resnet.cu, K4 in pq_scan.cu, the pass 1 of
-// K1's bf16 and K2/K3's int8 and int4 stores in topk_wgmma.cuh):
+// K1's bf16 and f32 and K2/K3's int8 and int4 stores in topk_wgmma.cuh):
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase's parity;
@@ -15,15 +15,17 @@
 //     operands in shared memory (N = 8 to 64, and 128), the m64n64k16
 //     product with A in registers, their integer forms m64nNk32 (s8 x s8
 //     with both operands in shared memory, u8 x s8 with A in registers;
-//     N = 8 to 64, s32 sums), the fence, commit and wait around them, and
-//     ldmatrix, which gathers a register A fragment from shared memory;
+//     N = 8 to 64, s32 sums), the TF32 form m64nNk8 with A in registers
+//     (N = 8 to 64, f32 sums) and the round to TF32 (cvt.rna) that feeds
+//     it, the fence, commit and wait around them, and ldmatrix, which
+//     gathers a register A fragment from shared memory;
 //   * setmaxnreg, which moves registers from a producer warpgroup to the
 //     consumer warpgroups, and the named barrier that syncs the consumers
 //     without the producer (and its bar.red form, which also ORs a
 //     predicate over the threads);
 //   * on the host, the tensor-map encoder (a libcuda function reached
-//     through the runtime, so the library needs no -lcuda) and a bf16 or
-//     uint8 map of any rank with a 128-byte swizzle.
+//     through the runtime, so the library needs no -lcuda) and a bf16,
+//     f32 or uint8 map of any rank with a 128-byte swizzle.
 //
 // Phases. A barrier starts in phase 0. wait(bar, parity) returns once the
 // phase of that parity has completed: a consumer waits on round r's "full"
@@ -58,6 +60,10 @@
 // the same, + 16, + 16: mma.sync m16n8k32's A fragment, which ldmatrix.x4
 // gathers from the four 8 x 16-byte matrices (rows 0-7 | 8-15) x (bytes
 // 0-15 | 16-31), lane l giving the address of row l % 16, half l / 16.
+// The TF32 A fragment of an m64k8 step is the same four registers of 4
+// bytes: rows 16 w + l / 4, + 8, + 0, + 8 and f32 columns l % 4, the same,
+// + 4, + 4 (mma.sync m16n8k8's), which the same ldmatrix.x4 gathers from
+// rows of f32 (a 16-byte half is 4 columns).
 //
 // Everything here has internal linkage.
 
@@ -453,6 +459,61 @@ ISF_INT_WGMMA(64, ISF_D32, ISF_O32,
               ISF_D32 "}, {%32, %33, %34, %35}, %36, p;\n}\n")
 
 #undef ISF_INT_WGMMA
+
+// ---- TF32 wgmma ------------------------------------------------------------
+//
+// d (+)= a b in f32 sums, m64nNk8 for N = 8, 16, 32 or 64, a 64 x 8 TF32
+// from registers (four registers a thread, the layout above), b 8 x N TF32
+// K-major in shared memory (a k8 step is 32 bytes of a row, as a bf16 k16
+// step), the only order TF32 wgmma takes. A TF32 operand is an f32 whose
+// 13 low mantissa bits are zero (tf32_rna); the products are exact.
+
+// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away
+// from zero, as the f32 bit pattern with the 13 low bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+template <int N>
+struct WgmmaTF32;
+
+#define ISF_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ISF_F8(i) ISF_F4(i), ISF_F4(i + 4)
+#define ISF_F16(i) ISF_F8(i), ISF_F8(i + 8)
+#define ISF_F32 ISF_F16(0), ISF_F16(16)
+#define ISF_TF32_WGMMA(N, OUTS, TAIL)                                        \
+  template <>                                                                \
+  struct WgmmaTF32<N> {                                                      \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],           \
+                                               const uint32_t* a,           \
+                                               uint64_t db, int scale_d) {   \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " TAIL               \
+                   : OUTS                                                    \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),  \
+                     "r"(scale_d));                                          \
+    }                                                                        \
+  };
+
+ISF_TF32_WGMMA(8, ISF_F4(0),
+               "%9, 0;\nwgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+               ISF_D4 "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n")
+ISF_TF32_WGMMA(16, ISF_F8(0),
+               "%13, 0;\nwgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+               ISF_D8 "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n")
+ISF_TF32_WGMMA(32, ISF_F16(0),
+               "%21, 0;\nwgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+               ISF_D16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n")
+ISF_TF32_WGMMA(64, ISF_F32,
+               "%37, 0;\nwgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+               ISF_D32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n")
+
+#undef ISF_TF32_WGMMA
+#undef ISF_F32
+#undef ISF_F16
+#undef ISF_F8
+#undef ISF_F4
 #undef ISF_O32
 #undef ISF_O16
 #undef ISF_O8

@@ -1,33 +1,14 @@
 // Split-N fused top-k, shared by the port's top-k kernels (K1 topk_matmul,
 // K2 topk_matmul_int8, K3 topk_matmul_int4, K4 pq_topk): the selection
-// code and pass 2 for all four, and the FMA pass 1, templated on how a row
-// is scored, for K1's f32 store (the bf16, int8 and int4 stores take the
-// TMA + wgmma pass 1 of topk_wgmma.cuh, K4 its own pass 1 in pq_scan.cu).
+// code and pass 2 for all four. Every pass 1 lies elsewhere: K1's bf16 and
+// f32 stores and K2/K3's int8 and int4 stores take the TMA + wgmma pass 1
+// of topk_wgmma.cuh, K4 its own in pq_scan.cu (which keeps warp_insert).
 //
 // Pass 1: block (qblock, slice) scores rows [slice * rows_per_slice, ...)
-// against queries [qblock * QB, ...) and keeps each query's top-k of its
-// slice in shared memory. Pass 2 merges the num_slices * k candidates per
-// query. The TPU kernels carry one running top-k across a sequential grid;
-// Hopper runs blocks in parallel, hence the split. How a row is scored is a
-// policy class (the `Rows` template argument of topk_pass1):
-//
-//   using Acc = ...;                   accumulator type (float or int)
-//   __host__ __device__ static size_t query_bytes(int qb, int d);
-//                                      shared memory of a block of qb
-//                                      queries, a multiple of 16
-//   int vecs() const;                  16-byte vectors per stored row
-//   uint4 load(int row, int v) const;  vector v of a stored row
-//   void load_query(char* qsm, int qb, int q0, int b, int tid, int lane,
-//                   int warp) const;   fill the query block
-//   template <int QB, int R>
-//   void accumulate(Acc (&acc)[R][QB], const uint4 (&raw)[R],
-//                   const char* qsm, int v) const;
-//                                      add vector v of R rows to the QB
-//                                      queries' per-lane partial sums
-//   template <int QB>
-//   float score(Acc tot, int qi, int row, const char* qsm) const;
-//                                      the reduced sum -> the row's score
-//                                      for block query qi
+// against a block of queries and keeps each query's top-k of its slice in
+// shared memory. Pass 2 merges each query's candidate lists. The TPU
+// kernels carry one running top-k across a sequential grid; Hopper runs
+// blocks in parallel, hence the split.
 //
 // Ranking rules, the TPU kernels' own: (score desc, position asc); rows at
 // or past num_valid, or whose mask entry is not > 0, never enter; slots
@@ -43,10 +24,10 @@
 
 namespace {
 
-constexpr int kWarps = 8;                    // pass 1: warps per block
+constexpr int kWarps = 8;                    // K4's pass 1: scoring warps
 constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 256;                  // rows scored per selection round
-constexpr int kRowsInFlight = 8;             // rows a warp scores together
+constexpr int kChunk = 256;                  // K4's rows a chunk; slices are
+                                             // multiples of it
 constexpr int kMergeMaxWarps = 32;           // pass 2: warps per query
 constexpr int kMergeSmem = 96 * 1024;        // pass 2: bytes of lists a block keeps
 constexpr unsigned kFull = 0xffffffffu;
@@ -145,156 +126,6 @@ __device__ void warp_merge(float* a_s, int* a_i, const float* b_s,
   __syncwarp();
 }
 
-__host__ __device__ constexpr int log2_of(int v) {
-  return v <= 1 ? 0 : 1 + log2_of(v / 2);
-}
-
-// Reduce v[0..QB) over the 32 lanes; returns, on every lane, the total for
-// query lane / (32 / QB). A reduce-scatter: QB shuffles per row instead of
-// 5 * QB.
-template <typename A, int QB>
-__device__ __forceinline__ A warp_reduce_scatter(A (&v)[QB], int lane) {
-  // a constant trip count, so the loop unrolls and v stays in registers
-  constexpr int kSteps = log2_of(QB);
-#pragma unroll
-  for (int st = 0; st < kSteps; ++st) {
-    const int w = QB >> (st + 1);
-    const int bit = 16 >> st;
-    const bool upper = (lane & bit) != 0;
-#pragma unroll
-    for (int i = 0; i < w; ++i) {
-      const A send = upper ? v[i] : v[i + w];
-      const A keep = upper ? v[i + w] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFull, send, bit);
-    }
-  }
-  A s = v[0];
-#pragma unroll
-  for (int off = 16 / QB; off >= 1; off >>= 1)
-    s += __shfl_xor_sync(kFull, s, off);
-  return s;
-}
-
-template <class Rows>
-size_t pass1_smem(int qb, int d, int k) {
-  return Rows::query_bytes(qb, d) + sizeof(float) * (size_t)qb * kChunk +
-         (sizeof(float) + sizeof(int)) * (size_t)qb * k;
-}
-
-// Scoring of one chunk with a warp per row (K1's f32 store): each warp scores
-// kRowsInFlight rows at a time, its lanes over the rows' 16-byte vectors,
-// then reduces across lanes; sc[qi * kChunk + r] <- row chunk + r's score.
-template <class Rows, int QB>
-__device__ __forceinline__ void score_chunk_by_warps(
-    const Rows& rows, const int8_t* __restrict__ mask, int chunk,
-    int valid_end, const char* qsm, float* sc, int lane, int warp) {
-  constexpr int kRowsPerWarp = kChunk / kWarps;
-  constexpr int kGroup = 32 / QB;                      // lanes per query
-  using Acc = typename Rows::Acc;
-  const int nvec = rows.vecs();
-  for (int g = 0; g < kRowsPerWarp; g += kRowsInFlight) {
-    const int r0 = chunk + warp * kRowsPerWarp + g;
-    Acc acc[kRowsInFlight][QB];
-#pragma unroll
-    for (int r = 0; r < kRowsInFlight; ++r)
-#pragma unroll
-      for (int j = 0; j < QB; ++j) acc[r][j] = Acc(0);
-    if (r0 < valid_end) {
-      for (int v = lane; v < nvec; v += 32) {
-        uint4 raw[kRowsInFlight];
-#pragma unroll
-        for (int r = 0; r < kRowsInFlight; ++r) {
-          const int row = r0 + r;
-          raw[r] = row < valid_end ? rows.load(row, v)
-                                   : make_uint4(0, 0, 0, 0);
-        }
-        rows.template accumulate<QB, kRowsInFlight>(acc, raw, qsm, v);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsInFlight; ++r) {
-      const Acc tot = warp_reduce_scatter<Acc, QB>(acc[r], lane);
-      const int row = r0 + r;
-      if ((lane % kGroup) == 0) {
-        const int qi = lane / kGroup;
-        const bool ok = row < valid_end && (mask == nullptr || mask[row] > 0);
-        sc[qi * kChunk + (row - chunk)] =
-            ok ? rows.template score<QB>(tot, qi, row, qsm) : neg_inf();
-      }
-    }
-  }
-}
-
-template <class Rows, int QB>
-__global__ void __launch_bounds__(kThreads)
-topk_pass1(const Rows rows, const int8_t* __restrict__ mask, int n, int d,
-           int b, int k, int num_valid, int rows_per_slice, int num_slices,
-           float* __restrict__ cand_s, int* __restrict__ cand_i) {
-  extern __shared__ float4 smem4[];
-  char* qsm = reinterpret_cast<char*>(smem4);             // query block
-  float* sc = reinterpret_cast<float*>(qsm + Rows::query_bytes(QB, d));
-  float* ls = sc + QB * kChunk;                           // [QB, k]
-  int* li = reinterpret_cast<int*>(ls + QB * k);          // [QB, k]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * QB;
-  const int slice = blockIdx.y;
-
-  rows.load_query(qsm, QB, q0, b, tid, lane, warp);
-  for (int i = tid; i < QB * k; i += kThreads) {
-    ls[i] = neg_inf();
-    li[i] = -1;
-  }
-  __syncthreads();
-
-  const int row_begin = slice * rows_per_slice;
-  const int row_end = min(n, row_begin + rows_per_slice);
-  const int valid_end = min(row_end, num_valid);
-
-  for (int chunk = row_begin; chunk < row_end; chunk += kChunk) {
-    // ---- score kChunk rows into sc -----------------------------------
-    score_chunk_by_warps<Rows, QB>(rows, mask, chunk, valid_end, qsm, sc,
-                                   lane, warp);
-    __syncthreads();
-
-    // ---- fold the chunk into each query's running list -----------------
-    for (int qi = warp; qi < QB && q0 + qi < b; qi += kWarps) {
-      float* l_s = ls + qi * k;
-      int* l_i = li + qi * k;
-      float ts = l_s[k - 1];
-      int tp = l_i[k - 1];
-      for (int j0 = 0; j0 < kChunk; j0 += 32) {
-        const float s = sc[qi * kChunk + j0 + lane];
-        const int p = chunk + j0 + lane;
-        unsigned m = __ballot_sync(kFull, better(s, p, ts, tp));
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const float cs = __shfl_sync(kFull, s, src);
-          const int cp = __shfl_sync(kFull, p, src);
-          if (better(cs, cp, ts, tp)) {
-            warp_insert(l_s, l_i, k, cs, cp, lane);
-            ts = l_s[k - 1];
-            tp = l_i[k - 1];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < QB * k; i += kThreads) {
-    const int qi = i / k;
-    if (q0 + qi < b) {
-      const size_t o = ((size_t)(q0 + qi) * num_slices + slice) * k + i % k;
-      cand_s[o] = ls[i];
-      cand_i[o] = li[i];
-    }
-  }
-}
-
 // Pass 2: one block per query. Warp w merges the sorted lists of slices
 // w, w + W, ... into its own list (slices whose best entry cannot beat the
 // list's k-th are skipped), then the warps' lists merge pairwise in a tree.
@@ -345,46 +176,6 @@ topk_pass2(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
       out_i[(size_t)qi * k + i] = a_i[i];
     }
   }
-}
-
-template <class Rows, int QB>
-cudaError_t launch_pass1(const Rows& rows, const void* mask, int n, int d,
-                         int b, int k, int num_valid, int rows_per_slice,
-                         int num_slices, void* cand_s, void* cand_i,
-                         cudaStream_t stream) {
-  const size_t smem = pass1_smem<Rows>(QB, d, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_pass1<Rows, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((b + QB - 1) / QB, num_slices);
-  topk_pass1<Rows, QB><<<grid, kThreads, smem, stream>>>(
-      rows, static_cast<const int8_t*>(mask), n, d, b, k, num_valid,
-      rows_per_slice, num_slices, static_cast<float*>(cand_s),
-      static_cast<int*>(cand_i));
-  return cudaGetLastError();
-}
-
-// Pass 1 for a query block of qb (1, 2, 4 or 8) rows.
-template <class Rows>
-cudaError_t dispatch_qb(int qb, const Rows& rows, const void* mask, int n,
-                        int d, int b, int k, int num_valid,
-                        int rows_per_slice, int num_slices, void* cand_s,
-                        void* cand_i, cudaStream_t stream) {
-#define ISF_QB_CASE(QB)                                                     \
-  case QB:                                                                  \
-    return launch_pass1<Rows, QB>(rows, mask, n, d, b, k, num_valid,        \
-                                  rows_per_slice, num_slices, cand_s,       \
-                                  cand_i, stream);
-  switch (qb) {
-    ISF_QB_CASE(1)
-    ISF_QB_CASE(2)
-    ISF_QB_CASE(4)
-    ISF_QB_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef ISF_QB_CASE
 }
 
 bool bad_plan(int n, int d, int b, int k, int rows_per_slice,

@@ -1,21 +1,22 @@
-// The pass 1 of K1's bf16, K2's int8 and K3's packed int4 row stores,
-// built for Hopper: the scores by TMA and wgmma, the selection by append
-// buffers that are sorted and merged only when they fill. The split-N plan,
-// the candidate layout and pass 2 are topk_common.cuh's; the PTX wrappers
-// hopper.cuh's. One kernel, templated on a tile policy (below) for what the
-// three stores do differently.
+// The pass 1 of K1's bf16 and f32, K2's int8 and K3's packed int4 row
+// stores, built for Hopper: the scores by TMA and wgmma, the selection by
+// append buffers that are sorted and merged only when they fill. The
+// split-N plan, the candidate layout and pass 2 are topk_common.cuh's; the
+// PTX wrappers hopper.cuh's. One kernel, templated on a tile policy (below)
+// for what the four stores do differently.
 //
 // Block (query block of QB, slice), 384 threads: warpgroup 2 produces,
 // warpgroups 0 and 1 consume.
 //   * The producer's first thread walks the slice's row tiles of 128 rows
-//     and, in each, the row's 128-byte chunks (64 bf16 columns, 128 int8
-//     columns, or 128 bytes of int4 nibble pairs): a stage of the ring holds
-//     one chunk of the tile's rows (16 KB) and the query block's columns
-//     that meet it (the policy's planes of QB x 128 bytes), all loaded by
-//     TMA into 128-byte swizzled tiles that complete on the stage's "full"
-//     mbarrier. TMA zero-fills rows past N, queries past b and columns past
-//     the row. Shared memory does not grow with D: the query block is never
-//     staged whole, its chunk is read again from L2 for every row tile.
+//     and, in each, the row's 128-byte chunks (64 bf16 columns, 32 f32
+//     columns, 128 int8 columns, or 128 bytes of int4 nibble pairs): a
+//     stage of the ring holds one chunk of the tile's rows (16 KB) and the
+//     query block's columns that meet it (the policy's planes of QB x 128
+//     bytes), all loaded by TMA into 128-byte swizzled tiles that complete
+//     on the stage's "full" mbarrier. TMA zero-fills rows past N, queries
+//     past b and columns past the row. Shared memory does not grow with D:
+//     the query block is never staged whole, its chunk is read again from
+//     L2 for every row tile.
 //   * Consumer w scores all 128 rows of a stage against its own half of
 //     the query block (queries w QB/2 .. + QB/2 - 1; at QB = 8 both take the
 //     8 queries and each keeps 4) by wgmma m64nN, N = max(8, QB/2), the two
@@ -28,11 +29,11 @@
 //     four warps (a named barrier), so while one checks and merges, the
 //     other's products run, as far ahead as the ring's stages reach (a
 //     stage is freed when both have read it).
-//   * Split rows (K3 at QB = 8, the policy's kSplit): both consumers
-//     would compute the same 8 queries' products, so instead consumer w
-//     takes the slice's row tiles w, w + 2, ..., all 8 queries each, in
-//     lists of its own (a stage is freed by the one consumer that reads
-//     it; each has its own "full" barrier a stage); a slice writes two
+//   * Split rows (K1's f32 and K3 at QB = 8, the policy's kSplit): both
+//     consumers would compute the same 8 queries' products, so instead
+//     consumer w takes the slice's row tiles w, w + 2, ..., all 8 queries
+//     each, in lists of its own (a stage is freed by the one consumer that
+//     reads it; each has its own "full" barrier a stage); a slice writes two
 //     candidate lists a query (wg_candidate_lists) and pass 2 merges them
 //     all. Rows still reach each list in ascending position, so the
 //     selection's rules hold.
@@ -41,7 +42,8 @@
 // do differently:
 //   using Acc = float or int;        the sums' type
 //   kPlanes                          query planes of 128 bytes a query in a
-//                                    stage (int4: the lo and the hi columns)
+//                                    stage (int4: the lo and the hi columns;
+//                                    f32: its TF32 hi and lo parts)
 //   kChunkCols                       elements in a row's 128-byte chunk
 //   kFactors                         a (scale, offset) a query, staged in
 //                                    shared memory at the start
@@ -49,6 +51,8 @@
 //                                    longest append buffer
 //   chunks(d)                        a row's chunks at logical width d
 //   maps(...)                        the TMA maps of rows and query (host)
+//   query_box(c, q0)                 the query map's coordinates of chunk
+//                                    c's planes for the block's queries
 //   struct Regs                      registers the products read after
 //                                    they are issued (register A
 //                                    fragments), and their fence()
@@ -77,7 +81,7 @@
 // plain version forms it (offset 8 sum(q) for K3, 0 for K2), so the
 // scores are equal bit for bit; it is formed in the registers after the
 // tile's last chunk, and x_scale of the thread's four rows is loaded at
-// the tile's start.
+// the tile's start. K1's f32 store (WgF32): split TF32, below.
 //
 // Selection. A list of k (score, position) per query, best first, and its
 // threshold (the k-th score, -inf while the list is short) in shared
@@ -362,20 +366,29 @@ __device__ void wg_merge(float* ls, int* li, int k, float* bs, int* bp,
     wg_merge_sorted<8>(ls, li, k, bs, bp, nv, lane);
 }
 
-// A [rows, cols] row-major tensor as a TMA map: bf16 (boxes of 64 columns)
-// or, with `bytes`, uint8 (boxes of 128) x box_rows rows, 128-byte swizzle,
-// rows and columns past the tensor zero-filled (rank 4, the last two dims
-// of size 1, as tma_load_4d takes).
+// The element types of the maps: uint8, bf16 or f32
+inline int wg_elem_bytes(CUtensorMapDataType type) {
+  return type == CU_TENSOR_MAP_DATA_TYPE_UINT8      ? 1
+         : type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
+                                                    : 4;
+}
+
+// `planes` [planes][rows][cols] row-major tensors of `type` as one TMA map:
+// boxes of 128 bytes of columns (128 uint8, 64 bf16 or 32 f32) x box_rows
+// rows x all the planes, 128-byte swizzle, rows and columns past the tensor
+// zero-filled (rank 4, the last dim of size 1, as tma_load_4d takes).
 bool wg_map(CUtensorMap* map, hopper::EncodeTiled encode, const void* base,
-            int rows, int cols, int box_rows, bool bytes) {
-  const cuuint64_t row = (cuuint64_t)cols * (bytes ? 1 : 2);
-  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, 1, 1};
-  const cuuint64_t strides[3] = {row, row * rows, row * rows};
-  const cuuint32_t box[4] = {bytes ? 128u : 64u, (cuuint32_t)box_rows, 1, 1};
-  return hopper::tensor_map_sw128(
-      map, encode,
-      bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      base, 4, dims, strides, box);
+            int rows, int cols, int box_rows, CUtensorMapDataType type,
+            int planes = 1) {
+  const int elem = wg_elem_bytes(type);
+  const cuuint64_t row = (cuuint64_t)cols * elem;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes, 1};
+  const cuuint64_t strides[3] = {row, row * rows, row * rows * planes};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows,
+                             (cuuint32_t)planes, 1};
+  return hopper::tensor_map_sw128(map, encode, type, base, 4, dims, strides,
+                                  box);
 }
 
 // The store's map depends on (pointer, rows, columns, type) alone, so it is
@@ -383,11 +396,11 @@ bool wg_map(CUtensorMap* map, hopper::EncodeTiled encode, const void* base,
 // stores, the oldest replaced first; the lock makes it safe from several
 // host threads.
 bool wg_store_map(CUtensorMap* map, hopper::EncodeTiled encode,
-                  const void* x, int n, int cols, bool bytes) {
+                  const void* x, int n, int cols, CUtensorMapDataType type) {
   struct Entry {
     const void* x;
     int n, cols;
-    bool bytes;
+    CUtensorMapDataType type;
     CUtensorMap map;
   };
   static std::mutex mu;
@@ -395,15 +408,32 @@ bool wg_store_map(CUtensorMap* map, hopper::EncodeTiled encode,
   static int next = 0;
   std::lock_guard<std::mutex> lock(mu);
   for (const Entry& e : kept)
-    if (e.x == x && e.n == n && e.cols == cols && e.bytes == bytes) {
+    if (e.x == x && e.n == n && e.cols == cols && e.type == type) {
       *map = e.map;
       return true;
     }
-  if (!wg_map(map, encode, x, n, cols, kWgRows, bytes)) return false;
-  kept[next] = Entry{x, n, cols, bytes, *map};
+  if (!wg_map(map, encode, x, n, cols, kWgRows, type)) return false;
+  kept[next] = Entry{x, n, cols, type, *map};
   next = (next + 1) % 8;
   return true;
 }
+
+// The register A fragments of the policies that split A in registers (K3's
+// nibbles, K1's f32 hi and lo parts): two buffers (k-steps in turn) of
+// both row tiles' two parts, 4 registers each; a buffer is refilled once
+// the wait has completed the group that read it.
+template <int N>
+struct WgRegsRS {
+  uint32_t a[2][2][8];
+  __device__ void fence() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) hopper::reg_fence(a[i][rt][e]);
+  }
+};
 
 // One stage's products with both operands in the stage (K1, K2): MMA's
 // k-steps of 32 bytes, 4 a chunk, A the two 64-row tiles, B the consumer's
@@ -449,8 +479,12 @@ struct WgBf16 {
   static bool maps(CUtensorMap* tx, CUtensorMap* tq,
                    hopper::EncodeTiled encode, const void* x, const void* q,
                    int n, int d, int b, int qb) {
-    return wg_store_map(tx, encode, x, n, d, false) &&
-           wg_map(tq, encode, q, b, d, qb, false);
+    return wg_store_map(tx, encode, x, n, d,
+                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) &&
+           wg_map(tq, encode, q, b, d, qb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  }
+  __device__ static int4 query_box(int c, int q0) {
+    return make_int4(c * kChunkCols, q0, 0, 0);
   }
   template <int N, class Settle, class Release>
   __device__ void chunk(float (&acc)[2][N / 2], Regs<N>&, const uint8_t* st,
@@ -483,28 +517,15 @@ struct WgInt {
   const float* q_scale;
   const int* q_off;
 
-  // K3's A fragments: two buffers (k32 steps in turn) of lo + 8 and hi + 8
-  // of both row tiles; a buffer is refilled once the wait has completed
-  // the group that read it (groups of two k32 steps or the whole chunk
-  // measured no faster; PERF.md §6)
-  template <int N>
-  struct RegsRS {
-    uint32_t a[2][2][8];
-    __device__ void fence() {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) hopper::reg_fence(a[i][rt][e]);
-    }
-  };
+  // K3's A fragments: lo + 8 and hi + 8, one k32 step a buffer (groups
+  // of two k32 steps or the whole chunk measured no faster; PERF.md §6)
   template <int N>
   struct RegsNone {
     __device__ void fence() {}
   };
   template <int N>
-  using Regs = typename std::conditional<kInt4, RegsRS<N>, RegsNone<N>>::type;
+  using Regs =
+      typename std::conditional<kInt4, WgRegsRS<N>, RegsNone<N>>::type;
 
   // a row's bytes, and its 128-byte chunks, at logical width d
   static int row_bytes(int d) { return kInt4 ? d / 2 : d; }
@@ -515,8 +536,11 @@ struct WgInt {
   static bool maps(CUtensorMap* tx, CUtensorMap* tq,
                    hopper::EncodeTiled encode, const void* x, const void* q,
                    int n, int d, int b, int qb) {
-    if (!wg_store_map(tx, encode, x, n, row_bytes(d), true)) return false;
-    if (!kInt4) return wg_map(tq, encode, q, b, d, qb, true);
+    if (!wg_store_map(tx, encode, x, n, row_bytes(d),
+                      CU_TENSOR_MAP_DATA_TYPE_UINT8))
+      return false;
+    if (!kInt4)
+      return wg_map(tq, encode, q, b, d, qb, CU_TENSOR_MAP_DATA_TYPE_UINT8);
     const cuuint64_t planes = 2 * (cuuint64_t)chunks(d);
     const cuuint64_t dims[4] = {128, (cuuint64_t)b, planes, 1};
     const cuuint64_t strides[3] = {128, 128 * (cuuint64_t)b,
@@ -524,6 +548,11 @@ struct WgInt {
     const cuuint32_t box[4] = {128, (cuuint32_t)qb, 2, 1};
     return hopper::tensor_map_sw128(tq, encode, CU_TENSOR_MAP_DATA_TYPE_UINT8,
                                     q, 4, dims, strides, box);
+  }
+  // int8: chunk c's columns; int4: chunk c's two planes
+  __device__ static int4 query_box(int c, int q0) {
+    return kInt4 ? make_int4(0, q0, 2 * c, 0)
+                 : make_int4(c * kChunkCols, q0, 0, 0);
   }
 
   template <int N, class Settle, class Release>
@@ -592,6 +621,107 @@ struct WgInt {
         __fmul_rn(__fmul_rn(__int2float_rn(v - f.off), f.scale), xs));
   }
   __device__ static float value(int v) { return __int_as_float(v); }
+};
+
+// K1's f32 store: split TF32 ("3xTF32"). An f32 value v is carried as
+// hi = tf32_rna(v) and lo = tf32_rna(v - hi), TF32 parts of 11 significant
+// bits each; a pair's product is x_hi q_hi + x_hi q_lo + x_lo q_hi (x_lo q_lo,
+// below 2^-22 of it, is dropped), each term exact, summed in the f32
+// accumulators by three TF32 wgmma a k8 step. The query is split once, by
+// the launch sequence's first kernel, into planes [2][b][d] (hi, then lo),
+// which one TMA box a stage brings in (chunk c's 32 columns of both); each
+// k8 step's A fragment is ldmatrix'd from the swizzled f32 stage and split
+// in registers (two buffers, one k8 step a group, as K3's nibbles).
+//
+// Error. Each of hi + lo is within 2^-24 of v relative (the remainder after
+// hi is at most 2^-12 of v, and lo keeps 11 bits of it), so a product is
+// within about 3 * 2^-24 of x q: on unit rows the scores stay within ~1e-6
+// of the plain version's f32 sums, far inside SCORE_TOL (1e-5).
+// Exactness. hi + lo equals v exactly when v has at most 23 significant
+// bits (the rounding of hi to nearest leaves a remainder of at most 11
+// bits): every integer below 2^23 and every half-integer below 2^22. An
+// integer of at most 11 significant bits (|v| < 2048, say) has lo = 0, so
+// the dropped x_lo q_lo is 0 when either operand is such an integer. l2
+// over SIFT-shaped integer rows (components below 256, queries and their
+// -1 on the norm column integers too) therefore sums exact products: the
+// norm column 0.5 |x|^2 (below 2^22 for 128 components under 2^8, ~2^17
+// in SIFT1M) is carried exactly, and sums below 2^23 stay exact in f32. A
+// norm column of 2^22 or more with a half (|x|^2 >= 2^23, odd), or of 2^23
+// or more, is rounded in lo (one unit of 2^-24 relative), where the FMA
+// route of the plain version keeps f32's 24 bits.
+struct WgF32 {
+  using Acc = float;
+  static constexpr int kPlanes = 2;
+  static constexpr int kChunkCols = 32;
+  static constexpr bool kFactors = false;
+  // at QB = 8 both consumers would compute the same 8 queries' products,
+  // three TF32 wgmma a k8 step: each takes alternate row tiles instead
+  static constexpr bool kSplit = true;
+  static constexpr int kCapMax = kWgCapMax;
+  // the A fragments: hi and lo, one k8 step a buffer
+  template <int N>
+  using Regs = WgRegsRS<N>;
+  static int chunks(int d) { return (d + kChunkCols - 1) / kChunkCols; }
+  // the store [n, d] as it lies; the query planes [2][b][d], one box of 32
+  // columns x qb x 2 planes a stage
+  static bool maps(CUtensorMap* tx, CUtensorMap* tq,
+                   hopper::EncodeTiled encode, const void* x, const void* q,
+                   int n, int d, int b, int qb) {
+    return wg_store_map(tx, encode, x, n, d,
+                        CU_TENSOR_MAP_DATA_TYPE_FLOAT32) &&
+           wg_map(tq, encode, q, b, d, qb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  2);
+  }
+  __device__ static int4 query_box(int c, int q0) {
+    return make_int4(c * kChunkCols, q0, 0, 0);
+  }
+  template <int N, class Settle, class Release>
+  __device__ void chunk(float (&acc)[2][N / 2], Regs<N>& regs,
+                        const uint8_t* st, int qb, int bcol0, int c,
+                        Settle settle, Release release) const {
+    using namespace hopper;
+    const int lane = threadIdx.x % 32;
+    // this lane's ldmatrix row (row l % 16 of its warp's 16) and its
+    // 16-byte half (4 columns) of a k8 step; a row's 16-byte chunk j lies
+    // at j ^ (row % 8)
+    const uint32_t a_row =
+        smem_u32(st) + (threadIdx.x % 128 / 32 * 16 + lane % 16) * 128;
+    const int sw = lane % 8, half = lane / 16;
+    const uint64_t dhi = desc_sw128(st + kWgRowBytes + bcol0 * 128);
+    const uint64_t dlo = desc_sw128(st + kWgRowBytes + (qb + bcol0) * 128);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t(&a)[2][8] = regs.a[kk % 2];
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt) {
+        uint32_t w[4];
+        ldsm_x4(w, a_row + rt * 64 * 128 + (((2 * kk + half) ^ sw) << 4));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = __uint_as_float(w[i]);
+          a[rt][i] = tf32_rna(v);                                   // hi
+          a[rt][4 + i] = tf32_rna(v - __uint_as_float(a[rt][i]));   // lo
+        }
+      }
+      settle();
+      wgmma_fence();
+      // the small terms first, then x_hi q_hi
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt) {
+        WgmmaTF32<N>::run(acc[rt], &a[rt][4], dhi + 2 * kk, c + kk);
+        WgmmaTF32<N>::run(acc[rt], &a[rt][0], dlo + 2 * kk, 1);
+        WgmmaTF32<N>::run(acc[rt], &a[rt][0], dhi + 2 * kk, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      settle();
+      // the chunk before had its last group in flight until this wait
+      if (kk == 0 && c > 0) release();
+    }
+  }
+  __device__ void row_factors(float (&)[2][2], int, int) const {}
+  __device__ void score(float&, const WgFactor&, float) const {}
+  __device__ static float value(float v) { return v; }
 };
 
 template <class Tile, int QB>
@@ -676,11 +806,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           mbar_expect_tx(f, (uint32_t)o.stage);
           tma_load_4d(st, &tx, f, c * Tile::kChunkCols,
                       row_begin + t * kWgRows, 0, 0);
-          if constexpr (Tile::kPlanes == 2)   // both planes of chunk c
-            tma_load_4d(st + kWgRowBytes, &tq, f, 0, q0, 2 * c, 0);
-          else
-            tma_load_4d(st + kWgRowBytes, &tq, f, c * Tile::kChunkCols, q0,
-                        0, 0);
+          const int4 qc = Tile::query_box(c, q0);   // every plane of chunk c
+          tma_load_4d(st + kWgRowBytes, &tq, f, qc.x, qc.y, qc.z, qc.w);
           if (++s == a.stages) {
             s = 0;
             ph ^= 1;

@@ -108,11 +108,9 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.isf_topk_matmul.argtypes = [p, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, i, i, p]
-        lib.isf_topk_matmul.restype = i
-        lib.isf_topk_pass1_smem.argtypes = [i, i, i]
-        lib.isf_topk_pass1_smem.restype = ctypes.c_longlong
+        lib.isf_topk_matmul_f32_wgmma.argtypes = [p, p, p, p, p, p, p, p,
+                                                  i, i, i, i, i, i, i, i, p]
+        lib.isf_topk_matmul_f32_wgmma.restype = i
         lib.isf_topk_matmul_wgmma.argtypes = [p, p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, i, p]
         lib.isf_topk_matmul_wgmma.restype = i

@@ -11,19 +11,21 @@ each -> ``(scores [B, k] f32 sorted descending, row positions [B, k]
 int32)``.
 
 Each wrapper launches its hand-written CUDA kernel
-(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``; bf16,
-int8 and int4 stores score by TMA and wgmma in the one pass 1 of
-``topk_wgmma.cuh``, an f32 store on the CUDA cores) for tensors on a CUDA
+(``instsearch_torch/csrc/topk_matmul.cu``, ``topk_matmul_int.cu``; every
+store, bf16, f32, int8 and int4, scores by TMA and wgmma in the one pass 1
+of ``topk_wgmma.cuh``, an f32 store by split TF32) for tensors on a CUDA
 device and takes its plain PyTorch version (``*_reference``) for tensors on
 the CPU. A CUDA tensor the kernel cannot take raises; nothing falls back.
 Each counts its kernel launches in ``.launches``, and those given a subset
 ``mask`` in ``.launches_subset`` too; the launches through the TMA + wgmma
-pass 1 (every one of K2 and K3, K1's over a bf16 store) in
-``.launches_wgmma`` as well.
+pass 1 (every one) in ``.launches_wgmma`` as well, and K1's over an f32
+store in ``topk_matmul.launches_f32``.
 
 Semantics shared by the kernels, their plain versions and the TPU kernels:
   * K1: the query is cast to the store's dtype first, products accumulate
-    in f32;
+    in f32 (an f32 store's products by split TF32 on the card, each within
+    ~2^-22 of the f32 product and exact on integer rows of up to 23
+    significant bits: ``csrc/topk_wgmma.cuh``, ``WgF32``);
   * K2/K3: the query is quantized per row to int8
     (``ops/quantize.py::quantize_rows``; on the card by the first kernel of
     the launch sequence, ``quantize_query``), the product is an exact int32
@@ -44,18 +46,18 @@ from ..ops.quantize import quantize_rows, unpack_int4
 from ..search.bruteforce import masked_scores, select_topk
 
 K_MAX = 1024            # longest list the kernel keeps (shared memory bound)
-_CHUNK = 256            # rows per selection round; kChunk in topk_common.cuh
-_SMEM_BUDGET = 200 * 1024   # the FMA pass 1's, under the 227 KB of a block
+_CHUNK = 256            # rows a slice is a multiple of; kChunk in
+#                         topk_common.cuh
 _SMEM_LIMIT = 232_448   # the 227 KB a Hopper block may use
-_QB_FMA = (1, 8)        # query blocks the f32 FMA pass 1 is built for
-_QB_WG = (8, 128)       # and the TMA + wgmma pass 1's (bf16, int8, int4)
+_QB_WG = (8, 128)       # query blocks of the TMA + wgmma pass 1
 _WG_ROWS = 128          # store rows a stage of it; kWgRows in topk_wgmma.cuh
 # its tile policies: (query planes of 128 bytes a query in a stage, a
 # staged (scale, offset) a query, the consumers splitting the row tiles at a
 # query block of 8, each with lists of its own, the longest append buffer);
-# kPlanes, kFactors, kSplit, kCapMax in topk_wgmma.cuh
+# kPlanes, kFactors, kSplit, kCapMax in topk_wgmma.cuh (f32: the query's
+# TF32 hi and lo planes)
 _WG_KINDS = {"bfloat16": (1, False, False, 256), "int8": (1, True, False, 64),
-             "int4": (2, True, True, 64)}
+             "int4": (2, True, True, 64), "float32": (2, False, True, 256)}
 # its ring stages, each with the fewest buffer entries a query it takes
 # (None: the kind's longest), in the order it tries them; wg_layout in
 # topk_wgmma.cuh
@@ -241,8 +243,7 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _plan(smem, n: int, d: int, b: int, k: int, device,
-          qbs: tuple[int, int] = _QB_FMA,
-          budget: int = _SMEM_BUDGET) -> tuple[int, int, int]:
+          qbs: tuple[int, int], budget: int) -> tuple[int, int, int]:
     """(query block, rows per slice, slices) for one launch; ``smem(qb)`` is
     the kernel's pass-1 shared memory for a query block of qb rows, a power
     of two in ``qbs`` (narrowest, widest) as wide as b allows and ``budget``
@@ -268,16 +269,17 @@ def _plan(smem, n: int, d: int, b: int, k: int, device,
 
 def wgmma_layout(qb: int, k: int, kind: str = "bfloat16"
                  ) -> "tuple[int, int, int]":
-    """The TMA + wgmma pass 1 over a ``kind`` store (``"bfloat16"`` K1,
-    ``"int8"`` K2, ``"int4"`` K3) for a query block of ``qb`` and lists of
-    ``k``: (ring stages, append-buffer entries a query, shared memory in
-    bytes) as ``csrc/topk_wgmma.cuh::wg_layout`` plans them; (0, 0, huge)
-    if none fits. The ring's stages hold 128 rows and ``qb`` queries x 128
-    bytes in each query plane (int4: two, its lo and hi columns); the lists
-    and buffers 8 bytes an entry, the buffers as long as fits (a multiple
-    of 16, at most 256; K2/K3 64); K2/K3 add 8 bytes a query of factors,
-    and K3 at a query block of 8 keeps two lists (and buffers) a query
-    (``wg_candidate_lists``) and a "full" barrier a stage for each
+    """The TMA + wgmma pass 1 over a ``kind`` store (``"bfloat16"`` and
+    ``"float32"`` K1, ``"int8"`` K2, ``"int4"`` K3) for a query block of
+    ``qb`` and lists of ``k``: (ring stages, append-buffer entries a query,
+    shared memory in bytes) as ``csrc/topk_wgmma.cuh::wg_layout`` plans
+    them; (0, 0, huge) if none fits. The ring's stages hold 128 rows and
+    ``qb`` queries x 128 bytes in each query plane (int4: two, its lo and
+    hi columns; f32: two, the query's TF32 hi and lo parts); the lists and
+    buffers 8 bytes an entry, the buffers as long as fits (a multiple of
+    16, at most 256; K2/K3 64); K2/K3 add 8 bytes a query of factors, and
+    K3 and the f32 store at a query block of 8 keep two lists (and buffers)
+    a query (``wg_candidate_lists``) and a "full" barrier a stage for each
     consumer."""
     planes, factors, _, cap_max = _WG_KINDS[kind]
     lists = wg_candidate_lists(qb, 1, kind) * qb
@@ -296,9 +298,10 @@ def wgmma_layout(qb: int, k: int, kind: str = "bfloat16"
 def wg_candidate_lists(qb: int, slices: int, kind: str) -> int:
     """The candidate lists a query gets from the TMA + wgmma pass 1 over
     ``slices`` slices, which pass 2 merges: one a slice, or two where the
-    two consumer warpgroups take alternate row tiles of a slice (K3 at a
-    query block of 8, where both would otherwise compute the same 8
-    queries' products); ``topk_wgmma.cuh::wg_candidate_lists``."""
+    two consumer warpgroups take alternate row tiles of a slice (K3 and
+    K1's f32 store at a query block of 8, where both would otherwise
+    compute the same 8 queries' products);
+    ``topk_wgmma.cuh::wg_candidate_lists``."""
     return slices * (2 if _WG_KINDS[kind][2] and qb == 8 else 1)
 
 
@@ -387,16 +390,17 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
                 mask: "torch.Tensor | None" = None):
     """K1: fused top-k over ``x`` for queries ``q``; see the module
     docstring. ``mask``: optional ``[1, N]`` (or ``[N]``) int8 allow-list.
-    On CUDA a bf16 store scores on the tensor cores by TMA and wgmma, an
-    f32 store on the CUDA cores."""
+    On CUDA both stores score on the tensor cores by TMA and wgmma: bf16
+    directly, f32 by split TF32 (the launch sequence splits the query into
+    TF32 hi and lo planes first)."""
     _check_args(x, q, k)
     if x.device.type == "cpu":
         return topk_matmul_reference(x, q, k, num_valid, mask)
     n, d = x.shape
     b = q.shape[0]
     if d % 8:
-        raise ValueError(f"D={d}: the kernel reads rows as 16-byte vectors "
-                         f"and needs D % 8 == 0")
+        raise ValueError(f"D={d}: the kernel loads rows by TMA in 16-byte "
+                         f"multiples and needs D % 8 == 0")
     q = q.to(x.dtype)
     mask = _cuda_operands(x, mask, q=q)
     nv = _num_valid(n, num_valid)
@@ -404,21 +408,24 @@ def topk_matmul(x: torch.Tensor, q: torch.Tensor, k: int = 10,
     from . import _build
     lib = _build.load()
     m_ptr = mask.data_ptr() if mask is not None else None
-    if x.dtype == torch.bfloat16:
-        qb, rows, slices = _wg_plan("bfloat16", n, d, b, k, x.device)
-        entry = lib.isf_topk_matmul_wgmma
-    else:
-        qb, rows, slices = _plan(lambda w: lib.isf_topk_pass1_smem(w, d, k),
-                                 n, d, b, k, x.device)
-        entry = lib.isf_topk_matmul
+    f32 = x.dtype == torch.float32
+    kind = "float32" if f32 else "bfloat16"
+    qb, rows, slices = _wg_plan(kind, n, d, b, k, x.device)
 
-    def launch(out_s, out_i, cand_s, cand_i, _, stream):
-        return entry(x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s,
-                     cand_i, n, d, b, k, nv, qb, rows, slices, stream)
+    def launch(out_s, out_i, cand_s, cand_i, scratch, stream):
+        if f32:     # the query's TF32 planes in the scratch
+            return lib.isf_topk_matmul_f32_wgmma(
+                x.data_ptr(), q.data_ptr(), scratch, m_ptr, out_s, out_i,
+                cand_s, cand_i, n, d, b, k, nv, qb, rows, slices, stream)
+        return lib.isf_topk_matmul_wgmma(
+            x.data_ptr(), q.data_ptr(), m_ptr, out_s, out_i, cand_s, cand_i,
+            n, d, b, k, nv, qb, rows, slices, stream)
 
-    out = _launch(topk_matmul, launch, x, b, k, slices,
-                  masked=mask is not None)
-    topk_matmul.launches_wgmma += x.dtype == torch.bfloat16
+    out = _launch(topk_matmul, launch, x, b, k,
+                  wg_candidate_lists(qb, slices, kind),
+                  scratch=8 * b * d if f32 else 0, masked=mask is not None)
+    topk_matmul.launches_wgmma += 1
+    topk_matmul.launches_f32 += f32
     return out
 
 
@@ -528,4 +535,5 @@ def topk_matmul_int4(x_packed: torch.Tensor, scales: torch.Tensor,
 # them
 for _fn in (topk_matmul, topk_matmul_int8, topk_matmul_int4):
     _fn.launches = _fn.launches_subset = _fn.launches_wgmma = 0
+topk_matmul.launches_f32 = 0    # K1's launches over an f32 store
 quantize_query.launches = 0

@@ -113,14 +113,16 @@ def test_cuda_kernel_matches_plain_version(gen, dtype):
     for xx, k, nv, m in ((x, 10, None, None), (x, 100, 69_000, mask),
                          (x, 1, 5, None), (x, 300, None, None),
                          (x, 16, 7, None), (dup, 50, None, None)):
-        before = (topk_matmul.launches, topk_matmul.launches_wgmma)
+        before = (topk_matmul.launches, topk_matmul.launches_wgmma,
+                  topk_matmul.launches_f32)
         s, i = topk_matmul(xx, q, k=k, num_valid=nv, mask=m)
         rs, ri = topk_matmul_reference(xx, q, k=k, num_valid=nv, mask=m)
         torch.cuda.synchronize()
-        # a bf16 store takes the TMA + wgmma pass 1
-        bf16 = dtype is torch.bfloat16
-        assert (topk_matmul.launches, topk_matmul.launches_wgmma) == (
-            before[0] + 1, before[1] + bf16)
+        # both stores take the TMA + wgmma pass 1 (f32: split TF32)
+        f32 = dtype is torch.float32
+        assert (topk_matmul.launches, topk_matmul.launches_wgmma,
+                topk_matmul.launches_f32) == (
+            before[0] + 1, before[1] + 1, before[2] + f32)
         check_against_plain(xx, q, s, i, rs, ri, TOL)
         if nv is not None and nv < k:
             assert (i[:, nv:] == -1).all() and torch.isneginf(s[:, nv:]).all()
@@ -133,7 +135,7 @@ def test_cuda_kernel_matches_plain_version(gen, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8", "int4"])
 @pytest.mark.parametrize("b", [1, 8, 13])
 def test_empty_slices_after_full_lists(gen, kind, b):
     """F7: k = 200 over 1,024 padded rows with 56 valid (three of four
@@ -146,18 +148,21 @@ def test_empty_slices_after_full_lists(gen, kind, b):
     # K1's calls (a full store, then the padded one, 100 times a case) go
     # through the TMA + wgmma pass 1
     assert topk_matmul.launches_wgmma == wgmma + (
-        400 if kind == "bfloat16" else 0)
+        400 if kind in ("bfloat16", "float32") else 0)
 
 
 def _check_k1(x, q, k, num_valid=None, mask=None):
-    """One K1 launch held to its plain version; returns the positions."""
-    before = (topk_matmul.launches, topk_matmul.launches_wgmma)
+    """One K1 launch held to its plain version, through the TMA + wgmma
+    pass 1 (an f32 store's: split TF32); returns the positions."""
+    before = (topk_matmul.launches, topk_matmul.launches_wgmma,
+              topk_matmul.launches_f32)
     s, i = topk_matmul(x, q, k=k, num_valid=num_valid, mask=mask)
     rs, ri = topk_matmul_reference(x, q, k=k, num_valid=num_valid, mask=mask)
     torch.cuda.synchronize()
-    bf16 = x.dtype == torch.bfloat16
-    assert (topk_matmul.launches, topk_matmul.launches_wgmma) == (
-        before[0] + 1, before[1] + bf16)
+    f32 = x.dtype == torch.float32
+    assert (topk_matmul.launches, topk_matmul.launches_wgmma,
+            topk_matmul.launches_f32) == (before[0] + 1, before[1] + 1,
+                                          before[2] + f32)
     check_against_plain(x, q, s, i, rs, ri, TOL)
     if mask is not None:
         assert (mask[i[i >= 0].long()] > 0).all()
@@ -193,6 +198,64 @@ def test_bf16_kernel_matches_plain_version(gen, b, d):
     copies = torch.arange(80, device="cuda")
     assert (i[:, :80] // 500 == copies).all()
     assert (i[:, :80] % 500 == i[:, :1] % 500).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 136, 512, 2048])
+@pytest.mark.parametrize("b", [1, 8, 13, 128])
+def test_f32_kernel_matches_plain_version(gen, b, d):
+    """The f32 store on the TMA + wgmma pass 1 by split TF32 (``WgF32``),
+    for k up to K_MAX (256: ``search_range``'s phase-15a depth), with
+    padding rows, a 50% mask, duplicated rows and a row count that ends
+    inside a row tile; D = 8 fills a quarter of a 32-column chunk, D = 136
+    (phase 15a's l2 store) ends inside its fifth."""
+    n = 40_000
+    x = _unit(gen, n, d)
+    q = _unit(gen, b, d)
+    for k in (1, 10, 100, 256, 1024):
+        _check_k1(x, q, k)
+    ragged = x[:n - 45]                     # 39,955 rows: 15 past a tile
+    for k in (10, 200):
+        _check_k1(ragged, q, k)
+        _check_k1(ragged, q, k, num_valid=n - 45 - 70)
+    _check_k1(x, q, 10, num_valid=5)
+    mask = (torch.rand(n, generator=gen, device="cuda") < 0.5
+            ).to(torch.int8)
+    _check_k1(x, q, 100, mask=mask)
+    dup = x[:500].repeat(n // 500, 1).contiguous()     # exact ties
+    i = _check_k1(dup, q, 100)
+    copies = torch.arange(80, device="cuda")
+    assert (i[:, :80] // 500 == copies).all()
+    assert (i[:, :80] % 500 == i[:, :1] % 500).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 128])
+def test_f32_kernel_is_exact_on_integer_rows(gen, b):
+    """Phase 15a's store in small: SIFT-shaped integer rows (``round(128
+    u^2)``) with the l2 norm column ``0.5 |x|^2`` (half-integers near 2^17,
+    inside split TF32's exact range) against integer queries with -1 on it:
+    every product and partial sum is exact in f32, so the kernel's scores
+    equal the exact f64 sums of the rows it returns, bit for bit, and its
+    answer the plain version's (both exact; ties by position)."""
+    n, d = 200_000, 128
+    u = torch.rand((n, d), generator=gen, device="cuda")
+    rows = (128.0 * u * u).round()
+    x = torch.zeros((n, 136), device="cuda")
+    x[:, :d] = rows
+    x[:, d] = 0.5 * (rows * rows).sum(1)
+    src = torch.randint(0, n, (b,), generator=gen, device="cuda")
+    q = torch.zeros((b, 136), device="cuda")
+    q[:, :d] = rows[src] + torch.randint(-3, 4, (b, d), generator=gen,
+                                         device="cuda")
+    q[:, d] = -1.0
+    for k in (10, 256):
+        s, i = topk_matmul(x, q, k=k)
+        rs, ri = topk_matmul_reference(x, q, k=k)
+        exact = (q.double()[:, None, :] * x.double()[i.long()]).sum(-1)
+        assert torch.equal(s.double(), exact)
+        assert torch.equal(i, ri) and torch.equal(s, rs)
+        assert (i[:, 0] == src).all()
 
 
 @pytest.mark.gpu
@@ -263,7 +326,7 @@ def test_bf16_plan_and_its_shared_memory(gen):
     assert _wg_plan("bfloat16", 1 << 20, 2048, 128, 200, dev)[0] == 64
     lib = _build.load()
     out = (ctypes.c_int * 2)()
-    for code, kind in enumerate(("bfloat16", "int8", "int4")):
+    for code, kind in enumerate(("bfloat16", "int8", "int4", "float32")):
         for qb in (8, 16, 32, 64, 128):
             for k in (1, 10, 32, 33, 100, 200, 1024):
                 stages, cap, total = wgmma_layout(qb, k, kind)

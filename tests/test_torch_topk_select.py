@@ -1,13 +1,16 @@
 """The selection arithmetic of the TMA + wgmma pass 1 on the card
-(``instsearch_torch/csrc/topk_wgmma.cuh``: K1 over a bf16 store, K2 over
-int8 and K3 over int4 rows) and pass 2 (``topk_common.cuh::topk_pass2``),
-emulated in torch on the CPU and held to the plain version bit for bit.
+(``instsearch_torch/csrc/topk_wgmma.cuh``: K1 over a bf16 or f32 store, K2
+over int8 and K3 over int4 rows) and pass 2
+(``topk_common.cuh::topk_pass2``), emulated in torch on the CPU and held to
+the plain version bit for bit.
 
-K1's scores are f32 sums of exact bf16 products, K2/K3's exact integer
-sums scaled as their plain versions scale them (tests/test_torch_topk_int.py
-holds the card's sums to those); the emulation takes the plain version's
-own scores (``masked_scores``, ``_int_scores``), so any difference would be
-the selection's. What it emulates, step for step:
+K1's scores are f32 sums of exact bf16 products or of split-TF32 products
+(tests/test_torch_topk_f32.py holds those to the plain version's), K2/K3's
+exact integer sums scaled as their plain versions scale them
+(tests/test_torch_topk_int.py holds the card's sums to those); the
+emulation takes the plain version's own scores (``masked_scores``,
+``_int_scores``), so any difference would be the selection's. What it
+emulates, step for step:
   * the plan: the query block the wrapper's ``_plan`` takes for B and k,
     and that block's append buffers (``wgmma_layout`` of the store's kind:
     their entries a query), slices of ``rows_per_slice`` rows, tiles of
@@ -244,18 +247,18 @@ def query_block(b, k, kind="bfloat16"):
 def emulate(x, q, k, rows_per_slice, queries, num_valid=None, mask=None,
             kind="bfloat16"):
     """The card's answer for ``queries`` (indices into q) over the store
-    ``x`` (bf16 rows, or ``QuantizedRows`` of the int8 / int4 ``kind``):
-    (scores [len, k] f32, positions [len, k] int32) and the buffer's
-    entries a query. Each is emulated with the other queries its consumer
-    warpgroup keeps (half a query block), whose buffers share its rounds;
-    int4 at a query block of 8: each consumer takes alternate row
-    tiles of a slice with all 8 queries in lists of its own, two candidate
-    lists a slice for pass 2 (``wg_candidate_lists``)."""
+    ``x`` (bf16 or f32 rows, or ``QuantizedRows`` of the int8 / int4
+    ``kind``): (scores [len, k] f32, positions [len, k] int32) and the
+    buffer's entries a query. Each is emulated with the other queries its
+    consumer warpgroup keeps (half a query block), whose buffers share its
+    rounds; int4 and f32 at a query block of 8: each consumer takes
+    alternate row tiles of a slice with all 8 queries in lists of its own,
+    two candidate lists a slice for pass 2 (``wg_candidate_lists``)."""
     b = q.shape[0]
     qb = query_block(b, k, kind)
     stages, cap, _ = wgmma_layout(qb, k, kind)
     assert stages, (qb, k)
-    if kind == "bfloat16":
+    if kind in ("bfloat16", "float32"):
         sc = masked_scores(x, q)
     else:
         sc = _int_scores(x.values, x.scales, q, kind == "int4")
@@ -302,6 +305,7 @@ def _case(case, rng, n, d):
 # the store kinds: (rows from f32, the plain version)
 KINDS = {
     "bfloat16": (lambda x: x.bfloat16(), topk_matmul_reference),
+    "float32": (lambda x: x, topk_matmul_reference),
     "int8": (quantize_rows, lambda x, q, *a: topk_matmul_int8_reference(
         x.values, x.scales, q, *a)),
     "int4": (quantize_rows_int4, lambda x, q, *a: topk_matmul_int4_reference(
@@ -309,23 +313,26 @@ KINDS = {
 }
 # the append buffer's entries a query at B = 128 by kind and k: narrower
 # than a tile wherever the lists are long; K2/K3's buffers at most 64;
-# int4's stages hold two query planes, so its buffers are narrower still
-# where 3 stages are all that fits
+# int4's and f32's stages hold two query planes, so their buffers are
+# narrower still where 3 stages are all that fits
 CAPS = {"bfloat16": {1: 80, 10: 80, 32: 64, 33: 80, 100: 144, 200: 96,
                      1024: 192},
+        "float32": {1: 64, 10: 64, 32: 48, 33: 32, 100: 80, 200: 48,
+                    1024: 128},
         "int8": dict.fromkeys((1, 10, 32, 33, 100, 200, 1024), 64),
         "int4": {1: 64, 10: 64, 32: 32, 33: 32, 100: 64, 200: 48,
                  1024: 64}}
 
 
-@pytest.mark.parametrize("kind", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8", "int4"])
 @pytest.mark.parametrize("case", ["duplicates", "mask50", "num_valid",
                                   "few_valid", "empty_slice"])
 @pytest.mark.parametrize("k", [1, 10, 32, 33, 100, 200, 1024])
 def test_selection_equals_plain_version(k, case, kind):
     """Three queries of a B = 128 batch (the query block, and so the
     buffers, of the kernel's plan at k for the store's kind) over 6,000
-    rows (bf16, or int8 / int4 quantized from the same rows; "duplicates"
+    rows (bf16, f32, or int8 / int4 quantized from the same rows;
+    "duplicates"
     gives exact ties, "few_valid" 7 valid rows and two slices with none)
     in slices of 2,048 (16 tiles, the last slice ragged), bit for bit."""
     rng = np.random.default_rng(k)
@@ -341,15 +348,16 @@ def test_selection_equals_plain_version(k, case, kind):
     assert cap == CAPS[kind][k]
 
 
-@pytest.mark.parametrize("kind", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8", "int4"])
 @pytest.mark.parametrize("case", ["duplicates", "empty_slice"])
 @pytest.mark.parametrize("k", [10, 100, 1024])
 def test_selection_at_a_query_block_of_8(k, case, kind):
-    """B = 8, the query block of 8: K1's and K2's consumers each keep 4
-    queries over every tile; K3's take alternate row tiles, each keeping
-    all 8 queries in lists of its own, two candidate lists a slice (16
-    tiles a slice: 8 each; the last slice ragged, 6,000 rows), bit for
-    bit."""
+    """B = 8, the query block of 8: K1's bf16 and K2's consumers each keep
+    4 queries over every tile; K1's f32 and K3's take alternate row tiles,
+    each keeping all 8 queries in lists of its own, two candidate lists a
+    slice (16 tiles a slice: 8 each; the last slice ragged, 6,000 rows),
+    bit for bit (f32's buffers: 192 entries at k = 1024, where its 2 KB
+    query planes a stage leave no room for 256)."""
     rng = np.random.default_rng(k + 1)
     n, d, b = 6000, 64, 8
     xn, num_valid, mask = _case(case, rng, n, d)
@@ -361,7 +369,8 @@ def test_selection_at_a_query_block_of_8(k, case, kind):
     rs, rp = ref(x, q, k, num_valid, mask)
     assert torch.equal(p, rp[queries]) and torch.equal(s, rs[queries])
     assert query_block(b, k, kind) == 8
-    assert cap == (256 if kind == "bfloat16" else 64)
+    assert cap == {"bfloat16": 256, "float32": 192 if k == 1024 else 256
+                   }.get(kind, 64)
 
 
 def test_buffer_rounds_and_merges_are_exercised():

@@ -4,11 +4,13 @@ PyTorch's ``scaled_dot_product_attention`` at the shapes the ViT routes
 launch, on one GPU.
 
     python3 tools/attention_sweep.py [--kernels mha,flash_mha]
-        [--root DIR | --pair PARENT_DIR]
+        [--dtype bfloat16|float32] [--root DIR | --pair PARENT_DIR]
 
 Run from anywhere; the package comes from the checkout this file lies in,
-or from ``--root``. For each shape, q, k and v are bf16 views of one seeded
-packed ``[B, N, 3, h, hd]`` projection, as the model passes them; the
+or from ``--root``. For each shape, q, k and v are bf16 (with ``--dtype
+float32``: f32, the kernels' CUDA-core forms ``mha_kernel_f32`` and
+``flash_kernel_f32`` at their own shapes, SDPA with TF32 off) views of one
+seeded packed ``[B, N, 3, h, hd]`` projection, as the model passes them; the
 kernel's answer is first held to its plain version by ``check_attention``,
 then one JSON line gives the CUDA-event medians (after warm-up) of single
 calls of the kernel's wrapper (``ms``, as ``chip_smoke.py`` times it), of
@@ -44,6 +46,12 @@ SHAPES = [("mha", (1, 12, 197, 64)), ("mha", (64, 12, 197, 64)),
           ("mha", (1, 12, 4097, 64)),
           ("flash_mha", (1, 12, 4097, 64)), ("flash_mha", (4, 12, 4097, 64)),
           ("flash_mha", (1, 12, 16385, 64))]
+# in f32: K6 at phase 1's batch and the extraction batch of 64 (its f32
+# form keeps 16 rows of logits, so no 4,097 tokens), K5 at phase 1's
+# [2, 12, 1025, 64] and at 1024 px
+SHAPES_F32 = [("mha", (8, 12, 197, 64)), ("mha", (64, 12, 197, 64)),
+              ("flash_mha", (2, 12, 1025, 64)),
+              ("flash_mha", (1, 12, 4097, 64))]
 
 
 def _chip_smoke():
@@ -81,6 +89,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="mha,flash_mha",
                     help="comma-separated, of mha and flash_mha")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     ap.add_argument("--root", default=HERE,
                     help="checkout whose instsearch_torch is timed")
     ap.add_argument("--pair", metavar="PARENT_DIR",
@@ -99,7 +109,7 @@ def main() -> int:
                                             ("parent", args.pair))):
             rc |= subprocess.run(
                 [sys.executable, os.path.abspath(__file__),
-                 f"--kernels={args.kernels}",
+                 f"--kernels={args.kernels}", f"--dtype={args.dtype}",
                  f"--root={os.path.abspath(root)}", f"--tree={tree}",
                  f"--run={run}"]).returncode
         return rc
@@ -109,26 +119,30 @@ def main() -> int:
         print("attention_sweep: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
+    torch.backends.cuda.matmul.allow_tf32 = False
     from instsearch_torch.kernels import vit_attention as va
     cs = _chip_smoke()
     card = cs.card_line()
     print(card, flush=True)
     tags = {"tree": args.tree, "run": args.run} if args.tree else {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, (b, h, n, hd) in SHAPES:
+    dtype = getattr(torch, args.dtype)
+    f32 = dtype is torch.float32
+    for name, (b, h, n, hd) in SHAPES_F32 if f32 else SHAPES:
         if name not in kernels:
             continue
         fn = getattr(va, name)
         ref = getattr(va, f"{name}_reference")
         qkv = torch.randn((b, n, 3, h, hd), generator=gen,
-                          device="cuda").to(torch.bfloat16)
+                          device="cuda").to(dtype)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
         err = va.check_attention(fn(q, k, v), ref(q, k, v))
         long = n > 2000
         ms = cs.cuda_median_ms(lambda: fn(q, k, v), reps=5 if long else 20)
         dev = device_ms(lambda: fn(q, k, v), name.replace("_mha", ""))
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-        cs.report(card, **tags, kernel=name, shape=[b, h, n, hd],
+        cs.report(card, **tags, kernel=name, dtype=args.dtype,
+                  shape=[b, h, n, hd],
                   rel_err=err["rel_err"], ms=ms, device_ms=dev,
                   host_ms=ms - dev,
                   plain_ms=cs.cuda_median_ms(lambda: ref(q, k, v),
@@ -137,7 +151,8 @@ def main() -> int:
                   sdpa_ms=cs.cuda_median_ms(sdpa, reps=5 if long else 20),
                   sdpa_device_ms=device_ms(sdpa, ""),
                   **cs.bound(4 * b * h * n * hd * q.element_size(),
-                             4 * b * h * n * n * hd, "bf16"))
+                             4 * b * h * n * n * hd,
+                             "f32" if f32 else "bf16"))
         del q, k, v, qkv
         torch.cuda.empty_cache()
     return 0

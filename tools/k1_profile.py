@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the TMA + wgmma pass 1 (``instsearch_torch/csrc/topk_wgmma.cuh``)
-of K1 (bf16 store), K2 (int8) or K3 (int4) spends its time, on one GPU.
+of K1 (bf16 or f32 store), K2 (int8) or K3 (int4) spends its time, on one
+GPU.
 
-    python3 tools/k1_profile.py [--rows 1048576] [--dtype bfloat16,int8,int4]
+    python3 tools/k1_profile.py [--rows 1048576]
+        [--dtype bfloat16,float32,int8,int4]
         [--shapes 512:128:10,512:128:100,2048:128:10,2048:128:200]
 
 Builds three forms of ``csrc/topk_matmul.cu`` (K1) or
 ``csrc/topk_matmul_int.cu`` (K2/K3) from this checkout's sources, each into
 a scratch folder of its own under the system's temporary directory (the
 package's build is untouched), and times them on a seeded store of unit
-rows (bf16, or quantized per row to int8 / int4), the forms in turn, twice
+rows (bf16, f32, or quantized per row to int8 / int4), the forms in turn,
+twice
 each:
   * ``kernel``: the sources as they are (every answer first held to the
     plain version by ``check_against_plain``, K2/K3 by ``check_exact``);
@@ -100,7 +103,8 @@ extern "C" double isf_query_map_us(const void* q, int b, int d, int qb,
   const hopper::EncodeTiled encode = hopper::encode_tiled();
   CUtensorMap map;
   const auto t0 = std::chrono::steady_clock::now();
-  for (int i = 0; i < reps; ++i) wg_map(&map, encode, q, b, d, qb, false);
+  for (int i = 0; i < reps; ++i)
+    wg_map(&map, encode, q, b, d, qb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
   return std::chrono::duration<double, std::micro>(
              std::chrono::steady_clock::now() - t0).count() / reps;
 }
@@ -108,8 +112,8 @@ extern "C" double isf_query_map_us(const void* q, int b, int d, int qb,
 
 
 # the source each store kind's kernel is built from
-SOURCES = {"bfloat16": "topk_matmul.cu", "int8": "topk_matmul_int.cu",
-           "int4": "topk_matmul_int.cu"}
+SOURCES = {"bfloat16": "topk_matmul.cu", "float32": "topk_matmul.cu",
+           "int8": "topk_matmul_int.cu", "int4": "topk_matmul_int.cu"}
 
 
 def build(form: str, edits, tmp: str, source: str) -> subprocess.Popen:
@@ -171,6 +175,9 @@ def main() -> int:
             if source == "topk_matmul.cu":
                 lib.isf_topk_matmul_wgmma.argtypes = [p] * 7 + [i] * 8 + [p]
                 lib.isf_topk_matmul_wgmma.restype = i
+                lib.isf_topk_matmul_f32_wgmma.argtypes = ([p] * 8 + [i] * 8
+                                                          + [p])
+                lib.isf_topk_matmul_f32_wgmma.restype = i
             else:
                 lib.isf_topk_matmul_int.argtypes = [p] * 11 + [i] * 9 + [p]
                 lib.isf_topk_matmul_int.restype = i
@@ -209,10 +216,10 @@ def profile(card, cs, gen, dtype, rows, d, b, k, libs, real_load) -> None:
     # the module (the package re-exports K1's function over its name)
     tm = importlib.import_module("instsearch_torch.kernels.topk_matmul")
     q = cs.unit_rows(gen, b, d, torch.float32)
-    if dtype == "bfloat16":
-        x = cs.unit_rows(gen, rows, d, torch.bfloat16)
+    if dtype in ("bfloat16", "float32"):
+        x = cs.unit_rows(gen, rows, d, getattr(torch, dtype))
         run = lambda: tm.topk_matmul(x, q, k=k)  # noqa: E731
-        plan = tm._wg_plan("bfloat16", rows, d, b, k, x.device)
+        plan = tm._wg_plan(dtype, rows, d, b, k, x.device)
 
         def check():
             s, idx = run()
